@@ -1,0 +1,137 @@
+// Device math and building blocks shared by the receiver's CUDA kernels.
+//
+// The formulas are those of fm_radio_tpu_torch/ops/cmath.py (and of the JAX
+// package's ops/cmath.py and kernels/pll_pallas.py::_atan2), evaluated in
+// float32.  Constants are hex literals of the exact float32 values that the
+// Python side uses, so no decimal-to-binary rounding can differ.
+//
+// Each .cu file of csrc/ is built into its own shared library
+// (kernels/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a -O3
+// -std=c++17 -fmad=false, without --use_fast_math (atan2_poly divides and
+// rintf must round half to even).  -fmad=false keeps every a*b+c as two
+// rounded operations, the order the plain PyTorch versions evaluate.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define FMT_CHECK_LAUNCH()                 \
+  do {                                     \
+    cudaError_t e_ = cudaGetLastError();   \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
+namespace fmt {
+
+constexpr float kPi = 0x1.921fb6p+1f;
+constexpr float kHalfPi = 0x1.921fb6p+0f;
+constexpr float kTwoPi = 0x1.921fb6p+2f;
+constexpr float kInvTwoPi = 0x1.45f306p-3f;
+
+constexpr int kThreads = 256;
+
+// Serial kernels run one thread per channel, one warp of channels per block
+// (64 blocks at C = 2048).  Each loads the next kBatch steps of its row into
+// registers at once: the loads do not depend on the recurrence, so their
+// latency is paid once per batch instead of once per step.  Their step
+// counts must be multiples of kBatch (the C entries check).
+constexpr int kSerialThreads = 32;
+constexpr int kBatch = 16;
+
+inline unsigned int blocks_for(int64_t n, int threads = kThreads) {
+  return (unsigned int)((n + threads - 1) / threads);
+}
+
+// t - round(t), round half to even (rintf, not roundf)
+__device__ __forceinline__ float wrap_cycles(float t) { return t - rintf(t); }
+
+__device__ __forceinline__ float clip1(float x) {
+  return fminf(fmaxf(x, -1.0f), 1.0f);
+}
+
+// sin(2*pi*x) on [-0.5, 0.5]: the reference's 6-coefficient Chebyshev
+// polynomial (chebyshev_sine.h:13-46), Horner from the highest term
+__device__ __forceinline__ float cheb_sine(float x) {
+  const float z = x * x;
+  float b = 0x1.9a1b62p+1f;
+  b = b * z + -0x1.c249bep+3f;
+  b = b * z + 0x1.340056p+5f;
+  b = b * z + -0x1.0c4eb8p+6f;
+  b = b * z + 0x1.0357e4p+6f;
+  b = b * z + -0x1.921fb6p+4f;
+  return b * (z - 0.25f) * x;
+}
+
+// four-quadrant arctangent: range reduction + degree-8 polynomial in r^2
+// (kernels/pll_pallas.py:38-65); atan2(0, -1) = +pi, atan2(0, 0) = 0
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float r = mn / fmaxf(mx, 0x1.1039d4p-123f);
+  const float s = r * r;
+  float p = 0x1.85aa96p-9f;
+  p = p * s + -0x1.0f40b0p-6f;
+  p = p * s + 0x1.642a6ap-5f;
+  p = p * s + -0x1.361684p-4f;
+  p = p * s + 0x1.b520a0p-4f;
+  p = p * s + -0x1.230e36p-3f;
+  p = p * s + 0x1.99786cp-3f;
+  p = p * s + -0x1.5554ccp-2f;
+  p = p * s + 0x1.000000p+0f;
+  float a = p * r;
+  a = (ay > ax) ? kHalfPi - a : a;
+  a = (x < 0.0f) ? kPi - a : a;
+  return (y < 0.0f) ? -a : a;
+}
+
+// One decimated-correlation output: sum_k w_rev[k] * v[base + k] over
+// v = [tail (halo samples) | x] (index n < 0 reads tail[halo + n]), summed
+// from the oldest sample as ops/fir.py::decimate_core does.
+__device__ __forceinline__ float fir_point(const float* __restrict__ x,
+                                           const float* __restrict__ tail,
+                                           int halo,
+                                           const float* __restrict__ w_rev,
+                                           int nn, int base) {
+  float acc = 0.0f;
+  for (int k = 0; k < nn; ++k) {
+    const int n = base + k;
+    const float v = n < 0 ? tail[halo + n] : x[n];
+    acc += __ldg(w_rev + k) * v;
+  }
+  return acc;
+}
+
+// y[c, i] = fir_point(x[c], tail[c], base = m*i - halo) for i < n_out:
+// a decimate-by-m FIR with a carried tail of halo = nn - m samples.
+// One thread per output; neighbouring threads read neighbouring windows.
+__global__ void fir_decimate_kernel(const float* __restrict__ x, int n_in,
+                                    const float* __restrict__ tail,
+                                    const float* __restrict__ w_rev, int nn,
+                                    int m, float* __restrict__ y, int n_out,
+                                    int channels) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)channels * n_out) return;
+  const int c = (int)(idx / n_out);
+  const int i = (int)(idx % n_out);
+  const int halo = nn - m;
+  y[idx] = fir_point(x + (int64_t)c * n_in, tail + (int64_t)c * halo, halo,
+                     w_rev, nn, m * i - halo);
+}
+
+inline int fir_decimate(const float* x, int n_in, const float* tail,
+                        const float* w_rev, int nn, int m, float* y,
+                        int channels, cudaStream_t stream) {
+  const int n_out = n_in / m;
+  fir_decimate_kernel<<<blocks_for((int64_t)channels * n_out), kThreads, 0,
+                        stream>>>(x, n_in, tail, w_rev, nn, m, y, n_out,
+                                  channels);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace fmt
+
+// Each .cu file is its own library, so each carries one copy of this.
+extern "C" const char* fmt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

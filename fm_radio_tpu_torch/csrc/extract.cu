@@ -1,0 +1,204 @@
+// Extract: L+R / L-R / RDS band extraction of the demodulator on Hopper.
+//
+// Replaces fm_radio_tpu/kernels/extract_pallas.py::_extract_kernel (body
+// _extract_body): from the analytic signal fm_out_iq (re, im) [C, N] and
+// the pilot NCO track dt [C, N] it builds the harmonic phasors from ONE
+// base phasor per sample (p1 = e^{j2pi dt}; p2 = p1^2 rotated by the
+// per-channel L-R offset; p3 = p1^2 * p1, extract_pallas.py:55-71), mixes,
+// and runs the five decimating FIRs: L+R ds x4 on Re, L-R ds x4 on both
+// planes, RDS ds x8 on both planes (128 taps each).  It also returns the
+// per-channel RDS power sum for the fused RDS AGC.
+//
+// What bounds it on this card is not known yet.  Measured: 2.948 ms of
+// device time per block of 2048 channels x 16,384 samples (torch.profiler;
+// NVIDIA H100 80GB HBM3, power limit 700.00 W).  Each input sample feeds
+// 32 multiply-adds per audio plane (three planes) and 16 per RDS plane
+// (two), and every multiply-add reads its sample from shared memory.
+// Neighbouring threads read at bases 4 apart (audio) and 8 apart (RDS), so
+// those reads meet 4-way and 8-way bank conflicts: the first suspect.
+//
+// What the design does about it: one block per (time tile of 1024 samples,
+// channel).  The block mixes its tile plus a 128-sample halo into shared
+// memory once (5 planes, 23 KB), so every phasor is evaluated once per
+// sample and the FIRs read shared memory.  Halo samples before the block
+// start come from the carried tails: ds_audio_lpr carries the RAW re/im
+// tail, ds_audio_lmr and ds_rds carry ALREADY MIXED tails (mixed with the
+// previous block's L-R offset), exactly as extract_pallas.py:292-306.
+// The RDS power is summed per tile in output order and then per channel in
+// tile order by a second small kernel: deterministic, no atomics.
+// Register-tiling several outputs per thread, and fusing the FIRs with
+// tensor cores, is later work.
+
+#include "common.cuh"
+
+namespace fmt {
+
+constexpr int kExtTile = 1024;  // fm_out samples per block
+constexpr int kExtHalo = 128;   // >= max(nn_audio - 4, nn_rds - 8)
+constexpr int kExtW = kExtHalo + kExtTile;
+
+__global__ void extract_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    const float* __restrict__ dt, int n, const float* __restrict__ off,
+    const float* __restrict__ t_lpr, const float* __restrict__ t_lmr_re,
+    const float* __restrict__ t_lmr_im, int halo_a,
+    const float* __restrict__ t_rds_re, const float* __restrict__ t_rds_im,
+    int halo_r, const float* __restrict__ wa_rev,
+    const float* __restrict__ wm_rev, int nn_a,
+    const float* __restrict__ wr_rev, int nn_r, float* __restrict__ lpr,
+    float* __restrict__ lmr_re, float* __restrict__ lmr_im,
+    float* __restrict__ rds_re, float* __restrict__ rds_im,
+    float* __restrict__ pow_part, float* __restrict__ o_lmr_re,
+    float* __restrict__ o_lmr_im, float* __restrict__ o_rds_re,
+    float* __restrict__ o_rds_im) {
+  __shared__ float s_lpr[kExtW], s_mr[kExtW], s_mi[kExtW], s_rr[kExtW],
+      s_ri[kExtW];
+  __shared__ float s_pow[kExtTile / 8];
+  const int tile = blockIdx.x;
+  const int c = blockIdx.y;
+  const int n_tiles = gridDim.x;
+  const int t0 = tile * kExtTile;
+  const int64_t row = (int64_t)c * n;
+
+  // per-channel offset phasor (a [c, 1] constant in the TPU kernel)
+  const float o = off[c];
+  const float co = cheb_sine(wrap_cycles(o + 0.25f));
+  const float so = cheb_sine(wrap_cycles(o));
+
+  for (int e = threadIdx.x; e < kExtW; e += blockDim.x) {
+    const int g = t0 - kExtHalo + e;
+    float vl = 0.0f, vmr = 0.0f, vmi = 0.0f, vrr = 0.0f, vri = 0.0f;
+    if (g >= 0) {
+      const float x_r = xr[row + g], x_i = xi[row + g], d = dt[row + g];
+      const float c1 = cheb_sine(wrap_cycles(d + 0.25f));
+      const float s1 = cheb_sine(wrap_cycles(d));
+      const float c2r = c1 * c1 - s1 * s1;
+      const float s2r = 2.0f * c1 * s1;
+      const float c2 = c2r * co - s2r * so;
+      const float s2 = s2r * co + c2r * so;
+      const float c3 = c2r * c1 - s2r * s1;
+      const float s3 = s2r * c1 + c2r * s1;
+      vl = x_r;
+      vmr = x_r * c2 - x_i * s2;
+      vmi = x_r * s2 + x_i * c2;
+      vrr = x_r * c3 - x_i * s3;
+      vri = x_r * s3 + x_i * c3;
+    } else {
+      if (g >= -halo_a) {
+        const int64_t k = (int64_t)c * halo_a + halo_a + g;
+        vl = t_lpr[k];
+        vmr = t_lmr_re[k];
+        vmi = t_lmr_im[k];
+      }
+      if (g >= -halo_r) {
+        const int64_t k = (int64_t)c * halo_r + halo_r + g;
+        vrr = t_rds_re[k];
+        vri = t_rds_im[k];
+      }
+    }
+    s_lpr[e] = vl;
+    s_mr[e] = vmr;
+    s_mi[e] = vmi;
+    s_rr[e] = vrr;
+    s_ri[e] = vri;
+  }
+  __syncthreads();
+
+  // 256 L+R, 256 L-R (re and im), 128 RDS (re and im) outputs per tile
+  constexpr int na = kExtTile / 4, nr = kExtTile / 8;
+  const int n4 = n / 4, n8 = n / 8;
+  for (int w = threadIdx.x; w < 2 * na + nr; w += blockDim.x) {
+    if (w < na) {
+      const int base = kExtHalo + 4 * w - (nn_a - 4);
+      float acc = 0.0f;
+      for (int k = 0; k < nn_a; ++k) acc += __ldg(wa_rev + k) * s_lpr[base + k];
+      lpr[(int64_t)c * n4 + tile * na + w] = acc;
+    } else if (w < 2 * na) {
+      const int j = w - na;
+      const int base = kExtHalo + 4 * j - (nn_a - 4);
+      float ar = 0.0f, ai = 0.0f;
+      for (int k = 0; k < nn_a; ++k) {
+        const float wk = __ldg(wm_rev + k);
+        ar += wk * s_mr[base + k];
+        ai += wk * s_mi[base + k];
+      }
+      lmr_re[(int64_t)c * n4 + tile * na + j] = ar;
+      lmr_im[(int64_t)c * n4 + tile * na + j] = ai;
+    } else {
+      const int j = w - 2 * na;
+      const int base = kExtHalo + 8 * j - (nn_r - 8);
+      float ar = 0.0f, ai = 0.0f;
+      for (int k = 0; k < nn_r; ++k) {
+        const float wk = __ldg(wr_rev + k);
+        ar += wk * s_rr[base + k];
+        ai += wk * s_ri[base + k];
+      }
+      rds_re[(int64_t)c * n8 + tile * nr + j] = ar;
+      rds_im[(int64_t)c * n8 + tile * nr + j] = ai;
+      s_pow[j] = ar * ar + ai * ai;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float p = 0.0f;
+    for (int j = 0; j < nr; ++j) p += s_pow[j];
+    pow_part[(int64_t)c * n_tiles + tile] = p;
+  }
+  // the block's last samples, mixed, become the carried tails
+  if (tile == n_tiles - 1) {
+    for (int k = threadIdx.x; k < halo_a; k += blockDim.x) {
+      const int e = kExtW - halo_a + k;
+      o_lmr_re[(int64_t)c * halo_a + k] = s_mr[e];
+      o_lmr_im[(int64_t)c * halo_a + k] = s_mi[e];
+    }
+    for (int k = threadIdx.x; k < halo_r; k += blockDim.x) {
+      const int e = kExtW - halo_r + k;
+      o_rds_re[(int64_t)c * halo_r + k] = s_rr[e];
+      o_rds_im[(int64_t)c * halo_r + k] = s_ri[e];
+    }
+  }
+}
+
+// pow[c] = sum of the per-tile partials, in tile order
+__global__ void extract_pow_kernel(const float* __restrict__ pow_part,
+                                   int n_tiles, int channels,
+                                   float* __restrict__ pow) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= channels) return;
+  float p = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) p += pow_part[(int64_t)c * n_tiles + t];
+  pow[c] = p;
+}
+
+}  // namespace fmt
+
+using namespace fmt;
+
+// xr, xi, dt [C, N] with N % 1024 == 0; off [C]; tails [C, halo] (raw L+R
+// re, mixed L-R re/im with halo_a = nn_a - 4; mixed RDS re/im with halo_r =
+// nn_r - 8); taps reversed; outputs lpr, lmr_re, lmr_im [C, N/4], rds_re,
+// rds_im [C, N/8], pow [C], scratch pow_part [C, N/1024], new mixed tails.
+extern "C" int fmt_extract(
+    const float* xr, const float* xi, const float* dt, const float* off,
+    const float* t_lpr, const float* t_lmr_re, const float* t_lmr_im,
+    int halo_a, const float* t_rds_re, const float* t_rds_im, int halo_r,
+    const float* wa_rev, const float* wm_rev, int nn_a, const float* wr_rev,
+    int nn_r, int channels, int n, float* lpr, float* lmr_re, float* lmr_im,
+    float* rds_re, float* rds_im, float* pow_part, float* pow,
+    float* o_lmr_re, float* o_lmr_im, float* o_rds_re, float* o_rds_im,
+    cudaStream_t stream) {
+  if (n % kExtTile != 0 || halo_a > kExtHalo || halo_r > kExtHalo ||
+      halo_a > kExtTile || halo_r > kExtTile)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = n / kExtTile;
+  extract_kernel<<<dim3(n_tiles, channels), kThreads, 0, stream>>>(
+      xr, xi, dt, n, off, t_lpr, t_lmr_re, t_lmr_im, halo_a, t_rds_re,
+      t_rds_im, halo_r, wa_rev, wm_rev, nn_a, wr_rev, nn_r, lpr, lmr_re,
+      lmr_im, rds_re, rds_im, pow_part, o_lmr_re, o_lmr_im, o_rds_re,
+      o_rds_im);
+  FMT_CHECK_LAUNCH();
+  extract_pow_kernel<<<blocks_for(channels), kThreads, 0, stream>>>(
+      pow_part, n_tiles, channels, pow);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}

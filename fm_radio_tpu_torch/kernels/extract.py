@@ -1,0 +1,133 @@
+"""Extract: L+R / L-R / RDS band extraction — CUDA kernel and plain version.
+
+Counterpart of ``fm_radio_tpu/kernels/extract_pallas.py::extract_pallas``:
+from the analytic signal (re, im) [C, N] and the pilot NCO track dt [C, N],
+build the harmonic phasors from one base phasor per sample
+(extract_pallas.py:55-71), mix, and decimate: L+R ds x4 (Re), L-R ds x4
+(harmonic 2, rotated by ``lmr_phase_err``), RDS ds x8 (harmonic 3).  Also
+returns the RDS power sum for the fused RDS AGC.  ``lmr_phase_err`` is read
+here and updated afterwards by the caller.  The kernel is
+``csrc/extract.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.ops.cmath import chebyshev_sine, wrap_cycles
+from fm_radio_tpu_torch.ops.fir import polyphase_decimate_p
+
+# kernel launches since the counter was last set to 0
+launches = 0
+
+TILE = 1024  # fm_out samples per CUDA block (csrc/extract.cu kExtTile)
+
+_P, _I = _build.P, _build.I
+_ARGTYPES = ([_P] * 7 + [_I] + [_P] * 2 + [_I] + [_P] * 2 + [_I, _P]
+             + [_I] * 3 + [_P] * 11 + [_P])
+
+
+def harmonics(cfg) -> None:
+    """Raise unless the L-R and RDS carriers are the pilot's 2nd and 3rd
+    harmonics (38 kHz and 57 kHz), the only phasor construction ported."""
+    a = cfg.analog
+    if (a.f_audio_lmr_center / a.f_pilot, a.f_rds_center / a.f_pilot) \
+            != (2.0, 3.0):
+        raise NotImplementedError(
+            "extract: only the standard 2nd/3rd pilot harmonics are ported "
+            "(ROADMAP.md, queue 1: other ingest forms and options)")
+
+
+def mix(xr, xi, dt, off):
+    """The mixed L-R and RDS planes ((lmr_re, lmr_im), (rds_re, rds_im))
+    for dt [C, N] and the per-channel L-R offset off [C] (cycles)."""
+    c1 = chebyshev_sine(wrap_cycles(dt + 0.25))
+    s1 = chebyshev_sine(wrap_cycles(dt))
+    c2r = c1 * c1 - s1 * s1
+    s2r = 2.0 * c1 * s1
+    off = off[:, None]
+    co = chebyshev_sine(wrap_cycles(off + 0.25))
+    so = chebyshev_sine(wrap_cycles(off))
+    c2 = c2r * co - s2r * so
+    s2 = s2r * co + c2r * so
+    c3 = c2r * c1 - s2r * s1
+    s3 = s2r * c1 + c2r * s1
+    return ((xr * c2 - xi * s2, xr * s2 + xi * c2),
+            (xr * c3 - xi * s3, xr * s3 + xi * c3))
+
+
+def extract_plain(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
+    """Extraction in plain PyTorch, in the kernel's op order.  Returns
+    (state', lpr [C, N/4], (lmr_re, lmr_im) [C, N/4], (rds_re, rds_im)
+    [C, N/8], rds_pow [C])."""
+    harmonics(cfg)
+    xr, xi = iq_p
+    mix_lmr, mix_rds = mix(xr, xi, dt, state["lmr_phase_err"])
+    new = dict(state)
+    new["ds_audio_lpr"], lpr = polyphase_decimate_p(
+        coeffs.taps_audio_lpr, state["ds_audio_lpr"], iq_p, 4, imag_out=False)
+    new["ds_audio_lmr"], lmr = polyphase_decimate_p(
+        coeffs.taps_audio_lmr, state["ds_audio_lmr"], mix_lmr, 4)
+    new["ds_rds"], rds = polyphase_decimate_p(
+        coeffs.taps_rds, state["ds_rds"], mix_rds, 8)
+    rds_pow = torch.sum(rds[0] * rds[0] + rds[1] * rds[1], dim=-1)
+    return new, lpr, lmr, rds, rds_pow
+
+
+def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
+    """(re, im), dt [C, N] float32 -> as :func:`extract_plain`.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (N % 1024 == 0)."""
+    if _build.on_cpu("extract", dt.device):
+        return extract_plain(coeffs, cfg, state, iq_p, dt)
+    harmonics(cfg)
+    global launches
+    dev = dt.device
+    xr, xi = iq_p
+    c, n = dt.shape
+    if n % TILE:
+        raise ValueError(f"extract: N = {n} is not a multiple of {TILE}")
+    t_lpr = state["ds_audio_lpr"].real.contiguous()
+    t_lmr, t_rds = state["ds_audio_lmr"], state["ds_rds"]
+    t_lmr_re, t_lmr_im = t_lmr.real.contiguous(), t_lmr.imag.contiguous()
+    t_rds_re, t_rds_im = t_rds.real.contiguous(), t_rds.imag.contiguous()
+    off = state["lmr_phase_err"].contiguous()
+    wa = coeffs.taps_audio_lpr.flip(0).contiguous()
+    wm = coeffs.taps_audio_lmr.flip(0).contiguous()
+    wr = coeffs.taps_rds.flip(0).contiguous()
+    halo_a, halo_r = wa.shape[0] - 4, wr.shape[0] - 8
+    if wm.shape[0] != wa.shape[0] or t_lpr.shape[-1] != halo_a \
+            or t_lmr_re.shape[-1] != halo_a or t_rds_re.shape[-1] != halo_r:
+        raise ValueError("extract: carried tails do not match the filters")
+    if xr.shape != (c, n) or xi.shape != (c, n) or off.shape != (c,) or any(
+            t.shape[0] != c for t in (t_lpr, t_lmr_re, t_rds_re)):
+        raise ValueError("extract: shapes of the planes, dt and state disagree")
+    _build.require("extract", dev, torch.float32, xr=xr, xi=xi, dt=dt,
+                   off=off, t_lpr=t_lpr, t_lmr_re=t_lmr_re,
+                   t_lmr_im=t_lmr_im, t_rds_re=t_rds_re, t_rds_im=t_rds_im,
+                   wa=wa, wm=wm, wr=wr)
+    f = dict(device=dev, dtype=torch.float32)
+    lpr = torch.empty((c, n // 4), **f)
+    lmr_re, lmr_im = torch.empty((c, n // 4), **f), torch.empty((c, n // 4), **f)
+    rds_re, rds_im = torch.empty((c, n // 8), **f), torch.empty((c, n // 8), **f)
+    pow_part = torch.empty((c, n // TILE), **f)
+    rds_pow = torch.empty((c,), **f)
+    o_lmr_re, o_lmr_im = torch.empty_like(t_lmr_re), torch.empty_like(t_lmr_im)
+    o_rds_re, o_rds_im = torch.empty_like(t_rds_re), torch.empty_like(t_rds_im)
+    fn = _build.function("extract", "fmt_extract", _ARGTYPES)
+    err = fn(xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), off.data_ptr(),
+             t_lpr.data_ptr(), t_lmr_re.data_ptr(), t_lmr_im.data_ptr(),
+             halo_a, t_rds_re.data_ptr(), t_rds_im.data_ptr(), halo_r,
+             wa.data_ptr(), wm.data_ptr(), wa.shape[0], wr.data_ptr(),
+             wr.shape[0], c, n, lpr.data_ptr(), lmr_re.data_ptr(),
+             lmr_im.data_ptr(), rds_re.data_ptr(), rds_im.data_ptr(),
+             pow_part.data_ptr(), rds_pow.data_ptr(), o_lmr_re.data_ptr(),
+             o_lmr_im.data_ptr(), o_rds_re.data_ptr(), o_rds_im.data_ptr(),
+             _build.stream_ptr(dev))
+    _build.check("extract", err)
+    launches += 1
+    new = dict(state)
+    new["ds_audio_lpr"] = torch.complex(xr[:, n - halo_a :], xi[:, n - halo_a :])
+    new["ds_audio_lmr"] = torch.complex(o_lmr_re, o_lmr_im)
+    new["ds_rds"] = torch.complex(o_rds_re, o_rds_im)
+    return new, lpr, (lmr_re, lmr_im), (rds_re, rds_im), rds_pow

@@ -1,0 +1,100 @@
+"""Application orchestration: int8 IQ planes in -> audio + RDS database out.
+
+Counterpart of ``fm_radio_tpu/models/app.py`` (parity: ``App``,
+``src/app.{h,cpp}``): re-blocks arbitrary input chunks to exactly
+``block_size`` (ReconstructionBuffer), runs the demodulator, and feeds the
+RDS symbols of every channel through the shared host RDS chain
+(``fm_radio_tpu.rds.chain``: Manchester -> group sync -> decoder ->
+database).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.rds.chain import make_rds_chain
+from fm_radio_tpu_torch.models.demod import SLICE_CONFIG, BroadcastFMDemod
+
+
+class App:
+    def __init__(
+        self,
+        block_size: int = 65536,
+        cfg: DemodConfig = SLICE_CONFIG,
+        channels: int = 1,
+        device="cuda",
+    ):
+        self.block_size = block_size
+        self.channels = channels
+        self.demod = BroadcastFMDemod(cfg, channels, device)
+        self.rds_chains = [make_rds_chain() for _ in range(channels)]
+        self._pending = np.zeros((2, channels, 0), dtype=np.int8)
+        self.audio_blocks: list[np.ndarray] = []
+
+    @property
+    def cfg(self) -> DemodConfig:
+        """The live config (tracks ``demod.update_controls``)."""
+        return self.demod.cfg
+
+    def process(self, x: np.ndarray) -> None:
+        """x: [2, C, N] (or [2, N] for one channel) int8 planes of
+        (I - 128, Q - 128) (``utils/transfer.split_iq_i8``).  Re-blocks
+        internally (reconstruction_buffer.h:16-26)."""
+        x = np.asarray(x)
+        if x.ndim == 2:
+            x = x[:, None, :]
+        if x.dtype != np.int8 or x.ndim != 3 or x.shape[0] != 2:
+            raise NotImplementedError(
+                f"{x.dtype} input of shape {x.shape} is not ported yet: "
+                "ROADMAP.md, modules still to port, item 1 (other ingest "
+                "forms)")
+        buf = np.concatenate([self._pending, x], axis=-1)
+        n_blocks = buf.shape[-1] // self.block_size
+        for b in range(n_blocks):
+            blk = buf[..., b * self.block_size : (b + 1) * self.block_size]
+            self._run_block(blk)
+        self._pending = buf[..., n_blocks * self.block_size :]
+
+    def _run_block(self, blk: np.ndarray) -> None:
+        outs = self.demod.process(blk)
+        self.audio_blocks.append(outs["audio"])
+        pred, valid = outs["rds_pred"], outs["rds_valid"]
+        for c in range(self.channels):
+            sym = pred[c][valid[c]]
+            if sym.size:
+                self.rds_chains[c].process_symbols(sym)
+
+    @property
+    def audio(self) -> np.ndarray:
+        """[C, T_audio, 2] concatenated output audio."""
+        if not self.audio_blocks:
+            return np.zeros((self.channels, 0, 2), np.float32)
+        return np.concatenate(self.audio_blocks, axis=1)
+
+    def drain(self) -> dict:
+        """Detach and return everything accumulated since the last drain,
+        leaving the demod state, RDS sync state and databases intact.
+        Returns {"audio": [C, T, 2], "rds_bytes": [C arrays],
+        "log_lines": [C lists of new group log lines]}."""
+        audio = self.audio
+        self.audio_blocks.clear()
+        rds_bytes, log_lines = [], []
+        for c, ch in enumerate(self.rds_chains):
+            rds_bytes.append(self.rds_bytes(c))
+            ch.rds_bytes.clear()
+            log_lines.append(list(ch.chain.log_lines))
+            ch.chain.log_lines.clear()
+            ch.chain.groups.clear()
+        return {"audio": audio, "rds_bytes": rds_bytes,
+                "log_lines": log_lines}
+
+    def rds_database(self, channel: int = 0):
+        return self.rds_chains[channel].db
+
+    def rds_bytes(self, channel: int = 0) -> np.ndarray:
+        bufs = self.rds_chains[channel].rds_bytes
+        return np.concatenate(bufs) if bufs else np.zeros(0, np.uint8)
+
+    def rds_log_lines(self, channel: int = 0) -> list[str]:
+        return self.rds_chains[channel].chain.log_lines

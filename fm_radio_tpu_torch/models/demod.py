@@ -1,0 +1,320 @@
+"""Broadcast-FM demodulator: the channel-batched pipeline on int8 planes.
+
+Counterpart of ``fm_radio_tpu/models/demod.py`` on its production path
+(``DemodConfig(frontend_int8=True)``, ``k12_fusion="auto"``,
+``chain_fusion="split"``; demod.py:339-372, 514-658):
+
+    [2, C, B] int8 IQ planes (u8 - 128)
+      -> K12 (kernels/k12.py)      ds x4, discriminator, ds x2, de-emphasis,
+                                   Hilbert, pilot peak IIR -> (re, im), theta
+      -> pilot PLL (kernels/pll.py)                      -> dt
+      -> extract (kernels/extract.py)  L+R, L-R, RDS planes + RDS power
+      -> L-R phase correction, RDS AGC gain (small tensor ops)
+      -> BPSK sync (kernels/bpsk.py), gain applied at ingest
+      -> stereo mix                                      -> audio [C, B/32, 2]
+
+Every function is pure in (cfg, coeffs, state, x); the state dict has the
+JAX package's keys, leaf shapes and dtypes.  Each kernel wrapper dispatches
+by device: CPU tensors take the plain PyTorch version, CUDA tensors the
+CUDA kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fm_radio_tpu.config import AudioOut, DemodConfig
+from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
+from fm_radio_tpu_torch.kernels.extract import extract
+from fm_radio_tpu_torch.kernels.k12 import k12, quantize_ds4_taps
+from fm_radio_tpu_torch.kernels.pll import pilot_pll_theta
+from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
+from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
+from fm_radio_tpu_torch.ops.agc import _agc_gain, agc_init_state, mean_last
+from fm_radio_tpu_torch.ops.cmath import div_scalar, f32
+from fm_radio_tpu_torch.ops.design import (
+    create_fir_hilbert,
+    create_fir_lpf,
+    create_iir_peak_1_filter,
+    create_iir_single_pole_lpf,
+)
+from fm_radio_tpu_torch.ops.iir import iir_init_state
+
+# what the port runs; anything else names the ROADMAP.md item that adds it
+SLICE_CONFIG = DemodConfig(frontend_int8=True)
+BLOCK_MULTIPLE = 8192
+
+
+class DemodCoeffs(NamedTuple):
+    """Filter taps (float32 tensors on the device) and IIR coefficients
+    (float32-valued Python floats), designed on the host."""
+
+    taps_fm_in: torch.Tensor      # [64]  ds x4 LPF
+    taps_fm_out: torch.Tensor     # [64]  ds x2 LPF
+    taps_hilbert: torch.Tensor    # [65]
+    taps_audio_lpr: torch.Tensor  # [128] ds x4 LPF
+    taps_audio_lmr: torch.Tensor  # [128] ds x4 LPF
+    taps_rds: torch.Tensor        # [128] ds x8 LPF
+    peak_b: tuple                 # [3] pilot IIR peak
+    peak_a: tuple
+    deemph_b: tuple               # [2] de-emphasis single-pole LPF
+    deemph_a: tuple
+    # ds x4 taps as quantize_band_int8 splits them: (b1, b2) int8 tensors in
+    # reversed tap order, and the float32 recentre correction s_row
+    k1_i8: tuple
+
+
+def make_coeffs(cfg: DemodConfig, device="cpu") -> DemodCoeffs:
+    """Design every filter as ``fm_radio_tpu.models.demod.make_coeffs``
+    does (``broadcast_fm_demod.cpp:127-304,330-389``)."""
+    r = cfg.rates
+    roll = cfg.downsampling_rolloff_factor
+    # reference quirk, replicated: the fm_in decimator is sized with
+    # order_poly_ds_lpf_fm_out (broadcast_fm_demod.cpp:134)
+    k_fm_in = (r.fs_fm_in / 2.0) / (r.fs_baseband / 2.0) * roll
+    taps_fm_in = create_fir_lpf(cfg.order_poly_ds_lpf_fm_out, k_fm_in)
+    k_fm_out = (r.fs_fm_out / 2.0) / (r.fs_fm_in / 2.0) * roll
+    taps_fm_out = create_fir_lpf(cfg.order_poly_ds_lpf_fm_out, k_fm_out)
+    taps_hilbert = create_fir_hilbert(cfg.order_fir_hilbert)
+    taps_audio_lpr = create_fir_lpf(cfg.order_poly_ds_lpf_audio, cfg.k_audio_lpr)
+    taps_audio_lmr = create_fir_lpf(cfg.order_poly_ds_lpf_audio, cfg.k_audio_lmr)
+    k_rds = cfg.analog.f_rds_bandwidth / (r.fs_fm_out / 2.0)
+    taps_rds = create_fir_lpf(cfg.order_poly_ds_lpf_rds, k_rds)
+    k_pilot = cfg.analog.f_pilot / (r.fs_fm_out / 2.0)
+    peak_b, peak_a = create_iir_peak_1_filter(k_pilot, 0.9999)
+    deemph_b, deemph_a = create_iir_single_pole_lpf(cfg.k_deemphasis)
+
+    def dev(taps):
+        return torch.as_tensor(np.asarray(taps, np.float32), device=device)
+
+    def host(coefs):
+        return tuple(f32(v) for v in np.asarray(coefs, np.float32))
+
+    b1, b2, s_row = quantize_ds4_taps(taps_fm_in)
+    return DemodCoeffs(
+        taps_fm_in=dev(taps_fm_in),
+        taps_fm_out=dev(taps_fm_out),
+        taps_hilbert=dev(taps_hilbert),
+        taps_audio_lpr=dev(taps_audio_lpr),
+        taps_audio_lmr=dev(taps_audio_lmr),
+        taps_rds=dev(taps_rds),
+        peak_b=host(peak_b),
+        peak_a=host(peak_a),
+        deemph_b=host(deemph_b),
+        deemph_a=host(deemph_a),
+        k1_i8=(torch.as_tensor(b1, device=device),
+               torch.as_tensor(b2, device=device), s_row),
+    )
+
+
+def demod_init_state(cfg: DemodConfig, channels: int, device="cpu") -> dict:
+    """The complete cross-block carry, keyed, shaped and typed exactly as
+    ``fm_radio_tpu.models.demod.demod_init_state`` (demod.py:189-218)."""
+    r = cfg.rates
+    c = channels
+    nn_in = cfg.order_poly_ds_lpf_fm_out
+    nn_out = cfg.order_poly_ds_lpf_fm_out
+    nn_aud = cfg.order_poly_ds_lpf_audio
+    nn_rds = cfg.order_poly_ds_lpf_rds
+
+    def z(n, dtype=torch.float32):
+        return torch.zeros((c, n), dtype=dtype, device=device)
+
+    return {
+        "ds_fm_in": z(nn_in - r.ds_fm_in, torch.complex64),
+        "disc_prev_theta": torch.zeros((c,), device=device),
+        "ds_fm_out": z(nn_out - r.ds_fm_out),
+        "deemph": iir_init_state(c, 1, device),
+        "hilbert": z(cfg.order_fir_hilbert - 1),
+        "peak_pilot": iir_init_state(2 * c, 2, device),
+        "agc_pilot": agc_init_state(c, device),
+        "pll": pilot_pll_init_state(c, device),
+        "ds_audio_lpr": z(nn_aud - r.ds_audio, torch.complex64),
+        "ds_audio_lmr": z(nn_aud - r.ds_audio, torch.complex64),
+        "lmr_phase_err": torch.zeros((c,), device=device),
+        "ds_rds": z(nn_rds - r.ds_rds, torch.complex64),
+        "agc_rds": agc_init_state(c, device),
+        "bpsk": bpsk_init_state(c, device),
+    }
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md, {item}")
+
+
+def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> None:
+    """Raise NotImplementedError for any ingest form or option outside the
+    ported slice, naming the ROADMAP.md item that will add it."""
+    if x.dtype != torch.int8 or x.ndim != 3 or x.shape[0] != 2:
+        form = ("phase-split [2, 4, C, B/4] int8 planes"
+                if x.dtype == torch.int8 and x.ndim == 4
+                else f"{x.dtype} input of shape {tuple(x.shape)}")
+        item = ("kernels still to port, item 2 (K12 on phase-split planes)"
+                if x.ndim == 4 else
+                "modules still to port, item 1 (other ingest forms)")
+        raise _not_ported(form, item)
+    checks = [
+        (include_taps, "include_taps",
+         "modules still to port, item 2 (include_taps and the scan loops)"),
+        (not cfg.frontend_int8, "frontend_int8=False",
+         "kernels still to port, item 4 (split K1 on f32 planes and words)"),
+        (cfg.interstage_i16, "interstage_i16",
+         "modules still to port, item 1 (other ingest forms and options)"),
+        (cfg.chain_fusion != "split", f"chain_fusion={cfg.chain_fusion!r}",
+         "kernels still to port, item 7 (the full-chain megakernel)"),
+        (cfg.k12_fusion == "off", "k12_fusion='off'",
+         "kernels still to port, items 3 and 5 (the split K1/K2 kernels)"),
+        (cfg.pll_time_chunks > 1, "pll_time_chunks > 1",
+         "kernels still to port, item 6 (the chunked pilot PLL)"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            raise _not_ported(what, item)
+    r = cfg.rates
+    if (r.ds_fm_in, r.ds_fm_out, r.ds_audio, r.ds_rds) != (4, 2, 4, 8):
+        raise _not_ported("a rate cascade other than 4/2/4/8",
+                          "modules still to port, item 1 (other options)")
+    if x.shape[-1] % BLOCK_MULTIPLE:
+        raise ValueError(f"block size {x.shape[-1]} is not a multiple of "
+                         f"{BLOCK_MULTIPLE}")
+
+
+def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
+                x: torch.Tensor, include_taps: bool = False,
+                record: dict | None = None):
+    """Demodulate one block of [2, C, B] int8 planes (u8 - 128).
+
+    Returns (state', outs): outs["audio"] [C, B/32, 2] float32,
+    outs["rds_sym"] complex64, outs["rds_pred"] float32 and
+    outs["rds_valid"] bool, each [C, B/64].  On CUDA tensors every stage
+    of the four kernels runs on the card; nothing falls back to the CPU.
+
+    ``record``, if given, receives the arguments of each kernel wrapper
+    under the kernel's name ("k12", "pll", "extract", "bpsk"), so that a
+    caller can run the wrapper or its plain version again on this block's
+    own inputs.
+    """
+    check_slice(cfg, x, include_taps)
+    st = dict(state)
+
+    def run(name, fn, *args):
+        if record is not None:
+            record[name] = tuple(dict(a) if isinstance(a, dict) else a
+                                 for a in args)
+        return fn(*args)
+
+    # ---- K12 + pilot PLL (demod.py:339-372) ----------------------------
+    st, fm_out_iq_p, theta = run("k12", k12, coeffs, cfg, st, x)
+    st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
+
+    # ---- extract (demod.py:514-540) ------------------------------------
+    st, audio_lpr, tmp_lmr_p, rds_p, rds_pow = run(
+        "extract", extract, coeffs, cfg, st, fm_out_iq_p, dt)
+
+    # ---- L-R phase correction: read by extract above, updated here from
+    # the strided decimated L-R IQ (demod.py:557-566) ---------------------
+    stride = cfg.audio_lmr_phase_read_stride
+    phase = torch.atan2(tmp_lmr_p[1][:, ::stride], tmp_lmr_p[0][:, ::stride])
+    half_pi = f32(math.pi / 2.0)
+    est = torch.where(phase > 0.0, half_pi - phase, -half_pi - phase)
+    new_off = st["lmr_phase_err"] + f32(cfg.audio_lmr_phase_beta) * mean_last(est)
+    st["lmr_phase_err"] = torch.fmod(new_off, f32(2.0 * math.pi))
+    audio_lmr = tmp_lmr_p[1]
+
+    # ---- RDS AGC from the extract kernel's power sum, applied at the
+    # BPSK kernel's ingest (demod.py:590-598) -----------------------------
+    st["agc_rds"] = _agc_gain(st["agc_rds"],
+                              div_scalar(rds_pow, rds_p[0].shape[-1]),
+                              cfg.bpsk.agc_target_power, 0.2)
+    st["bpsk"], bpsk_outs = run("bpsk", bpsk_sync, cfg, st["bpsk"], rds_p,
+                                st["agc_rds"])
+
+    # ---- audio mix (demod.py:616-625) ----------------------------------
+    if cfg.audio_out == AudioOut.STEREO:
+        k = f32(cfg.audio_stereo_mix_factor)
+        left = audio_lpr + k * audio_lmr
+        right = audio_lpr - k * audio_lmr
+    elif cfg.audio_out == AudioOut.LMR:
+        left = right = audio_lmr
+    else:
+        left = right = audio_lpr
+    audio = torch.stack([left, right], dim=-1) * 2.0
+
+    outs = {
+        "audio": audio,
+        "rds_sym": bpsk_outs["sym"],
+        "rds_pred": bpsk_outs["pred"],
+        "rds_valid": bpsk_outs["valid"],
+    }
+    return st, outs
+
+
+class BroadcastFMDemod:
+    """Stateful host wrapper around the pure functions, with the surface of
+    ``fm_radio_tpu.models.demod.BroadcastFMDemod`` (sample-rate getters,
+    ``process``, ``reset``, ``update_controls``).  ``device`` places the
+    coefficients, the state and every block."""
+
+    def __init__(self, cfg: DemodConfig = SLICE_CONFIG, channels: int = 1,
+                 device="cuda"):
+        self.cfg = cfg
+        self.channels = channels
+        self.device = torch.device(device)
+        self.coeffs = make_coeffs(cfg, self.device)
+        self.state = demod_init_state(cfg, channels, self.device)
+
+    @property
+    def fs_baseband(self):
+        return self.cfg.rates.fs_baseband
+
+    @property
+    def fs_fm_in(self):
+        return self.cfg.rates.fs_fm_in
+
+    @property
+    def fs_fm_out(self):
+        return self.cfg.rates.fs_fm_out
+
+    @property
+    def fs_rds(self):
+        return self.cfg.rates.fs_rds
+
+    @property
+    def fs_audio(self):
+        return self.cfg.rates.fs_audio
+
+    def update_controls(self, **changes) -> None:
+        """Runtime-mutable controls (``broadcast_fm_demod.cpp:330-389``):
+        re-design the coefficients on the host, keep the carried state."""
+        allowed = {
+            "audio_out",
+            "audio_stereo_mix_factor",
+            "use_deemphasis_filter",
+            "deemphasis_cutoff_us",
+            "audio_lpr_cutoff_hz",
+            "audio_lmr_cutoff_hz",
+        }
+        bad = set(changes) - allowed
+        if bad:
+            raise ValueError(f"not runtime-mutable: {sorted(bad)}")
+        self.cfg = dataclasses.replace(self.cfg, **changes)
+        self.coeffs = make_coeffs(self.cfg, self.device)
+
+    def process(self, x) -> dict:
+        """x: [2, C, B] (or [2, B] for one channel) int8 planes of
+        (I - 128, Q - 128), numpy or torch.  Returns the outs as numpy."""
+        x = torch.as_tensor(x)
+        if x.ndim == 2:
+            x = x[:, None, :]
+        self.state, outs = demod_block(self.cfg, self.coeffs, self.state,
+                                       x.to(self.device))
+        return {k: v.cpu().numpy() for k, v in outs.items()}
+
+    def reset(self):
+        self.state = demod_init_state(self.cfg, self.channels, self.device)

@@ -1,0 +1,175 @@
+"""The port's host-side design, state layout and package hygiene against
+the JAX package: coefficients bit for bit, the int8 ds x4 taps, the state
+keys/shapes/dtypes and their numpy round trip, TF32 off, no jax import,
+and NotImplementedError for everything outside the ported slice."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.models import demod as jdemod
+from fm_radio_tpu_torch.models import demod as tdemod
+from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+CFG = DemodConfig(frontend_int8=True)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _leaves(tree):
+    """(path, leaf) pairs of a nested dict / NamedTuple state."""
+    out = []
+
+    def walk(p, v):
+        if isinstance(v, dict):
+            for k in v:
+                walk(f"{p}/{k}", v[k])
+        elif isinstance(v, tuple):
+            for k, w in zip(v._fields, v):
+                walk(f"{p}/{k}", w)
+        else:
+            out.append((p, v))
+
+    walk("", tree)
+    return out
+
+
+@pytest.mark.parametrize("changes", [
+    {},
+    {"use_deemphasis_filter": True, "deemphasis_cutoff_us": 50},
+    {"audio_lpr_cutoff_hz": 12000, "audio_lmr_cutoff_hz": 9000},
+])
+def test_make_coeffs_bit_identical(changes):
+    cfg = dataclasses.replace(CFG, **changes)
+    cj, ct = jdemod.make_coeffs(cfg), tdemod.make_coeffs(cfg)
+    for name in ("taps_fm_in", "taps_fm_out", "taps_hilbert",
+                 "taps_audio_lpr", "taps_audio_lmr", "taps_rds"):
+        a, b = getattr(ct, name).numpy(), np.asarray(getattr(cj, name))
+        assert a.dtype == b.dtype == np.float32, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in ("peak_b", "peak_a", "deemph_b", "deemph_a"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(ct, name), np.float32),
+            np.asarray(getattr(cj, name)), err_msg=name)
+
+
+def test_k12_quantised_taps_match_quantize_band_int8():
+    """The port's int8 split of the ds x4 taps is the JAX kernel's, column
+    for column of the banded matrix (every column holds every tap)."""
+    from fm_radio_tpu.kernels.frontend_pallas import (
+        _TB,
+        _band_matrix,
+        quantize_band_int8,
+    )
+
+    cj, ct = jdemod.make_coeffs(CFG), tdemod.make_coeffs(CFG)
+    b1j, b2j, srow_j = (np.asarray(a) for a in
+                        quantize_band_int8(_band_matrix(cj.taps_fm_in)))
+    b1t, b2t, srow_t = ct.k1_i8
+    nn = b1t.shape[0]
+    halo = nn - 4
+    for col in (0, 1, 127):
+        rows = slice(_TB - halo + 4 * col, _TB - halo + 4 * col + nn)
+        np.testing.assert_array_equal(b1t.numpy(), b1j[rows, col])
+        np.testing.assert_array_equal(b2t.numpy(), b2j[rows, col])
+    np.testing.assert_array_equal(srow_j, np.full_like(srow_j, srow_t))
+
+
+def test_init_state_layout_matches_jax():
+    c = 3
+    sj = jax.tree.map(np.asarray, jdemod.demod_init_state(CFG, c))
+    st = state_to_numpy(tdemod.demod_init_state(CFG, c))
+    assert sj.keys() == st.keys()
+    lj, lt = dict(_leaves(sj)), dict(_leaves(st))
+    assert lj.keys() == lt.keys()
+    for p, a in lj.items():
+        b = lt[p]
+        assert a.shape == b.shape and a.dtype == b.dtype, p
+        np.testing.assert_array_equal(a, b, err_msg=p)
+
+
+def test_state_numpy_round_trip():
+    """state_from_numpy(state_to_numpy(s)) == s, leaf for leaf and dtype
+    for dtype, on a state carried through one block; and a JAX state
+    converts to the port's layout."""
+    c, b = 2, 8192
+    co = tdemod.make_coeffs(CFG)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, c, b), dtype=np.int8))
+    s, _ = tdemod.demod_block(CFG, co, tdemod.demod_init_state(CFG, c), x)
+    back = state_from_numpy(state_to_numpy(s))
+    for (p, u), (q, v) in zip(_leaves(s), _leaves(back)):
+        assert p == q and u.dtype == v.dtype, p
+        assert torch.equal(u, v), p
+    from_jax = state_from_numpy(
+        jax.tree.map(np.asarray, jdemod.demod_init_state(CFG, c)))
+    assert dict(_leaves(from_jax)).keys() == dict(_leaves(s)).keys()
+    assert type(from_jax["pll"]).__module__.startswith("fm_radio_tpu_torch")
+
+
+def test_tf32_off():
+    import fm_radio_tpu_torch  # noqa: F401
+
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports without jax.
+    The build directory (fm_radio_tpu_torch/_build/) holds no modules."""
+    paths = (p.relative_to(REPO)
+             for p in (REPO / "fm_radio_tpu_torch").rglob("*.py"))
+    mods = sorted(".".join(p.with_suffix("").parts) for p in paths
+                  if "_build" not in p.parts)
+    mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib'))\n"
+            "assert not bad, bad\n"
+            f"print(len({mods!r}))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) == len(mods) >= 20
+
+
+@pytest.mark.parametrize("what", [
+    "complex", "f32_planes", "packed_words", "phase_split", "include_taps",
+    "interstage_i16", "chain_fusion", "k12_off", "pll_chunks",
+    "frontend_f32",
+])
+def test_outside_the_slice_raises(what):
+    c, b = 1, 8192
+    cfg = CFG
+    x = torch.zeros((2, c, b), dtype=torch.int8)
+    kw = {}
+    if what == "complex":
+        x = torch.zeros((c, b), dtype=torch.complex64)
+    elif what == "f32_planes":
+        x = torch.zeros((2, c, b))
+    elif what == "packed_words":
+        x = torch.zeros((c, b))
+    elif what == "phase_split":
+        x = torch.zeros((2, 4, c, b // 4), dtype=torch.int8)
+    elif what == "include_taps":
+        kw["include_taps"] = True
+    else:
+        cfg = dataclasses.replace(CFG, **{
+            "interstage_i16": {"interstage_i16": True},
+            "chain_fusion": {"chain_fusion": "auto"},
+            "k12_off": {"k12_fusion": "off"},
+            "pll_chunks": {"pll_time_chunks": 4},
+            "frontend_f32": {"frontend_int8": False},
+        }[what])
+    co = tdemod.make_coeffs(cfg)
+    st = tdemod.demod_init_state(cfg, c)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdemod.demod_block(cfg, co, st, x, **kw)
