@@ -1,21 +1,38 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
     python -m fm_radio_tpu_torch.apps.cli selftest [--seconds 2.0]
-        [-b 65536] [--cnr DB] [--device cuda|cpu]
+        [-b 65536] [--cnr DB] [--stations K] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli stations -i wide.pcm -o outdir
+        [-m 16] [-b 65536] [--taps-per-phase 16] [--select 1,5 | --auto
+        [--threshold-db 15]] [--device cuda|cpu]
 
 ``selftest`` is the port of ``fm_radio_tpu/apps/cli.py::cmd_selftest``:
 synthesize a known stereo + RDS station, quantize it to u8 and split it
 into int8 planes (the production ingest), demodulate it, and gate on tone
-recovery, stereo separation and RDS decode.  It prints a one-line JSON
-verdict and exits 1 on failure.  ``--device cuda`` (the default) runs the
-CUDA kernels; ``--device cpu`` runs their plain PyTorch versions.  The
-other subcommands of the JAX CLI are not ported yet (ROADMAP.md).
+recovery, stereo separation and RDS decode.  With ``--stations K`` (> 1)
+it runs the wideband leg instead (``_selftest_wideband``): K stations on
+the channelizer's carrier grid of M = power_ceil(K + 2) channels, through
+the channelizer and one batched demod, gated on each station's PI, name
+and group count.  It prints a one-line JSON verdict and exits 1 on
+failure.
+
+``stations`` is the port of ``cmd_stations``: a wideband u8 IQ capture ->
+polyphase FFT channelizer -> int8 bridge -> one demod of every channel, on
+the device block by block (``models/wideband.py::wideband_demod_block``),
+then a WAV and the RDS database of each selected channel
+(``station_KK.wav`` and a JSON summary on stdout).  ``--auto`` selects the
+channels whose power clears the median by ``--threshold-db``.
+
+``--device cuda`` (the default) runs the CUDA kernels; ``--device cpu``
+runs their plain PyTorch versions.  The other subcommands of the JAX CLI
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -26,6 +43,7 @@ from fm_radio_tpu.io.pcm import c64_to_u8
 from fm_radio_tpu.io.synth import (
     FMModulator,
     ModulatorConfig,
+    make_wideband,
     station_group_schedule,
 )
 
@@ -104,21 +122,106 @@ def device_name(device: torch.device) -> str:
     return str(device)
 
 
+def _device(args, cmd: str) -> torch.device | None:
+    """The requested device, or None (after a message) when it is a CUDA
+    device and there is none: nothing falls back to the CPU."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"{cmd}: no CUDA device (use --device cpu for the plain "
+              "PyTorch versions)", file=sys.stderr)
+        return None
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def normalize_wideband(iq: np.ndarray) -> np.ndarray:
+    """Scale a multi-station sum to the u8 grid: a fixed /2 clips at >= 3
+    stations (each has amplitude 100; peaks add)."""
+    peak = max(float(np.abs(iq.real).max()), float(np.abs(iq.imag).max()))
+    return iq * (120.0 / max(peak, 1e-9))
+
+
+def wideband_capture(k_st: int, m: int, n: int, base_pi: int = SELFTEST_PI,
+                     cnr: float | None = None) -> np.ndarray:
+    """The wideband selftest capture: stations 1..K on the carrier grid of
+    M channels (station k: PI base + k - 1, name "ST kk", left tone
+    1000 (1 + k/2) Hz), n samples each, as u8 IQ [n * M, 2]."""
+    station_iq = {}
+    for k in range(k_st):
+        groups = station_group_schedule(base_pi + k,
+                                        ps=f"ST {k + 1:02d}".ljust(8))
+        station_iq[k + 1] = FMModulator(ModulatorConfig()).generate(
+            n, left_hz=LEFT_HZ * (1 + 0.5 * k), right_hz=RIGHT_HZ,
+            rds_groups=groups)
+    iq = normalize_wideband(make_wideband(station_iq, m))
+    if cnr is not None:
+        iq = add_awgn(iq, cnr)
+    return c64_to_u8(iq.astype(np.complex64)).reshape(-1, 2)
+
+
+def wideband_checks(app, base_pi: int = SELFTEST_PI) -> dict:
+    """Per-station gates of the wideband selftest: PI, name, >= 5 groups."""
+    results = {}
+    for i in range(app.channels):
+        db = app.rds_database(i).summary()
+        want_pi, want_ps = f"{base_pi + i:04X}", f"ST {i + 1:02d}".ljust(8)
+        results[f"station_{i + 1}"] = {
+            "pi": db["pi_code"], "expect_pi": want_pi,
+            "service_name": db["service_name"],
+            "groups": len(app.rds_log_lines(i)),
+            "pass": (db["pi_code"] == want_pi
+                     and db["service_name"] == want_ps
+                     and len(app.rds_log_lines(i)) >= 5),
+        }
+    return results
+
+
+def selftest_wideband(k_st: int, m: int, n: int, block: int, device,
+                      cnr: float | None = None):
+    """K stations through ``StationsApp`` on ``device``: returns (app,
+    seconds elapsed, checks)."""
+    from fm_radio_tpu_torch.models.app import StationsApp
+    from fm_radio_tpu_torch.utils.transfer import pack_iq_u8
+
+    words = pack_iq_u8(wideband_capture(k_st, m, n, cnr=cnr))
+    app = StationsApp(m, block, select=range(1, k_st + 1), device=device)
+    t0 = time.time()
+    app.process(words)
+    _sync(torch.device(device))
+    return app, time.time() - t0, wideband_checks(app)
+
+
 def cmd_selftest(args) -> int:
     from fm_radio_tpu_torch.models.app import App
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("selftest: no CUDA device (use --device cpu for the plain "
-              "PyTorch versions)", file=sys.stderr)
+    device = _device(args, "selftest")
+    if device is None:
         return 2
     block = power_ceil(args.block_size)
+    if args.stations > 1:
+        m = power_ceil(args.stations + 2)
+        n = max(int(args.seconds * 1_024_000) // block, 8) * block
+        _, elapsed, results = selftest_wideband(args.stations, m, n, block,
+                                                device, args.cnr)
+        ok = all(r["pass"] for r in results.values())
+        print(json.dumps({
+            "pass": ok,
+            "device": device_name(device),
+            "mode": f"wideband x{args.stations} (m={m})",
+            "seconds_audio": round(n / 1_024_000, 3),
+            "seconds_elapsed": round(elapsed, 3),
+            "checks": results,
+        }))
+        return 0 if ok else 1
     x8 = selftest_planes(args.seconds, block, args.cnr)
     app = App(block_size=block, channels=1, device=device)
     t0 = time.time()
     app.process(x8)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     elapsed = time.time() - t0
     results = selftest_checks(app)
     ok = all(r["pass"] for r in results.values())
@@ -132,6 +235,80 @@ def cmd_selftest(args) -> int:
     return 0 if ok else 1
 
 
+def channel_powers_db(words, m: int, taps_per_phase: int, window: int,
+                      device) -> np.ndarray:
+    """Per-channel power (dB) over the first ``window`` wide samples of a
+    packed capture (cut to a multiple of the channelizer's block), from
+    the channelizer's float32 output."""
+    from fm_radio_tpu_torch.kernels.channelizer import T_MULTIPLE
+    from fm_radio_tpu_torch.parallel.channelizer import (
+        channelize_batch_p,
+        make_channelizer_taps,
+    )
+
+    n = min(len(words), window) // T_MULTIPLE * T_MULTIPLE
+    if n == 0:
+        raise ValueError(f"--auto needs at least {T_MULTIPLE} wide samples")
+    x = torch.as_tensor(np.asarray(words[0:n], np.float32),
+                        device=device)[None]
+    zeros = torch.zeros((1, (taps_per_phase - 1) * m), device=device)
+    _, (y_re, y_im) = channelize_batch_p(
+        make_channelizer_taps(m, taps_per_phase), (zeros, zeros.clone()), x,
+        m)
+    settle = taps_per_phase  # filterbank fill
+    p = (y_re[0, :, settle:].double() ** 2 + y_im[0, :, settle:].double() ** 2)
+    return 10.0 * np.log10(p.mean(dim=1).cpu().numpy() + 1e-20)
+
+
+def detect_active_channels(powers_db: np.ndarray,
+                           threshold_db: float) -> list[int]:
+    """Channels whose power clears the median (noise-floor estimate) by
+    ``threshold_db``."""
+    floor = float(np.median(powers_db))
+    return [int(k) for k in np.nonzero(powers_db > floor + threshold_db)[0]]
+
+
+def cmd_stations(args) -> int:
+    from fm_radio_tpu.io.wav import write_wav_int16
+    from fm_radio_tpu_torch.io.pcm import packed_input
+    from fm_radio_tpu_torch.models.app import StationsApp
+
+    device = _device(args, "stations")
+    if device is None:
+        return 2
+    m = args.num_channels
+    block = power_ceil(args.block_size)
+    words = packed_input(args.input)
+    if args.auto:
+        window = min(len(words), 1_024_000 * m)  # ~1 s per channel
+        powers = channel_powers_db(words, m, args.taps_per_phase, window,
+                                   device)
+        select = detect_active_channels(powers, args.threshold_db)
+        if not select:
+            print("stations: --auto found no active channels",
+                  file=sys.stderr)
+            return 1
+        print(f"auto-selected channels: {select}", file=sys.stderr)
+    elif args.select:
+        select = sorted(int(v) for v in args.select.split(","))
+    else:
+        select = list(range(m))
+    app = StationsApp(m, block, select=select,
+                      taps_per_phase=args.taps_per_phase, device=device)
+    chunk = m * block
+    for i0 in range(0, len(words), chunk):
+        app.process(words[i0 : min(i0 + chunk, len(words))])
+    os.makedirs(args.output, exist_ok=True)
+    summary = []
+    for i, k in enumerate(select):
+        wav_path = os.path.join(args.output, f"station_{k:02d}.wav")
+        write_wav_int16(wav_path, app.audio[i], app.cfg.rates.fs_audio)
+        summary.append({"channel": k, "wav": wav_path,
+                        **app.rds_database(i).summary()})
+    print(json.dumps(summary, indent=1))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fm_radio_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -143,9 +320,32 @@ def build_parser() -> argparse.ArgumentParser:
     sf.add_argument("-b", "--block-size", type=int, default=65536)
     sf.add_argument("--cnr", type=float, default=None,
                     help="optionally add AWGN at this carrier-to-noise dB")
+    sf.add_argument("--stations", type=int, default=1,
+                    help=">1: wideband mode — K stations through the "
+                         "channelizer and one batched demod")
     sf.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     sf.set_defaults(fn=cmd_selftest)
+
+    st = sub.add_parser(
+        "stations",
+        help="wideband IQ -> channelize -> batched demod of every station")
+    st.add_argument("-i", "--input", default=None)
+    st.add_argument("-o", "--output", required=True)
+    st.add_argument("-m", "--num-channels", type=int, default=16)
+    st.add_argument("-b", "--block-size", type=int, default=65536)
+    st.add_argument("--taps-per-phase", type=int, default=16)
+    st.add_argument("--select", default=None,
+                    help="comma-separated channel indices to keep")
+    st.add_argument("--auto", action="store_true",
+                    help="demodulate only channels with power above the "
+                         "noise floor")
+    st.add_argument("--threshold-db", type=float, default=15.0,
+                    help="--auto detection threshold above the median "
+                         "channel power")
+    st.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    st.set_defaults(fn=cmd_stations)
     return p
 
 

@@ -28,6 +28,18 @@
 // ds2, de-emphasis, Hilbert, peak IIR) with the intermediates in device
 // memory; fusing the parallel stages is later work.
 //
+// With phase_split set, fmt_k12 replaces k12_pallas.py::_k12_kernel_ps
+// (body frontend_pallas.py::_i8_phase_tile_body): the same function on
+// [2, 4, C, B/4] int8 polyphase planes, x_p[u] = x[4u + p], which the
+// wideband channelizer writes at M = 32.  Only its first launch differs
+// (k12_ds4_ps_theta_kernel); the five launches after ds x4 are shared.
+// Measured at the wideband cell (2048 stations x 131,072; NVIDIA H100 80GB
+// HBM3, power limit 700.00 W): its ds x4 + atan2 takes 2.674 ms per block
+// against the flat launch's 1.579 ms.  Each output reads five words from
+// each of four plane rows B/4 bytes apart instead of sixteen words of one
+// row; whether those scattered loads are the whole difference is not
+// measured.
+//
 // Arithmetic kept from the TPU kernel (not its layout): the ds x4 taps are
 // exactly quantize_band_int8's two int8 planes (b1, b2) and column sum
 // s_row, accumulated exactly in int32 and combined as
@@ -71,6 +83,62 @@ __global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
     y2r = __dp4a(vr, w2, y2r);
     y1i = __dp4a(vi, w1, y1i);
     y2i = __dp4a(vi, w2, y2i);
+  }
+  const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
+  const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
+  theta1[idx] = atan2_poly(fi, fr);
+}
+
+// ds x4 (int8 taps) + atan2 on phase-split planes.  Output j of the flat
+// form sums b[k] * x[4j - halo + k]; with k = 4e + p that is
+// sum_p sum_e b[4e + p] * x_p[j - ne + 1 + e] (ne = nn/4 taps per phase), so
+// each phase is an ne-tap correlation over bytes j - ne + 1 .. j of its
+// plane.  The int32 partial sums are exact, so the result equals the flat
+// kernel's bit for bit.  The window is not word-aligned: each group of four
+// bytes is cut from two aligned words with __funnelshift_r.  tail4
+// [2, 4, C, ne] holds each phase's last ne - 1 bytes after one pad byte;
+// bps1w, bps2w hold phase p's taps b[4e + p] packed four to a word.
+__global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
+                                        const int8_t* __restrict__ tail4,
+                                        const int* __restrict__ bps1w,
+                                        const int* __restrict__ bps2w, int nn,
+                                        float s_row, int channels, int n_in,
+                                        float* __restrict__ theta1) {
+  const int n_out = n_in / 4;  // = the length of each phase plane
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)channels * n_out) return;
+  const int c = (int)(idx / n_out);
+  const int j = (int)(idx % n_out);
+  const int ne = nn / 4, nwp = ne / 4;  // taps and tap words per phase
+  const int a = j - ne + 1;             // first byte of the window
+  const int sh = 8 * (a & 3);
+  const int q0 = a >> 2;                // its word (floor: a may be < 0)
+  const int last = n_out / 4 - 1;       // last word of a plane row
+  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
+  for (int p = 0; p < 4; ++p) {
+    const int64_t rr = (int64_t)p * channels + c;                 // re row
+    const int64_t ri = ((int64_t)4 + p) * channels + c;           // im row
+    const int* xr = (const int*)(x4 + rr * n_out);
+    const int* xi = (const int*)(x4 + ri * n_out);
+    const int* tr = (const int*)(tail4 + rr * ne);
+    const int* ti = (const int*)(tail4 + ri * ne);
+    int lr = q0 < 0 ? tr[nwp + q0] : xr[q0];
+    int li = q0 < 0 ? ti[nwp + q0] : xi[q0];
+    for (int w = 0; w < nwp; ++w) {
+      const int q = min(q0 + w + 1, last);  // unused when sh == 0
+      const int hr = q < 0 ? tr[nwp + q] : xr[q];
+      const int hi = q < 0 ? ti[nwp + q] : xi[q];
+      const int vr = (int)__funnelshift_r((unsigned)lr, (unsigned)hr, sh);
+      const int vi = (int)__funnelshift_r((unsigned)li, (unsigned)hi, sh);
+      const int w1 = __ldg(bps1w + p * nwp + w);
+      const int w2 = __ldg(bps2w + p * nwp + w);
+      y1r = __dp4a(vr, w1, y1r);
+      y2r = __dp4a(vr, w2, y2r);
+      y1i = __dp4a(vi, w1, y1i);
+      y2i = __dp4a(vi, w2, y2i);
+      lr = hr;
+      li = hi;
+    }
   }
   const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
   const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
@@ -189,32 +257,21 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
 
 using namespace fmt;
 
-// All pointers are device pointers to contiguous float32 / int8 tensors.
-// Returns the first cudaError_t of the six launches (0 = all launched).
-// x8 [2, C, B] and tail8 [2, C, nn1-4] 4-byte aligned, nn1 % 4 == 0;
-// b1, b2 [nn1] int8 (reversed-tap order, read as nn1/4 int32 words);
-// prev_theta [C]; w2_rev [nn2], tail2 [C, nn2-2]; de_st_* [C, 2];
-// wh_rev [nh], htail [C, nh-1]; pk_st_* [C, 8]; scratch theta1, fmd
-// [C, B/4] and fm_out [C, B/8]; outputs re, im, theta [C, B/8], power [C].
-extern "C" int fmt_k12(
-    const int8_t* x8, const int8_t* tail8, const int8_t* b1, const int8_t* b2,
-    int nn1, float s_row, const float* prev_theta, float scale,
-    const float* w2_rev, int nn2, const float* tail2, int use_deemph,
-    float de_b0, float de_b1, float de_a1, const float* de_st_in,
-    float* de_st_out, const float* wh_rev, int nh, const float* htail,
-    float pk_b0, float pk_b1, float pk_b2, float pk_a1, float pk_a2,
-    const float* pk_st_in, float* pk_st_out, int channels, int b,
-    float* theta1, float* fmd, float* fm_out, float* re, float* im,
-    float* theta, float* power, cudaStream_t stream) {
+namespace {
+
+// The five launches after ds x4 + atan2, shared by both entries.
+int k12_after_ds4(const float* theta1, const float* prev_theta, float scale,
+                  const float* w2_rev, int nn2, const float* tail2,
+                  int use_deemph, float de_b0, float de_b1, float de_a1,
+                  const float* de_st_in, float* de_st_out,
+                  const float* wh_rev, int nh, const float* htail,
+                  float pk_b0, float pk_b1, float pk_b2, float pk_a1,
+                  float pk_a2, const float* pk_st_in, float* pk_st_out,
+                  int channels, int b, float* fmd, float* fm_out, float* re,
+                  float* im, float* theta, float* power,
+                  cudaStream_t stream) {
   const int n4 = b / 4, n8 = b / 8;
   const int64_t t4 = (int64_t)channels * n4, t8 = (int64_t)channels * n8;
-  if (nn1 % 4 != 0 || b % (8 * kBatch) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  k12_ds4_theta_kernel<<<blocks_for(t4), kThreads, 0, stream>>>(
-      x8, tail8, (const int*)b1, (const int*)b2, nn1, s_row, channels, b,
-      theta1);
-  FMT_CHECK_LAUNCH();
   k12_disc_kernel<<<blocks_for(t4), kThreads, 0, stream>>>(
       theta1, prev_theta, scale, channels, n4, fmd);
   FMT_CHECK_LAUNCH();
@@ -236,4 +293,50 @@ extern "C" int fmt_k12(
       pk_st_out, theta, power);
   FMT_CHECK_LAUNCH();
   return 0;
+}
+
+}  // namespace
+
+// All pointers are device pointers to contiguous float32 / int8 tensors.
+// Returns the first cudaError_t of the six launches (0 = all launched).
+// phase_split == 0: x8 [2, C, B] and tail8 [2, C, nn1-4] 4-byte aligned,
+// nn1 % 4 == 0; b1, b2 [nn1] int8 (reversed-tap order, read as nn1/4 int32
+// words).  phase_split == 1: x8 [2, 4, C, B/4] (phase planes, 4-byte
+// aligned, B % 16 == 0), tail8 [2, 4, C, nn1/4] (per phase: one pad byte,
+// then its last nn1/4 - 1 samples) and b1, b2 [4, nn1/4] (phase p: b[4e + p],
+// e = 0..nn1/4-1), nn1 % 16 == 0.  Both: prev_theta [C]; w2_rev [nn2],
+// tail2 [C, nn2-2]; de_st_* [C, 2]; wh_rev [nh], htail [C, nh-1]; pk_st_*
+// [C, 8]; scratch theta1, fmd [C, B/4] and fm_out [C, B/8]; outputs re, im,
+// theta [C, B/8], power [C].
+extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
+                       const int8_t* b1, const int8_t* b2, int nn1,
+                       float s_row, const float* prev_theta, float scale,
+                       const float* w2_rev, int nn2, const float* tail2,
+                       int use_deemph, float de_b0, float de_b1, float de_a1,
+                       const float* de_st_in, float* de_st_out,
+                       const float* wh_rev, int nh, const float* htail,
+                       float pk_b0, float pk_b1, float pk_b2, float pk_a1,
+                       float pk_a2, const float* pk_st_in, float* pk_st_out,
+                       int channels, int b, int phase_split, float* theta1,
+                       float* fmd, float* fm_out, float* re, float* im,
+                       float* theta, float* power, cudaStream_t stream) {
+  if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned grid = blocks_for((int64_t)channels * (b / 4));
+  if (phase_split) {
+    k12_ds4_ps_theta_kernel<<<grid, kThreads, 0, stream>>>(
+        x8, tail8, (const int*)b1, (const int*)b2, nn1, s_row, channels, b,
+        theta1);
+  } else {
+    k12_ds4_theta_kernel<<<grid, kThreads, 0, stream>>>(
+        x8, tail8, (const int*)b1, (const int*)b2, nn1, s_row, channels, b,
+        theta1);
+  }
+  FMT_CHECK_LAUNCH();
+  return k12_after_ds4(theta1, prev_theta, scale, w2_rev, nn2, tail2,
+                       use_deemph, de_b0, de_b1, de_a1, de_st_in, de_st_out,
+                       wh_rev, nh, htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
+                       pk_st_in, pk_st_out, channels, b, fmd, fm_out, re, im,
+                       theta, power, stream);
 }

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NAMES = ("k12", "pll", "extract", "bpsk")
+NAMES = ("k12", "pll", "extract", "bpsk", "channelizer")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+I64 = ctypes.c_int64
 F = ctypes.c_float
 
 _libs: dict[str, ctypes.CDLL] = {}

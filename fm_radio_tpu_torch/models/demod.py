@@ -4,7 +4,9 @@ Counterpart of ``fm_radio_tpu/models/demod.py`` on its production path
 (``DemodConfig(frontend_int8=True)``, ``k12_fusion="auto"``,
 ``chain_fusion="split"``; demod.py:339-372, 514-658):
 
-    [2, C, B] int8 IQ planes (u8 - 128)
+    [2, C, B] int8 IQ planes (u8 - 128), or the same as phase-split
+    planes [2, 4, C, B/4] (x_p[u] = x[4u + p], the wideband channelizer's
+    M = 32 output; demod.py:262-271)
       -> K12 (kernels/k12.py)      ds x4, discriminator, ds x2, de-emphasis,
                                    Hilbert, pilot peak IIR -> (re, im), theta
       -> pilot PLL (kernels/pll.py)                      -> dt
@@ -31,7 +33,7 @@ import torch
 from fm_radio_tpu.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
 from fm_radio_tpu_torch.kernels.extract import extract
-from fm_radio_tpu_torch.kernels.k12 import k12, quantize_ds4_taps
+from fm_radio_tpu_torch.kernels.k12 import k12, k12_ps, quantize_ds4_taps
 from fm_radio_tpu_torch.kernels.pll import pilot_pll_theta
 from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
 from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
@@ -151,14 +153,12 @@ def _not_ported(what: str, item: str):
 def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> None:
     """Raise NotImplementedError for any ingest form or option outside the
     ported slice, naming the ROADMAP.md item that will add it."""
-    if x.dtype != torch.int8 or x.ndim != 3 or x.shape[0] != 2:
-        form = ("phase-split [2, 4, C, B/4] int8 planes"
-                if x.dtype == torch.int8 and x.ndim == 4
-                else f"{x.dtype} input of shape {tuple(x.shape)}")
-        item = ("kernels still to port, item 2 (K12 on phase-split planes)"
-                if x.ndim == 4 else
-                "modules still to port, item 1 (other ingest forms)")
-        raise _not_ported(form, item)
+    flat = x.ndim == 3 and x.shape[0] == 2
+    phase_split = x.ndim == 4 and tuple(x.shape[:2]) == (2, 4)
+    if x.dtype != torch.int8 or not (flat or phase_split):
+        raise _not_ported(f"{x.dtype} input of shape {tuple(x.shape)}",
+                          "modules still to port, item 1 (other ingest "
+                          "forms)")
     checks = [
         (include_taps, "include_taps",
          "modules still to port, item 2 (include_taps and the scan loops)"),
@@ -180,15 +180,18 @@ def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> None:
     if (r.ds_fm_in, r.ds_fm_out, r.ds_audio, r.ds_rds) != (4, 2, 4, 8):
         raise _not_ported("a rate cascade other than 4/2/4/8",
                           "modules still to port, item 1 (other options)")
-    if x.shape[-1] % BLOCK_MULTIPLE:
-        raise ValueError(f"block size {x.shape[-1]} is not a multiple of "
+    b = x.shape[-1] * (4 if phase_split else 1)
+    if b % BLOCK_MULTIPLE:
+        raise ValueError(f"block size {b} is not a multiple of "
                          f"{BLOCK_MULTIPLE}")
 
 
 def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                 x: torch.Tensor, include_taps: bool = False,
                 record: dict | None = None):
-    """Demodulate one block of [2, C, B] int8 planes (u8 - 128).
+    """Demodulate one block of [2, C, B] int8 planes (u8 - 128), or of the
+    same block as phase-split planes [2, 4, C, B/4] (K12's phase-split
+    entry; the outputs are the same bit for bit).
 
     Returns (state', outs): outs["audio"] [C, B/32, 2] float32,
     outs["rds_sym"] complex64, outs["rds_pred"] float32 and
@@ -196,9 +199,9 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
     of the four kernels runs on the card; nothing falls back to the CPU.
 
     ``record``, if given, receives the arguments of each kernel wrapper
-    under the kernel's name ("k12", "pll", "extract", "bpsk"), so that a
-    caller can run the wrapper or its plain version again on this block's
-    own inputs.
+    under the kernel's name ("k12" or "k12_ps", "pll", "extract", "bpsk"),
+    so that a caller can run the wrapper or its plain version again on this
+    block's own inputs.
     """
     check_slice(cfg, x, include_taps)
     st = dict(state)
@@ -210,7 +213,10 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
         return fn(*args)
 
     # ---- K12 + pilot PLL (demod.py:339-372) ----------------------------
-    st, fm_out_iq_p, theta = run("k12", k12, coeffs, cfg, st, x)
+    if x.ndim == 4:
+        st, fm_out_iq_p, theta = run("k12_ps", k12_ps, coeffs, cfg, st, x)
+    else:
+        st, fm_out_iq_p, theta = run("k12", k12, coeffs, cfg, st, x)
     st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
 
     # ---- extract (demod.py:514-540) ------------------------------------

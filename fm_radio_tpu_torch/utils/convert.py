@@ -3,7 +3,9 @@
 The JAX package's ``demod_init_state`` / ``demod_block`` state, fetched as
 numpy (a dict of arrays, nested dicts and NamedTuples), becomes the port's
 torch state on a device, and back.  NamedTuples are matched by field name,
-so one state can start both packages.
+so one state can start both packages.  The wideband state,
+``{"chan": (sr, si), "demod": {...}}``, converts the same way: plain tuples
+stay tuples and the nested demod dict keeps its NamedTuples.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
             get = v.get if isinstance(v, dict) else (lambda f: getattr(v, f))
             return cls(*(conv(None, get(f)) for f in cls._fields))
         if isinstance(v, dict):
-            return {k: conv(None, w) for k, w in v.items()}
+            return {k: conv(k, w) for k, w in v.items()}
+        if isinstance(v, (tuple, list)):
+            return tuple(conv(None, w) for w in v)
         return torch.from_numpy(np.array(v)).to(device)
 
     return {k: conv(k, v) for k, v in state.items()}
@@ -40,7 +44,8 @@ def state_to_numpy(state: dict) -> dict:
 
     def conv(v):
         if isinstance(v, tuple):
-            return type(v)(*(conv(w) for w in v))
+            items = (conv(w) for w in v)
+            return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
         if isinstance(v, dict):
             return {k: conv(w) for k, w in v.items()}
         return v.detach().cpu().numpy()

@@ -144,13 +144,25 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("what", [
     "complex", "f32_planes", "packed_words", "phase_split", "include_taps",
     "interstage_i16", "chain_fusion", "k12_off", "pll_chunks",
-    "frontend_f32",
+    "frontend_f32", "wideband_f32_bridge", "channelizer_splits",
 ])
 def test_outside_the_slice_raises(what):
     c, b = 1, 8192
     cfg = CFG
     x = torch.zeros((2, c, b), dtype=torch.int8)
     kw = {}
+    if what in ("wideband_f32_bridge", "channelizer_splits"):
+        from fm_radio_tpu_torch.models import wideband
+
+        m = 8
+        st = wideband.wideband_init_state(CFG, m, 1)
+        words = torch.full((1, m * b), 127.0 * 256 + 127.0)
+        kw = ({"bridge": "f32"} if what == "wideband_f32_bridge"
+              else {"splits": 1})
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            wideband.wideband_demod_block(CFG, tdemod.make_coeffs(CFG), None,
+                                          st, words, m, **kw)
+        return
     if what == "complex":
         x = torch.zeros((c, b), dtype=torch.complex64)
     elif what == "f32_planes":
@@ -158,7 +170,8 @@ def test_outside_the_slice_raises(what):
     elif what == "packed_words":
         x = torch.zeros((c, b))
     elif what == "phase_split":
-        x = torch.zeros((2, 4, c, b // 4), dtype=torch.int8)
+        # phase planes are taken as the ds x4's four phases only
+        x = torch.zeros((2, 2, c, b // 2), dtype=torch.int8)
     elif what == "include_taps":
         kw["include_taps"] = True
     else:

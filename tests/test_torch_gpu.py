@@ -37,3 +37,42 @@ def test_cli_selftest_on_card(capsys):
     from fm_radio_tpu_torch.apps.cli import main
 
     assert main(["selftest"]) == 0, capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_wideband_kernels_match_plain_on_card():
+    """The channelizer and K12 on phase-split planes against their plain
+    versions on the card, on the arguments wideband_demod_block recorded
+    from captures loud enough to cross the int8 bridge, two blocks with
+    carried state (chip_smoke.py runs the same at K12's C=256 and the
+    channelizer's W=4, B=131072); K12 also on full-range phase planes; the
+    phase-split K12 kernel bit for bit against the flat K12 kernel; and no
+    compared int8 planes constant."""
+    _need_card()
+    import chip_smoke
+
+    rows, flat_err = chip_smoke.compare_wideband(block=16384, blocks=2,
+                                                 k12_channels=64,
+                                                 chan_captures=2)
+    assert all(r["ok"] for r in rows) and flat_err == 0.0, (rows, flat_err)
+    assert all(v["centre_share"] < 1.0
+               for r in rows for v in r["planes"].values()), rows
+
+
+@pytest.mark.gpu
+def test_cli_stations_on_card(tmp_path, capsys):
+    """``stations`` on a two-station capture (M=8) and ``selftest
+    --stations 2`` run the kernels and pass their per-station gates."""
+    _need_card()
+    import json
+
+    from fm_radio_tpu_torch.apps.cli import main, wideband_capture
+
+    pcm = tmp_path / "wide.pcm"
+    wideband_capture(2, 8, 32 * 65536).tofile(pcm)
+    assert main(["stations", "-i", str(pcm), "-o", str(tmp_path / "out"),
+                 "-m", "8", "--select", "1,2"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert [s["pi_code"] for s in summary] == ["1234", "1235"], summary
+    assert [s["service_name"] for s in summary] == ["ST 01   ", "ST 02   "]
+    assert main(["selftest", "--stations", "2"]) == 0, capsys.readouterr().out

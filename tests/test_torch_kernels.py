@@ -198,16 +198,43 @@ def test_bpsk_plain_matches_pallas():
 
 def test_dispatch_never_falls_back(monkeypatch, tmp_path):
     """Only CPU tensors take the plain version: a tensor on another device
-    is refused, and a kernel that fails to build raises instead of running
-    anything else."""
+    is refused (K12 flat and phase-split, the channelizer), and a kernel
+    that fails to build raises instead of running anything else."""
     from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.kernels import channelizer as tchan
 
     co, st = tdemod.make_coeffs(CFG), tdemod.demod_init_state(CFG, 1)
     x = torch.zeros((2, 1, 8192), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tk12.k12(co, CFG, st, x)
+    x4 = torch.zeros((2, 4, 1, 2048), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tk12.k12_ps(co, CFG, st, x4)
+    m = 32
+    tab = tchan.make_tables(np.ones(16 * m, np.float32), m)
+    zeros = torch.zeros((1, 15 * m), device="meta")
+    words = torch.zeros((1, 4096 * m), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tchan.channelize(tab, (zeros, zeros), words, m, out="i8ps")
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_libs", {})
-    with pytest.raises(RuntimeError, match="nvcc failed on k12.cu"):
-        _build.function("k12", "fmt_k12", [])
+    for name, symbol in (("k12", "fmt_k12"),
+                         ("channelizer", "fmt_channelize")):
+        with pytest.raises(RuntimeError, match=f"nvcc failed on {name}.cu"):
+            _build.function(name, symbol, [])
+
+
+@pytest.mark.parametrize("ps", [False, True], ids=["flat", "phase_split"])
+@pytest.mark.parametrize("key", ["deemph", "peak_pilot"])
+def test_k12_launch_refuses_state_rows(key, ps):
+    """A carried state of another channel count never reaches the kernel:
+    the launch path checks the rows of every state it passes (here a
+    de-emphasis or peak IIR state of 3 channels against 2)."""
+    co = tdemod.make_coeffs(CFG)
+    st = dict(tdemod.demod_init_state(CFG, 2))
+    st[key] = tdemod.demod_init_state(CFG, 3)[key]
+    shape = (2, 4, 2, 2048) if ps else (2, 2, 8192)
+    x = torch.zeros(shape, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="rows"):
+        tk12._launch(co, CFG, st, x, ps=ps)
