@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: nvcc builds the five kernel libraries of fm_radio_tpu_torch/csrc/
+2. build: nvcc builds the seven kernel libraries of fm_radio_tpu_torch/csrc/
    (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, on the
    arguments ``demod_block`` gave it, at C=256 channels x B=131,072
@@ -20,12 +20,29 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    phase-split bench planes (full int8 range) through ``demod_block``, and
    the phase-split K12 kernel against the flat K12 kernel on the same
    planes interleaved;
+3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
+   versions on the card, at C=256 x B=131,072, two blocks with carried
+   state, on the arguments ``demod_block`` recorded: K1 on each of its six
+   forms (float32 planes off the u8 grid; integer planes with int8 taps;
+   packed words with float and with int8 taps; int8 planes with float
+   taps; the int8-direct entry), K2 with de-emphasis off and on; each
+   input's statistics, failing on a constant one; ``demod_block(
+   k12_fusion="off")`` against the fused K12 on the same int8 planes,
+   outputs and state bit for bit; and the wideband float32 bridge
+   (channelizer -> f32 planes -> K1 -> K2) at W=4 loud captures, M=32;
 4. the pre-split main path at the bench cell (C=2048, B=131,072, int8
    planes made as bench.py makes them): one warm-up block, then 8 blocks
    through ``demod_block`` with the launch counters set to 0 just before
    and read just after; then each kernel and its plain version timed alone
    on the arguments ``demod_block`` gave it in the last block, and
    compared there with the tolerances of phase 3;
+4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
+   f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
+   complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
+   ``DemodConfig(frontend_int8=True, k12_fusion="off")``): one warm-up
+   block, 8 counted blocks, then K1 and K2 timed alone beside their plain
+   versions on the last block's arguments (and, for complex64, the plane
+   split alone);
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -36,10 +53,16 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    per channel) falls below half an LSB at the int8 bridge, so the same
    cell runs again on loud captures (2.8*M per channel), whose bridge
    output is not constant.  Then the M=16 bridge (stations' default: 128
-   captures x 16, loud) for 2 counted blocks;
+   captures x 16, loud) and the float32 bridge (64 x 32, loud, K1 -> K2)
+   for 2 counted blocks each;
 6. the selftest station through the port's App on the card and through
    the plain versions on the host CPU: selftest gates, identical RDS
    bytes, audio SNR >= 75 dB;
+6b. the selftest station (1 s) on the split path, on the card and with
+   the plain versions on the host CPU: through App on complex64
+   (``process_u8``, ``DemodConfig()``) and through ``demod --ingest f32w``
+   (identical RDS bytes, audio SNR >= 75 dB, PI decoded), then the
+   ``demod`` command itself on the card;
 7. wideband stations through ``StationsApp``: ``selftest --stations 4``
    (M=8, flat int8 bridge, 2 s; every station's PI and name) and 3
    stations on an M=32 grid (phase-split bridge, 1.5 s; every station's
@@ -49,7 +72,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 
 Any failed phase raises and the script exits non-zero.  The last lines of
 standard output are the nvidia-smi line, one JSON object with the
-per-kernel results, and ``{"ok": true, "device": {...}}``.
+per-kernel results (launches on every path, errors, kernel and plain ms,
+the bound of :func:`bound`; ``library_ms`` is null: no single PyTorch call
+computes any of these kernels' functions), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -84,16 +110,39 @@ WIDEBAND_KERNELS = (
     ("k12_ps", "fm_radio_tpu_torch/csrc/k12.cu",
      "fm_radio_tpu/kernels/k12_pallas.py:112"),
 )
+SPLIT_KERNELS = (
+    ("frontend", "fm_radio_tpu_torch/csrc/frontend.cu",
+     "fm_radio_tpu/kernels/frontend_pallas.py:223"),
+    ("frontend_i8", "fm_radio_tpu_torch/csrc/frontend.cu",
+     "fm_radio_tpu/kernels/frontend_pallas.py:448"),
+    ("midend", "fm_radio_tpu_torch/csrc/midend.cu",
+     "fm_radio_tpu/kernels/midend_pallas.py:225"),
+)
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
 # rounding; the power sums differ only in summation order.  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact.
 TOL = {"k12": 1e-5, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
-       "k12_ps": 1e-5, "channelizer": 0.0}
+       "k12_ps": 1e-5, "channelizer": 0.0, "frontend": 1e-6,
+       "frontend_i8": 1e-6, "midend": 1e-5}
 POWER_RTOL = 1e-5
 SNR_MIN_DB = 75.0
 # per-channel amplitude of bench.py's wideband synthesis (bench.py:311-334)
 BENCH_AMP = 2.8
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# full 700 W): device memory 3.35 TB/s, float32 outside the tensor cores
+# 67 TFLOP/s, int8 on the tensor cores 1,979 TOP/s.  A kernel's bound is
+# the larger of its bytes (each input read once, each output written once)
+# over the memory rate and its operations over their peaks (float32 and
+# int8 times added); see work().
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+I8_OP_S = 1979e12
+ATAN2_FLOPS = 25  # abs x2, max, min, clamp, div, 8 Horner steps, selects
+PLL_STEP_FLOPS = 30
+BPSK_STEP_FLOPS = 60
 
 
 def loud_amp(m: int) -> float:
@@ -115,29 +164,42 @@ def nvidia_smi_line() -> str:
 
 
 def _modules():
-    from fm_radio_tpu_torch.kernels import bpsk, channelizer, extract, k12, pll
+    from fm_radio_tpu_torch.kernels import (
+        bpsk,
+        channelizer,
+        extract,
+        frontend,
+        k12,
+        midend,
+        pll,
+    )
 
     return {"k12": k12, "pll": pll, "extract": extract, "bpsk": bpsk,
-            "channelizer": channelizer}
+            "channelizer": channelizer, "frontend": frontend,
+            "midend": midend}
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0 (K12's flat and phase-split
-    entries count apart)."""
+    entries count apart, as do K1's and its int8-direct entry)."""
     for mod in _modules().values():
         mod.launches = 0
     _modules()["k12"].launches_ps = 0
+    _modules()["frontend"].launches_i8 = 0
 
 
 def read_counts() -> dict:
     m = _modules()
     counts = {name: mod.launches for name, mod in m.items()}
     counts["k12_ps"] = m["k12"].launches_ps
+    counts["frontend_i8"] = m["frontend"].launches_i8
     return counts
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
-    """Raise unless each kernel launched as often as ``want`` says."""
+    """Raise unless each kernel launched as often as ``want`` says (and
+    every kernel ``want`` leaves out, not at all)."""
+    want = {k: want.get(k, 0) for k in counts}
     bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
     if bad:
         raise RuntimeError(f"{what}: launches (got, want) {bad}")
@@ -216,6 +278,10 @@ def _stages():
         "k12_ps": (m["k12"].k12_ps, m["k12"].k12_ps_plain),
         "channelizer": (m["channelizer"].channelize,
                         m["channelizer"].channelize_plain),
+        "frontend": (m["frontend"].frontend, m["frontend"].frontend_plain),
+        "frontend_i8": (m["frontend"].frontend_i8,
+                        m["frontend"].frontend_i8_plain),
+        "midend": (m["midend"].midend, m["midend"].midend_plain),
     }
 
 
@@ -229,7 +295,11 @@ def stage_errors(name: str, kout, pout) -> dict:
         (sk, yk), (sp, yp) = kout, pout
         ys = zip(yk, yp) if isinstance(yk, tuple) else [(yk, yp)]
         return {"err": _max_err(list(ys) + list(zip(sk, sp)))}
-    if name in ("k12", "k12_ps"):
+    if name in ("frontend", "frontend_i8"):
+        (sk, yk), (sp, yp) = kout, pout
+        return {"err": max(_max_err([(yk, yp)]),
+                           _state_err(sk, sp, ("ds_fm_in", "disc_prev_theta")))}
+    if name in ("k12", "k12_ps", "midend"):
         (sk, iq_k, th_k), (sp, iq_p, th_p) = kout, pout
         return {"err": max(_max_err(zip(iq_k, iq_p)), _wrapped_err(th_k, th_p),
                            _state_err(sk, sp, K12_KEYS)),
@@ -274,10 +344,10 @@ def compare_kernels(channels: int = 256, block: int = 131072, blocks: int = 2,
     K12 also with de-emphasis on, on the same input.  Returns one row per
     kernel with its max abs error, tolerance and verdict."""
     from fm_radio_tpu_torch.models.demod import (
-        SLICE_CONFIG, demod_block, demod_init_state, make_coeffs)
+        INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
 
     stages = _stages()
-    cfg = SLICE_CONFIG
+    cfg = INT8_CONFIG
     co = make_coeffs(cfg, device)
     cfg_de = dataclasses.replace(cfg, use_deemphasis_filter=True,
                                  deemphasis_cutoff_us=50)
@@ -314,16 +384,347 @@ def _cuda_ms(fn, reps: int):
 def time_stages(calls: dict):
     """Each recorded kernel alone, kernel (mean of 5 calls after one) then
     plain version (1 call), on its recorded arguments, and compared:
-    (kernel ms, plain ms, verdict rows), keyed by kernel name."""
+    (kernel ms, plain ms, verdict rows, bounds), keyed by kernel name;
+    each bound is :func:`bound` of those arguments."""
     stages = _stages()
-    kernel_ms, plain_ms, rows = {}, {}, []
+    kernel_ms, plain_ms, rows, bounds = {}, {}, [], {}
     for name, args in calls.items():
         kern, plain = stages[name]
         kern(*args)
         kout, kernel_ms[name] = _cuda_ms(lambda: kern(*args), reps=5)
         pout, plain_ms[name] = _cuda_ms(lambda: plain(*args), reps=1)
         rows.append(_verdict(name, stage_errors(name, kout, pout)))
-    return kernel_ms, plain_ms, rows
+        bounds[name] = bound(name, args)
+    return kernel_ms, plain_ms, rows, bounds
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _mid_flops(cfg, co, c: int, n8: int) -> float:
+    """K2's float32 operations on [C, n8] outputs: ds x2, de-emphasis,
+    Hilbert, two order-2 IIRs, atan2, theta scale, power."""
+    de = 5 if cfg.use_deemphasis_filter else 0
+    per = (2 * co.taps_fm_out.shape[0] + de + 2 * co.taps_hilbert.shape[0]
+           + 2 * 9 + ATAN2_FLOPS + 1 + 3)
+    return float(c) * n8 * per
+
+
+def _k1_ops(co, c: int, n4: int, int8_taps: bool, words: bool):
+    """K1's (float32, int8) operations on [C, n4] outputs: the 64-tap
+    window on two planes (int8: two quantized tap planes), the combine,
+    atan2 and the discriminator (and, for words, the unpack per input)."""
+    nn = co.taps_fm_in.shape[0]
+    f32_per = ATAN2_FLOPS + 4 + (6 if int8_taps else 4 * nn)
+    i8_per = 2 * 2 * 2 * nn if int8_taps else 0
+    unpack = 5 * 4 * float(c) * n4 if words else 0.0
+    return float(c) * n4 * f32_per + unpack, float(c) * n4 * i8_per
+
+
+def work(name: str, args) -> tuple:
+    """(bytes, float32 operations, int8 operations) of one call of kernel
+    ``name`` on its recorded arguments: each input read once and each
+    output written once (carried state included), and the arithmetic the
+    function needs, counted per output from its filter orders."""
+    if name in ("k12", "k12_ps"):
+        co, cfg, st, x = args
+        c = x.shape[-2]
+        b = x.shape[-1] * (4 if name == "k12_ps" else 1)
+        f, i8 = _k1_ops(co, c, b // 4, True, False)
+        return (_nbytes(x) + 3 * 4 * c * (b // 8) + 4 * c,
+                f + _mid_flops(cfg, co, c, b // 8), i8)
+    if name in ("frontend", "frontend_i8"):
+        co, cfg, st, x = args[:4]
+        int8_taps = name == "frontend_i8" or args[4]
+        c, b = x.shape[-2], x.shape[-1]
+        f, i8 = _k1_ops(co, c, b // 4, int8_taps, x.ndim == 2)
+        return _nbytes(x) + 4 * c * (b // 4), f, i8
+    if name == "midend":
+        co, cfg, st, fmd = args
+        c, n8 = fmd.shape[0], fmd.shape[1] // 2
+        return (_nbytes(fmd) + 3 * 4 * c * n8 + 4 * c,
+                _mid_flops(cfg, co, c, n8), 0.0)
+    if name == "pll":
+        theta = args[2]
+        return 2 * _nbytes(theta), float(theta.numel()) * PLL_STEP_FLOPS, 0.0
+    if name == "extract":
+        co, cfg, st, (re, im), dt = args
+        c, n = re.shape
+        taps = co.taps_audio_lpr.shape[0]
+        flops = float(c) * (n * (2 * 15 + 8)             # two harmonics, mix
+                            + n // 4 * (2 + 4) * taps    # L+R, L-R planes
+                            + n // 8 * 4 * taps)         # RDS planes
+        out = 4 * c * (n // 4) * 3 + 4 * c * (n // 8) * 2 + 4 * c
+        return _nbytes(re, im, dt) + out, flops, 0.0
+    if name == "bpsk":
+        rds_p = args[2]
+        c, n = rds_p[0].shape
+        return (_nbytes(*rds_p) + (4 + 8 + 1) * c * n,
+                float(c) * n * BPSK_STEP_FLOPS, 0.0)
+    if name == "channelizer":
+        tab, state, xp, m, out = args
+        x0 = xp[0] if isinstance(xp, tuple) else xp
+        w, t = x0.shape[0], x0.numel() // x0.shape[0]
+        k = state[0].shape[-1] // m + 1
+        out_b = 8 if out == "f32" else 2
+        return (_nbytes(*(xp if isinstance(xp, tuple) else (xp,)))
+                + out_b * w * t, float(w) * t * (4 * k + 8 * m), 0.0)
+    raise KeyError(name)
+
+
+def serial_steps(name: str, args):
+    """The steps of the recursion that kernel ``name`` runs in time order
+    on its recorded arguments (the PLL over theta, the BPSK loop over the
+    RDS planes, K2's order-2 peak IIR over its outputs), or None."""
+    if name == "pll":
+        return args[2].shape[-1]
+    if name == "bpsk":
+        return args[2][0].shape[-1]
+    if name in ("k12", "k12_ps"):
+        return args[3].shape[-1] * (4 if name == "k12_ps" else 1) // 8
+    if name == "midend":
+        return args[3].shape[-1] // 2
+    return None
+
+
+def bound(name: str, args) -> dict:
+    """The least time the card could take for ``work(name, args)``: the
+    larger of bytes / 3.35 TB/s and the operations over their peaks."""
+    nbytes, f32_ops, i8_ops = work(name, args)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = (f32_ops / F32_FLOP_S + i8_ops / I8_OP_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "f32_ops": f32_ops, "i8_ops": i8_ops,
+            "serial_steps": serial_steps(name, args)}
+
+
+def bench_u8(channels: int, block: int, seed: int, device):
+    """(u8 values [2, C, B] float32 of bench.py's FM-like signal, and its
+    phase walk [C, B]), made on the device from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    phase = torch.cumsum(
+        torch.randn((channels, block), generator=g, device=device) * 0.5,
+        dim=-1)
+    u8 = torch.stack([torch.round(100.0 * torch.cos(phase) + 127.0),
+                      torch.round(100.0 * torch.sin(phase) + 127.0)])
+    return u8, phase
+
+
+def split_input(kind: str, channels: int, block: int, seed: int, device):
+    """bench.py's signal in the ingest form ``kind``: "planes_float"
+    (float32 planes off the u8 grid), "planes_int" (u8 - 127 float32
+    planes), "words" (packed u8 words), "i8" (u8 - 128 int8 planes) or
+    "complex" (u8 - 127 complex64, as App.process_u8 makes it)."""
+    u8, phase = bench_u8(channels, block, seed, device)
+    if kind == "planes_float":
+        return torch.stack([100.0 * torch.cos(phase),
+                            100.0 * torch.sin(phase)])
+    if kind == "planes_int":
+        return u8 - 127.0
+    if kind == "words":
+        return u8[0] * 256.0 + u8[1]
+    if kind == "i8":
+        return (u8 - 128.0).to(torch.int8)
+    if kind == "complex":
+        return torch.complex(u8[0] - 127.0, u8[1] - 127.0)
+    raise KeyError(kind)
+
+
+def input_stats(x) -> dict:
+    """An input's centred planes (u8 - 127 for integer forms): mean |v|,
+    the share of samples at 0 (the u8 centre), and whether it is constant
+    (a comparison on a constant input proves nothing)."""
+    from fm_radio_tpu_torch.kernels.frontend import input_planes
+
+    if x.is_complex():
+        planes = torch.stack([x.real, x.imag])
+    else:
+        planes = torch.stack(input_planes(x))
+    planes = planes.double()
+    return {"mean_abs": float(planes.abs().mean()),
+            "centre_share": float((planes == 0).double().mean()),
+            "constant": bool(planes.max() == planes.min())}
+
+
+# (label, input kind, DemodConfig kwargs): each K1 form demod_block takes
+SPLIT_FORMS = (
+    ("planes_float", "planes_float", {}),
+    ("planes_int_int8", "planes_int",
+     {"frontend_int8": True, "assume_integer_input": True}),
+    ("words_float", "words", {"assume_integer_input": True}),
+    ("words_int8", "words", {"frontend_int8": True}),
+    ("i8_float", "i8", {}),
+    ("i8_direct", "i8", {"frontend_int8": True, "k12_fusion": "off"}),
+)
+# the split cells at full width: (label, input kind, DemodConfig kwargs)
+SPLIT_CELLS = (
+    ("f32w", "words", {"assume_integer_input": True}),
+    ("complex", "complex", {}),
+    ("k12off", "i8", {"frontend_int8": True, "k12_fusion": "off"}),
+)
+
+
+def _leaf_max_diff(sa, sb) -> float:
+    """Max |a - b| over two states' leaves (dicts, tuples, tensors)."""
+    if isinstance(sa, dict):
+        return max((_leaf_max_diff(sa[k], sb[k]) for k in sa), default=0.0)
+    if isinstance(sa, tuple):
+        return max((_leaf_max_diff(a, b) for a, b in zip(sa, sb)),
+                   default=0.0)
+    if sa.is_complex():
+        sa, sb = torch.view_as_real(sa), torch.view_as_real(sb)
+    return float((sa.double() - sb.double()).abs().max())
+
+
+def compare_split(channels: int = 256, block: int = 131072, blocks: int = 2,
+                  device="cuda"):
+    """K1 (each of its six forms) and K2 against their plain versions on
+    the card, on the arguments ``demod_block`` recorded, ``blocks`` blocks
+    with carried state; K2 also with de-emphasis on, on the same fm_demod.
+    Then ``demod_block(k12_fusion="off")`` against the fused K12 on the
+    same int8 planes: every output and state leaf.  Returns (verdict rows
+    with each form's input statistics under "inputs", the max difference
+    of the split int8 path from K12)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
+
+    stages = _stages()
+    acc, stats = {}, {}
+    for label, kind, kw in SPLIT_FORMS:
+        cfg = DemodConfig(**kw)
+        co = make_coeffs(cfg, device)
+        cfg_de = dataclasses.replace(cfg, use_deemphasis_filter=True,
+                                     deemphasis_cutoff_us=50)
+        co_de = make_coeffs(cfg_de, device)
+        st = demod_init_state(cfg, channels, device)
+        x = split_input(kind, channels, block * blocks, 3, device)
+        stats[label] = input_stats(x)
+        for blk in range(blocks):
+            calls = {}
+            xb = x[..., blk * block : (blk + 1) * block].contiguous()
+            st, _ = demod_block(cfg, co, st, xb, record=calls)
+            if label == "planes_float":
+                calls["midend_de"] = (co_de, cfg_de) + calls["midend"][2:]
+            for name, args in calls.items():
+                key = "midend" if name == "midend_de" else name
+                if key in ("frontend", "frontend_i8", "midend"):
+                    kern, plain = stages[key]
+                    _merge(acc, key, stage_errors(key, kern(*args),
+                                                  plain(*args)))
+            torch.cuda.synchronize(device)
+
+    off = dataclasses.replace(INT8_CONFIG, k12_fusion="off")
+    co = make_coeffs(INT8_CONFIG, device)
+    st_f = st_s = demod_init_state(INT8_CONFIG, channels, device)
+    x = split_input("i8", channels, block * blocks, 4, device)
+    k12_diff = 0.0
+    for blk in range(blocks):
+        xb = x[..., blk * block : (blk + 1) * block].contiguous()
+        st_f, o_f = demod_block(INT8_CONFIG, co, st_f, xb)
+        st_s, o_s = demod_block(off, co, st_s, xb)
+        k12_diff = max(k12_diff, _leaf_max_diff(o_f, o_s),
+                       _leaf_max_diff(st_f, st_s))
+    torch.cuda.synchronize(device)
+    rows = [dict(_verdict(name, acc[name]), inputs=stats)
+            for name, _, _ in SPLIT_KERNELS]
+    return rows, k12_diff
+
+
+def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
+               block: int = 131072, blocks: int = 8, device="cuda") -> dict:
+    """One split cell through demod_block with counted launches (one
+    warm-up block first), bench.py's signal in the form ``kind`` under
+    ``DemodConfig(**kw)``; then K1 and K2 timed alone beside their plain
+    versions on the last block's arguments, and compared.  For complex64
+    input also the plane split (``torch.stack`` of real and imag) alone."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    st = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block, 0, device)
+    st, _ = demod_block(cfg, co, st, x)  # warm-up
+    torch.cuda.synchronize(device)
+
+    calls = {}
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(blocks):
+        st, outs = demod_block(cfg, co, st, x, record=calls)
+    end.record()
+    torch.cuda.synchronize(device)
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    k1 = "frontend_i8" if label == "k12off" else "frontend"
+    check_counts(launches, {k1: blocks, "midend": blocks, "pll": blocks,
+                            "extract": blocks, "bpsk": blocks},
+                 f"split cell {label}")
+    audio = outs["audio"]
+    if tuple(audio.shape) != (channels, block // 32, 2):
+        raise RuntimeError(f"{label}: audio shape {tuple(audio.shape)}")
+    for k in ("audio", "rds_pred"):
+        if not bool(torch.isfinite(outs[k]).all()):
+            raise RuntimeError(f"{label}: non-finite {k}")
+    res = {"cell": label, "config": kw, "input": kind, "channels": channels,
+           "block": block, "blocks": blocks, "inputs": input_stats(x),
+           "launches": launches, "ms_per_block": ms / blocks,
+           "msps": channels * block * blocks / (ms / 1e3) / 1e6,
+           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({k: calls[k] for k in (k1, "midend")})
+    if kind == "complex":
+        _, res["plane_split_ms"] = _cuda_ms(
+            lambda: torch.stack([x.real, x.imag]), reps=5)
+    return res
+
+
+def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
+                  block: int = 131072, blocks: int = 3,
+                  device="cuda") -> dict:
+    """Device time per block of each CUDA kernel (``torch.profiler``) over
+    ``blocks`` blocks of a split cell after two warm-up blocks, the host
+    wall time per block, and the device's idle share (1 - kernel time /
+    wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    st = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block, 0, device)
+    for _ in range(2):
+        st, _ = demod_block(cfg, co, st, x)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            st, _ = demod_block(cfg, co, st, x)
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3 / blocks
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            key = e.key[:60]  # kernels whose names share it are summed
+            per[key] = per.get(key, 0.0) + float(us) / 1e3 / blocks
+    busy = sum(per.values())
+    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:12])
+    return {"cell": label, "device_ms_per_block": top,
+            "device_busy_ms": busy, "wall_ms": wall,
+            "idle_share": 1.0 - busy / wall if busy else None}
 
 
 def wideband_words(n_captures: int, m: int, block: int, seed: int, device,
@@ -365,7 +766,7 @@ def compare_wideband(block: int = 131072, blocks: int = 2,
     K12 kernel from the flat K12 kernel on the same planes interleaved)."""
     from fm_radio_tpu_torch.kernels.channelizer import make_tables
     from fm_radio_tpu_torch.models.demod import (
-        SLICE_CONFIG, demod_block, demod_init_state, make_coeffs)
+        INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
     from fm_radio_tpu_torch.models.wideband import (
         wideband_demod_block, wideband_init_state)
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
@@ -373,7 +774,7 @@ def compare_wideband(block: int = 131072, blocks: int = 2,
 
     m_ = _modules()
     stages = _stages()
-    cfg = SLICE_CONFIG
+    cfg = INT8_CONFIG
     co = make_coeffs(cfg, device)
     acc, stats, flat_err = {}, {}, 0.0
 
@@ -431,29 +832,70 @@ def compare_wideband(block: int = 131072, blocks: int = 2,
     return rows, flat_err
 
 
-def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
-                  blocks: int = 8, amp: float = BENCH_AMP,
-                  time_kernels: bool = True, device="cuda") -> dict:
-    """The wideband cell through wideband_demod_block with counted
-    launches (one warm-up block first), on captures of per-channel
-    amplitude ``amp``; the :func:`plane_stats` of the last block's bridge
-    output; then, if ``time_kernels``, the channelizer and the phase-split
-    K12 (at M=32) timed alone beside their plain versions on the last
-    block's arguments, and compared."""
+def compare_wideband_f32(block: int = 131072, blocks: int = 2,
+                         n_captures: int = 4, m: int = 32, device="cuda"):
+    """The float32 bridge under ``DemodConfig()`` against the plain
+    versions on the card: ``blocks`` blocks with carried state of W =
+    ``n_captures`` loud captures at M, the channelizer (words -> f32), K1
+    on the bridged planes and K2 on the arguments ``wideband_demod_block``
+    recorded.  Returns verdict rows with the bridged planes' statistics."""
+    from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels.channelizer import make_tables
-    from fm_radio_tpu_torch.models.demod import SLICE_CONFIG, make_coeffs
+    from fm_radio_tpu_torch.models.demod import make_coeffs
     from fm_radio_tpu_torch.models.wideband import (
         wideband_demod_block, wideband_init_state)
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
 
-    cfg = SLICE_CONFIG
+    stages = _stages()
+    cfg = DemodConfig()
+    co = make_coeffs(cfg, device)
+    tab = make_tables(make_channelizer_taps(m), m, device)
+    st = wideband_init_state(cfg, m, n_captures, device=device)
+    x = wideband_words(n_captures, m, block * blocks, seed=m, device=device,
+                       amp=loud_amp(m))
+    acc, stats = {}, {}
+    for blk in range(blocks):
+        calls = {}
+        xb = x[:, blk * m * block : (blk + 1) * m * block].contiguous()
+        st, _ = wideband_demod_block(cfg, co, tab, st, xb, m, bridge="f32",
+                                     record=calls)
+        stats = input_stats(calls["frontend"][3])
+        for name in ("channelizer", "frontend", "midend"):
+            kern, plain = stages[name]
+            args = calls[name]
+            _merge(acc, name, stage_errors(name, kern(*args), plain(*args)))
+        torch.cuda.synchronize(device)
+    return [dict(_verdict(name, acc[name]), inputs=stats)
+            for name in ("channelizer", "frontend", "midend")]
+
+
+def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
+                  blocks: int = 8, amp: float = BENCH_AMP,
+                  time_kernels: bool = True, bridge: str = "i8",
+                  device="cuda") -> dict:
+    """The wideband cell through wideband_demod_block with counted
+    launches (one warm-up block first), on captures of per-channel
+    amplitude ``amp``; the :func:`plane_stats` of the last block's int8
+    bridge output; then, if ``time_kernels``, the channelizer and the
+    phase-split K12 (at M=32) timed alone beside their plain versions on
+    the last block's arguments, and compared.  ``bridge="f32"`` runs the
+    float32 bridge under ``DemodConfig()`` (K1 on planes, then K2)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels.channelizer import make_tables
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+    from fm_radio_tpu_torch.models.wideband import (
+        wideband_demod_block, wideband_init_state)
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    cfg = INT8_CONFIG if bridge == "i8" else DemodConfig()
     co = make_coeffs(cfg, device)
     tab = make_tables(make_channelizer_taps(m, 16), m, device)
     st = wideband_init_state(cfg, m, n_captures, 16, device)
     # the pre-flattened [W, T/128, 128] view that bench.py passes
     x = wideband_words(n_captures, m, block, seed=0, device=device, amp=amp)
     x = x.reshape(n_captures, -1, 128)
-    st, _ = wideband_demod_block(cfg, co, tab, st, x, m)  # warm-up
+    st, _ = wideband_demod_block(cfg, co, tab, st, x, m,
+                                 bridge=bridge)  # warm-up
     torch.cuda.synchronize(device)
 
     calls = {}
@@ -462,16 +904,20 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(blocks):
-        st, outs = wideband_demod_block(cfg, co, tab, st, x, m, record=calls)
+        st, outs = wideband_demod_block(cfg, co, tab, st, x, m,
+                                        bridge=bridge, record=calls)
     end.record()
     torch.cuda.synchronize(device)
     launches = read_counts()
     ms = start.elapsed_time(end)
-    ps = m == 32
-    check_counts(launches, {"channelizer": blocks, "k12_ps": blocks * ps,
-                            "k12": blocks * (not ps), "pll": blocks,
-                            "extract": blocks, "bpsk": blocks},
-                 f"wideband path (M={m})")
+    ps = m == 32 and bridge == "i8"
+    want = {"channelizer": blocks, "pll": blocks, "extract": blocks,
+            "bpsk": blocks}
+    if bridge == "f32":
+        want.update(frontend=blocks, midend=blocks)
+    else:
+        want["k12_ps" if ps else "k12"] = blocks
+    check_counts(launches, want, f"wideband path (M={m}, {bridge} bridge)")
     c = n_captures * m
     audio = outs["audio"]
     if tuple(audio.shape) != (c, block // 32, 2):
@@ -479,15 +925,19 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     for k in ("audio", "rds_pred"):
         if not bool(torch.isfinite(outs[k]).all()):
             raise RuntimeError(f"wideband: non-finite {k}")
-    bridged = calls["k12_ps" if ps else "k12"][3]
+    bridged = calls["frontend" if bridge == "f32" else
+                    "k12_ps" if ps else "k12"][3]
     res = {"m": m, "captures": n_captures, "channels": c, "block": block,
-           "blocks": blocks, "amp": amp, "planes": plane_stats(bridged),
+           "blocks": blocks, "amp": amp, "bridge": bridge,
+           "planes": (input_stats(bridged) if bridge == "f32"
+                      else plane_stats(bridged)),
            "launches": launches,
            "ms_per_block": ms / blocks,
            "msps": c * block * blocks / (ms / 1e3) / 1e6}
     if time_kernels:
         timed = {k: calls[k] for k in ("channelizer", "k12_ps")}
-        res["kernel_ms"], res["plain_ms"], res["compare"] = time_stages(timed)
+        (res["kernel_ms"], res["plain_ms"], res["compare"],
+         res["bound"]) = time_stages(timed)
     return res
 
 
@@ -497,9 +947,9 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     kernel and its plain version, timed alone on the arguments
     ``demod_block`` gave that kernel in the last block, and compared."""
     from fm_radio_tpu_torch.models.demod import (
-        SLICE_CONFIG, demod_block, demod_init_state, make_coeffs)
+        INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
 
-    cfg = SLICE_CONFIG
+    cfg = INT8_CONFIG
     co = make_coeffs(cfg, device)
     st = demod_init_state(cfg, channels, device)
     x = bench_planes(channels, block, seed=0, device=device)
@@ -527,7 +977,7 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
         if not bool(torch.isfinite(outs[k]).all()):
             raise RuntimeError(f"non-finite {k}")
 
-    kernel_ms, plain_ms, rows = time_stages(calls)
+    kernel_ms, plain_ms, rows, bounds = time_stages(calls)
     return {
         "launches": launches,
         "ms_per_block": ms / blocks,
@@ -535,6 +985,7 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "compare": rows,
+        "bound": bounds,
     }
 
 
@@ -544,12 +995,13 @@ def station(device="cuda") -> dict:
     from fm_radio_tpu_torch.apps.cli import (
         power_ceil, selftest_checks, selftest_planes)
     from fm_radio_tpu_torch.models.app import App
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG
 
     block = power_ceil(65536)
     x8 = selftest_planes(2.0, block)
     apps = {}
     for dev in (device, "cpu"):
-        app = App(block_size=block, channels=1, device=dev)
+        app = App(block_size=block, cfg=INT8_CONFIG, channels=1, device=dev)
         t0 = time.perf_counter()
         app.process(x8)
         if torch.device(dev).type == "cuda":
@@ -571,6 +1023,74 @@ def station(device="cuda") -> dict:
         "snr_vs_cpu_db": snr,
         "seconds": {k: v[1] for k, v in apps.items()},
     }
+
+
+def station_split(device="cuda", seconds: float = 1.0) -> list[dict]:
+    """The selftest station (``seconds`` of it) on the default
+    configuration's split path, on the card and, with the plain versions,
+    on the host CPU: through App on complex64 (``process_u8``,
+    ``DemodConfig()``) and through ``demod --ingest f32w`` (packed words,
+    integer input; ``demod_app``, then the command itself on the card).
+    Each row: RDS bytes identical, audio SNR of the card against the CPU,
+    the selftest gates on the card's output, the launches of the card's
+    run."""
+    from fm_radio_tpu_torch.apps.cli import (
+        build_parser, demod_app, selftest_checks, selftest_u8)
+    from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.models.app import App
+
+    block = 65536
+    u8 = selftest_u8(seconds, block)
+    smoke = _build.BUILD_ROOT / "smoke"
+    smoke.mkdir(parents=True, exist_ok=True)
+    pcm = smoke / "station.pcm"
+    u8.tofile(pcm)
+    rows = []
+    for path in ("app_complex64", "demod_f32w"):
+        apps, counts = {}, {}
+        for dev in (device, "cpu"):
+            reset_counts()
+            t0 = time.perf_counter()
+            if path == "app_complex64":
+                app = App(block_size=block, channels=1, device=dev)
+                app.process_u8(u8)
+            else:
+                args = build_parser().parse_args(
+                    ["demod", "-i", str(pcm), "--ingest", "f32w", "-b",
+                     str(block), "--device", str(dev)])
+                app = demod_app(args, torch.device(dev))
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
+            apps[str(dev)] = (app, time.perf_counter() - t0)
+            counts[str(dev)] = read_counts()
+        gpu, cpu = apps[str(device)][0], apps["cpu"][0]
+        settle = int(0.15 * gpu.demod.fs_audio)
+        checks = selftest_checks(gpu)
+        rows.append({
+            "path": path, "seconds_audio": u8.shape[0] / 1_024_000,
+            "cfg": {k: getattr(gpu.cfg, k) for k in (
+                "frontend_int8", "assume_integer_input", "k12_fusion")},
+            "launches": counts[str(device)],
+            "rds_bytes": int(gpu.rds_bytes(0).size),
+            "rds_identical": bool(np.array_equal(gpu.rds_bytes(0),
+                                                 cpu.rds_bytes(0))),
+            "snr_vs_cpu_db": _snr_db(gpu.audio[0, settle:],
+                                     cpu.audio[0, settle:]),
+            "rds_pi": checks["rds_pi"]["value"],
+            "seconds": {k: v[1] for k, v in apps.items()}})
+    # the command itself on the card: its exit code and RDS summary line
+    wav = smoke / "station.wav"
+    out = subprocess.run(
+        [sys.executable, "-m", "fm_radio_tpu_torch.apps.cli", "demod", "-i",
+         str(pcm), "-o", str(wav), "--ingest", "f32w", "-b", str(block)],
+        capture_output=True, text=True, timeout=300, cwd=HERE)
+    summary = json.loads(out.stdout.strip().splitlines()[-1]) \
+        if out.returncode == 0 else {}
+    rows.append({"path": "cli_demod_f32w", "rc": out.returncode,
+                 "pi_code": summary.get("pi_code"),
+                 "wav_bytes": wav.stat().st_size if wav.exists() else 0,
+                 "stderr_tail": out.stderr[-400:] if out.returncode else ""})
+    return rows
 
 
 def _snr_db(a, b) -> float:
@@ -678,6 +1198,31 @@ def main() -> int:
         raise RuntimeError(f"wideband kernels compared on constant planes: "
                            f"{silent}")
 
+    # 3b. the split path's kernels against plain on the card
+    t0 = time.perf_counter()
+    srows, k12_diff = compare_split(256, 131072, 2, dev)
+    for r in srows:
+        log(f"[compare] {json.dumps(r)}")
+    log(f"[compare] split int8 path (k12_fusion='off') vs fused K12: max "
+        f"abs diff {k12_diff}; {time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in srows if not r["ok"]]
+    if bad or k12_diff != 0.0:
+        raise RuntimeError(f"split kernels disagree: {bad}, split int8 path "
+                           f"vs K12 {k12_diff}")
+    const = [k for k, v in srows[0]["inputs"].items() if v["constant"]]
+    if const:
+        raise RuntimeError(f"split kernels compared on constant input: "
+                           f"{const}")
+    t0 = time.perf_counter()
+    frows = compare_wideband_f32(131072, 2, 4, 32, dev)
+    for r in frows:
+        log(f"[compare] f32 bridge: {json.dumps(r)}")
+    log(f"[compare] f32 bridge: {time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in frows if not r["ok"]]
+    if bad or frows[0]["inputs"]["constant"]:
+        raise RuntimeError(f"f32 bridge kernels disagree or constant "
+                           f"input: {bad}")
+
     # 4. main path at the bench cell
     t0 = time.perf_counter()
     mp = main_path(2048, 131072, 8, dev)
@@ -689,7 +1234,24 @@ def main() -> int:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the bench cell: {bad}")
 
-    # 5. the wideband main path at its cell, then the M=16 bridge
+    # 4b. the split cells at full width
+    t0 = time.perf_counter()
+    cells = {}
+    for label, kind, kw in SPLIT_CELLS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        cells[label] = split_path(label, kind, kw, 2048, 131072, 8, dev)
+        log(f"[split] {json.dumps(cells[label])}")
+    for label, kind, kw in SPLIT_CELLS:
+        prof = profile_split(label, kind, kw, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+    log(f"[split] {time.perf_counter() - t0:.1f} s")
+    bad = [(label, r["name"]) for label, c in cells.items()
+           for r in c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at "
+                           f"the split cells: {bad}")
+
+    # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
     wb_bench = wideband_path(64, 32, 131072, 8, device=dev)
     log(f"[wideband] {json.dumps(wb_bench)}")
@@ -698,6 +1260,9 @@ def main() -> int:
     wb16 = wideband_path(128, 16, 131072, 2, amp=loud_amp(16),
                          time_kernels=False, device=dev)
     log(f"[wideband] {json.dumps(wb16)}")
+    wbf = wideband_path(64, 32, 131072, 2, amp=loud_amp(32),
+                        time_kernels=False, bridge="f32", device=dev)
+    log(f"[wideband] {json.dumps(wbf)}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for r in wb_bench["compare"] + wb["compare"]
            if not r["ok"]]
@@ -716,6 +1281,19 @@ def main() -> int:
             and stn["snr_vs_cpu_db"] >= SNR_MIN_DB and stn["rds_bytes"] > 0):
         raise RuntimeError("station phase failed its gates")
 
+    # 6b. the station on the default configuration's split path
+    t0 = time.perf_counter()
+    sst = station_split(dev)
+    log(f"[station] split path: {json.dumps(sst)}")
+    log(f"[station] split path: {time.perf_counter() - t0:.1f} s")
+    for r in sst[:2]:
+        if not (r["rds_identical"] and r["rds_bytes"] > 0
+                and r["snr_vs_cpu_db"] >= SNR_MIN_DB
+                and r["rds_pi"] == "1234"):
+            raise RuntimeError(f"split-path station failed its gates: {r}")
+    if sst[2]["rc"] != 0 or sst[2]["pi_code"] != "1234":
+        raise RuntimeError(f"demod --ingest f32w failed: {sst[2]}")
+
     # 7. wideband stations on the card and on the host CPU
     t0 = time.perf_counter()
     wst = wideband_stations(dev)
@@ -728,36 +1306,58 @@ def main() -> int:
                 raise RuntimeError(f"wideband stations (M={grid['m']}) "
                                    f"failed their gates: {r}")
 
-    err = {r["name"]: r["max_abs_err"] for r in rows + wrows}
-    err_main = {}
-    for r in mp["compare"] + wb_bench["compare"] + wb["compare"]:
-        err_main[r["name"]] = max(err_main.get(r["name"], 0.0),
+    # the kernels line: each kernel's numbers from its cell (pre-split:
+    # k12, pll, extract, bpsk; the loud wideband cell: channelizer, k12_ps;
+    # f32w: frontend, midend; k12off: frontend_i8), its errors at C=256 (or
+    # W=4) and at full width, and its launches on every path
+    err_small, err_full = {}, {}
+    for r in rows + wrows + srows + frows:
+        err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
+                                   r["max_abs_err"])
+    for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
+              + [r for c in cells.values() for r in c["compare"]]):
+        err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
              "wideband_m32": wb_bench["launches"],
              "wideband_m32_loud": wb["launches"],
-             "wideband_m16_loud": wb16["launches"]}
-    kernels = [
-        {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": cell["launches"][n],
-         "launches_by_path": {p: c[n] for p, c in paths.items()},
-         "max_abs_err": max(err[n], err_main[n]),
-         "max_abs_err_full_width": err_main[n],
-         "max_abs_err_small": err[n],
-         "ms": cell["kernel_ms"][n], "plain_ms": cell["plain_ms"][n]}
-        for cell, table in ((mp, KERNELS), (wb_bench, WIDEBAND_KERNELS))
-        for n, src, rep in table
-    ]
-    # the wideband kernels: "ms" on the loud cell, whose int8 planes are
-    # not constant, and also on bench.py's (silent at the bridge)
+             "wideband_m16_loud": wb16["launches"],
+             "wideband_m32_f32_bridge": wbf["launches"],
+             **{f"split_{k}": c["launches"] for k, c in cells.items()},
+             **{f"station_{r['path']}": r["launches"] for r in sst[:2]}}
+    home = {"k12": mp, "pll": mp, "extract": mp, "bpsk": mp,
+            "channelizer": wb, "k12_ps": wb, "frontend": cells["f32w"],
+            "midend": cells["f32w"], "frontend_i8": cells["k12off"]}
+    kernels = []
+    for n, src, rep in KERNELS + WIDEBAND_KERNELS + SPLIT_KERNELS:
+        cell = home[n]
+        b = cell["bound"][n]
+        k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
+             "launches": cell["launches"][n],
+             "launches_by_path": {p: c[n] for p, c in paths.items()},
+             "max_abs_err": max(err_small[n], err_full[n]),
+             "max_abs_err_full_width": err_full[n],
+             "max_abs_err_small": err_small[n],
+             "ms": cell["kernel_ms"][n], "plain_ms": cell["plain_ms"][n],
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "library_ms": None,
+             "work": {key: b[key] for key in ("bytes", "f32_ops", "i8_ops")}}
+        if b["serial_steps"] is not None:
+            k["serial_steps"] = b["serial_steps"]
+        kernels.append(k)
+    # the wideband kernels also on bench.py's captures (silent at the int8
+    # bridge), and the planes they were compared on
     planes = {r["name"]: r["planes"] for r in wrows}
-    for k in kernels[len(KERNELS):]:
+    for k in kernels:
         n = k["name"]
-        k.update(ms=wb["kernel_ms"][n], plain_ms=wb["plain_ms"][n],
-                 ms_bench_input=wb_bench["kernel_ms"][n],
-                 plain_ms_bench_input=wb_bench["plain_ms"][n],
-                 planes_small=planes[n], planes_full_width=wb["planes"],
-                 planes_full_width_bench_input=wb_bench["planes"])
+        if n in ("channelizer", "k12_ps"):
+            k.update(ms_bench_input=wb_bench["kernel_ms"][n],
+                     plain_ms_bench_input=wb_bench["plain_ms"][n],
+                     planes_small=planes[n], planes_full_width=wb["planes"],
+                     planes_full_width_bench_input=wb_bench["planes"])
+        if n == "midend":
+            k.update(ms_by_cell={c: cells[c]["kernel_ms"]["midend"]
+                                 for c in cells})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

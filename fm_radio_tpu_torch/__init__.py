@@ -9,16 +9,16 @@ that the JAX package ran as a Pallas kernel is a CUDA C++ kernel here
 Dispatch is by device: a kernel wrapper given CPU tensors runs its plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.
 
-Host-only modules are shared with the JAX package (they import no jax):
-``fm_radio_tpu.config``, ``fm_radio_tpu.rds`` and ``fm_radio_tpu.io.{synth,
-pcm,wav}``.  This package imports nothing else from ``fm_radio_tpu``.
+The package imports nothing of ``fm_radio_tpu``: the host-only modules it
+needs are copies (``config``, ``rds``, ``io.{synth,wav,pcm}``, and the
+design and transfer helpers), so it runs where jax is not installed.
 """
 
 __version__ = "0.1.0"
 
 import torch
 
-from fm_radio_tpu.config import DemodConfig  # noqa: F401
+from fm_radio_tpu_torch.config import DemodConfig  # noqa: F401
 
 # The plain versions are compared with the kernels in full float32; TF32
 # would cut a float32 convolution or matmul on the card to ~3 decimal digits.

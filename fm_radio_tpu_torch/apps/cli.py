@@ -1,10 +1,33 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
+    python -m fm_radio_tpu_torch.apps.cli demod -i in.pcm [-o out.wav]
+        [--ingest i8|f32w] [-b 65536] [--audio-mode stereo|lpr|lmr]
+        [--deemphasis-us US] [--lpr-cutoff-hz HZ] [--lmr-cutoff-hz HZ]
+        [--stereo-gain G] [--no-rds] [--strict-ref] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli bench [-i in.pcm] [-b 65536]
+        [-c 64] [--device cuda|cpu]
     python -m fm_radio_tpu_torch.apps.cli selftest [--seconds 2.0]
         [-b 65536] [--cnr DB] [--stations K] [--device cuda|cpu]
     python -m fm_radio_tpu_torch.apps.cli stations -i wide.pcm -o outdir
         [-m 16] [-b 65536] [--taps-per-phase 16] [--select 1,5 | --auto
         [--threshold-db 15]] [--device cuda|cpu]
+
+``demod`` is the port of ``fm_radio_tpu/apps/cli.py::cmd_demod``: one
+recorded u8 IQ capture -> WAV (``-o``) and the RDS database (JSON on
+stdout, group log lines on stderr).  ``--ingest i8`` (the default) feeds
+int8 planes with ``frontend_int8`` (the fused K12); ``--ingest f32w``
+feeds packed u8 words under ``DemodConfig()`` with integer input (the
+split K1 on words, float taps, then K2).  Its flags that need modules not
+ported yet (``--save-state``, ``--resume-state``, ``--resume-seek``,
+``--checkpoint-every``, ``--taps``, ``--rate``, ``--play``,
+``--play-format``) exit with code
+2 and the ROADMAP.md item that adds them.
+
+``bench`` is the port of ``cmd_bench``: complex64 baseband through
+``demod_block`` under ``DemodConfig()`` (the split K1 on planes, then K2),
+``-c`` channels, 8 blocks (or the blocks of ``-i``, up to 8), best of 3
+runs after one warm-up; it prints the JAX command's JSON keys and the
+device.
 
 ``selftest`` is the port of ``fm_radio_tpu/apps/cli.py::cmd_selftest``:
 synthesize a known stereo + RDS station, quantize it to u8 and split it
@@ -25,7 +48,7 @@ channels whose power clears the median by ``--threshold-db``.
 
 ``--device cuda`` (the default) runs the CUDA kernels; ``--device cpu``
 runs their plain PyTorch versions.  The other subcommands of the JAX CLI
-are not ported yet (ROADMAP.md).
+are not ported yet (ROADMAP.md, modules still to port, item 3).
 """
 
 from __future__ import annotations
@@ -39,8 +62,8 @@ import time
 import numpy as np
 import torch
 
-from fm_radio_tpu.io.pcm import c64_to_u8
-from fm_radio_tpu.io.synth import (
+from fm_radio_tpu_torch.io.pcm import c64_to_u8, i8_input, packed_input
+from fm_radio_tpu_torch.io.synth import (
     FMModulator,
     ModulatorConfig,
     make_wideband,
@@ -67,11 +90,10 @@ def add_awgn(iq: np.ndarray, cnr_db: float, seed: int = 0) -> np.ndarray:
     ).astype(np.complex64)
 
 
-def selftest_planes(seconds: float, block: int, cnr: float | None = None):
-    """The selftest station as [2, 1, N] int8 planes (N a multiple of
-    ``block``, at least 8 blocks)."""
-    from fm_radio_tpu_torch.utils.transfer import split_iq_i8
-
+def selftest_u8(seconds: float, block: int,
+                cnr: float | None = None) -> np.ndarray:
+    """The selftest station as u8 IQ [N, 2] (N a multiple of ``block``, at
+    least 8 blocks)."""
     n = max(int(seconds * 1_024_000) // block, 8) * block
     groups = station_group_schedule(SELFTEST_PI, ps=SELFTEST_PS,
                                     rt="FMTPU SELFTEST")
@@ -79,8 +101,15 @@ def selftest_planes(seconds: float, block: int, cnr: float | None = None):
         n, left_hz=LEFT_HZ, right_hz=RIGHT_HZ, rds_groups=groups)
     if cnr is not None:
         iq = add_awgn(iq, cnr)
-    u8 = c64_to_u8(iq.astype(np.complex64)).reshape(-1, 2)
-    return split_iq_i8(u8)[:, None, :]
+    return c64_to_u8(iq.astype(np.complex64)).reshape(-1, 2)
+
+
+def selftest_planes(seconds: float, block: int, cnr: float | None = None):
+    """The selftest station as [2, 1, N] int8 planes (the production
+    ingest)."""
+    from fm_radio_tpu_torch.utils.transfer import split_iq_i8
+
+    return split_iq_i8(selftest_u8(seconds, block, cnr))[:, None, :]
 
 
 def selftest_checks(app) -> dict:
@@ -197,6 +226,7 @@ def selftest_wideband(k_st: int, m: int, n: int, block: int, device,
 
 def cmd_selftest(args) -> int:
     from fm_radio_tpu_torch.models.app import App
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG
 
     device = _device(args, "selftest")
     if device is None:
@@ -218,7 +248,7 @@ def cmd_selftest(args) -> int:
         }))
         return 0 if ok else 1
     x8 = selftest_planes(args.seconds, block, args.cnr)
-    app = App(block_size=block, channels=1, device=device)
+    app = App(block_size=block, cfg=INT8_CONFIG, channels=1, device=device)
     t0 = time.time()
     app.process(x8)
     _sync(device)
@@ -269,8 +299,7 @@ def detect_active_channels(powers_db: np.ndarray,
 
 
 def cmd_stations(args) -> int:
-    from fm_radio_tpu.io.wav import write_wav_int16
-    from fm_radio_tpu_torch.io.pcm import packed_input
+    from fm_radio_tpu_torch.io.wav import write_wav_int16
     from fm_radio_tpu_torch.models.app import StationsApp
 
     device = _device(args, "stations")
@@ -309,9 +338,195 @@ def cmd_stations(args) -> int:
     return 0
 
 
+# demod flags that need modules not ported yet -> the ROADMAP.md item
+_DEMOD_NOT_PORTED = {
+    "save_state": "modules still to port, item 4 (utils/checkpoint.py)",
+    "resume_state": "modules still to port, item 4 (utils/checkpoint.py)",
+    "resume_seek": "modules still to port, item 4 (utils/checkpoint.py)",
+    "checkpoint_every": "modules still to port, item 4 (utils/checkpoint.py)",
+    "taps": "modules still to port, item 2 (include_taps and the scan loops)",
+    "rate": "modules still to port, item 7 (ops/resample.py)",
+    "play": "modules still to port, item 7 (io/player.py, ops/resample.py)",
+    "play_format": "modules still to port, item 7 (io/player.py, "
+                   "ops/resample.py)",
+}
+
+
+def demod_config(args):
+    """``DemodConfig()`` with the audio controls of ``demod``'s flags (the
+    reference's GUI sliders, render_fm_demod.cpp:305-374), and
+    ``frontend_int8`` for ``--ingest i8``."""
+    from fm_radio_tpu_torch.config import DemodConfig
+
+    changes = {}
+    if args.audio_mode != "stereo":
+        changes["audio_out"] = args.audio_mode
+    if args.deemphasis_us:
+        changes["use_deemphasis_filter"] = True
+        changes["deemphasis_cutoff_us"] = int(args.deemphasis_us)
+    if args.lpr_cutoff_hz:
+        changes["audio_lpr_cutoff_hz"] = int(args.lpr_cutoff_hz)
+    if args.lmr_cutoff_hz:
+        changes["audio_lmr_cutoff_hz"] = int(args.lmr_cutoff_hz)
+    if args.stereo_gain is not None:
+        changes["audio_stereo_mix_factor"] = float(args.stereo_gain)
+    if args.ingest == "i8":
+        changes["frontend_int8"] = True
+    return DemodConfig(**changes)
+
+
+def demod_app(args, device):
+    """``demod``'s App on ``device``, fed the whole capture of ``args``
+    (``-i``, ``--ingest``, ``-b``, the audio controls, ``--no-rds``,
+    ``--strict-ref``) in chunks of 64 blocks."""
+    from fm_radio_tpu_torch.models.app import App
+
+    block = power_ceil(args.block_size)
+    iq = i8_input(args.input) if args.ingest == "i8" else packed_input(
+        args.input)
+    app = App(block_size=block, cfg=demod_config(args), channels=1,
+              decode_rds=not args.no_rds, integer_input=True,
+              strict_ref=args.strict_ref, device=device)
+    n_in = len(iq)
+    chunk = 64 * block
+    for i0 in range(0, n_in, chunk):
+        app.process(iq[i0 : min(i0 + chunk, n_in)])
+    if n_in == 0:
+        app.process(iq[0:0])  # empty input: clean empty outputs
+    _sync(device)
+    return app
+
+
+def cmd_demod(args) -> int:
+    from fm_radio_tpu_torch.io.wav import write_wav_int16
+
+    for flag, item in _DEMOD_NOT_PORTED.items():
+        if getattr(args, flag):
+            print(f"demod: --{flag.replace('_', '-')} is not ported yet: "
+                  f"ROADMAP.md, {item}", file=sys.stderr)
+            return 2
+    device = _device(args, "demod")
+    if device is None:
+        return 2
+    app = demod_app(args, device)
+    if args.output_wav:
+        audio = app.audio[0]
+        fs_out = int(app.demod.fs_audio)
+        write_wav_int16(args.output_wav, audio, fs_out)
+        print(f"wrote {args.output_wav} ({audio.shape[0]} frames "
+              f"@{fs_out}Hz)")
+    if not args.no_rds:
+        for line in app.rds_log_lines(0):
+            print(f"[rds_decoder] {line}", file=sys.stderr)
+        print(json.dumps(app.rds_database(0).summary()))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.io.pcm import read_u8, u8_to_c64
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block,
+        demod_init_state,
+        make_coeffs,
+    )
+
+    device = _device(args, "bench")
+    if device is None:
+        return 2
+    block = power_ceil(args.block_size)
+    cfg = DemodConfig()
+    coeffs = make_coeffs(cfg, device)
+    channels = args.channels
+    if args.input:
+        iq = u8_to_c64(read_u8(args.input, max_samples=block * 8))
+        n_blocks = len(iq) // block
+        if n_blocks == 0:
+            print(f"bench: {args.input} holds less than one block of "
+                  f"{block} samples", file=sys.stderr)
+            return 2
+        x = np.broadcast_to(iq[: n_blocks * block][None],
+                            (channels, n_blocks * block))
+    else:
+        rng = np.random.default_rng(0)
+        n_blocks = 8
+        ph = np.cumsum(rng.standard_normal((channels, block * n_blocks))
+                       * 0.5, -1)
+        x = (100.0 * np.exp(1j * ph)).astype(np.complex64)
+    xb = torch.from_numpy(np.ascontiguousarray(
+        x.reshape(channels, n_blocks, block).transpose(1, 0, 2))).to(device)
+
+    def run():
+        st = demod_init_state(cfg, channels, device)
+        for blk in xb:
+            st, _ = demod_block(cfg, coeffs, st, blk)
+        _sync(device)
+
+    run()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    msps = channels * block * n_blocks / best / 1e6
+    print(json.dumps({
+        "channels": channels,
+        "block_size": block,
+        "seconds": round(best, 4),
+        "aggregate_msps": round(msps, 2),
+        "per_channel_realtime_x": round(msps * 1e6 / channels / 1.024e6, 2),
+        "device": device_name(device),
+    }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fm_radio_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    d = sub.add_parser("demod", help="demodulate IQ pcm -> audio + RDS")
+    d.add_argument("-i", "--input", default=None,
+                   help="input *.pcm (default stdin)")
+    d.add_argument("-b", "--block-size", type=int, default=65536)
+    d.add_argument("--ingest", choices=("i8", "f32w"), default="i8",
+                   help="device ingest: int8 planes + the fused K12 "
+                        "(default) or packed f32 words + the split K1/K2")
+    d.add_argument("-o", "--output-wav", default=None)
+    d.add_argument("--no-rds", action="store_true")
+    d.add_argument("--audio-mode", choices=["stereo", "lpr", "lmr"],
+                   default="stereo")
+    d.add_argument("--deemphasis-us", type=int, default=0,
+                   help="enable de-emphasis with this time constant in us "
+                        "(0 = off)")
+    d.add_argument("--lpr-cutoff-hz", type=int, default=0)
+    d.add_argument("--lmr-cutoff-hz", type=int, default=0)
+    d.add_argument("--stereo-gain", type=float, default=None)
+    d.add_argument("--strict-ref", action="store_true",
+                   help="version-B groups print Unsupported_Code, as the "
+                        "reference decoder does")
+    d.add_argument("--taps", default=None, help="not ported yet")
+    d.add_argument("--rate", type=int, default=0, help="not ported yet")
+    d.add_argument("--play", default=None, help="not ported yet")
+    d.add_argument("--play-format", choices=["f32", "s16"], default=None,
+                   help="not ported yet")
+    d.add_argument("--save-state", default=None, help="not ported yet")
+    d.add_argument("--resume-state", default=None, help="not ported yet")
+    d.add_argument("--resume-seek", action="store_true",
+                   help="not ported yet")
+    d.add_argument("--checkpoint-every", type=int, default=0,
+                   help="not ported yet")
+    d.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    d.set_defaults(fn=cmd_demod)
+
+    bn = sub.add_parser("bench", help="throughput benchmark (complex64, "
+                                      "DemodConfig())")
+    bn.add_argument("-i", "--input", default=None)
+    bn.add_argument("-b", "--block-size", type=int, default=65536)
+    bn.add_argument("-c", "--channels", type=int, default=64)
+    bn.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    bn.set_defaults(fn=cmd_bench)
+
     sf = sub.add_parser(
         "selftest",
         help="synthesize a known station, demod it, gate accuracy (one-line "

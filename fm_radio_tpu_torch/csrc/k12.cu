@@ -28,6 +28,10 @@
 // ds2, de-emphasis, Hilbert, peak IIR) with the intermediates in device
 // memory; fusing the parallel stages is later work.
 //
+// The stages are shared with the split path through k12_stages.cuh: its
+// ds x4 + discriminator are K1's int8-direct entry (frontend.cu) and its
+// last four launches K2 (midend.cu), so K1 + K2 equal K12 bit for bit.
+//
 // With phase_split set, fmt_k12 replaces k12_pallas.py::_k12_kernel_ps
 // (body frontend_pallas.py::_i8_phase_tile_body): the same function on
 // [2, 4, C, B/4] int8 polyphase planes, x_p[u] = x[4u + p], which the
@@ -47,47 +51,9 @@
 // +1 recentre of the u8 - 128 planes is folded into s_row; the carried
 // ds x4 tail is int8 (float(i8 + 1) in the state, converted by the wrapper).
 
-#include "common.cuh"
+#include "k12_stages.cuh"
 
 namespace fmt {
-
-// ds x4 (int8 taps) + atan2: theta1[c, j] = angle(fm_in[c, j]).  The
-// window of output j starts at input 4j - halo, a multiple of 4, so it is
-// nn/4 aligned words of x (or of the carried tail, whose length halo is a
-// multiple of 4 too); b1w, b2w are the reversed taps packed 4 to a word in
-// the same byte order.
-__global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
-                                     const int8_t* __restrict__ tail8,
-                                     const int* __restrict__ b1w,
-                                     const int* __restrict__ b2w, int nn,
-                                     float s_row, int channels, int n_in,
-                                     float* __restrict__ theta1) {
-  const int n_out = n_in / 4;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n_out) return;
-  const int c = (int)(idx / n_out);
-  const int j = (int)(idx % n_out);
-  const int halo = nn - 4;
-  const int* xr = (const int*)(x8 + (int64_t)c * n_in);
-  const int* xi = (const int*)(x8 + ((int64_t)channels + c) * n_in);
-  const int* tr = (const int*)(tail8 + (int64_t)c * halo);
-  const int* ti = (const int*)(tail8 + ((int64_t)channels + c) * halo);
-  const int base = j - halo / 4;  // first window word (index into x words)
-  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
-  for (int w = 0; w < nn / 4; ++w) {
-    const int q = base + w;
-    const int vr = q < 0 ? tr[halo / 4 + q] : xr[q];
-    const int vi = q < 0 ? ti[halo / 4 + q] : xi[q];
-    const int w1 = __ldg(b1w + w), w2 = __ldg(b2w + w);
-    y1r = __dp4a(vr, w1, y1r);
-    y2r = __dp4a(vr, w2, y2r);
-    y1i = __dp4a(vi, w1, y1i);
-    y2i = __dp4a(vi, w2, y2i);
-  }
-  const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
-  const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
-  theta1[idx] = atan2_poly(fi, fr);
-}
 
 // ds x4 (int8 taps) + atan2 on phase-split planes.  Output j of the flat
 // form sums b[k] * x[4j - halo + k]; with k = 4e + p that is
@@ -145,157 +111,9 @@ __global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
   theta1[idx] = atan2_poly(fi, fr);
 }
 
-// discriminator: fmd[c, j] = wrap(theta1[j] - theta1[j-1]) * scale
-__global__ void k12_disc_kernel(const float* __restrict__ theta1,
-                                const float* __restrict__ prev_theta,
-                                float scale, int channels, int n,
-                                float* __restrict__ fmd) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n) return;
-  const int c = (int)(idx / n);
-  const int j = (int)(idx % n);
-  const float prev = j == 0 ? prev_theta[c] : theta1[idx - 1];
-  float d = theta1[idx] - prev;
-  d = d >= kPi ? d - kTwoPi : d;
-  d = d <= -kPi ? d + kTwoPi : d;
-  fmd[idx] = d * scale;
-}
-
-// de-emphasis, one thread per channel, in place:
-// y = (b1*x[n-1] + b0*x[n]) - a1*y[n-1]; state (x1, y1) per channel
-__global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
-                                  int channels, float b0, float b1, float a1,
-                                  const float* __restrict__ st_in,
-                                  float* __restrict__ st_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  float* row = fm_out + (int64_t)c * n;
-  float x1 = st_in[2 * c], y1 = st_in[2 * c + 1];
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    float bx[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) bx[u] = row[i0 + u];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const float y = (x1 * b1 + bx[u] * b0) - y1 * a1;
-      row[i0 + u] = y;
-      x1 = bx[u];
-      y1 = y;
-    }
-  }
-  st_out[2 * c] = x1;
-  st_out[2 * c + 1] = y1;
-}
-
-// Hilbert: im = nh-tap FIR, re = input delayed by (nh - 1)/2
-__global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
-                                   const float* __restrict__ htail,
-                                   const float* __restrict__ wh_rev, int nh,
-                                   int channels, int n,
-                                   float* __restrict__ re,
-                                   float* __restrict__ im) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n) return;
-  const int c = (int)(idx / n);
-  const int i = (int)(idx % n);
-  const int halo = nh - 1;
-  const float* x = fm_out + (int64_t)c * n;
-  const float* t = htail + (int64_t)c * halo;
-  im[idx] = fir_point(x, t, halo, wh_rev, nh, i - halo);
-  const int d = i - (nh - 1) / 2;
-  re[idx] = d < 0 ? t[halo + d] : x[d];
-}
-
-// order-2 peak IIR on both planes, one thread per channel:
-// ff = b2*x[n-2] + b1*x[n-1] + b0*x[n]; y = (ff - a1*y[n-1]) - a2*y[n-2];
-// theta = atan2(yi, yr) / 2pi; power summed in double, in time order.
-// state per channel: re (x1, x2, y1, y2), im (x1, x2, y1, y2)
-__global__ void k12_peak_kernel(const float* __restrict__ re,
-                                const float* __restrict__ im, int n,
-                                int channels, float b0, float b1, float b2,
-                                float a1, float a2,
-                                const float* __restrict__ st_in,
-                                float* __restrict__ st_out,
-                                float* __restrict__ theta,
-                                float* __restrict__ power) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  const float* s = st_in + 8 * c;
-  float rx1 = s[0], rx2 = s[1], ry1 = s[2], ry2 = s[3];
-  float ix1 = s[4], ix2 = s[5], iy1 = s[6], iy2 = s[7];
-  const float* xr = re + (int64_t)c * n;
-  const float* xi = im + (int64_t)c * n;
-  float* th = theta + (int64_t)c * n;
-  double pw = 0.0;
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    float br[kBatch], bi[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      br[u] = xr[i0 + u];
-      bi[u] = xi[i0 + u];
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const float vr = br[u], vi = bi[u];
-      const float fr = (rx2 * b2 + rx1 * b1) + vr * b0;
-      const float fi = (ix2 * b2 + ix1 * b1) + vi * b0;
-      const float yr = (fr - ry1 * a1) - ry2 * a2;
-      const float yi = (fi - iy1 * a1) - iy2 * a2;
-      rx2 = rx1; rx1 = vr; ry2 = ry1; ry1 = yr;
-      ix2 = ix1; ix1 = vi; iy2 = iy1; iy1 = yi;
-      th[i0 + u] = atan2_poly(yi, yr) * kInvTwoPi;
-      pw += (double)(yr * yr + yi * yi);
-    }
-  }
-  float* out = st_out + 8 * c;
-  out[0] = rx1; out[1] = rx2; out[2] = ry1; out[3] = ry2;
-  out[4] = ix1; out[5] = ix2; out[6] = iy1; out[7] = iy2;
-  power[c] = (float)pw;
-}
-
 }  // namespace fmt
 
 using namespace fmt;
-
-namespace {
-
-// The five launches after ds x4 + atan2, shared by both entries.
-int k12_after_ds4(const float* theta1, const float* prev_theta, float scale,
-                  const float* w2_rev, int nn2, const float* tail2,
-                  int use_deemph, float de_b0, float de_b1, float de_a1,
-                  const float* de_st_in, float* de_st_out,
-                  const float* wh_rev, int nh, const float* htail,
-                  float pk_b0, float pk_b1, float pk_b2, float pk_a1,
-                  float pk_a2, const float* pk_st_in, float* pk_st_out,
-                  int channels, int b, float* fmd, float* fm_out, float* re,
-                  float* im, float* theta, float* power,
-                  cudaStream_t stream) {
-  const int n4 = b / 4, n8 = b / 8;
-  const int64_t t4 = (int64_t)channels * n4, t8 = (int64_t)channels * n8;
-  k12_disc_kernel<<<blocks_for(t4), kThreads, 0, stream>>>(
-      theta1, prev_theta, scale, channels, n4, fmd);
-  FMT_CHECK_LAUNCH();
-  int err = fir_decimate(fmd, n4, tail2, w2_rev, nn2, 2, fm_out, channels,
-                         stream);
-  if (err) return err;
-  if (use_deemph) {
-    k12_deemph_kernel<<<blocks_for(channels, kSerialThreads),
-                        kSerialThreads, 0, stream>>>(
-        fm_out, n8, channels, de_b0, de_b1, de_a1, de_st_in, de_st_out);
-    FMT_CHECK_LAUNCH();
-  }
-  k12_hilbert_kernel<<<blocks_for(t8), kThreads, 0, stream>>>(
-      fm_out, htail, wh_rev, nh, channels, n8, re, im);
-  FMT_CHECK_LAUNCH();
-  k12_peak_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads,
-                    0, stream>>>(
-      re, im, n8, channels, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in,
-      pk_st_out, theta, power);
-  FMT_CHECK_LAUNCH();
-  return 0;
-}
-
-}  // namespace
 
 // All pointers are device pointers to contiguous float32 / int8 tensors.
 // Returns the first cudaError_t of the six launches (0 = all launched).
@@ -334,9 +152,12 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
         theta1);
   }
   FMT_CHECK_LAUNCH();
-  return k12_after_ds4(theta1, prev_theta, scale, w2_rev, nn2, tail2,
-                       use_deemph, de_b0, de_b1, de_a1, de_st_in, de_st_out,
-                       wh_rev, nh, htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
-                       pk_st_in, pk_st_out, channels, b, fmd, fm_out, re, im,
-                       theta, power, stream);
+  const int err = launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd,
+                              stream);
+  if (err) return err;
+  return launch_midend(fmd, w2_rev, nn2, tail2, use_deemph, de_b0, de_b1,
+                       de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0,
+                       pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in, pk_st_out,
+                       channels, b / 4, fm_out, re, im, theta, power,
+                       stream);
 }

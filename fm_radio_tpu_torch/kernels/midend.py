@@ -1,0 +1,160 @@
+"""K2: the mid end of the demodulator — CUDA kernel and plain version.
+
+Counterpart of ``fm_radio_tpu/kernels/midend_pallas.py::midend_pallas``:
+
+    fm_demod [C, B/4] float32 -> ds x2 LPF (64 taps)
+    -> optional 1-pole de-emphasis -> 65-tap Hilbert -> (re, im) [C, B/8]
+    -> order-2 19 kHz peak IIR on both planes -> theta = angle / 2pi
+    -> pilot power sum -> agc_pilot gain update
+
+State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
+``peak_pilot``, ``agc_pilot`` (midend_pallas.py:448-460).  The kernel is
+``csrc/midend.cu``, which runs K12's last four launches (the device code is
+shared through ``csrc/k12_stages.cuh``); the helpers that pass this state
+to the card and back serve ``kernels/k12.py`` too.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.ops.agc import _agc_gain
+from fm_radio_tpu_torch.ops.cmath import atan2_poly, div_scalar, f32
+from fm_radio_tpu_torch.ops.fir import decimate_core, hilbert_fir_p
+from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
+
+# kernel launches since the counter was last set to 0
+launches = 0
+
+_P, _I, _F = _build.P, _build.I, _build.F
+_ARGTYPES = ([_P, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
+             + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 6)
+
+
+def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power) -> dict:
+    """Carried state after the mid end (midend_pallas.py:448-460): the
+    ds x2 input tail, the Hilbert input tail, the IIR histories and the
+    pilot AGC gain from the block's power sum."""
+    new = dict(state)
+    new["ds_fm_out"] = fmd[:, fmd.shape[-1] - state["ds_fm_out"].shape[-1] :]
+    new["hilbert"] = fm_out[:, fm_out.shape[-1] - state["hilbert"].shape[-1] :]
+    new["deemph"] = deemph
+    new["peak_pilot"] = peak
+    new["agc_pilot"] = _agc_gain(state["agc_pilot"],
+                                 div_scalar(power, fm_out.shape[-1]), 1.0, 0.2)
+    return new
+
+
+def midend_plain(coeffs, cfg, state: dict, fmd: torch.Tensor):
+    """K2 in plain PyTorch, op by op in float32 in the kernel's order.
+    Returns (state', (re, im) [C, B/8], theta [C, B/8] cycles)."""
+    _, fm_out = decimate_core(coeffs.taps_fm_out, state["ds_fm_out"], fmd, 2)
+    deemph = state["deemph"]
+    if cfg.use_deemphasis_filter:
+        deemph, fm_out = iir_filter(coeffs.deemph_b, coeffs.deemph_a,
+                                    deemph, fm_out)
+    _, (re, im) = hilbert_fir_p(coeffs.taps_hilbert, state["hilbert"], fm_out)
+    peak, (pr, pi) = iir_filter_planes(coeffs.peak_b, coeffs.peak_a,
+                                       state["peak_pilot"], (re, im))
+    theta = atan2_poly(pi, pr) * f32(1.0 / (2.0 * math.pi))
+    power = torch.sum(pr * pr + pi * pi, dim=-1)
+    new = mid_new_state(state, fmd, fm_out, deemph, peak, power)
+    return new, (re, im), theta
+
+
+def mid_args(name: str, coeffs, cfg, state: dict, c: int, dev) -> dict:
+    """The mid end's taps, carried state and IIR coefficients as the C
+    entries take them (``fmt_k12``, ``fmt_midend``), checked: every tensor
+    on ``dev``, contiguous float32, the tails matching the filter orders
+    and every state of ``c`` channels."""
+    x = state["deemph"]["x_hist"]
+    de_in = torch.stack([x[:, 0], state["deemph"]["y_hist"][:, 0]], dim=-1)
+    px, py = state["peak_pilot"]["x_hist"], state["peak_pilot"]["y_hist"]
+    peak_rows = {px.shape[0], py.shape[0]}
+    if peak_rows != {2 * c}:
+        raise ValueError(f"{name}: peak IIR state rows {peak_rows} do not "
+                         f"match the {c} channels (2 C rows)")
+    pk_in = torch.stack([px[:c, 0], px[:c, 1], py[:c, 0], py[:c, 1],
+                         px[c:, 0], px[c:, 1], py[c:, 0], py[c:, 1]], dim=-1)
+    a = {
+        "w2_rev": coeffs.taps_fm_out.flip(0).contiguous(),
+        "tail2": state["ds_fm_out"].contiguous(),
+        "wh_rev": coeffs.taps_hilbert.flip(0).contiguous(),
+        "htail": state["hilbert"].contiguous(),
+        "de_in": de_in,
+        "pk_in": pk_in,
+    }
+    if a["tail2"].shape[-1] != a["w2_rev"].shape[0] - 2 \
+            or a["htail"].shape[-1] != a["wh_rev"].shape[0] - 1:
+        raise ValueError(f"{name}: carried tails do not match the filter "
+                         "orders")
+    if any(a[k].shape[0] != c for k in ("tail2", "htail", "de_in", "pk_in")):
+        raise ValueError(f"{name}: state rows do not match the {c} channels")
+    _build.require(name, dev, torch.float32, **a)
+    a["de_out"] = torch.empty_like(de_in)
+    a["pk_out"] = torch.empty_like(pk_in)
+    return a
+
+
+def mid_c_args(coeffs, cfg, a: dict) -> list:
+    """The C arguments from ``w2_rev`` up to ``pk_st_out`` (``fmt_k12``'s
+    and ``fmt_midend``'s shared run of them)."""
+    db = [f32(v) for v in coeffs.deemph_b]
+    da = [f32(v) for v in coeffs.deemph_a]
+    pb = [f32(v) for v in coeffs.peak_b]
+    pa = [f32(v) for v in coeffs.peak_a]
+    return [a["w2_rev"].data_ptr(), a["w2_rev"].shape[0],
+            a["tail2"].data_ptr(), int(bool(cfg.use_deemphasis_filter)),
+            db[0], db[1], da[1], a["de_in"].data_ptr(),
+            a["de_out"].data_ptr(), a["wh_rev"].data_ptr(),
+            a["wh_rev"].shape[0], a["htail"].data_ptr(), pb[0], pb[1], pb[2],
+            pa[1], pa[2], a["pk_in"].data_ptr(), a["pk_out"].data_ptr()]
+
+
+def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
+    """State after a launch, from its IIR state outputs and power sum."""
+    deemph = state["deemph"]
+    if cfg.use_deemphasis_filter:
+        de = a["de_out"]
+        deemph = {"x_hist": de[:, 0:1], "y_hist": de[:, 1:2]}
+    pk = a["pk_out"]
+    peak = {
+        "x_hist": torch.cat([pk[:, 0:2], pk[:, 4:6]], dim=0),
+        "y_hist": torch.cat([pk[:, 2:4], pk[:, 6:8]], dim=0),
+    }
+    return mid_new_state(state, fmd, fm_out, deemph, peak, power)
+
+
+def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor):
+    dev = fmd.device
+    c, n4 = fmd.shape
+    a = mid_args("midend", coeffs, cfg, state, c, dev)
+    _build.require("midend", dev, torch.float32, fmd=fmd)
+    f = dict(device=dev, dtype=torch.float32)
+    n8 = n4 // 2
+    fm_out, re, im, theta = (torch.empty((c, n8), **f) for _ in range(4))
+    power = torch.empty((c,), **f)
+    fn = _build.function("midend", "fmt_midend", _ARGTYPES)
+    err = fn(fmd.data_ptr(), *mid_c_args(coeffs, cfg, a), c, n4,
+             fm_out.data_ptr(), re.data_ptr(), im.data_ptr(),
+             theta.data_ptr(), power.data_ptr(), _build.stream_ptr(dev))
+    _build.check("midend", err)
+    return mid_outputs(state, cfg, a, fmd, fm_out, power), (re, im), theta
+
+
+def midend(coeffs, cfg, state: dict, fmd: torch.Tensor):
+    """fm_demod [C, B/4] float32 -> (state', (re, im) [C, B/8], theta
+    [C, B/8] cycles).  CPU tensors run :func:`midend_plain`; CUDA tensors
+    launch the kernel."""
+    if fmd.ndim != 2 or fmd.dtype != torch.float32 or fmd.shape[-1] % 32:
+        raise ValueError(f"midend takes [C, B/4] float32 with B/4 % 32 == 0, "
+                         f"got {fmd.dtype} {tuple(fmd.shape)}")
+    if _build.on_cpu("midend", fmd.device):
+        return midend_plain(coeffs, cfg, state, fmd)
+    global launches
+    out = _launch(coeffs, cfg, state, fmd)
+    launches += 1
+    return out

@@ -1,14 +1,18 @@
-"""Broadcast-FM demodulator: the channel-batched pipeline on int8 planes.
+"""Broadcast-FM demodulator: the channel-batched pipeline.
 
-Counterpart of ``fm_radio_tpu/models/demod.py`` on its production path
-(``DemodConfig(frontend_int8=True)``, ``k12_fusion="auto"``,
-``chain_fusion="split"``; demod.py:339-372, 514-658):
+Counterpart of ``fm_radio_tpu/models/demod.py`` with
+``chain_fusion="split"`` (demod.py:247-470, 514-658), on every ingest form:
 
-    [2, C, B] int8 IQ planes (u8 - 128), or the same as phase-split
-    planes [2, 4, C, B/4] (x_p[u] = x[4u + p], the wideband channelizer's
-    M = 32 output; demod.py:262-271)
-      -> K12 (kernels/k12.py)      ds x4, discriminator, ds x2, de-emphasis,
-                                   Hilbert, pilot peak IIR -> (re, im), theta
+    x: [C, B] complex64 (u8 - 127 baseband), [2, C, B] float32 planes,
+       [C, B] float32 packed u8 words (w = I * 256 + Q), [2, C, B] int8
+       planes (u8 - 128), or the same as phase-split planes [2, 4, C, B/4]
+       (x_p[u] = x[4u + p], the wideband channelizer's M = 32 output)
+      -> int8 planes with frontend_int8 and k12_fusion != "off":
+         K12 (kernels/k12.py)     ds x4, discriminator, ds x2, de-emphasis,
+                                  Hilbert, pilot peak IIR -> (re, im), theta
+      -> every other form (the default DemodConfig()):
+         K1 (kernels/frontend.py) ds x4, discriminator -> fm_demod
+         K2 (kernels/midend.py)   ds x2, de-emphasis, Hilbert, peak IIR
       -> pilot PLL (kernels/pll.py)                      -> dt
       -> extract (kernels/extract.py)  L+R, L-R, RDS planes + RDS power
       -> L-R phase correction, RDS AGC gain (small tensor ops)
@@ -30,10 +34,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fm_radio_tpu.config import AudioOut, DemodConfig
+from fm_radio_tpu_torch.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
 from fm_radio_tpu_torch.kernels.extract import extract
-from fm_radio_tpu_torch.kernels.k12 import k12, k12_ps, quantize_ds4_taps
+from fm_radio_tpu_torch.kernels.frontend import frontend, frontend_i8
+from fm_radio_tpu_torch.kernels.k12 import (
+    interleave_ps,
+    k12,
+    k12_ps,
+    quantize_ds4_taps,
+)
+from fm_radio_tpu_torch.kernels.midend import midend
 from fm_radio_tpu_torch.kernels.pll import pilot_pll_theta
 from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
 from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
@@ -47,8 +58,9 @@ from fm_radio_tpu_torch.ops.design import (
 )
 from fm_radio_tpu_torch.ops.iir import iir_init_state
 
-# what the port runs; anything else names the ROADMAP.md item that adds it
-SLICE_CONFIG = DemodConfig(frontend_int8=True)
+# the int8 production configuration (demod --ingest i8, the wideband
+# stations): int8 planes take the fused K12
+INT8_CONFIG = DemodConfig(frontend_int8=True)
 BLOCK_MULTIPLE = 8192
 
 
@@ -150,26 +162,36 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet: ROADMAP.md, {item}")
 
 
-def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> None:
+def ingest_form(x) -> str:
+    """"complex", "planes", "words", "i8" or "i8ps" for an input that
+    ``demod_block`` takes; NotImplementedError for anything else."""
+    if x.dtype == torch.complex64 and x.ndim == 2:
+        return "complex"
+    if x.dtype == torch.float32 and x.ndim == 3 and x.shape[0] == 2:
+        return "planes"
+    if x.dtype == torch.float32 and x.ndim == 2:
+        return "words"
+    if x.dtype == torch.int8 and x.ndim == 3 and x.shape[0] == 2:
+        return "i8"
+    if x.dtype == torch.int8 and x.ndim == 4 and tuple(x.shape[:2]) == (2, 4):
+        return "i8ps"
+    raise _not_ported(f"{x.dtype} input of shape {tuple(x.shape)}",
+                      "modules still to port, item 1 (other ingest forms)")
+
+
+def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> str:
     """Raise NotImplementedError for any ingest form or option outside the
-    ported slice, naming the ROADMAP.md item that will add it."""
-    flat = x.ndim == 3 and x.shape[0] == 2
-    phase_split = x.ndim == 4 and tuple(x.shape[:2]) == (2, 4)
-    if x.dtype != torch.int8 or not (flat or phase_split):
-        raise _not_ported(f"{x.dtype} input of shape {tuple(x.shape)}",
-                          "modules still to port, item 1 (other ingest "
-                          "forms)")
+    ported slice, naming the ROADMAP.md item that will add it.  Returns the
+    ingest form (:func:`ingest_form`).  ``frontend_band_no`` is the TPU
+    kernel's tiling knob, output-identical, and is accepted."""
+    form = ingest_form(x)
     checks = [
         (include_taps, "include_taps",
          "modules still to port, item 2 (include_taps and the scan loops)"),
-        (not cfg.frontend_int8, "frontend_int8=False",
-         "kernels still to port, item 4 (split K1 on f32 planes and words)"),
         (cfg.interstage_i16, "interstage_i16",
-         "modules still to port, item 1 (other ingest forms and options)"),
+         "modules still to port, item 1 (the int16 inter-stage format)"),
         (cfg.chain_fusion != "split", f"chain_fusion={cfg.chain_fusion!r}",
          "kernels still to port, item 7 (the full-chain megakernel)"),
-        (cfg.k12_fusion == "off", "k12_fusion='off'",
-         "kernels still to port, items 3 and 5 (the split K1/K2 kernels)"),
         (cfg.pll_time_chunks > 1, "pll_time_chunks > 1",
          "kernels still to port, item 6 (the chunked pilot PLL)"),
     ]
@@ -180,30 +202,32 @@ def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> None:
     if (r.ds_fm_in, r.ds_fm_out, r.ds_audio, r.ds_rds) != (4, 2, 4, 8):
         raise _not_ported("a rate cascade other than 4/2/4/8",
                           "modules still to port, item 1 (other options)")
-    b = x.shape[-1] * (4 if phase_split else 1)
+    b = x.shape[-1] * (4 if form == "i8ps" else 1)
     if b % BLOCK_MULTIPLE:
         raise ValueError(f"block size {b} is not a multiple of "
                          f"{BLOCK_MULTIPLE}")
+    return form
 
 
 def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                 x: torch.Tensor, include_taps: bool = False,
                 record: dict | None = None):
-    """Demodulate one block of [2, C, B] int8 planes (u8 - 128), or of the
-    same block as phase-split planes [2, 4, C, B/4] (K12's phase-split
-    entry; the outputs are the same bit for bit).
+    """Demodulate one block: x [C, B] complex64, [2, C, B] float32 planes,
+    [C, B] float32 packed words, [2, C, B] int8 planes (u8 - 128), or the
+    int8 block as phase-split planes [2, 4, C, B/4] (module docstring).
 
     Returns (state', outs): outs["audio"] [C, B/32, 2] float32,
     outs["rds_sym"] complex64, outs["rds_pred"] float32 and
     outs["rds_valid"] bool, each [C, B/64].  On CUDA tensors every stage
-    of the four kernels runs on the card; nothing falls back to the CPU.
+    runs in the kernels on the card; nothing falls back to the CPU.
 
     ``record``, if given, receives the arguments of each kernel wrapper
-    under the kernel's name ("k12" or "k12_ps", "pll", "extract", "bpsk"),
-    so that a caller can run the wrapper or its plain version again on this
-    block's own inputs.
+    under the kernel's name ("k12" or "k12_ps", or "frontend" or
+    "frontend_i8" and "midend"; then "pll", "extract", "bpsk"), so that a
+    caller can run the wrapper or its plain version again on this block's
+    own inputs.
     """
-    check_slice(cfg, x, include_taps)
+    form = check_slice(cfg, x, include_taps)
     st = dict(state)
 
     def run(name, fn, *args):
@@ -212,11 +236,32 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                                  for a in args)
         return fn(*args)
 
-    # ---- K12 + pilot PLL (demod.py:339-372) ----------------------------
-    if x.ndim == 4:
-        st, fm_out_iq_p, theta = run("k12_ps", k12_ps, coeffs, cfg, st, x)
+    # ---- K12, or K1 + K2; then the pilot PLL (demod.py:247-470) ---------
+    fuse_k12 = (form in ("i8", "i8ps") and cfg.frontend_int8
+                and cfg.k12_fusion != "off")
+    if form == "i8ps" and not fuse_k12:
+        if x.device.type != "cpu":
+            raise ValueError(
+                "phase-split planes need the fused K12 on the card "
+                "(frontend_int8=True, k12_fusion != 'off'); only the plain "
+                "version re-interleaves them")
+        x, form = interleave_ps(x), "i8"
+    if fuse_k12:
+        k12_fn = k12_ps if form == "i8ps" else k12
+        st, fm_out_iq_p, theta = run(k12_fn.__name__, k12_fn, coeffs, cfg,
+                                     st, x)
     else:
-        st, fm_out_iq_p, theta = run("k12", k12, coeffs, cfg, st, x)
+        if form == "complex":  # as demod.py:248-249 splits it
+            x, form = torch.stack([x.real, x.imag]), "planes"
+        int8_taps = cfg.frontend_int8 and (
+            form in ("words", "i8") or cfg.assume_integer_input)
+        if form == "i8" and int8_taps:
+            st, fm_demod = run("frontend_i8", frontend_i8, coeffs, cfg, st, x)
+        else:
+            st, fm_demod = run("frontend", frontend, coeffs, cfg, st, x,
+                               int8_taps)
+        st, fm_out_iq_p, theta = run("midend", midend, coeffs, cfg, st,
+                                     fm_demod)
     st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
 
     # ---- extract (demod.py:514-540) ------------------------------------
@@ -267,7 +312,7 @@ class BroadcastFMDemod:
     ``process``, ``reset``, ``update_controls``).  ``device`` places the
     coefficients, the state and every block."""
 
-    def __init__(self, cfg: DemodConfig = SLICE_CONFIG, channels: int = 1,
+    def __init__(self, cfg: DemodConfig = DemodConfig(), channels: int = 1,
                  device="cuda"):
         self.cfg = cfg
         self.channels = channels
@@ -313,10 +358,15 @@ class BroadcastFMDemod:
         self.coeffs = make_coeffs(self.cfg, self.device)
 
     def process(self, x) -> dict:
-        """x: [2, C, B] (or [2, B] for one channel) int8 planes of
-        (I - 128, Q - 128), numpy or torch.  Returns the outs as numpy."""
+        """x: any form of :func:`demod_block`, numpy or torch; one channel
+        may drop its channel axis ([B] complex64 or words, [2, B] int8
+        planes).  Returns the outs as numpy."""
         x = torch.as_tensor(x)
-        if x.ndim == 2:
+        if x.dtype in (torch.float64, torch.complex128):
+            x = x.to(torch.complex64 if x.is_complex() else torch.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        elif x.ndim == 2 and x.dtype == torch.int8:
             x = x[:, None, :]
         self.state, outs = demod_block(self.cfg, self.coeffs, self.state,
                                        x.to(self.device))

@@ -12,17 +12,17 @@ Bridges (``bridge``):
   quantisation the capture already had.  At M = 32 it writes them as
   phase-split planes [2, 4, C, B/4], which K12's phase-split entry reads
   directly; at other M as [2, W, M, B], a free reshape to [2, C, B].
-- "f32" (exact planes into the f32 front end) is not ported: the port's
-  demod runs the int8 front end only (ROADMAP.md, kernels still to port,
-  item 4).
+- "f32": the exact float32 channel planes, scaled by 1/M, as [2, C, B]
+  float32 planes into the split front end (K1 on planes, then K2): the
+  accuracy oracle of the bridge.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fm_radio_tpu_torch.models.demod import _not_ported, demod_block, \
-    demod_init_state
+from fm_radio_tpu_torch.models.demod import demod_block, demod_init_state
+from fm_radio_tpu_torch.ops.cmath import f32
 from fm_radio_tpu_torch.parallel.channelizer import (
     as_tables,
     channelize_batch_p,
@@ -62,21 +62,28 @@ def wideband_demod_block(cfg, coeffs, ch_taps, state: dict, w_words,
     passed on to ``demod_block``,
     which records its own kernels' arguments."""
     m = num_channels
-    if bridge != "i8":
-        raise _not_ported(f"bridge={bridge!r} (exact planes into the f32 "
-                          "front end)",
-                          "kernels still to port, item 4 (split K1 on f32 "
-                          "planes and words)")
+    if bridge not in ("i8", "f32"):
+        raise ValueError(f"bridge must be 'i8' or 'f32', got {bridge!r}")
     if ch_taps is None:
         ch_taps = make_channelizer_taps(m)
     tab = as_tables(ch_taps, m, w_words.device)
-    out = "i8ps" if m == PHASE_SPLIT_M else "i8"
+    if bridge == "f32":
+        out = "f32"
+    else:
+        out = "i8ps" if m == PHASE_SPLIT_M else "i8"
     st = dict(state)
     if record is not None:
         record["channelizer"] = (tab, st["chan"], w_words, m, out)
-    st["chan"], y8 = channelize_batch_p(tab, st["chan"], w_words, m,
-                                        out=out, splits=splits)
-    x = y8 if out == "i8ps" else y8.reshape(2, y8.shape[1] * m, -1)
+    st["chan"], y = channelize_batch_p(tab, st["chan"], w_words, m,
+                                       out=out, splits=splits)
+    if out == "f32":
+        # undo the filterbank's DFT scaling (wideband.py:85-92)
+        c = y[0].shape[0] * m
+        inv_m = f32(1.0 / m)
+        x = torch.stack([y[0].reshape(c, -1) * inv_m,
+                         y[1].reshape(c, -1) * inv_m])
+    else:
+        x = y if out == "i8ps" else y.reshape(2, y.shape[1] * m, -1)
     st["demod"], outs = demod_block(cfg, coeffs, st["demod"], x,
                                     record=record)
     return st, outs

@@ -6,9 +6,12 @@ jax):
 - ``split_iq_i8``: raw u8 IQ -> [2, ..., N] int8 planes of (I - 128,
   Q - 128).  The shift is -128, not the reference's -127 (app.cpp:57-63),
   because 255 - 127 overflows int8; K12 adds the +1 back.
+- ``i8_planes_to_f32``: those planes back to centred (re, im) float32
+  (u8 - 127), exactly.
 - ``pack_iq_u8`` / ``unpack_iq_words``: one float32 word per complex
   sample, w = I * 256 + Q (exact integers < 2^16), the wideband
-  channelizer's input; unpacked and recentred by -127 exactly.
+  channelizer's and ``demod --ingest f32w``'s input; unpacked and
+  recentred by -127 exactly.
 """
 
 from __future__ import annotations
@@ -45,3 +48,9 @@ def split_iq_i8(iq_u8: np.ndarray) -> np.ndarray:
                          f"{iq.shape}")
     planes = np.moveaxis(iq, -1, 0).astype(np.int16) - 128
     return np.ascontiguousarray(planes.astype(np.int8))
+
+
+def i8_planes_to_f32(x8: torch.Tensor):
+    """[2, ..., N] int8 planes (u8 - 128) -> centred (re, im) float32
+    planes (u8 - 127): the cast and the +1 are exact."""
+    return x8[0].to(torch.float32) + 1.0, x8[1].to(torch.float32) + 1.0

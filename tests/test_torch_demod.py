@@ -19,17 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import AudioOut, DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.io.pcm import c64_to_u8
 from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
 from fm_radio_tpu.models import demod as jdemod
 from fm_radio_tpu.models.app import App as JaxApp
+from fm_radio_tpu_torch.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.models.app import App
 from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 from fm_radio_tpu_torch.utils.transfer import split_iq_i8
 
 CFG = DemodConfig(frontend_int8=True)
+JCFG = JDemodConfig(frontend_int8=True)
 BLOCK = 32768
 GROUPS = [
     (0x1234, (0 << 12) | (1 << 10) | 0b00000, 0xE101, 0x4142),  # 0A
@@ -63,7 +65,7 @@ def _leaf_err(a, b):
 
 
 def test_demod_block_matches_jax_pallas():
-    cfg_j = dataclasses.replace(CFG, loop_impl="pallas")
+    cfg_j = dataclasses.replace(JCFG, loop_impl="pallas")
     c, b, blocks = 4, 8192, 3
     x = _planes(c, b * blocks, seed=2)
     co_j, co_t = jdemod.make_coeffs(cfg_j), tdemod.make_coeffs(CFG)
@@ -145,7 +147,7 @@ def test_demod_controls_and_reset_match_jax():
     reset, each against the JAX demodulator on its default path."""
     b = 8192
     x = _planes(1, 3 * b, seed=4)
-    jd = jdemod.BroadcastFMDemod(CFG)
+    jd = jdemod.BroadcastFMDemod(JCFG)
     td = tdemod.BroadcastFMDemod(CFG, device="cpu")
     for blk in range(3):
         if blk == 1:
@@ -172,7 +174,7 @@ def station():
     iq = FMModulator(ModulatorConfig()).generate(
         BLOCK * 24, left_hz=1000.0, right_hz=3000.0, rds_groups=GROUPS)
     x8 = split_iq_i8(c64_to_u8(iq.astype(np.complex64)))[:, None, :]
-    app = App(block_size=BLOCK, channels=1, device="cpu")
+    app = App(block_size=BLOCK, cfg=CFG, channels=1, device="cpu")
     app.process(x8)
     return x8, app
 
@@ -183,7 +185,7 @@ def test_station_matches_jax_app(station, loop_impl):
     on its default CPU path (XLA scans) and on its Pallas kernels."""
     x8, app = station
     ja = JaxApp(block_size=BLOCK, channels=1,
-                cfg=dataclasses.replace(CFG, loop_impl=loop_impl))
+                cfg=dataclasses.replace(JCFG, loop_impl=loop_impl))
     ja.process(x8)
     assert app.rds_bytes(0).size > 0
     np.testing.assert_array_equal(app.rds_bytes(0), ja.rds_bytes(0))
@@ -212,9 +214,9 @@ def test_app_reblocking_and_drain(station):
     detaches what accumulated and keeps the stream state."""
     x8, app = station
     n = 3 * BLOCK
-    a1 = App(block_size=BLOCK, channels=1, device="cpu")
+    a1 = App(block_size=BLOCK, cfg=CFG, channels=1, device="cpu")
     a1.process(x8[..., :n])
-    a2 = App(block_size=BLOCK, channels=1, device="cpu")
+    a2 = App(block_size=BLOCK, cfg=CFG, channels=1, device="cpu")
     for lo in range(0, n, 20000):
         a2.process(x8[:, 0, lo : min(lo + 20000, n)])  # [2, N] one channel
     np.testing.assert_array_equal(a1.audio, a2.audio)

@@ -13,12 +13,21 @@ import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.models import demod as jdemod
+from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
-CFG = DemodConfig(frontend_int8=True)
+CFG_KW = {"frontend_int8": True}
+CFG, JCFG = DemodConfig(**CFG_KW), JDemodConfig(**CFG_KW)
+
+
+def cfgs(**changes):
+    """The port's and the JAX package's DemodConfig from the same keyword
+    arguments (CFG's and ``changes``)."""
+    kw = {**CFG_KW, **changes}
+    return DemodConfig(**kw), JDemodConfig(**kw)
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -46,8 +55,8 @@ def _leaves(tree):
     {"audio_lpr_cutoff_hz": 12000, "audio_lmr_cutoff_hz": 9000},
 ])
 def test_make_coeffs_bit_identical(changes):
-    cfg = dataclasses.replace(CFG, **changes)
-    cj, ct = jdemod.make_coeffs(cfg), tdemod.make_coeffs(cfg)
+    cfg, jcfg = cfgs(**changes)
+    cj, ct = jdemod.make_coeffs(jcfg), tdemod.make_coeffs(cfg)
     for name in ("taps_fm_in", "taps_fm_out", "taps_hilbert",
                  "taps_audio_lpr", "taps_audio_lmr", "taps_rds"):
         a, b = getattr(ct, name).numpy(), np.asarray(getattr(cj, name))
@@ -68,7 +77,7 @@ def test_k12_quantised_taps_match_quantize_band_int8():
         quantize_band_int8,
     )
 
-    cj, ct = jdemod.make_coeffs(CFG), tdemod.make_coeffs(CFG)
+    cj, ct = jdemod.make_coeffs(JCFG), tdemod.make_coeffs(CFG)
     b1j, b2j, srow_j = (np.asarray(a) for a in
                         quantize_band_int8(_band_matrix(cj.taps_fm_in)))
     b1t, b2t, srow_t = ct.k1_i8
@@ -83,7 +92,7 @@ def test_k12_quantised_taps_match_quantize_band_int8():
 
 def test_init_state_layout_matches_jax():
     c = 3
-    sj = jax.tree.map(np.asarray, jdemod.demod_init_state(CFG, c))
+    sj = jax.tree.map(np.asarray, jdemod.demod_init_state(JCFG, c))
     st = state_to_numpy(tdemod.demod_init_state(CFG, c))
     assert sj.keys() == st.keys()
     lj, lt = dict(_leaves(sj)), dict(_leaves(st))
@@ -108,7 +117,7 @@ def test_state_numpy_round_trip():
         assert p == q and u.dtype == v.dtype, p
         assert torch.equal(u, v), p
     from_jax = state_from_numpy(
-        jax.tree.map(np.asarray, jdemod.demod_init_state(CFG, c)))
+        jax.tree.map(np.asarray, jdemod.demod_init_state(JCFG, c)))
     assert dict(_leaves(from_jax)).keys() == dict(_leaves(s)).keys()
     assert type(from_jax["pll"]).__module__.startswith("fm_radio_tpu_torch")
 
@@ -121,8 +130,11 @@ def test_tf32_off():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without jax.
-    The build directory (fm_radio_tpu_torch/_build/) holds no modules."""
+    """Every module of the port, and chip_smoke.py, imports without jax
+    and without any module of the JAX package ``fm_radio_tpu`` (top-level
+    package exactly that name; the port's own ``fm_radio_tpu_torch`` is
+    another package), not even one that imports no jax.  The build
+    directory (fm_radio_tpu_torch/_build/) holds no modules."""
     paths = (p.relative_to(REPO)
              for p in (REPO / "fm_radio_tpu_torch").rglob("*.py"))
     mods = sorted(".".join(p.with_suffix("").parts) for p in paths
@@ -132,7 +144,7 @@ def test_port_imports_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib'))\n"
+            "('jax', 'jaxlib', 'fm_radio_tpu'))\n"
             "assert not bad, bad\n"
             f"print(len({mods!r}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -142,47 +154,58 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("what", [
-    "complex", "f32_planes", "packed_words", "phase_split", "include_taps",
-    "interstage_i16", "chain_fusion", "k12_off", "pll_chunks",
-    "frontend_f32", "wideband_f32_bridge", "channelizer_splits",
+    "phase_split", "include_taps", "interstage_i16", "interstage_f32",
+    "chain_fusion", "pll_chunks", "channelizer_splits", "rds_native",
 ])
 def test_outside_the_slice_raises(what):
     c, b = 1, 8192
     cfg = CFG
     x = torch.zeros((2, c, b), dtype=torch.int8)
     kw = {}
-    if what in ("wideband_f32_bridge", "channelizer_splits"):
+    if what == "channelizer_splits":
         from fm_radio_tpu_torch.models import wideband
 
         m = 8
         st = wideband.wideband_init_state(CFG, m, 1)
         words = torch.full((1, m * b), 127.0 * 256 + 127.0)
-        kw = ({"bridge": "f32"} if what == "wideband_f32_bridge"
-              else {"splits": 1})
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             wideband.wideband_demod_block(CFG, tdemod.make_coeffs(CFG), None,
-                                          st, words, m, **kw)
+                                          st, words, m, splits=1)
         return
-    if what == "complex":
-        x = torch.zeros((c, b), dtype=torch.complex64)
-    elif what == "f32_planes":
-        x = torch.zeros((2, c, b))
-    elif what == "packed_words":
-        x = torch.zeros((c, b))
-    elif what == "phase_split":
+    if what == "rds_native":
+        from fm_radio_tpu_torch.rds.chain import make_rds_chain
+
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_rds_chain("native")
+        return
+    if what == "phase_split":
         # phase planes are taken as the ds x4's four phases only
         x = torch.zeros((2, 2, c, b // 2), dtype=torch.int8)
     elif what == "include_taps":
         kw["include_taps"] = True
+    elif what == "interstage_f32":
+        # the int16 inter-stage format on the split path's f32 ingest
+        cfg = DemodConfig(interstage_i16=True)
+        x = torch.zeros((2, c, b))
     else:
         cfg = dataclasses.replace(CFG, **{
             "interstage_i16": {"interstage_i16": True},
             "chain_fusion": {"chain_fusion": "auto"},
-            "k12_off": {"k12_fusion": "off"},
             "pll_chunks": {"pll_time_chunks": 4},
-            "frontend_f32": {"frontend_int8": False},
         }[what])
     co = tdemod.make_coeffs(cfg)
     st = tdemod.demod_init_state(cfg, c)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdemod.demod_block(cfg, co, st, x, **kw)
+
+
+def test_phase_split_without_k12_raises_on_the_card():
+    """Phase-split planes without the fused K12 (k12_fusion="off") are
+    re-interleaved only by the plain version: on a device tensor
+    demod_block raises instead of copying them back into flat planes."""
+    cfg = DemodConfig(frontend_int8=True, k12_fusion="off")
+    x4 = torch.zeros((2, 4, 1, 2048), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="phase-split planes need the fused "
+                                         "K12"):
+        tdemod.demod_block(cfg, tdemod.make_coeffs(cfg),
+                           tdemod.demod_init_state(cfg, 1), x4)

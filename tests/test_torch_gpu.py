@@ -76,3 +76,42 @@ def test_cli_stations_on_card(tmp_path, capsys):
     assert [s["pi_code"] for s in summary] == ["1234", "1235"], summary
     assert [s["service_name"] for s in summary] == ["ST 01   ", "ST 02   "]
     assert main(["selftest", "--stations", "2"]) == 0, capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_split_kernels_match_plain_on_card():
+    """K1 on each of its six forms and K2 (de-emphasis off and on) against
+    their plain versions on the card, on the arguments demod_block
+    recorded, two blocks with carried state (chip_smoke.py runs the same
+    at C=256, B=131072); the split int8 path (k12_fusion="off") bit for
+    bit against the fused K12; and the float32 wideband bridge."""
+    _need_card()
+    import chip_smoke
+
+    rows, k12_diff = chip_smoke.compare_split(channels=8, block=16384,
+                                              blocks=2)
+    assert all(r["ok"] for r in rows) and k12_diff == 0.0, (rows, k12_diff)
+    assert not any(v["constant"] for v in rows[0]["inputs"].values())
+    frows = chip_smoke.compare_wideband_f32(block=16384, blocks=2,
+                                            n_captures=1)
+    assert all(r["ok"] for r in frows), frows
+
+
+@pytest.mark.gpu
+def test_cli_demod_f32w_on_card(tmp_path, capsys):
+    """``demod --ingest f32w`` on the selftest station runs K1 on packed
+    words and K2 on the card (launches counted) and decodes its PI."""
+    _need_card()
+    import json
+
+    from fm_radio_tpu_torch.apps.cli import main, selftest_u8
+    from fm_radio_tpu_torch.kernels import frontend, midend
+
+    pcm = tmp_path / "station.pcm"
+    selftest_u8(1.0, 65536).tofile(pcm)
+    frontend.launches = midend.launches = 0
+    assert main(["demod", "-i", str(pcm), "-o", str(tmp_path / "out.wav"),
+                 "--ingest", "f32w"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["pi_code"] == "1234", summary
+    assert frontend.launches == midend.launches > 0

@@ -18,13 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
 from fm_radio_tpu.kernels.bpsk_pallas import bpsk_sync_pallas
 from fm_radio_tpu.kernels.extract_pallas import extract_pallas
 from fm_radio_tpu.kernels.k12_pallas import k12_pallas
 from fm_radio_tpu.kernels.pll_pallas import pilot_pll_pallas_theta
 from fm_radio_tpu.models import demod as jdemod
+from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.kernels import bpsk as tbpsk
 from fm_radio_tpu_torch.kernels import extract as textract
 from fm_radio_tpu_torch.kernels import k12 as tk12
@@ -33,16 +34,24 @@ from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 from fm_radio_tpu_torch.utils.transfer import split_iq_i8
 
-CFG = DemodConfig(frontend_int8=True)
+CFG_KW = {"frontend_int8": True}
+CFG, JCFG = DemodConfig(**CFG_KW), JDemodConfig(**CFG_KW)
+
+
+def cfgs(**changes):
+    """The port's and the JAX package's DemodConfig from the same keyword
+    arguments (CFG's and ``changes``)."""
+    kw = {**CFG_KW, **changes}
+    return DemodConfig(**kw), JDemodConfig(**kw)
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _start(cfg, c):
+def _start(jcfg, c):
     """One start state for both packages: (JAX state, port state)."""
-    st_j = jdemod.demod_init_state(cfg, c)
+    st_j = jdemod.demod_init_state(jcfg, c)
     return st_j, state_from_numpy(_np(st_j))
 
 
@@ -74,16 +83,14 @@ def _station_planes(c, n, seed):
 
 @pytest.mark.parametrize("use_deemph", [False, True])
 def test_k12_plain_matches_pallas(use_deemph):
-    from dataclasses import replace
-
-    cfg = replace(CFG, use_deemphasis_filter=use_deemph)
-    co_j, co_t = jdemod.make_coeffs(cfg), tdemod.make_coeffs(cfg)
+    cfg, jcfg = cfgs(use_deemphasis_filter=use_deemph)
+    co_j, co_t = jdemod.make_coeffs(jcfg), tdemod.make_coeffs(cfg)
     c, b = 4, 8192
     x = _station_planes(c, 2 * b, seed=7)
-    st_j, st_t = _start(cfg, c)
+    st_j, st_t = _start(jcfg, c)
     for blk in range(2):
         xb = x[:, :, blk * b : (blk + 1) * b]
-        st_j, (re_j, im_j), th_j = k12_pallas(co_j, cfg, st_j, jnp.asarray(xb),
+        st_j, (re_j, im_j), th_j = k12_pallas(co_j, jcfg, st_j, jnp.asarray(xb),
                                                interpret=True)
         st_t, (re_t, im_t), th_t = tk12.k12(co_t, cfg, st_t,
                                              torch.from_numpy(xb))
@@ -115,11 +122,11 @@ def _pilot_theta(c, n, seed):
 def test_pll_plain_matches_pallas():
     c, n = 4, 1024
     theta = _pilot_theta(c, 2 * n, seed=3)
-    st_j, st_t = _start(CFG, c)
+    st_j, st_t = _start(JCFG, c)
     pj, pt = st_j["pll"], st_t["pll"]
     for blk in range(2):
         th = theta[:, blk * n : (blk + 1) * n]
-        pj, dt_j = pilot_pll_pallas_theta(CFG, pj, jnp.asarray(th),
+        pj, dt_j = pilot_pll_pallas_theta(JCFG, pj, jnp.asarray(th),
                                           interpret=True)
         pt, dt_t = tpll.pilot_pll_theta(CFG, pt, torch.from_numpy(th))
         _close(dt_t, dt_j, atol=2e-6, what="dt")
@@ -128,20 +135,20 @@ def test_pll_plain_matches_pallas():
 
 
 def test_extract_plain_matches_pallas():
-    co_j, co_t = jdemod.make_coeffs(CFG), tdemod.make_coeffs(CFG)
+    co_j, co_t = jdemod.make_coeffs(JCFG), tdemod.make_coeffs(CFG)
     c, n = 3, 2048
     rng = np.random.default_rng(13)
     xr = rng.standard_normal((c, 2 * n)).astype(np.float32) * 0.4
     xi = rng.standard_normal((c, 2 * n)).astype(np.float32) * 0.4
     dt = rng.random((c, 2 * n)).astype(np.float32) - 0.5
     off = rng.standard_normal((c,)).astype(np.float32) * 0.1
-    st_j, st_t = _start(CFG, c)
+    st_j, st_t = _start(JCFG, c)
     st_j = dict(st_j, lmr_phase_err=jnp.asarray(off))
     st_t = dict(st_t, lmr_phase_err=torch.from_numpy(off))
     for blk in range(2):
         sl = slice(blk * n, (blk + 1) * n)
         st_j, lpr_j, lmr_j, rds_j, pow_j = extract_pallas(
-            co_j, CFG, st_j, (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])),
+            co_j, JCFG, st_j, (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])),
             jnp.asarray(dt[:, sl]), interpret=True)
         st_t, lpr_t, lmr_t, rds_t, pow_t = textract.extract(
             co_t, CFG, st_t,
@@ -172,13 +179,13 @@ def test_bpsk_plain_matches_pallas():
     c, n = 4, 512
     xr, xi = _rds_signal(c, 2 * n, seed=5)
     gain = np.array([0.9, 1.1, 1.3, 0.7], np.float32)
-    st_j, st_t = _start(CFG, c)
+    st_j, st_t = _start(JCFG, c)
     bj, bt = st_j["bpsk"], st_t["bpsk"]
     n_valid = 0
     for blk in range(2):
         sl = slice(blk * n, (blk + 1) * n)
         bj, oj = bpsk_sync_pallas(
-            CFG, bj, (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])),
+            JCFG, bj, (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])),
             gain=jnp.asarray(gain), interpret=True)
         bt, ot = tbpsk.bpsk_sync(
             CFG, bt, (torch.from_numpy(xr[:, sl]), torch.from_numpy(xi[:, sl])),
@@ -198,10 +205,13 @@ def test_bpsk_plain_matches_pallas():
 
 def test_dispatch_never_falls_back(monkeypatch, tmp_path):
     """Only CPU tensors take the plain version: a tensor on another device
-    is refused (K12 flat and phase-split, the channelizer), and a kernel
-    that fails to build raises instead of running anything else."""
+    is refused (K12 flat and phase-split, the channelizer, K1 on each
+    ingest form and its int8-direct entry, K2), and a kernel that fails to
+    build raises instead of running anything else."""
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import channelizer as tchan
+    from fm_radio_tpu_torch.kernels import frontend as tfront
+    from fm_radio_tpu_torch.kernels import midend as tmid
 
     co, st = tdemod.make_coeffs(CFG), tdemod.demod_init_state(CFG, 1)
     x = torch.zeros((2, 1, 8192), dtype=torch.int8, device="meta")
@@ -216,11 +226,24 @@ def test_dispatch_never_falls_back(monkeypatch, tmp_path):
     words = torch.zeros((1, 4096 * m), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tchan.channelize(tab, (zeros, zeros), words, m, out="i8ps")
+    for xk, int8_taps in ((torch.zeros((2, 1, 8192), device="meta"), False),
+                          (torch.zeros((2, 1, 8192), device="meta"), True),
+                          (torch.zeros((1, 8192), device="meta"), True),
+                          (x, False)):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            tfront.frontend(co, CFG, st, xk, int8_taps)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfront.frontend_i8(co, CFG, st, x)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tmid.midend(co, CFG, st, torch.zeros((1, 2048), device="meta"))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_libs", {})
     for name, symbol in (("k12", "fmt_k12"),
-                         ("channelizer", "fmt_channelize")):
+                         ("channelizer", "fmt_channelize"),
+                         ("frontend", "fmt_frontend"),
+                         ("frontend", "fmt_frontend_i8"),
+                         ("midend", "fmt_midend")):
         with pytest.raises(RuntimeError, match=f"nvcc failed on {name}.cu"):
             _build.function(name, symbol, [])
 
@@ -238,3 +261,24 @@ def test_k12_launch_refuses_state_rows(key, ps):
     x = torch.zeros(shape, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="rows"):
         tk12._launch(co, CFG, st, x, ps=ps)
+
+
+@pytest.mark.parametrize("entry", ["frontend", "frontend_i8", "midend"])
+def test_split_launch_refuses_state_rows(entry):
+    """As K12's: a carried state of another channel count (3 against 2)
+    never reaches K1 or K2 on the card; their launch paths check it."""
+    from fm_radio_tpu_torch.kernels import frontend as tfront
+    from fm_radio_tpu_torch.kernels import midend as tmid
+
+    co = tdemod.make_coeffs(CFG)
+    st = dict(tdemod.demod_init_state(CFG, 2))
+    st3 = tdemod.demod_init_state(CFG, 3)
+    with pytest.raises(ValueError, match="channels"):
+        if entry == "midend":
+            st["peak_pilot"] = st3["peak_pilot"]
+            tmid._launch(co, CFG, st,
+                         torch.zeros((2, 2048), device="meta"))
+        else:
+            st["ds_fm_in"] = st3["ds_fm_in"]
+            x = torch.zeros((2, 2, 8192), dtype=torch.int8, device="meta")
+            tfront._launch(co, CFG, st, x, True, direct=entry != "frontend")

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.kernels.pll_pallas import _atan2 as j_atan2
 from fm_radio_tpu.models import demod as jdemod
 from fm_radio_tpu.ops import agc as jagc
@@ -16,6 +16,7 @@ from fm_radio_tpu.ops import fir as jfir
 from fm_radio_tpu.ops import iir as jiir
 from fm_radio_tpu.ops.discriminator import fm_discriminate_p as j_disc
 from fm_radio_tpu.ops.mixer import apply_harmonic_pll_p as j_mix
+from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.ops import agc as tagc
 from fm_radio_tpu_torch.ops import cmath as tcm
@@ -25,8 +26,9 @@ from fm_radio_tpu_torch.ops.discriminator import fm_discriminate_p as t_disc
 from fm_radio_tpu_torch.ops.mixer import apply_harmonic_pll_p as t_mix
 
 CFG = DemodConfig(frontend_int8=True)
+JCFG = JDemodConfig(frontend_int8=True)
 RNG = np.random.default_rng(21)
-CO_J = jdemod.make_coeffs(CFG)
+CO_J = jdemod.make_coeffs(JCFG)
 CO_T = tdemod.make_coeffs(CFG)
 
 
@@ -104,10 +106,10 @@ def test_iir_matches_jax_and_splits(which):
         b, a = CO_J.peak_b, CO_J.peak_a
         bt, at = CO_T.peak_b, CO_T.peak_a
     else:
-        cfg = DemodConfig(frontend_int8=True, use_deemphasis_filter=True,
-                          deemphasis_cutoff_us=50)
-        cj = jdemod.make_coeffs(cfg)
-        ct = tdemod.make_coeffs(cfg)
+        kw = {"frontend_int8": True, "use_deemphasis_filter": True,
+              "deemphasis_cutoff_us": 50}
+        cj = jdemod.make_coeffs(JDemodConfig(**kw))
+        ct = tdemod.make_coeffs(DemodConfig(**kw))
         b, a, bt, at = cj.deemph_b, cj.deemph_a, ct.deemph_b, ct.deemph_a
     c, n = 3, 512
     r = len(at) - 1

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
 from fm_radio_tpu.kernels.channelizer_pallas import channelize_pallas
 from fm_radio_tpu.kernels.k12_pallas import k12_pallas
@@ -25,6 +25,7 @@ from fm_radio_tpu.models import demod as jdemod
 from fm_radio_tpu.models import wideband as jwide
 from fm_radio_tpu.parallel import channelizer as jch
 from fm_radio_tpu.utils import transfer as jtransfer
+from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.kernels import k12 as tk12
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.models import wideband as twide
@@ -33,6 +34,7 @@ from fm_radio_tpu_torch.utils import transfer as ttransfer
 from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 CFG = DemodConfig(frontend_int8=True)
+JCFG = JDemodConfig(frontend_int8=True)
 K = 16
 
 
@@ -267,14 +269,14 @@ def test_k12_ps_matches_pallas_interpret():
     """The port's K12 on phase planes against ``k12_pallas`` in interpret
     mode on the same phase planes (its _k12_kernel_ps), two blocks, within
     the flat K12's tolerances (tests/test_torch_kernels.py)."""
-    co_j, co_t = jdemod.make_coeffs(CFG), tdemod.make_coeffs(CFG)
+    co_j, co_t = jdemod.make_coeffs(JCFG), tdemod.make_coeffs(CFG)
     c, b = 4, 8192
     ps, _ = _station_planes_ps(c, 2 * b, seed=7)
-    st_j = jdemod.demod_init_state(CFG, c)
+    st_j = jdemod.demod_init_state(JCFG, c)
     st_t = state_from_numpy(_np(st_j))
     for blk in range(2):
         xb = np.ascontiguousarray(ps[..., blk * b // 4 : (blk + 1) * b // 4])
-        st_j, (re_j, im_j), th_j = k12_pallas(co_j, CFG, st_j,
+        st_j, (re_j, im_j), th_j = k12_pallas(co_j, JCFG, st_j,
                                               jnp.asarray(xb), interpret=True)
         st_t, (re_t, im_t), th_t = tk12.k12_ps(co_t, CFG, st_t,
                                                torch.from_numpy(xb))
@@ -295,7 +297,7 @@ def test_wideband_state_round_trip_and_layout():
     """The wideband state has the JAX layout (same leaves, shapes, dtypes)
     and round-trips through state_{to,from}_numpy leaf for leaf."""
     m, w = 8, 2
-    st_j = _np(jwide.wideband_init_state(CFG, m, w))
+    st_j = _np(jwide.wideband_init_state(JCFG, m, w))
     st_t = twide.wideband_init_state(CFG, m, w)
     co = tdemod.make_coeffs(CFG)
     st_t, _ = twide.wideband_demod_block(

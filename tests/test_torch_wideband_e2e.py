@@ -3,15 +3,13 @@ against the JAX package, and the port's phase-split bridge against its flat
 int8 bridge.  Inputs come from numpy seeds; both packages start from one
 state."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fm_radio_tpu.config import DemodConfig
+from fm_radio_tpu.config import DemodConfig as JDemodConfig
 from fm_radio_tpu.io.synth import (
     FMModulator,
     ModulatorConfig,
@@ -20,10 +18,11 @@ from fm_radio_tpu.io.synth import (
 )
 from fm_radio_tpu.models import demod as jdemod
 from fm_radio_tpu.models import wideband as jwide
-from fm_radio_tpu.rds.chain import make_rds_chain
+from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.models import wideband as twide
 from fm_radio_tpu_torch.parallel import channelizer as tch
+from fm_radio_tpu_torch.rds.chain import make_rds_chain
 from fm_radio_tpu_torch.utils import transfer as ttransfer
 from fm_radio_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
@@ -83,7 +82,7 @@ def test_wideband_demod_block_matches_jax(m):
     the two demodulators reach the BPSK clock, which may take a decision
     one sample apart without changing a decoded bit.)"""
     b, blocks, channel = 32768, 5, 3
-    cfg_j = dataclasses.replace(CFG, loop_impl="pallas")
+    cfg_j = JDemodConfig(frontend_int8=True, loop_impl="pallas")
     co_j, co_t = jdemod.make_coeffs(cfg_j), tdemod.make_coeffs(CFG)
     words = _station_capture(m, b * blocks, channel)
     st_j = jwide.wideband_init_state(cfg_j, m, 2)
