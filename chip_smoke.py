@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: nvcc builds the seven kernel libraries of fm_radio_tpu_torch/csrc/
+2. build: nvcc builds the eight kernel libraries of fm_radio_tpu_torch/csrc/
    (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, on the
    arguments ``demod_block`` gave it, at C=256 channels x B=131,072
@@ -30,6 +30,13 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    k12_fusion="off")`` against the fused K12 on the same int8 planes,
    outputs and state bit for bit; and the wideband float32 bridge
    (channelizer -> f32 planes -> K1 -> K2) at W=4 loud captures, M=32;
+3c. the full-chain megakernel against its plain version on the card, on
+   the arguments ``demod_block(chain_fusion="auto")`` recorded, at C=256 x
+   B=131,072, two blocks with carried state, on packed words, float32
+   planes (de-emphasis off and on) and complex64, with BPSK without a gain
+   after it; the chunked PLL (``pll_time_chunks=8``, after K12) at C=256 x
+   B=1,048,576 and at C=5, two blocks; each input's statistics, failing on
+   a constant one;
 4. the pre-split main path at the bench cell (C=2048, B=131,072, int8
    planes made as bench.py makes them): one warm-up block, then 8 blocks
    through ``demod_block`` with the launch counters set to 0 just before
@@ -43,6 +50,15 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    block, 8 counted blocks, then K1 and K2 timed alone beside their plain
    versions on the last block's arguments (and, for complex64, the plane
    split alone);
+4c. the chain cell (C=2048 x B=131,072 packed words,
+   ``DemodConfig(assume_integer_input=True, chain_fusion="auto")``: one
+   warm-up block, 8 counted blocks, one ``chain`` and one ``bpsk`` launch
+   each), the megakernel timed alone beside its plain version, the same
+   words through the f32w split cell (audio and the state before the RDS
+   AGC bit for bit), profiled; and the chunked-PLL cell (C=256 x
+   B=1,048,576 int8 planes, ``pll_time_chunks=8``, beside G=1; 4 counted
+   blocks each), the chunked and the sequential PLL alone on the same
+   theta, their serial steps and the chunked dt's deviation;
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -63,6 +79,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    (``process_u8``, ``DemodConfig()``) and through ``demod --ingest f32w``
    (identical RDS bytes, audio SNR >= 75 dB, PI decoded), then the
    ``demod`` command itself on the card;
+6c. the selftest station through App with ``pll_time_chunks=4`` (block
+   262,144) and with ``chain_fusion="auto"`` on 8 channels of packed
+   words, on the card and with the plain versions on the host CPU:
+   identical RDS bytes, audio SNR >= 75 dB, PI 1234;
 7. wideband stations through ``StationsApp``: ``selftest --stations 4``
    (M=8, flat int8 bridge, 2 s; every station's PI and name) and 3
    stations on an M=32 grid (phase-split bridge, 1.5 s; every station's
@@ -118,13 +138,20 @@ SPLIT_KERNELS = (
     ("midend", "fm_radio_tpu_torch/csrc/midend.cu",
      "fm_radio_tpu/kernels/midend_pallas.py:225"),
 )
+CHAIN_KERNELS = (
+    ("chain", "fm_radio_tpu_torch/csrc/chain.cu",
+     "fm_radio_tpu/kernels/chain_pallas.py:74"),
+    ("pll_chunked", "fm_radio_tpu_torch/csrc/pll.cu",
+     "fm_radio_tpu/kernels/pll_pallas.py:382"),
+)
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
 # rounding; the power sums differ only in summation order.  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact.
 TOL = {"k12": 1e-5, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
        "k12_ps": 1e-5, "channelizer": 0.0, "frontend": 1e-6,
-       "frontend_i8": 1e-6, "midend": 1e-5}
+       "frontend_i8": 1e-6, "midend": 1e-5, "chain": 1e-5,
+       "pll_chunked": 1e-6}
 POWER_RTOL = 1e-5
 SNR_MIN_DB = 75.0
 # per-channel amplitude of bench.py's wideband synthesis (bench.py:311-334)
@@ -166,6 +193,7 @@ def nvidia_smi_line() -> str:
 def _modules():
     from fm_radio_tpu_torch.kernels import (
         bpsk,
+        chain,
         channelizer,
         extract,
         frontend,
@@ -176,16 +204,18 @@ def _modules():
 
     return {"k12": k12, "pll": pll, "extract": extract, "bpsk": bpsk,
             "channelizer": channelizer, "frontend": frontend,
-            "midend": midend}
+            "midend": midend, "chain": chain}
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0 (K12's flat and phase-split
-    entries count apart, as do K1's and its int8-direct entry)."""
+    entries count apart, as do K1's and its int8-direct entry, and the
+    sequential and chunked PLL)."""
     for mod in _modules().values():
         mod.launches = 0
     _modules()["k12"].launches_ps = 0
     _modules()["frontend"].launches_i8 = 0
+    _modules()["pll"].launches_chunked = 0
 
 
 def read_counts() -> dict:
@@ -193,6 +223,7 @@ def read_counts() -> dict:
     counts = {name: mod.launches for name, mod in m.items()}
     counts["k12_ps"] = m["k12"].launches_ps
     counts["frontend_i8"] = m["frontend"].launches_i8
+    counts["pll_chunked"] = m["pll"].launches_chunked
     return counts
 
 
@@ -264,6 +295,8 @@ def _rel(a, b) -> float:
 K12_KEYS = ("ds_fm_in", "disc_prev_theta", "ds_fm_out", "deemph", "hilbert",
             "peak_pilot")
 EXTRACT_KEYS = ("ds_audio_lpr", "ds_audio_lmr", "ds_rds")
+# every state key the megakernel writes (agc_pilot apart: "rel")
+CHAIN_KEYS = K12_KEYS + ("pll",) + EXTRACT_KEYS
 
 
 def _stages():
@@ -282,6 +315,9 @@ def _stages():
         "frontend_i8": (m["frontend"].frontend_i8,
                         m["frontend"].frontend_i8_plain),
         "midend": (m["midend"].midend, m["midend"].midend_plain),
+        "chain": (m["chain"].chain, m["chain"].chain_plain),
+        "pll_chunked": (m["pll"].pilot_pll_chunked,
+                        m["pll"].pll_chunked_plain),
     }
 
 
@@ -304,9 +340,14 @@ def stage_errors(name: str, kout, pout) -> dict:
         return {"err": max(_max_err(zip(iq_k, iq_p)), _wrapped_err(th_k, th_p),
                            _state_err(sk, sp, K12_KEYS)),
                 "rel": _rel(sk["agc_pilot"], sp["agc_pilot"])}
-    if name == "pll":
+    if name in ("pll", "pll_chunked"):
         (sk, dt_k), (sp, dt_p) = kout, pout
         return {"err": max(_max_err([(dt_k, dt_p)]), _max_err(zip(sk, sp)))}
+    if name == "chain":
+        (sk, lk, mk, rk), (sp, lp, mp, rp) = kout, pout
+        return {"err": max(_max_err([(lk, lp), *zip(mk, mp), *zip(rk, rp)]),
+                           _state_err(sk, sp, CHAIN_KEYS)),
+                "rel": _rel(sk["agc_pilot"], sp["agc_pilot"])}
     if name == "extract":
         return {"err": max(_max_err([(kout[1], pout[1])]),
                            _max_err(zip(kout[2], pout[2])),
@@ -422,6 +463,15 @@ def _k1_ops(co, c: int, n4: int, int8_taps: bool, words: bool):
     return float(c) * n4 * f32_per + unpack, float(c) * n4 * i8_per
 
 
+def _ext_flops(co, c: int, n: int) -> float:
+    """Extract's float32 operations on [C, n] analytic samples: the two
+    harmonics and the mix per sample, the L+R and L-R (two planes) ds x4
+    and the RDS (two planes) ds x8 FIRs per output."""
+    taps = co.taps_audio_lpr.shape[0]
+    return float(c) * (n * (2 * 15 + 8) + n // 4 * (2 + 4) * taps
+                       + n // 8 * 4 * taps)
+
+
 def work(name: str, args) -> tuple:
     """(bytes, float32 operations, int8 operations) of one call of kernel
     ``name`` on its recorded arguments: each input read once and each
@@ -448,15 +498,27 @@ def work(name: str, args) -> tuple:
     if name == "pll":
         theta = args[2]
         return 2 * _nbytes(theta), float(theta.numel()) * PLL_STEP_FLOPS, 0.0
+    if name == "pll_chunked":
+        cfg, theta = args[0], args[2]
+        c, n = theta.shape
+        g, w = cfg.pll_time_chunks, cfg.pll_chunk_warmup
+        # chunk 0 runs its L steps, every other chunk L + W
+        steps = c * (n + (g - 1) * w)
+        return 2 * _nbytes(theta), float(steps) * PLL_STEP_FLOPS, 0.0
     if name == "extract":
         co, cfg, st, (re, im), dt = args
         c, n = re.shape
-        taps = co.taps_audio_lpr.shape[0]
-        flops = float(c) * (n * (2 * 15 + 8)             # two harmonics, mix
-                            + n // 4 * (2 + 4) * taps    # L+R, L-R planes
-                            + n // 8 * 4 * taps)         # RDS planes
         out = 4 * c * (n // 4) * 3 + 4 * c * (n // 8) * 2 + 4 * c
-        return _nbytes(re, im, dt) + out, flops, 0.0
+        return _nbytes(re, im, dt) + out, _ext_flops(co, c, n), 0.0
+    if name == "chain":
+        co, cfg, st, x = args
+        c, b = x.shape[-2], x.shape[-1]
+        n = b // 8
+        f, _ = _k1_ops(co, c, b // 4, False, x.ndim == 2)
+        flops = (f + _mid_flops(cfg, co, c, n) + float(c) * n * PLL_STEP_FLOPS
+                 + _ext_flops(co, c, n))
+        out = 4 * c * (b // 32) * 3 + 4 * c * (b // 64) * 2
+        return _nbytes(x) + out, flops, 0.0
     if name == "bpsk":
         rds_p = args[2]
         c, n = rds_p[0].shape
@@ -479,6 +541,11 @@ def serial_steps(name: str, args):
     RDS planes, K2's order-2 peak IIR over its outputs), or None."""
     if name == "pll":
         return args[2].shape[-1]
+    if name == "pll_chunked":  # one lane's L + W steps
+        cfg, theta = args[0], args[2]
+        return theta.shape[-1] // cfg.pll_time_chunks + cfg.pll_chunk_warmup
+    if name == "chain":  # the PLL's (and the peak IIR's) steps
+        return args[3].shape[-1] // 8
     if name == "bpsk":
         return args[2][0].shape[-1]
     if name in ("k12", "k12_ps"):
@@ -725,6 +792,244 @@ def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
     return {"cell": label, "device_ms_per_block": top,
             "device_busy_ms": busy, "wall_ms": wall,
             "idle_share": 1.0 - busy / wall if busy else None}
+
+
+# the megakernel's forms: (label, input kind, DemodConfig kwargs)
+CHAIN_FORMS = (
+    ("words", "words", {"assume_integer_input": True,
+                        "chain_fusion": "auto"}),
+    ("planes", "planes_float", {"chain_fusion": "auto"}),
+    ("planes_deemph", "planes_float",
+     {"chain_fusion": "auto", "use_deemphasis_filter": True,
+      "deemphasis_cutoff_us": 50}),
+    ("complex", "complex", {"chain_fusion": "auto"}),
+)
+# the chain cell and the split cell it is held against
+CHAIN_CELL = ("chain_f32w", "words", {"assume_integer_input": True,
+                                      "chain_fusion": "auto"})
+
+
+def compare_chain(channels: int = 256, block: int = 131072, blocks: int = 2,
+                  device="cuda"):
+    """The megakernel against its plain version on the card, on the
+    arguments ``demod_block(chain_fusion="auto")`` recorded, ``blocks``
+    blocks with carried state, on each of CHAIN_FORMS (packed words, float32
+    planes with de-emphasis off and on, complex64); and BPSK without a gain
+    (the megakernel's route) on its recorded arguments.  Returns the verdict
+    rows (chain, then BPSK without a gain) with each form's input
+    statistics under "inputs"."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    stages = _stages()
+    acc, stats = {}, {}
+    for label, kind, kw in CHAIN_FORMS:
+        cfg = DemodConfig(**kw)
+        co = make_coeffs(cfg, device)
+        st = demod_init_state(cfg, channels, device)
+        x = split_input(kind, channels, block * blocks, 5, device)
+        stats[label] = input_stats(x)
+        for blk in range(blocks):
+            calls = {}
+            xb = x[..., blk * block : (blk + 1) * block].contiguous()
+            st, _ = demod_block(cfg, co, st, xb, record=calls)
+            if list(calls) != ["chain", "bpsk"] or calls["bpsk"][3] is not None:
+                raise RuntimeError(f"chain form {label}: route {list(calls)}")
+            for name in ("chain", "bpsk"):
+                kern, plain = stages[name]
+                _merge(acc, name, stage_errors(name, kern(*calls[name]),
+                                               plain(*calls[name])))
+            torch.cuda.synchronize(device)
+    return [dict(_verdict("chain", acc["chain"]), inputs=stats),
+            dict(_verdict("bpsk", acc["bpsk"]), gain=None)]
+
+
+def compare_pll_chunked(channels: int = 256, block: int = 1048576,
+                        chunks: int = 8, blocks: int = 2,
+                        odd_channels: int = 5, device="cuda") -> list[dict]:
+    """The chunked PLL against its plain version on the card, on the
+    arguments ``demod_block(frontend_int8=True, pll_time_chunks=chunks)``
+    recorded after K12, ``blocks`` blocks with carried state of bench.py's
+    int8 planes, at ``channels`` and at an odd channel count (C * G lanes
+    not a multiple of 32).  Returns one verdict row with the recorded
+    theta's statistics under "inputs"."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    kern, plain = _stages()["pll_chunked"]
+    cfg = DemodConfig(frontend_int8=True, pll_time_chunks=chunks)
+    co = make_coeffs(cfg, device)
+    acc, stats = {}, {}
+    for c in (channels, odd_channels):
+        st = demod_init_state(cfg, c, device)
+        x = bench_planes(c, block * blocks, seed=6 + c, device=device)
+        for blk in range(blocks):
+            calls = {}
+            xb = x[..., blk * block : (blk + 1) * block].contiguous()
+            st, _ = demod_block(cfg, co, st, xb, record=calls)
+            if "pll_chunked" not in calls:
+                raise RuntimeError(f"chunked PLL not taken: {list(calls)}")
+            args = calls["pll_chunked"]
+            theta = args[2].double()
+            stats[f"c{c}_block{blk}"] = {
+                "mean_abs": float(theta.abs().mean()),
+                "constant": bool(theta.max() == theta.min())}
+            _merge(acc, "pll_chunked",
+                   stage_errors("pll_chunked", kern(*args), plain(*args)))
+            torch.cuda.synchronize(device)
+    return [dict(_verdict("pll_chunked", acc["pll_chunked"]), inputs=stats)]
+
+
+def chain_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
+               vs_split_blocks: int = 2, device="cuda") -> dict:
+    """The chain cell (CHAIN_CELL: bench.py's ``FMTPU_BENCH_CHAIN=1
+    FMTPU_BENCH_FMT=f32w`` lens) through demod_block with counted launches
+    (one warm-up block first); the megakernel timed alone beside its plain
+    version on the last block's arguments, and compared; then the same
+    words through the f32w split cell from one start state for
+    ``vs_split_blocks`` blocks: audio and every state leaf before the RDS
+    AGC (max abs difference, expected 0), agc_rds (relative), the BPSK
+    decisions that differ and pred where both are valid."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    label, kind, kw = CHAIN_CELL
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    st = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block, 0, device)
+    st, _ = demod_block(cfg, co, st, x)  # warm-up
+    torch.cuda.synchronize(device)
+    calls = {}
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(blocks):
+        st, outs = demod_block(cfg, co, st, x, record=calls)
+    end.record()
+    torch.cuda.synchronize(device)
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    check_counts(launches, {"chain": blocks, "bpsk": blocks}, "chain cell")
+    if tuple(outs["audio"].shape) != (channels, block // 32, 2):
+        raise RuntimeError(f"chain: audio shape {tuple(outs['audio'].shape)}")
+    for k in ("audio", "rds_pred"):
+        if not bool(torch.isfinite(outs[k]).all()):
+            raise RuntimeError(f"chain: non-finite {k}")
+    res = {"cell": label, "config": kw, "input": kind, "channels": channels,
+           "block": block, "blocks": blocks, "inputs": input_stats(x),
+           "launches": launches, "ms_per_block": ms / blocks,
+           "msps": channels * block * blocks / (ms / 1e3) / 1e6,
+           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"chain": calls["chain"]})
+
+    cfg_s = DemodConfig(assume_integer_input=True)
+    st_c = st_s = demod_init_state(cfg, channels, device)
+    diff = {"audio": 0.0, "state_before_rds_agc": 0.0, "agc_rds_rel": 0.0,
+            "valid_mismatch": 0, "pred": 0.0}
+    for _ in range(vs_split_blocks):
+        st_c, o_c = demod_block(cfg, co, st_c, x)
+        st_s, o_s = demod_block(cfg_s, co, st_s, x)
+        pre = [k for k in st_c if k not in ("agc_rds", "bpsk")]
+        v = o_c["rds_valid"] & o_s["rds_valid"]
+        diff["audio"] = max(diff["audio"], _leaf_max_diff(o_c["audio"],
+                                                          o_s["audio"]))
+        diff["state_before_rds_agc"] = max(
+            diff["state_before_rds_agc"],
+            _leaf_max_diff({k: st_c[k] for k in pre},
+                           {k: st_s[k] for k in pre}))
+        diff["agc_rds_rel"] = max(diff["agc_rds_rel"],
+                                  _rel(st_c["agc_rds"], st_s["agc_rds"]))
+        diff["valid_mismatch"] += int((o_c["rds_valid"]
+                                       != o_s["rds_valid"]).sum())
+        diff["pred"] = max(diff["pred"], _max_err(
+            [(o_c["rds_pred"][v], o_s["rds_pred"][v])]))
+    torch.cuda.synchronize(device)
+    res["vs_split_f32w"] = diff
+    return res
+
+
+def _wrapped_dev(a, b):
+    """(max, rms) of two phase tracks' difference in cycles, wrapped."""
+    d = a.double() - b.double()
+    d = (d - torch.round(d)).abs()
+    return float(d.max()), float(d.pow(2).mean().sqrt())
+
+
+def chunked_pll_path(channels: int = 256, block: int = 1048576,
+                     chunks: int = 8, blocks: int = 4,
+                     device="cuda") -> dict:
+    """The chunked-PLL cell (bench.py's ``python bench.py 256 8``: int8
+    planes, ``DemodConfig(frontend_int8=True, pll_time_chunks=8)``) and the
+    same with G = 1 beside it, each through demod_block with counted
+    launches after a warm-up block; then, on the G = 8 run's last recorded
+    theta and state, the chunked kernel and the sequential kernel alone
+    (serial steps L + W against N), the chunked dt's deviation from the
+    sequential one (chunk 0 exact; max and rms over the rest), and the
+    chunked kernel timed beside its plain version and compared."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels.pll import (
+        pilot_pll_chunked, pilot_pll_theta)
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    x = bench_planes(channels, block, seed=0, device=device)
+    res, recorded = {"channels": channels, "block": block, "blocks": blocks,
+                     "inputs": plane_stats(x)}, {}
+    for g in (chunks, 1):
+        cfg = DemodConfig(frontend_int8=True, pll_time_chunks=g)
+        co = make_coeffs(cfg, device)
+        st = demod_init_state(cfg, channels, device)
+        st, _ = demod_block(cfg, co, st, x)  # warm-up
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        calls = {}
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(blocks):
+            st, outs = demod_block(cfg, co, st, x, record=calls)
+        end.record()
+        torch.cuda.synchronize(device)
+        launches = read_counts()
+        ms = start.elapsed_time(end)
+        pll = "pll_chunked" if g > 1 else "pll"
+        check_counts(launches, {"k12": blocks, pll: blocks, "extract": blocks,
+                                "bpsk": blocks}, f"PLL cell G={g}")
+        for k in ("audio", "rds_pred"):
+            if not bool(torch.isfinite(outs[k]).all()):
+                raise RuntimeError(f"PLL cell G={g}: non-finite {k}")
+        res[f"g{g}"] = {"launches": launches, "ms_per_block": ms / blocks,
+                        "msps": channels * block * blocks / (ms / 1e3) / 1e6,
+                        "peak_mib": torch.cuda.max_memory_allocated(device)
+                        / 2 ** 20}
+        recorded[g] = calls
+    args = recorded[chunks]["pll_chunked"]
+    cfg, state, theta = args
+    seq_cfg = DemodConfig(frontend_int8=True)
+    pilot_pll_chunked(*args)
+    (_, dt_c), chunked_ms = _cuda_ms(lambda: pilot_pll_chunked(*args), 5)
+    pilot_pll_theta(seq_cfg, state, theta)
+    (_, dt_s), seq_ms = _cuda_ms(
+        lambda: pilot_pll_theta(seq_cfg, state, theta), 5)
+    n = theta.shape[-1]
+    l = n // chunks
+    dev_max, dev_rms = _wrapped_dev(dt_c[:, l:], dt_s[:, l:])
+    res["pll_alone"] = {
+        "chunked_ms": chunked_ms, "sequential_ms": seq_ms,
+        "serial_steps": {"chunked": l + cfg.pll_chunk_warmup,
+                         "sequential": n},
+        "chunk0_exact": bool(torch.equal(dt_c[:, :l], dt_s[:, :l])),
+        "dt_dev_later_chunks": {"max": dev_max, "rms": dev_rms}}
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"pll_chunked": args})
+    return res
 
 
 def wideband_words(n_captures: int, m: int, block: int, seed: int, device,
@@ -1093,6 +1398,58 @@ def station_split(device="cuda", seconds: float = 1.0) -> list[dict]:
     return rows
 
 
+def station_loops(device="cuda", seconds: float = 1.0) -> list[dict]:
+    """The selftest station (``seconds`` of it) through App with each of
+    the two loop options, on the card and, with the plain versions, on the
+    host CPU: ``pll_time_chunks=4`` on int8 planes at block 262,144 (N / G
+    = 8192 > W: the chunked PLL), and ``chain_fusion="auto"`` on packed
+    words copied to 8 channels (the megakernel's gate needs C % 8 == 0) at
+    block 65,536.  Each row: RDS bytes identical on every channel, the
+    lowest audio SNR of the card against the CPU, channel 0's PI on the
+    card, the card run's launches."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks, selftest_u8
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.app import App
+    from fm_radio_tpu_torch.utils.transfer import pack_iq_u8, split_iq_i8
+
+    rows = []
+    for path, block, c, kw in (
+            ("app_pll_chunked", 262144, 1,
+             {"frontend_int8": True, "pll_time_chunks": 4}),
+            ("app_chain_8ch", 65536, 8,
+             {"assume_integer_input": True, "chain_fusion": "auto"})):
+        u8 = selftest_u8(seconds, block)
+        x = (split_iq_i8(u8)[:, None, :] if c == 1
+             else np.repeat(pack_iq_u8(u8)[None, :], c, axis=0))
+        apps, counts, secs = {}, {}, {}
+        for dev in (device, "cpu"):
+            reset_counts()
+            t0 = time.perf_counter()
+            app = App(block_size=block, cfg=DemodConfig(**kw), channels=c,
+                      device=dev)
+            app.process(x)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
+            apps[str(dev)], secs[str(dev)] = app, time.perf_counter() - t0
+            counts[str(dev)] = read_counts()
+        gpu, cpu = apps[str(device)], apps["cpu"]
+        settle = int(0.15 * gpu.demod.fs_audio)
+        rows.append({
+            "path": path, "cfg": kw, "channels": c, "block": block,
+            "seconds_audio": u8.shape[0] / 1_024_000,
+            "launches": counts[str(device)],
+            "rds_bytes": min(int(gpu.rds_bytes(i).size) for i in range(c)),
+            "rds_identical": all(np.array_equal(gpu.rds_bytes(i),
+                                                cpu.rds_bytes(i))
+                                 for i in range(c)),
+            "snr_vs_cpu_db": min(_snr_db(gpu.audio[i, settle:],
+                                         cpu.audio[i, settle:])
+                                 for i in range(c)),
+            "rds_pi": selftest_checks(gpu)["rds_pi"]["value"],
+            "seconds": secs})
+    return rows
+
+
 def _snr_db(a, b) -> float:
     """SNR (dB) of ``a`` against the reference ``b``."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -1223,6 +1580,22 @@ def main() -> int:
         raise RuntimeError(f"f32 bridge kernels disagree or constant "
                            f"input: {bad}")
 
+    # 3c. the megakernel and the chunked PLL against plain on the card
+    t0 = time.perf_counter()
+    crows = compare_chain(256, 131072, 2, dev)
+    crows += compare_pll_chunked(256, 1048576, 8, 2, 5, dev)
+    for r in crows:
+        log(f"[compare] {json.dumps(r)}")
+    log(f"[compare] chain, pll_chunked: {time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in crows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
+    const = [k for r in crows for k, v in r.get("inputs", {}).items()
+             if v["constant"]]
+    if const:
+        raise RuntimeError(f"chain / pll_chunked compared on constant input: "
+                           f"{const}")
+
     # 4. main path at the bench cell
     t0 = time.perf_counter()
     mp = main_path(2048, 131072, 8, dev)
@@ -1250,6 +1623,26 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the split cells: {bad}")
+
+    # 4c. the chain cell and the chunked-PLL cell
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ch = chain_path(2048, 131072, 8, 2, dev)
+    log(f"[chain] {json.dumps(ch)}")
+    prof = profile_split(*CHAIN_CELL, device=dev)
+    log(f"[profile] {json.dumps(prof)}")
+    pc = chunked_pll_path(256, 1048576, 8, 4, dev)
+    pc["launches"] = pc["g8"]["launches"]
+    log(f"[pll_chunked] {json.dumps(pc)}")
+    log(f"[chain] [pll_chunked] {time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in ch["compare"] + pc["compare"] if not r["ok"]]
+    vs = ch["vs_split_f32w"]
+    if bad or vs["audio"] != 0.0 or vs["state_before_rds_agc"] != 0.0:
+        raise RuntimeError(f"chain / chunked PLL cells: kernels {bad}, chain "
+                           f"vs f32w split {vs}")
+    if vs["agc_rds_rel"] > POWER_RTOL or not pc["pll_alone"]["chunk0_exact"]:
+        raise RuntimeError(f"chain RDS AGC {vs} or chunk 0 "
+                           f"{pc['pll_alone']} out of bounds")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
@@ -1294,6 +1687,18 @@ def main() -> int:
     if sst[2]["rc"] != 0 or sst[2]["pi_code"] != "1234":
         raise RuntimeError(f"demod --ingest f32w failed: {sst[2]}")
 
+    # 6c. the station with the chunked PLL and on the megakernel
+    t0 = time.perf_counter()
+    lst = station_loops(dev)
+    log(f"[station] loops: {json.dumps(lst)}")
+    log(f"[station] loops: {time.perf_counter() - t0:.1f} s")
+    for r in lst:
+        want = ("pll_chunked" if r["path"] == "app_pll_chunked" else "chain")
+        if not (r["rds_identical"] and r["rds_bytes"] > 0
+                and r["snr_vs_cpu_db"] >= SNR_MIN_DB
+                and r["rds_pi"] == "1234" and r["launches"][want] > 0):
+            raise RuntimeError(f"station {r['path']} failed its gates: {r}")
+
     # 7. wideband stations on the card and on the host CPU
     t0 = time.perf_counter()
     wst = wideband_stations(dev)
@@ -1311,11 +1716,12 @@ def main() -> int:
     # f32w: frontend, midend; k12off: frontend_i8), its errors at C=256 (or
     # W=4) and at full width, and its launches on every path
     err_small, err_full = {}, {}
-    for r in rows + wrows + srows + frows:
+    for r in rows + wrows + srows + frows + crows:
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
-              + [r for c in cells.values() for r in c["compare"]]):
+              + [r for c in cells.values() for r in c["compare"]]
+              + ch["compare"] + pc["compare"]):
         err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
@@ -1324,12 +1730,18 @@ def main() -> int:
              "wideband_m16_loud": wb16["launches"],
              "wideband_m32_f32_bridge": wbf["launches"],
              **{f"split_{k}": c["launches"] for k, c in cells.items()},
-             **{f"station_{r['path']}": r["launches"] for r in sst[:2]}}
+             **{f"station_{r['path']}": r["launches"] for r in sst[:2]},
+             "chain_f32w": ch["launches"],
+             "pll_cell_g8": pc["g8"]["launches"],
+             "pll_cell_g1": pc["g1"]["launches"],
+             **{f"station_{r['path']}": r["launches"] for r in lst}}
     home = {"k12": mp, "pll": mp, "extract": mp, "bpsk": mp,
             "channelizer": wb, "k12_ps": wb, "frontend": cells["f32w"],
-            "midend": cells["f32w"], "frontend_i8": cells["k12off"]}
+            "midend": cells["f32w"], "frontend_i8": cells["k12off"],
+            "chain": ch, "pll_chunked": pc}
     kernels = []
-    for n, src, rep in KERNELS + WIDEBAND_KERNELS + SPLIT_KERNELS:
+    for n, src, rep in (KERNELS + WIDEBAND_KERNELS + SPLIT_KERNELS
+                        + CHAIN_KERNELS):
         cell = home[n]
         b = cell["bound"][n]
         k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
@@ -1358,6 +1770,8 @@ def main() -> int:
         if n == "midend":
             k.update(ms_by_cell={c: cells[c]["kernel_ms"]["midend"]
                                  for c in cells})
+        if n == "pll_chunked":
+            k.update(pll_alone=pc["pll_alone"])
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 // BPSK: the serial RDS symbol synchroniser of the demodulator on Hopper.
 //
 // Replaces fm_radio_tpu/kernels/bpsk_pallas.py::_bpsk_kernel as run by
-// bpsk_sync_pallas with gain= (the fused RDS AGC): each sample of the RDS
-// baseband [C, N] is scaled by the channel's AGC gain at ingest
-// (bpsk_pallas.py:85-87), then one step of the loop of
+// bpsk_sync_pallas, with or without gain=: with it (the fused RDS AGC of
+// the split path) each sample of the RDS baseband [C, N] is scaled by the
+// channel's AGC gain at ingest (bpsk_pallas.py:85-87); without it (the
+// megakernel's route, whose RDS AGC runs before) the samples enter as
+// they are, with no multiply.  Then one step of the loop of
 // bpsk_pallas.py:98-160 runs: carrier PLL (PI + NCO, Chebyshev phasor),
 // zero-crossing detector with cooldown, TED ramp clock, integrate-and-dump
 // and the symbol-phase error fed back to the carrier PLL.  Per sample it
@@ -56,7 +58,8 @@ __global__ void bpsk_kernel(const float* __restrict__ x_re,
   float zq = s[5], cool = s[6];
   float t_x1 = s[7], t_y1 = s[8], t_int = s[9], t_pe = s[10], ramp = s[11];
   float id_re = s[12], id_im = s[13];
-  const float g = gain[c];
+  const bool scale = gain != nullptr;
+  const float g = scale ? gain[c] : 1.0f;
   const int64_t row = (int64_t)c * n;
   for (int i0 = 0; i0 < n; i0 += kBatch) {
     float br[kBatch], bi[kBatch];
@@ -75,8 +78,8 @@ __global__ void bpsk_kernel(const float* __restrict__ x_re,
       const float t = wrap_cycles(p_t + k.ts * (control * k.pll_f_gain));
       const float cs = cheb_sine(wrap_cycles(t + 0.25f));
       const float sn = cheb_sine(t);
-      const float xr = br[u] * g;
-      const float xi = bi[u] * g;
+      const float xr = scale ? br[u] * g : br[u];
+      const float xi = scale ? bi[u] * g : bi[u];
       const float iq_re = xr * cs - xi * sn;
       const float iq_im = xr * sn + xi * cs;
 
@@ -142,8 +145,8 @@ __global__ void bpsk_kernel(const float* __restrict__ x_re,
 
 using namespace fmt;
 
-// x_re, x_im [C, N]; gain [C]; st_in, st_out [14, C]; pred, sym_re, valid
-// [C, N]; the 14 loop constants of models/bpsk.py::bpsk_consts_from_cfg.
+// x_re, x_im [C, N]; gain [C], or null for no gain; st_in, st_out
+// [14, C]; pred, sym_re, valid [C, N]; the 14 loop constants of models/bpsk.py::bpsk_consts_from_cfg.
 extern "C" int fmt_bpsk(const float* x_re, const float* x_im,
                         const float* gain, const float* st_in, float* st_out,
                         float* pred, float* sym_re, float* valid,

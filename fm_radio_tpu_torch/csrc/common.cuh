@@ -84,6 +84,31 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
   return (y < 0.0f) ? -a : a;
 }
 
+// sum_k w_rev[k] * v[k] for k < nn, from the oldest sample up: one
+// decimated-correlation output over a window that lies in one array (the
+// tiles of shared memory in extract.cu and chain.cu).  fir_dot2 runs two
+// planes through the same taps.
+__device__ __forceinline__ float fir_dot(const float* v,
+                                         const float* __restrict__ w_rev,
+                                         int nn) {
+  float acc = 0.0f;
+  for (int k = 0; k < nn; ++k) acc += __ldg(w_rev + k) * v[k];
+  return acc;
+}
+
+__device__ __forceinline__ void fir_dot2(const float* a, const float* b,
+                                         const float* __restrict__ w_rev,
+                                         int nn, float& ya, float& yb) {
+  float ar = 0.0f, ai = 0.0f;
+  for (int k = 0; k < nn; ++k) {
+    const float wk = __ldg(w_rev + k);
+    ar += wk * a[k];
+    ai += wk * b[k];
+  }
+  ya = ar;
+  yb = ai;
+}
+
 // One decimated-correlation output: sum_k w_rev[k] * v[base + k] over
 // v = [tail (halo samples) | x] (index n < 0 reads tail[halo + n]), summed
 // from the oldest sample as ops/fir.py::decimate_core does.

@@ -27,9 +27,10 @@
 // The RDS power is summed per tile in output order and then per channel in
 // tile order by a second small kernel: deterministic, no atomics.
 // Register-tiling several outputs per thread, and fusing the FIRs with
-// tensor cores, is later work.
+// tensor cores, is later work.  The mix and the FIRs are
+// extract_stages.cuh, which the megakernel (chain.cu) runs too.
 
-#include "common.cuh"
+#include "extract_stages.cuh"
 
 namespace fmt {
 
@@ -61,28 +62,15 @@ __global__ void extract_kernel(
   const int64_t row = (int64_t)c * n;
 
   // per-channel offset phasor (a [c, 1] constant in the TPU kernel)
-  const float o = off[c];
-  const float co = cheb_sine(wrap_cycles(o + 0.25f));
-  const float so = cheb_sine(wrap_cycles(o));
+  float co, so;
+  offset_phasor(off[c], co, so);
 
   for (int e = threadIdx.x; e < kExtW; e += blockDim.x) {
     const int g = t0 - kExtHalo + e;
     float vl = 0.0f, vmr = 0.0f, vmi = 0.0f, vrr = 0.0f, vri = 0.0f;
     if (g >= 0) {
-      const float x_r = xr[row + g], x_i = xi[row + g], d = dt[row + g];
-      const float c1 = cheb_sine(wrap_cycles(d + 0.25f));
-      const float s1 = cheb_sine(wrap_cycles(d));
-      const float c2r = c1 * c1 - s1 * s1;
-      const float s2r = 2.0f * c1 * s1;
-      const float c2 = c2r * co - s2r * so;
-      const float s2 = s2r * co + c2r * so;
-      const float c3 = c2r * c1 - s2r * s1;
-      const float s3 = s2r * c1 + c2r * s1;
-      vl = x_r;
-      vmr = x_r * c2 - x_i * s2;
-      vmi = x_r * s2 + x_i * c2;
-      vrr = x_r * c3 - x_i * s3;
-      vri = x_r * s3 + x_i * c3;
+      vl = xr[row + g];
+      mix_sample(vl, xi[row + g], dt[row + g], co, so, vmr, vmi, vrr, vri);
     } else {
       if (g >= -halo_a) {
         const int64_t k = (int64_t)c * halo_a + halo_a + g;
@@ -106,37 +94,15 @@ __global__ void extract_kernel(
 
   // 256 L+R, 256 L-R (re and im), 128 RDS (re and im) outputs per tile
   constexpr int na = kExtTile / 4, nr = kExtTile / 8;
-  const int n4 = n / 4, n8 = n / 8;
+  const int64_t oa = (int64_t)c * (n / 4) + tile * na;
+  const int64_t orr = (int64_t)c * (n / 8) + tile * nr;
+  const ExtPlanes planes{s_lpr, s_mr, s_mi, s_rr, s_ri, kExtHalo};
+  const ExtTaps taps{wa_rev, wm_rev, nn_a, wr_rev, nn_r};
+  const ExtOut outs{lpr + oa, lmr_re + oa, lmr_im + oa, rds_re + orr,
+                    rds_im + orr};
   for (int w = threadIdx.x; w < 2 * na + nr; w += blockDim.x) {
-    if (w < na) {
-      const int base = kExtHalo + 4 * w - (nn_a - 4);
-      float acc = 0.0f;
-      for (int k = 0; k < nn_a; ++k) acc += __ldg(wa_rev + k) * s_lpr[base + k];
-      lpr[(int64_t)c * n4 + tile * na + w] = acc;
-    } else if (w < 2 * na) {
-      const int j = w - na;
-      const int base = kExtHalo + 4 * j - (nn_a - 4);
-      float ar = 0.0f, ai = 0.0f;
-      for (int k = 0; k < nn_a; ++k) {
-        const float wk = __ldg(wm_rev + k);
-        ar += wk * s_mr[base + k];
-        ai += wk * s_mi[base + k];
-      }
-      lmr_re[(int64_t)c * n4 + tile * na + j] = ar;
-      lmr_im[(int64_t)c * n4 + tile * na + j] = ai;
-    } else {
-      const int j = w - 2 * na;
-      const int base = kExtHalo + 8 * j - (nn_r - 8);
-      float ar = 0.0f, ai = 0.0f;
-      for (int k = 0; k < nn_r; ++k) {
-        const float wk = __ldg(wr_rev + k);
-        ar += wk * s_rr[base + k];
-        ai += wk * s_ri[base + k];
-      }
-      rds_re[(int64_t)c * n8 + tile * nr + j] = ar;
-      rds_im[(int64_t)c * n8 + tile * nr + j] = ai;
-      s_pow[j] = ar * ar + ai * ai;
-    }
+    const float p = extract_item(w, na, planes, taps, outs);
+    if (w >= 2 * na) s_pow[w - 2 * na] = p;
   }
   __syncthreads();
   if (threadIdx.x == 0) {

@@ -24,7 +24,8 @@
 //          need integer input (u8 - 127 in [-127, 128]).
 // fmt_frontend_i8 is the int8-direct form (int8 planes, int8 taps): K12's
 // first two launches, shared through k12_stages.cuh, so the split int8 path
-// equals K12 bit for bit.
+// equals K12 bit for bit.  The loads and the float-tap sum are
+// frontend_stages.cuh, which the megakernel (chain.cu) runs too.
 //
 // What bounds it on this card: each output reads its 64-sample window from
 // device memory (neighbouring threads share most of it through L1) and does
@@ -35,43 +36,10 @@
 // discriminator in a second (as K12); register blocking and one launch are
 // ROADMAP performance items.
 
+#include "frontend_stages.cuh"
 #include "k12_stages.cuh"
 
 namespace fmt {
-
-// Sample n of a channel as the centred (u8 - 127) float pair; row is the
-// channel's offset into one plane, plane the size of one plane.
-struct PlanesF32 {
-  const float* x;
-  int64_t plane;
-  __device__ __forceinline__ void load(int64_t row, int n, float& r,
-                                       float& i) const {
-    r = x[row + n];
-    i = x[plane + row + n];
-  }
-};
-
-struct PackedWords {
-  const float* x;
-  int64_t plane;  // unused: one word holds both
-  __device__ __forceinline__ void load(int64_t row, int n, float& r,
-                                       float& i) const {
-    const float w = x[row + n];
-    const float hi = floorf(w * (1.0f / 256.0f));  // exact below 2^16
-    r = hi - 127.0f;
-    i = (w - hi * 256.0f) - 127.0f;
-  }
-};
-
-struct I8Planes {
-  const int8_t* x;
-  int64_t plane;
-  __device__ __forceinline__ void load(int64_t row, int n, float& r,
-                                       float& i) const {
-    r = (float)x[row + n] + 1.0f;
-    i = (float)x[plane + row + n] + 1.0f;
-  }
-};
 
 // The input shifted by -1 into int8 (C conversion truncates, as astype).
 __device__ __forceinline__ unsigned int i8_byte(float v, int u) {
@@ -124,21 +92,15 @@ __global__ void ds4_theta_kernel(Load in, const float* __restrict__ tail,
     fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
     fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
   } else {
-    fr = 0.0f;
-    fi = 0.0f;
-    for (int k = 0; k < nn; ++k) {
-      const int n = base + k;
-      float vr, vi;
+    auto src = [&](int n, float& vr, float& vi) {
       if (n < 0) {
         vr = tr[halo + n];
         vi = ti[halo + n];
       } else {
         in.load(row, n, vr, vi);
       }
-      const float wk = __ldg(w_rev + k);
-      fr += wk * vr;
-      fi += wk * vi;
-    }
+    };
+    ds4_float(src, w_rev, nn, base, fr, fi);
   }
   theta1[idx] = atan2_poly(fi, fr);
 }

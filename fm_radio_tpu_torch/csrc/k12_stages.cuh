@@ -12,6 +12,10 @@
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
 //                         pilot power (midend_pallas.py::_midend_body :119)
 //
+// The per-sample formulas (disc_value, deemph_step, peak_step) are device
+// functions that the full-chain megakernel (chain.cu) evaluates too, tile
+// by tile, so the chain equals the split path bit for bit.
+//
 // What bounds each launch, and what its design does about it, is noted in
 // k12.cu, where the times per launch are.
 #pragma once
@@ -58,7 +62,43 @@ __global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
   theta1[idx] = atan2_poly(fi, fr);
 }
 
-// discriminator: fmd[c, j] = wrap(theta1[j] - theta1[j-1]) * scale
+// discriminator: fmd = wrap(theta1[j] - theta1[j-1]) * scale
+__device__ __forceinline__ float disc_value(float theta, float prev,
+                                            float scale) {
+  float d = theta - prev;
+  d = d >= kPi ? d - kTwoPi : d;
+  d = d <= -kPi ? d + kTwoPi : d;
+  return d * scale;
+}
+
+// de-emphasis: y = (b1*x[n-1] + b0*x[n]) - a1*y[n-1]; state (x1, y1)
+__device__ __forceinline__ float deemph_step(float& x1, float& y1, float x,
+                                             float b0, float b1, float a1) {
+  const float y = (x1 * b1 + x * b0) - y1 * a1;
+  x1 = x;
+  y1 = y;
+  return y;
+}
+
+// order-2 peak IIR on one plane: ff = b2*x[n-2] + b1*x[n-1] + b0*x[n];
+// y = (ff - a1*y[n-1]) - a2*y[n-2]
+struct Peak2 {
+  float x1, x2, y1, y2;
+};
+
+__device__ __forceinline__ float peak_step(Peak2& s, float v, float b0,
+                                           float b1, float b2, float a1,
+                                           float a2) {
+  const float f = (s.x2 * b2 + s.x1 * b1) + v * b0;
+  const float y = (f - s.y1 * a1) - s.y2 * a2;
+  s.x2 = s.x1;
+  s.x1 = v;
+  s.y2 = s.y1;
+  s.y1 = y;
+  return y;
+}
+
+// discriminator: fmd[c, j] = disc_value(theta1[j], theta1[j-1])
 __global__ void k12_disc_kernel(const float* __restrict__ theta1,
                                 const float* __restrict__ prev_theta,
                                 float scale, int channels, int n,
@@ -68,14 +108,11 @@ __global__ void k12_disc_kernel(const float* __restrict__ theta1,
   const int c = (int)(idx / n);
   const int j = (int)(idx % n);
   const float prev = j == 0 ? prev_theta[c] : theta1[idx - 1];
-  float d = theta1[idx] - prev;
-  d = d >= kPi ? d - kTwoPi : d;
-  d = d <= -kPi ? d + kTwoPi : d;
-  fmd[idx] = d * scale;
+  fmd[idx] = disc_value(theta1[idx], prev, scale);
 }
 
-// de-emphasis, one thread per channel, in place:
-// y = (b1*x[n-1] + b0*x[n]) - a1*y[n-1]; state (x1, y1) per channel
+// de-emphasis, one thread per channel, in place; state (x1, y1) per
+// channel
 __global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
                                   int channels, float b0, float b1, float a1,
                                   const float* __restrict__ st_in,
@@ -89,12 +126,8 @@ __global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) bx[u] = row[i0 + u];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const float y = (x1 * b1 + bx[u] * b0) - y1 * a1;
-      row[i0 + u] = y;
-      x1 = bx[u];
-      y1 = y;
-    }
+    for (int u = 0; u < kBatch; ++u)
+      row[i0 + u] = deemph_step(x1, y1, bx[u], b0, b1, a1);
   }
   st_out[2 * c] = x1;
   st_out[2 * c + 1] = y1;
@@ -119,8 +152,7 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
   re[idx] = d < 0 ? t[halo + d] : x[d];
 }
 
-// order-2 peak IIR on both planes, one thread per channel:
-// ff = b2*x[n-2] + b1*x[n-1] + b0*x[n]; y = (ff - a1*y[n-1]) - a2*y[n-2];
+// order-2 peak IIR (peak_step) on both planes, one thread per channel;
 // theta = atan2(yi, yr) / 2pi; power summed in double, in time order.
 // state per channel: re (x1, x2, y1, y2), im (x1, x2, y1, y2)
 __global__ void k12_peak_kernel(const float* __restrict__ re,
@@ -134,8 +166,7 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= channels) return;
   const float* s = st_in + 8 * c;
-  float rx1 = s[0], rx2 = s[1], ry1 = s[2], ry2 = s[3];
-  float ix1 = s[4], ix2 = s[5], iy1 = s[6], iy2 = s[7];
+  Peak2 pr{s[0], s[1], s[2], s[3]}, pi{s[4], s[5], s[6], s[7]};
   const float* xr = re + (int64_t)c * n;
   const float* xi = im + (int64_t)c * n;
   float* th = theta + (int64_t)c * n;
@@ -149,20 +180,15 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const float vr = br[u], vi = bi[u];
-      const float fr = (rx2 * b2 + rx1 * b1) + vr * b0;
-      const float fi = (ix2 * b2 + ix1 * b1) + vi * b0;
-      const float yr = (fr - ry1 * a1) - ry2 * a2;
-      const float yi = (fi - iy1 * a1) - iy2 * a2;
-      rx2 = rx1; rx1 = vr; ry2 = ry1; ry1 = yr;
-      ix2 = ix1; ix1 = vi; iy2 = iy1; iy1 = yi;
+      const float yr = peak_step(pr, br[u], b0, b1, b2, a1, a2);
+      const float yi = peak_step(pi, bi[u], b0, b1, b2, a1, a2);
       th[i0 + u] = atan2_poly(yi, yr) * kInvTwoPi;
       pw += (double)(yr * yr + yi * yi);
     }
   }
   float* out = st_out + 8 * c;
-  out[0] = rx1; out[1] = rx2; out[2] = ry1; out[3] = ry2;
-  out[4] = ix1; out[5] = ix2; out[6] = iy1; out[7] = iy2;
+  out[0] = pr.x1; out[1] = pr.x2; out[2] = pr.y1; out[3] = pr.y2;
+  out[4] = pi.x1; out[5] = pi.x2; out[6] = pi.y1; out[7] = pi.y2;
   power[c] = (float)pw;
 }
 

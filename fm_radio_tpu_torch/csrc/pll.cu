@@ -1,31 +1,48 @@
-// Pilot PLL: the serial 19 kHz loop of the demodulator on Hopper.
+// Pilot PLL: the serial 19 kHz loop of the demodulator on Hopper, and its
+// chunked, block-parallel form.
 //
-// Replaces fm_radio_tpu/kernels/pll_pallas.py::_pll_kernel as run by
-// _pilot_pll_run (wrapper pilot_pll_pallas_theta): over the precomputed
-// pilot phase theta [C, N] (cycles) it runs the 1-pole loop filter, the
-// clipped PI controller and the NCO, pe = 2*pi*wrap(theta + t), and emits
-// the NCO phase track dt [C, N] (pll_pallas.py:130-140, same carry
-// rotation: (lpf_x1, lpf_y1, integ, nco_t, prev_pe) <- (prev_pe, lpf_pe,
-// integ, t, pe)).
+// pll_kernel replaces fm_radio_tpu/kernels/pll_pallas.py::_pll_kernel as
+// run by _pilot_pll_run (wrapper pilot_pll_pallas_theta): over the
+// precomputed pilot phase theta [C, N] (cycles) it runs the 1-pole loop
+// filter, the clipped PI controller and the NCO, pe = 2*pi*wrap(theta + t),
+// and emits the NCO phase track dt [C, N] (pll_pallas.py:130-140, same
+// carry rotation: (lpf_x1, lpf_y1, integ, nco_t, prev_pe) <- (prev_pe,
+// lpf_pe, integ, t, pe)).  The step is pll_step.cuh, which the chunked
+// kernel below and the megakernel (chain.cu) run too.
 //
-// What bounds it on this card: the loop is serial in time with a dependent
-// chain per step (loop filter -> PI -> NCO -> phase error); N = B/8 steps
-// (16,384 at the 2048 x 131,072 bench cell) per channel, one thread per
-// channel.  Measured: 1.895 ms of device time per block at the bench cell
-// (torch.profiler; NVIDIA H100 80GB HBM3, power limit 700.00 W).  The
-// suspect is latency that C threads cannot hide; not yet profiled further.
+// pll_chunked_kernel replaces the same _pll_kernel as run by
+// _pilot_pll_chunked (pll_pallas.py:297-423, pll_time_chunks = G > 1): the
+// block's N steps are cut into G chunks of L = N/G that run at once, one
+// lane per (chunk, channel).  Lane (g, c) starts W = pll_chunk_warmup steps
+// early, at s_g = max(gL - W, 0), runs over theta[c, s_g : gL + L] and
+// keeps its last L outputs as dt[c, gL : gL + L]; chunk 0 starts from the
+// carried state, chunks g >= 1 from it with the NCO phase seeded from the
+// signal, wrap(-theta[c, s_g] - ts * f_center); the carried-out state is
+// the last chunk's.  Chunk 0 keeps all of its first L steps and stops
+// there: the TPU kernel runs it L + W steps and drops the last W, so its
+// kept outputs are the same.
 //
-// What the design does about it, for now: one thread per channel, 32
-// channels per block, each reading its own channel-major row (uncoalesced:
-// a warp's 32 loads of one step touch 32 rows) kBatch steps at a time into
-// registers, so one load latency covers kBatch steps (common.cuh).
-// Staging [64-step x 8-channel] tiles through shared memory with barriers
-// was measured slower on the card (PERF.md).  Built with -fmad=false so
-// every step rounds op by op like the plain PyTorch version
-// (kernels/pll.py::pll_plain) and the JAX kernel.  The chunked
-// block-parallel variant (more threads than channels) is later work.
+// What bounds them on this card: the loop is serial in time with a
+// dependent chain per step (loop filter -> PI -> NCO -> phase error); the
+// sequential kernel runs N = B/8 steps (16,384 at the 2048 x 131,072 bench
+// cell) per channel, one thread per channel; the chunked one L + W steps
+// (20,480 at C = 256, B = 1,048,576, G = 8) on G times the threads.  The
+// suspect is latency that the threads cannot hide; times are in PERF.md.
+//
+// What the design does about it, for now: one thread per lane, 32 lanes
+// per block, each reading its own channel-major row (uncoalesced: a warp's
+// 32 loads of one step touch 32 rows) kBatch steps at a time into
+// registers, so one load latency covers kBatch steps (common.cuh).  The
+// chunked lanes read their windows straight from theta [C, N] and write
+// only their kept outputs into dt [C, N]: no gathered copy of the windows,
+// no transposes and no concatenation, which the TPU wrapper needs
+// (pll_pallas.py:336-339, 407-415).  Staging [64-step x 8-channel] tiles
+// through shared memory with barriers was measured slower on the card
+// (PERF.md).  Built with -fmad=false so every step rounds op by op like
+// the plain PyTorch versions (kernels/pll.py::pll_plain,
+// pll_chunked_plain) and the JAX kernel.
 
-#include "common.cuh"
+#include "pll_step.cuh"
 
 namespace fmt {
 
@@ -33,15 +50,10 @@ __global__ void pll_kernel(const float* __restrict__ theta,
                            float* __restrict__ dt,
                            const float* __restrict__ st_in,
                            float* __restrict__ st_out, int channels, int n,
-                           float ts, float f_center, float f_gain,
-                           float ki_ts, float kp, float b0, float a1) {
+                           PllConsts k) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= channels) return;
-  float lpf_x1 = st_in[c];
-  float lpf_y1 = st_in[channels + c];
-  float integ = st_in[2 * channels + c];
-  float nco_t = st_in[3 * channels + c];
-  float prev_pe = st_in[4 * channels + c];
+  PllState s = pll_load(st_in, channels, c);
   const float* th = theta + (int64_t)c * n;
   float* out = dt + (int64_t)c * n;
   for (int i0 = 0; i0 < n; i0 += kBatch) {
@@ -49,25 +61,49 @@ __global__ void pll_kernel(const float* __restrict__ theta,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) bt[u] = th[i0 + u];
 #pragma unroll
+    for (int u = 0; u < kBatch; ++u) out[i0 + u] = pll_step(s, k, bt[u]);
+  }
+  pll_store(s, st_out, channels, c);
+}
+
+// Lanes are chunk-major, as the TPU kernel's: lane = g * C + c.
+// seed_k = float32(ts * f_center), the product formed in double.
+__global__ void pll_chunked_kernel(const float* __restrict__ theta,
+                                   float* __restrict__ dt,
+                                   const float* __restrict__ st_in,
+                                   float* __restrict__ st_out, int channels,
+                                   int n, int chunks, int warmup,
+                                   float seed_k, PllConsts k) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= channels * chunks) return;
+  const int g = lane / channels;
+  const int c = lane % channels;
+  const int l = n / chunks;
+  const int start = max(g * l - warmup, 0);
+  const int keep = g * l - start;  // first kept step of the window
+  const int steps = keep + l;
+  const float* th = theta + (int64_t)c * n + start;
+  float* out = dt + (int64_t)c * n + (int64_t)g * l - keep;
+  PllState s = pll_load(st_in, channels, c);
+  // every lane's NCO phase is wrapped, chunk 0's carried one included
+  // (pll_pallas.py:353-362); chunks g >= 1 take theirs from the signal
+  const float seed = g == 0 ? s.nco_t : -th[0] - seed_k;
+  s.nco_t = wrap_cycles(seed);
+  for (int i0 = 0; i0 < steps; i0 += kBatch) {
+    float bt[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      bt[u] = i0 + u < steps ? th[i0 + u] : 0.0f;
+#pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const float lpf_pe = b0 * (prev_pe + lpf_x1) - a1 * lpf_y1;
-      integ = clip1(integ + ki_ts * prev_pe);
-      const float pi_err = lpf_pe * kp + integ;
-      const float control = clip1(pi_err);
-      const float t = wrap_cycles(nco_t + ts * (f_center + control * f_gain));
-      const float pe = kTwoPi * wrap_cycles(bt[u] + t);
-      out[i0 + u] = t;
-      lpf_x1 = prev_pe;
-      lpf_y1 = lpf_pe;
-      nco_t = t;
-      prev_pe = pe;
+      const int i = i0 + u;
+      if (i < steps) {
+        const float t = pll_step(s, k, bt[u]);
+        if (i >= keep) out[i] = t;
+      }
     }
   }
-  st_out[c] = lpf_x1;
-  st_out[channels + c] = lpf_y1;
-  st_out[2 * channels + c] = integ;
-  st_out[3 * channels + c] = nco_t;
-  st_out[4 * channels + c] = prev_pe;
+  if (g == chunks - 1) pll_store(s, st_out, channels, c);
 }
 
 }  // namespace fmt
@@ -81,9 +117,28 @@ extern "C" int fmt_pll(const float* theta, float* dt, const float* st_in,
                        float f_center, float f_gain, float ki_ts, float kp,
                        float b0, float a1, cudaStream_t stream) {
   if (n % kBatch != 0) return (int)cudaErrorInvalidValue;
+  const PllConsts k{ts, f_center, f_gain, ki_ts, kp, b0, a1};
   pll_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads, 0,
-               stream>>>(theta, dt, st_in, st_out, channels, n, ts, f_center,
-                         f_gain, ki_ts, kp, b0, a1);
+               stream>>>(theta, dt, st_in, st_out, channels, n, k);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// The chunked form: as fmt_pll, with chunks = G > 1 dividing N, warmup W
+// with 0 <= W < N / G (the gate of pll_pallas.py:204), and seed_k =
+// float32(ts * f_center).
+extern "C" int fmt_pll_chunked(const float* theta, float* dt,
+                               const float* st_in, float* st_out,
+                               int channels, int n, int chunks, int warmup,
+                               float seed_k, float ts, float f_center,
+                               float f_gain, float ki_ts, float kp, float b0,
+                               float a1, cudaStream_t stream) {
+  if (chunks < 2 || n % chunks != 0 || warmup < 0 || n / chunks <= warmup)
+    return (int)cudaErrorInvalidValue;
+  const PllConsts k{ts, f_center, f_gain, ki_ts, kp, b0, a1};
+  pll_chunked_kernel<<<blocks_for((int64_t)channels * chunks, kSerialThreads),
+                       kSerialThreads, 0, stream>>>(
+      theta, dt, st_in, st_out, channels, n, chunks, warmup, seed_k, k);
   FMT_CHECK_LAUNCH();
   return 0;
 }

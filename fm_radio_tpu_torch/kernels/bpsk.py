@@ -1,9 +1,11 @@
 """BPSK symbol synchroniser for the RDS subcarrier — CUDA kernel and plain
 version.
 
-Counterpart of ``fm_radio_tpu/kernels/bpsk_pallas.py::bpsk_sync_pallas``
-with ``gain=`` (the fused RDS AGC): the RDS baseband is scaled by the
-per-channel gain at ingest, then one serial loop per channel runs the
+Counterpart of ``fm_radio_tpu/kernels/bpsk_pallas.py::bpsk_sync_pallas``,
+with ``gain=`` (the fused RDS AGC of the split path: the RDS baseband is
+scaled by the per-channel gain at ingest) or without it (the megakernel's
+route, whose RDS AGC scales the planes before: no multiply).  Then one
+serial loop per channel runs the
 carrier PLL, the zero-crossing detector with cooldown, the TED ramp clock
 and the integrate-and-dump (bpsk_pallas.py:98-160).  Outputs per sample:
 sym = complex(sym_re, pred), pred, and valid (where the TED clock fired).
@@ -54,15 +56,17 @@ def _outs(pred, sym_re, valid):
             "valid": valid > 0.5}
 
 
-def bpsk_plain(cfg, state: BPSKState, x_p, gain: torch.Tensor):
+def bpsk_plain(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
     """The loop in plain PyTorch, one step after the other, op by op in
     float32 (the order ``csrc/bpsk.cu`` evaluates).  x_p = (re, im) [C, N];
-    gain [C].  Returns (state', outs)."""
+    gain [C] or None (no multiply).  Returns (state', outs)."""
     k = bpsk_consts_from_cfg(cfg)
     ts = k["ts"]
     half_pi = f32(math.pi / 2.0)
-    xr_all = x_p[0] * gain[:, None]
-    xi_all = x_p[1] * gain[:, None]
+    xr_all, xi_all = x_p
+    if gain is not None:
+        xr_all = xr_all * gain[:, None]
+        xi_all = xi_all * gain[:, None]
     (p_x1, p_y1, p_int, p_t, p_pe, zq, cool,
      t_x1, t_y1, t_int, t_pe, ramp, id_re, id_im) = pack_state(state).unbind(0)
     pred, sym_re, valid = [], [], []
@@ -124,27 +128,30 @@ def bpsk_plain(cfg, state: BPSKState, x_p, gain: torch.Tensor):
                      torch.stack(valid, 1))
 
 
-def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor):
-    """x_p = (re, im) [C, N] float32, gain [C] -> (state', outs with sym,
-    pred, valid [C, N]).  CPU tensors run :func:`bpsk_plain`; CUDA tensors
-    launch the kernel."""
-    if _build.on_cpu("bpsk", gain.device):
+def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
+    """x_p = (re, im) [C, N] float32, gain [C] or None -> (state', outs
+    with sym, pred, valid [C, N]).  CPU tensors run :func:`bpsk_plain`;
+    CUDA tensors launch the kernel."""
+    xr, xi = x_p
+    dev = xr.device
+    if _build.on_cpu("bpsk", dev):
         return bpsk_plain(cfg, state, x_p, gain)
     global launches
-    dev = gain.device
-    xr, xi = x_p
     c, n = xr.shape
     st = pack_state(state)
-    _build.require("bpsk", dev, torch.float32, x_re=xr, x_im=xi, gain=gain,
-                   state=st)
-    if xi.shape != (c, n) or gain.shape != (c,) or st.shape != (14, c):
+    gains = {} if gain is None else {"gain": gain}
+    _build.require("bpsk", dev, torch.float32, x_re=xr, x_im=xi, state=st,
+                   **gains)
+    if xi.shape != (c, n) or st.shape != (14, c) or (
+            gain is not None and gain.shape != (c,)):
         raise ValueError("bpsk: shapes of x, gain and state disagree")
     f = dict(device=dev, dtype=torch.float32)
     pred, sym_re, valid = (torch.empty((c, n), **f) for _ in range(3))
     st_out = torch.empty_like(st)
     k = bpsk_consts_from_cfg(cfg)
     fn = _build.function("bpsk", "fmt_bpsk", _ARGTYPES)
-    err = fn(xr.data_ptr(), xi.data_ptr(), gain.data_ptr(), st.data_ptr(),
+    err = fn(xr.data_ptr(), xi.data_ptr(),
+             None if gain is None else gain.data_ptr(), st.data_ptr(),
              st_out.data_ptr(), pred.data_ptr(), sym_re.data_ptr(),
              valid.data_ptr(), c, n, *k.values(), _build.stream_ptr(dev))
     _build.check("bpsk", err)

@@ -75,51 +75,66 @@ def extract_plain(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
     return new, lpr, lmr, rds, rds_pow
 
 
+TAILS = ("t_lpr_re", "t_lpr_im", "t_lmr_re", "t_lmr_im", "t_rds_re",
+         "t_rds_im")
+
+
+def ext_args(name: str, coeffs, cfg, state: dict, c: int, dev) -> dict:
+    """The extraction's carried tails (``ds_audio_lpr``'s raw re/im,
+    ``ds_audio_lmr``'s and ``ds_rds``'s mixed re/im), the L-R offset and
+    the reversed taps as the C entries take them (``fmt_extract``,
+    ``fmt_chain``), checked: every tensor on ``dev``, contiguous float32,
+    the tails matching the filter orders and the ``c`` channels."""
+    harmonics(cfg)
+    t_lpr, t_lmr, t_rds = (state[k] for k in ("ds_audio_lpr", "ds_audio_lmr",
+                                              "ds_rds"))
+    a = {"t_lpr_re": t_lpr.real, "t_lpr_im": t_lpr.imag,
+         "t_lmr_re": t_lmr.real, "t_lmr_im": t_lmr.imag,
+         "t_rds_re": t_rds.real, "t_rds_im": t_rds.imag,
+         "off": state["lmr_phase_err"], "wa": coeffs.taps_audio_lpr.flip(0),
+         "wm": coeffs.taps_audio_lmr.flip(0), "wr": coeffs.taps_rds.flip(0)}
+    a = {k: v.contiguous() for k, v in a.items()}
+    halo_a, halo_r = a["wa"].shape[0] - 4, a["wr"].shape[0] - 8
+    halos = dict.fromkeys(TAILS[:4], halo_a) | dict.fromkeys(TAILS[4:], halo_r)
+    if a["wm"].shape != a["wa"].shape or a["off"].shape != (c,) or any(
+            a[k].shape != (c, h) for k, h in halos.items()):
+        raise ValueError(f"{name}: carried tails do not match the filters "
+                         f"and the {c} channels")
+    _build.require(name, dev, torch.float32, **a)
+    return a
+
+
 def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
     """(re, im), dt [C, N] float32 -> as :func:`extract_plain`.  CPU tensors
     run the plain version; CUDA tensors launch the kernel (N % 1024 == 0)."""
     if _build.on_cpu("extract", dt.device):
         return extract_plain(coeffs, cfg, state, iq_p, dt)
-    harmonics(cfg)
     global launches
     dev = dt.device
     xr, xi = iq_p
     c, n = dt.shape
     if n % TILE:
         raise ValueError(f"extract: N = {n} is not a multiple of {TILE}")
-    t_lpr = state["ds_audio_lpr"].real.contiguous()
-    t_lmr, t_rds = state["ds_audio_lmr"], state["ds_rds"]
-    t_lmr_re, t_lmr_im = t_lmr.real.contiguous(), t_lmr.imag.contiguous()
-    t_rds_re, t_rds_im = t_rds.real.contiguous(), t_rds.imag.contiguous()
-    off = state["lmr_phase_err"].contiguous()
-    wa = coeffs.taps_audio_lpr.flip(0).contiguous()
-    wm = coeffs.taps_audio_lmr.flip(0).contiguous()
-    wr = coeffs.taps_rds.flip(0).contiguous()
-    halo_a, halo_r = wa.shape[0] - 4, wr.shape[0] - 8
-    if wm.shape[0] != wa.shape[0] or t_lpr.shape[-1] != halo_a \
-            or t_lmr_re.shape[-1] != halo_a or t_rds_re.shape[-1] != halo_r:
-        raise ValueError("extract: carried tails do not match the filters")
-    if xr.shape != (c, n) or xi.shape != (c, n) or off.shape != (c,) or any(
-            t.shape[0] != c for t in (t_lpr, t_lmr_re, t_rds_re)):
+    a = ext_args("extract", coeffs, cfg, state, c, dev)
+    if xr.shape != (c, n) or xi.shape != (c, n):
         raise ValueError("extract: shapes of the planes, dt and state disagree")
-    _build.require("extract", dev, torch.float32, xr=xr, xi=xi, dt=dt,
-                   off=off, t_lpr=t_lpr, t_lmr_re=t_lmr_re,
-                   t_lmr_im=t_lmr_im, t_rds_re=t_rds_re, t_rds_im=t_rds_im,
-                   wa=wa, wm=wm, wr=wr)
+    _build.require("extract", dev, torch.float32, xr=xr, xi=xi, dt=dt)
+    halo_a, halo_r = a["t_lpr_re"].shape[-1], a["t_rds_re"].shape[-1]
     f = dict(device=dev, dtype=torch.float32)
     lpr = torch.empty((c, n // 4), **f)
     lmr_re, lmr_im = torch.empty((c, n // 4), **f), torch.empty((c, n // 4), **f)
     rds_re, rds_im = torch.empty((c, n // 8), **f), torch.empty((c, n // 8), **f)
     pow_part = torch.empty((c, n // TILE), **f)
     rds_pow = torch.empty((c,), **f)
-    o_lmr_re, o_lmr_im = torch.empty_like(t_lmr_re), torch.empty_like(t_lmr_im)
-    o_rds_re, o_rds_im = torch.empty_like(t_rds_re), torch.empty_like(t_rds_im)
+    o_lmr_re, o_lmr_im, o_rds_re, o_rds_im = (
+        torch.empty_like(a[k]) for k in TAILS[2:])
     fn = _build.function("extract", "fmt_extract", _ARGTYPES)
-    err = fn(xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), off.data_ptr(),
-             t_lpr.data_ptr(), t_lmr_re.data_ptr(), t_lmr_im.data_ptr(),
-             halo_a, t_rds_re.data_ptr(), t_rds_im.data_ptr(), halo_r,
-             wa.data_ptr(), wm.data_ptr(), wa.shape[0], wr.data_ptr(),
-             wr.shape[0], c, n, lpr.data_ptr(), lmr_re.data_ptr(),
+    err = fn(xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), a["off"].data_ptr(),
+             a["t_lpr_re"].data_ptr(), a["t_lmr_re"].data_ptr(),
+             a["t_lmr_im"].data_ptr(), halo_a, a["t_rds_re"].data_ptr(),
+             a["t_rds_im"].data_ptr(), halo_r, a["wa"].data_ptr(),
+             a["wm"].data_ptr(), a["wa"].shape[0], a["wr"].data_ptr(),
+             a["wr"].shape[0], c, n, lpr.data_ptr(), lmr_re.data_ptr(),
              lmr_im.data_ptr(), rds_re.data_ptr(), rds_im.data_ptr(),
              pow_part.data_ptr(), rds_pow.data_ptr(), o_lmr_re.data_ptr(),
              o_lmr_im.data_ptr(), o_rds_re.data_ptr(), o_rds_im.data_ptr(),

@@ -114,8 +114,9 @@ def mid_c_args(coeffs, cfg, a: dict) -> list:
             pa[1], pa[2], a["pk_in"].data_ptr(), a["pk_out"].data_ptr()]
 
 
-def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
-    """State after a launch, from its IIR state outputs and power sum."""
+def mid_iir_state(state: dict, cfg, a: dict):
+    """(deemph, peak_pilot) after a launch, from its IIR state outputs
+    (the de-emphasis state unchanged where the filter is off)."""
     deemph = state["deemph"]
     if cfg.use_deemphasis_filter:
         de = a["de_out"]
@@ -125,7 +126,13 @@ def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
         "x_hist": torch.cat([pk[:, 0:2], pk[:, 4:6]], dim=0),
         "y_hist": torch.cat([pk[:, 2:4], pk[:, 6:8]], dim=0),
     }
-    return mid_new_state(state, fmd, fm_out, deemph, peak, power)
+    return deemph, peak
+
+
+def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
+    """State after a launch, from its IIR state outputs and power sum."""
+    return mid_new_state(state, fmd, fm_out, *mid_iir_state(state, cfg, a),
+                         power)
 
 
 def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor):

@@ -1,22 +1,30 @@
 """Broadcast-FM demodulator: the channel-batched pipeline.
 
-Counterpart of ``fm_radio_tpu/models/demod.py`` with
-``chain_fusion="split"`` (demod.py:247-470, 514-658), on every ingest form:
+Counterpart of ``fm_radio_tpu/models/demod.py`` (demod.py:247-658), on
+every ingest form:
 
     x: [C, B] complex64 (u8 - 127 baseband), [2, C, B] float32 planes,
        [C, B] float32 packed u8 words (w = I * 256 + Q), [2, C, B] int8
        planes (u8 - 128), or the same as phase-split planes [2, 4, C, B/4]
        (x_p[u] = x[4u + p], the wideband channelizer's M = 32 output)
+      -> with chain_fusion != "split", on complex64, float32 planes or
+         words where the JAX gate holds (:func:`fuse_chain`):
+         the megakernel (kernels/chain.py): K1 (float taps), K2, the
+         sequential PLL and extract in one kernel -> L+R, L-R, RDS planes
       -> int8 planes with frontend_int8 and k12_fusion != "off":
          K12 (kernels/k12.py)     ds x4, discriminator, ds x2, de-emphasis,
                                   Hilbert, pilot peak IIR -> (re, im), theta
       -> every other form (the default DemodConfig()):
          K1 (kernels/frontend.py) ds x4, discriminator -> fm_demod
          K2 (kernels/midend.py)   ds x2, de-emphasis, Hilbert, peak IIR
-      -> pilot PLL (kernels/pll.py)                      -> dt
+      -> pilot PLL (kernels/pll.py), chunked where pll_time_chunks > 1
+         passes its gate                                 -> dt
       -> extract (kernels/extract.py)  L+R, L-R, RDS planes + RDS power
-      -> L-R phase correction, RDS AGC gain (small tensor ops)
-      -> BPSK sync (kernels/bpsk.py), gain applied at ingest
+      -> L-R phase correction (small tensor ops)
+      -> RDS AGC: the gain from extract's power sum, applied at the BPSK
+         kernel's ingest; after the megakernel the unfused AGC on the RDS
+         planes, then BPSK without a gain
+      -> BPSK sync (kernels/bpsk.py)
       -> stereo mix                                      -> audio [C, B/32, 2]
 
 Every function is pure in (cfg, coeffs, state, x); the state dict has the
@@ -36,6 +44,7 @@ import torch
 
 from fm_radio_tpu_torch.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
+from fm_radio_tpu_torch.kernels.chain import chain, pick_tiles_chain
 from fm_radio_tpu_torch.kernels.extract import extract
 from fm_radio_tpu_torch.kernels.frontend import frontend, frontend_i8
 from fm_radio_tpu_torch.kernels.k12 import (
@@ -45,10 +54,19 @@ from fm_radio_tpu_torch.kernels.k12 import (
     quantize_ds4_taps,
 )
 from fm_radio_tpu_torch.kernels.midend import midend
-from fm_radio_tpu_torch.kernels.pll import pilot_pll_theta
+from fm_radio_tpu_torch.kernels.pll import (
+    chunk_gate,
+    pilot_pll_chunked,
+    pilot_pll_theta,
+)
 from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
 from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
-from fm_radio_tpu_torch.ops.agc import _agc_gain, agc_init_state, mean_last
+from fm_radio_tpu_torch.ops.agc import (
+    _agc_gain,
+    agc_init_state,
+    agc_process_p,
+    mean_last,
+)
 from fm_radio_tpu_torch.ops.cmath import div_scalar, f32
 from fm_radio_tpu_torch.ops.design import (
     create_fir_hilbert,
@@ -190,10 +208,6 @@ def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> str:
          "modules still to port, item 2 (include_taps and the scan loops)"),
         (cfg.interstage_i16, "interstage_i16",
          "modules still to port, item 1 (the int16 inter-stage format)"),
-        (cfg.chain_fusion != "split", f"chain_fusion={cfg.chain_fusion!r}",
-         "kernels still to port, item 7 (the full-chain megakernel)"),
-        (cfg.pll_time_chunks > 1, "pll_time_chunks > 1",
-         "kernels still to port, item 6 (the chunked pilot PLL)"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -209,6 +223,24 @@ def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> str:
     return form
 
 
+def fuse_chain(cfg: DemodConfig, coeffs: DemodCoeffs, form: str, c: int,
+               b: int) -> bool:
+    """Whether ``demod_block`` takes the megakernel: the JAX gate
+    (demod.py:307-323) with ``include_taps`` off (check_slice raises for
+    it) and the 4/2/4/8 cascade (check_slice holds it): chain_fusion !=
+    "split", every filter reaching at most 128 samples back, the L-R and
+    L+R filters of one order, an ingest form other than int8 planes, and
+    the JAX kernel's shape contract (:func:`pick_tiles_chain`, planes'
+    channel tiles for complex64)."""
+    taps = (coeffs.taps_fm_in.shape[0] - 4, coeffs.taps_fm_out.shape[0] - 2,
+            coeffs.taps_hilbert.shape[0] - 1,
+            coeffs.taps_audio_lpr.shape[0] - 4, coeffs.taps_rds.shape[0] - 8)
+    return (cfg.chain_fusion != "split" and max(taps) <= 128
+            and coeffs.taps_audio_lmr.shape == coeffs.taps_audio_lpr.shape
+            and form in ("complex", "planes", "words")
+            and pick_tiles_chain(c, b, form == "words") is not None)
+
+
 def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                 x: torch.Tensor, include_taps: bool = False,
                 record: dict | None = None):
@@ -222,13 +254,15 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
     runs in the kernels on the card; nothing falls back to the CPU.
 
     ``record``, if given, receives the arguments of each kernel wrapper
-    under the kernel's name ("k12" or "k12_ps", or "frontend" or
-    "frontend_i8" and "midend"; then "pll", "extract", "bpsk"), so that a
-    caller can run the wrapper or its plain version again on this block's
-    own inputs.
+    under the kernel's name ("chain"; or "k12" or "k12_ps", or "frontend"
+    or "frontend_i8" and "midend", then "pll" or "pll_chunked" and
+    "extract"; then "bpsk"), so that a caller can run the wrapper or its
+    plain version again on this block's own inputs.
     """
     form = check_slice(cfg, x, include_taps)
     st = dict(state)
+    c = x.shape[-2]
+    b = x.shape[-1] * (4 if form == "i8ps" else 1)
 
     def run(name, fn, *args):
         if record is not None:
@@ -236,7 +270,66 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                                  for a in args)
         return fn(*args)
 
-    # ---- K12, or K1 + K2; then the pilot PLL (demod.py:247-470) ---------
+    if fuse_chain(cfg, coeffs, form, c, b):
+        # ---- the megakernel (demod.py:325-331) ----------------------------
+        if form == "complex":  # as demod.py:248-249 splits it
+            x = torch.stack([x.real, x.imag])
+        st, audio_lpr, tmp_lmr_p, rds_p = run("chain", chain, coeffs, cfg,
+                                              st, x)
+        rds_pow = None
+    else:
+        st, audio_lpr, tmp_lmr_p, rds_p, rds_pow = _split(cfg, coeffs, st, x,
+                                                          form, run)
+
+    # ---- L-R phase correction: read by extract above, updated here from
+    # the strided decimated L-R IQ (demod.py:557-566) ---------------------
+    stride = cfg.audio_lmr_phase_read_stride
+    phase = torch.atan2(tmp_lmr_p[1][:, ::stride], tmp_lmr_p[0][:, ::stride])
+    half_pi = f32(math.pi / 2.0)
+    est = torch.where(phase > 0.0, half_pi - phase, -half_pi - phase)
+    new_off = st["lmr_phase_err"] + f32(cfg.audio_lmr_phase_beta) * mean_last(est)
+    st["lmr_phase_err"] = torch.fmod(new_off, f32(2.0 * math.pi))
+    audio_lmr = tmp_lmr_p[1]
+
+    if rds_pow is None:
+        # ---- the unfused RDS AGC, then BPSK without a gain
+        # (demod.py:599-609) ----------------------------------------------
+        st["agc_rds"], rds_agc_p = agc_process_p(
+            st["agc_rds"], rds_p, target_power=cfg.bpsk.agc_target_power)
+        st["bpsk"], bpsk_outs = run("bpsk", bpsk_sync, cfg, st["bpsk"],
+                                    rds_agc_p, None)
+    else:
+        # ---- RDS AGC from the extract kernel's power sum, applied at the
+        # BPSK kernel's ingest (demod.py:576-598) -------------------------
+        st["agc_rds"] = _agc_gain(st["agc_rds"],
+                                  div_scalar(rds_pow, rds_p[0].shape[-1]),
+                                  cfg.bpsk.agc_target_power, 0.2)
+        st["bpsk"], bpsk_outs = run("bpsk", bpsk_sync, cfg, st["bpsk"],
+                                    rds_p, st["agc_rds"])
+
+    # ---- audio mix (demod.py:616-625) ----------------------------------
+    if cfg.audio_out == AudioOut.STEREO:
+        k = f32(cfg.audio_stereo_mix_factor)
+        left = audio_lpr + k * audio_lmr
+        right = audio_lpr - k * audio_lmr
+    elif cfg.audio_out == AudioOut.LMR:
+        left = right = audio_lmr
+    else:
+        left = right = audio_lpr
+    audio = torch.stack([left, right], dim=-1) * 2.0
+
+    outs = {
+        "audio": audio,
+        "rds_sym": bpsk_outs["sym"],
+        "rds_pred": bpsk_outs["pred"],
+        "rds_valid": bpsk_outs["valid"],
+    }
+    return st, outs
+
+
+def _split(cfg, coeffs, st: dict, x, form: str, run):
+    """K12, or K1 + K2; the pilot PLL; extract (demod.py:333-540).
+    Returns (state', lpr, lmr planes, RDS planes, RDS power)."""
     fuse_k12 = (form in ("i8", "i8ps") and cfg.frontend_int8
                 and cfg.k12_fusion != "off")
     if form == "i8ps" and not fuse_k12:
@@ -262,48 +355,14 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
                                int8_taps)
         st, fm_out_iq_p, theta = run("midend", midend, coeffs, cfg, st,
                                      fm_demod)
-    st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
+    if chunk_gate(cfg, theta.shape[-1]):
+        st["pll"], dt = run("pll_chunked", pilot_pll_chunked, cfg, st["pll"],
+                            theta)
+    else:
+        st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
 
     # ---- extract (demod.py:514-540) ------------------------------------
-    st, audio_lpr, tmp_lmr_p, rds_p, rds_pow = run(
-        "extract", extract, coeffs, cfg, st, fm_out_iq_p, dt)
-
-    # ---- L-R phase correction: read by extract above, updated here from
-    # the strided decimated L-R IQ (demod.py:557-566) ---------------------
-    stride = cfg.audio_lmr_phase_read_stride
-    phase = torch.atan2(tmp_lmr_p[1][:, ::stride], tmp_lmr_p[0][:, ::stride])
-    half_pi = f32(math.pi / 2.0)
-    est = torch.where(phase > 0.0, half_pi - phase, -half_pi - phase)
-    new_off = st["lmr_phase_err"] + f32(cfg.audio_lmr_phase_beta) * mean_last(est)
-    st["lmr_phase_err"] = torch.fmod(new_off, f32(2.0 * math.pi))
-    audio_lmr = tmp_lmr_p[1]
-
-    # ---- RDS AGC from the extract kernel's power sum, applied at the
-    # BPSK kernel's ingest (demod.py:590-598) -----------------------------
-    st["agc_rds"] = _agc_gain(st["agc_rds"],
-                              div_scalar(rds_pow, rds_p[0].shape[-1]),
-                              cfg.bpsk.agc_target_power, 0.2)
-    st["bpsk"], bpsk_outs = run("bpsk", bpsk_sync, cfg, st["bpsk"], rds_p,
-                                st["agc_rds"])
-
-    # ---- audio mix (demod.py:616-625) ----------------------------------
-    if cfg.audio_out == AudioOut.STEREO:
-        k = f32(cfg.audio_stereo_mix_factor)
-        left = audio_lpr + k * audio_lmr
-        right = audio_lpr - k * audio_lmr
-    elif cfg.audio_out == AudioOut.LMR:
-        left = right = audio_lmr
-    else:
-        left = right = audio_lpr
-    audio = torch.stack([left, right], dim=-1) * 2.0
-
-    outs = {
-        "audio": audio,
-        "rds_sym": bpsk_outs["sym"],
-        "rds_pred": bpsk_outs["pred"],
-        "rds_valid": bpsk_outs["valid"],
-    }
-    return st, outs
+    return run("extract", extract, coeffs, cfg, st, fm_out_iq_p, dt)
 
 
 class BroadcastFMDemod:

@@ -155,7 +155,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("what", [
     "phase_split", "include_taps", "interstage_i16", "interstage_f32",
-    "chain_fusion", "pll_chunks", "channelizer_splits", "rds_native",
+    "channelizer_splits", "rds_native",
 ])
 def test_outside_the_slice_raises(what):
     c, b = 1, 8192
@@ -188,15 +188,34 @@ def test_outside_the_slice_raises(what):
         cfg = DemodConfig(interstage_i16=True)
         x = torch.zeros((2, c, b))
     else:
-        cfg = dataclasses.replace(CFG, **{
-            "interstage_i16": {"interstage_i16": True},
-            "chain_fusion": {"chain_fusion": "auto"},
-            "pll_chunks": {"pll_time_chunks": 4},
-        }[what])
+        cfg = dataclasses.replace(CFG, interstage_i16=True)
     co = tdemod.make_coeffs(cfg)
     st = tdemod.demod_init_state(cfg, c)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdemod.demod_block(cfg, co, st, x, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    # (DemodConfig changes, the route demod_block records)
+    ({"chain_fusion": "auto"}, ["k12", "pll", "extract", "bpsk"]),
+    ({"pll_time_chunks": 4}, ["k12", "pll", "extract", "bpsk"]),
+    ({"chain_fusion": "auto", "pll_time_chunks": 4},
+     ["k12", "pll", "extract", "bpsk"]),
+], ids=["chain_fusion", "pll_chunks", "both"])
+def test_chain_and_chunk_options_route_without_raising(case):
+    """``chain_fusion`` and ``pll_time_chunks`` are ported: on int8 planes
+    at C = 1, B = 8192 neither raises, and each keeps the route the JAX
+    gates give that shape (the megakernel takes no int8 planes and needs
+    C % 8 == 0; N / G = 256 steps fail the chunk gate, so the sequential
+    PLL runs)."""
+    changes, route = case
+    cfg = dataclasses.replace(CFG, **changes)
+    calls = {}
+    tdemod.demod_block(cfg, tdemod.make_coeffs(cfg),
+                       tdemod.demod_init_state(cfg, 1),
+                       torch.zeros((2, 1, 8192), dtype=torch.int8),
+                       record=calls)
+    assert list(calls) == route
 
 
 def test_phase_split_without_k12_raises_on_the_card():

@@ -115,3 +115,40 @@ def test_cli_demod_f32w_on_card(tmp_path, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["pi_code"] == "1234", summary
     assert frontend.launches == midend.launches > 0
+
+
+@pytest.mark.gpu
+def test_chain_and_chunked_pll_match_plain_on_card():
+    """The megakernel (packed words, float32 planes with de-emphasis off
+    and on, complex64) with BPSK without a gain after it, and the chunked
+    PLL (after K12, at 8 channels and at an odd 5, G = 8) against their
+    plain versions on the card, on the arguments demod_block recorded, two
+    blocks with carried state (chip_smoke.py runs the same at C = 256,
+    B = 131,072 and B = 1,048,576); no input constant."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_chain(channels=8, block=16384, blocks=2)
+    rows += chip_smoke.compare_pll_chunked(channels=8, block=524288,
+                                           chunks=8, blocks=2,
+                                           odd_channels=5)
+    assert all(r["ok"] for r in rows), rows
+    assert not any(v["constant"] for r in rows
+                   for v in r.get("inputs", {}).values()), rows
+
+
+@pytest.mark.gpu
+def test_chain_equals_split_path_on_card():
+    """On the card, demod_block through the megakernel and through the
+    f32w split path on the same packed words: audio and every state leaf
+    before the RDS AGC bit for bit, the RDS AGC within its summation-order
+    tolerance (chip_smoke.py's chain cell at C = 2048)."""
+    _need_card()
+    import chip_smoke
+
+    res = chip_smoke.chain_path(channels=16, block=16384, blocks=2,
+                                vs_split_blocks=2)
+    vs = res["vs_split_f32w"]
+    assert vs["audio"] == 0.0 and vs["state_before_rds_agc"] == 0.0, vs
+    assert vs["agc_rds_rel"] <= chip_smoke.POWER_RTOL, vs
+    assert all(r["ok"] for r in res["compare"]), res["compare"]
