@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: nvcc builds the eight kernel libraries of fm_radio_tpu_torch/csrc/
+2. build: nvcc builds the nine kernel libraries of fm_radio_tpu_torch/csrc/
    (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, on the
    arguments ``demod_block`` gave it, at C=256 channels x B=131,072
@@ -20,6 +20,13 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    phase-split bench planes (full int8 range) through ``demod_block``, and
    the phase-split K12 kernel against the flat K12 kernel on the same
    planes interleaved;
+3a. K12 (and the PLL, extract, BPSK) against their plain versions at
+   C=8 x B=16,384 five times on fresh seeds, the allocator's free memory
+   filled with 0xFF bytes before each (compute-sanitizer refused the
+   card it was tried on: PERF.md); the channelizer's int8- and bf16-matrix kernels (splits 1 and
+   2) against their plain versions on the arguments
+   ``wideband_demod_block`` recorded from W=4 loud captures, two blocks
+   with carried state: M=32 words -> i8ps and -> f32, M=16 words -> i8;
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its six
@@ -70,7 +77,12 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    cell runs again on loud captures (2.8*M per channel), whose bridge
    output is not constant.  Then the M=16 bridge (stations' default: 128
    captures x 16, loud) and the float32 bridge (64 x 32, loud, K1 -> K2)
-   for 2 counted blocks each;
+   for 2 counted blocks each; then the cell at splits=1 (bench.py's own
+   lens, FMTPU_WB_SPLITS=1, on its captures), and at splits 1 and 2 on
+   loud captures, 8 counted blocks each, the matrix kernel and the
+   phase-split K12 timed alone beside their plain versions, and the
+   product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``);
+   the splits=1 and splits=3 cells on bench.py's captures profiled;
 6. the selftest station through the port's App on the card and through
    the plain versions on the host CPU: selftest gates, identical RDS
    bytes, audio SNR >= 75 dB;
@@ -88,14 +100,21 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    stations on an M=32 grid (phase-split bridge, 1.5 s; every station's
    PI, names reported) on the card; and the first 0.5 s of both through
    the card and through the plain versions on the host CPU: identical RDS
-   bytes, audio SNR >= 75 dB.
+   bytes, audio SNR >= 75 dB;
+7b. a stereo+RDS station (PI 0x5005) on channel 3 of an M=32 capture
+   through ``wideband_demod_block`` at splits 3, 2 and 1 on the card (the
+   JAX package's hardware gate, tests/test_tpu_accuracy.py:200-278): PI at
+   every split, audio of splits 2 and 1 >= 30 dB against splits 3; and
+   its first 0.5 s at splits=1 on the card and with the plain versions on
+   the host CPU: identical RDS bytes, audio SNR >= 75 dB.
 
 Any failed phase raises and the script exits non-zero.  The last lines of
 standard output are the nvidia-smi line, one JSON object with the
 per-kernel results (launches on every path, errors, kernel and plain ms,
-the bound of :func:`bound`; ``library_ms`` is null: no single PyTorch call
-computes any of these kernels' functions), and ``{"ok": true, "device":
-{...}}``.
+the bound of :func:`bound`; ``library_ms`` is the product alone as one
+PyTorch call for the two matrix channelizers, :func:`mat_library_ms`, and
+null for the others: no single PyTorch call computes their functions),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -144,29 +163,53 @@ CHAIN_KERNELS = (
     ("pll_chunked", "fm_radio_tpu_torch/csrc/pll.cu",
      "fm_radio_tpu/kernels/pll_pallas.py:382"),
 )
+# the channelizer's quantised-matrix modes (one source, two kernels)
+MAT_KERNELS = (
+    ("channelizer_i8mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
+     "fm_radio_tpu/kernels/channelizer_pallas.py:104"),
+    ("channelizer_bf16mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
+     "fm_radio_tpu/kernels/channelizer_pallas.py:133"),
+)
+# the channelizer kernel that runs each precision mode (``splits``)
+CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
+                         2: "channelizer_bf16mat"}
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
 # rounding; the power sums differ only in summation order.  The channelizer
-# has no power sum and its int8 outputs admit no slack: it must be exact.
+# has no power sum and its int8 outputs admit no slack: it must be exact,
+# and so must the int8-matrix channelizer (integer products, then the plain
+# version's float epilogue).  The bf16-matrix channelizer's tensor cores sum
+# in another order than its plain version: its float32 output is held to
+# BF16MAT_F32_REL of the output's rms, its int8 outputs to 1 LSB on at most
+# BF16MAT_I8_SHARE of the samples (a value that lies on a rounding boundary
+# may move); its carried state is exact.
 TOL = {"k12": 1e-5, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
        "k12_ps": 1e-5, "channelizer": 0.0, "frontend": 1e-6,
        "frontend_i8": 1e-6, "midend": 1e-5, "chain": 1e-5,
-       "pll_chunked": 1e-6}
+       "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
+       "channelizer_bf16mat": 1.0}
+BF16MAT_F32_REL = 1e-5
+BF16MAT_I8_SHARE = 1e-3
 POWER_RTOL = 1e-5
 SNR_MIN_DB = 75.0
+# the JAX package's hardware gate for splits 1 and 2 against splits 3
+# (tests/test_tpu_accuracy.py:278)
+STATION_SPLITS_SNR_DB = 30.0
 # per-channel amplitude of bench.py's wideband synthesis (bench.py:311-334)
 BENCH_AMP = 2.8
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # full 700 W): device memory 3.35 TB/s, float32 outside the tensor cores
-# 67 TFLOP/s, int8 on the tensor cores 1,979 TOP/s.  A kernel's bound is
-# the larger of its bytes (each input read once, each output written once)
-# over the memory rate and its operations over their peaks (float32 and
-# int8 times added); see work().
+# 67 TFLOP/s, int8 on the tensor cores 1,979 TOP/s, bf16 on the tensor
+# cores 989 TFLOP/s.  A kernel's bound is the larger of its bytes (each
+# input read once, each output written once) over the memory rate and its
+# operations over their peaks (float32, int8 and bf16 times added); see
+# work().
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 I8_OP_S = 1979e12
+BF16_FLOP_S = 989e12  # bf16 on the tensor cores, dense
 ATAN2_FLOPS = 25  # abs x2, max, min, clamp, div, 8 Horner steps, selects
 PLL_STEP_FLOPS = 30
 BPSK_STEP_FLOPS = 60
@@ -209,13 +252,15 @@ def _modules():
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0 (K12's flat and phase-split
-    entries count apart, as do K1's and its int8-direct entry, and the
-    sequential and chunked PLL)."""
+    entries count apart, as do K1's and its int8-direct entry, the
+    sequential and chunked PLL, and the channelizer's three modes)."""
     for mod in _modules().values():
         mod.launches = 0
     _modules()["k12"].launches_ps = 0
     _modules()["frontend"].launches_i8 = 0
     _modules()["pll"].launches_chunked = 0
+    _modules()["channelizer"].launches_i8mat = 0
+    _modules()["channelizer"].launches_bf16mat = 0
 
 
 def read_counts() -> dict:
@@ -224,6 +269,8 @@ def read_counts() -> dict:
     counts["k12_ps"] = m["k12"].launches_ps
     counts["frontend_i8"] = m["frontend"].launches_i8
     counts["pll_chunked"] = m["pll"].launches_chunked
+    counts["channelizer_i8mat"] = m["channelizer"].launches_i8mat
+    counts["channelizer_bf16mat"] = m["channelizer"].launches_bf16mat
     return counts
 
 
@@ -318,6 +365,12 @@ def _stages():
         "chain": (m["chain"].chain, m["chain"].chain_plain),
         "pll_chunked": (m["pll"].pilot_pll_chunked,
                         m["pll"].pll_chunked_plain),
+        # the wrapper and plain version of every mode; the recorded
+        # arguments end with the mode
+        "channelizer_i8mat": (m["channelizer"].channelize,
+                              m["channelizer"].channelize_plain),
+        "channelizer_bf16mat": (m["channelizer"].channelize,
+                                m["channelizer"].channelize_plain),
     }
 
 
@@ -327,10 +380,17 @@ def stage_errors(name: str, kout, pout) -> dict:
     the power sums ("rel") and, for BPSK, the count of differing ``valid``
     decisions ("valid_mismatch"; pred and sym compared where both are
     valid)."""
-    if name == "channelizer":
+    if name.startswith("channelizer"):
         (sk, yk), (sp, yp) = kout, pout
-        ys = zip(yk, yp) if isinstance(yk, tuple) else [(yk, yp)]
-        return {"err": _max_err(list(ys) + list(zip(sk, sp)))}
+        ys = list(zip(yk, yp) if isinstance(yk, tuple) else [(yk, yp)])
+        e = {"err": _max_err(ys + list(zip(sk, sp))),
+             "state_err": _max_err(zip(sk, sp))}
+        if isinstance(yk, tuple):  # float32 out: the error over the rms
+            rms = max(float(b.double().pow(2).mean().sqrt()) for _, b in ys)
+            e["f32_rel_rms"] = _max_err(ys) / max(rms, 1e-30)
+        else:  # int8 out: the share of samples that differ
+            e["i8_share"] = float((yk != yp).double().mean())
+        return e
     if name in ("frontend", "frontend_i8"):
         (sk, yk), (sp, yp) = kout, pout
         return {"err": max(_max_err([(yk, yp)]),
@@ -372,13 +432,24 @@ def _merge(acc: dict, name: str, e: dict) -> None:
 def _verdict(name: str, e: dict) -> dict:
     ok = math.isfinite(e["err"]) and e["err"] <= TOL[name]
     ok = ok and e.get("rel", 0.0) <= POWER_RTOL and not e.get("valid_mismatch")
-    return {"name": name, "max_abs_err": e["err"], "tol": TOL[name],
-            "power_rel_err": e.get("rel"),
-            "valid_mismatch": e.get("valid_mismatch"), "ok": ok}
+    row = {"name": name, "max_abs_err": e["err"], "tol": TOL[name],
+           "power_rel_err": e.get("rel"),
+           "valid_mismatch": e.get("valid_mismatch"), "ok": ok}
+    if name == "channelizer_bf16mat":
+        # TOL is 1 LSB on the int8 outputs; the float32 output and the
+        # share of int8 samples that differ have their own bounds
+        row.update(f32_rel_rms=e.get("f32_rel_rms"),
+                   i8_share=e.get("i8_share"), state_err=e["state_err"],
+                   tol_f32_rel_rms=BF16MAT_F32_REL,
+                   tol_i8_share=BF16MAT_I8_SHARE)
+        row["ok"] = (ok and e["state_err"] == 0.0
+                     and e.get("f32_rel_rms", 0.0) <= BF16MAT_F32_REL
+                     and e.get("i8_share", 0.0) <= BF16MAT_I8_SHARE)
+    return row
 
 
 def compare_kernels(channels: int = 256, block: int = 131072, blocks: int = 2,
-                    device="cuda") -> list[dict]:
+                    device="cuda", seed: int = 1) -> list[dict]:
     """Each kernel against its plain version on the card: every block goes
     through ``demod_block`` (state carried), and each kernel and its plain
     version run again on the arguments ``demod_block`` gave that kernel;
@@ -394,7 +465,7 @@ def compare_kernels(channels: int = 256, block: int = 131072, blocks: int = 2,
                                  deemphasis_cutoff_us=50)
     co_de = make_coeffs(cfg_de, device)
     st = demod_init_state(cfg, channels, device)
-    x = bench_planes(channels, block * blocks, seed=1, device=device)
+    x = bench_planes(channels, block * blocks, seed=seed, device=device)
     acc = {}
     for blk in range(blocks):
         calls = {}
@@ -524,14 +595,27 @@ def work(name: str, args) -> tuple:
         c, n = rds_p[0].shape
         return (_nbytes(*rds_p) + (4 + 8 + 1) * c * n,
                 float(c) * n * BPSK_STEP_FLOPS, 0.0)
-    if name == "channelizer":
-        tab, state, xp, m, out = args
+    if name.startswith("channelizer"):
+        tab, state, xp, m, out = args[:5]
         x0 = xp[0] if isinstance(xp, tuple) else xp
         w, t = x0.shape[0], x0.numel() // x0.shape[0]
         k = state[0].shape[-1] // m + 1
         out_b = 8 if out == "f32" else 2
-        return (_nbytes(*(xp if isinstance(xp, tuple) else (xp,)))
-                + out_b * w * t, float(w) * t * (4 * k + 8 * m), 0.0)
+        nbytes = (_nbytes(*(xp if isinstance(xp, tuple) else (xp,)))
+                  + out_b * w * t + 2 * _nbytes(*state))
+        if name == "channelizer":
+            return nbytes, float(w) * t * (4 * k + 8 * m), 0.0
+        # the fused products: per sample, 4 (int8) or 3 (bf16) groups of
+        # 128 * n_c multiply-adds per 128 samples, the tables read once
+        qt = _modules()["channelizer"].quant_tables(tab, args[5], out)
+        n_c = qt.mats.shape[1]
+        groups = 4 if name == "channelizer_i8mat" else 3
+        ops = float(w) * t * groups * 2 * n_c * 128
+        nbytes += _nbytes(qt.frag) + (_nbytes(qt.aux) if qt.aux is not None
+                                      else 0)
+        if name == "channelizer_i8mat":
+            return nbytes, 0.0, ops
+        return nbytes, 0.0, 0.0, ops
     raise KeyError(name)
 
 
@@ -558,13 +642,15 @@ def serial_steps(name: str, args):
 def bound(name: str, args) -> dict:
     """The least time the card could take for ``work(name, args)``: the
     larger of bytes / 3.35 TB/s and the operations over their peaks."""
-    nbytes, f32_ops, i8_ops = work(name, args)
+    nbytes, f32_ops, i8_ops, *rest = work(name, args)
+    bf16_ops = rest[0] if rest else 0.0
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (f32_ops / F32_FLOP_S + i8_ops / I8_OP_S) * 1e3
+    t_ops = (f32_ops / F32_FLOP_S + i8_ops / I8_OP_S
+             + bf16_ops / BF16_FLOP_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "f32_ops": f32_ops, "i8_ops": i8_ops,
-            "serial_steps": serial_steps(name, args)}
+            "bf16_ops": bf16_ops, "serial_steps": serial_steps(name, args)}
 
 
 def bench_u8(channels: int, block: int, seed: int, device):
@@ -752,31 +838,26 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     return res
 
 
-def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
-                  block: int = 131072, blocks: int = 3,
-                  device="cuda") -> dict:
+def _profile(label: str, step, blocks: int, device) -> dict:
     """Device time per block of each CUDA kernel (``torch.profiler``) over
-    ``blocks`` blocks of a split cell after two warm-up blocks, the host
-    wall time per block, and the device's idle share (1 - kernel time /
-    wall)."""
+    ``blocks`` calls of ``step`` after two warm-up calls, the host wall
+    time per block, and the device's idle share (1 - kernel time /
+    wall).  A one-element marker kernel runs first inside the profiler's
+    window: the profiler records no device time for the first kernel
+    launched there (measured: the wideband step, whose first launch is
+    the channelizer, showed it at two thirds of its time over 3 blocks)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from fm_radio_tpu_torch.config import DemodConfig
-    from fm_radio_tpu_torch.models.demod import (
-        demod_block, demod_init_state, make_coeffs)
-
-    cfg = DemodConfig(**kw)
-    co = make_coeffs(cfg, device)
-    st = demod_init_state(cfg, channels, device)
-    x = split_input(kind, channels, block, 0, device)
     for _ in range(2):
-        st, _ = demod_block(cfg, co, st, x)
+        step()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device=device).add_(1.0)
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         for _ in range(blocks):
-            st, _ = demod_block(cfg, co, st, x)
+            step()
         torch.cuda.synchronize(device)
         wall = (time.perf_counter() - t0) * 1e3 / blocks
     per = {}
@@ -792,6 +873,51 @@ def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
     return {"cell": label, "device_ms_per_block": top,
             "device_busy_ms": busy, "wall_ms": wall,
             "idle_share": 1.0 - busy / wall if busy else None}
+
+
+def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
+                  block: int = 131072, blocks: int = 3,
+                  device="cuda") -> dict:
+    """:func:`_profile` of a split cell (bench.py's signal in the form
+    ``kind`` under ``DemodConfig(**kw)``)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    state = [demod_init_state(cfg, channels, device)]
+    x = split_input(kind, channels, block, 0, device)
+
+    def step():
+        state[0], _ = demod_block(cfg, co, state[0], x)
+
+    return _profile(label, step, blocks, device)
+
+
+def profile_wideband(splits: int, n_captures: int = 64, m: int = 32,
+                     block: int = 131072, blocks: int = 3,
+                     amp: float = BENCH_AMP, device="cuda") -> dict:
+    """:func:`_profile` of the wideband cell (the int8 bridge) with the
+    channelizer in mode ``splits``, on captures of amplitude ``amp``."""
+    from fm_radio_tpu_torch.kernels.channelizer import make_tables
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+    from fm_radio_tpu_torch.models.wideband import (
+        wideband_demod_block, wideband_init_state)
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, device)
+    tab = make_tables(make_channelizer_taps(m, 16), m, device)
+    state = [wideband_init_state(cfg, m, n_captures, 16, device)]
+    x = wideband_words(n_captures, m, block, seed=0, device=device,
+                       amp=amp).reshape(n_captures, -1, 128)
+
+    def step():
+        state[0], _ = wideband_demod_block(cfg, co, tab, state[0], x, m,
+                                           splits=splits)
+
+    return _profile(f"wideband_m{m}_splits{splits}", step, blocks, device)
 
 
 # the megakernel's forms: (label, input kind, DemodConfig kwargs)
@@ -1107,8 +1233,9 @@ def compare_wideband(block: int = 131072, blocks: int = 2,
         for blk in range(blocks):
             calls = {}
             xb = x[:, blk * m * block : (blk + 1) * m * block].contiguous()
-            st, _ = wideband_demod_block(cfg, co, tab, st, xb, m, record=calls)
-            _, (sr, si), words, _, out = calls["channelizer"]
+            st, _ = wideband_demod_block(cfg, co, tab, st, xb, m, splits=3,
+                                         record=calls)
+            _, (sr, si), words, _, out, _ = calls["channelizer"]
             sub = (sr[:chan_captures], si[:chan_captures])
             w4 = words[:chan_captures]
             check("channelizer", (tab, sub, w4, m, out), f"m{m}_{out}")
@@ -1174,16 +1301,96 @@ def compare_wideband_f32(block: int = 131072, blocks: int = 2,
             for name in ("channelizer", "frontend", "midend")]
 
 
+def compare_channelizer_mat(block: int = 131072, blocks: int = 2,
+                            n_captures: int = 4, device="cuda") -> list[dict]:
+    """The channelizer's matrix kernels (splits 1 and 2) against their
+    plain versions on the card, on the arguments ``wideband_demod_block``
+    recorded from W = ``n_captures`` loud captures, ``blocks`` blocks with
+    carried state: at M = 32 words -> i8ps (as recorded) and -> f32, at
+    M = 16 words -> i8.  Returns one verdict row per kernel, with the
+    int8 planes' :func:`plane_stats` (i8ps, i8) under "planes"."""
+    from fm_radio_tpu_torch.kernels.channelizer import make_tables
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+    from fm_radio_tpu_torch.models.wideband import (
+        wideband_demod_block, wideband_init_state)
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    stages = _stages()
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, device)
+    acc, stats = {}, {}
+    for splits in (1, 2):
+        name = CHANNELIZER_BY_SPLITS[splits]
+        kern, plain = stages[name]
+        for m in (32, 16):
+            tab = make_tables(make_channelizer_taps(m), m, device)
+            st = wideband_init_state(cfg, m, n_captures, device=device)
+            x = wideband_words(n_captures, m, block * blocks, seed=40 + m,
+                               device=device, amp=loud_amp(m))
+            for blk in range(blocks):
+                calls = {}
+                xb = x[:, blk * m * block : (blk + 1) * m * block].contiguous()
+                st, _ = wideband_demod_block(cfg, co, tab, st, xb, m,
+                                             splits=splits, record=calls)
+                args = calls["channelizer"]
+                if args[5] != splits:
+                    raise RuntimeError(f"M={m}: splits={splits} ran as "
+                                       f"{args[5]}")
+                outs = [args[4]] + (["f32"] if m == 32 else [])
+                for out in outs:
+                    a = args[:4] + (out, splits)
+                    kout, pout = kern(*a), plain(*a)
+                    _merge(acc, name, stage_errors(name, kout, pout))
+                    if out != "f32":
+                        stats.setdefault(name, {})[f"m{m}_{out}_b{blk}"] = (
+                            plane_stats(pout[1]))
+                torch.cuda.synchronize(device)
+    return [dict(_verdict(name, acc[name]), planes=stats[name])
+            for name, _, _ in MAT_KERNELS]
+
+
+def poison_free_memory(device, nbytes: int = 1 << 30) -> None:
+    """Fill memory the caching allocator holds free with 0xFF bytes (NaN
+    as float32, -1 as int8): one large block and many small ones are
+    allocated, filled and released, so that the next ``torch.empty``
+    calls return poisoned memory and a kernel that reads an output or
+    scratch element it never wrote shows it."""
+    big = torch.full((nbytes,), 255, dtype=torch.uint8, device=device)
+    small = [torch.full((1 << 19,), 255, dtype=torch.uint8, device=device)
+             for _ in range(64)]
+    torch.cuda.synchronize(device)
+    del big, small
+
+
+def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
+                device="cuda") -> list[dict]:
+    """The small on-card comparison of K12 (and the PLL, extract, BPSK)
+    with its plain version, :func:`compare_kernels` at C = ``channels``, B
+    = ``block``, ``repeats`` times on fresh seeds, the allocator's free
+    memory poisoned before each (:func:`poison_free_memory`): the shape at
+    which K12 once disagreed with its plain version (PERF.md).  Returns
+    one row per repeat: the seed and each kernel's verdict."""
+    rows = []
+    for i in range(repeats):
+        poison_free_memory(device)
+        seed = 100 + i
+        rows.append({"seed": seed, "kernels": compare_kernels(
+            channels, block, 2, device, seed=seed)})
+    return rows
+
+
 def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
                   blocks: int = 8, amp: float = BENCH_AMP,
                   time_kernels: bool = True, bridge: str = "i8",
-                  device="cuda") -> dict:
+                  splits: int = 3, device="cuda") -> dict:
     """The wideband cell through wideband_demod_block with counted
     launches (one warm-up block first), on captures of per-channel
-    amplitude ``amp``; the :func:`plane_stats` of the last block's int8
-    bridge output; then, if ``time_kernels``, the channelizer and the
-    phase-split K12 (at M=32) timed alone beside their plain versions on
-    the last block's arguments, and compared.  ``bridge="f32"`` runs the
+    amplitude ``amp``, the channelizer in mode ``splits``; the
+    :func:`plane_stats` of the last block's int8 bridge output; then, if
+    ``time_kernels``, the channelizer and the phase-split K12 (at M=32)
+    timed alone beside their plain versions on the last block's
+    arguments, and compared (for a matrix mode also the product alone as
+    one PyTorch call, :func:`mat_library_ms`).  ``bridge="f32"`` runs the
     float32 bridge under ``DemodConfig()`` (K1 on planes, then K2)."""
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels.channelizer import make_tables
@@ -1199,9 +1406,10 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     # the pre-flattened [W, T/128, 128] view that bench.py passes
     x = wideband_words(n_captures, m, block, seed=0, device=device, amp=amp)
     x = x.reshape(n_captures, -1, 128)
-    st, _ = wideband_demod_block(cfg, co, tab, st, x, m,
-                                 bridge=bridge)  # warm-up
+    st, _ = wideband_demod_block(cfg, co, tab, st, x, m, bridge=bridge,
+                                 splits=splits)  # warm-up
     torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
 
     calls = {}
     reset_counts()
@@ -1210,19 +1418,21 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     start.record()
     for _ in range(blocks):
         st, outs = wideband_demod_block(cfg, co, tab, st, x, m,
-                                        bridge=bridge, record=calls)
+                                        bridge=bridge, splits=splits,
+                                        record=calls)
     end.record()
     torch.cuda.synchronize(device)
     launches = read_counts()
     ms = start.elapsed_time(end)
     ps = m == 32 and bridge == "i8"
-    want = {"channelizer": blocks, "pll": blocks, "extract": blocks,
-            "bpsk": blocks}
+    chan = CHANNELIZER_BY_SPLITS[calls["channelizer"][5]]
+    want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks}
     if bridge == "f32":
         want.update(frontend=blocks, midend=blocks)
     else:
         want["k12_ps" if ps else "k12"] = blocks
-    check_counts(launches, want, f"wideband path (M={m}, {bridge} bridge)")
+    check_counts(launches, want, f"wideband path (M={m}, {bridge} bridge, "
+                                 f"splits={splits})")
     c = n_captures * m
     audio = outs["audio"]
     if tuple(audio.shape) != (c, block // 32, 2):
@@ -1234,15 +1444,87 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
                     "k12_ps" if ps else "k12"][3]
     res = {"m": m, "captures": n_captures, "channels": c, "block": block,
            "blocks": blocks, "amp": amp, "bridge": bridge,
+           "splits": splits, "channelizer": chan,
            "planes": (input_stats(bridged) if bridge == "f32"
                       else plane_stats(bridged)),
            "launches": launches,
            "ms_per_block": ms / blocks,
-           "msps": c * block * blocks / (ms / 1e3) / 1e6}
+           "msps": c * block * blocks / (ms / 1e3) / 1e6,
+           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
     if time_kernels:
-        timed = {k: calls[k] for k in ("channelizer", "k12_ps")}
+        timed = {chan: calls["channelizer"], "k12_ps": calls["k12_ps"]}
         (res["kernel_ms"], res["plain_ms"], res["compare"],
          res["bound"]) = time_stages(timed)
+        if chan != "channelizer":
+            res["library_ms"] = mat_library_ms(calls["channelizer"])
+    return res
+
+
+def mat_library_ms(args, reps: int = 5) -> dict:
+    """The matrix channelizer's product alone as one PyTorch call, on the
+    recorded arguments (tables, state, words, M, out, splits), with its B
+    operand expanded beforehand (not timed): column j of capture w is the
+    128 n_c ring samples from 128 j, so X [W*J, 128 n_c] is a strided view
+    of the ring copied once.  splits 1: ``torch._int_mm`` of [X_r; X_i]
+    (int8, u8 - 128) and [A_re; A_im], the four integer products in one
+    call; splits 2: ``torch.bmm`` of the three Karatsuba planes (bf16) and
+    their matrices.  Each in both operand orders (X A^T and A X^T), the
+    faster one reported as "ms".  The product alone, not the function: no
+    unpacking, no epilogue, no output form.  Returns {"ms", "call",
+    "by_order", "shape"} or {"ms": None, "error"}."""
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+
+    tab, state, words, m, out, splits = args
+    qt = kch.quant_tables(tab, splits, out)
+    n_c = qt.mats.shape[1]
+    k = state[0].shape[-1] // m + 1
+    res = {"what": "the product alone, not the function"}
+    with torch.no_grad():
+        rings, _ = kch._mat_ring(state, words, m, k)
+        n_w, cols = rings[0].shape[0], rings[0].shape[1] - (n_c - 1)
+
+        def expand(r):  # [W, J + n_c - 1, 128] -> [W*J, 128 n_c]
+            return torch.as_strided(r, (n_w, cols, 128 * n_c),
+                                    (r.stride(0), 128, 1)).reshape(
+                                        n_w * cols, 128 * n_c)
+
+        # A as [planes, 128 (o), 128 n_c (c, s)]
+        a = qt.mats.permute(0, 2, 1, 3).reshape(qt.mats.shape[0], 128, -1)
+        try:
+            if splits == 1:
+                x = torch.cat([expand((r - 1.0).to(torch.int8))
+                               for r in rings])
+                a2 = torch.cat([a[0], a[1]])
+                at = a2.t().contiguous()
+                del rings
+                call = "torch._int_mm"
+                orders = {"x_at": lambda: torch._int_mm(x, at),
+                          "a_xt": lambda: torch._int_mm(a2, x.t())}
+            else:
+                xr, xi = rings
+                x = torch.stack([expand(v.to(torch.bfloat16))
+                                 for v in (xr, xi, xr + xi)])
+                at = a.transpose(1, 2).contiguous()
+                del rings, xr, xi
+                call = "torch.bmm"
+                orders = {"x_at": lambda: torch.bmm(x, at),
+                          "a_xt": lambda: torch.bmm(a, x.transpose(1, 2))}
+            res.update(call=call, shape=[list(x.shape), list(a.shape)],
+                       by_order={})
+            for name, fn in orders.items():
+                try:
+                    fn()
+                    res["by_order"][name] = _cuda_ms(fn, reps)[1]
+                except RuntimeError as e:
+                    res["by_order"][name] = f"refused: {str(e)[:200]}"
+                torch.cuda.empty_cache()
+            times = [v for v in res["by_order"].values()
+                     if isinstance(v, float)]
+            res["ms"] = min(times) if times else None
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            res.update(ms=None, error=str(e)[:300])
+        x = a = a2 = at = None
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1503,6 +1785,99 @@ def wideband_stations(device="cuda", block: int = 65536,
     return results
 
 
+def station_splits_words(m: int = 32, channel: int = 3, block: int = 32768,
+                         blocks: int = 24) -> np.ndarray:
+    """[1, blocks * block * M] packed words of a stereo+RDS station (PI
+    0x5005, 1 kHz left, 3 kHz right) on ``channel`` of an M-channel
+    capture, peak amplitude 100, as tests/test_tpu_accuracy.py:221-232
+    makes it."""
+    from fm_radio_tpu_torch.io.synth import (
+        FMModulator, ModulatorConfig, make_wideband)
+    from fm_radio_tpu_torch.utils.transfer import pack_iq_u8
+
+    groups = [(0x5005, (0 << 12) | (1 << 10), 0xE101, 0x4242)]
+    iq = FMModulator(ModulatorConfig()).generate(
+        block * blocks, left_hz=1000.0, right_hz=3000.0, rds_groups=groups)
+    wide = make_wideband({channel: iq}, m)
+    wide *= 100.0 / np.abs(wide).max()
+    u8 = np.clip(np.stack([np.round(wide.real + 127.0),
+                           np.round(wide.imag + 127.0)], axis=-1),
+                 0, 255).astype(np.uint8)
+    return pack_iq_u8(u8)[None]
+
+
+def station_splits(device="cuda", m: int = 32, channel: int = 3,
+                   block: int = 32768, blocks: int = 24,
+                   cpu_blocks: int = 16) -> dict:
+    """The JAX package's hardware gate for the precision modes
+    (tests/test_tpu_accuracy.py:200-278) on the port: the station of
+    :func:`station_splits_words` through ``wideband_demod_block`` (int8
+    bridge, phase-split at M = 32) at splits 3, 2 and 1 on the card, its
+    PI decoded at each, the audio of splits 2 and 1 against splits 3 (SNR
+    over the last three quarters); then the first ``cpu_blocks`` blocks at
+    splits=1 on the card and with the plain versions on the host CPU: RDS
+    bytes and audio SNR.  Each card run's launches are counted."""
+    from fm_radio_tpu_torch.kernels.channelizer import make_tables
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+    from fm_radio_tpu_torch.models.wideband import (
+        wideband_demod_block, wideband_init_state)
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+    from fm_radio_tpu_torch.rds.chain import make_rds_chain
+
+    words = station_splits_words(m, channel, block, blocks)
+    t = m * block
+
+    def run(dev, splits, n_blocks):
+        dev = torch.device(dev)
+        cfg = INT8_CONFIG
+        co = make_coeffs(cfg, dev)
+        tab = make_tables(make_channelizer_taps(m), m, dev)
+        st = wideband_init_state(cfg, m, 1, device=dev)
+        x = torch.from_numpy(words).to(dev)
+        audio, pred, valid = [], [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        for blk in range(n_blocks):
+            xb = x[:, blk * t : (blk + 1) * t].contiguous()
+            st, o = wideband_demod_block(cfg, co, tab, st, xb, m,
+                                         splits=splits)
+            audio.append(o["audio"][channel].cpu().numpy())
+            pred.append(o["rds_pred"][channel].cpu().numpy())
+            valid.append(o["rds_valid"][channel].cpu().numpy())
+        secs = time.perf_counter() - t0
+        pred, valid = np.concatenate(pred), np.concatenate(valid)
+        chain = make_rds_chain()
+        chain.process_symbols(pred[valid.astype(bool)])
+        rds = (np.concatenate(chain.rds_bytes) if chain.rds_bytes
+               else np.zeros(0, np.uint8))
+        return {"audio": np.concatenate(audio), "rds": rds,
+                "pi": f"{chain.db.pi_code:04X}", "launches": read_counts(),
+                "seconds": secs}
+
+    runs = {sp: run(device, sp, blocks) for sp in (3, 2, 1)}
+    res = {"m": m, "channel": channel, "block": block, "blocks": blocks,
+           "seconds_audio": blocks * block / 1_024_000, "splits": {}}
+    a3 = runs[3]["audio"]
+    for sp, r in runs.items():
+        tail = r["audio"][r["audio"].shape[0] // 4 :]
+        res["splits"][sp] = {
+            "pi": r["pi"], "rds_bytes": int(r["rds"].size),
+            "audio_rms": float(np.sqrt(np.mean(tail.astype(np.float64) ** 2))),
+            "snr_vs_splits3_db": (None if sp == 3 else _snr_db(
+                tail, a3[a3.shape[0] // 4 :])),
+            "launches": r["launches"],
+            "seconds": r["seconds"]}
+    gpu, cpu = run(device, 1, cpu_blocks), run("cpu", 1, cpu_blocks)
+    settle = int(0.15 * 32000)
+    res["splits1_card_vs_cpu"] = {
+        "blocks": cpu_blocks, "seconds_audio": cpu_blocks * block / 1_024_000,
+        "rds_bytes": int(gpu["rds"].size),
+        "rds_identical": bool(np.array_equal(gpu["rds"], cpu["rds"])),
+        "snr_db": _snr_db(gpu["audio"][settle:], cpu["audio"][settle:]),
+        "seconds": {"card": gpu["seconds"], "cpu": cpu["seconds"]}}
+    return res
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if not torch.cuda.is_available():
@@ -1523,7 +1898,7 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {name}")
 
-    # 2. build
+    # 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
     _build.build()
     log(f"[build] nvcc {_build.build_dir().name}: "
@@ -1554,6 +1929,30 @@ def main() -> int:
     if silent:
         raise RuntimeError(f"wideband kernels compared on constant planes: "
                            f"{silent}")
+
+    # 3a. K12's small comparison again, on fresh seeds and poisoned memory
+    # (compute-sanitizer refused the card it was tried on: PERF.md), and the
+    # channelizer's
+    # matrix kernels against their plain versions
+    t0 = time.perf_counter()
+    reps = k12_repeats(5, 8, 16384, dev)
+    for r in reps:
+        log(f"[compare] k12 repeat: {json.dumps(r)}")
+    bad = [(r["seed"], k["name"]) for r in reps for k in r["kernels"]
+           if not k["ok"]]
+    if bad:
+        raise RuntimeError(f"small-shape repeats disagree: {bad}")
+    mrows = compare_channelizer_mat(131072, 2, 4, dev)
+    for r in mrows:
+        log(f"[compare] {json.dumps(r)}")
+    log(f"[compare] k12 repeats, matrix channelizers: "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in mrows if not r["ok"]]
+    silent = [(r["name"], k) for r in mrows for k, v in r["planes"].items()
+              if v["centre_share"] >= 1.0]
+    if bad or silent:
+        raise RuntimeError(f"matrix channelizers disagree {bad} or were "
+                           f"compared on constant planes {silent}")
 
     # 3b. the split path's kernels against plain on the card
     t0 = time.perf_counter()
@@ -1656,14 +2055,26 @@ def main() -> int:
     wbf = wideband_path(64, 32, 131072, 2, amp=loud_amp(32),
                         time_kernels=False, bridge="f32", device=dev)
     log(f"[wideband] {json.dumps(wbf)}")
+    # the precision modes: bench.py's own lens (FMTPU_WB_SPLITS=1 on its
+    # captures), and splits 1 and 2 on loud captures
+    wb_i8_bench = wideband_path(64, 32, 131072, 8, splits=1, device=dev)
+    log(f"[wideband] {json.dumps(wb_i8_bench)}")
+    wb_i8 = wideband_path(64, 32, 131072, 8, amp=loud_amp(32), splits=1,
+                          device=dev)
+    log(f"[wideband] {json.dumps(wb_i8)}")
+    wb_bf16 = wideband_path(64, 32, 131072, 8, amp=loud_amp(32), splits=2,
+                            device=dev)
+    log(f"[wideband] {json.dumps(wb_bf16)}")
+    for sp in (1, 3):  # bench.py's lens and the exact mode beside it
+        log(f"[profile] {json.dumps(profile_wideband(sp, device=dev))}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
-    bad = [r["name"] for r in wb_bench["compare"] + wb["compare"]
-           if not r["ok"]]
+    bad = [r["name"] for c in (wb_bench, wb, wb_i8_bench, wb_i8, wb_bf16)
+           for r in c["compare"] if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the wideband cell: {bad}")
-    if wb["planes"]["centre_share"] >= 1.0:
-        raise RuntimeError("the loud wideband cell reached K12 silent")
+    if any(c["planes"]["centre_share"] >= 1.0 for c in (wb, wb_i8, wb_bf16)):
+        raise RuntimeError("a loud wideband cell reached K12 silent")
 
     # 6. station on the card and on the host CPU
     t0 = time.perf_counter()
@@ -1711,17 +2122,35 @@ def main() -> int:
                 raise RuntimeError(f"wideband stations (M={grid['m']}) "
                                    f"failed their gates: {r}")
 
+    # 7b. a station through the three precision modes
+    t0 = time.perf_counter()
+    sps = station_splits(dev)
+    log(f"[stations] splits: {json.dumps(sps)}")
+    log(f"[stations] splits: {time.perf_counter() - t0:.1f} s")
+    vs = sps["splits1_card_vs_cpu"]
+    for sp, r in sps["splits"].items():
+        chan = CHANNELIZER_BY_SPLITS[sp]
+        if r["pi"] != "5005" or not r["launches"].get(chan) or (
+                sp != 3 and r["snr_vs_splits3_db"] < STATION_SPLITS_SNR_DB):
+            raise RuntimeError(f"station at splits={sp} failed its gates: "
+                               f"{r}")
+    if not (vs["rds_identical"] and vs["rds_bytes"] > 0
+            and vs["snr_db"] >= SNR_MIN_DB):
+        raise RuntimeError(f"station at splits=1, card vs CPU: {vs}")
+
     # the kernels line: each kernel's numbers from its cell (pre-split:
     # k12, pll, extract, bpsk; the loud wideband cell: channelizer, k12_ps;
     # f32w: frontend, midend; k12off: frontend_i8), its errors at C=256 (or
     # W=4) and at full width, and its launches on every path
     err_small, err_full = {}, {}
-    for r in rows + wrows + srows + frows + crows:
+    rep_rows = [k for r in reps for k in r["kernels"]]
+    for r in rows + wrows + srows + frows + crows + mrows + rep_rows:
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
               + [r for c in cells.values() for r in c["compare"]]
-              + ch["compare"] + pc["compare"]):
+              + ch["compare"] + pc["compare"] + wb_i8_bench["compare"]
+              + wb_i8["compare"] + wb_bf16["compare"]):
         err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
@@ -1729,6 +2158,11 @@ def main() -> int:
              "wideband_m32_loud": wb["launches"],
              "wideband_m16_loud": wb16["launches"],
              "wideband_m32_f32_bridge": wbf["launches"],
+             "wideband_m32_splits1": wb_i8_bench["launches"],
+             "wideband_m32_splits1_loud": wb_i8["launches"],
+             "wideband_m32_splits2_loud": wb_bf16["launches"],
+             **{f"station_splits{sp}": r["launches"]
+                for sp, r in sps["splits"].items()},
              **{f"split_{k}": c["launches"] for k, c in cells.items()},
              **{f"station_{r['path']}": r["launches"] for r in sst[:2]},
              "chain_f32w": ch["launches"],
@@ -1738,12 +2172,14 @@ def main() -> int:
     home = {"k12": mp, "pll": mp, "extract": mp, "bpsk": mp,
             "channelizer": wb, "k12_ps": wb, "frontend": cells["f32w"],
             "midend": cells["f32w"], "frontend_i8": cells["k12off"],
-            "chain": ch, "pll_chunked": pc}
+            "chain": ch, "pll_chunked": pc, "channelizer_i8mat": wb_i8,
+            "channelizer_bf16mat": wb_bf16}
     kernels = []
     for n, src, rep in (KERNELS + WIDEBAND_KERNELS + SPLIT_KERNELS
-                        + CHAIN_KERNELS):
+                        + CHAIN_KERNELS + MAT_KERNELS):
         cell = home[n]
         b = cell["bound"][n]
+        lib = cell.get("library_ms")
         k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
              "launches": cell["launches"][n],
              "launches_by_path": {p: c[n] for p, c in paths.items()},
@@ -1752,8 +2188,11 @@ def main() -> int:
              "max_abs_err_small": err_small[n],
              "ms": cell["kernel_ms"][n], "plain_ms": cell["plain_ms"][n],
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-             "library_ms": None,
-             "work": {key: b[key] for key in ("bytes", "f32_ops", "i8_ops")}}
+             "library_ms": lib["ms"] if lib else None,
+             "work": {key: b[key] for key in ("bytes", "f32_ops", "i8_ops",
+                                              "bf16_ops")}}
+        if lib:
+            k["library"] = lib
         if b["serial_steps"] is not None:
             k["serial_steps"] = b["serial_steps"]
         kernels.append(k)
@@ -1772,6 +2211,19 @@ def main() -> int:
                                  for c in cells})
         if n == "pll_chunked":
             k.update(pll_alone=pc["pll_alone"])
+        if n in ("channelizer_i8mat", "channelizer_bf16mat"):
+            mr = next(r for r in mrows if r["name"] == n)
+            k.update(planes_small=mr["planes"], planes_full_width=cell["planes"])
+            if n == "channelizer_bf16mat":
+                full = next(r for r in cell["compare"] if r["name"] == n)
+                k.update(f32_rel_rms=mr["f32_rel_rms"],
+                         i8_share_small=mr["i8_share"],
+                         i8_share_full_width=full["i8_share"],
+                         tol_f32_rel_rms=BF16MAT_F32_REL,
+                         tol_i8_share=BF16MAT_I8_SHARE)
+            if n == "channelizer_i8mat":
+                k.update(ms_bench_input=wb_i8_bench["kernel_ms"][n],
+                         plain_ms_bench_input=wb_i8_bench["plain_ms"][n])
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

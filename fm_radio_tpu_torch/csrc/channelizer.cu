@@ -14,9 +14,9 @@
 // with cos/sin[p, k] = cos/sin(-2 pi p k / M) from a float32 table made on
 // the host.  Every sum runs in that order (r, then p from 0) and the file is
 // built with -fmad=false, so the kernel equals the plain version
-// (kernels/channelizer.py::channelize_plain) bit for bit.  The TPU kernel's
-// fused bf16/int8 matrices (its "splits" modes) are not ported: this is the
-// exact float32 computation.
+// (kernels/channelizer.py::channelize_plain) bit for bit.  This is the TPU
+// kernel's splits=3 (near-exact) mode as exact float32; its fused int8 and
+// bf16 matrix modes (splits 1 and 2) are csrc/channelizer_mma.cu.
 //
 // Input: packed u8 IQ words [W, T] (w = I*256 + Q, unpacked here exactly as
 // utils/transfer.py::unpack_iq_words) or (re, im) float32 planes [W, T].
@@ -50,46 +50,13 @@
 // loads, two twiddle loads and eight unfused float32 operations, in a loop
 // over a runtime M.  The DFT runs on the CUDA cores, not the tensor cores.
 
-#include "common.cuh"
+#include "chan_common.cuh"
 
 namespace fmt {
 
 constexpr int kChanThreads = 256;
 constexpr int kTileSamples = 4096;  // n_t * M
 constexpr int kPerThread = kTileSamples / kChanThreads;
-
-enum ChanOut { kOutF32 = 0, kOutI8 = 1, kOutI8PS = 2 };
-
-// sample s of x_pad = [state | x] for one capture, centred float32
-template <bool kPacked>
-__device__ __forceinline__ void chan_sample(const float* __restrict__ x0,
-                                            const float* __restrict__ x1,
-                                            const float* __restrict__ sr,
-                                            const float* __restrict__ si,
-                                            int64_t s, int n_state,
-                                            float& re, float& im) {
-  if (s < n_state) {
-    re = sr[s];
-    im = si[s];
-    return;
-  }
-  const int64_t t = s - n_state;
-  if (kPacked) {
-    const float w = x0[t];
-    const float ihi = floorf(w * (1.0f / 256.0f));
-    re = ihi - 127.0f;
-    im = (w - ihi * 256.0f) - 127.0f;
-  } else {
-    re = x0[t];
-    im = x1[t];
-  }
-}
-
-// u8-grid int8 of one channel sample: clip(rint(v * inv_m) - 1, -128, 127)
-__device__ __forceinline__ int8_t chan_q8(float v, float inv_m) {
-  const float q = fminf(fmaxf(rintf(v * inv_m) - 1.0f, -128.0f), 127.0f);
-  return (int8_t)(int)q;
-}
 
 template <bool kPacked, int kOut>
 __global__ void __launch_bounds__(kChanThreads)
@@ -186,28 +153,6 @@ chan_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
       y_im[at] = yi;
     }
   }
-}
-
-// new carried state: the last (K-1)*M samples of x_pad, per capture
-template <bool kPacked>
-__global__ void chan_state_kernel(const float* __restrict__ x0,
-                                  const float* __restrict__ x1,
-                                  const float* __restrict__ sr,
-                                  const float* __restrict__ si, int n_state,
-                                  int n_captures, int64_t t_len,
-                                  float* __restrict__ sr_out,
-                                  float* __restrict__ si_out) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n_captures * n_state) return;
-  const int w = (int)(idx / n_state);
-  const int i = (int)(idx % n_state);
-  float re, im;
-  chan_sample<kPacked>(x0 + (int64_t)w * t_len,
-                       kPacked ? nullptr : x1 + (int64_t)w * t_len,
-                       sr + (int64_t)w * n_state, si + (int64_t)w * n_state,
-                       t_len + i, n_state, re, im);
-  sr_out[idx] = re;
-  si_out[idx] = im;
 }
 
 template <bool kPacked, int kOut>

@@ -27,6 +27,7 @@ from fm_radio_tpu_torch.parallel.channelizer import (
     as_tables,
     channelize_batch_p,
     make_channelizer_taps,
+    resolve_splits,
 )
 
 PHASE_SPLIT_M = 32  # the channelizer's 128/M frame phases = the ds x4 phases
@@ -55,12 +56,15 @@ def wideband_demod_block(cfg, coeffs, ch_taps, state: dict, w_words,
     view) -> channelize -> bridge -> ``demod_block`` over C = W*M stations.
 
     ``ch_taps``: None (``make_channelizer_taps(M)``), the prototype taps,
-    or ``ChannelizerTables`` on the words' device.  Returns (state', outs)
+    or ``ChannelizerTables`` on the words' device.  ``splits`` is the
+    channelizer's precision mode (``parallel/channelizer.py::
+    resolve_splits``: None reads ``FMTPU_WB_SPLITS``, default 3); the f32
+    bridge passes none, as the JAX package's does.  Returns (state', outs)
     with ``demod_block``'s outs.  ``record``, if given, receives the
     arguments of the channelizer wrapper (``kernels/channelizer.py::
-    channelize``: tables, state, words, M, out) under "channelizer" and is
-    passed on to ``demod_block``,
-    which records its own kernels' arguments."""
+    channelize``: tables, state, words, M, out, and the mode that ran)
+    under "channelizer" and is passed on to ``demod_block``, which records
+    its own kernels' arguments."""
     m = num_channels
     if bridge not in ("i8", "f32"):
         raise ValueError(f"bridge must be 'i8' or 'f32', got {bridge!r}")
@@ -68,14 +72,15 @@ def wideband_demod_block(cfg, coeffs, ch_taps, state: dict, w_words,
         ch_taps = make_channelizer_taps(m)
     tab = as_tables(ch_taps, m, w_words.device)
     if bridge == "f32":
-        out = "f32"
+        out, splits = "f32", None
     else:
         out = "i8ps" if m == PHASE_SPLIT_M else "i8"
+    mode = resolve_splits(splits, w_words, m, tab.w_rev.shape[0])
     st = dict(state)
     if record is not None:
-        record["channelizer"] = (tab, st["chan"], w_words, m, out)
+        record["channelizer"] = (tab, st["chan"], w_words, m, out, mode)
     st["chan"], y = channelize_batch_p(tab, st["chan"], w_words, m,
-                                       out=out, splits=splits)
+                                       out=out, splits=mode)
     if out == "f32":
         # undo the filterbank's DFT scaling (wideband.py:85-92)
         c = y[0].shape[0] * m

@@ -155,23 +155,13 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("what", [
     "phase_split", "include_taps", "interstage_i16", "interstage_f32",
-    "channelizer_splits", "rds_native",
+    "rds_native",
 ])
 def test_outside_the_slice_raises(what):
     c, b = 1, 8192
     cfg = CFG
     x = torch.zeros((2, c, b), dtype=torch.int8)
     kw = {}
-    if what == "channelizer_splits":
-        from fm_radio_tpu_torch.models import wideband
-
-        m = 8
-        st = wideband.wideband_init_state(CFG, m, 1)
-        words = torch.full((1, m * b), 127.0 * 256 + 127.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            wideband.wideband_demod_block(CFG, tdemod.make_coeffs(CFG), None,
-                                          st, words, m, splits=1)
-        return
     if what == "rds_native":
         from fm_radio_tpu_torch.rds.chain import make_rds_chain
 
@@ -216,6 +206,30 @@ def test_chain_and_chunk_options_route_without_raising(case):
                        torch.zeros((2, 1, 8192), dtype=torch.int8),
                        record=calls)
     assert list(calls) == route
+
+
+@pytest.mark.parametrize("case", [
+    # (M, splits asked, the mode that runs)
+    (8, 1, 1), (8, 2, 2), (8, 3, 3), (32, 1, 1), (16, 2, 2), (4, 1, 3),
+], ids=["m8_s1", "m8_s2", "m8_s3", "m32_s1", "m16_s2", "m4_s1_gate"])
+def test_channelizer_splits_route_without_raising(case):
+    """The channelizer's precision modes are ported: ``splits`` 1 and 2
+    run on packed words where the JAX TPU route draws them (M % 8 == 0;
+    the demod's block of 8192 per channel always makes whole frame tiles
+    of the TPU kernel), and the exact mode elsewhere (M = 4);
+    ``wideband_demod_block`` records the mode that ran, and the M silent
+    channels stay silent."""
+    from fm_radio_tpu_torch.models import wideband
+
+    m, splits, mode = case
+    st = wideband.wideband_init_state(CFG, m, 1)
+    words = torch.full((1, 8192 * m), 127.0 * 256 + 127.0)
+    calls = {}
+    _, outs = wideband.wideband_demod_block(CFG, tdemod.make_coeffs(CFG), None,
+                                            st, words, m, splits=splits,
+                                            record=calls)
+    assert calls["channelizer"][5] == mode
+    assert not outs["audio"].any()
 
 
 def test_phase_split_without_k12_raises_on_the_card():

@@ -152,3 +152,87 @@ def test_chain_equals_split_path_on_card():
     assert vs["audio"] == 0.0 and vs["state_before_rds_agc"] == 0.0, vs
     assert vs["agc_rds_rel"] <= chip_smoke.POWER_RTOL, vs
     assert all(r["ok"] for r in res["compare"]), res["compare"]
+
+
+@pytest.mark.gpu
+def test_channelizer_mat_kernels_match_plain_on_card():
+    """The channelizer's int8-matrix kernel (splits=1) equals its plain
+    version bit for bit, and the bf16-matrix kernel (splits=2) is within
+    chip_smoke.py's stated tolerances, on the arguments
+    wideband_demod_block recorded from loud captures, two blocks with
+    carried state (M = 32 words -> i8ps and -> f32, M = 16 -> i8;
+    chip_smoke.py runs the same at W = 4, B = 131,072); no compared int8
+    planes constant."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_channelizer_mat(block=16384, blocks=2,
+                                              n_captures=2)
+    assert all(r["ok"] for r in rows), rows
+    assert rows[0]["max_abs_err"] == 0.0, rows[0]
+    assert all(v["centre_share"] < 1.0
+               for r in rows for v in r["planes"].values()), rows
+
+
+@pytest.mark.gpu
+def test_k12_small_repeats_on_poisoned_memory():
+    """K12, the PLL, extract and BPSK against their plain versions at the
+    shape where K12 once disagreed (C = 8, B = 16,384), on three fresh
+    seeds, the allocator's free memory filled with 0xFF bytes before
+    each: a kernel that read an output or scratch element it never wrote
+    would see NaN there."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.k12_repeats(repeats=3)
+    assert all(k["ok"] for r in rows for k in r["kernels"]), rows
+
+
+@pytest.mark.gpu
+def test_channelizer_mat_kernels_other_shapes_on_card():
+    """Both matrix kernels against their plain versions at the other
+    channel counts the TPU gate admits (M = 8, 64, 128; K = 16, and K = 17
+    at M = 128: 17 column shifts), on random packed words (every u8 value),
+    W = 2, two blocks with carried state, the float32 and int8 outputs.
+    The int8 matrices are exact.  The bf16 matrices' float32 sums round
+    once per k-step of the tensor cores' accumulator, 8 per column shift
+    n_c, so their error grows with the depth: the float32 output within
+    2e-6 * n_c of its rms (chip_smoke.py's 1e-5 at the cell's n_c = 5;
+    measured 1.7e-5 at n_c = 16), the int8 output within 1 LSB on at most
+    1e-3 of the samples; the state exact."""
+    _need_card()
+    import numpy as np
+
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    for m, k in ((8, 16), (64, 16), (128, 16), (128, 17)):
+        n_c = kch.tail_columns(k, m) + 1
+        tab = kch.make_tables(make_channelizer_taps(m, k), m, dev)
+        t = 8192 * m
+        words = torch.from_numpy(
+            rng.integers(0, 256, (2, 2 * t)).astype(np.float32) * 256.0
+            + rng.integers(0, 256, (2, 2 * t)).astype(np.float32)).to(dev)
+        for splits in (1, 2):
+            name = chip_smoke.CHANNELIZER_BY_SPLITS[splits]
+            for out in ("f32", "i8"):
+                st = (torch.zeros((2, (k - 1) * m), device=dev),) * 2
+                for blk in range(2):
+                    xb = words[:, blk * t : (blk + 1) * t].contiguous()
+                    args = (tab, st, xb, m, out, splits)
+                    kout = kch.channelize(*args)
+                    e = chip_smoke.stage_errors(name, kout,
+                                                kch.channelize_plain(*args))
+                    where = (m, k, out, blk, e)
+                    assert e["state_err"] == 0.0, where
+                    if splits == 1:
+                        assert e["err"] == 0.0, where
+                    elif out == "f32":
+                        assert e["f32_rel_rms"] <= 2e-6 * n_c, where
+                    else:
+                        assert e["err"] <= 1.0, where
+                        assert e["i8_share"] <= 1e-3, where
+                    st = kout[0]

@@ -190,11 +190,22 @@ def test_channelize_i8ps_matches_pallas_interpret():
 
 
 def test_channelize_limits_and_quantised_modes_raise():
+    """The limits raise; the quantised modes raise only where their
+    kernel cannot run: an unknown ``splits``, or planes handed to the
+    kernel wrapper in a matrix mode (``channelize_batch_p`` routes planes
+    to the exact mode instead)."""
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+
     taps = tch.make_channelizer_taps(16, K)
     st = tuple(torch.from_numpy(s) for s in _zero_state(1, 16))
     x = torch.from_numpy(_words(1, 8192 * 16, seed=1))
+    planes = ttransfer.unpack_iq_words(x)
     for splits in (1, 2):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="packed words"):
+            kch.channelize(kch.make_tables(taps, 16), st, planes, 16,
+                           out="i8", splits=splits)
+    for splits in (0, 4):
+        with pytest.raises(ValueError, match=f"splits={splits}"):
             tch.channelize_batch_p(taps, st, x, 16, out="i8", splits=splits)
     with pytest.raises(ValueError, match="M = 32"):
         tch.channelize_batch_p(taps, st, x, 16, out="i8ps")
