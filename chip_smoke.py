@@ -170,6 +170,37 @@ MAT_KERNELS = (
     ("channelizer_bf16mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
      "fm_radio_tpu/kernels/channelizer_pallas.py:133"),
 )
+# the int16 inter-stage format's kernels (interstage_i16): the same
+# sources, templated on the format; each counts apart
+I16_KERNELS = (
+    ("frontend_i16", "fm_radio_tpu_torch/csrc/frontend.cu",
+     "fm_radio_tpu/kernels/frontend_pallas.py:223"),
+    ("frontend_i8_i16", "fm_radio_tpu_torch/csrc/frontend.cu",
+     "fm_radio_tpu/kernels/frontend_pallas.py:448"),
+    ("midend_i16", "fm_radio_tpu_torch/csrc/midend.cu",
+     "fm_radio_tpu/kernels/midend_pallas.py:225"),
+    ("pll_i16", "fm_radio_tpu_torch/csrc/pll.cu",
+     "fm_radio_tpu/kernels/pll_pallas.py:80"),
+    ("extract_i16", "fm_radio_tpu_torch/csrc/extract.cu",
+     "fm_radio_tpu/kernels/extract_pallas.py:122"),
+    ("extract_i16_f32dt", "fm_radio_tpu_torch/csrc/extract.cu",
+     "fm_radio_tpu/kernels/extract_pallas.py:122"),
+)
+# the kernel (and its recorded name) each int16 variant is a form of (the
+# same as probes/replay.py's I16_VARIANTS, which this script imports only
+# from inside its functions)
+I16_BASE = {"frontend_i16": "frontend", "frontend_i8_i16": "frontend_i8",
+            "midend_i16": "midend", "pll_i16": "pll",
+            "extract_i16": "extract", "extract_i16_f32dt": "extract"}
+# the device-memory probes (tools/hbm_sweep.py as probes/hbm_sweep.py)
+PROBE_KERNELS = (
+    ("hbm_copy", "fm_radio_tpu_torch/csrc/hbm_sweep.cu",
+     "tools/hbm_sweep.py:57"),
+    ("hbm_dma_copy", "fm_radio_tpu_torch/csrc/hbm_sweep.cu",
+     "tools/hbm_sweep.py:75"),
+    ("hbm_read", "fm_radio_tpu_torch/csrc/hbm_sweep.cu",
+     "tools/hbm_sweep.py:149"),
+)
 # the channelizer kernel that runs each precision mode (``splits``)
 CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
                          2: "channelizer_bf16mat"}
@@ -187,11 +218,21 @@ TOL = {"k12": 1e-5, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
        "k12_ps": 1e-5, "channelizer": 0.0, "frontend": 1e-6,
        "frontend_i8": 1e-6, "midend": 1e-5, "chain": 1e-5,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
-       "channelizer_bf16mat": 1.0}
+       "channelizer_bf16mat": 1.0,
+       # the int16 format: quantised stores leave no slack
+       **dict.fromkeys(I16_BASE, 0.0)}
 BF16MAT_F32_REL = 1e-5
 BF16MAT_I8_SHARE = 1e-3
 POWER_RTOL = 1e-5
 SNR_MIN_DB = 75.0
+# the int16 station: card against the host's plain versions (the kernels
+# equal them bit for bit), and against the float32 route (the JAX
+# package's own bar for the format, tests/test_e2e.py:312-368)
+STATION_I16_CPU_DB = 100.0
+STATION_I16_FLOAT_DB = 55.0
+# the int16 kernels one channel takes: its PLL tile (1) is not
+# channel-major, so theta is dequantised and dt stays float32
+I16_STATION = ("frontend_i8_i16", "midend_i16", "extract_i16_f32dt")
 # the JAX package's hardware gate for splits 1 and 2 against splits 3
 # (tests/test_tpu_accuracy.py:278)
 STATION_SPLITS_SNR_DB = 30.0
@@ -205,8 +246,12 @@ BENCH_AMP = 2.8
 # cores 989 TFLOP/s.  A kernel's bound is the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
 # operations over their peaks (float32, int8 and bf16 times added); see
-# work().
-HBM_BYTES_S = 3.35e12
+# work().  The memory rate is the data sheet's until phase 2b's sweep
+# (probes/hbm_sweep.py) measures the best copy rate this card reaches, and
+# that rate from then on (HBM_RATE_FROM says which).
+DATASHEET_HBM_BYTES_S = 3.35e12
+HBM_BYTES_S = DATASHEET_HBM_BYTES_S
+HBM_RATE_FROM = "data sheet"
 F32_FLOP_S = 67e12
 I8_OP_S = 1979e12
 BF16_FLOP_S = 989e12  # bf16 on the tensor cores, dense
@@ -250,27 +295,39 @@ def _modules():
             "midend": midend, "chain": chain}
 
 
+# (kernel name, module key, counter): the counters besides each module's
+# ``launches`` (K12's flat and phase-split entries count apart, as do K1's
+# and its int8-direct entry, the sequential and chunked PLL, the
+# channelizer's three modes, and every int16 variant)
+COUNTERS = (
+    ("k12_ps", "k12", "launches_ps"),
+    ("frontend_i8", "frontend", "launches_i8"),
+    ("pll_chunked", "pll", "launches_chunked"),
+    ("channelizer_i8mat", "channelizer", "launches_i8mat"),
+    ("channelizer_bf16mat", "channelizer", "launches_bf16mat"),
+    ("frontend_i16", "frontend", "launches_i16"),
+    ("frontend_i8_i16", "frontend", "launches_i8_i16"),
+    ("midend_i16", "midend", "launches_i16"),
+    ("pll_i16", "pll", "launches_i16"),
+    ("extract_i16", "extract", "launches_i16"),
+    ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
+)
+
+
 def reset_counts() -> None:
-    """Every kernel's launch count to 0 (K12's flat and phase-split
-    entries count apart, as do K1's and its int8-direct entry, the
-    sequential and chunked PLL, and the channelizer's three modes)."""
-    for mod in _modules().values():
+    """Every kernel's launch count to 0."""
+    m = _modules()
+    for mod in m.values():
         mod.launches = 0
-    _modules()["k12"].launches_ps = 0
-    _modules()["frontend"].launches_i8 = 0
-    _modules()["pll"].launches_chunked = 0
-    _modules()["channelizer"].launches_i8mat = 0
-    _modules()["channelizer"].launches_bf16mat = 0
+    for _, key, attr in COUNTERS:
+        setattr(m[key], attr, 0)
 
 
 def read_counts() -> dict:
     m = _modules()
     counts = {name: mod.launches for name, mod in m.items()}
-    counts["k12_ps"] = m["k12"].launches_ps
-    counts["frontend_i8"] = m["frontend"].launches_i8
-    counts["pll_chunked"] = m["pll"].launches_chunked
-    counts["channelizer_i8mat"] = m["channelizer"].launches_i8mat
-    counts["channelizer_bf16mat"] = m["channelizer"].launches_bf16mat
+    counts.update({name: getattr(m[key], attr)
+                   for name, key, attr in COUNTERS})
     return counts
 
 
@@ -348,30 +405,81 @@ CHAIN_KEYS = K12_KEYS + ("pll",) + EXTRACT_KEYS
 
 def _stages():
     """Each kernel's (wrapper, plain version), by the names under which
-    ``demod_block`` records their arguments."""
-    m = _modules()
-    return {
-        "k12": (m["k12"].k12, m["k12"].k12_plain),
-        "pll": (m["pll"].pilot_pll_theta, m["pll"].pll_plain),
-        "extract": (m["extract"].extract, m["extract"].extract_plain),
-        "bpsk": (m["bpsk"].bpsk_sync, m["bpsk"].bpsk_plain),
-        "k12_ps": (m["k12"].k12_ps, m["k12"].k12_ps_plain),
-        "channelizer": (m["channelizer"].channelize,
-                        m["channelizer"].channelize_plain),
-        "frontend": (m["frontend"].frontend, m["frontend"].frontend_plain),
-        "frontend_i8": (m["frontend"].frontend_i8,
-                        m["frontend"].frontend_i8_plain),
-        "midend": (m["midend"].midend, m["midend"].midend_plain),
-        "chain": (m["chain"].chain, m["chain"].chain_plain),
-        "pll_chunked": (m["pll"].pilot_pll_chunked,
-                        m["pll"].pll_chunked_plain),
-        # the wrapper and plain version of every mode; the recorded
-        # arguments end with the mode
-        "channelizer_i8mat": (m["channelizer"].channelize,
-                              m["channelizer"].channelize_plain),
-        "channelizer_bf16mat": (m["channelizer"].channelize,
-                                m["channelizer"].channelize_plain),
-    }
+    ``demod_block`` records their arguments, and the int16 variants by
+    theirs (probes/replay.py)."""
+    from fm_radio_tpu_torch.probes.replay import stages
+
+    return stages()
+
+
+def variant(name: str, args) -> str:
+    """The kernel that a recorded call of ``name`` runs: its int16 variant
+    where the arguments carry the format (:data:`I16_KERNELS`)."""
+    from fm_radio_tpu_torch.kernels.pll import channel_major
+
+    i16 = torch.int16
+    if name == "frontend" and len(args) > 5 and args[5]:
+        return "frontend_i16"
+    if name == "frontend_i8" and len(args) > 4 and args[4]:
+        return "frontend_i8_i16"
+    if name == "midend" and (args[3].dtype == i16
+                             or (len(args) > 4 and args[4])):
+        return "midend_i16"
+    if name == "pll" and args[2].dtype == i16 and channel_major(
+            args[2].shape[0]):
+        return "pll_i16"
+    if name == "extract" and args[3][0].dtype == i16:
+        return "extract_i16" if args[4].dtype == i16 else "extract_i16_f32dt"
+    return name
+
+
+# where a kernel's disagreement with its plain version is saved for
+# probes/replay.py: chiprun_out/, the run-output directory .gitignore lists;
+# a case larger than DUMP_MAX_BYTES is reported, not saved
+DUMP_DIR = os.path.join(HERE, "chiprun_out")
+DUMP_MAX_BYTES = 48 << 20
+DUMPS: list = []
+
+
+def dump_mismatch(name: str, args, kout, pout, e: dict):
+    """Save the kernel's recorded arguments (state included) and both
+    outputs as one .npz under DUMP_DIR where ``e`` shows a difference
+    (max abs error above 0 or not finite, or a BPSK decision apart; for
+    the bf16-matrix channelizer, whose tensor cores sum in their own order,
+    outside its tolerances), print the path and return it (None where
+    there was nothing to save).  main() fails at its end on any saved
+    case."""
+    from fm_radio_tpu_torch.probes import replay
+
+    exact = name != "channelizer_bf16mat"
+    if (e["err"] == 0.0 and not e.get("valid_mismatch")) if exact \
+            else _verdict(name, e)["ok"]:
+        return None
+    nbytes = replay.case_nbytes(args, kout, pout)
+    if nbytes > DUMP_MAX_BYTES:
+        log(f"[dump] {name}: mismatch {e}, case of {nbytes} bytes not saved "
+            f"(over {DUMP_MAX_BYTES})")
+        return None
+    os.makedirs(DUMP_DIR, exist_ok=True)
+    path = os.path.join(DUMP_DIR, f"mismatch_{name}_{time.time_ns()}.npz")
+    replay.save_case(path, name, args, kout, pout,
+                     {k: float(v) for k, v in e.items()})
+    DUMPS.append(path)
+    log(f"[dump] {name}: mismatch {e} saved to {path} (replay: python -m "
+        f"fm_radio_tpu_torch.probes.replay {path})")
+    return path
+
+
+def compare_stage(acc: dict, name: str, args, stages=None) -> tuple:
+    """Kernel ``name`` (or its recorded base) and its plain version on
+    ``args``: the errors merged into ``acc`` under ``name``, a mismatch
+    saved (:func:`dump_mismatch`).  Returns (kernel out, plain out)."""
+    kern, plain = (stages or _stages())[name]
+    kout, pout = kern(*args), plain(*args)
+    e = stage_errors(I16_BASE.get(name, name), kout, pout)
+    _merge(acc, name, e)
+    dump_mismatch(name, args, kout, pout, e)
+    return kout, pout
 
 
 def stage_errors(name: str, kout, pout) -> dict:
@@ -397,7 +505,9 @@ def stage_errors(name: str, kout, pout) -> dict:
                            _state_err(sk, sp, ("ds_fm_in", "disc_prev_theta")))}
     if name in ("k12", "k12_ps", "midend"):
         (sk, iq_k, th_k), (sp, iq_p, th_p) = kout, pout
-        return {"err": max(_max_err(zip(iq_k, iq_p)), _wrapped_err(th_k, th_p),
+        th_err = (_max_err([(th_k, th_p)]) if th_k.dtype == torch.int16
+                  else _wrapped_err(th_k, th_p))  # int16: no wrap
+        return {"err": max(_max_err(zip(iq_k, iq_p)), th_err,
                            _state_err(sk, sp, K12_KEYS)),
                 "rel": _rel(sk["agc_pilot"], sp["agc_pilot"])}
     if name in ("pll", "pll_chunked"):
@@ -453,8 +563,9 @@ def compare_kernels(channels: int = 256, block: int = 131072, blocks: int = 2,
     """Each kernel against its plain version on the card: every block goes
     through ``demod_block`` (state carried), and each kernel and its plain
     version run again on the arguments ``demod_block`` gave that kernel;
-    K12 also with de-emphasis on, on the same input.  Returns one row per
-    kernel with its max abs error, tolerance and verdict."""
+    K12 also with de-emphasis on, on the same input.  A kernel off its
+    plain version has its case saved (:func:`dump_mismatch`).  Returns one
+    row per kernel with its max abs error, tolerance and verdict."""
     from fm_radio_tpu_torch.models.demod import (
         INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
 
@@ -475,8 +586,7 @@ def compare_kernels(channels: int = 256, block: int = 131072, blocks: int = 2,
         calls_de = {"k12": (co_de, cfg_de) + calls["k12"][2:]}
         for rec in (calls, calls_de):
             for name, args in rec.items():
-                kern, plain = stages[name]
-                _merge(acc, name, stage_errors(name, kern(*args), plain(*args)))
+                compare_stage(acc, name, args, stages)
         torch.cuda.synchronize(device)
     return [_verdict(name, acc[name]) for name, _, _ in KERNELS]
 
@@ -502,10 +612,13 @@ def time_stages(calls: dict):
     kernel_ms, plain_ms, rows, bounds = {}, {}, [], {}
     for name, args in calls.items():
         kern, plain = stages[name]
+        base = I16_BASE.get(name, name)
         kern(*args)
         kout, kernel_ms[name] = _cuda_ms(lambda: kern(*args), reps=5)
         pout, plain_ms[name] = _cuda_ms(lambda: plain(*args), reps=1)
-        rows.append(_verdict(name, stage_errors(name, kout, pout)))
+        e = stage_errors(base, kout, pout)
+        dump_mismatch(name, args, kout, pout, e)
+        rows.append(_verdict(name, e))
         bounds[name] = bound(name, args)
     return kernel_ms, plain_ms, rows, bounds
 
@@ -547,7 +660,9 @@ def work(name: str, args) -> tuple:
     """(bytes, float32 operations, int8 operations) of one call of kernel
     ``name`` on its recorded arguments: each input read once and each
     output written once (carried state included), and the arithmetic the
-    function needs, counted per output from its filter orders."""
+    function needs, counted per output from its filter orders.  The int16
+    variants count their tensors' own bytes (2 per sample)."""
+    name = I16_BASE.get(name, name)
     if name in ("k12", "k12_ps"):
         co, cfg, st, x = args
         c = x.shape[-2]
@@ -558,17 +673,25 @@ def work(name: str, args) -> tuple:
     if name in ("frontend", "frontend_i8"):
         co, cfg, st, x = args[:4]
         int8_taps = name == "frontend_i8" or args[4]
+        out_i16 = args[5 if name == "frontend" else 4] if len(args) > (
+            5 if name == "frontend" else 4) else False
         c, b = x.shape[-2], x.shape[-1]
         f, i8 = _k1_ops(co, c, b // 4, int8_taps, x.ndim == 2)
-        return _nbytes(x) + 4 * c * (b // 4), f, i8
+        return _nbytes(x) + (2 if out_i16 else 4) * c * (b // 4), f, i8
     if name == "midend":
-        co, cfg, st, fmd = args
+        co, cfg, st, fmd = args[:4]
+        out_b = 2 if len(args) > 4 and args[4] else 4
         c, n8 = fmd.shape[0], fmd.shape[1] // 2
-        return (_nbytes(fmd) + 3 * 4 * c * n8 + 4 * c,
+        return (_nbytes(fmd) + 3 * out_b * c * n8 + 4 * c,
                 _mid_flops(cfg, co, c, n8), 0.0)
     if name == "pll":
+        from fm_radio_tpu_torch.kernels.pll import channel_major
+
         theta = args[2]
-        return 2 * _nbytes(theta), float(theta.numel()) * PLL_STEP_FLOPS, 0.0
+        dt_b = 2 if (theta.dtype == torch.int16
+                     and channel_major(theta.shape[0])) else 4
+        return (_nbytes(theta) + dt_b * theta.numel(),
+                float(theta.numel()) * PLL_STEP_FLOPS, 0.0)
     if name == "pll_chunked":
         cfg, theta = args[0], args[2]
         c, n = theta.shape
@@ -623,6 +746,7 @@ def serial_steps(name: str, args):
     """The steps of the recursion that kernel ``name`` runs in time order
     on its recorded arguments (the PLL over theta, the BPSK loop over the
     RDS planes, K2's order-2 peak IIR over its outputs), or None."""
+    name = I16_BASE.get(name, name)
     if name == "pll":
         return args[2].shape[-1]
     if name == "pll_chunked":  # one lane's L + W steps
@@ -639,18 +763,26 @@ def serial_steps(name: str, args):
     return None
 
 
-def bound(name: str, args) -> dict:
-    """The least time the card could take for ``work(name, args)``: the
-    larger of bytes / 3.35 TB/s and the operations over their peaks."""
-    nbytes, f32_ops, i8_ops, *rest = work(name, args)
-    bf16_ops = rest[0] if rest else 0.0
+def bound_of(nbytes: float, f32_ops: float = 0.0, i8_ops: float = 0.0,
+             bf16_ops: float = 0.0) -> dict:
+    """The least time the card could take to move ``nbytes`` and do the
+    operations: the larger of bytes / HBM_BYTES_S and the operations over
+    their peaks."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = (f32_ops / F32_FLOP_S + i8_ops / I8_OP_S
              + bf16_ops / BF16_FLOP_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "f32_ops": f32_ops, "i8_ops": i8_ops,
-            "bf16_ops": bf16_ops, "serial_steps": serial_steps(name, args)}
+            "bf16_ops": bf16_ops, "hbm_bytes_s": HBM_BYTES_S,
+            "hbm_rate_from": HBM_RATE_FROM}
+
+
+def bound(name: str, args) -> dict:
+    """:func:`bound_of` ``work(name, args)``, with its serial steps."""
+    nbytes, f32_ops, i8_ops, *rest = work(name, args)
+    return dict(bound_of(nbytes, f32_ops, i8_ops, rest[0] if rest else 0.0),
+                serial_steps=serial_steps(name, args))
 
 
 def bench_u8(channels: int, block: int, seed: int, device):
@@ -784,6 +916,268 @@ def compare_split(channels: int = 256, block: int = 131072, blocks: int = 2,
     rows = [dict(_verdict(name, acc[name]), inputs=stats)
             for name, _, _ in SPLIT_KERNELS]
     return rows, k12_diff
+
+
+# the int16 cell: bench.py's FMTPU_BENCH_I16=1 lens (bench.py:66-91), int8
+# planes, the int8-direct K1 -> K2 -> PLL -> extract in the int16 format
+I16_CELL = ("i16", "i8", {"assume_integer_input": True,
+                          "frontend_int8": True, "interstage_i16": True})
+
+
+def _dq_args(name: str, args):
+    """A recorded call's arguments with its int16 tensors dequantised: the
+    float32 twin of an int16 launch on the same values."""
+    from fm_radio_tpu_torch.kernels.qformat import (
+        FM_SCALE, IQ_SCALE, PH_SCALE, dq_if_i16)
+
+    if name == "frontend":
+        return args[:5] + (False,)
+    if name == "frontend_i8":
+        return args[:4] + (False,)
+    if name == "midend":
+        return args[:3] + (dq_if_i16(args[3], FM_SCALE), False)
+    if name == "pll":
+        return args[:2] + (dq_if_i16(args[2], PH_SCALE),)
+    if name == "extract":
+        planes = tuple(dq_if_i16(p, IQ_SCALE) for p in args[3])
+        return args[:3] + (planes, dq_if_i16(args[4], PH_SCALE))
+    raise KeyError(name)
+
+
+def compare_i16(channels: int = 256, block: int = 131072, blocks: int = 2,
+                odd_channels: int = 5, device="cuda"):
+    """The int16 format's kernels against their plain versions on the card,
+    on the arguments ``demod_block(interstage_i16=True)`` recorded,
+    ``blocks`` blocks with carried state: K1 on each of SPLIT_FORMS (the
+    int8-direct entry; float32 planes, integer planes and packed words with
+    float and int8 taps; int8 planes with float taps), K2 with int16 in and
+    out (also with de-emphasis on, on the float planes' fm_demod); on the
+    int8-direct form the PLL (int16 theta and dt) and extract on its three
+    type combinations (int16 planes and dt as recorded; int16 planes with
+    the dequantised dt; both dequantised).  Then the int8-direct form at
+    C = ``odd_channels``, whose channel tile the PLL's int16 layout refuses:
+    the PLL dequantises and runs in float32, extract takes int16 planes and
+    float32 dt.  A mismatch is saved (:func:`dump_mismatch`).  Returns
+    (verdict rows by kernel variant with each form's input statistics under
+    "inputs"; the dtypes each form's route handed K2, the PLL and extract;
+    the C = ``odd_channels`` route's launches)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    stages = _stages()
+    acc, stats, routes, odd_launches = {}, {}, {}, {}
+    forms = [(label, kind, kw, channels) for label, kind, kw in SPLIT_FORMS]
+    forms.append((f"i8_direct_c{odd_channels}", "i8",
+                  dict(SPLIT_FORMS[-1][2]), odd_channels))
+    for label, kind, kw, c in forms:
+        cfg = DemodConfig(interstage_i16=True, **kw)
+        co = make_coeffs(cfg, device)
+        cfg_de = dataclasses.replace(cfg, use_deemphasis_filter=True,
+                                     deemphasis_cutoff_us=50)
+        co_de = make_coeffs(cfg_de, device)
+        st = demod_init_state(cfg, c, device)
+        x = split_input(kind, c, block * blocks, 7, device)
+        stats[label] = input_stats(x)
+        for blk in range(blocks):
+            calls = {}
+            xb = x[..., blk * block : (blk + 1) * block].contiguous()
+            reset_counts()
+            st, _ = demod_block(cfg, co, st, xb, record=calls)
+            torch.cuda.synchronize(device)
+            if c == odd_channels:
+                for k, n in read_counts().items():
+                    odd_launches[k] = odd_launches.get(k, 0) + n
+            routes[label] = {
+                "midend": str(calls["midend"][3].dtype),
+                "pll": str(calls["pll"][2].dtype),
+                "extract": [str(calls["extract"][3][0].dtype),
+                            str(calls["extract"][4].dtype)],
+                "kernels": [variant(n, a) for n, a in calls.items()]}
+            todo = [(variant(n, calls[n]), calls[n])
+                    for n in ("frontend", "frontend_i8", "midend")
+                    if n in calls]
+            if label == "planes_float":
+                todo.append(("midend_i16",
+                             (co_de, cfg_de) + calls["midend"][2:]))
+            if label.startswith("i8_direct"):
+                for n in ("pll", "extract"):
+                    todo.append((variant(n, calls[n]), calls[n]))
+                if c == channels:
+                    ext = calls["extract"]
+                    dq = _dq_args("extract", ext)
+                    todo += [("extract_i16_f32dt", ext[:4] + dq[4:]),
+                             ("extract", dq),
+                             ("pll", _dq_args("pll", calls["pll"]))]
+            for name, args in todo:
+                compare_stage(acc, name, args, stages)
+            torch.cuda.synchronize(device)
+    rows = [dict(_verdict(name, acc[name]), inputs=stats) for name in acc]
+    return rows, routes, odd_launches
+
+
+def i16_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
+             device="cuda") -> dict:
+    """The i16 cell (:data:`I16_CELL`) through demod_block with counted
+    launches (one warm-up block first); then each int16 kernel timed alone
+    beside its plain version on the last block's arguments, and compared
+    (and extract on int16 planes with float32 dt, from the same planes and
+    the dequantised dt; and K1 on the same signal as packed words, float
+    taps, from one counted block of ``DemodConfig(assume_integer_input=
+    True, interstage_i16=True)``); and each beside its float32 twin on the
+    same values dequantised (:func:`_dq_args`), the kernel alone."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    label, kind, kw = I16_CELL
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    st = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block, 0, device)
+    st, _ = demod_block(cfg, co, st, x)  # warm-up
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    calls = {}
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(blocks):
+        st, outs = demod_block(cfg, co, st, x, record=calls)
+    end.record()
+    torch.cuda.synchronize(device)
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    check_counts(launches, {"frontend_i8_i16": blocks, "midend_i16": blocks,
+                            "pll_i16": blocks, "extract_i16": blocks,
+                            "bpsk": blocks}, "i16 cell")
+    if tuple(outs["audio"].shape) != (channels, block // 32, 2):
+        raise RuntimeError(f"i16: audio shape {tuple(outs['audio'].shape)}")
+    for k in ("audio", "rds_pred"):
+        if not bool(torch.isfinite(outs[k]).all()):
+            raise RuntimeError(f"i16: non-finite {k}")
+    res = {"cell": label, "config": kw, "input": kind, "channels": channels,
+           "block": block, "blocks": blocks, "inputs": input_stats(x),
+           "launches": launches, "ms_per_block": ms / blocks,
+           "msps": channels * block * blocks / (ms / 1e3) / 1e6,
+           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
+    cfg_w = DemodConfig(assume_integer_input=True, interstage_i16=True)
+    calls_w = {}
+    reset_counts()
+    demod_block(cfg_w, make_coeffs(cfg_w, device),
+                demod_init_state(cfg_w, channels, device),
+                split_input("words", channels, block, 0, device),
+                record=calls_w)
+    torch.cuda.synchronize(device)
+    res["launches_words"] = read_counts()
+    src = {n: calls[n] for n in ("frontend_i8", "midend", "pll", "extract")}
+    src["frontend"] = calls_w["frontend"]
+    timed = {variant(n, a): a for n, a in src.items()}
+    ext = calls["extract"]
+    timed["extract_i16_f32dt"] = ext[:4] + _dq_args("extract", ext)[4:]
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages(timed)
+    stages = _stages()
+    res["float_twin_ms"] = {}
+    for n, a in src.items():
+        kern = stages[n][0]
+        args = _dq_args(n, a)
+        kern(*args)
+        res["float_twin_ms"][n] = _cuda_ms(lambda: kern(*args), reps=5)[1]
+    return res
+
+
+def station_i16(device="cuda", seconds: float = 0.5) -> dict:
+    """The selftest station (``seconds`` of it, int8 planes) through App
+    with ``interstage_i16=True`` (the int8-direct K1 -> K2 -> PLL ->
+    extract in the int16 format) on the card and, with the plain versions,
+    on the host CPU; and the float32 route (``DemodConfig(
+    frontend_int8=True)``: K12) on the card.  RDS bytes and audio SNR of
+    the card against the CPU, and of the int16 route against the float32
+    one, the PI on each, and each card run's launches."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks, selftest_planes
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.app import App
+
+    block = 65536
+    x8 = selftest_planes(seconds, block)
+    runs = {}
+    for key, dev, kw in (
+            ("card_i16", device, {"frontend_int8": True,
+                                  "interstage_i16": True}),
+            ("cpu_i16", "cpu", {"frontend_int8": True,
+                                "interstage_i16": True}),
+            ("card_float", device, {"frontend_int8": True})):
+        reset_counts()
+        t0 = time.perf_counter()
+        app = App(block_size=block, cfg=DemodConfig(**kw), channels=1,
+                  device=dev)
+        app.process(x8)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+        runs[key] = (app, time.perf_counter() - t0, read_counts())
+    settle = int(0.15 * runs["card_i16"][0].demod.fs_audio)
+
+    def vs(a, b):
+        (ga, _, _), (gb, _, _) = runs[a], runs[b]
+        return {"rds_bytes": int(ga.rds_bytes(0).size),
+                "rds_identical": bool(np.array_equal(ga.rds_bytes(0),
+                                                     gb.rds_bytes(0))),
+                "snr_db": _snr_db(ga.audio[0, settle:], gb.audio[0, settle:])}
+
+    return {"seconds_audio": x8.shape[-1] / 1_024_000, "block": block,
+            "card_vs_cpu": vs("card_i16", "cpu_i16"),
+            "i16_vs_float_route": vs("card_i16", "card_float"),
+            "rds_pi": {k: selftest_checks(r[0])["rds_pi"]["value"]
+                       for k, r in runs.items()},
+            "launches": {k: r[2] for k, r in runs.items() if k != "cpu_i16"},
+            "seconds": {k: r[1] for k, r in runs.items()}}
+
+
+def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
+    """The device-memory sweep (probes/hbm_sweep.py) with counted launches;
+    then for each probe kernel (the grid copy, the staged copy, the read)
+    its fastest variant, its plain version timed once, and one PyTorch call
+    of the same function (``Tensor.copy_``; for the read, the sum of every
+    column into its lane, ``x.view(-1, 128).sum(0)``) on the same array.
+    Returns the sweep with {"kernels": {name: (variant, ms, plain ms,
+    library ms, max abs error, bytes, float32 operations)}, "launches"}."""
+    from fm_radio_tpu_torch.probes import hbm_sweep as hs
+
+    hs.reset_counts()
+    res = hs.sweep(mib, iters, device)
+    res["launches"] = {"hbm_copy": hs.launches_copy,
+                       "hbm_dma_copy": hs.launches_dma,
+                       "hbm_read": hs.launches_read}
+    rows = res["array"]["shape"][0]
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((rows, hs.LANES), generator=g, device=device)
+    nbytes = x.numel() * 4
+    y = torch.empty_like(x)
+    _, copy_lib = _cuda_ms(lambda: y.copy_(x), 5)
+    _, clone_ms = _cuda_ms(lambda: hs.grid_copy_plain(x, 1, 1), 1)
+    kernels = {}
+    for name, prefix in (("hbm_copy", "copy:"), ("hbm_dma_copy", "dma")):
+        best = max((r for r in res["rows"] if r["variant"].startswith(prefix)),
+                   key=lambda r: r["gbps"])
+        kernels[name] = {"variant": best["variant"], "ms": best["ms"],
+                         "plain_ms": clone_ms, "library_ms": copy_lib,
+                         "max_abs_err": 0.0 if best["ok"] else math.inf,
+                         "bytes": 2 * nbytes, "f32_ops": 0.0}
+    best = max((r for r in res["rows"] if r["variant"].startswith("read")),
+               key=lambda r: r["gbps"])
+    bm = int(best["variant"].split(":")[1].split("x")[0])
+    kout = hs.read_sum(x, bm)
+    pout, plain_ms = _cuda_ms(lambda: hs.read_sum_plain(x, bm), 1)
+    _, read_lib = _cuda_ms(lambda: x.view(-1, 128).sum(0), 5)
+    kernels["hbm_read"] = {
+        "variant": best["variant"], "ms": best["ms"], "plain_ms": plain_ms,
+        "library_ms": read_lib,
+        "max_abs_err": float((kout - pout).abs().max()),
+        "bytes": nbytes + 4 * 128, "f32_ops": float(x.numel())}
+    res["kernels"] = kernels
+    return res
 
 
 def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
@@ -1904,6 +2298,26 @@ def main() -> int:
     log(f"[build] nvcc {_build.build_dir().name}: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 2b. the device-memory sweep: its best copy rate becomes the byte
+    # rate of every bound
+    global HBM_BYTES_S, HBM_RATE_FROM
+    t0 = time.perf_counter()
+    hbm = hbm_phase(dev)
+    for r in hbm["rows"]:
+        log(f"[hbm] {json.dumps(r)}")
+    best = hbm["best_copy"]
+    bad = [r["variant"] for r in hbm["rows"] if not r["ok"]]
+    if bad or not all(k["max_abs_err"] == 0.0
+                      for k in hbm["kernels"].values()):
+        raise RuntimeError(f"HBM probes wrong: {bad}, {hbm['kernels']}")
+    HBM_BYTES_S = best["gbps"] * 1e9
+    HBM_RATE_FROM = (f"probes/hbm_sweep.py in this run: {best['variant']}, "
+                     f"{best['gbps']:.1f} GB/s")
+    log(f"[hbm] best copy {best['variant']} {best['gbps']:.1f} GB/s "
+        f"({100 * HBM_BYTES_S / DATASHEET_HBM_BYTES_S:.1f}% of the "
+        f"{DATASHEET_HBM_BYTES_S / 1e12:.2f} TB/s data sheet): the byte rate "
+        f"of every bound below; {time.perf_counter() - t0:.1f} s")
+
     # 3. kernel against plain on the card
     t0 = time.perf_counter()
     rows = compare_kernels(256, 131072, 2, dev)
@@ -1995,6 +2409,28 @@ def main() -> int:
         raise RuntimeError(f"chain / pll_chunked compared on constant input: "
                            f"{const}")
 
+    # 3d. the int16 format's kernels against plain on the card
+    t0 = time.perf_counter()
+    irows, iroutes, i16_c5_launches = compare_i16(256, 131072, 2, 5, dev)
+    for r in irows:
+        log(f"[compare] i16: {json.dumps(r)}")
+    log(f"[compare] i16 routes: {json.dumps(iroutes)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in irows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"int16 kernels disagree: {bad}")
+    want = {"i8_direct": ["frontend_i8_i16", "midend_i16", "pll_i16",
+                          "extract_i16", "bpsk"],
+            "i8_direct_c5": ["frontend_i8_i16", "midend_i16", "pll",
+                             "extract_i16_f32dt", "bpsk"]}
+    missing = {n for n, _, _ in I16_KERNELS} - {r["name"] for r in irows}
+    if missing or any(iroutes[k]["kernels"] != v for k, v in want.items()):
+        raise RuntimeError(f"int16 route: {iroutes}, not compared {missing}")
+    const = [k for k, v in irows[0]["inputs"].items() if v["constant"]]
+    if const:
+        raise RuntimeError(f"int16 kernels compared on constant input: "
+                           f"{const}")
+
     # 4. main path at the bench cell
     t0 = time.perf_counter()
     mp = main_path(2048, 131072, 8, dev)
@@ -2042,6 +2478,20 @@ def main() -> int:
     if vs["agc_rds_rel"] > POWER_RTOL or not pc["pll_alone"]["chunk0_exact"]:
         raise RuntimeError(f"chain RDS AGC {vs} or chunk 0 "
                            f"{pc['pll_alone']} out of bounds")
+
+    # 4d. the i16 cell, beside k12off (the same launches in float32)
+    t0 = time.perf_counter()
+    i16c = i16_path(2048, 131072, 8, dev)
+    log(f"[i16] {json.dumps(i16c)}")
+    log(f"[i16] {i16c['ms_per_block']:.3f} ms/block, {i16c['msps']:.0f} "
+        f"Msps, peak {i16c['peak_mib']:.0f} MiB; k12off "
+        f"{cells['k12off']['ms_per_block']:.3f} ms/block, "
+        f"{cells['k12off']['peak_mib']:.0f} MiB")
+    log(f"[profile] {json.dumps(profile_split(*I16_CELL, device=dev))}")
+    log(f"[i16] {time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in i16c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"int16 kernels disagree at the i16 cell: {bad}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
@@ -2110,6 +2560,19 @@ def main() -> int:
                 and r["rds_pi"] == "1234" and r["launches"][want] > 0):
             raise RuntimeError(f"station {r['path']} failed its gates: {r}")
 
+    # 6d. the station in the int16 format
+    t0 = time.perf_counter()
+    si = station_i16(dev)
+    log(f"[station] i16: {json.dumps(si)}")
+    log(f"[station] i16: {time.perf_counter() - t0:.1f} s")
+    cv, fv = si["card_vs_cpu"], si["i16_vs_float_route"]
+    if not (cv["rds_identical"] and cv["rds_bytes"] > 0
+            and cv["snr_db"] >= STATION_I16_CPU_DB and fv["rds_identical"]
+            and fv["snr_db"] >= STATION_I16_FLOAT_DB
+            and set(si["rds_pi"].values()) == {"1234"}
+            and all(si["launches"]["card_i16"][k] > 0 for k in I16_STATION)):
+        raise RuntimeError(f"int16 station failed its gates: {si}")
+
     # 7. wideband stations on the card and on the host CPU
     t0 = time.perf_counter()
     wst = wideband_stations(dev)
@@ -2144,13 +2607,13 @@ def main() -> int:
     # W=4) and at full width, and its launches on every path
     err_small, err_full = {}, {}
     rep_rows = [k for r in reps for k in r["kernels"]]
-    for r in rows + wrows + srows + frows + crows + mrows + rep_rows:
+    for r in rows + wrows + srows + frows + crows + mrows + rep_rows + irows:
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
               + [r for c in cells.values() for r in c["compare"]]
               + ch["compare"] + pc["compare"] + wb_i8_bench["compare"]
-              + wb_i8["compare"] + wb_bf16["compare"]):
+              + wb_i8["compare"] + wb_bf16["compare"] + i16c["compare"]):
         err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
@@ -2168,20 +2631,31 @@ def main() -> int:
              "chain_f32w": ch["launches"],
              "pll_cell_g8": pc["g8"]["launches"],
              "pll_cell_g1": pc["g1"]["launches"],
-             **{f"station_{r['path']}": r["launches"] for r in lst}}
+             **{f"station_{r['path']}": r["launches"] for r in lst},
+             "i16": i16c["launches"],
+             "i16_route_c5": {k: i16_c5_launches.get(k, 0)
+                              for k in i16c["launches"]},
+             "i16_words": i16c["launches_words"],
+             "station_i16": si["launches"]["card_i16"]}
     home = {"k12": mp, "pll": mp, "extract": mp, "bpsk": mp,
             "channelizer": wb, "k12_ps": wb, "frontend": cells["f32w"],
             "midend": cells["f32w"], "frontend_i8": cells["k12off"],
             "chain": ch, "pll_chunked": pc, "channelizer_i8mat": wb_i8,
-            "channelizer_bf16mat": wb_bf16}
+            "channelizer_bf16mat": wb_bf16,
+            **{n: i16c for n, _, _ in I16_KERNELS}}
+    # a kernel that its cell does not launch: the path that does
+    launch_path = {"extract_i16_f32dt": "i16_route_c5",
+                   "frontend_i16": "i16_words"}
     kernels = []
     for n, src, rep in (KERNELS + WIDEBAND_KERNELS + SPLIT_KERNELS
-                        + CHAIN_KERNELS + MAT_KERNELS):
+                        + CHAIN_KERNELS + MAT_KERNELS + I16_KERNELS):
         cell = home[n]
         b = cell["bound"][n]
         lib = cell.get("library_ms")
+        launches = (paths[launch_path[n]][n] if n in launch_path
+                    else cell["launches"][n])
         k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "launches": cell["launches"][n],
+             "launches": launches,
              "launches_by_path": {p: c[n] for p, c in paths.items()},
              "max_abs_err": max(err_small[n], err_full[n]),
              "max_abs_err_full_width": err_full[n],
@@ -2189,6 +2663,7 @@ def main() -> int:
              "ms": cell["kernel_ms"][n], "plain_ms": cell["plain_ms"][n],
              "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
              "library_ms": lib["ms"] if lib else None,
+             "hbm_bytes_s": b["hbm_bytes_s"],
              "work": {key: b[key] for key in ("bytes", "f32_ops", "i8_ops",
                                               "bf16_ops")}}
         if lib:
@@ -2213,6 +2688,7 @@ def main() -> int:
             k.update(pll_alone=pc["pll_alone"])
         if n in ("channelizer_i8mat", "channelizer_bf16mat"):
             mr = next(r for r in mrows if r["name"] == n)
+            cell = home[n]
             k.update(planes_small=mr["planes"], planes_full_width=cell["planes"])
             if n == "channelizer_bf16mat":
                 full = next(r for r in cell["compare"] if r["name"] == n)
@@ -2224,6 +2700,26 @@ def main() -> int:
             if n == "channelizer_i8mat":
                 k.update(ms_bench_input=wb_i8_bench["kernel_ms"][n],
                          plain_ms_bench_input=wb_i8_bench["plain_ms"][n])
+        if n in I16_BASE and n != "extract_i16_f32dt":
+            k.update(float_twin_ms=i16c["float_twin_ms"][I16_BASE[n]])
+        if n in launch_path:
+            k["launches_path"] = launch_path[n]
+    # the device-memory probes: each at its fastest variant of the sweep
+    for n, src, rep in PROBE_KERNELS:
+        pk = hbm["kernels"][n]
+        b = bound_of(pk["bytes"], pk["f32_ops"])
+        kernels.append({
+            "name": n, "route": "cuda", "source": src, "replaces": rep,
+            "launches": hbm["launches"][n],
+            "launches_by_path": {"hbm_sweep": hbm["launches"][n]},
+            "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+            "plain_ms": pk["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": pk["library_ms"],
+            "variant": pk["variant"], "hbm_bytes_s": HBM_BYTES_S,
+            "work": {"bytes": pk["bytes"], "f32_ops": pk["f32_ops"]}})
+    if DUMPS:
+        raise RuntimeError(f"mismatches saved (passed their tolerances): "
+                           f"{DUMPS}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -84,6 +84,65 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
   return (y < 0.0f) ? -a : a;
 }
 
+// The int16 inter-stage format (kernels/qformat.py; the JAX package's
+// kernels/qformat.py): fm_demod at 2^15, the analytic planes at 2^14, the
+// phases (theta, dt; cycles) at 2^16.
+constexpr float kFmScale = 32768.0f;
+constexpr float kIqScale = 16384.0f;
+constexpr float kPhScale = 65536.0f;
+
+// float32 -> int16 at `scale`: round half to even, clamp to +-32767, as
+// qformat.py::q_i16 evaluates it.  The rounding converts to int32
+// (__float2int_rn: half to even, saturating past +-2^31) and the clamp is
+// on integers, which equals rounding and clamping in float32 on every
+// input but NaN; NaN converts to 0.
+__device__ __forceinline__ int16_t q_i16(float x, float scale) {
+  return (int16_t)min(max(__float2int_rn(x * scale), -32767), 32767);
+}
+
+// int16 -> float32 through int32, times 1/scale (exact: a power of two)
+__device__ __forceinline__ float dq_i16(int16_t v, float scale) {
+  return (float)(int)v * (1.0f / scale);
+}
+
+// Element i of a plane that is float32, or int16 at `scale`, as float32;
+// and the store of a float32 value into either.  The kernels that take the
+// int16 format are templated on the plane type and go through these.
+__device__ __forceinline__ float load_f32(const float* __restrict__ p,
+                                          int64_t i, float) {
+  return p[i];
+}
+__device__ __forceinline__ float load_f32(const int16_t* __restrict__ p,
+                                          int64_t i, float scale) {
+  return dq_i16(p[i], scale);
+}
+__device__ __forceinline__ void store_f32(float* __restrict__ p, int64_t i,
+                                          float v, float) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store_f32(int16_t* __restrict__ p, int64_t i,
+                                          float v, float scale) {
+  p[i] = q_i16(v, scale);
+}
+
+// kBatch float32 values stored at p[i0 .. i0 + kBatch) as q_i16 at `scale`
+// in two 16-byte stores (p + i0 must be 32-byte aligned): the PLL's int16
+// dt, one thread per channel row, where this measured ~0.3 ms per bench
+// block faster than one 2-byte store per step (PERF.md)
+__device__ __forceinline__ void store_i16_batch(int16_t* __restrict__ p,
+                                                int64_t i0, const float* v,
+                                                float scale) {
+  static_assert(kBatch == 16, "two 16-byte stores of int16");
+  uint32_t w[kBatch / 2];
+#pragma unroll
+  for (int k = 0; k < kBatch / 2; ++k)
+    w[k] = (uint32_t)(uint16_t)q_i16(v[2 * k], scale) |
+           ((uint32_t)(uint16_t)q_i16(v[2 * k + 1], scale) << 16);
+  uint4* d = (uint4*)(p + i0);
+  d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 // sum_k w_rev[k] * v[k] for k < nn, from the oldest sample up: one
 // decimated-correlation output over a window that lies in one array (the
 // tiles of shared memory in extract.cu and chain.cu).  fir_dot2 runs two
@@ -111,16 +170,19 @@ __device__ __forceinline__ void fir_dot2(const float* a, const float* b,
 
 // One decimated-correlation output: sum_k w_rev[k] * v[base + k] over
 // v = [tail (halo samples) | x] (index n < 0 reads tail[halo + n]), summed
-// from the oldest sample as ops/fir.py::decimate_core does.
-__device__ __forceinline__ float fir_point(const float* __restrict__ x,
+// from the oldest sample as ops/fir.py::decimate_core does.  x is float32,
+// or int16 at `scale`, dequantised on load; the tail is float32.
+template <class T>
+__device__ __forceinline__ float fir_point(const T* __restrict__ x,
                                            const float* __restrict__ tail,
                                            int halo,
                                            const float* __restrict__ w_rev,
-                                           int nn, int base) {
+                                           int nn, int base,
+                                           float scale = 1.0f) {
   float acc = 0.0f;
   for (int k = 0; k < nn; ++k) {
     const int n = base + k;
-    const float v = n < 0 ? tail[halo + n] : x[n];
+    const float v = n < 0 ? tail[halo + n] : load_f32(x, n, scale);
     acc += __ldg(w_rev + k) * v;
   }
   return acc;
@@ -129,27 +191,30 @@ __device__ __forceinline__ float fir_point(const float* __restrict__ x,
 // y[c, i] = fir_point(x[c], tail[c], base = m*i - halo) for i < n_out:
 // a decimate-by-m FIR with a carried tail of halo = nn - m samples.
 // One thread per output; neighbouring threads read neighbouring windows.
-__global__ void fir_decimate_kernel(const float* __restrict__ x, int n_in,
+template <class T>
+__global__ void fir_decimate_kernel(const T* __restrict__ x, int n_in,
                                     const float* __restrict__ tail,
                                     const float* __restrict__ w_rev, int nn,
                                     int m, float* __restrict__ y, int n_out,
-                                    int channels) {
+                                    int channels, float scale) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)channels * n_out) return;
   const int c = (int)(idx / n_out);
   const int i = (int)(idx % n_out);
   const int halo = nn - m;
   y[idx] = fir_point(x + (int64_t)c * n_in, tail + (int64_t)c * halo, halo,
-                     w_rev, nn, m * i - halo);
+                     w_rev, nn, m * i - halo, scale);
 }
 
-inline int fir_decimate(const float* x, int n_in, const float* tail,
+template <class T>
+inline int fir_decimate(const T* x, int n_in, const float* tail,
                         const float* w_rev, int nn, int m, float* y,
-                        int channels, cudaStream_t stream) {
+                        int channels, cudaStream_t stream,
+                        float scale = 1.0f) {
   const int n_out = n_in / m;
-  fir_decimate_kernel<<<blocks_for((int64_t)channels * n_out), kThreads, 0,
-                        stream>>>(x, n_in, tail, w_rev, nn, m, y, n_out,
-                                  channels);
+  fir_decimate_kernel<T><<<blocks_for((int64_t)channels * n_out), kThreads,
+                           0, stream>>>(x, n_in, tail, w_rev, nn, m, y, n_out,
+                                        channels, scale);
   FMT_CHECK_LAUNCH();
   return 0;
 }

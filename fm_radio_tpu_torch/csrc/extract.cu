@@ -38,9 +38,13 @@ constexpr int kExtTile = 1024;  // fm_out samples per block
 constexpr int kExtHalo = 128;   // >= max(nn_audio - 4, nn_rds - 8)
 constexpr int kExtW = kExtHalo + kExtTile;
 
+// TX, TD: the planes' and dt's types, float32 or the int16 inter-stage
+// format (planes at kIqScale, dt at kPhScale; extract_pallas.py:141-146),
+// dequantised as the tile is staged.
+template <class TX, class TD>
 __global__ void extract_kernel(
-    const float* __restrict__ xr, const float* __restrict__ xi,
-    const float* __restrict__ dt, int n, const float* __restrict__ off,
+    const TX* __restrict__ xr, const TX* __restrict__ xi,
+    const TD* __restrict__ dt, int n, const float* __restrict__ off,
     const float* __restrict__ t_lpr, const float* __restrict__ t_lmr_re,
     const float* __restrict__ t_lmr_im, int halo_a,
     const float* __restrict__ t_rds_re, const float* __restrict__ t_rds_im,
@@ -69,8 +73,9 @@ __global__ void extract_kernel(
     const int g = t0 - kExtHalo + e;
     float vl = 0.0f, vmr = 0.0f, vmi = 0.0f, vrr = 0.0f, vri = 0.0f;
     if (g >= 0) {
-      vl = xr[row + g];
-      mix_sample(vl, xi[row + g], dt[row + g], co, so, vmr, vmi, vrr, vri);
+      vl = load_f32(xr, row + g, kIqScale);
+      mix_sample(vl, load_f32(xi, row + g, kIqScale),
+                 load_f32(dt, row + g, kPhScale), co, so, vmr, vmi, vrr, vri);
     } else {
       if (g >= -halo_a) {
         const int64_t k = (int64_t)c * halo_a + halo_a + g;
@@ -140,28 +145,43 @@ __global__ void extract_pow_kernel(const float* __restrict__ pow_part,
 
 using namespace fmt;
 
-// xr, xi, dt [C, N] with N % 1024 == 0; off [C]; tails [C, halo] (raw L+R
-// re, mixed L-R re/im with halo_a = nn_a - 4; mixed RDS re/im with halo_r =
-// nn_r - 8); taps reversed; outputs lpr, lmr_re, lmr_im [C, N/4], rds_re,
-// rds_im [C, N/8], pow [C], scratch pow_part [C, N/1024], new mixed tails.
+// xr, xi, dt [C, N] with N % 1024 == 0: float32, or with iq_i16 the planes
+// and with dt_i16 dt in the int16 format (dt_i16 needs iq_i16: the route
+// gives no other combination); off [C]; tails [C, halo] (raw L+R re, mixed
+// L-R re/im with halo_a = nn_a - 4; mixed RDS re/im with halo_r = nn_r -
+// 8); taps reversed; outputs lpr, lmr_re, lmr_im [C, N/4], rds_re, rds_im
+// [C, N/8], pow [C], scratch pow_part [C, N/1024], new mixed tails.
 extern "C" int fmt_extract(
-    const float* xr, const float* xi, const float* dt, const float* off,
-    const float* t_lpr, const float* t_lmr_re, const float* t_lmr_im,
-    int halo_a, const float* t_rds_re, const float* t_rds_im, int halo_r,
-    const float* wa_rev, const float* wm_rev, int nn_a, const float* wr_rev,
-    int nn_r, int channels, int n, float* lpr, float* lmr_re, float* lmr_im,
+    const void* xr, const void* xi, const void* dt, int iq_i16, int dt_i16,
+    const float* off, const float* t_lpr, const float* t_lmr_re,
+    const float* t_lmr_im, int halo_a, const float* t_rds_re,
+    const float* t_rds_im, int halo_r, const float* wa_rev,
+    const float* wm_rev, int nn_a, const float* wr_rev, int nn_r,
+    int channels, int n, float* lpr, float* lmr_re, float* lmr_im,
     float* rds_re, float* rds_im, float* pow_part, float* pow,
     float* o_lmr_re, float* o_lmr_im, float* o_rds_re, float* o_rds_im,
     cudaStream_t stream) {
   if (n % kExtTile != 0 || halo_a > kExtHalo || halo_r > kExtHalo ||
-      halo_a > kExtTile || halo_r > kExtTile)
+      halo_a > kExtTile || halo_r > kExtTile || (dt_i16 && !iq_i16))
     return (int)cudaErrorInvalidValue;
   const int n_tiles = n / kExtTile;
-  extract_kernel<<<dim3(n_tiles, channels), kThreads, 0, stream>>>(
-      xr, xi, dt, n, off, t_lpr, t_lmr_re, t_lmr_im, halo_a, t_rds_re,
-      t_rds_im, halo_r, wa_rev, wm_rev, nn_a, wr_rev, nn_r, lpr, lmr_re,
-      lmr_im, rds_re, rds_im, pow_part, o_lmr_re, o_lmr_im, o_rds_re,
-      o_rds_im);
+  const dim3 grid(n_tiles, channels);
+#define FMT_EXTRACT_ARGS(TX, TD)                                           \
+  (const TX*)xr, (const TX*)xi, (const TD*)dt, n, off, t_lpr, t_lmr_re,    \
+      t_lmr_im, halo_a, t_rds_re, t_rds_im, halo_r, wa_rev, wm_rev, nn_a,  \
+      wr_rev, nn_r, lpr, lmr_re, lmr_im, rds_re, rds_im, pow_part,         \
+      o_lmr_re, o_lmr_im, o_rds_re, o_rds_im
+  if (dt_i16) {
+    extract_kernel<int16_t, int16_t><<<grid, kThreads, 0, stream>>>(
+        FMT_EXTRACT_ARGS(int16_t, int16_t));
+  } else if (iq_i16) {
+    extract_kernel<int16_t, float><<<grid, kThreads, 0, stream>>>(
+        FMT_EXTRACT_ARGS(int16_t, float));
+  } else {
+    extract_kernel<float, float><<<grid, kThreads, 0, stream>>>(
+        FMT_EXTRACT_ARGS(float, float));
+  }
+#undef FMT_EXTRACT_ARGS
   FMT_CHECK_LAUNCH();
   extract_pow_kernel<<<blocks_for(channels), kThreads, 0, stream>>>(
       pow_part, n_tiles, channels, pow);

@@ -22,6 +22,11 @@
 //          a word, accumulated exactly in int32 with __dp4a, combined as
 //          y1 + y2 / 128 + s_row (frontend_pallas.py:133-170).  int8 taps
 //          need integer input (u8 - 127 in [-127, 128]).
+// Both entries store fm_demod as float32 or, with out_i16, in the int16
+// inter-stage format at 2^15 (interstage_i16; the TPU kernels' out_i16
+// stores, frontend_pallas.py:204-207 and :482-485): the discriminator's
+// store is templated on its type, its phase carry stays float32, and K12
+// keeps the float32 instantiation.
 // fmt_frontend_i8 is the int8-direct form (int8 planes, int8 taps): K12's
 // first two launches, shared through k12_stages.cuh, so the split int8 path
 // equals K12 bit for bit.  The loads and the float-tap sum are
@@ -121,19 +126,34 @@ int launch_ds4(Load in, const float* tail, const float* w_rev,
 
 using namespace fmt;
 
+namespace fmt {
+
+// The discriminator's store: fmd float32, or int16 at kFmScale (out_i16)
+inline int launch_disc_as(int out_i16, const float* theta1,
+                          const float* prev_theta, float scale, int channels,
+                          int n4, void* fmd, cudaStream_t stream) {
+  return out_i16 ? launch_disc(theta1, prev_theta, scale, channels, n4,
+                               (int16_t*)fmd, stream)
+                 : launch_disc(theta1, prev_theta, scale, channels, n4,
+                               (float*)fmd, stream);
+}
+
+}  // namespace fmt
+
 // form: 0 = float32 planes [2, C, B], 1 = packed words [C, B] float32,
 // 2 = int8 planes [2, C, B] (float taps only: int8 planes with int8 taps
 // take fmt_frontend_i8).  tail [2, C, nn - 4] float32; w_rev [nn] float32
 // (reversed taps); b1, b2 [nn] int8 (reversed, read as nn/4 int32 words,
-// 4-byte aligned; used with int8_taps); prev_theta [C]; scratch theta1 and
-// output fmd [C, B/4].  nn % 4 == 0, B % 4 == 0.  Returns the first
+// 4-byte aligned; used with int8_taps); prev_theta [C]; scratch theta1
+// [C, B/4] float32 and output fmd [C, B/4], float32 or, with out_i16, the
+// int16 inter-stage format.  nn % 4 == 0, B % 4 == 0.  Returns the first
 // cudaError_t of the two launches (0 = both launched).
 extern "C" int fmt_frontend(const void* x, int form, int int8_taps,
                             const float* tail, const float* w_rev,
                             const int8_t* b1, const int8_t* b2, int nn,
                             float s_row, const float* prev_theta, float scale,
-                            int channels, int b, float* theta1, float* fmd,
-                            cudaStream_t stream) {
+                            int channels, int b, float* theta1, void* fmd,
+                            int out_i16, cudaStream_t stream) {
   if (nn % 4 != 0 || nn < 4 || b % 4 != 0 || form < 0 || form > 2
       || (form == 2 && int8_taps)) {
     return (int)cudaErrorInvalidValue;
@@ -162,7 +182,8 @@ extern "C" int fmt_frontend(const void* x, int form, int int8_taps,
                                       channels, b, theta1, stream);
   }
   if (err) return err;
-  return launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd, stream);
+  return launch_disc_as(out_i16, theta1, prev_theta, scale, channels, b / 4,
+                        fmd, stream);
 }
 
 // The int8-direct form: x8 [2, C, B] int8 planes and tail8 [2, C, nn - 4]
@@ -172,7 +193,7 @@ extern "C" int fmt_frontend_i8(const int8_t* x8, const int8_t* tail8,
                                const int8_t* b1, const int8_t* b2, int nn,
                                float s_row, const float* prev_theta,
                                float scale, int channels, int b,
-                               float* theta1, float* fmd,
+                               float* theta1, void* fmd, int out_i16,
                                cudaStream_t stream) {
   if (nn % 4 != 0 || nn < 4 || b % 4 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -182,5 +203,6 @@ extern "C" int fmt_frontend_i8(const int8_t* x8, const int8_t* tail8,
                                       (const int*)b2, nn, s_row, channels, b,
                                       theta1);
   FMT_CHECK_LAUNCH();
-  return launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd, stream);
+  return launch_disc_as(out_i16, theta1, prev_theta, scale, channels, b / 4,
+                        fmd, stream);
 }

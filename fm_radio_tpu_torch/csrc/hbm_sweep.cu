@@ -1,0 +1,216 @@
+// Device-memory streaming probes on Hopper: the copy and read rates this
+// card reaches, which chip_smoke.py divides every kernel's bytes by.
+//
+// Replaces the three Pallas kernels of tools/hbm_sweep.py (not kernels of
+// the receiver; the TPU's bandwidth diagnostic):
+//   hbm_grid_copy_kernel  pallas_copy (:61, _copy_kernel :57): a grid copy,
+//                         one CTA per [bm, bn] block of x [R, N] float32,
+//                         16-byte loads and stores, the block shape swept.
+//   hbm_dma_copy_kernel   dma_copy (:133, _dma_copy_kernel :75): a copy
+//                         staged through shared memory with one or two
+//                         buffers.  Hopper's bulk asynchronous copy
+//                         (cp.async.bulk, global -> shared completing on an
+//                         mbarrier, shared -> global in a bulk group) moves
+//                         each chunk; one thread of each CTA issues them,
+//                         and the CTAs walk the chunks in a stride.  One
+//                         buffer: load, wait, store, wait, as the TPU
+//                         kernel's nbuf = 1; two: the next chunk's load is
+//                         in flight while this one is stored.  The TPU
+//                         kernel's chunks are 1-4 MB of VMEM; here a chunk
+//                         is what shared memory holds (16-128 KiB).
+//   hbm_read_kernel       pallas_read (:159, _read_kernel :149): a
+//                         read-only sum of x [R, 1024] into [1, 128].  The
+//                         TPU kernel keeps lanes 0-127 of each block's
+//                         column sums, and its block copies read every byte
+//                         anyway; here a load whose value went unused would
+//                         be dropped by the compiler, so every column c is
+//                         summed into lane c % 128.  The order is fixed:
+//                         each thread sums its column's rows of a row block
+//                         in order, the eight columns of a lane are added in
+//                         order, then the row blocks in order by a second
+//                         kernel (no atomics), so it equals its plain
+//                         version (probes/hbm_sweep.py) bit for bit.
+//
+// What bounds them: bytes only (no arithmetic but the read's one add per
+// element).  Measured rates are in PERF.md.
+
+#include "common.cuh"
+
+namespace fmt {
+
+__global__ void hbm_grid_copy_kernel(const float4* __restrict__ x,
+                                     float4* __restrict__ y, int n4, int bm,
+                                     int bn4) {
+  const int64_t row0 = (int64_t)blockIdx.y * bm;
+  const int col0 = blockIdx.x * bn4;
+  const int total = bm * bn4;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int64_t i = (row0 + e / bn4) * n4 + col0 + e % bn4;
+    y[i] = x[i];
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// global -> shared, `bytes` (a multiple of 16, both addresses 16-byte
+// aligned), completing on `bar` with its transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global in its own bulk group, then wait for every group's
+// writes
+__device__ __forceinline__ void bulk_store_wait(void* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__global__ void hbm_dma_copy_kernel(const char* __restrict__ x,
+                                    char* __restrict__ y, int64_t n_chunks,
+                                    int chunk, int nbuf) {
+  extern __shared__ __align__(128) unsigned char buf[];
+  __shared__ __align__(8) uint64_t bar[2];
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < nbuf; ++s) mbar_init(&bar[s]);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  uint32_t phase[2] = {0u, 0u};
+  const int64_t step = gridDim.x;
+  int64_t i = blockIdx.x;
+  if (i >= n_chunks) return;
+  bulk_load(buf, x + i * chunk, chunk, &bar[0]);
+  for (int k = 0; i < n_chunks; i += step, ++k) {
+    const int s = nbuf == 2 ? (k & 1) : 0;
+    if (nbuf == 2 && i + step < n_chunks)
+      bulk_load(buf + (1 - s) * chunk, x + (i + step) * chunk, chunk,
+                &bar[1 - s]);
+    mbar_wait(&bar[s], phase[s]);
+    phase[s] ^= 1u;
+    bulk_store_wait(y + i * chunk, buf + s * chunk, chunk);
+    if (nbuf == 1 && i + step < n_chunks)
+      bulk_load(buf, x + (i + step) * chunk, chunk, &bar[0]);
+  }
+}
+
+// x [R, 1024]: CTA b sums rows b*bm .. b*bm + bm - 1; thread t holds the
+// float4 of columns 4t .. 4t+3 (lanes 4(t % 32) ..), then threads t < 32
+// add the eight float4 of their lanes (t, t + 32, ..., t + 224) in order
+__global__ void hbm_read_kernel(const float4* __restrict__ x, int bm,
+                                float* __restrict__ part) {
+  __shared__ float4 s[256];
+  const int t = threadIdx.x;
+  const float4* p = x + (int64_t)blockIdx.x * bm * 256 + t;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int r = 0; r < bm; ++r) {
+    const float4 v = p[(int64_t)r * 256];
+    a.x += v.x;
+    a.y += v.y;
+    a.z += v.z;
+    a.w += v.w;
+  }
+  s[t] = a;
+  __syncthreads();
+  if (t < 32) {
+    float4 l = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < 8; ++k) {
+      const float4 v = s[32 * k + t];
+      l.x += v.x;
+      l.y += v.y;
+      l.z += v.z;
+      l.w += v.w;
+    }
+    float* o = part + (int64_t)blockIdx.x * 128 + 4 * t;
+    o[0] = l.x;
+    o[1] = l.y;
+    o[2] = l.z;
+    o[3] = l.w;
+  }
+}
+
+__global__ void hbm_read_finish_kernel(const float* __restrict__ part,
+                                       int blocks, float* __restrict__ y) {
+  const int l = threadIdx.x;
+  float acc = 0.0f;
+  for (int b = 0; b < blocks; ++b) acc += part[(int64_t)b * 128 + l];
+  y[l] = acc;
+}
+
+}  // namespace fmt
+
+using namespace fmt;
+
+// x, y [rows, n] float32, 16-byte aligned; bm | rows, bn | n, bn % 4 == 0.
+extern "C" int fmt_hbm_grid_copy(const float* x, float* y, int rows, int n,
+                                 int bm, int bn, cudaStream_t stream) {
+  if (bm <= 0 || bn <= 0 || rows % bm || n % bn || bn % 4 ||
+      rows / bm > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n / bn, rows / bm);
+  hbm_grid_copy_kernel<<<grid, kThreads, 0, stream>>>(
+      (const float4*)x, (float4*)y, n / 4, bm, bn / 4);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// x, y of nbytes, 16-byte aligned; chunk | nbytes, chunk % 16 == 0,
+// nbuf * chunk <= 227 KiB; ctas CTAs (one issuing thread each).
+extern "C" int fmt_hbm_dma_copy(const void* x, void* y, int64_t nbytes,
+                                int chunk, int nbuf, int ctas,
+                                cudaStream_t stream) {
+  if (chunk <= 0 || chunk % 16 || nbytes % chunk || (nbuf != 1 && nbuf != 2)
+      || nbuf * chunk > 232448 || ctas <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = nbuf * chunk;
+  cudaError_t e = cudaFuncSetAttribute(
+      hbm_dma_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  hbm_dma_copy_kernel<<<ctas, 32, smem, stream>>>(
+      (const char*)x, (char*)y, nbytes / chunk, chunk, nbuf);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// x [rows, 1024] float32, 16-byte aligned; bm | rows; scratch part
+// [rows / bm, 128]; y [128].
+extern "C" int fmt_hbm_read(const float* x, int rows, int bm, float* part,
+                            float* y, cudaStream_t stream) {
+  if (bm <= 0 || rows % bm) return (int)cudaErrorInvalidValue;
+  hbm_read_kernel<<<rows / bm, 256, 0, stream>>>((const float4*)x, bm, part);
+  FMT_CHECK_LAUNCH();
+  hbm_read_finish_kernel<<<1, 128, 0, stream>>>(part, rows / bm, y);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}

@@ -158,6 +158,6 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
   return launch_midend(fmd, w2_rev, nn2, tail2, use_deemph, de_b0, de_b1,
                        de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0,
                        pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in, pk_st_out,
-                       channels, b / 4, fm_out, re, im, theta, power,
-                       stream);
+                       channels, b / 4, fm_out, re, im, theta, nullptr,
+                       nullptr, nullptr, power, stream);
 }

@@ -98,17 +98,20 @@ __device__ __forceinline__ float peak_step(Peak2& s, float v, float b0,
   return y;
 }
 
-// discriminator: fmd[c, j] = disc_value(theta1[j], theta1[j-1])
+// discriminator: fmd[c, j] = disc_value(theta1[j], theta1[j-1]), stored as
+// float32 or, in the int16 format, as q_i16 at kFmScale (K1's out_i16,
+// frontend_pallas.py:204-207 and :482-485; K12 stores float32)
+template <class Out>
 __global__ void k12_disc_kernel(const float* __restrict__ theta1,
                                 const float* __restrict__ prev_theta,
                                 float scale, int channels, int n,
-                                float* __restrict__ fmd) {
+                                Out* __restrict__ fmd) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)channels * n) return;
   const int c = (int)(idx / n);
   const int j = (int)(idx % n);
   const float prev = j == 0 ? prev_theta[c] : theta1[idx - 1];
-  fmd[idx] = disc_value(theta1[idx], prev, scale);
+  store_f32(fmd, idx, disc_value(theta1[idx], prev, scale), kFmScale);
 }
 
 // de-emphasis, one thread per channel, in place; state (x1, y1) per
@@ -133,13 +136,18 @@ __global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
   st_out[2 * c + 1] = y1;
 }
 
-// Hilbert: im = nh-tap FIR, re = input delayed by (nh - 1)/2
+// Hilbert: im = nh-tap FIR, re = input delayed by (nh - 1)/2, written as
+// float32 (the peak IIR reads them); with kI16 also as q_i16 at kIqScale
+// into re16, im16 (K2's out_i16 stores, midend_pallas.py:254-256)
+template <bool kI16>
 __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
                                    const float* __restrict__ htail,
                                    const float* __restrict__ wh_rev, int nh,
                                    int channels, int n,
                                    float* __restrict__ re,
-                                   float* __restrict__ im) {
+                                   float* __restrict__ im,
+                                   int16_t* __restrict__ re16,
+                                   int16_t* __restrict__ im16) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)channels * n) return;
   const int c = (int)(idx / n);
@@ -147,9 +155,15 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
   const int halo = nh - 1;
   const float* x = fm_out + (int64_t)c * n;
   const float* t = htail + (int64_t)c * halo;
-  im[idx] = fir_point(x, t, halo, wh_rev, nh, i - halo);
+  const float vi = fir_point(x, t, halo, wh_rev, nh, i - halo);
   const int d = i - (nh - 1) / 2;
-  re[idx] = d < 0 ? t[halo + d] : x[d];
+  const float vr = d < 0 ? t[halo + d] : x[d];
+  im[idx] = vi;
+  re[idx] = vr;
+  if constexpr (kI16) {
+    re16[idx] = q_i16(vr, kIqScale);
+    im16[idx] = q_i16(vi, kIqScale);
+  }
 }
 
 // order-2 peak IIR (peak_step) on both planes, one thread per channel;
@@ -192,20 +206,39 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
   power[c] = (float)pw;
 }
 
-// The discriminator over theta1 [C, n4] -> fmd [C, n4].
+// q[i] = q_i16(x[i], scale) for i < n: the int16 format's store of a plane
+// that a serial kernel wrote as float32 (K2's theta: the peak IIR storing
+// int16 itself, one 2-byte store per step or 16 at a time, was measured
+// 0.2-0.65 ms slower per bench block than its float32 store plus this
+// pass, PERF.md)
+__global__ void q_i16_kernel(const float* __restrict__ x,
+                             int16_t* __restrict__ q, int64_t n,
+                             float scale) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) q[i] = q_i16(x[i], scale);
+}
+
+// The discriminator over theta1 [C, n4] -> fmd [C, n4] (float32 or int16).
+template <class Out>
 inline int launch_disc(const float* theta1, const float* prev_theta,
-                       float scale, int channels, int n4, float* fmd,
+                       float scale, int channels, int n4, Out* fmd,
                        cudaStream_t stream) {
-  k12_disc_kernel<<<blocks_for((int64_t)channels * n4), kThreads, 0,
-                    stream>>>(theta1, prev_theta, scale, channels, n4, fmd);
+  k12_disc_kernel<Out><<<blocks_for((int64_t)channels * n4), kThreads, 0,
+                         stream>>>(theta1, prev_theta, scale, channels, n4,
+                                   fmd);
   FMT_CHECK_LAUNCH();
   return 0;
 }
 
-// The mid end on fmd [C, n4]: ds x2 into fm_out [C, n4/2] (scratch), the
-// optional de-emphasis in place, Hilbert -> re, im, and the peak IIR ->
-// theta [C, n4/2] and the pilot power [C].  n4/2 % kBatch == 0.
-inline int launch_midend(const float* fmd, const float* w2_rev, int nn2,
+// The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised by
+// the ds x2's loads): ds x2 into fm_out [C, n4/2] (scratch), the optional
+// de-emphasis in place, Hilbert -> re, im, and the peak IIR -> theta
+// [C, n4/2] and the pilot power [C], all float32.  Given re16 (the int16
+// format's outputs re16, im16, theta16), the Hilbert launch also writes
+// re16, im16 at kIqScale and q_i16_kernel theta16 at kPhScale from theta;
+// re, im and theta are then scratch.  n4/2 % kBatch == 0.
+template <class In>
+inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          const float* tail2, int use_deemph, float de_b0,
                          float de_b1, float de_a1, const float* de_st_in,
                          float* de_st_out, const float* wh_rev, int nh,
@@ -213,12 +246,13 @@ inline int launch_midend(const float* fmd, const float* w2_rev, int nn2,
                          float pk_b2, float pk_a1, float pk_a2,
                          const float* pk_st_in, float* pk_st_out,
                          int channels, int n4, float* fm_out, float* re,
-                         float* im, float* theta, float* power,
+                         float* im, float* theta, int16_t* re16,
+                         int16_t* im16, int16_t* theta16, float* power,
                          cudaStream_t stream) {
   const int n8 = n4 / 2;
   const int64_t t8 = (int64_t)channels * n8;
   int err = fir_decimate(fmd, n4, tail2, w2_rev, nn2, 2, fm_out, channels,
-                         stream);
+                         stream, kFmScale);
   if (err) return err;
   if (use_deemph) {
     k12_deemph_kernel<<<blocks_for(channels, kSerialThreads),
@@ -226,14 +260,24 @@ inline int launch_midend(const float* fmd, const float* w2_rev, int nn2,
         fm_out, n8, channels, de_b0, de_b1, de_a1, de_st_in, de_st_out);
     FMT_CHECK_LAUNCH();
   }
-  k12_hilbert_kernel<<<blocks_for(t8), kThreads, 0, stream>>>(
-      fm_out, htail, wh_rev, nh, channels, n8, re, im);
+  if (re16 != nullptr) {
+    k12_hilbert_kernel<true><<<blocks_for(t8), kThreads, 0, stream>>>(
+        fm_out, htail, wh_rev, nh, channels, n8, re, im, re16, im16);
+  } else {
+    k12_hilbert_kernel<false><<<blocks_for(t8), kThreads, 0, stream>>>(
+        fm_out, htail, wh_rev, nh, channels, n8, re, im, nullptr, nullptr);
+  }
   FMT_CHECK_LAUNCH();
-  k12_peak_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads,
-                    0, stream>>>(
-      re, im, n8, channels, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in,
-      pk_st_out, theta, power);
+  k12_peak_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads, 0,
+                    stream>>>(re, im, n8, channels, pk_b0, pk_b1, pk_b2,
+                              pk_a1, pk_a2, pk_st_in, pk_st_out, theta,
+                              power);
   FMT_CHECK_LAUNCH();
+  if (re16 != nullptr) {
+    q_i16_kernel<<<blocks_for(t8), kThreads, 0, stream>>>(theta, theta16, t8,
+                                                          kPhScale);
+    FMT_CHECK_LAUNCH();
+  }
   return 0;
 }
 

@@ -11,30 +11,56 @@
 // equal K12 bit for bit.  What bounds each launch and what the design does
 // about it is noted in k12.cu (the FIR stages read their windows from
 // device memory; the serial IIRs run one thread per channel).
+//
+// The int16 inter-stage format (interstage_i16; the TPU kernel's in_i16
+// :246 and out_i16 :254-257): fm_demod may arrive as int16 at 2^15, which
+// the ds x2's loads dequantise (no separate dequantising pass: halving
+// those bytes is the format's purpose); with the int16 outputs, re and im
+// leave as int16 at 2^14 and theta at 2^16.  The de-emphasis, the Hilbert
+// FIR, the peak IIR and the power sum run on float32 values as before: the
+// Hilbert launch writes re/im as float32 scratch, which the serial peak IIR
+// reads, and quantised, coalesced, as the outputs; the peak IIR writes
+// theta as float32 scratch and a parallel pass (q_i16_kernel) quantises it.
+// The serial peak IIR storing int16 itself was measured slower (PERF.md).
+// Bytes per output sample n8 (C * B/8 of them), float32 -> int16 format:
+// ds x2 reads 8 -> 4 and writes 4; Hilbert reads 4 and writes 8 -> 12; the
+// peak IIR reads 8 and writes 4; the quantise pass reads 4 and writes 2;
+// K2 in all 36 -> 40 (without the de-emphasis's 8), and its consumers, the
+// PLL and extract, read 12 -> 6.
 
 #include "k12_stages.cuh"
 
 using namespace fmt;
 
-// fmd [C, n4]; w2_rev [nn2], tail2 [C, nn2 - 2]; de_st_* [C, 2] (x1, y1);
-// wh_rev [nh], htail [C, nh - 1]; pk_st_* [C, 8] (re x1 x2 y1 y2, im x1 x2
-// y1 y2); scratch fm_out and outputs re, im, theta [C, n4/2]; power [C].
+// fmd [C, n4] float32, or int16 (in_i16); w2_rev [nn2], tail2 [C, nn2 - 2];
+// de_st_* [C, 2] (x1, y1); wh_rev [nh], htail [C, nh - 1]; pk_st_* [C, 8]
+// (re x1 x2 y1 y2, im x1 x2 y1 y2); scratch fm_out [C, n4/2]; re, im, theta
+// [C, n4/2] float32, the outputs, or, given re16, im16 and theta16 [C, n4/2]
+// int16 (all three or none), scratch beside those outputs; power [C].
 // n4 % (2 * kBatch) == 0.  Returns the first cudaError_t of the launches.
-extern "C" int fmt_midend(const float* fmd, const float* w2_rev, int nn2,
-                          const float* tail2, int use_deemph, float de_b0,
-                          float de_b1, float de_a1, const float* de_st_in,
-                          float* de_st_out, const float* wh_rev, int nh,
-                          const float* htail, float pk_b0, float pk_b1,
-                          float pk_b2, float pk_a1, float pk_a2,
-                          const float* pk_st_in, float* pk_st_out,
-                          int channels, int n4, float* fm_out, float* re,
-                          float* im, float* theta, float* power,
-                          cudaStream_t stream) {
-  if (n4 % (2 * kBatch) != 0 || nn2 < 2 || nh < 1) {
+extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
+                          int nn2, const float* tail2, int use_deemph,
+                          float de_b0, float de_b1, float de_a1,
+                          const float* de_st_in, float* de_st_out,
+                          const float* wh_rev, int nh, const float* htail,
+                          float pk_b0, float pk_b1, float pk_b2, float pk_a1,
+                          float pk_a2, const float* pk_st_in,
+                          float* pk_st_out, int channels, int n4,
+                          float* fm_out, float* re, float* im, float* theta,
+                          int16_t* re16, int16_t* im16, int16_t* theta16,
+                          float* power, cudaStream_t stream) {
+  if (n4 % (2 * kBatch) != 0 || nn2 < 2 || nh < 1 ||
+      (re16 == nullptr) != (im16 == nullptr) ||
+      (re16 == nullptr) != (theta16 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_midend(fmd, w2_rev, nn2, tail2, use_deemph, de_b0, de_b1,
-                       de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0,
-                       pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in, pk_st_out,
-                       channels, n4, fm_out, re, im, theta, power, stream);
+#define FMT_MIDEND_ARGS                                                     \
+  w2_rev, nn2, tail2, use_deemph, de_b0, de_b1, de_a1, de_st_in, de_st_out, \
+      wh_rev, nh, htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in,        \
+      pk_st_out, channels, n4, fm_out, re, im, theta, re16, im16, theta16,  \
+      power, stream
+  const int err = in_i16 ? launch_midend((const int16_t*)fmd, FMT_MIDEND_ARGS)
+                         : launch_midend((const float*)fmd, FMT_MIDEND_ARGS);
+#undef FMT_MIDEND_ARGS
+  return err;
 }

@@ -46,22 +46,32 @@
 
 namespace fmt {
 
-__global__ void pll_kernel(const float* __restrict__ theta,
-                           float* __restrict__ dt,
+// theta and dt are float32, or both the int16 inter-stage format at
+// kPhScale (the TPU kernel's io_i16, pll_pallas.py:114-147): theta
+// dequantised as it is loaded, dt quantised as it is stored (kBatch steps
+// at a time, store_i16_batch); the loop and its state stay float32.
+template <class T>
+__global__ void pll_kernel(const T* __restrict__ theta, T* __restrict__ dt,
                            const float* __restrict__ st_in,
                            float* __restrict__ st_out, int channels, int n,
                            PllConsts k) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= channels) return;
   PllState s = pll_load(st_in, channels, c);
-  const float* th = theta + (int64_t)c * n;
-  float* out = dt + (int64_t)c * n;
+  const T* th = theta + (int64_t)c * n;
+  T* out = dt + (int64_t)c * n;
   for (int i0 = 0; i0 < n; i0 += kBatch) {
     float bt[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) bt[u] = th[i0 + u];
+    for (int u = 0; u < kBatch; ++u) bt[u] = load_f32(th, i0 + u, kPhScale);
+    if constexpr (sizeof(T) == sizeof(float)) {
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) out[i0 + u] = pll_step(s, k, bt[u]);
+      for (int u = 0; u < kBatch; ++u) out[i0 + u] = pll_step(s, k, bt[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) bt[u] = pll_step(s, k, bt[u]);
+      store_i16_batch(out, i0, bt, kPhScale);
+    }
   }
   pll_store(s, st_out, channels, c);
 }
@@ -110,16 +120,23 @@ __global__ void pll_chunked_kernel(const float* __restrict__ theta,
 
 using namespace fmt;
 
-// theta, dt [C, N]; st_in, st_out [5, C] rows (lpf_x1, lpf_y1, integ,
-// nco_t, prev_pe); loop constants from models/pilot_pll.py.
-extern "C" int fmt_pll(const float* theta, float* dt, const float* st_in,
+// theta, dt [C, N], float32 or, with io_i16, both int16 (PH_SCALE); st_in,
+// st_out [5, C] rows (lpf_x1, lpf_y1, integ, nco_t, prev_pe); loop
+// constants from models/pilot_pll.py.
+extern "C" int fmt_pll(const void* theta, void* dt, const float* st_in,
                        float* st_out, int channels, int n, float ts,
                        float f_center, float f_gain, float ki_ts, float kp,
-                       float b0, float a1, cudaStream_t stream) {
+                       float b0, float a1, int io_i16, cudaStream_t stream) {
   if (n % kBatch != 0) return (int)cudaErrorInvalidValue;
   const PllConsts k{ts, f_center, f_gain, ki_ts, kp, b0, a1};
-  pll_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads, 0,
-               stream>>>(theta, dt, st_in, st_out, channels, n, k);
+  const unsigned grid = blocks_for(channels, kSerialThreads);
+  if (io_i16) {
+    pll_kernel<int16_t><<<grid, kSerialThreads, 0, stream>>>(
+        (const int16_t*)theta, (int16_t*)dt, st_in, st_out, channels, n, k);
+  } else {
+    pll_kernel<float><<<grid, kSerialThreads, 0, stream>>>(
+        (const float*)theta, (float*)dt, st_in, st_out, channels, n, k);
+  }
   FMT_CHECK_LAUNCH();
   return 0;
 }

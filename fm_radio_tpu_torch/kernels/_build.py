@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NAMES = ("k12", "pll", "extract", "bpsk", "channelizer", "channelizer_mma",
-         "frontend", "midend", "chain")
+         "frontend", "midend", "chain", "hbm_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

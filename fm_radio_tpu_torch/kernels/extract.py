@@ -8,6 +8,15 @@ build the harmonic phasors from one base phasor per sample
 returns the RDS power sum for the fused RDS AGC.  ``lmr_phase_err`` is read
 here and updated afterwards by the caller.  The kernel is
 ``csrc/extract.cu``.
+
+The int16 inter-stage format (``kernels/qformat.py``): the planes may be
+int16 at IQ_SCALE, and dt int16 at PH_SCALE where the planes are too
+(extract_pallas.py:141-146, :244-245); the kernel dequantises them on load
+and the carried ``ds_audio_lpr`` tail is the dequantised planes'
+(:293-300).  Launches with int16 planes and dt count in ``launches_i16``,
+with int16 planes and float32 dt (where the PLL could not take int16) in
+``launches_i16_f32dt``.  :func:`pick_tiles_ext` is the JAX kernel's shape
+gate.
 """
 
 from __future__ import annotations
@@ -15,17 +24,36 @@ from __future__ import annotations
 import torch
 
 from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.kernels.qformat import IQ_SCALE, PH_SCALE, dq_if_i16
 from fm_radio_tpu_torch.ops.cmath import chebyshev_sine, wrap_cycles
 from fm_radio_tpu_torch.ops.fir import polyphase_decimate_p
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counter was last set to 0: float32 planes and
+# dt; int16 planes and dt; int16 planes and float32 dt
 launches = 0
+launches_i16 = 0
+launches_i16_f32dt = 0
 
 TILE = 1024  # fm_out samples per CUDA block (csrc/extract.cu kExtTile)
+_NO = 128    # the TPU kernel's band width
 
 _P, _I = _build.P, _build.I
-_ARGTYPES = ([_P] * 7 + [_I] + [_P] * 2 + [_I] + [_P] * 2 + [_I, _P]
-             + [_I] * 3 + [_P] * 11 + [_P])
+_ARGTYPES = ([_P] * 3 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 2 + [_I]
+             + [_P] * 2 + [_I, _P] + [_I] * 3 + [_P] * 11 + [_P])
+
+
+def pick_tiles_ext(c: int, b8: int) -> tuple[int, int] | None:
+    """(c_blk, t_blk) of the JAX kernel's grid, or None where shapes fail
+    its contract: a host-only integer copy of
+    ``extract_pallas.py::pick_tiles_ext`` (:170-179), which K2's int16
+    output predicts (demod.py:450-463)."""
+    if b8 % (_NO * 8) != 0:
+        return None
+    t_blk = _NO * 8
+    c_blk = c if c <= 128 else 128
+    if c % c_blk != 0:
+        return None
+    return c_blk, t_blk
 
 
 def harmonics(cfg) -> None:
@@ -58,10 +86,13 @@ def mix(xr, xi, dt, off):
 
 
 def extract_plain(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
-    """Extraction in plain PyTorch, in the kernel's op order.  Returns
-    (state', lpr [C, N/4], (lmr_re, lmr_im) [C, N/4], (rds_re, rds_im)
-    [C, N/8], rds_pow [C])."""
+    """Extraction in plain PyTorch, in the kernel's op order, on the planes
+    and dt dequantised first where they are int16.  Returns (state', lpr
+    [C, N/4], (lmr_re, lmr_im) [C, N/4], (rds_re, rds_im) [C, N/8],
+    rds_pow [C])."""
     harmonics(cfg)
+    iq_p = tuple(dq_if_i16(p, IQ_SCALE) for p in iq_p)
+    dt = dq_if_i16(dt, PH_SCALE)
     xr, xi = iq_p
     mix_lmr, mix_rds = mix(xr, xi, dt, state["lmr_phase_err"])
     new = dict(state)
@@ -105,20 +136,25 @@ def ext_args(name: str, coeffs, cfg, state: dict, c: int, dev) -> dict:
 
 
 def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
-    """(re, im), dt [C, N] float32 -> as :func:`extract_plain`.  CPU tensors
-    run the plain version; CUDA tensors launch the kernel (N % 1024 == 0)."""
+    """(re, im), dt [C, N] -> as :func:`extract_plain`: float32, or the
+    planes int16 with dt int16 or float32.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (N % 1024 == 0)."""
+    xr, xi = iq_p
+    iq_i16, dt_i16 = xr.dtype == torch.int16, dt.dtype == torch.int16
+    if dt_i16 and not iq_i16:
+        raise ValueError("extract: int16 dt needs int16 planes")
     if _build.on_cpu("extract", dt.device):
         return extract_plain(coeffs, cfg, state, iq_p, dt)
-    global launches
+    global launches, launches_i16, launches_i16_f32dt
     dev = dt.device
-    xr, xi = iq_p
     c, n = dt.shape
     if n % TILE:
         raise ValueError(f"extract: N = {n} is not a multiple of {TILE}")
     a = ext_args("extract", coeffs, cfg, state, c, dev)
     if xr.shape != (c, n) or xi.shape != (c, n):
         raise ValueError("extract: shapes of the planes, dt and state disagree")
-    _build.require("extract", dev, torch.float32, xr=xr, xi=xi, dt=dt)
+    _build.require("extract", dev, xr.dtype, xr=xr, xi=xi)
+    _build.require("extract", dev, dt.dtype, dt=dt)
     halo_a, halo_r = a["t_lpr_re"].shape[-1], a["t_rds_re"].shape[-1]
     f = dict(device=dev, dtype=torch.float32)
     lpr = torch.empty((c, n // 4), **f)
@@ -129,7 +165,8 @@ def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
     o_lmr_re, o_lmr_im, o_rds_re, o_rds_im = (
         torch.empty_like(a[k]) for k in TAILS[2:])
     fn = _build.function("extract", "fmt_extract", _ARGTYPES)
-    err = fn(xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), a["off"].data_ptr(),
+    err = fn(xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), int(iq_i16),
+             int(dt_i16), a["off"].data_ptr(),
              a["t_lpr_re"].data_ptr(), a["t_lmr_re"].data_ptr(),
              a["t_lmr_im"].data_ptr(), halo_a, a["t_rds_re"].data_ptr(),
              a["t_rds_im"].data_ptr(), halo_r, a["wa"].data_ptr(),
@@ -140,9 +177,16 @@ def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
              o_lmr_im.data_ptr(), o_rds_re.data_ptr(), o_rds_im.data_ptr(),
              _build.stream_ptr(dev))
     _build.check("extract", err)
-    launches += 1
+    if dt_i16:
+        launches_i16 += 1
+    elif iq_i16:
+        launches_i16_f32dt += 1
+    else:
+        launches += 1
     new = dict(state)
-    new["ds_audio_lpr"] = torch.complex(xr[:, n - halo_a :], xi[:, n - halo_a :])
+    # the raw L+R tail, dequantised: only its last samples
+    new["ds_audio_lpr"] = torch.complex(
+        *(dq_if_i16(p[:, n - halo_a :], IQ_SCALE) for p in (xr, xi)))
     new["ds_audio_lmr"] = torch.complex(o_lmr_re, o_lmr_im)
     new["ds_rds"] = torch.complex(o_rds_re, o_rds_im)
     return new, lpr, (lmr_re, lmr_im), (rds_re, rds_im), rds_pow

@@ -5,7 +5,8 @@ Counterpart of ``fm_radio_tpu/kernels/frontend_pallas.py::ds4_disc_pallas``
 (and its int8-direct form ``_ds4_disc_i8_direct``):
 
     baseband [C, B] -> ds x4 LPF (64 taps) -> polynomial atan2
-    -> discriminator -> fm_demod [C, B/4] float32
+    -> discriminator -> fm_demod [C, B/4] float32 (or, with ``out_i16``,
+       the int16 inter-stage format at FM_SCALE, ``kernels/qformat.py``)
 
 State keys read and written: ``ds_fm_in`` (the last 60 input samples,
 complex64 of u8 - 127 values) and ``disc_prev_theta``.
@@ -22,7 +23,9 @@ entries count apart: :func:`frontend` (``launches``, ``csrc/frontend.cu::
 fmt_frontend``) takes planes and words with either taps and int8 planes
 with float taps; :func:`frontend_i8` (``launches_i8``, ``fmt_frontend_i8``)
 is the int8-direct form, int8 planes with int8 taps, whose device code is
-K12's first two launches.
+K12's first two launches.  Each counts its int16-format launches apart too
+(``launches_i16``, ``launches_i8_i16``); :func:`pick_tiles` is the JAX
+kernel's shape gate, which decides whether ``demod_block`` asks for it.
 """
 
 from __future__ import annotations
@@ -30,21 +33,47 @@ from __future__ import annotations
 import torch
 
 from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
 from fm_radio_tpu_torch.ops.cmath import atan2_poly, f32
 from fm_radio_tpu_torch.ops.discriminator import disc_scale, discriminate_theta
 from fm_radio_tpu_torch.ops.fir import correlate
 from fm_radio_tpu_torch.utils.transfer import i8_planes_to_f32, unpack_iq_words
 
 # kernel launches since the counter was last set to 0 (fmt_frontend, and
-# the int8-direct fmt_frontend_i8)
+# the int8-direct fmt_frontend_i8; then each of them with the int16 output)
 launches = 0
 launches_i8 = 0
+launches_i16 = 0
+launches_i8_i16 = 0
+
+_M, _NO = 4, 128  # the TPU kernel's decimation and default band width
 
 FORMS = {"planes": 0, "words": 1, "i8": 2}
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _P]
-_ARGTYPES_I8 = [_P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _P]
+_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _I,
+             _P]
+_ARGTYPES_I8 = [_P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _I, _P]
+
+
+def pick_tiles(c: int, b: int, no: int = _NO,
+               max_t: int = 2048) -> tuple[int, int] | None:
+    """(c_blk, t_blk) of the JAX kernel's grid, or None where shapes fail
+    its contract: a host-only integer copy of
+    ``frontend_pallas.py::pick_tiles`` (:569-595), which gates K1 and so
+    the int16 format (demod.py:377-389).  The copy leaves out the
+    ``FMTPU_FE_TILES`` override, a TPU tile-geometry lens that changes no
+    output.  At the port's block multiple only the channel condition can
+    fail (C <= 128 or C % 128 == 0)."""
+    if b % (no * _M) != 0:
+        return None
+    t_blk = no * _M
+    while t_blk * 2 <= max_t and b % (t_blk * 2) == 0:
+        t_blk *= 2
+    c_blk = c if c <= 128 else 128
+    if c % c_blk != 0:
+        return None
+    return c_blk, t_blk
 
 
 def input_form(x: torch.Tensor) -> str:
@@ -84,9 +113,10 @@ def _front_state(state: dict, tail_re, tail_im, prev_theta) -> dict:
 
 
 def frontend_plain(coeffs, cfg, state: dict, x: torch.Tensor,
-                   int8_taps: bool):
+                   int8_taps: bool, out_i16: bool = False):
     """K1 in plain PyTorch, op by op in float32 in the kernel's order.
-    Returns (state', fm_demod [C, B/4])."""
+    Returns (state', fm_demod [C, B/4]), float32 or, with ``out_i16``, its
+    ``q_i16`` at FM_SCALE."""
     xr, xi = input_planes(x)
     tail = state["ds_fm_in"]
     xf = torch.cat([torch.stack([tail.real, tail.imag]),
@@ -107,13 +137,16 @@ def frontend_plain(coeffs, cfg, state: dict, x: torch.Tensor,
                                          _scale(cfg))
     halo = tail.shape[-1]
     t = xf[..., xf.shape[-1] - halo :]
+    if out_i16:
+        fmd = q_i16(fmd, FM_SCALE)
     return _front_state(state, t[0], t[1], prev_theta), fmd
 
 
-def frontend_i8_plain(coeffs, cfg, state: dict, x8: torch.Tensor):
+def frontend_i8_plain(coeffs, cfg, state: dict, x8: torch.Tensor,
+                      out_i16: bool = False):
     """The int8-direct K1 in plain PyTorch: :func:`frontend_plain` on int8
     planes with int8 taps."""
-    return frontend_plain(coeffs, cfg, state, x8, True)
+    return frontend_plain(coeffs, cfg, state, x8, True, out_i16)
 
 
 def check_state(name: str, coeffs, state: dict, c: int) -> int:
@@ -129,7 +162,7 @@ def check_state(name: str, coeffs, state: dict, c: int) -> int:
 
 
 def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
-            direct: bool):
+            direct: bool, out_i16: bool = False):
     dev = x.device
     form = input_form(x)
     c, b = x.shape[-2], x.shape[-1]
@@ -143,7 +176,8 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
     tail_f = torch.stack([tail.real, tail.imag]).contiguous()
     f = dict(device=dev, dtype=torch.float32)
     theta1 = torch.empty((c, b // 4), **f)
-    fmd = torch.empty((c, b // 4), **f)
+    fmd = torch.empty((c, b // 4), device=dev,
+                      dtype=torch.int16 if out_i16 else torch.float32)
     _build.require(name, dev, torch.int8, b1=b1, b2=b2)
     if any(t.data_ptr() % 4 for t in (b1, b2)):
         raise ValueError(f"{name}: int8 taps must be 4-byte aligned")
@@ -156,7 +190,8 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
         fn = _build.function("frontend", "fmt_frontend_i8", _ARGTYPES_I8)
         err = fn(x.data_ptr(), tail8.data_ptr(), b1.data_ptr(), b2.data_ptr(),
                  nn, s_row, prev.data_ptr(), _scale(cfg), c, b,
-                 theta1.data_ptr(), fmd.data_ptr(), _build.stream_ptr(dev))
+                 theta1.data_ptr(), fmd.data_ptr(), int(out_i16),
+                 _build.stream_ptr(dev))
     else:
         w_rev = coeffs.taps_fm_in.flip(0).contiguous()
         _build.require(name, dev, x.dtype, x=x)
@@ -166,17 +201,19 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
         err = fn(x.data_ptr(), FORMS[form], int(int8_taps), tail_f.data_ptr(),
                  w_rev.data_ptr(), b1.data_ptr(), b2.data_ptr(), nn, s_row,
                  prev.data_ptr(), _scale(cfg), c, b, theta1.data_ptr(),
-                 fmd.data_ptr(), _build.stream_ptr(dev))
+                 fmd.data_ptr(), int(out_i16), _build.stream_ptr(dev))
     _build.check("frontend", err)
     t_re, t_im = input_planes(x[..., b - (nn - 4) :])
     return _front_state(state, t_re, t_im, theta1[:, -1]), fmd
 
 
-def frontend(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool):
+def frontend(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
+             out_i16: bool = False):
     """x: float32 planes [2, C, B], packed words [C, B] or int8 planes
     [2, C, B] (int8 planes with float taps only; with int8 taps they take
-    :func:`frontend_i8`) -> (state', fm_demod [C, B/4]).  CPU tensors run
-    :func:`frontend_plain`; CUDA tensors launch the kernel."""
+    :func:`frontend_i8`) -> (state', fm_demod [C, B/4], float32 or with
+    ``out_i16`` int16).  CPU tensors run :func:`frontend_plain`; CUDA
+    tensors launch the kernel."""
     form = input_form(x)
     if x.shape[-1] % 4:
         raise ValueError(f"frontend: block {x.shape[-1]} % 4 != 0")
@@ -184,23 +221,31 @@ def frontend(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool):
         raise ValueError("frontend: int8 planes with int8 taps are the "
                          "int8-direct form (frontend_i8)")
     if _build.on_cpu("frontend", x.device):
-        return frontend_plain(coeffs, cfg, state, x, int8_taps)
-    global launches
-    out = _launch(coeffs, cfg, state, x, int8_taps, direct=False)
-    launches += 1
+        return frontend_plain(coeffs, cfg, state, x, int8_taps, out_i16)
+    global launches, launches_i16
+    out = _launch(coeffs, cfg, state, x, int8_taps, False, out_i16)
+    if out_i16:
+        launches_i16 += 1
+    else:
+        launches += 1
     return out
 
 
-def frontend_i8(coeffs, cfg, state: dict, x8: torch.Tensor):
+def frontend_i8(coeffs, cfg, state: dict, x8: torch.Tensor,
+                out_i16: bool = False):
     """The int8-direct K1: x8 [2, C, B] int8 planes (u8 - 128) with int8
-    taps -> (state', fm_demod [C, B/4]).  CPU tensors run
-    :func:`frontend_i8_plain`; CUDA tensors launch the kernel."""
+    taps -> (state', fm_demod [C, B/4], float32 or with ``out_i16``
+    int16).  CPU tensors run :func:`frontend_i8_plain`; CUDA tensors launch
+    the kernel."""
     if input_form(x8) != "i8" or x8.shape[-1] % 4:
         raise ValueError(f"frontend_i8 takes [2, C, B] int8 with B % 4 == 0, "
                          f"got {x8.dtype} {tuple(x8.shape)}")
     if _build.on_cpu("frontend_i8", x8.device):
-        return frontend_i8_plain(coeffs, cfg, state, x8)
-    global launches_i8
-    out = _launch(coeffs, cfg, state, x8, True, direct=True)
-    launches_i8 += 1
+        return frontend_i8_plain(coeffs, cfg, state, x8, out_i16)
+    global launches_i8, launches_i8_i16
+    out = _launch(coeffs, cfg, state, x8, True, True, out_i16)
+    if out_i16:
+        launches_i8_i16 += 1
+    else:
+        launches_i8 += 1
     return out

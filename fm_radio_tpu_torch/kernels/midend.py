@@ -12,6 +12,14 @@ State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
 ``csrc/midend.cu``, which runs K12's last four launches (the device code is
 shared through ``csrc/k12_stages.cuh``); the helpers that pass this state
 to the card and back serve ``kernels/k12.py`` too.
+
+The int16 inter-stage format (``kernels/qformat.py``): fm_demod may be
+int16 at FM_SCALE, dequantised by the ds x2's loads, and with ``out_i16``
+re/im leave as int16 at IQ_SCALE and theta at PH_SCALE; everything between
+runs on float32 values, and the carried ds x2 tail is the dequantised
+fm_demod (midend_pallas.py:449-454).  Launches with any int16 tensor count
+in ``launches_i16``.  :func:`pick_tiles_mid` is the JAX kernel's shape
+gate.
 """
 
 from __future__ import annotations
@@ -21,17 +29,44 @@ import math
 import torch
 
 from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.kernels.qformat import (
+    FM_SCALE,
+    IQ_SCALE,
+    PH_SCALE,
+    dq_if_i16,
+    q_i16,
+)
 from fm_radio_tpu_torch.ops.agc import _agc_gain
 from fm_radio_tpu_torch.ops.cmath import atan2_poly, div_scalar, f32
 from fm_radio_tpu_torch.ops.fir import decimate_core, hilbert_fir_p
 from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counter was last set to 0 (float32 in and
+# out; then any with an int16 input or output)
 launches = 0
+launches_i16 = 0
+
+_NO = 128  # the TPU kernel's band width
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_ARGTYPES = ([_P, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
-             + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 6)
+_ARGTYPES = ([_P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
+             + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 9)
+
+
+def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
+    """(c_blk, t_blk) of the JAX kernel's grid over the fm_demod axis, or
+    None where shapes fail its contract: a host-only integer copy of
+    ``midend_pallas.py::pick_tiles_mid`` (:270-280), the gate that decides
+    whether K2 takes (and emits) the int16 format (demod.py:427-463)."""
+    if b4 % (_NO * 2) != 0:
+        return None
+    t_blk = _NO * 2
+    while t_blk * 2 <= 1024 and b4 % (t_blk * 2) == 0:
+        t_blk *= 2
+    c_blk = c if c <= 128 else 128
+    if c % c_blk != 0:
+        return None
+    return c_blk, t_blk
 
 
 def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power) -> dict:
@@ -48,9 +83,12 @@ def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power) -> dict:
     return new
 
 
-def midend_plain(coeffs, cfg, state: dict, fmd: torch.Tensor):
-    """K2 in plain PyTorch, op by op in float32 in the kernel's order.
-    Returns (state', (re, im) [C, B/8], theta [C, B/8] cycles)."""
+def midend_plain(coeffs, cfg, state: dict, fmd: torch.Tensor,
+                 out_i16: bool = False):
+    """K2 in plain PyTorch, op by op in float32 in the kernel's order, on
+    fm_demod dequantised first if it is int16.  Returns (state', (re, im)
+    [C, B/8], theta [C, B/8] cycles), with ``out_i16`` each ``q_i16``."""
+    fmd = dq_if_i16(fmd, FM_SCALE)
     _, fm_out = decimate_core(coeffs.taps_fm_out, state["ds_fm_out"], fmd, 2)
     deemph = state["deemph"]
     if cfg.use_deemphasis_filter:
@@ -62,6 +100,9 @@ def midend_plain(coeffs, cfg, state: dict, fmd: torch.Tensor):
     theta = atan2_poly(pi, pr) * f32(1.0 / (2.0 * math.pi))
     power = torch.sum(pr * pr + pi * pi, dim=-1)
     new = mid_new_state(state, fmd, fm_out, deemph, peak, power)
+    if out_i16:
+        re, im = q_i16(re, IQ_SCALE), q_i16(im, IQ_SCALE)
+        theta = q_i16(theta, PH_SCALE)
     return new, (re, im), theta
 
 
@@ -135,33 +176,52 @@ def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
                          power)
 
 
-def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor):
+def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
+            out_i16: bool = False):
     dev = fmd.device
     c, n4 = fmd.shape
     a = mid_args("midend", coeffs, cfg, state, c, dev)
-    _build.require("midend", dev, torch.float32, fmd=fmd)
+    _build.require("midend", dev, fmd.dtype, fmd=fmd)
     f = dict(device=dev, dtype=torch.float32)
     n8 = n4 // 2
+    # float32 re, im, theta: the outputs, or with out_i16 the scratch that
+    # the int16 outputs are quantised from
     fm_out, re, im, theta = (torch.empty((c, n8), **f) for _ in range(4))
+    out16 = tuple(torch.empty((c, n8), device=dev, dtype=torch.int16)
+                  for _ in range(3)) if out_i16 else (None,) * 3
     power = torch.empty((c,), **f)
     fn = _build.function("midend", "fmt_midend", _ARGTYPES)
-    err = fn(fmd.data_ptr(), *mid_c_args(coeffs, cfg, a), c, n4,
-             fm_out.data_ptr(), re.data_ptr(), im.data_ptr(),
-             theta.data_ptr(), power.data_ptr(), _build.stream_ptr(dev))
+    err = fn(fmd.data_ptr(), int(fmd.dtype == torch.int16),
+             *mid_c_args(coeffs, cfg, a), c, n4, fm_out.data_ptr(),
+             re.data_ptr(), im.data_ptr(), theta.data_ptr(),
+             *(t.data_ptr() if out_i16 else None for t in out16),
+             power.data_ptr(), _build.stream_ptr(dev))
     _build.check("midend", err)
-    return mid_outputs(state, cfg, a, fmd, fm_out, power), (re, im), theta
+    # the carried tail, dequantised: only its last samples, not the planes
+    tail = fmd[:, n4 - a["tail2"].shape[-1] :]
+    new = mid_outputs(state, cfg, a, dq_if_i16(tail, FM_SCALE), fm_out, power)
+    if out_i16:
+        re, im, theta = out16
+    return new, (re, im), theta
 
 
-def midend(coeffs, cfg, state: dict, fmd: torch.Tensor):
-    """fm_demod [C, B/4] float32 -> (state', (re, im) [C, B/8], theta
-    [C, B/8] cycles).  CPU tensors run :func:`midend_plain`; CUDA tensors
-    launch the kernel."""
-    if fmd.ndim != 2 or fmd.dtype != torch.float32 or fmd.shape[-1] % 32:
-        raise ValueError(f"midend takes [C, B/4] float32 with B/4 % 32 == 0, "
-                         f"got {fmd.dtype} {tuple(fmd.shape)}")
+def midend(coeffs, cfg, state: dict, fmd: torch.Tensor,
+           out_i16: bool = False):
+    """fm_demod [C, B/4] float32 or int16 (FM_SCALE) -> (state', (re, im)
+    [C, B/8], theta [C, B/8] cycles), float32 or with ``out_i16`` int16.
+    CPU tensors run :func:`midend_plain`; CUDA tensors launch the
+    kernel."""
+    if fmd.ndim != 2 or fmd.dtype not in (torch.float32, torch.int16) \
+            or fmd.shape[-1] % 32:
+        raise ValueError(f"midend takes [C, B/4] float32 or int16 with "
+                         f"B/4 % 32 == 0, got {fmd.dtype} "
+                         f"{tuple(fmd.shape)}")
     if _build.on_cpu("midend", fmd.device):
-        return midend_plain(coeffs, cfg, state, fmd)
-    global launches
-    out = _launch(coeffs, cfg, state, fmd)
-    launches += 1
+        return midend_plain(coeffs, cfg, state, fmd, out_i16)
+    global launches, launches_i16
+    out = _launch(coeffs, cfg, state, fmd, out_i16)
+    if out_i16 or fmd.dtype == torch.int16:
+        launches_i16 += 1
+    else:
+        launches += 1
     return out

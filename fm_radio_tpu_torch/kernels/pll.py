@@ -12,6 +12,14 @@ W = ``cfg.pll_chunk_warmup`` samples before it (pll_pallas.py:297-423),
 taken only where :func:`chunk_gate` holds.  The kernels are ``csrc/pll.cu``
 (``fmt_pll``, ``fmt_pll_chunked``), which share one step
 (``csrc/pll_step.cuh``).
+
+The int16 inter-stage format (``kernels/qformat.py``, PH_SCALE): theta may
+arrive as int16.  :func:`pilot_pll_theta` takes the branches of
+``pilot_pll_pallas_theta`` in its order: where the chunk gate holds, theta
+is dequantised and the chunked PLL runs (pll_pallas.py:204-211); else where
+the channel tile is channel-major (:func:`channel_major`) the sequential
+kernel takes int16 theta and emits int16 dt (``launches_i16``); else theta
+is dequantised and the float32 kernel runs (pll_pallas.py:231-238).
 """
 
 from __future__ import annotations
@@ -21,26 +29,47 @@ import math
 import torch
 
 from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.kernels.qformat import (
+    PH_SCALE,
+    dq_i16,
+    dq_if_i16,
+    q_i16,
+)
 from fm_radio_tpu_torch.models.pilot_pll import (
     PilotPLLState,
     pll_consts_from_cfg,
 )
 from fm_radio_tpu_torch.ops.cmath import f32, wrap_cycles
 
-# kernel launches since the counter was last set to 0 (fmt_pll, and the
-# chunked fmt_pll_chunked)
+# kernel launches since the counter was last set to 0 (fmt_pll, the
+# chunked fmt_pll_chunked, and fmt_pll on int16 theta and dt)
 launches = 0
 launches_chunked = 0
+launches_i16 = 0
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_ARGTYPES = [_P] * 4 + [_I] * 2 + [_F] * 7 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 2 + [_F] * 7 + [_I, _P]
 _ARGTYPES_CHUNKED = [_P] * 4 + [_I] * 4 + [_F] * 8 + [_P]
+
+
+def channel_major(c: int) -> bool:
+    """Whether the JAX kernel runs C channels in its channel-major layout,
+    the only one that takes the int16 format: a host-only copy of
+    pll_pallas.py:227-230 (channel tile ct = C up to 2048, else gcd(C,
+    2048); ct % 8 == 0)."""
+    ct = c if c <= 2048 else math.gcd(c, 2048)
+    return ct % 8 == 0
 
 
 def pll_plain(cfg, state: PilotPLLState, theta: torch.Tensor):
     """The loop in plain PyTorch, one time step after the other, op by op
     in float32 (the order ``csrc/pll_step.cuh`` evaluates).  Returns
-    (state', dt)."""
+    (state', dt); on int16 theta (PH_SCALE) the loop runs on its
+    ``dq_i16`` and dt is ``q_i16`` of the float32 track, as the kernel
+    loads and stores them."""
+    if theta.dtype == torch.int16:
+        state, dt = pll_plain(cfg, state, dq_i16(theta, PH_SCALE))
+        return state, q_i16(dt, PH_SCALE)
     k = pll_consts_from_cfg(cfg)
     ts, fc, fg = k["ts"], k["f_center"], k["f_gain"]
     ki, kp, b0, a1 = k["ki_ts"], k["kp"], k["lpf_b0"], k["lpf_a1"]
@@ -100,7 +129,8 @@ def pll_chunked_plain(cfg, state: PilotPLLState, theta: torch.Tensor):
 def _args(name: str, state: PilotPLLState, theta: torch.Tensor):
     c, _ = theta.shape
     st = torch.stack(list(state))  # [5, C]
-    _build.require(name, theta.device, torch.float32, theta=theta, state=st)
+    _build.require(name, theta.device, theta.dtype, theta=theta)
+    _build.require(name, theta.device, torch.float32, state=st)
     if st.shape != (5, c):
         raise ValueError(f"{name}: state rows {tuple(st.shape)} != (5, {c})")
     return st, torch.empty_like(theta), torch.empty_like(st)
@@ -110,6 +140,8 @@ def pilot_pll_chunked(cfg, state: PilotPLLState, theta: torch.Tensor):
     """theta [C, N] float32 (cycles) -> (state', dt [C, N]) by the chunked
     PLL; requires :func:`chunk_gate`.  CPU tensors run
     :func:`pll_chunked_plain`; CUDA tensors launch the kernel."""
+    if theta.dtype != torch.float32:
+        raise ValueError(f"pll_chunked takes float32 theta, got {theta.dtype}")
     if not chunk_gate(cfg, theta.shape[-1]):
         raise ValueError(f"pll_chunked: {theta.shape[-1]} steps fail the "
                          "chunk gate")
@@ -129,23 +161,44 @@ def pilot_pll_chunked(cfg, state: PilotPLLState, theta: torch.Tensor):
     return PilotPLLState(*st_out.unbind(0)), dt
 
 
-def pilot_pll_theta(cfg, state: PilotPLLState, theta: torch.Tensor):
-    """theta [C, N] float32 (cycles) -> (state', dt [C, N]), as
-    ``pilot_pll_pallas_theta``: the chunked PLL where :func:`chunk_gate`
-    holds, else the sequential loop.  CPU tensors run the plain versions;
-    CUDA tensors launch the kernels."""
+def pilot_pll_theta_plain(cfg, state: PilotPLLState, theta: torch.Tensor):
+    """:func:`pilot_pll_theta`'s branches with the plain versions, on any
+    device."""
     if chunk_gate(cfg, theta.shape[-1]):
-        return pilot_pll_chunked(cfg, state, theta)
-    if _build.on_cpu("pll", theta.device):
-        return pll_plain(cfg, state, theta)
-    global launches
+        return pll_chunked_plain(cfg, state, dq_if_i16(theta, PH_SCALE))
+    if not channel_major(theta.shape[0]):
+        theta = dq_if_i16(theta, PH_SCALE)
+    return pll_plain(cfg, state, theta)
+
+
+def pilot_pll_theta(cfg, state: PilotPLLState, theta: torch.Tensor):
+    """theta [C, N] float32 or int16 (cycles; PH_SCALE) -> (state', dt
+    [C, N]), as ``pilot_pll_pallas_theta``: the chunked PLL where
+    :func:`chunk_gate` holds, else the sequential loop (module docstring:
+    dt is int16 exactly where theta is int16 and :func:`channel_major`
+    holds).  CPU tensors run the plain versions; CUDA tensors launch the
+    kernels."""
+    if theta.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"pll takes float32 or int16 theta, got "
+                         f"{theta.dtype}")
     c, n = theta.shape
+    if chunk_gate(cfg, n):
+        return pilot_pll_chunked(cfg, state, dq_if_i16(theta, PH_SCALE))
+    if _build.on_cpu("pll", theta.device):
+        return pilot_pll_theta_plain(cfg, state, theta)
+    if not channel_major(c):
+        theta = dq_if_i16(theta, PH_SCALE)
+    global launches, launches_i16
+    io_i16 = theta.dtype == torch.int16
     st, dt, st_out = _args("pll", state, theta)
     k = pll_consts_from_cfg(cfg)
     fn = _build.function("pll", "fmt_pll", _ARGTYPES)
     err = fn(theta.data_ptr(), dt.data_ptr(), st.data_ptr(),
-             st_out.data_ptr(), c, n, *k.values(),
+             st_out.data_ptr(), c, n, *k.values(), int(io_i16),
              _build.stream_ptr(theta.device))
     _build.check("pll", err)
-    launches += 1
+    if io_i16:
+        launches_i16 += 1
+    else:
+        launches += 1
     return PilotPLLState(*st_out.unbind(0)), dt

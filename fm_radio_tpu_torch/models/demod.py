@@ -14,7 +14,8 @@ every ingest form:
       -> int8 planes with frontend_int8 and k12_fusion != "off":
          K12 (kernels/k12.py)     ds x4, discriminator, ds x2, de-emphasis,
                                   Hilbert, pilot peak IIR -> (re, im), theta
-      -> every other form (the default DemodConfig()):
+      -> every other form (the default DemodConfig()), and int8 planes
+         under interstage_i16:
          K1 (kernels/frontend.py) ds x4, discriminator -> fm_demod
          K2 (kernels/midend.py)   ds x2, de-emphasis, Hilbert, peak IIR
       -> pilot PLL (kernels/pll.py), chunked where pll_time_chunks > 1
@@ -26,6 +27,11 @@ every ingest form:
          planes, then BPSK without a gain
       -> BPSK sync (kernels/bpsk.py)
       -> stereo mix                                      -> audio [C, B/32, 2]
+
+With ``interstage_i16`` the split path's intermediates cross device
+memory in the int16 format of ``kernels/qformat.py`` wherever the JAX
+package's kernel gates hold (:func:`_split`); the megakernel ignores the
+flag, as the JAX gate does.
 
 Every function is pure in (cfg, coeffs, state, x); the state dict has the
 JAX package's keys, leaf shapes and dtypes.  Each kernel wrapper dispatches
@@ -45,15 +51,25 @@ import torch
 from fm_radio_tpu_torch.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
 from fm_radio_tpu_torch.kernels.chain import chain, pick_tiles_chain
-from fm_radio_tpu_torch.kernels.extract import extract
-from fm_radio_tpu_torch.kernels.frontend import frontend, frontend_i8
+from fm_radio_tpu_torch.kernels.extract import extract, pick_tiles_ext
+from fm_radio_tpu_torch.kernels.frontend import (
+    frontend,
+    frontend_i8,
+    pick_tiles,
+)
 from fm_radio_tpu_torch.kernels.k12 import (
     interleave_ps,
     k12,
     k12_ps,
     quantize_ds4_taps,
 )
-from fm_radio_tpu_torch.kernels.midend import midend
+from fm_radio_tpu_torch.kernels.midend import midend, pick_tiles_mid
+from fm_radio_tpu_torch.kernels.qformat import (
+    FM_SCALE,
+    PH_SCALE,
+    dq_i16,
+    dq_if_i16,
+)
 from fm_radio_tpu_torch.kernels.pll import (
     chunk_gate,
     pilot_pll_chunked,
@@ -80,6 +96,8 @@ from fm_radio_tpu_torch.ops.iir import iir_init_state
 # stations): int8 planes take the fused K12
 INT8_CONFIG = DemodConfig(frontend_int8=True)
 BLOCK_MULTIPLE = 8192
+# the samples before its output that a kernel's tile holds (its halo)
+MAX_HALO = 128
 
 
 class DemodCoeffs(NamedTuple):
@@ -197,21 +215,38 @@ def ingest_form(x) -> str:
                       "modules still to port, item 1 (other ingest forms)")
 
 
-def check_slice(cfg: DemodConfig, x, include_taps: bool = False) -> str:
+def filter_halos(coeffs: DemodCoeffs) -> dict:
+    """Each filter's halo, the input samples before an output that its
+    window reaches (the JAX gates' terms, demod.py:315-320, :348-350, :381,
+    :431-432, :455-458, :524-528), by the taps' name."""
+    return {"taps_fm_in": coeffs.taps_fm_in.shape[0] - 4,
+            "taps_fm_out": coeffs.taps_fm_out.shape[0] - 2,
+            "taps_hilbert": coeffs.taps_hilbert.shape[0] - 1,
+            "taps_audio_lpr": coeffs.taps_audio_lpr.shape[0] - 4,
+            "taps_audio_lmr": coeffs.taps_audio_lmr.shape[0] - 4,
+            "taps_rds": coeffs.taps_rds.shape[0] - 8}
+
+
+def check_slice(cfg: DemodConfig, coeffs: DemodCoeffs, x,
+                include_taps: bool = False) -> str:
     """Raise NotImplementedError for any ingest form or option outside the
-    ported slice, naming the ROADMAP.md item that will add it.  Returns the
-    ingest form (:func:`ingest_form`).  ``frontend_band_no`` is the TPU
-    kernel's tiling knob, output-identical, and is accepted."""
+    ported slice, naming the ROADMAP.md item that will add it, before any
+    launch and on every device: include_taps, a rate cascade other than
+    4/2/4/8, and a filter whose window reaches past the kernels' 128-sample
+    halo (:func:`filter_halos`; the JAX package runs those stages as XLA
+    ops).  Returns the ingest form (:func:`ingest_form`).
+    ``frontend_band_no`` is the TPU kernel's tiling knob, output-identical,
+    and is accepted."""
     form = ingest_form(x)
-    checks = [
-        (include_taps, "include_taps",
-         "modules still to port, item 2 (include_taps and the scan loops)"),
-        (cfg.interstage_i16, "interstage_i16",
-         "modules still to port, item 1 (the int16 inter-stage format)"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise _not_ported(what, item)
+    if include_taps:
+        raise _not_ported("include_taps", "modules still to port, item 2 "
+                          "(include_taps and the scan loops)")
+    long = {k: h for k, h in filter_halos(coeffs).items() if h > MAX_HALO}
+    if long:
+        raise _not_ported(
+            f"a filter reaching past the kernels' {MAX_HALO}-sample halo "
+            f"({', '.join(f'{k}: {h}' for k, h in long.items())})",
+            "modules still to port, item 1 (filter orders past the halo)")
     r = cfg.rates
     if (r.ds_fm_in, r.ds_fm_out, r.ds_audio, r.ds_rds) != (4, 2, 4, 8):
         raise _not_ported("a rate cascade other than 4/2/4/8",
@@ -232,10 +267,8 @@ def fuse_chain(cfg: DemodConfig, coeffs: DemodCoeffs, form: str, c: int,
     L+R filters of one order, an ingest form other than int8 planes, and
     the JAX kernel's shape contract (:func:`pick_tiles_chain`, planes'
     channel tiles for complex64)."""
-    taps = (coeffs.taps_fm_in.shape[0] - 4, coeffs.taps_fm_out.shape[0] - 2,
-            coeffs.taps_hilbert.shape[0] - 1,
-            coeffs.taps_audio_lpr.shape[0] - 4, coeffs.taps_rds.shape[0] - 8)
-    return (cfg.chain_fusion != "split" and max(taps) <= 128
+    return (cfg.chain_fusion != "split"
+            and max(filter_halos(coeffs).values()) <= MAX_HALO
             and coeffs.taps_audio_lmr.shape == coeffs.taps_audio_lpr.shape
             and form in ("complex", "planes", "words")
             and pick_tiles_chain(c, b, form == "words") is not None)
@@ -257,9 +290,10 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
     under the kernel's name ("chain"; or "k12" or "k12_ps", or "frontend"
     or "frontend_i8" and "midend", then "pll" or "pll_chunked" and
     "extract"; then "bpsk"), so that a caller can run the wrapper or its
-    plain version again on this block's own inputs.
+    plain version again on this block's own inputs (under
+    ``interstage_i16`` they carry the int16 tensors and flags).
     """
-    form = check_slice(cfg, x, include_taps)
+    form = check_slice(cfg, coeffs, x, include_taps)
     st = dict(state)
     c = x.shape[-2]
     b = x.shape[-1] * (4 if form == "i8ps" else 1)
@@ -329,15 +363,24 @@ def demod_block(cfg: DemodConfig, coeffs: DemodCoeffs, state: dict,
 
 def _split(cfg, coeffs, st: dict, x, form: str, run):
     """K12, or K1 + K2; the pilot PLL; extract (demod.py:333-540).
-    Returns (state', lpr, lmr planes, RDS planes, RDS power)."""
+    Returns (state', lpr, lmr planes, RDS planes, RDS power).
+
+    Under ``interstage_i16`` the JAX gates decide each hop's format: K12
+    refuses the flag (demod.py:345); K1 emits int16 where its tile gate
+    holds (:377-389); K2 dequantises where its own gate fails (:435-440)
+    and emits int16 where extract's gate is predicted to hold (:450-463);
+    the PLL and extract take what arrives (kernels/pll.py,
+    kernels/extract.py)."""
+    c, b = x.shape[-2], x.shape[-1] * (4 if form == "i8ps" else 1)
     fuse_k12 = (form in ("i8", "i8ps") and cfg.frontend_int8
-                and cfg.k12_fusion != "off")
+                and cfg.k12_fusion != "off" and not cfg.interstage_i16)
     if form == "i8ps" and not fuse_k12:
-        if x.device.type != "cpu":
+        if x.device.type != "cpu" and not cfg.interstage_i16:
             raise ValueError(
                 "phase-split planes need the fused K12 on the card "
                 "(frontend_int8=True, k12_fusion != 'off'); only the plain "
-                "version re-interleaves them")
+                "version and interstage_i16 re-interleave them")
+        # one copy, as demod.py:353-358 re-interleaves in XLA
         x, form = interleave_ps(x), "i8"
     if fuse_k12:
         k12_fn = k12_ps if form == "i8ps" else k12
@@ -348,16 +391,24 @@ def _split(cfg, coeffs, st: dict, x, form: str, run):
             x, form = torch.stack([x.real, x.imag]), "planes"
         int8_taps = cfg.frontend_int8 and (
             form in ("words", "i8") or cfg.assume_integer_input)
+        i16 = bool(cfg.interstage_i16)
+        k1_i16 = i16 and pick_tiles(c, b, cfg.frontend_band_no) is not None
         if form == "i8" and int8_taps:
-            st, fm_demod = run("frontend_i8", frontend_i8, coeffs, cfg, st, x)
+            st, fm_demod = run("frontend_i8", frontend_i8, coeffs, cfg, st, x,
+                               k1_i16)
         else:
             st, fm_demod = run("frontend", frontend, coeffs, cfg, st, x,
-                               int8_taps)
+                               int8_taps, k1_i16)
+        fuse_mid = pick_tiles_mid(c, b // 4) is not None
+        if fm_demod.dtype == torch.int16 and not fuse_mid:
+            fm_demod = dq_i16(fm_demod, FM_SCALE)
+        k2_i16 = i16 and fuse_mid and pick_tiles_ext(c, b // 8) is not None
         st, fm_out_iq_p, theta = run("midend", midend, coeffs, cfg, st,
-                                     fm_demod)
+                                     fm_demod, k2_i16)
     if chunk_gate(cfg, theta.shape[-1]):
+        # the chunked PLL takes float32 theta (pll_pallas.py:204-211)
         st["pll"], dt = run("pll_chunked", pilot_pll_chunked, cfg, st["pll"],
-                            theta)
+                            dq_if_i16(theta, PH_SCALE))
     else:
         st["pll"], dt = run("pll", pilot_pll_theta, cfg, st["pll"], theta)
 

@@ -18,7 +18,11 @@ Paths (``--paths``, all by default):
 - ``split``: K1 on complex64 and on packed words, K2; the int8-direct K1
   (``k12_fusion="off"``);
 - ``chain``: the megakernel on packed words (C = 8);
-- ``pll_chunked``: the chunked PLL (``pll_time_chunks=4``, B = 262,144).
+- ``pll_chunked``: the chunked PLL (``pll_time_chunks=4``, B = 262,144);
+- ``i16``: the int16 inter-stage format (``interstage_i16``) on int8
+  planes at C = 8 (every kernel in int16) and C = 5 (the PLL in float32,
+  extract on int16 planes with float32 dt), and on packed words;
+- ``hbm``: the device-memory probes on a 16 MiB array.
 
 ``--build-only`` builds the libraries and exits (so that nvcc does not run
 under the checker).  Prints one line per path and "sanitize: done"; a
@@ -35,7 +39,7 @@ import sys
 
 import torch
 
-PATHS = ("k12", "wideband", "split", "chain", "pll_chunked")
+PATHS = ("k12", "wideband", "split", "chain", "pll_chunked", "i16", "hbm")
 
 
 def _planes(c: int, b: int, seed: int, device) -> torch.Tensor:
@@ -121,6 +125,19 @@ def run(path: str, device, c: int = 8, b: int = 16384,
         bb = 262144
         _blocks(DemodConfig(frontend_int8=True, pll_time_chunks=4),
                 _planes(c, bb * blocks, 5, device), c, blocks, device)
+    elif path == "i16":
+        i16 = DemodConfig(frontend_int8=True, interstage_i16=True)
+        for cc in (c, 5):
+            _blocks(i16, _planes(cc, b * blocks, 6, device), cc, blocks,
+                    device)
+        _blocks(DemodConfig(assume_integer_input=True, interstage_i16=True),
+                _words(c, b * blocks, 7, device), c, blocks, device)
+    elif path == "hbm":
+        from fm_radio_tpu_torch.probes import hbm_sweep
+
+        hbm_sweep.sweep(mib=16, iters=1, copy_blocks=((8, 1024),),
+                        dma_chunks_kib=(32,), read_rows=(512,),
+                        device=device)
     else:
         raise KeyError(path)
     torch.cuda.synchronize(device)

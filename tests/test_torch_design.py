@@ -153,15 +153,44 @@ def test_port_imports_no_jax():
     assert int(r.stdout.strip()) == len(mods) >= 20
 
 
+# interstage_i16 is ported: its two cases, on int8 planes and on the split
+# path's float32 ingest, now hold the route demod_block records (on int8
+# planes K12 refuses the flag and the int8-direct K1 takes them)
+I16_ROUTES = {
+    "interstage_i16": ({"frontend_int8": True},
+                       ["frontend_i8", "midend", "pll", "extract", "bpsk"]),
+    "interstage_f32": ({}, ["frontend", "midend", "pll", "extract", "bpsk"]),
+}
+
+
 @pytest.mark.parametrize("what", [
     "phase_split", "include_taps", "interstage_i16", "interstage_f32",
-    "rds_native",
+    "long_order", "rds_native",
 ])
 def test_outside_the_slice_raises(what):
+    """Each option outside the ported slice raises NotImplementedError
+    naming its ROADMAP.md item; the interstage_i16 cases, ported, route at
+    C = 1, B = 8192 in the int16 format instead (the PLL's tile of one
+    channel is not channel-major, so dt stays float32;
+    tests/test_torch_interstage_i16.py holds the format against the JAX
+    package)."""
     c, b = 1, 8192
     cfg = CFG
     x = torch.zeros((2, c, b), dtype=torch.int8)
     kw = {}
+    match = "ROADMAP.md"
+    if what in I16_ROUTES:
+        extra, route = I16_ROUTES[what]
+        cfg = DemodConfig(interstage_i16=True, **extra)
+        if what == "interstage_f32":
+            x = torch.zeros((2, c, b))
+        calls = {}
+        tdemod.demod_block(cfg, tdemod.make_coeffs(cfg),
+                           tdemod.demod_init_state(cfg, c), x, record=calls)
+        assert list(calls) == route
+        assert calls["midend"][3].dtype == torch.int16
+        assert calls["extract"][4].dtype == torch.float32
+        return
     if what == "rds_native":
         from fm_radio_tpu_torch.rds.chain import make_rds_chain
 
@@ -173,16 +202,98 @@ def test_outside_the_slice_raises(what):
         x = torch.zeros((2, 2, c, b // 2), dtype=torch.int8)
     elif what == "include_taps":
         kw["include_taps"] = True
-    elif what == "interstage_f32":
-        # the int16 inter-stage format on the split path's f32 ingest
-        cfg = DemodConfig(interstage_i16=True)
-        x = torch.zeros((2, c, b))
     else:
-        cfg = dataclasses.replace(CFG, interstage_i16=True)
+        # an RDS filter whose window reaches 192 samples back: past the
+        # kernels' 128-sample halo, on every device, before any launch
+        cfg = dataclasses.replace(CFG, order_poly_ds_lpf_rds=200)
+        match = "taps_rds: 192.*modules still to port, item 1"
     co = tdemod.make_coeffs(cfg)
     st = tdemod.demod_init_state(cfg, c)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=match):
         tdemod.demod_block(cfg, co, st, x, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    # (DemodConfig field, an order past the halo, the longest order within)
+    ("order_poly_ds_lpf_fm_out", 132, 128),  # ds x2 halo 130 (x4: 128)
+    ("order_fir_hilbert", 131, 129),         # Hilbert halo 130
+    ("order_poly_ds_lpf_audio", 136, 132),   # L+R and L-R halo 132
+    ("order_poly_ds_lpf_rds", 140, 136),     # RDS halo 132
+], ids=["fm", "hilbert", "audio", "rds"])
+def test_long_orders_raise_before_any_launch(case):
+    """A filter whose window reaches past the kernels' 128-sample halo
+    raises NotImplementedError naming the filter and modules item 1 on the
+    card's device type too, before any kernel is reached (the wrappers
+    would refuse a meta tensor with a ValueError); the longest order
+    within the halo runs."""
+    field, over, within = case
+    cfg = dataclasses.replace(CFG, **{field: over})
+    co = tdemod.make_coeffs(cfg)
+    x = torch.zeros((2, 1, 8192), dtype=torch.int8, device="meta")
+    with pytest.raises(NotImplementedError,
+                       match="128-sample halo.*modules still to port, item 1"):
+        tdemod.demod_block(cfg, co, tdemod.demod_init_state(cfg, 1, "meta"), x)
+    cfg = dataclasses.replace(CFG, **{field: within})
+    assert max(tdemod.filter_halos(tdemod.make_coeffs(cfg)).values()) <= 128
+    tdemod.demod_block(cfg, tdemod.make_coeffs(cfg),
+                       tdemod.demod_init_state(cfg, 1),
+                       torch.zeros((2, 1, 8192), dtype=torch.int8))
+
+
+@pytest.mark.parametrize("i16", [False, True], ids=["f32", "i16"])
+def test_mismatch_dump_and_replay(monkeypatch, tmp_path, i16):
+    """A kernel that disagrees with its plain version has its recorded
+    arguments, state and both outputs saved as one .npz (chip_smoke.py's
+    dump_mismatch, here with a stub kernel that is off by one on the CPU),
+    and probes/replay.py loads the case back leaf for leaf and reruns it:
+    the saved outputs differ, the rerun (the plain version twice on the
+    CPU) does not, and the rerun differs from the saved kernel output as
+    the stub did.  Under interstage_i16 at C = 8 the case is saved under
+    the int16 variant's name (pll_i16: dt off by one LSB), which replay
+    knows as chip_smoke.py does."""
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import pll as tpll
+    from fm_radio_tpu_torch.probes import replay
+
+    assert chip_smoke.I16_BASE == replay.I16_VARIANTS
+    monkeypatch.setattr(chip_smoke, "DUMP_DIR", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "DUMPS", [])
+    cfg = dataclasses.replace(CFG, interstage_i16=i16)
+    c, b = (8 if i16 else 2), 8192
+    co = tdemod.make_coeffs(cfg)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, c, b), dtype=np.int8))
+    calls = {}
+    tdemod.demod_block(cfg, co, tdemod.demod_init_state(cfg, c), x,
+                       record=calls)
+    name = chip_smoke.variant("pll", calls["pll"])
+    assert name == ("pll_i16" if i16 else "pll")
+
+    def off_by_one(cfg, state, theta):
+        st, dt = tpll.pilot_pll_theta(cfg, state, theta)
+        return st, torch.where(dt < 32767, dt + 1, dt - 1)  # int16: no wrap
+
+    stages = dict(chip_smoke._stages())
+    stages[name] = (off_by_one, tpll.pilot_pll_theta_plain)
+    acc = {}
+    chip_smoke.compare_stage(acc, name, calls["pll"], stages)
+    one = pytest.approx(1.0, abs=1e-6)  # dt + 1 rounded in float32
+    assert acc[name]["err"] == one and len(chip_smoke.DUMPS) == 1
+    path = chip_smoke.DUMPS[0]
+    case = replay.load_case(path)
+    assert case["name"] == name and case["errors"]["err"] == one
+    for (p, u), (q, v) in zip(replay.leaves(case["args"]),
+                              replay.leaves(calls["pll"])):
+        assert p == q and u.dtype == v.dtype and torch.equal(u, v), p
+    assert case["args"][0] == cfg
+    res = replay.replay(path, "cpu")
+    assert max(res["saved_kernel_vs_plain"].values()) == one
+    assert max(res["rerun_kernel_vs_plain"].values()) == 0.0
+    assert res["rerun_vs_saved_kernel"]["/1"] == one
+    exact = dict(chip_smoke._stages())
+    chip_smoke.compare_stage(acc, chip_smoke.variant(
+        "extract", calls["extract"]), calls["extract"], exact)
+    assert len(chip_smoke.DUMPS) == 1  # no difference, nothing saved
 
 
 @pytest.mark.parametrize("case", [

@@ -26,7 +26,10 @@ def test_cuda_kernels_match_plain_on_card():
     import chip_smoke
 
     rows = chip_smoke.compare_kernels(channels=8, block=16384, blocks=2)
-    assert all(r["ok"] for r in rows), rows
+    # a kernel off its plain version has its case saved under chiprun_out/
+    # (python -m fm_radio_tpu_torch.probes.replay replays it)
+    assert all(r["ok"] for r in rows) and not chip_smoke.DUMPS, (
+        rows, chip_smoke.DUMPS)
 
 
 @pytest.mark.gpu
@@ -236,3 +239,41 @@ def test_channelizer_mat_kernels_other_shapes_on_card():
                         assert e["err"] <= 1.0, where
                         assert e["i8_share"] <= 1e-3, where
                     st = kout[0]
+
+
+@pytest.mark.gpu
+def test_i16_kernels_match_plain_on_card():
+    """The int16 format's kernels against their plain versions on the card,
+    bit for bit, on the arguments demod_block(interstage_i16=True) recorded
+    (chip_smoke.py runs the same at C = 256, B = 131,072): K1 on its six
+    forms, K2 (de-emphasis off and on), the PLL and extract on their int16
+    and dequantised combinations at C = 8, and the C = 5 route, where the
+    PLL dequantises and extract takes int16 planes with float32 dt."""
+    _need_card()
+    import chip_smoke
+
+    rows, routes, _ = chip_smoke.compare_i16(channels=8, block=16384,
+                                             blocks=2, odd_channels=5)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert {r["name"] for r in rows} >= {n for n, _, _ in
+                                         chip_smoke.I16_KERNELS}, rows
+    assert routes["i8_direct_c5"]["kernels"][2:4] == ["pll",
+                                                      "extract_i16_f32dt"]
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
+def test_hbm_probes_on_card():
+    """The device-memory probes on a 64 MiB array: every copy equals its
+    input, the read equals its plain version bit for bit, each counts its
+    launches, and the best copy rate is a rate a card can reach (between
+    100 GB/s and the data sheet's 3.35 TB/s)."""
+    _need_card()
+    from fm_radio_tpu_torch.probes import hbm_sweep as hs
+
+    hs.reset_counts()
+    res = hs.sweep(mib=64, iters=5, copy_blocks=((8, 1024), (512, 512)),
+                   dma_chunks_kib=(32,), read_rows=(512,))
+    assert all(r["ok"] for r in res["rows"]), res["rows"]
+    assert hs.launches_copy and hs.launches_dma and hs.launches_read
+    assert 100.0 < res["best_copy"]["gbps"] < 3350.0, res["best_copy"]

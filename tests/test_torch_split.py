@@ -276,6 +276,6 @@ def test_demod_block_takes_the_jax_gate(case):
                        tdemod.demod_init_state(cfg, c), x, record=calls)
     assert entry in calls
     if entry == "frontend":
-        assert calls["frontend"][-1] is int8_taps
+        assert calls["frontend"][4] is int8_taps
         want = "planes" if form == "complex" else form
         assert tfront.input_form(calls["frontend"][3]) == want
