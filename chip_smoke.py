@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: nvcc builds the nine kernel libraries of fm_radio_tpu_torch/csrc/
-   (one nvcc per source, all started together);
+2. build: nvcc builds the kernel libraries of fm_radio_tpu_torch/csrc/,
+   the default build and the bounds-checked one (``-DFMT_CHECKED``), one
+   nvcc per source and build, all started together;
 3. each kernel against its plain PyTorch version on the card, on the
    arguments ``demod_block`` gave it, at C=256 channels x B=131,072
    samples, two blocks with carried state (K12 also with de-emphasis on);
@@ -20,10 +21,24 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    phase-split bench planes (full int8 range) through ``demod_block``, and
    the phase-split K12 kernel against the flat K12 kernel on the same
    planes interleaved;
+2c. the engine probes (tools/frontend_probe.py, k2_probe.py, k3_probe.py
+   and chain_probe.py as fm_radio_tpu_torch/probes/): every variant of
+   each probe kernel against its plain version at small shapes where
+   every section's tiles apply (K1: C=1024 x B=16,384; max abs error 0:
+   the same float32 operations in the same order); then each probe's
+   sections at its default shape (K1: C=1024 x B=262,144; K2: 1024 x
+   65,536; K3: 1024 x 32,768; the chain: 256 x 1,048,576, 8 blocks, with
+   --k3iso, and --unfused at 256 x 16,384) with few iterations, every
+   variant again against its plain version, and the launch counters set
+   to 0 just before and read just after; each kernel's representative
+   variant beside its plain version and, for the per-tile sums, one
+   PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``);
 3a. K12 (and the PLL, extract, BPSK) against their plain versions at
    C=8 x B=16,384 five times on fresh seeds, the allocator's free memory
    filled with 0xFF bytes before each (compute-sanitizer refused the
-   card it was tried on: PERF.md); the channelizer's int8- and bf16-matrix kernels (splits 1 and
+   card it was tried on: PERF.md), then the five again on the
+   bounds-checked build (``_build.checked_build()``: every index of K12's
+   device code checked, a trap fails the run naming the kernel); the channelizer's int8- and bf16-matrix kernels (splits 1 and
    2) against their plain versions on the arguments
    ``wideband_demod_block`` recorded from W=4 loud captures, two blocks
    with carried state: M=32 words -> i8ps and -> f32, M=16 words -> i8;
@@ -108,8 +123,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    its first 0.5 s at splits=1 on the card and with the plain versions on
    the host CPU: identical RDS bytes, audio SNR >= 75 dB.
 
-Any failed phase raises and the script exits non-zero.  The last lines of
-standard output are the nvidia-smi line, one JSON object with the
+Any failed phase raises and the script exits non-zero.  Every line it
+logs is also written to chiprun_out/chip_smoke.log beside the script.
+The last lines of standard output are the nvidia-smi line, one JSON object with the
 per-kernel results (launches on every path, errors, kernel and plain ms,
 the bound of :func:`bound`; ``library_ms`` is the product alone as one
 PyTorch call for the two matrix channelizers, :func:`mat_library_ms`, and
@@ -125,6 +141,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -192,6 +209,45 @@ I16_KERNELS = (
 I16_BASE = {"frontend_i16": "frontend", "frontend_i8_i16": "frontend_i8",
             "midend_i16": "midend", "pll_i16": "pll",
             "extract_i16": "extract", "extract_i16_f32dt": "extract"}
+# the engine probes (tools/*_probe.py as probes/*_probe.py): name, CUDA
+# source, the TPU kernel function it replaces (its pallas_call in PERF.md)
+ENGINE_KERNELS = (
+    ("fp_sum", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
+     "tools/frontend_probe.py:52"),
+    ("fp_fir", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
+     "tools/frontend_probe.py:52"),
+    ("fp_dbuf", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
+     "tools/frontend_probe.py:250"),
+    ("fp_i8d", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
+     "tools/frontend_probe.py:340"),
+    ("fp_i8man", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
+     "tools/frontend_probe.py:442"),
+    ("k2_engine", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+     "tools/k2_probe.py:69"),
+    ("k2_full", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+     "tools/k2_probe.py:69"),
+    ("k2_restruct", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+     "tools/k2_probe.py:69"),
+    ("k3_stream31", "fm_radio_tpu_torch/csrc/k3_probe.cu",
+     "tools/k3_probe.py:61"),
+    # k3_probe's stream kernel is also chain_probe's stream3
+    ("k3_sum", "fm_radio_tpu_torch/csrc/k3_probe.cu",
+     "tools/k3_probe.py:92, tools/chain_probe.py:44"),
+    ("k3_value", "fm_radio_tpu_torch/csrc/k3_probe.cu",
+     "tools/k3_probe.py:92"),
+    ("k3_full", "fm_radio_tpu_torch/csrc/extract.cu",
+     "tools/k3_probe.py:92"),
+)
+# the K1 probe's sections (all of them) and the engine probes' shapes:
+# small ones where every section's tiles apply (C a multiple of the K1
+# probe's largest c_blk, 1024), and the TPU tools' defaults, both compared
+# with the plain versions; the defaults also timed
+FP_SECTIONS = {"ingest", "tm", "engines", "split", "tiles", "dbuf", "i8d",
+               "i8x", "man", "sem"}
+PROBE_SMALL = {"fp": (1024, 16384), "k2": (64, 8192), "k3": (128, 8192)}
+PROBE_FULL = {"fp": (1024, 262144), "k2": (1024, 65536), "k3": (1024, 32768),
+              "chain": (256, 1 << 20, 8), "unfused": (256, 16384, 1)}
+PROBE_ITERS = 5
 # the device-memory probes (tools/hbm_sweep.py as probes/hbm_sweep.py)
 PROBE_KERNELS = (
     ("hbm_copy", "fm_radio_tpu_torch/csrc/hbm_sweep.cu",
@@ -266,8 +322,16 @@ def loud_amp(m: int) -> float:
     return BENCH_AMP * m
 
 
+# main() keeps every logged line also in this file (under DUMP_DIR), so the
+# whole log survives where only the end of standard output is kept
+LOG_FILE = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -1178,6 +1242,201 @@ def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
         "bytes": nbytes + 4 * 128, "f32_ops": float(x.numel())}
     res["kernels"] = kernels
     return res
+
+
+# each kernel's representative row at the default shape (the one timed
+# beside its plain version and bound on the kernels line)
+PROBE_REP = {"fp_sum": "stream:no=128:f32", "fp_fir": "full:no=128:f32",
+             "fp_dbuf": "full:double-buf:tile=8x2048",
+             "fp_i8d": "full:i8direct", "fp_i8man": "full:i8man:tile=8x4096",
+             "k2_engine": "hilb", "k2_full": "full",
+             "k2_restruct": "restruct:128", "k3_stream31": "stream31:t=1024",
+             "k3_sum": "stream:t=1024", "k3_value": "value:run=16 (no tile)",
+             "k3_full": "full:t=1024"}
+
+
+def probe_inputs(device) -> dict:
+    """The engine probes' inputs at their default shapes (numpy seeds, as
+    the probes make them)."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    return {"fp": fp.make_inputs(*PROBE_FULL["fp"], device),
+            "k2": k2.make_input(*PROBE_FULL["k2"], device),
+            "k3": k3.make_inputs(*PROBE_FULL["k3"], device)}
+
+
+def _probe_work(name: str, inputs: dict, device) -> dict:
+    """For one engine-probe kernel at its default shape: its work (bytes
+    each input read once and each output written once, float32 and int8
+    operations per output from the filters' orders), serial steps, and
+    callables for its plain version and, for the per-tile sums, the one
+    PyTorch call of the same work."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    w = {"serial_steps": None, "library": None, "i8_ops": 0.0}
+    if name.startswith("fp"):
+        c, b = PROBE_FULL["fp"]
+        x = inputs["fp"]
+        t_blk = fp.default_tiles(c, b)[1]
+        n4 = float(c) * b / 4
+        if name == "fp_sum":
+            xw = x["f32w"]
+            w.update(bytes=4.0 * c * b + 4 * c * (b // t_blk + 128),
+                     f32_ops=float(c) * b,
+                     plain=lambda: fp.sum_plain(xw, "f32w", False, t_blk),
+                     library=lambda: xw.view(c, -1, t_blk).sum(-1))
+        elif name in ("fp_fir", "fp_dbuf"):
+            xw = x["f32w"]
+            w.update(bytes=4.0 * c * b + 4 * n4,
+                     f32_ops=n4 * (4 * fp.NN + ATAN2_FLOPS + 5)
+                     + 5.0 * c * b,
+                     plain=(lambda: fp.fir_plain(xw, "f32w", False, True,
+                                                 t_blk))
+                     if name == "fp_fir"
+                     else lambda: fp.dbuf_plain(xw, True, 2048))
+        else:
+            x8 = x["u8"]
+            plain = ((lambda: fp.i8d_plain(x8, True, t_blk))
+                     if name == "fp_i8d"
+                     else lambda: fp.i8man_plain(x8, True, 4096))
+            w.update(bytes=2.0 * c * b + 4 * n4,
+                     f32_ops=n4 * (4 + ATAN2_FLOPS + 5),
+                     i8_ops=n4 * 2 * 2 * 2 * fp.NN, plain=plain)
+        return w
+    if name.startswith("k2"):
+        c, b4 = PROBE_FULL["k2"]
+        x = inputs["k2"]
+        co = k2.coeffs(device)
+        l = b4 // 2
+        nn2, nh = co.taps_fm_out.shape[0], co.taps_hilbert.shape[0]
+        out = 3 * 4.0 * c * l
+        mode = PROBE_REP[name]
+        per = 2 * nn2 + 2 * nh
+        if name == "k2_full":
+            per += 5 + 2 * 9 + ATAN2_FLOPS + 1 + 3
+            w["serial_steps"] = l
+        elif name == "k2_restruct":
+            # the function's work is full's (the recurrences need 5 and 2 x
+            # 9 operations per output); the blocked design's own in-block
+            # sums (li/2 multiply-adds per output on average, 3 chains) are
+            # kept apart, outside the bound
+            li = int(mode.split(":")[1])
+            w["design_f32_ops"] = float(c) * l * (per + 3 * li + 2 * 9
+                                                  + ATAN2_FLOPS + 1 + 3)
+            per += 5 + 2 * 9 + ATAN2_FLOPS + 1 + 3
+            w["serial_steps"] = l // li
+        w.update(bytes=4.0 * c * b4 + out + (4 * c if name != "k2_engine"
+                                              else 0),
+                 f32_ops=float(c) * l * per,
+                 plain=lambda: k2.variant_plain(mode, x, 1024, co))
+        return w
+    c, b8 = PROBE_FULL["k3"]
+    xs = inputs["k3"]
+    inb = 3 * 4.0 * c * b8
+    if name in ("k3_sum", "k3_stream31"):
+        mode = "stream" if name == "k3_sum" else "stream31"
+        cb = min(c, k3.C_BLK)
+        planes = (k3.stack31(xs, cb),) if name == "k3_stream31" else xs
+        w.update(bytes=inb + 4 * planes[0].shape[0] * (b8 // 1024)
+                 + 4 * c * 128, f32_ops=3.0 * c * b8,
+                 plain=lambda: k3.sum_plain(mode, planes, 1024, cb))
+        if name == "k3_stream31":
+            x3 = planes[0]
+            w["library"] = lambda: x3.view(3 * c, -1, 1024).sum(-1)
+        return w
+    co = k3.coeffs(device)
+    w.update(bytes=inb + 4.0 * c * (3 * (b8 // 4) + 2 * (b8 // 8)),
+             f32_ops=_ext_flops(co, c, b8),
+             plain=lambda: k3.extract_plain(xs, co))
+    return w
+
+
+def probe_phase(device) -> dict:
+    """The engine probes (phase 2c): every variant against its plain
+    version at the small shapes, then the sections at the default shapes
+    with counted launches, each again against its plain version, then each
+    kernel's representative row beside its plain version (1 call), the one
+    PyTorch call where there is one, and its bound.  Returns {"small":
+    rows, "rows": {probe: rows}, "launches", "kernels": {name: numbers}};
+    raises if a kernel disagrees with its plain version or a variant of the
+    default shapes was not compared at the small ones."""
+    from fm_radio_tpu_torch.probes import _probe
+    from fm_radio_tpu_torch.probes import chain_probe as cp
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    quiet = lambda r: None
+    small = {"fp": fp.run(*PROBE_SMALL["fp"], FP_SECTIONS, 1, device,
+                          emit=quiet),
+             "k2": k2.run(*PROBE_SMALL["k2"], 1, device, emit=quiet),
+             "k3": k3.run(*PROBE_SMALL["k3"], 1, device, emit=quiet)}
+    planes = k3.make_inputs(128, 8192, device, seed=1)
+    small["k3"].append(_probe.row(
+        "chain_probe stream3", "k3_sum", None, 3 * planes[0].numel() * 4,
+        _probe.max_err(cp.stream3(planes[:2], planes[2]),
+                       k3.sum_plain("stream", planes, 1024, 128)[0])))
+    for m in (fp, k2, k3):
+        m.reset_counts()
+    reset_counts()
+    rows = {"fp": fp.run(*PROBE_FULL["fp"], FP_SECTIONS, PROBE_ITERS, device,
+                         emit=quiet),
+            "k2": k2.run(*PROBE_FULL["k2"], PROBE_ITERS, device, emit=quiet),
+            "k3": k3.run(*PROBE_FULL["k3"], PROBE_ITERS, device, emit=quiet)}
+    # k3's full is the production extract kernel, counted by its wrapper
+    full_launches = read_counts()["extract"]
+    rows["chain"] = cp.run(*PROBE_FULL["chain"], "i8", False, True, False, 2,
+                           device, emit=quiet)
+    rows["chain_unfused"] = cp.run(*PROBE_FULL["unfused"], "planes", True,
+                                   False, False, 2, device, emit=quiet)
+    launches = {**fp.counts(), **k2.counts(), **k3.counts(),
+                "k3_full": full_launches}
+    names = {n for n, _, _ in ENGINE_KERNELS}
+    errs = {}
+    for p in ("fp", "k2", "k3"):
+        untested = ({r["variant"] for r in rows[p]}
+                    - {r["variant"] for r in small[p]})
+        if untested:
+            raise RuntimeError(f"{p} probe variants not compared at the "
+                               f"small shape: {sorted(untested)}")
+        for r in small[p] + rows[p]:
+            errs.setdefault(r["kernel"], []).append(r["max_abs_err"])
+    # a row with no comparison (None) fails as a disagreement does
+    err = {n: None if None in v else max(v) for n, v in errs.items()}
+    bad = {n: e for n, e in err.items() if e != 0.0}
+    if bad or set(err) != names:
+        raise RuntimeError(f"engine probes disagree with their plain "
+                           f"versions: {bad}; compared {sorted(err)}")
+    kernels = {}
+    by_tag = {(p, r["variant"]): r for p in ("fp", "k2", "k3")
+              for r in rows[p]}
+    inputs = probe_inputs(device)
+    for name, _, _ in ENGINE_KERNELS:
+        w = _probe_work(name, inputs, device)
+        variant = PROBE_REP[name]
+        rep = by_tag[(name.split("_")[0], variant)]
+        if rep["kernel"] != name:
+            raise RuntimeError(f"{name}: representative row {variant} ran "
+                               f"{rep['kernel']}")
+        _, plain_ms = _cuda_ms(w["plain"], 1)
+        lib_ms = None
+        if w["library"] is not None:
+            w["library"]()
+            _, lib_ms = _cuda_ms(w["library"], 5)
+        b = bound_of(w["bytes"], w["f32_ops"], w["i8_ops"])
+        kernels[name] = {"variant": variant, "ms": rep["ms"],
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "max_abs_err": err[name],
+                         "serial_steps": w["serial_steps"], **b}
+        if "design_f32_ops" in w:
+            kernels[name]["design_f32_ops"] = w["design_f32_ops"]
+    return {"small": [dict(r, probe=p) for p, rs in small.items()
+                      for r in rs],
+            "rows": rows, "launches": launches, "kernels": kernels}
 
 
 def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
@@ -2285,6 +2544,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    global LOG_FILE
+    os.makedirs(DUMP_DIR, exist_ok=True)
+    LOG_FILE = os.path.join(DUMP_DIR, "chip_smoke.log")
+    open(LOG_FILE, "w").close()
+
     # 1. device
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -2292,10 +2556,15 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {name}")
 
-    # 2. build (one nvcc per source, all started together)
+    # 2. build (one nvcc per source and build, all started together)
     t0 = time.perf_counter()
+    checked = threading.Thread(target=_build.build, kwargs={"checked": True})
+    checked.start()
     _build.build()
-    log(f"[build] nvcc {_build.build_dir().name}: "
+    checked.join()
+    _build.build(checked=True)  # raises here if the checked build failed
+    log(f"[build] nvcc {_build.build_dir().name}, checked "
+        f"{_build.build_dir(checked=True).name}: "
         f"{time.perf_counter() - t0:.1f} s")
 
     # 2b. the device-memory sweep: its best copy rate becomes the byte
@@ -2317,6 +2586,24 @@ def main() -> int:
         f"({100 * HBM_BYTES_S / DATASHEET_HBM_BYTES_S:.1f}% of the "
         f"{DATASHEET_HBM_BYTES_S / 1e12:.2f} TB/s data sheet): the byte rate "
         f"of every bound below; {time.perf_counter() - t0:.1f} s")
+
+    # 2c. the engine probes: each kernel against its plain version, then
+    # the probes' sections at their default shapes, compared and counted
+    t0 = time.perf_counter()
+    eng = probe_phase(dev)
+    for r in eng["small"]:
+        log(f"[probe] small {json.dumps(r)}")
+    for probe, prow in eng["rows"].items():
+        for r in prow:
+            log(f"[probe] {probe} {json.dumps(r)}")
+    for n, k in eng["kernels"].items():
+        log(f"[probe] kernel {n} {json.dumps(k)}")
+    log(f"[probe] launches {json.dumps(eng['launches'])}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    idle = [n for n, _, _ in ENGINE_KERNELS if not eng["launches"].get(n)]
+    if idle:
+        raise RuntimeError(f"engine probe kernels not launched by their "
+                           f"sections: {idle}")
 
     # 3. kernel against plain on the card
     t0 = time.perf_counter()
@@ -2356,6 +2643,21 @@ def main() -> int:
            if not k["ok"]]
     if bad:
         raise RuntimeError(f"small-shape repeats disagree: {bad}")
+    # the same repeats on the bounds-checked build: an index out of bounds
+    # traps (the device prints the function and line), its C entry
+    # reports it and the wrapper raises naming the kernel
+    try:
+        with _build.checked_build():
+            creps = k12_repeats(5, 8, 16384, dev)
+    except RuntimeError as e:
+        raise RuntimeError(f"K12 repeats on the bounds-checked build: {e}")
+    for r in creps:
+        log(f"[compare] k12 repeat, checked build: {json.dumps(r)}")
+    bad = [(r["seed"], k["name"]) for r in creps for k in r["kernels"]
+           if not k["ok"]]
+    if bad:
+        raise RuntimeError(f"checked-build repeats disagree: {bad}")
+    reps += creps
     mrows = compare_channelizer_mat(131072, 2, 4, dev)
     for r in mrows:
         log(f"[compare] {json.dumps(r)}")
@@ -2717,6 +3019,21 @@ def main() -> int:
             "bound_by": b["bound_by"], "library_ms": pk["library_ms"],
             "variant": pk["variant"], "hbm_bytes_s": HBM_BYTES_S,
             "work": {"bytes": pk["bytes"], "f32_ops": pk["f32_ops"]}})
+    # the engine probes: each at its representative row of its sections
+    for n, src, rep in ENGINE_KERNELS:
+        pk = eng["kernels"][n]
+        kernels.append({
+            "name": n, "route": "cuda", "source": src, "replaces": rep,
+            "launches": eng["launches"][n],
+            "launches_by_path": {"probes": eng["launches"][n]},
+            "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+            "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+            "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
+            "variant": pk["variant"], "hbm_bytes_s": HBM_BYTES_S,
+            "work": {key: pk[key] for key in ("bytes", "f32_ops", "i8_ops",
+                                              "design_f32_ops") if key in pk},
+            **({"serial_steps": pk["serial_steps"]}
+               if pk["serial_steps"] is not None else {})})
     if DUMPS:
         raise RuntimeError(f"mismatches saved (passed their tolerances): "
                            f"{DUMPS}")

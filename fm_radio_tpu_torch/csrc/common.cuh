@@ -15,11 +15,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// FMT_AT(p, i, n): element i of p as an lvalue, for an array of n
+// elements.  The default build indexes plainly, p[i], so its code is the
+// same as without the macro; a build with -DFMT_CHECKED
+// (kernels/_build.py::build(checked=True)) checks 0 <= i < n first and,
+// where that fails, prints the function, file, line, index, bound, block
+// and thread, and traps.  K12's device code (k12.cu, k12_stages.cuh and
+// fir_decimate_kernel below) reads and writes through it, so the split
+// K1/K2 and the megakernel that share that code are checked too.  In the
+// checked build every C entry also synchronises after each launch
+// (FMT_CHECK_LAUNCH), so a trap is reported by the entry whose kernel
+// raised it.
+#ifdef FMT_CHECKED
+#include <cstdio>
+
+namespace fmt {
+template <class T>
+__device__ __forceinline__ T& checked_at(T* p, int64_t i, int64_t n,
+                                         const char* fn, const char* file,
+                                         int line) {
+  if (i < 0 || i >= n) {
+    printf("FMT_CHECKED: %s (%s:%d): index %lld outside [0, %lld), block "
+           "(%d, %d), thread %d\n",
+           fn, file, line, (long long)i, (long long)n, (int)blockIdx.x,
+           (int)blockIdx.y, (int)threadIdx.x);
+    __trap();
+  }
+  return p[i];
+}
+}  // namespace fmt
+
+#define FMT_AT(p, i, n)                                                   \
+  (::fmt::checked_at((p), (int64_t)(i), (int64_t)(n), __func__, __FILE__, \
+                     __LINE__))
+#define FMT_CHECK_LAUNCH()                                    \
+  do {                                                        \
+    cudaError_t e_ = cudaGetLastError();                      \
+    if (e_ == cudaSuccess) e_ = cudaDeviceSynchronize();      \
+    if (e_ != cudaSuccess) return (int)e_;                    \
+  } while (0)
+#else
+#define FMT_AT(p, i, n) ((p)[(i)])
 #define FMT_CHECK_LAUNCH()                 \
   do {                                     \
     cudaError_t e_ = cudaGetLastError();   \
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
+#endif
 
 namespace fmt {
 
@@ -169,11 +211,12 @@ __device__ __forceinline__ void fir_dot2(const float* a, const float* b,
 }
 
 // One decimated-correlation output: sum_k w_rev[k] * v[base + k] over
-// v = [tail (halo samples) | x] (index n < 0 reads tail[halo + n]), summed
-// from the oldest sample as ops/fir.py::decimate_core does.  x is float32,
-// or int16 at `scale`, dequantised on load; the tail is float32.
+// v = [tail (halo samples) | x (n_x samples)] (index n < 0 reads
+// tail[halo + n]), summed from the oldest sample as ops/fir.py::
+// decimate_core does.  x is float32, or int16 at `scale`, dequantised on
+// load; the tail is float32.
 template <class T>
-__device__ __forceinline__ float fir_point(const T* __restrict__ x,
+__device__ __forceinline__ float fir_point(const T* __restrict__ x, int n_x,
                                            const float* __restrict__ tail,
                                            int halo,
                                            const float* __restrict__ w_rev,
@@ -182,8 +225,9 @@ __device__ __forceinline__ float fir_point(const T* __restrict__ x,
   float acc = 0.0f;
   for (int k = 0; k < nn; ++k) {
     const int n = base + k;
-    const float v = n < 0 ? tail[halo + n] : load_f32(x, n, scale);
-    acc += __ldg(w_rev + k) * v;
+    const float v = n < 0 ? FMT_AT(tail, halo + n, halo)
+                          : load_f32(&FMT_AT(x, n, n_x), 0, scale);
+    acc += __ldg(&FMT_AT(w_rev, k, nn)) * v;
   }
   return acc;
 }
@@ -198,12 +242,14 @@ __global__ void fir_decimate_kernel(const T* __restrict__ x, int n_in,
                                     int m, float* __restrict__ y, int n_out,
                                     int channels, float scale) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n_out) return;
+  const int64_t total = (int64_t)channels * n_out;
+  if (idx >= total) return;
   const int c = (int)(idx / n_out);
   const int i = (int)(idx % n_out);
   const int halo = nn - m;
-  y[idx] = fir_point(x + (int64_t)c * n_in, tail + (int64_t)c * halo, halo,
-                     w_rev, nn, m * i - halo, scale);
+  FMT_AT(y, idx, total) =
+      fir_point(x + (int64_t)c * n_in, n_in, tail + (int64_t)c * halo, halo,
+                w_rev, nn, m * i - halo, scale);
 }
 
 template <class T>

@@ -46,11 +46,6 @@
 
 namespace fmt {
 
-// The input shifted by -1 into int8 (C conversion truncates, as astype).
-__device__ __forceinline__ unsigned int i8_byte(float v, int u) {
-  return ((unsigned int)(int)(v - 1.0f) & 0xffu) << (8 * u);
-}
-
 // ds x4 + atan2 on one ingest form: theta1[c, j] = angle(fm_in[c, j]).
 // tail [2, C, halo] float32 (re rows, then im rows), halo = nn - 4.
 template <class Load, bool kI8Taps>
@@ -70,41 +65,18 @@ __global__ void ds4_theta_kernel(Load in, const float* __restrict__ tail,
   const float* tr = tail + (int64_t)c * halo;
   const float* ti = tail + ((int64_t)channels + c) * halo;
   const int base = 4 * j - halo;
+  auto src = [&](int n, float& vr, float& vi) {
+    if (n < 0) {
+      vr = tr[halo + n];
+      vi = ti[halo + n];
+    } else {
+      in.load(row, n, vr, vi);
+    }
+  };
   float fr, fi;
   if constexpr (kI8Taps) {
-    int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
-    for (int w = 0; w < nn / 4; ++w) {
-      unsigned int pr = 0u, pi = 0u;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int n = base + 4 * w + u;
-        float vr, vi;
-        if (n < 0) {
-          vr = tr[halo + n];
-          vi = ti[halo + n];
-        } else {
-          in.load(row, n, vr, vi);
-        }
-        pr |= i8_byte(vr, u);
-        pi |= i8_byte(vi, u);
-      }
-      const int w1 = __ldg(b1w + w), w2 = __ldg(b2w + w);
-      y1r = __dp4a((int)pr, w1, y1r);
-      y2r = __dp4a((int)pr, w2, y2r);
-      y1i = __dp4a((int)pi, w1, y1i);
-      y2i = __dp4a((int)pi, w2, y2i);
-    }
-    fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
-    fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
+    ds4_i8(src, b1w, b2w, nn, s_row, base, fr, fi);
   } else {
-    auto src = [&](int n, float& vr, float& vi) {
-      if (n < 0) {
-        vr = tr[halo + n];
-        vi = ti[halo + n];
-      } else {
-        in.load(row, n, vr, vi);
-      }
-    };
     ds4_float(src, w_rev, nn, base, fr, fi);
   }
   theta1[idx] = atan2_poly(fi, fr);

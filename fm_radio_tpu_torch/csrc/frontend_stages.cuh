@@ -5,11 +5,14 @@
 //                                     the centred (u8 - 127) float pair
 //   ds4_float                         the float32 ds x4 window sum, summed
 //                                     from the oldest sample up
+//   ds4_i8                            the int8-tap ds x4 window sum on
+//                                     those float samples (__dp4a)
 //
 // K1 reads its windows from device memory and the megakernel from a tile
 // in shared memory; both sum them through ds4_float, so the chain's K1
 // equals the split K1 bit for bit (the discriminator is k12_stages.cuh's
-// disc_value).
+// disc_value).  The K1 probe (frontend_probe.cu) sums through the same two
+// functions.
 #pragma once
 
 #include "common.cuh"
@@ -67,6 +70,41 @@ __device__ __forceinline__ void ds4_float(const Src& src,
   }
   fr = ar;
   fi = ai;
+}
+
+// The input shifted by -1 into int8 (C conversion truncates, as astype).
+__device__ __forceinline__ unsigned int i8_byte(float v, int u) {
+  return ((unsigned int)(int)(v - 1.0f) & 0xffu) << (8 * u);
+}
+
+// (fr, fi) with the int8 taps: src(n, vr, vi)'s samples shifted into int8
+// (i8_byte), four to a word, accumulated exactly in int32 with __dp4a
+// against the reversed taps b1w, b2w (nn/4 words each), combined as
+// y1 + y2 / 128 + s_row.
+template <class Src>
+__device__ __forceinline__ void ds4_i8(const Src& src,
+                                       const int* __restrict__ b1w,
+                                       const int* __restrict__ b2w, int nn,
+                                       float s_row, int base, float& fr,
+                                       float& fi) {
+  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
+  for (int w = 0; w < nn / 4; ++w) {
+    unsigned int pr = 0u, pi = 0u;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float vr, vi;
+      src(base + 4 * w + u, vr, vi);
+      pr |= i8_byte(vr, u);
+      pi |= i8_byte(vi, u);
+    }
+    const int w1 = __ldg(b1w + w), w2 = __ldg(b2w + w);
+    y1r = __dp4a((int)pr, w1, y1r);
+    y2r = __dp4a((int)pr, w2, y2r);
+    y1i = __dp4a((int)pi, w1, y1i);
+    y2i = __dp4a((int)pi, w2, y2i);
+  }
+  fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
+  fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
 }
 
 }  // namespace fmt

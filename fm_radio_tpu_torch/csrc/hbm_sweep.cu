@@ -34,7 +34,7 @@
 // What bounds them: bytes only (no arithmetic but the read's one add per
 // element).  Measured rates are in PERF.md.
 
-#include "common.cuh"
+#include "bulk_copy.cuh"
 
 namespace fmt {
 
@@ -50,55 +50,6 @@ __global__ void hbm_grid_copy_kernel(const float4* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-// global -> shared, `bytes` (a multiple of 16, both addresses 16-byte
-// aligned), completing on `bar` with its transaction count
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// shared -> global in its own bulk group, then wait for every group's
-// writes
-__device__ __forceinline__ void bulk_store_wait(void* dst, const void* src,
-                                                uint32_t bytes) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
 __global__ void hbm_dma_copy_kernel(const char* __restrict__ x,
                                     char* __restrict__ y, int64_t n_chunks,
                                     int chunk, int nbuf) {
@@ -106,7 +57,7 @@ __global__ void hbm_dma_copy_kernel(const char* __restrict__ x,
   __shared__ __align__(8) uint64_t bar[2];
   if (threadIdx.x != 0) return;
   for (int s = 0; s < nbuf; ++s) mbar_init(&bar[s]);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  mbar_fence_init();
   uint32_t phase[2] = {0u, 0u};
   const int64_t step = gridDim.x;
   int64_t i = blockIdx.x;

@@ -72,7 +72,8 @@ __global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
                                         float* __restrict__ theta1) {
   const int n_out = n_in / 4;  // = the length of each phase plane
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n_out) return;
+  const int64_t total = (int64_t)channels * n_out;
+  if (idx >= total) return;
   const int c = (int)(idx / n_out);
   const int j = (int)(idx % n_out);
   const int ne = nn / 4, nwp = ne / 4;  // taps and tap words per phase
@@ -88,16 +89,17 @@ __global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
     const int* xi = (const int*)(x4 + ri * n_out);
     const int* tr = (const int*)(tail4 + rr * ne);
     const int* ti = (const int*)(tail4 + ri * ne);
-    int lr = q0 < 0 ? tr[nwp + q0] : xr[q0];
-    int li = q0 < 0 ? ti[nwp + q0] : xi[q0];
+    const int nw = n_out / 4;  // words of a plane row
+    int lr = q0 < 0 ? FMT_AT(tr, nwp + q0, nwp) : FMT_AT(xr, q0, nw);
+    int li = q0 < 0 ? FMT_AT(ti, nwp + q0, nwp) : FMT_AT(xi, q0, nw);
     for (int w = 0; w < nwp; ++w) {
       const int q = min(q0 + w + 1, last);  // unused when sh == 0
-      const int hr = q < 0 ? tr[nwp + q] : xr[q];
-      const int hi = q < 0 ? ti[nwp + q] : xi[q];
+      const int hr = q < 0 ? FMT_AT(tr, nwp + q, nwp) : FMT_AT(xr, q, nw);
+      const int hi = q < 0 ? FMT_AT(ti, nwp + q, nwp) : FMT_AT(xi, q, nw);
       const int vr = (int)__funnelshift_r((unsigned)lr, (unsigned)hr, sh);
       const int vi = (int)__funnelshift_r((unsigned)li, (unsigned)hi, sh);
-      const int w1 = __ldg(bps1w + p * nwp + w);
-      const int w2 = __ldg(bps2w + p * nwp + w);
+      const int w1 = __ldg(&FMT_AT(bps1w, p * nwp + w, 4 * nwp));
+      const int w2 = __ldg(&FMT_AT(bps2w, p * nwp + w, 4 * nwp));
       y1r = __dp4a(vr, w1, y1r);
       y2r = __dp4a(vr, w2, y2r);
       y1i = __dp4a(vi, w1, y1i);
@@ -108,7 +110,7 @@ __global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
   }
   const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
   const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
-  theta1[idx] = atan2_poly(fi, fr);
+  FMT_AT(theta1, idx, total) = atan2_poly(fi, fr);
 }
 
 }  // namespace fmt

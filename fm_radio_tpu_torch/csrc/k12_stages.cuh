@@ -24,6 +24,35 @@
 
 namespace fmt {
 
+// The int8-tap ds x4 window sum: (fr, fi) over nw words from word q0 of
+// the re and im rows xr, xi (n_w words each; four int8 samples to a word),
+// words q < 0 from the carried tails tr, ti (halo_w words each, word q at
+// halo_w + q), each accumulated exactly with __dp4a against the reversed
+// taps b1w, b2w (nw words each), combined as y1 + y2 / 128 + s_row.  The
+// tails may be null where q0 >= 0.
+__device__ __forceinline__ void ds4_i8_words(
+    const int* __restrict__ xr, const int* __restrict__ xi, int n_w,
+    const int* __restrict__ tr, const int* __restrict__ ti, int halo_w,
+    const int* __restrict__ b1w, const int* __restrict__ b2w, int nw, int q0,
+    float s_row, float& fr, float& fi) {
+  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
+  for (int w = 0; w < nw; ++w) {
+    const int q = q0 + w;
+    const int vr =
+        q < 0 ? FMT_AT(tr, halo_w + q, halo_w) : FMT_AT(xr, q, n_w);
+    const int vi =
+        q < 0 ? FMT_AT(ti, halo_w + q, halo_w) : FMT_AT(xi, q, n_w);
+    const int w1 = __ldg(&FMT_AT(b1w, w, nw));
+    const int w2 = __ldg(&FMT_AT(b2w, w, nw));
+    y1r = __dp4a(vr, w1, y1r);
+    y2r = __dp4a(vr, w2, y2r);
+    y1i = __dp4a(vi, w1, y1i);
+    y2i = __dp4a(vi, w2, y2i);
+  }
+  fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
+  fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
+}
+
 // ds x4 (int8 taps) + atan2: theta1[c, j] = angle(fm_in[c, j]).  The
 // window of output j starts at input 4j - halo, a multiple of 4, so it is
 // nn/4 aligned words of x (or of the carried tail, whose length halo is a
@@ -37,7 +66,8 @@ __global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
                                      float* __restrict__ theta1) {
   const int n_out = n_in / 4;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n_out) return;
+  const int64_t total = (int64_t)channels * n_out;
+  if (idx >= total) return;
   const int c = (int)(idx / n_out);
   const int j = (int)(idx % n_out);
   const int halo = nn - 4;
@@ -45,21 +75,10 @@ __global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
   const int* xi = (const int*)(x8 + ((int64_t)channels + c) * n_in);
   const int* tr = (const int*)(tail8 + (int64_t)c * halo);
   const int* ti = (const int*)(tail8 + ((int64_t)channels + c) * halo);
-  const int base = j - halo / 4;  // first window word (index into x words)
-  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
-  for (int w = 0; w < nn / 4; ++w) {
-    const int q = base + w;
-    const int vr = q < 0 ? tr[halo / 4 + q] : xr[q];
-    const int vi = q < 0 ? ti[halo / 4 + q] : xi[q];
-    const int w1 = __ldg(b1w + w), w2 = __ldg(b2w + w);
-    y1r = __dp4a(vr, w1, y1r);
-    y2r = __dp4a(vr, w2, y2r);
-    y1i = __dp4a(vi, w1, y1i);
-    y2i = __dp4a(vi, w2, y2i);
-  }
-  const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
-  const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
-  theta1[idx] = atan2_poly(fi, fr);
+  float fr, fi;
+  ds4_i8_words(xr, xi, n_in / 4, tr, ti, halo / 4, b1w, b2w, nn / 4,
+               j - halo / 4, s_row, fr, fi);
+  FMT_AT(theta1, idx, total) = atan2_poly(fi, fr);
 }
 
 // discriminator: fmd = wrap(theta1[j] - theta1[j-1]) * scale
@@ -107,11 +126,14 @@ __global__ void k12_disc_kernel(const float* __restrict__ theta1,
                                 float scale, int channels, int n,
                                 Out* __restrict__ fmd) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n) return;
+  const int64_t total = (int64_t)channels * n;
+  if (idx >= total) return;
   const int c = (int)(idx / n);
   const int j = (int)(idx % n);
-  const float prev = j == 0 ? prev_theta[c] : theta1[idx - 1];
-  store_f32(fmd, idx, disc_value(theta1[idx], prev, scale), kFmScale);
+  const float prev = j == 0 ? FMT_AT(prev_theta, c, channels)
+                            : FMT_AT(theta1, idx - 1, total);
+  store_f32(&FMT_AT(fmd, idx, total), 0,
+            disc_value(FMT_AT(theta1, idx, total), prev, scale), kFmScale);
 }
 
 // de-emphasis, one thread per channel, in place; state (x1, y1) per
@@ -123,17 +145,18 @@ __global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= channels) return;
   float* row = fm_out + (int64_t)c * n;
-  float x1 = st_in[2 * c], y1 = st_in[2 * c + 1];
+  float x1 = FMT_AT(st_in, 2 * c, 2 * channels);
+  float y1 = FMT_AT(st_in, 2 * c + 1, 2 * channels);
   for (int i0 = 0; i0 < n; i0 += kBatch) {
     float bx[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) bx[u] = row[i0 + u];
+    for (int u = 0; u < kBatch; ++u) bx[u] = FMT_AT(row, i0 + u, n);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
-      row[i0 + u] = deemph_step(x1, y1, bx[u], b0, b1, a1);
+      FMT_AT(row, i0 + u, n) = deemph_step(x1, y1, bx[u], b0, b1, a1);
   }
-  st_out[2 * c] = x1;
-  st_out[2 * c + 1] = y1;
+  FMT_AT(st_out, 2 * c, 2 * channels) = x1;
+  FMT_AT(st_out, 2 * c + 1, 2 * channels) = y1;
 }
 
 // Hilbert: im = nh-tap FIR, re = input delayed by (nh - 1)/2, written as
@@ -149,20 +172,21 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
                                    int16_t* __restrict__ re16,
                                    int16_t* __restrict__ im16) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n) return;
+  const int64_t total = (int64_t)channels * n;
+  if (idx >= total) return;
   const int c = (int)(idx / n);
   const int i = (int)(idx % n);
   const int halo = nh - 1;
   const float* x = fm_out + (int64_t)c * n;
   const float* t = htail + (int64_t)c * halo;
-  const float vi = fir_point(x, t, halo, wh_rev, nh, i - halo);
+  const float vi = fir_point(x, n, t, halo, wh_rev, nh, i - halo);
   const int d = i - (nh - 1) / 2;
-  const float vr = d < 0 ? t[halo + d] : x[d];
-  im[idx] = vi;
-  re[idx] = vr;
+  const float vr = d < 0 ? FMT_AT(t, halo + d, halo) : FMT_AT(x, d, n);
+  FMT_AT(im, idx, total) = vi;
+  FMT_AT(re, idx, total) = vr;
   if constexpr (kI16) {
-    re16[idx] = q_i16(vr, kIqScale);
-    im16[idx] = q_i16(vi, kIqScale);
+    FMT_AT(re16, idx, total) = q_i16(vr, kIqScale);
+    FMT_AT(im16, idx, total) = q_i16(vi, kIqScale);
   }
 }
 
@@ -179,8 +203,12 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
                                 float* __restrict__ power) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= channels) return;
-  const float* s = st_in + 8 * c;
-  Peak2 pr{s[0], s[1], s[2], s[3]}, pi{s[4], s[5], s[6], s[7]};
+  const int ns = 8 * channels;  // state floats
+  const int s0 = 8 * c;
+  Peak2 pr{FMT_AT(st_in, s0, ns), FMT_AT(st_in, s0 + 1, ns),
+           FMT_AT(st_in, s0 + 2, ns), FMT_AT(st_in, s0 + 3, ns)};
+  Peak2 pi{FMT_AT(st_in, s0 + 4, ns), FMT_AT(st_in, s0 + 5, ns),
+           FMT_AT(st_in, s0 + 6, ns), FMT_AT(st_in, s0 + 7, ns)};
   const float* xr = re + (int64_t)c * n;
   const float* xi = im + (int64_t)c * n;
   float* th = theta + (int64_t)c * n;
@@ -189,21 +217,22 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
     float br[kBatch], bi[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      br[u] = xr[i0 + u];
-      bi[u] = xi[i0 + u];
+      br[u] = FMT_AT(xr, i0 + u, n);
+      bi[u] = FMT_AT(xi, i0 + u, n);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const float yr = peak_step(pr, br[u], b0, b1, b2, a1, a2);
       const float yi = peak_step(pi, bi[u], b0, b1, b2, a1, a2);
-      th[i0 + u] = atan2_poly(yi, yr) * kInvTwoPi;
+      FMT_AT(th, i0 + u, n) = atan2_poly(yi, yr) * kInvTwoPi;
       pw += (double)(yr * yr + yi * yi);
     }
   }
-  float* out = st_out + 8 * c;
-  out[0] = pr.x1; out[1] = pr.x2; out[2] = pr.y1; out[3] = pr.y2;
-  out[4] = pi.x1; out[5] = pi.x2; out[6] = pi.y1; out[7] = pi.y2;
-  power[c] = (float)pw;
+  const float out[8] = {pr.x1, pr.x2, pr.y1, pr.y2,
+                        pi.x1, pi.x2, pi.y1, pi.y2};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) FMT_AT(st_out, s0 + k, ns) = out[k];
+  FMT_AT(power, c, channels) = (float)pw;
 }
 
 // q[i] = q_i16(x[i], scale) for i < n: the int16 format's store of a plane
@@ -215,7 +244,7 @@ __global__ void q_i16_kernel(const float* __restrict__ x,
                              int16_t* __restrict__ q, int64_t n,
                              float scale) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) q[i] = q_i16(x[i], scale);
+  if (i < n) FMT_AT(q, i, n) = q_i16(FMT_AT(x, i, n), scale);
 }
 
 // The discriminator over theta1 [C, n4] -> fmd [C, n4] (float32 or int16).

@@ -7,10 +7,18 @@ shared library with a plain C interface, at first use, under
 are loaded with ``ctypes``; every pointer and the stream cross as
 ``c_void_p``, and every C entry returns a ``cudaError_t`` that
 :func:`check` turns into an exception.  Nothing here runs at import time.
+
+``build(checked=True)`` builds the same sources with ``-DFMT_CHECKED``
+into their own hash directory: K12's device code then checks every index
+it reads or writes and traps on one out of bounds (``csrc/common.cuh``,
+``FMT_AT``), and every C entry synchronises after each launch.  Inside
+``with checked_build():`` the wrappers launch those libraries; nothing
+else selects them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +32,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NAMES = ("k12", "pll", "extract", "bpsk", "channelizer", "channelizer_mma",
-         "frontend", "midend", "chain", "hbm_sweep")
+         "frontend", "midend", "chain", "hbm_sweep", "frontend_probe",
+         "k2_probe", "k3_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -35,7 +44,11 @@ I = ctypes.c_int
 I64 = ctypes.c_int64
 F = ctypes.c_float
 
-_libs: dict[str, ctypes.CDLL] = {}
+CHECKED_FLAGS = ("-DFMT_CHECKED",)
+
+# loaded libraries by (name, checked)
+_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
+_checked = False  # set only inside checked_build()
 
 
 def nvcc() -> str:
@@ -50,22 +63,27 @@ def nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(checked: bool) -> tuple:
+    return NVCC_FLAGS + (CHECKED_FLAGS if checked else ())
+
+
+def _digest(checked: bool = False) -> str:
+    h = hashlib.sha256(" ".join(_flags(checked)).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
-    return BUILD_ROOT / _digest()
+def build_dir(checked: bool = False) -> Path:
+    return BUILD_ROOT / _digest(checked)
 
 
-def build() -> float:
-    """Compile every missing library (in parallel).  Returns the seconds
-    spent; raises RuntimeError with nvcc's output if a compile fails."""
-    out = build_dir()
+def build(checked: bool = False) -> float:
+    """Compile every missing library (in parallel), bounds-checked with
+    ``checked`` (module docstring).  Returns the seconds spent; raises
+    RuntimeError with nvcc's output if a compile fails."""
+    out = build_dir(checked)
     todo = [n for n in NAMES if not (out / f"lib{n}.so").is_file()]
     if not todo:
         return 0.0
@@ -76,7 +94,7 @@ def build() -> float:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
         os.close(fd)
-        cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [exe, *_flags(checked), "-o", tmp, str(CSRC / f"{name}.cu")]
         jobs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -92,15 +110,30 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def checked_build():
+    """Within the block, every wrapper launches the bounds-checked build's
+    kernels (built here if needed; module docstring)."""
+    global _checked
+    build(checked=True)
+    prev, _checked = _checked, True
+    try:
+        yield
+    finally:
+        _checked = prev
+
+
 def function(lib: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of ``lib<lib>.so`` (built if needed), with
-    its argument types set and an int (``cudaError_t``) result."""
-    if lib not in _libs:
-        build()
-        _libs[lib] = ctypes.CDLL(str(build_dir() / f"lib{lib}.so"))
-        _libs[lib].fmt_error_string.argtypes = [I]
-        _libs[lib].fmt_error_string.restype = ctypes.c_char_p
-    fn = getattr(_libs[lib], symbol)
+    its argument types set and an int (``cudaError_t``) result: from the
+    checked build inside :func:`checked_build`, else the default one."""
+    key = (lib, _checked)
+    if key not in _libs:
+        build(_checked)
+        _libs[key] = ctypes.CDLL(str(build_dir(_checked) / f"lib{lib}.so"))
+        _libs[key].fmt_error_string.argtypes = [I]
+        _libs[key].fmt_error_string.restype = ctypes.c_char_p
+    fn = getattr(_libs[key], symbol)
     fn.argtypes = argtypes
     fn.restype = I
     return fn
@@ -108,10 +141,13 @@ def function(lib: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 
 def check(lib: str, err: int) -> None:
     """Raise if a C entry reported a CUDA error (launch refused, bad
-    configuration, or an earlier asynchronous fault)."""
+    configuration, an earlier asynchronous fault, or in the checked build
+    an index out of bounds)."""
     if err != 0:
-        msg = _libs[lib].fmt_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {lib} failed: error {err} ({msg})")
+        msg = _libs[(lib, _checked)].fmt_error_string(err).decode()
+        build = " (checked build)" if _checked else ""
+        raise RuntimeError(f"CUDA kernel {lib} failed{build}: error {err} "
+                           f"({msg})")
 
 
 def stream_ptr(device) -> int:

@@ -91,15 +91,16 @@ def chain_library(path):
     lib = ctypes.CDLL(str(path))
     lib.fmt_error_string.argtypes = [ctypes.c_int]
     lib.fmt_error_string.restype = ctypes.c_char_p
-    saved = _build._libs.get("chain")
-    _build._libs["chain"] = lib
+    key = ("chain", False)
+    saved = _build._libs.get(key)
+    _build._libs[key] = lib
     try:
         yield
     finally:
         if saved is None:
-            _build._libs.pop("chain", None)
+            _build._libs.pop(key, None)
         else:
-            _build._libs["chain"] = saved
+            _build._libs[key] = saved
 
 
 def bench_words(channels: int, block: int, device) -> torch.Tensor:

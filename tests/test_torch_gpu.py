@@ -277,3 +277,43 @@ def test_hbm_probes_on_card():
     assert all(r["ok"] for r in res["rows"]), res["rows"]
     assert hs.launches_copy and hs.launches_dma and hs.launches_read
     assert 100.0 < res["best_copy"]["gbps"] < 3350.0, res["best_copy"]
+
+
+@pytest.mark.gpu
+def test_engine_probes_on_card():
+    """The engine probes' kernels (frontend, K2, K3 and the chain probe's
+    stream kernel) on the card at small shapes where every section's tiles
+    apply (C = 1024 for the K1 probe's tile-major 1024 x 1024 tile): each
+    variant equals its plain version bit for bit (the same float32
+    operations in the same order, -fmad=false), and each wrapper counts
+    its launches."""
+    _need_card()
+    from fm_radio_tpu_torch.probes import chain_probe as cp
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    dev = torch.device("cuda")
+    for m in (fp, k2, k3):
+        m.reset_counts()
+    rows = fp.run(1024, 16384, {"ingest", "tm", "engines", "split", "tiles",
+                                "dbuf", "i8d", "i8x", "man", "sem"}, 1, dev,
+                  emit=lambda r: None)
+    # every tile of the ingest (3 forms x 2 modes x 3) and tile-major
+    # (2 x 2 x 5) sections ran
+    assert sum(":TM:" not in r["variant"] and ":tile=" in r["variant"]
+               and r["variant"].split(":")[1] in ("f32w", "i16", "u8")
+               for r in rows) == 18
+    assert sum(":TM:" in r["variant"] for r in rows) == 20
+    rows += k2.run(8, 4096, 1, dev, emit=lambda r: None)
+    rows += k3.run(16, 8192, 1, dev, emit=lambda r: None)
+    planes = k3.make_inputs(16, 4096, dev)
+    n_sum = k3.launches_sum
+    y = cp.stream3(planes[:2], planes[2])
+    assert k3.launches_sum == n_sum + 1
+    assert torch.equal(y, k3.sum_plain("stream", planes, 1024, 16)[0])
+    bad = [r for r in rows if r["max_abs_err"] != 0.0]
+    assert not bad, bad
+    counts = {**fp.counts(), **k2.counts(), **k3.counts()}
+    assert all(counts.values()), counts
+    assert {r["kernel"] for r in rows} == set(counts) | {"k3_full"}
