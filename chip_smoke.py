@@ -38,10 +38,18 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    filled with 0xFF bytes before each (compute-sanitizer refused the
    card it was tried on: PERF.md), then the five again on the
    bounds-checked build (``_build.checked_build()``: every index of K12's
-   device code checked, a trap fails the run naming the kernel); the channelizer's int8- and bf16-matrix kernels (splits 1 and
-   2) against their plain versions on the arguments
-   ``wideband_demod_block`` recorded from W=4 loud captures, two blocks
-   with carried state: M=32 words -> i8ps and -> f32, M=16 words -> i8;
+   device code checked, a trap fails the run naming the kernel), and five
+   more there at C=40 (not a multiple of 32); the channelizer's int8- and
+   bf16-matrix kernels (splits 1 and 2) against their plain versions on
+   the arguments ``wideband_demod_block`` recorded from W=4 loud captures,
+   two blocks with carried state: M=32 words -> i8ps and -> f32, M=16
+   words -> i8; the bf16-matrix (wgmma) kernel at its edge shapes (T =
+   16,384 on W = 1 and 3, all three forms;
+   :func:`compare_wgmma_edges`) and the count of its wgmma and bulk-copy
+   instructions (``cuobjdump -sass``); K12 flat, phase-split and K2 on
+   their fused mid end at C=40, B = 512, 8,192 and 8,320, max abs error 0,
+   and the mid end's route on the card against its host copy
+   (:func:`compare_mid_edges`);
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its six
@@ -64,7 +72,8 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    through ``demod_block`` with the launch counters set to 0 just before
    and read just after; then each kernel and its plain version timed alone
    on the arguments ``demod_block`` gave it in the last block, and
-   compared there with the tolerances of phase 3;
+   compared there with the tolerances of phase 3; the cell profiled (its
+   profile must show the fused mid end's three kernels);
 4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
    f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
    complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
@@ -96,8 +105,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    lens, FMTPU_WB_SPLITS=1, on its captures), and at splits 1 and 2 on
    loud captures, 8 counted blocks each, the matrix kernel and the
    phase-split K12 timed alone beside their plain versions, and the
-   product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``);
-   the splits=1 and splits=3 cells on bench.py's captures profiled;
+   product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``),
+   and the bf16 kernel's operator bytes; the splits=1, 2 and 3 cells on
+   bench.py's captures profiled;
 6. the selftest station through the port's App on the card and through
    the plain versions on the host CPU: selftest gates, identical RDS
    bytes, audio SNR >= 75 dB;
@@ -184,7 +194,7 @@ CHAIN_KERNELS = (
 MAT_KERNELS = (
     ("channelizer_i8mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
      "fm_radio_tpu/kernels/channelizer_pallas.py:104"),
-    ("channelizer_bf16mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
+    ("channelizer_bf16mat", "fm_radio_tpu_torch/csrc/channelizer_wgmma.cu",
      "fm_radio_tpu/kernels/channelizer_pallas.py:133"),
 )
 # the int16 inter-stage format's kernels (interstage_i16): the same
@@ -262,7 +272,9 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
                          2: "channelizer_bf16mat"}
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
-# rounding; the power sums differ only in summation order.  The channelizer
+# rounding; the power sums differ only in summation order.  K12 (flat and
+# phase-split) and K2 admit no slack on either route of their mid end: the
+# fused route sums every FIR output in the plain version's tap order.  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact,
 # and so must the int8-matrix channelizer (integer products, then the plain
 # version's float epilogue).  The bf16-matrix channelizer's tensor cores sum
@@ -270,9 +282,9 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # BF16MAT_F32_REL of the output's rms, its int8 outputs to 1 LSB on at most
 # BF16MAT_I8_SHARE of the samples (a value that lies on a rounding boundary
 # may move); its carried state is exact.
-TOL = {"k12": 1e-5, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
-       "k12_ps": 1e-5, "channelizer": 0.0, "frontend": 1e-6,
-       "frontend_i8": 1e-6, "midend": 1e-5, "chain": 1e-5,
+TOL = {"k12": 0.0, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
+       "k12_ps": 0.0, "channelizer": 0.0, "frontend": 1e-6,
+       "frontend_i8": 1e-6, "midend": 0.0, "chain": 1e-5,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
        "channelizer_bf16mat": 1.0,
        # the int16 format: quantised stores leave no slack
@@ -372,6 +384,8 @@ COUNTERS = (
     ("frontend_i16", "frontend", "launches_i16"),
     ("frontend_i8_i16", "frontend", "launches_i8_i16"),
     ("midend_i16", "midend", "launches_i16"),
+    # the mid end's fused route, launched by K12 or K2 (each counts too)
+    ("midend_fused", "midend", "launches_fused"),
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
     ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
@@ -1470,7 +1484,8 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     ms = start.elapsed_time(end)
     k1 = "frontend_i8" if label == "k12off" else "frontend"
     check_counts(launches, {k1: blocks, "midend": blocks, "pll": blocks,
-                            "extract": blocks, "bpsk": blocks},
+                            "extract": blocks, "bpsk": blocks,
+                            "midend_fused": blocks},
                  f"split cell {label}")
     audio = outs["audio"]
     if tuple(audio.shape) != (channels, block // 32, 2):
@@ -1572,6 +1587,13 @@ def profile_wideband(splits: int, n_captures: int = 64, m: int = 32,
 
     return _profile(f"wideband_m{m}_splits{splits}", step, blocks, device)
 
+
+# the pre-split cell (bench.py's default), profiled as the split cells
+PRESPLIT_CELL = ("presplit", "i8", {"frontend_int8": True})
+# the fused mid end's kernels (csrc/k12_stages.cuh), which K12 launches on
+# the pre-split cell
+FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
+                 "k12_theta_kernel")
 
 # the megakernel's forms: (label, input kind, DemodConfig kwargs)
 CHAIN_FORMS = (
@@ -1780,7 +1802,8 @@ def chunked_pll_path(channels: int = 256, block: int = 1048576,
         ms = start.elapsed_time(end)
         pll = "pll_chunked" if g > 1 else "pll"
         check_counts(launches, {"k12": blocks, pll: blocks, "extract": blocks,
-                                "bpsk": blocks}, f"PLL cell G={g}")
+                                "bpsk": blocks, "midend_fused": blocks},
+                     f"PLL cell G={g}")
         for k in ("audio", "rds_pred"):
             if not bool(torch.isfinite(outs[k]).all()):
                 raise RuntimeError(f"PLL cell G={g}: non-finite {k}")
@@ -2046,7 +2069,8 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     one PyTorch call, :func:`mat_library_ms`).  ``bridge="f32"`` runs the
     float32 bridge under ``DemodConfig()`` (K1 on planes, then K2)."""
     from fm_radio_tpu_torch.config import DemodConfig
-    from fm_radio_tpu_torch.kernels.channelizer import make_tables
+    from fm_radio_tpu_torch.kernels.channelizer import (
+        make_tables, wgmma_operator_bytes)
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
     from fm_radio_tpu_torch.models.wideband import (
         wideband_demod_block, wideband_init_state)
@@ -2079,7 +2103,8 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     ms = start.elapsed_time(end)
     ps = m == 32 and bridge == "i8"
     chan = CHANNELIZER_BY_SPLITS[calls["channelizer"][5]]
-    want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks}
+    want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks,
+            "midend_fused": blocks}
     if bridge == "f32":
         want.update(frontend=blocks, midend=blocks)
     else:
@@ -2110,7 +2135,125 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
          res["bound"]) = time_stages(timed)
         if chan != "channelizer":
             res["library_ms"] = mat_library_ms(calls["channelizer"])
+        if chan == "channelizer_bf16mat":
+            tab, _, words, m, _, _ = calls["channelizer"]
+            res["operator_bytes"] = wgmma_operator_bytes(
+                words.shape[0], words.numel() // words.shape[0],
+                tab.w_rev.shape[0], m)
     return res
+
+
+def sass_counts(lib: str = "channelizer_wgmma") -> dict:
+    """Counts of the warpgroup MMA (HGMMA) and bulk-copy (UTMALDG tensor,
+    UBLKCP plain) instructions in a built library's SASS (cuobjdump
+    -sass), or {"error"} where the toolkit has no cuobjdump."""
+    from fm_radio_tpu_torch.kernels import _build
+
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    so = str(_build.build_dir() / f"lib{lib}.so")
+    if not os.path.isfile(exe):
+        return {"error": f"no cuobjdump beside {_build.nvcc()}"}
+    sass = subprocess.run([exe, "-sass", so], capture_output=True,
+                          text=True, timeout=120).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+
+
+def compare_wgmma_edges(device="cuda") -> list[dict]:
+    """The bf16-matrix kernel against its plain version at its edge
+    shapes: T = 16,384 (one tile of 128 columns, the smallest T it takes)
+    on W = 1 (one tile, one CTA) and W = 3, M = 32, K = 16, all three
+    output forms, two blocks with carried state, on random packed words
+    (every u8 value).  Returns one verdict row per W."""
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    m, k, t = 32, 16, kch.MAT_T_MULTIPLE[2]
+    tab = kch.make_tables(make_channelizer_taps(m, k), m, device)
+    rng = np.random.default_rng(11)
+    rows = []
+    for n_w in (1, 3):
+        words = torch.from_numpy(
+            rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32) * 256.0
+            + rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32)).to(device)
+        acc = {}
+        for out in ("i8ps", "f32", "i8"):
+            st = (torch.zeros((n_w, (k - 1) * m), device=device),) * 2
+            for blk in range(2):
+                xb = words[:, blk * t : (blk + 1) * t].contiguous()
+                a = (tab, st, xb, m, out, 2)
+                kout = kch.channelize(*a)
+                _merge(acc, "channelizer_bf16mat", stage_errors(
+                    "channelizer_bf16mat", kout, kch.channelize_plain(*a)))
+                st = kout[0]
+        torch.cuda.synchronize(device)
+        rows.append(dict(_verdict("channelizer_bf16mat",
+                                  acc["channelizer_bf16mat"]),
+                         captures=n_w, t=t))
+    return rows
+
+
+def compare_mid_edges(device="cuda") -> dict:
+    """K12 (flat and phase-split) and K2 on their fused route against the
+    plain versions at edge shapes, two blocks with carried state, bench
+    planes (K2 on N(0, 1) fm_demod): C = 40 (not a multiple of the peak
+    IIR's 32 channels a warp) at B = 512 (the smallest block whose carried
+    tails the fused route holds: one partial tile), 8,192 (one whole tile
+    of 1024 outputs) and 8,320 (a whole tile and a partial one); and the
+    host's route (kernels/midend.py::midend_route) against the C entry's
+    (fmt_midend_route) over formats, de-emphasis, filter orders and block
+    lengths.  Returns {"rows": verdict rows, "route_mismatch": [...]}."""
+    from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.kernels import k12 as kk
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.models.demod import (
+        INT8_CONFIG, demod_init_state, make_coeffs)
+
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, device)
+    acc = {}
+    c = 40
+    g = torch.Generator(device=device).manual_seed(7)
+    for b in (512, 8192, 8320):
+        if km.midend_route(co, cfg, b // 4) != "fused":
+            raise RuntimeError(f"B = {b} does not take the fused route")
+        st = {n: demod_init_state(cfg, c, device) for n in ("k12", "ps",
+                                                           "mid")}
+        x = bench_planes(c, 2 * b, seed=5, device=device)
+        for blk in range(2):
+            xb = x[:, :, blk * b : (blk + 1) * b].contiguous()
+            x4 = xb.reshape(2, c, b // 4, 4).permute(0, 3, 1, 2).contiguous()
+            fmd = torch.randn((c, b // 4), generator=g, device=device)
+            for name, fn, plain, arg in (
+                    ("k12", kk.k12, kk.k12_plain, xb),
+                    ("k12_ps", kk.k12_ps, kk.k12_ps_plain, x4),
+                    ("midend", km.midend, km.midend_plain, fmd)):
+                key = {"k12": "k12", "k12_ps": "ps", "midend": "mid"}[name]
+                kout = fn(co, cfg, st[key], arg)
+                pout = plain(co, cfg, st[key], arg)
+                e = stage_errors(name, kout, pout)
+                dump_mismatch(name, (co, cfg, st[key], arg), kout, pout, e)
+                _merge(acc, name, e)
+                st[key] = kout[0]
+        torch.cuda.synchronize(device)
+    fn = _build.function("midend", "fmt_midend_route", km.ROUTE_ARGTYPES)
+    bad = []
+    for de, cd in ((False, co), (True, make_coeffs(dataclasses.replace(
+            cfg, use_deemphasis_filter=True, deemphasis_cutoff_us=50),
+            device))):
+        cf = dataclasses.replace(cfg, use_deemphasis_filter=de,
+                                 deemphasis_cutoff_us=50)
+        for nn2, nh in ((64, 65), (48, 65), (64, 33)):
+            cx = cd._replace(taps_fm_out=cd.taps_fm_out[:nn2],
+                             taps_hilbert=cd.taps_hilbert[:nh])
+            for n4 in (64, 96, 128, 4096, 32768):
+                for i16 in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                    host = km.midend_route(cx, cf, n4, *map(bool, i16))
+                    card = fn(*i16, int(de), nn2, nh, n4)
+                    if (host == "fused") != (card == 1):
+                        bad.append((de, nn2, nh, n4, i16, host, card))
+    return {"rows": [_verdict(n, acc[n]) for n in ("k12", "k12_ps",
+                                                   "midend")],
+            "route_mismatch": bad}
 
 
 def mat_library_ms(args, reps: int = 5) -> dict:
@@ -2208,7 +2351,8 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     launches = read_counts()
     ms = start.elapsed_time(end)
     check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
-                            "bpsk": blocks, "k12_ps": 0, "channelizer": 0},
+                            "bpsk": blocks, "k12_ps": 0, "channelizer": 0,
+                            "midend_fused": blocks},
                  "pre-split main path")
     audio = outs["audio"]
     if tuple(audio.shape) != (channels, block // 32, 2):
@@ -2649,6 +2793,8 @@ def main() -> int:
     try:
         with _build.checked_build():
             creps = k12_repeats(5, 8, 16384, dev)
+            # a channel count that is not a multiple of 32 (ROADMAP queue 3)
+            creps += k12_repeats(5, 40, 16384, dev)
     except RuntimeError as e:
         raise RuntimeError(f"K12 repeats on the bounds-checked build: {e}")
     for r in creps:
@@ -2669,6 +2815,28 @@ def main() -> int:
     if bad or silent:
         raise RuntimeError(f"matrix channelizers disagree {bad} or were "
                            f"compared on constant planes {silent}")
+    # the redesigned kernels at their edge shapes, the mid end's route on
+    # the card against its host copy, and the wgmma kernel's instructions
+    t0 = time.perf_counter()
+    wedge = compare_wgmma_edges(dev)
+    for r in wedge:
+        log(f"[compare] wgmma edge: {json.dumps(r)}")
+    medge = compare_mid_edges(dev)
+    for r in medge["rows"]:
+        log(f"[compare] fused mid end edge: {json.dumps(r)}")
+    sass = sass_counts()
+    log(f"[build] channelizer_wgmma SASS: {json.dumps(sass)}; route "
+        f"mismatches {medge['route_mismatch']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [r["name"] for r in wedge + medge["rows"] if not r["ok"]]
+    if bad or medge["route_mismatch"]:
+        raise RuntimeError(f"edge shapes disagree {bad} or the mid end's "
+                           f"route differs on the card "
+                           f"{medge['route_mismatch']}")
+    if "error" not in sass and not (
+            sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
+        raise RuntimeError(f"channelizer_wgmma has no wgmma or bulk copy "
+                           f"in its SASS: {sass}")
 
     # 3b. the split path's kernels against plain on the card
     t0 = time.perf_counter()
@@ -2738,11 +2906,20 @@ def main() -> int:
     mp = main_path(2048, 131072, 8, dev)
     torch.cuda.synchronize(dev)
     log(f"[main] {json.dumps(mp)}")
+    prof = profile_split(*PRESPLIT_CELL, device=dev)
+    log(f"[profile] {json.dumps(prof)}")
     log(f"[main] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for r in mp["compare"] if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the bench cell: {bad}")
+    fused = [k for k in FUSED_KERNELS
+             if not any(key.startswith(k) or f"::{k}" in key
+                        for key in prof["device_ms_per_block"])]
+    if fused:
+        raise RuntimeError(f"the pre-split cell's profile lacks the fused "
+                           f"mid end's kernels {fused}: "
+                           f"{list(prof['device_ms_per_block'])}")
 
     # 4b. the split cells at full width
     t0 = time.perf_counter()
@@ -2817,7 +2994,8 @@ def main() -> int:
     wb_bf16 = wideband_path(64, 32, 131072, 8, amp=loud_amp(32), splits=2,
                             device=dev)
     log(f"[wideband] {json.dumps(wb_bf16)}")
-    for sp in (1, 3):  # bench.py's lens and the exact mode beside it
+    # bench.py's lens, the bf16 mode and the exact mode beside them
+    for sp in (1, 2, 3):
         log(f"[profile] {json.dumps(profile_wideband(sp, device=dev))}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for c in (wb_bench, wb, wb_i8_bench, wb_i8, wb_bf16)
@@ -2909,7 +3087,8 @@ def main() -> int:
     # W=4) and at full width, and its launches on every path
     err_small, err_full = {}, {}
     rep_rows = [k for r in reps for k in r["kernels"]]
-    for r in rows + wrows + srows + frows + crows + mrows + rep_rows + irows:
+    for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
+              + wedge + medge["rows"]):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
@@ -3004,6 +3183,13 @@ def main() -> int:
                          plain_ms_bench_input=wb_i8_bench["plain_ms"][n])
         if n in I16_BASE and n != "extract_i16_f32dt":
             k.update(float_twin_ms=i16c["float_twin_ms"][I16_BASE[n]])
+        if n in ("k12", "k12_ps", "midend"):
+            # the mid end's fused route: its launches on the kernel's path
+            # (each also counted by the kernel)
+            k["launches_fused_route"] = home[n]["launches"]["midend_fused"]
+        if n == "channelizer_bf16mat":
+            k.update(sass=sass, operator_bytes=wb_bf16["operator_bytes"],
+                     edge_shapes=wedge)
         if n in launch_path:
             k["launches_path"] = launch_path[n]
     # the device-memory probes: each at its fastest variant of the sweep

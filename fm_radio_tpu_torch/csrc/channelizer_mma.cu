@@ -1,11 +1,10 @@
-// Polyphase FFT channelizer, the quantised-matrix modes, on Hopper's tensor
-// cores.
+// Polyphase FFT channelizer, the int8-matrix mode, on Hopper's tensor cores.
 //
 // Replaces fm_radio_tpu/kernels/channelizer_pallas.py::_chan_core_t's int8
-// body (splits == 1 on packed words, :104-132) and its single-bf16 Karatsuba
-// body (splits == 2 on packed words, :133-153), as _chan_kernel_t_packed
-// (:226) runs them.  Both fuse the phase filter and the DFT into n_c = tl + 1
-// operator matrices A_c [128 (o) x 128 (s)] built on the host
+// body (splits == 1 on packed words, :104-132), as _chan_kernel_t_packed
+// (:226) runs it; its single-bf16 body (splits == 2) is
+// csrc/channelizer_wgmma.cu, on the same operators and ring.  Both fuse the
+// phase filter and the DFT into n_c = tl + 1 operator matrices A_c [128 (o) x 128 (s)] built on the host
 // (kernels/channelizer.py::fused_operators) and compute, per capture w and
 // column j of 128 wide samples,
 //
@@ -27,12 +26,6 @@
 //   float32(acc) * (1/q_M) + corr[o], then the output form; with
 //   -fmad=false the kernel equals kernels/channelizer.py::
 //   channelize_i8mat_plain bit for bit.
-// - bf16 (mode 2): the ring holds u8 - 127 and x_r + x_i as bf16 (exact
-//   integers), A the three Karatsuba matrices M_re, M_im, M_re + M_im
-//   rounded once to bf16.  mma.sync m16n8k16 bf16 -> f32 accumulates P1, P2,
-//   P3; y_re = P1 - P2, y_im = (P3 - P1) - P2.  The tensor cores sum in
-//   their own order, so this kernel agrees with channelize_bf16mat_plain
-//   within float32 summation error (chip_smoke.py states the tolerance).
 //
 // Outputs as csrc/channelizer.cu: float32 (y_re, y_im) [W, M, T/M]
 // (unscaled: the tables for this form fold no 1/M), int8 [2, W, M, T/M] of
@@ -40,25 +33,24 @@
 // M = 32 phase-split int8 [2, 4, W*M, T/128] (plane q' is output rows
 // q' M .. q' M + M - 1, column j as it stands).
 //
-// Design (simple first; wgmma and TMA are later work): a CTA of 8 warps
+// Design (mma.sync; csrc/channelizer_wgmma.cu is the wgmma form of the
+// bf16 mode): a CTA of 8 warps
 // takes one capture and kTileCols = 64 output columns.  It stages its
 // 64 + tl ring columns from the packed words (and the carried state) into
 // shared memory as rows of 128 elements, padded by 16 bytes so that the
 // B-fragment loads (rows g = 0..7, 4-byte words t = 0..3 of a lane) fall in
 // 32 distinct banks.  Warp (i, h) owns output rows 32 i .. 32 i + 31 and
 // columns 32 h .. 32 h + 31: 2 x 4 m16n8 tiles.  A is read from device
-// memory (it stays in L1/L2: 160 KB int8, 480 KB bf16 at n_c = 5) in the
+// memory (it stays in L1/L2: 160 KB at n_c = 5) in the
 // order the host laid it out (kernels/channelizer.py::frag_order), one
 // 16-byte load per lane per fragment.  The epilogue stages each output
 // plane through shared memory so that every channel row is stored
 // contiguously.  A second small launch writes the carried state.
 //
 // What bounds it: at the wideband cell (W = 64, M = 32, K = 16, T = 2^22)
-// the products are 1.37e12 int8 operations (0.69 ms at 1,979 TOP/s) or
-// 1.03e12 bf16 FLOP (1.04 ms at 989 TFLOP/s) against 1.5 GiB of words in and
-// int8 out (0.48 ms); the measured times are in PERF.md.
-
-#include <cuda_bf16.h>
+// the products are 1.37e12 int8 operations (0.69 ms at 1,979 TOP/s) against
+// 1.5 GiB of words in and int8 out (0.48 ms); the measured times are in
+// PERF.md.
 
 #include "chan_common.cuh"
 
@@ -74,10 +66,6 @@ template <>
 struct MatMode<1> {  // int8: planes re, im
   static constexpr int kElem = 1, kPlanes = 2, kMinBlocks = 2;
 };
-template <>
-struct MatMode<2> {  // bf16: planes re, im, re + im
-  static constexpr int kElem = 2, kPlanes = 3, kMinBlocks = 1;
-};
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a,
                                        uint32_t b0, uint32_t b1) {
@@ -88,15 +76,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_i8(float v0, float v1, float v2,
                                             float v3) {
   // the centred value - 1, truncated to an integer as the TPU kernel's cast
@@ -104,11 +83,6 @@ __device__ __forceinline__ uint32_t pack_i8(float v0, float v1, float v2,
          ((uint32_t)(uint8_t)(int8_t)(int)(v1 - 1.0f) << 8) |
          ((uint32_t)(uint8_t)(int8_t)(int)(v2 - 1.0f) << 16) |
          ((uint32_t)(uint8_t)(int8_t)(int)(v3 - 1.0f) << 24);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
 // Stage ring columns j0 .. j0 + rows - 1 of one capture into shared memory,
@@ -146,21 +120,9 @@ __device__ __forceinline__ void stage_ring(uint8_t* smem,
       }
     }
     uint8_t* row = smem + r * S + s * E;
-    if (kMode == 1) {
-      *reinterpret_cast<uint32_t*>(row) = pack_i8(re[0], re[1], re[2], re[3]);
-      *reinterpret_cast<uint32_t*>(row + plane) =
-          pack_i8(im[0], im[1], im[2], im[3]);
-    } else {
-      float sum[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[e] = re[e] + im[e];
-      *reinterpret_cast<uint2*>(row) =
-          make_uint2(pack_bf16(re[0], re[1]), pack_bf16(re[2], re[3]));
-      *reinterpret_cast<uint2*>(row + plane) =
-          make_uint2(pack_bf16(im[0], im[1]), pack_bf16(im[2], im[3]));
-      *reinterpret_cast<uint2*>(row + 2 * plane) =
-          make_uint2(pack_bf16(sum[0], sum[1]), pack_bf16(sum[2], sum[3]));
-    }
+    *reinterpret_cast<uint32_t*>(row) = pack_i8(re[0], re[1], re[2], re[3]);
+    *reinterpret_cast<uint32_t*>(row + plane) =
+        pack_i8(im[0], im[1], im[2], im[3]);
   }
 }
 
@@ -262,7 +224,7 @@ chan_mma_kernel(const float* __restrict__ words, const float* __restrict__ sr,
   const int jw = (warp >> 2) * 32;  // its first of 32 columns
   const uint8_t* bcol = smem + (jw + g) * S + tq * 4;
 
-  if constexpr (kMode == 1) {
+  {
     int acc[2][2][4][4] = {};  // [re, im][row tile][column tile][fragment]
     for (int ks = 0; ks < n_ks; ++ks) {
       const int c = ks / kSteps, kb = (ks % kSteps) * 32;
@@ -297,40 +259,6 @@ chan_mma_kernel(const float* __restrict__ words, const float* __restrict__ sr,
       const int o = (ot0 + ot) * 16 + g + 8 * (e >> 1);
       return __int2float_rn(acc[pi][ot][jt][e]) * inv_q +
              __ldg(aux + 128 * (pi + 1) + o);
-    };
-    store_tile<kOut>(smem, value, ot0, jw, m, w, j0, t_len, y_re, y_im, y8);
-  } else {
-    float acc[3][2][4][4] = {};  // [P1, P2, P3][row tile][column tile][.]
-    for (int ks = 0; ks < n_ks; ++ks) {
-      const int c = ks / kSteps, kb = (ks % kSteps) * 32;
-      uint4 a[3][2];
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-#pragma unroll
-        for (int ot = 0; ot < 2; ++ot) {
-          a[p][ot] = __ldg(frag + ((int64_t)(p * n_ks + ks) * 8 + ot0 + ot) *
-                                      32 + lane);
-        }
-      }
-#pragma unroll
-      for (int jt = 0; jt < 4; ++jt) {
-        const uint8_t* b = bcol + (jt * 8 + c) * S + kb;
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          const uint32_t b0 =
-              *reinterpret_cast<const uint32_t*>(b + p * plane);
-          const uint32_t b1 =
-              *reinterpret_cast<const uint32_t*>(b + p * plane + 16);
-#pragma unroll
-          for (int ot = 0; ot < 2; ++ot) {
-            mma_bf16(acc[p][ot][jt], a[p][ot], b0, b1);
-          }
-        }
-      }
-    }
-    auto value = [&](int pi, int ot, int jt, int e) {
-      const float p1 = acc[0][ot][jt][e], p2 = acc[1][ot][jt][e];
-      return pi == 0 ? p1 - p2 : (acc[2][ot][jt][e] - p1) - p2;
     };
     store_tile<kOut>(smem, value, ot0, jw, m, w, j0, t_len, y_re, y_im, y8);
   }
@@ -403,12 +331,12 @@ using namespace fmt;
 // words [W, T] packed u8 IQ (16-byte aligned); sr, si [W, (K-1)*M] carried
 // state in, sr_out, si_out the same shape out (distinct buffers); frag the
 // matrices in fragment order (kernels/channelizer.py::frag_order: int8
-// [2, n_c*4, 8, 32, 4] words for mode 1, bf16 pairs [3, n_c*8, 8, 32, 4] for
-// mode 2); aux [3, 128] float32 (mode 1: 1/q_M, corr_re, corr_im; read by
-// mode 1 only).  out 0: y_re, y_im [W, M, T/M] float32; out 1: y8
+// [2, n_c*4, 8, 32, 4] words); aux [3, 128] float32 (1/q_M, corr_re,
+// corr_im).  out 0: y_re, y_im [W, M, T/M] float32; out 1: y8
 // [2, W, M, T/M]; out 2 (M = 32): y8 [2, 4, W*M, T/128].
-// Limits (the wrapper checks them too): mode 1 or 2, M in {8, 16, 32, 64,
-// 128}, 1 <= K <= 17, T a multiple of 8192.
+// Limits (the wrapper checks them too): mode 1 (the bf16 mode 2 is
+// fmt_channelize_wgmma), M in {8, 16, 32, 64, 128}, 1 <= K <= 17, T a
+// multiple of 8192.
 extern "C" int fmt_channelize_mma(const float* words, const float* sr,
                                   const float* si, const void* frag,
                                   const float* aux, int mode, int m,
@@ -416,20 +344,15 @@ extern "C" int fmt_channelize_mma(const float* words, const float* sr,
                                   int out, float* y_re, float* y_im,
                                   int8_t* y8, float* sr_out, float* si_out,
                                   cudaStream_t stream) {
-  if ((mode != 1 && mode != 2) || m < 8 || m > 128 || 128 % m != 0 ||
+  if (mode != 1 || m < 8 || m > 128 || 128 % m != 0 ||
       k_taps < 1 || k_taps > 17 || t_len <= 0 ||
       t_len % (kTileCols * 128) != 0 || n_captures <= 0 ||
       n_captures > 65535 || out < kOutF32 || out > kOutI8PS ||
       (out == kOutI8PS && m != 32)) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint4* f = static_cast<const uint4*>(frag);
-  if (mode == 1) {
-    return chan_mma_dispatch<1>(out, words, sr, si, f, aux, m, k_taps,
-                                n_captures, t_len, y_re, y_im, y8, sr_out,
-                                si_out, stream);
-  }
-  return chan_mma_dispatch<2>(out, words, sr, si, f, aux, m, k_taps,
-                              n_captures, t_len, y_re, y_im, y8, sr_out,
-                              si_out, stream);
+  return chan_mma_dispatch<1>(out, words, sr, si,
+                              static_cast<const uint4*>(frag), aux, m,
+                              k_taps, n_captures, t_len, y_re, y_im, y8,
+                              sr_out, si_out, stream);
 }

@@ -8,35 +8,41 @@
 // 65-tap Hilbert -> order-2 19 kHz peak IIR on re and im -> pilot phase
 // theta = atan2/2pi and the pilot power sum.
 //
-// What bounds it on this card is measured only as device time per launch
-// (torch.profiler, 2048 x 131,072 bench cell; NVIDIA H100 80GB HBM3, power
-// limit 700.00 W): ds x4 + atan2 1.578 ms, discriminator 0.278 ms, ds x2
-// 1.531 ms, Hilbert 1.561 ms, peak IIR 2.305 ms per block.  The FIR stages
-// are parallel over (channel, output sample) and write and read their
-// intermediates in device memory between launches.  The peak IIR and
-// de-emphasis are serial in time: one thread per channel walks B/8 steps
-// (16,384 at the bench cell), so the dependent recurrence and one warp per
-// SM are the suspects there; no per-instruction profile has split them.
-//
-// What the design does about it, for now: the ds x4 window is read as
-// aligned int32 words and accumulated with __dp4a (four int8 products per
-// instruction, exact).  The serial stages run one thread per channel, 32
-// channels per block, each reading its own channel-major row (uncoalesced)
-// kBatch steps at a time into registers (common.cuh); staging tiles through
-// shared memory with barriers was measured slower (PERF.md).
-// This first version is split into six launches (ds4+atan2, discriminator,
-// ds2, de-emphasis, Hilbert, peak IIR) with the intermediates in device
-// memory; fusing the parallel stages is later work.
+// What bounds it, and what the design does about it (the times per launch
+// are PERF.md's, NVIDIA H100 80GB HBM3 at 700 W):
+// - ds x4 + atan2 (k12_ds4_theta_kernel): the int8 window read as aligned
+//   int32 words and summed with __dp4a (four exact products an
+//   instruction); one thread an output, theta1 [C, B/4] to device memory.
+// - The mid end takes one of two routes (k12_stages.cuh::midend_route).
+//   With de-emphasis off (the receiver's default) it is fused: one tiled
+//   kernel runs discriminator -> ds x2 -> Hilbert per (channel, 1024
+//   outputs) with fm_demod and fm_out in shared memory only, its FIRs
+//   register-blocked (one shared-memory load per tap, not per
+//   multiply-add); the peak IIR's serial loop carries only the two
+//   biquads and the pilot power (kBatch steps loaded ahead, the outputs
+//   stored kBatch at a time); theta = atan2 / 2 pi of the filtered planes
+//   is a parallel pass.  Before, four launches ran ds x2, Hilbert and the
+//   peak IIR with the polynomial atan2 and its IEEE division inside the
+//   serial loop (7.27 ms a block at the pre-split cell, the peak IIR 2.31
+//   of it).  The bound is the bytes (0.31 ms at the cell): int8 planes in,
+//   re, im, theta out.
+// - With de-emphasis on (a serial stage between ds x2 and Hilbert) the
+//   launches route runs: discriminator, ds x2, de-emphasis (one thread a
+//   channel, kBatch steps loaded at once), Hilbert, peak IIR with theta,
+//   the intermediates in device memory; staging those serial loops'
+//   tiles through shared memory with barriers was measured slower
+//   (PERF.md).
 //
 // The stages are shared with the split path through k12_stages.cuh: its
 // ds x4 + discriminator are K1's int8-direct entry (frontend.cu) and its
-// last four launches K2 (midend.cu), so K1 + K2 equal K12 bit for bit.
+// mid end K2 (midend.cu, which enters the same routes after the
+// discriminator), so K1 + K2 equal K12 bit for bit.
 //
 // With phase_split set, fmt_k12 replaces k12_pallas.py::_k12_kernel_ps
 // (body frontend_pallas.py::_i8_phase_tile_body): the same function on
 // [2, 4, C, B/4] int8 polyphase planes, x_p[u] = x[4u + p], which the
 // wideband channelizer writes at M = 32.  Only its first launch differs
-// (k12_ds4_ps_theta_kernel); the five launches after ds x4 are shared.
+// (k12_ds4_ps_theta_kernel); the launches after ds x4 are shared.
 // Measured at the wideband cell (2048 stations x 131,072; NVIDIA H100 80GB
 // HBM3, power limit 700.00 W): its ds x4 + atan2 takes 2.674 ms per block
 // against the flat launch's 1.579 ms.  Each output reads five words from
@@ -118,7 +124,7 @@ __global__ void k12_ds4_ps_theta_kernel(const int8_t* __restrict__ x4,
 using namespace fmt;
 
 // All pointers are device pointers to contiguous float32 / int8 tensors.
-// Returns the first cudaError_t of the six launches (0 = all launched).
+// Returns the first cudaError_t of the launches (0 = all launched).
 // phase_split == 0: x8 [2, C, B] and tail8 [2, C, nn1-4] 4-byte aligned,
 // nn1 % 4 == 0; b1, b2 [nn1] int8 (reversed-tap order, read as nn1/4 int32
 // words).  phase_split == 1: x8 [2, 4, C, B/4] (phase planes, 4-byte
@@ -126,8 +132,11 @@ using namespace fmt;
 // then its last nn1/4 - 1 samples) and b1, b2 [4, nn1/4] (phase p: b[4e + p],
 // e = 0..nn1/4-1), nn1 % 16 == 0.  Both: prev_theta [C]; w2_rev [nn2],
 // tail2 [C, nn2-2]; de_st_* [C, 2]; wh_rev [nh], htail [C, nh-1]; pk_st_*
-// [C, 8]; scratch theta1, fmd [C, B/4] and fm_out [C, B/8]; outputs re, im,
-// theta [C, B/8], power [C].
+// [C, 8]; scratch theta1 [C, B/4]; outputs re, im, theta [C, B/8], power
+// [C].  By midend_route (k12_stages.cuh): on the fused route the scratch
+// yi [C, B/8] and the output tails [C, (nn2-2) + (nh-1)] (the new ds x2 and
+// Hilbert tails), fmd and fm_out unused (may be null); on the launches
+// route the scratch fmd [C, B/4] and fm_out [C, B/8], yi and tails unused.
 extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        const int8_t* b1, const int8_t* b2, int nn1,
                        float s_row, const float* prev_theta, float scale,
@@ -139,8 +148,12 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        float pk_a2, const float* pk_st_in, float* pk_st_out,
                        int channels, int b, int phase_split, float* theta1,
                        float* fmd, float* fm_out, float* re, float* im,
-                       float* theta, float* power, cudaStream_t stream) {
-  if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0) {
+                       float* theta, float* power, float* yi, float* tails,
+                       cudaStream_t stream) {
+  const int route = midend_route(0, 0, use_deemph, nn2, nh, b / 4);
+  if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0 ||
+      (route == kMidFused ? yi == nullptr || tails == nullptr
+                          : fmd == nullptr || fm_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned grid = blocks_for((int64_t)channels * (b / 4));
@@ -154,6 +167,12 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
         theta1);
   }
   FMT_CHECK_LAUNCH();
+  if (route == kMidFused) {
+    return launch_mid_fused<true>(theta1, prev_theta, scale, w2_rev, tail2,
+                                  wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
+                                  pk_a2, pk_st_in, pk_st_out, channels, b / 4,
+                                  re, im, theta, yi, tails, power, stream);
+  }
   const int err = launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd,
                               stream);
   if (err) return err;

@@ -10,14 +10,20 @@
 //                         (frontend_pallas.py::_i8_direct_tile_body :388)
 //   k12_disc_kernel       the discriminator (frontend_pallas.py:196-209)
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
-//                         pilot power (midend_pallas.py::_midend_body :119)
+//                         pilot power (midend_pallas.py::_midend_body :119),
+//                         by midend_route: fused (launch_mid_fused: one
+//                         tiled kernel for [discriminator ->] ds x2 ->
+//                         Hilbert, the peak IIR cut to its recurrence, a
+//                         parallel theta pass) with de-emphasis off in
+//                         float32, else one launch per stage
 //
 // The per-sample formulas (disc_value, deemph_step, peak_step) are device
 // functions that the full-chain megakernel (chain.cu) evaluates too, tile
 // by tile, so the chain equals the split path bit for bit.
 //
 // What bounds each launch, and what its design does about it, is noted in
-// k12.cu, where the times per launch are.
+// k12.cu and above the fused route's kernels below; the times per launch
+// are in PERF.md.
 #pragma once
 
 #include "common.cuh"
@@ -235,6 +241,400 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
   FMT_AT(power, c, channels) = (float)pw;
 }
 
+// ---- The mid end's fused route (de-emphasis off, float32 in and out) ----
+//
+// k12_mid_fused_kernel runs discriminator (K12) -> ds x2 -> Hilbert for one
+// channel and one tile of kMidTile re/im outputs per CTA, with fm_demod
+// and fm_out only in shared memory: only re and im (and, from the last
+// tile of a channel, the two carried tails) leave the CTA.  Each FIR output
+// is the same sum, in the same tap order, as fir_point computes it, so the
+// route equals the launches route (and the plain version) bit for bit.
+// The FIRs are register-blocked: a thread computes kDs2Outs (ds x2) or
+// kHilbOuts (Hilbert) neighbouring outputs and slides one window of
+// samples through registers, so each tap costs one shared-memory load per
+// thread instead of one per multiply-add.  Neighbouring threads' windows
+// start 2 kDs2Outs or kHilbOuts samples apart; the planes are stored
+// skewed (one pad word every 32) so those loads fall in distinct banks.
+// k12_peak_rec_kernel is the peak IIR cut to its recurrence: the two
+// biquads and the pilot power (in double, in time order, as
+// k12_peak_kernel and the megakernel sum it), the filtered planes stored
+// 16 steps at a time; k12_theta_kernel then takes theta = atan2 / 2 pi of
+// them in parallel, the same float32 operations as k12_peak_kernel.
+constexpr int kMidTile = 1024;   // re/im outputs a CTA of the fused kernel
+constexpr int kMidThreads = 256;
+constexpr int kDs2Outs = 8;      // ds x2 outputs a thread
+constexpr int kHilbOuts = 4;     // Hilbert outputs a thread
+// the tap counts the fused kernel is built for (the receiver's ds x2 and
+// Hilbert filters); other orders take the launches route
+constexpr int kFusedNn2 = 64;
+constexpr int kFusedNh = 65;
+
+__host__ __device__ constexpr int mid_skew(int x) { return x + (x >> 5); }
+
+// The mid end's route (kernels/midend.py::midend_route is its host copy):
+// the fused kernels where the stages between ds x2 and the peak IIR run in
+// float32 with de-emphasis off, the filters have the orders the fused
+// kernel is built for and the block holds both carried tails; else the
+// launches (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel,
+// k12_peak_kernel, q_i16_kernel).
+enum MidRoute { kMidLaunches = 0, kMidFused = 1 };
+
+inline int midend_route(int in_i16, int out_i16, int use_deemph, int nn2,
+                        int nh, int n4) {
+  if (in_i16 || out_i16 || use_deemph || nn2 != kFusedNn2 ||
+      nh != kFusedNh || n4 < nn2 - 2 || n4 / 2 < nh - 1) {
+    return kMidLaunches;
+  }
+  return kMidFused;
+}
+
+// one tap of the register-blocked ds x2: acc[r] += w * v[r], then, unless
+// it was the window's last use, v slides by one output
+__device__ __forceinline__ void ds2_tap(float (&acc)[kDs2Outs],
+                                        float (&v)[kDs2Outs], float w,
+                                        bool slide, const float* s_u,
+                                        int next) {
+#pragma unroll
+  for (int r = 0; r < kDs2Outs; ++r) acc[r] += w * v[r];
+  if (slide) {
+#pragma unroll
+    for (int r = 0; r + 1 < kDs2Outs; ++r) v[r] = v[r + 1];
+    v[kDs2Outs - 1] = s_u[mid_skew(next)];
+  }
+}
+
+// src: theta1 [C, n4] (kFromTheta: the discriminator runs here, with
+// prev_theta [C]) or fm_demod [C, n4] float32.  tails [C, (NN2 - 2) +
+// (NH - 1)]: the new ds x2 tail (the last NN2 - 2 fm_demod samples) then
+// the new Hilbert tail (the last NH - 1 fm_out samples), written by each
+// channel's last tile.
+template <bool kFromTheta, int NN2, int NH>
+__global__ void __launch_bounds__(kMidThreads)
+k12_mid_fused_kernel(const float* __restrict__ src,
+                     const float* __restrict__ prev_theta, float scale,
+                     const float* __restrict__ w2_rev,
+                     const float* __restrict__ tail2,
+                     const float* __restrict__ wh_rev,
+                     const float* __restrict__ htail, int n4,
+                     float* __restrict__ re, float* __restrict__ im,
+                     float* __restrict__ tails) {
+  constexpr int H2 = NN2 - 2, HH = NH - 1, D = (NH - 1) / 2;
+  constexpr int NF = kMidTile + HH;  // fm_out window: tile + Hilbert halo
+  constexpr int NFP = (NF + kDs2Outs - 1) / kDs2Outs * kDs2Outs;
+  // fmd window: every sample the ds x2 items read (their last loads
+  // included), from fmd index 2 (i0 - HH) - H2
+  constexpr int NU = 2 * NFP + NN2;
+  constexpr int OFF = kFromTheta ? 1 : 0;  // the discriminator's previous
+  constexpr int NLOAD = (NU + OFF + kMidThreads - 1) / kMidThreads;
+  __shared__ float s_u[mid_skew(NU) + 1];
+  __shared__ float s_t[kFromTheta ? NU + 1 : 1];
+  __shared__ float s_f[mid_skew(NF + kHilbOuts + NH) + 1];
+  __shared__ float s_w2[NN2], s_wh[NH];
+  const int n8 = n4 / 2;
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.x * kMidTile;
+  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
+  const bool last = i0 + nt == n8;
+  const int nf = nt + HH;                 // fm_out values it needs
+  const int j0 = 2 * (i0 - HH) - H2;      // fmd index of s_u[0]
+  const int nu = 2 * nf + H2;             // fmd values they read
+  const float* x = src + (int64_t)c * n4;
+  for (int k = threadIdx.x; k < NN2; k += kMidThreads)
+    s_w2[k] = FMT_AT(w2_rev, k, NN2);
+  for (int k = threadIdx.x; k < NH; k += kMidThreads)
+    s_wh[k] = FMT_AT(wh_rev, k, NH);
+
+  // the source over the window, every load of a thread issued before any
+  // is used (kFromTheta: one sample more, the discriminator's first
+  // previous one, staged in s_t)
+  float raw[NLOAD];
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int b = threadIdx.x + k * kMidThreads;  // source j0 - OFF + b
+    const int j = j0 - OFF + b;
+    raw[k] = b < nu + OFF && j >= 0 ? FMT_AT(x, j, n4) : 0.0f;
+  }
+  if constexpr (kFromTheta) {
+#pragma unroll
+    for (int k = 0; k < NLOAD; ++k) {
+      const int b = threadIdx.x + k * kMidThreads;
+      if (b < nu + 1) s_t[b] = raw[k];
+    }
+    __syncthreads();
+  }
+
+  // fm_demod over the window (j < 0: the carried ds x2 tail; below it
+  // nothing reads: fm_out before the block comes from the Hilbert tail)
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int b = threadIdx.x + k * kMidThreads;
+    if (b >= nu) continue;
+    const int j = j0 + b;
+    float v = 0.0f;
+    if (j >= 0) {
+      if constexpr (kFromTheta) {
+        const float prev =
+            j == 0 ? FMT_AT(prev_theta, c, gridDim.y) : s_t[b];
+        v = disc_value(s_t[b + 1], prev, scale);
+      } else {
+        v = raw[k];
+      }
+      if (last && j >= n4 - H2)
+        FMT_AT(tails, (int64_t)c * (H2 + HH) + j - (n4 - H2),
+               (int64_t)gridDim.y * (H2 + HH)) = v;
+    } else if (j >= -H2) {
+      v = FMT_AT(tail2, (int64_t)c * H2 + H2 + j, (int64_t)gridDim.y * H2);
+    }
+    s_u[mid_skew(b)] = v;
+  }
+  __syncthreads();
+
+  // ds x2: fm_out[i] = sum_k w2[k] fmd[2 i - H2 + k] = s_u[2 a + k] for
+  // window position a = i - (i0 - HH); before the block, the Hilbert tail
+  for (int it = threadIdx.x; it * kDs2Outs < nf; it += kMidThreads) {
+    const int a0 = it * kDs2Outs;
+    float acc[kDs2Outs], ev[kDs2Outs], od[kDs2Outs];
+#pragma unroll
+    for (int r = 0; r < kDs2Outs; ++r) {
+      acc[r] = 0.0f;
+      ev[r] = s_u[mid_skew(2 * a0 + 2 * r)];
+      od[r] = s_u[mid_skew(2 * a0 + 2 * r + 1)];
+    }
+    // even taps read ev, odd taps od; after its tap each slides by one
+    // output (two samples)
+#pragma unroll
+    for (int k = 0; k < NN2; ++k) {
+      const float wk = s_w2[k];
+      if (k & 1) {
+        ds2_tap(acc, od, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
+      } else {
+        ds2_tap(acc, ev, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kDs2Outs; ++r) {
+      const int a = a0 + r;
+      if (a < nf) {
+        const int i = i0 - HH + a;
+        float f = acc[r];
+        if (i < 0) {
+          f = FMT_AT(htail, (int64_t)c * HH + HH + i,
+                     (int64_t)gridDim.y * HH);
+        } else if (last && i >= n8 - HH) {
+          FMT_AT(tails, (int64_t)c * (H2 + HH) + H2 + i - (n8 - HH),
+                 (int64_t)gridDim.y * (H2 + HH)) = f;
+        }
+        s_f[mid_skew(a)] = f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Hilbert: im[i] = sum_k wh[k] fm_out[i - HH + k] = s_f[(i - i0) + k],
+  // re[i] = fm_out[i - D] = s_f[(i - i0) + HH - D]
+  for (int it = threadIdx.x; it * kHilbOuts < nt; it += kMidThreads) {
+    const int a0 = it * kHilbOuts;
+    float acc[kHilbOuts], v[kHilbOuts];
+#pragma unroll
+    for (int r = 0; r < kHilbOuts; ++r) {
+      acc[r] = 0.0f;
+      v[r] = s_f[mid_skew(a0 + r)];
+    }
+#pragma unroll
+    for (int k = 0; k < NH; ++k) {
+      const float wk = s_wh[k];
+#pragma unroll
+      for (int r = 0; r < kHilbOuts; ++r) acc[r] += wk * v[r];
+      if (k + 1 < NH) {
+#pragma unroll
+        for (int r = 0; r + 1 < kHilbOuts; ++r) v[r] = v[r + 1];
+        v[kHilbOuts - 1] = s_f[mid_skew(a0 + kHilbOuts + k)];
+      }
+    }
+    float d[kHilbOuts];
+#pragma unroll
+    for (int r = 0; r < kHilbOuts; ++r) d[r] = s_f[mid_skew(a0 + r + HH - D)];
+    static_assert(kHilbOuts == 4, "one float4 store a plane");
+    const int64_t o = (int64_t)c * n8 + i0 + a0;  // nt % 4 == 0
+#ifdef FMT_CHECKED
+    FMT_AT(im, o + 3, (int64_t)gridDim.y * n8);
+    FMT_AT(re, o + 3, (int64_t)gridDim.y * n8);
+#endif
+    *reinterpret_cast<float4*>(im + o) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(re + o) = make_float4(d[0], d[1], d[2], d[3]);
+  }
+}
+
+// p[at .. at + kBatch) into v, four floats a load (at % 4 == 0)
+__device__ __forceinline__ void load_batch(const float* __restrict__ p,
+                                           int64_t at, int64_t total,
+                                           float (&v)[kBatch]) {
+#ifdef FMT_CHECKED
+  FMT_AT(p, at + kBatch - 1, total);
+#endif
+#pragma unroll
+  for (int u = 0; u < kBatch; u += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + at + u);
+    v[u] = q.x;
+    v[u + 1] = q.y;
+    v[u + 2] = q.z;
+    v[u + 3] = q.w;
+  }
+}
+
+// kBatch steps of the peak IIR's recurrence on both planes from (br, bi),
+// the pilot power summed in double in time order, the outputs stored at
+// yr, yi + at (four floats a store)
+__device__ __forceinline__ void peak_batch(Peak2& pr, Peak2& pi, double& pw,
+                                           const float (&br)[kBatch],
+                                           const float (&bi)[kBatch],
+                                           float b0, float b1, float b2,
+                                           float a1, float a2,
+                                           float* __restrict__ yr,
+                                           float* __restrict__ yi,
+                                           int64_t at, int64_t total) {
+  float orr[kBatch], oi[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    orr[u] = peak_step(pr, br[u], b0, b1, b2, a1, a2);
+    oi[u] = peak_step(pi, bi[u], b0, b1, b2, a1, a2);
+    pw += (double)(orr[u] * orr[u] + oi[u] * oi[u]);
+  }
+#ifdef FMT_CHECKED
+  FMT_AT(yr, at + kBatch - 1, total);
+  FMT_AT(yi, at + kBatch - 1, total);
+#endif
+#pragma unroll
+  for (int u = 0; u < kBatch; u += 4) {
+    *reinterpret_cast<float4*>(yr + at + u) =
+        make_float4(orr[u], orr[u + 1], orr[u + 2], orr[u + 3]);
+    *reinterpret_cast<float4*>(yi + at + u) =
+        make_float4(oi[u], oi[u + 1], oi[u + 2], oi[u + 3]);
+  }
+}
+
+// the peak IIR's channel spread: kPeakLanes channels a block, a warp of
+// its own (256 warps at C = 2048, on every SM).  Measured at the pre-split
+// cell (PERF.md): K12 3.414 ms at 32 lanes, 3.300 at 16, 3.242 at 8, 3.225
+// at 4: the same recurrence, its loads spread over more SMs.
+constexpr int kPeakLanes = 8;
+
+// the peak IIR's recurrence (peak_step on both planes) and the pilot power,
+// one thread a channel, kPeakLanes a block; yr, yi [C, n] the filtered
+// planes (theta is their angle: k12_theta_kernel).  Each lane keeps three
+// batches of kBatch steps of its rows in flight (four register buffers in
+// turn) while it runs the present one: one thread a channel gives few
+// warps, so the loads' latency, not the recurrence, sets the pace unless
+// enough of them are under way.  n % kBatch == 0.
+__global__ void __launch_bounds__(kPeakLanes)
+k12_peak_rec_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                    int n, int channels, float b0, float b1, float b2,
+                    float a1, float a2, const float* __restrict__ st_in,
+                    float* __restrict__ st_out, float* __restrict__ yr,
+                    float* __restrict__ yi, float* __restrict__ power) {
+  const int c = blockIdx.x * kPeakLanes + threadIdx.x;
+  if (c >= channels) return;
+  const int ns = 8 * channels;  // state floats
+  const int s0 = 8 * c;
+  Peak2 pr{FMT_AT(st_in, s0, ns), FMT_AT(st_in, s0 + 1, ns),
+           FMT_AT(st_in, s0 + 2, ns), FMT_AT(st_in, s0 + 3, ns)};
+  Peak2 pi{FMT_AT(st_in, s0 + 4, ns), FMT_AT(st_in, s0 + 5, ns),
+           FMT_AT(st_in, s0 + 6, ns), FMT_AT(st_in, s0 + 7, ns)};
+  const int64_t row = (int64_t)c * n, total = (int64_t)channels * n;
+  const int nb = n / kBatch;
+  double pw = 0.0;
+  // batch q's rows at row + q kBatch (a batch past the last reads the
+  // last again: loaded, never run)
+  auto at = [&](int q) { return row + (int64_t)min(q, nb - 1) * kBatch; };
+  float r0[kBatch], i0[kBatch], r1[kBatch], i1[kBatch], r2[kBatch],
+      i2[kBatch], r3[kBatch], i3[kBatch];
+  load_batch(re, at(0), total, r0);
+  load_batch(im, at(0), total, i0);
+  load_batch(re, at(1), total, r1);
+  load_batch(im, at(1), total, i1);
+  load_batch(re, at(2), total, r2);
+  load_batch(im, at(2), total, i2);
+  for (int q = 0; q < nb; q += 4) {
+    load_batch(re, at(q + 3), total, r3);
+    load_batch(im, at(q + 3), total, i3);
+    peak_batch(pr, pi, pw, r0, i0, b0, b1, b2, a1, a2, yr, yi, at(q), total);
+    load_batch(re, at(q + 4), total, r0);
+    load_batch(im, at(q + 4), total, i0);
+    if (q + 1 < nb)
+      peak_batch(pr, pi, pw, r1, i1, b0, b1, b2, a1, a2, yr, yi, at(q + 1),
+                 total);
+    load_batch(re, at(q + 5), total, r1);
+    load_batch(im, at(q + 5), total, i1);
+    if (q + 2 < nb)
+      peak_batch(pr, pi, pw, r2, i2, b0, b1, b2, a1, a2, yr, yi, at(q + 2),
+                 total);
+    load_batch(re, at(q + 6), total, r2);
+    load_batch(im, at(q + 6), total, i2);
+    if (q + 3 < nb)
+      peak_batch(pr, pi, pw, r3, i3, b0, b1, b2, a1, a2, yr, yi, at(q + 3),
+                 total);
+  }
+  const float out[8] = {pr.x1, pr.x2, pr.y1, pr.y2,
+                        pi.x1, pi.x2, pi.y1, pi.y2};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) FMT_AT(st_out, s0 + k, ns) = out[k];
+  FMT_AT(power, c, channels) = (float)pw;
+}
+
+// theta[i] = atan2_poly(yi[i], yr[i]) / 2 pi for i < n, in place over yr
+// (which theta aliases), four a thread (n % 4 == 0)
+__global__ void k12_theta_kernel(float* __restrict__ theta,
+                                 const float* __restrict__ yi, int64_t n) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+#ifdef FMT_CHECKED
+  FMT_AT(theta, i + 3, n);
+  FMT_AT(yi, i + 3, n);
+#endif
+  const float4 r = *reinterpret_cast<const float4*>(theta + i);
+  const float4 q = *reinterpret_cast<const float4*>(yi + i);
+  *reinterpret_cast<float4*>(theta + i) =
+      make_float4(atan2_poly(q.x, r.x) * kInvTwoPi,
+                  atan2_poly(q.y, r.y) * kInvTwoPi,
+                  atan2_poly(q.z, r.z) * kInvTwoPi,
+                  atan2_poly(q.w, r.w) * kInvTwoPi);
+}
+
+// The fused route after fm_demod (K2: src = fmd) or after ds x4 + atan2
+// (K12: src = theta1, kFromTheta): the fused kernel -> re, im and the
+// tails; the recurrence -> yr (in theta), yi (scratch), power and the peak
+// state; the theta pass.
+template <bool kFromTheta>
+inline int launch_mid_fused(const float* src, const float* prev_theta,
+                            float scale, const float* w2_rev,
+                            const float* tail2, const float* wh_rev,
+                            const float* htail, float pk_b0, float pk_b1,
+                            float pk_b2, float pk_a1, float pk_a2,
+                            const float* pk_st_in, float* pk_st_out,
+                            int channels, int n4, float* re, float* im,
+                            float* theta, float* yi, float* tails,
+                            float* power, cudaStream_t stream) {
+  const int n8 = n4 / 2;
+  const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
+                  (unsigned)channels);
+  k12_mid_fused_kernel<kFromTheta, kFusedNn2, kFusedNh>
+      <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
+                                         tail2, wh_rev, htail, n4, re, im,
+                                         tails);
+  FMT_CHECK_LAUNCH();
+  k12_peak_rec_kernel<<<blocks_for(channels, kPeakLanes), kPeakLanes, 0,
+                        stream>>>(re, im, n8, channels, pk_b0, pk_b1, pk_b2,
+                                  pk_a1, pk_a2, pk_st_in, pk_st_out, theta,
+                                  yi, power);
+  FMT_CHECK_LAUNCH();
+  const int64_t t8 = (int64_t)channels * n8;
+  k12_theta_kernel<<<blocks_for(t8 / 4), kThreads, 0, stream>>>(theta, yi,
+                                                                  t8);
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
 // q[i] = q_i16(x[i], scale) for i < n: the int16 format's store of a plane
 // that a serial kernel wrote as float32 (K2's theta: the peak IIR storing
 // int16 itself, one 2-byte store per step or 16 at a time, was measured
@@ -260,12 +660,17 @@ inline int launch_disc(const float* theta1, const float* prev_theta,
 }
 
 // The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised by
-// the ds x2's loads): ds x2 into fm_out [C, n4/2] (scratch), the optional
-// de-emphasis in place, Hilbert -> re, im, and the peak IIR -> theta
-// [C, n4/2] and the pilot power [C], all float32.  Given re16 (the int16
-// format's outputs re16, im16, theta16), the Hilbert launch also writes
-// re16, im16 at kIqScale and q_i16_kernel theta16 at kPhScale from theta;
-// re, im and theta are then scratch.  n4/2 % kBatch == 0.
+// the ds x2's loads), by midend_route:
+// - fused (launch_mid_fused): re, im, the carried tails into tails
+//   [C, (nn2 - 2) + (nh - 1)], theta and the pilot power; yi [C, n4/2] is
+//   scratch, fm_out unused;
+// - launches: ds x2 into fm_out [C, n4/2] (scratch), the optional
+//   de-emphasis in place, Hilbert -> re, im, and the peak IIR -> theta
+//   [C, n4/2] and the pilot power [C], all float32.  Given re16 (the int16
+//   format's outputs re16, im16, theta16), the Hilbert launch also writes
+//   re16, im16 at kIqScale and q_i16_kernel theta16 at kPhScale from
+//   theta; re, im and theta are then scratch.  yi and tails unused.
+// n4/2 % kBatch == 0.
 template <class In>
 inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          const float* tail2, int use_deemph, float de_b0,
@@ -277,7 +682,20 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          int channels, int n4, float* fm_out, float* re,
                          float* im, float* theta, int16_t* re16,
                          int16_t* im16, int16_t* theta16, float* power,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float* yi = nullptr,
+                         float* tails = nullptr) {
+  if constexpr (sizeof(In) == sizeof(float)) {
+    if (midend_route(0, re16 != nullptr, use_deemph, nn2, nh, n4) ==
+        kMidFused) {
+      if (yi == nullptr || tails == nullptr)
+        return (int)cudaErrorInvalidValue;
+      return launch_mid_fused<false>(fmd, nullptr, 1.0f, w2_rev, tail2,
+                                     wh_rev, htail, pk_b0, pk_b1, pk_b2,
+                                     pk_a1, pk_a2, pk_st_in, pk_st_out,
+                                     channels, n4, re, im, theta, yi, tails,
+                                     power, stream);
+    }
+  }
   const int n8 = n4 / 2;
   const int64_t t8 = (int64_t)channels * n8;
   int err = fir_decimate(fmd, n4, tail2, w2_rev, nn2, 2, fm_out, channels,

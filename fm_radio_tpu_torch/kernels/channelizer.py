@@ -14,8 +14,10 @@ kernel has them:
   as four exact integer products (``csrc/channelizer_mma.cu``, int8 tensor
   cores);
 - 2: the single-bf16 mode on packed words: the same operators rounded once
-  to bf16, three Karatsuba products with float32 sums (the same source,
-  bf16 tensor cores).
+  to bf16, three Karatsuba products with float32 sums
+  (``csrc/channelizer_wgmma.cu``, bf16 tensor cores through wgmma, the
+  operators streamed into shared memory by bulk copies in the order
+  :func:`wgmma_order` lays out).
 
 The fused operators (channelizer_pallas.py:361-406): with w[r, p] =
 taps[::-1][r*M + p], tl = max(ceil((K-1)*M / 128), 1) carried columns and
@@ -67,14 +69,17 @@ M_RANGE = (2, 128)
 MAX_TAPS_PER_PHASE = 17
 T_MULTIPLE = 4096
 OUTS = ("f32", "i8", "i8ps")
-# the matrix kernels' (csrc/channelizer_mma.cu): packed words, M % 8 == 0,
-# and T a multiple of their tile of 64 columns of 128 samples
-MAT_T_MULTIPLE = 64 * 128
+# the matrix kernels': packed words, M % 8 == 0, and T a multiple of their
+# tile: 64 columns of 128 samples for the int8 kernel (csrc/
+# channelizer_mma.cu), 128 for the bf16 kernel (csrc/channelizer_wgmma.cu;
+# the JAX gate, parallel/channelizer.py::pick_tile_chan, only admits such T)
+MAT_T_MULTIPLE = {1: 64 * 128, 2: 128 * 128}
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = ([_P, _P, _I] + [_P] * 5 + [_I, _I, _I, _build.I64, _I]
              + [_P] * 5 + [_P])
 _MMA_ARGTYPES = ([_P] * 5 + [_I] * 4 + [_build.I64, _I] + [_P] * 5 + [_P])
+_WGMMA_ARGTYPES = [_P] * 4 + [_I] * 3 + [_build.I64, _I] + [_P] * 5 + [_P]
 
 
 class ChannelizerTables(NamedTuple):
@@ -99,7 +104,9 @@ class QuantTables(NamedTuple):
     q_M, ``aux`` float32 [3, 128]: 1/q_M in [0, 0], then per output o the
     +1 recentre corrections of y_re and y_im.  splits 2: ``mats`` bf16
     [3, n_c, 128, 128] (re, im, re + im), ``aux`` None.  ``frag``: the same
-    matrices in the order the kernel's warps load them (:func:`frag_order`)."""
+    matrices in the order the kernel loads them: int8 in mma.sync fragment
+    order (:func:`frag_order`), bf16 in wgmma stage order
+    (:func:`wgmma_order`)."""
 
     mats: torch.Tensor
     aux: torch.Tensor | None
@@ -211,6 +218,30 @@ def frag_order(a: np.ndarray) -> np.ndarray:
                                                           32, 4)
 
 
+def wgmma_order(mats: torch.Tensor) -> torch.Tensor:
+    """bf16 operators [3 (g), n_c, 128 (o), 128 (s)] -> [3, n_c, 4 (kh), 4
+    (kc), 128 (o), 8 (e)]: the stages the wgmma kernel streams, in the
+    order it consumes them (g, then shift c, then kh).  Stage (g, c, kh)
+    holds inputs s = 32 kh .. 32 kh + 31 of all 128 output rows, 8 KB, in
+    wgmma's no-swizzle K-major layout: core matrices of 8 rows x 16 bytes
+    (8 inputs), rows 16 bytes apart (so the 8-row groups 128 bytes apart)
+    and the K chunks kc of 8 inputs 128 x 16 = 2048 bytes apart; element
+    [g, c, kh, kc, o, e] = mats[g, c, o, 32 kh + 8 kc + e]."""
+    g, n_c = mats.shape[:2]
+    return mats.reshape(g, n_c, 128, 4, 4, 8).permute(0, 1, 3, 4, 2, 5) \
+        .contiguous()
+
+
+def wgmma_operator_bytes(n_captures: int, t: int, k: int, m: int) -> int:
+    """Bytes of operators the wgmma kernel moves from L2 into shared memory
+    for one call on W = ``n_captures`` captures of T = ``t`` samples: every
+    tile of 128 columns streams all 3 x n_c x 32 KB of operators once
+    (csrc/channelizer_wgmma.cu)."""
+    n_tiles = n_captures * (t // (128 * 128))
+    n_c = tail_columns(k, m) + 1
+    return n_tiles * 3 * n_c * 128 * 128 * 2
+
+
 def make_quant_tables(taps, m: int, splits: int, descale: bool,
                       device="cpu") -> QuantTables:
     """The :class:`QuantTables` of mode ``splits`` (1 or 2) for prototype
@@ -219,17 +250,15 @@ def make_quant_tables(taps, m: int, splits: int, descale: bool,
     if splits == 1:
         mats, aux = int8_operators(taps, m, descale)
         mats_t = torch.from_numpy(mats)
-        raw = mats
+        a = np.ascontiguousarray(np.swapaxes(mats, 1, 2)).reshape(
+            mats.shape[0], 128, -1)
+        frag = torch.from_numpy(frag_order(a.view(np.uint8)))
     elif splits == 2:
         mats_t = bf16_operators(taps, m, descale)
         aux = None
-        raw = mats_t.view(torch.int16).numpy().view(np.uint8)
-        raw = raw.reshape(3, -1, 128, 256)
+        frag = wgmma_order(mats_t.view(torch.int16))
     else:
         raise ValueError(f"no matrix tables for splits={splits}")
-    a = np.ascontiguousarray(np.swapaxes(raw, 1, 2)).reshape(
-        raw.shape[0], 128, -1)
-    frag = torch.from_numpy(frag_order(a.view(np.uint8)))
     return QuantTables(
         mats=mats_t.to(device),
         aux=None if aux is None else torch.from_numpy(aux).to(device),
@@ -442,7 +471,7 @@ def _check(tab: ChannelizerTables, state_p, xr: torch.Tensor, m: int,
     if splits not in SPLITS:
         raise ValueError(f"channelizer: splits={splits} is not one of "
                          f"{SPLITS}")
-    t_mult = T_MULTIPLE if splits == 3 else MAT_T_MULTIPLE
+    t_mult = T_MULTIPLE if splits == 3 else MAT_T_MULTIPLE[splits]
     if xr.ndim != 2 or xr.shape[-1] % t_mult or xr.shape[-1] == 0:
         raise ValueError(f"channelizer: input {tuple(xr.shape)} is not "
                          f"[W, T] with T a multiple of {t_mult}")
@@ -518,31 +547,42 @@ def channelize(tab: ChannelizerTables, state_p, xp, m: int,
 
 def _launch_mat(tab: ChannelizerTables, state_p, words: torch.Tensor,
                 m: int, out: str, splits: int):
-    """Launch the int8- (splits 1) or bf16-matrix (splits 2) kernel of
-    ``csrc/channelizer_mma.cu`` on packed words [W, T]."""
+    """Launch the int8-matrix kernel (splits 1, ``csrc/channelizer_mma.cu``)
+    or the bf16-matrix kernel (splits 2, ``csrc/channelizer_wgmma.cu``) on
+    packed words [W, T]."""
     global launches_i8mat, launches_bf16mat
     qt = quant_tables(tab, splits, out)
     dev = words.device
     sr, si = state_p
     n_w, t = words.shape
-    aux = qt.aux if splits == 1 else torch.zeros((3, 128), device=dev)
     _build.require("channelizer_mma", dev, torch.float32, words=words, sr=sr,
-                   si=si, aux=aux)
-    _build.require("channelizer_mma", dev, torch.int32, frag=qt.frag)
+                   si=si)
     if words.data_ptr() % 16:
         raise ValueError("channelizer_mma: words must be 16-byte aligned")
     sr_out, si_out = torch.empty_like(sr), torch.empty_like(si)
     y_re, y_im, y8 = _empty_outs(out, n_w, m, t // m, dev)
-    fn = _build.function("channelizer_mma", "fmt_channelize_mma",
-                         _MMA_ARGTYPES)
-    err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
-             qt.frag.data_ptr(), aux.data_ptr(), splits, m,
-             tab.w_rev.shape[0], n_w, t, OUTS.index(out), _ptr(y_re),
-             _ptr(y_im), _ptr(y8), sr_out.data_ptr(), si_out.data_ptr(),
-             _build.stream_ptr(dev))
-    _build.check("channelizer_mma", err)
+    k = tab.w_rev.shape[0]
     if splits == 1:
+        _build.require("channelizer_mma", dev, torch.float32, aux=qt.aux)
+        _build.require("channelizer_mma", dev, torch.int32, frag=qt.frag)
+        fn = _build.function("channelizer_mma", "fmt_channelize_mma",
+                             _MMA_ARGTYPES)
+        err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
+                 qt.frag.data_ptr(), qt.aux.data_ptr(), splits, m, k, n_w, t,
+                 OUTS.index(out), _ptr(y_re), _ptr(y_im), _ptr(y8),
+                 sr_out.data_ptr(), si_out.data_ptr(),
+                 _build.stream_ptr(dev))
+        _build.check("channelizer_mma", err)
         launches_i8mat += 1
     else:
+        _build.require("channelizer_wgmma", dev, torch.int16, opers=qt.frag)
+        fn = _build.function("channelizer_wgmma", "fmt_channelize_wgmma",
+                             _WGMMA_ARGTYPES)
+        err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
+                 qt.frag.data_ptr(), m, k, n_w, t, OUTS.index(out),
+                 _ptr(y_re), _ptr(y_im), _ptr(y8),
+                 sr_out.data_ptr(), si_out.data_ptr(),
+                 _build.stream_ptr(dev))
+        _build.check("channelizer_wgmma", err)
         launches_bf16mat += 1
     return (sr_out, si_out), ((y_re, y_im) if out == "f32" else y8)

@@ -36,11 +36,16 @@ import torch
 
 from fm_radio_tpu_torch.kernels import _build
 from fm_radio_tpu_torch.kernels.frontend import check_state, frontend_i8_plain
+from fm_radio_tpu_torch.kernels import midend as _mid
 from fm_radio_tpu_torch.kernels.midend import (
+    buf_ptrs,
     mid_args,
+    mid_buffers,
     mid_c_args,
     mid_outputs,
+    mid_tails,
     midend_plain,
+    midend_route,
 )
 from fm_radio_tpu_torch.ops.cmath import f32
 from fm_radio_tpu_torch.ops.discriminator import disc_scale
@@ -53,7 +58,7 @@ launches_ps = 0
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = (
     [_P] * 4 + [_I, _F, _P, _F, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
-    + [_F] * 5 + [_P, _P, _I, _I, _I] + [_P] * 7 + [_P]
+    + [_F] * 5 + [_P, _P, _I, _I, _I] + [_P] * 10
 )
 
 
@@ -141,25 +146,33 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, ps: bool):
     if any(t.data_ptr() % 4 for t in (x, tail8, b1, b2)):
         raise ValueError(f"{name}: int8 inputs must be 4-byte aligned")
     f = dict(device=dev, dtype=torch.float32)
+    route = midend_route(coeffs, cfg, n4)
+    buf = mid_buffers(route, a, c, n8, dev)
     theta1 = torch.empty((c, n4), **f)
-    fmd = torch.empty((c, n4), **f)
-    fm_out, re, im, theta = (torch.empty((c, n8), **f) for _ in range(4))
+    fmd = torch.empty((c, n4), **f) if route == "launches" else None
+    re, im, theta = (torch.empty((c, n8), **f) for _ in range(3))
     power = torch.empty((c,), **f)
     scale = f32(disc_scale(cfg.analog.f_wbfm_deviation,
                            float(cfg.rates.fs_fm_in)))
+    fm_out_p, yi_p, tails_p = buf_ptrs(buf)
     fn = _build.function("k12", "fmt_k12", _ARGTYPES)
     err = fn(x.data_ptr(), tail8.data_ptr(), b1.data_ptr(), b2.data_ptr(),
              nn1, s_row, prev.data_ptr(), scale, *mid_c_args(coeffs, cfg, a),
-             c, b, int(ps), theta1.data_ptr(), fmd.data_ptr(),
-             fm_out.data_ptr(), re.data_ptr(), im.data_ptr(),
-             theta.data_ptr(), power.data_ptr(), _build.stream_ptr(dev))
+             c, b, int(ps), theta1.data_ptr(),
+             None if fmd is None else fmd.data_ptr(), fm_out_p,
+             re.data_ptr(), im.data_ptr(), theta.data_ptr(),
+             power.data_ptr(), yi_p, tails_p, _build.stream_ptr(dev))
     _build.check("k12", err)
+    if route == "fused":
+        _mid.launches_fused += 1
+    fmd_t, fm_out_t = mid_tails(route, a, buf, fmd)
     x_tail = _ps_tail(x, nn1 - 4) if ps else x[..., x.shape[-1] - (nn1 - 4):]
     tail = x_tail.to(torch.float32) + 1.0
     new = dict(state)
     new["ds_fm_in"] = torch.complex(tail[0], tail[1])
     new["disc_prev_theta"] = theta1[:, -1]
-    return mid_outputs(new, cfg, a, fmd, fm_out, power), (re, im), theta
+    return (mid_outputs(new, cfg, a, fmd_t, fm_out_t, power, n8), (re, im),
+            theta)
 
 
 def k12(coeffs, cfg, state: dict, x8: torch.Tensor):

@@ -9,9 +9,13 @@ Counterpart of ``fm_radio_tpu/kernels/midend_pallas.py::midend_pallas``:
 
 State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
 ``peak_pilot``, ``agc_pilot`` (midend_pallas.py:448-460).  The kernel is
-``csrc/midend.cu``, which runs K12's last four launches (the device code is
-shared through ``csrc/k12_stages.cuh``); the helpers that pass this state
-to the card and back serve ``kernels/k12.py`` too.
+``csrc/midend.cu``, which runs K12's mid end (the device code is shared
+through ``csrc/k12_stages.cuh``); the helpers that pass this state to the
+card and back serve ``kernels/k12.py`` too.  :func:`midend_route` picks
+its launches: with de-emphasis off, in float32, the fused route (ds x2 and
+Hilbert in one tiled kernel, the peak IIR's recurrence, a parallel theta
+pass); else ds x2, the de-emphasis, Hilbert and the peak IIR each a
+launch.  Both compute the same values.
 
 The int16 inter-stage format (``kernels/qformat.py``): fm_demod may be
 int16 at FM_SCALE, dequantised by the ds x2's loads, and with ``out_i16``
@@ -42,15 +46,68 @@ from fm_radio_tpu_torch.ops.fir import decimate_core, hilbert_fir_p
 from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
 
 # kernel launches since the counter was last set to 0 (float32 in and
-# out; then any with an int16 input or output)
+# out; then any with an int16 input or output); and the fused route's
+# launches, by K2 or by K12 (kernels/k12.py), beside their own counts
 launches = 0
 launches_i16 = 0
+launches_fused = 0
 
 _NO = 128  # the TPU kernel's band width
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = ([_P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
-             + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 9)
+             + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 11)
+ROUTE_ARGTYPES = [_I] * 6
+
+# the filter orders the fused route is built for (csrc/k12_stages.cuh:
+# kFusedNn2, kFusedNh: the receiver's ds x2 and Hilbert filters)
+FUSED_TAPS = (64, 65)
+# channels a block of the fused route's peak IIR (csrc/k12_stages.cuh:
+# kPeakLanes, a measured choice, PERF.md)
+PEAK_LANES = 8
+
+
+# re/im outputs a CTA of the fused kernel (csrc/k12_stages.cuh: kMidTile)
+MID_TILE = 1024
+
+
+def midend_plan(coeffs, cfg, c: int, n4: int, in_i16: bool = False,
+                out_i16: bool = False) -> list[tuple[str, tuple]]:
+    """The launches of the mid end after fm_demod (K2, and K12 after its
+    discriminator), each as (kernel, grid): a host copy of
+    ``csrc/k12_stages.cuh::launch_midend``'s plan for :func:`midend_route`.
+    Fused: one CTA per (tile of :data:`MID_TILE` outputs, channel), one
+    per :data:`PEAK_LANES` channels, the theta pass; launches: ds x2,
+    the de-emphasis where it is on, Hilbert, the peak IIR, the int16
+    theta store where the outputs are int16."""
+    n8 = n4 // 2
+    if midend_route(coeffs, cfg, n4, in_i16, out_i16) == "fused":
+        return [("k12_mid_fused_kernel", (-(-n8 // MID_TILE), c)),
+                ("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
+                ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
+    plan = [("fir_decimate_kernel", (-(-c * n8 // 256),))]
+    if cfg.use_deemphasis_filter:
+        plan.append(("k12_deemph_kernel", (-(-c // 32),)))
+    plan += [("k12_hilbert_kernel", (-(-c * n8 // 256),)),
+             ("k12_peak_kernel", (-(-c // 32),))]
+    if out_i16:
+        plan.append(("q_i16_kernel", (-(-c * n8 // 256),)))
+    return plan
+
+
+def midend_route(coeffs, cfg, n4: int, in_i16: bool = False,
+                 out_i16: bool = False) -> str:
+    """"fused" or "launches": the route ``fmt_midend`` and ``fmt_k12``
+    take (a host copy of ``csrc/k12_stages.cuh::midend_route``, by which
+    the wrappers allocate).  Fused where ds x2 -> Hilbert run in float32
+    with de-emphasis off, the filters have the fused kernel's orders and
+    the block holds both carried tails (B/4 >= ds x2 taps - 2, B/8 >=
+    Hilbert taps - 1)."""
+    nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
+    if (in_i16 or out_i16 or cfg.use_deemphasis_filter
+            or (nn2, nh) != FUSED_TAPS or n4 < nn2 - 2 or n4 // 2 < nh - 1):
+        return "launches"
+    return "fused"
 
 
 def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
@@ -69,17 +126,21 @@ def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
     return c_blk, t_blk
 
 
-def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power) -> dict:
+def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power,
+                  n8: int | None = None) -> dict:
     """Carried state after the mid end (midend_pallas.py:448-460): the
-    ds x2 input tail, the Hilbert input tail, the IIR histories and the
-    pilot AGC gain from the block's power sum."""
+    ds x2 input tail, the Hilbert input tail (the last samples of ``fmd``
+    and ``fm_out``, which may be those tails already), the IIR histories
+    and the pilot AGC gain from the block's power sum over its ``n8``
+    (default: ``fm_out``'s length) outputs."""
     new = dict(state)
     new["ds_fm_out"] = fmd[:, fmd.shape[-1] - state["ds_fm_out"].shape[-1] :]
     new["hilbert"] = fm_out[:, fm_out.shape[-1] - state["hilbert"].shape[-1] :]
     new["deemph"] = deemph
     new["peak_pilot"] = peak
-    new["agc_pilot"] = _agc_gain(state["agc_pilot"],
-                                 div_scalar(power, fm_out.shape[-1]), 1.0, 0.2)
+    n8 = fm_out.shape[-1] if n8 is None else n8
+    new["agc_pilot"] = _agc_gain(state["agc_pilot"], div_scalar(power, n8),
+                                 1.0, 0.2)
     return new
 
 
@@ -170,10 +231,41 @@ def mid_iir_state(state: dict, cfg, a: dict):
     return deemph, peak
 
 
-def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power) -> dict:
+def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power,
+                n8: int | None = None) -> dict:
     """State after a launch, from its IIR state outputs and power sum."""
     return mid_new_state(state, fmd, fm_out, *mid_iir_state(state, cfg, a),
-                         power)
+                         power, n8)
+
+
+def mid_buffers(route: str, a: dict, c: int, n8: int, dev) -> dict:
+    """The mid end's scratch by ``route``: ``fm_out`` [C, n8] on the
+    launches route; on the fused route ``yi`` [C, n8] and ``tails`` [C,
+    (ds x2 taps - 2) + (Hilbert taps - 1)], where the kernel writes the new
+    carried tails."""
+    f = dict(device=dev, dtype=torch.float32)
+    if route == "launches":
+        return {"fm_out": torch.empty((c, n8), **f), "yi": None,
+                "tails": None}
+    h = a["tail2"].shape[-1] + a["htail"].shape[-1]
+    return {"fm_out": None, "yi": torch.empty((c, n8), **f),
+            "tails": torch.empty((c, h), **f)}
+
+
+def buf_ptrs(buf: dict) -> list:
+    """``fm_out``'s, ``yi``'s and ``tails``' pointers (None where unused)."""
+    return [None if buf[k] is None else buf[k].data_ptr()
+            for k in ("fm_out", "yi", "tails")]
+
+
+def mid_tails(route: str, a: dict, buf: dict, fmd):
+    """(fmd, fm_out) for :func:`mid_outputs`: on the fused route the two
+    carried tails the kernel wrote, else ``fmd`` and the ``fm_out``
+    scratch."""
+    if route == "launches":
+        return fmd, buf["fm_out"]
+    h2 = a["tail2"].shape[-1]
+    return buf["tails"][:, :h2], buf["tails"][:, h2:]
 
 
 def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
@@ -184,22 +276,30 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
     _build.require("midend", dev, fmd.dtype, fmd=fmd)
     f = dict(device=dev, dtype=torch.float32)
     n8 = n4 // 2
+    in_i16 = fmd.dtype == torch.int16
+    route = midend_route(coeffs, cfg, n4, in_i16, out_i16)
+    buf = mid_buffers(route, a, c, n8, dev)
     # float32 re, im, theta: the outputs, or with out_i16 the scratch that
     # the int16 outputs are quantised from
-    fm_out, re, im, theta = (torch.empty((c, n8), **f) for _ in range(4))
+    re, im, theta = (torch.empty((c, n8), **f) for _ in range(3))
     out16 = tuple(torch.empty((c, n8), device=dev, dtype=torch.int16)
                   for _ in range(3)) if out_i16 else (None,) * 3
     power = torch.empty((c,), **f)
+    fm_out_p, yi_p, tails_p = buf_ptrs(buf)
     fn = _build.function("midend", "fmt_midend", _ARGTYPES)
-    err = fn(fmd.data_ptr(), int(fmd.dtype == torch.int16),
-             *mid_c_args(coeffs, cfg, a), c, n4, fm_out.data_ptr(),
-             re.data_ptr(), im.data_ptr(), theta.data_ptr(),
+    err = fn(fmd.data_ptr(), int(in_i16), *mid_c_args(coeffs, cfg, a), c, n4,
+             fm_out_p, re.data_ptr(), im.data_ptr(), theta.data_ptr(),
              *(t.data_ptr() if out_i16 else None for t in out16),
-             power.data_ptr(), _build.stream_ptr(dev))
+             power.data_ptr(), yi_p, tails_p, _build.stream_ptr(dev))
     _build.check("midend", err)
+    if route == "fused":
+        global launches_fused
+        launches_fused += 1
     # the carried tail, dequantised: only its last samples, not the planes
-    tail = fmd[:, n4 - a["tail2"].shape[-1] :]
-    new = mid_outputs(state, cfg, a, dq_if_i16(tail, FM_SCALE), fm_out, power)
+    fmd_t, fm_out_t = mid_tails(route, a, buf,
+                                fmd[:, n4 - a["tail2"].shape[-1] :])
+    new = mid_outputs(state, cfg, a, dq_if_i16(fmd_t, FM_SCALE), fm_out_t,
+                      power, n8)
     if out_i16:
         re, im, theta = out16
     return new, (re, im), theta

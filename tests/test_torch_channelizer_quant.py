@@ -4,8 +4,9 @@ run in interpret mode (``channelize_pallas(..., interpret=True,
 splits=s)``) and against the port's exact mode.
 
 Inputs come from numpy seeds; both packages start from one state.  The
-CUDA kernels (csrc/channelizer_mma.cu) are held against these plain
-versions on the card by chip_smoke.py and tests/test_torch_gpu.py.
+CUDA kernels (csrc/channelizer_mma.cu, int8; csrc/channelizer_wgmma.cu,
+bf16) are held against these plain versions on the card by chip_smoke.py
+and tests/test_torch_gpu.py.
 """
 
 import os
@@ -217,6 +218,50 @@ def test_frag_order_is_the_mma_fragment_layout():
                             fb[pl, ks, ot, lane, r], want)
 
 
+@pytest.mark.parametrize("m,k", [(32, 16), (8, 16), (128, 17)])
+def test_wgmma_order_is_the_stage_layout(m, k):
+    """The bf16 tables' ``frag`` is the operators in the wgmma kernel's
+    stage order: un-permuted it gives ``bf16_operators`` (the Karatsuba
+    matrices of ``fused_operators``, rounded once), and read as bytes it is
+    the layout the kernel's descriptors address: stage (g, c, kh) at
+    ((g n_c + c) 4 + kh) 8192 bytes, input chunk kc (8 inputs, 16 bytes)
+    of output row o at kc 2048 + o 16 (no-swizzle core matrices: rows 16
+    bytes apart, the K chunks 2048 apart)."""
+    taps = tch.make_channelizer_taps(m, k)
+    n_c = kch.tail_columns(k, m) + 1
+    qt = kch.make_quant_tables(taps, m, 2, True)
+    mats = kch.bf16_operators(taps, m, True).view(torch.int16)
+    assert qt.frag.dtype == torch.int16
+    assert tuple(qt.frag.shape) == (3, n_c, 4, 4, 128, 8)
+    back = qt.frag.permute(0, 1, 4, 2, 3, 5).reshape(3, n_c, 128, 128)
+    assert torch.equal(back, mats)
+    m_re, m_im = kch.fused_operators(taps, m, True)
+    ref = torch.from_numpy(np.swapaxes(
+        np.stack([m_re, m_im, m_re + m_im]), 2, 3).astype(np.float32))
+    assert torch.equal(back.view(torch.bfloat16), ref.to(torch.bfloat16))
+    flat = qt.frag.numpy().reshape(-1).view(np.uint8)
+    src = mats.numpy().view(np.uint8).reshape(3, n_c, 128, 256)
+    rng = np.random.default_rng(m + k)
+    for _ in range(200):
+        g, c = rng.integers(3), rng.integers(n_c)
+        o, s = rng.integers(128), rng.integers(128)
+        kh, kc, e = s // 32, (s % 32) // 8, s % 8
+        at = ((g * n_c + c) * 4 + kh) * 8192 + kc * 2048 + o * 16 + e * 2
+        np.testing.assert_array_equal(flat[at : at + 2],
+                                      src[g, c, o, 2 * s : 2 * s + 2])
+
+
+def test_wgmma_operator_bytes():
+    """The operator bytes the wgmma kernel moves from L2 per call: every
+    tile of 128 columns streams all 3 x n_c x 32 KB once; at the wideband
+    cell (W = 64, T = 2^22, M = 32, K = 16: 16,384 tiles, n_c = 5) 8.05 GB,
+    half of the 16.1 GB the mma.sync kernel's 32,768 tiles of 64 columns
+    read; at M = 128, K = 17 n_c = 17."""
+    assert kch.wgmma_operator_bytes(64, 1 << 22, 16, 32) == \
+        16384 * 3 * 5 * 32768 == 8_053_063_680
+    assert kch.wgmma_operator_bytes(2, 65536, 17, 128) == 8 * 3 * 17 * 32768
+
+
 @pytest.mark.parametrize("splits", [1, 2])
 def test_mat_state_equals_exact_and_planes_run_exact(splits):
     """The carried state of a matrix mode is the exact mode's, bit for
@@ -281,7 +326,8 @@ def test_mat_dispatch_never_falls_back(monkeypatch, tmp_path):
     """The matrix modes dispatch by device as every wrapper does: a tensor
     on another device is refused, a failed build raises, and the kernel
     wrapper refuses what its kernel does not take (planes, M % 8 != 0,
-    T not a multiple of 8192) instead of running the exact kernel."""
+    T not a multiple of its tile: 8192 for the int8 kernel, 16384 for the
+    bf16 one) instead of running the exact kernel."""
     from fm_radio_tpu_torch.kernels import _build
 
     m = 32
@@ -296,14 +342,19 @@ def test_mat_dispatch_never_falls_back(monkeypatch, tmp_path):
         w = torch.zeros((1, 512 * m))
         with pytest.raises(ValueError, match="packed words"):
             kch.channelize(tab, st, (w, w), m, out="i8ps", splits=splits)
-        with pytest.raises(ValueError, match="multiple of 8192"):
-            kch.channelize(tab, st, w[:, :4096], m, out="i8ps",
+        t_mult = kch.MAT_T_MULTIPLE[splits]
+        with pytest.raises(ValueError, match=f"multiple of {t_mult}"):
+            kch.channelize(tab, st, w[:, : t_mult // 2], m, out="i8ps",
                            splits=splits)
+    assert kch.MAT_T_MULTIPLE == {1: 8192, 2: 16384}
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc failed on channelizer_mma"):
         _build.function("channelizer_mma", "fmt_channelize_mma", [])
+    with pytest.raises(RuntimeError,
+                       match="nvcc failed on channelizer_wgmma"):
+        _build.function("channelizer_wgmma", "fmt_channelize_wgmma", [])
 
 
 def _station_words(m, n, channel):

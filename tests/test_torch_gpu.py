@@ -178,6 +178,38 @@ def test_channelizer_mat_kernels_match_plain_on_card():
 
 
 @pytest.mark.gpu
+def test_wgmma_channelizer_edges_on_card():
+    """The bf16-matrix kernel (wgmma, operator stages by bulk copy) against
+    its plain version at its edge shapes (T = 16,384, one tile of 128
+    columns, on W = 1 and 3 captures; all three output forms) within
+    chip_smoke.py's tolerances, and its SASS holds wgmma and bulk-copy
+    instructions."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_wgmma_edges()
+    assert len(rows) == 2 and all(r["ok"] for r in rows), rows
+    sass = chip_smoke.sass_counts()
+    if "error" not in sass:
+        assert sass["HGMMA"] > 0 and sass["UTMALDG"] + sass["UBLKCP"] > 0, \
+            sass
+
+
+@pytest.mark.gpu
+def test_fused_midend_edges_on_card():
+    """K12 (flat and phase-split) and K2 on the fused route equal their
+    plain versions (max abs error 0) at C = 40 and B = 512, 8,192 and
+    8,320 (a partial tile, one whole tile, a whole and a partial one), two
+    blocks with carried state; the C entry's route equals its host copy."""
+    _need_card()
+    import chip_smoke
+
+    res = chip_smoke.compare_mid_edges()
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
+    assert not res["route_mismatch"] and not chip_smoke.DUMPS, res
+
+
+@pytest.mark.gpu
 def test_k12_small_repeats_on_poisoned_memory():
     """K12, the PLL, extract and BPSK against their plain versions at the
     shape where K12 once disagreed (C = 8, B = 16,384), on three fresh
