@@ -49,7 +49,14 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    instructions (``cuobjdump -sass``); K12 flat, phase-split and K2 on
    their fused mid end at C=40, B = 512, 8,192 and 8,320, max abs error 0,
    and the mid end's route on the card against its host copy
-   (:func:`compare_mid_edges`);
+   (:func:`compare_mid_edges`); the sequential PLL at C = 40 and 5, N =
+   16, 32, 48 and 16,384 on both forms, and extract at C = 40, N = 1,024
+   and 2,048 on its three forms, on its blocked and tiled routes, max abs
+   error 0, on the default and the bounds-checked build (there the PLL at
+   N <= 48), and extract's
+   route on the card against its host copy (:func:`compare_pll_edges`,
+   :func:`compare_extract_edges`); the PLL's SASS saved for its
+   dependent chain (:func:`pll_sass`);
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its six
@@ -73,7 +80,8 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    and read just after; then each kernel and its plain version timed alone
    on the arguments ``demod_block`` gave it in the last block, and
    compared there with the tolerances of phase 3; the cell profiled (its
-   profile must show the fused mid end's three kernels);
+   profile must show the fused mid end's three kernels, the PLL's and the
+   blocked extract's; so must bench.py's wideband lens at splits=1);
 4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
    f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
    complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
@@ -274,7 +282,8 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # the same order (the kernels are built with -fmad=false), so they agree to
 # rounding; the power sums differ only in summation order.  K12 (flat and
 # phase-split) and K2 admit no slack on either route of their mid end: the
-# fused route sums every FIR output in the plain version's tap order.  The channelizer
+# fused route sums every FIR output in the plain version's tap order; nor
+# do the PLL and extract (on both of its routes).  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact,
 # and so must the int8-matrix channelizer (integer products, then the plain
 # version's float epilogue).  The bf16-matrix channelizer's tensor cores sum
@@ -282,7 +291,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # BF16MAT_F32_REL of the output's rms, its int8 outputs to 1 LSB on at most
 # BF16MAT_I8_SHARE of the samples (a value that lies on a rounding boundary
 # may move); its carried state is exact.
-TOL = {"k12": 0.0, "pll": 1e-6, "extract": 1e-5, "bpsk": 1e-6,
+TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 1e-6,
        "k12_ps": 0.0, "channelizer": 0.0, "frontend": 1e-6,
        "frontend_i8": 1e-6, "midend": 0.0, "chain": 1e-5,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
@@ -389,6 +398,9 @@ COUNTERS = (
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
     ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
+    # extract's blocked route, at the receiver's filter orders (each form
+    # counts too)
+    ("extract_blocked", "extract", "launches_blocked"),
 )
 
 
@@ -1129,7 +1141,8 @@ def i16_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     ms = start.elapsed_time(end)
     check_counts(launches, {"frontend_i8_i16": blocks, "midend_i16": blocks,
                             "pll_i16": blocks, "extract_i16": blocks,
-                            "bpsk": blocks}, "i16 cell")
+                            "extract_blocked": blocks, "bpsk": blocks},
+                 "i16 cell")
     if tuple(outs["audio"].shape) != (channels, block // 32, 2):
         raise RuntimeError(f"i16: audio shape {tuple(outs['audio'].shape)}")
     for k in ("audio", "rds_pred"):
@@ -1485,7 +1498,8 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     k1 = "frontend_i8" if label == "k12off" else "frontend"
     check_counts(launches, {k1: blocks, "midend": blocks, "pll": blocks,
                             "extract": blocks, "bpsk": blocks,
-                            "midend_fused": blocks},
+                            "midend_fused": blocks,
+                            "extract_blocked": blocks},
                  f"split cell {label}")
     audio = outs["audio"]
     if tuple(audio.shape) != (channels, block // 32, 2):
@@ -1594,6 +1608,17 @@ PRESPLIT_CELL = ("presplit", "i8", {"frontend_int8": True})
 # the pre-split cell
 FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
                  "k12_theta_kernel")
+# the redesigned PLL and extract kernels (csrc/pll.cu, csrc/extract.cu),
+# which the pre-split cell and bench.py's wideband lens (splits=1) launch
+REDESIGNED_KERNELS = ("pll_kernel", "extract_blocked_kernel")
+
+
+def lacking(prof: dict, names) -> list:
+    """The kernels of ``names`` that have no device time in the profile
+    ``prof`` (:func:`_profile`)."""
+    return [k for k in names
+            if not any(key.startswith(k) or f"::{k}" in key
+                       for key in prof["device_ms_per_block"])]
 
 # the megakernel's forms: (label, input kind, DemodConfig kwargs)
 CHAIN_FORMS = (
@@ -1802,7 +1827,8 @@ def chunked_pll_path(channels: int = 256, block: int = 1048576,
         ms = start.elapsed_time(end)
         pll = "pll_chunked" if g > 1 else "pll"
         check_counts(launches, {"k12": blocks, pll: blocks, "extract": blocks,
-                                "bpsk": blocks, "midend_fused": blocks},
+                                "bpsk": blocks, "midend_fused": blocks,
+                                "extract_blocked": blocks},
                      f"PLL cell G={g}")
         for k in ("audio", "rds_pred"):
             if not bool(torch.isfinite(outs[k]).all()):
@@ -2104,7 +2130,7 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     ps = m == 32 and bridge == "i8"
     chan = CHANNELIZER_BY_SPLITS[calls["channelizer"][5]]
     want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks,
-            "midend_fused": blocks}
+            "midend_fused": blocks, "extract_blocked": blocks}
     if bridge == "f32":
         want.update(frontend=blocks, midend=blocks)
     else:
@@ -2143,18 +2169,26 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     return res
 
 
-def sass_counts(lib: str = "channelizer_wgmma") -> dict:
-    """Counts of the warpgroup MMA (HGMMA) and bulk-copy (UTMALDG tensor,
-    UBLKCP plain) instructions in a built library's SASS (cuobjdump
-    -sass), or {"error"} where the toolkit has no cuobjdump."""
+def _sass(lib: str):
+    """(the SASS of a built library by cuobjdump -sass, None), or (None,
+    the reason) where the toolkit has no cuobjdump."""
     from fm_radio_tpu_torch.kernels import _build
 
     exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    so = str(_build.build_dir() / f"lib{lib}.so")
     if not os.path.isfile(exe):
-        return {"error": f"no cuobjdump beside {_build.nvcc()}"}
-    sass = subprocess.run([exe, "-sass", so], capture_output=True,
-                          text=True, timeout=120).stdout
+        return None, f"no cuobjdump beside {_build.nvcc()}"
+    so = str(_build.build_dir() / f"lib{lib}.so")
+    return subprocess.run([exe, "-sass", so], capture_output=True,
+                          text=True, timeout=120).stdout, None
+
+
+def sass_counts(lib: str = "channelizer_wgmma") -> dict:
+    """Counts of the warpgroup MMA (HGMMA) and bulk-copy (UTMALDG tensor,
+    UBLKCP plain) instructions in a built library's SASS, or {"error"}
+    where the toolkit has no cuobjdump."""
+    sass, err = _sass(lib)
+    if err:
+        return {"error": err}
     return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
 
 
@@ -2256,6 +2290,190 @@ def compare_mid_edges(device="cuda") -> dict:
             "route_mismatch": bad}
 
 
+def _pll_theta(c: int, n: int, seed: int, device):
+    """A pilot phase track [c, n] (cycles) the loop can lock on: a 19 kHz
+    ramp at the PLL's rate with a per-channel offset and small noise,
+    wrapped to [-0.5, 0.5), made on the card from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    i = torch.arange(n, device=device, dtype=torch.float64)
+    ramp = (i * (19000.0 / 16000.0)).remainder(1.0)[None]
+    off = torch.rand((c, 1), generator=g, device=device, dtype=torch.float64)
+    x = (ramp + off + 0.01 * torch.randn((c, n), generator=g, device=device,
+                                         dtype=torch.float64))
+    return (x - torch.round(x)).float()
+
+
+def compare_pll_edges(device="cuda",
+                      steps=(16, 32, 48, 16384)) -> list[dict]:
+    """The sequential PLL kernel (``kernels/pll.py::pilot_pll_seq``) against
+    its plain version at edge shapes, max abs error 0: C = 40 and 5 (not a
+    multiple of its 8 lanes a block) at N = 16, 32 and 48 (fewer batches
+    than the three it keeps in flight) and 16,384 (the cell's), or the N of
+    ``steps``, on float32 theta and on int16 theta and dt, two blocks with
+    carried state each.  Returns one verdict row per (form, C, N)."""
+    from fm_radio_tpu_torch.kernels import pll as kp
+    from fm_radio_tpu_torch.kernels.qformat import PH_SCALE, q_i16
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG
+    from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
+
+    cfg = INT8_CONFIG
+    rows = []
+    for c in (40, 5):
+        for n in steps:
+            th = _pll_theta(c, 2 * n, seed=c + n, device=device)
+            for form in ("pll", "pll_i16"):
+                x = q_i16(th, PH_SCALE) if form == "pll_i16" else th
+                st = pilot_pll_init_state(c, device)
+                acc = {}
+                for blk in range(2):
+                    xb = x[:, blk * n : (blk + 1) * n].contiguous()
+                    a = (cfg, st, xb)
+                    kout, pout = kp.pilot_pll_seq(*a), kp.pll_plain(*a)
+                    e = stage_errors("pll", kout, pout)
+                    dump_mismatch(form, a, kout, pout, e)
+                    _merge(acc, form, e)
+                    st = kout[0]
+                torch.cuda.synchronize(device)
+                rows.append(dict(_verdict(form, acc[form]), channels=c,
+                                 steps=n, dt_dtype=str(kout[1].dtype)))
+    return rows
+
+
+def _extract_state(cfg, co, c: int, g: torch.Generator, device) -> dict:
+    """``demod_init_state`` with extract's carried tails (matching the
+    filters of ``co``) and L-R offset drawn from ``g``."""
+    from fm_radio_tpu_torch.models.demod import demod_init_state
+
+    st = demod_init_state(cfg, c, device)
+
+    def tail(n):
+        return torch.complex(*(0.3 * torch.randn((c, n), generator=g,
+                                                 device=device)
+                               for _ in range(2)))
+
+    st["ds_audio_lpr"] = tail(co.taps_audio_lpr.shape[0] - 4)
+    st["ds_audio_lmr"] = tail(co.taps_audio_lmr.shape[0] - 4)
+    st["ds_rds"] = tail(co.taps_rds.shape[0] - 8)
+    st["lmr_phase_err"] = torch.rand((c,), generator=g, device=device) - 0.5
+    return st
+
+
+def _extract_inputs(form: str, c: int, n: int, g: torch.Generator, device):
+    """(re, im), dt [c, n] of ``form`` ("extract", "extract_i16" or
+    "extract_i16_f32dt"): N(0, 0.25) planes and dt uniform in [-0.5, 0.5),
+    quantised where the form is int16."""
+    from fm_radio_tpu_torch.kernels.qformat import IQ_SCALE, PH_SCALE, q_i16
+
+    re, im = (0.5 * torch.randn((c, n), generator=g, device=device)
+              for _ in range(2))
+    dt = torch.rand((c, n), generator=g, device=device) - 0.5
+    if form != "extract":
+        re, im = q_i16(re, IQ_SCALE), q_i16(im, IQ_SCALE)
+    if form == "extract_i16":
+        dt = q_i16(dt, PH_SCALE)
+    return (re, im), dt
+
+
+def compare_extract_edges(device="cuda") -> dict:
+    """Extract against its plain version at edge shapes, max abs error 0
+    (the RDS power within POWER_RTOL: the plain version sums it in another
+    order), two blocks with carried state from random tails, on random
+    planes and dt: C = 40 at N = 1,024 (one tile, whose halo is all
+    carried tail) and 2,048, on its three forms (float32; int16 planes and
+    dt; int16 planes and float32 dt), on the receiver's filters (the
+    blocked route) and on filters of other orders within the halos (64
+    taps for L+R and L-R, 96 for RDS: the tiled route), each call's route
+    read on the counters; and the C entry's route
+    (``fmt_extract_route``) against its host copy
+    (``kernels/extract.py::extract_route``) over filter orders.  Returns
+    {"rows": verdict rows, "route_mismatch": [...]}."""
+    from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.kernels import extract as ke
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, device)
+    g = torch.Generator(device=device).manual_seed(13)
+
+    def taps(nn):
+        t = torch.rand((nn,), generator=g, device=device)
+        return t / t.sum()
+
+    co_other = co._replace(taps_audio_lpr=taps(64), taps_audio_lmr=taps(64),
+                           taps_rds=taps(96))
+    c = 40
+    rows = []
+    for label, cx in (("blocked", co), ("tiled", co_other)):
+        if ke.extract_route(cx) != label:
+            raise RuntimeError(f"extract: {label} filters take the "
+                               f"{ke.extract_route(cx)} route")
+        for n in (1024, 2048):
+            for form in ("extract", "extract_i16", "extract_i16_f32dt"):
+                st = _extract_state(cfg, cx, c, g, device)
+                acc = {}
+                for blk in range(2):
+                    a = (cx, cfg, st, *_extract_inputs(form, c, n, g, device))
+                    before = ke.launches_blocked
+                    kout = ke.extract(*a)
+                    pout = ke.extract_plain(*a)
+                    took = ("blocked" if ke.launches_blocked > before
+                            else "tiled")
+                    if took != label:
+                        raise RuntimeError(f"extract {form} at C = {c}, N = "
+                                           f"{n}: took the {took} route, not "
+                                           f"{label}")
+                    e = stage_errors("extract", kout, pout)
+                    dump_mismatch(form, a, kout, pout, e)
+                    _merge(acc, form, e)
+                    st = kout[0]
+                torch.cuda.synchronize(device)
+                rows.append(dict(_verdict(form, acc[form]), route=label,
+                                 channels=c, samples=n))
+    fn = _build.function("extract", "fmt_extract_route", ke.ROUTE_ARGTYPES)
+    bad = []
+    for nn_a in (64, 124, 128, 132):
+        for nn_r in (64, 96, 128, 136):
+            cx = co._replace(taps_audio_lpr=co.taps_audio_lpr.new_zeros(nn_a),
+                             taps_rds=co.taps_rds.new_zeros(nn_r))
+            host, card = ke.extract_route(cx), fn(nn_a, nn_r)
+            if (host == "blocked") != (card == 1):
+                bad.append((nn_a, nn_r, host, card))
+    return {"rows": rows, "route_mismatch": bad}
+
+
+def pll_sass() -> dict:
+    """The sequential PLL kernel's SASS: each form's function saved as
+    chiprun_out/pll_sass_<form>.txt (the loop's dependent chain is read
+    from there, PERF.md), and its counts of the opcodes the steps run,
+    over the 64 steps of the unrolled loop body; {"error"} where the
+    toolkit has no cuobjdump."""
+    sass, err = _sass("pll")
+    if err:
+        return {"error": err}
+    res = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "pll_kernel" not in name or "chunked" in name:
+            continue
+        form = "i16" if "IsE" in name.split("pll_kernel", 1)[1][:4] else "f32"
+        os.makedirs(DUMP_DIR, exist_ok=True)
+        with open(os.path.join(DUMP_DIR, f"pll_sass_{form}.txt"), "w") as f:
+            f.write(part)
+        ops = []
+        for ln in part.splitlines():
+            text = ln.split("*/", 1)[1] if ln.strip().startswith("/*") \
+                else ""
+            words = text.split(";", 1)[0].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops.append(words[0].split(".")[0])
+        res[form] = {"function": name, "instructions": len(ops),
+                     **{op: ops.count(op) for op in (
+                         "FADD", "FMUL", "FMNMX", "FRND", "LDG", "STG")}}
+    return res
+
+
 def mat_library_ms(args, reps: int = 5) -> dict:
     """The matrix channelizer's product alone as one PyTorch call, on the
     recorded arguments (tables, state, words, M, out, splits), with its B
@@ -2352,7 +2570,8 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     ms = start.elapsed_time(end)
     check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
                             "bpsk": blocks, "k12_ps": 0, "channelizer": 0,
-                            "midend_fused": blocks},
+                            "midend_fused": blocks,
+                            "extract_blocked": blocks},
                  "pre-split main path")
     audio = outs["audio"]
     if tuple(audio.shape) != (channels, block // 32, 2):
@@ -2837,6 +3056,35 @@ def main() -> int:
             sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
         raise RuntimeError(f"channelizer_wgmma has no wgmma or bulk copy "
                            f"in its SASS: {sass}")
+    # the PLL and extract at their edge shapes, on the default and the
+    # bounds-checked build (every global index of both kernels checked),
+    # extract's other route, and the PLL's SASS
+    t0 = time.perf_counter()
+    pedge = compare_pll_edges(dev)
+    eedge = compare_extract_edges(dev)
+    try:
+        with _build.checked_build():
+            # the short blocks: the plain loop over the cell's 16,384
+            # steps ran on the default build
+            pedge += [dict(r, build="checked")
+                      for r in compare_pll_edges(dev, steps=(16, 32, 48))]
+            ce = compare_extract_edges(dev)
+    except RuntimeError as e:
+        raise RuntimeError(f"PLL / extract edges on the bounds-checked "
+                           f"build: {e}")
+    eedge["rows"] += [dict(r, build="checked") for r in ce["rows"]]
+    eedge["route_mismatch"] += ce["route_mismatch"]
+    for r in pedge + eedge["rows"]:
+        log(f"[compare] pll / extract edge: {json.dumps(r)}")
+    psass = pll_sass()
+    log(f"[build] pll SASS: {json.dumps(psass)}; extract route mismatches "
+        f"{eedge['route_mismatch']}; {time.perf_counter() - t0:.1f} s")
+    bad = [(r["name"], r.get("channels"), r.get("steps", r.get("samples")),
+            r.get("route")) for r in pedge + eedge["rows"] if not r["ok"]]
+    if bad or eedge["route_mismatch"]:
+        raise RuntimeError(f"PLL / extract edge shapes disagree {bad} or "
+                           f"extract's route differs on the card "
+                           f"{eedge['route_mismatch']}")
 
     # 3b. the split path's kernels against plain on the card
     t0 = time.perf_counter()
@@ -2913,12 +3161,10 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the bench cell: {bad}")
-    fused = [k for k in FUSED_KERNELS
-             if not any(key.startswith(k) or f"::{k}" in key
-                        for key in prof["device_ms_per_block"])]
+    fused = lacking(prof, FUSED_KERNELS + REDESIGNED_KERNELS)
     if fused:
         raise RuntimeError(f"the pre-split cell's profile lacks the fused "
-                           f"mid end's kernels {fused}: "
+                           f"mid end's or the redesigned kernels {fused}: "
                            f"{list(prof['device_ms_per_block'])}")
 
     # 4b. the split cells at full width
@@ -2996,7 +3242,12 @@ def main() -> int:
     log(f"[wideband] {json.dumps(wb_bf16)}")
     # bench.py's lens, the bf16 mode and the exact mode beside them
     for sp in (1, 2, 3):
-        log(f"[profile] {json.dumps(profile_wideband(sp, device=dev))}")
+        prof = profile_wideband(sp, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+        if sp == 1 and lacking(prof, REDESIGNED_KERNELS):
+            raise RuntimeError(f"bench.py's wideband lens profile lacks "
+                               f"{lacking(prof, REDESIGNED_KERNELS)}: "
+                               f"{list(prof['device_ms_per_block'])}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for c in (wb_bench, wb, wb_i8_bench, wb_i8, wb_bf16)
            for r in c["compare"] if not r["ok"]]
@@ -3088,7 +3339,7 @@ def main() -> int:
     err_small, err_full = {}, {}
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
-              + wedge + medge["rows"]):
+              + wedge + medge["rows"] + pedge + eedge["rows"]):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
@@ -3190,6 +3441,17 @@ def main() -> int:
         if n == "channelizer_bf16mat":
             k.update(sass=sass, operator_bytes=wb_bf16["operator_bytes"],
                      edge_shapes=wedge)
+        if n in ("pll", "pll_i16"):
+            k.update(sass=psass.get("i16" if n == "pll_i16" else "f32",
+                                    psass),
+                     edge_shapes=[r for r in pedge if r["name"] == n])
+        if n in ("extract", "extract_i16", "extract_i16_f32dt"):
+            # extract's blocked route: its launches on the kernel's path
+            # (each also counted by its form)
+            k.update(launches_blocked_route=(
+                paths[launch_path[n]] if n in launch_path
+                else home[n]["launches"])["extract_blocked"],
+                edge_shapes=[r for r in eedge["rows"] if r["name"] == n])
         if n in launch_path:
             k["launches_path"] = launch_path[n]
     # the device-memory probes: each at its fastest variant of the sweep

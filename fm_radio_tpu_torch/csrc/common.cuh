@@ -22,7 +22,9 @@
 // where that fails, prints the function, file, line, index, bound, block
 // and thread, and traps.  K12's device code (k12.cu, k12_stages.cuh and
 // fir_decimate_kernel below) reads and writes through it, so the split
-// K1/K2 and the megakernel that share that code are checked too.  In the
+// K1/K2 and the megakernel that share that code are checked too, and so do
+// the sequential PLL (pll.cu::pll_kernel) and the extract kernels on both
+// routes' global memory (extract.cu).  In the
 // checked build every C entry also synchronises after each launch
 // (FMT_CHECK_LAUNCH), so a trap is reported by the entry whose kernel
 // raised it.
@@ -73,7 +75,8 @@ constexpr float kInvTwoPi = 0x1.45f306p-3f;
 constexpr int kThreads = 256;
 
 // Serial kernels run one thread per channel, one warp of channels per block
-// (64 blocks at C = 2048).  Each loads the next kBatch steps of its row into
+// (64 blocks at C = 2048; BPSK and the chunked PLL: the sequential PLL and
+// the peak IIR's recurrence run 8 channels a block).  Each loads the next kBatch steps of its row into
 // registers at once: the loads do not depend on the recurrence, so their
 // latency is paid once per batch instead of once per step.  Their step
 // counts must be multiples of kBatch (the C entries check).
@@ -184,6 +187,101 @@ __device__ __forceinline__ void store_i16_batch(int16_t* __restrict__ p,
   d[0] = make_uint4(w[0], w[1], w[2], w[3]);
   d[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
+
+// The batches of a serial kernel's row (the peak IIR's recurrence in
+// k12_stages.cuh, the PLL in pll.cu), kBatch steps at a time by 16-byte
+// loads and stores.  A Batch<T> holds kBatch steps as they were loaded,
+// float32 (four float4) or the int16 format (two 16-byte words, eight
+// values each); batch_at dequantises step u only where it is used, so no
+// instruction waits on a load before its batch runs.
+
+// p[at .. at + kBatch) into v, four floats a load (at % 4 == 0)
+__device__ __forceinline__ void load_batch(const float* __restrict__ p,
+                                           int64_t at, int64_t total,
+                                           float (&v)[kBatch]) {
+#ifdef FMT_CHECKED
+  FMT_AT(p, at + kBatch - 1, total);
+#endif
+#pragma unroll
+  for (int u = 0; u < kBatch; u += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + at + u);
+    v[u] = q.x;
+    v[u + 1] = q.y;
+    v[u + 2] = q.z;
+    v[u + 3] = q.w;
+  }
+}
+
+template <class T>
+struct Batch;
+template <>
+struct Batch<float> {
+  float v[kBatch];
+};
+template <>
+struct Batch<int16_t> {
+  uint4 w[kBatch / 8];
+};
+
+// p[at .. at + kBatch) into b (p + at 16-byte aligned)
+__device__ __forceinline__ void load_raw(const float* __restrict__ p,
+                                         int64_t at, int64_t total,
+                                         Batch<float>& b) {
+  load_batch(p, at, total, b.v);
+}
+__device__ __forceinline__ void load_raw(const int16_t* __restrict__ p,
+                                         int64_t at, int64_t total,
+                                         Batch<int16_t>& b) {
+#ifdef FMT_CHECKED
+  FMT_AT(p, at + kBatch - 1, total);
+#endif
+#pragma unroll
+  for (int k = 0; k < kBatch / 8; ++k)
+    b.w[k] = *reinterpret_cast<const uint4*>(p + at + 8 * k);
+}
+
+// step u of the batch as float32 (the int16 format at `scale`, as
+// load_f32 dequantises it); u is a constant after unrolling
+__device__ __forceinline__ float batch_at(const Batch<float>& b, int u,
+                                          float) {
+  return b.v[u];
+}
+__device__ __forceinline__ float batch_at(const Batch<int16_t>& b, int u,
+                                          float scale) {
+  const uint4 q = b.w[u / 8];
+  const int j = (u % 8) / 2;
+  const uint32_t w = j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  return dq_i16((int16_t)(uint16_t)(u % 2 ? w >> 16 : w & 0xffffu), scale);
+}
+
+// v[0 .. kBatch) stored at p[at ..) as float32 (four float4) or as the
+// int16 format at `scale` (store_i16_batch)
+__device__ __forceinline__ void store_batch(float* __restrict__ p, int64_t at,
+                                            int64_t total,
+                                            const float (&v)[kBatch],
+                                            float) {
+#ifdef FMT_CHECKED
+  FMT_AT(p, at + kBatch - 1, total);
+#endif
+#pragma unroll
+  for (int u = 0; u < kBatch; u += 4)
+    *reinterpret_cast<float4*>(p + at + u) =
+        make_float4(v[u], v[u + 1], v[u + 2], v[u + 3]);
+}
+__device__ __forceinline__ void store_batch(int16_t* __restrict__ p,
+                                            int64_t at, int64_t total,
+                                            const float (&v)[kBatch],
+                                            float scale) {
+#ifdef FMT_CHECKED
+  FMT_AT(p, at + kBatch - 1, total);
+#endif
+  store_i16_batch(p, at, v, scale);
+}
+
+// A plane stored skewed in shared memory: one pad word every 32, so that
+// threads whose windows start 32 samples apart (a register-blocked FIR's
+// neighbours) load from distinct banks.
+__host__ __device__ constexpr int mid_skew(int x) { return x + (x >> 5); }
 
 // sum_k w_rev[k] * v[k] for k < nn, from the oldest sample up: one
 // decimated-correlation output over a window that lies in one array (the

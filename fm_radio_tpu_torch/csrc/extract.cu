@@ -9,34 +9,39 @@
 // planes, RDS ds x8 on both planes (128 taps each).  It also returns the
 // per-channel RDS power sum for the fused RDS AGC.
 //
-// What bounds it on this card is not known yet.  Measured: 2.948 ms of
-// device time per block of 2048 channels x 16,384 samples (torch.profiler;
-// NVIDIA H100 80GB HBM3, power limit 700.00 W).  Each input sample feeds
-// 32 multiply-adds per audio plane (three planes) and 16 per RDS plane
-// (two), and every multiply-add reads its sample from shared memory.
-// Neighbouring threads read at bases 4 apart (audio) and 8 apart (RDS), so
-// those reads meet 4-way and 8-way bank conflicts: the first suspect.
+// What bounds it on this card: instruction issue in the FIRs.  Each input
+// sample feeds 32 multiply-adds per audio plane (three planes) and 16 per
+// RDS plane (two): 4.29 G at the bench cell (2048 channels x 16,384
+// samples), each a rounded FMUL and FADD under -fmad=false (8.6 G FP32
+// operations: ~0.29 ms at the card's 67 TFLOP/s), far above its bytes
+// (0.179 ms).  The first design (extract_kernel below, now the tiled
+// route) computed one output a thread, loading each multiply-add's sample
+// from shared memory (4- and 8-way bank conflicts) and its tap by __ldg:
+// 2.964 ms per block (NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// What the design does about it: one block per (time tile of 1024 samples,
-// channel).  The block mixes its tile plus a 128-sample halo into shared
-// memory once (5 planes, 23 KB), so every phasor is evaluated once per
-// sample and the FIRs read shared memory.  Halo samples before the block
-// start come from the carried tails: ds_audio_lpr carries the RAW re/im
-// tail, ds_audio_lmr and ds_rds carry ALREADY MIXED tails (mixed with the
-// previous block's L-R offset), exactly as extract_pallas.py:292-306.
-// The RDS power is summed per tile in output order and then per channel in
-// tile order by a second small kernel: deterministic, no atomics.
-// Register-tiling several outputs per thread, and fusing the FIRs with
-// tensor cores, is later work.  The mix and the FIRs are
+// What the design does about it: one block per (time tile of 1024
+// samples, channel).  The block mixes its tile plus a 128-sample halo into
+// shared memory once (5 planes), so every phasor is evaluated once per
+// sample.  Halo samples before the block start come from the carried
+// tails: ds_audio_lpr carries the RAW re/im tail, ds_audio_lmr and ds_rds
+// carry ALREADY MIXED tails (mixed with the previous block's L-R offset),
+// exactly as extract_pallas.py:292-306.  At the receiver's filter orders
+// (extract_route) the blocked kernel then runs the FIRs register-blocked
+// (extract_stages.cuh::fir_block: 8 outputs a thread on the ds x4
+// planes, 4 on the ds x8 planes, one sliding window a polyphase phase, so
+// one shared-memory load serves 8 or 4 multiply-adds; the planes skewed
+// so neighbouring threads hit distinct banks; the taps read from shared
+// memory as broadcasts), each output the same sum in the same order as
+// the plain version, so it stays bit-equal: ~0.57 ms at the bench cell
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  Other orders within the
+// halos keep extract_kernel.  The RDS power is summed per tile in output
+// order and then per channel in tile order by a second small kernel:
+// deterministic, no atomics.  The mix and the tiled FIRs are
 // extract_stages.cuh, which the megakernel (chain.cu) runs too.
 
 #include "extract_stages.cuh"
 
 namespace fmt {
-
-constexpr int kExtTile = 1024;  // fm_out samples per block
-constexpr int kExtHalo = 128;   // >= max(nn_audio - 4, nn_rds - 8)
-constexpr int kExtW = kExtHalo + kExtTile;
 
 // TX, TD: the planes' and dt's types, float32 or the int16 inter-stage
 // format (planes at kIqScale, dt at kPhScale; extract_pallas.py:141-146),
@@ -130,15 +135,63 @@ __global__ void extract_kernel(
   }
 }
 
-// pow[c] = sum of the per-tile partials, in tile order
-__global__ void extract_pow_kernel(const float* __restrict__ pow_part,
-                                   int n_tiles, int channels,
-                                   float* __restrict__ pow) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  float p = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) p += pow_part[(int64_t)c * n_tiles + t];
-  pow[c] = p;
+// ---- The blocked route: the receiver's filter orders (128 taps each) ----
+//
+// extract_blocked_kernel: the same tile, halo, mix and carried tails as
+// extract_kernel, the planes stored skewed and the FIRs register-blocked
+// (extract_stages.cuh: ext_put, ext_firs), one CTA a (tile, channel).  A
+// time-ordered walk of a channel's tiles by one CTA (the halo kept in
+// shared memory, the next tile's inputs fetched by cp.async.bulk) was
+// timed against it and was slower where C is small and no faster at C =
+// 2048 (PERF.md), so it was not kept.
+
+// CTAs an SM the blocked kernel is built for (its registers a thread:
+// nvcc -Xptxas -v)
+constexpr int kExtMinBlocks = 4;
+
+// The route (kernels/extract.py::extract_route is its host copy): the
+// blocked kernel where the L+R / L-R and the RDS filters have the orders
+// it is built for, else extract_kernel.
+enum ExtRoute { kExtTiled = 0, kExtBlocked = 1 };
+
+inline int extract_route(int nn_a, int nn_r) {
+  return nn_a == kExtTaps && nn_r == kExtTaps ? kExtBlocked : kExtTiled;
+}
+
+// one CTA a (tile, channel): grid (n / kExtTile, C)
+template <class TX, class TD>
+__global__ void __launch_bounds__(kExtThreads, kExtMinBlocks)
+extract_blocked_kernel(const ExtArgs<TX, TD> a) {
+  constexpr int NL = kExtW / kExtThreads;
+  static_assert(kExtW % kExtThreads == 0, "whole loads a thread");
+  __shared__ ExtShared sh;
+  const int tile = blockIdx.x, c = blockIdx.y;
+  const int n_tiles = gridDim.x, channels = gridDim.y;
+  const int t0 = tile * kExtTile;
+  const int64_t row = (int64_t)c * a.n, total = (int64_t)channels * a.n;
+  ext_taps(sh, a);
+  float co, so;
+  offset_phasor(FMT_AT(a.off, c, channels), co, so);
+  // the tile and its halo: every load of a thread issued before any is
+  // used, then the mix of each sample once
+  float lr[NL], li[NL], ld[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const int g = t0 - kExtHalo + (int)threadIdx.x + k * kExtThreads;
+    if (g >= 0) {
+      lr[k] = load_f32(&FMT_AT(a.xr, row + g, total), 0, kIqScale);
+      li[k] = load_f32(&FMT_AT(a.xi, row + g, total), 0, kIqScale);
+      ld[k] = load_f32(&FMT_AT(a.dt, row + g, total), 0, kPhScale);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const int e = threadIdx.x + k * kExtThreads;
+    ext_put(sh, a, c, channels, e, t0 - kExtHalo + e, lr[k], li[k], ld[k],
+            co, so);
+  }
+  __syncthreads();
+  ext_firs(sh, a, c, channels, tile, n_tiles);
 }
 
 }  // namespace fmt
@@ -150,7 +203,9 @@ using namespace fmt;
 // gives no other combination); off [C]; tails [C, halo] (raw L+R re, mixed
 // L-R re/im with halo_a = nn_a - 4; mixed RDS re/im with halo_r = nn_r -
 // 8); taps reversed; outputs lpr, lmr_re, lmr_im [C, N/4], rds_re, rds_im
-// [C, N/8], pow [C], scratch pow_part [C, N/1024], new mixed tails.
+// [C, N/8] (16-byte aligned on the blocked route), pow [C], scratch
+// pow_part [C, N/1024], new mixed tails.  The route (fmt_extract_route)
+// is taken by the filter orders.
 extern "C" int fmt_extract(
     const void* xr, const void* xi, const void* dt, int iq_i16, int dt_i16,
     const float* off, const float* t_lpr, const float* t_lmr_re,
@@ -166,25 +221,56 @@ extern "C" int fmt_extract(
     return (int)cudaErrorInvalidValue;
   const int n_tiles = n / kExtTile;
   const dim3 grid(n_tiles, channels);
+  if (extract_route(nn_a, nn_r) == kExtBlocked) {
+    // its outputs leave by float4 stores
+    if (((uintptr_t)lpr | (uintptr_t)lmr_re | (uintptr_t)lmr_im |
+         (uintptr_t)rds_re | (uintptr_t)rds_im) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+#define FMT_EXTRACT_ARGS(TX, TD)                                            \
+  ExtArgs<TX, TD> {                                                         \
+    (const TX*)xr, (const TX*)xi, (const TD*)dt, n, off, t_lpr, t_lmr_re,   \
+        t_lmr_im, t_rds_re, t_rds_im, wa_rev, wm_rev, wr_rev, lpr, lmr_re,  \
+        lmr_im, rds_re, rds_im, pow_part, o_lmr_re, o_lmr_im, o_rds_re,     \
+        o_rds_im                                                            \
+  }
+    if (dt_i16) {
+      extract_blocked_kernel<int16_t, int16_t>
+          <<<grid, kExtThreads, 0, stream>>>(FMT_EXTRACT_ARGS(int16_t, int16_t));
+    } else if (iq_i16) {
+      extract_blocked_kernel<int16_t, float>
+          <<<grid, kExtThreads, 0, stream>>>(FMT_EXTRACT_ARGS(int16_t, float));
+    } else {
+      extract_blocked_kernel<float, float>
+          <<<grid, kExtThreads, 0, stream>>>(FMT_EXTRACT_ARGS(float, float));
+    }
+#undef FMT_EXTRACT_ARGS
+  } else {
 #define FMT_EXTRACT_ARGS(TX, TD)                                           \
   (const TX*)xr, (const TX*)xi, (const TD*)dt, n, off, t_lpr, t_lmr_re,    \
       t_lmr_im, halo_a, t_rds_re, t_rds_im, halo_r, wa_rev, wm_rev, nn_a,  \
       wr_rev, nn_r, lpr, lmr_re, lmr_im, rds_re, rds_im, pow_part,         \
       o_lmr_re, o_lmr_im, o_rds_re, o_rds_im
-  if (dt_i16) {
-    extract_kernel<int16_t, int16_t><<<grid, kThreads, 0, stream>>>(
-        FMT_EXTRACT_ARGS(int16_t, int16_t));
-  } else if (iq_i16) {
-    extract_kernel<int16_t, float><<<grid, kThreads, 0, stream>>>(
-        FMT_EXTRACT_ARGS(int16_t, float));
-  } else {
-    extract_kernel<float, float><<<grid, kThreads, 0, stream>>>(
-        FMT_EXTRACT_ARGS(float, float));
-  }
+    if (dt_i16) {
+      extract_kernel<int16_t, int16_t><<<grid, kThreads, 0, stream>>>(
+          FMT_EXTRACT_ARGS(int16_t, int16_t));
+    } else if (iq_i16) {
+      extract_kernel<int16_t, float><<<grid, kThreads, 0, stream>>>(
+          FMT_EXTRACT_ARGS(int16_t, float));
+    } else {
+      extract_kernel<float, float><<<grid, kThreads, 0, stream>>>(
+          FMT_EXTRACT_ARGS(float, float));
+    }
 #undef FMT_EXTRACT_ARGS
+  }
   FMT_CHECK_LAUNCH();
   extract_pow_kernel<<<blocks_for(channels), kThreads, 0, stream>>>(
       pow_part, n_tiles, channels, pow);
   FMT_CHECK_LAUNCH();
   return 0;
+}
+
+// the route fmt_extract takes for filters of nn_a (L+R, L-R) and nn_r
+// (RDS) taps: 1 the blocked kernel, 0 extract_kernel
+extern "C" int fmt_extract_route(int nn_a, int nn_r) {
+  return extract_route(nn_a, nn_r);
 }

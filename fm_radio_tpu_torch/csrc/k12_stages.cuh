@@ -269,8 +269,6 @@ constexpr int kHilbOuts = 4;     // Hilbert outputs a thread
 constexpr int kFusedNn2 = 64;
 constexpr int kFusedNh = 65;
 
-__host__ __device__ constexpr int mid_skew(int x) { return x + (x >> 5); }
-
 // The mid end's route (kernels/midend.py::midend_route is its host copy):
 // the fused kernels where the stages between ds x2 and the peak IIR run in
 // float32 with de-emphasis off, the filters have the orders the fused
@@ -466,23 +464,6 @@ k12_mid_fused_kernel(const float* __restrict__ src,
   }
 }
 
-// p[at .. at + kBatch) into v, four floats a load (at % 4 == 0)
-__device__ __forceinline__ void load_batch(const float* __restrict__ p,
-                                           int64_t at, int64_t total,
-                                           float (&v)[kBatch]) {
-#ifdef FMT_CHECKED
-  FMT_AT(p, at + kBatch - 1, total);
-#endif
-#pragma unroll
-  for (int u = 0; u < kBatch; u += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + at + u);
-    v[u] = q.x;
-    v[u + 1] = q.y;
-    v[u + 2] = q.z;
-    v[u + 3] = q.w;
-  }
-}
-
 // kBatch steps of the peak IIR's recurrence on both planes from (br, bi),
 // the pilot power summed in double in time order, the outputs stored at
 // yr, yi + at (four floats a store)
@@ -501,17 +482,8 @@ __device__ __forceinline__ void peak_batch(Peak2& pr, Peak2& pi, double& pw,
     oi[u] = peak_step(pi, bi[u], b0, b1, b2, a1, a2);
     pw += (double)(orr[u] * orr[u] + oi[u] * oi[u]);
   }
-#ifdef FMT_CHECKED
-  FMT_AT(yr, at + kBatch - 1, total);
-  FMT_AT(yi, at + kBatch - 1, total);
-#endif
-#pragma unroll
-  for (int u = 0; u < kBatch; u += 4) {
-    *reinterpret_cast<float4*>(yr + at + u) =
-        make_float4(orr[u], orr[u + 1], orr[u + 2], orr[u + 3]);
-    *reinterpret_cast<float4*>(yi + at + u) =
-        make_float4(oi[u], oi[u + 1], oi[u + 2], oi[u + 3]);
-  }
+  store_batch(yr, at, total, orr, 1.0f);
+  store_batch(yi, at, total, oi, 1.0f);
 }
 
 // the peak IIR's channel spread: kPeakLanes channels a block, a warp of

@@ -23,57 +23,106 @@
 // kept outputs are the same.
 //
 // What bounds them on this card: the loop is serial in time with a
-// dependent chain per step (loop filter -> PI -> NCO -> phase error); the
-// sequential kernel runs N = B/8 steps (16,384 at the 2048 x 131,072 bench
-// cell) per channel, one thread per channel; the chunked one L + W steps
-// (20,480 at C = 256, B = 1,048,576, G = 8) on G times the threads.  The
-// suspect is latency that the threads cannot hide; times are in PERF.md.
+// dependent chain per step (loop filter -> PI -> NCO -> phase error, ~17
+// float32 operations, two of them rintf); the sequential kernel runs N =
+// B/8 steps (16,384 at the 2048 x 131,072 bench cell) per channel, one
+// thread per channel; the chunked one L + W steps (20,480 at C = 256, B =
+// 1,048,576, G = 8) on G times the threads.  Both are bound by that chain's
+// latency, far above their bytes (0.090 ms at the bench cell, PERF.md).
 //
-// What the design does about it, for now: one thread per lane, 32 lanes
-// per block, each reading its own channel-major row (uncoalesced: a warp's
-// 32 loads of one step touch 32 rows) kBatch steps at a time into
-// registers, so one load latency covers kBatch steps (common.cuh).  The
-// chunked lanes read their windows straight from theta [C, N] and write
-// only their kept outputs into dt [C, N]: no gathered copy of the windows,
-// no transposes and no concatenation, which the TPU wrapper needs
-// (pll_pallas.py:336-339, 407-415).  Staging [64-step x 8-channel] tiles
-// through shared memory with barriers was measured slower on the card
-// (PERF.md).  Built with -fmad=false so every step rounds op by op like
-// the plain PyTorch versions (kernels/pll.py::pll_plain,
-// pll_chunked_plain) and the JAX kernel.
+// What the sequential kernel's design does about it: nothing but the
+// chain is left in its loop.  One thread per channel, kPllLanes channels a
+// block (256 blocks at C = 2048, on every SM).  Each lane keeps three
+// batches of kBatch theta steps in flight in four register buffers while
+// it runs the present one (16-byte loads; int16 theta is dequantised only
+// where a step uses it), and stores dt kBatch steps at a time (float4, or
+// store_i16_batch), the pattern of k12_stages.cuh::k12_peak_rec_kernel.
+// Measured at the bench cell (NVIDIA H100 80GB HBM3, 700.00 W): 1.959 ms
+// (int16 1.530) before, with one 4-byte store a step and one exposed load
+// a batch; ~1.00 ms for both forms after, ~61 ns a step: the dependent
+// chain read from the SASS (17 instructions from one phase error to the
+// next, two of them FRND) is what is left (PERF.md).  The chunked lanes read their windows
+// straight from theta [C, N] and write only their kept outputs into dt
+// [C, N]: no gathered copy of the windows, no transposes and no
+// concatenation, which the TPU wrapper needs (pll_pallas.py:336-339,
+// 407-415); they keep one batch in flight.  Built with -fmad=false so
+// every step rounds op by op like the plain PyTorch versions
+// (kernels/pll.py::pll_plain, pll_chunked_plain) and the JAX kernel.
 
 #include "pll_step.cuh"
 
 namespace fmt {
 
+// channels a block of the sequential kernel: one warp of its own for each
+// kPllLanes channels (256 warps at C = 2048), as k12_peak_rec_kernel
+// measured best (k12_stages.cuh)
+constexpr int kPllLanes = 8;
+
+__device__ __forceinline__ PllState pll_load_at(const float* __restrict__ st,
+                                                int channels, int c) {
+  const int ns = 5 * channels;
+  return {FMT_AT(st, c, ns), FMT_AT(st, channels + c, ns),
+          FMT_AT(st, 2 * channels + c, ns), FMT_AT(st, 3 * channels + c, ns),
+          FMT_AT(st, 4 * channels + c, ns)};
+}
+
+__device__ __forceinline__ void pll_store_at(const PllState& s,
+                                             float* __restrict__ st,
+                                             int channels, int c) {
+  const int ns = 5 * channels;
+  FMT_AT(st, c, ns) = s.lpf_x1;
+  FMT_AT(st, channels + c, ns) = s.lpf_y1;
+  FMT_AT(st, 2 * channels + c, ns) = s.integ;
+  FMT_AT(st, 3 * channels + c, ns) = s.nco_t;
+  FMT_AT(st, 4 * channels + c, ns) = s.prev_pe;
+}
+
+// kBatch steps over batch b, dt stored at dt + at
+template <class T>
+__device__ __forceinline__ void pll_batch(PllState& s, const PllConsts& k,
+                                          const Batch<T>& b,
+                                          T* __restrict__ dt, int64_t at,
+                                          int64_t total) {
+  float t[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u)
+    t[u] = pll_step(s, k, batch_at(b, u, kPhScale));
+  store_batch(dt, at, total, t, kPhScale);
+}
+
 // theta and dt are float32, or both the int16 inter-stage format at
 // kPhScale (the TPU kernel's io_i16, pll_pallas.py:114-147): theta
-// dequantised as it is loaded, dt quantised as it is stored (kBatch steps
-// at a time, store_i16_batch); the loop and its state stay float32.
+// dequantised as a step uses it, dt quantised as it is stored; the loop
+// and its state stay float32.  n % kBatch == 0; theta and dt 16-byte
+// aligned.
 template <class T>
-__global__ void pll_kernel(const T* __restrict__ theta, T* __restrict__ dt,
-                           const float* __restrict__ st_in,
-                           float* __restrict__ st_out, int channels, int n,
-                           PllConsts k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kPllLanes)
+pll_kernel(const T* __restrict__ theta, T* __restrict__ dt,
+           const float* __restrict__ st_in, float* __restrict__ st_out,
+           int channels, int n, PllConsts k) {
+  const int c = blockIdx.x * kPllLanes + threadIdx.x;
   if (c >= channels) return;
-  PllState s = pll_load(st_in, channels, c);
-  const T* th = theta + (int64_t)c * n;
-  T* out = dt + (int64_t)c * n;
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    float bt[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) bt[u] = load_f32(th, i0 + u, kPhScale);
-    if constexpr (sizeof(T) == sizeof(float)) {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) out[i0 + u] = pll_step(s, k, bt[u]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) bt[u] = pll_step(s, k, bt[u]);
-      store_i16_batch(out, i0, bt, kPhScale);
-    }
+  PllState s = pll_load_at(st_in, channels, c);
+  const int64_t row = (int64_t)c * n, total = (int64_t)channels * n;
+  const int nb = n / kBatch;
+  // batch q's steps at row + q kBatch (a batch past the last reads the
+  // last again: loaded, never run)
+  auto at = [&](int q) { return row + (int64_t)min(q, nb - 1) * kBatch; };
+  Batch<T> b0, b1, b2, b3;
+  load_raw(theta, at(0), total, b0);
+  load_raw(theta, at(1), total, b1);
+  load_raw(theta, at(2), total, b2);
+  for (int q = 0; q < nb; q += 4) {
+    load_raw(theta, at(q + 3), total, b3);
+    pll_batch(s, k, b0, dt, at(q), total);
+    load_raw(theta, at(q + 4), total, b0);
+    if (q + 1 < nb) pll_batch(s, k, b1, dt, at(q + 1), total);
+    load_raw(theta, at(q + 5), total, b1);
+    if (q + 2 < nb) pll_batch(s, k, b2, dt, at(q + 2), total);
+    load_raw(theta, at(q + 6), total, b2);
+    if (q + 3 < nb) pll_batch(s, k, b3, dt, at(q + 3), total);
   }
-  pll_store(s, st_out, channels, c);
+  pll_store_at(s, st_out, channels, c);
 }
 
 // Lanes are chunk-major, as the TPU kernel's: lane = g * C + c.
@@ -120,21 +169,23 @@ __global__ void pll_chunked_kernel(const float* __restrict__ theta,
 
 using namespace fmt;
 
-// theta, dt [C, N], float32 or, with io_i16, both int16 (PH_SCALE); st_in,
+// theta, dt [C, N], float32 or, with io_i16, both int16 (PH_SCALE), N %
+// kBatch == 0, both 16-byte aligned (kernels/pll.py::pilot_pll_seq); st_in,
 // st_out [5, C] rows (lpf_x1, lpf_y1, integ, nco_t, prev_pe); loop
 // constants from models/pilot_pll.py.
 extern "C" int fmt_pll(const void* theta, void* dt, const float* st_in,
                        float* st_out, int channels, int n, float ts,
                        float f_center, float f_gain, float ki_ts, float kp,
                        float b0, float a1, int io_i16, cudaStream_t stream) {
-  if (n % kBatch != 0) return (int)cudaErrorInvalidValue;
+  if (n % kBatch != 0 || ((uintptr_t)theta | (uintptr_t)dt) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const PllConsts k{ts, f_center, f_gain, ki_ts, kp, b0, a1};
-  const unsigned grid = blocks_for(channels, kSerialThreads);
+  const unsigned grid = blocks_for(channels, kPllLanes);
   if (io_i16) {
-    pll_kernel<int16_t><<<grid, kSerialThreads, 0, stream>>>(
+    pll_kernel<int16_t><<<grid, kPllLanes, 0, stream>>>(
         (const int16_t*)theta, (int16_t*)dt, st_in, st_out, channels, n, k);
   } else {
-    pll_kernel<float><<<grid, kSerialThreads, 0, stream>>>(
+    pll_kernel<float><<<grid, kPllLanes, 0, stream>>>(
         (const float*)theta, (float*)dt, st_in, st_out, channels, n, k);
   }
   FMT_CHECK_LAUNCH();

@@ -9,8 +9,9 @@ are loaded with ``ctypes``; every pointer and the stream cross as
 :func:`check` turns into an exception.  Nothing here runs at import time.
 
 ``build(checked=True)`` builds the same sources with ``-DFMT_CHECKED``
-into their own hash directory: K12's device code then checks every index
-it reads or writes and traps on one out of bounds (``csrc/common.cuh``,
+into their own hash directory: the device code of K12, the sequential PLL
+and extract then checks every index it reads or writes in device memory
+and traps on one out of bounds (``csrc/common.cuh``,
 ``FMT_AT``), and every C entry synchronises after each launch.  Inside
 ``with checked_build():`` the wrappers launch those libraries; nothing
 else selects them.

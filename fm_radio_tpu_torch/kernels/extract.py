@@ -17,6 +17,13 @@ and the carried ``ds_audio_lpr`` tail is the dequantised planes'
 with int16 planes and float32 dt (where the PLL could not take int16) in
 ``launches_i16_f32dt``.  :func:`pick_tiles_ext` is the JAX kernel's shape
 gate.
+
+The kernel has two routes (:func:`extract_route`, a host copy of
+``csrc/extract.cu::extract_route``): at the receiver's filter orders (128
+taps for L+R, L-R and RDS) the register-blocked kernel, counted also in
+``launches_blocked``; at other orders within the 128-sample halos the
+tiled kernel, one output a thread.  Both sum every output in the plain
+version's tap order.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from fm_radio_tpu_torch.ops.fir import polyphase_decimate_p
 launches = 0
 launches_i16 = 0
 launches_i16_f32dt = 0
+# launches of any form on the blocked route (each also counted above)
+launches_blocked = 0
 
 TILE = 1024  # fm_out samples per CUDA block (csrc/extract.cu kExtTile)
 _NO = 128    # the TPU kernel's band width
@@ -40,6 +49,20 @@ _NO = 128    # the TPU kernel's band width
 _P, _I = _build.P, _build.I
 _ARGTYPES = ([_P] * 3 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 2 + [_I]
              + [_P] * 2 + [_I, _P] + [_I] * 3 + [_P] * 11 + [_P])
+ROUTE_ARGTYPES = [_I] * 2
+# the filter order the blocked kernel is built for (csrc/extract.cu
+# kExtTaps): the receiver's L+R, L-R and RDS filters (models/demod.py::
+# make_coeffs)
+BLOCKED_TAPS = 128
+
+
+def extract_route(coeffs) -> str:
+    """"blocked" or "tiled": the kernel ``fmt_extract`` launches for these
+    filters (a host copy of ``csrc/extract.cu::extract_route``): the
+    blocked one where the L+R / L-R and the RDS filters both have
+    :data:`BLOCKED_TAPS` taps, else the tiled one."""
+    nn_a, nn_r = coeffs.taps_audio_lpr.shape[0], coeffs.taps_rds.shape[0]
+    return "blocked" if nn_a == nn_r == BLOCKED_TAPS else "tiled"
 
 
 def pick_tiles_ext(c: int, b8: int) -> tuple[int, int] | None:
@@ -138,14 +161,15 @@ def ext_args(name: str, coeffs, cfg, state: dict, c: int, dev) -> dict:
 def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
     """(re, im), dt [C, N] -> as :func:`extract_plain`: float32, or the
     planes int16 with dt int16 or float32.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (N % 1024 == 0)."""
+    version; CUDA tensors launch the kernel of :func:`extract_route` (N %
+    1024 == 0)."""
     xr, xi = iq_p
     iq_i16, dt_i16 = xr.dtype == torch.int16, dt.dtype == torch.int16
     if dt_i16 and not iq_i16:
         raise ValueError("extract: int16 dt needs int16 planes")
     if _build.on_cpu("extract", dt.device):
         return extract_plain(coeffs, cfg, state, iq_p, dt)
-    global launches, launches_i16, launches_i16_f32dt
+    global launches, launches_i16, launches_i16_f32dt, launches_blocked
     dev = dt.device
     c, n = dt.shape
     if n % TILE:
@@ -183,6 +207,8 @@ def extract(coeffs, cfg, state: dict, iq_p, dt: torch.Tensor):
         launches_i16_f32dt += 1
     else:
         launches += 1
+    if extract_route(coeffs) == "blocked":
+        launches_blocked += 1
     new = dict(state)
     # the raw L+R tail, dequantised: only its last samples
     new["ds_audio_lpr"] = torch.complex(

@@ -51,6 +51,10 @@ _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = [_P] * 4 + [_I] * 2 + [_F] * 7 + [_I, _P]
 _ARGTYPES_CHUNKED = [_P] * 4 + [_I] * 4 + [_F] * 8 + [_P]
 
+# steps the sequential kernel (csrc/pll.cu) loads and stores at once: N
+# must be a multiple (fmt_pll refuses others too)
+BATCH = 16
+
 
 def channel_major(c: int) -> bool:
     """Whether the JAX kernel runs C channels in its channel-major layout,
@@ -188,9 +192,28 @@ def pilot_pll_theta(cfg, state: PilotPLLState, theta: torch.Tensor):
         return pilot_pll_theta_plain(cfg, state, theta)
     if not channel_major(c):
         theta = dq_if_i16(theta, PH_SCALE)
+    return pilot_pll_seq(cfg, state, theta)
+
+
+def pilot_pll_seq(cfg, state: PilotPLLState, theta: torch.Tensor):
+    """The sequential loop on theta [C, N] as it is, float32 or int16
+    (PH_SCALE; dt then int16 too), whatever its channel tile: the launch
+    :func:`pilot_pll_theta` makes after its route.  CPU tensors run
+    :func:`pll_plain`; CUDA tensors launch the kernel.  On either device
+    N must be a multiple of :data:`BATCH`."""
+    if theta.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"pll takes float32 or int16 theta, got "
+                         f"{theta.dtype}")
+    c, n = theta.shape
+    if n % BATCH:
+        raise ValueError(f"pll: N = {n} is not a multiple of {BATCH}")
+    if _build.on_cpu("pll", theta.device):
+        return pll_plain(cfg, state, theta)
     global launches, launches_i16
     io_i16 = theta.dtype == torch.int16
     st, dt, st_out = _args("pll", state, theta)
+    if theta.data_ptr() % 16:
+        raise ValueError("pll: theta is not 16-byte aligned")
     k = pll_consts_from_cfg(cfg)
     fn = _build.function("pll", "fmt_pll", _ARGTYPES)
     err = fn(theta.data_ptr(), dt.data_ptr(), st.data_ptr(),

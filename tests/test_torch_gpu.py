@@ -210,6 +210,40 @@ def test_fused_midend_edges_on_card():
 
 
 @pytest.mark.gpu
+def test_pll_extract_edges_on_card():
+    """The redesigned sequential PLL and extract equal their plain versions
+    (max abs error 0) at their edge shapes: the PLL at C = 40 and 5 and N
+    = 16, 32, 48 and 16,384 on float32 and int16 theta; extract at C = 40
+    and N = 1,024 and 2,048 on its three forms, on the receiver's filters
+    (the blocked kernel) and on other orders (the tiled kernel), two
+    blocks with carried state each; the C entry's extract route equals
+    its host copy."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_pll_edges()
+    res = chip_smoke.compare_extract_edges()
+    rows += res["rows"]
+    assert len(rows) == 16 + 12, rows
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert not res["route_mismatch"] and not chip_smoke.DUMPS, res
+
+
+@pytest.mark.gpu
+def test_pll_extract_edges_on_checked_build():
+    """The same edge shapes on the bounds-checked build: every global index
+    of the PLL and extract kernels is checked (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    with _build.checked_build():
+        rows = chip_smoke.compare_pll_edges(steps=(16, 32, 48))
+        rows += chip_smoke.compare_extract_edges()["rows"]
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+
+
+@pytest.mark.gpu
 def test_k12_small_repeats_on_poisoned_memory():
     """K12, the PLL, extract and BPSK against their plain versions at the
     shape where K12 once disagreed (C = 8, B = 16,384), on three fresh
