@@ -34,29 +34,34 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    variant beside its plain version and, for the per-tile sums, one
    PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``);
 3a. K12 (and the PLL, extract, BPSK) against their plain versions at
-   C=8 x B=16,384 five times on fresh seeds, the allocator's free memory
-   filled with 0xFF bytes before each (compute-sanitizer refused the
-   card it was tried on: PERF.md), then the five again on the
-   bounds-checked build (``_build.checked_build()``: every index of K12's
-   device code checked, a trap fails the run naming the kernel), and five
-   more there at C=40 (not a multiple of 32); the channelizer's int8- and
-   bf16-matrix kernels (splits 1 and 2) against their plain versions on
-   the arguments ``wideband_demod_block`` recorded from W=4 loud captures,
-   two blocks with carried state: M=32 words -> i8ps and -> f32, M=16
-   words -> i8; the bf16-matrix (wgmma) kernel at its edge shapes (T =
-   16,384 on W = 1 and 3, all three forms;
-   :func:`compare_wgmma_edges`) and the count of its wgmma and bulk-copy
-   instructions (``cuobjdump -sass``); K12 flat, phase-split and K2 on
+   C=8 x B=16,384, and the int8-matrix channelizer at W=2 x T=32,768
+   (:func:`compare_i8mat_small`), five times on fresh seeds, the
+   allocator's free memory filled with 0xFF bytes before each
+   (compute-sanitizer refused the card it was tried on: PERF.md), then
+   the five again on the bounds-checked build
+   (``_build.checked_build()``: every index of K12's, the PLL's,
+   extract's, BPSK's and the matrix channelizer's device code checked, a
+   trap fails the run naming the kernel), and five more there at C=40
+   (not a multiple of 32); the channelizer's int8- and bf16-matrix modes
+   (splits 1 and 2, one wgmma kernel) against their plain versions on the
+   arguments ``wideband_demod_block`` recorded from W=4 loud captures, two
+   blocks with carried state: M=32 words -> i8ps and -> f32, M=16 words ->
+   i8; both modes at their edge shapes (T = 16,384 on W = 1 and 3, all
+   three forms; :func:`compare_wgmma_edges`) and the count of the wgmma
+   kernel's float and integer wgmma, mma.sync and bulk-copy instructions
+   (``cuobjdump -sass``); K12 flat, phase-split and K2 on
    their fused mid end at C=40, B = 512, 8,192 and 8,320, max abs error 0,
    and the mid end's route on the card against its host copy
    (:func:`compare_mid_edges`); the sequential PLL at C = 40 and 5, N =
-   16, 32, 48 and 16,384 on both forms, and extract at C = 40, N = 1,024
-   and 2,048 on its three forms, on its blocked and tiled routes, max abs
-   error 0, on the default and the bounds-checked build (there the PLL at
-   N <= 48), and extract's
-   route on the card against its host copy (:func:`compare_pll_edges`,
-   :func:`compare_extract_edges`); the PLL's SASS saved for its
-   dependent chain (:func:`pll_sass`);
+   16, 32, 48 and 16,384 on both forms, extract at C = 40, N = 1,024 and
+   2,048 on its three forms, on its blocked and tiled routes, and BPSK at
+   C = 40 and 5, N = 16, 32, 48 and 2,048, with a gain and without, on
+   random input and zeros, max abs error 0, on the default and the
+   bounds-checked build (there the PLL and BPSK at N <= 48), and
+   extract's route on the card against its host copy
+   (:func:`compare_pll_edges`, :func:`compare_extract_edges`,
+   :func:`compare_bpsk_edges`); the PLL's and BPSK's SASS saved for their
+   dependent chains (:func:`pll_sass`, :func:`bpsk_sass`);
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its six
@@ -79,9 +84,12 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    through ``demod_block`` with the launch counters set to 0 just before
    and read just after; then each kernel and its plain version timed alone
    on the arguments ``demod_block`` gave it in the last block, and
-   compared there with the tolerances of phase 3; the cell profiled (its
-   profile must show the fused mid end's three kernels, the PLL's and the
-   blocked extract's; so must bench.py's wideband lens at splits=1);
+   compared there with the tolerances of phase 3; BPSK also timed on
+   zeros of its input's shape, beside its input's statistics
+   (:func:`bpsk_alone`); the cell profiled (its
+   profile must show the fused mid end's three kernels, the PLL's, the
+   blocked extract's and BPSK's; so must bench.py's wideband lens at
+   splits=1, with the matrix channelizer's);
 4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
    f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
    complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
@@ -114,8 +122,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    loud captures, 8 counted blocks each, the matrix kernel and the
    phase-split K12 timed alone beside their plain versions, and the
    product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``),
-   and the bf16 kernel's operator bytes; the splits=1, 2 and 3 cells on
-   bench.py's captures profiled;
+   and the kernel's operator bytes; at splits=1 on bench.py's captures
+   BPSK timed alone as at the pre-split cell; the splits=1, 2 and 3
+   cells on bench.py's captures profiled;
 6. the selftest station through the port's App on the card and through
    the plain versions on the host CPU: selftest gates, identical RDS
    bytes, audio SNR >= 75 dB;
@@ -198,9 +207,10 @@ CHAIN_KERNELS = (
     ("pll_chunked", "fm_radio_tpu_torch/csrc/pll.cu",
      "fm_radio_tpu/kernels/pll_pallas.py:382"),
 )
-# the channelizer's quantised-matrix modes (one source, two kernels)
+# the channelizer's quantised-matrix modes: one wgmma kernel templated on
+# the mode
 MAT_KERNELS = (
-    ("channelizer_i8mat", "fm_radio_tpu_torch/csrc/channelizer_mma.cu",
+    ("channelizer_i8mat", "fm_radio_tpu_torch/csrc/channelizer_wgmma.cu",
      "fm_radio_tpu/kernels/channelizer_pallas.py:104"),
     ("channelizer_bf16mat", "fm_radio_tpu_torch/csrc/channelizer_wgmma.cu",
      "fm_radio_tpu/kernels/channelizer_pallas.py:133"),
@@ -283,7 +293,8 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # rounding; the power sums differ only in summation order.  K12 (flat and
 # phase-split) and K2 admit no slack on either route of their mid end: the
 # fused route sums every FIR output in the plain version's tap order; nor
-# do the PLL and extract (on both of its routes).  The channelizer
+# do the PLL, extract (on both of its routes) and BPSK (its branch
+# changes no value: it skips only what no lane uses).  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact,
 # and so must the int8-matrix channelizer (integer products, then the plain
 # version's float epilogue).  The bf16-matrix channelizer's tensor cores sum
@@ -291,7 +302,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # BF16MAT_F32_REL of the output's rms, its int8 outputs to 1 LSB on at most
 # BF16MAT_I8_SHARE of the samples (a value that lies on a rounding boundary
 # may move); its carried state is exact.
-TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 1e-6,
+TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 0.0,
        "k12_ps": 0.0, "channelizer": 0.0, "frontend": 1e-6,
        "frontend_i8": 1e-6, "midend": 0.0, "chain": 1e-5,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
@@ -822,11 +833,11 @@ def work(name: str, args) -> tuple:
         # 128 * n_c multiply-adds per 128 samples, the tables read once
         qt = _modules()["channelizer"].quant_tables(tab, args[5], out)
         n_c = qt.mats.shape[1]
-        groups = 4 if name == "channelizer_i8mat" else 3
-        ops = float(w) * t * groups * 2 * n_c * 128
-        nbytes += _nbytes(qt.frag) + (_nbytes(qt.aux) if qt.aux is not None
+        int8 = name.startswith("channelizer_i8mat")
+        ops = float(w) * t * (4 if int8 else 3) * 2 * n_c * 128
+        nbytes += _nbytes(qt.mats) + (_nbytes(qt.aux) if qt.aux is not None
                                       else 0)
-        if name == "channelizer_i8mat":
+        if int8:
             return nbytes, 0.0, ops
         return nbytes, 0.0, 0.0, ops
     raise KeyError(name)
@@ -1608,9 +1619,12 @@ PRESPLIT_CELL = ("presplit", "i8", {"frontend_int8": True})
 # the pre-split cell
 FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
                  "k12_theta_kernel")
-# the redesigned PLL and extract kernels (csrc/pll.cu, csrc/extract.cu),
-# which the pre-split cell and bench.py's wideband lens (splits=1) launch
-REDESIGNED_KERNELS = ("pll_kernel", "extract_blocked_kernel")
+# the redesigned PLL, extract and BPSK kernels (csrc/pll.cu,
+# csrc/extract.cu, csrc/bpsk.cu), which the pre-split cell and bench.py's
+# wideband lens (splits=1) launch; and the matrix channelizer, which the
+# lens launches too
+REDESIGNED_KERNELS = ("pll_kernel", "extract_blocked_kernel", "bpsk_kernel")
+MAT_KERNEL = "chan_wgmma_kernel"
 
 
 def lacking(prof: dict, names) -> list:
@@ -2048,7 +2062,7 @@ def compare_channelizer_mat(block: int = 131072, blocks: int = 2,
                             plane_stats(pout[1]))
                 torch.cuda.synchronize(device)
     return [dict(_verdict(name, acc[name]), planes=stats[name])
-            for name, _, _ in MAT_KERNELS]
+            for name in (CHANNELIZER_BY_SPLITS[1], CHANNELIZER_BY_SPLITS[2])]
 
 
 def poison_free_memory(device, nbytes: int = 1 << 30) -> None:
@@ -2064,27 +2078,65 @@ def poison_free_memory(device, nbytes: int = 1 << 30) -> None:
     del big, small
 
 
+def compare_i8mat_small(seed: int, device="cuda") -> list[dict]:
+    """The int8-matrix channelizer against its plain version at a small
+    shape: W = 2 captures of T = 32,768 random packed words (every u8
+    value) from ``seed``, M = 32, K = 16, out i8ps and f32, two blocks
+    with carried state each.  Returns one verdict row."""
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    stages = _stages()
+    m, k, t, n_w = 32, 16, 32768, 2
+    tab = kch.make_tables(make_channelizer_taps(m, k), m, device)
+    rng = np.random.default_rng(seed)
+    words = torch.from_numpy(
+        rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32) * 256.0
+        + rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32)).to(device)
+    rows = []
+    name = "channelizer_i8mat"
+    kern, plain = stages[name]
+    acc = {}
+    for out in ("i8ps", "f32"):
+        st = (torch.zeros((n_w, (k - 1) * m), device=device),) * 2
+        for blk in range(2):
+            a = (tab, st, words[:, blk * t : (blk + 1) * t].contiguous(),
+                 m, out, 1)
+            kout, pout = kern(*a), plain(*a)
+            e = stage_errors(name, kout, pout)
+            dump_mismatch(name, a, kout, pout, e)
+            _merge(acc, name, e)
+            st = kout[0]
+    torch.cuda.synchronize(device)
+    return [_verdict(name, acc[name])]
+
+
 def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
                 device="cuda") -> list[dict]:
     """The small on-card comparison of K12 (and the PLL, extract, BPSK)
     with its plain version, :func:`compare_kernels` at C = ``channels``, B
-    = ``block``, ``repeats`` times on fresh seeds, the allocator's free
-    memory poisoned before each (:func:`poison_free_memory`): the shape at
-    which K12 once disagreed with its plain version (PERF.md).  Returns
-    one row per repeat: the seed and each kernel's verdict."""
+    = ``block``, and both int8-matrix channelizers'
+    (:func:`compare_i8mat_small`), ``repeats`` times on fresh seeds, the
+    allocator's free memory poisoned before each
+    (:func:`poison_free_memory`): the shape at which K12 once disagreed
+    with its plain version (PERF.md).  Returns one row per repeat: the
+    seed and each kernel's verdict."""
     rows = []
     for i in range(repeats):
         poison_free_memory(device)
         seed = 100 + i
-        rows.append({"seed": seed, "kernels": compare_kernels(
-            channels, block, 2, device, seed=seed)})
+        kernels = compare_kernels(channels, block, 2, device, seed=seed)
+        poison_free_memory(device)
+        kernels += compare_i8mat_small(seed, device)
+        rows.append({"seed": seed, "kernels": kernels})
     return rows
 
 
 def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
                   blocks: int = 8, amp: float = BENCH_AMP,
                   time_kernels: bool = True, bridge: str = "i8",
-                  splits: int = 3, device="cuda") -> dict:
+                  splits: int = 3, time_bpsk: bool = False,
+                  device="cuda") -> dict:
     """The wideband cell through wideband_demod_block with counted
     launches (one warm-up block first), on captures of per-channel
     amplitude ``amp``, the channelizer in mode ``splits``; the
@@ -2092,8 +2144,10 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     ``time_kernels``, the channelizer and the phase-split K12 (at M=32)
     timed alone beside their plain versions on the last block's
     arguments, and compared (for a matrix mode also the product alone as
-    one PyTorch call, :func:`mat_library_ms`).  ``bridge="f32"`` runs the
-    float32 bridge under ``DemodConfig()`` (K1 on planes, then K2)."""
+    one PyTorch call, :func:`mat_library_ms`, and its operator bytes);
+    with ``time_bpsk``, :func:`bpsk_alone` on the last block's BPSK
+    arguments.  ``bridge="f32"`` runs the float32 bridge under
+    ``DemodConfig()`` (K1 on planes, then K2)."""
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels.channelizer import (
         make_tables, wgmma_operator_bytes)
@@ -2161,11 +2215,13 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
          res["bound"]) = time_stages(timed)
         if chan != "channelizer":
             res["library_ms"] = mat_library_ms(calls["channelizer"])
-        if chan == "channelizer_bf16mat":
-            tab, _, words, m, _, _ = calls["channelizer"]
+        if chan in ("channelizer_i8mat", "channelizer_bf16mat"):
+            tab, _, words, m, _, sp = calls["channelizer"]
             res["operator_bytes"] = wgmma_operator_bytes(
                 words.shape[0], words.numel() // words.shape[0],
-                tab.w_rev.shape[0], m)
+                tab.w_rev.shape[0], m, sp)
+    if time_bpsk:
+        res["bpsk_alone"] = bpsk_alone(calls["bpsk"])
     return res
 
 
@@ -2183,46 +2239,67 @@ def _sass(lib: str):
 
 
 def sass_counts(lib: str = "channelizer_wgmma") -> dict:
-    """Counts of the warpgroup MMA (HGMMA) and bulk-copy (UTMALDG tensor,
+    """Counts of the warpgroup MMA (HGMMA float, IGMMA integer), the
+    warp-level integer MMA (IMMA, mma.sync) and bulk-copy (UTMALDG tensor,
     UBLKCP plain) instructions in a built library's SASS, or {"error"}
     where the toolkit has no cuobjdump."""
     sass, err = _sass(lib)
     if err:
         return {"error": err}
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    ops = _opcodes(sass)
+    return {op: ops.count(op)
+            for op in ("HGMMA", "IGMMA", "IMMA", "UTMALDG", "UBLKCP")}
+
+
+def _opcodes(sass: str) -> list:
+    """The opcode (without its modifiers) of every instruction of SASS
+    text, in order (a guard predicate @P0 skipped)."""
+    ops = []
+    for ln in sass.splitlines():
+        text = ln.split("*/", 1)[1] if ln.strip().startswith("/*") else ""
+        words = text.split(";", 1)[0].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            ops.append(words[0].split(".")[0])
+    return ops
 
 
 def compare_wgmma_edges(device="cuda") -> list[dict]:
-    """The bf16-matrix kernel against its plain version at its edge
-    shapes: T = 16,384 (one tile of 128 columns, the smallest T it takes)
-    on W = 1 (one tile, one CTA) and W = 3, M = 32, K = 16, all three
-    output forms, two blocks with carried state, on random packed words
-    (every u8 value).  Returns one verdict row per W."""
+    """The matrix kernel (wgmma) in both modes against its plain version at
+    its edge shapes: T = 16,384 (one tile of 128 columns, the smallest T
+    the kernel takes) on W = 1 (one tile, one CTA) and W = 3, M = 32, K =
+    16, all three output forms, two blocks with carried state, on random
+    packed words (every u8 value).  Returns one verdict row per mode and
+    W."""
     from fm_radio_tpu_torch.kernels import channelizer as kch
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
 
-    m, k, t = 32, 16, kch.MAT_T_MULTIPLE[2]
+    stages = _stages()
+    m, k, t = 32, 16, kch.WGMMA_TILE
     tab = kch.make_tables(make_channelizer_taps(m, k), m, device)
-    rng = np.random.default_rng(11)
     rows = []
-    for n_w in (1, 3):
-        words = torch.from_numpy(
-            rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32) * 256.0
-            + rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32)).to(device)
-        acc = {}
-        for out in ("i8ps", "f32", "i8"):
-            st = (torch.zeros((n_w, (k - 1) * m), device=device),) * 2
-            for blk in range(2):
-                xb = words[:, blk * t : (blk + 1) * t].contiguous()
-                a = (tab, st, xb, m, out, 2)
-                kout = kch.channelize(*a)
-                _merge(acc, "channelizer_bf16mat", stage_errors(
-                    "channelizer_bf16mat", kout, kch.channelize_plain(*a)))
-                st = kout[0]
-        torch.cuda.synchronize(device)
-        rows.append(dict(_verdict("channelizer_bf16mat",
-                                  acc["channelizer_bf16mat"]),
-                         captures=n_w, t=t))
+    for name, sp in (("channelizer_i8mat", 1), ("channelizer_bf16mat", 2)):
+        kern, plain = stages[name]
+        rng = np.random.default_rng(11)
+        for n_w in (1, 3):
+            words = torch.from_numpy(
+                rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32) * 256.0
+                + rng.integers(0, 256, (n_w, 2 * t)).astype(np.float32)).to(
+                    device)
+            acc = {}
+            for out in ("i8ps", "f32", "i8"):
+                st = (torch.zeros((n_w, (k - 1) * m), device=device),) * 2
+                for blk in range(2):
+                    xb = words[:, blk * t : (blk + 1) * t].contiguous()
+                    a = (tab, st, xb, m, out, sp)
+                    kout, pout = kern(*a), plain(*a)
+                    e = stage_errors(name, kout, pout)
+                    dump_mismatch(name, a, kout, pout, e)
+                    _merge(acc, name, e)
+                    st = kout[0]
+            torch.cuda.synchronize(device)
+            rows.append(dict(_verdict(name, acc[name]), captures=n_w, t=t))
     return rows
 
 
@@ -2459,18 +2536,138 @@ def pll_sass() -> dict:
         os.makedirs(DUMP_DIR, exist_ok=True)
         with open(os.path.join(DUMP_DIR, f"pll_sass_{form}.txt"), "w") as f:
             f.write(part)
-        ops = []
-        for ln in part.splitlines():
-            text = ln.split("*/", 1)[1] if ln.strip().startswith("/*") \
-                else ""
-            words = text.split(";", 1)[0].split()
-            if words and words[0].startswith("@"):
-                words = words[1:]
-            if words:
-                ops.append(words[0].split(".")[0])
+        ops = _opcodes(part)
         res[form] = {"function": name, "instructions": len(ops),
                      **{op: ops.count(op) for op in (
                          "FADD", "FMUL", "FMNMX", "FRND", "LDG", "STG")}}
+    return res
+
+
+def _res_usage(lib: str) -> dict:
+    """Registers (and local memory bytes) of each kernel of a built
+    library by ``cuobjdump -res-usage``, keyed by mangled name; {} where
+    the toolkit has no cuobjdump."""
+    from fm_radio_tpu_torch.kernels import _build
+
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(exe):
+        return {}
+    so = str(_build.build_dir() / f"lib{lib}.so")
+    out = subprocess.run([exe, "-res-usage", so], capture_output=True,
+                         text=True, timeout=120).stdout
+    res, name = {}, None
+    for ln in out.splitlines():
+        if "Function" in ln:
+            name = ln.split("Function", 1)[1].strip().rstrip(":").strip()
+        elif name and "REG:" in ln:
+            kv = dict(w.split(":", 1) for w in ln.split() if ":" in w)
+            res[name] = {"reg": int(kv.get("REG", -1)),
+                         "local": int(kv.get("LOCAL", -1))}
+            name = None
+    return res
+
+
+def bpsk_sass() -> dict:
+    """BPSK's SASS, as :func:`pll_sass` reads the PLL's: the kernel's
+    function saved as chiprun_out/bpsk_sass.txt (the loop's dependent
+    chain, and the branch around the divisions, are read from there:
+    PERF.md); the counts of the opcodes the steps run over the unrolled
+    loop body and the registers a thread; {"error"} where the toolkit has
+    no cuobjdump."""
+    sass, err = _sass("bpsk")
+    if err:
+        return {"error": err}
+    usage = _res_usage("bpsk")
+    res = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "bpsk_kernel" not in name:
+            continue
+        os.makedirs(DUMP_DIR, exist_ok=True)
+        with open(os.path.join(DUMP_DIR, "bpsk_sass.txt"), "w") as f:
+            f.write(part)
+        ops = _opcodes(part)
+        res = {"function": name, "instructions": len(ops),
+               **usage.get(name, {}),
+               **{op: ops.count(op) for op in (
+                   "FADD", "FMUL", "FFMA", "FMNMX", "FRND", "FSETP", "FSEL",
+                   "MUFU", "VOTE", "BRA", "CALL", "LDG", "STG")}}
+    return res
+
+
+def _bpsk_inputs(kind: str, c: int, n: int, g: torch.Generator, device):
+    """(re, im) [c, n] for BPSK: "random" a BPSK-like baseband (N(0, 0.5)
+    on both axes) or "zeros"."""
+    if kind == "zeros":
+        return (torch.zeros((c, n), device=device),
+                torch.zeros((c, n), device=device))
+    return tuple(0.5 * torch.randn((c, n), generator=g, device=device)
+                 for _ in range(2))
+
+
+def compare_bpsk_edges(device="cuda",
+                       steps=(16, 32, 48, 2048)) -> list[dict]:
+    """BPSK (``kernels/bpsk.py::bpsk_sync``) against its plain version at
+    edge shapes, max abs error 0 and no ``valid`` apart: C = 40 and 5 (not
+    a multiple of its lanes a block; the last warp partial) at N = 16, 32
+    and 48 (fewer batches than it keeps in flight) and 2,048 (the cell's),
+    or the N of ``steps``; with a gain and without; on random input and on
+    zeros; two blocks with carried state each.  Returns one verdict row
+    per (C, N, gain, input)."""
+    from fm_radio_tpu_torch.kernels import bpsk as kb
+    from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG
+
+    cfg = INT8_CONFIG
+    g = torch.Generator(device=device).manual_seed(17)
+    rows = []
+    for c in (40, 5):
+        for n in steps:
+            for kind in ("random", "zeros"):
+                xr, xi = _bpsk_inputs(kind, c, 2 * n, g, device)
+                for with_gain in (True, False):
+                    gain = (0.5 + 1.5 * torch.rand((c,), generator=g,
+                                                   device=device)
+                            if with_gain else None)
+                    st = bpsk_init_state(c, device)
+                    acc = {}
+                    for blk in range(2):
+                        sl = slice(blk * n, (blk + 1) * n)
+                        a = (cfg, st, (xr[:, sl].contiguous(),
+                                       xi[:, sl].contiguous()), gain)
+                        kout, pout = kb.bpsk_sync(*a), kb.bpsk_plain(*a)
+                        e = stage_errors("bpsk", kout, pout)
+                        dump_mismatch("bpsk", a, kout, pout, e)
+                        _merge(acc, "bpsk", e)
+                        st = kout[0]
+                    torch.cuda.synchronize(device)
+                    rows.append(dict(_verdict("bpsk", acc["bpsk"]),
+                                     channels=c, steps=n, input=kind,
+                                     gain=with_gain))
+    return rows
+
+
+def bpsk_alone(args, reps: int = 20) -> dict:
+    """BPSK on a cell's recorded arguments (cfg, state, (re, im), gain):
+    its input's statistics (the share of samples exactly zero, the mean
+    |x|, the gain's range and the share of steps the TED clock fires), and
+    the kernel timed (CUDA events, mean of ``reps`` after one) on the
+    arguments and on zeros of their shape (with their gain)."""
+    from fm_radio_tpu_torch.kernels import bpsk as kb
+
+    cfg, state, (xr, xi), gain = args
+    valid = kb.bpsk_sync(*args)[1]["valid"]
+    x = torch.stack([xr, xi])
+    res = {"channels": xr.shape[0], "steps": xr.shape[1],
+           "zero_share": float((x == 0).double().mean()),
+           "mean_abs": float(x.abs().double().mean()),
+           "gain_range": (None if gain is None else
+                          [float(gain.min()), float(gain.max())]),
+           "fire_share": float(valid.double().mean())}
+    _, res["ms"] = _cuda_ms(lambda: kb.bpsk_sync(*args), reps)
+    zargs = (cfg, state, (torch.zeros_like(xr), torch.zeros_like(xi)), gain)
+    kb.bpsk_sync(*zargs)
+    _, res["ms_zeros"] = _cuda_ms(lambda: kb.bpsk_sync(*zargs), reps)
     return res
 
 
@@ -2589,6 +2786,7 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
         "plain_ms": plain_ms,
         "compare": rows,
         "bound": bounds,
+        "bpsk_alone": bpsk_alone(calls["bpsk"]),
     }
 
 
@@ -3039,7 +3237,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wedge = compare_wgmma_edges(dev)
     for r in wedge:
-        log(f"[compare] wgmma edge: {json.dumps(r)}")
+        log(f"[compare] matrix kernel edge: {json.dumps(r)}")
     medge = compare_mid_edges(dev)
     for r in medge["rows"]:
         log(f"[compare] fused mid end edge: {json.dumps(r)}")
@@ -3053,37 +3251,48 @@ def main() -> int:
                            f"route differs on the card "
                            f"{medge['route_mismatch']}")
     if "error" not in sass and not (
-            sass["HGMMA"] and sass["UTMALDG"] + sass["UBLKCP"]):
-        raise RuntimeError(f"channelizer_wgmma has no wgmma or bulk copy "
-                           f"in its SASS: {sass}")
-    # the PLL and extract at their edge shapes, on the default and the
-    # bounds-checked build (every global index of both kernels checked),
-    # extract's other route, and the PLL's SASS
+            sass["HGMMA"] and sass["IGMMA"] and not sass["IMMA"]
+            and sass["UTMALDG"] + sass["UBLKCP"]):
+        raise RuntimeError(f"channelizer_wgmma lacks its float or integer "
+                           f"wgmma or bulk copies, or has mma.sync, in its "
+                           f"SASS: {sass}")
+    # the PLL, extract and BPSK at their edge shapes, on the default and
+    # the bounds-checked build (every global index of the three kernels
+    # checked), extract's other route, the PLL's and BPSK's SASS
     t0 = time.perf_counter()
     pedge = compare_pll_edges(dev)
     eedge = compare_extract_edges(dev)
+    bedge = compare_bpsk_edges(dev)
     try:
         with _build.checked_build():
-            # the short blocks: the plain loop over the cell's 16,384
-            # steps ran on the default build
+            # the short blocks: the plain loops over the cell's 16,384
+            # (PLL) and 2,048 (BPSK) steps ran on the default build
             pedge += [dict(r, build="checked")
                       for r in compare_pll_edges(dev, steps=(16, 32, 48))]
             ce = compare_extract_edges(dev)
+            bedge += [dict(r, build="checked")
+                      for r in compare_bpsk_edges(dev, steps=(16, 32, 48))]
     except RuntimeError as e:
-        raise RuntimeError(f"PLL / extract edges on the bounds-checked "
-                           f"build: {e}")
+        raise RuntimeError(f"PLL / extract / BPSK edges on the "
+                           f"bounds-checked build: {e}")
     eedge["rows"] += [dict(r, build="checked") for r in ce["rows"]]
     eedge["route_mismatch"] += ce["route_mismatch"]
-    for r in pedge + eedge["rows"]:
-        log(f"[compare] pll / extract edge: {json.dumps(r)}")
+    for r in pedge + eedge["rows"] + bedge:
+        log(f"[compare] pll / extract / bpsk edge: {json.dumps(r)}")
     psass = pll_sass()
-    log(f"[build] pll SASS: {json.dumps(psass)}; extract route mismatches "
+    bsass = bpsk_sass()
+    log(f"[build] pll SASS: {json.dumps(psass)}; bpsk SASS: "
+        f"{json.dumps(bsass)}; extract route mismatches "
         f"{eedge['route_mismatch']}; {time.perf_counter() - t0:.1f} s")
+    if "error" not in bsass and not (bsass.get("VOTE") and bsass.get("BRA")):
+        raise RuntimeError(f"BPSK's SASS lacks the warp vote and branch "
+                           f"around its phase error: {bsass}")
     bad = [(r["name"], r.get("channels"), r.get("steps", r.get("samples")),
-            r.get("route")) for r in pedge + eedge["rows"] if not r["ok"]]
+            r.get("route", r.get("input"))) for r in
+           pedge + eedge["rows"] + bedge if not r["ok"]]
     if bad or eedge["route_mismatch"]:
-        raise RuntimeError(f"PLL / extract edge shapes disagree {bad} or "
-                           f"extract's route differs on the card "
+        raise RuntimeError(f"PLL / extract / BPSK edge shapes disagree "
+                           f"{bad} or extract's route differs on the card "
                            f"{eedge['route_mismatch']}")
 
     # 3b. the split path's kernels against plain on the card
@@ -3232,7 +3441,8 @@ def main() -> int:
     log(f"[wideband] {json.dumps(wbf)}")
     # the precision modes: bench.py's own lens (FMTPU_WB_SPLITS=1 on its
     # captures), and splits 1 and 2 on loud captures
-    wb_i8_bench = wideband_path(64, 32, 131072, 8, splits=1, device=dev)
+    wb_i8_bench = wideband_path(64, 32, 131072, 8, splits=1,
+                                time_bpsk=True, device=dev)
     log(f"[wideband] {json.dumps(wb_i8_bench)}")
     wb_i8 = wideband_path(64, 32, 131072, 8, amp=loud_amp(32), splits=1,
                           device=dev)
@@ -3244,9 +3454,11 @@ def main() -> int:
     for sp in (1, 2, 3):
         prof = profile_wideband(sp, device=dev)
         log(f"[profile] {json.dumps(prof)}")
-        if sp == 1 and lacking(prof, REDESIGNED_KERNELS):
-            raise RuntimeError(f"bench.py's wideband lens profile lacks "
-                               f"{lacking(prof, REDESIGNED_KERNELS)}: "
+        want = (REDESIGNED_KERNELS + (MAT_KERNEL,) if sp == 1
+                else (MAT_KERNEL,) if sp == 2 else ())
+        if lacking(prof, want):
+            raise RuntimeError(f"the wideband profile at splits={sp} lacks "
+                               f"{lacking(prof, want)}: "
                                f"{list(prof['device_ms_per_block'])}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for c in (wb_bench, wb, wb_i8_bench, wb_i8, wb_bf16)
@@ -3339,7 +3551,7 @@ def main() -> int:
     err_small, err_full = {}, {}
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
-              + wedge + medge["rows"] + pedge + eedge["rows"]):
+              + wedge + medge["rows"] + pedge + eedge["rows"] + bedge):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
@@ -3438,9 +3650,15 @@ def main() -> int:
             # the mid end's fused route: its launches on the kernel's path
             # (each also counted by the kernel)
             k["launches_fused_route"] = home[n]["launches"]["midend_fused"]
-        if n == "channelizer_bf16mat":
-            k.update(sass=sass, operator_bytes=wb_bf16["operator_bytes"],
-                     edge_shapes=wedge)
+        if n in ("channelizer_i8mat", "channelizer_bf16mat"):
+            k.update(sass=sass, operator_bytes=home[n]["operator_bytes"])
+        if n.startswith("channelizer_") and n != "channelizer":
+            k.update(edge_shapes=[r for r in wedge if r["name"] == n])
+        if n == "bpsk":
+            k.update(sass=bsass, edge_shapes=bedge,
+                     alone={"presplit": mp["bpsk_alone"],
+                            "wideband_m32_splits1":
+                                wb_i8_bench["bpsk_alone"]})
         if n in ("pll", "pll_i16"):
             k.update(sass=psass.get("i16" if n == "pll_i16" else "f32",
                                     psass),

@@ -1,7 +1,7 @@
 // The channelizer kernels' shared device code: the input sample, the int8
 // bridge's quantiser and the carried-state kernel (csrc/channelizer.cu, the
-// exact float32 filterbank, and csrc/channelizer_mma.cu, its int8 and bf16
-// matrix modes).
+// exact float32 filterbank, and csrc/channelizer_wgmma.cu, its int8 and
+// bf16 matrix modes).
 #pragma once
 
 #include "common.cuh"
@@ -52,16 +52,28 @@ __global__ void chan_state_kernel(const float* __restrict__ x0,
                                   float* __restrict__ sr_out,
                                   float* __restrict__ si_out) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n_captures * n_state) return;
+  const int64_t total = (int64_t)n_captures * n_state;
+  if (idx >= total) return;
   const int w = (int)(idx / n_state);
   const int i = (int)(idx % n_state);
+#ifdef FMT_CHECKED
+  // the one element chan_sample reads: sample t_len + i of x_pad
+  const int64_t s = t_len + i, n_x = (int64_t)n_captures * t_len;
+  if (s < n_state) {
+    FMT_AT(sr, (int64_t)w * n_state + s, total);
+    FMT_AT(si, (int64_t)w * n_state + s, total);
+  } else {
+    FMT_AT(x0, (int64_t)w * t_len + s - n_state, n_x);
+    if (!kPacked) FMT_AT(x1, (int64_t)w * t_len + s - n_state, n_x);
+  }
+#endif
   float re, im;
   chan_sample<kPacked>(x0 + (int64_t)w * t_len,
                        kPacked ? nullptr : x1 + (int64_t)w * t_len,
                        sr + (int64_t)w * n_state, si + (int64_t)w * n_state,
                        t_len + i, n_state, re, im);
-  sr_out[idx] = re;
-  si_out[idx] = im;
+  FMT_AT(sr_out, idx, total) = re;
+  FMT_AT(si_out, idx, total) = im;
 }
 
 }  // namespace fmt

@@ -16,7 +16,7 @@
 // built with -fmad=false, so the kernel equals the plain version
 // (kernels/channelizer.py::channelize_plain) bit for bit.  This is the TPU
 // kernel's splits=3 (near-exact) mode as exact float32; its fused int8 and
-// bf16 matrix modes (splits 1 and 2) are csrc/channelizer_mma.cu.
+// bf16 matrix modes (splits 1 and 2) are csrc/channelizer_wgmma.cu.
 //
 // Input: packed u8 IQ words [W, T] (w = I*256 + Q, unpacked here exactly as
 // utils/transfer.py::unpack_iq_words) or (re, im) float32 planes [W, T].

@@ -16,15 +16,19 @@
 #include <stdint.h>
 
 // FMT_AT(p, i, n): element i of p as an lvalue, for an array of n
-// elements.  The default build indexes plainly, p[i], so its code is the
-// same as without the macro; a build with -DFMT_CHECKED
+// elements; FMT_SPAN(p, i, len, n): the pointer p + i to the len elements
+// i .. i + len - 1 (a vector load or store, a bulk copy), checked as FMT_AT
+// checks its first and last.  The default build indexes plainly, p[i], so
+// its code is the same as without the macro; a build with -DFMT_CHECKED
 // (kernels/_build.py::build(checked=True)) checks 0 <= i < n first and,
 // where that fails, prints the function, file, line, index, bound, block
 // and thread, and traps.  K12's device code (k12.cu, k12_stages.cuh and
 // fir_decimate_kernel below) reads and writes through it, so the split
 // K1/K2 and the megakernel that share that code are checked too, and so do
-// the sequential PLL (pll.cu::pll_kernel) and the extract kernels on both
-// routes' global memory (extract.cu).  In the
+// the sequential PLL (pll.cu::pll_kernel), the extract kernels on both
+// routes' global memory (extract.cu), BPSK (bpsk.cu) and the matrix
+// channelizer (channelizer_wgmma.cu, with the carried-state kernel of
+// chan_common.cuh).  In the
 // checked build every C entry also synchronises after each launch
 // (FMT_CHECK_LAUNCH), so a trap is reported by the entry whose kernel
 // raised it.
@@ -50,6 +54,8 @@ __device__ __forceinline__ T& checked_at(T* p, int64_t i, int64_t n,
 #define FMT_AT(p, i, n)                                                   \
   (::fmt::checked_at((p), (int64_t)(i), (int64_t)(n), __func__, __FILE__, \
                      __LINE__))
+#define FMT_SPAN(p, i, len, n) \
+  (FMT_AT(p, i, n), FMT_AT(p, (i) + (len) - 1, n), (p) + (i))
 #define FMT_CHECK_LAUNCH()                                    \
   do {                                                        \
     cudaError_t e_ = cudaGetLastError();                      \
@@ -58,6 +64,7 @@ __device__ __forceinline__ T& checked_at(T* p, int64_t i, int64_t n,
   } while (0)
 #else
 #define FMT_AT(p, i, n) ((p)[(i)])
+#define FMT_SPAN(p, i, len, n) ((p) + (i))
 #define FMT_CHECK_LAUNCH()                 \
   do {                                     \
     cudaError_t e_ = cudaGetLastError();   \
@@ -75,11 +82,12 @@ constexpr float kInvTwoPi = 0x1.45f306p-3f;
 constexpr int kThreads = 256;
 
 // Serial kernels run one thread per channel, one warp of channels per block
-// (64 blocks at C = 2048; BPSK and the chunked PLL: the sequential PLL and
-// the peak IIR's recurrence run 8 channels a block).  Each loads the next kBatch steps of its row into
-// registers at once: the loads do not depend on the recurrence, so their
-// latency is paid once per batch instead of once per step.  Their step
-// counts must be multiples of kBatch (the C entries check).
+// (64 blocks at C = 2048: the chunked PLL; the sequential PLL and the peak
+// IIR's recurrence run 8 channels a block, BPSK 4).  Each loads the next
+// kBatch steps of its row into registers ahead: the loads do not depend on
+// the recurrence, so their latency is paid once per batch instead of once
+// per step.  Their step counts must be multiples of kBatch (the C entries
+// check).
 constexpr int kSerialThreads = 32;
 constexpr int kBatch = 16;
 

@@ -32,9 +32,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NAMES = ("k12", "pll", "extract", "bpsk", "channelizer", "channelizer_mma",
-         "channelizer_wgmma", "frontend", "midend", "chain", "hbm_sweep",
-         "frontend_probe", "k2_probe", "k3_probe")
+NAMES = ("k12", "pll", "extract", "bpsk", "channelizer", "channelizer_wgmma",
+         "frontend", "midend", "chain", "hbm_sweep", "frontend_probe",
+         "k2_probe", "k3_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

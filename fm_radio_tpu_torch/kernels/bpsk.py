@@ -9,7 +9,9 @@ serial loop per channel runs the
 carrier PLL, the zero-crossing detector with cooldown, the TED ramp clock
 and the integrate-and-dump (bpsk_pallas.py:98-160).  Outputs per sample:
 sym = complex(sym_re, pred), pred, and valid (where the TED clock fired).
-The kernel is ``csrc/bpsk.cu``.
+The kernel is ``csrc/bpsk.cu``: one warp of four channels a block, the
+dump's phase error computed under a branch only where some lane of the
+warp fires.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from fm_radio_tpu_torch.ops.cmath import (
 
 # kernel launches since the counter was last set to 0
 launches = 0
+
+# steps a launch must be a multiple of (csrc/bpsk.cu takes 16 a batch)
+STEP_MULTIPLE = 16
 
 _ARGTYPES = ([_build.P] * 8 + [_build.I] * 2 + [_build.F] * 14
              + [_build.P])
@@ -131,7 +136,8 @@ def bpsk_plain(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
 def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
     """x_p = (re, im) [C, N] float32, gain [C] or None -> (state', outs
     with sym, pred, valid [C, N]).  CPU tensors run :func:`bpsk_plain`;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel (N a multiple of 16, else ValueError
+    before any launch)."""
     xr, xi = x_p
     dev = xr.device
     if _build.on_cpu("bpsk", dev):
@@ -145,6 +151,10 @@ def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
     if xi.shape != (c, n) or st.shape != (14, c) or (
             gain is not None and gain.shape != (c,)):
         raise ValueError("bpsk: shapes of x, gain and state disagree")
+    if n % STEP_MULTIPLE or (xr.data_ptr() | xi.data_ptr()) % 16:
+        raise ValueError(f"bpsk: the kernel takes N a multiple of "
+                         f"{STEP_MULTIPLE} on 16-byte aligned rows, not N = "
+                         f"{n}")
     f = dict(device=dev, dtype=torch.float32)
     pred, sym_re, valid = (torch.empty((c, n), **f) for _ in range(3))
     st_out = torch.empty_like(st)

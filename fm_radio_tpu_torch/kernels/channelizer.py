@@ -11,13 +11,13 @@ kernel has them:
 - 1: the int8-matrix mode on packed words: the phase filter and the DFT
   fused into n_c = tl + 1 operator matrices M_c [128 x 128], quantised to
   int8 with one power-of-two scale, applied to the int8 stream (u8 - 128)
-  as four exact integer products (``csrc/channelizer_mma.cu``, int8 tensor
-  cores);
+  as four exact integer products;
 - 2: the single-bf16 mode on packed words: the same operators rounded once
-  to bf16, three Karatsuba products with float32 sums
-  (``csrc/channelizer_wgmma.cu``, bf16 tensor cores through wgmma, the
-  operators streamed into shared memory by bulk copies in the order
-  :func:`wgmma_order` lays out).
+  to bf16, three Karatsuba products with float32 sums.
+
+Both matrix modes run on ``csrc/channelizer_wgmma.cu``: the tensor cores
+through wgmma (s8 or bf16), persistent CTAs, the operators streamed into
+shared memory by bulk copies in the order :func:`wgmma_order` lays out.
 
 The fused operators (channelizer_pallas.py:361-406): with w[r, p] =
 taps[::-1][r*M + p], tl = max(ceil((K-1)*M / 128), 1) carried columns and
@@ -69,17 +69,17 @@ M_RANGE = (2, 128)
 MAX_TAPS_PER_PHASE = 17
 T_MULTIPLE = 4096
 OUTS = ("f32", "i8", "i8ps")
-# the matrix kernels': packed words, M % 8 == 0, and T a multiple of their
-# tile: 64 columns of 128 samples for the int8 kernel (csrc/
-# channelizer_mma.cu), 128 for the bf16 kernel (csrc/channelizer_wgmma.cu;
-# the JAX gate, parallel/channelizer.py::pick_tile_chan, only admits such T)
-MAT_T_MULTIPLE = {1: 64 * 128, 2: 128 * 128}
+# the matrix modes': packed words, M % 8 == 0, and T a multiple of the
+# wgmma kernel's tile, 128 columns of 128 samples (csrc/
+# channelizer_wgmma.cu; the JAX gate, parallel/channelizer.py::
+# pick_tile_chan, only admits such T)
+WGMMA_TILE = 128 * 128
+MAT_T_MULTIPLE = {1: WGMMA_TILE, 2: WGMMA_TILE}
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = ([_P, _P, _I] + [_P] * 5 + [_I, _I, _I, _build.I64, _I]
              + [_P] * 5 + [_P])
-_MMA_ARGTYPES = ([_P] * 5 + [_I] * 4 + [_build.I64, _I] + [_P] * 5 + [_P])
-_WGMMA_ARGTYPES = [_P] * 4 + [_I] * 3 + [_build.I64, _I] + [_P] * 5 + [_P]
+_MAT_ARGTYPES = [_P] * 5 + [_I] * 4 + [_build.I64, _I] + [_P] * 5 + [_P]
 
 
 class ChannelizerTables(NamedTuple):
@@ -103,10 +103,10 @@ class QuantTables(NamedTuple):
     splits 1: ``mats`` int8 [2, n_c, 128 (o), 128 (s)] (re, im) at scale
     q_M, ``aux`` float32 [3, 128]: 1/q_M in [0, 0], then per output o the
     +1 recentre corrections of y_re and y_im.  splits 2: ``mats`` bf16
-    [3, n_c, 128, 128] (re, im, re + im), ``aux`` None.  ``frag``: the same
-    matrices in the order the kernel loads them: int8 in mma.sync fragment
-    order (:func:`frag_order`), bf16 in wgmma stage order
-    (:func:`wgmma_order`)."""
+    [3, n_c, 128, 128] (re, im, re + im), ``aux`` None.  ``frag``: the
+    tables the wgmma kernel streams, in its stage order
+    (:func:`wgmma_order`): int8 re, im and -im (integer wgmma has no
+    negate), or the three bf16 matrices."""
 
     mats: torch.Tensor
     aux: torch.Tensor | None
@@ -202,44 +202,34 @@ def bf16_operators(taps, m: int, descale: bool) -> torch.Tensor:
         torch.bfloat16)
 
 
-def frag_order(a: np.ndarray) -> np.ndarray:
-    """Matrices [P, 128 (o), KB bytes] (int8, or bf16 as byte pairs) ->
-    int32 [P, KB/32, 8, 32, 4]: for plane p, k-step ks (32 bytes of K),
-    row tile ot (16 rows) and lane l = 4g + t, the four registers of the
-    mma.sync A fragment in order: rows g, g+8, g, g+8 of the tile at bytes
-    4t..4t+3, 4t..4t+3, 16+4t.., 16+4t.. of the k-step (PTX ISA, fragment
-    layouts of m16n8k32 .s8 and m16n8k16 .bf16).  One 16-byte load per lane
-    then fetches a warp's fragment."""
-    p, rows, kb = a.shape
-    assert rows == 128 and kb % 32 == 0, a.shape
-    v = a.reshape(p, 8, 2, 8, kb // 32, 2, 4, 4)  # p ot half g ks h16 t byte
-    v = v.transpose(0, 4, 1, 3, 6, 5, 2, 7)       # p ks ot g t h16 half byte
-    return np.ascontiguousarray(v).view(np.int32).reshape(p, kb // 32, 8,
-                                                          32, 4)
-
-
 def wgmma_order(mats: torch.Tensor) -> torch.Tensor:
-    """bf16 operators [3 (g), n_c, 128 (o), 128 (s)] -> [3, n_c, 4 (kh), 4
-    (kc), 128 (o), 8 (e)]: the stages the wgmma kernel streams, in the
-    order it consumes them (g, then shift c, then kh).  Stage (g, c, kh)
-    holds inputs s = 32 kh .. 32 kh + 31 of all 128 output rows, 8 KB, in
-    wgmma's no-swizzle K-major layout: core matrices of 8 rows x 16 bytes
-    (8 inputs), rows 16 bytes apart (so the 8-row groups 128 bytes apart)
-    and the K chunks kc of 8 inputs 128 x 16 = 2048 bytes apart; element
-    [g, c, kh, kc, o, e] = mats[g, c, o, 32 kh + 8 kc + e]."""
+    """Tables [G, n_c, 128 (o), 128 (s)] of bf16 (or int16 holding bf16)
+    or int8 -> [G, n_c, KH, 4 (kc), 128 (o), E]: the stages the wgmma
+    kernel streams, in the order it consumes them (table g, then shift c,
+    then kh).  A stage is 128 rows x 64 bytes, 8 KB: E = 16 / (bytes an
+    input) inputs a 16-byte K-chunk (8 bf16 or 16 int8), KH = 128 / (4 E)
+    stages a shift (4 or 2).  Stage (g, c, kh) holds inputs s = 4E kh ..
+    4E kh + 4E - 1 of all 128 output rows in wgmma's no-swizzle K-major
+    layout: core matrices of 8 rows x 16 bytes, rows 16 bytes apart (so
+    the 8-row groups 128 bytes apart) and the K chunks kc 128 x 16 = 2048
+    bytes apart; element [g, c, kh, kc, o, e] = mats[g, c, o, 4E kh + E kc
+    + e]."""
     g, n_c = mats.shape[:2]
-    return mats.reshape(g, n_c, 128, 4, 4, 8).permute(0, 1, 3, 4, 2, 5) \
-        .contiguous()
+    e = 16 // mats.element_size()
+    return mats.reshape(g, n_c, 128, 128 // (4 * e), 4, e) \
+        .permute(0, 1, 3, 4, 2, 5).contiguous()
 
 
-def wgmma_operator_bytes(n_captures: int, t: int, k: int, m: int) -> int:
-    """Bytes of operators the wgmma kernel moves from L2 into shared memory
-    for one call on W = ``n_captures`` captures of T = ``t`` samples: every
-    tile of 128 columns streams all 3 x n_c x 32 KB of operators once
-    (csrc/channelizer_wgmma.cu)."""
+def wgmma_operator_bytes(n_captures: int, t: int, k: int, m: int,
+                         splits: int) -> int:
+    """Bytes of tables the wgmma kernel moves from L2 into shared memory
+    for one call of mode ``splits`` (1 or 2) on W = ``n_captures``
+    captures of T = ``t`` samples: every tile of 128 columns streams all
+    3 x n_c tables of 128 x 128 inputs once, int8 (1 byte an input) or
+    bf16 (2) (csrc/channelizer_wgmma.cu)."""
     n_tiles = n_captures * (t // (128 * 128))
     n_c = tail_columns(k, m) + 1
-    return n_tiles * 3 * n_c * 128 * 128 * 2
+    return n_tiles * 3 * n_c * 128 * 128 * (1 if splits == 1 else 2)
 
 
 def make_quant_tables(taps, m: int, splits: int, descale: bool,
@@ -250,9 +240,7 @@ def make_quant_tables(taps, m: int, splits: int, descale: bool,
     if splits == 1:
         mats, aux = int8_operators(taps, m, descale)
         mats_t = torch.from_numpy(mats)
-        a = np.ascontiguousarray(np.swapaxes(mats, 1, 2)).reshape(
-            mats.shape[0], 128, -1)
-        frag = torch.from_numpy(frag_order(a.view(np.uint8)))
+        frag = wgmma_order(torch.stack([mats_t[0], mats_t[1], -mats_t[1]]))
     elif splits == 2:
         mats_t = bf16_operators(taps, m, descale)
         aux = None
@@ -547,42 +535,32 @@ def channelize(tab: ChannelizerTables, state_p, xp, m: int,
 
 def _launch_mat(tab: ChannelizerTables, state_p, words: torch.Tensor,
                 m: int, out: str, splits: int):
-    """Launch the int8-matrix kernel (splits 1, ``csrc/channelizer_mma.cu``)
-    or the bf16-matrix kernel (splits 2, ``csrc/channelizer_wgmma.cu``) on
-    packed words [W, T]."""
+    """Launch ``csrc/channelizer_wgmma.cu`` on packed words [W, T]: its
+    int8 mode (splits 1) or its bf16 mode (splits 2)."""
     global launches_i8mat, launches_bf16mat
     qt = quant_tables(tab, splits, out)
     dev = words.device
     sr, si = state_p
     n_w, t = words.shape
-    _build.require("channelizer_mma", dev, torch.float32, words=words, sr=sr,
-                   si=si)
+    lib = "channelizer_wgmma"
+    _build.require(lib, dev, torch.float32, words=words, sr=sr, si=si)
     if words.data_ptr() % 16:
-        raise ValueError("channelizer_mma: words must be 16-byte aligned")
+        raise ValueError(f"{lib}: words must be 16-byte aligned")
+    if splits == 1:
+        _build.require(lib, dev, torch.float32, aux=qt.aux)
+        _build.require(lib, dev, torch.int8, frag=qt.frag)
+    else:
+        _build.require(lib, dev, torch.int16, opers=qt.frag)
     sr_out, si_out = torch.empty_like(sr), torch.empty_like(si)
     y_re, y_im, y8 = _empty_outs(out, n_w, m, t // m, dev)
-    k = tab.w_rev.shape[0]
-    if splits == 1:
-        _build.require("channelizer_mma", dev, torch.float32, aux=qt.aux)
-        _build.require("channelizer_mma", dev, torch.int32, frag=qt.frag)
-        fn = _build.function("channelizer_mma", "fmt_channelize_mma",
-                             _MMA_ARGTYPES)
-        err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
-                 qt.frag.data_ptr(), qt.aux.data_ptr(), splits, m, k, n_w, t,
-                 OUTS.index(out), _ptr(y_re), _ptr(y_im), _ptr(y8),
-                 sr_out.data_ptr(), si_out.data_ptr(),
-                 _build.stream_ptr(dev))
-        _build.check("channelizer_mma", err)
-        launches_i8mat += 1
-    else:
-        _build.require("channelizer_wgmma", dev, torch.int16, opers=qt.frag)
-        fn = _build.function("channelizer_wgmma", "fmt_channelize_wgmma",
-                             _WGMMA_ARGTYPES)
-        err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
-                 qt.frag.data_ptr(), m, k, n_w, t, OUTS.index(out),
-                 _ptr(y_re), _ptr(y_im), _ptr(y8),
-                 sr_out.data_ptr(), si_out.data_ptr(),
-                 _build.stream_ptr(dev))
-        _build.check("channelizer_wgmma", err)
+    fn = _build.function(lib, "fmt_channelize_wgmma", _MAT_ARGTYPES)
+    err = fn(words.data_ptr(), sr.data_ptr(), si.data_ptr(),
+             qt.frag.data_ptr(), _ptr(qt.aux), splits, m, tab.w_rev.shape[0],
+             n_w, t, OUTS.index(out), _ptr(y_re), _ptr(y_im), _ptr(y8),
+             sr_out.data_ptr(), si_out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(lib, err)
+    if splits == 2:
         launches_bf16mat += 1
+    else:
+        launches_i8mat += 1
     return (sr_out, si_out), ((y_re, y_im) if out == "f32" else y8)

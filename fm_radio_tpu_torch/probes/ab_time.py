@@ -1,0 +1,201 @@
+"""Time the matrix channelizer and BPSK of one checkout of the port,
+so that two checkouts (a commit and its parent) can be compared in turns
+on one card within one call.
+
+    python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
+
+Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
+from DIR (the checkout that holds this file by default), builds that
+checkout's kernels and prints one JSON row per case:
+
+- the channelizer at splits=1 (``channelize(..., splits=1)``) at bench.py's
+  wideband cell (W = 64 captures, M = 32, K = 16, T = 2^22, out "i8ps",
+  words as ``chip_smoke.wideband_words`` makes them), at splits=2 there too,
+  and at splits=1 at its edge shapes (T = 16,384 on W = 1 and 3) and at
+  the receiver's smallest block at M = 32 (W = 1, T = 262,144: B = 8,192
+  a channel), random words, each output form, there also the device time
+  of its kernels (``torch.profiler``: a call's wall time is mostly the
+  host's);
+- end to end at splits=1, in ms a block (CUDA events over 8 blocks after
+  one): ``chip_smoke.wideband_path``'s W = 1 cell (one loud capture, M =
+  32, B = 8,192 a channel: 16 tiles of 128 columns), and the stereo+RDS
+  station of ``chip_smoke.station_splits_words`` (one capture, M = 32,
+  blocks of 32,768 a channel: 64 tiles) through ``wideband_demod_block``;
+- BPSK (``bpsk_sync``) on the arguments ``demod_block`` recorded at the
+  pre-split cell (C = 2,048, B = 131,072, ``chip_smoke.bench_planes``, the
+  second block) and ``wideband_demod_block`` at the wideband cell
+  (splits=1, bench.py's captures), and on zeros of that shape with the
+  pre-split cell's gain.
+
+Each time is the mean of ``--reps`` calls after one (CUDA events), beside
+the card's name and power limit.  Exits 1 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, key: str) -> float:
+    """Device time per call of the CUDA kernels whose names contain
+    ``key`` (``torch.profiler``, ``reps`` calls after one): the kernel
+    alone, without the host's share of a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)  # the window's first kernel
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += float(e.self_cuda_time_total if t is None else t)
+    return us / 1e3 / reps
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--reps", type=int, default=20)
+    a = ap.parse_args(argv)
+    root = os.path.abspath(a.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_time: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.kernels import bpsk as kb
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+    from fm_radio_tpu_torch.models.demod import (
+        INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
+    from fm_radio_tpu_torch.models.wideband import (
+        wideband_demod_block, wideband_init_state)
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    _build.build()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    label = a.label or root
+    rows = []
+
+    def row(kernel, case, ms, **kw):
+        r = {"label": label, "kernel": kernel, "case": case, "ms": ms,
+             "card": smi, **kw}
+        rows.append(r)
+        print(json.dumps(r), flush=True)
+
+    # the channelizer at splits=1: the cell, then the edge shapes
+    m, k = 32, 16
+    tab = kch.make_tables(make_channelizer_taps(m, k), m, dev)
+    words = chip_smoke.wideband_words(64, m, 131072, seed=0, device=dev,
+                                      amp=chip_smoke.BENCH_AMP)
+    st = (torch.zeros((64, (k - 1) * m), device=dev),) * 2
+    row("channelizer_i8mat", "cell W=64 T=4194304 i8ps",
+        _ms(lambda: kch.channelize(tab, st, words, m, "i8ps", 1), a.reps))
+    row("channelizer_bf16mat", "cell W=64 T=4194304 i8ps",
+        _ms(lambda: kch.channelize(tab, st, words, m, "i8ps", 2), a.reps))
+    del words
+    rng = np.random.default_rng(11)
+    for n_w, t in ((1, 16384), (3, 16384), (1, 262144)):
+        w = torch.from_numpy(
+            rng.integers(0, 256, (n_w, t)).astype(np.float32) * 256.0
+            + rng.integers(0, 256, (n_w, t)).astype(np.float32)).to(dev)
+        s0 = (torch.zeros((n_w, (k - 1) * m), device=dev),) * 2
+        for out in ("i8ps", "f32", "i8"):
+            def call():
+                return kch.channelize(tab, s0, w, m, out, 1)
+            row("channelizer_i8mat", f"edge W={n_w} T={t} {out}",
+                _ms(call, 5 * a.reps),
+                device_ms=_device_ms(call, 5 * a.reps, "chan_"))
+
+    # end to end at splits=1: the W = 1 cell and the station
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, dev)
+    cell = chip_smoke.wideband_path(1, m, 8192, 8,
+                                    amp=chip_smoke.loud_amp(m), splits=1,
+                                    time_kernels=False, device=dev)
+    row("wideband_demod_block", "W=1 splits=1 B=8192 loud",
+        cell["ms_per_block"], launches=cell["launches"])
+    sw = torch.from_numpy(chip_smoke.station_splits_words(m)).to(dev)
+    t_blk = 32768 * m
+    blocks = [sw[:, i * t_blk : (i + 1) * t_blk].contiguous()
+              for i in range(9)]
+    stab = kch.make_tables(make_channelizer_taps(m), m, dev)
+    ss = wideband_init_state(cfg, m, 1, device=dev)
+    ss, _ = wideband_demod_block(cfg, co, stab, ss, blocks[0], m, splits=1)
+    chip_smoke.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for xb in blocks[1:]:
+        ss, _ = wideband_demod_block(cfg, co, stab, ss, xb, m, splits=1)
+    end.record()
+    torch.cuda.synchronize()
+    row("wideband_demod_block", "station W=1 splits=1 B=32768",
+        start.elapsed_time(end) / 8, launches=chip_smoke.read_counts())
+    del sw, blocks
+
+    # BPSK on the cells' recorded arguments and on zeros
+    x = chip_smoke.bench_planes(2048, 131072, seed=0, device=dev)
+    sd = demod_init_state(cfg, 2048, dev)
+    sd, _ = demod_block(cfg, co, sd, x)
+    calls = {}
+    demod_block(cfg, co, sd, x, record=calls)
+    pre = calls["bpsk"]
+    del x
+    wtab = kch.make_tables(make_channelizer_taps(m, 16), m, dev)
+    sw = wideband_init_state(cfg, m, 64, 16, dev)
+    xw = chip_smoke.wideband_words(64, m, 131072, seed=0, device=dev,
+                                   amp=chip_smoke.BENCH_AMP)
+    xw = xw.reshape(64, -1, 128)
+    sw, _ = wideband_demod_block(cfg, co, wtab, sw, xw, m, splits=1)
+    calls = {}
+    wideband_demod_block(cfg, co, wtab, sw, xw, m, splits=1, record=calls)
+    wide = calls["bpsk"]
+    del xw
+    xr, xi = pre[2]
+    zeros = (pre[0], pre[1], (torch.zeros_like(xr), torch.zeros_like(xi)),
+             pre[3])
+    for case, args in (("presplit", pre), ("wideband splits=1", wide),
+                       ("zeros", zeros)):
+        planes = torch.stack(list(args[2]))
+        row("bpsk", case, _ms(lambda: kb.bpsk_sync(*args), a.reps),
+            zero_share=float((planes == 0).double().mean()),
+            gain_range=[float(args[3].min()), float(args[3].max())])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

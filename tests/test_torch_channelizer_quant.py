@@ -4,9 +4,9 @@ run in interpret mode (``channelize_pallas(..., interpret=True,
 splits=s)``) and against the port's exact mode.
 
 Inputs come from numpy seeds; both packages start from one state.  The
-CUDA kernels (csrc/channelizer_mma.cu, int8; csrc/channelizer_wgmma.cu,
-bf16) are held against these plain versions on the card by chip_smoke.py
-and tests/test_torch_gpu.py.
+CUDA kernel (csrc/channelizer_wgmma.cu, int8 and bf16) is held against
+these plain versions on the card by chip_smoke.py and
+tests/test_torch_gpu.py.
 """
 
 import os
@@ -192,32 +192,6 @@ def test_bf16_tables_equal_split_bf16():
         np.testing.assert_array_equal(ours, np.asarray(hi).view(np.int16))
 
 
-def test_frag_order_is_the_mma_fragment_layout():
-    """``frag_order`` puts, for lane l = 4g + t of the warp loading k-step
-    ks of row tile ot, register r at the bytes the PTX ISA assigns: rows
-    16 ot + g (r = 0, 2) or + 8 (r = 1, 3), bytes 32 ks + 4t (r = 0, 1) or
-    + 16 (r = 2, 3), checked byte by byte against a matrix of distinct
-    (row, byte) codes."""
-    p, kb = 2, 64
-    rows = np.arange(128)[:, None]
-    cols = np.arange(kb)[None, :]
-    a = np.stack([(rows * kb + cols + pl * 128 * kb) for pl in range(p)])
-    codes = a.astype(np.int64)
-    f = kch.frag_order((codes % 256).astype(np.uint8))
-    fb = f.view(np.uint8).reshape(p, kb // 32, 8, 32, 4, 4)
-    for pl in range(p):
-        for ks in range(kb // 32):
-            for ot in range(8):
-                for lane in range(32):
-                    g, t = lane // 4, lane % 4
-                    for r in range(4):
-                        row = 16 * ot + g + 8 * (r & 1)
-                        byte = 32 * ks + 16 * (r >> 1) + 4 * t
-                        want = codes[pl, row, byte : byte + 4] % 256
-                        np.testing.assert_array_equal(
-                            fb[pl, ks, ot, lane, r], want)
-
-
 @pytest.mark.parametrize("m,k", [(32, 16), (8, 16), (128, 17)])
 def test_wgmma_order_is_the_stage_layout(m, k):
     """The bf16 tables' ``frag`` is the operators in the wgmma kernel's
@@ -252,14 +226,15 @@ def test_wgmma_order_is_the_stage_layout(m, k):
 
 
 def test_wgmma_operator_bytes():
-    """The operator bytes the wgmma kernel moves from L2 per call: every
-    tile of 128 columns streams all 3 x n_c x 32 KB once; at the wideband
-    cell (W = 64, T = 2^22, M = 32, K = 16: 16,384 tiles, n_c = 5) 8.05 GB,
-    half of the 16.1 GB the mma.sync kernel's 32,768 tiles of 64 columns
-    read; at M = 128, K = 17 n_c = 17."""
-    assert kch.wgmma_operator_bytes(64, 1 << 22, 16, 32) == \
+    """The bf16 operator bytes the wgmma kernel moves from L2 per call:
+    every tile of 128 columns streams all 3 x n_c x 32 KB once; at the
+    wideband cell (W = 64, T = 2^22, M = 32, K = 16: 16,384 tiles, n_c = 5)
+    8.05 GB, half of the 16.1 GB the bf16 mode's earlier mma.sync kernel's
+    32,768 tiles of 64 columns read; at M = 128, K = 17 n_c = 17."""
+    assert kch.wgmma_operator_bytes(64, 1 << 22, 16, 32, 2) == \
         16384 * 3 * 5 * 32768 == 8_053_063_680
-    assert kch.wgmma_operator_bytes(2, 65536, 17, 128) == 8 * 3 * 17 * 32768
+    assert kch.wgmma_operator_bytes(2, 65536, 17, 128, 2) == \
+        8 * 3 * 17 * 32768
 
 
 @pytest.mark.parametrize("splits", [1, 2])
@@ -324,10 +299,10 @@ def test_splits_resolution_and_gate():
 
 def test_mat_dispatch_never_falls_back(monkeypatch, tmp_path):
     """The matrix modes dispatch by device as every wrapper does: a tensor
-    on another device is refused, a failed build raises, and the kernel
-    wrapper refuses what its kernel does not take (planes, M % 8 != 0,
-    T not a multiple of its tile: 8192 for the int8 kernel, 16384 for the
-    bf16 one) instead of running the exact kernel."""
+    on another device is refused, a failed build raises (in either mode),
+    and the kernel wrapper refuses what its kernel does not take (planes,
+    M % 8 != 0, T not a multiple of its tile of 16,384 samples) instead of
+    running the exact kernel."""
     from fm_radio_tpu_torch.kernels import _build
 
     m = 32
@@ -346,15 +321,20 @@ def test_mat_dispatch_never_falls_back(monkeypatch, tmp_path):
         with pytest.raises(ValueError, match=f"multiple of {t_mult}"):
             kch.channelize(tab, st, w[:, : t_mult // 2], m, out="i8ps",
                            splits=splits)
-    assert kch.MAT_T_MULTIPLE == {1: 8192, 2: 16384}
+    assert kch.MAT_T_MULTIPLE == {1: 16384, 2: 16384}
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_libs", {})
-    with pytest.raises(RuntimeError, match="nvcc failed on channelizer_mma"):
-        _build.function("channelizer_mma", "fmt_channelize_mma", [])
     with pytest.raises(RuntimeError,
                        match="nvcc failed on channelizer_wgmma"):
         _build.function("channelizer_wgmma", "fmt_channelize_wgmma", [])
+    # the launches themselves (run here on CPU tensors past the device
+    # dispatch), in both modes
+    for splits in (1, 2):
+        with pytest.raises(RuntimeError,
+                           match="nvcc failed on channelizer_wgmma"):
+            kch._launch_mat(tab, st, torch.zeros((1, 16384)), m, "i8ps",
+                            splits)
 
 
 def _station_words(m, n, channel):

@@ -179,20 +179,24 @@ def test_channelizer_mat_kernels_match_plain_on_card():
 
 @pytest.mark.gpu
 def test_wgmma_channelizer_edges_on_card():
-    """The bf16-matrix kernel (wgmma, operator stages by bulk copy) against
-    its plain version at its edge shapes (T = 16,384, one tile of 128
-    columns, on W = 1 and 3 captures; all three output forms) within
-    chip_smoke.py's tolerances, and its SASS holds wgmma and bulk-copy
-    instructions."""
+    """The matrix kernel (wgmma, operator stages by bulk copy) in both
+    modes against its plain version at the edge shapes (T = 16,384, one
+    tile of 128 columns, on W = 1 and 3 captures; all three output forms):
+    int8 bit for bit, bf16 within chip_smoke.py's tolerances; its SASS
+    holds the float (HGMMA) and integer (IGMMA) warpgroup MMA and bulk
+    copies, and no mma.sync (IMMA)."""
     _need_card()
     import chip_smoke
 
     rows = chip_smoke.compare_wgmma_edges()
-    assert len(rows) == 2 and all(r["ok"] for r in rows), rows
+    assert len(rows) == 4 and all(r["ok"] for r in rows), rows
+    assert all(r["max_abs_err"] == 0.0 for r in rows
+               if r["name"].startswith("channelizer_i8mat")), rows
     sass = chip_smoke.sass_counts()
     if "error" not in sass:
-        assert sass["HGMMA"] > 0 and sass["UTMALDG"] + sass["UBLKCP"] > 0, \
-            sass
+        assert sass["HGMMA"] > 0 and sass["IGMMA"] > 0, sass
+        assert sass["IMMA"] == 0, sass
+        assert sass["UTMALDG"] + sass["UBLKCP"] > 0, sass
 
 
 @pytest.mark.gpu
@@ -244,12 +248,33 @@ def test_pll_extract_edges_on_checked_build():
 
 
 @pytest.mark.gpu
+def test_bpsk_edges_on_card():
+    """BPSK (one warp of a few channels a block, the phase error under a
+    branch) equals its plain version bit for bit at C = 40 and 5, N = 16,
+    32, 48 and 2,048, with a gain and without, on random input and on
+    zeros, two blocks with carried state each; and on the bounds-checked
+    build at the short blocks (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    rows = chip_smoke.compare_bpsk_edges()
+    with _build.checked_build():
+        rows += chip_smoke.compare_bpsk_edges(steps=(16, 32, 48))
+    assert len(rows) == 32 + 24, rows
+    assert all(r["ok"] and r["max_abs_err"] == 0.0
+               and not r["valid_mismatch"] for r in rows), rows
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
 def test_k12_small_repeats_on_poisoned_memory():
     """K12, the PLL, extract and BPSK against their plain versions at the
-    shape where K12 once disagreed (C = 8, B = 16,384), on three fresh
-    seeds, the allocator's free memory filled with 0xFF bytes before
-    each: a kernel that read an output or scratch element it never wrote
-    would see NaN there."""
+    shape where K12 once disagreed (C = 8, B = 16,384), and the int8-matrix
+    channelizer at W = 2, T = 32,768, on three fresh seeds, the
+    allocator's free memory filled with 0xFF bytes before each: a kernel
+    that read an output or scratch element it never wrote would see NaN
+    there."""
     _need_card()
     import chip_smoke
 
@@ -259,13 +284,13 @@ def test_k12_small_repeats_on_poisoned_memory():
 
 @pytest.mark.gpu
 def test_channelizer_mat_kernels_other_shapes_on_card():
-    """Both matrix kernels against their plain versions at the other
-    channel counts the TPU gate admits (M = 8, 64, 128; K = 16, and K = 17
-    at M = 128: 17 column shifts), on random packed words (every u8 value),
-    W = 2, two blocks with carried state, the float32 and int8 outputs.
-    The int8 matrices are exact.  The bf16 matrices' float32 sums round
-    once per k-step of the tensor cores' accumulator, 8 per column shift
-    n_c, so their error grows with the depth: the float32 output within
+    """Both matrix modes against their plain versions at the other channel
+    counts the TPU gate admits (M = 8, 64, 128; K = 16, and K = 17 at M =
+    128: 17 column shifts), on random packed words (every u8 value), W =
+    2, two blocks with carried state, the float32 and int8 outputs.  The
+    int8 matrices are exact.  The bf16 matrices' float32 sums round once
+    per k-step of the tensor cores' accumulator, 8 per column shift n_c,
+    so their error grows with the depth: the float32 output within
     2e-6 * n_c of its rms (chip_smoke.py's 1e-5 at the cell's n_c = 5;
     measured 1.7e-5 at n_c = 16), the int8 output within 1 LSB on at most
     1e-3 of the samples; the state exact."""
