@@ -34,8 +34,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    variant beside its plain version and, for the per-tile sums, one
    PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``);
 3a. K12 (and the PLL, extract, BPSK) against their plain versions at
-   C=8 x B=16,384, and the int8-matrix channelizer at W=2 x T=32,768
-   (:func:`compare_i8mat_small`), five times on fresh seeds, the
+   C=8 x B=16,384, the int8-matrix channelizer at W=2 x T=32,768
+   (:func:`compare_i8mat_small`) and the ds x4 kernels at C=8 x B=16,384
+   (:func:`compare_ds4_edges`), five times on fresh seeds, the
    allocator's free memory filled with 0xFF bytes before each
    (compute-sanitizer refused the card it was tried on: PERF.md), then
    the five again on the bounds-checked build
@@ -61,13 +62,20 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    extract's route on the card against its host copy
    (:func:`compare_pll_edges`, :func:`compare_extract_edges`,
    :func:`compare_bpsk_edges`); the PLL's and BPSK's SASS saved for their
-   dependent chains (:func:`pll_sass`, :func:`bpsk_sass`);
+   dependent chains (:func:`pll_sass`, :func:`bpsk_sass`); the
+   redesigned ds x4 kernels at their edge shapes on both builds, max abs
+   error 0 (:func:`compare_ds4_edges`: C = 1, 5, 40, B = 8,192, 8,320,
+   16,384; K12 flat and phase-split, K1 on every load form with both
+   taps and stores), and
+   their SASS (:func:`ds4_sass`: saved as chiprun_out/ds4_sass_*.txt; no
+   FFMA in the float K1 beyond atan2's division, no spills);
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
-   state, on the arguments ``demod_block`` recorded: K1 on each of its six
-   forms (float32 planes off the u8 grid; integer planes with int8 taps;
-   packed words with float and with int8 taps; int8 planes with float
-   taps; the int8-direct entry), K2 with de-emphasis off and on; each
+   state, on the arguments ``demod_block`` recorded: K1 on each of its
+   eight forms (float32 planes off the u8 grid; integer planes with int8
+   taps; packed words with float and with int8 taps; int8 planes with float
+   taps; the int8-direct entry; complex64 with float and with int8 taps),
+   K2 with de-emphasis off and on; each
    input's statistics, failing on a constant one; ``demod_block(
    k12_fusion="off")`` against the fused K12 on the same int8 planes,
    outputs and state bit for bit; and the wideband float32 bridge
@@ -86,17 +94,23 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    on the arguments ``demod_block`` gave it in the last block, and
    compared there with the tolerances of phase 3; BPSK also timed on
    zeros of its input's shape, beside its input's statistics
-   (:func:`bpsk_alone`); the cell profiled (its
-   profile must show the fused mid end's three kernels, the PLL's, the
-   blocked extract's and BPSK's; so must bench.py's wideband lens at
-   splits=1, with the matrix channelizer's);
+   (:func:`bpsk_alone`); the ds x4 stage's issue floors at the recorded
+   shape (:func:`ds4_floors`; its time is the profile's); the
+   cell profiled (its profile must show the blocked ds x4, the fused mid
+   end's three kernels, the PLL's, the blocked extract's and BPSK's; so
+   must bench.py's wideband lens at splits=1, with the phase-split ds x4's
+   and the matrix channelizer's);
 4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
    f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
    complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
    ``DemodConfig(frontend_int8=True, k12_fusion="off")``): one warm-up
    block, 8 counted blocks, then K1 and K2 timed alone beside their plain
-   versions on the last block's arguments (and, for complex64, the plane
-   split alone);
+   versions on the last block's arguments, and K1's issue floors at the
+   recorded shape; the complex cell's K1 given the block itself (its
+   complex64 storage, which the kernel reads in place); each profiled: K1
+   one launch (f32w and complex ``k1_tile_kernel``, k12off the blocked
+   ds x4) and no ``k12_disc_kernel`` (the complex cell's
+   ``CatArrayBatchedCopy`` time beside f32w's is logged);
 4c. the chain cell (C=2048 x B=131,072 packed words,
    ``DemodConfig(assume_integer_input=True, chain_fusion="auto")``: one
    warm-up block, 8 counted blocks, one ``chain`` and one ``bpsk`` launch
@@ -112,7 +126,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    warm-up block, then 8 blocks through ``wideband_demod_block`` with the
    counters set to 0 just before and read just after; then the channelizer
    and the phase-split K12 timed alone beside their plain versions on the
-   last block's arguments, and compared there.  bench.py's amplitude (2.8
+   last block's arguments, and compared there, with the phase-split
+   ds x4's issue floors at the recorded shape.  bench.py's
+   amplitude (2.8
    per channel) falls below half an LSB at the int8 bridge, so the same
    cell runs again on loud captures (2.8*M per channel), whose bridge
    output is not constant.  Then the M=16 bridge (stations' default: 128
@@ -290,8 +306,9 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
                          2: "channelizer_bf16mat"}
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
-# rounding; the power sums differ only in summation order.  K12 (flat and
-# phase-split) and K2 admit no slack on either route of their mid end: the
+# rounding; the power sums differ only in summation order.  K1 (every load
+# form, both taps and stores; its float taps summed in ds4_float's order),
+# K12 (flat and phase-split) and K2 admit no slack on either route of their mid end: the
 # fused route sums every FIR output in the plain version's tap order; nor
 # do the PLL, extract (on both of its routes) and BPSK (its branch
 # changes no value: it skips only what no lane uses).  The channelizer
@@ -303,8 +320,8 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # BF16MAT_I8_SHARE of the samples (a value that lies on a rounding boundary
 # may move); its carried state is exact.
 TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 0.0,
-       "k12_ps": 0.0, "channelizer": 0.0, "frontend": 1e-6,
-       "frontend_i8": 1e-6, "midend": 0.0, "chain": 1e-5,
+       "k12_ps": 0.0, "channelizer": 0.0, "frontend": 0.0,
+       "frontend_i8": 0.0, "midend": 0.0, "chain": 1e-5,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
        "channelizer_bf16mat": 1.0,
        # the int16 format: quantised stores leave no slack
@@ -777,8 +794,10 @@ def work(name: str, args) -> tuple:
         out_i16 = args[5 if name == "frontend" else 4] if len(args) > (
             5 if name == "frontend" else 4) else False
         c, b = x.shape[-2], x.shape[-1]
-        f, i8 = _k1_ops(co, c, b // 4, int8_taps, x.ndim == 2)
-        return _nbytes(x) + (2 if out_i16 else 4) * c * (b // 4), f, i8
+        words = x.dtype == torch.float32 and x.ndim == 2
+        f, i8 = _k1_ops(co, c, b // 4, int8_taps, words)
+        return (_nbytes(x) + (2 if out_i16 else 4) * c * (b // 4) + 4 * c, f,
+                i8)
     if name == "midend":
         co, cfg, st, fmd = args[:4]
         out_b = 2 if len(args) > 4 and args[4] else 4
@@ -809,7 +828,8 @@ def work(name: str, args) -> tuple:
         co, cfg, st, x = args
         c, b = x.shape[-2], x.shape[-1]
         n = b // 8
-        f, _ = _k1_ops(co, c, b // 4, False, x.ndim == 2)
+        f, _ = _k1_ops(co, c, b // 4, False,
+                       x.dtype == torch.float32 and x.ndim == 2)
         flops = (f + _mid_flops(cfg, co, c, n) + float(c) * n * PLL_STEP_FLOPS
                  + _ext_flops(co, c, n))
         out = 4 * c * (b // 32) * 3 + 4 * c * (b // 64) * 2
@@ -943,6 +963,9 @@ SPLIT_FORMS = (
     ("words_int8", "words", {"frontend_int8": True}),
     ("i8_float", "i8", {}),
     ("i8_direct", "i8", {"frontend_int8": True, "k12_fusion": "off"}),
+    ("complex_float", "complex", {}),
+    ("complex_int8", "complex",
+     {"frontend_int8": True, "assume_integer_input": True}),
 )
 # the split cells at full width: (label, input kind, DemodConfig kwargs)
 SPLIT_CELLS = (
@@ -966,7 +989,7 @@ def _leaf_max_diff(sa, sb) -> float:
 
 def compare_split(channels: int = 256, block: int = 131072, blocks: int = 2,
                   device="cuda"):
-    """K1 (each of its six forms) and K2 against their plain versions on
+    """K1 (each of its eight forms) and K2 against their plain versions on
     the card, on the arguments ``demod_block`` recorded, ``blocks`` blocks
     with carried state; K2 also with de-emphasis on, on the same fm_demod.
     Then ``demod_block(k12_fusion="off")`` against the fused K12 on the
@@ -1482,9 +1505,11 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     """One split cell through demod_block with counted launches (one
     warm-up block first), bench.py's signal in the form ``kind`` under
     ``DemodConfig(**kw)``; then K1 and K2 timed alone beside their plain
-    versions on the last block's arguments, and compared.  For complex64
-    input also the plane split (``torch.stack`` of real and imag) alone."""
+    versions on the last block's arguments, and compared (complex64 goes
+    to K1 as it is: the kernel reads its float pairs in place, which the
+    recorded argument shows)."""
     from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels.frontend import readable
     from fm_radio_tpu_torch.models.demod import (
         demod_block, demod_init_state, make_coeffs)
 
@@ -1518,6 +1543,13 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     for k in ("audio", "rds_pred"):
         if not bool(torch.isfinite(outs[k]).all()):
             raise RuntimeError(f"{label}: non-finite {k}")
+    x1 = calls[k1][3]
+    if x.dtype == torch.complex64 and not (
+            x1.dtype == torch.complex64 and x1.data_ptr() == x.data_ptr()
+            and readable(x1) is x1):
+        raise RuntimeError(f"{label}: K1 was given {x1.dtype} "
+                           f"{tuple(x1.shape)}, not the complex64 block it "
+                           f"reads in place")
     res = {"cell": label, "config": kw, "input": kind, "channels": channels,
            "block": block, "blocks": blocks, "inputs": input_stats(x),
            "launches": launches, "ms_per_block": ms / blocks,
@@ -1525,9 +1557,7 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
            "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
     (res["kernel_ms"], res["plain_ms"], res["compare"],
      res["bound"]) = time_stages({k: calls[k] for k in (k1, "midend")})
-    if kind == "complex":
-        _, res["plane_split_ms"] = _cuda_ms(
-            lambda: torch.stack([x.real, x.imag]), reps=5)
+    res["ds4_floors"] = ds4_floors(x1)
     return res
 
 
@@ -1625,6 +1655,23 @@ FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
 # lens launches too
 REDESIGNED_KERNELS = ("pll_kernel", "extract_blocked_kernel", "bpsk_kernel")
 MAT_KERNEL = "chan_wgmma_kernel"
+# the redesigned ds x4 kernels (csrc/k12_stages.cuh, csrc/k12.cu,
+# csrc/frontend.cu): K12's first launch and the int8-tap K1 (flat), K12's
+# first launch on phase planes, and the float K1's staged tile; the
+# launches the split cells no longer make (the second K1 launch, the
+# complex64 plane split)
+DS4_FLAT = "ds4_i8_blocked_kernel"
+DS4_PS = "k12_ds4_ps_blocked_kernel"
+K1_TILE = "k1_tile_kernel"
+DS4_KERNELS = (DS4_FLAT, DS4_PS, K1_TILE)
+K1_DISC = "k12_disc_kernel"
+PLANE_COPY = "CatArrayBatchedCopy"
+# what each split cell's profile must show
+SPLIT_CELL_DS4 = {"f32w": K1_TILE, "complex": K1_TILE, "k12off": DS4_FLAT}
+# the ds x4 kernel of each kernel line's entry (the f32w cell's K1: float
+# taps)
+DS4_OF = {"k12": DS4_FLAT, "k12_ps": DS4_PS, "frontend": K1_TILE,
+          "frontend_i8": DS4_FLAT}
 
 
 def lacking(prof: dict, names) -> list:
@@ -2115,8 +2162,11 @@ def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
                 device="cuda") -> list[dict]:
     """The small on-card comparison of K12 (and the PLL, extract, BPSK)
     with its plain version, :func:`compare_kernels` at C = ``channels``, B
-    = ``block``, and both int8-matrix channelizers'
-    (:func:`compare_i8mat_small`), ``repeats`` times on fresh seeds, the
+    = ``block``, both int8-matrix channelizers'
+    (:func:`compare_i8mat_small`) and the ds x4 kernels' (K12 flat and
+    phase-split, K1 on every form: :func:`compare_ds4_edges` at that
+    shape), ``repeats`` times on fresh
+    seeds, the
     allocator's free memory poisoned before each
     (:func:`poison_free_memory`): the shape at which K12 once disagreed
     with its plain version (PERF.md).  Returns one row per repeat: the
@@ -2128,6 +2178,8 @@ def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
         kernels = compare_kernels(channels, block, 2, device, seed=seed)
         poison_free_memory(device)
         kernels += compare_i8mat_small(seed, device)
+        poison_free_memory(device)
+        kernels += compare_ds4_edges(device, ((channels, block),), seed=seed)
         rows.append({"seed": seed, "kernels": kernels})
     return rows
 
@@ -2213,6 +2265,8 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
         timed = {chan: calls["channelizer"], "k12_ps": calls["k12_ps"]}
         (res["kernel_ms"], res["plain_ms"], res["compare"],
          res["bound"]) = time_stages(timed)
+        if ps:
+            res["ds4_floors"] = ds4_floors(calls["k12_ps"][3])
         if chan != "channelizer":
             res["library_ms"] = mat_library_ms(calls["channelizer"])
         if chan in ("channelizer_i8mat", "channelizer_bf16mat"):
@@ -2544,9 +2598,9 @@ def pll_sass() -> dict:
 
 
 def _res_usage(lib: str) -> dict:
-    """Registers (and local memory bytes) of each kernel of a built
-    library by ``cuobjdump -res-usage``, keyed by mangled name; {} where
-    the toolkit has no cuobjdump."""
+    """Registers (and stack and local memory bytes: spills) of each kernel
+    of a built library by ``cuobjdump -res-usage``, keyed by mangled name;
+    {} where the toolkit has no cuobjdump."""
     from fm_radio_tpu_torch.kernels import _build
 
     exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -2562,6 +2616,7 @@ def _res_usage(lib: str) -> dict:
         elif name and "REG:" in ln:
             kv = dict(w.split(":", 1) for w in ln.split() if ":" in w)
             res[name] = {"reg": int(kv.get("REG", -1)),
+                         "stack": int(kv.get("STACK", -1)),
                          "local": int(kv.get("LOCAL", -1))}
             name = None
     return res
@@ -2669,6 +2724,181 @@ def bpsk_alone(args, reps: int = 20) -> dict:
     kb.bpsk_sync(*zargs)
     _, res["ms_zeros"] = _cuda_ms(lambda: kb.bpsk_sync(*zargs), reps)
     return res
+
+
+def _ds4_state(cfg, co, c: int, g: torch.Generator, device) -> dict:
+    """``demod_init_state`` with a random carried ds x4 tail (u8 - 127
+    integers, as an integer capture leaves it) and discriminator phase."""
+    from fm_radio_tpu_torch.models.demod import demod_init_state
+
+    st = demod_init_state(cfg, c, device)
+    t = (torch.randint(0, 256, (2,) + tuple(st["ds_fm_in"].shape),
+                       generator=g, device=device).float() - 127.0)
+    st["ds_fm_in"] = torch.complex(t[0], t[1])
+    st["disc_prev_theta"] = (torch.rand((c,), generator=g, device=device)
+                             * 6.0 - 3.0)
+    return st
+
+
+def _k1_inputs(u8: torch.Tensor) -> dict:
+    """Every K1 load form of the u8 values [2, C, B] (float32): float32
+    planes (also off the u8 grid), packed words, complex64, int8 planes."""
+    off = torch.sin(u8 * 0.37) * 0.49
+    return {"planes": u8 - 127.0, "planes_off_grid": u8 - 127.0 + off,
+            "words": u8[0] * 256.0 + u8[1],
+            "complex": torch.complex(u8[0] - 127.0, u8[1] - 127.0),
+            "i8": (u8 - 128.0).to(torch.int8)}
+
+
+# (C, B[, K1's other B]) of the ds x4 edges: C = 1 and odd C; the
+# smallest block (two tiles of 1,024 outputs); a last tile of 32 outputs
+# (K1 also at B + 4: a last tile of one output, rows of an odd length);
+# C = 40 at B = 16,384
+DS4_EDGES = ((1, 8192), (5, 8192), (5, 8320, 8324), (40, 16384))
+
+
+def compare_ds4_edges(device="cuda", shapes=DS4_EDGES,
+                      seed: int = 11) -> list[dict]:
+    """The redesigned ds x4 kernels against their plain versions at edge
+    shapes, max abs error 0, two blocks with carried state each (a random
+    carried tail and phase to start; full-range u8 input): K12 and K12
+    phase-split whole; K1 on every load form with float and int8 taps,
+    float32 and int16 stores; the int8-direct K1 in both stores.  Returns
+    one verdict row per (kernel, form, C, B)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
+
+    stages = _stages()
+    cfg12, cfg1 = INT8_CONFIG, DemodConfig()
+    co12, co1 = make_coeffs(cfg12, device), make_coeffs(cfg1, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = []
+    for c, b, *more in shapes:
+        st0 = _ds4_state(cfg12, co12, c, g, device)
+        u8 = torch.randint(0, 256, (2, c, 2 * b + 8), generator=g,
+                           device=device).float()
+        acc = {}
+        # K12 whole, flat and phase-split
+        st = {"k12": st0, "k12_ps": st0}
+        for blk in range(2):
+            xb = (u8[:, :, blk * b : (blk + 1) * b] - 128.0).to(
+                torch.int8).contiguous()
+            x4 = xb.reshape(2, c, b // 4, 4).permute(0, 3, 1, 2).contiguous()
+            for name, x in (("k12", xb), ("k12_ps", x4)):
+                kout, _ = compare_stage(acc, name, (co12, cfg12, st[name], x),
+                                        stages)
+                st[name] = kout[0]
+        torch.cuda.synchronize(device)
+        for key, e in acc.items():
+            rows.append(dict(_verdict(key, e), case=key, channels=c,
+                             samples=b))
+        # K1, every form; the int8-direct K1
+        xs = _k1_inputs(u8)
+        for bk in (b, *more):
+            cases = [(f"frontend{'_i16' if i16 else ''}", form, x, (i8t, i16))
+                     for form, x in xs.items() for i8t in (False, True)
+                     for i16 in (False, True) if not (form == "i8" and i8t)]
+            cases += [(f"frontend_i8{'_i16' if i16 else ''}", "i8",
+                       xs["i8"], (i16,)) for i16 in (False, True)]
+            for name, form, x, flags in cases:
+                e, s1 = {}, st0
+                for blk in range(2):
+                    xb = x[..., blk * bk : (blk + 1) * bk].contiguous()
+                    kout, _ = compare_stage(e, name,
+                                            (co1, cfg1, s1, xb, *flags),
+                                            stages)
+                    s1 = kout[0]
+                taps = "int8" if name.startswith("frontend_i8") or flags[0] \
+                    else "float"
+                rows.append(dict(_verdict(name, e[name]),
+                                 case=f"{name}:{form}:{taps}_taps",
+                                 channels=c, samples=bk))
+            torch.cuda.synchronize(device)
+    return rows
+
+
+def _sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ds4_floors(x: torch.Tensor) -> dict:
+    """The ds x4 stage's issue floors on a recorded input x (flat [.., C,
+    B], or int8 phase planes [2, 4, C, B/4]), ms: 64 IDP4A an output
+    (both int8 tap planes, both IQ planes, 16 words each) at 64 a clock
+    an SM; the float taps' 64 FMUL and 64 FADD a plane (-fmad=false) at
+    128 a clock an SM; at the SM count and highest SM clock of this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    ps = x.ndim == 4 and x.dtype == torch.int8
+    out = float(x.shape[-2]) * (x.shape[-1] if ps else x.shape[-1] // 4)
+    return {"idp4a_ms": out * 64 / (64 * sms * hz) * 1e3,
+            "fmul_fadd_ms": out * 256 / (128 * sms * hz) * 1e3,
+            "sms": sms, "sm_clock_hz": hz}
+
+
+def ds4_sass() -> dict:
+    """The redesigned ds x4 kernels' SASS (``cuobjdump -sass``): each
+    library's ds x4 functions saved as chiprun_out/ds4_sass_<lib>.txt, and
+    for each function its instruction count, the counts of IDP4A (``IDP``),
+    FFMA, FMUL, FADD, LDS, STS and LDG, its registers and its stack and
+    local bytes (spills); {"error"} where the toolkit has no cuobjdump."""
+    res = {}
+    for lib in ("k12", "frontend"):
+        sass, err = _sass(lib)
+        if err:
+            return {"error": err}
+        usage = _res_usage(lib)
+        keep = []
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0].strip()
+            if not any(k in name for k in DS4_KERNELS):
+                continue
+            keep.append(part)
+            ops = _opcodes(part)
+            res[name] = {"lib": lib, "instructions": len(ops),
+                         **usage.get(name, {}),
+                         **{op: ops.count(op) for op in (
+                             "IDP", "FFMA", "FMUL", "FADD", "LDS", "STS",
+                             "LDG")}}
+        os.makedirs(DUMP_DIR, exist_ok=True)
+        with open(os.path.join(DUMP_DIR, f"ds4_sass_{lib}.txt"), "w") as f:
+            f.write("Function : " + "Function : ".join(keep))
+    return res
+
+
+def ds4_sass_faults(sass: dict) -> list:
+    """What the SASS read forbids: an FFMA in the float K1's sums (they are
+    rounded apart, -fmad=false), no IDP4A in an int8-tap kernel, and any
+    spill (stack or local bytes) in a ds x4 kernel.  atan2_poly's IEEE
+    division refines its MUFU.RCP with FFMAs (exact by construction), so
+    the float K1 may hold as many FFMAs as the int8-tap kernel with the
+    same store (the same atan2 and discriminator, no float sum), and no
+    more."""
+    if "error" in sass:
+        return []
+    bad = []
+    for name, r in sass.items():
+        if K1_TILE in name:
+            store = name.partition("Ds4Disc")[2][:3]
+            div = [q["FFMA"] for n, q in sass.items()
+                   if DS4_FLAT in n and q["lib"] == "frontend"
+                   and n.partition("Ds4Disc")[2][:3] == store]
+            if not div or r["FFMA"] > min(div):
+                bad.append((name, "FFMA beyond the division's", r["FFMA"],
+                            div))
+        if K1_TILE not in name and not r["IDP"]:
+            bad.append((name, "no IDP4A"))
+        if r.get("stack", 0) > 0 or r.get("local", 0) > 0:
+            bad.append((name, "spills", r.get("stack"), r.get("local")))
+    if not any(K1_TILE in n for n in sass) or not any(DS4_PS in n
+                                                       for n in sass):
+        bad.append(("ds4 kernels missing from the SASS", sorted(sass)))
+    return bad
 
 
 def mat_library_ms(args, reps: int = 5) -> dict:
@@ -2787,6 +3017,7 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
         "compare": rows,
         "bound": bounds,
         "bpsk_alone": bpsk_alone(calls["bpsk"]),
+        "ds4_floors": ds4_floors(calls["k12"][3]),
     }
 
 
@@ -3294,6 +3525,27 @@ def main() -> int:
         raise RuntimeError(f"PLL / extract / BPSK edge shapes disagree "
                            f"{bad} or extract's route differs on the card "
                            f"{eedge['route_mismatch']}")
+    # the redesigned ds x4 kernels (K12 flat and phase-split, K1 on every
+    # form) at their edge shapes on the default and the bounds-checked build, and their
+    # SASS (no FFMA in the float K1, no spills)
+    t0 = time.perf_counter()
+    dedge = compare_ds4_edges(dev)
+    try:
+        with _build.checked_build():
+            dedge += [dict(r, build="checked")
+                      for r in compare_ds4_edges(dev)]
+    except RuntimeError as e:
+        raise RuntimeError(f"ds4 edges on the bounds-checked build: {e}")
+    for r in dedge:
+        log(f"[compare] ds4 edge: {json.dumps(r)}")
+    dsass = ds4_sass()
+    log(f"[build] ds4 SASS: {json.dumps(dsass)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [(r["case"], r["channels"], r["samples"], r.get("build"))
+           for r in dedge if not r["ok"]]
+    if bad or ds4_sass_faults(dsass):
+        raise RuntimeError(f"ds4 edge shapes disagree {bad} or the SASS "
+                           f"shows {ds4_sass_faults(dsass)}")
 
     # 3b. the split path's kernels against plain on the card
     t0 = time.perf_counter()
@@ -3370,7 +3622,7 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the bench cell: {bad}")
-    fused = lacking(prof, FUSED_KERNELS + REDESIGNED_KERNELS)
+    fused = lacking(prof, FUSED_KERNELS + REDESIGNED_KERNELS + (DS4_FLAT,))
     if fused:
         raise RuntimeError(f"the pre-split cell's profile lacks the fused "
                            f"mid end's or the redesigned kernels {fused}: "
@@ -3383,10 +3635,22 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         cells[label] = split_path(label, kind, kw, 2048, 131072, 8, dev)
         log(f"[split] {json.dumps(cells[label])}")
+    cat_ms = {}
     for label, kind, kw in SPLIT_CELLS:
         prof = profile_split(label, kind, kw, device=dev)
         log(f"[profile] {json.dumps(prof)}")
-    log(f"[split] {time.perf_counter() - t0:.1f} s")
+        # K1 in one launch: its kernel, and no second launch
+        gone = [k for k in (K1_DISC,) if not lacking(prof, (k,))]
+        if lacking(prof, (SPLIT_CELL_DS4[label],)) or gone:
+            raise RuntimeError(f"the {label} cell's profile lacks "
+                               f"{SPLIT_CELL_DS4[label]} or shows {gone}: "
+                               f"{list(prof['device_ms_per_block'])}")
+        cat_ms[label] = sum(v for k, v in prof["device_ms_per_block"].items()
+                            if PLANE_COPY in k)
+    # the glue's own stacks (the audio's among them) copy in every cell;
+    # that the complex cell splits no planes is split_path's check
+    log(f"[split] {PLANE_COPY} ms/block by cell {json.dumps(cat_ms)}; "
+        f"{time.perf_counter() - t0:.1f} s")
     bad = [(label, r["name"]) for label, c in cells.items()
            for r in c["compare"] if not r["ok"]]
     if bad:
@@ -3455,7 +3719,7 @@ def main() -> int:
         prof = profile_wideband(sp, device=dev)
         log(f"[profile] {json.dumps(prof)}")
         want = (REDESIGNED_KERNELS + (MAT_KERNEL,) if sp == 1
-                else (MAT_KERNEL,) if sp == 2 else ())
+                else (MAT_KERNEL,) if sp == 2 else ()) + (DS4_PS,)
         if lacking(prof, want):
             raise RuntimeError(f"the wideband profile at splits={sp} lacks "
                                f"{lacking(prof, want)}: "
@@ -3551,7 +3815,8 @@ def main() -> int:
     err_small, err_full = {}, {}
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
-              + wedge + medge["rows"] + pedge + eedge["rows"] + bedge):
+              + wedge + medge["rows"] + pedge + eedge["rows"] + bedge
+              + dedge):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
@@ -3670,6 +3935,14 @@ def main() -> int:
                 paths[launch_path[n]] if n in launch_path
                 else home[n]["launches"])["extract_blocked"],
                 edge_shapes=[r for r in eedge["rows"] if r["name"] == n])
+        if n in DS4_OF:
+            # the redesigned ds x4 stage: its kernel, the SASS and the edge
+            # shapes
+            kern = DS4_OF[n]
+            k.update(ds4_kernel=kern, ds4_sass={
+                f: r for f, r in dsass.items() if kern in f}
+                if "error" not in dsass else dsass,
+                edge_shapes=[r for r in dedge if r["name"] == n])
         if n in launch_path:
             k["launches_path"] = launch_path[n]
     # the device-memory probes: each at its fastest variant of the sweep

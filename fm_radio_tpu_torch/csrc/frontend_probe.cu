@@ -29,10 +29,12 @@
 // the ingest loads of frontend_stages.cuh (the float taps in float32, where
 // the TPU used bf16 hi/lo products to reach float32 on its matrix unit),
 // ds4_i8_words of k12_stages.cuh for the int8-direct forms, atan2_poly and
-// disc_value, so the probe's `full` is the kernel the cells run.  Like K1,
-// `full` is two launches: ds x4 + atan2 into a theta scratch, then the
-// difference (fp_disc_kernel).  The int8-direct `full` without `noasm`
-// runs K12's own first launch (k12_ds4_theta_kernel) on a zero tail.
+// disc_value: the sums and formulas of the kernels the cells run (which
+// stage their tiles in shared memory and sum them register-blocked, in the
+// same order).  `full` is two launches: ds x4 + atan2 into a theta
+// scratch, then the difference (fp_disc_kernel).  The int8-direct `full`
+// without `noasm` runs K12's own first launch
+// (k12_stages.cuh::ds4_i8_blocked_kernel) on a zero tail.
 //
 // What the TPU kernel leaves unwritten reads as zeros of the scratch's own
 // type: build's float scratch head (every tile's first window reaches 128
@@ -649,9 +651,10 @@ extern "C" int fmt_fp_dbuf(const float* x, int full, const float* w_rev,
 }
 
 // build_i8direct: x8 int8 planes [2, C, B] (4-byte aligned rows); tail8
-// [2, C, nn - 4] int8 zeros (full without noasm runs k12_ds4_theta_kernel
-// on it; the other forms read its first row as the zero tail); b1, b2
-// [nn]; theta [C, B/4] scratch (full); out [C, B/4].
+// [2, C, nn - 4] int8 zeros (full without noasm runs K12's first launch,
+// k12_stages.cuh::ds4_i8_blocked_kernel, on it; the other forms read its
+// first row as the zero tail); b1, b2 [nn]; theta [C, B/4] scratch (full);
+// out [C, B/4].
 extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
                           const int8_t* b1, const int8_t* b2, int nn,
                           float s_row, int channels, int b, int t_blk, int no,
@@ -663,9 +666,9 @@ extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
   const int64_t total = (int64_t)channels * (b / 4);
   if (full && !noasm) {
     // K12's own first launch
-    k12_ds4_theta_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        x8, tail8, (const int*)b1, (const int*)b2, nn, s_row, channels, b,
-        theta);
+    const int err = launch_ds4_i8(I8Rows{x8, b}, tail8, b1, b2, nn, s_row,
+                                  channels, b, Ds4Theta{theta}, stream);
+    if (err) return err;
   } else {
     fp_i8d_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
         x8, x8 + (int64_t)channels * b, (const int*)tail8, (const int*)b1,

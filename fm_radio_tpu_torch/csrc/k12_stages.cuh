@@ -6,8 +6,11 @@
 // split int8 path equals K12 bit for bit on the card, as the TPU's K1 + K2
 // equal its fused K12 (kernels/k12_pallas.py:15-16).
 //
-//   k12_ds4_theta_kernel  ds x4 (int8 taps, __dp4a) + atan2 on int8 planes
-//                         (frontend_pallas.py::_i8_direct_tile_body :388)
+//   ds4_i8_blocked_kernel ds x4 (int8 taps, __dp4a) + atan2 on int8 words,
+//                         register-blocked on a staged tile (launch_ds4_i8;
+//                         frontend_pallas.py::_i8_direct_tile_body :388):
+//                         theta1 for K12's mid end, or with the
+//                         discriminator's store for K1's int8-tap forms
 //   k12_disc_kernel       the discriminator (frontend_pallas.py:196-209)
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
 //                         pilot power (midend_pallas.py::_midend_body :119),
@@ -30,8 +33,11 @@
 
 namespace fmt {
 
-// The int8-tap ds x4 window sum: (fr, fi) over nw words from word q0 of
-// the re and im rows xr, xi (n_w words each; four int8 samples to a word),
+// The int8-tap ds x4 window sum of one output, read from device memory
+// (the K1 probe's int8-direct variants, frontend_probe.cu; the kernels
+// sum their staged tiles, ds4_i8_blocked_kernel): (fr, fi) over nw words
+// from word q0 of the re and im rows xr, xi (n_w words each; four int8
+// samples to a word),
 // words q < 0 from the carried tails tr, ti (halo_w words each, word q at
 // halo_w + q), each accumulated exactly with __dp4a against the reversed
 // taps b1w, b2w (nw words each), combined as y1 + y2 / 128 + s_row.  The
@@ -59,34 +65,6 @@ __device__ __forceinline__ void ds4_i8_words(
   fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
 }
 
-// ds x4 (int8 taps) + atan2: theta1[c, j] = angle(fm_in[c, j]).  The
-// window of output j starts at input 4j - halo, a multiple of 4, so it is
-// nn/4 aligned words of x (or of the carried tail, whose length halo is a
-// multiple of 4 too); b1w, b2w are the reversed taps packed 4 to a word in
-// the same byte order.
-__global__ void k12_ds4_theta_kernel(const int8_t* __restrict__ x8,
-                                     const int8_t* __restrict__ tail8,
-                                     const int* __restrict__ b1w,
-                                     const int* __restrict__ b2w, int nn,
-                                     float s_row, int channels, int n_in,
-                                     float* __restrict__ theta1) {
-  const int n_out = n_in / 4;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t total = (int64_t)channels * n_out;
-  if (idx >= total) return;
-  const int c = (int)(idx / n_out);
-  const int j = (int)(idx % n_out);
-  const int halo = nn - 4;
-  const int* xr = (const int*)(x8 + (int64_t)c * n_in);
-  const int* xi = (const int*)(x8 + ((int64_t)channels + c) * n_in);
-  const int* tr = (const int*)(tail8 + (int64_t)c * halo);
-  const int* ti = (const int*)(tail8 + ((int64_t)channels + c) * halo);
-  float fr, fi;
-  ds4_i8_words(xr, xi, n_in / 4, tr, ti, halo / 4, b1w, b2w, nn / 4,
-               j - halo / 4, s_row, fr, fi);
-  FMT_AT(theta1, idx, total) = atan2_poly(fi, fr);
-}
-
 // discriminator: fmd = wrap(theta1[j] - theta1[j-1]) * scale
 __device__ __forceinline__ float disc_value(float theta, float prev,
                                             float scale) {
@@ -94,6 +72,321 @@ __device__ __forceinline__ float disc_value(float theta, float prev,
   d = d >= kPi ? d - kTwoPi : d;
   d = d <= -kPi ? d + kTwoPi : d;
   return d * scale;
+}
+
+// ---- ds x4 (int8 taps) + atan2, register-blocked ----
+//
+// One CTA takes one channel and a tile of kDs4Tile outputs (ds x4 outputs,
+// one int32 word of four int8 samples each); it stages the tile's words and
+// the window's halo once in shared memory (skewed, mid_skew), and each
+// thread computes a run of R neighbouring outputs from a sliding window of R
+// words in registers: each shared-memory load serves 4 R __dp4a.  The taps
+// (b1, b2 word pairs) are read as shared-memory broadcasts, zero-padded at
+// the oldest end to a whole number of R-word blocks (a zero tap adds an
+// exact 0 to the int32 sums, so every filter order takes the same code).
+// The int32 sums are exact in any order, and the float combine and
+// atan2_poly are evaluated as the plain version evaluates them, so theta1
+// is bit for bit the plain version's.  The stores (Ds4Theta, Ds4Disc) are shared with the
+// float K1's tiled kernel (frontend.cu).
+constexpr int kDs4Tile = 1024;  // outputs a CTA
+constexpr int kDs4Run = 8;      // outputs a thread (PERF.md: 16 was slower)
+
+// the staged halo, in words, before the tile's first word: the padded
+// window (nwp words) rounded up to 4, so that the extra output t0 - 1 (the
+// discriminator's previous phase) is staged too
+__host__ __device__ constexpr int ds4_halo_words(int nwp) {
+  return (nwp + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int ds4_pad_words(int nw, int run) {
+  return (nw + run - 1) / run * run;
+}
+
+// A source of the staged words of channel c: fetch loads row word q of
+// the re and im planes (0 <= q < n_in / 4) as it lies in memory (Raw),
+// words_of turns it into the two int8 words; a tile issues all its
+// fetches before the first words_of waits on one.  I8Rows: the int8
+// planes themselves (u8 - 128, as the int8-direct forms and K12 take
+// them).
+struct I8Rows {
+  const int8_t* x8;
+  int n_in;
+  using Raw = int2;
+  __device__ __forceinline__ Raw fetch(int c, int channels, int q) const {
+    const int nw = n_in / 4;
+    const int* xr = (const int*)(x8 + (int64_t)c * n_in);
+    const int* xi = (const int*)(x8 + ((int64_t)channels + c) * n_in);
+    return make_int2(FMT_AT(xr, q, nw), FMT_AT(xi, q, nw));
+  }
+  __device__ __forceinline__ static void words_of(const Raw& w, int& wr,
+                                                  int& wi) {
+    wr = w.x;
+    wi = w.y;
+  }
+};
+
+// The ds x4 stores of a run of R outputs j0 .. j0 + R - 1 of channel c.
+// Ds4Theta: theta1 [C, n] (K12's first launch: the mid end takes theta1).
+struct Ds4Theta {
+  float* theta1;
+  static constexpr bool kDisc = false;
+};
+// Ds4Disc: the discriminator in the same launch (disc_value, unchanged):
+// fmd [C, n] float32 or, with Out = int16_t, q_i16 at kFmScale, and the
+// channel's last theta1 into theta_last [C] (the carried disc_prev_theta).
+// theta1[j - 1] of a run's first output is its neighbour thread's last, of
+// the tile's first output (t0 - 1) computed once more by thread 0 from the
+// staged halo (the same operations: the same bits), of the channel's
+// first output prev_theta[c].
+template <class Out>
+struct Ds4Disc {
+  Out* fmd;
+  const float* prev_theta;
+  float* theta_last;
+  float scale;
+  static constexpr bool kDisc = true;
+};
+
+// R values stored at p[o .. o + R) (p + o 16-byte aligned where vec), the
+// first nv of them where nv < R; float32 or q_i16 at `scale`
+template <int R>
+__device__ __forceinline__ void ds4_store(float* __restrict__ p, int64_t o,
+                                          int64_t total, const float (&v)[R],
+                                          int nv, bool vec, float) {
+  if (vec && nv >= R) {
+    static_assert(R % 4 == 0, "float4 stores");
+    float4* d = reinterpret_cast<float4*>(FMT_SPAN(p, o, R, total));
+#pragma unroll
+    for (int r = 0; r < R; r += 4)
+      d[r / 4] = make_float4(v[r], v[r + 1], v[r + 2], v[r + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < nv) FMT_AT(p, o + r, total) = v[r];
+  }
+}
+template <int R>
+__device__ __forceinline__ void ds4_store(int16_t* __restrict__ p, int64_t o,
+                                          int64_t total, const float (&v)[R],
+                                          int nv, bool vec, float scale) {
+  if (vec && nv >= R) {
+    static_assert(R % 8 == 0, "uint4 stores of 8 int16");
+    uint4* d = reinterpret_cast<uint4*>(FMT_SPAN(p, o, R, total));
+#pragma unroll
+    for (int r = 0; r < R; r += 8) {
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = (uint32_t)(uint16_t)q_i16(v[r + 2 * k], scale) |
+               ((uint32_t)(uint16_t)q_i16(v[r + 2 * k + 1], scale) << 16);
+      d[r / 8] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < nv) FMT_AT(p, o + r, total) = q_i16(v[r], scale);
+  }
+}
+
+// Run `run` of the tile: R outputs j0 = t0 + R run .. of channel c, theta1
+// values th, stored by `st` (n the row's outputs).  Every thread of the CTA
+// calls it (Ds4Disc syncs the CTA), a thread without a run with run < 0;
+// s_last is kDs4Tile / R floats of shared memory, extra theta1[t0 - 1]
+// (read by run 0 where t0 > 0).
+template <int R, class Store>
+__device__ __forceinline__ void ds4_finish(const Store& st, int c,
+                                           int channels, int n, int t0,
+                                           int run, const float (&th)[R],
+                                           float extra, float* s_last) {
+  const int j0 = t0 + R * run;
+  const int nv = run < 0 ? 0 : n - j0;
+  const int64_t o = (int64_t)c * n + j0, total = (int64_t)channels * n;
+  if constexpr (!Store::kDisc) {
+    if (nv > 0) ds4_store<R>(st.theta1, o, total, th, nv, n % 4 == 0, 1.0f);
+  } else {
+    if (run >= 0) s_last[run] = th[R - 1];
+    __syncthreads();
+    if (run < 0) return;
+    float prev = run > 0 ? s_last[run - 1]
+                 : t0 > 0 ? extra
+                          : FMT_AT(st.prev_theta, c, channels);
+    float d[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      d[r] = disc_value(th[r], prev, st.scale);
+      prev = th[r];
+    }
+    constexpr int kVec = sizeof(*st.fmd) == 2 ? 8 : 4;
+    if (nv > 0) ds4_store<R>(st.fmd, o, total, d, nv, n % kVec == 0, kFmScale);
+    if (nv > 0 && nv <= R) {  // the run holds the row's last output
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r == nv - 1) FMT_AT(st.theta_last, c, channels) = th[r];
+    }
+  }
+}
+
+// y1 + y2 / 128 + s_row of the int32 sums, then atan2_poly
+__device__ __forceinline__ float ds4_i8_theta(int y1r, int y2r, int y1i,
+                                              int y2i, float s_row) {
+  const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
+  const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
+  return atan2_poly(fi, fr);
+}
+
+// The int8-tap ds x4 + atan2 of one channel's tile (blockIdx.y the channel,
+// blockIdx.x the tile), kDs4Tile / R threads (R = kDs4Run).  Word q of
+// the row (q < 0: the carried tail8 [2, C, 4 (nw - 1)], tail word
+// nw - 1 + q; before it 0) is staged at e = q - (t0 - H); output
+// j = t0 + R t + r sums the padded
+// window's nwp words ending at j: e = e0 + R t + r + w, e0 = H - nwp + 1,
+// w < nwp, against the taps s_tap[w] (zero for w < nwp - nw).  Dynamic
+// shared memory: ds4_i8_smem(nw).
+__host__ __device__ constexpr int ds4_i8_plane(int nw) {
+  return mid_skew(ds4_halo_words(ds4_pad_words(nw, kDs4Run)) + kDs4Tile) + 1;
+}
+inline size_t ds4_i8_smem(int nw) {
+  return 2 * sizeof(int) * (size_t)ds4_i8_plane(nw) +
+         sizeof(int2) * (size_t)ds4_pad_words(nw, kDs4Run) +
+         sizeof(float) * (kDs4Tile / kDs4Run);
+}
+
+template <class Src, class Store>
+__global__ void __launch_bounds__(kDs4Tile / kDs4Run)
+ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
+                      const int* __restrict__ b1w,
+                      const int* __restrict__ b2w, int nn, float s_row,
+                      int channels, int n_in, Store st) {
+  constexpr int R = kDs4Run;
+  extern __shared__ __align__(16) int ds4_sm[];
+  const int nw = nn / 4, nwp = ds4_pad_words(nw, R);
+  const int h = ds4_halo_words(nwp), plane = ds4_i8_plane(nw);
+  int* s_re = ds4_sm;
+  int* s_im = s_re + plane;
+  int2* s_tap = reinterpret_cast<int2*>(s_im + plane);
+  float* s_last = reinterpret_cast<float*>(s_tap + nwp);
+  const int c = blockIdx.y, tid = threadIdx.x;
+  const int n = n_in / 4;  // outputs = words of a row
+  const int t0 = blockIdx.x * kDs4Tile;
+  const int pad = nwp - nw;
+  for (int w = tid; w < nwp; w += blockDim.x) {
+    s_tap[w] = w < pad ? make_int2(0, 0)
+                       : make_int2(FMT_AT(b1w, w - pad, nw),
+                                   FMT_AT(b2w, w - pad, nw));
+  }
+  const int halo = nn - 4;  // tail samples (halo / 4 = nw - 1 words)
+  const int* tr = (const int*)(tail8 + (int64_t)c * halo);
+  const int* ti = (const int*)(tail8 + ((int64_t)channels + c) * halo);
+  const int n_e = h + kDs4Tile + 1;
+  constexpr int kThreads = kDs4Tile / R;
+  if (t0 - h >= 0 && t0 - h + n_e <= n) {
+    // a tile inside the row: kStage words a thread in flight, all fetched
+    // before the first is converted and stored (the halo of the receiver's
+    // order fits one round)
+    constexpr int kStage = (kDs4Tile + 64) / kThreads + 1;
+    for (int e0 = 0; e0 < n_e; e0 += kStage * kThreads) {
+      typename Src::Raw raw[kStage];
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int e = e0 + tid + k * kThreads;
+        if (e < n_e) raw[k] = src.fetch(c, channels, t0 - h + e);
+      }
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int e = e0 + tid + k * kThreads;
+        if (e < n_e) {
+          int wr, wi;
+          Src::words_of(raw[k], wr, wi);
+          s_re[mid_skew(e)] = wr;
+          s_im[mid_skew(e)] = wi;
+        }
+      }
+    }
+  } else {
+    // the channel's first tile (the carried tail, zeros before it) or its
+    // last (zeros past the row)
+    for (int e = tid; e < n_e; e += kThreads) {
+      const int q = t0 - h + e;
+      int wr = 0, wi = 0;
+      if (q >= 0) {
+        if (q < n) Src::words_of(src.fetch(c, channels, q), wr, wi);
+      } else if (q >= 1 - nw) {
+        wr = FMT_AT(tr, nw - 1 + q, nw - 1);
+        wi = FMT_AT(ti, nw - 1 + q, nw - 1);
+      }
+      s_re[mid_skew(e)] = wr;
+      s_im[mid_skew(e)] = wi;
+    }
+  }
+  __syncthreads();
+
+  const int eb = h - nwp + 1 + R * tid;
+  int vr[R], vi[R], y1r[R], y2r[R], y1i[R], y2i[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    vr[r] = s_re[mid_skew(eb + r)];
+    vi[r] = s_im[mid_skew(eb + r)];
+    y1r[r] = y2r[r] = y1i[r] = y2i[r] = 0;
+  }
+  // step w = qb + qq: output r reads slot (r + qq) % R, which holds word
+  // eb + r + w; slot qq is then refilled with the word output 0 reads R
+  // steps on
+#pragma unroll 1
+  for (int qb = 0; qb < nwp; qb += R) {
+#pragma unroll
+    for (int qq = 0; qq < R; ++qq) {
+      const int2 tp = s_tap[qb + qq];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = (r + qq) % R;
+        y1r[r] = __dp4a(vr[k], tp.x, y1r[r]);
+        y2r[r] = __dp4a(vr[k], tp.y, y2r[r]);
+        y1i[r] = __dp4a(vi[k], tp.x, y1i[r]);
+        y2i[r] = __dp4a(vi[k], tp.y, y2i[r]);
+      }
+      const int en = mid_skew(eb + R + qb + qq);
+      vr[qq] = s_re[en];
+      vi[qq] = s_im[en];
+    }
+  }
+  float th[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    th[r] = ds4_i8_theta(y1r[r], y2r[r], y1i[r], y2i[r], s_row);
+  float extra = 0.0f;
+  if (Store::kDisc && tid == 0 && t0 > 0) {  // output t0 - 1
+    int a1r = 0, a2r = 0, a1i = 0, a2i = 0;
+    for (int w = 0; w < nwp; ++w) {
+      const int2 tp = s_tap[w];
+      const int e = mid_skew(h - nwp + w);
+      a1r = __dp4a(s_re[e], tp.x, a1r);
+      a2r = __dp4a(s_re[e], tp.y, a2r);
+      a1i = __dp4a(s_im[e], tp.x, a1i);
+      a2i = __dp4a(s_im[e], tp.y, a2i);
+    }
+    extra = ds4_i8_theta(a1r, a2r, a1i, a2i, s_row);
+  }
+  ds4_finish<R>(st, c, channels, n, t0, tid, th, extra, s_last);
+}
+
+// ds x4 (int8 taps) + atan2 on the words of src, stored by st: [C, n_in / 4]
+// outputs; tail8 [2, C, nn - 4] int8, 4-byte aligned rows; b1w, b2w the
+// reversed taps packed four to a word (nn / 4 each).  nn % 4 == 0.
+template <class Src, class Store>
+inline int launch_ds4_i8(Src src, const int8_t* tail8, const int8_t* b1,
+                         const int8_t* b2, int nn, float s_row, int channels,
+                         int n_in, Store st, cudaStream_t stream) {
+  const size_t smem = ds4_i8_smem(nn / 4);
+  if (nn % 4 != 0 || nn < 4 || n_in % 4 != 0 || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int n = n_in / 4;
+  const dim3 grid((unsigned)((n + kDs4Tile - 1) / kDs4Tile),
+                  (unsigned)channels);
+  ds4_i8_blocked_kernel<Src, Store><<<grid, kDs4Tile / kDs4Run, smem,
+                                       stream>>>(
+      src, tail8, (const int*)b1, (const int*)b2, nn, s_row, channels, n_in,
+      st);
+  FMT_CHECK_LAUNCH();
+  return 0;
 }
 
 // de-emphasis: y = (b1*x[n-1] + b0*x[n]) - a1*y[n-1]; state (x1, y1)

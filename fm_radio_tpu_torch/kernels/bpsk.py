@@ -136,14 +136,17 @@ def bpsk_plain(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
 def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
     """x_p = (re, im) [C, N] float32, gain [C] or None -> (state', outs
     with sym, pred, valid [C, N]).  CPU tensors run :func:`bpsk_plain`;
-    CUDA tensors launch the kernel (N a multiple of 16, else ValueError
-    before any launch)."""
+    CUDA tensors launch the kernel.  N must be a multiple of 16 on every
+    device (the kernel's batch), else ValueError before any launch."""
     xr, xi = x_p
     dev = xr.device
+    c, n = xr.shape
+    if n % STEP_MULTIPLE:
+        raise ValueError(f"bpsk: the kernel takes N a multiple of "
+                         f"{STEP_MULTIPLE}, not N = {n}")
     if _build.on_cpu("bpsk", dev):
         return bpsk_plain(cfg, state, x_p, gain)
     global launches
-    c, n = xr.shape
     st = pack_state(state)
     gains = {} if gain is None else {"gain": gain}
     _build.require("bpsk", dev, torch.float32, x_re=xr, x_im=xi, state=st,
@@ -151,10 +154,8 @@ def bpsk_sync(cfg, state: BPSKState, x_p, gain: torch.Tensor | None = None):
     if xi.shape != (c, n) or st.shape != (14, c) or (
             gain is not None and gain.shape != (c,)):
         raise ValueError("bpsk: shapes of x, gain and state disagree")
-    if n % STEP_MULTIPLE or (xr.data_ptr() | xi.data_ptr()) % 16:
-        raise ValueError(f"bpsk: the kernel takes N a multiple of "
-                         f"{STEP_MULTIPLE} on 16-byte aligned rows, not N = "
-                         f"{n}")
+    if (xr.data_ptr() | xi.data_ptr()) % 16:
+        raise ValueError("bpsk: the kernel takes 16-byte aligned rows")
     f = dict(device=dev, dtype=torch.float32)
     pred, sym_re, valid = (torch.empty((c, n), **f) for _ in range(3))
     st_out = torch.empty_like(st)

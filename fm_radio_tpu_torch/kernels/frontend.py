@@ -11,19 +11,22 @@ Counterpart of ``fm_radio_tpu/kernels/frontend_pallas.py::ds4_disc_pallas``
 State keys read and written: ``ds_fm_in`` (the last 60 input samples,
 complex64 of u8 - 127 values) and ``disc_prev_theta``.
 
-Ingest forms (:func:`input_form`): "planes", (re, im) float32 [2, C, B]
-(complex64 baseband is split into these by ``demod_block``); "words",
-packed u8 words [C, B] float32 (w = I * 256 + Q, ``pack_iq_u8``); "i8",
-int8 planes [2, C, B] of (I - 128, Q - 128) (``split_iq_i8``).
+Ingest forms (:func:`input_form`): "planes", (re, im) float32 [2, C, B];
+"complex", complex64 [C, B] (the kernel reads its interleaved float pairs
+in place; the JAX package splits it into planes first, the same samples);
+"words", packed u8 words [C, B] float32 (w = I * 256 + Q, ``pack_iq_u8``);
+"i8", int8 planes [2, C, B] of (I - 128, Q - 128) (``split_iq_i8``).
 
 Taps (``int8_taps``): float32, summed from the oldest sample in one fixed
 order; or ``quantize_band_int8``'s two int8 planes accumulated exactly as
 integers, for integer input (the TPU kernel's ``int8_dots``).  The two
 entries count apart: :func:`frontend` (``launches``, ``csrc/frontend.cu::
-fmt_frontend``) takes planes and words with either taps and int8 planes
-with float taps; :func:`frontend_i8` (``launches_i8``, ``fmt_frontend_i8``)
-is the int8-direct form, int8 planes with int8 taps, whose device code is
-K12's first two launches.  Each counts its int16-format launches apart too
+fmt_frontend``) takes planes, complex64 and words with either taps and
+int8 planes with float taps; :func:`frontend_i8` (``launches_i8``,
+``fmt_frontend_i8``) is the int8-direct form, int8 planes with int8 taps,
+whose device code is K12's first launch with the discriminator's store.
+Each is one launch (ds x4, atan2 and the discriminator;
+``csrc/frontend.cu``) and counts its int16-format launches apart too
 (``launches_i16``, ``launches_i8_i16``); :func:`pick_tiles` is the JAX
 kernel's shape gate, which decides whether ``demod_block`` asks for it.
 """
@@ -48,11 +51,11 @@ launches_i8_i16 = 0
 
 _M, _NO = 4, 128  # the TPU kernel's decimation and default band width
 
-FORMS = {"planes": 0, "words": 1, "i8": 2}
+FORMS = {"planes": 0, "words": 1, "i8": 2, "complex": 3}
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _I,
-             _P]
+_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P,
+             _I, _P]
 _ARGTYPES_I8 = [_P, _P, _P, _P, _I, _F, _P, _F, _I, _I, _P, _P, _I, _P]
 
 
@@ -77,16 +80,19 @@ def pick_tiles(c: int, b: int, no: int = _NO,
 
 
 def input_form(x: torch.Tensor) -> str:
-    """"planes", "words" or "i8" for a tensor that K1 takes; raises for
-    any other dtype or shape."""
+    """"planes", "complex", "words" or "i8" for a tensor that K1 takes;
+    raises for any other dtype or shape."""
     if x.dtype == torch.float32 and x.ndim == 3 and x.shape[0] == 2:
         return "planes"
+    if x.dtype == torch.complex64 and x.ndim == 2:
+        return "complex"
     if x.dtype == torch.float32 and x.ndim == 2:
         return "words"
     if x.dtype == torch.int8 and x.ndim == 3 and x.shape[0] == 2:
         return "i8"
-    raise ValueError(f"K1 takes [2, C, B] float32 or int8 planes or [C, B] "
-                     f"float32 words, got {x.dtype} {tuple(x.shape)}")
+    raise ValueError(f"K1 takes [2, C, B] float32 or int8 planes, [C, B] "
+                     f"complex64 or [C, B] float32 words, got {x.dtype} "
+                     f"{tuple(x.shape)}")
 
 
 def input_planes(x: torch.Tensor):
@@ -95,6 +101,8 @@ def input_planes(x: torch.Tensor):
     form = input_form(x)
     if form == "planes":
         return x[0], x[1]
+    if form == "complex":
+        return x.real, x.imag
     if form == "words":
         return unpack_iq_words(x)
     return i8_planes_to_f32(x)
@@ -112,11 +120,11 @@ def _front_state(state: dict, tail_re, tail_im, prev_theta) -> dict:
     return new
 
 
-def frontend_plain(coeffs, cfg, state: dict, x: torch.Tensor,
-                   int8_taps: bool, out_i16: bool = False):
-    """K1 in plain PyTorch, op by op in float32 in the kernel's order.
-    Returns (state', fm_demod [C, B/4]), float32 or, with ``out_i16``, its
-    ``q_i16`` at FM_SCALE."""
+def ds4_theta_plain(coeffs, state: dict, x: torch.Tensor,
+                    int8_taps: bool):
+    """The ds x4 + atan2 of K1 (and of K12's first launch) in plain
+    PyTorch: (theta1 [C, B/4], the carried tail and block as planes
+    [2, C, halo + B])."""
     xr, xi = input_planes(x)
     tail = state["ds_fm_in"]
     xf = torch.cat([torch.stack([tail.real, tail.imag]),
@@ -132,10 +140,18 @@ def frontend_plain(coeffs, cfg, state: dict, x: torch.Tensor,
         fm = (y1 + y2 * f32(1.0 / 128.0)) + s_row
     else:
         fm = correlate(coeffs.taps_fm_in.flip(0).tolist(), xf, 4, n4)
-    prev_theta, fmd = discriminate_theta(state["disc_prev_theta"],
-                                         atan2_poly(fm[1], fm[0]),
+    return atan2_poly(fm[1], fm[0]), xf
+
+
+def frontend_plain(coeffs, cfg, state: dict, x: torch.Tensor,
+                   int8_taps: bool, out_i16: bool = False):
+    """K1 in plain PyTorch, op by op in float32 in the kernel's order.
+    Returns (state', fm_demod [C, B/4]), float32 or, with ``out_i16``, its
+    ``q_i16`` at FM_SCALE."""
+    theta1, xf = ds4_theta_plain(coeffs, state, x, int8_taps)
+    prev_theta, fmd = discriminate_theta(state["disc_prev_theta"], theta1,
                                          _scale(cfg))
-    halo = tail.shape[-1]
+    halo = state["ds_fm_in"].shape[-1]
     t = xf[..., xf.shape[-1] - halo :]
     if out_i16:
         fmd = q_i16(fmd, FM_SCALE)
@@ -161,10 +177,23 @@ def check_state(name: str, coeffs, state: dict, c: int) -> int:
     return nn
 
 
+def readable(x: torch.Tensor) -> torch.Tensor:
+    """x itself where the kernel can read it in place: contiguous, and
+    aligned as it loads it (the int8 forms as 4-byte words, the others in
+    16-byte vectors of four samples); else a contiguous copy in a new
+    allocation (a strided view, or a slice that starts between
+    vectors)."""
+    align = 4 if input_form(x) == "i8" else 16
+    if x.is_contiguous() and x.data_ptr() % align == 0:
+        return x
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
 def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
             direct: bool, out_i16: bool = False):
     dev = x.device
     form = input_form(x)
+    x = readable(x)
     c, b = x.shape[-2], x.shape[-1]
     name = "frontend_i8" if direct else "frontend"
     nn = check_state(name, coeffs, state, c)
@@ -174,44 +203,48 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
     prev = state["disc_prev_theta"].contiguous()
     tail = state["ds_fm_in"]
     tail_f = torch.stack([tail.real, tail.imag]).contiguous()
-    f = dict(device=dev, dtype=torch.float32)
-    theta1 = torch.empty((c, b // 4), **f)
+    # the int8 taps read the tail as int8 words (u8 - 128, truncated as the
+    # kernel shifts its samples)
+    tail8 = (tail_f - 1.0).to(torch.int8) if int8_taps else None
+    theta_last = torch.empty((c,), device=dev, dtype=torch.float32)
     fmd = torch.empty((c, b // 4), device=dev,
                       dtype=torch.int16 if out_i16 else torch.float32)
     _build.require(name, dev, torch.int8, b1=b1, b2=b2)
-    if any(t.data_ptr() % 4 for t in (b1, b2)):
-        raise ValueError(f"{name}: int8 taps must be 4-byte aligned")
+    _build.require(name, dev, torch.float32, prev=prev, tail=tail_f)
+    if tail8 is not None:
+        _build.require(name, dev, torch.int8, tail8=tail8)
+    if any(t.data_ptr() % 4 for t in (b1, b2)) or (
+            tail8 is not None and tail8.data_ptr() % 4):
+        raise ValueError(f"{name}: the int8 taps and tail must be 4-byte "
+                         f"aligned")
     if direct:
-        tail8 = (tail_f - 1.0).to(torch.int8)
-        _build.require(name, dev, torch.int8, x8=x, tail8=tail8)
-        _build.require(name, dev, torch.float32, prev=prev)
-        if any(t.data_ptr() % 4 for t in (x, tail8)):
-            raise ValueError(f"{name}: int8 inputs must be 4-byte aligned")
+        _build.require(name, dev, torch.int8, x8=x)
         fn = _build.function("frontend", "fmt_frontend_i8", _ARGTYPES_I8)
         err = fn(x.data_ptr(), tail8.data_ptr(), b1.data_ptr(), b2.data_ptr(),
                  nn, s_row, prev.data_ptr(), _scale(cfg), c, b,
-                 theta1.data_ptr(), fmd.data_ptr(), int(out_i16),
+                 fmd.data_ptr(), theta_last.data_ptr(), int(out_i16),
                  _build.stream_ptr(dev))
     else:
         w_rev = coeffs.taps_fm_in.flip(0).contiguous()
         _build.require(name, dev, x.dtype, x=x)
-        _build.require(name, dev, torch.float32, tail=tail_f, w_rev=w_rev,
-                       prev=prev)
+        _build.require(name, dev, torch.float32, w_rev=w_rev)
         fn = _build.function("frontend", "fmt_frontend", _ARGTYPES)
         err = fn(x.data_ptr(), FORMS[form], int(int8_taps), tail_f.data_ptr(),
+                 None if tail8 is None else tail8.data_ptr(),
                  w_rev.data_ptr(), b1.data_ptr(), b2.data_ptr(), nn, s_row,
-                 prev.data_ptr(), _scale(cfg), c, b, theta1.data_ptr(),
-                 fmd.data_ptr(), int(out_i16), _build.stream_ptr(dev))
+                 prev.data_ptr(), _scale(cfg), c, b, fmd.data_ptr(),
+                 theta_last.data_ptr(), int(out_i16), _build.stream_ptr(dev))
     _build.check("frontend", err)
     t_re, t_im = input_planes(x[..., b - (nn - 4) :])
-    return _front_state(state, t_re, t_im, theta1[:, -1]), fmd
+    return _front_state(state, t_re, t_im, theta_last), fmd
 
 
 def frontend(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
              out_i16: bool = False):
-    """x: float32 planes [2, C, B], packed words [C, B] or int8 planes
-    [2, C, B] (int8 planes with float taps only; with int8 taps they take
-    :func:`frontend_i8`) -> (state', fm_demod [C, B/4], float32 or with
+    """x: float32 planes [2, C, B], complex64 [C, B], packed words [C, B]
+    or int8 planes [2, C, B] (int8 planes with float taps only; with int8
+    taps they take :func:`frontend_i8`) -> (state', fm_demod [C, B/4],
+    float32 or with
     ``out_i16`` int16).  CPU tensors run :func:`frontend_plain`; CUDA
     tensors launch the kernel."""
     form = input_form(x)

@@ -51,7 +51,11 @@ import torch
 from fm_radio_tpu_torch.config import AudioOut, DemodConfig
 from fm_radio_tpu_torch.kernels.bpsk import bpsk_sync
 from fm_radio_tpu_torch.kernels.chain import chain, pick_tiles_chain
-from fm_radio_tpu_torch.kernels.extract import extract, pick_tiles_ext
+from fm_radio_tpu_torch.kernels.extract import (
+    extract,
+    harmonics,
+    pick_tiles_ext,
+)
 from fm_radio_tpu_torch.kernels.frontend import (
     frontend,
     frontend_i8,
@@ -232,9 +236,11 @@ def check_slice(cfg: DemodConfig, coeffs: DemodCoeffs, x,
     """Raise NotImplementedError for any ingest form or option outside the
     ported slice, naming the ROADMAP.md item that will add it, before any
     launch and on every device: include_taps, a rate cascade other than
-    4/2/4/8, and a filter whose window reaches past the kernels' 128-sample
+    4/2/4/8, a filter whose window reaches past the kernels' 128-sample
     halo (:func:`filter_halos`; the JAX package runs those stages as XLA
-    ops).  Returns the ingest form (:func:`ingest_form`).
+    ops), and L-R or RDS carriers other than the pilot's 2nd and 3rd
+    harmonics (``kernels/extract.py::harmonics``).  Returns the ingest form
+    (:func:`ingest_form`).
     ``frontend_band_no`` is the TPU kernel's tiling knob, output-identical,
     and is accepted."""
     form = ingest_form(x)
@@ -251,6 +257,7 @@ def check_slice(cfg: DemodConfig, coeffs: DemodCoeffs, x,
     if (r.ds_fm_in, r.ds_fm_out, r.ds_audio, r.ds_rds) != (4, 2, 4, 8):
         raise _not_ported("a rate cascade other than 4/2/4/8",
                           "modules still to port, item 1 (other options)")
+    harmonics(cfg)
     b = x.shape[-1] * (4 if form == "i8ps" else 1)
     if b % BLOCK_MULTIPLE:
         raise ValueError(f"block size {b} is not a multiple of "
@@ -387,8 +394,9 @@ def _split(cfg, coeffs, st: dict, x, form: str, run):
         st, fm_out_iq_p, theta = run(k12_fn.__name__, k12_fn, coeffs, cfg,
                                      st, x)
     else:
-        if form == "complex":  # as demod.py:248-249 splits it
-            x, form = torch.stack([x.real, x.imag]), "planes"
+        # complex64 goes to K1 as it is: the kernel reads its float pairs in
+        # place (the JAX package splits it into planes, demod.py:248-249:
+        # the same samples)
         int8_taps = cfg.frontend_int8 and (
             form in ("words", "i8") or cfg.assume_integer_input)
         i16 = bool(cfg.interstage_i16)

@@ -268,6 +268,40 @@ def test_bpsk_edges_on_card():
 
 
 @pytest.mark.gpu
+def test_ds4_edges_on_card():
+    """The redesigned ds x4 kernels equal their plain versions bit for bit
+    at their edge shapes (C = 1, 5, 40; B = 8,192, 8,320, 16,384, K1 also
+    8,324), two blocks with carried state each: K12 and K12 phase-split
+    whole, K1 on every load form (float32 planes, off the u8 grid, packed
+    words, complex64, int8 planes) with float and int8 taps and float32 and
+    int16 stores, the int8-direct K1; and their SASS has no FFMA in the
+    float K1 and no spills."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_ds4_edges()
+    assert len(rows) == 4 * 22 + 20, len(rows)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), [
+        r for r in rows if not r["ok"]]
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+    assert not chip_smoke.ds4_sass_faults(chip_smoke.ds4_sass())
+
+
+@pytest.mark.gpu
+def test_ds4_edges_on_checked_build():
+    """The same edge shapes on the bounds-checked build: every global index
+    of the ds x4 kernels is checked (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    with _build.checked_build():
+        rows = chip_smoke.compare_ds4_edges()
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), [
+        r for r in rows if not r["ok"]]
+
+
+@pytest.mark.gpu
 def test_k12_small_repeats_on_poisoned_memory():
     """K12, the PLL, extract and BPSK against their plain versions at the
     shape where K12 once disagreed (C = 8, B = 16,384), and the int8-matrix
