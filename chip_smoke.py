@@ -68,7 +68,16 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    16,384; K12 flat and phase-split, K1 on every load form with both
    taps and stores), and
    their SASS (:func:`ds4_sass`: saved as chiprun_out/ds4_sass_*.txt; no
-   FFMA in the float K1 beyond atan2's division, no spills);
+   FFMA in the float K1 beyond atan2's division, no spills); the exact
+   channelizer at every M it is instantiated for and its edge shapes on
+   both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
+   12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
+   planes, max abs error 0); the
+   megakernel against its plain version and the f32w split path at C = 8
+   and 40 inside the repeats above (:func:`compare_chain_small`), at other
+   filter orders (its per-output stages) on both builds, and at the chain
+   cell's full width on the bounds-checked build
+   (:func:`chain_cell_checked`), max abs error 0;
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its
@@ -133,12 +142,15 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    cell runs again on loud captures (2.8*M per channel), whose bridge
    output is not constant.  Then the M=16 bridge (stations' default: 128
    captures x 16, loud) and the float32 bridge (64 x 32, loud, K1 -> K2)
-   for 2 counted blocks each; then the cell at splits=1 (bench.py's own
+   for 2 counted blocks each (the exact channelizer timed alone at M=16,
+   beside its plain version and its issue floor); then the cell at
+   splits=1 (bench.py's own
    lens, FMTPU_WB_SPLITS=1, on its captures), and at splits 1 and 2 on
    loud captures, 8 counted blocks each, the matrix kernel and the
    phase-split K12 timed alone beside their plain versions, and the
-   product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``),
-   and the kernel's operator bytes; at splits=1 on bench.py's captures
+   product alone as one PyTorch call (``torch._int_mm``, ``torch.bmm``;
+   the exact mode at the loud M=32 cell: ``torch.bmm`` in float32 on its
+   fused operators), and the kernel's operator bytes; at splits=1 on bench.py's captures
    BPSK timed alone as at the pre-split cell; the splits=1, 2 and 3
    cells on bench.py's captures profiled;
 6. the selftest station through the port's App on the card and through
@@ -171,7 +183,7 @@ logs is also written to chiprun_out/chip_smoke.log beside the script.
 The last lines of standard output are the nvidia-smi line, one JSON object with the
 per-kernel results (launches on every path, errors, kernel and plain ms,
 the bound of :func:`bound`; ``library_ms`` is the product alone as one
-PyTorch call for the two matrix channelizers, :func:`mat_library_ms`, and
+PyTorch call for the three channelizer modes, :func:`mat_library_ms`, and
 null for the others: no single PyTorch call computes their functions),
 and ``{"ok": true, "device": {...}}``.
 """
@@ -321,7 +333,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # may move); its carried state is exact.
 TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 0.0,
        "k12_ps": 0.0, "channelizer": 0.0, "frontend": 0.0,
-       "frontend_i8": 0.0, "midend": 0.0, "chain": 1e-5,
+       "frontend_i8": 0.0, "midend": 0.0, "chain": 0.0,
        "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
        "channelizer_bf16mat": 1.0,
        # the int16 format: quantised stores leave no slack
@@ -1568,34 +1580,45 @@ def _profile(label: str, step, blocks: int, device) -> dict:
     wall).  A one-element marker kernel runs first inside the profiler's
     window: the profiler records no device time for the first kernel
     launched there (measured: the wideband step, whose first launch is
-    the channelizer, showed it at two thirds of its time over 3 blocks)."""
+    the channelizer, showed it at two thirds of its time over 3 blocks).
+    The profiler has also dropped one launch's record inside the window
+    now and then (a port kernel counted twice in 3 blocks; not on a rerun
+    of the same window alone): a window where a port kernel's count is
+    not a multiple of ``blocks`` is profiled again, up to three times in
+    all, and the row says how many it took and what was still lost."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         step()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device=device).add_(1.0)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        for _ in range(blocks):
-            step()
-        torch.cuda.synchronize(device)
-        wall = (time.perf_counter() - t0) * 1e3 / blocks
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            key = e.key[:60]  # kernels whose names share it are summed
-            per[key] = per.get(key, 0.0) + float(us) / 1e3 / blocks
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device=device).add_(1.0)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                step()
+            torch.cuda.synchronize(device)
+            wall = (time.perf_counter() - t0) * 1e3 / blocks
+        per, lost = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                key = e.key[:60]  # kernels whose names share it are summed
+                per[key] = per.get(key, 0.0) + float(us) / 1e3 / blocks
+                if "fmt::" in e.key and e.count % blocks:
+                    lost[key] = e.count
+        if not lost:
+            break
     busy = sum(per.values())
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:12])
     return {"cell": label, "device_ms_per_block": top,
             "device_busy_ms": busy, "wall_ms": wall,
-            "idle_share": 1.0 - busy / wall if busy else None}
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "attempts": attempt, "lost_records": lost}
 
 
 def profile_split(label: str, kind: str, kw: dict, channels: int = 2048,
@@ -2163,9 +2186,10 @@ def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
     """The small on-card comparison of K12 (and the PLL, extract, BPSK)
     with its plain version, :func:`compare_kernels` at C = ``channels``, B
     = ``block``, both int8-matrix channelizers'
-    (:func:`compare_i8mat_small`) and the ds x4 kernels' (K12 flat and
+    (:func:`compare_i8mat_small`), the ds x4 kernels' (K12 flat and
     phase-split, K1 on every form: :func:`compare_ds4_edges` at that
-    shape), ``repeats`` times on fresh
+    shape) and the megakernel's (against its plain version and the split
+    path, :func:`compare_chain_small`), ``repeats`` times on fresh
     seeds, the
     allocator's free memory poisoned before each
     (:func:`poison_free_memory`): the shape at which K12 once disagreed
@@ -2180,26 +2204,187 @@ def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
         kernels += compare_i8mat_small(seed, device)
         poison_free_memory(device)
         kernels += compare_ds4_edges(device, ((channels, block),), seed=seed)
+        poison_free_memory(device)
+        kernels.append(compare_chain_small(seed, channels, block,
+                                           device=device))
         rows.append({"seed": seed, "kernels": kernels})
     return rows
+
+
+# the exact channelizer's instantiations (csrc/channelizer.cu: one per
+# power of two M in [2, 128], the phase-split form at M = 32) and its edge
+# shapes: K = 1 and 17 (no carried state; the largest), T of one tile a
+# capture and of three (a grid of W or 3 W CTAs, one tile each), and of
+# 384 tiles: W = 3 captures then hold 1,152 tiles, more than the grid of
+# any occupancy (at most 8 CTAs of 256 threads an SM), so every CTA of the
+# persistent walk takes a second tile, past the barrier at its top, on the
+# z buffer that overlays the staging buffer and the tables loaded once
+CHAN_EDGE_MS = (2, 4, 8, 16, 32, 64, 128)
+CHAN_EDGE_KS = (1, 17)
+CHAN_EDGE_TS = (4096, 3 * 4096, 384 * 4096)
+
+
+def compare_chan_edges(device="cuda", seed: int = 0) -> list[dict]:
+    """The exact channelizer against ``channelize_plain`` at every M it is
+    instantiated for, at each of CHAN_EDGE_KS and CHAN_EDGE_TS (the
+    longest makes every CTA of the grid take several tiles), on W = 3
+    captures of random packed words (every u8 value) and of random float
+    planes, in every out form, two blocks with the carried state: max abs
+    error 0.  Returns one row per case."""
+    from fm_radio_tpu_torch.kernels import channelizer as kch
+    from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+
+    kern, plain = _stages()["channelizer"]
+    rng = np.random.default_rng(seed)
+    n_w, rows = 3, []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if n_w * max(CHAN_EDGE_TS) // kch.T_MULTIPLE <= 2048 // 256 * sms:
+        raise RuntimeError(f"the channelizer's edge shapes do not walk "
+                           f"past the grid on {sms} SMs")
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    for m in CHAN_EDGE_MS:
+        for k in CHAN_EDGE_KS:
+            tab = kch.make_tables(make_channelizer_taps(m, k), m, device)
+            for t in CHAN_EDGE_TS:
+                for packed in (True, False):
+                    for out in kch.OUTS if m == 32 else ("f32", "i8"):
+                        acc = {}
+                        st = tuple(dev(rng.normal(0, 40, (n_w, (k - 1) * m)))
+                                   for _ in range(2))
+                        for _ in range(2):
+                            x = (dev(rng.integers(0, 256, (n_w, t)) * 256
+                                     + rng.integers(0, 256, (n_w, t)))
+                                 if packed else
+                                 tuple(dev(rng.normal(0, 40 * m, (n_w, t)))
+                                       for _ in range(2)))
+                            a = (tab, st, x, m, out, 3)
+                            kout, pout = kern(*a), plain(*a)
+                            e = stage_errors("channelizer", kout, pout)
+                            dump_mismatch("channelizer", a, kout, pout, e)
+                            _merge(acc, "channelizer", e)
+                            st = kout[0]
+                        v = _verdict("channelizer", acc["channelizer"])
+                        rows.append(dict(v, m=m, k=k, t=t, packed=packed,
+                                         out=out))
+    torch.cuda.synchronize(device)
+    return rows
+
+
+# filter orders off the megakernel's blocked stages (ds x4 and the extract
+# FIRs then sum each output by itself)
+CHAIN_OTHER_ORDERS = {"order_poly_ds_lpf_fm_out": 48,
+                      "order_poly_ds_lpf_audio": 96,
+                      "order_poly_ds_lpf_rds": 96}
+
+
+def compare_chain_small(seed: int, channels: int = 8, block: int = 16384,
+                        blocks: int = 2, device="cuda",
+                        orders: dict | None = None) -> dict:
+    """The megakernel on CHAIN_CELL's configuration (with ``orders``, those
+    filter orders) at C = ``channels``, B = ``block``: against its plain
+    version on the arguments ``demod_block`` recorded, and the same packed
+    words through the f32w split path (K1 -> K2 -> PLL -> extract kernels)
+    from one start state, ``blocks`` blocks: audio and every state leaf
+    before the RDS AGC.  Returns one verdict row (max abs error 0 on both
+    counts)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    _, kind, kw = CHAIN_CELL
+    cfg = DemodConfig(**kw, **(orders or {}))
+    cfg_s = DemodConfig(assume_integer_input=True, **(orders or {}))
+    co = make_coeffs(cfg, device)
+    st_c = st_s = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block * blocks, seed, device)
+    acc, vs = {}, 0.0
+    for blk in range(blocks):
+        xb = x[..., blk * block : (blk + 1) * block].contiguous()
+        calls = {}
+        st_c, o_c = demod_block(cfg, co, st_c, xb, record=calls)
+        st_s, o_s = demod_block(cfg_s, co, st_s, xb)
+        if "chain" not in calls:
+            raise RuntimeError(f"chain not taken at C = {channels}: "
+                               f"{list(calls)}")
+        compare_stage(acc, "chain", calls["chain"])
+        pre = [k for k in st_c if k not in ("agc_rds", "bpsk")]
+        vs = max(vs, _leaf_max_diff(o_c["audio"], o_s["audio"]),
+                 _leaf_max_diff({k: st_c[k] for k in pre},
+                                {k: st_s[k] for k in pre}))
+    torch.cuda.synchronize(device)
+    row = _verdict("chain", acc["chain"])
+    row.update(channels=channels, block=block, vs_split_f32w=vs,
+               orders=orders, ok=row["ok"] and vs == 0.0)
+    return row
+
+
+def chain_cell_checked(channels: int = 2048, block: int = 131072,
+                       device="cuda") -> dict:
+    """One block of CHAIN_CELL at full width on the bounds-checked build
+    (every index of the megakernel's global loads and stores checked; a
+    trap fails the run): the megakernel against its plain version on the
+    arguments ``demod_block`` recorded, and against the f32w split path on
+    the same words (audio and the state before the RDS AGC), on poisoned
+    memory.  Returns one verdict row."""
+    from fm_radio_tpu_torch.kernels import _build
+
+    poison_free_memory(device)
+    with _build.checked_build():
+        row = compare_chain_small(7, channels, block, 1, device)
+    return dict(row, build="checked")
+
+
+def allocator_counts(device) -> dict:
+    """The caching allocator's counters on ``device``: its cudaMalloc and
+    cudaFree calls, its retries (a cudaMalloc that failed, after which it
+    frees every cached block and tries again), and the GiB it reserves
+    and the GiB of it that live tensors hold."""
+    s = torch.cuda.memory_stats(device)
+    return {"device_allocs": s.get("num_device_alloc", 0),
+            "device_frees": s.get("num_device_free", 0),
+            "alloc_retries": s.get("num_alloc_retries", 0),
+            "reserved_gib": s.get("reserved_bytes.all.current", 0) / 2 ** 30,
+            "allocated_gib": s.get("allocated_bytes.all.current", 0) / 2 ** 30}
+
+
+def chan_floor(args) -> dict:
+    """The exact channelizer's issue floor on its recorded arguments, ms:
+    4K + 8M float32 operations an input sample, each its own FMUL or FADD
+    (-fmad=false) at 128 a clock an SM, at the SM count and highest SM
+    clock of this card."""
+    tab, state, xp, m = args[:4]
+    x0 = xp[0] if isinstance(xp, tuple) else xp
+    k = tab.w_rev.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    ops = float(x0.numel()) * (4 * k + 8 * m)
+    return {"fmul_fadd_ms": ops / (128 * sms * hz) * 1e3, "ops": ops,
+            "sms": sms, "sm_clock_hz": hz}
 
 
 def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
                   blocks: int = 8, amp: float = BENCH_AMP,
                   time_kernels: bool = True, bridge: str = "i8",
                   splits: int = 3, time_bpsk: bool = False,
-                  device="cuda") -> dict:
+                  library: bool = True, device="cuda") -> dict:
     """The wideband cell through wideband_demod_block with counted
     launches (one warm-up block first), on captures of per-channel
-    amplitude ``amp``, the channelizer in mode ``splits``; the
+    amplitude ``amp``, the channelizer in mode ``splits``: each block's
+    time by CUDA events and the caching allocator's counters over the
+    timed blocks (:func:`allocator_counts`); the
     :func:`plane_stats` of the last block's int8 bridge output; then, if
     ``time_kernels``, the channelizer and the phase-split K12 (at M=32)
     timed alone beside their plain versions on the last block's
-    arguments, and compared (for a matrix mode also the product alone as
-    one PyTorch call, :func:`mat_library_ms`, and its operator bytes);
+    arguments, and compared (with ``library``, also the product alone as
+    one PyTorch call, :func:`mat_library_ms`; a matrix mode's operator
+    bytes);
     with ``time_bpsk``, :func:`bpsk_alone` on the last block's BPSK
     arguments.  ``bridge="f32"`` runs the float32 bridge under
-    ``DemodConfig()`` (K1 on planes, then K2)."""
+    ``DemodConfig()`` (K1 on planes, then K2).  The exact mode's kernel
+    also has its issue floor (:func:`chan_floor`)."""
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels.channelizer import (
         make_tables, wgmma_operator_bytes)
@@ -2221,18 +2406,22 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     torch.cuda.reset_peak_memory_stats(device)
 
     calls = {}
+    alloc = allocator_counts(device)
     reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(blocks):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(blocks + 1)]
+    ev[0].record()
+    for i in range(blocks):
         st, outs = wideband_demod_block(cfg, co, tab, st, x, m,
                                         bridge=bridge, splits=splits,
                                         record=calls)
-    end.record()
+        ev[i + 1].record()
     torch.cuda.synchronize(device)
     launches = read_counts()
-    ms = start.elapsed_time(end)
+    ms = ev[0].elapsed_time(ev[-1])
+    after = allocator_counts(device)
+    alloc = {k: (after[k] if k.endswith("_gib") else after[k] - alloc[k])
+             for k in after} | {"reserved_gib_before": alloc["reserved_gib"],
+                                "allocated_gib_before": alloc["allocated_gib"]}
     ps = m == 32 and bridge == "i8"
     chan = CHANNELIZER_BY_SPLITS[calls["channelizer"][5]]
     want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks,
@@ -2259,15 +2448,21 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
                       else plane_stats(bridged)),
            "launches": launches,
            "ms_per_block": ms / blocks,
+           "block_ms": [a.elapsed_time(b) for a, b in zip(ev, ev[1:])],
+           "allocator": alloc,
            "msps": c * block * blocks / (ms / 1e3) / 1e6,
            "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
     if time_kernels:
-        timed = {chan: calls["channelizer"], "k12_ps": calls["k12_ps"]}
+        timed = {chan: calls["channelizer"]}
+        if ps:
+            timed["k12_ps"] = calls["k12_ps"]
         (res["kernel_ms"], res["plain_ms"], res["compare"],
          res["bound"]) = time_stages(timed)
         if ps:
             res["ds4_floors"] = ds4_floors(calls["k12_ps"][3])
-        if chan != "channelizer":
+        if chan == "channelizer":
+            res["chan_floor"] = chan_floor(calls["channelizer"])
+        if library:
             res["library_ms"] = mat_library_ms(calls["channelizer"])
         if chan in ("channelizer_i8mat", "channelizer_bf16mat"):
             tab, _, words, m, _, sp = calls["channelizer"]
@@ -2909,15 +3104,24 @@ def mat_library_ms(args, reps: int = 5) -> dict:
     of the ring copied once.  splits 1: ``torch._int_mm`` of [X_r; X_i]
     (int8, u8 - 128) and [A_re; A_im], the four integer products in one
     call; splits 2: ``torch.bmm`` of the three Karatsuba planes (bf16) and
-    their matrices.  Each in both operand orders (X A^T and A X^T), the
-    faster one reported as "ms".  The product alone, not the function: no
+    their matrices; splits 3 (the exact mode): the same ``torch.bmm`` in
+    float32, TF32 off, on the exact fused operators
+    (``kernels/channelizer.py::fused_operators``).  Each in both operand
+    orders (X A^T and A X^T), the faster one reported as "ms".  The product alone, not the function: no
     unpacking, no epilogue, no output form.  Returns {"ms", "call",
     "by_order", "shape"} or {"ms": None, "error"}."""
     from fm_radio_tpu_torch.kernels import channelizer as kch
 
     tab, state, words, m, out, splits = args
-    qt = kch.quant_tables(tab, splits, out)
-    n_c = qt.mats.shape[1]
+    if splits == 3:  # the fused operators in float32 (re, im, re + im)
+        mats = np.swapaxes(np.stack(kch.fused_operators(
+            tab.taps, m, out != "f32")), 2, 3)
+        mats = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([mats, mats[:1] + mats[1:]]), np.float32)).to(
+                words.device)
+    else:
+        mats = kch.quant_tables(tab, splits, out).mats
+    n_c = mats.shape[1]
     k = state[0].shape[-1] // m + 1
     res = {"what": "the product alone, not the function"}
     with torch.no_grad():
@@ -2930,7 +3134,7 @@ def mat_library_ms(args, reps: int = 5) -> dict:
                                         n_w * cols, 128 * n_c)
 
         # A as [planes, 128 (o), 128 n_c (c, s)]
-        a = qt.mats.permute(0, 2, 1, 3).reshape(qt.mats.shape[0], 128, -1)
+        a = mats.permute(0, 2, 1, 3).reshape(mats.shape[0], 128, -1)
         try:
             if splits == 1:
                 x = torch.cat([expand((r - 1.0).to(torch.int8))
@@ -2943,28 +3147,35 @@ def mat_library_ms(args, reps: int = 5) -> dict:
                           "a_xt": lambda: torch._int_mm(a2, x.t())}
             else:
                 xr, xi = rings
-                x = torch.stack([expand(v.to(torch.bfloat16))
-                                 for v in (xr, xi, xr + xi)])
+                dt = torch.float32 if splits == 3 else torch.bfloat16
+                x = torch.stack([expand(v.to(dt)) for v in (xr, xi, xr + xi)])
                 at = a.transpose(1, 2).contiguous()
                 del rings, xr, xi
                 call = "torch.bmm"
                 orders = {"x_at": lambda: torch.bmm(x, at),
                           "a_xt": lambda: torch.bmm(a, x.transpose(1, 2))}
             res.update(call=call, shape=[list(x.shape), list(a.shape)],
-                       by_order={})
-            for name, fn in orders.items():
-                try:
-                    fn()
-                    res["by_order"][name] = _cuda_ms(fn, reps)[1]
-                except RuntimeError as e:
-                    res["by_order"][name] = f"refused: {str(e)[:200]}"
-                torch.cuda.empty_cache()
+                       dtype=str(x.dtype), by_order={})
+            # float32 products in full float32 (no TF32), as the kernel sums
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            res["allow_tf32"] = False
+            try:
+                for name, fn in orders.items():
+                    try:
+                        fn()
+                        res["by_order"][name] = _cuda_ms(fn, reps)[1]
+                    except RuntimeError as e:
+                        res["by_order"][name] = f"refused: {str(e)[:200]}"
+                    torch.cuda.empty_cache()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
             times = [v for v in res["by_order"].values()
                      if isinstance(v, float)]
             res["ms"] = min(times) if times else None
         except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
             res.update(ms=None, error=str(e)[:300])
-        x = a = a2 = at = None
+        x = a = a2 = at = mats = None
         torch.cuda.empty_cache()
     return res
 
@@ -3538,6 +3749,36 @@ def main() -> int:
         raise RuntimeError(f"ds4 edges on the bounds-checked build: {e}")
     for r in dedge:
         log(f"[compare] ds4 edge: {json.dumps(r)}")
+    # the exact channelizer at every M instantiation and its edge shapes,
+    # on both builds; the megakernel at the chain cell's shape on the
+    # checked build (its small shapes are in the repeats above)
+    t1 = time.perf_counter()
+    cedge = compare_chan_edges(dev)
+    # the megakernel off its blocked stages (other filter orders)
+    corders = [compare_chain_small(11, device=dev,
+                                   orders=CHAIN_OTHER_ORDERS)]
+    try:
+        with _build.checked_build():
+            cedge += [dict(r, build="checked")
+                      for r in compare_chan_edges(dev, seed=1)]
+            corders.append(dict(compare_chain_small(
+                12, device=dev, orders=CHAIN_OTHER_ORDERS), build="checked"))
+        chk = chain_cell_checked(device=dev)
+    except RuntimeError as e:
+        raise RuntimeError(f"channelizer edges or the chain cell on the "
+                           f"bounds-checked build: {e}")
+    for r in cedge:
+        log(f"[compare] channelizer edge: {json.dumps(r)}")
+    for r in corders:
+        log(f"[compare] chain, other orders: {json.dumps(r)}")
+    log(f"[compare] chain cell, checked build: {json.dumps(chk)}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    bad = [(r["m"], r["k"], r["t"], r["packed"], r["out"], r.get("build"))
+           for r in cedge if not r["ok"]]
+    if bad or not chk["ok"] or not all(r["ok"] for r in corders):
+        raise RuntimeError(f"channelizer edge shapes disagree {bad}, or the "
+                           f"chain at other orders {corders} or at the "
+                           f"cell on the checked build {chk}")
     dsass = ds4_sass()
     log(f"[build] ds4 SASS: {json.dumps(dsass)}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3693,13 +3934,15 @@ def main() -> int:
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
-    wb_bench = wideband_path(64, 32, 131072, 8, device=dev)
+    wb_bench = wideband_path(64, 32, 131072, 8, library=False, device=dev)
     log(f"[wideband] {json.dumps(wb_bench)}")
     wb = wideband_path(64, 32, 131072, 8, amp=loud_amp(32), device=dev)
     log(f"[wideband] {json.dumps(wb)}")
-    wb16 = wideband_path(128, 16, 131072, 2, amp=loud_amp(16),
-                         time_kernels=False, device=dev)
+    wb16 = wideband_path(128, 16, 131072, 2, amp=loud_amp(16), device=dev)
     log(f"[wideband] {json.dumps(wb16)}")
+    log(f"[wideband] the exact channelizer's FMUL/FADD issue floor "
+        f"(computed, not measured): M = 32 {wb['chan_floor']}, M = 16 "
+        f"{wb16['chan_floor']}")
     wbf = wideband_path(64, 32, 131072, 2, amp=loud_amp(32),
                         time_kernels=False, bridge="f32", device=dev)
     log(f"[wideband] {json.dumps(wbf)}")
@@ -3725,7 +3968,8 @@ def main() -> int:
                                f"{lacking(prof, want)}: "
                                f"{list(prof['device_ms_per_block'])}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
-    bad = [r["name"] for c in (wb_bench, wb, wb_i8_bench, wb_i8, wb_bf16)
+    bad = [r["name"] for c in (wb_bench, wb, wb16, wb_i8_bench, wb_i8,
+                               wb_bf16)
            for r in c["compare"] if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
@@ -3816,10 +4060,11 @@ def main() -> int:
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
               + wedge + medge["rows"] + pedge + eedge["rows"] + bedge
-              + dedge):
+              + dedge + cedge + corders + [chk]):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
+              + wb16["compare"]
               + [r for c in cells.values() for r in c["compare"]]
               + ch["compare"] + pc["compare"] + wb_i8_bench["compare"]
               + wb_i8["compare"] + wb_bf16["compare"] + i16c["compare"]):
@@ -3860,7 +4105,7 @@ def main() -> int:
                         + CHAIN_KERNELS + MAT_KERNELS + I16_KERNELS):
         cell = home[n]
         b = cell["bound"][n]
-        lib = cell.get("library_ms")
+        lib = cell.get("library_ms") if n.startswith("channelizer") else None
         launches = (paths[launch_path[n]][n] if n in launch_path
                     else cell["launches"][n])
         k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
@@ -3890,6 +4135,23 @@ def main() -> int:
                      plain_ms_bench_input=wb_bench["plain_ms"][n],
                      planes_small=planes[n], planes_full_width=wb["planes"],
                      planes_full_width_bench_input=wb_bench["planes"])
+        if n == "channelizer":
+            # the M = 16 lens and the edge shapes (the issue floors, which
+            # are computed and not measured, are logged with the cells)
+            k.update(m16={"ms": wb16["kernel_ms"][n],
+                          "plain_ms": wb16["plain_ms"][n],
+                          "bound": wb16["bound"][n],
+                          "library": wb16["library_ms"]},
+                     edge_shapes={
+                         "cases": len(cedge),
+                         "max_abs_err": max(r["max_abs_err"] for r in cedge),
+                         "m_values": list(CHAN_EDGE_MS),
+                         "k_values": list(CHAN_EDGE_KS),
+                         "t_values": list(CHAN_EDGE_TS)})
+        if n == "chain":
+            k.update(checked_cell=chk, other_orders=corders, small=[
+                kk for r in reps for kk in r["kernels"]
+                if kk["name"] == "chain"])
         if n == "midend":
             k.update(ms_by_cell={c: cells[c]["kernel_ms"]["midend"]
                                  for c in cells})

@@ -16,7 +16,9 @@ after extract.  K1 always takes the float taps (chain_pallas.py:294-297
 takes the float band), and no RDS power is summed: the megakernel's route
 runs the unfused RDS AGC (demod.py:576-609).  The kernel is
 ``csrc/chain.cu``; it evaluates the split kernels' device code tile by
-tile, so its outputs and state equal the split path's with float taps.
+tile (at the receiver's filter orders the register-blocked ds x4 and
+extract FIRs, ``extract_stages.cuh::fir_block``, in the same tap order),
+so its outputs and state equal the split path's with float taps.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ from fm_radio_tpu_torch.ops.cmath import div_scalar
 launches = 0
 
 FORMS = {"planes": 0, "words": 1}
-CHANNELS = 8  # channels per CUDA block (csrc/chain.cu kChCh)
+# the channel multiple the wrapper takes (the JAX gate's, pick_tiles_chain;
+# csrc/chain.cu runs half of it, kChCh = 4, a CUDA block)
+CHANNELS = 8
 TILE = 512    # baseband samples per time tile (kChT)
 
 _P, _I, _F = _build.P, _build.I, _build.F
@@ -89,12 +93,20 @@ def chain_plain(coeffs, cfg, state: dict, x: torch.Tensor):
     return st, lpr, lmr, rds
 
 
-def _launch(coeffs, cfg, state: dict, x: torch.Tensor):
-    dev = x.device
+def check_tiles(x: torch.Tensor) -> None:
+    """The kernel's shape limits (whole groups of CHANNELS channels, the
+    JAX gate's, and whole tiles of TILE samples, csrc/chain.cu's); raises
+    ValueError."""
     c, b = x.shape[-2], x.shape[-1]
     if c % CHANNELS or b % TILE:
         raise ValueError(f"chain: C = {c} must be a multiple of {CHANNELS} "
                          f"and B = {b} of {TILE}")
+
+
+def _launch(coeffs, cfg, state: dict, x: torch.Tensor):
+    dev = x.device
+    check_tiles(x)
+    c, b = x.shape[-2], x.shape[-1]
     nn1 = check_state("chain", coeffs, state, c)
     tail = state["ds_fm_in"]
     k1 = {"x": x, "tail1": torch.stack([tail.real, tail.imag]).contiguous(),
@@ -146,10 +158,13 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor):
 def chain(coeffs, cfg, state: dict, x: torch.Tensor):
     """x: packed words [C, B] or float32 planes [2, C, B] -> as
     :func:`chain_plain`.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (C % 8 == 0, B % 512 == 0)."""
+    launch the kernel (C % 8 == 0, B % 512 == 0: :func:`check_tiles`,
+    checked first on any other device)."""
     if input_form(x) not in FORMS:
         raise ValueError(f"chain takes packed words [C, B] or float32 planes "
                          f"[2, C, B], got {x.dtype} {tuple(x.shape)}")
+    if x.device.type != "cpu":  # the kernel's limits, before any launch
+        check_tiles(x)
     if _build.on_cpu("chain", x.device):
         return chain_plain(coeffs, cfg, state, x)
     global launches

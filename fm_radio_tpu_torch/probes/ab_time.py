@@ -1,6 +1,6 @@
-"""Time the matrix channelizer and BPSK of one checkout of the port,
-so that two checkouts (a commit and its parent) can be compared in turns
-on one card within one call.
+"""Time the channelizer, the megakernel and BPSK of one checkout of the
+port, so that two checkouts (a commit and its parent) can be compared in
+turns on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
 
@@ -8,6 +8,11 @@ Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
 checkout's kernels and prints one JSON row per case:
 
+- the exact channelizer (splits=3, the library default) at the wideband
+  cell (below) and at the M = 16 lens (W = 128, K = 16, T = 2^21, out
+  "i8"); the megakernel (``kernels/chain.py::chain``) at the chain cell
+  (C = 2,048, B = 131,072, ``probes/chain_phases.py::bench_words``,
+  ``DemodConfig(assume_integer_input=True, chain_fusion="auto")``);
 - the channelizer at splits=1 (``channelize(..., splits=1)``) at bench.py's
   wideband cell (W = 64 captures, M = 32, K = 16, T = 2^22, out "i8ps",
   words as ``chip_smoke.wideband_words`` makes them), at splits=2 there too,
@@ -93,14 +98,17 @@ def main(argv=None) -> int:
         print("ab_time: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
+    from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import bpsk as kb
+    from fm_radio_tpu_torch.kernels import chain as kc
     from fm_radio_tpu_torch.kernels import channelizer as kch
     from fm_radio_tpu_torch.models.demod import (
         INT8_CONFIG, demod_block, demod_init_state, make_coeffs)
     from fm_radio_tpu_torch.models.wideband import (
         wideband_demod_block, wideband_init_state)
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
+    from fm_radio_tpu_torch.probes.chain_phases import bench_words
 
     _build.build()
     dev = torch.device("cuda", 0)
@@ -116,12 +124,30 @@ def main(argv=None) -> int:
         rows.append(r)
         print(json.dumps(r), flush=True)
 
-    # the channelizer at splits=1: the cell, then the edge shapes
-    m, k = 32, 16
+    # the megakernel at the chain cell
+    ccfg = DemodConfig(assume_integer_input=True, chain_fusion="auto")
+    cco, cst = make_coeffs(ccfg, dev), demod_init_state(ccfg, 2048, dev)
+    cx = bench_words(2048, 131072, dev)
+    row("chain", "cell C=2048 B=131072 words",
+        _ms(lambda: kc.chain(cco, ccfg, cst, cx), a.reps))
+    del cx, cst
+
+    # the exact channelizer at the M = 16 lens; the channelizer at the
+    # cell (exact, then splits=1), then splits=1's edge shapes
+    m, k = 16, 16
+    tab = kch.make_tables(make_channelizer_taps(m, k), m, dev)
+    words = chip_smoke.wideband_words(128, m, 131072, seed=0, device=dev,
+                                      amp=chip_smoke.BENCH_AMP)
+    st = (torch.zeros((128, (k - 1) * m), device=dev),) * 2
+    row("channelizer", "M=16 W=128 T=2097152 i8",
+        _ms(lambda: kch.channelize(tab, st, words, m, "i8", 3), a.reps))
+    m = 32
     tab = kch.make_tables(make_channelizer_taps(m, k), m, dev)
     words = chip_smoke.wideband_words(64, m, 131072, seed=0, device=dev,
                                       amp=chip_smoke.BENCH_AMP)
     st = (torch.zeros((64, (k - 1) * m), device=dev),) * 2
+    row("channelizer", "cell W=64 T=4194304 i8ps",
+        _ms(lambda: kch.channelize(tab, st, words, m, "i8ps", 3), a.reps))
     row("channelizer_i8mat", "cell W=64 T=4194304 i8ps",
         _ms(lambda: kch.channelize(tab, st, words, m, "i8ps", 1), a.reps))
     row("channelizer_bf16mat", "cell W=64 T=4194304 i8ps",

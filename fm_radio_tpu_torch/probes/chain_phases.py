@@ -6,8 +6,9 @@ The megakernel (``csrc/chain.cu``) is one launch, so a profiler shows one
 number.  This probe times it whole and with phases taken out: each
 variant is ``chain.cu`` with some phases emptied (a serial stage's
 ``if (tid < kChCh)`` made false, a parallel stage's loop started past its
-end), built by nvcc with the kernels' flags into
-``fm_radio_tpu_torch/_build/probes/`` and launched through
+end and its register-blocked branch made false), built by nvcc with the
+kernels' flags into ``fm_radio_tpu_torch/_build/probes/`` and launched
+through
 ``kernels/chain.py`` on the chain cell's input (bench.py's FM-like phase
 walk as packed u8 words, ``DemodConfig(assume_integer_input=True,
 chain_fusion="auto")``).  A variant's outputs are wrong by design; only
@@ -37,42 +38,56 @@ from fm_radio_tpu_torch.models.demod import demod_init_state, make_coeffs
 
 _LOOP, _NO_LOOP = "for (int e = tid;", "for (int e = tid + (1 << 30);"
 _ITEMS, _NO_ITEMS = "for (int w = tid;", "for (int w = tid + (1 << 30);"
-_SERIAL, _NO_SERIAL = "if (tid < kChCh) {", "if (false) {"
+_SERIAL, _OFF = "if (tid < kChCh) {", "if (false) {"
+# the register-blocked branches the receiver's filter orders take
+_DS4, _EXT = "if (ds4_blocked) {", "if (ext_blocked) {"
 
-# variant -> the (phase number, statement, replacement) edits of chain.cu;
-# phases are numbered as in the kernel's tile loop
+# variant -> the (phase label, statement, replacement) edits of chain.cu;
+# phases are labelled as in the kernel's tile loop.  A stage with a
+# blocked branch and a per-output loop loses both.
 VARIANTS = {
     "full": (),
-    "no_serial": tuple((n, _SERIAL, _NO_SERIAL) for n in (5, 7, 9)),
-    "no_ds4": ((2, _LOOP, _NO_LOOP),),
-    "no_extract_firs": ((11, _ITEMS, _NO_ITEMS),),
+    "no_serial": tuple((n, _SERIAL, _OFF) for n in (5, 7, 9)),
+    "no_ds4": (("2a", _DS4, _OFF), ("2a", _LOOP, _NO_LOOP),
+               ("2b", _LOOP, _NO_LOOP)),
+    "no_extract_firs": ((11, _EXT, _OFF), (11, _ITEMS, _NO_ITEMS)),
 }
 VARIANTS["rest"] = (VARIANTS["no_serial"] + VARIANTS["no_ds4"]
                     + VARIANTS["no_extract_firs"])
 
 
 def variant_source(src: str, edits) -> str:
-    """chain.cu with each edit applied inside its phase (from the phase's
-    "// N. " comment to its closing barrier)."""
-    for n, old, new in edits:
-        i = src.index(f"    // {n}. ")
-        j = src.index("__syncthreads();", i)
-        if old not in src[i:j]:
-            raise ValueError(f"phase {n} has no {old!r}")
+    """``src`` with each edit applied: a (phase, statement, replacement)
+    edit inside its phase (from the phase's "// N. " comment to its
+    closing barrier, as chain.cu labels them), a (statement, replacement)
+    edit where the statement occurs, which must be once in ``src``."""
+    for edit in edits:
+        *phase, old, new = edit
+        if phase:
+            i = src.index(f"    // {phase[0]}. ")
+            j = src.index("__syncthreads();", i)
+            where = f"phase {phase[0]}"
+        else:
+            i, j, where = 0, len(src), "the source"
+        n = src[i:j].count(old)
+        if n == 0 or (n > 1 and not phase):
+            raise ValueError(f"{where} has {n} of {old!r}")
         src = src[:i] + src[i:j].replace(old, new, 1) + src[j:]
     return src
 
 
-def build_variants() -> dict:
-    """Build every variant (one nvcc each, all at once); {name: path}."""
+def build_variants(source: str = "chain", variants=None) -> dict:
+    """Build every variant of ``csrc/<source>.cu`` (:func:`variant_source`
+    with each of ``variants``, VARIANTS by default; one nvcc each, all at
+    once) into ``_build/probes/``; {name: library path}."""
     out = _build.BUILD_ROOT / "probes"
     out.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "chain.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     jobs = {}
-    for name, edits in VARIANTS.items():
-        cu = out / f"chain_{name}.cu"
+    for name, edits in (VARIANTS if variants is None else variants).items():
+        cu = out / f"{source}_{name}.cu"
         cu.write_text(variant_source(src, edits))
-        lib = out / f"libchain_{name}.so"
+        lib = out / f"lib{source}_{name}.so"
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(lib), str(cu)]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -86,12 +101,13 @@ def build_variants() -> dict:
 
 
 @contextlib.contextmanager
-def chain_library(path):
-    """Launch ``kernels/chain.py``'s kernel from the library at ``path``."""
+def library(path, name: str = "chain"):
+    """Launch the kernels of ``kernels/<name>.py`` from the library at
+    ``path``."""
     lib = ctypes.CDLL(str(path))
     lib.fmt_error_string.argtypes = [ctypes.c_int]
     lib.fmt_error_string.restype = ctypes.c_char_p
-    key = ("chain", False)
+    key = (name, False)
     saved = _build._libs.get(key)
     _build._libs[key] = lib
     try:
@@ -143,7 +159,7 @@ def main(argv=None) -> int:
     ms = {name: [] for name in libs}
     for _ in range(2):
         for name, path in libs.items():
-            with chain_library(path):
+            with library(path):
                 ms[name].append(time_ms(lambda: tchain.chain(co, cfg, st, x)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

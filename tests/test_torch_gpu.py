@@ -302,10 +302,70 @@ def test_ds4_edges_on_checked_build():
 
 
 @pytest.mark.gpu
+def test_chan_edges_on_card():
+    """The redesigned exact channelizer equals channelize_plain bit for bit
+    at every M it is instantiated for (2 ... 128), K = 1 and 17, T = 4,096,
+    12,288 and 1,572,864 (more tiles than the grid holds CTAs, so each CTA
+    walks several), in every out form (phase-split at M = 32), on packed
+    words and on float planes, two blocks with carried state each."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_chan_edges()
+    assert len(rows) == 7 * 2 * 3 * 2 * 2 + 2 * 3 * 2, len(rows)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), [
+        r for r in rows if not r["ok"]]
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
+def test_chan_edges_on_checked_build():
+    """The same cases on the bounds-checked build: every global index of
+    the channelizer's loads and stores is checked (a trap fails the
+    test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    with _build.checked_build():
+        rows = chip_smoke.compare_chan_edges(seed=1)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), [
+        r for r in rows if not r["ok"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True], ids=["default",
+                                                         "checked"])
+def test_chain_small_on_poisoned_memory(checked):
+    """The redesigned megakernel equals its plain version and the f32w
+    split path bit for bit at C = 8 and 40 (B = 16,384, two blocks), at the
+    receiver's filter orders (its blocked stages) and at other orders (one
+    output a thread), on poisoned memory, on the default and the
+    bounds-checked build."""
+    _need_card()
+    import contextlib
+
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    ctx = _build.checked_build() if checked else contextlib.nullcontext()
+    rows = []
+    with ctx:
+        for c in (8, 40):
+            for orders in (None, chip_smoke.CHAIN_OTHER_ORDERS):
+                chip_smoke.poison_free_memory("cuda")
+                rows.append(chip_smoke.compare_chain_small(
+                    c, c, 16384, orders=orders))
+    assert all(r["ok"] and r["max_abs_err"] == 0.0
+               and r["vs_split_f32w"] == 0.0 for r in rows), rows
+
+
+@pytest.mark.gpu
 def test_k12_small_repeats_on_poisoned_memory():
-    """K12, the PLL, extract and BPSK against their plain versions at the
-    shape where K12 once disagreed (C = 8, B = 16,384), and the int8-matrix
-    channelizer at W = 2, T = 32,768, on three fresh seeds, the
+    """K12, the PLL, extract, BPSK and the megakernel against their plain
+    versions at the shape where K12 once disagreed (C = 8, B = 16,384), and
+    the int8-matrix channelizer at W = 2, T = 32,768, on three fresh seeds,
+    the
     allocator's free memory filled with 0xFF bytes before each: a kernel
     that read an output or scratch element it never wrote would see NaN
     there."""
