@@ -50,19 +50,25 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    i8; both modes at their edge shapes (T = 16,384 on W = 1 and 3, all
    three forms; :func:`compare_wgmma_edges`) and the count of the wgmma
    kernel's float and integer wgmma, mma.sync and bulk-copy instructions
-   (``cuobjdump -sass``); K12 flat, phase-split and K2 on
-   their fused mid end at C=40, B = 512, 8,192 and 8,320, max abs error 0,
-   and the mid end's route on the card against its host copy
-   (:func:`compare_mid_edges`); the sequential PLL at C = 40 and 5, N =
-   16, 32, 48 and 16,384 on both forms, extract at C = 40, N = 1,024 and
+   (``cuobjdump -sass``); K12 flat, phase-split and K2 (in its four
+   formats: float32 or int16 fm_demod, float32 or int16 outputs, each a
+   counted launch of the fused route) on their fused mid end at C=40, B =
+   512, 8,192 and 8,320, max abs error 0, on the default and the
+   bounds-checked build, and the mid end's route on the card against its
+   host copy (:func:`compare_mid_edges`); the sequential PLL at C = 40
+   and 5, N = 16, 32, 48 and 16,384 on both forms, the chunked PLL at C =
+   5 and 40, G = 2, 4, 8, W = 0, 7, 4,096 and chunk lengths a multiple of
+   its 16-step batch and not (:func:`compare_pll_chunked_edges`), extract
+   at C = 40, N = 1,024 and
    2,048 on its three forms, on its blocked and tiled routes, and BPSK at
    C = 40 and 5, N = 16, 32, 48 and 2,048, with a gain and without, on
    random input and zeros, max abs error 0, on the default and the
-   bounds-checked build (there the PLL and BPSK at N <= 48), and
-   extract's route on the card against its host copy
+   bounds-checked build (there the sequential PLL and BPSK at N <= 48),
+   and extract's route on the card against its host copy
    (:func:`compare_pll_edges`, :func:`compare_extract_edges`,
-   :func:`compare_bpsk_edges`); the PLL's and BPSK's SASS saved for their
-   dependent chains (:func:`pll_sass`, :func:`bpsk_sass`); the
+   :func:`compare_bpsk_edges`); the PLLs' (sequential and chunked) and
+   BPSK's SASS saved for their dependent chains (:func:`pll_sass`,
+   :func:`bpsk_sass`); the
    redesigned ds x4 kernels at their edge shapes on both builds, max abs
    error 0 (:func:`compare_ds4_edges`: C = 1, 5, 40, B = 8,192, 8,320,
    16,384; K12 flat and phase-split, K1 on every load form with both
@@ -128,7 +134,15 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    AGC bit for bit), profiled; and the chunked-PLL cell (C=256 x
    B=1,048,576 int8 planes, ``pll_time_chunks=8``, beside G=1; 4 counted
    blocks each), the chunked and the sequential PLL alone on the same
-   theta, their serial steps and the chunked dt's deviation;
+   theta, their serial steps and the chunked dt's deviation, the G=8 cell
+   profiled (its profile must show the chunked kernel);
+4d. the i16 cell (C=2048 x B=131,072 int8 planes,
+   ``interstage_i16=True``: the int8-direct K1 -> K2 -> PLL -> extract in
+   the int16 format) with counted launches, each int16 kernel alone
+   beside its plain version and its float32 twin, profiled (its profile
+   must show the fused mid end's three kernels and none of the launches
+   route's ds x2 and Hilbert, nor the removed serial peak IIR and
+   quantising pass);
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -322,7 +336,8 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # form, both taps and stores; its float taps summed in ds4_float's order),
 # K12 (flat and phase-split) and K2 admit no slack on either route of their mid end: the
 # fused route sums every FIR output in the plain version's tap order; nor
-# do the PLL, extract (on both of its routes) and BPSK (its branch
+# do the PLL (sequential and chunked: the chunked lanes' masks change no
+# value), extract (on both of its routes) and BPSK (its branch
 # changes no value: it skips only what no lane uses).  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact,
 # and so must the int8-matrix channelizer (integer products, then the plain
@@ -334,7 +349,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 0.0,
        "k12_ps": 0.0, "channelizer": 0.0, "frontend": 0.0,
        "frontend_i8": 0.0, "midend": 0.0, "chain": 0.0,
-       "pll_chunked": 1e-6, "channelizer_i8mat": 0.0,
+       "pll_chunked": 0.0, "channelizer_i8mat": 0.0,
        "channelizer_bf16mat": 1.0,
        # the int16 format: quantised stores leave no slack
        **dict.fromkeys(I16_BASE, 0.0)}
@@ -1186,8 +1201,9 @@ def i16_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     launches = read_counts()
     ms = start.elapsed_time(end)
     check_counts(launches, {"frontend_i8_i16": blocks, "midend_i16": blocks,
-                            "pll_i16": blocks, "extract_i16": blocks,
-                            "extract_blocked": blocks, "bpsk": blocks},
+                            "midend_fused": blocks, "pll_i16": blocks,
+                            "extract_i16": blocks, "extract_blocked": blocks,
+                            "bpsk": blocks},
                  "i16 cell")
     if tuple(outs["audio"].shape) != (channels, block // 32, 2):
         raise RuntimeError(f"i16: audio shape {tuple(outs['audio'].shape)}")
@@ -1672,6 +1688,16 @@ PRESPLIT_CELL = ("presplit", "i8", {"frontend_int8": True})
 # the pre-split cell
 FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
                  "k12_theta_kernel")
+# the launches route's ds x2 and Hilbert, and the peak IIR and quantising
+# pass the int16 forms took before they moved onto the fused route: none
+# runs at the i16 cell
+MID_LAUNCHES = ("fir_decimate_kernel", "k12_hilbert_kernel",
+                "k12_peak_kernel", "q_i16_kernel")
+# the chunked-PLL cell (``python bench.py 256 8``), profiled as the split
+# cells at C = 256 x B = 1,048,576, and its kernel
+PLL_CHUNKED_CELL = ("pll_chunked", "i8", {"frontend_int8": True,
+                                          "pll_time_chunks": 8})
+PLL_CHUNKED = "pll_chunked_kernel"
 # the redesigned PLL, extract and BPSK kernels (csrc/pll.cu,
 # csrc/extract.cu, csrc/bpsk.cu), which the pre-split cell and bench.py's
 # wideband lens (splits=1) launch; and the matrix channelizer, which the
@@ -2552,48 +2578,72 @@ def compare_wgmma_edges(device="cuda") -> list[dict]:
     return rows
 
 
+# K2's formats at the fused mid end's edges: (row label, kernel name,
+# in_i16, out_i16)
+MID_EDGE_FORMS = (("midend", "midend", False, False),
+                  ("midend_in_i16", "midend_i16", True, False),
+                  ("midend_out_i16", "midend_i16", False, True),
+                  ("midend_i16_both", "midend_i16", True, True))
+
+
 def compare_mid_edges(device="cuda") -> dict:
     """K12 (flat and phase-split) and K2 on their fused route against the
     plain versions at edge shapes, two blocks with carried state, bench
-    planes (K2 on N(0, 1) fm_demod): C = 40 (not a multiple of the peak
-    IIR's 32 channels a warp) at B = 512 (the smallest block whose carried
-    tails the fused route holds: one partial tile), 8,192 (one whole tile
-    of 1024 outputs) and 8,320 (a whole tile and a partial one); and the
-    host's route (kernels/midend.py::midend_route) against the C entry's
-    (fmt_midend_route) over formats, de-emphasis, filter orders and block
-    lengths.  Returns {"rows": verdict rows, "route_mismatch": [...]}."""
+    planes (K2 on fm_demod drawn as N(0, 0.3^2), float32 or int16 at
+    FM_SCALE): C = 40 (not a multiple of the peak IIR's 8 channels a
+    block) at B = 512 (the smallest block whose carried tails the fused
+    route holds: one partial tile), 8,192 (one whole tile of 1024 outputs)
+    and 8,320 (a whole tile and a partial one); K2 in its four formats
+    (:data:`MID_EDGE_FORMS`), each launch counted on the fused route; and
+    the host's route (kernels/midend.py::midend_route) against the C
+    entry's (fmt_midend_route) over de-emphasis, filter orders and
+    block lengths.  Returns {"rows": verdict rows (K2's with their
+    "form"), "route_mismatch": [...], "not_fused": K2 calls that did not
+    count as fused launches}."""
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import k12 as kk
     from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
     from fm_radio_tpu_torch.models.demod import (
         INT8_CONFIG, demod_init_state, make_coeffs)
 
     cfg = INT8_CONFIG
     co = make_coeffs(cfg, device)
-    acc = {}
+    acc, not_fused = {}, []
     c = 40
     g = torch.Generator(device=device).manual_seed(7)
+    cases = [("k12", "k12", kk.k12, kk.k12_plain, False),
+             ("k12_ps", "k12_ps", kk.k12_ps, kk.k12_ps_plain, False)]
+    cases += [(label, name, km.midend, km.midend_plain, (in16, out16))
+              for label, name, in16, out16 in MID_EDGE_FORMS]
     for b in (512, 8192, 8320):
         if km.midend_route(co, cfg, b // 4) != "fused":
             raise RuntimeError(f"B = {b} does not take the fused route")
-        st = {n: demod_init_state(cfg, c, device) for n in ("k12", "ps",
-                                                           "mid")}
+        st = {label: demod_init_state(cfg, c, device)
+              for label, *_ in cases}
         x = bench_planes(c, 2 * b, seed=5, device=device)
         for blk in range(2):
             xb = x[:, :, blk * b : (blk + 1) * b].contiguous()
             x4 = xb.reshape(2, c, b // 4, 4).permute(0, 3, 1, 2).contiguous()
-            fmd = torch.randn((c, b // 4), generator=g, device=device)
-            for name, fn, plain, arg in (
-                    ("k12", kk.k12, kk.k12_plain, xb),
-                    ("k12_ps", kk.k12_ps, kk.k12_ps_plain, x4),
-                    ("midend", km.midend, km.midend_plain, fmd)):
-                key = {"k12": "k12", "k12_ps": "ps", "midend": "mid"}[name]
-                kout = fn(co, cfg, st[key], arg)
-                pout = plain(co, cfg, st[key], arg)
-                e = stage_errors(name, kout, pout)
-                dump_mismatch(name, (co, cfg, st[key], arg), kout, pout, e)
-                _merge(acc, name, e)
-                st[key] = kout[0]
+            fmd = 0.3 * torch.randn((c, b // 4), generator=g, device=device)
+            for label, name, fn, plain, fmt in cases:
+                if name == "k12":
+                    args = (co, cfg, st[label], xb)
+                elif name == "k12_ps":
+                    args = (co, cfg, st[label], x4)
+                else:
+                    in16, out16 = fmt
+                    arg = q_i16(fmd, FM_SCALE) if in16 else fmd
+                    args = (co, cfg, st[label], arg, out16)
+                fused = km.launches_fused
+                kout = fn(*args)
+                if fmt and km.launches_fused != fused + 1:
+                    not_fused.append((label, b))
+                pout = plain(*args)
+                e = stage_errors(I16_BASE.get(name, name), kout, pout)
+                dump_mismatch(name, args, kout, pout, e)
+                _merge(acc, label, e)
+                st[label] = kout[0]
         torch.cuda.synchronize(device)
     fn = _build.function("midend", "fmt_midend_route", km.ROUTE_ARGTYPES)
     bad = []
@@ -2606,14 +2656,13 @@ def compare_mid_edges(device="cuda") -> dict:
             cx = cd._replace(taps_fm_out=cd.taps_fm_out[:nn2],
                              taps_hilbert=cd.taps_hilbert[:nh])
             for n4 in (64, 96, 128, 4096, 32768):
-                for i16 in ((0, 0), (1, 0), (0, 1), (1, 1)):
-                    host = km.midend_route(cx, cf, n4, *map(bool, i16))
-                    card = fn(*i16, int(de), nn2, nh, n4)
-                    if (host == "fused") != (card == 1):
-                        bad.append((de, nn2, nh, n4, i16, host, card))
-    return {"rows": [_verdict(n, acc[n]) for n in ("k12", "k12_ps",
-                                                   "midend")],
-            "route_mismatch": bad}
+                host = km.midend_route(cx, cf, n4)
+                card = fn(int(de), nn2, nh, n4)
+                if (host == "fused") != (card == 1):
+                    bad.append((de, nn2, nh, n4, host, card))
+    rows = [dict(_verdict(name, acc[label]), form=label)
+            for label, name, *_ in cases]
+    return {"rows": rows, "route_mismatch": bad, "not_fused": not_fused}
 
 
 def _pll_theta(c: int, n: int, seed: int, device):
@@ -2662,6 +2711,60 @@ def compare_pll_edges(device="cuda",
                 torch.cuda.synchronize(device)
                 rows.append(dict(_verdict(form, acc[form]), channels=c,
                                  steps=n, dt_dtype=str(kout[1].dtype)))
+    return rows
+
+
+# the chunked PLL's edge shapes: chunk counts G, warm-ups W and chunk
+# lengths L (a multiple of the kernel's 16-step batch and not; W = 4,096
+# with the two past it, where the gate admits it: L > W)
+PLL_CHUNK_EDGE_GS = (2, 4, 8)
+PLL_CHUNK_EDGE_WLS = {0: (48, 37), 7: (48, 37), 4096: (4112, 4099)}
+
+
+def compare_pll_chunked_edges(device="cuda",
+                              channels=(5, 40)) -> list[dict]:
+    """The chunked PLL kernel (``kernels/pll.py::pilot_pll_chunked``)
+    against its plain version at edge shapes, max abs error 0: C = 5 and
+    40 (lanes C * G not a multiple of its 8 lanes a block; flat arrays
+    whose length is not a multiple of its 16-step batch), G =
+    :data:`PLL_CHUNK_EDGE_GS`, each W of :data:`PLL_CHUNK_EDGE_WLS` with
+    its chunk lengths L (windows that start off the batch grid, chunks
+    whose kept range shares a batch with the next), two blocks with
+    carried state on a pilot track the loop locks on.  Returns one verdict
+    row per (C, G, W, L)."""
+    from fm_radio_tpu_torch.kernels import pll as kp
+    from fm_radio_tpu_torch.models.demod import INT8_CONFIG
+    from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
+
+    rows = []
+    for c in channels:
+        for g in PLL_CHUNK_EDGE_GS:
+            for w, ls in PLL_CHUNK_EDGE_WLS.items():
+                for l in ls:
+                    cfg = dataclasses.replace(INT8_CONFIG, pll_time_chunks=g,
+                                              pll_chunk_warmup=w)
+                    n = g * l
+                    if not kp.chunk_gate(cfg, n):
+                        raise RuntimeError(f"G = {g}, W = {w}, L = {l} fail "
+                                           f"the chunk gate")
+                    th = _pll_theta(c, 2 * n, seed=c + g + w + l,
+                                    device=device)
+                    st = pilot_pll_init_state(c, device)
+                    acc = {}
+                    for blk in range(2):
+                        a = (cfg, st, th[:, blk * n : (blk + 1) * n]
+                             .contiguous())
+                        kout = kp.pilot_pll_chunked(*a)
+                        pout = kp.pll_chunked_plain(*a)
+                        e = stage_errors("pll_chunked", kout, pout)
+                        dump_mismatch("pll_chunked", a, kout, pout, e)
+                        _merge(acc, "pll_chunked", e)
+                        st = kout[0]
+                    torch.cuda.synchronize(device)
+                    rows.append(dict(_verdict("pll_chunked",
+                                              acc["pll_chunked"]),
+                                     channels=c, chunks=g, warmup=w,
+                                     chunk_len=l, steps=n))
     return rows
 
 
@@ -2768,27 +2871,32 @@ def compare_extract_edges(device="cuda") -> dict:
 
 
 def pll_sass() -> dict:
-    """The sequential PLL kernel's SASS: each form's function saved as
-    chiprun_out/pll_sass_<form>.txt (the loop's dependent chain is read
-    from there, PERF.md), and its counts of the opcodes the steps run,
-    over the 64 steps of the unrolled loop body; {"error"} where the
-    toolkit has no cuobjdump."""
+    """The PLL kernels' SASS: each function (the sequential kernel's two
+    forms, the chunked kernel) saved as chiprun_out/pll_sass_<form>.txt
+    (the loop's dependent chain is read from there, PERF.md), and its
+    counts of the opcodes the steps run; {"error"} where the toolkit has
+    no cuobjdump."""
     sass, err = _sass("pll")
     if err:
         return {"error": err}
-    res = {}
+    res, usage = {}, _res_usage("pll")
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "pll_kernel" not in name or "chunked" in name:
+        if "pll_chunked_kernel" in name:
+            form = "chunked"
+        elif "pll_kernel" in name:
+            form = ("i16" if "IsE" in name.split("pll_kernel", 1)[1][:4]
+                    else "f32")
+        else:
             continue
-        form = "i16" if "IsE" in name.split("pll_kernel", 1)[1][:4] else "f32"
         os.makedirs(DUMP_DIR, exist_ok=True)
         with open(os.path.join(DUMP_DIR, f"pll_sass_{form}.txt"), "w") as f:
             f.write(part)
         ops = _opcodes(part)
         res[form] = {"function": name, "instructions": len(ops),
                      **{op: ops.count(op) for op in (
-                         "FADD", "FMUL", "FMNMX", "FRND", "LDG", "STG")}}
+                         "FADD", "FMUL", "FMNMX", "FRND", "LDG", "STG")},
+                     "res_usage": usage.get(name)}
     return res
 
 
@@ -3019,6 +3127,23 @@ def _sm_clock_hz() -> float:
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True)
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# clocks a dependent float32 instruction takes on this card: the PLL's
+# chain read from its SASS, 17 dependent instructions in 68 clocks a step
+# (PERF.md)
+DEP_CLOCKS = 4
+
+
+def peak_floor(n8: int) -> dict:
+    """The peak IIR recurrence's chain floor, ms (computed, not measured):
+    n8 steps of one biquad's dependent chain y1 * a1 -> f - . -> . - y2 *
+    a2, three float32 operations (-fmad=false) at DEP_CLOCKS each (the two
+    planes run side by side, the power's double sum beside them), at this
+    card's highest SM clock."""
+    hz = _sm_clock_hz()
+    return {"chain_floor_ms": n8 * 3 * DEP_CLOCKS / hz * 1e3, "steps": n8,
+            "sm_clock_hz": hz}
 
 
 def ds4_floors(x: torch.Tensor) -> dict:
@@ -3681,17 +3806,28 @@ def main() -> int:
     for r in wedge:
         log(f"[compare] matrix kernel edge: {json.dumps(r)}")
     medge = compare_mid_edges(dev)
+    try:
+        with _build.checked_build():
+            cm = compare_mid_edges(dev)
+    except RuntimeError as e:
+        raise RuntimeError(f"fused mid end edges on the bounds-checked "
+                           f"build: {e}")
+    medge["rows"] += [dict(r, build="checked") for r in cm["rows"]]
+    medge["route_mismatch"] += cm["route_mismatch"]
+    medge["not_fused"] += cm["not_fused"]
     for r in medge["rows"]:
         log(f"[compare] fused mid end edge: {json.dumps(r)}")
     sass = sass_counts()
     log(f"[build] channelizer_wgmma SASS: {json.dumps(sass)}; route "
-        f"mismatches {medge['route_mismatch']}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    bad = [r["name"] for r in wedge + medge["rows"] if not r["ok"]]
-    if bad or medge["route_mismatch"]:
+        f"mismatches {medge['route_mismatch']}; K2 calls off the fused "
+        f"route {medge['not_fused']}; {time.perf_counter() - t0:.1f} s")
+    bad = [(r["name"], r.get("form"), r.get("build")) for r in
+           wedge + medge["rows"] if not r["ok"]]
+    if bad or medge["route_mismatch"] or medge["not_fused"]:
         raise RuntimeError(f"edge shapes disagree {bad} or the mid end's "
                            f"route differs on the card "
-                           f"{medge['route_mismatch']}")
+                           f"{medge['route_mismatch']} or K2 left the fused "
+                           f"route {medge['not_fused']}")
     if "error" not in sass and not (
             sass["HGMMA"] and sass["IGMMA"] and not sass["IMMA"]
             and sass["UTMALDG"] + sass["UBLKCP"]):
@@ -3703,6 +3839,7 @@ def main() -> int:
     # checked), extract's other route, the PLL's and BPSK's SASS
     t0 = time.perf_counter()
     pedge = compare_pll_edges(dev)
+    pedge += compare_pll_chunked_edges(dev)
     eedge = compare_extract_edges(dev)
     bedge = compare_bpsk_edges(dev)
     try:
@@ -3711,6 +3848,8 @@ def main() -> int:
             # (PLL) and 2,048 (BPSK) steps ran on the default build
             pedge += [dict(r, build="checked")
                       for r in compare_pll_edges(dev, steps=(16, 32, 48))]
+            pedge += [dict(r, build="checked")
+                      for r in compare_pll_chunked_edges(dev)]
             ce = compare_extract_edges(dev)
             bedge += [dict(r, build="checked")
                       for r in compare_bpsk_edges(dev, steps=(16, 32, 48))]
@@ -3908,7 +4047,20 @@ def main() -> int:
     pc = chunked_pll_path(256, 1048576, 8, 4, dev)
     pc["launches"] = pc["g8"]["launches"]
     log(f"[pll_chunked] {json.dumps(pc)}")
+    pa = pc["pll_alone"]
+    steps, n_seq = (pa["serial_steps"][k] for k in ("chunked", "sequential"))
+    log(f"[pll_chunked] chain floor (computed, not measured): {steps} "
+        f"steps x the sequential kernel's "
+        f"{pa['sequential_ms'] / n_seq * 1e6:.2f} ns a step = "
+        f"{steps * pa['sequential_ms'] / n_seq:.4f} ms")
+    prof = profile_split(*PLL_CHUNKED_CELL, channels=256, block=1048576,
+                         device=dev)
+    log(f"[profile] {json.dumps(prof)}")
     log(f"[chain] [pll_chunked] {time.perf_counter() - t0:.1f} s")
+    if lacking(prof, (PLL_CHUNKED,)):
+        raise RuntimeError(f"the chunked-PLL cell's profile lacks "
+                           f"{PLL_CHUNKED}: "
+                           f"{list(prof['device_ms_per_block'])}")
     bad = [r["name"] for r in ch["compare"] + pc["compare"] if not r["ok"]]
     vs = ch["vs_split_f32w"]
     if bad or vs["audio"] != 0.0 or vs["state_before_rds_agc"] != 0.0:
@@ -3926,11 +4078,22 @@ def main() -> int:
         f"Msps, peak {i16c['peak_mib']:.0f} MiB; k12off "
         f"{cells['k12off']['ms_per_block']:.3f} ms/block, "
         f"{cells['k12off']['peak_mib']:.0f} MiB")
-    log(f"[profile] {json.dumps(profile_split(*I16_CELL, device=dev))}")
+    prof = profile_split(*I16_CELL, device=dev)
+    log(f"[profile] {json.dumps(prof)}")
     log(f"[i16] {time.perf_counter() - t0:.1f} s")
+    log(f"[i16] the peak IIR's chain floor (computed, not measured; the "
+        f"float32 and int16 mid end alike): "
+        f"{json.dumps(peak_floor(i16c['bound']['midend_i16']['serial_steps']))}")
     bad = [r["name"] for r in i16c["compare"] if not r["ok"]]
     if bad:
         raise RuntimeError(f"int16 kernels disagree at the i16 cell: {bad}")
+    # K2 in int16 on the fused route: its three kernels, none of the
+    # launches route's
+    gone = [k for k in MID_LAUNCHES if not lacking(prof, (k,))]
+    if lacking(prof, FUSED_KERNELS) or gone:
+        raise RuntimeError(f"the i16 cell's profile lacks "
+                           f"{lacking(prof, FUSED_KERNELS)} or shows {gone}: "
+                           f"{list(prof['device_ms_per_block'])}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
@@ -4156,7 +4319,12 @@ def main() -> int:
             k.update(ms_by_cell={c: cells[c]["kernel_ms"]["midend"]
                                  for c in cells})
         if n == "pll_chunked":
-            k.update(pll_alone=pc["pll_alone"])
+            k.update(pll_alone=pc["pll_alone"],
+                     sass=psass.get("chunked", psass),
+                     edge_shapes=[r for r in pedge if r["name"] == n])
+        if n == "midend_i16":
+            k.update(edge_shapes=[r for r in medge["rows"]
+                                  if r["name"] == n])
         if n in ("channelizer_i8mat", "channelizer_bf16mat"):
             mr = next(r for r in mrows if r["name"] == n)
             cell = home[n]
@@ -4173,7 +4341,7 @@ def main() -> int:
                          plain_ms_bench_input=wb_i8_bench["plain_ms"][n])
         if n in I16_BASE and n != "extract_i16_f32dt":
             k.update(float_twin_ms=i16c["float_twin_ms"][I16_BASE[n]])
-        if n in ("k12", "k12_ps", "midend"):
+        if n in ("k12", "k12_ps", "midend", "midend_i16"):
             # the mid end's fused route: its launches on the kernel's path
             # (each also counted by the kernel)
             k["launches_fused_route"] = home[n]["launches"]["midend_fused"]

@@ -18,9 +18,9 @@
 // step (pll_step.cuh), the mix and the five FIRs (extract_stages.cuh).
 // Each output sums its window in the same order as the split kernels, the
 // serial stages run their steps in time order across the tiles, and the
-// pilot power is summed in double in time order, as k12_peak_kernel sums
-// it: so the chain equals the split path with float taps (K1 -> K2 -> PLL
-// -> extract) bit for bit, outputs and state.
+// pilot power is summed in double in time order, as k12_peak_rec_kernel
+// sums it: so the chain equals the split path with float taps (K1 -> K2 ->
+// PLL -> extract) bit for bit, outputs and state.
 //
 // Design.  One launch per block; each CTA owns kChCh = 4 channels (half
 // the gate's channel multiple of 8, chain_pallas.py:237-250) and walks the

@@ -81,13 +81,14 @@ constexpr float kInvTwoPi = 0x1.45f306p-3f;
 
 constexpr int kThreads = 256;
 
-// Serial kernels run one thread per channel, one warp of channels per block
-// (64 blocks at C = 2048: the chunked PLL; the sequential PLL and the peak
-// IIR's recurrence run 8 channels a block, BPSK 4).  Each loads the next
+// Serial kernels run one thread per channel (or per chunk and channel:
+// the chunked PLL), a few a block (the PLLs and the peak IIR's recurrence
+// 8, BPSK 4; the de-emphasis a warp of 32).  Each loads the next
 // kBatch steps of its row into registers ahead: the loads do not depend on
 // the recurrence, so their latency is paid once per batch instead of once
 // per step.  Their step counts must be multiples of kBatch (the C entries
-// check).
+// check), but the chunked PLL's, which masks its lanes' first and last
+// batch.
 constexpr int kSerialThreads = 32;
 constexpr int kBatch = 16;
 
@@ -194,6 +195,16 @@ __device__ __forceinline__ void store_i16_batch(int16_t* __restrict__ p,
   uint4* d = (uint4*)(p + i0);
   d[0] = make_uint4(w[0], w[1], w[2], w[3]);
   d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// four float32 values as q_i16 at `scale`, packed for one 8-byte store
+// (the fused mid end's int16 re, im and theta)
+__device__ __forceinline__ uint2 q_i16x4(const float (&v)[4], float scale) {
+  return make_uint2(
+      (uint32_t)(uint16_t)q_i16(v[0], scale) |
+          ((uint32_t)(uint16_t)q_i16(v[1], scale) << 16),
+      (uint32_t)(uint16_t)q_i16(v[2], scale) |
+          ((uint32_t)(uint16_t)q_i16(v[3], scale) << 16));
 }
 
 // The batches of a serial kernel's row (the peak IIR's recurrence in

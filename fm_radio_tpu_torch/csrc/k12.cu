@@ -36,10 +36,10 @@
 //   re, im, theta out.
 // - With de-emphasis on (a serial stage between ds x2 and Hilbert) the
 //   launches route runs: discriminator, ds x2, de-emphasis (one thread a
-//   channel, kBatch steps loaded at once), Hilbert, peak IIR with theta,
-//   the intermediates in device memory; staging those serial loops'
-//   tiles through shared memory with barriers was measured slower
-//   (PERF.md).
+//   channel, kBatch steps loaded at once), Hilbert, then the fused route's
+//   peak IIR recurrence and theta pass, the intermediates in device
+//   memory; staging those serial loops' tiles through shared memory with
+//   barriers was measured slower (PERF.md).
 //
 // The stages are shared with the split path through k12_stages.cuh: its
 // ds x4 + discriminator are K1's int8-direct entry (frontend.cu) and its
@@ -258,10 +258,10 @@ using namespace fmt;
 // e = 0..nn1/4-1), nn1 % 16 == 0.  Both: prev_theta [C]; w2_rev [nn2],
 // tail2 [C, nn2-2]; de_st_* [C, 2]; wh_rev [nh], htail [C, nh-1]; pk_st_*
 // [C, 8]; scratch theta1 [C, B/4]; outputs re, im, theta [C, B/8], power
-// [C].  By midend_route (k12_stages.cuh): on the fused route the scratch
-// yi [C, B/8] and the output tails [C, (nn2-2) + (nh-1)] (the new ds x2 and
+// [C]; the scratch yi [C, B/8].  By midend_route (k12_stages.cuh): on the
+// fused route the output tails [C, (nn2-2) + (nh-1)] (the new ds x2 and
 // Hilbert tails), fmd and fm_out unused (may be null); on the launches
-// route the scratch fmd [C, B/4] and fm_out [C, B/8], yi and tails unused.
+// route the scratch fmd [C, B/4] and fm_out [C, B/8], tails unused.
 extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        const int8_t* b1, const int8_t* b2, int nn1,
                        float s_row, const float* prev_theta, float scale,
@@ -275,9 +275,10 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        float* fmd, float* fm_out, float* re, float* im,
                        float* theta, float* power, float* yi, float* tails,
                        cudaStream_t stream) {
-  const int route = midend_route(0, 0, use_deemph, nn2, nh, b / 4);
+  const int route = midend_route(use_deemph, nn2, nh, b / 4);
   if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0 ||
-      (route == kMidFused ? yi == nullptr || tails == nullptr
+      yi == nullptr ||
+      (route == kMidFused ? tails == nullptr
                           : fmd == nullptr || fm_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -288,7 +289,8 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
     return launch_mid_fused<true>(theta1, prev_theta, scale, w2_rev, tail2,
                                   wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
                                   pk_a2, pk_st_in, pk_st_out, channels, b / 4,
-                                  re, im, theta, yi, tails, power, stream);
+                                  re, im, theta, yi, tails, power, nullptr,
+                                  nullptr, nullptr, stream);
   }
   const int err = launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd,
                               stream);
@@ -297,5 +299,5 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0,
                        pk_b1, pk_b2, pk_a1, pk_a2, pk_st_in, pk_st_out,
                        channels, b / 4, fm_out, re, im, theta, nullptr,
-                       nullptr, nullptr, power, stream);
+                       nullptr, nullptr, power, stream, yi);
 }

@@ -14,11 +14,13 @@
 //   k12_disc_kernel       the discriminator (frontend_pallas.py:196-209)
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
 //                         pilot power (midend_pallas.py::_midend_body :119),
-//                         by midend_route: fused (launch_mid_fused: one
-//                         tiled kernel for [discriminator ->] ds x2 ->
-//                         Hilbert, the peak IIR cut to its recurrence, a
-//                         parallel theta pass) with de-emphasis off in
-//                         float32, else one launch per stage
+//                         float32 or the int16 format, by midend_route:
+//                         fused (launch_mid_fused: one tiled kernel for
+//                         [discriminator ->] ds x2 -> Hilbert) with
+//                         de-emphasis off, else one launch per stage up to
+//                         Hilbert; both then run the peak IIR cut to its
+//                         recurrence and a parallel theta pass
+//                         (launch_peak_theta)
 //
 // The per-sample formulas (disc_value, deemph_step, peak_step) are device
 // functions that the full-chain megakernel (chain.cu) evaluates too, tile
@@ -458,9 +460,10 @@ __global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
   FMT_AT(st_out, 2 * c + 1, 2 * channels) = y1;
 }
 
-// Hilbert: im = nh-tap FIR, re = input delayed by (nh - 1)/2, written as
-// float32 (the peak IIR reads them); with kI16 also as q_i16 at kIqScale
-// into re16, im16 (K2's out_i16 stores, midend_pallas.py:254-256)
+// Hilbert (the launches route): im = nh-tap FIR, re = input delayed by
+// (nh - 1)/2, written as float32 (the peak IIR reads them); with kI16 also
+// as q_i16 at kIqScale into re16, im16 (K2's out_i16 stores,
+// midend_pallas.py:254-256)
 template <bool kI16>
 __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
                                    const float* __restrict__ htail,
@@ -489,52 +492,7 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
   }
 }
 
-// order-2 peak IIR (peak_step) on both planes, one thread per channel;
-// theta = atan2(yi, yr) / 2pi; power summed in double, in time order.
-// state per channel: re (x1, x2, y1, y2), im (x1, x2, y1, y2)
-__global__ void k12_peak_kernel(const float* __restrict__ re,
-                                const float* __restrict__ im, int n,
-                                int channels, float b0, float b1, float b2,
-                                float a1, float a2,
-                                const float* __restrict__ st_in,
-                                float* __restrict__ st_out,
-                                float* __restrict__ theta,
-                                float* __restrict__ power) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  const int ns = 8 * channels;  // state floats
-  const int s0 = 8 * c;
-  Peak2 pr{FMT_AT(st_in, s0, ns), FMT_AT(st_in, s0 + 1, ns),
-           FMT_AT(st_in, s0 + 2, ns), FMT_AT(st_in, s0 + 3, ns)};
-  Peak2 pi{FMT_AT(st_in, s0 + 4, ns), FMT_AT(st_in, s0 + 5, ns),
-           FMT_AT(st_in, s0 + 6, ns), FMT_AT(st_in, s0 + 7, ns)};
-  const float* xr = re + (int64_t)c * n;
-  const float* xi = im + (int64_t)c * n;
-  float* th = theta + (int64_t)c * n;
-  double pw = 0.0;
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    float br[kBatch], bi[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      br[u] = FMT_AT(xr, i0 + u, n);
-      bi[u] = FMT_AT(xi, i0 + u, n);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const float yr = peak_step(pr, br[u], b0, b1, b2, a1, a2);
-      const float yi = peak_step(pi, bi[u], b0, b1, b2, a1, a2);
-      FMT_AT(th, i0 + u, n) = atan2_poly(yi, yr) * kInvTwoPi;
-      pw += (double)(yr * yr + yi * yi);
-    }
-  }
-  const float out[8] = {pr.x1, pr.x2, pr.y1, pr.y2,
-                        pi.x1, pi.x2, pi.y1, pi.y2};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) FMT_AT(st_out, s0 + k, ns) = out[k];
-  FMT_AT(power, c, channels) = (float)pw;
-}
-
-// ---- The mid end's fused route (de-emphasis off, float32 in and out) ----
+// ---- The mid end's fused route (de-emphasis off) ----
 //
 // k12_mid_fused_kernel runs discriminator (K12) -> ds x2 -> Hilbert for one
 // channel and one tile of kMidTile re/im outputs per CTA, with fm_demod
@@ -542,6 +500,13 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
 // tile of a channel, the two carried tails) leave the CTA.  Each FIR output
 // is the same sum, in the same tap order, as fir_point computes it, so the
 // route equals the launches route (and the plain version) bit for bit.
+// In the int16 format (K2's in_i16 / out_i16, midend_pallas.py:246,
+// :254-257) fm_demod is staged from int16, dequantised as
+// fir_decimate_kernel<int16_t> dequantises it (half the source bytes), and
+// the carried ds x2 tail is the dequantised value; with the int16 outputs
+// the epilogue stores re and im as float32 scratch (the peak IIR runs on
+// the unquantised values) and as q_i16 at kIqScale, one 8-byte store a
+// plane, and the theta pass stores theta as q_i16 at kPhScale.
 // The FIRs are register-blocked: a thread computes kDs2Outs (ds x2) or
 // kHilbOuts (Hilbert) neighbouring outputs and slides one window of
 // samples through registers, so each tap costs one shared-memory load per
@@ -549,10 +514,10 @@ __global__ void k12_peak_kernel(const float* __restrict__ re,
 // start 2 kDs2Outs or kHilbOuts samples apart; the planes are stored
 // skewed (one pad word every 32) so those loads fall in distinct banks.
 // k12_peak_rec_kernel is the peak IIR cut to its recurrence: the two
-// biquads and the pilot power (in double, in time order, as
-// k12_peak_kernel and the megakernel sum it), the filtered planes stored
-// 16 steps at a time; k12_theta_kernel then takes theta = atan2 / 2 pi of
-// them in parallel, the same float32 operations as k12_peak_kernel.
+// biquads and the pilot power (in double, in time order, as the
+// megakernel sums it), the filtered planes stored 16 steps at a time;
+// k12_theta_kernel then takes theta = atan2 / 2 pi of them in parallel.
+// The launches route ends with the same two launches.
 constexpr int kMidTile = 1024;   // re/im outputs a CTA of the fused kernel
 constexpr int kMidThreads = 256;
 constexpr int kDs2Outs = 8;      // ds x2 outputs a thread
@@ -563,20 +528,27 @@ constexpr int kFusedNn2 = 64;
 constexpr int kFusedNh = 65;
 
 // The mid end's route (kernels/midend.py::midend_route is its host copy):
-// the fused kernels where the stages between ds x2 and the peak IIR run in
-// float32 with de-emphasis off, the filters have the orders the fused
-// kernel is built for and the block holds both carried tails; else the
-// launches (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel,
-// k12_peak_kernel, q_i16_kernel).
+// the fused kernel where de-emphasis is off, the filters have the orders
+// the fused kernel is built for and the block holds both carried tails,
+// in float32 and in every int16 form alike; else the launches
+// (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel).  Both
+// routes end with launch_peak_theta.
 enum MidRoute { kMidLaunches = 0, kMidFused = 1 };
 
-inline int midend_route(int in_i16, int out_i16, int use_deemph, int nn2,
-                        int nh, int n4) {
-  if (in_i16 || out_i16 || use_deemph || nn2 != kFusedNn2 ||
-      nh != kFusedNh || n4 < nn2 - 2 || n4 / 2 < nh - 1) {
+inline int midend_route(int use_deemph, int nn2, int nh, int n4) {
+  if (use_deemph || nn2 != kFusedNn2 || nh != kFusedNh || n4 < nn2 - 2 ||
+      n4 / 2 < nh - 1) {
     return kMidLaunches;
   }
   return kMidFused;
+}
+
+// the fused kernel's source sample as float32: theta1 or float32 fm_demod
+// as loaded, int16 fm_demod dequantised at kFmScale (as load_f32 does for
+// fir_decimate_kernel<int16_t>)
+__device__ __forceinline__ float mid_src(float v) { return v; }
+__device__ __forceinline__ float mid_src(int16_t v) {
+  return dq_i16(v, kFmScale);
 }
 
 // one tap of the register-blocked ds x2: acc[r] += w * v[r], then, unless
@@ -594,21 +566,26 @@ __device__ __forceinline__ void ds2_tap(float (&acc)[kDs2Outs],
   }
 }
 
-// src: theta1 [C, n4] (kFromTheta: the discriminator runs here, with
-// prev_theta [C]) or fm_demod [C, n4] float32.  tails [C, (NN2 - 2) +
-// (NH - 1)]: the new ds x2 tail (the last NN2 - 2 fm_demod samples) then
-// the new Hilbert tail (the last NH - 1 fm_out samples), written by each
-// channel's last tile.
-template <bool kFromTheta, int NN2, int NH>
+// src: theta1 [C, n4] float32 (kFromTheta: the discriminator runs here,
+// with prev_theta [C]) or fm_demod [C, n4], float32 or int16 at kFmScale
+// (In).  re, im [C, n4/2] float32; with kOut16 also re16, im16 [C, n4/2]
+// int16 at kIqScale.  tails [C, (NN2 - 2) + (NH - 1)]: the new ds x2 tail
+// (the last NN2 - 2 fm_demod samples, dequantised) then the new Hilbert
+// tail (the last NH - 1 fm_out samples), written by each channel's last
+// tile.
+template <bool kFromTheta, class In, bool kOut16, int NN2, int NH>
 __global__ void __launch_bounds__(kMidThreads)
-k12_mid_fused_kernel(const float* __restrict__ src,
+k12_mid_fused_kernel(const In* __restrict__ src,
                      const float* __restrict__ prev_theta, float scale,
                      const float* __restrict__ w2_rev,
                      const float* __restrict__ tail2,
                      const float* __restrict__ wh_rev,
                      const float* __restrict__ htail, int n4,
                      float* __restrict__ re, float* __restrict__ im,
+                     int16_t* __restrict__ re16, int16_t* __restrict__ im16,
                      float* __restrict__ tails) {
+  static_assert(!kFromTheta || sizeof(In) == sizeof(float),
+                "theta1 is float32");
   constexpr int H2 = NN2 - 2, HH = NH - 1, D = (NH - 1) / 2;
   constexpr int NF = kMidTile + HH;  // fm_out window: tile + Hilbert halo
   constexpr int NFP = (NF + kDs2Outs - 1) / kDs2Outs * kDs2Outs;
@@ -629,7 +606,7 @@ k12_mid_fused_kernel(const float* __restrict__ src,
   const int nf = nt + HH;                 // fm_out values it needs
   const int j0 = 2 * (i0 - HH) - H2;      // fmd index of s_u[0]
   const int nu = 2 * nf + H2;             // fmd values they read
-  const float* x = src + (int64_t)c * n4;
+  const In* x = src + (int64_t)c * n4;
   for (int k = threadIdx.x; k < NN2; k += kMidThreads)
     s_w2[k] = FMT_AT(w2_rev, k, NN2);
   for (int k = threadIdx.x; k < NH; k += kMidThreads)
@@ -637,13 +614,13 @@ k12_mid_fused_kernel(const float* __restrict__ src,
 
   // the source over the window, every load of a thread issued before any
   // is used (kFromTheta: one sample more, the discriminator's first
-  // previous one, staged in s_t)
-  float raw[NLOAD];
+  // previous one, staged in s_t; int16 is dequantised where it is used)
+  In raw[NLOAD];
 #pragma unroll
   for (int k = 0; k < NLOAD; ++k) {
     const int b = threadIdx.x + k * kMidThreads;  // source j0 - OFF + b
     const int j = j0 - OFF + b;
-    raw[k] = b < nu + OFF && j >= 0 ? FMT_AT(x, j, n4) : 0.0f;
+    raw[k] = b < nu + OFF && j >= 0 ? FMT_AT(x, j, n4) : In(0);
   }
   if constexpr (kFromTheta) {
 #pragma unroll
@@ -668,7 +645,7 @@ k12_mid_fused_kernel(const float* __restrict__ src,
             j == 0 ? FMT_AT(prev_theta, c, gridDim.y) : s_t[b];
         v = disc_value(s_t[b + 1], prev, scale);
       } else {
-        v = raw[k];
+        v = mid_src(raw[k]);
       }
       if (last && j >= n4 - H2)
         FMT_AT(tails, (int64_t)c * (H2 + HH) + j - (n4 - H2),
@@ -754,6 +731,14 @@ k12_mid_fused_kernel(const float* __restrict__ src,
     *reinterpret_cast<float4*>(im + o) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
     *reinterpret_cast<float4*>(re + o) = make_float4(d[0], d[1], d[2], d[3]);
+    if constexpr (kOut16) {
+#ifdef FMT_CHECKED
+      FMT_AT(im16, o + 3, (int64_t)gridDim.y * n8);
+      FMT_AT(re16, o + 3, (int64_t)gridDim.y * n8);
+#endif
+      *reinterpret_cast<uint2*>(im16 + o) = q_i16x4(acc, kIqScale);
+      *reinterpret_cast<uint2*>(re16 + o) = q_i16x4(d, kIqScale);
+    }
   }
 }
 
@@ -847,31 +832,67 @@ k12_peak_rec_kernel(const float* __restrict__ re, const float* __restrict__ im,
   FMT_AT(power, c, channels) = (float)pw;
 }
 
-// theta[i] = atan2_poly(yi[i], yr[i]) / 2 pi for i < n, in place over yr
-// (which theta aliases), four a thread (n % 4 == 0)
-__global__ void k12_theta_kernel(float* __restrict__ theta,
-                                 const float* __restrict__ yi, int64_t n) {
+// theta[i] = atan2_poly(yi[i], yr[i]) / 2 pi for i < n, four a thread
+// (n % 4 == 0): in place over yr (float32), or with kI16 stored as q_i16
+// at kPhScale into theta16 (the int16 format's theta: the same float32
+// operations, then the format's rounding, one 8-byte store)
+template <bool kI16>
+__global__ void k12_theta_kernel(float* __restrict__ yr,
+                                 const float* __restrict__ yi,
+                                 int16_t* __restrict__ theta16, int64_t n) {
   const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= n) return;
 #ifdef FMT_CHECKED
-  FMT_AT(theta, i + 3, n);
+  FMT_AT(yr, i + 3, n);
   FMT_AT(yi, i + 3, n);
+  if constexpr (kI16) FMT_AT(theta16, i + 3, n);
 #endif
-  const float4 r = *reinterpret_cast<const float4*>(theta + i);
+  const float4 r = *reinterpret_cast<const float4*>(yr + i);
   const float4 q = *reinterpret_cast<const float4*>(yi + i);
-  *reinterpret_cast<float4*>(theta + i) =
-      make_float4(atan2_poly(q.x, r.x) * kInvTwoPi,
-                  atan2_poly(q.y, r.y) * kInvTwoPi,
-                  atan2_poly(q.z, r.z) * kInvTwoPi,
-                  atan2_poly(q.w, r.w) * kInvTwoPi);
+  const float t[4] = {atan2_poly(q.x, r.x) * kInvTwoPi,
+                      atan2_poly(q.y, r.y) * kInvTwoPi,
+                      atan2_poly(q.z, r.z) * kInvTwoPi,
+                      atan2_poly(q.w, r.w) * kInvTwoPi};
+  if constexpr (kI16) {
+    *reinterpret_cast<uint2*>(theta16 + i) = q_i16x4(t, kPhScale);
+  } else {
+    *reinterpret_cast<float4*>(yr + i) = make_float4(t[0], t[1], t[2], t[3]);
+  }
 }
 
-// The fused route after fm_demod (K2: src = fmd) or after ds x4 + atan2
-// (K12: src = theta1, kFromTheta): the fused kernel -> re, im and the
-// tails; the recurrence -> yr (in theta), yi (scratch), power and the peak
-// state; the theta pass.
-template <bool kFromTheta>
-inline int launch_mid_fused(const float* src, const float* prev_theta,
+// The end of both routes: the peak IIR's recurrence on re, im [C, n8] ->
+// yr (into theta), yi (scratch), the pilot power [C] and the peak state;
+// then the theta pass, in place over theta, or into theta16 (the int16
+// format; theta is then scratch too).
+inline int launch_peak_theta(const float* re, const float* im, int channels,
+                             int n8, float pk_b0, float pk_b1, float pk_b2,
+                             float pk_a1, float pk_a2, const float* pk_st_in,
+                             float* pk_st_out, float* theta, float* yi,
+                             float* power, int16_t* theta16,
+                             cudaStream_t stream) {
+  k12_peak_rec_kernel<<<blocks_for(channels, kPeakLanes), kPeakLanes, 0,
+                        stream>>>(re, im, n8, channels, pk_b0, pk_b1, pk_b2,
+                                  pk_a1, pk_a2, pk_st_in, pk_st_out, theta,
+                                  yi, power);
+  FMT_CHECK_LAUNCH();
+  const int64_t t8 = (int64_t)channels * n8;
+  if (theta16 != nullptr) {
+    k12_theta_kernel<true><<<blocks_for(t8 / 4), kThreads, 0, stream>>>(
+        theta, yi, theta16, t8);
+  } else {
+    k12_theta_kernel<false><<<blocks_for(t8 / 4), kThreads, 0, stream>>>(
+        theta, yi, nullptr, t8);
+  }
+  FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// The fused route after fm_demod (K2: src = fmd, float32 or int16) or after
+// ds x4 + atan2 (K12: src = theta1, kFromTheta): the fused kernel -> re, im
+// (and, given re16, im16 and theta16, the int16 outputs) and the tails;
+// then launch_peak_theta.
+template <bool kFromTheta, class In>
+inline int launch_mid_fused(const In* src, const float* prev_theta,
                             float scale, const float* w2_rev,
                             const float* tail2, const float* wh_rev,
                             const float* htail, float pk_b0, float pk_b1,
@@ -879,37 +900,28 @@ inline int launch_mid_fused(const float* src, const float* prev_theta,
                             const float* pk_st_in, float* pk_st_out,
                             int channels, int n4, float* re, float* im,
                             float* theta, float* yi, float* tails,
-                            float* power, cudaStream_t stream) {
+                            float* power, int16_t* re16, int16_t* im16,
+                            int16_t* theta16, cudaStream_t stream) {
   const int n8 = n4 / 2;
   const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
                   (unsigned)channels);
-  k12_mid_fused_kernel<kFromTheta, kFusedNn2, kFusedNh>
-      <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
-                                         tail2, wh_rev, htail, n4, re, im,
-                                         tails);
+  if (re16 == nullptr) {
+    k12_mid_fused_kernel<kFromTheta, In, false, kFusedNn2, kFusedNh>
+        <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
+                                           tail2, wh_rev, htail, n4, re, im,
+                                           nullptr, nullptr, tails);
+  } else if constexpr (!kFromTheta) {
+    k12_mid_fused_kernel<false, In, true, kFusedNn2, kFusedNh>
+        <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
+                                           tail2, wh_rev, htail, n4, re, im,
+                                           re16, im16, tails);
+  } else {
+    return (int)cudaErrorInvalidValue;  // K12 stores float32
+  }
   FMT_CHECK_LAUNCH();
-  k12_peak_rec_kernel<<<blocks_for(channels, kPeakLanes), kPeakLanes, 0,
-                        stream>>>(re, im, n8, channels, pk_b0, pk_b1, pk_b2,
-                                  pk_a1, pk_a2, pk_st_in, pk_st_out, theta,
-                                  yi, power);
-  FMT_CHECK_LAUNCH();
-  const int64_t t8 = (int64_t)channels * n8;
-  k12_theta_kernel<<<blocks_for(t8 / 4), kThreads, 0, stream>>>(theta, yi,
-                                                                  t8);
-  FMT_CHECK_LAUNCH();
-  return 0;
-}
-
-// q[i] = q_i16(x[i], scale) for i < n: the int16 format's store of a plane
-// that a serial kernel wrote as float32 (K2's theta: the peak IIR storing
-// int16 itself, one 2-byte store per step or 16 at a time, was measured
-// 0.2-0.65 ms slower per bench block than its float32 store plus this
-// pass, PERF.md)
-__global__ void q_i16_kernel(const float* __restrict__ x,
-                             int16_t* __restrict__ q, int64_t n,
-                             float scale) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) FMT_AT(q, i, n) = q_i16(FMT_AT(x, i, n), scale);
+  return launch_peak_theta(re, im, channels, n8, pk_b0, pk_b1, pk_b2, pk_a1,
+                           pk_a2, pk_st_in, pk_st_out, theta, yi, power,
+                           theta16, stream);
 }
 
 // The discriminator over theta1 [C, n4] -> fmd [C, n4] (float32 or int16).
@@ -924,17 +936,18 @@ inline int launch_disc(const float* theta1, const float* prev_theta,
   return 0;
 }
 
-// The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised by
-// the ds x2's loads), by midend_route:
+// The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised
+// where it is loaded), by midend_route:
 // - fused (launch_mid_fused): re, im, the carried tails into tails
 //   [C, (nn2 - 2) + (nh - 1)], theta and the pilot power; yi [C, n4/2] is
 //   scratch, fm_out unused;
-// - launches: ds x2 into fm_out [C, n4/2] (scratch), the optional
-//   de-emphasis in place, Hilbert -> re, im, and the peak IIR -> theta
-//   [C, n4/2] and the pilot power [C], all float32.  Given re16 (the int16
-//   format's outputs re16, im16, theta16), the Hilbert launch also writes
-//   re16, im16 at kIqScale and q_i16_kernel theta16 at kPhScale from
-//   theta; re, im and theta are then scratch.  yi and tails unused.
+// - launches: ds x2 into fm_out [C, n4/2] (scratch, whose last samples
+//   the host keeps as the Hilbert tail), the optional de-emphasis in
+//   place, Hilbert -> re, im, then launch_peak_theta with the scratch yi
+//   [C, n4/2]; tails unused.
+// Given re16 (the int16 format's outputs re16, im16, theta16), both routes
+// write them (re16, im16 at kIqScale, theta16 at kPhScale) and re, im and
+// theta are float32 scratch; else re, im, theta are the outputs.
 // n4/2 % kBatch == 0.
 template <class In>
 inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
@@ -947,19 +960,16 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          int channels, int n4, float* fm_out, float* re,
                          float* im, float* theta, int16_t* re16,
                          int16_t* im16, int16_t* theta16, float* power,
-                         cudaStream_t stream, float* yi = nullptr,
+                         cudaStream_t stream, float* yi,
                          float* tails = nullptr) {
-  if constexpr (sizeof(In) == sizeof(float)) {
-    if (midend_route(0, re16 != nullptr, use_deemph, nn2, nh, n4) ==
-        kMidFused) {
-      if (yi == nullptr || tails == nullptr)
-        return (int)cudaErrorInvalidValue;
-      return launch_mid_fused<false>(fmd, nullptr, 1.0f, w2_rev, tail2,
-                                     wh_rev, htail, pk_b0, pk_b1, pk_b2,
-                                     pk_a1, pk_a2, pk_st_in, pk_st_out,
-                                     channels, n4, re, im, theta, yi, tails,
-                                     power, stream);
-    }
+  if (yi == nullptr) return (int)cudaErrorInvalidValue;
+  if (midend_route(use_deemph, nn2, nh, n4) == kMidFused) {
+    if (tails == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_mid_fused<false>(fmd, nullptr, 1.0f, w2_rev, tail2, wh_rev,
+                                   htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
+                                   pk_st_in, pk_st_out, channels, n4, re, im,
+                                   theta, yi, tails, power, re16, im16,
+                                   theta16, stream);
   }
   const int n8 = n4 / 2;
   const int64_t t8 = (int64_t)channels * n8;
@@ -980,17 +990,9 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
         fm_out, htail, wh_rev, nh, channels, n8, re, im, nullptr, nullptr);
   }
   FMT_CHECK_LAUNCH();
-  k12_peak_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads, 0,
-                    stream>>>(re, im, n8, channels, pk_b0, pk_b1, pk_b2,
-                              pk_a1, pk_a2, pk_st_in, pk_st_out, theta,
-                              power);
-  FMT_CHECK_LAUNCH();
-  if (re16 != nullptr) {
-    q_i16_kernel<<<blocks_for(t8), kThreads, 0, stream>>>(theta, theta16, t8,
-                                                          kPhScale);
-    FMT_CHECK_LAUNCH();
-  }
-  return 0;
+  return launch_peak_theta(re, im, channels, n8, pk_b0, pk_b1, pk_b2, pk_a1,
+                           pk_a2, pk_st_in, pk_st_out, theta, yi, power,
+                           theta16, stream);
 }
 
 }  // namespace fmt

@@ -13,9 +13,10 @@
 //               its re is each tile of the ds x2 output rotated by the
 //               delay: re[u] = fm_out[u - d] within the tile, the first d
 //               from the tile's own last d.  The port reproduces that.
-//   full        the production K2 (launch_midend of k12_stages.cuh: ds x2,
-//               serial de-emphasis, Hilbert, serial peak IIR + theta +
-//               power), on the probe's coefficients and zero state
+//   full        the production K2 (launch_midend of k12_stages.cuh, its
+//               launches route: ds x2, serial de-emphasis, Hilbert, the
+//               peak IIR's recurrence + power, the theta pass), on the
+//               probe's coefficients and zero state
 //   restruct:li[:stk]
 //               the de-emphasis and the peak IIR as block-Toeplitz
 //               recurrences (k2_deemph_block_kernel, k2_peak_block_kernel):
@@ -262,7 +263,10 @@ extern "C" int fmt_k2_engine(const float* x, int mode, int channels, int n4,
 // full: the production mid end (launch_midend, de-emphasis on) on zero
 // state (zeros as above: the tails and the IIR states in).  de = {b0, b1,
 // a1}, pk = {b0, b1, b2, a1, a2} (host arrays); de_out [C, 2], pk_out
-// [C, 8] the states out (scratch); re, im, theta [C, n4/2]; power [C].
+// [C, 8] the states out (scratch); fm_out [C, n4/2] scratch, which the
+// peak IIR's recurrence also takes as its yi once Hilbert has read it (the
+// probe carries no state, so nothing reads fm_out's tail after); re, im,
+// theta [C, n4/2]; power [C].
 extern "C" int fmt_k2_full(const float* x, int channels, int n4,
                            const float* w2_rev, int nn2, const float* wh_rev,
                            int nh, const float* zeros, const float* de,
@@ -273,7 +277,8 @@ extern "C" int fmt_k2_full(const float* x, int channels, int n4,
   return launch_midend(x, w2_rev, nn2, zeros, 1, de[0], de[1], de[2], zeros,
                        de_out, wh_rev, nh, zeros, pk[0], pk[1], pk[2], pk[3],
                        pk[4], zeros, pk_out, channels, n4, fm_out, re, im,
-                       theta, nullptr, nullptr, nullptr, power, stream);
+                       theta, nullptr, nullptr, nullptr, power, stream,
+                       fm_out);
 }
 
 // restruct: ds x2 (fir_decimate_kernel) -> block de-emphasis in place ->

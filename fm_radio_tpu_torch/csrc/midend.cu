@@ -9,27 +9,26 @@
 // This is K12's mid end (k12.cu), shared through k12_stages.cuh: one copy
 // of the device code, so the split path's K1 + K2 equal K12 bit for bit.
 // launch_midend picks the route (midend_route, exported as
-// fmt_midend_route): float32 in and out with de-emphasis off takes the
-// fused route (ds x2 and Hilbert in one tiled kernel with fm_out in shared
-// memory, the peak IIR cut to its recurrence, a parallel theta pass);
-// the de-emphasis and the int16 format keep one launch per stage.  What
-// bounds each and what the design does about it is noted in k12.cu.
+// fmt_midend_route): with de-emphasis off, in float32 and in every int16
+// form, the fused route (ds x2 and Hilbert in one tiled kernel with fm_out
+// in shared memory); with de-emphasis on, one launch per stage up to
+// Hilbert.  Both end with the peak IIR cut to its recurrence and a parallel
+// theta pass.  What bounds each and what the design does about it is noted
+// in k12.cu and k12_stages.cuh.
 //
 // The int16 inter-stage format (interstage_i16; the TPU kernel's in_i16
 // :246 and out_i16 :254-257): fm_demod may arrive as int16 at 2^15, which
-// the ds x2's loads dequantise (no separate dequantising pass: halving
+// the loads of the ds x2 dequantise (no separate dequantising pass: halving
 // those bytes is the format's purpose); with the int16 outputs, re and im
 // leave as int16 at 2^14 and theta at 2^16.  The de-emphasis, the Hilbert
 // FIR, the peak IIR and the power sum run on float32 values as before: the
-// Hilbert launch writes re/im as float32 scratch, which the serial peak IIR
-// reads, and quantised, coalesced, as the outputs; the peak IIR writes
-// theta as float32 scratch and a parallel pass (q_i16_kernel) quantises it.
-// The serial peak IIR storing int16 itself was measured slower (PERF.md).
-// Bytes per output sample n8 (C * B/8 of them), float32 -> int16 format:
-// ds x2 reads 8 -> 4 and writes 4; Hilbert reads 4 and writes 8 -> 12; the
-// peak IIR reads 8 and writes 4; the quantise pass reads 4 and writes 2;
-// K2 in all 36 -> 40 (without the de-emphasis's 8), and its consumers, the
-// PLL and extract, read 12 -> 6.
+// fused kernel (or the Hilbert launch) writes re/im as float32 scratch,
+// which the peak IIR's recurrence reads, and quantised as the outputs; the
+// theta pass quantises theta as it stores it.  Bytes per output sample n8
+// (C * B/8 of them) on the fused route: float32 44 (fmd 8 in, re/im 8 out;
+// the recurrence 8 in, 8 out; the theta pass 8 in, 4 out), int16 in and
+// out 42 (fmd 4 in; re/im 8 + 4 out; theta 2 out); the consumers, the PLL
+// and extract, read 12 -> 6.
 
 #include "k12_stages.cuh"
 
@@ -39,10 +38,10 @@ using namespace fmt;
 // de_st_* [C, 2] (x1, y1); wh_rev [nh], htail [C, nh - 1]; pk_st_* [C, 8]
 // (re x1 x2 y1 y2, im x1 x2 y1 y2); re, im, theta [C, n4/2] float32, the
 // outputs, or, given re16, im16 and theta16 [C, n4/2] int16 (all three or
-// none), scratch beside those outputs; power [C].  By midend_route
-// (fmt_midend_route): on the fused route the scratch yi [C, n4/2] and the
+// none), scratch beside those outputs; power [C]; the scratch yi
+// [C, n4/2].  By midend_route (fmt_midend_route): on the fused route the
 // output tails [C, (nn2 - 2) + (nh - 1)] (the new ds x2 and Hilbert tails),
-// fm_out unused; on the launches route the scratch fm_out [C, n4/2], yi and
+// fm_out unused; on the launches route the scratch fm_out [C, n4/2],
 // tails unused.  n4 % (2 * kBatch) == 0.  Returns the first cudaError_t of
 // the launches.
 extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
@@ -57,13 +56,12 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
                           int16_t* re16, int16_t* im16, int16_t* theta16,
                           float* power, float* yi, float* tails,
                           cudaStream_t stream) {
-  const int route =
-      midend_route(in_i16, re16 != nullptr, use_deemph, nn2, nh, n4);
+  const int route = midend_route(use_deemph, nn2, nh, n4);
   if (n4 % (2 * kBatch) != 0 || nn2 < 2 || nh < 1 ||
       (re16 == nullptr) != (im16 == nullptr) ||
       (re16 == nullptr) != (theta16 == nullptr) ||
-      (route == kMidFused ? yi == nullptr || tails == nullptr
-                          : fm_out == nullptr)) {
+      yi == nullptr ||
+      (route == kMidFused ? tails == nullptr : fm_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
 #define FMT_MIDEND_ARGS                                                     \
@@ -77,10 +75,9 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
   return err;
 }
 
-// The route fmt_midend and fmt_k12 (in_i16 = out_i16 = 0) take for these
-// arguments: 1 fused, 0 launches (kernels/midend.py::midend_route is its
-// host copy, which the wrappers allocate by).
-extern "C" int fmt_midend_route(int in_i16, int out_i16, int use_deemph,
-                                int nn2, int nh, int n4) {
-  return midend_route(in_i16, out_i16, use_deemph, nn2, nh, n4);
+// The route fmt_midend and fmt_k12 take for these arguments, in every
+// format: 1 fused, 0 launches (kernels/midend.py::midend_route is its host
+// copy, which the wrappers allocate by).
+extern "C" int fmt_midend_route(int use_deemph, int nn2, int nh, int n4) {
+  return midend_route(use_deemph, nn2, nh, n4);
 }

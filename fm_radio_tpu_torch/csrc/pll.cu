@@ -41,21 +41,30 @@
 // (int16 1.530) before, with one 4-byte store a step and one exposed load
 // a batch; ~1.00 ms for both forms after, ~61 ns a step: the dependent
 // chain read from the SASS (17 instructions from one phase error to the
-// next, two of them FRND) is what is left (PERF.md).  The chunked lanes read their windows
-// straight from theta [C, N] and write only their kept outputs into dt
-// [C, N]: no gathered copy of the windows, no transposes and no
-// concatenation, which the TPU wrapper needs (pll_pallas.py:336-339,
-// 407-415); they keep one batch in flight.  Built with -fmad=false so
-// every step rounds op by op like the plain PyTorch versions
-// (kernels/pll.py::pll_plain, pll_chunked_plain) and the JAX kernel.
+// next, two of them FRND) is what is left (PERF.md).
+//
+// The chunked kernel has the same design on its lanes: kPllLanes lanes a
+// block (256 blocks at the chunked cell's 2,048 lanes, on every SM),
+// three batches in flight, the kept dt stored kBatch steps at a time, the
+// warm-up steps storing nothing.
+// Its lanes read their windows straight from theta [C, N] and write only
+// their kept outputs into dt [C, N]: no gathered copy of the windows, no
+// transposes and no concatenation, which the TPU wrapper needs
+// (pll_pallas.py:336-339, 407-415).  A window starts at max(gL - W, 0),
+// which is 16-byte aligned only for some L, W and N, so each lane walks
+// the flat array's own batch grid from the batch that holds its first step
+// and masks the steps before it and past its end (chunk_batch).
+// Built with -fmad=false so every step rounds op by op like the plain
+// PyTorch versions (kernels/pll.py::pll_plain, pll_chunked_plain) and the
+// JAX kernel.
 
 #include "pll_step.cuh"
 
 namespace fmt {
 
-// channels a block of the sequential kernel: one warp of its own for each
-// kPllLanes channels (256 warps at C = 2048), as k12_peak_rec_kernel
-// measured best (k12_stages.cuh)
+// channels (lanes) a block of the sequential (chunked) kernel: one warp of
+// its own for each kPllLanes channels (256 warps at C = 2048), as
+// k12_peak_rec_kernel measured best (k12_stages.cuh)
 constexpr int kPllLanes = 8;
 
 __device__ __forceinline__ PllState pll_load_at(const float* __restrict__ st,
@@ -125,44 +134,102 @@ pll_kernel(const T* __restrict__ theta, T* __restrict__ dt,
   pll_store_at(s, st_out, channels, c);
 }
 
-// Lanes are chunk-major, as the TPU kernel's: lane = g * C + c.
-// seed_k = float32(ts * f_center), the product formed in double.
-__global__ void pll_chunked_kernel(const float* __restrict__ theta,
-                                   float* __restrict__ dt,
-                                   const float* __restrict__ st_in,
-                                   float* __restrict__ st_out, int channels,
-                                   int n, int chunks, int warmup,
-                                   float seed_k, PllConsts k) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+// theta[at .. at + kBatch) into b, by 16-byte loads where the batch lies
+// inside the array, else element by element with the steps past its end
+// read as 0 (the chunked lanes' batch grid is aligned on the flat array,
+// whose length need not be a multiple of kBatch)
+__device__ __forceinline__ void load_clamped(const float* __restrict__ p,
+                                             int64_t at, int64_t total,
+                                             Batch<float>& b) {
+  if (at + kBatch <= total) {
+    load_raw(p, at, total, b);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      b.v[u] = at + u < total ? FMT_AT(p, at + u, total) : 0.0f;
+  }
+}
+
+// One batch of a chunked lane on the flat grid: the steps e = at + u with
+// a0 <= e < a1 run (all kBatch of them but in the lane's first and last
+// batch), and those with e >= k0 are stored into dt: a whole batch by
+// 16-byte stores, a partial one (which it shares with the neighbouring
+// lane) element by element.
+__device__ __forceinline__ void chunk_batch(PllState& s, const PllConsts& k,
+                                            const Batch<float>& b,
+                                            float* __restrict__ dt,
+                                            int64_t at, int64_t total,
+                                            int64_t a0, int64_t k0,
+                                            int64_t a1) {
+  float t[kBatch];
+  if (at >= a0 && at + kBatch <= a1) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) t[u] = pll_step(s, k, b.v[u]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      t[u] = 0.0f;
+      if (at + u >= a0 && at + u < a1) t[u] = pll_step(s, k, b.v[u]);
+    }
+  }
+  if (at >= k0 && at + kBatch <= a1) {
+    store_batch(dt, at, total, t, 1.0f);
+  } else if (at + kBatch > k0) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (at + u >= k0 && at + u < a1) FMT_AT(dt, at + u, total) = t[u];
+  }
+}
+
+// Lanes are chunk-major, as the TPU kernel's: lane = g * C + c, kPllLanes
+// a block.  Lane (g, c) runs the steps [a0, a1) of the flat array theta
+// [C * N] (a0 = c N + max(g L - W, 0), a1 = c N + g L + L) and keeps those
+// from k0 = c N + g L.  Its batches lie on the array's kBatch grid, from
+// the one that holds a0 to the one that holds a1 - 1, so every load and
+// every whole store is 16-byte aligned whatever L, W and N; the first and
+// last are masked (chunk_batch).  Three batches are in flight in four
+// register buffers, as in pll_kernel; the look-ahead past the last batch
+// loads the last again (never run).  seed_k = float32(ts * f_center), the
+// product formed in double.  theta and dt 16-byte aligned.
+__global__ void __launch_bounds__(kPllLanes)
+pll_chunked_kernel(const float* __restrict__ theta, float* __restrict__ dt,
+                   const float* __restrict__ st_in,
+                   float* __restrict__ st_out, int channels, int n,
+                   int chunks, int warmup, float seed_k, PllConsts k) {
+  const int lane = blockIdx.x * kPllLanes + threadIdx.x;
   if (lane >= channels * chunks) return;
   const int g = lane / channels;
   const int c = lane % channels;
   const int l = n / chunks;
-  const int start = max(g * l - warmup, 0);
-  const int keep = g * l - start;  // first kept step of the window
-  const int steps = keep + l;
-  const float* th = theta + (int64_t)c * n + start;
-  float* out = dt + (int64_t)c * n + (int64_t)g * l - keep;
-  PllState s = pll_load(st_in, channels, c);
+  const int64_t total = (int64_t)channels * n;
+  const int64_t row = (int64_t)c * n;
+  const int64_t a0 = row + max(g * l - warmup, 0);  // first step
+  const int64_t k0 = row + (int64_t)g * l;          // first kept step
+  const int64_t a1 = k0 + l;                        // past the last
+  const int64_t q0 = a0 / kBatch;
+  const int nb = (int)((a1 + kBatch - 1) / kBatch - q0);
+  PllState s = pll_load_at(st_in, channels, c);
   // every lane's NCO phase is wrapped, chunk 0's carried one included
   // (pll_pallas.py:353-362); chunks g >= 1 take theirs from the signal
-  const float seed = g == 0 ? s.nco_t : -th[0] - seed_k;
+  const float seed = g == 0 ? s.nco_t : -FMT_AT(theta, a0, total) - seed_k;
   s.nco_t = wrap_cycles(seed);
-  for (int i0 = 0; i0 < steps; i0 += kBatch) {
-    float bt[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      bt[u] = i0 + u < steps ? th[i0 + u] : 0.0f;
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u;
-      if (i < steps) {
-        const float t = pll_step(s, k, bt[u]);
-        if (i >= keep) out[i] = t;
-      }
-    }
+  // batch q's steps at (q0 + q) kBatch, the look-ahead clamped
+  auto at = [&](int q) { return (q0 + min(q, nb - 1)) * kBatch; };
+  Batch<float> b0, b1, b2, b3;
+  load_clamped(theta, at(0), total, b0);
+  load_clamped(theta, at(1), total, b1);
+  load_clamped(theta, at(2), total, b2);
+  for (int q = 0; q < nb; q += 4) {
+    load_clamped(theta, at(q + 3), total, b3);
+    chunk_batch(s, k, b0, dt, at(q), total, a0, k0, a1);
+    load_clamped(theta, at(q + 4), total, b0);
+    if (q + 1 < nb) chunk_batch(s, k, b1, dt, at(q + 1), total, a0, k0, a1);
+    load_clamped(theta, at(q + 5), total, b1);
+    if (q + 2 < nb) chunk_batch(s, k, b2, dt, at(q + 2), total, a0, k0, a1);
+    load_clamped(theta, at(q + 6), total, b2);
+    if (q + 3 < nb) chunk_batch(s, k, b3, dt, at(q + 3), total, a0, k0, a1);
   }
-  if (g == chunks - 1) pll_store(s, st_out, channels, c);
+  if (g == chunks - 1) pll_store_at(s, st_out, channels, c);
 }
 
 }  // namespace fmt
@@ -192,20 +259,21 @@ extern "C" int fmt_pll(const void* theta, void* dt, const float* st_in,
   return 0;
 }
 
-// The chunked form: as fmt_pll, with chunks = G > 1 dividing N, warmup W
-// with 0 <= W < N / G (the gate of pll_pallas.py:204), and seed_k =
-// float32(ts * f_center).
+// The chunked form: as fmt_pll, float32 only, with chunks = G > 1 dividing
+// N, warmup W with 0 <= W < N / G (the gate of pll_pallas.py:204; any N,
+// L = N / G and W it admits), and seed_k = float32(ts * f_center).
 extern "C" int fmt_pll_chunked(const float* theta, float* dt,
                                const float* st_in, float* st_out,
                                int channels, int n, int chunks, int warmup,
                                float seed_k, float ts, float f_center,
                                float f_gain, float ki_ts, float kp, float b0,
                                float a1, cudaStream_t stream) {
-  if (chunks < 2 || n % chunks != 0 || warmup < 0 || n / chunks <= warmup)
+  if (chunks < 2 || n % chunks != 0 || warmup < 0 || n / chunks <= warmup ||
+      ((uintptr_t)theta | (uintptr_t)dt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const PllConsts k{ts, f_center, f_gain, ki_ts, kp, b0, a1};
-  pll_chunked_kernel<<<blocks_for((int64_t)channels * chunks, kSerialThreads),
-                       kSerialThreads, 0, stream>>>(
+  pll_chunked_kernel<<<blocks_for((int64_t)channels * chunks, kPllLanes),
+                       kPllLanes, 0, stream>>>(
       theta, dt, st_in, st_out, channels, n, chunks, warmup, seed_k, k);
   FMT_CHECK_LAUNCH();
   return 0;

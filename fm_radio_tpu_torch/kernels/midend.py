@@ -12,18 +12,18 @@ State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
 ``csrc/midend.cu``, which runs K12's mid end (the device code is shared
 through ``csrc/k12_stages.cuh``); the helpers that pass this state to the
 card and back serve ``kernels/k12.py`` too.  :func:`midend_route` picks
-its launches: with de-emphasis off, in float32, the fused route (ds x2 and
-Hilbert in one tiled kernel, the peak IIR's recurrence, a parallel theta
-pass); else ds x2, the de-emphasis, Hilbert and the peak IIR each a
-launch.  Both compute the same values.
+its launches: with de-emphasis off, in float32 and in every int16 form,
+the fused route (ds x2 and Hilbert in one tiled kernel); else ds x2, the
+de-emphasis and Hilbert each a launch.  Both end with the peak IIR's
+recurrence and a parallel theta pass, and compute the same values.
 
 The int16 inter-stage format (``kernels/qformat.py``): fm_demod may be
 int16 at FM_SCALE, dequantised by the ds x2's loads, and with ``out_i16``
 re/im leave as int16 at IQ_SCALE and theta at PH_SCALE; everything between
 runs on float32 values, and the carried ds x2 tail is the dequantised
 fm_demod (midend_pallas.py:449-454).  Launches with any int16 tensor count
-in ``launches_i16``.  :func:`pick_tiles_mid` is the JAX kernel's shape
-gate.
+in ``launches_i16`` (and on the fused route in ``launches_fused`` too).
+:func:`pick_tiles_mid` is the JAX kernel's shape gate.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ _NO = 128  # the TPU kernel's band width
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = ([_P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
              + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 11)
-ROUTE_ARGTYPES = [_I] * 6
+ROUTE_ARGTYPES = [_I] * 4
 
 # the filter orders the fused route is built for (csrc/k12_stages.cuh:
 # kFusedNn2, kFusedNh: the receiver's ds x2 and Hilbert filters)
@@ -71,41 +71,37 @@ PEAK_LANES = 8
 MID_TILE = 1024
 
 
-def midend_plan(coeffs, cfg, c: int, n4: int, in_i16: bool = False,
-                out_i16: bool = False) -> list[tuple[str, tuple]]:
+def midend_plan(coeffs, cfg, c: int, n4: int) -> list[tuple[str, tuple]]:
     """The launches of the mid end after fm_demod (K2, and K12 after its
     discriminator), each as (kernel, grid): a host copy of
     ``csrc/k12_stages.cuh::launch_midend``'s plan for :func:`midend_route`.
-    Fused: one CTA per (tile of :data:`MID_TILE` outputs, channel), one
-    per :data:`PEAK_LANES` channels, the theta pass; launches: ds x2,
-    the de-emphasis where it is on, Hilbert, the peak IIR, the int16
-    theta store where the outputs are int16."""
+    Fused: one CTA per (tile of :data:`MID_TILE` outputs, channel);
+    launches: ds x2, the de-emphasis where it is on, Hilbert.  Then on
+    both the peak IIR's recurrence, one block per :data:`PEAK_LANES`
+    channels, and the theta pass, four outputs a thread (storing int16
+    theta where the outputs are int16)."""
     n8 = n4 // 2
-    if midend_route(coeffs, cfg, n4, in_i16, out_i16) == "fused":
-        return [("k12_mid_fused_kernel", (-(-n8 // MID_TILE), c)),
-                ("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
-                ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
-    plan = [("fir_decimate_kernel", (-(-c * n8 // 256),))]
-    if cfg.use_deemphasis_filter:
-        plan.append(("k12_deemph_kernel", (-(-c // 32),)))
-    plan += [("k12_hilbert_kernel", (-(-c * n8 // 256),)),
-             ("k12_peak_kernel", (-(-c // 32),))]
-    if out_i16:
-        plan.append(("q_i16_kernel", (-(-c * n8 // 256),)))
-    return plan
+    if midend_route(coeffs, cfg, n4) == "fused":
+        plan = [("k12_mid_fused_kernel", (-(-n8 // MID_TILE), c))]
+    else:
+        plan = [("fir_decimate_kernel", (-(-c * n8 // 256),))]
+        if cfg.use_deemphasis_filter:
+            plan.append(("k12_deemph_kernel", (-(-c // 32),)))
+        plan.append(("k12_hilbert_kernel", (-(-c * n8 // 256),)))
+    return plan + [("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
+                   ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
 
 
-def midend_route(coeffs, cfg, n4: int, in_i16: bool = False,
-                 out_i16: bool = False) -> str:
+def midend_route(coeffs, cfg, n4: int) -> str:
     """"fused" or "launches": the route ``fmt_midend`` and ``fmt_k12``
     take (a host copy of ``csrc/k12_stages.cuh::midend_route``, by which
-    the wrappers allocate).  Fused where ds x2 -> Hilbert run in float32
-    with de-emphasis off, the filters have the fused kernel's orders and
-    the block holds both carried tails (B/4 >= ds x2 taps - 2, B/8 >=
-    Hilbert taps - 1)."""
+    the wrappers allocate).  Fused where de-emphasis is off, the filters
+    have the fused kernel's orders and the block holds both carried tails
+    (B/4 >= ds x2 taps - 2, B/8 >= Hilbert taps - 1), in float32 and in
+    every int16 form alike."""
     nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
-    if (in_i16 or out_i16 or cfg.use_deemphasis_filter
-            or (nn2, nh) != FUSED_TAPS or n4 < nn2 - 2 or n4 // 2 < nh - 1):
+    if (cfg.use_deemphasis_filter or (nn2, nh) != FUSED_TAPS
+            or n4 < nn2 - 2 or n4 // 2 < nh - 1):
         return "launches"
     return "fused"
 
@@ -239,14 +235,16 @@ def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power,
 
 
 def mid_buffers(route: str, a: dict, c: int, n8: int, dev) -> dict:
-    """The mid end's scratch by ``route``: ``fm_out`` [C, n8] on the
-    launches route; on the fused route ``yi`` [C, n8] and ``tails`` [C,
-    (ds x2 taps - 2) + (Hilbert taps - 1)], where the kernel writes the new
-    carried tails."""
+    """The mid end's scratch by ``route``: ``yi`` [C, n8] on both (the
+    peak IIR's recurrence writes its filtered im plane there); on the
+    launches route ``fm_out`` [C, n8] (whose last samples become the
+    carried Hilbert tail), on the fused route ``tails`` [C, (ds x2 taps -
+    2) + (Hilbert taps - 1)], where the kernel writes the new carried
+    tails."""
     f = dict(device=dev, dtype=torch.float32)
     if route == "launches":
-        return {"fm_out": torch.empty((c, n8), **f), "yi": None,
-                "tails": None}
+        return {"fm_out": torch.empty((c, n8), **f),
+                "yi": torch.empty((c, n8), **f), "tails": None}
     h = a["tail2"].shape[-1] + a["htail"].shape[-1]
     return {"fm_out": None, "yi": torch.empty((c, n8), **f),
             "tails": torch.empty((c, h), **f)}
@@ -277,7 +275,7 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
     f = dict(device=dev, dtype=torch.float32)
     n8 = n4 // 2
     in_i16 = fmd.dtype == torch.int16
-    route = midend_route(coeffs, cfg, n4, in_i16, out_i16)
+    route = midend_route(coeffs, cfg, n4)
     buf = mid_buffers(route, a, c, n8, dev)
     # float32 re, im, theta: the outputs, or with out_i16 the scratch that
     # the int16 outputs are quantised from

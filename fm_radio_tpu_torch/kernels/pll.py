@@ -11,7 +11,11 @@ into G chunks that run at once on C*G lanes, each chunk warmed up over the
 W = ``cfg.pll_chunk_warmup`` samples before it (pll_pallas.py:297-423),
 taken only where :func:`chunk_gate` holds.  The kernels are ``csrc/pll.cu``
 (``fmt_pll``, ``fmt_pll_chunked``), which share one step
-(``csrc/pll_step.cuh``).
+(``csrc/pll_step.cuh``).  Both run 8 lanes a block with three batches of
+:data:`BATCH` steps in flight; the chunked lanes walk the flat theta's
+grid of :data:`BATCH` steps from the batch that holds each window's first
+step, their first and last batch masked, so every shape the gate admits
+runs (``tests/test_torch_pll_chunk_lanes.py`` models the schedule).
 
 The int16 inter-stage format (``kernels/qformat.py``, PH_SCALE): theta may
 arrive as int16.  :func:`pilot_pll_theta` takes the branches of
@@ -51,8 +55,9 @@ _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = [_P] * 4 + [_I] * 2 + [_F] * 7 + [_I, _P]
 _ARGTYPES_CHUNKED = [_P] * 4 + [_I] * 4 + [_F] * 8 + [_P]
 
-# steps the sequential kernel (csrc/pll.cu) loads and stores at once: N
-# must be a multiple (fmt_pll refuses others too)
+# steps the kernels (csrc/pll.cu) load and store at once: the sequential
+# kernel's N must be a multiple (fmt_pll refuses others too); the chunked
+# kernel's batches lie on the flat array's grid of BATCH steps
 BATCH = 16
 
 
@@ -154,6 +159,8 @@ def pilot_pll_chunked(cfg, state: PilotPLLState, theta: torch.Tensor):
     global launches_chunked
     c, n = theta.shape
     st, dt, st_out = _args("pll_chunked", state, theta)
+    if theta.data_ptr() % 16:
+        raise ValueError("pll_chunked: theta is not 16-byte aligned")
     k = pll_consts_from_cfg(cfg)
     fn = _build.function("pll", "fmt_pll_chunked", _ARGTYPES_CHUNKED)
     err = fn(theta.data_ptr(), dt.data_ptr(), st.data_ptr(),

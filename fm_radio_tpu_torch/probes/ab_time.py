@@ -1,6 +1,6 @@
-"""Time the channelizer, the megakernel and BPSK of one checkout of the
-port, so that two checkouts (a commit and its parent) can be compared in
-turns on one card within one call.
+"""Time the cells and the redesigned kernels of one checkout of the port,
+so that two checkouts (a commit and its parent) can be compared in turns
+on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
 
@@ -8,6 +8,16 @@ Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
 checkout's kernels and prints one JSON row per case:
 
+- every cell end to end in ms a block (CUDA events over 8 blocks, 4 for
+  the chunked PLL, after one; bench.py's signal made by
+  ``chip_smoke.split_input``): pre-split (C = 2,048, B = 131,072 int8
+  planes, ``frontend_int8=True``), f32w, complex, k12off, i16
+  (``interstage_i16=True``), chain, the chunked PLL (C = 256, B =
+  1,048,576, ``pll_time_chunks=8``) and the wideband cell at splits 1, 2
+  and 3 (``chip_smoke.wideband_path`` on bench.py's captures);
+- K2 in int16 (``kernels/midend.py::midend`` on the arguments
+  ``demod_block`` recorded at the i16 cell) and the chunked PLL
+  (``kernels/pll.py::pilot_pll_chunked`` on those of the chunked cell);
 - the exact channelizer (splits=3, the library default) at the wideband
   cell (below) and at the M = 16 lens (W = 128, K = 16, T = 2^21, out
   "i8"); the megakernel (``kernels/chain.py::chain``) at the chain cell
@@ -43,6 +53,23 @@ import json
 import os
 import subprocess
 import sys
+
+
+# the cells: (label, input kind of chip_smoke.split_input, DemodConfig
+# kwargs, channels, block, counted blocks)
+CELLS = (
+    ("presplit", "i8", {"frontend_int8": True}, 2048, 131072, 8),
+    ("f32w", "words", {"assume_integer_input": True}, 2048, 131072, 8),
+    ("complex", "complex", {}, 2048, 131072, 8),
+    ("k12off", "i8", {"frontend_int8": True, "k12_fusion": "off"}, 2048,
+     131072, 8),
+    ("i16", "i8", {"assume_integer_input": True, "frontend_int8": True,
+                   "interstage_i16": True}, 2048, 131072, 8),
+    ("chain", "words", {"assume_integer_input": True,
+                        "chain_fusion": "auto"}, 2048, 131072, 8),
+    ("pll_chunked", "i8", {"frontend_int8": True, "pll_time_chunks": 8},
+     256, 1048576, 4),
+)
 
 
 def _ms(fn, reps: int) -> float:
@@ -123,6 +150,43 @@ def main(argv=None) -> int:
              "card": smi, **kw}
         rows.append(r)
         print(json.dumps(r), flush=True)
+
+    # the cells end to end, and the two kernels on their cells' arguments
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.kernels import pll as kp
+
+    recorded = {}
+    for cell, kind, kw, c, b, blocks in CELLS:
+        cfg = DemodConfig(**kw)
+        co = make_coeffs(cfg, dev)
+        st = demod_init_state(cfg, c, dev)
+        x = chip_smoke.split_input(kind, c, b, 0, dev)
+        st, _ = demod_block(cfg, co, st, x)  # warm-up
+        calls = {}
+        chip_smoke.reset_counts()
+
+        def run():
+            nonlocal st
+            for _ in range(blocks):
+                st, _ = demod_block(cfg, co, st, x, record=calls)
+
+        row("demod_block", f"cell {cell} C={c} B={b}", _ms(run, 1) / blocks,
+            launches={k: v for k, v in chip_smoke.read_counts().items()
+                      if v})
+        recorded[cell] = calls
+        del x, st
+    for sp in (1, 2, 3):
+        wb = chip_smoke.wideband_path(64, 32, 131072, 8, splits=sp,
+                                      time_kernels=False, device=dev)
+        row("wideband_demod_block", f"cell wideband splits={sp}",
+            wb["ms_per_block"], launches={
+                k: v for k, v in wb["launches"].items() if v})
+    mid = recorded["i16"]["midend"]
+    row("midend_i16", "i16 cell", _ms(lambda: km.midend(*mid), a.reps))
+    pc = recorded["pll_chunked"]["pll_chunked"]
+    row("pll_chunked", "chunked cell",
+        _ms(lambda: kp.pilot_pll_chunked(*pc), a.reps))
+    del recorded, mid, pc
 
     # the megakernel at the chain cell
     ccfg = DemodConfig(assume_integer_input=True, chain_fusion="auto")

@@ -204,13 +204,61 @@ def test_fused_midend_edges_on_card():
     """K12 (flat and phase-split) and K2 on the fused route equal their
     plain versions (max abs error 0) at C = 40 and B = 512, 8,192 and
     8,320 (a partial tile, one whole tile, a whole and a partial one), two
-    blocks with carried state; the C entry's route equals its host copy."""
+    blocks with carried state, K2 in its four formats (float32 or int16
+    fm_demod, float32 or int16 outputs), every K2 call counted as a fused
+    launch; the C entry's route equals its host copy."""
     _need_card()
     import chip_smoke
 
     res = chip_smoke.compare_mid_edges()
+    assert len(res["rows"]) == 2 + 4, res
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
-    assert not res["route_mismatch"] and not chip_smoke.DUMPS, res
+    assert not res["route_mismatch"] and not res["not_fused"], res
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
+def test_fused_midend_edges_on_checked_build():
+    """The same edge shapes and formats on the bounds-checked build: every
+    global index of the fused kernel, the peak IIR's recurrence and the
+    theta pass is checked (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    with _build.checked_build():
+        res = chip_smoke.compare_mid_edges()
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
+    assert not res["route_mismatch"] and not res["not_fused"], res
+
+
+@pytest.mark.gpu
+def test_pll_chunked_edges_on_card():
+    """The redesigned chunked PLL equals its plain version (max abs error
+    0) at C = 5 and 40, G = 2, 4 and 8, W = 0, 7 and 4,096 with chunk
+    lengths a multiple of its 16-step batch and not (windows off the batch
+    grid, flat arrays whose length is not a multiple of it), two blocks
+    with carried state each."""
+    _need_card()
+    import chip_smoke
+
+    rows = chip_smoke.compare_pll_chunked_edges()
+    assert len(rows) == 2 * 3 * 3 * 2, rows
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
+def test_pll_chunked_edges_on_checked_build():
+    """The same edge shapes on the bounds-checked build: every load and
+    store of the chunked lanes is checked (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    with _build.checked_build():
+        rows = chip_smoke.compare_pll_chunked_edges()
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
 
 
 @pytest.mark.gpu

@@ -237,11 +237,29 @@ def test_midend_i16_matches_pallas(out_i16, use_deemph):
     (8 and 67 LSB at 2^16, wrapped); the state as there, the ds x2 tail
     (the dequantised fm_demod) exact.  In the port the int16 outputs equal
     q_i16 of the float32 ones."""
+    _midend_vs_pallas(True, out_i16, use_deemph)
+
+
+@pytest.mark.parametrize("use_deemph", [False, True], ids=["de_off", "de_on"])
+@pytest.mark.parametrize("out_i16", [False, True], ids=["out_f32", "out_i16"])
+def test_midend_f32_in_matches_pallas(out_i16, use_deemph):
+    """The other two formats: K2 on float32 fm_demod (the same values
+    dequantised) against ``midend_pallas`` (interpret), ``out_i16`` off and
+    on, with the tolerances of :func:`test_midend_i16_matches_pallas`; the
+    ds x2 tail is the float32 fm_demod itself."""
+    _midend_vs_pallas(False, out_i16, use_deemph)
+
+
+def _midend_vs_pallas(in_i16: bool, out_i16: bool, use_deemph: bool):
+    """K2 against ``midend_pallas`` (interpret) on fm_demod int16 or, as
+    float32, its dequantised values: two blocks of C = 3."""
     tcfg, jcfg = cfgs(use_deemphasis_filter=use_deemph,
                       deemphasis_cutoff_us=50)
     co_j, co_t = jdemod.make_coeffs(jcfg), tdemod.make_coeffs(tcfg)
     c, b4 = 3, 2048
     fmd = _fm_demod_i16(jcfg, co_j, c, 8 * b4, seed=5)
+    if not in_i16:
+        fmd = tq.dq_i16(torch.from_numpy(fmd.copy()), tq.FM_SCALE).numpy()
     st_j, st_t = _start(jcfg, c)
     for blk in range(2):
         xb = np.ascontiguousarray(fmd[:, blk * b4 : (blk + 1) * b4])
@@ -273,7 +291,7 @@ def test_midend_i16_matches_pallas(out_i16, use_deemph):
         np.testing.assert_array_equal(stn["ds_fm_out"], sj["ds_fm_out"])
         np.testing.assert_array_equal(
             stn["ds_fm_out"],
-            tq.dq_i16(xt[:, -stn["ds_fm_out"].shape[-1]:], tq.FM_SCALE))
+            tq.dq_if_i16(xt[:, -stn["ds_fm_out"].shape[-1]:], tq.FM_SCALE))
         np.testing.assert_allclose(stn["hilbert"], sj["hilbert"], atol=2e-5)
         for key in ("peak_pilot", "deemph"):
             for h in ("x_hist", "y_hist"):

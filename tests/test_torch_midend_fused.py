@@ -34,34 +34,31 @@ def _co_taps(nn2=None, nh=None):
     return co
 
 
-# (label, coeffs, cfg, n4, in_i16, out_i16, route): K12 asks with in_i16 =
-# out_i16 = False; K2 with its input's and outputs' format
+# (label, coeffs, cfg, n4, route): K12 and K2 alike, K2 in every format
 ROUTES = [
-    ("k12_cell", CO, CFG, 32768, False, False, "fused"),
-    ("k2_f32", CO, CFG, 32768, False, False, "fused"),
-    ("deemphasis_on", CO_DE, CFG_DE, 32768, False, False, "launches"),
-    ("k2_in_i16", CO, CFG, 32768, True, False, "launches"),
-    ("k2_out_i16", CO, CFG, 32768, False, True, "launches"),
-    ("k2_i16_both", CO, CFG, 32768, True, True, "launches"),
-    ("other_ds2_order", _co_taps(nn2=48), CFG, 32768, False, False,
-     "launches"),
-    ("other_hilbert_order", _co_taps(nh=33), CFG, 32768, False, False,
-     "launches"),
+    ("k12_cell", CO, CFG, 32768, "fused"),
+    ("k2_f32", CO, CFG, 32768, "fused"),
+    ("deemphasis_on", CO_DE, CFG_DE, 32768, "launches"),
+    ("deemphasis_on_smallest_block", CO_DE, CFG_DE, 128, "launches"),
+    ("other_ds2_order", _co_taps(nn2=48), CFG, 32768, "launches"),
+    ("other_hilbert_order", _co_taps(nh=33), CFG, 32768, "launches"),
+    ("both_orders_other", _co_taps(nn2=48, nh=33), CFG, 32768, "launches"),
     # the smallest block that holds both carried tails (B/4 >= 62, B/8 >=
-    # 64), and one below it
-    ("smallest_block", CO, CFG, 128, False, False, "fused"),
-    ("block_below_the_tails", CO, CFG, 96, False, False, "launches"),
+    # 64), and below it
+    ("smallest_block", CO, CFG, 128, "fused"),
+    ("block_one_below_the_hilbert_tail", CO, CFG, 126, "launches"),
+    ("block_below_the_tails", CO, CFG, 96, "launches"),
 ]
 
 
 @pytest.mark.parametrize("case", ROUTES, ids=[r[0] for r in ROUTES])
 def test_midend_route(case):
-    """The route of each configuration and format: fused only in float32
-    with de-emphasis off, at the receiver's filter orders (64 and 65 taps,
-    which the fused kernel is built for) and a block that holds both
-    carried tails."""
-    _, co, cfg, n4, in_i16, out_i16, want = case
-    assert tmid.midend_route(co, cfg, n4, in_i16, out_i16) == want
+    """The route of each configuration: fused with de-emphasis off, at the
+    receiver's filter orders (64 and 65 taps, which the fused kernel is
+    built for) and a block that holds both carried tails; the format
+    (float32 or int16) does not enter."""
+    _, co, cfg, n4, want = case
+    assert tmid.midend_route(co, cfg, n4) == want
 
 
 def test_fused_taps_are_the_receivers_filters():
@@ -90,21 +87,20 @@ def test_midend_plan_fused(c, n4):
     assert plan[2][1][0] * 4 * 256 >= c * n8
 
 
-@pytest.mark.parametrize("cfg,co,out_i16,kernels", [
-    (CFG_DE, CO_DE, False, ["fir_decimate_kernel", "k12_deemph_kernel",
-                            "k12_hilbert_kernel", "k12_peak_kernel"]),
-    (CFG, CO, True, ["fir_decimate_kernel", "k12_hilbert_kernel",
-                     "k12_peak_kernel", "q_i16_kernel"]),
-    (CFG_DE, CO_DE, True, ["fir_decimate_kernel", "k12_deemph_kernel",
-                           "k12_hilbert_kernel", "k12_peak_kernel",
-                           "q_i16_kernel"]),
-])
-def test_midend_plan_launches(cfg, co, out_i16, kernels):
-    """The launches route keeps one launch per stage: ds x2, the
-    de-emphasis where it is on, Hilbert, the peak IIR (theta inside), and
-    the int16 theta store where the outputs are int16."""
-    assert [k for k, _ in tmid.midend_plan(co, cfg, 256, 32768, False,
-                                           out_i16)] == kernels
+@pytest.mark.parametrize("cfg,co,kernels", [
+    (CFG_DE, CO_DE, ["fir_decimate_kernel", "k12_deemph_kernel",
+                     "k12_hilbert_kernel", "k12_peak_rec_kernel",
+                     "k12_theta_kernel"]),
+    (CFG, CO, ["k12_mid_fused_kernel", "k12_peak_rec_kernel",
+               "k12_theta_kernel"]),
+    (CFG, _co_taps(nn2=48), ["fir_decimate_kernel", "k12_hilbert_kernel",
+                             "k12_peak_rec_kernel", "k12_theta_kernel"]),
+], ids=["deemphasis_on", "receiver_orders_fused", "other_ds2_order"])
+def test_midend_plan_launches(cfg, co, kernels):
+    """The launches route keeps one launch per stage up to Hilbert (ds x2,
+    the de-emphasis where it is on, Hilbert), then the peak IIR's
+    recurrence and the theta pass, as the fused route ends."""
+    assert [k for k, _ in tmid.midend_plan(co, cfg, 256, 32768)] == kernels
 
 
 def test_state_from_the_fused_tails():
@@ -133,4 +129,7 @@ def test_state_from_the_fused_tails():
         == (c, 62 + 64)
     launches = tmid.mid_buffers("launches", a, c, n4 // 2, "cpu")
     assert launches["fm_out"].shape == (c, n4 // 2)
-    assert launches["yi"] is None and launches["tails"] is None
+    # the launches route ends with the fused route's recurrence: its own
+    # yi scratch, fm_out kept for the carried Hilbert tail
+    assert launches["yi"].shape == (c, n4 // 2)
+    assert launches["tails"] is None
