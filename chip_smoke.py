@@ -74,7 +74,13 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    16,384; K12 flat and phase-split, K1 on every load form with both
    taps and stores), and
    their SASS (:func:`ds4_sass`: saved as chiprun_out/ds4_sass_*.txt; no
-   FFMA in the float K1 beyond atan2's division, no spills); the exact
+   FFMA in the float K1 beyond atan2's division, no spills); the K1
+   probe's staged FIR kernels on both builds, max abs error 0
+   (:func:`compare_fp_edges`: C = 16 x B = 16,384, fp_fir on every form,
+   both taps, dots and full, rows and tile-major, both rasters at tiles
+   1 x 512 ... 2 x 8,192; fp_dbuf with one and two buffers, a tile over
+   the shared memory refused; the dbuf layout's C side against its host
+   copy); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -3120,6 +3126,99 @@ def compare_ds4_edges(device="cuda", shapes=DS4_EDGES,
     return rows
 
 
+# the K1 probe's edge shapes (C, B): fp_fir at the shortest tile (512:
+# eight rows a CTA, two a warp), the longest the sections take (4,096) and
+# a longer one (8,192: a row's tile in two CTAs, the second's difference
+# from the theta before it), c_blk 1 and 16; fp_dbuf at those and at its
+# sections' tiles, with one buffer and two (a tile that does not fit is
+# refused before any launch)
+FP_EDGE_SHAPE = (16, 16384)
+FP_EDGE_TILES = ((1, 512), (16, 512), (1, 4096), (16, 4096), (2, 8192))
+DBUF_EDGE_TILES = ((1, 512), (16, 512), (1, 4096), (4, 4096), (16, 1024),
+                   (8, 2048), (2, 8192), (16, 4096))
+
+
+def compare_fp_edges(device="cuda", seed: int = 5) -> list[dict]:
+    """The K1 probe's staged FIR kernels against their plain versions at
+    the edge shapes, max abs error 0: fp_fir on every ingest form, float
+    and int8 taps, dots and full, rows and tile-major, both rasters, at
+    each tile of FP_EDGE_TILES; fp_dbuf dots and full with one and two
+    buffers at each tile of DBUF_EDGE_TILES that fits
+    (``frontend_probe.dbuf_layout`` on the card: the C side's formula; one
+    that does not must be refused); and that C side against its host copy
+    over tiles and buffers.  Returns one row per case (kernel, case, max_abs_err, ok)."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+
+    c, b = FP_EDGE_SHAPE
+    inp = fp.make_inputs(c, b, device, seed=seed)
+    tb = fp.tables(device)
+    rows = []
+
+    def row(kernel, case, kout, pout):
+        e = float((kout - pout).abs().max())
+        rows.append({"kernel": kernel, "case": case, "max_abs_err": e,
+                     "ok": e == 0.0})
+
+    for c_blk, t_blk in FP_EDGE_TILES:
+        for form in fp.FORMS:
+            for tm in (False, True):
+                x = fp.tile_major(inp[form], form, t_blk) if tm else inp[form]
+                for int8 in (False, True):
+                    for full in (False, True):
+                        pout = fp.fir_plain(x, form, int8, full, t_blk, tm,
+                                            tb=tb)
+                        for raster in (0, 1):
+                            kout = fp.fir(x, form, int8, full, c_blk, t_blk,
+                                          tm, raster, tb)
+                            row("fp_fir", f"{'full' if full else 'dots'}:"
+                                f"{form}:{'int8' if int8 else 'f32'}:tile="
+                                f"{c_blk}x{t_blk}:{'TM' if tm else 'rows'}:"
+                                f"raster={raster}", kout, pout)
+    xw = inp["f32w"]
+    for c_blk, t_blk in DBUF_EDGE_TILES:
+        for full in (False, True):
+            pout = fp.dbuf_plain(xw, full, t_blk, tb)
+            for nbuf in (1, 2):
+                case = (f"{'full' if full else 'dots'}:nbuf={nbuf}:tile="
+                        f"{c_blk}x{t_blk}")
+                if fp.dbuf_layout(c_blk, t_blk, nbuf, device)["smem"] \
+                        > fp.SMEM_BYTES:
+                    try:
+                        fp.dbuf(xw, full, c_blk, t_blk, nbuf, tb)
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    rows.append({"kernel": "fp_dbuf", "case": case,
+                                 "refused": refused, "max_abs_err": None,
+                                 "ok": refused})
+                    continue
+                row("fp_dbuf", case, fp.dbuf(xw, full, c_blk, t_blk, nbuf,
+                                             tb), pout)
+    torch.cuda.synchronize(device)
+    for c_blk in (1, 2, 3, 4, 8, 16, 32):
+        for t_blk in (512, 1024, 2048, 4096, 8192, 16384, 32768):
+            for nbuf in (1, 2):
+                host = fp.dbuf_layout(c_blk, t_blk, nbuf)
+                card = fp.dbuf_layout(c_blk, t_blk, nbuf, device)
+                same = host == card
+                rows.append({"kernel": "fp_dbuf_layout",
+                             "case": f"tile={c_blk}x{t_blk}:nbuf={nbuf}",
+                             "host": host, "card": card, "max_abs_err": None,
+                             "ok": same})
+    return rows
+
+
+def fp_floor(c: int, b: int, nn: int = 132) -> dict:
+    """The K1 probe FIR's issue floor, ms (computed, not measured): nn
+    FMUL and nn FADD on each of the two planes an output (-fmad=false), at
+    128 a clock an SM, at this card's SM count and highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    out = float(c) * b / 4
+    return {"fmul_fadd_floor_ms": out * 4 * nn / (128 * sms * hz) * 1e3,
+            "instructions_an_output": 4 * nn, "sms": sms, "sm_clock_hz": hz}
+
+
 def _sm_clock_hz() -> float:
     """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
     out = subprocess.run(
@@ -3725,6 +3824,11 @@ def main() -> int:
         for r in prow:
             log(f"[probe] {probe} {json.dumps(r)}")
     for n, k in eng["kernels"].items():
+        if n in ("fp_fir", "fp_dbuf"):
+            # the staged FIR's launches and its computed issue floor beside
+            # its bound
+            k = dict(k, launches=eng["launches"][n],
+                     **fp_floor(*PROBE_FULL["fp"]))
         log(f"[probe] kernel {n} {json.dumps(k)}")
     log(f"[probe] launches {json.dumps(eng['launches'])}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3888,6 +3992,23 @@ def main() -> int:
         raise RuntimeError(f"ds4 edges on the bounds-checked build: {e}")
     for r in dedge:
         log(f"[compare] ds4 edge: {json.dumps(r)}")
+    # the K1 probe's staged FIR kernels at their edge shapes on both builds
+    fedge = compare_fp_edges(dev)
+    try:
+        with _build.checked_build():
+            fedge += [dict(r, build="checked")
+                      for r in compare_fp_edges(dev, seed=6)]
+    except RuntimeError as e:
+        raise RuntimeError(f"K1 probe edges on the bounds-checked build: {e}")
+    bad = [r for r in fedge if not r["ok"]]
+    log(f"[compare] K1 probe edges: {len(fedge)} cases on both builds, "
+        f"{len(bad)} off; "
+        f"{sorted({r['kernel'] for r in fedge})}")
+    if bad:
+        for r in bad:
+            log(f"[compare] K1 probe edge off: {json.dumps(r)}")
+        cases = [(r["kernel"], r["case"], r.get("build")) for r in bad]
+        raise RuntimeError(f"K1 probe edge shapes disagree: {cases}")
     # the exact channelizer at every M instantiation and its edge shapes,
     # on both builds; the megakernel at the chain cell's shape on the
     # checked build (its small shapes are in the repeats above)

@@ -113,16 +113,17 @@ __device__ __forceinline__ float extract_item(int w, int na,
 // a + b) = 33 a + mid_skew(b), every load is a constant offset from the
 // lane's pointer for its block of R steps.
 //
-// fir_steps runs R steps from step qb (a multiple of R) of every phase,
-// over xq = the lane's plane pointer advanced by qb's blocks and wq = w +
-// M qb; kLast: the last R, whose final step loads nothing.
-template <int M, int R, int B0, bool kLast>
+// fir_steps runs S steps (R, or a last partial block's NQ % R) from step
+// qb (a multiple of R) of every phase, over xq = the lane's plane pointer
+// advanced by qb's blocks and wq = w + M qb; kLast: the last block, whose
+// final step loads nothing.
+template <int M, int R, int B0, bool kLast, int S = R>
 __device__ __forceinline__ void fir_steps(const float* __restrict__ xq,
                                           const float* __restrict__ wq,
                                           float (&v)[M][R],
                                           float (&acc)[R]) {
 #pragma unroll
-  for (int qq = 0; qq < R; ++qq) {
+  for (int qq = 0; qq < S; ++qq) {
     float wk[M];
 #pragma unroll
     for (int p = 0; p < M; p += 4) {
@@ -136,22 +137,28 @@ __device__ __forceinline__ void fir_steps(const float* __restrict__ xq,
     for (int p = 0; p < M; ++p) {
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] += wk[p] * v[p][(r + qq) % R];
-      if (!kLast || qq + 1 < R)
+      if (!kLast || qq + 1 < S)
         v[p][qq] = xq[mid_skew(B0 + M * (R + qq) + p)];
     }
   }
 }
 
+// fir_block: an order whose NQ is not a multiple of R (the K1 probe's 132
+// taps: 33 steps) ends in a partial block of NQ % R steps, chosen at
+// compile time: the whole blocks before it all refill their slots, and its
+// slot reads are those of a whole block's first NQ % R steps.  The
+// receiver's orders (NQ % R == 0) compile the code they always had.
 template <int M, int R, int NN, int B0>
 __device__ __forceinline__ void fir_block(const float* __restrict__ x,
                                           int lane,
                                           const float* __restrict__ w,
                                           float (&acc)[R]) {
   constexpr int NQ = NN / M;  // steps of each phase
-  static_assert(M * R == 32 && B0 >= 0 && NN % M == 0 && NQ % R == 0 &&
+  constexpr int NP = NQ % R;  // a last partial block's steps
+  static_assert(M * R == 32 && B0 >= 0 && NN % M == 0 && NQ >= R &&
                     M % 4 == 0,
-                "lanes 32 samples apart, whole blocks of R steps, float4 "
-                "taps");
+                "lanes 32 samples apart, at least one block of R steps, "
+                "float4 taps");
   const float* xl = x + 33 * lane;  // the lane's first sample, skewed
   float v[M][R];
 #pragma unroll
@@ -161,11 +168,19 @@ __device__ __forceinline__ void fir_block(const float* __restrict__ x,
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.0f;
   // a block of R steps advances every load by M R = 32 samples: 33 words
+  if constexpr (NP == 0) {
 #pragma unroll 1
-  for (int qb = 0; qb < NQ - R; qb += R)
-    fir_steps<M, R, B0, false>(xl + 33 * (qb / R), w + M * qb, v, acc);
-  fir_steps<M, R, B0, true>(xl + 33 * (NQ / R - 1), w + M * (NQ - R), v,
-                            acc);
+    for (int qb = 0; qb < NQ - R; qb += R)
+      fir_steps<M, R, B0, false>(xl + 33 * (qb / R), w + M * qb, v, acc);
+    fir_steps<M, R, B0, true>(xl + 33 * (NQ / R - 1), w + M * (NQ - R), v,
+                              acc);
+  } else {
+#pragma unroll 1
+    for (int qb = 0; qb < NQ - NP; qb += R)
+      fir_steps<M, R, B0, false>(xl + 33 * (qb / R), w + M * qb, v, acc);
+    fir_steps<M, R, B0, true, NP>(xl + 33 * (NQ / R), w + M * (NQ - NP), v,
+                                  acc);
+  }
 }
 
 // The tile of the extract kernels: kExtTile samples a CTA, after a halo of

@@ -7,14 +7,17 @@
 //                                      and unpack, K1's staged tile)
 //   ds4_float                          the float32 ds x4 window sum, summed
 //                                      from the oldest sample up
-//   ds4_i8                             the int8-tap ds x4 window sum on
-//                                      those float samples (__dp4a)
+//   i8_byte                            a sample shifted into int8, for the
+//                                      int8 taps' words
 //
 // K1 stages its tile in shared memory and sums it register-blocked
 // (extract_stages.cuh::fir_block, ds4_float's order); the megakernel sums
-// its tile through ds4_float; so the chain's K1 equals the split K1 bit for
-// bit (the discriminator is k12_stages.cuh's disc_value).  The K1 probe
-// (frontend_probe.cu) sums through ds4_float and ds4_i8.
+// its tile with fir_block at the receiver's order and through ds4_float at
+// others; so the chain's K1 equals the split K1 bit for bit (the
+// discriminator is k12_stages.cuh's disc_value).  The K1 probe
+// (frontend_probe.cu) stages its tiles through these loads too and sums
+// them as K1 does: fir_block for the float taps, K12's ds4_i8_window on
+// i8_byte words for the int8 taps.
 #pragma once
 
 #include "common.cuh"
@@ -167,36 +170,6 @@ __device__ __forceinline__ void ds4_float(const Src& src,
 // The input shifted by -1 into int8 (C conversion truncates, as astype).
 __device__ __forceinline__ unsigned int i8_byte(float v, int u) {
   return ((unsigned int)(int)(v - 1.0f) & 0xffu) << (8 * u);
-}
-
-// (fr, fi) with the int8 taps: src(n, vr, vi)'s samples shifted into int8
-// (i8_byte), four to a word, accumulated exactly in int32 with __dp4a
-// against the reversed taps b1w, b2w (nn/4 words each), combined as
-// y1 + y2 / 128 + s_row.
-template <class Src>
-__device__ __forceinline__ void ds4_i8(const Src& src,
-                                       const int* __restrict__ b1w,
-                                       const int* __restrict__ b2w, int nn,
-                                       float s_row, int base, float& fr,
-                                       float& fi) {
-  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
-  for (int w = 0; w < nn / 4; ++w) {
-    unsigned int pr = 0u, pi = 0u;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float vr, vi;
-      src(base + 4 * w + u, vr, vi);
-      pr |= i8_byte(vr, u);
-      pi |= i8_byte(vi, u);
-    }
-    const int w1 = __ldg(b1w + w), w2 = __ldg(b2w + w);
-    y1r = __dp4a((int)pr, w1, y1r);
-    y2r = __dp4a((int)pr, w2, y2r);
-    y1i = __dp4a((int)pi, w1, y1i);
-    y2i = __dp4a((int)pi, w2, y2i);
-  }
-  fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
-  fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
 }
 
 }  // namespace fmt

@@ -252,6 +252,44 @@ inline size_t ds4_i8_smem(int nw) {
          sizeof(float) * (kDs4Tile / kDs4Run);
 }
 
+// The sliding window of ds4_i8_blocked_kernel: R neighbouring outputs of
+// skewed int8-word planes s_re, s_im whose windows start at word eb, summed
+// exactly in int32 against the nwp (a multiple of R) tap pairs s_tap.  Step
+// w = qb + qq: output r reads slot (r + qq) % R, which holds word eb + r +
+// w; slot qq is then refilled with the word output 0 reads R steps on, so
+// each shared-memory load serves 4 R __dp4a.  (The K1 probe,
+// frontend_probe.cu, sums its staged words with it too.)
+template <int R>
+__device__ __forceinline__ void ds4_i8_window(
+    const int* s_re, const int* s_im, const int2* s_tap, int eb, int nwp,
+    int (&y1r)[R], int (&y2r)[R], int (&y1i)[R], int (&y2i)[R]) {
+  int vr[R], vi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    vr[r] = s_re[mid_skew(eb + r)];
+    vi[r] = s_im[mid_skew(eb + r)];
+    y1r[r] = y2r[r] = y1i[r] = y2i[r] = 0;
+  }
+#pragma unroll 1
+  for (int qb = 0; qb < nwp; qb += R) {
+#pragma unroll
+    for (int qq = 0; qq < R; ++qq) {
+      const int2 tp = s_tap[qb + qq];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = (r + qq) % R;
+        y1r[r] = __dp4a(vr[k], tp.x, y1r[r]);
+        y2r[r] = __dp4a(vr[k], tp.y, y2r[r]);
+        y1i[r] = __dp4a(vi[k], tp.x, y1i[r]);
+        y2i[r] = __dp4a(vi[k], tp.y, y2i[r]);
+      }
+      const int en = mid_skew(eb + R + qb + qq);
+      vr[qq] = s_re[en];
+      vi[qq] = s_im[en];
+    }
+  }
+}
+
 template <class Src, class Store>
 __global__ void __launch_bounds__(kDs4Tile / kDs4Run)
 ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
@@ -321,35 +359,9 @@ ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
   }
   __syncthreads();
 
-  const int eb = h - nwp + 1 + R * tid;
-  int vr[R], vi[R], y1r[R], y2r[R], y1i[R], y2i[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    vr[r] = s_re[mid_skew(eb + r)];
-    vi[r] = s_im[mid_skew(eb + r)];
-    y1r[r] = y2r[r] = y1i[r] = y2i[r] = 0;
-  }
-  // step w = qb + qq: output r reads slot (r + qq) % R, which holds word
-  // eb + r + w; slot qq is then refilled with the word output 0 reads R
-  // steps on
-#pragma unroll 1
-  for (int qb = 0; qb < nwp; qb += R) {
-#pragma unroll
-    for (int qq = 0; qq < R; ++qq) {
-      const int2 tp = s_tap[qb + qq];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = (r + qq) % R;
-        y1r[r] = __dp4a(vr[k], tp.x, y1r[r]);
-        y2r[r] = __dp4a(vr[k], tp.y, y2r[r]);
-        y1i[r] = __dp4a(vi[k], tp.x, y1i[r]);
-        y2i[r] = __dp4a(vi[k], tp.y, y2i[r]);
-      }
-      const int en = mid_skew(eb + R + qb + qq);
-      vr[qq] = s_re[en];
-      vi[qq] = s_im[en];
-    }
-  }
+  int y1r[R], y2r[R], y1i[R], y2i[R];
+  ds4_i8_window<R>(s_re, s_im, s_tap, h - nwp + 1 + R * tid, nwp, y1r, y2r,
+                   y1i, y2i);
   float th[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)

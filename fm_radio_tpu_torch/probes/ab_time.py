@@ -40,7 +40,15 @@ checkout's kernels and prints one JSON row per case:
   pre-split cell (C = 2,048, B = 131,072, ``chip_smoke.bench_planes``, the
   second block) and ``wideband_demod_block`` at the wideband cell
   (splits=1, bench.py's captures), and on zeros of that shape with the
-  pre-split cell's gain.
+  pre-split cell's gain;
+- K1 with int8 taps (``kernels/frontend.py::frontend``) on packed words,
+  float32 planes and complex64 at C = 2,048 x B = 131,072, float32 and
+  int16 stores (the ``LoadI8`` forms of ``ds4_i8_blocked_kernel``);
+- the K1 engine probe (``probes/frontend_probe.py``) at its default shape
+  (C = 1,024 x B = 262,144): ``split``'s rows on words and planes,
+  ``dbuf``'s (``full:double-buf:tile=8x2048`` among them) and the
+  engines' ``full:no=128:f32`` (each the probe's best of 3 over chained
+  calls).
 
 Each time is the mean of ``--reps`` calls after one (CUDA events), beside
 the card's name and power limit.  Exits 1 without a CUDA device.
@@ -284,6 +292,32 @@ def main(argv=None) -> int:
         row("bpsk", case, _ms(lambda: kb.bpsk_sync(*args), a.reps),
             zero_share=float((planes == 0).double().mean()),
             gain_range=[float(args[3].min()), float(args[3].max())])
+    del pre, wide, zeros
+
+    # K1 with int8 taps on its float forms, both stores
+    from fm_radio_tpu_torch.kernels import frontend as kf
+
+    k1cfg = DemodConfig()
+    k1co = make_coeffs(k1cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    k1st = chip_smoke._ds4_state(k1cfg, k1co, 2048, g, dev)
+    k1x = {kind: chip_smoke.split_input(kind, 2048, 131072, 0, dev)
+           for kind in ("words", "planes_int", "complex")}
+    for form, x in k1x.items():
+        for i16 in (False, True):
+            row("frontend_int8_taps", f"{form} {'int16' if i16 else 'f32'}"
+                " C=2048 B=131072",
+                _ms(lambda: kf.frontend(k1co, k1cfg, k1st, x, True, i16),
+                    a.reps))
+    del k1x
+
+    # the K1 engine probe's staged FIR and its split
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+
+    for r in fp.run(1024, 262144, {"split", "dbuf", "engines"}, a.reps, dev,
+                    check=False, emit=lambda r: None):
+        if r["variant"].startswith(("split:", "full:", "dots:")):
+            row(r["kernel"], f"probe {r['variant']}", r["ms"])
     return 0
 
 

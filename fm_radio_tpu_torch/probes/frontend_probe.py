@@ -1,30 +1,47 @@
 """Engine decomposition of the K1 front end (ds x4 + discriminator) on the card.
 
-Counterpart of ``tools/frontend_probe.py``: the float K1 (3.7 ms on words,
-5.0 on planes in the split cells, PERF.md) split into its parts by
-variants that strip one engine at a time, on the port's own K1 device code
-(``csrc/frontend_probe.cu``; ``frontend_stages.cuh`` and ``k12_stages.cuh``
-sum the windows, so ``full`` is the kernel the cells run):
+Counterpart of ``tools/frontend_probe.py``: the float K1 split into its
+parts by variants that strip one engine at a time, on the port's own K1
+design (``csrc/frontend_probe.cu``).  The cells' float K1 is
+``csrc/frontend.cu::k1_tile_kernel``: one launch that stages a tile of
+1,024 outputs once in shared memory as skewed float32 re and im planes,
+sums it register-blocked (``extract_stages.cuh::fir_block``, 64 taps) and
+ends in atan2 and the discriminator.  ``dots`` and ``full`` run that
+design at the probe's 132 taps:
 
   stream   read each (c_blk, t_blk) tile, one sum per row and tile
   unpack   + unpack the ingest form: the tile's sum of re - im
-  dots     + the ds x4 window sums of re and im (132 taps): fr + fi
+  dots     + the ds x4 window sums of re and im (132 taps), the tile
+           staged once and summed by ``fir_block<4, 8, 132, 4>`` (its
+           last block one step), re and im on separate warps: fr + fi
   full     + polynomial atan2 and the in-tile difference wrapped to
-           +-pi, x 0.123 (two launches, as K1)
+           +-pi, x 0.123, in the same launch (theta in shared memory)
 
-on the ingest forms (``f32w`` packed words w = I*256 + Q; ``i16`` words
-w - 32768; ``u8`` two int8 planes; ``f32p`` two float32 planes, the
-port's own, as K1 takes the complex cell's planes; planes given as
-[2, C, B]) with float taps
+so ``split``'s four rows on words (stream, unpack, dots, full) split K1's
+time as K1 spends it, at about twice its taps; on the ingest forms
+(``f32w`` packed words w = I*256 + Q; ``i16`` words w - 32768; ``u8`` two
+int8 planes; ``f32p`` two float32 planes, the port's own, as K1 takes the
+complex cell's planes; planes given as [2, C, B]) with float taps
 (float32; the TPU's bf16 hi/lo band) or int8 taps
 (``kernels/k12.py::quantize_ds4_taps``, y1 + y2/128 + s_row at the
-quantiser's scale, as the TPU's ``quantize_band_int8``); and the
+quantiser's scale, as the TPU's ``quantize_band_int8``; the staged
+samples packed into int8 words once and summed by K12's sliding
+``__dp4a`` window).  A CTA of ``dots``/``full`` takes up to 1,024 outputs
+of a tile (K1's tile: several rows of a short tile, a part of a long one),
+so ``c_blk``, ``t_blk``, ``raster`` and tile-major input set which
+samples a CTA reads and in what order, as they did on the TPU.  The
 alternative designs:
 
-  dbuf      packed words staged in shared memory, one CTA walking its
-            channels' time tiles with one buffer or two (cp.async fills
-            tile i+1 while tile i's FIR runs; the card's reading of the
-            TPU's parity double buffer)
+  dbuf      one CTA per c_blk channels walking their time tiles, the
+            window carried across tiles: each tile's raw words brought
+            into shared memory by cp.async (one buffer: load, then sum;
+            two: tile i+1's copy in flight while tile i is unpacked and
+            summed, the card's reading of the TPU's parity double buffer),
+            unpacked once into the skewed planes a group of up to 2,048
+            outputs a plane at a time (``dbuf_layout``), the carried head
+            kept as planes; ``tiles`` sweeps its tile with one buffer,
+            ``dbuf`` one buffer against two against ``direct`` (the
+            one-launch ``full`` above)
   i8direct  int8 planes and taps, windows read from device memory with
             the tail carried; ``noasm``: each tile's first ``no`` outputs
             read the tile from its start (mis-filtered, as the TPU lens)
@@ -39,8 +56,8 @@ shows.  What the TPU kernel never writes reads as zeros of the scratch's
 type: every tile's 128-sample head in build (0.0; int8 taps see
 int8(0 - 1)), the carried state at a channel block's first tile (dbuf: the
 sample (0, 0); i8direct: zero bytes).  The TPU's ``no`` (band width of its
-matrix unit) has no card counterpart in the direct-read kernels; it sets
-the default tile and, under ``noasm``/i8manual, the mis-filtered outputs.
+matrix unit) has no card counterpart in the staged kernels; it sets the
+default tile and, under ``noasm``/i8manual, the mis-filtered outputs.
 ``semantics`` maps to the grid's rasterisation: time tiles fastest (the
 TPU default) or channel tiles fastest (any semantics marking the channel
 axis parallel).
@@ -54,6 +71,8 @@ and atan2 on words and on planes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -327,16 +346,18 @@ def _check(name: str, x: torch.Tensor, form: str, tile_major: bool = False):
 
 
 def tile_sum(x: torch.Tensor, form: str, unpack: bool, c_blk: int,
-             t_blk: int, tile_major: bool = False, raster: int = 0):
+             t_blk: int, tile_major: bool = False, raster: int = 0,
+             out: tuple | None = None):
     """build's stream (``unpack`` False) or unpack variant: (last [C, 128],
-    sums [C, n_tt]).  CPU tensors run :func:`sum_plain`."""
+    sums [C, n_tt]); on the card written into ``out`` (last, sums) where
+    given.  CPU tensors run :func:`sum_plain`."""
     _check("tile_sum", x, form, tile_major)
     if _build.on_cpu("tile_sum", x.device):
         return sum_plain(x, form, unpack, t_blk, tile_major)
     global launches_sum
     c, b = _shape(x, form, t_blk, tile_major)
-    sums = torch.empty((c, b // t_blk), device=x.device)
-    last = torch.empty((c, 128), device=x.device)
+    last, sums = out or (torch.empty((c, 128), device=x.device),
+                         torch.empty((c, b // t_blk), device=x.device))
     fn = _build.function("frontend_probe", "fmt_fp_sum",
                          [_P, _P] + [_I] * 8 + [_P, _P, _P])
     _build.check("frontend_probe", fn(
@@ -350,8 +371,8 @@ def tile_sum(x: torch.Tensor, form: str, unpack: bool, c_blk: int,
 def fir(x: torch.Tensor, form: str, int8_taps: bool, full: bool, c_blk: int,
         t_blk: int, tile_major: bool = False, raster: int = 0,
         tb: dict | None = None) -> torch.Tensor:
-    """build's dots (``full`` False) or full variant: [C, B/4] float32.
-    CPU tensors run :func:`fir_plain`."""
+    """build's dots (``full`` False) or full variant: [C, B/4] float32,
+    one launch.  CPU tensors run :func:`fir_plain`."""
     _check("fir", x, form, tile_major)
     tb = tb or tables(x.device)
     if _build.on_cpu("fir", x.device):
@@ -359,21 +380,67 @@ def fir(x: torch.Tensor, form: str, int8_taps: bool, full: bool, c_blk: int,
     global launches_fir
     c, b = _shape(x, form, t_blk, tile_major)
     out = torch.empty((c, b // M), device=x.device)
-    theta = torch.empty_like(out) if full else out
     fn = _build.function("frontend_probe", "fmt_fp_fir",
                          [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F]
-                         + [_I] * 5 + [_P, _P, _P])
+                         + [_I] * 5 + [_P, _P])
     _build.check("frontend_probe", fn(
         *_planes_ptrs(x, form), FORMS[form], int(int8_taps), int(tile_major),
         int(full), tb["w_rev"].data_ptr(), tb["b1"].data_ptr(),
         tb["b2"].data_ptr(), NN, tb["s_row"], c, b, c_blk, t_blk, raster,
-        theta.data_ptr(), out.data_ptr(), _build.stream_ptr(x.device)))
+        out.data_ptr(), _build.stream_ptr(x.device)))
     launches_fir += 1
     return out
 
 
-def dbuf_smem(c_blk: int, t_blk: int, nbuf: int, full: bool) -> int:
-    return nbuf * c_blk * (HEAD + t_blk) * 4 + (c_blk * t_blk if full else 0)
+# fp_dbuf_kernel's shared memory.  The formula is the C side's
+# (csrc/frontend_probe.cu::fp_dbuf_layout, exported as fmt_fp_dbuf_layout),
+# which dbuf_layout reads on the card; below is its host copy, for the CPU
+# (the plain path's refusal and the tests' models), held equal to the C
+# side by chip_smoke.compare_fp_edges.
+RUN = 8             # outputs a thread
+DBUF_GROUP = 2048   # outputs a plane a group sums at most
+DBUF_MAX_SEGS = DBUF_GROUP // 128
+
+
+def _mid_skew(x: int) -> int:
+    return x + (x >> 5)
+
+
+def _seg_stride(ns: int) -> int:
+    """Floats between two segments' skewed planes (fp_stride)."""
+    return (_mid_skew(NN + 4 * ns - 1) + 1 + 31) // 32 * 32 + (ns // RUN) % 32
+
+
+def _group_floats(ns: int, p: int) -> int:
+    """fp_group_floats: the re and im planes of p segments of ns outputs,
+    the taps, the im sums, the runs' last and the segments' extra theta."""
+    return (2 * p * _seg_stride(ns) + NN + p * ns + p * ns // RUN
+            + DBUF_MAX_SEGS)
+
+
+def dbuf_layout(c_blk: int, t_blk: int, nbuf: int, device="cpu") -> dict:
+    """fp_dbuf_kernel's launch: the raw ring (nbuf tiles of c_blk x t_blk
+    words), the carried heads (2 x HEAD floats a channel), and a group of
+    ``segs`` segments of ``seg_outs`` outputs (the most, up to 2,048 a
+    plane, that fit), summed by ``threads`` threads; ``smem`` bytes in all
+    (fits when <= SMEM_BYTES).  On a CUDA device the C side computes it
+    (fmt_fp_dbuf_layout); on the CPU the host copy."""
+    if not _build.on_cpu("dbuf_layout", torch.device(device)):
+        out = (ctypes.c_int64 * 4)()
+        fn = _build.function("frontend_probe", "fmt_fp_dbuf_layout",
+                             [_I, _I, _I, _P])
+        _build.check("frontend_probe",
+                     fn(c_blk, t_blk, nbuf, ctypes.addressof(out)))
+        return {"segs": out[1], "seg_outs": out[0], "threads": out[2],
+                "smem": out[3]}
+    no = t_blk // M
+    ns = min(no, DBUF_GROUP)
+    own = nbuf * c_blk * t_blk + 2 * HEAD * c_blk
+    p = min(c_blk * (no // ns), DBUF_GROUP // ns)
+    while p > 1 and 4 * (own + _group_floats(ns, p)) > SMEM_BYTES:
+        p //= 2
+    return {"segs": p, "seg_outs": ns, "threads": p * ns // 4,
+            "smem": 4 * (own + _group_floats(ns, p))}
 
 
 def dbuf(xw: torch.Tensor, full: bool, c_blk: int, t_blk: int, nbuf: int,
@@ -382,7 +449,7 @@ def dbuf(xw: torch.Tensor, full: bool, c_blk: int, t_blk: int, nbuf: int,
     :func:`dbuf_plain`."""
     _check("dbuf", xw, "f32w")
     tb = tb or tables(xw.device)
-    if dbuf_smem(c_blk, t_blk, nbuf, full) > SMEM_BYTES:
+    if dbuf_layout(c_blk, t_blk, nbuf, xw.device)["smem"] > SMEM_BYTES:
         raise ValueError(f"dbuf: tile {c_blk}x{t_blk} x {nbuf} exceeds "
                          "shared memory")
     if _build.on_cpu("dbuf", xw.device):
@@ -480,6 +547,10 @@ def tile_major(x: torch.Tensor, form: str, t_blk: int) -> torch.Tensor:
 
 # ---- the sections ---------------------------------------------------------------
 
+# the tiles section's (c_blk, t_blk): dbuf with one buffer, beside stream
+TILES = ((1, 2048), (2, 2048), (4, 1024), (4, 2048), (4, 4096), (8, 2048),
+         (8, 4096), (16, 1024))
+
 def variant_fn(mode: str, x, form: str, int8_taps: bool, c_blk: int,
                t_blk: int, tm: bool = False, raster: int = 0, tb=None):
     """(kernel call, plain call, kernel name) of one build variant."""
@@ -554,11 +625,10 @@ def run(c: int, b: int, sections: set, iters: int, device,
                    variant_fn(mode, inp[form], form, False, c_blk, t_blk,
                                tb=tb), nb(form))
     if "tiles" in sections:
-        for c_blk, t_blk in ((1, 2048), (2, 2048), (4, 1024), (4, 2048),
-                             (4, 4096), (8, 2048), (8, 4096), (16, 1024)):
-            if not tiles_ok(c_blk, t_blk) or t_blk < 2 * HEAD:
+        for c_blk, t_blk in TILES:
+            if not tiles_ok(c_blk, t_blk):
                 continue
-            smem = dbuf_smem(c_blk, t_blk, 1, True)
+            smem = dbuf_layout(c_blk, t_blk, 1, device)["smem"]
             if smem > SMEM_BYTES:
                 continue
             go(f"stream:tile={c_blk}x{t_blk}",

@@ -146,8 +146,10 @@ def _check(name: str, *xs) -> None:
                              f"[C, N], got {x.dtype} {tuple(x.shape)}")
 
 
-def tile_sum(mode: str, xs, t_blk: int, c_blk: int = C_BLK):
-    """A stream-style variant: (last [C, 128], sums).  CPU tensors run
+def tile_sum(mode: str, xs, t_blk: int, c_blk: int = C_BLK,
+             out: tuple | None = None):
+    """A stream-style variant: (last [C, 128], sums); on the card written
+    into ``out`` (last, sums) where given.  CPU tensors run
     :func:`sum_plain`."""
     _check(mode, *xs)
     if _build.on_cpu(mode, xs[0].device):
@@ -155,8 +157,9 @@ def tile_sum(mode: str, xs, t_blk: int, c_blk: int = C_BLK):
     global launches_sum, launches_stream31
     rows, n = xs[0].shape
     c = rows // 3 if mode == "stream31" else rows
-    sums = torch.empty((rows, n // t_blk), device=xs[0].device)
-    last = torch.empty((c, 128), device=xs[0].device)
+    last, sums = out or (torch.empty((c, 128), device=xs[0].device),
+                         torch.empty((rows, n // t_blk),
+                                     device=xs[0].device))
     ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
     fn = _build.function("k3_probe", "fmt_k3_sum",
                          [_P, _P, _P] + [_I] * 5 + [_P, _P, _P])
