@@ -33,6 +33,12 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    to 0 just before and read just after; each kernel's representative
    variant beside its plain version and, for the per-tile sums, one
    PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``);
+2d. four probe kernels in turns with the one PyTorch call of the same
+   function (probes/vs_library.py, 25 rounds of 10 calls: the staged copy
+   against ``Tensor.copy_``, the K1 probe's and k3's tile sums against
+   ``sum(-1)``, the read against ``x.view(-1, 8, 128).sum((0, 1))``), each
+   with the paired sign test's verdict, put on the kernels line
+   (``library_ms``, ``rounds_kernel_slower``, ``loses``, ``wins``);
 3a. K12 (and the PLL, extract, BPSK) against their plain versions at
    C=8 x B=16,384, the int8-matrix channelizer at W=2 x T=32,768
    (:func:`compare_i8mat_small`) and the ds x4 kernels at C=8 x B=16,384
@@ -80,7 +86,13 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    both taps, dots and full, rows and tile-major, both rasters at tiles
    1 x 512 ... 2 x 8,192; fp_dbuf with one and two buffers, a tile over
    the shared memory refused; the dbuf layout's C side against its host
-   copy); the exact
+   copy); the streaming probe kernels on both builds, max abs error 0,
+   outputs poisoned first (:func:`compare_stream_edges`: the staged copy
+   on every variant at fewer chunks than issuers and with the last round
+   partial, its C plan against the host copy; the tile sums on every
+   form, stream and unpack, rows and tile-major, both rasters, and k3's
+   four modes, at tile lengths compiled and not, on grids larger and
+   smaller than the work); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -384,12 +396,21 @@ BENCH_AMP = 2.8
 # cores 989 TFLOP/s.  A kernel's bound is the larger of its bytes (each
 # input read once, each output written once) over the memory rate and its
 # operations over their peaks (float32, int8 and bf16 times added); see
-# work().  The memory rate is the data sheet's until phase 2b's sweep
-# (probes/hbm_sweep.py) measures the best copy rate this card reaches, and
-# that rate from then on (HBM_RATE_FROM says which).
+# work().  The memory rates are the data sheet's until phase 2b's sweep
+# (probes/hbm_sweep.py) measures the best copy rate and the best read rate
+# this card reaches, and those from then on (set_rates; HBM_RATE_FROM and
+# HBM_READ_RATE_FROM say which): a read-only kernel's bytes (READ_ONLY)
+# over the read rate, every other kernel's over the copy rate.  A
+# read-only probe kernel that reads faster than the sweep's best read
+# raises the read rate to its own (note_read).
 DATASHEET_HBM_BYTES_S = 3.35e12
 HBM_BYTES_S = DATASHEET_HBM_BYTES_S
 HBM_RATE_FROM = "data sheet"
+HBM_READ_BYTES_S = DATASHEET_HBM_BYTES_S
+HBM_READ_RATE_FROM = "data sheet"
+# the kernels that read their input and write next to nothing: the
+# per-tile sums of the engine probes and the sweep's read
+READ_ONLY = frozenset({"fp_sum", "k3_sum", "k3_stream31", "hbm_read"})
 F32_FLOP_S = 67e12
 I8_OP_S = 1979e12
 BF16_FLOP_S = 989e12  # bf16 on the tensor cores, dense
@@ -918,18 +939,47 @@ def serial_steps(name: str, args):
 
 
 def bound_of(nbytes: float, f32_ops: float = 0.0, i8_ops: float = 0.0,
-             bf16_ops: float = 0.0) -> dict:
+             bf16_ops: float = 0.0, read_only: bool = False) -> dict:
     """The least time the card could take to move ``nbytes`` and do the
-    operations: the larger of bytes / HBM_BYTES_S and the operations over
-    their peaks."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    operations: the larger of the bytes over the memory rate (the read
+    rate for a ``read_only`` kernel, else the copy rate) and the
+    operations over their peaks."""
+    rate, src = ((HBM_READ_BYTES_S, HBM_READ_RATE_FROM) if read_only
+                 else (HBM_BYTES_S, HBM_RATE_FROM))
+    t_bytes = nbytes / rate * 1e3
     t_ops = (f32_ops / F32_FLOP_S + i8_ops / I8_OP_S
              + bf16_ops / BF16_FLOP_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "f32_ops": f32_ops, "i8_ops": i8_ops,
-            "bf16_ops": bf16_ops, "hbm_bytes_s": HBM_BYTES_S,
-            "hbm_rate_from": HBM_RATE_FROM}
+            "bf16_ops": bf16_ops, "hbm_bytes_s": rate,
+            "hbm_rate": "read" if read_only else "copy",
+            "hbm_rate_from": src}
+
+
+def note_read(bytes_s: float, what: str) -> None:
+    """A read measured in this run at ``bytes_s``: where it is faster than
+    the best read so far it becomes the read rate (no bound is then under
+    a read the card was seen to make)."""
+    global HBM_READ_BYTES_S, HBM_READ_RATE_FROM
+    if bytes_s > HBM_READ_BYTES_S:
+        HBM_READ_BYTES_S = bytes_s
+        HBM_READ_RATE_FROM = (f"{what} in this run, "
+                              f"{bytes_s / 1e9:.1f} GB/s")
+
+
+def set_rates(sweep: dict) -> None:
+    """The byte rates of every bound from here on: the sweep's best copy
+    and best read (``probes/hbm_sweep.py::sweep``, its "best_copy" and
+    "best_read" rows)."""
+    global HBM_BYTES_S, HBM_RATE_FROM, HBM_READ_BYTES_S, HBM_READ_RATE_FROM
+    c, r = sweep["best_copy"], sweep["best_read"]
+    HBM_BYTES_S = c["gbps"] * 1e9
+    HBM_RATE_FROM = (f"probes/hbm_sweep.py in this run: best copy "
+                     f"{c['variant']}, {c['gbps']:.1f} GB/s")
+    HBM_READ_BYTES_S = r["gbps"] * 1e9
+    HBM_READ_RATE_FROM = (f"probes/hbm_sweep.py in this run: best read "
+                          f"{r['variant']}, {r['gbps']:.1f} GB/s")
 
 
 def bound(name: str, args) -> dict:
@@ -1299,7 +1349,8 @@ def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
     then for each probe kernel (the grid copy, the staged copy, the read)
     its fastest variant, its plain version timed once, and one PyTorch call
     of the same function (``Tensor.copy_``; for the read, the sum of every
-    column into its lane, ``x.view(-1, 128).sum(0)``) on the same array.
+    column into its lane, ``x.view(-1, 8, 128).sum((0, 1))``, and beside it
+    the column reduction ``x.view(-1, 128).sum(0)``) on the same array.
     Returns the sweep with {"kernels": {name: (variant, ms, plain ms,
     library ms, max abs error, bytes, float32 operations)}, "launches"}."""
     from fm_radio_tpu_torch.probes import hbm_sweep as hs
@@ -1318,21 +1369,25 @@ def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
     _, clone_ms = _cuda_ms(lambda: hs.grid_copy_plain(x, 1, 1), 1)
     kernels = {}
     for name, prefix in (("hbm_copy", "copy:"), ("hbm_dma_copy", "dma")):
-        best = max((r for r in res["rows"] if r["variant"].startswith(prefix)),
+        best = max((r for r in res["rows"] if r["kind"] == "copy"
+                    and r["variant"].startswith(prefix)),
                    key=lambda r: r["gbps"])
         kernels[name] = {"variant": best["variant"], "ms": best["ms"],
                          "plain_ms": clone_ms, "library_ms": copy_lib,
                          "max_abs_err": 0.0 if best["ok"] else math.inf,
                          "bytes": 2 * nbytes, "f32_ops": 0.0}
-    best = max((r for r in res["rows"] if r["variant"].startswith("read")),
-               key=lambda r: r["gbps"])
+    best = max((r for r in res["rows"] if r["variant"].startswith("read:")
+                and r["route"] == "cuda"), key=lambda r: r["gbps"])
     bm = int(best["variant"].split(":")[1].split("x")[0])
     kout = hs.read_sum(x, bm)
     pout, plain_ms = _cuda_ms(lambda: hs.read_sum_plain(x, bm), 1)
-    _, read_lib = _cuda_ms(lambda: x.view(-1, 128).sum(0), 5)
+    # the same function in one call, and the column reduction that stood
+    # as the library call before (a pathological reduction over 2 M rows)
+    _, read_lib = _cuda_ms(lambda: x.view(-1, 8, 128).sum((0, 1)), 5)
+    _, read_lib_cols = _cuda_ms(lambda: x.view(-1, 128).sum(0), 5)
     kernels["hbm_read"] = {
         "variant": best["variant"], "ms": best["ms"], "plain_ms": plain_ms,
-        "library_ms": read_lib,
+        "library_ms": read_lib, "library_ms_view128_sum0": read_lib_cols,
         "max_abs_err": float((kout - pout).abs().max()),
         "bytes": nbytes + 4 * 128, "f32_ops": float(x.numel())}
     res["kernels"] = kernels
@@ -1522,13 +1577,19 @@ def probe_phase(device) -> dict:
         if w["library"] is not None:
             w["library"]()
             _, lib_ms = _cuda_ms(w["library"], 5)
-        b = bound_of(w["bytes"], w["f32_ops"], w["i8_ops"])
         kernels[name] = {"variant": variant, "ms": rep["ms"],
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "max_abs_err": err[name],
-                         "serial_steps": w["serial_steps"], **b}
+                         "serial_steps": w["serial_steps"], "w": w}
+        if name in READ_ONLY:  # a read faster than the sweep's raises it
+            note_read(w["bytes"] / rep["ms"] * 1e3,
+                      f"{name} {variant} (phase 2c)")
+    for name, k in kernels.items():
+        w = k.pop("w")
+        k.update(bound_of(w["bytes"], w["f32_ops"], w["i8_ops"],
+                          read_only=name in READ_ONLY))
         if "design_f32_ops" in w:
-            kernels[name]["design_f32_ops"] = w["design_f32_ops"]
+            k["design_f32_ops"] = w["design_f32_ops"]
     return {"small": [dict(r, probe=p) for p, rs in small.items()
                       for r in rs],
             "rows": rows, "launches": launches, "kernels": kernels}
@@ -3208,6 +3269,94 @@ def compare_fp_edges(device="cuda", seed: int = 5) -> list[dict]:
     return rows
 
 
+# the streaming probe kernels' edge cases (compare_stream_edges): the tile
+# sums at (C, B, c_blk) shapes whose items are fewer than the persistent
+# grid's warps, and many more with a partial last round; at every tile
+# length the lane loop is compiled for (1,024-4,096) and two it is not
+STREAM_EDGE_SHAPES = ((16, 8192, 8), (1000, 16384, 40))
+STREAM_EDGE_TBLKS = (512, 1024, 2048, 4096, 8192)
+
+
+def compare_stream_edges(device="cuda", seed: int = 7) -> list[dict]:
+    """The redesigned streaming probe kernels against their plain versions
+    at their edges, max abs error 0, outputs poisoned with NaN first: the
+    staged copy (``hbm_sweep.dma_copy``) on every dma variant at 5 chunks
+    (fewer than its issuers) and at 2.5 rounds of them plus one (the last
+    round partial), with the C side's plan against its host copy; the
+    tile sums on every K1-probe form, stream and unpack, rows and
+    tile-major, both rasters, and k3's four modes, at STREAM_EDGE_SHAPES x
+    STREAM_EDGE_TBLKS.  One row a case (kernel, case, max_abs_err, ok)."""
+    from fm_radio_tpu_torch.probes import _probe
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+    from fm_radio_tpu_torch.probes import hbm_sweep as hs
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    rows = []
+
+    def row(kernel, case, kout, pout, **kw):
+        e = _probe.max_err(kout, pout)
+        rows.append({"kernel": kernel, "case": case, "max_abs_err": e,
+                     "ok": e == 0.0, **kw})
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g = torch.Generator(device=device).manual_seed(seed)
+    for kib in hs.DMA_CHUNKS_KIB:
+        for nbuf in (1, 2):
+            chunk = kib * 1024
+            if nbuf * chunk > hs.DMA_SMEM:
+                continue
+            _, per_cta = hs.dma_plan(chunk, chunk, nbuf, sms)
+            issuers = sms * per_cta
+            for n_chunks in (5, 2 * issuers + issuers // 2 + 1):
+                nbytes = n_chunks * chunk
+                plan = hs.dma_plan(nbytes, chunk, nbuf, sms)
+                x = torch.randn((nbytes // (4 * hs.LANES), hs.LANES),
+                                generator=g, device=device)
+                y = torch.full_like(x, math.nan)
+                row("hbm_dma_copy", f"dma{nbuf}:{kib}KiB:chunks={n_chunks}",
+                    hs.dma_copy(x, chunk, nbuf, out=y), x, plan=plan,
+                    plan_card=hs.dma_plan_card(nbytes, chunk, nbuf, sms))
+                rows[-1]["ok"] &= rows[-1]["plan"] == rows[-1]["plan_card"]
+                del x, y
+
+    def poisoned(c, rows_, t_blk, b):
+        return (torch.full((c, 128), math.nan, device=device),
+                torch.full((rows_, b // t_blk), math.nan, device=device))
+
+    for c, b, c_blk in STREAM_EDGE_SHAPES:
+        inp = fp.make_inputs(c, b, device, seed=seed)
+        xs = k3.make_inputs(c, b, device, seed=seed)
+        x3 = k3.stack31(xs, c_blk)
+        for t_blk in STREAM_EDGE_TBLKS:
+            if b % t_blk:
+                continue
+            shape = f"C={c}:B={b}:tile={c_blk}x{t_blk}"
+            for form in fp.FORMS:
+                for tm in (False, True):
+                    x = fp.tile_major(inp[form], form, t_blk) if tm \
+                        else inp[form]
+                    for unpack in (False, True):
+                        pout = fp.sum_plain(x, form, unpack, t_blk, tm)
+                        for raster in (0, 1):
+                            kout = fp.tile_sum(
+                                x, form, unpack, c_blk, t_blk, tm, raster,
+                                out=poisoned(c, c, t_blk, b))
+                            row("fp_sum", f"{'unpack' if unpack else 'stream'}"
+                                f":{form}:{'TM' if tm else 'rows'}:raster="
+                                f"{raster}:{shape}", kout, pout)
+            for mode in ("stream1", "stream", "phasor", "stream31"):
+                planes = (x3,) if mode == "stream31" else xs
+                rows_ = 3 * c if mode == "stream31" else c
+                kout = k3.tile_sum(mode, planes, t_blk, c_blk,
+                                   out=poisoned(c, rows_, t_blk, b))
+                row("k3_stream31" if mode == "stream31" else "k3_sum",
+                    f"{mode}:{shape}", kout,
+                    k3.sum_plain(mode, planes, t_blk, c_blk))
+        del inp, xs, x3
+    torch.cuda.synchronize(device)
+    return rows
+
+
 def fp_floor(c: int, b: int, nn: int = 132) -> dict:
     """The K1 probe FIR's issue floor, ms (computed, not measured): nn
     FMUL and nn FADD on each of the two planes an output (-fmad=false), at
@@ -3794,9 +3943,8 @@ def main() -> int:
         f"{_build.build_dir(checked=True).name}: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 2b. the device-memory sweep: its best copy rate becomes the byte
-    # rate of every bound
-    global HBM_BYTES_S, HBM_RATE_FROM
+    # 2b. the device-memory sweep: its best copy and read rates become the
+    # byte rates of every bound
     t0 = time.perf_counter()
     hbm = hbm_phase(dev)
     for r in hbm["rows"]:
@@ -3806,13 +3954,14 @@ def main() -> int:
     if bad or not all(k["max_abs_err"] == 0.0
                       for k in hbm["kernels"].values()):
         raise RuntimeError(f"HBM probes wrong: {bad}, {hbm['kernels']}")
-    HBM_BYTES_S = best["gbps"] * 1e9
-    HBM_RATE_FROM = (f"probes/hbm_sweep.py in this run: {best['variant']}, "
-                     f"{best['gbps']:.1f} GB/s")
+    set_rates(hbm)
+    rd = hbm["best_read"]
     log(f"[hbm] best copy {best['variant']} {best['gbps']:.1f} GB/s "
         f"({100 * HBM_BYTES_S / DATASHEET_HBM_BYTES_S:.1f}% of the "
-        f"{DATASHEET_HBM_BYTES_S / 1e12:.2f} TB/s data sheet): the byte rate "
-        f"of every bound below; {time.perf_counter() - t0:.1f} s")
+        f"{DATASHEET_HBM_BYTES_S / 1e12:.2f} TB/s data sheet), best read "
+        f"{rd['variant']} {rd['gbps']:.1f} GB/s: the byte rates of every "
+        f"bound below (the read rate for {sorted(READ_ONLY)}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 2c. the engine probes: each kernel against its plain version, then
     # the probes' sections at their default shapes, compared and counted
@@ -3836,6 +3985,32 @@ def main() -> int:
     if idle:
         raise RuntimeError(f"engine probe kernels not launched by their "
                            f"sections: {idle}")
+
+    # 2d. four probe kernels against the one PyTorch call of the same
+    # function, in turns (probes/vs_library.py: 25 rounds of 10 calls, the
+    # paired sign test)
+    t0 = time.perf_counter()
+    from fm_radio_tpu_torch.probes import vs_library
+
+    turns = {r["case"]: r for r in vs_library.run(dev)}
+    for r in turns.values():
+        log(f"[vs_library] {json.dumps(r)}")
+    log(f"[vs_library] {time.perf_counter() - t0:.1f} s")
+
+    def in_turns_keys(n: str) -> dict:
+        """The kernels line's keys from the in-turns case of kernel n: the
+        PyTorch call's median (its library_ms), the paired verdict and
+        both sides' numbers."""
+        r = turns.get(n)
+        if r is None:
+            return {}
+        return {"library_ms": r["library"]["median_ms"],
+                "rounds_kernel_slower": r["rounds_kernel_slower"],
+                "loses": r["loses"], "wins": r["wins"],
+                "in_turns": {k: r[k] for k in (
+                    "what", "kernel", "library", "median_diff_ms",
+                    "rounds_kernel_faster", "rounds_needed", "rounds",
+                    "calls_a_round")}}
 
     # 3. kernel against plain on the card
     t0 = time.perf_counter()
@@ -4009,6 +4184,23 @@ def main() -> int:
             log(f"[compare] K1 probe edge off: {json.dumps(r)}")
         cases = [(r["kernel"], r["case"], r.get("build")) for r in bad]
         raise RuntimeError(f"K1 probe edge shapes disagree: {cases}")
+    # the streaming probe kernels (the staged copy, the tile sums) at
+    # their edges on both builds
+    sedge = compare_stream_edges(dev)
+    try:
+        with _build.checked_build():
+            sedge += [dict(r, build="checked")
+                      for r in compare_stream_edges(dev, seed=8)]
+    except RuntimeError as e:
+        raise RuntimeError(f"stream edges on the bounds-checked build: {e}")
+    bad = [r for r in sedge if not r["ok"]]
+    log(f"[compare] stream edges: {len(sedge)} cases on both builds, "
+        f"{len(bad)} off; {sorted({r['kernel'] for r in sedge})}")
+    for r in bad:
+        log(f"[compare] stream edge off: {json.dumps(r)}")
+    if bad:
+        raise RuntimeError(f"stream edge cases disagree: "
+                           f"{[(r['kernel'], r['case'], r.get('build')) for r in bad]}")
     # the exact channelizer at every M instantiation and its edge shapes,
     # on both builds; the megakernel at the chain cell's shape on the
     # checked build (its small shapes are in the repeats above)
@@ -4499,7 +4691,7 @@ def main() -> int:
     # the device-memory probes: each at its fastest variant of the sweep
     for n, src, rep in PROBE_KERNELS:
         pk = hbm["kernels"][n]
-        b = bound_of(pk["bytes"], pk["f32_ops"])
+        b = bound_of(pk["bytes"], pk["f32_ops"], read_only=n in READ_ONLY)
         kernels.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "launches": hbm["launches"][n],
@@ -4507,8 +4699,11 @@ def main() -> int:
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": pk["library_ms"],
-            "variant": pk["variant"], "hbm_bytes_s": HBM_BYTES_S,
-            "work": {"bytes": pk["bytes"], "f32_ops": pk["f32_ops"]}})
+            "variant": pk["variant"], "hbm_bytes_s": b["hbm_bytes_s"],
+            "hbm_rate": b["hbm_rate"], "hbm_rate_from": b["hbm_rate_from"],
+            "work": {"bytes": pk["bytes"], "f32_ops": pk["f32_ops"]},
+            **{k: v for k, v in pk.items() if k.startswith("library_ms_")},
+            **in_turns_keys(n)})
     # the engine probes: each at its representative row of its sections
     for n, src, rep in ENGINE_KERNELS:
         pk = eng["kernels"][n]
@@ -4519,7 +4714,9 @@ def main() -> int:
             "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
             "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
-            "variant": pk["variant"], "hbm_bytes_s": HBM_BYTES_S,
+            "variant": pk["variant"], "hbm_bytes_s": pk["hbm_bytes_s"],
+            "hbm_rate": pk["hbm_rate"], "hbm_rate_from": pk["hbm_rate_from"],
+            **in_turns_keys(n),
             "work": {key: pk[key] for key in ("bytes", "f32_ops", "i8_ops",
                                               "design_f32_ops") if key in pk},
             **({"serial_steps": pk["serial_steps"]}

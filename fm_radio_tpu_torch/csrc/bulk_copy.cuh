@@ -56,11 +56,25 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
-// one expected arrival and one copy
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+// an L2 cache policy that evicts the lines it touches first: for data
+// read once or written once
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(pol));
+  return pol;
+}
+
+// one expected arrival and one copy, under an L2 cache policy
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t pol) {
   mbar_expect(bar, bytes);
-  bulk_g2s(dst, src, bytes, bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(pol)
+      : "memory");
 }
 
 // make this thread's shared-memory writes visible to the async proxy
@@ -77,6 +91,15 @@ __device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
                : "memory");
 }
 
+// bulk_s2g under an L2 cache policy
+__device__ __forceinline__ void bulk_s2g_hint(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;" ::"l"(dst), "r"(smem_addr(src)), "r"(bytes), "l"(pol)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -90,16 +113,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 // wait until every bulk group has completed its writes
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// shared -> global in its own bulk group, then wait for every group's
-// writes
-__device__ __forceinline__ void bulk_store_wait(void* dst, const void* src,
-                                                uint32_t bytes) {
-  fence_async_shared();
-  bulk_s2g(dst, src, bytes);
-  bulk_commit();
-  bulk_wait_all();
 }
 
 // 16 bytes global -> shared by this thread (cp.async), in its commit group

@@ -139,93 +139,115 @@ struct I8Pair {
 
 // ---- stream / unpack: the per-tile sums ---------------------------------
 
+// Each Op of tile_sum_kernel: kVec elements a 16-byte vector, kPlanes
+// vectors a fetch (one of each plane), base(r, ti, t_blk) the tile's first
+// element, fetch(b, v) vector v of the tile, add(acc, raw) its elements in
+// order, done(acc) the lane's value.
+
 // packed words, float4 at a time: the word (stream) or re - im (unpack)
 template <bool kUnpack, bool kTM>
 struct WordsSum : KeepAll {
-  static constexpr int kVec = 4;
+  static constexpr int kVec = 4, kPlanes = 1;
+  using Raw = float4;
+  using Acc = float;
   const float* x;
   int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const float4* p =
-        (const float4*)(x + tile_base(r, ti, rows, n, t_blk, kTM));
-    float acc = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const float4 v = p[k * 32 + l];
-      const float e[4] = {v.x, v.y, v.z, v.w};
+  __device__ __forceinline__ Acc zero() const { return 0.0f; }
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, kTM);
+  }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return ld_once((const float4*)(x + b) + v);
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& v) const {
+    const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if constexpr (kUnpack) {
-          float re, im;
-          PackedWords::unpack1(e[u], re, im);
-          acc += re - im;
-        } else {
-          acc += e[u];
-        }
+    for (int u = 0; u < 4; ++u) {
+      if constexpr (kUnpack) {
+        float re, im;
+        PackedWords::unpack1(e[u], re, im);
+        acc += re - im;
+      } else {
+        acc += e[u];
       }
     }
-    return acc;
   }
+  __device__ __forceinline__ float done(Acc acc) const { return acc; }
 };
 
 // int16 words, eight to 16 bytes: (float) w (stream) or re - im (unpack)
 template <bool kUnpack, bool kTM>
 struct I16Sum : KeepAll {
-  static constexpr int kVec = 8;
+  static constexpr int kVec = 8, kPlanes = 1;
+  using Raw = int4;
+  using Acc = float;
   const int16_t* x;
   int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const int16_t* base = x + tile_base(r, ti, rows, n, t_blk, kTM);
-    const int4* p = (const int4*)base;
-    float acc = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const int4 v = p[k * 32 + l];
-      const int16_t* e = (const int16_t*)&v;
+  __device__ __forceinline__ Acc zero() const { return 0.0f; }
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, kTM);
+  }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return ld_once((const int4*)(x + b) + v);
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& raw) const {
+    const int4 v = raw;
+    const int16_t* e = (const int16_t*)&v;
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) {
-        if constexpr (kUnpack) {
-          float re, im;
-          I16Words::unpack1(e[u], re, im);
-          acc += re - im;
-        } else {
-          acc += (float)e[u];
-        }
+    for (int u = 0; u < kVec; ++u) {
+      if constexpr (kUnpack) {
+        float re, im;
+        I16Words::unpack1(e[u], re, im);
+        acc += re - im;
+      } else {
+        acc += (float)e[u];
       }
     }
-    return acc;
   }
+  __device__ __forceinline__ float done(Acc acc) const { return acc; }
+};
+
+// the sums of two planes, added at the end (stream), or one sum (unpack)
+struct PairAcc {
+  float r, q;
 };
 
 // two int8 planes, sixteen to 16 bytes: the sum of each plane, added at
 // the end (stream), or (r + 1) - (q + 1) (unpack)
 template <bool kUnpack, bool kTM>
 struct U8Sum : KeepAll {
-  static constexpr int kVec = 16;
+  static constexpr int kVec = 16, kPlanes = 2;
+  struct Raw {
+    int4 r, q;
+  };
+  using Acc = PairAcc;
   const int8_t* xr;
   const int8_t* xq;
   int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const int64_t b0 = tile_base(r, ti, rows, n, t_blk, kTM);
-    const int4* pr = (const int4*)(xr + b0);
-    const int4* pq = (const int4*)(xq + b0);
-    float ar = 0.0f, aq = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const int4 vr = pr[k * 32 + l], vq = pq[k * 32 + l];
-      const int8_t* er = (const int8_t*)&vr;
-      const int8_t* eq = (const int8_t*)&vq;
+  __device__ __forceinline__ Acc zero() const { return {0.0f, 0.0f}; }
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, kTM);
+  }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return {ld_once((const int4*)(xr + b) + v),
+            ld_once((const int4*)(xq + b) + v)};
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& raw) const {
+    const int4 vr = raw.r, vq = raw.q;
+    const int8_t* er = (const int8_t*)&vr;
+    const int8_t* eq = (const int8_t*)&vq;
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) {
-        if constexpr (kUnpack) {
-          ar += ((float)er[u] + 1.0f) - ((float)eq[u] + 1.0f);
-        } else {
-          ar += (float)er[u];
-          aq += (float)eq[u];
-        }
+    for (int u = 0; u < kVec; ++u) {
+      if constexpr (kUnpack) {
+        acc.r += ((float)er[u] + 1.0f) - ((float)eq[u] + 1.0f);
+      } else {
+        acc.r += (float)er[u];
+        acc.q += (float)eq[u];
       }
     }
-    return kUnpack ? ar : ar + aq;
+  }
+  __device__ __forceinline__ float done(Acc acc) const {
+    return kUnpack ? acc.r : acc.r + acc.q;
   }
 };
 
@@ -233,31 +255,37 @@ struct U8Sum : KeepAll {
 // the end (stream), or re - im (unpack)
 template <bool kUnpack, bool kTM>
 struct F32PairSum : KeepAll {
-  static constexpr int kVec = 4;
+  static constexpr int kVec = 4, kPlanes = 2;
+  struct Raw {
+    float4 r, q;
+  };
+  using Acc = PairAcc;
   const float* xr;
   const float* xq;
   int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const int64_t b0 = tile_base(r, ti, rows, n, t_blk, kTM);
-    const float4* pr = (const float4*)(xr + b0);
-    const float4* pq = (const float4*)(xq + b0);
-    float ar = 0.0f, aq = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const float4 vr = pr[k * 32 + l], vq = pq[k * 32 + l];
-      const float er[4] = {vr.x, vr.y, vr.z, vr.w};
-      const float eq[4] = {vq.x, vq.y, vq.z, vq.w};
+  __device__ __forceinline__ Acc zero() const { return {0.0f, 0.0f}; }
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, kTM);
+  }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return {ld_once((const float4*)(xr + b) + v),
+            ld_once((const float4*)(xq + b) + v)};
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& v) const {
+    const float er[4] = {v.r.x, v.r.y, v.r.z, v.r.w};
+    const float eq[4] = {v.q.x, v.q.y, v.q.z, v.q.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if constexpr (kUnpack) {
-          ar += er[u] - eq[u];
-        } else {
-          ar += er[u];
-          aq += eq[u];
-        }
+    for (int u = 0; u < 4; ++u) {
+      if constexpr (kUnpack) {
+        acc.r += er[u] - eq[u];
+      } else {
+        acc.r += er[u];
+        acc.q += eq[u];
       }
     }
-    return kUnpack ? ar : ar + aq;
+  }
+  __device__ __forceinline__ float done(Acc acc) const {
+    return kUnpack ? acc.r : acc.r + acc.q;
   }
 };
 

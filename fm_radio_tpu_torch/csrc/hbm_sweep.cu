@@ -11,13 +11,21 @@
 //                         buffers.  Hopper's bulk asynchronous copy
 //                         (cp.async.bulk, global -> shared completing on an
 //                         mbarrier, shared -> global in a bulk group) moves
-//                         each chunk; one thread of each CTA issues them,
-//                         and the CTAs walk the chunks in a stride.  One
-//                         buffer: load, wait, store, wait, as the TPU
-//                         kernel's nbuf = 1; two: the next chunk's load is
-//                         in flight while this one is stored.  The TPU
-//                         kernel's chunks are 1-4 MB of VMEM; here a chunk
-//                         is what shared memory holds (16-128 KiB).
+//                         each chunk; lane 0 of each warp issues them
+//                         (several issuers a CTA, each with its own
+//                         buffers, one CTA an SM: dma_plan), and the
+//                         issuers walk the chunks in a stride.  One
+//                         buffer: a chunk's load waits until the previous
+//                         store has read the buffer, as the TPU kernel's
+//                         nbuf = 1; two: the next chunk's load is in
+//                         flight while this one is stored.  A store is
+//                         waited for only until it has read its buffer
+//                         (its write stays in flight), and loads and
+//                         stores evict first from L2.  The TPU kernel's
+//                         chunks are 1-4 MB of VMEM; here a chunk is what
+//                         shared memory holds (16-128 KiB).  The sweep
+//                         also times its loads alone and its stores
+//                         alone (`half`).
 //   hbm_read_kernel       pallas_read (:159, _read_kernel :149): a
 //                         read-only sum of x [R, 1024] into [1, 128].  The
 //                         TPU kernel keeps lanes 0-127 of each block's
@@ -50,30 +58,71 @@ __global__ void hbm_grid_copy_kernel(const float4* __restrict__ x,
   }
 }
 
+// The staged copy's plan: each issuer is lane 0 of one warp, with nbuf
+// buffers of `chunk` bytes of the CTA's shared memory; a CTA holds as many
+// issuers as shared memory takes (kDmaIssuers at most), one CTA an SM,
+// no more CTAs than the chunks need.  Issuer q of Q (q = CTA * per_cta +
+// warp) copies chunks q, q + Q, q + 2Q, ...  The host copy is
+// probes/hbm_sweep.py::dma_plan (and dma_walk for the chunks).
+constexpr int kDmaIssuers = 32;
+constexpr int kDmaSmem = 232448 - 2 * 8 * kDmaIssuers;  // beside the barriers
+
+inline void dma_plan(int64_t n_chunks, int chunk, int nbuf, int sms,
+                     int& ctas, int& per_cta) {
+  per_cta = kDmaSmem / (nbuf * chunk);
+  if (per_cta > kDmaIssuers) per_cta = kDmaIssuers;
+  const int64_t want = per_cta > 0 ? (n_chunks + per_cta - 1) / per_cta : 0;
+  ctas = (int)(want < sms ? want : sms);
+}
+
+// Each issuer: the first nbuf chunks' loads, then per chunk: wait for its
+// load, store it (its own bulk group), and once that store has READ the
+// buffer (wait_group.read: its write to device memory stays in flight)
+// load the chunk nbuf rounds on into it.  One buffer: a chunk's load
+// starts after the previous chunk's store has left the buffer; two: the
+// next chunk's load is in flight while this one is stored.  Every load
+// and store carries the L2 policy evict-first (each byte read once and
+// written once); the writes are waited for once, at the end.  half 1
+// runs the loads alone (nothing is stored), half 2 the stores alone (each
+// chunk of y gets whatever the buffer holds): the copy's two halves, timed
+// apart by the sweep.
 __global__ void hbm_dma_copy_kernel(const char* __restrict__ x,
                                     char* __restrict__ y, int64_t n_chunks,
-                                    int chunk, int nbuf) {
+                                    int chunk, int nbuf, int half) {
   extern __shared__ __align__(128) unsigned char buf[];
-  __shared__ __align__(8) uint64_t bar[2];
-  if (threadIdx.x != 0) return;
+  __shared__ __align__(8) uint64_t bars[kDmaIssuers][2];
+  const int w = threadIdx.x >> 5;
+  const int64_t q_all = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t first = (int64_t)blockIdx.x * (blockDim.x >> 5) + w;
+  if ((threadIdx.x & 31) != 0 || first >= n_chunks) return;
+  unsigned char* mine = buf + (size_t)w * nbuf * chunk;
+  uint64_t* bar = bars[w];
   for (int s = 0; s < nbuf; ++s) mbar_init(&bar[s]);
   mbar_fence_init();
-  uint32_t phase[2] = {0u, 0u};
-  const int64_t step = gridDim.x;
-  int64_t i = blockIdx.x;
-  if (i >= n_chunks) return;
-  bulk_load(buf, x + i * chunk, chunk, &bar[0]);
-  for (int k = 0; i < n_chunks; i += step, ++k) {
-    const int s = nbuf == 2 ? (k & 1) : 0;
-    if (nbuf == 2 && i + step < n_chunks)
-      bulk_load(buf + (1 - s) * chunk, x + (i + step) * chunk, chunk,
-                &bar[1 - s]);
-    mbar_wait(&bar[s], phase[s]);
-    phase[s] ^= 1u;
-    bulk_store_wait(y + i * chunk, buf + s * chunk, chunk);
-    if (nbuf == 1 && i + step < n_chunks)
-      bulk_load(buf, x + (i + step) * chunk, chunk, &bar[0]);
+  const uint64_t pol = l2_evict_first();
+  const bool load = half != 2, store = half != 1;
+  for (int s = 0; s < nbuf && first + s * q_all < n_chunks; ++s)
+    if (load)
+      bulk_load_hint(mine + s * chunk, x + (first + s * q_all) * chunk, chunk,
+                     &bar[s], pol);
+  int64_t k = 0;
+  for (int64_t i = first; i < n_chunks; i += q_all, ++k) {
+    const int s = (int)(k % nbuf);
+    if (load) mbar_wait(&bar[s], (uint32_t)(k / nbuf) & 1u);
+    if (store) {
+      fence_async_shared();
+      bulk_s2g_hint(y + i * chunk, mine + s * chunk, chunk, pol);
+      bulk_commit();
+    }
+    const int64_t next = i + nbuf * q_all;
+    if (next < n_chunks) {
+      if (store) bulk_wait_read<0>();
+      if (load)
+        bulk_load_hint(mine + s * chunk, x + next * chunk, chunk, &bar[s],
+                       pol);
+    }
   }
+  bulk_wait_all();
 }
 
 // x [R, 1024]: CTA b sums rows b*bm .. b*bm + bm - 1; thread t holds the
@@ -137,20 +186,38 @@ extern "C" int fmt_hbm_grid_copy(const float* x, float* y, int rows, int n,
 }
 
 // x, y of nbytes, 16-byte aligned; chunk | nbytes, chunk % 16 == 0,
-// nbuf * chunk <= 227 KiB; ctas CTAs (one issuing thread each).
+// nbuf * chunk <= kDmaSmem; dma_plan's grid on the current device.  half
+// 0 the copy, 1 its loads alone, 2 its stores alone.
 extern "C" int fmt_hbm_dma_copy(const void* x, void* y, int64_t nbytes,
-                                int chunk, int nbuf, int ctas,
+                                int chunk, int nbuf, int half,
                                 cudaStream_t stream) {
-  if (chunk <= 0 || chunk % 16 || nbytes % chunk || (nbuf != 1 && nbuf != 2)
-      || nbuf * chunk > 232448 || ctas <= 0)
+  if (chunk <= 0 || chunk % 16 || nbytes <= 0 || nbytes % chunk ||
+      (nbuf != 1 && nbuf != 2) || (int64_t)nbuf * chunk > kDmaSmem ||
+      half < 0 || half > 2)
     return (int)cudaErrorInvalidValue;
-  const int smem = nbuf * chunk;
-  cudaError_t e = cudaFuncSetAttribute(
-      hbm_dma_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  hbm_dma_copy_kernel<<<ctas, 32, smem, stream>>>(
-      (const char*)x, (char*)y, nbytes / chunk, chunk, nbuf);
+  int ctas, per_cta;
+  dma_plan(nbytes / chunk, chunk, nbuf, sms, ctas, per_cta);
+  const int smem = per_cta * nbuf * chunk;
+  e = cudaFuncSetAttribute(hbm_dma_copy_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  hbm_dma_copy_kernel<<<ctas, 32 * per_cta, smem, stream>>>(
+      (const char*)x, (char*)y, nbytes / chunk, chunk, nbuf, half);
   FMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// dma_plan for the host's copy to be held against: out = {ctas, per_cta}.
+extern "C" int fmt_hbm_dma_plan(int64_t nbytes, int chunk, int nbuf, int sms,
+                                int* out) {
+  if (chunk <= 0 || nbytes % chunk || (nbuf != 1 && nbuf != 2))
+    return (int)cudaErrorInvalidValue;
+  dma_plan(nbytes / chunk, chunk, nbuf, sms, out[0], out[1]);
   return 0;
 }
 

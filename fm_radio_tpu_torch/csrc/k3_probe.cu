@@ -38,26 +38,31 @@
 
 namespace fmt {
 
+// The Ops of tile_sum_kernel (probe_sum.cuh; frontend_probe.cu says what
+// each member does).
+
 // float32 rows, float4 at a time (stream1; stream31 keeps rows k < c_blk
 // of each 3 * c_blk row group, at g * c_blk + k)
 struct F32Sum {
-  static constexpr int kVec = 4;
+  static constexpr int kVec = 4, kPlanes = 1;
+  using Raw = float4;
+  using Acc = float;
   const float* x;
   int rows, n, c_blk;  // c_blk > 0: the stream31 row groups
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const float4* p = (const float4*)(x + tile_base(r, ti, rows, n, t_blk,
-                                                    false));
-    float acc = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const float4 v = p[k * 32 + l];
-      acc += v.x;
-      acc += v.y;
-      acc += v.z;
-      acc += v.w;
-    }
-    return acc;
+  __device__ __forceinline__ Acc zero() const { return 0.0f; }
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, false);
   }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return ld_once((const float4*)(x + b) + v);
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& v) const {
+    acc += v.x;
+    acc += v.y;
+    acc += v.z;
+    acc += v.w;
+  }
+  __device__ __forceinline__ float done(Acc acc) const { return acc; }
   __device__ __forceinline__ bool keep(int r, int rows_blk, int& o) const {
     if (c_blk == 0) {
       o = r;
@@ -69,61 +74,72 @@ struct F32Sum {
   }
 };
 
-// three float32 planes: the lane's sums of re, im and dt, added as
-// (re + im) + dt
-struct F32Sum3 : KeepAll {
-  static constexpr int kVec = 4;
+// the same sample of the three float32 planes re, im, dt
+struct Three {
+  float4 r, i, d;
+};
+
+struct ThreePlanes : KeepAll {
+  static constexpr int kVec = 4, kPlanes = 3;
+  using Raw = Three;
   const float *xr, *xi, *dt;
   int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const int64_t b0 = tile_base(r, ti, rows, n, t_blk, false);
-    const float4* p[3] = {(const float4*)(xr + b0), (const float4*)(xi + b0),
-                          (const float4*)(dt + b0)};
-    float a[3] = {0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
+  __device__ __forceinline__ int64_t base(int r, int ti, int t_blk) const {
+    return tile_base(r, ti, rows, n, t_blk, false);
+  }
+  __device__ __forceinline__ Raw fetch(int64_t b, int v) const {
+    return {ld_once((const float4*)(xr + b) + v),
+            ld_once((const float4*)(xi + b) + v),
+            ld_once((const float4*)(dt + b) + v)};
+  }
+};
+
+// three float32 planes: the lane's sums of re, im and dt, added as
+// (re + im) + dt
+struct F32Sum3 : ThreePlanes {
+  struct Acc {
+    float a[3];
+  };
+  __device__ __forceinline__ Acc zero() const { return {{0.0f, 0.0f, 0.0f}}; }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& v) const {
+    const float4 p[3] = {v.r, v.i, v.d};
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float4 v = p[q][k * 32 + l];
-        a[q] += v.x;
-        a[q] += v.y;
-        a[q] += v.z;
-        a[q] += v.w;
-      }
+    for (int q = 0; q < 3; ++q) {
+      acc.a[q] += p[q].x;
+      acc.a[q] += p[q].y;
+      acc.a[q] += p[q].z;
+      acc.a[q] += p[q].w;
     }
-    return (a[0] + a[1]) + a[2];
+  }
+  __device__ __forceinline__ float done(const Acc& acc) const {
+    return (acc.a[0] + acc.a[1]) + acc.a[2];
   }
 };
 
 // the four mixes of each sample (harmonics 2 and 3, offset 0) summed:
 // ((L-R re + L-R im) + RDS re) + RDS im
-struct PhasorSum : KeepAll {
-  static constexpr int kVec = 4;
-  const float *xr, *xi, *dt;
-  int rows, n;
-  __device__ __forceinline__ float lane(int r, int ti, int l,
-                                        int t_blk) const {
-    const int64_t b0 = tile_base(r, ti, rows, n, t_blk, false);
-    const float4* pr = (const float4*)(xr + b0);
-    const float4* pi = (const float4*)(xi + b0);
-    const float4* pd = (const float4*)(dt + b0);
-    float co, so;
-    offset_phasor(0.0f, co, so);
-    float acc = 0.0f;
-    for (int k = 0; k < t_blk / (32 * kVec); ++k) {
-      const float4 vr = pr[k * 32 + l], vi = pi[k * 32 + l],
-                   vd = pd[k * 32 + l];
-      const float er[4] = {vr.x, vr.y, vr.z, vr.w};
-      const float ei[4] = {vi.x, vi.y, vi.z, vi.w};
-      const float ed[4] = {vd.x, vd.y, vd.z, vd.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float vmr, vmi, vrr, vri;
-        mix_sample(er[u], ei[u], ed[u], co, so, vmr, vmi, vrr, vri);
-        acc += ((vmr + vmi) + vrr) + vri;
-      }
-    }
+struct PhasorSum : ThreePlanes {
+  struct Acc {
+    float s, co, so;  // the sum, and offset 0's phasor
+  };
+  __device__ __forceinline__ Acc zero() const {
+    Acc acc{0.0f, 0.0f, 0.0f};
+    offset_phasor(0.0f, acc.co, acc.so);
     return acc;
+  }
+  __device__ __forceinline__ void add(Acc& acc, const Raw& v) const {
+    const float er[4] = {v.r.x, v.r.y, v.r.z, v.r.w};
+    const float ei[4] = {v.i.x, v.i.y, v.i.z, v.i.w};
+    const float ed[4] = {v.d.x, v.d.y, v.d.z, v.d.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float vmr, vmi, vrr, vri;
+      mix_sample(er[u], ei[u], ed[u], acc.co, acc.so, vmr, vmi, vrr, vri);
+      acc.s += ((vmr + vmi) + vrr) + vri;
+    }
+  }
+  __device__ __forceinline__ float done(const Acc& acc) const {
+    return acc.s;
   }
 };
 
@@ -224,10 +240,10 @@ extern "C" int fmt_k3_sum(const float* x, const float* x2, const float* x3,
       return launch_tile_sum(F32Sum{x, channels, n, 0}, channels, c_blk,
                              n_tt, t_blk, 0, sums, last, stream);
     case 1:
-      return launch_tile_sum(F32Sum3{{}, x, x2, x3, channels, n}, channels,
+      return launch_tile_sum(F32Sum3{{{}, x, x2, x3, channels, n}}, channels,
                              c_blk, n_tt, t_blk, 0, sums, last, stream);
     case 2:
-      return launch_tile_sum(PhasorSum{{}, x, x2, x3, channels, n}, channels,
+      return launch_tile_sum(PhasorSum{{{}, x, x2, x3, channels, n}}, channels,
                              c_blk, n_tt, t_blk, 0, sums, last, stream);
     default:
       return launch_tile_sum(F32Sum{x, 3 * channels, n, c_blk}, 3 * channels,

@@ -51,6 +51,58 @@ def last_tile(sums: torch.Tensor) -> torch.Tensor:
     return sums[:, -1:].expand(sums.shape[0], 128).contiguous()
 
 
+# tile_sum_kernel's walk (csrc/probe_sum.cuh; this is its host copy):
+# the tile lengths its lane loop is compiled for, the 16-byte loads a lane
+# keeps in flight at most, and a CTA's warps
+SUM_T_BLKS = (1024, 2048, 4096)
+SUM_LOADS = 8
+SUM_WARPS = 8
+
+
+def sum_item(i: int, rows: int, n_tt: int, raster: int) -> tuple[int, int]:
+    """(row, time tile) of item i (``sum_item``): raster 0 each row's
+    tiles in order, row after row; raster 1 every row's tile ti, then
+    tile ti + 1."""
+    if raster == 0:
+        return i // n_tt, i % n_tt
+    return i % rows, i // rows
+
+
+def sum_grid(rows: int, n_tt: int) -> int:
+    """The launch's warps (``launch_tile_sum_k``): a CTA of SUM_WARPS for
+    every SUM_WARPS items."""
+    return -(-rows * n_tt // SUM_WARPS) * SUM_WARPS
+
+
+def sum_walk(rows: int, n_tt: int, raster: int, warps: int) -> list:
+    """Each of ``warps`` warps' items in the order it sums them, each as
+    (row, tile): warp p takes items p, p + warps, ... (one each on the
+    launch's grid, :func:`sum_grid`)."""
+    items = rows * n_tt
+    return [[sum_item(i, rows, n_tt, raster) for i in range(p, items, warps)]
+            for p in range(warps)]
+
+
+def sum_batch(k: int, planes: int) -> int:
+    """A row's vectors a batch at a compiled length of k vectors a lane
+    (``sum_batch``): the largest power of two dividing k with a batch of
+    every plane within SUM_LOADS loads, at least 1."""
+    b = 1
+    while b * 2 <= k and k % (b * 2) == 0 and b * 2 * planes <= SUM_LOADS:
+        b *= 2
+    return b
+
+
+def lane_order(t_blk: int, vec: int, planes: int) -> list[list[int]]:
+    """The batches in which a lane fetches its vectors k of a row's tile
+    (vector k * 32 + lane): at a compiled length sum_batch's batches, at
+    any other one vector at a time.  Each batch's loads go out before its
+    first add; the adds follow k in order."""
+    k = t_blk // (WARP * vec)
+    b = sum_batch(k, planes) if t_blk in SUM_T_BLKS else 1
+    return [list(range(k0, k0 + b)) for k0 in range(0, k, b)]
+
+
 def parse(argv, doc: str, positional: list[tuple[str, int]],
           sections: str, iters: int) -> argparse.Namespace:
     """The probes' command line: the TPU tool's positional shape

@@ -48,7 +48,13 @@ checkout's kernels and prints one JSON row per case:
   (C = 1,024 x B = 262,144): ``split``'s rows on words and planes,
   ``dbuf``'s (``full:double-buf:tile=8x2048`` among them) and the
   engines' ``full:no=128:f32`` (each the probe's best of 3 over chained
-  calls).
+  calls);
+- the streaming probe kernels, into outputs made once: the staged copy
+  (``probes/hbm_sweep.py::dma_copy``) on every variant ``dma{1,2}:{16,
+  32,64,128}KiB`` that fits, on a 256 MiB float32 array; the K1 probe's
+  tile sums (stream and unpack) on each ingest form at its default shape
+  and tiles; k3's stream1, stream, phasor and stream31 at C = 1,024 x
+  B8 = 32,768, t = 1,024.
 
 Each time is the mean of ``--reps`` calls after one (CUDA events), beside
 the card's name and power limit.  Exits 1 without a CUDA device.
@@ -318,6 +324,44 @@ def main(argv=None) -> int:
                     check=False, emit=lambda r: None):
         if r["variant"].startswith(("split:", "full:", "dots:")):
             row(r["kernel"], f"probe {r['variant']}", r["ms"])
+
+    # the streaming probe kernels, each writing into outputs made once: the
+    # staged copy's variants on the sweep's 256 MiB array, the K1 probe's
+    # stream and unpack on every form (C = 1,024 x B = 262,144, 128 x 2,048
+    # tiles), k3's stream-style modes (C = 1,024 x B8 = 32,768, t = 1,024)
+    from fm_radio_tpu_torch.probes import hbm_sweep as hs
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    x = torch.randn((65536, hs.LANES), device=dev)
+    y = torch.empty_like(x)
+    for kib in hs.DMA_CHUNKS_KIB:
+        for nbuf in (1, 2):
+            if nbuf * kib * 1024 > hs.SMEM_BYTES:
+                continue
+            row("hbm_dma_copy", f"dma{nbuf}:{kib}KiB 256 MiB",
+                _ms(lambda: hs.dma_copy(x, kib * 1024, nbuf, out=y), a.reps))
+    del x, y
+    c, b = 1024, 262144
+    inp = fp.make_inputs(c, b, dev)
+    outs = (torch.empty((c, 128), device=dev),
+            torch.empty((c, b // 2048), device=dev))
+    for form in fp.FORMS:
+        for mode in ("stream", "unpack"):
+            row("fp_sum", f"probe {mode}:{form}:tile=128x2048",
+                _ms(lambda: fp.tile_sum(inp[form], form, mode == "unpack",
+                                        128, 2048, out=outs), a.reps))
+    del inp
+    xs = k3.make_inputs(1024, 32768, dev)
+    x3 = k3.stack31(xs, k3.C_BLK)
+    for mode in ("stream1", "stream", "phasor", "stream31"):
+        planes = (x3,) if mode == "stream31" else xs
+        n_rows = 3 * 1024 if mode == "stream31" else 1024
+        outs = (torch.empty((1024, 128), device=dev),
+                torch.empty((n_rows, 32), device=dev))
+        row("k3_stream31" if mode == "stream31" else "k3_sum",
+            f"probe {mode}:t=1024",
+            _ms(lambda: k3.tile_sum(mode, planes, 1024, k3.C_BLK, out=outs),
+                a.reps))
     return 0
 
 

@@ -350,7 +350,9 @@ def tile_sum(x: torch.Tensor, form: str, unpack: bool, c_blk: int,
              out: tuple | None = None):
     """build's stream (``unpack`` False) or unpack variant: (last [C, 128],
     sums [C, n_tt]); on the card written into ``out`` (last, sums) where
-    given.  CPU tensors run :func:`sum_plain`."""
+    given.  The kernel's warps walk the (row, tile) items in ``raster``'s
+    order (``_probe.sum_walk``), so ``c_blk`` only has to divide C.  CPU
+    tensors run :func:`sum_plain`."""
     _check("tile_sum", x, form, tile_major)
     if _build.on_cpu("tile_sum", x.device):
         return sum_plain(x, form, unpack, t_blk, tile_major)

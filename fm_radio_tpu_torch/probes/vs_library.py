@@ -1,4 +1,4 @@
-"""Three probe kernels against the one PyTorch call of the same function,
+"""Four probe kernels against the one PyTorch call of the same function,
 timed in turns on one card.
 
     python -m fm_radio_tpu_torch.probes.vs_library [--rounds 25] [--reps 10]
@@ -12,18 +12,24 @@ The cases, each at the shape ``chip_smoke.py`` times it at:
   128 x 2048 tiles) against ``x.view(C, n_tt, 2048).sum(-1)``, at C =
   1,024 x B = 262,144;
 - ``k3_stream31`` (``probes/k3_probe.py::tile_sum("stream31")``) against
-  ``x3.view(3C, n_tt, 1024).sum(-1)``, at C = 1,024 x B8 = 32,768.
+  ``x3.view(3C, n_tt, 1024).sum(-1)``, at C = 1,024 x B8 = 32,768;
+- ``hbm_read`` (``probes/hbm_sweep.py::read_sum``, 512-row blocks: every
+  column c into lane c % 128) against ``x.view(-1, 8, 128).sum((0, 1))``,
+  the same function in one call, on the sweep's array.
 
 Both sides write into outputs made once beforehand (the probes' tile sums
 also write their ``last`` [C, 128], 0.05% of the bytes), so a call is one
-launch on each side.  Each round times ``reps`` chained calls of one side
-and then of the other (``ab_time._ms``: CUDA events, after one call), the
-kernel first in even rounds and the library call first in odd ones.  One
-JSON row a case: each side's median, minimum and maximum ms a call over
-the rounds, the median of the per-round differences (kernel - library),
-the rounds in which the kernel was slower, and ``loses``: the kernel's
-median above the library's by more than either side's spread (maximum -
-minimum).  The first line names the card and its power limit.  Exits 1
+launch on each side (the read two: its blocks' sums, then their sum).
+Each round times ``reps`` chained calls of one side and then of the other
+(``ab_time._ms``: CUDA events, after one call), the kernel first in even
+rounds and the library call first in odd ones.  One JSON row a case: each
+side's median, minimum and maximum ms a call over the rounds, the median
+of the per-round differences (kernel - library), the rounds in which the
+kernel was slower and faster, and the verdict of a one-sided sign test on
+the paired rounds at 1% (:func:`verdict`): ``loses`` where the kernel was
+slower in at least :func:`sign_need` of the rounds that were not ties
+(19 of 25) and the median difference is above 0, ``wins`` the same the
+other way.  The first line names the card and its power limit.  Exits 1
 without a CUDA device.
 """
 
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 
@@ -40,6 +47,37 @@ from fm_radio_tpu_torch.probes import frontend_probe as fp
 from fm_radio_tpu_torch.probes import hbm_sweep as hs
 from fm_radio_tpu_torch.probes import k3_probe as k3
 from fm_radio_tpu_torch.probes.ab_time import _ms
+
+
+SIGN_LEVEL = 0.01  # the sign test's one-sided level
+
+
+def sign_need(n: int, level: float = SIGN_LEVEL) -> int:
+    """The fewest of n paired rounds that one side must win for a
+    one-sided sign test at ``level``: the least s with P(X >= s) <= level
+    for X ~ Binomial(n, 1/2) (19 for n = 25); n + 1 where no s will do."""
+    tail = 0.0
+    for s in range(n, -1, -1):
+        tail += math.comb(n, s) / 2.0 ** n
+        if tail > level:
+            return s + 1
+    return 0
+
+
+def verdict(diffs: list) -> dict:
+    """The paired rule on per-round differences (kernel - library, ms):
+    ties (0) drop out, as a sign test drops them; the kernel ``loses``
+    where it was slower in at least sign_need(rounds not tied) rounds and
+    the median difference is above 0, and ``wins`` where it was faster in
+    as many and the median is below 0."""
+    slower = sum(d > 0 for d in diffs)
+    faster = sum(d < 0 for d in diffs)
+    need = sign_need(slower + faster)
+    med = statistics.median(diffs)
+    return {"median_diff_ms": med, "rounds_kernel_slower": slower,
+            "rounds_kernel_faster": faster, "rounds_needed": need,
+            "loses": slower >= need and med > 0,
+            "wins": faster >= need and med < 0}
 
 
 def in_turns(kernel, library, rounds: int, reps: int) -> dict:
@@ -52,19 +90,14 @@ def in_turns(kernel, library, rounds: int, reps: int) -> dict:
         else:
             ls.append(_ms(library, reps))
             ks.append(_ms(kernel, reps))
-    diffs = [k - lib for k, lib in zip(ks, ls)]
 
     def side(v):
         return {"median_ms": statistics.median(v), "min_ms": min(v),
                 "max_ms": max(v), "spread_ms": max(v) - min(v)}
 
-    k, lib = side(ks), side(ls)
-    gap = k["median_ms"] - lib["median_ms"]
-    return {"kernel": k, "library": lib,
-            "median_diff_ms": statistics.median(diffs),
-            "rounds_kernel_slower": sum(d > 0 for d in diffs),
-            "rounds": rounds, "calls_a_round": reps,
-            "loses": gap > max(k["spread_ms"], lib["spread_ms"])}
+    return {"kernel": side(ks), "library": side(ls),
+            **verdict([k - lib for k, lib in zip(ks, ls)]),
+            "rounds": rounds, "calls_a_round": reps}
 
 
 def cases(device) -> list:
@@ -85,6 +118,10 @@ def cases(device) -> list:
     k3_out = (torch.empty((1024, 128), device=device),
               torch.empty((3 * 1024, 32768 // 1024), device=device))
     k3_lib = torch.empty_like(k3_out[1])
+    bm = 512
+    rd_out = (torch.empty((rows // bm, 128), device=device),
+              torch.empty((1, 128), device=device))
+    rd_lib = torch.empty((128,), device=device)
     return [
         ("hbm_dma_copy", lambda: hs.dma_copy(x, 32 * 1024, 2, out=y),
          lambda: y.copy_(x), f"dma2:32KiB vs Tensor.copy_, {x.numel() * 4} "
@@ -98,7 +135,23 @@ def cases(device) -> list:
                                             out=k3_out),
          lambda: torch.sum(x3.view(3 * 1024, -1, 1024), -1, out=k3_lib),
          "stream31:t=1024 vs x3.view(3C, n_tt, 1024).sum(-1), 1024 x 32768"),
+        ("hbm_read", lambda: hs.read_sum(x, bm, out=rd_out),
+         lambda: torch.sum(x.view(-1, 8, 128), (0, 1), out=rd_lib),
+         f"read:{bm}x1024 vs x.view(-1, 8, 128).sum((0, 1)), "
+         f"{x.numel() * 4} bytes"),
     ]
+
+
+def run(device, rounds: int = 25, reps: int = 10, emit=None) -> list:
+    """Every case in turns (module docstring): one row each, also passed
+    to ``emit``."""
+    rows = []
+    for name, kern, lib, what in cases(device):
+        r = {"case": name, "what": what, **in_turns(kern, lib, rounds, reps)}
+        rows.append(r)
+        if emit is not None:
+            emit(r)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -114,10 +167,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"probe": "vs_library", "card": smi}), flush=True)
-    for name, kern, lib, what in cases(dev):
-        print(json.dumps({"case": name, "what": what,
-                          **in_turns(kern, lib, a.rounds, a.reps)}),
-              flush=True)
+    run(dev, a.rounds, a.reps, lambda r: print(json.dumps(r), flush=True))
     return 0
 
 
