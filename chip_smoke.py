@@ -92,7 +92,11 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    partial, its C plan against the host copy; the tile sums on every
    form, stream and unpack, rows and tile-major, both rasters, and k3's
    four modes, at tile lengths compiled and not, on grids larger and
-   smaller than the work); the exact
+   smaller than the work); the K2 probe's block recurrences on both
+   builds, max abs error 0 on re, im, theta and power, outputs filled with
+   NaN first (:func:`compare_k2_edges`: restruct:li[:stk] at every li, one
+   block, a ragged last chunk, C = 1 and 3; the layout's C side against
+   its host copy); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -3357,6 +3361,77 @@ def compare_stream_edges(device="cuda", seed: int = 7) -> list[dict]:
     return rows
 
 
+# the K2 probe's block recurrences at their edges (compare_k2_edges): (C,
+# blocks a channel): one block, a ragged last chunk (35: 32 + 3 de-emphasis
+# and stk blocks, 16 + 16 + 3 of the peak's), a chunk cut short, whole
+# chunks
+K2_EDGE_SHAPES = ((1, 1), (3, 35), (1, 17), (3, 64))
+
+
+def compare_k2_edges(device="cuda", seed: int = 3) -> list[dict]:
+    """restruct:li[:stk] (k2_deemph_block_kernel, k2_peak_block_kernel, and
+    the ds x2 and Hilbert launches between them) against its plain version
+    at every compiled li, both forms, at K2_EDGE_SHAPES, the outputs filled
+    with NaN first, max abs error 0 on each of re, im, theta and power; and
+    the layout's C side against its host copy for every li and kind.  One
+    row a case (kernel, case, max_abs_err, ok)."""
+    from fm_radio_tpu_torch.probes import _probe
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+
+    co = k2.coeffs(device)
+    rows = []
+    for li in k2.LI:
+        mats = k2.block_mats(li, device, co)
+        for c, nblk in K2_EDGE_SHAPES:
+            x = k2.make_input(c, 2 * li * nblk, device, seed=seed + nblk)
+            pout = k2.restruct_plain(x, li, co, mats)
+            for stk in ("", ":stk"):
+                mode = f"restruct:{li}{stk}"
+                out = (*(torch.full((c, li * nblk), math.nan, device=device)
+                         for _ in range(3)),
+                       torch.full((c,), math.nan, device=device))
+                kout = k2.variant(mode, x, 1024, co, mats, out=out)
+                errs = [_probe.max_err(a, b) for a, b in zip(kout, pout)]
+                rows.append({"kernel": "k2_restruct",
+                             "case": f"{mode}:C={c}:blocks={nblk}",
+                             "max_abs_err": max(errs),
+                             "errs_re_im_theta_power": errs,
+                             "ok": all(e == 0.0 for e in errs)})
+            del x, pout
+        for kind in k2.BLOCK_KINDS:
+            host = k2.block_layout(li, kind)
+            card = k2.block_layout(li, kind, device)
+            rows.append({"kernel": "k2_block_layout",
+                         "case": f"li={li}:{kind}", "host": host,
+                         "card": card, "max_abs_err": None,
+                         "ok": host == card})
+    torch.cuda.synchronize(device)
+    return rows
+
+
+def restruct_floor(c: int, l: int, li: int, sms: int | None = None,
+                   hz: float | None = None) -> dict:
+    """restruct:li's two block kernels' FMUL+FADD issue floor, ms
+    (computed, not measured): an output of the de-emphasis costs li + 1
+    (its in-block sum: (li + 1) / 2 multiply-adds on average, each an FMUL
+    and an FADD under -fmad=false) and 4 for the carries; of the peak IIR
+    li + 1 and 8 for each of its two chains, ATAN2_FLOPS for theta and 3
+    for the power; at 128 a clock an SM, at this card's SM count and
+    highest SM clock (or those given)."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hz is None:
+        hz = _sm_clock_hz()
+    per = {"deemph": li + 1 + 4,
+           "peak": 2 * (li + 1 + 8) + ATAN2_FLOPS + 3}
+    rate = 128.0 * sms * hz
+    ms = {k: float(c) * l * v / rate * 1e3 for k, v in per.items()}
+    return {"fmul_fadd_floor_ms": ms["deemph"] + ms["peak"],
+            "deemph_ms": ms["deemph"], "peak_ms": ms["peak"],
+            "instructions_an_output": per, "li": li, "sms": sms,
+            "sm_clock_hz": hz}
+
+
 def fp_floor(c: int, b: int, nn: int = 132) -> dict:
     """The K1 probe FIR's issue floor, ms (computed, not measured): nn
     FMUL and nn FADD on each of the two planes an output (-fmad=false), at
@@ -3978,6 +4053,13 @@ def main() -> int:
             # its bound
             k = dict(k, launches=eng["launches"][n],
                      **fp_floor(*PROBE_FULL["fp"]))
+        elif n == "k2_restruct":
+            # the block kernels' computed issue floor at every li
+            c, b4 = PROBE_FULL["k2"]
+            k = dict(k, launches=eng["launches"][n], floors={
+                li: restruct_floor(c, b4 // 2, li)["fmul_fadd_floor_ms"]
+                for li in (64, 128, 256, 512)},
+                **restruct_floor(c, b4 // 2, 128))
         log(f"[probe] kernel {n} {json.dumps(k)}")
     log(f"[probe] launches {json.dumps(eng['launches'])}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4201,6 +4283,22 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"stream edge cases disagree: "
                            f"{[(r['kernel'], r['case'], r.get('build')) for r in bad]}")
+    # the K2 probe's block recurrences at their edges on both builds
+    kedge = compare_k2_edges(dev)
+    try:
+        with _build.checked_build():
+            kedge += [dict(r, build="checked")
+                      for r in compare_k2_edges(dev, seed=4)]
+    except RuntimeError as e:
+        raise RuntimeError(f"K2 block edges on the bounds-checked build: {e}")
+    bad = [r for r in kedge if not r["ok"]]
+    log(f"[compare] K2 block edges: {len(kedge)} cases on both builds, "
+        f"{len(bad)} off; {sorted({r['kernel'] for r in kedge})}")
+    for r in bad:
+        log(f"[compare] K2 block edge off: {json.dumps(r)}")
+    if bad:
+        raise RuntimeError(f"K2 block edge cases disagree: "
+                           f"{[(r['case'], r.get('build')) for r in bad]}")
     # the exact channelizer at every M instantiation and its edge shapes,
     # on both builds; the megakernel at the chain cell's shape on the
     # checked build (its small shapes are in the repeats above)

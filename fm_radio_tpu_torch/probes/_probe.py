@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import torch
 
 WARP = 32
+SMEM_BYTES = 232448  # shared memory one CTA may use on this card
 
 
 def lane_sums(vals: torch.Tensor, vec: int) -> torch.Tensor:
@@ -159,7 +161,9 @@ def max_err(a, b) -> float:
     """Max abs difference over a tensor or a tuple of tensors (NaN where
     either side has one)."""
     if isinstance(a, (tuple, list)):
-        return max(max_err(x, y) for x, y in zip(a, b))
+        errs = [max_err(x, y) for x, y in zip(a, b)]
+        # Python's max drops a NaN that comes after a number
+        return math.nan if any(map(math.isnan, errs)) else max(errs)
     return float((a.float() - b.float()).abs().max())
 
 

@@ -3,6 +3,7 @@ so that two checkouts (a commit and its parent) can be compared in turns
 on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
+        [--reps N] [--k2-only]
 
 Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
@@ -54,7 +55,14 @@ checkout's kernels and prints one JSON row per case:
   32,64,128}KiB`` that fits, on a 256 MiB float32 array; the K1 probe's
   tile sums (stream and unpack) on each ingest form at its default shape
   and tiles; k3's stream1, stream, phasor and stream31 at C = 1,024 x
-  B8 = 32,768, t = 1,024.
+  B8 = 32,768, t = 1,024;
+- the K2 probe's block recurrences (``probes/k2_probe.py::variant``):
+  restruct:li and restruct:li:stk for li = 64, 128, 256, 512 at C = 1,024
+  x B4 = 65,536, and restruct:128 at the chunked cell's width, C = 256 x
+  B4 = 262,144: the variant (CUDA events) and the device time of each of
+  its four launches (``torch.profiler``: ``fir_decimate_kernel``,
+  ``k2_deemph_block_kernel``, ``k12_hilbert_kernel``,
+  ``k2_peak_block_kernel``).  ``--k2-only`` runs just these rows.
 
 Each time is the mean of ``--reps`` calls after one (CUDA events), beside
 the card's name and power limit.  Exits 1 without a CUDA device.
@@ -104,6 +112,11 @@ def _device_ms(fn, reps: int, key: str) -> float:
     """Device time per call of the CUDA kernels whose names contain
     ``key`` (``torch.profiler``, ``reps`` calls after one): the kernel
     alone, without the host's share of a call."""
+    return _device_ms_by(fn, reps, (key,))[key]
+
+
+def _device_ms_by(fn, reps: int, keys) -> dict:
+    """:func:`_device_ms` for several keys from one profiled window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,12 +128,43 @@ def _device_ms(fn, reps: int, key: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us = dict.fromkeys(keys, 0.0)
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += float(e.self_cuda_time_total if t is None else t)
-    return us / 1e3 / reps
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key in keys:
+            if key in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us[key] += float(e.self_cuda_time_total if t is None else t)
+    return {k: v / 1e3 / reps for k, v in us.items()}
+
+
+# restruct's launches, in order (csrc/k2_probe.cu::fmt_k2_restruct)
+K2_LAUNCHES = ("fir_decimate_kernel", "k2_deemph_block_kernel",
+               "k12_hilbert_kernel", "k2_peak_block_kernel")
+
+
+def k2_rows(row, reps: int, dev) -> None:
+    """The K2 probe's restruct variants (module docstring): one row each,
+    the variant's ms and its launches' device ms."""
+    from fm_radio_tpu_torch.probes import k2_probe as k2
+
+    every = [f"restruct:{li}{s}" for li in (64, 128, 256, 512)
+             for s in ("", ":stk")]
+    for c, b4, modes in ((1024, 65536, every), (256, 262144,
+                                                ["restruct:128"])):
+        x = k2.make_input(c, b4, dev)
+        co = k2.coeffs(dev)
+        for mode in modes:
+            mats = k2.block_mats(int(mode.split(":")[1]), dev, co)
+
+            def call():
+                return k2.variant(mode, x, 1024, co, mats)
+
+            row("k2_restruct", f"probe {mode} C={c} B4={b4}",
+                _ms(call, reps), launches_ms=_device_ms_by(call, reps,
+                                                           K2_LAUNCHES))
+        del x
 
 
 def main(argv=None) -> int:
@@ -129,6 +173,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--k2-only", action="store_true",
+                    help="only the K2 probe's restruct rows")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -164,6 +210,10 @@ def main(argv=None) -> int:
              "card": smi, **kw}
         rows.append(r)
         print(json.dumps(r), flush=True)
+
+    if a.k2_only:
+        k2_rows(row, a.reps, dev)
+        return 0
 
     # the cells end to end, and the two kernels on their cells' arguments
     from fm_radio_tpu_torch.kernels import midend as km
@@ -362,6 +412,8 @@ def main(argv=None) -> int:
             f"probe {mode}:t=1024",
             _ms(lambda: k3.tile_sum(mode, planes, 1024, k3.C_BLK, out=outs),
                 a.reps))
+    del xs, x3
+    k2_rows(row, a.reps, dev)
     return 0
 
 

@@ -88,7 +88,7 @@ M = 4
 HEAD = 128                 # the TPU tool's _TB
 NN = 128 + M               # create_fir_lpf(128 + _M, 0.25): halo 128
 SCALE = f32(0.123)
-SMEM_BYTES = 232448        # shared memory one CTA may use
+SMEM_BYTES = _probe.SMEM_BYTES  # shared memory one CTA may use
 FORMS = {"f32w": 0, "i16": 1, "u8": 2, "f32p": 3}
 BYTES_PER_SAMPLE = {"f32w": 4, "i16": 2, "u8": 2, "f32p": 8}
 PLANES = ("u8", "f32p")  # the forms given as [2, C, B] planes

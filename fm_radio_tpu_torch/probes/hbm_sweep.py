@@ -37,9 +37,10 @@ import json
 import torch
 
 from fm_radio_tpu_torch.kernels import _build
+from fm_radio_tpu_torch.probes import _probe
 
 LANES = 1024
-SMEM_BYTES = 232448  # shared memory one CTA may use on this card
+SMEM_BYTES = _probe.SMEM_BYTES  # shared memory one CTA may use
 # the staged copy's issuers a CTA at most, and the shared memory their
 # buffers may take beside their barriers (csrc/hbm_sweep.cu)
 DMA_ISSUERS = 32

@@ -2,8 +2,8 @@
 block-parallel recurrence.
 
 Counterpart of ``tools/k2_probe.py``: K2 (ds x2 + de-emphasis + Hilbert +
-pilot peak IIR + theta; 5.4 ms in the cells, the peak IIR alone 2.3,
-PERF.md) split by variants on fm_demod [C, B4] (``csrc/k2_probe.cu``):
+pilot peak IIR + theta; its times on the card in PERF.md section 6, rows 7
+and 13e) split by variants on fm_demod [C, B4] (``csrc/k2_probe.cu``):
 
   stream             re, im, theta copied from the halves of each tile
   ds2                + the ds x2 FIR (create_fir_lpf(64, 0.25)) into all
@@ -17,11 +17,15 @@ PERF.md) split by variants on fm_demod [C, B4] (``csrc/k2_probe.cu``):
                      de-emphasis at 2*3200/128000 and peak IIR b = [0.001,
                      0, -0.001], a = [1, -1.9989, 0.9998], theta, power)
   restruct:li[:stk]  the de-emphasis and the peak IIR as block-Toeplitz
-                     recurrences: li outputs in parallel per block, l/li
-                     serial steps instead of l (ROADMAP performance item
-                     2); h, hm, pm from :func:`iir_tile_mats`, the port's
-                     float32 copy of ``midend_pallas.py::_iir_tile_mats``;
-                     stk: re and im chains on the same threads
+                     recurrences: every block's in-block sums in parallel,
+                     l/li serial carry steps instead of l (ROADMAP
+                     performance item 2); h, hm, pm from
+                     :func:`iir_tile_mats`, the port's float32 copy of
+                     ``midend_pallas.py::_iir_tile_mats``; li one of 64,
+                     128, 256, 512 (the kernels' instantiations; the
+                     shared-memory layout :func:`block_layout`, the walk
+                     :func:`unit_rows`); stk: re and im chains on the same
+                     threads
 
 The TPU probe never writes its carried buffers and state, so every variant
 but ``stream`` is K2 on zero state (the kernels' and the plain versions'
@@ -58,6 +62,11 @@ LI = (64, 128, 256, 512)
 MODES = ("stream", "ds2", "hilb", "full", *(f"restruct:{li}{s}" for li in LI
                                            for s in ("", ":stk")))
 PEAK_B = (0.001, 0.0, -0.001)
+# restruct's kernels (csrc/k2_probe.cu): outputs a range, rows a unit (one
+# a lane), row padding, chains a chunk at most; the kinds of block_layout
+BLOCK_R, BLOCK_ROWS, BLOCK_PAD, BLOCK_CHAINS = 8, 32, 4, 64
+SMEM_BYTES = _probe.SMEM_BYTES
+BLOCK_KINDS = ("deemph", "peak", "peak:stk")
 PEAK_A = (1.0, -1.9989, 0.9998)
 
 # kernel launches since the counters were last set to 0
@@ -171,6 +180,55 @@ def block_mats(li: int, device="cpu", co=None) -> dict:
         t_mat, hm, pm = iir_tile_mats(b, a, li)
         out[key] = tuple(v.contiguous().to(device) for v in (t_mat[0], hm, pm))
     return out
+
+
+def block_layout(li: int, kind: str, device=None) -> dict:
+    """restruct:li's kernel layout for ``kind`` (BLOCK_KINDS): blocks a
+    chunk (each plane), units a chunk (stk: re, then im), threads a CTA
+    (li / 16 warps, a pair of ranges each) and bytes of shared memory (two
+    units of BLOCK_ROWS rows of li + BLOCK_PAD floats, h, hm and pm, the
+    chains' last sums, last inputs and carries).  The host copy of
+    ``csrc/k2_probe.cu::k2_block_layout``; on a CUDA ``device`` the C side's
+    (``fmt_k2_block_layout``).  Raises ValueError for an li the kernels are
+    not compiled for."""
+    if li not in LI or kind not in BLOCK_KINDS:
+        raise ValueError(f"k2_probe: no restruct kernel for li={li} "
+                         f"{kind!r} (li one of {LI})")
+    k = BLOCK_KINDS.index(kind)
+    if device is not None and torch.device(device).type == "cuda":
+        out = (ctypes.c_int * 4)()
+        fn = _build.function("k2_probe", "fmt_k2_block_layout",
+                             [_I, _I, _P])
+        _build.check("k2_probe", fn(li, k, out))
+        return dict(zip(("nb", "units", "threads", "smem"), out))
+    ord_ = 1 if k == 0 else 2
+    return {"nb": BLOCK_ROWS // 2 if k == 1 else BLOCK_ROWS,
+            "units": 2 if k == 2 else 1,
+            "threads": 32 * (li // BLOCK_R // 2),
+            "smem": 4 * (2 * BLOCK_ROWS * (li + BLOCK_PAD)
+                         + (1 + 2 * ord_) * li + BLOCK_CHAINS * 8)}
+
+
+def unit_rows(li: int, kind: str, nblk: int, u: int) -> list:
+    """Unit u's rows (one a lane) in the kernels' walk of a channel of nblk
+    blocks: (plane, block) each, or None past the last block (not loaded,
+    not stored).  deemph: 32 blocks; peak: 16 blocks, lanes 0-15 re
+    (plane 0), 16-31 im; peak:stk: 32 blocks of re (u even), then of im."""
+    g = block_layout(li, kind)
+    k, q = divmod(u, g["units"])
+    rows = []
+    for r in range(BLOCK_ROWS):
+        p = q if kind == "peak:stk" else r // g["nb"]
+        b = k * g["nb"] + r % g["nb"]
+        rows.append((p, b) if b < nblk else None)
+    return rows
+
+
+def block_units(li: int, kind: str, nblk: int) -> int:
+    """Units the kernels walk for a channel of nblk blocks (the last
+    chunk ragged where nb does not divide nblk)."""
+    g = block_layout(li, kind)
+    return -(-nblk // g["nb"]) * g["units"]
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -294,23 +352,48 @@ def _taps(co):
             co.taps_hilbert.flip(0).contiguous())
 
 
+def restruct_li(mode: str, n4: int) -> int:
+    """restruct:li[:stk]'s li; raises ValueError (before any launch, on
+    every device) for an li the kernels are not compiled for or one that
+    does not divide B4/2."""
+    li = int(mode.split(":")[1])
+    if li not in LI or n4 % 2 or (n4 // 2) % li:
+        raise ValueError(f"k2_probe: {mode} needs li one of {LI} dividing "
+                         f"B4/2, got B4={n4}")
+    return li
+
+
 def variant(mode: str, x: torch.Tensor, t_blk: int = 1024, co=None,
-            mats=None):
+            mats=None, out=None):
     """One variant on fm_demod x [C, B4] float32: (re, im, theta) [C, B4/2],
     with the power [C] for full and restruct.  CPU tensors run
-    :func:`variant_plain`."""
+    :func:`variant_plain`.  ``out``: restruct's (re, im, theta, power) to
+    write into (the card only; made here otherwise)."""
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"k2_probe: x must be contiguous float32 [C, B4], "
                          f"got {x.dtype} {tuple(x.shape)}")
+    li = restruct_li(mode, x.shape[1]) if mode.startswith("restruct") else 0
     co = co or coeffs(x.device)
     if _build.on_cpu("k2_probe", x.device):
+        if out is not None:
+            raise ValueError("k2_probe: out= is for the card's kernels")
         return variant_plain(mode, x, t_blk, co)
     global launches_engine, launches_full, launches_restruct
     c, n4 = x.shape
     dev = x.device
     w2, wh = _taps(co)
     zeros = _zeros(c, HALO, dev)
-    outs = [torch.empty((c, n4 // 2), device=dev) for _ in range(3)]
+    if out is not None:
+        if not mode.startswith("restruct"):
+            raise ValueError(f"k2_probe: out= is restruct's, not {mode}'s")
+        _build.require("k2_probe", dev, torch.float32, re=out[0], im=out[1],
+                       theta=out[2], power=out[3])
+        if (any(o.shape != (c, n4 // 2) for o in out[:3])
+                or out[3].shape != (c,)):
+            raise ValueError("k2_probe: out must be (re, im, theta) "
+                             "[C, B4/2] and power [C]")
+    outs = (list(out[:3]) if out is not None else
+            [torch.empty((c, n4 // 2), device=dev) for _ in range(3)])
     fm_out = torch.empty((c, n4 // 2), device=dev)
     ptrs = [o.data_ptr() for o in outs]
     stream = _build.stream_ptr(dev)
@@ -339,8 +422,9 @@ def variant(mode: str, x: torch.Tensor, t_blk: int = 1024, co=None,
             stream))
         launches_full += 1
         return (*outs, power)
-    li = int(mode.split(":")[1])
     mats = mats or block_mats(li, dev, co)
+    if out is not None:
+        power = out[3]
     fn = _build.function("k2_probe", "fmt_k2_restruct",
                          [_P, _I, _I, _I, _I, _P, _I, _P, _I] + [_P] * 13)
     _build.check("k2_probe", fn(
