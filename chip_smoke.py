@@ -32,7 +32,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    variant again against its plain version, and the launch counters set
    to 0 just before and read just after; each kernel's representative
    variant beside its plain version and, for the per-tile sums, one
-   PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``);
+   PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``); the int8-window
+   rows (fp_i8d's variants, fp_i8man's tiles) with their IDP4A issue
+   floor (:func:`i8_floor`);
 2d. four probe kernels and the mid end's de-emphasis route's two tiled
    kernels in turns with the one PyTorch call of the same function
    (probes/vs_library.py, 25 rounds of 10 calls: the staged copy against
@@ -101,7 +103,17 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    builds, max abs error 0 on re, im, theta and power, outputs filled with
    NaN first (:func:`compare_k2_edges`: restruct:li[:stk] at every li, one
    block, a ragged last chunk, C = 1 and 3; the layout's C side against
-   its host copy); the exact
+   its host copy); the de-emphasis recurrence against ``iir_filter`` on
+   both builds, max abs error 0 on the outputs and the state, memory
+   NaN-filled first (:func:`compare_deemph_edges`: C = 1, 40 and 2,048 at
+   13, 14, 15, 65, 195 and 229 batches of 16 steps (one chunk of the
+   lanes' rings and several, the last short), the lenses' 2,048 x 16,384
+   and the K2 probe's 1,024 x 32,768, in place and out of place); the K1
+   probe's manual pipeline against ``i8man_plain`` on both builds
+   (:func:`compare_man_edges`: the lens's tiles 8 x 2,048 and 8 x 4,096
+   and others, dots and full, no at its least, the lens's and its
+   most; a tile too large refused; its shared memory's C side against
+   the host copy); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -175,11 +187,13 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    C=2048 x B=131,072, bench.py's signal): one warm-up block, 8 counted
    blocks (every mid end launch on the de-emphasis route), K12 or K2
    timed alone beside its plain version on the last block's arguments,
-   and the route's ds x2 and Hilbert kernels alone beside theirs, with
-   their bounds and FMUL+FADD issue floors (computed); each lens
-   profiled (its profile must show the route's three kernels and none of
-   the launches route's ds x2 and Hilbert, nor K12's discriminator
-   launch);
+   and the route's ds x2, de-emphasis and Hilbert kernels alone beside
+   theirs, with their bounds and floors (computed: the FIRs' FMUL+FADD
+   issue floors, the de-emphasis's chain floor, :func:`deemph_floor`);
+   the de-emphasis launch's grid and block read from a profiler trace
+   against the host's plan; each lens profiled (its profile must show
+   the route's three kernels and none of the launches route's ds x2 and
+   Hilbert, nor K12's discriminator launch);
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -356,13 +370,16 @@ PROBE_SMALL = {"fp": (1024, 16384), "k2": (64, 8192), "k3": (128, 8192)}
 PROBE_FULL = {"fp": (1024, 262144), "k2": (1024, 65536), "k3": (1024, 32768),
               "chain": (256, 1 << 20, 8), "unfused": (256, 16384, 1)}
 PROBE_ITERS = 5
-# the mid end's de-emphasis route's two kernels (kernel-line name, CUDA
+# the mid end's de-emphasis route's three kernels (kernel-line name, CUDA
 # kernel, source, the TPU kernels whose de-emphasis form they run: K12's
 # and K2's, use_deemph at k12_pallas.py:69 and midend_pallas.py:147-161)
 DEEMPH_NEW_KERNELS = (
     ("mid_ds2", "k12_mid_ds2_kernel", "fm_radio_tpu_torch/csrc/k12_stages.cuh",
      "fm_radio_tpu/kernels/k12_pallas.py:59, "
      "fm_radio_tpu/kernels/midend_pallas.py:225"),
+    ("deemph", "k12_deemph_kernel", "fm_radio_tpu_torch/csrc/k12_stages.cuh",
+     "fm_radio_tpu/kernels/k12_pallas.py:69, "
+     "fm_radio_tpu/kernels/midend_pallas.py:147"),
     ("mid_hilb", "k12_mid_hilb_kernel",
      "fm_radio_tpu_torch/csrc/k12_stages.cuh",
      "fm_radio_tpu/kernels/k12_pallas.py:59, "
@@ -401,6 +418,7 @@ TOL = {"k12": 0.0, "pll": 0.0, "extract": 0.0, "bpsk": 0.0,
        "frontend_i8": 0.0, "midend": 0.0, "chain": 0.0,
        "pll_chunked": 0.0, "channelizer_i8mat": 0.0,
        "channelizer_bf16mat": 1.0, "mid_ds2": 0.0, "mid_hilb": 0.0,
+       "deemph": 0.0,
        # the int16 format: quantised stores leave no slack
        **dict.fromkeys(I16_BASE, 0.0)}
 BF16MAT_F32_REL = 1e-5
@@ -508,11 +526,12 @@ COUNTERS = (
     ("frontend_i8_i16", "frontend", "launches_i8_i16"),
     ("midend_i16", "midend", "launches_i16"),
     # the mid end's fused route and its de-emphasis route, launched by K12
-    # or K2 (each counts too), and the de-emphasis route's two kernels
+    # or K2 (each counts too), and the de-emphasis route's three kernels
     # alone (their comparisons and timings)
     ("midend_fused", "midend", "launches_fused"),
     ("midend_deemph", "midend", "launches_deemph"),
     ("mid_ds2", "midend", "launches_ds2"),
+    ("deemph", "midend", "launches_de"),
     ("mid_hilb", "midend", "launches_hilb"),
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
@@ -729,6 +748,10 @@ def stage_errors(name: str, kout, pout) -> dict:
                 "rel": _rel(sk["agc_pilot"], sp["agc_pilot"])}
     if name in ("mid_ds2", "mid_hilb"):  # tuples of planes
         return {"err": _max_err(zip(kout, pout))}
+    if name == "deemph":  # (state, y)
+        (sk, yk), (sp, yp) = kout, pout
+        return {"err": max(_max_err([(yk, yp)]),
+                           _max_err((sk[k], sp[k]) for k in sp))}
     if name in ("pll", "pll_chunked"):
         (sk, dt_k), (sp, dt_p) = kout, pout
         return {"err": max(_max_err([(dt_k, dt_p)]), _max_err(zip(sk, sp)))}
@@ -912,6 +935,10 @@ def work(name: str, args) -> tuple:
         return (_nbytes(src, *args[3:4]) + 4 * c * (n4 // 2)
                 + 2 * _nbytes(tail2),
                 float(c) * (n4 // 2) * 2 * args[0].shape[0] + disc, 0.0)
+    if name == "deemph":  # (b, a, state, x): y = the recurrence over x
+        x = args[3]
+        return (2 * _nbytes(x) + 4 * 4 * x.shape[0],
+                5.0 * x.numel(), 0.0)
     if name == "mid_hilb":  # (wh_rev, htail, fm_out[, out_i16])
         fm_out, htail = args[2], args[1]
         out_b = 12 if len(args) > 3 and args[3] else 8
@@ -994,6 +1021,8 @@ def serial_steps(name: str, args):
         return args[3].shape[-1] * (4 if name == "k12_ps" else 1) // 8
     if name == "midend":
         return args[3].shape[-1] // 2
+    if name == "deemph":
+        return args[3].shape[-1]
     return None
 
 
@@ -1804,10 +1833,14 @@ DEEMPH_GONE = {"presplit_de": ("fir_decimate_kernel", "k12_hilbert_kernel",
 
 
 def mid_floor(name: str, args) -> dict:
-    """The FMUL+FADD issue floor of the de-emphasis route's kernel ``name``
-    ("mid_ds2", "mid_hilb") on its arguments, ms (computed, not measured):
-    an FMUL and an FADD a tap an output (-fmad=false), at 128 a clock an
-    SM, at this card's SM count and highest SM clock."""
+    """The floor of the de-emphasis route's kernel ``name`` on its
+    arguments, ms (computed, not measured): for "mid_ds2" and "mid_hilb"
+    the FMUL+FADD issue floor, an FMUL and an FADD a tap an output
+    (-fmad=false), at 128 a clock an SM, at this card's SM count and
+    highest SM clock; for "deemph" the recurrence's chain floor
+    (:func:`deemph_floor`)."""
+    if name == "deemph":
+        return deemph_floor(args[3].shape[-1])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     hz = _sm_clock_hz()
     taps = args[0].shape[0]
@@ -1818,12 +1851,13 @@ def mid_floor(name: str, args) -> dict:
 
 
 def deemph_args(label: str, calls: dict) -> dict:
-    """The de-emphasis route's two kernels' arguments on a lens's recorded
-    block (``calls``: K12's or K2's): ds x2 on theta1 (K12, made by the
-    plain ds x4 from the block) or on fm_demod (K2) with the carried ds x2
-    tail; Hilbert on that block's de-emphasised fm_out (the plain ds x2
-    and de-emphasis, which the kernels equal bit for bit) with the carried
-    Hilbert tail."""
+    """The de-emphasis route's three kernels' arguments on a lens's
+    recorded block (``calls``: K12's or K2's): ds x2 on theta1 (K12, made
+    by the plain ds x4 from the block) or on fm_demod (K2) with the carried
+    ds x2 tail; the de-emphasis on that block's fm_out (the plain ds x2,
+    which the kernel equals bit for bit) with the carried de-emphasis
+    state; Hilbert on the de-emphasised fm_out with the carried Hilbert
+    tail."""
     from fm_radio_tpu_torch.kernels import midend as km
     from fm_radio_tpu_torch.kernels.frontend import _scale, ds4_theta_plain
     from fm_radio_tpu_torch.ops.iir import iir_filter
@@ -1837,8 +1871,9 @@ def deemph_args(label: str, calls: dict) -> dict:
     else:
         ds2 = (a["w2_rev"], a["tail2"], x)
     fm_out, _ = km.mid_ds2_plain(*ds2)
-    _, fm_out = iir_filter(co.deemph_b, co.deemph_a, st["deemph"], fm_out)
-    return {"mid_ds2": ds2,
+    de = (co.deemph_b, co.deemph_a, st["deemph"], fm_out.contiguous())
+    _, fm_out = iir_filter(*de)
+    return {"mid_ds2": ds2, "deemph": de,
             "mid_hilb": (a["wh_rev"], a["htail"], fm_out.contiguous())}
 
 
@@ -1894,7 +1929,55 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     (res["kernel_ms"], res["plain_ms"], res["compare"],
      res["bound"]) = time_stages({mid: calls[mid], **alone})
     res["floors"] = {n: mid_floor(n, a) for n, a in alone.items()}
+    # the de-emphasis launch's grid and block as the card ran them, against
+    # the host's plan (kernels/midend.py::midend_plan, DEEMPH_LANES)
+    from fm_radio_tpu_torch.kernels import midend as km
+
+    st0 = demod_init_state(cfg, channels, device)
+    grids = launch_grids(lambda: demod_block(cfg, co, st0, x),
+                         ("k12_deemph_kernel",), device)["k12_deemph_kernel"]
+    plan = dict(km.midend_plan(co, cfg, channels, block // 4))
+    want = [[plan["k12_deemph_kernel"][0], 1, 1], [km.DEEMPH_LANES, 1, 1]]
+    res["deemph_grid"] = {"launches": grids, "plan": want}
+    if grids != [want]:
+        raise RuntimeError(f"{label}: k12_deemph_kernel ran on {grids}, not "
+                           f"the plan's grid and block {want}")
     return res
+
+
+def launch_grids(step, names, device) -> dict:
+    """The (grid, block) pairs of the launches of the kernels ``names`` in
+    one call of ``step`` (after one unprofiled call), as the profiler's
+    trace records them (its kernel events' "grid" and "block"): {name:
+    the distinct pairs, in order}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(device)
+    path = os.path.join(DUMP_DIR, "launch_grids_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    out = {n: [] for n in names}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        for n in names:
+            if n in ev.get("name", ""):
+                gb = [ev["args"].get("grid"), ev["args"].get("block")]
+                if gb not in out[n]:
+                    out[n].append(gb)
+    return out
+
+
+def floors_ms(f: dict) -> dict:
+    """The floors (every "*_floor_ms" key) of a floor's dict."""
+    return {k: v for k, v in f.items() if k.endswith("_floor_ms")}
 
 
 def profile_wideband(splits: int, n_captures: int = 64, m: int = 32,
@@ -3666,6 +3749,107 @@ def compare_k2_edges(device="cuda", seed: int = 3) -> list[dict]:
     return rows
 
 
+# the de-emphasis recurrence at its edges (compare_deemph_edges): C = 1,
+# 40 (a partial last block of lanes) and 2,048 at 13, 14 and 15 batches of
+# 16 steps (nb % 4 = 1, 2, 3; one short chunk), at 65 (two chunks of the
+# routes' 32 batches and a short one), 195 and 229 (seven and eight
+# chunks, the last short: the ring's 6 slots reused), the lenses' C =
+# 2,048 x 16,384 and the K2 probe's 1,024 x 32,768
+DEEMPH_EDGE_SHAPES = tuple((c, 16 * nb) for c in (1, 40, 2048)
+                           for nb in (13, 14, 15, 65, 195, 229)) + (
+                               (2048, 16384), (1024, 32768))
+
+
+def compare_deemph_edges(device="cuda", seed: int = 9,
+                         shapes=DEEMPH_EDGE_SHAPES) -> list[dict]:
+    """``k12_deemph_kernel`` (``kernels/midend.py::deemph``) against
+    ``iir_filter`` at each shape of ``shapes``, in place (the routes' form)
+    and into an output filled with NaN, on memory poisoned first (every
+    free byte 0xFF: NaN), max abs error 0 on the outputs and the carried
+    state.  One row a case (name "deemph")."""
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.ops.iir import iir_filter
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, a = (0.2543, 0.2543), (1.0, -0.4914)  # a 1-pole low-pass
+    rows = []
+
+    def case(c, n, in_place):
+        x = torch.randn((c, n), generator=g, device=device)
+        st = {"x_hist": torch.randn((c, 1), generator=g, device=device),
+              "y_hist": torch.randn((c, 1), generator=g, device=device)}
+        ps, py = iir_filter(b, a, st, x)
+        poison_free_memory(device)
+        out = (x.clone() if in_place
+               else torch.full((c, n), math.nan, device=device))
+        ks, ky = km.deemph(b, a, st, out if in_place else x, out=out)
+        e = max(float((ky - py).abs().max()),
+                *(float((ks[k] - ps[k]).abs().max()) for k in ps))
+        rows.append({"name": "deemph", "kernel": "k12_deemph_kernel",
+                     "case": f"C={c}:n={n}:nb%4={n // 16 % 4}:"
+                             f"{'in_place' if in_place else 'nan_out'}",
+                     "max_abs_err": e, "ok": e == 0.0})
+
+    for c, n in shapes:
+        for in_place in (True, False):
+            case(c, n, in_place)
+    torch.cuda.synchronize(device)
+    return rows
+
+
+# fp_i8man_kernel at its edges (compare_man_edges): the lens's tiles (8 x
+# 2,048 and 8 x 4,096) and others (one row a CTA; 16 rows; two runs a
+# thread at 16 x 2,048), no at its least (32), the lens's 128 and its
+# most (t_blk / 4 - 32), on C = 16 x B = 16,384
+MAN_EDGE_SHAPE = (16, 16384)
+MAN_EDGE_TILES = ((8, 2048, 128), (8, 4096, 128), (8, 4096, 32),
+                  (8, 2048, 480), (1, 512, 32), (16, 1024, 64),
+                  (16, 2048, 128))
+
+
+def compare_man_edges(device="cuda", seed: int = 10) -> list[dict]:
+    """fp_i8man (``probes/frontend_probe.py::i8manual``) against
+    ``i8man_plain`` at MAN_EDGE_TILES, dots and full, on memory poisoned
+    first (its outputs land on NaN), max abs error 0; a tile past the
+    shared memory or the threads refused before any launch; and the C
+    side's shared-memory formula against its host copy.  One row a case
+    (kernel "fp_i8man")."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+
+    c, b = MAN_EDGE_SHAPE
+    x8 = fp.make_inputs(c, b, device, seed=seed)["u8"]
+    tb = fp.tables(device)
+    rows = []
+    for c_blk, t_blk, no in MAN_EDGE_TILES:
+        for full in (False, True):
+            pout = fp.i8man_plain(x8, full, t_blk, no, tb)
+            poison_free_memory(device)
+            kout = fp.i8manual(x8, full, c_blk, t_blk, no, tb)
+            e = float((kout - pout).abs().max())
+            rows.append({"kernel": "fp_i8man",
+                         "case": f"{'full' if full else 'dots'}:tile="
+                                 f"{c_blk}x{t_blk}:no={no}",
+                         "max_abs_err": e, "ok": e == 0.0})
+    try:
+        fp.i8manual(x8, True, 16, 4096, 128, tb)
+        refused = False
+    except ValueError:
+        refused = True
+    rows.append({"kernel": "fp_i8man", "case": "tile=16x4096 refused",
+                 "max_abs_err": None, "ok": refused})
+    for c_blk in (1, 2, 4, 8, 16):
+        for t_blk in (512, 1024, 2048, 4096, 8192):
+            for full in (False, True):
+                host = fp.i8man_smem(c_blk, t_blk, full)
+                card = fp.i8man_smem(c_blk, t_blk, full, device)
+                rows.append({"kernel": "fp_i8man_smem",
+                             "case": f"tile={c_blk}x{t_blk}:full={full}",
+                             "host": host, "card": card,
+                             "max_abs_err": None, "ok": host == card})
+    torch.cuda.synchronize(device)
+    return rows
+
+
 def restruct_floor(c: int, l: int, li: int, sms: int | None = None,
                    hz: float | None = None) -> dict:
     """restruct:li's two block kernels' FMUL+FADD issue floor, ms
@@ -3724,6 +3908,29 @@ def peak_floor(n8: int) -> dict:
     hz = _sm_clock_hz()
     return {"chain_floor_ms": n8 * 3 * DEP_CLOCKS / hz * 1e3, "steps": n8,
             "sm_clock_hz": hz}
+
+
+def deemph_floor(n: int) -> dict:
+    """The de-emphasis recurrence's chain floor, ms (computed, not
+    measured): n steps of its dependent chain y1 * a1 -> . - ., two
+    float32 operations (-fmad=false; x1 b1 + x b0 is off the chain) at
+    DEP_CLOCKS each, at this card's highest SM clock."""
+    hz = _sm_clock_hz()
+    return {"chain_floor_ms": n * 2 * DEP_CLOCKS / hz * 1e3, "steps": n,
+            "sm_clock_hz": hz}
+
+
+def i8_floor(c: int, b: int, taps: int = 132) -> dict:
+    """The K1 probe's int8-tap window sums' issue floor, ms (computed,
+    not measured): taps / 4 IDP4A on each of two tap planes and two IQ
+    planes an output (C B / 4 of them), at 64 a clock an SM, at this
+    card's SM count and highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    per = 2 * 2 * taps // 4
+    out = float(c) * b / 4
+    return {"idp4a_floor_ms": out * per / (64 * sms * hz) * 1e3,
+            "idp4a_an_output": per, "sms": sms, "sm_clock_hz": hz}
 
 
 def ds4_floors(x: torch.Tensor) -> dict:
@@ -4311,6 +4518,10 @@ def main() -> int:
             # its bound
             k = dict(k, launches=eng["launches"][n],
                      **fp_floor(*PROBE_FULL["fp"]))
+        elif n in ("fp_i8d", "fp_i8man"):
+            # the int8 taps' IDP4A issue floor beside the bound
+            k = dict(k, launches=eng["launches"][n],
+                     **i8_floor(*PROBE_FULL["fp"]))
         elif n == "k2_restruct":
             # the block kernels' computed issue floor at every li
             c, b4 = PROBE_FULL["k2"]
@@ -4319,6 +4530,13 @@ def main() -> int:
                 for li in (64, 128, 256, 512)},
                 **restruct_floor(c, b4 // 2, 128))
         log(f"[probe] kernel {n} {json.dumps(k)}")
+    # every int8-window row of the K1 probe (13c's fp_i8d variants, 13d's
+    # fp_i8man tiles) with the IDP4A issue floor at the default shape
+    i8_rows = {r["variant"]: r["ms"] for r in eng["rows"]["fp"]
+               if r["kernel"] in ("fp_i8d", "fp_i8man")}
+    log(f"[probe] int8-window rows, ms at C x B = {PROBE_FULL['fp']}: "
+        f"{json.dumps(i8_rows)}; IDP4A issue floor (computed, not "
+        f"measured) {json.dumps(i8_floor(*PROBE_FULL['fp']))}")
     log(f"[probe] launches {json.dumps(eng['launches'])}; "
         f"{time.perf_counter() - t0:.1f} s")
     idle = [n for n, _, _ in ENGINE_KERNELS if not eng["launches"].get(n)]
@@ -4562,6 +4780,29 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"K2 block edge cases disagree: "
                            f"{[(r['case'], r.get('build')) for r in bad]}")
+    # the de-emphasis recurrence and the K1 probe's manual pipeline at
+    # their edges on both builds, on NaN-filled memory
+    t1 = time.perf_counter()
+    deedge = compare_deemph_edges(dev)
+    manedge = compare_man_edges(dev)
+    try:
+        with _build.checked_build():
+            deedge += [dict(r, build="checked")
+                       for r in compare_deemph_edges(dev, seed=10)]
+            manedge += [dict(r, build="checked")
+                        for r in compare_man_edges(dev, seed=11)]
+    except RuntimeError as e:
+        raise RuntimeError(f"de-emphasis / i8man edges on the "
+                           f"bounds-checked build: {e}")
+    for r in deedge + manedge:
+        log(f"[compare] de-emphasis / i8man edge: {json.dumps(r)}")
+    bad = [r for r in deedge + manedge if not r["ok"]]
+    log(f"[compare] de-emphasis / i8man edges: {len(deedge)} + "
+        f"{len(manedge)} cases on both builds, {len(bad)} off; "
+        f"{time.perf_counter() - t1:.1f} s")
+    if bad:
+        raise RuntimeError(f"de-emphasis / i8man edge cases disagree: "
+                           f"{[(r['case'], r.get('build')) for r in bad]}")
     # the exact channelizer at every M instantiation and its edge shapes,
     # on both builds; the megakernel at the chain cell's shape on the
     # checked build (its small shapes are in the repeats above)
@@ -4774,7 +5015,7 @@ def main() -> int:
                            f"{list(prof['device_ms_per_block'])}")
 
     # 4e. the de-emphasis lenses: the mid end's de-emphasis route at the
-    # split cells' shape, its two kernels alone, each lens profiled
+    # split cells' shape, its three kernels alone, each lens profiled
     t0 = time.perf_counter()
     lenses, lens_prof = {}, {}
     for label, kind, kw in DEEMPH_LENSES:
@@ -4791,12 +5032,17 @@ def main() -> int:
                                f"{gone}: {list(prof['device_ms_per_block'])}")
     for label, r in lenses.items():
         dev_ms = {k: device_ms(lens_prof[label], k) for k in DEEMPH_KERNELS}
-        floors = {n: f["fmul_fadd_floor_ms"] for n, f in r["floors"].items()}
+        floors = {n: floors_ms(f) for n, f in r["floors"].items()}
         bounds = {n: b["bound_ms"] for n, b in r["bound"].items()}
+        alone = {n: r["kernel_ms"][n] for n in r["floors"]}
         log(f"[deemph] {label}: {r['ms_per_block']:.3f} ms/block; device ms "
-            f"a block {json.dumps(dev_ms)}; FMUL+FADD issue floors "
-            f"(computed, not measured) {json.dumps(floors)}; bounds "
-            f"{json.dumps(bounds)}")
+            f"a block {json.dumps(dev_ms)}; alone (events) "
+            f"{json.dumps(alone)} beside the plain versions' "
+            f"{json.dumps({n: r['plain_ms'][n] for n in r['floors']})}; "
+            f"issue and chain floors (computed, not measured) "
+            f"{json.dumps(floors)}; bounds {json.dumps(bounds)}; "
+            f"k12_deemph_kernel's (grid, block) "
+            f"{json.dumps(r['deemph_grid'])}")
     log(f"[deemph] {time.perf_counter() - t0:.1f} s")
     bad = [(label, r["name"]) for label, c in lenses.items()
            for r in c["compare"] if not r["ok"]]
@@ -4932,7 +5178,8 @@ def main() -> int:
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
               + wedge + medge["rows"] + pedge + eedge["rows"] + bedge
-              + dedge + cedge + corders + [chk]):
+              + dedge + cedge + corders + [chk]
+              + [r for r in deedge if r["max_abs_err"] is not None]):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
     for r in (mp["compare"] + wb_bench["compare"] + wb["compare"]
@@ -5119,13 +5366,13 @@ def main() -> int:
              "work": {key: b[key] for key in ("bytes", "f32_ops")},
              "device_ms": {label: device_ms(lens_prof[label], kern)
                            for label in lens_prof},
-             "fmul_fadd_floor_ms": cell["floors"][n]["fmul_fadd_floor_ms"],
+             **floors_ms(cell["floors"][n]),
              "k12_theta1_form": {
                  "ms": pre["kernel_ms"][n], "plain_ms": pre["plain_ms"][n],
                  "bound_ms": pre["bound"][n]["bound_ms"],
-                 "fmul_fadd_floor_ms":
-                     pre["floors"][n]["fmul_fadd_floor_ms"]},
-             "edge_shapes": [r for r in medge["rows"] if r["name"] == n],
+                 **floors_ms(pre["floors"][n])},
+             "edge_shapes": (deedge if n == "deemph" else
+                             [r for r in medge["rows"] if r["name"] == n]),
              **in_turns_keys(n)}
         kernels.append(k)
     # the device-memory probes: each at its fastest variant of the sweep
@@ -5160,7 +5407,10 @@ def main() -> int:
             "work": {key: pk[key] for key in ("bytes", "f32_ops", "i8_ops",
                                               "design_f32_ops") if key in pk},
             **({"serial_steps": pk["serial_steps"]}
-               if pk["serial_steps"] is not None else {})})
+               if pk["serial_steps"] is not None else {}),
+            **({"idp4a_floor_ms": i8_floor(*PROBE_FULL["fp"])[
+                "idp4a_floor_ms"], "edge_shapes": manedge}
+               if n == "fp_i8man" else {})})
     if DUMPS:
         raise RuntimeError(f"mismatches saved (passed their tolerances): "
                            f"{DUMPS}")

@@ -83,13 +83,14 @@ constexpr int kThreads = 256;
 
 // Serial kernels run one thread per channel (or per chunk and channel:
 // the chunked PLL), a few a block (the PLLs and the peak IIR's recurrence
-// 8, BPSK 4; the de-emphasis a warp of 32).  Each loads the next
-// kBatch steps of its row into registers ahead: the loads do not depend on
-// the recurrence, so their latency is paid once per batch instead of once
-// per step.  Their step counts must be multiples of kBatch (the C entries
-// check), but the chunked PLL's, which masks its lanes' first and last
-// batch.
-constexpr int kSerialThreads = 32;
+// 8, BPSK 4, the de-emphasis 16).  Each loads its row ahead of the
+// recurrence, kBatch steps at a time into registers, several batches in
+// flight (the de-emphasis, whose chain is too short to cover that
+// latency, whole chunks into shared memory by bulk copies): the loads do
+// not depend on the recurrence, so their latency is paid once per batch
+// instead of once per step.  Their step counts must be multiples of
+// kBatch (the C entries check), but the chunked PLL's, which masks its
+// lanes' first and last batch.
 constexpr int kBatch = 16;
 
 inline unsigned int blocks_for(int64_t n, int threads = kThreads) {

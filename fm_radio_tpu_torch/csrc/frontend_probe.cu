@@ -27,7 +27,9 @@
 //     fp_i8man_kernel          one CTA per channel block, the time loop
 //                              inside: tiles in by cp.async.bulk on an
 //                              mbarrier into a 2-slot ring, outputs out
-//                              through a 2-slot ring by bulk stores
+//                              through a 2-slot ring by bulk stores; each
+//                              tile summed 8 outputs a thread from a
+//                              sliding window of 16-byte word reads
 //
 // fp_fir and fp_dbuf run the design of the float K1 the cells run
 // (frontend.cu::k1_tile_kernel) on the probe's tiles and 132 taps.  A CTA
@@ -784,90 +786,213 @@ __global__ void fp_i8d_kernel(const int8_t* __restrict__ xr8,
 
 // ---- i8manual: the time loop inside, bulk copies through 2-slot rings ----
 
-// One CTA per c_blk channels.  Shared memory: the input ring [2][2 planes]
-// [c_blk][t_blk] bytes, the output ring [2][c_blk][t_blk/4] float32, the
-// theta tile [c_blk][t_blk/4] (full).  Thread 0 issues the loads of tile
-// i + 1 (one cp.async.bulk per row and plane, on the slot's mbarrier)
-// before the CTA computes tile i, and the bulk stores of tile i's outputs
-// after; an output slot is written again only after its store of two
-// tiles ago has read it.  Windows as noasm (the TPU lens: no carried tail).
+// The probe's manual pipeline, as the TPU lens has it: one CTA per c_blk
+// channels walks the time tiles; tile i + 1's int8 rows come in by
+// cp.async.bulk on an mbarrier into a 2-slot ring while tile i is summed,
+// and each tile's outputs leave from a 2-slot ring by bulk stores.  The
+// sums are K12's design (ds4_i8_window): a thread takes a run of
+// kManRun = 8 neighbouring outputs of one row from a sliding window of
+// int8 words in registers, the taps packed once into shared memory as
+// (b1, b2) word pairs.  Each tile's two runs of windows (the lens's
+// noasm: output j < no reads words j .. j + 32 of the tile, the others
+// words j - 32 .. j) are summed apart; no % 8 == 0, so no thread's run
+// straddles them, and the window differs only in where it starts.
+//
+// A bulk copy lands each row unskewed, 16-byte aligned, so a window
+// that reads one word at a time (ds4_i8_window, over mid_skew'd planes)
+// would meet 4- to 8-way bank conflicts however the lanes are laid out:
+// every run starts on a multiple of 4 words.  Here a window word is read
+// 16 bytes at a time, and the rows of the ring lie kManPad words apart
+// beyond their tw words: a pitch of 16 bytes more than a multiple of 128.
+// Run (row r, run m) is thread e = m c_blk + r, so with c_blk = 8 (the
+// lens's tiles) a quarter warp takes one run of the 8 rows, whose 16-byte
+// reads fall in 8 distinct bank groups; so do the stores of its outputs
+// into the output ring, padded the same way.  The window holds 12 words
+// of each plane (three quads) and steps 4 tap words at a time over the
+// 33 tap words padded to kManTapWords = 36 with zeros at the newest end
+// (a zero tap adds an exact 0): 144 IDP4A an output, the floor's 132
+// rounded up to whole quads.  The integer sums are exact in any order and
+// the float combine (y1 + y2 / 128 + s_row, then atan2_poly or fr + fi)
+// is ds4_i8_words', so each output is the plain version's bit for bit.
+// full's difference needs the output before each run's first: the run
+// before it in the row stores its last theta in shared memory (s_last),
+// read after a barrier; the tile's first output differs from itself (0).
+constexpr int kManRun = 8;
+constexpr int kManThreads = 512;
+constexpr int kManPasses = 2;  // runs a thread a tile at most
+constexpr int kManPad = 4;     // words past each row of the rings
+constexpr int kManTapWords = 36;
+static_assert(kManTapWords >= kFpTaps / 4 && kManTapWords % 4 == 0,
+              "the padded taps in whole quads");
+
+// fp_i8man_kernel's shared memory, in bytes: the input ring [2 slots][2
+// planes][c_blk rows] of tw + kManPad words, the output ring [2][c_blk] of
+// tw + kManPad floats, the kManTapWords tap pairs and, for full, the last
+// theta of every run of the tile.  The wrapper's host copy is
+// probes/frontend_probe.py::i8man_smem (fmt_fp_i8man_smem exports this).
+__host__ __device__ inline int64_t fp_man_bytes(int c_blk, int t_blk,
+                                                int full) {
+  const int64_t pitch = t_blk / 4 + kManPad;
+  return 4 * (6 * (int64_t)c_blk * pitch + 2 * kManTapWords +
+              (full ? (int64_t)c_blk * (t_blk / 4 / kManRun) : 0));
+}
+
+__device__ __forceinline__ int4 ld_quad(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+
+// the run of kManRun outputs whose windows start at word eb of the
+// unskewed rows sr, si (eb % 4 == 0): output u sums words eb + u + w
+// (w < kManTapWords) against s_tap[w], into y1r[u] .. y2i[u]
+__device__ __forceinline__ void man_window(const int* sr, const int* si,
+                                           const int4* s_tap4, int eb,
+                                           int (&y1r)[kManRun],
+                                           int (&y2r)[kManRun],
+                                           int (&y1i)[kManRun],
+                                           int (&y2i)[kManRun]) {
+  int4 r0 = ld_quad(sr + eb), r1 = ld_quad(sr + eb + 4);
+  int4 i0 = ld_quad(si + eb), i1 = ld_quad(si + eb + 4);
+#pragma unroll
+  for (int u = 0; u < kManRun; ++u) y1r[u] = y2r[u] = y1i[u] = y2i[u] = 0;
+#pragma unroll
+  for (int g = 0; g < kManTapWords / 4; ++g) {
+    const int4 r2 = ld_quad(sr + eb + 4 * g + 8);
+    const int4 i2 = ld_quad(si + eb + 4 * g + 8);
+    const int4 ta = s_tap4[2 * g], tb = s_tap4[2 * g + 1];
+    const int wr[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                        r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+    const int wi[12] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y,
+                        i1.z, i1.w, i2.x, i2.y, i2.z, i2.w};
+    const int t1[4] = {ta.x, ta.z, tb.x, tb.z};
+    const int t2[4] = {ta.y, ta.w, tb.y, tb.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int u = 0; u < kManRun; ++u) {
+        y1r[u] = __dp4a(wr[u + k], t1[k], y1r[u]);
+        y2r[u] = __dp4a(wr[u + k], t2[k], y2r[u]);
+        y1i[u] = __dp4a(wi[u + k], t1[k], y1i[u]);
+        y2i[u] = __dp4a(wi[u + k], t2[k], y2i[u]);
+      }
+    }
+    r0 = r1;
+    r1 = r2;
+    i0 = i1;
+    i1 = i2;
+  }
+}
+
 template <bool kFull>
-__global__ void fp_i8man_kernel(const int8_t* __restrict__ xr8,
-                                const int8_t* __restrict__ xi8,
-                                const int* __restrict__ b1w,
-                                const int* __restrict__ b2w, int nn,
-                                float s_row, int b, int c_blk, int t_blk,
-                                int no, float* __restrict__ out) {
+__global__ void __launch_bounds__(kManThreads, 1)
+fp_i8man_kernel(const int8_t* __restrict__ xr8,
+                const int8_t* __restrict__ xi8, const int* __restrict__ b1w,
+                const int* __restrict__ b2w, float s_row, int b, int c_blk,
+                int t_blk, int no, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char sm[];
   __shared__ __align__(8) uint64_t bar[2];
-  const int tw = t_blk / 4, halo_w = (nn - 4) / 4;
-  int8_t* in_ring = (int8_t*)sm;                           // 2 x 2 x c_blk x t_blk
-  float* out_ring = (float*)(sm + 4 * c_blk * t_blk);      // 2 x c_blk x tw
-  float* th = out_ring + 2 * c_blk * tw;                   // c_blk x tw
+  const int tw = t_blk / 4, pitch = tw + kManPad;  // words, floats
+  const int halo_w = kFpTaps / 4 - 1;
+  int* in_ring = (int*)sm;                            // [2][2][c_blk][pitch]
+  float* out_ring = (float*)(in_ring + 4 * c_blk * pitch);  // [2][c_blk][pitch]
+  int4* s_tap4 = (int4*)(out_ring + 2 * c_blk * pitch);
+  int2* s_tap = (int2*)s_tap4;
+  float* s_last = (float*)(s_tap + kManTapWords);     // [runs] (full)
   const int c0 = blockIdx.x * c_blk, n_tt = b / t_blk;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int runs = c_blk * (tw / kManRun);
   const uint32_t tile_bytes = 2u * c_blk * t_blk;
 
   auto load = [&](int slot, int tile) {
-    int8_t* dst = in_ring + (int64_t)slot * tile_bytes;
+    int* dst = in_ring + (int64_t)slot * 2 * c_blk * pitch;
     mbar_expect(&bar[slot], tile_bytes);
     for (int p = 0; p < 2; ++p) {
       const int8_t* src = p == 0 ? xr8 : xi8;
       for (int r = 0; r < c_blk; ++r)
-        bulk_g2s(dst + (p * c_blk + r) * t_blk,
+        bulk_g2s(dst + (p * c_blk + r) * pitch,
                  src + (int64_t)(c0 + r) * b + (int64_t)tile * t_blk, t_blk,
                  &bar[slot]);
     }
   };
 
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     mbar_init(&bar[0]);
     mbar_init(&bar[1]);
     mbar_fence_init();
     load(0, 0);
   }
+  for (int w = tid; w < kManTapWords; w += nt)
+    s_tap[w] = w <= halo_w ? make_int2(FMT_AT(b1w, w, halo_w + 1),
+                                       FMT_AT(b2w, w, halo_w + 1))
+                           : make_int2(0, 0);
+  // the words past each row, read only against zero taps: zeros, once
+  for (int e = tid; e < 4 * c_blk * kManPad; e += nt)
+    in_ring[(e / kManPad) * pitch + tw + e % kManPad] = 0;
   __syncthreads();
   uint32_t phase[2] = {0u, 0u};
   for (int i = 0; i < n_tt; ++i) {
     const int s = i & 1;
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
       if (i + 1 < n_tt) load(1 - s, i + 1);
       bulk_wait_read<1>();  // the store of tile i - 2 has read slot s
     }
     mbar_wait(&bar[s], phase[s]);
     phase[s] ^= 1u;
     __syncthreads();
-    const int8_t* slot = in_ring + (int64_t)s * tile_bytes;
-    float* ys = out_ring + s * c_blk * tw;
-    for (int e = threadIdx.x; e < c_blk * tw; e += blockDim.x) {
-      const int r = e / tw, j = e % tw;
-      const int* xr = (const int*)(slot + r * t_blk);
-      const int* xi = (const int*)(slot + (c_blk + r) * t_blk);
-      float fr, fi;
-      ds4_i8_words(xr, xi, tw, nullptr, nullptr, 0, b1w, b2w, nn / 4,
-                   j < no ? j : j - halo_w, s_row, fr, fi);
-      if constexpr (kFull) {
-        th[e] = atan2_poly(fi, fr);
-      } else {
-        ys[e] = fr + fi;
+    const int* slot = in_ring + (int64_t)s * 2 * c_blk * pitch;
+    float* ys = out_ring + s * c_blk * pitch;
+    float v[kManPasses][kManRun];
+#pragma unroll
+    for (int k = 0; k < kManPasses; ++k) {
+      const int e = tid + k * nt;
+      if (e < runs) {
+        const int r = e % c_blk, j0 = kManRun * (e / c_blk);
+        int y1r[kManRun], y2r[kManRun], y1i[kManRun], y2i[kManRun];
+        man_window(slot + r * pitch, slot + (c_blk + r) * pitch, s_tap4,
+                   j0 < no ? j0 : j0 - halo_w, y1r, y2r, y1i, y2i);
+#pragma unroll
+        for (int u = 0; u < kManRun; ++u) {
+          const float fr =
+              ((float)y1r[u] + (float)y2r[u] * (1.0f / 128.0f)) + s_row;
+          const float fi =
+              ((float)y1i[u] + (float)y2i[u] * (1.0f / 128.0f)) + s_row;
+          v[k][u] = kFull ? atan2_poly(fi, fr) : fr + fi;
+        }
+        if (kFull) s_last[e] = v[k][kManRun - 1];
       }
     }
-    if constexpr (kFull) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < c_blk * tw; e += blockDim.x) {
-        const int j = e % tw;
-        ys[e] = disc_value(th[e], j == 0 ? th[e] : th[e - 1], kFpScale);
+    if constexpr (kFull) __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kManPasses; ++k) {
+      const int e = tid + k * nt;
+      if (e < runs) {
+        const int r = e % c_blk, j0 = kManRun * (e / c_blk);
+        float o[kManRun];
+#pragma unroll
+        for (int u = 0; u < kManRun; ++u) o[u] = v[k][u];
+        if (kFull) {
+          float prev = j0 == 0 ? v[k][0] : s_last[e - c_blk];
+#pragma unroll
+          for (int u = 0; u < kManRun; ++u) {
+            o[u] = disc_value(v[k][u], prev, kFpScale);
+            prev = v[k][u];
+          }
+        }
+        float* dst = ys + r * pitch + j0;
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(o[4], o[5], o[6], o[7]);
       }
     }
     fence_async_shared();
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
       for (int r = 0; r < c_blk; ++r)
         bulk_s2g(out + (int64_t)(c0 + r) * (b / 4) + (int64_t)i * tw,
-                 ys + r * tw, tw * 4);
+                 ys + r * pitch, tw * 4);
       bulk_commit();
     }
   }
-  if (threadIdx.x == 0) bulk_wait_all();
+  if (tid == 0) bulk_wait_all();
 }
 
 // ---- dispatch -------------------------------------------------------------
@@ -1110,8 +1235,11 @@ extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
 }
 
 // build_i8manual: x8 int8 planes [2, C, B] (16-byte aligned rows); b1,
-// b2 [nn]; out [C, B/4] (16-byte aligned rows).  Shared memory
-// 6 * c_blk * t_blk bytes (+ c_blk * t_blk for full) <= 227 KB.
+// b2 [nn] (nn == kFpTaps, the probe's one order); out [C, B/4] (16-byte
+// aligned rows); no, the outputs a tile whose window starts at the tile's
+// word j: a multiple of kManRun in [halo_w, t_blk / 4 - halo_w] (every
+// window inside the tile).  At most kManPasses runs a thread (c_blk x
+// t_blk <= 32,768) and fp_man_bytes <= 227 KB.
 extern "C" int fmt_fp_i8man(const int8_t* x8, const int8_t* b1,
                             const int8_t* b2, int nn, float s_row,
                             int channels, int b, int c_blk, int t_blk,
@@ -1119,29 +1247,33 @@ extern "C" int fmt_fp_i8man(const int8_t* x8, const int8_t* b1,
                             cudaStream_t stream) {
   const int8_t* xr8 = x8;
   const int8_t* xi8 = x8 + (int64_t)channels * b;
-  if (!fp_tiles_ok(channels, b, c_blk, t_blk) || nn % 4 ||
-      nn - 4 > kFpHead || 4 * no > t_blk)
+  const int halo_w = kFpTaps / 4 - 1, tw = t_blk / 4;
+  if (!fp_tiles_ok(channels, b, c_blk, t_blk) || nn != kFpTaps ||
+      no % kManRun || no < halo_w || no + halo_w > tw ||
+      (int64_t)c_blk * (tw / kManRun) > (int64_t)kManPasses * kManThreads ||
+      ((uintptr_t)x8 | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  const int smem = 6 * c_blk * t_blk + (full ? c_blk * t_blk : 0);
-  if (smem > 232448 - 64) return (int)cudaErrorInvalidValue;
+  const int64_t smem = fp_man_bytes(c_blk, t_blk, full);
   const dim3 grid(channels / c_blk);
   if (full) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fp_i8man_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t e = fp_smem(fp_i8man_kernel<true>, smem);
     if (e != cudaSuccess) return (int)e;
-    fp_i8man_kernel<true><<<grid, kThreads, smem, stream>>>(
-        xr8, xi8, (const int*)b1, (const int*)b2, nn, s_row, b, c_blk, t_blk,
-        no, out);
+    fp_i8man_kernel<true><<<grid, kManThreads, smem, stream>>>(
+        xr8, xi8, (const int*)b1, (const int*)b2, s_row, b, c_blk, t_blk, no,
+        out);
   } else {
-    cudaError_t e = cudaFuncSetAttribute(
-        fp_i8man_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t e = fp_smem(fp_i8man_kernel<false>, smem);
     if (e != cudaSuccess) return (int)e;
-    fp_i8man_kernel<false><<<grid, kThreads, smem, stream>>>(
-        xr8, xi8, (const int*)b1, (const int*)b2, nn, s_row, b, c_blk, t_blk,
-        no, out);
+    fp_i8man_kernel<false><<<grid, kManThreads, smem, stream>>>(
+        xr8, xi8, (const int*)b1, (const int*)b2, s_row, b, c_blk, t_blk, no,
+        out);
   }
   FMT_CHECK_LAUNCH();
   return 0;
+}
+
+// fp_man_bytes, for the wrapper's host copy (i8man_smem) to be held
+// against on the card
+extern "C" int64_t fmt_fp_i8man_smem(int c_blk, int t_blk, int full) {
+  return fp_man_bytes(c_blk, t_blk, full);
 }

@@ -38,7 +38,9 @@
 //   de-emphasis route splits the fused kernel at that seam: its first half
 //   (the discriminator on the staged theta1 and the register-blocked ds
 //   x2, k12_mid_ds2_kernel) writes fm_out, the de-emphasis runs in place
-//   over it (one thread a channel, kBatch steps loaded at once), and the
+//   over it (one thread a channel, kDeemphLanes a block, each lane's row
+//   staged in shared memory by bulk copies, whole chunks in flight while
+//   one runs), and the
 //   second half (k12_mid_hilb_kernel) stages it back for the
 //   register-blocked Hilbert; then the fused route's peak IIR recurrence
 //   and theta pass.  Against the fused kernel it adds one fm_out round

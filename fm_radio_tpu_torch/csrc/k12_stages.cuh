@@ -33,6 +33,7 @@
 // are in PERF.md.
 #pragma once
 
+#include "bulk_copy.cuh"
 #include "common.cuh"
 
 namespace fmt {
@@ -451,27 +452,125 @@ __global__ void k12_disc_kernel(const float* __restrict__ theta1,
             disc_value(FMT_AT(theta1, idx, total), prev, scale), kFmScale);
 }
 
-// de-emphasis, one thread per channel, in place; state (x1, y1) per
-// channel
-__global__ void k12_deemph_kernel(float* __restrict__ fm_out, int n,
-                                  int channels, float b0, float b1, float a1,
-                                  const float* __restrict__ st_in,
-                                  float* __restrict__ st_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+// The de-emphasis's shape: kDeemphLanes channels a block (a lane a
+// channel), each lane's row brought into shared memory kDeemphChunk steps
+// at a time by bulk copies, kDeemphSlots chunks a lane (all but the one
+// that runs in flight).  A measured choice (PERF.md: the sweep over lanes,
+// chunk and slots); kernels/midend.py keeps a host copy of the lanes
+// (DEEMPH_LANES).
+constexpr int kDeemphLanes = 16;
+constexpr int kDeemphChunk = 512;
+constexpr int kDeemphSlots = 6;
+// a lane's ring of kDeemphSlots chunks, each lane's ring 16 bytes longer
+// than the last (a quarter warp's 16-byte reads of its lanes' rings then
+// fall in distinct bank groups), and a block's dynamic shared memory
+constexpr int kDeemphRing = kDeemphSlots * kDeemphChunk + 4;
+constexpr int kDeemphSmem = 4 * kDeemphLanes * kDeemphRing;
+
+// de-emphasis (deemph_step) of x [C, n] into y [C, n], one thread a
+// channel, kDeemphLanes a block; state (x1, y1) a channel.  The
+// recurrence's chain is two dependent float operations a step, so a load
+// that waits costs it: a lane's row comes into its shared-memory ring by
+// cp.async.bulk, kDeemphSlots - 1 chunks of kDeemphChunk steps in flight
+// on their mbarriers while it runs the present one, the next batch of
+// kBatch steps read (16-byte loads) while one runs; the outputs leave
+// kBatch at a time from registers.  A register ring of batches (kBatch-step loads a few
+// batches ahead, k12_peak_rec_kernel's form) ran several times slower
+// here (PERF.md): a chain this short does not cover its loads' latency.
+// In place where x == y (the receiver's launches: fm_out), so x and y
+// may alias: a chunk is loaded before any of it is stored, and no load
+// reaches past the row.  n % kBatch == 0, x and y 16-byte aligned;
+// dynamic shared memory kDeemphSmem.
+__global__ void __launch_bounds__(kDeemphLanes)
+k12_deemph_kernel(const float* x, float* y, int n, int channels, float b0,
+                  float b1, float a1, const float* __restrict__ st_in,
+                  float* __restrict__ st_out) {
+  static_assert(kDeemphChunk % kBatch == 0 && kDeemphSlots >= 2,
+                "whole batches");
+  extern __shared__ __align__(128) float de_ring[];
+  __shared__ __align__(8) uint64_t bar[kDeemphLanes][kDeemphSlots];
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x * kDeemphLanes + lane;
   if (c >= channels) return;
-  float* row = fm_out + (int64_t)c * n;
+  const int64_t row = (int64_t)c * n, total = (int64_t)channels * n;
+  // the last chunk may be short
+  const int nc = (n + kDeemphChunk - 1) / kDeemphChunk;
+  float* ring = de_ring + lane * kDeemphRing;
+  uint64_t* mb = bar[lane];
+#pragma unroll
+  for (int s = 0; s < kDeemphSlots; ++s) mbar_init(&mb[s]);
+  mbar_fence_init();
+  auto issue = [&](int k) {  // chunk k into slot k % kDeemphSlots
+    const int slot = k % kDeemphSlots;
+    const uint32_t bytes =
+        4u * (uint32_t)min(kDeemphChunk, n - k * kDeemphChunk);
+#ifdef FMT_CHECKED
+    FMT_AT(x, row + (int64_t)k * kDeemphChunk + bytes / 4 - 1, total);
+#endif
+    mbar_expect(&mb[slot], bytes);
+    bulk_g2s(ring + slot * kDeemphChunk, x + row + (int64_t)k * kDeemphChunk,
+             bytes, &mb[slot]);
+  };
+  for (int k = 0; k < kDeemphSlots - 1 && k < nc; ++k) issue(k);
   float x1 = FMT_AT(st_in, 2 * c, 2 * channels);
   float y1 = FMT_AT(st_in, 2 * c + 1, 2 * channels);
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    float bx[kBatch];
+  for (int k = 0; k < nc; ++k) {
+    if (k + kDeemphSlots - 1 < nc) {
+      fence_async_shared();  // this lane's reads of the slot chunk k - 1 left
+      issue(k + kDeemphSlots - 1);
+    }
+    const int slot = k % kDeemphSlots;
+    mbar_wait(&mb[slot], (uint32_t)((k / kDeemphSlots) & 1));
+    const float* src = ring + slot * kDeemphChunk;
+    const int steps = min(kDeemphChunk, n - k * kDeemphChunk);
+    float cur[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) bx[u] = FMT_AT(row, i0 + u, n);
+    for (int u = 0; u < kBatch; u += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + u);
+      cur[u] = v.x;
+      cur[u + 1] = v.y;
+      cur[u + 2] = v.z;
+      cur[u + 3] = v.w;
+    }
+    for (int i0 = 0; i0 < steps; i0 += kBatch) {
+      float nxt[kBatch];
+      if (i0 + kBatch < steps) {
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      FMT_AT(row, i0 + u, n) = deemph_step(x1, y1, bx[u], b0, b1, a1);
+        for (int u = 0; u < kBatch; u += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(src + i0 + kBatch + u);
+          nxt[u] = v.x;
+          nxt[u + 1] = v.y;
+          nxt[u + 2] = v.z;
+          nxt[u + 3] = v.w;
+        }
+      }
+      float out[kBatch];
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s)
+        out[s] = deemph_step(x1, y1, cur[s], b0, b1, a1);
+      store_batch(y, row + (int64_t)k * kDeemphChunk + i0, total, out, 1.0f);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) cur[u] = nxt[u];
+    }
   }
   FMT_AT(st_out, 2 * c, 2 * channels) = x1;
   FMT_AT(st_out, 2 * c + 1, 2 * channels) = y1;
+}
+
+// the de-emphasis of x into y (x == y: in place)
+inline int launch_deemph(const float* x, float* y, int n, int channels,
+                         float b0, float b1, float a1, const float* st_in,
+                         float* st_out, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      k12_deemph_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDeemphSmem);
+  if (e != cudaSuccess) return (int)e;
+  k12_deemph_kernel<<<blocks_for(channels, kDeemphLanes), kDeemphLanes,
+                      kDeemphSmem, stream>>>(x, y, n, channels, b0, b1, a1,
+                                             st_in, st_out);
+  FMT_CHECK_LAUNCH();
+  return 0;
 }
 
 // Hilbert (the launches route): im = nh-tap FIR, re = input delayed by
@@ -1181,10 +1280,9 @@ inline int launch_mid_deemph(const In* src, const float* prev_theta,
   int err = launch_mid_ds2<kFromTheta>(src, prev_theta, scale, w2_rev, tail2,
                                        channels, n4, fm_out, tails, stream);
   if (err) return err;
-  k12_deemph_kernel<<<blocks_for(channels, kSerialThreads), kSerialThreads,
-                      0, stream>>>(fm_out, n8, channels, de_b0, de_b1, de_a1,
-                                   de_st_in, de_st_out);
-  FMT_CHECK_LAUNCH();
+  err = launch_deemph(fm_out, fm_out, n8, channels, de_b0, de_b1, de_a1,
+                      de_st_in, de_st_out, stream);
+  if (err) return err;
   err = launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
                         im16, stream);
   if (err) return err;
@@ -1258,10 +1356,9 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          stream, kFmScale);
   if (err) return err;
   if (use_deemph) {
-    k12_deemph_kernel<<<blocks_for(channels, kSerialThreads),
-                        kSerialThreads, 0, stream>>>(
-        fm_out, n8, channels, de_b0, de_b1, de_a1, de_st_in, de_st_out);
-    FMT_CHECK_LAUNCH();
+    err = launch_deemph(fm_out, fm_out, n8, channels, de_b0, de_b1, de_a1,
+                        de_st_in, de_st_out, stream);
+    if (err) return err;
   }
   if (re16 != nullptr) {
     k12_hilbert_kernel<true><<<blocks_for(t8), kThreads, 0, stream>>>(

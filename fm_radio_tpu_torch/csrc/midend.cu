@@ -122,3 +122,17 @@ extern "C" int fmt_mid_hilb(const float* fm_out, const float* wh_rev, int nh,
   return launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
                          im16, stream);
 }
+
+// The de-emphasis recurrence alone (kernels/midend.py::deemph: the card's
+// comparisons and timings of k12_deemph_kernel): x [C, n] -> y [C, n]
+// (x == y: in place, as the routes run it), de_st_in / de_st_out [C, 2]
+// (x1, y1).  n % kBatch == 0 and x, y 16-byte aligned, as the bulk copies
+// and the batches' stores need.
+extern "C" int fmt_deemph(const float* x, float* y, int n, int channels,
+                          float b0, float b1, float a1, const float* de_st_in,
+                          float* de_st_out, cudaStream_t stream) {
+  if (n % kBatch || ((uintptr_t)x | (uintptr_t)y) % 16 || channels < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_deemph(x, y, n, channels, b0, b1, a1, de_st_in, de_st_out,
+                       stream);
+}

@@ -55,13 +55,14 @@ from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
 # out; then any with an int16 input or output); the fused route's and the
 # de-emphasis route's launches, by K2 or by K12 (kernels/k12.py), beside
 # their own counts (each launch of the de-emphasis route runs
-# k12_mid_ds2_kernel and k12_mid_hilb_kernel once); and the launches of
-# those two kernels alone (mid_ds2, mid_hilb)
+# k12_mid_ds2_kernel, k12_deemph_kernel and k12_mid_hilb_kernel once); and
+# the launches of those three kernels alone (mid_ds2, deemph, mid_hilb)
 launches = 0
 launches_i16 = 0
 launches_fused = 0
 launches_deemph = 0
 launches_ds2 = 0
+launches_de = 0
 launches_hilb = 0
 
 _NO = 128  # the TPU kernel's band width
@@ -72,6 +73,7 @@ _ARGTYPES = ([_P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
 ROUTE_ARGTYPES = [_I] * 4
 DS2_ARGTYPES = [_P, _I, _P, _F, _P, _I, _P, _I, _I, _P, _P, _P]
 HILB_ARGTYPES = [_P, _P, _I, _P, _I, _I] + [_P] * 5
+DEEMPH_ARGTYPES = [_P, _P, _I, _I, _F, _F, _F, _P, _P, _P]
 
 # the filter orders the tiled routes (fused and de-emphasis) are built for
 # (csrc/k12_stages.cuh: kFusedNn2, kFusedNh: the receiver's ds x2 and
@@ -80,6 +82,9 @@ FUSED_TAPS = (64, 65)
 # channels a block of the fused route's peak IIR (csrc/k12_stages.cuh:
 # kPeakLanes, a measured choice, PERF.md)
 PEAK_LANES = 8
+# channels a block of the de-emphasis recurrence (csrc/k12_stages.cuh:
+# kDeemphLanes, a measured choice, PERF.md)
+DEEMPH_LANES = 16
 
 
 # re/im outputs a CTA of the tiled kernels (csrc/k12_stages.cuh: kMidTile)
@@ -96,7 +101,8 @@ def midend_plan(coeffs, cfg, c: int, n4: int) -> list[tuple[str, tuple]]:
     ``csrc/k12_stages.cuh::launch_midend``'s plan for :func:`midend_route`.
     Fused: one CTA per (tile of :data:`MID_TILE` outputs, channel);
     de-emphasis: the ds x2 kernel on the same grid, the de-emphasis (one
-    thread a channel, 32 a block), the Hilbert kernel on the same grid;
+    thread a channel, :data:`DEEMPH_LANES` a block), the Hilbert kernel on
+    the same grid;
     launches: ds x2, the de-emphasis where it is on, Hilbert.  Then on
     every route the peak IIR's recurrence, one block per
     :data:`PEAK_LANES` channels, and the theta pass, four outputs a thread
@@ -108,12 +114,12 @@ def midend_plan(coeffs, cfg, c: int, n4: int) -> list[tuple[str, tuple]]:
         plan = [("k12_mid_fused_kernel", tiles)]
     elif route == "deemph":
         plan = [("k12_mid_ds2_kernel", tiles),
-                ("k12_deemph_kernel", (-(-c // 32),)),
+                ("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)),
                 ("k12_mid_hilb_kernel", tiles)]
     else:
         plan = [("fir_decimate_kernel", (-(-c * n8 // 256),))]
         if cfg.use_deemphasis_filter:
-            plan.append(("k12_deemph_kernel", (-(-c // 32),)))
+            plan.append(("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)))
         plan.append(("k12_hilbert_kernel", (-(-c * n8 // 256),)))
     return plan + [("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
                    ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
@@ -484,3 +490,48 @@ def mid_hilb(wh_rev, htail, fm_out, out_i16: bool = False, out=None):
         *((None, None) if not out_i16 else ()), _build.stream_ptr(dev)))
     launches_hilb += 1
     return tuple(outs)
+
+
+def deemph_plain(b, a, state: dict, x):
+    """:func:`deemph` in plain PyTorch: ``ops/iir.py::iir_filter``, the
+    serial recurrence :func:`midend_plain` runs."""
+    return iir_filter(b, a, state, x)
+
+
+def deemph(b, a, state: dict, x, out=None):
+    """The de-emphasis kernel alone (``csrc/k12_stages.cuh::
+    k12_deemph_kernel``, which both tiled routes and the launches route run
+    in place over fm_out): the 1-pole IIR (b, a) over x [C, n] float32 from
+    ``state`` (``x_hist``, ``y_hist`` [C, 1]) -> (new state, y [C, n]), as
+    :func:`deemph_plain`.  n % 16 == 0.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel into ``out`` (``out=x``: in
+    place, as the routes run it) or a new tensor."""
+    if len(b) != 2 or len(a) != 2 or x.dim() != 2:
+        raise ValueError("deemph: a 1-pole filter over x [C, n]")
+    c, n = x.shape
+    if n % 16 or c < 1:
+        raise ValueError(f"deemph: n = {n} is not a positive multiple of "
+                         "16 steps")
+    if _build.on_cpu("deemph", x.device):
+        if out is not None:
+            raise ValueError("deemph: out= is for the card's kernel")
+        return deemph_plain(b, a, state, x)
+    global launches_de
+    dev = x.device
+    xh, yh = state["x_hist"], state["y_hist"]
+    if xh.shape != (c, 1) or yh.shape != (c, 1):
+        raise ValueError("deemph: state rows must be [C, 1]")
+    de_in = torch.cat([xh, yh], dim=-1).contiguous()
+    _build.require("deemph", dev, torch.float32, x=x, de_in=de_in)
+    (y,) = _outs("deemph", None if out is None else (out,), ((c, n),),
+                 (torch.float32,), dev)
+    de_out = torch.empty_like(de_in)
+    db = [f32(v) for v in b]
+    da = [f32(v) for v in a]
+    fn = _build.function("midend", "fmt_deemph", DEEMPH_ARGTYPES)
+    _build.check("midend", fn(
+        x.data_ptr(), y.data_ptr(), n, c, db[0], db[1], da[1],
+        de_in.data_ptr(), de_out.data_ptr(), _build.stream_ptr(dev)))
+    launches_de += 1
+    return {"x_hist": de_out[:, 0:1], "y_hist": de_out[:, 1:2]}, y
+

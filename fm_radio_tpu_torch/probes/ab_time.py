@@ -3,7 +3,7 @@ so that two checkouts (a commit and its parent) can be compared in turns
 on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
-        [--reps N] [--sections cells,k2,rest]
+        [--reps N] [--sections cells,k2,fp,rest]
 
 Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
@@ -21,7 +21,9 @@ checkout's kernels and prints one JSON row per case:
   of all its kernels (``torch.profiler`` over 5 blocks after one,
   :data:`MID_KEYS`; a name a tree does not launch reads 0), and the
   wideband cell at splits 1, 2 and 3 (``chip_smoke.wideband_path`` on
-  bench.py's captures);
+  bench.py's captures, beside its device busy time and wall a block by
+  ``chip_smoke.profile_wideband``: the splits=1 cell's first timed
+  blocks are host-bound and vary from run to run);
 - K2 in int16 (``kernels/midend.py::midend`` on the arguments
   ``demod_block`` recorded at the i16 cell) and the chunked PLL
   (``kernels/pll.py::pilot_pll_chunked`` on those of the chunked cell);
@@ -70,9 +72,14 @@ checkout's kernels and prints one JSON row per case:
   its launches (``torch.profiler``: :data:`K2_LAUNCHES`, with the ds x2
   and Hilbert launches they replaced, which an earlier tree runs).
 
+- the K1 engine probe's int8-window rows at its default shape (C = 1,024
+  x B = 262,144): i8direct and its ``i8x`` variants (``fp_i8d_kernel``,
+  ``full:i8direct`` on K12's ds x4) and i8manual (``fp_i8man_kernel``)
+  at both tiles and modes, each the probe's best of 3 over chained calls.
+
 ``--sections`` picks among "cells" (the cells end to end, the lenses
-among them), "k2" (the K2 probe's rows) and "rest" (everything else);
-all three by default.
+among them), "k2" (the K2 probe's rows), "fp" (the K1 probe's int8-window
+rows) and "rest" (everything else); all four by default.
 
 Each time is the mean of ``--reps`` calls after one (CUDA events), beside
 the card's name and power limit.  Exits 1 without a CUDA device.
@@ -213,8 +220,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--sections", default="cells,k2,rest",
-                    help="comma-separated: cells, k2, rest")
+    ap.add_argument("--sections", default="cells,k2,fp,rest",
+                    help="comma-separated: cells, k2, fp, rest")
     a = ap.parse_args(argv)
     sections = set(a.sections.split(","))
     root = os.path.abspath(a.root)
@@ -246,7 +253,18 @@ def main(argv=None) -> int:
         rest_rows(row, a.reps, dev)
     if "k2" in sections:
         k2_rows(row, a.reps, dev)
+    if "fp" in sections:
+        fp_rows(row, a.reps, dev)
     return 0
+
+
+def fp_rows(row, reps: int, dev) -> None:
+    """The K1 engine probe's int8-window rows (module docstring)."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+
+    for r in fp.run(1024, 262144, {"i8d", "i8x", "man"}, reps, dev,
+                    check=False, emit=lambda r: None):
+        row(r["kernel"], f"probe {r['variant']}", r["ms"])
 
 
 def cell_rows(row, dev) -> None:
@@ -285,9 +303,12 @@ def cell_rows(row, dev) -> None:
     for sp in (1, 2, 3):
         wb = chip_smoke.wideband_path(64, 32, 131072, 8, splits=sp,
                                       time_kernels=False, device=dev)
+        prof = chip_smoke.profile_wideband(sp, device=dev)
         row("wideband_demod_block", f"cell wideband splits={sp}",
             wb["ms_per_block"], launches={
-                k: v for k, v in wb["launches"].items() if v})
+                k: v for k, v in wb["launches"].items() if v},
+            device_busy_ms_a_block=prof["device_busy_ms"],
+            profiled_wall_ms_a_block=prof["wall_ms"])
 
 
 def rest_rows(row, reps: int, dev) -> None:

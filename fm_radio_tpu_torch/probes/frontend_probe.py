@@ -492,8 +492,43 @@ def i8direct(x8: torch.Tensor, full: bool, t_blk: int, no: int = 128,
     return out
 
 
-def i8man_smem(c_blk: int, t_blk: int, full: bool) -> int:
-    return 6 * c_blk * t_blk + (c_blk * t_blk if full else 0)
+# fp_i8man_kernel's shape (csrc/frontend_probe.cu: kManRun, kManThreads,
+# kManPasses, kManPad, kManTapWords): outputs a thread's run, threads a
+# CTA, runs a thread a tile at most, words past each row of the rings, the
+# 33 tap words padded to whole quads
+MAN_RUN, MAN_THREADS, MAN_PASSES, MAN_PAD, MAN_TAP_WORDS = 8, 512, 2, 4, 36
+
+
+def i8man_smem(c_blk: int, t_blk: int, full: bool, device="cpu") -> int:
+    """fp_i8man_kernel's shared memory in bytes: the input ring [2 slots][2
+    planes][c_blk rows] and the output ring [2][c_blk], each row t_blk / 4
+    words (floats) and MAN_PAD more; the tap pairs; for full the last theta
+    of every run of a tile.  On a CUDA device the C side computes it
+    (``fmt_fp_i8man_smem``); on the CPU this host copy."""
+    if not _build.on_cpu("i8man_smem", torch.device(device)):
+        fn = _build.function("frontend_probe", "fmt_fp_i8man_smem",
+                             [_I, _I, _I])
+        fn.restype = ctypes.c_int64
+        return int(fn(c_blk, t_blk, int(full)))
+    pitch = t_blk // M + MAN_PAD
+    runs = c_blk * (t_blk // M // MAN_RUN)
+    return 4 * (6 * c_blk * pitch + 2 * MAN_TAP_WORDS + (runs if full else 0))
+
+
+def i8man_check(c_blk: int, t_blk: int, full: bool, no: int) -> None:
+    """Raise ValueError where fmt_fp_i8man would refuse the tile or ``no``
+    (on every device, before any launch): the shared memory, at most
+    MAN_PASSES runs a thread, and ``no`` a multiple of MAN_RUN with every
+    window inside its tile."""
+    halo_w = (NN - M) // M
+    tw = t_blk // M
+    if i8man_smem(c_blk, t_blk, full) > SMEM_BYTES - 64 \
+            or c_blk * (tw // MAN_RUN) > MAN_PASSES * MAN_THREADS:
+        raise ValueError(f"i8manual: tile {c_blk}x{t_blk} exceeds the "
+                         "kernel's shared memory or threads")
+    if no % MAN_RUN or not halo_w <= no <= tw - halo_w:
+        raise ValueError(f"i8manual: no = {no} is not a multiple of "
+                         f"{MAN_RUN} in [{halo_w}, {tw - halo_w}]")
 
 
 def i8manual(x8: torch.Tensor, full: bool, c_blk: int, t_blk: int,
@@ -502,9 +537,7 @@ def i8manual(x8: torch.Tensor, full: bool, c_blk: int, t_blk: int,
     :func:`i8man_plain`."""
     _check("i8manual", x8, "u8")
     tb = tb or tables(x8.device)
-    if i8man_smem(c_blk, t_blk, full) > SMEM_BYTES - 64:
-        raise ValueError(f"i8manual: tile {c_blk}x{t_blk} exceeds shared "
-                         "memory")
+    i8man_check(c_blk, t_blk, full, no)
     if _build.on_cpu("i8manual", x8.device):
         return i8man_plain(x8, full, t_blk, no, tb)
     global launches_i8man

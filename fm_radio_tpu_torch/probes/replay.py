@@ -76,6 +76,7 @@ def stages() -> dict:
         "channelizer_bf16mat": chan,
         # the mid end's de-emphasis route, each tiled kernel alone
         "mid_ds2": (midend.mid_ds2, midend.mid_ds2_plain),
+        "deemph": (midend.deemph, midend.deemph_plain),
         "mid_hilb": (midend.mid_hilb, midend.mid_hilb_plain),
     }
     st.update({name: st[base] for name, base in I16_VARIANTS.items()})

@@ -125,14 +125,14 @@ def test_midend_plan_deemph(c, n4):
     """The de-emphasis route's plan: its ds x2 and Hilbert kernels on the
     fused kernel's grid, one CTA per (tile of MID_TILE outputs, channel),
     the last tile partial where B/8 is not a multiple of it; the
-    de-emphasis one thread a channel, 32 a block."""
+    de-emphasis one thread a channel, DEEMPH_LANES a block."""
     n8 = n4 // 2
     plan = dict(tmid.midend_plan(CO_DE, CFG_DE, c, n4))
     tiles = plan["k12_mid_ds2_kernel"][0]
     assert tiles * tmid.MID_TILE >= n8 > (tiles - 1) * tmid.MID_TILE
     assert plan["k12_mid_ds2_kernel"] == plan["k12_mid_hilb_kernel"] \
         == (tiles, c)
-    assert plan["k12_deemph_kernel"][0] * 32 >= c
+    assert plan["k12_deemph_kernel"][0] * tmid.DEEMPH_LANES >= c
     # one run of 8 outputs a thread of the ds x2 kernel, 4 of the Hilbert
     assert tmid.DS2_THREADS * 8 == tmid.HILB_THREADS * 4 == tmid.MID_TILE
 
