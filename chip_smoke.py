@@ -34,13 +34,16 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    variant beside its plain version and, for the per-tile sums, one
    PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``); the int8-window
    rows (fp_i8d's variants, fp_i8man's tiles) with their IDP4A issue
-   floor (:func:`i8_floor`);
-2d. four probe kernels and the mid end's de-emphasis route's two tiled
+   floor (:func:`i8_floor`); the K2 probe's ds2 and hilb with their
+   FMUL+FADD issue floors (:func:`engine_floor`), hilb's Hilbert launch
+   also alone (``k2_probe.hilb_launch``);
+2d. six probe kernels and the mid end's de-emphasis route's two tiled
    kernels in turns with the one PyTorch call of the same function
    (probes/vs_library.py, 25 rounds of 10 calls: the staged copy against
    ``Tensor.copy_``, the K1 probe's and k3's tile sums against
    ``sum(-1)``, the read against ``x.view(-1, 8, 128).sum((0, 1))``, ds x2
-   and Hilbert against ``F.conv1d``), each with the paired sign test's
+   and Hilbert, the mid end's and the K2 probe's, against ``F.conv1d``),
+   each with the paired sign test's
    verdict, put on the kernels line (``library_ms``,
    ``rounds_kernel_slower``, ``loses``, ``wins``); and ``F.conv1d`` alone
    at the K2 probe's ds2 and the K1 probe's dots shapes;
@@ -103,15 +106,17 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    builds, max abs error 0 on re, im, theta and power, outputs filled with
    NaN first (:func:`compare_k2_edges`: restruct:li[:stk] at every li, one
    block, a ragged last chunk, C = 1 and 3; the layout's C side against
-   its host copy); the de-emphasis recurrence against ``iir_filter`` on
-   both builds, max abs error 0 on the outputs and the state, memory
-   NaN-filled first (:func:`compare_deemph_edges`: C = 1, 40 and 2,048 at
-   13, 14, 15, 65, 195 and 229 batches of 16 steps (one chunk of the
-   lanes' rings and several, the last short), the lenses' 2,048 x 16,384
-   and the K2 probe's 1,024 x 32,768, in place and out of place); the K1
-   probe's manual pipeline against ``i8man_plain`` on both builds
-   (:func:`compare_man_edges`: the lens's tiles 8 x 2,048 and 8 x 4,096
-   and others, dots and full, no at its least, the lens's and its
+   its host copy; the engine's ds2 and hilb at C = 1 and 5, at B4 of a
+   partial tile and whole tiles, hilb at every t_blk of K2_ENGINE_TBLK,
+   and hilb's Hilbert launch alone); the de-emphasis recurrence against
+   ``iir_filter`` on both builds, max abs error 0 on the outputs and the
+   state, memory NaN-filled first (:func:`compare_deemph_edges`: C = 1,
+   40 and 2,048 at 13, 14, 15, 65, 195 and 229 batches of 16 steps (one
+   chunk of the lanes' rings and several, the last short), the lenses'
+   2,048 x 16,384 and the K2 probe's 1,024 x 32,768, in place and out of
+   place); the K1 probe's manual pipeline against ``i8man_plain`` on
+   both builds (:func:`compare_man_edges`: the lens's tiles 8 x 2,048 and
+   8 x 4,096 and others, dots and full, no at its least, the lens's and its
    most; a tile too large refused; its shared memory's C side against
    the host copy); the exact
    channelizer at every M it is instantiated for and its edge shapes on
@@ -242,6 +247,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    every split, audio of splits 2 and 1 >= 30 dB against splits 3; and
    its first 0.5 s at splits=1 on the card and with the plain versions on
    the host CPU: identical RDS bytes, audio SNR >= 75 dB.
+   The host CPU's runs of phases 6-7b start together, before phase 6, in
+   worker processes (:func:`station_cpu_pool`, one a core but two), and
+   each phase waits for its own while the card's runs go on.
 
 Any failed phase raises and the script exits non-zero.  Every line it
 logs is also written to chiprun_out/chip_smoke.log beside the script.
@@ -344,7 +352,11 @@ ENGINE_KERNELS = (
      "tools/frontend_probe.py:340"),
     ("fp_i8man", "fm_radio_tpu_torch/csrc/frontend_probe.cu",
      "tools/frontend_probe.py:442"),
-    ("k2_engine", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+    ("k2_stream", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+     "tools/k2_probe.py:69"),
+    ("k2_ds2", "fm_radio_tpu_torch/csrc/k2_probe.cu",
+     "tools/k2_probe.py:69"),
+    ("k2_hilb", "fm_radio_tpu_torch/csrc/k2_probe.cu",
      "tools/k2_probe.py:69"),
     ("k2_full", "fm_radio_tpu_torch/csrc/k2_probe.cu",
      "tools/k2_probe.py:69"),
@@ -1385,35 +1397,49 @@ def i16_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     return res
 
 
-def station_i16(device="cuda", seconds: float = 0.5) -> dict:
-    """The selftest station (``seconds`` of it, int8 planes) through App
-    with ``interstage_i16=True`` (the int8-direct K1 -> K2 -> PLL ->
-    extract in the int16 format) on the card and, with the plain versions,
-    on the host CPU; and the float32 route (``DemodConfig(
-    frontend_int8=True)``: K12) on the card.  RDS bytes and audio SNR of
-    the card against the CPU, and of the int16 route against the float32
-    one, the PI on each, and each card run's launches."""
-    from fm_radio_tpu_torch.apps.cli import selftest_checks, selftest_planes
+# phase 6d's station: its length, s, and block; the int16 route's keywords
+STATION_I16_SECONDS, STATION_I16_BLOCK = 0.5, 65536
+STATION_I16_CFG = {"frontend_int8": True, "interstage_i16": True}
+
+
+def _station_i16_run(dev, kw: dict):
+    """Phase 6d's run on ``dev``: the selftest station
+    (:data:`STATION_I16_SECONDS`, int8 planes) through App with
+    ``DemodConfig(**kw)``.  Returns the App, the seconds of its
+    ``process`` and the input's samples."""
+    from fm_radio_tpu_torch.apps.cli import selftest_planes
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.models.app import App
 
-    block = 65536
-    x8 = selftest_planes(seconds, block)
+    x8 = selftest_planes(STATION_I16_SECONDS, STATION_I16_BLOCK)
+    t0 = time.perf_counter()
+    app = App(block_size=STATION_I16_BLOCK, cfg=DemodConfig(**kw),
+              channels=1, device=dev)
+    app.process(x8)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return app, time.perf_counter() - t0, x8.shape[-1]
+
+
+def station_i16(device="cuda", legs=None) -> dict:
+    """The selftest station (:data:`STATION_I16_SECONDS` of it, int8
+    planes) through App with ``interstage_i16=True`` (the int8-direct K1
+    -> K2 -> PLL -> extract in the int16 format) on the card and, with the
+    plain versions, on the host CPU (the leg ``i16``); and the float32
+    route (``DemodConfig(frontend_int8=True)``: K12) on the card.  RDS
+    bytes and audio SNR of the card against the CPU, and of the int16
+    route against the float32 one, the PI on each, and each card run's
+    launches."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks
+
     runs = {}
-    for key, dev, kw in (
-            ("card_i16", device, {"frontend_int8": True,
-                                  "interstage_i16": True}),
-            ("cpu_i16", "cpu", {"frontend_int8": True,
-                                "interstage_i16": True}),
-            ("card_float", device, {"frontend_int8": True})):
+    for key, kw in (("card_i16", STATION_I16_CFG),
+                    ("card_float", {"frontend_int8": True})):
         reset_counts()
-        t0 = time.perf_counter()
-        app = App(block_size=block, cfg=DemodConfig(**kw), channels=1,
-                  device=dev)
-        app.process(x8)
-        if torch.device(dev).type == "cuda":
-            torch.cuda.synchronize(dev)
-        runs[key] = (app, time.perf_counter() - t0, read_counts())
+        app, secs, n = _station_i16_run(device, kw)
+        runs[key] = (app, secs, read_counts())
+    cpu = cpu_leg(legs, "i16")
+    runs["cpu_i16"] = (cpu, cpu.seconds, None)
     settle = int(0.15 * runs["card_i16"][0].demod.fs_audio)
 
     def vs(a, b):
@@ -1423,10 +1449,11 @@ def station_i16(device="cuda", seconds: float = 0.5) -> dict:
                                                      gb.rds_bytes(0))),
                 "snr_db": _snr_db(ga.audio[0, settle:], gb.audio[0, settle:])}
 
-    return {"seconds_audio": x8.shape[-1] / 1_024_000, "block": block,
+    return {"seconds_audio": n / 1_024_000, "block": STATION_I16_BLOCK,
             "card_vs_cpu": vs("card_i16", "cpu_i16"),
             "i16_vs_float_route": vs("card_i16", "card_float"),
-            "rds_pi": {k: selftest_checks(r[0])["rds_pi"]["value"]
+            "rds_pi": {k: (cpu.pi if k == "cpu_i16"
+                           else selftest_checks(r[0])["rds_pi"]["value"])
                        for k, r in runs.items()},
             "launches": {k: r[2] for k, r in runs.items() if k != "cpu_i16"},
             "seconds": {k: r[1] for k, r in runs.items()}}
@@ -1487,7 +1514,8 @@ def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
 PROBE_REP = {"fp_sum": "stream:no=128:f32", "fp_fir": "full:no=128:f32",
              "fp_dbuf": "full:double-buf:tile=8x2048",
              "fp_i8d": "full:i8direct", "fp_i8man": "full:i8man:tile=8x4096",
-             "k2_engine": "hilb", "k2_full": "full",
+             "k2_stream": "stream", "k2_ds2": "ds2", "k2_hilb": "hilb",
+             "k2_full": "full",
              "k2_restruct": "restruct:128", "k3_stream31": "stream31:t=1024",
              "k3_sum": "stream:t=1024", "k3_value": "value:run=16 (no tile)",
              "k3_full": "full:t=1024"}
@@ -1553,7 +1581,17 @@ def _probe_work(name: str, inputs: dict, device) -> dict:
         nn2, nh = co.taps_fm_out.shape[0], co.taps_hilbert.shape[0]
         out = 3 * 4.0 * c * l
         mode = PROBE_REP[name]
-        per = 2 * nn2 + 2 * nh
+        # FMUL + FADD an output of each FIR (-fmad=false)
+        per = {"k2_stream": 0, "k2_ds2": 2 * nn2}.get(name,
+                                                      2 * nn2 + 2 * nh)
+        if name == "k2_hilb":
+            # the Hilbert launch alone on the variant's fm_out: its bytes
+            # (fm_out in, three planes out) and sums
+            fm = k2.ds2_plain(x, co)[0]
+            w.update(alone=lambda: k2.hilb_launch(fm, 1024, co),
+                     alone_plain=lambda: k2.hilb_launch_plain(fm, 1024, co),
+                     alone_bytes=4.0 * c * l + out,
+                     alone_f32_ops=float(c) * l * 2 * nh)
         if name == "k2_full":
             per += 5 + 2 * 9 + ATAN2_FLOPS + 1 + 3
             w["serial_steps"] = l
@@ -1567,7 +1605,8 @@ def _probe_work(name: str, inputs: dict, device) -> dict:
                                                   + ATAN2_FLOPS + 1 + 3)
             per += 5 + 2 * 9 + ATAN2_FLOPS + 1 + 3
             w["serial_steps"] = l // li
-        w.update(bytes=4.0 * c * b4 + out + (4 * c if name != "k2_engine"
+        w.update(bytes=4.0 * c * b4 + out + (4 * c if name in ("k2_full",
+                                                           "k2_restruct")
                                               else 0),
                  f32_ops=float(c) * l * per,
                  plain=lambda: k2.variant_plain(mode, x, 1024, co))
@@ -1669,6 +1708,19 @@ def probe_phase(device) -> dict:
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "max_abs_err": err[name],
                          "serial_steps": w["serial_steps"], "w": w}
+        if "alone" in w:  # one launch of the variant, alone: compared,
+            # then timed (5 calls after one) beside its plain version
+            aout = w["alone"]()
+            pout, alone_plain_ms = _cuda_ms(w["alone_plain"], 1)
+            alone_err = _probe.max_err(aout, pout)
+            if alone_err != 0.0:
+                raise RuntimeError(f"{name}: its launch alone disagrees "
+                                   f"with its plain version: {alone_err}")
+            _, alone_ms = _cuda_ms(w["alone"], 5)
+            kernels[name]["launch_alone"] = {
+                "ms": alone_ms, "plain_ms": alone_plain_ms,
+                "max_abs_err": alone_err,
+                **bound_of(w["alone_bytes"], w["alone_f32_ops"])}
         if name in READ_ONLY:  # a read faster than the sweep's raises it
             note_read(w["bytes"] / rep["ms"] * 1e3,
                       f"{name} {variant} (phase 2c)")
@@ -3132,6 +3184,28 @@ PLL_CHUNK_EDGE_GS = (2, 4, 8)
 PLL_CHUNK_EDGE_WLS = {0: (48, 37), 7: (48, 37), 4096: (4112, 4099)}
 
 
+# the plain chunked PLL's inputs and outputs by (C, G, W, L, block): the
+# default and the bounds-checked build hold their kernels against it on the
+# same inputs, so its serial loop runs once for both where they are equal
+_PLL_CHUNKED_PLAIN: dict = {}
+
+
+def _pll_chunked_plain_once(key: tuple, cfg, st, th):
+    """``kernels/pll.py::pll_chunked_plain(cfg, st, th)``, taken from
+    :data:`_PLL_CHUNKED_PLAIN` where ``key`` holds the same state and
+    theta (``torch.equal``), else run and kept there."""
+    from fm_radio_tpu_torch.kernels import pll as kp
+
+    hit = _PLL_CHUNKED_PLAIN.get(key)
+    if hit is not None and torch.equal(hit[1], th) and all(
+            torch.equal(a, b) for a, b in zip(hit[0], st)):
+        return hit[2]
+    pout = kp.pll_chunked_plain(cfg, st, th)
+    _PLL_CHUNKED_PLAIN[key] = (tuple(t.clone() for t in st), th.clone(),
+                               pout)
+    return pout
+
+
 def compare_pll_chunked_edges(device="cuda",
                               channels=(5, 40)) -> list[dict]:
     """The chunked PLL kernel (``kernels/pll.py::pilot_pll_chunked``)
@@ -3141,8 +3215,9 @@ def compare_pll_chunked_edges(device="cuda",
     :data:`PLL_CHUNK_EDGE_GS`, each W of :data:`PLL_CHUNK_EDGE_WLS` with
     its chunk lengths L (windows that start off the batch grid, chunks
     whose kept range shares a batch with the next), two blocks with
-    carried state on a pilot track the loop locks on.  Returns one verdict
-    row per (C, G, W, L)."""
+    carried state on a pilot track the loop locks on; the plain version
+    run once a case for both builds (:func:`_pll_chunked_plain_once`).
+    Returns one verdict row per (C, G, W, L)."""
     from fm_radio_tpu_torch.kernels import pll as kp
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG
     from fm_radio_tpu_torch.models.pilot_pll import pilot_pll_init_state
@@ -3166,7 +3241,8 @@ def compare_pll_chunked_edges(device="cuda",
                         a = (cfg, st, th[:, blk * n : (blk + 1) * n]
                              .contiguous())
                         kout = kp.pilot_pll_chunked(*a)
-                        pout = kp.pll_chunked_plain(*a)
+                        pout = _pll_chunked_plain_once((c, g, w, l, blk),
+                                                       *a)
                         e = stage_errors("pll_chunked", kout, pout)
                         dump_mismatch("pll_chunked", a, kout, pout, e)
                         _merge(acc, "pll_chunked", e)
@@ -3706,6 +3782,23 @@ def compare_stream_edges(device="cuda", seed: int = 7) -> list[dict]:
 # and stk blocks, 16 + 16 + 3 of the peak's), a chunk cut short, whole
 # chunks
 K2_EDGE_SHAPES = ((1, 1), (3, 35), (1, 17), (3, 64))
+# the K2 probe's engine kernels at their edges (compare_k2_edges), at C =
+# 1 and 5: ds2 at B4 of one short tile (16, 48: 8 and 24 outputs), a tile
+# and a partial one (2,064, 4,128) and whole tiles (8,192); hilb at every
+# t_blk here, each at K2_ENGINE_B4's three B4: 16 and 48 (tiles shorter
+# than the delay: the rotation is by d % lt), 512 and 1,024 (dividing the
+# CTA's tile of 1,024 outputs), 768 (tiles that end in the next CTA's:
+# re's rotated part from device memory), 2,048 (the CTA's tile) and 4,096
+# (longer: from device memory)
+K2_ENGINE_DS2_B4 = (16, 48, 2064, 4128, 8192)
+K2_ENGINE_TBLK = (16, 48, 512, 768, 1024, 2048, 4096)
+
+
+def k2_engine_b4(t_blk: int) -> list:
+    """hilb's B4 at t_blk (compare_k2_edges): the fewest samples it takes
+    (B4/2 >= 64), about 5,000 (a partial CTA tile where t_blk <= 1,024)
+    and about 12,000 (several CTAs), each a multiple of t_blk."""
+    return sorted({t_blk * -(-n // t_blk) for n in (128, 5000, 12000)})
 
 
 def compare_k2_edges(device="cuda", seed: int = 3) -> list[dict]:
@@ -3713,13 +3806,48 @@ def compare_k2_edges(device="cuda", seed: int = 3) -> list[dict]:
     the ds x2 and Hilbert launches between them) against its plain version
     at every compiled li, both forms, at K2_EDGE_SHAPES, the outputs filled
     with NaN first, max abs error 0 on each of re, im, theta and power; and
-    the layout's C side against its host copy for every li and kind.  One
-    row a case (kernel, case, max_abs_err, ok)."""
+    the layout's C side against its host copy for every li and kind; the
+    engine's ds2 (k2_ds2_kernel) and hilb (k12_mid_ds2_kernel, then
+    k2_hilb_kernel) at their edges (K2_ENGINE_DS2_B4, K2_ENGINE_TBLK) and
+    hilb's Hilbert launch alone at every t_blk, outputs NaN first, max abs
+    error 0 on re, im and theta.  One row a case (kernel, case,
+    max_abs_err, ok)."""
     from fm_radio_tpu_torch.probes import _probe
     from fm_radio_tpu_torch.probes import k2_probe as k2
 
     co = k2.coeffs(device)
     rows = []
+
+    def engine_row(kernel, case, kout, pout):
+        errs = [_probe.max_err(a, b) for a, b in zip(kout, pout)]
+        rows.append({"kernel": kernel, "case": case,
+                     "max_abs_err": max(errs), "errs_re_im_theta": errs,
+                     "ok": all(e == 0.0 for e in errs)})
+
+    def nan_out(c, n):
+        return tuple(torch.full((c, n), math.nan, device=device)
+                     for _ in range(3))
+
+    for c in (1, 5):
+        for b4 in K2_ENGINE_DS2_B4:
+            x = k2.make_input(c, b4, device, seed=seed + b4)
+            engine_row("k2_ds2", f"ds2:C={c}:B4={b4}",
+                       k2.variant("ds2", x, 1024, co, out=nan_out(c, b4 // 2)),
+                       k2.ds2_plain(x, co))
+        for t_blk in K2_ENGINE_TBLK:
+            for b4 in k2_engine_b4(t_blk):
+                x = k2.make_input(c, b4, device, seed=seed + b4 + t_blk)
+                engine_row("k2_hilb", f"hilb:C={c}:B4={b4}:t_blk={t_blk}",
+                           k2.variant("hilb", x, t_blk, co,
+                                      out=nan_out(c, b4 // 2)),
+                           k2.hilb_plain(x, t_blk, co))
+            fm = k2.make_input(c, k2_engine_b4(t_blk)[1] // 2, device,
+                               seed=seed + t_blk)
+            engine_row("k2_hilb", f"hilb_launch:C={c}:n8={fm.shape[1]}:"
+                       f"t_blk={t_blk}",
+                       k2.hilb_launch(fm, t_blk, co,
+                                      out=nan_out(c, fm.shape[1])),
+                       k2.hilb_launch_plain(fm, t_blk, co))
     for li in k2.LI:
         mats = k2.block_mats(li, device, co)
         for c, nblk in K2_EDGE_SHAPES:
@@ -3871,6 +3999,28 @@ def restruct_floor(c: int, l: int, li: int, sms: int | None = None,
             "deemph_ms": ms["deemph"], "peak_ms": ms["peak"],
             "instructions_an_output": per, "li": li, "sms": sms,
             "sm_clock_hz": hz}
+
+
+def engine_floor(mode: str, c: int, b4: int, nn2: int = 64, nh: int = 65,
+                 sms: int | None = None, hz: float | None = None) -> dict:
+    """The K2 probe's ds2 or hilb FMUL+FADD issue floor at C x B4, ms
+    (computed, not measured): an FMUL and an FADD a tap an output
+    (-fmad=false), nn2 taps for the ds x2 launch and nh for hilb's
+    Hilbert launch, over the C x B4/2 outputs, at 128 a clock an SM, at
+    this card's SM count and highest SM clock (or those given)."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hz is None:
+        hz = _sm_clock_hz()
+    rate = 128.0 * sms * hz
+    outs = float(c) * (b4 // 2)
+    launches = {"ds2": 2 * nn2} if mode == "ds2" else {
+        "ds2": 2 * nn2, "hilbert": 2 * nh}
+    ms = {k: outs * v / rate * 1e3 for k, v in launches.items()}
+    return {"fmul_fadd_floor_ms": sum(ms.values()),
+            "launch_floors_ms": ms,
+            "instructions_an_output": sum(launches.values()),
+            "outputs": outs, "sms": sms, "sm_clock_hz": hz}
 
 
 def fp_floor(c: int, b: int, nn: int = 132) -> dict:
@@ -4144,25 +4294,32 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     }
 
 
-def station(device="cuda") -> dict:
-    """The selftest station through the port's App on the card and,
-    with the plain versions, on the host CPU."""
-    from fm_radio_tpu_torch.apps.cli import (
-        power_ceil, selftest_checks, selftest_planes)
+def _station_run(dev):
+    """Phase 6's run on ``dev``: the selftest station (2 s of int8 planes)
+    through App.  Returns the App, the seconds of its ``process`` and the
+    input's samples."""
+    from fm_radio_tpu_torch.apps.cli import power_ceil, selftest_planes
     from fm_radio_tpu_torch.models.app import App
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG
 
     block = power_ceil(65536)
     x8 = selftest_planes(2.0, block)
-    apps = {}
-    for dev in (device, "cpu"):
-        app = App(block_size=block, cfg=INT8_CONFIG, channels=1, device=dev)
-        t0 = time.perf_counter()
-        app.process(x8)
-        if torch.device(dev).type == "cuda":
-            torch.cuda.synchronize(dev)
-        apps[str(dev)] = (app, time.perf_counter() - t0)
-    gpu, cpu = apps[str(device)][0], apps["cpu"][0]
+    app = App(block_size=block, cfg=INT8_CONFIG, channels=1, device=dev)
+    t0 = time.perf_counter()
+    app.process(x8)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return app, time.perf_counter() - t0, x8.shape[-1]
+
+
+def station(device="cuda", legs=None) -> dict:
+    """The selftest station through the port's App on the card and,
+    with the plain versions, on the host CPU (the leg ``station`` of
+    :func:`station_cpu_leg`, from ``legs`` where it was started)."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks
+
+    gpu, t_gpu, _ = _station_run(device)
+    cpu = cpu_leg(legs, "station")
     checks = selftest_checks(gpu)
     settle = int(0.15 * gpu.demod.fs_audio)
     a, b = gpu.audio[0, settle:], cpu.audio[0, settle:]
@@ -4176,63 +4333,78 @@ def station(device="cuda") -> dict:
         "rds_bytes": int(gpu.rds_bytes(0).size),
         "rds_identical": bool(same_rds),
         "snr_vs_cpu_db": snr,
-        "seconds": {k: v[1] for k, v in apps.items()},
+        "seconds": {str(device): t_gpu, "cpu": cpu.seconds},
     }
 
 
-def station_split(device="cuda", seconds: float = 1.0) -> list[dict]:
-    """The selftest station (``seconds`` of it) on the default
-    configuration's split path, on the card and, with the plain versions,
-    on the host CPU: through App on complex64 (``process_u8``,
-    ``DemodConfig()``) and through ``demod --ingest f32w`` (packed words,
-    integer input; ``demod_app``, then the command itself on the card).
-    Each row: RDS bytes identical, audio SNR of the card against the CPU,
-    the selftest gates on the card's output, the launches of the card's
-    run."""
+# phase 6b's station: its length, s, and block
+STATION_SPLIT_SECONDS, STATION_SPLIT_BLOCK = 1.0, 65536
+
+
+def _station_split_run(path: str, dev, pcm):
+    """Phase 6b's run ``path`` on ``dev``: the selftest station
+    (:data:`STATION_SPLIT_SECONDS`) through App on complex64
+    (``process_u8``, ``DemodConfig()``) or through ``demod --ingest f32w``
+    on ``pcm``, which this writes first.  Returns the App, the seconds of
+    the run and the input's samples."""
     from fm_radio_tpu_torch.apps.cli import (
-        build_parser, demod_app, selftest_checks, selftest_u8)
-    from fm_radio_tpu_torch.kernels import _build
+        build_parser, demod_app, selftest_u8)
     from fm_radio_tpu_torch.models.app import App
 
-    block = 65536
-    u8 = selftest_u8(seconds, block)
+    block = STATION_SPLIT_BLOCK
+    u8 = selftest_u8(STATION_SPLIT_SECONDS, block)
+    if path != "app_complex64":
+        u8.tofile(pcm)
+    t0 = time.perf_counter()
+    if path == "app_complex64":
+        app = App(block_size=block, channels=1, device=dev)
+        app.process_u8(u8)
+    else:
+        args = build_parser().parse_args(
+            ["demod", "-i", str(pcm), "--ingest", "f32w", "-b",
+             str(block), "--device", str(dev)])
+        app = demod_app(args, torch.device(dev))
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return app, time.perf_counter() - t0, u8.shape[0]
+
+
+def station_split(device="cuda", legs=None) -> list[dict]:
+    """The selftest station (:data:`STATION_SPLIT_SECONDS` of it) on the
+    default configuration's split path, on the card and, with the plain
+    versions, on the host CPU (the legs ``split:<path>``): through App on
+    complex64 (``process_u8``, ``DemodConfig()``) and through ``demod
+    --ingest f32w`` (packed words, integer input; ``demod_app``, then the
+    command itself on the card).  Each row: RDS bytes identical, audio SNR
+    of the card against the CPU, the selftest gates on the card's output,
+    the launches of the card's run."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks
+    from fm_radio_tpu_torch.kernels import _build
+
+    block = STATION_SPLIT_BLOCK
     smoke = _build.BUILD_ROOT / "smoke"
     smoke.mkdir(parents=True, exist_ok=True)
     pcm = smoke / "station.pcm"
-    u8.tofile(pcm)
     rows = []
     for path in ("app_complex64", "demod_f32w"):
-        apps, counts = {}, {}
-        for dev in (device, "cpu"):
-            reset_counts()
-            t0 = time.perf_counter()
-            if path == "app_complex64":
-                app = App(block_size=block, channels=1, device=dev)
-                app.process_u8(u8)
-            else:
-                args = build_parser().parse_args(
-                    ["demod", "-i", str(pcm), "--ingest", "f32w", "-b",
-                     str(block), "--device", str(dev)])
-                app = demod_app(args, torch.device(dev))
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize(dev)
-            apps[str(dev)] = (app, time.perf_counter() - t0)
-            counts[str(dev)] = read_counts()
-        gpu, cpu = apps[str(device)][0], apps["cpu"][0]
+        reset_counts()
+        gpu, t_gpu, n = _station_split_run(path, device, pcm)
+        counts = read_counts()
+        cpu = cpu_leg(legs, f"split:{path}")
         settle = int(0.15 * gpu.demod.fs_audio)
         checks = selftest_checks(gpu)
         rows.append({
-            "path": path, "seconds_audio": u8.shape[0] / 1_024_000,
+            "path": path, "seconds_audio": n / 1_024_000,
             "cfg": {k: getattr(gpu.cfg, k) for k in (
                 "frontend_int8", "assume_integer_input", "k12_fusion")},
-            "launches": counts[str(device)],
+            "launches": counts,
             "rds_bytes": int(gpu.rds_bytes(0).size),
             "rds_identical": bool(np.array_equal(gpu.rds_bytes(0),
                                                  cpu.rds_bytes(0))),
             "snr_vs_cpu_db": _snr_db(gpu.audio[0, settle:],
                                      cpu.audio[0, settle:]),
             "rds_pi": checks["rds_pi"]["value"],
-            "seconds": {k: v[1] for k, v in apps.items()}})
+            "seconds": {str(device): t_gpu, "cpu": cpu.seconds}})
     # the command itself on the card: its exit code and RDS summary line
     wav = smoke / "station.wav"
     out = subprocess.run(
@@ -4248,46 +4420,63 @@ def station_split(device="cuda", seconds: float = 1.0) -> list[dict]:
     return rows
 
 
-def station_loops(device="cuda", seconds: float = 1.0) -> list[dict]:
-    """The selftest station (``seconds`` of it) through App with each of
-    the two loop options, on the card and, with the plain versions, on the
-    host CPU: ``pll_time_chunks=4`` on int8 planes at block 262,144 (N / G
-    = 8192 > W: the chunked PLL), and ``chain_fusion="auto"`` on packed
-    words copied to 8 channels (the megakernel's gate needs C % 8 == 0) at
-    block 65,536.  Each row: RDS bytes identical on every channel, the
-    lowest audio SNR of the card against the CPU, channel 0's PI on the
-    card, the card run's launches."""
-    from fm_radio_tpu_torch.apps.cli import selftest_checks, selftest_u8
+# phase 6c's runs: path -> (block, channels, DemodConfig keywords), and the
+# station's length, s
+STATION_LOOPS = {
+    "app_pll_chunked": (262144, 1, {"frontend_int8": True,
+                                    "pll_time_chunks": 4}),
+    "app_chain_8ch": (65536, 8, {"assume_integer_input": True,
+                                 "chain_fusion": "auto"}),
+}
+STATION_LOOPS_SECONDS = 1.0
+
+
+def _station_loops_run(path: str, dev):
+    """Phase 6c's run ``path`` (:data:`STATION_LOOPS`) on ``dev``: the
+    selftest station (:data:`STATION_LOOPS_SECONDS`) through App, as int8
+    planes on one channel or as packed words copied to each channel.
+    Returns the App, the seconds of the run and the input's samples."""
+    from fm_radio_tpu_torch.apps.cli import selftest_u8
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.models.app import App
     from fm_radio_tpu_torch.utils.transfer import pack_iq_u8, split_iq_i8
 
+    block, c, kw = STATION_LOOPS[path]
+    u8 = selftest_u8(STATION_LOOPS_SECONDS, block)
+    x = (split_iq_i8(u8)[:, None, :] if c == 1
+         else np.repeat(pack_iq_u8(u8)[None, :], c, axis=0))
+    t0 = time.perf_counter()
+    app = App(block_size=block, cfg=DemodConfig(**kw), channels=c,
+              device=dev)
+    app.process(x)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return app, time.perf_counter() - t0, u8.shape[0]
+
+
+def station_loops(device="cuda", legs=None) -> list[dict]:
+    """The selftest station (:data:`STATION_LOOPS_SECONDS` of it) through
+    App with each of the two loop options, on the card and, with the plain
+    versions, on the host CPU (the legs ``loops:<path>``):
+    ``pll_time_chunks=4`` on int8 planes at block 262,144 (N / G = 8192 >
+    W: the chunked PLL), and ``chain_fusion="auto"`` on packed words
+    copied to 8 channels (the megakernel's gate needs C % 8 == 0) at block
+    65,536.  Each row: RDS bytes identical on every channel, the lowest
+    audio SNR of the card against the CPU, channel 0's PI on the card, the
+    card run's launches."""
+    from fm_radio_tpu_torch.apps.cli import selftest_checks
+
     rows = []
-    for path, block, c, kw in (
-            ("app_pll_chunked", 262144, 1,
-             {"frontend_int8": True, "pll_time_chunks": 4}),
-            ("app_chain_8ch", 65536, 8,
-             {"assume_integer_input": True, "chain_fusion": "auto"})):
-        u8 = selftest_u8(seconds, block)
-        x = (split_iq_i8(u8)[:, None, :] if c == 1
-             else np.repeat(pack_iq_u8(u8)[None, :], c, axis=0))
-        apps, counts, secs = {}, {}, {}
-        for dev in (device, "cpu"):
-            reset_counts()
-            t0 = time.perf_counter()
-            app = App(block_size=block, cfg=DemodConfig(**kw), channels=c,
-                      device=dev)
-            app.process(x)
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize(dev)
-            apps[str(dev)], secs[str(dev)] = app, time.perf_counter() - t0
-            counts[str(dev)] = read_counts()
-        gpu, cpu = apps[str(device)], apps["cpu"]
+    for path, (block, c, kw) in STATION_LOOPS.items():
+        reset_counts()
+        gpu, t_gpu, n = _station_loops_run(path, device)
+        counts = read_counts()
+        cpu = cpu_leg(legs, f"loops:{path}")
         settle = int(0.15 * gpu.demod.fs_audio)
         rows.append({
             "path": path, "cfg": kw, "channels": c, "block": block,
-            "seconds_audio": u8.shape[0] / 1_024_000,
-            "launches": counts[str(device)],
+            "seconds_audio": n / 1_024_000,
+            "launches": counts,
             "rds_bytes": min(int(gpu.rds_bytes(i).size) for i in range(c)),
             "rds_identical": all(np.array_equal(gpu.rds_bytes(i),
                                                 cpu.rds_bytes(i))
@@ -4296,7 +4485,7 @@ def station_loops(device="cuda", seconds: float = 1.0) -> list[dict]:
                                          cpu.audio[i, settle:])
                                  for i in range(c)),
             "rds_pi": selftest_checks(gpu)["rds_pi"]["value"],
-            "seconds": secs})
+            "seconds": {str(device): t_gpu, "cpu": cpu.seconds}})
     return rows
 
 
@@ -4307,31 +4496,43 @@ def _snr_db(a, b) -> float:
                            / (float(np.sum((a - b) ** 2)) + 1e-30))
 
 
-def wideband_stations(device="cuda", block: int = 65536,
-                      cpu_seconds: float = 0.5) -> list[dict]:
+# phase 7's captures: (stations, M, seconds), their block, and the
+# seconds of each that the card and the host CPU compare
+WIDEBAND_STATIONS = ((4, 8, 2.0), (3, 32, 1.5))
+WIDEBAND_BLOCK, WIDEBAND_CPU_SECONDS = 65536, 0.5
+
+
+def _wideband_cpu_n() -> int:
+    """The samples of phase 7's captures that the host CPU runs."""
+    return int(WIDEBAND_CPU_SECONDS * 1_024_000) // WIDEBAND_BLOCK \
+        * WIDEBAND_BLOCK
+
+
+def wideband_stations(device="cuda", legs=None) -> list[dict]:
     """Wideband stations through StationsApp: ``selftest --stations 4``
     (M=8, 2 s, the CLI's default) and 3 stations on an M=32 grid (1.5 s)
-    on the card; then the first ``cpu_seconds`` of the same captures on the
-    card and, with the plain versions, on the host CPU: RDS bytes
-    identical and audio SNR of the card against the CPU for every station.
-    Each row's "pass" is the selftest gate (PI, name, >= 5 groups) and
-    "gate" what this phase holds: at M=8 the selftest gate; at M=32 the PI
-    and the group count, with the name reported.  (The int8 bridge
-    carries a station at 1/M of its capture amplitude, as the JAX
-    package's bridge does: ~1.2 LSB rms at M=32, where a station's name
-    may miss a segment in seconds of signal; identically in the JAX
-    package, whose RDS bytes the port reproduces.  The CPU leg is
-    shortened to stay under about two minutes.)"""
+    on the card; then the first :data:`WIDEBAND_CPU_SECONDS` of the same
+    captures on the card and, with the plain versions, on the host CPU
+    (the legs ``wideband:<M>``): RDS bytes identical and audio SNR of the
+    card against the CPU for every station.  Each row's "pass" is the
+    selftest gate (PI, name, >= 5 groups) and "gate" what this phase
+    holds: at M=8 the selftest gate; at M=32 the PI and the group count,
+    with the name reported.  (The int8 bridge carries a station at 1/M of
+    its capture amplitude, as the JAX package's bridge does: ~1.2 LSB rms
+    at M=32, where a station's name may miss a segment in seconds of
+    signal; identically in the JAX package, whose RDS bytes the port
+    reproduces.  The CPU leg is shortened to stay under about two
+    minutes.)"""
     from fm_radio_tpu_torch.apps.cli import selftest_wideband
 
+    block = WIDEBAND_BLOCK
     results = []
-    for k_st, m, seconds in ((4, 8, 2.0), (3, 32, 1.5)):
+    for k_st, m, seconds in WIDEBAND_STATIONS:
         n = int(seconds * 1_024_000) // block * block
         _, t_gpu, checks = selftest_wideband(k_st, m, n, block, device)
-        n_cmp = int(cpu_seconds * 1_024_000) // block * block
-        short = {str(dev): selftest_wideband(k_st, m, n_cmp, block, dev)
-                 for dev in (device, "cpu")}
-        (gpu, _, _), (cpu, t_cpu, _) = short[str(device)], short["cpu"]
+        n_cmp = _wideband_cpu_n()
+        gpu, _, _ = selftest_wideband(k_st, m, n_cmp, block, device)
+        cpu = cpu_leg(legs, f"wideband:{m}")
         settle = int(0.15 * gpu.cfg.rates.fs_audio)
         stations = []
         for i in range(k_st):
@@ -4348,7 +4549,7 @@ def wideband_stations(device="cuda", block: int = 65536,
         results.append({"stations": k_st, "m": m,
                         "seconds_audio": n / 1_024_000,
                         "seconds_audio_vs_cpu": n_cmp / 1_024_000,
-                        "seconds": {"card": t_gpu, "cpu": t_cpu},
+                        "seconds": {"card": t_gpu, "cpu": cpu.seconds},
                         "per_station": stations})
     return results
 
@@ -4374,17 +4575,17 @@ def station_splits_words(m: int = 32, channel: int = 3, block: int = 32768,
     return pack_iq_u8(u8)[None]
 
 
-def station_splits(device="cuda", m: int = 32, channel: int = 3,
-                   block: int = 32768, blocks: int = 24,
-                   cpu_blocks: int = 16) -> dict:
-    """The JAX package's hardware gate for the precision modes
-    (tests/test_tpu_accuracy.py:200-278) on the port: the station of
-    :func:`station_splits_words` through ``wideband_demod_block`` (int8
-    bridge, phase-split at M = 32) at splits 3, 2 and 1 on the card, its
-    PI decoded at each, the audio of splits 2 and 1 against splits 3 (SNR
-    over the last three quarters); then the first ``cpu_blocks`` blocks at
-    splits=1 on the card and with the plain versions on the host CPU: RDS
-    bytes and audio SNR.  Each card run's launches are counted."""
+# phase 7b's station: M, its channel, the block, the blocks on the card at
+# each precision mode and the blocks that the card and the host CPU compare
+SPLITS_M, SPLITS_CHANNEL, SPLITS_BLOCK = 32, 3, 32768
+SPLITS_BLOCKS, SPLITS_CPU_BLOCKS = 24, 16
+
+
+def _splits_run(words: np.ndarray, dev, splits: int, n_blocks: int) -> dict:
+    """Phase 7b's run on ``dev``: the first ``n_blocks`` blocks of
+    ``words`` (:func:`station_splits_words`) through
+    ``wideband_demod_block`` at ``splits``.  Returns the station's audio,
+    RDS bytes and PI, the launches and the seconds of the run."""
     from fm_radio_tpu_torch.kernels.channelizer import make_tables
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
     from fm_radio_tpu_torch.models.wideband import (
@@ -4392,39 +4593,52 @@ def station_splits(device="cuda", m: int = 32, channel: int = 3,
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
     from fm_radio_tpu_torch.rds.chain import make_rds_chain
 
-    words = station_splits_words(m, channel, block, blocks)
-    t = m * block
+    m, channel = SPLITS_M, SPLITS_CHANNEL
+    t = m * SPLITS_BLOCK
+    dev = torch.device(dev)
+    cfg = INT8_CONFIG
+    co = make_coeffs(cfg, dev)
+    tab = make_tables(make_channelizer_taps(m), m, dev)
+    st = wideband_init_state(cfg, m, 1, device=dev)
+    x = torch.from_numpy(words).to(dev)
+    audio, pred, valid = [], [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    for blk in range(n_blocks):
+        xb = x[:, blk * t : (blk + 1) * t].contiguous()
+        st, o = wideband_demod_block(cfg, co, tab, st, xb, m, splits=splits)
+        audio.append(o["audio"][channel].cpu().numpy())
+        pred.append(o["rds_pred"][channel].cpu().numpy())
+        valid.append(o["rds_valid"][channel].cpu().numpy())
+    secs = time.perf_counter() - t0
+    pred, valid = np.concatenate(pred), np.concatenate(valid)
+    chain = make_rds_chain()
+    chain.process_symbols(pred[valid.astype(bool)])
+    rds = (np.concatenate(chain.rds_bytes) if chain.rds_bytes
+           else np.zeros(0, np.uint8))
+    return {"audio": np.concatenate(audio), "rds": rds,
+            "pi": f"{chain.db.pi_code:04X}", "launches": read_counts(),
+            "seconds": secs}
 
-    def run(dev, splits, n_blocks):
-        dev = torch.device(dev)
-        cfg = INT8_CONFIG
-        co = make_coeffs(cfg, dev)
-        tab = make_tables(make_channelizer_taps(m), m, dev)
-        st = wideband_init_state(cfg, m, 1, device=dev)
-        x = torch.from_numpy(words).to(dev)
-        audio, pred, valid = [], [], []
-        reset_counts()
-        t0 = time.perf_counter()
-        for blk in range(n_blocks):
-            xb = x[:, blk * t : (blk + 1) * t].contiguous()
-            st, o = wideband_demod_block(cfg, co, tab, st, xb, m,
-                                         splits=splits)
-            audio.append(o["audio"][channel].cpu().numpy())
-            pred.append(o["rds_pred"][channel].cpu().numpy())
-            valid.append(o["rds_valid"][channel].cpu().numpy())
-        secs = time.perf_counter() - t0
-        pred, valid = np.concatenate(pred), np.concatenate(valid)
-        chain = make_rds_chain()
-        chain.process_symbols(pred[valid.astype(bool)])
-        rds = (np.concatenate(chain.rds_bytes) if chain.rds_bytes
-               else np.zeros(0, np.uint8))
-        return {"audio": np.concatenate(audio), "rds": rds,
-                "pi": f"{chain.db.pi_code:04X}", "launches": read_counts(),
-                "seconds": secs}
 
-    runs = {sp: run(device, sp, blocks) for sp in (3, 2, 1)}
-    res = {"m": m, "channel": channel, "block": block, "blocks": blocks,
-           "seconds_audio": blocks * block / 1_024_000, "splits": {}}
+def station_splits(device="cuda", legs=None) -> dict:
+    """The JAX package's hardware gate for the precision modes
+    (tests/test_tpu_accuracy.py:200-278) on the port: the station of
+    :func:`station_splits_words` through ``wideband_demod_block`` (int8
+    bridge, phase-split at M = 32) at splits 3, 2 and 1 on the card, its
+    PI decoded at each, the audio of splits 2 and 1 against splits 3 (SNR
+    over the last three quarters); then the first
+    :data:`SPLITS_CPU_BLOCKS` blocks at splits=1 on the card and with the
+    plain versions on the host CPU (the leg ``splits1``): RDS bytes and
+    audio SNR.  Each card run's launches are counted."""
+    words = station_splits_words(SPLITS_M, SPLITS_CHANNEL, SPLITS_BLOCK,
+                                 SPLITS_BLOCKS)
+    runs = {sp: _splits_run(words, device, sp, SPLITS_BLOCKS)
+            for sp in (3, 2, 1)}
+    res = {"m": SPLITS_M, "channel": SPLITS_CHANNEL, "block": SPLITS_BLOCK,
+           "blocks": SPLITS_BLOCKS,
+           "seconds_audio": SPLITS_BLOCKS * SPLITS_BLOCK / 1_024_000,
+           "splits": {}}
     a3 = runs[3]["audio"]
     for sp, r in runs.items():
         tail = r["audio"][r["audio"].shape[0] // 4 :]
@@ -4435,15 +4649,109 @@ def station_splits(device="cuda", m: int = 32, channel: int = 3,
                 tail, a3[a3.shape[0] // 4 :])),
             "launches": r["launches"],
             "seconds": r["seconds"]}
-    gpu, cpu = run(device, 1, cpu_blocks), run("cpu", 1, cpu_blocks)
+    gpu = _splits_run(words, device, 1, SPLITS_CPU_BLOCKS)
+    cpu = cpu_leg(legs, "splits1")
     settle = int(0.15 * 32000)
     res["splits1_card_vs_cpu"] = {
-        "blocks": cpu_blocks, "seconds_audio": cpu_blocks * block / 1_024_000,
+        "blocks": SPLITS_CPU_BLOCKS,
+        "seconds_audio": SPLITS_CPU_BLOCKS * SPLITS_BLOCK / 1_024_000,
         "rds_bytes": int(gpu["rds"].size),
-        "rds_identical": bool(np.array_equal(gpu["rds"], cpu["rds"])),
-        "snr_db": _snr_db(gpu["audio"][settle:], cpu["audio"][settle:]),
-        "seconds": {"card": gpu["seconds"], "cpu": cpu["seconds"]}}
+        "rds_identical": bool(np.array_equal(gpu["rds"], cpu.rds_bytes(0))),
+        "snr_db": _snr_db(gpu["audio"][settle:], cpu.audio[0][settle:]),
+        "seconds": {"card": gpu["seconds"], "cpu": cpu.seconds}}
     return res
+
+
+class CpuRun:
+    """A station phase's run on the host CPU as :func:`station_cpu_leg`
+    returns it: each channel's audio and RDS bytes (read as App's), the
+    first channel's PI and the seconds of the run."""
+
+    def __init__(self, audio, rds, pi, seconds):
+        self.audio, self.rds, self.pi, self.seconds = audio, rds, pi, seconds
+
+    def rds_bytes(self, channel: int = 0) -> np.ndarray:
+        return self.rds[channel]
+
+
+# the station phases' runs on the host CPU (phases 6-7b), by name, longest
+# first: "station", "split:<path>", "loops:<path>", "i16",
+# "wideband:<M>", "splits1"
+STATION_CPU_LEGS = ("station", "loops:app_pll_chunked",
+                    "loops:app_chain_8ch", "split:app_complex64",
+                    "split:demod_f32w", "wideband:32", "splits1", "i16",
+                    "wideband:8")
+
+
+def station_cpu_leg(name: str, threads: int | None = None) -> dict:
+    """The run with the plain versions on the host CPU that a station
+    phase holds its card's run against (:data:`STATION_CPU_LEGS`): the
+    same function as the card's run, on ``"cpu"`` and on the same inputs,
+    made here from their seeds; on ``threads`` torch threads where given.
+    Returns :class:`CpuRun`'s fields as plain values, which a worker
+    process can send back."""
+    from fm_radio_tpu_torch.kernels import _build
+
+    if threads:
+        torch.set_num_threads(threads)
+    kind, _, arg = name.partition(":")
+    if kind == "station":
+        app, secs, _ = _station_run("cpu")
+    elif kind == "split":
+        smoke = _build.BUILD_ROOT / "smoke"
+        smoke.mkdir(parents=True, exist_ok=True)
+        app, secs, _ = _station_split_run(arg, "cpu",
+                                          smoke / "station_cpu.pcm")
+    elif kind == "loops":
+        app, secs, _ = _station_loops_run(arg, "cpu")
+    elif kind == "i16":
+        app, secs, _ = _station_i16_run("cpu", STATION_I16_CFG)
+    elif kind == "wideband":
+        from fm_radio_tpu_torch.apps.cli import selftest_wideband
+
+        k_st, m = next((k, m) for k, m, _ in WIDEBAND_STATIONS
+                       if m == int(arg))
+        app, secs, _ = selftest_wideband(k_st, m, _wideband_cpu_n(),
+                                         WIDEBAND_BLOCK, "cpu")
+    elif kind == "splits1":
+        words = station_splits_words(SPLITS_M, SPLITS_CHANNEL, SPLITS_BLOCK,
+                                     SPLITS_BLOCKS)
+        r = _splits_run(words, "cpu", 1, SPLITS_CPU_BLOCKS)
+        return {"audio": r["audio"][None], "rds": [r["rds"]],
+                "pi": r["pi"], "seconds": r["seconds"]}
+    else:
+        raise ValueError(f"no station CPU leg {name!r}")
+    audio = app.audio
+    return {"audio": audio,
+            "rds": [app.rds_bytes(i) for i in range(audio.shape[0])],
+            "pi": app.rds_database(0).summary()["pi_code"], "seconds": secs}
+
+
+def station_cpu_pool():
+    """Starts every leg of :data:`STATION_CPU_LEGS` in worker processes,
+    spawned (the main process holds the card), one a core but two, each
+    on its share of the cores' torch threads.  One after another in the
+    main process the legs held most of the station phases' time; side by
+    side the phases wait for the longest.  Returns the pool (its caller
+    shuts it down) and {leg: Future}."""
+    import concurrent.futures
+    import multiprocessing
+
+    cores = len(os.sched_getaffinity(0))
+    workers = max(1, min(len(STATION_CPU_LEGS), cores - 2))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {n: pool.submit(station_cpu_leg, n,
+                                 max(1, cores // workers))
+                  for n in STATION_CPU_LEGS}
+
+
+def cpu_leg(legs, name: str) -> CpuRun:
+    """The station CPU leg ``name``: from its worker where ``legs``
+    (:func:`station_cpu_pool`'s futures) holds it, else run here."""
+    r = (legs[name].result() if legs and name in legs
+         else station_cpu_leg(name))
+    return CpuRun(**r)
 
 
 def main() -> int:
@@ -4522,6 +4830,10 @@ def main() -> int:
             # the int8 taps' IDP4A issue floor beside the bound
             k = dict(k, launches=eng["launches"][n],
                      **i8_floor(*PROBE_FULL["fp"]))
+        elif n in ("k2_ds2", "k2_hilb"):
+            # the FIRs' computed FMUL+FADD issue floor
+            k = dict(k, launches=eng["launches"][n],
+                     **engine_floor(PROBE_REP[n], *PROBE_FULL["k2"]))
         elif n == "k2_restruct":
             # the block kernels' computed issue floor at every li
             c, b4 = PROBE_FULL["k2"]
@@ -4764,21 +5076,22 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"stream edge cases disagree: "
                            f"{[(r['kernel'], r['case'], r.get('build')) for r in bad]}")
-    # the K2 probe's block recurrences at their edges on both builds
+    # the K2 probe's block recurrences and engine kernels at their edges
+    # on both builds
     kedge = compare_k2_edges(dev)
     try:
         with _build.checked_build():
             kedge += [dict(r, build="checked")
                       for r in compare_k2_edges(dev, seed=4)]
     except RuntimeError as e:
-        raise RuntimeError(f"K2 block edges on the bounds-checked build: {e}")
+        raise RuntimeError(f"K2 probe edges on the bounds-checked build: {e}")
     bad = [r for r in kedge if not r["ok"]]
-    log(f"[compare] K2 block edges: {len(kedge)} cases on both builds, "
+    log(f"[compare] K2 probe edges: {len(kedge)} cases on both builds, "
         f"{len(bad)} off; {sorted({r['kernel'] for r in kedge})}")
     for r in bad:
-        log(f"[compare] K2 block edge off: {json.dumps(r)}")
+        log(f"[compare] K2 probe edge off: {json.dumps(r)}")
     if bad:
-        raise RuntimeError(f"K2 block edge cases disagree: "
+        raise RuntimeError(f"K2 probe edge cases disagree: "
                            f"{[(r['case'], r.get('build')) for r in bad]}")
     # the de-emphasis recurrence and the K1 probe's manual pipeline at
     # their edges on both builds, on NaN-filled memory
@@ -5095,80 +5408,92 @@ def main() -> int:
     if any(c["planes"]["centre_share"] >= 1.0 for c in (wb, wb_i8, wb_bf16)):
         raise RuntimeError("a loud wideband cell reached K12 silent")
 
-    # 6. station on the card and on the host CPU
-    t0 = time.perf_counter()
-    stn = station(dev)
-    log(f"[station] {json.dumps(stn)}")
-    log(f"[station] {time.perf_counter() - t0:.1f} s")
-    if not (stn["checks_pass"] and stn["rds_identical"]
-            and stn["snr_vs_cpu_db"] >= SNR_MIN_DB and stn["rds_bytes"] > 0):
-        raise RuntimeError("station phase failed its gates")
+    # 6-7b: the station phases; their runs on the host CPU go on side
+    # by side in worker processes (station_cpu_pool) while the card's
+    # runs go on here
+    pool, legs = station_cpu_pool()
+    try:
+        # 6. station on the card and on the host CPU
+        t0 = time.perf_counter()
+        stn = station(dev, legs)
+        log(f"[station] {json.dumps(stn)}")
+        log(f"[station] {time.perf_counter() - t0:.1f} s")
+        if not (stn["checks_pass"] and stn["rds_identical"]
+                and stn["snr_vs_cpu_db"] >= SNR_MIN_DB
+                and stn["rds_bytes"] > 0):
+            raise RuntimeError("station phase failed its gates")
 
-    # 6b. the station on the default configuration's split path
-    t0 = time.perf_counter()
-    sst = station_split(dev)
-    log(f"[station] split path: {json.dumps(sst)}")
-    log(f"[station] split path: {time.perf_counter() - t0:.1f} s")
-    for r in sst[:2]:
-        if not (r["rds_identical"] and r["rds_bytes"] > 0
-                and r["snr_vs_cpu_db"] >= SNR_MIN_DB
-                and r["rds_pi"] == "1234"):
-            raise RuntimeError(f"split-path station failed its gates: {r}")
-    if sst[2]["rc"] != 0 or sst[2]["pi_code"] != "1234":
-        raise RuntimeError(f"demod --ingest f32w failed: {sst[2]}")
+        # 6b. the station on the default configuration's split path
+        t0 = time.perf_counter()
+        sst = station_split(dev, legs)
+        log(f"[station] split path: {json.dumps(sst)}")
+        log(f"[station] split path: {time.perf_counter() - t0:.1f} s")
+        for r in sst[:2]:
+            if not (r["rds_identical"] and r["rds_bytes"] > 0
+                    and r["snr_vs_cpu_db"] >= SNR_MIN_DB
+                    and r["rds_pi"] == "1234"):
+                raise RuntimeError(f"split-path station failed its gates: {r}")
+        if sst[2]["rc"] != 0 or sst[2]["pi_code"] != "1234":
+            raise RuntimeError(f"demod --ingest f32w failed: {sst[2]}")
 
-    # 6c. the station with the chunked PLL and on the megakernel
-    t0 = time.perf_counter()
-    lst = station_loops(dev)
-    log(f"[station] loops: {json.dumps(lst)}")
-    log(f"[station] loops: {time.perf_counter() - t0:.1f} s")
-    for r in lst:
-        want = ("pll_chunked" if r["path"] == "app_pll_chunked" else "chain")
-        if not (r["rds_identical"] and r["rds_bytes"] > 0
-                and r["snr_vs_cpu_db"] >= SNR_MIN_DB
-                and r["rds_pi"] == "1234" and r["launches"][want] > 0):
-            raise RuntimeError(f"station {r['path']} failed its gates: {r}")
+        # 6c. the station with the chunked PLL and on the megakernel
+        t0 = time.perf_counter()
+        lst = station_loops(dev, legs)
+        log(f"[station] loops: {json.dumps(lst)}")
+        log(f"[station] loops: {time.perf_counter() - t0:.1f} s")
+        for r in lst:
+            want = ("pll_chunked" if r["path"] == "app_pll_chunked"
+                    else "chain")
+            if not (r["rds_identical"] and r["rds_bytes"] > 0
+                    and r["snr_vs_cpu_db"] >= SNR_MIN_DB
+                    and r["rds_pi"] == "1234" and r["launches"][want] > 0):
+                raise RuntimeError(
+                    f"station {r['path']} failed its gates: {r}")
 
-    # 6d. the station in the int16 format
-    t0 = time.perf_counter()
-    si = station_i16(dev)
-    log(f"[station] i16: {json.dumps(si)}")
-    log(f"[station] i16: {time.perf_counter() - t0:.1f} s")
-    cv, fv = si["card_vs_cpu"], si["i16_vs_float_route"]
-    if not (cv["rds_identical"] and cv["rds_bytes"] > 0
-            and cv["snr_db"] >= STATION_I16_CPU_DB and fv["rds_identical"]
-            and fv["snr_db"] >= STATION_I16_FLOAT_DB
-            and set(si["rds_pi"].values()) == {"1234"}
-            and all(si["launches"]["card_i16"][k] > 0 for k in I16_STATION)):
-        raise RuntimeError(f"int16 station failed its gates: {si}")
+        # 6d. the station in the int16 format
+        t0 = time.perf_counter()
+        si = station_i16(dev, legs)
+        log(f"[station] i16: {json.dumps(si)}")
+        log(f"[station] i16: {time.perf_counter() - t0:.1f} s")
+        cv, fv = si["card_vs_cpu"], si["i16_vs_float_route"]
+        if not (cv["rds_identical"] and cv["rds_bytes"] > 0
+                and cv["snr_db"] >= STATION_I16_CPU_DB and fv["rds_identical"]
+                and fv["snr_db"] >= STATION_I16_FLOAT_DB
+                and set(si["rds_pi"].values()) == {"1234"}
+                and all(si["launches"]["card_i16"][k] > 0
+                        for k in I16_STATION)):
+            raise RuntimeError(f"int16 station failed its gates: {si}")
 
-    # 7. wideband stations on the card and on the host CPU
-    t0 = time.perf_counter()
-    wst = wideband_stations(dev)
-    log(f"[stations] {json.dumps(wst)}")
-    log(f"[stations] {time.perf_counter() - t0:.1f} s")
-    for grid in wst:
-        for r in grid["per_station"]:
-            if not (r["gate"] and r["rds_identical"] and r["rds_bytes"] > 0
-                    and r["snr_vs_cpu_db"] >= SNR_MIN_DB):
-                raise RuntimeError(f"wideband stations (M={grid['m']}) "
-                                   f"failed their gates: {r}")
+        # 7. wideband stations on the card and on the host CPU
+        t0 = time.perf_counter()
+        wst = wideband_stations(dev, legs)
+        log(f"[stations] {json.dumps(wst)}")
+        log(f"[stations] {time.perf_counter() - t0:.1f} s")
+        for grid in wst:
+            for r in grid["per_station"]:
+                if not (r["gate"] and r["rds_identical"] and r["rds_bytes"] > 0
+                        and r["snr_vs_cpu_db"] >= SNR_MIN_DB):
+                    raise RuntimeError(f"wideband stations (M={grid['m']}) "
+                                       f"failed their gates: {r}")
 
-    # 7b. a station through the three precision modes
-    t0 = time.perf_counter()
-    sps = station_splits(dev)
-    log(f"[stations] splits: {json.dumps(sps)}")
-    log(f"[stations] splits: {time.perf_counter() - t0:.1f} s")
-    vs = sps["splits1_card_vs_cpu"]
-    for sp, r in sps["splits"].items():
-        chan = CHANNELIZER_BY_SPLITS[sp]
-        if r["pi"] != "5005" or not r["launches"].get(chan) or (
-                sp != 3 and r["snr_vs_splits3_db"] < STATION_SPLITS_SNR_DB):
-            raise RuntimeError(f"station at splits={sp} failed its gates: "
-                               f"{r}")
-    if not (vs["rds_identical"] and vs["rds_bytes"] > 0
-            and vs["snr_db"] >= SNR_MIN_DB):
-        raise RuntimeError(f"station at splits=1, card vs CPU: {vs}")
+        # 7b. a station through the three precision modes
+        t0 = time.perf_counter()
+        sps = station_splits(dev, legs)
+        log(f"[stations] splits: {json.dumps(sps)}")
+        log(f"[stations] splits: {time.perf_counter() - t0:.1f} s")
+        vs = sps["splits1_card_vs_cpu"]
+        for sp, r in sps["splits"].items():
+            chan = CHANNELIZER_BY_SPLITS[sp]
+            if r["pi"] != "5005" or not r["launches"].get(chan) or (
+                    sp != 3
+                    and r["snr_vs_splits3_db"] < STATION_SPLITS_SNR_DB):
+                raise RuntimeError(f"station at splits={sp} failed its gates: "
+                                   f"{r}")
+        if not (vs["rds_identical"] and vs["rds_bytes"] > 0
+                and vs["snr_db"] >= SNR_MIN_DB):
+            raise RuntimeError(f"station at splits=1, card vs CPU: {vs}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
     # the kernels line: each kernel's numbers from its cell (pre-split:
     # k12, pll, extract, bpsk; the loud wideband cell: channelizer, k12_ps;
@@ -5403,7 +5728,14 @@ def main() -> int:
             "bound_by": pk["bound_by"], "library_ms": pk["library_ms"],
             "variant": pk["variant"], "hbm_bytes_s": pk["hbm_bytes_s"],
             "hbm_rate": pk["hbm_rate"], "hbm_rate_from": pk["hbm_rate_from"],
-            **in_turns_keys(n),
+            # hilb's in-turns case is its Hilbert launch alone (beside
+            # launch_alone), not the variant: no one call does both FIRs
+            **({"hilbert_launch_in_turns": in_turns_keys(n)}
+               if n == "k2_hilb" else in_turns_keys(n)),
+            **({"launch_alone": pk["launch_alone"]}
+               if "launch_alone" in pk else {}),
+            **(floors_ms(engine_floor(pk["variant"], *PROBE_FULL["k2"]))
+               if n in ("k2_ds2", "k2_hilb") else {}),
             "work": {key: pk[key] for key in ("bytes", "f32_ops", "i8_ops",
                                               "design_f32_ops") if key in pk},
             **({"serial_steps": pk["serial_steps"]}

@@ -619,8 +619,9 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
 // halves, one launch each around k12_deemph_kernel: k12_mid_ds2_kernel
 // (the staging and ds x2, fm_out to device memory) and
 // k12_mid_hilb_kernel (fm_out staged back, Hilbert).  The three kernels
-// run the same device functions (mid_stage_fmd, mid_ds2, mid_hilb), so
-// one copy of the FIR loops serves both routes.
+// run the same device functions (mid_stage_fmd, mid_ds2, mid_hilb_runs
+// under mid_hilb), so one copy of the FIR loops serves both routes and the
+// K2 probe's engine kernels (csrc/k2_probe.cu), which store other planes.
 // In the int16 format (K2's in_i16 / out_i16, midend_pallas.py:246,
 // :254-257) fm_demod is staged from int16, dequantised as
 // fir_decimate_kernel<int16_t> dequantises it (half the source bytes), and
@@ -782,20 +783,15 @@ __device__ __forceinline__ void mid_ds2(const float* s_u, const float* s_w2,
 }
 
 // The register-blocked Hilbert over the staged fm_out s_f (s_f[a] is
-// fm_out[i0 - HH + a]), kThr threads, and its stores: for the tile's nt
-// outputs i = i0 + a (nt % 4 == 0), im[i] = sum_k wh[k] fm_out[i - HH + k]
-// = s_f[a + k] and re[i] = fm_out[i - D] = s_f[a + HH - D], one float4
-// store a plane (with kOut16 also q_i16 at kIqScale, one 8-byte store a
-// plane) into row c of re, im [C, n8].  kOnce: nt <= kThr kHilbOuts, so a
-// thread has one run at most.
-template <bool kOut16, int NH, int kThr, bool kOnce>
-__device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
-                                         int c, int n8, int i0, int nt,
-                                         float* __restrict__ re,
-                                         float* __restrict__ im,
-                                         int16_t* __restrict__ re16,
-                                         int16_t* __restrict__ im16) {
-  constexpr int HH = NH - 1, D = (NH - 1) / 2;
+// fm_out[i0 - HH + a]), kThr threads: for the tile's nt outputs (nt % 4
+// == 0), output a = sum_k wh[k] s_f[a + k], kHilbOuts neighbouring outputs
+// a thread, each run handed to emit(a0, acc) (its outputs a0 .. a0 +
+// kHilbOuts - 1).  kOnce: nt <= kThr kHilbOuts, so a thread has one run
+// at most.
+template <int NH, int kThr, bool kOnce, class Emit>
+__device__ __forceinline__ void mid_hilb_runs(const float* s_f,
+                                              const float* s_wh, int nt,
+                                              Emit emit) {
   for (int it = threadIdx.x; it * kHilbOuts < nt; it += kThr) {
     const int a0 = it * kHilbOuts;
     float acc[kHilbOuts], v[kHilbOuts];
@@ -815,28 +811,49 @@ __device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
         v[kHilbOuts - 1] = s_f[mid_skew(a0 + kHilbOuts + k)];
       }
     }
-    float d[kHilbOuts];
-#pragma unroll
-    for (int r = 0; r < kHilbOuts; ++r) d[r] = s_f[mid_skew(a0 + r + HH - D)];
-    static_assert(kHilbOuts == 4, "one float4 store a plane");
-    const int64_t o = (int64_t)c * n8 + i0 + a0;  // nt % 4 == 0
-#ifdef FMT_CHECKED
-    FMT_AT(im, o + 3, (int64_t)gridDim.y * n8);
-    FMT_AT(re, o + 3, (int64_t)gridDim.y * n8);
-#endif
-    *reinterpret_cast<float4*>(im + o) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(re + o) = make_float4(d[0], d[1], d[2], d[3]);
-    if constexpr (kOut16) {
-#ifdef FMT_CHECKED
-      FMT_AT(im16, o + 3, (int64_t)gridDim.y * n8);
-      FMT_AT(re16, o + 3, (int64_t)gridDim.y * n8);
-#endif
-      *reinterpret_cast<uint2*>(im16 + o) = q_i16x4(acc, kIqScale);
-      *reinterpret_cast<uint2*>(re16 + o) = q_i16x4(d, kIqScale);
-    }
+    emit(a0, acc);
     if constexpr (kOnce) break;
   }
+}
+
+// mid_hilb_runs and the mid end's stores: for the tile's outputs i = i0 +
+// a, im[i] = sum_k wh[k] fm_out[i - HH + k] = s_f[a + k] and re[i] =
+// fm_out[i - D] = s_f[a + HH - D], one float4 store a plane (with kOut16
+// also q_i16 at kIqScale, one 8-byte store a plane) into row c of re, im
+// [C, n8].
+template <bool kOut16, int NH, int kThr, bool kOnce>
+__device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
+                                         int c, int n8, int i0, int nt,
+                                         float* __restrict__ re,
+                                         float* __restrict__ im,
+                                         int16_t* __restrict__ re16,
+                                         int16_t* __restrict__ im16) {
+  constexpr int HH = NH - 1, D = (NH - 1) / 2;
+  mid_hilb_runs<NH, kThr, kOnce>(
+      s_f, s_wh, nt, [&](int a0, const float (&acc)[kHilbOuts]) {
+        float d[kHilbOuts];
+#pragma unroll
+        for (int r = 0; r < kHilbOuts; ++r)
+          d[r] = s_f[mid_skew(a0 + r + HH - D)];
+        static_assert(kHilbOuts == 4, "one float4 store a plane");
+        const int64_t o = (int64_t)c * n8 + i0 + a0;  // nt % 4 == 0
+#ifdef FMT_CHECKED
+        FMT_AT(im, o + 3, (int64_t)gridDim.y * n8);
+        FMT_AT(re, o + 3, (int64_t)gridDim.y * n8);
+#endif
+        *reinterpret_cast<float4*>(im + o) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<float4*>(re + o) =
+            make_float4(d[0], d[1], d[2], d[3]);
+        if constexpr (kOut16) {
+#ifdef FMT_CHECKED
+          FMT_AT(im16, o + 3, (int64_t)gridDim.y * n8);
+          FMT_AT(re16, o + 3, (int64_t)gridDim.y * n8);
+#endif
+          *reinterpret_cast<uint2*>(im16 + o) = q_i16x4(acc, kIqScale);
+          *reinterpret_cast<uint2*>(re16 + o) = q_i16x4(d, kIqScale);
+        }
+      });
 }
 
 // src: theta1 [C, n4] float32 (kFromTheta: the discriminator runs here,
@@ -999,6 +1016,8 @@ k12_mid_hilb_kernel(const float* __restrict__ fm_out,
   for (int k = threadIdx.x; k < NH; k += kMidThreads)
     s_wh[k] = FMT_AT(wh_rev, k, NH);
   const float* x = fm_out + (int64_t)c * n8;
+  // this staging (the raw[] loads, the halo's select, the skewed stores)
+  // has a copy in k2_probe.cu's k2_hilb_kernel: a change here goes there
   float raw[NLOAD];
 #pragma unroll
   for (int k = 0; k < NLOAD; ++k) {

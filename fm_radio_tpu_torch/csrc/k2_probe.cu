@@ -5,14 +5,14 @@
 //   stream      re, im, theta copied from the two halves of each time tile
 //               of fm_demod (k2_stream_kernel): the bytes alone
 //   ds2         + the ds x2 FIR, written to all three outputs
-//               (k2_ds2_kernel, on fir_point)
+//               (k2_ds2_kernel)
 //   hilb        + the Hilbert FIR: re delayed, im filtered, theta = im
-//               (k2_hilb_kernel, on fir_point, after fir_decimate_kernel).
-//               The TPU probe reads re after it has carried the tile's
-//               tail into the buffer's head (tools/k2_probe.py:117-118), so
-//               its re is each tile of the ds x2 output rotated by the
-//               delay: re[u] = fm_out[u - d] within the tile, the first d
-//               from the tile's own last d.  The port reproduces that.
+//               (k12_mid_ds2_kernel, then k2_hilb_kernel).  The TPU probe
+//               reads re after it has carried the tile's tail into the
+//               buffer's head (tools/k2_probe.py:117-118), so its re is
+//               each tile of the ds x2 output rotated by the delay: re[u] =
+//               fm_out[u - d] within the tile, the first d from the tile's
+//               own last d.  The port reproduces that.
 //   full        the production K2 (launch_midend of k12_stages.cuh, its
 //               de-emphasis route: the tiled ds x2, the serial
 //               de-emphasis, the tiled Hilbert, the peak IIR's recurrence
@@ -75,44 +75,165 @@ __global__ void k2_stream_kernel(const float4* __restrict__ x, int64_t nv,
   im[o] = x[src + l4];
 }
 
-// the ds x2 FIR on zero state (zero tail of nn - 2), into all three outputs
-__global__ void k2_ds2_kernel(const float* __restrict__ x, int n_in,
-                              const float* __restrict__ zeros,
-                              const float* __restrict__ w_rev, int nn,
-                              int channels, float* __restrict__ re,
-                              float* __restrict__ im,
-                              float* __restrict__ th) {
-  const int n_out = n_in / 2;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n_out) return;
-  const int c = (int)(idx / n_out), i = (int)(idx % n_out);
-  const int halo = nn - 2;
-  const float y = fir_point(x + (int64_t)c * n_in, n_in, zeros, halo, w_rev,
-                            nn, 2 * i - halo);
-  re[idx] = y;
-  im[idx] = y;
-  th[idx] = y;
+// ---- ds2 and hilb: the mid end's staged, register-blocked tiles -------------
+//
+// Both FIRs are the de-emphasis route's kernels (k12_stages.cuh) with other
+// stores: a CTA a (tile of kMidTile outputs, channel); k2_ds2_kernel
+// stages the tile's fm_demod window (mid_stage_fmd, every load in flight
+// before the first store to shared memory) and sums kDs2Outs outputs a
+// thread (mid_ds2), stored to re, im and theta, two float4 stores a plane;
+// k2_hilb_kernel stages the tile's fm_out and the 64-sample halo as
+// k12_mid_hilb_kernel does and sums kHilbOuts outputs a thread
+// (mid_hilb_runs), stored as im, theta = im and the rotated re, a float4
+// store a plane.
+// Each output is fir_point's float32 sum in its tap order, so both equal
+// the plain versions bit for bit (-fmad=false).  The carried tails are
+// zero (the probe's zero state).  An earlier form summed one output a
+// thread over fir_point, a global load a tap: 1.218 ms (ds2) and, with
+// fir_decimate_kernel before it, 2.817 (hilb) at C = 1,024 x B4 = 65,536,
+// behind F.conv1d (PERF.md row 13e).  What bounds them: the bytes (ds2: x
+// in, three planes out) beside the FMUL+FADD issue of 2 taps an output.
+
+// The source of the rotated re of the run of kHilbOuts outputs from i (i
+// % 4 == 0) in a tile of lt outputs: fm_out[i - dm] where i % lt >= dm,
+// else fm_out[i + lt - dm], dm = d % lt (a tile of lt outputs rotated by
+// d, as hilb_plain's torch.roll; lt % 8 == 0, so dm % 8 == 0 and a run
+// never straddles the seam).  probes/k2_probe.py::re_src is its host copy.
+__host__ __device__ inline int k2_re_src(int i, int lt, int d) {
+  const int dm = d % lt;
+  return i % lt >= dm ? i - dm : i + lt - dm;
 }
 
-// the Hilbert on fm_out [C, n] and zero state: im = nh-tap FIR
-// (k12_hilbert_kernel's sum), re = each tile of lt samples rotated by the
-// delay d = (nh - 1)/2, theta = im
-__global__ void k2_hilb_kernel(const float* __restrict__ fm_out, int n,
-                               int lt, const float* __restrict__ zeros,
-                               const float* __restrict__ wh_rev, int nh,
-                               int channels, float* __restrict__ re,
-                               float* __restrict__ im,
-                               float* __restrict__ th) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n) return;
-  const int c = (int)(idx / n), i = (int)(idx % n);
-  const int halo = nh - 1;
-  const float* x = fm_out + (int64_t)c * n;
-  const float vi = fir_point(x, n, zeros, halo, wh_rev, nh, i - halo);
-  const int d = (nh - 1) / 2, u = i % lt;
-  re[idx] = x[u < d ? i + lt - d : i - d];
-  im[idx] = vi;
-  th[idx] = vi;
+// x [C, n4] fm_demod -> re, im, th [C, n4/2] (n4 % 16 == 0, 16-byte
+// aligned); zeros [C, 128] the carried ds x2 tail
+template <int NN2>
+__global__ void __launch_bounds__(kDs2Threads, kDs2MinBlocks)
+k2_ds2_kernel(const float* __restrict__ x, const float* __restrict__ w2_rev,
+              const float* __restrict__ zeros, int n4, float* __restrict__ re,
+              float* __restrict__ im, float* __restrict__ th) {
+  static_assert(kDs2Outs == 8, "two float4 stores a run and plane");
+  constexpr int H2 = NN2 - 2;
+  constexpr int NU = 2 * kMidTile + NN2;  // every sample the runs read
+  constexpr int NLOAD = (2 * kMidTile + H2 + kDs2Threads - 1) / kDs2Threads;
+  __shared__ float s_u[mid_skew(NU) + 1];
+  __shared__ float s_w2[NN2];
+  const int n8 = n4 / 2;
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.x * kMidTile;
+  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
+  for (int k = threadIdx.x; k < NN2; k += kDs2Threads)
+    s_w2[k] = FMT_AT(w2_rev, k, NN2);
+  mid_stage_fmd<false, float, H2, H2, NLOAD, kDs2Threads>(
+      x + (int64_t)c * n4, nullptr, 1.0f, zeros, n4, c, 2 * i0 - H2,
+      2 * nt + H2, false, nullptr, s_u, nullptr);
+  const int64_t total = (int64_t)gridDim.y * n8;
+  mid_ds2<NN2, kDs2Threads, true>(
+      s_u, s_w2, nt, [&](int a0, const float (&acc)[kDs2Outs]) {
+        const int64_t o = (int64_t)c * n8 + i0 + a0;
+        const float4 lo = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        const float4 hi = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        auto put = [&](float* p) {
+          float4* d = reinterpret_cast<float4*>(
+              FMT_SPAN(p, o, kDs2Outs, total));
+          d[0] = lo;
+          d[1] = hi;
+        };
+        put(re);
+        put(im);
+        put(th);
+      });
+}
+
+// fm_out [C, n8] -> im = the NH-tap FIR, theta = im, re = each tile of lt
+// outputs rotated by the delay D = (NH - 1) / 2 (k2_re_src): from the
+// staged window where the source lies in it, else from device memory (a
+// tile of lt that does not end inside this CTA's tile: lt > kMidTile, or
+// lt not dividing it).  n8 % 8 == 0, lt % 8 == 0, lt | n8; re, im, th
+// 16-byte aligned; zeros [C, 128] the carried Hilbert tail.
+template <int NH>
+__global__ void __launch_bounds__(kMidThreads, kHilbMinBlocks)
+k2_hilb_kernel(const float* __restrict__ fm_out,
+               const float* __restrict__ wh_rev,
+               const float* __restrict__ zeros, int n8, int lt,
+               float* __restrict__ re, float* __restrict__ im,
+               float* __restrict__ th) {
+  static_assert(kHilbOuts == 4, "one float4 store a plane");
+  static_assert(kMidThreads * kHilbOuts >= kMidTile, "one run a thread");
+  constexpr int HH = NH - 1, D = (NH - 1) / 2;
+  constexpr int NF = kMidTile + HH;  // fm_out window: tile + Hilbert halo
+  constexpr int NLOAD = (NF + kMidThreads - 1) / kMidThreads;
+  __shared__ float s_f[mid_skew(NF + kHilbOuts + NH) + 1];
+  __shared__ float s_wh[NH];
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.x * kMidTile;
+  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
+  const int nf = nt + HH;                 // fm_out values it needs
+  for (int k = threadIdx.x; k < NH; k += kMidThreads)
+    s_wh[k] = FMT_AT(wh_rev, k, NH);
+  // k12_mid_hilb_kernel's staging (kept in its own body there: as a shared
+  // device function it compiled to other instructions)
+  const float* x = fm_out + (int64_t)c * n8;
+  float raw[NLOAD];
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int a = threadIdx.x + k * kMidThreads;  // fm_out i0 - HH + a
+    const int i = i0 - HH + a;
+    raw[k] = a >= nf ? 0.0f
+             : i >= 0 ? FMT_AT(x, i, n8)
+                      : FMT_AT(zeros, (int64_t)c * HH + HH + i,
+                               (int64_t)gridDim.y * HH);
+  }
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int a = threadIdx.x + k * kMidThreads;
+    if (a < nf) s_f[mid_skew(a)] = raw[k];
+  }
+  __syncthreads();
+  const int64_t total = (int64_t)gridDim.y * n8;
+  mid_hilb_runs<NH, kMidThreads, true>(
+      s_f, s_wh, nt, [&](int a0, const float (&acc)[kHilbOuts]) {
+        const int i = i0 + a0;
+        const int src = k2_re_src(i, lt, D);  // >= i - D >= i0 - HH
+        float4 r;
+        if (src + kHilbOuts <= i0 + nt) {  // in the staged window
+          const int a = src - (i0 - HH);
+          r = make_float4(s_f[mid_skew(a)], s_f[mid_skew(a + 1)],
+                          s_f[mid_skew(a + 2)], s_f[mid_skew(a + 3)]);
+        } else {
+          r = *reinterpret_cast<const float4*>(FMT_SPAN(
+              fm_out, (int64_t)c * n8 + src, kHilbOuts, total));
+        }
+        const int64_t o = (int64_t)c * n8 + i;
+        const float4 v = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        *reinterpret_cast<float4*>(FMT_SPAN(im, o, kHilbOuts, total)) = v;
+        *reinterpret_cast<float4*>(FMT_SPAN(th, o, kHilbOuts, total)) = v;
+        *reinterpret_cast<float4*>(FMT_SPAN(re, o, kHilbOuts, total)) = r;
+      });
+}
+
+// The shapes ds2 (mode 1) and hilb (mode 2) take: n4 % 16 == 0, the tiled
+// kernels' orders (nn2 = 64, nh = 65), 16-byte aligned planes; hilb also
+// t_blk % 16 == 0, t_blk | n4 and n4 / 2 >= nh - 1
+// (probes/k2_probe.py::engine_check is the host copy)
+inline bool k2_engine_takes(int mode, int n4, int t_blk, int nn2, int nh,
+                            uintptr_t align) {
+  if (n4 <= 0 || n4 % 16 || nn2 != kFusedNn2 || align % 16) return false;
+  if (mode == 1) return true;
+  return nh == kFusedNh && t_blk > 0 && t_blk % 16 == 0 && n4 % t_blk == 0 &&
+         n4 / 2 >= nh - 1;
+}
+
+// the Hilbert launch: fm_out [C, n8] -> re, im, th (k2_hilb_kernel)
+inline int launch_k2_hilb(const float* fm_out, const float* wh_rev,
+                          const float* zeros, int channels, int n8, int lt,
+                          float* re, float* im, float* th,
+                          cudaStream_t stream) {
+  const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
+                  (unsigned)channels);
+  k2_hilb_kernel<kFusedNh><<<grid, kMidThreads, 0, stream>>>(
+      fm_out, wh_rev, zeros, n8, lt, re, im, th);
+  FMT_CHECK_LAUNCH();
+  return 0;
 }
 
 // ---- restruct: the block-parallel recurrences --------------------------------
@@ -617,36 +738,60 @@ int launch_blocks_li(int li, float* fm_out, const float* re, const float* im,
 
 using namespace fmt;
 
-// mode 0 stream, 1 ds2, 2 hilb (x [C, n4]; stream and hilb: t_blk | n4,
-// t_blk % 8 == 0):
-// re, im, th [C, n4/2].  w2_rev [nn2], wh_rev [nh] reversed taps
-// (nn2 - 2, nh - 1 <= 128); zeros [C, 128] float32 zeros (every carried
-// tail); fm_out [C, n4/2] scratch (hilb).
+// mode 0 stream, 1 ds2, 2 hilb on x [C, n4] -> re, im, th [C, n4/2].
+// stream: t_blk | n4, t_blk % 8 == 0; ds2 and hilb: k2_engine_takes (re,
+// im, th and fm_out 16-byte aligned).  w2_rev [nn2], wh_rev [nh] reversed
+// taps; zeros [C, 128] float32 zeros (every carried tail); fm_out [C,
+// n4/2] scratch (hilb: ds x2 into it by the de-emphasis route's
+// k12_mid_ds2_kernel, whose new tail goes to th until the Hilbert launch
+// writes it).  Anything else is refused (cudaErrorInvalidValue) before any
+// launch.
 extern "C" int fmt_k2_engine(const float* x, int mode, int channels, int n4,
                              int t_blk, const float* w2_rev, int nn2,
                              const float* wh_rev, int nh, const float* zeros,
                              float* fm_out, float* re, float* im, float* th,
                              cudaStream_t stream) {
   const int64_t total = (int64_t)channels * (n4 / 2);
-  if (n4 % 2 || (mode != 1 && (t_blk <= 0 || n4 % t_blk || t_blk % 8)) ||
-      (mode == 2 && (nh - 1) / 2 > t_blk / 2))
+  const uintptr_t align = (uintptr_t)re | (uintptr_t)im | (uintptr_t)th |
+                          (uintptr_t)fm_out;
+  if (mode < 0 || mode > 2 ||
+      (mode == 0 && (n4 % 2 || t_blk <= 0 || n4 % t_blk || t_blk % 8)) ||
+      (mode != 0 && !k2_engine_takes(mode, n4, t_blk, nn2, nh, align)))
     return (int)cudaErrorInvalidValue;
+  const int n8 = n4 / 2;
+  const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
+                  (unsigned)channels);
   if (mode == 0) {
     k2_stream_kernel<<<blocks_for(total / 4), kThreads, 0, stream>>>(
         (const float4*)x, n4 / 4, t_blk / 8, (float4*)re, (float4*)im,
         (float4*)th, total / 4);
   } else if (mode == 1) {
-    k2_ds2_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        x, n4, zeros, w2_rev, nn2, channels, re, im, th);
+    k2_ds2_kernel<kFusedNn2><<<grid, kDs2Threads, 0, stream>>>(
+        x, w2_rev, zeros, n4, re, im, th);
   } else {
-    fir_decimate_kernel<float><<<blocks_for(total), kThreads, 0, stream>>>(
-        x, n4, zeros, w2_rev, nn2, 2, fm_out, n4 / 2, channels, 1.0f);
-    FMT_CHECK_LAUNCH();
-    k2_hilb_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        fm_out, n4 / 2, t_blk / 2, zeros, wh_rev, nh, channels, re, im, th);
+    const int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, zeros,
+                                        channels, n4, fm_out, th, stream);
+    if (e) return e;
+    return launch_k2_hilb(fm_out, wh_rev, zeros, channels, n8, t_blk / 2, re,
+                          im, th, stream);
   }
   FMT_CHECK_LAUNCH();
   return 0;
+}
+
+// hilb's Hilbert launch alone on a given fm_out [C, n8] (n8 = n4 / 2 of
+// hilb's shape: k2_engine_takes(2, 2 n8, t_blk, ...)) -> re, im, th
+// [C, n8]; zeros [C, 128].  Refused as fmt_k2_engine refuses.
+extern "C" int fmt_k2_hilb(const float* fm_out, int channels, int n8,
+                           int t_blk, const float* wh_rev, int nh,
+                           const float* zeros, float* re, float* im,
+                           float* th, cudaStream_t stream) {
+  const uintptr_t align = (uintptr_t)fm_out | (uintptr_t)re |
+                          (uintptr_t)im | (uintptr_t)th;
+  if (!k2_engine_takes(2, 2 * n8, t_blk, kFusedNn2, nh, align))
+    return (int)cudaErrorInvalidValue;
+  return launch_k2_hilb(fm_out, wh_rev, zeros, channels, n8, t_blk / 2, re,
+                        im, th, stream);
 }
 
 // full: the production mid end (launch_midend, de-emphasis on: at the

@@ -64,8 +64,11 @@ checkout's kernels and prints one JSON row per case:
   tile sums (stream and unpack) on each ingest form at its default shape
   and tiles; k3's stream1, stream, phasor and stream31 at C = 1,024 x
   B8 = 32,768, t = 1,024;
-- the K2 probe (``probes/k2_probe.py::variant``): full (K2's production
-  launches on the de-emphasis route) and the block recurrences
+- the K2 probe (``probes/k2_probe.py::variant``): its engine variants
+  stream, ds2 and hilb (t_blk 1,024) at C = 1,024 x B4 = 65,536, each
+  beside the device time of its launches (:data:`K2_ENGINE`, with the
+  kernels an earlier tree ran: ``fir_decimate_kernel``), full (K2's
+  production launches on the de-emphasis route) and the block recurrences
   restruct:li and restruct:li:stk for li = 64, 128, 256, 512 at C = 1,024
   x B4 = 65,536, and restruct:128 at the chunked cell's width, C = 256 x
   B4 = 262,144: the variant (CUDA events) and the device time of each of
@@ -179,6 +182,10 @@ K2_LAUNCHES = ("k12_mid_ds2_kernel", "k2_deemph_block_kernel",
                "k12_mid_hilb_kernel", "k2_peak_block_kernel")
 K2_FULL = ("k12_deemph_kernel", "k12_peak_rec_kernel", "k12_theta_kernel")
 K2_REPLACED = ("fir_decimate_kernel", "k12_hilbert_kernel")
+# the engine variants' launches (csrc/k2_probe.cu::fmt_k2_engine; hilb's
+# ds x2 was fir_decimate_kernel in an earlier tree)
+K2_ENGINE = ("k2_stream_kernel", "k2_ds2_kernel", "k12_mid_ds2_kernel",
+             "k2_hilb_kernel", "fir_decimate_kernel")
 
 
 def k2_rows(row, reps: int, dev) -> None:
@@ -190,6 +197,12 @@ def k2_rows(row, reps: int, dev) -> None:
              for s in ("", ":stk")]
     x = k2.make_input(1024, 65536, dev)
     co = k2.coeffs(dev)
+    for mode in ("stream", "ds2", "hilb"):
+        def engine(mode=mode):
+            return k2.variant(mode, x, 1024, co)
+
+        row(f"k2_{mode}", f"probe {mode} C=1024 B4=65536", _ms(engine, reps),
+            launches_ms=_device_ms_by(engine, reps, K2_ENGINE))
 
     def full():
         return k2.variant("full", x, 1024, co)

@@ -7,12 +7,13 @@ and 13e) split by variants on fm_demod [C, B4] (``csrc/k2_probe.cu``):
 
   stream             re, im, theta copied from the halves of each tile
   ds2                + the ds x2 FIR (create_fir_lpf(64, 0.25)) into all
-                     three outputs
+                     three outputs (k2_ds2_kernel)
   hilb               + the "Hilbert" (create_fir_lpf(65, 0.3)): im
                      filtered, theta = im, re each tile's ds x2 output
                      rotated by the delay 32 (the TPU probe reads re after
                      carrying the tile's tail: its first 32 samples are the
-                     tile's own last 32)
+                     tile's own last 32); ds x2 by the mid end's
+                     k12_mid_ds2_kernel, then k2_hilb_kernel
   full               the production K2 device code (ds x2, the serial
                      de-emphasis at 2*3200/128000 and peak IIR b = [0.001,
                      0, -0.001], a = [1, -1.9989, 0.9998], theta, power)
@@ -32,6 +33,17 @@ but ``stream`` is K2 on zero state (the kernels' and the plain versions'
 reading; the tests hold it against the TPU tool with its scratch at zero).
 ``full`` and ``restruct`` return (re, im, theta, power).
 
+ds2 and hilb run on the mid end's staged, register-blocked tiles
+(``csrc/k12_stages.cuh``: a CTA a tile of :data:`MID_TILE` outputs of one
+channel, :data:`DS2_RUN` or :data:`HILB_RUN` neighbouring outputs a
+thread); they take B4 % 16 == 0 and the probe's filter orders, and hilb
+t_blk % 16 == 0 dividing B4 and B4/2 >= 64 (:func:`engine_check`, which
+raises before any launch on every device).  hilb's re source is
+:func:`re_src`, the host copy of ``k2_re_src``: each tile of t_blk/2
+outputs rotated by the delay (the rotation's wrapped part from the staged
+window where the tile ends inside the CTA's, else from device memory).
+:func:`hilb_launch` runs the Hilbert launch alone on a given fm_out.
+
     python -m fm_radio_tpu_torch.probes.k2_probe [C=1024] [B4=65536]
         [--iters 96] [--device cpu]
 """
@@ -47,7 +59,11 @@ import torch
 
 from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.kernels import _build
-from fm_radio_tpu_torch.kernels.midend import midend_plain
+from fm_radio_tpu_torch.kernels.midend import (
+    FUSED_TAPS,
+    MID_TILE,
+    midend_plain,
+)
 from fm_radio_tpu_torch.models.demod import demod_init_state
 from fm_radio_tpu_torch.ops.cmath import atan2_poly, f32
 from fm_radio_tpu_torch.ops.design import (
@@ -58,6 +74,8 @@ from fm_radio_tpu_torch.ops.fir import decimate_core, hilbert_fir_p
 from fm_radio_tpu_torch.probes import _probe
 
 HALO = 128             # the kernels' zero tails: [C, 128]
+DS2_RUN, HILB_RUN = 8, 4  # outputs a thread of ds2's and hilb's kernels
+HILB_DELAY = (FUSED_TAPS[1] - 1) // 2
 LI = (64, 128, 256, 512)
 MODES = ("stream", "ds2", "hilb", "full", *(f"restruct:{li}{s}" for li in LI
                                            for s in ("", ":stk")))
@@ -70,20 +88,27 @@ BLOCK_KINDS = ("deemph", "peak", "peak:stk")
 PEAK_A = (1.0, -1.9989, 0.9998)
 
 # kernel launches since the counters were last set to 0
-launches_engine = 0    # stream, ds2, hilb (fmt_k2_engine)
+launches_stream = 0    # k2_stream_kernel (stream)
+launches_ds2 = 0       # k2_ds2_kernel (ds2)
+launches_hilb = 0      # k2_hilb_kernel (hilb, hilb_launch)
 launches_full = 0      # full (fmt_k2_full)
 launches_restruct = 0  # restruct (fmt_k2_restruct)
+# each engine variant's kernel (its counter's name in counts())
+ENGINE = {"stream": "k2_stream", "ds2": "k2_ds2", "hilb": "k2_hilb"}
 
 _P, _I = _build.P, _build.I
 
 
 def reset_counts() -> None:
-    global launches_engine, launches_full, launches_restruct
-    launches_engine = launches_full = launches_restruct = 0
+    global launches_stream, launches_ds2, launches_hilb, launches_full
+    global launches_restruct
+    launches_stream = launches_ds2 = launches_hilb = 0
+    launches_full = launches_restruct = 0
 
 
 def counts() -> dict:
-    return {"k2_engine": launches_engine, "k2_full": launches_full,
+    return {"k2_stream": launches_stream, "k2_ds2": launches_ds2,
+            "k2_hilb": launches_hilb, "k2_full": launches_full,
             "k2_restruct": launches_restruct}
 
 
@@ -253,18 +278,25 @@ def ds2_plain(x: torch.Tensor, co=None):
     return y, y, y
 
 
-def hilb_plain(x: torch.Tensor, t_blk: int, co=None):
-    """(re, im, im): im the Hilbert FIR of the ds x2 output; re each tile of
-    t_blk/2 ds x2 outputs rotated by the delay (the TPU probe reads re
-    after carrying the tile's tail into the buffer's head)."""
-    co = co or coeffs(x.device)
-    fm_out = ds2_plain(x, co)[0]
+def hilb_launch_plain(fm_out: torch.Tensor, t_blk: int, co=None):
+    """(re, im, im) of hilb's Hilbert launch on fm_out [C, B4/2]: im the
+    Hilbert FIR on zero state; re each tile of t_blk/2 samples rotated by
+    the delay (the TPU probe reads re after carrying the tile's tail into
+    the buffer's head)."""
+    co = co or coeffs(fm_out.device)
     nh = co.taps_hilbert.shape[0]
-    _, (_, im) = hilbert_fir_p(co.taps_hilbert,
-                               _zeros(x.shape[0], nh - 1, x.device), fm_out)
+    _, (_, im) = hilbert_fir_p(
+        co.taps_hilbert, _zeros(fm_out.shape[0], nh - 1, fm_out.device),
+        fm_out)
     c, n = fm_out.shape
     re = torch.roll(fm_out.reshape(c, -1, t_blk // 2), (nh - 1) // 2, -1)
     return re.reshape(c, n), im, im
+
+
+def hilb_plain(x: torch.Tensor, t_blk: int, co=None):
+    """(re, im, im): :func:`hilb_launch_plain` on the ds x2 output."""
+    co = co or coeffs(x.device)
+    return hilb_launch_plain(ds2_plain(x, co)[0], t_blk, co)
 
 
 def full_plain(x: torch.Tensor, co=None):
@@ -352,6 +384,36 @@ def _taps(co):
             co.taps_hilbert.flip(0).contiguous())
 
 
+def re_src(i: int, lt: int, d: int = HILB_DELAY) -> int:
+    """The fm_out index of hilb's re at output i (the first of a run of
+    HILB_RUN, i % 4 == 0) in tiles of lt = t_blk/2 outputs, each rotated by
+    d: i - d % lt where i % lt >= d % lt, else i + lt - d % lt.  The host
+    copy of ``csrc/k2_probe.cu::k2_re_src``."""
+    dm = d % lt
+    return i - dm if i % lt >= dm else i + lt - dm
+
+
+def engine_check(mode: str, n4: int, t_blk: int, co) -> None:
+    """Raise ValueError (before any launch, on every device) for a shape
+    ds2's or hilb's kernels do not take (``fmt_k2_engine`` refuses it too):
+    B4 % 16 != 0 or a ds x2 order other than 64; for hilb also a Hilbert
+    order other than 65, t_blk % 16 != 0, t_blk not dividing B4, or B4/2 <
+    64."""
+    orders = (co.taps_fm_out.shape[0], co.taps_hilbert.shape[0])
+    if orders[: 1 + (mode == "hilb")] != FUSED_TAPS[: 1 + (mode == "hilb")]:
+        raise ValueError(f"k2_probe: {mode} runs the tiled kernels' filter "
+                         f"orders {FUSED_TAPS}, got {orders}")
+    nh = orders[1]
+    if n4 <= 0 or n4 % 16:
+        raise ValueError(f"k2_probe: {mode} needs B4 a positive multiple of "
+                         f"16, got {n4}")
+    if mode == "hilb" and (t_blk <= 0 or t_blk % 16 or n4 % t_blk
+                           or n4 // 2 < nh - 1):
+        raise ValueError(f"k2_probe: hilb needs t_blk a multiple of 16 "
+                         f"dividing B4 and B4/2 >= {nh - 1}, got t_blk="
+                         f"{t_blk}, B4={n4}")
+
+
 def restruct_li(mode: str, n4: int) -> int:
     """restruct:li[:stk]'s li; raises ValueError (before any launch, on
     every device) for an li the kernels are not compiled for or one that
@@ -363,48 +425,69 @@ def restruct_li(mode: str, n4: int) -> int:
     return li
 
 
+def _outs(out, c: int, n: int, dev, power: bool) -> list:
+    """The outputs to write: ``out`` checked ((re, im, theta) [C, n] and,
+    with ``power``, power [C]), or made here."""
+    if out is None:
+        return ([torch.empty((c, n), device=dev) for _ in range(3)]
+                + ([torch.empty((c,), device=dev)] if power else []))
+    names = ("re", "im", "theta", "power")[: 3 + power]
+    if len(out) != len(names):
+        raise ValueError(f"k2_probe: out must be {names}")
+    _build.require("k2_probe", dev, torch.float32, **dict(zip(names, out)))
+    if (any(o.shape != (c, n) for o in out[:3])
+            or (power and out[3].shape != (c,))):
+        raise ValueError(f"k2_probe: out must be (re, im, theta) [C, {n}]"
+                         + (" and power [C]" if power else ""))
+    return list(out)
+
+
 def variant(mode: str, x: torch.Tensor, t_blk: int = 1024, co=None,
             mats=None, out=None):
     """One variant on fm_demod x [C, B4] float32: (re, im, theta) [C, B4/2],
     with the power [C] for full and restruct.  CPU tensors run
-    :func:`variant_plain`.  ``out``: restruct's (re, im, theta, power) to
-    write into (the card only; made here otherwise)."""
+    :func:`variant_plain`.  ``out``: (re, im, theta) to write into, with
+    the power for restruct (the card only; made here otherwise; not for
+    full)."""
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"k2_probe: x must be contiguous float32 [C, B4], "
                          f"got {x.dtype} {tuple(x.shape)}")
     li = restruct_li(mode, x.shape[1]) if mode.startswith("restruct") else 0
     co = co or coeffs(x.device)
+    if mode in ("ds2", "hilb"):
+        engine_check(mode, x.shape[1], t_blk, co)
     if _build.on_cpu("k2_probe", x.device):
         if out is not None:
             raise ValueError("k2_probe: out= is for the card's kernels")
         return variant_plain(mode, x, t_blk, co)
-    global launches_engine, launches_full, launches_restruct
+    global launches_stream, launches_ds2, launches_hilb, launches_full
+    global launches_restruct
     c, n4 = x.shape
     dev = x.device
     w2, wh = _taps(co)
     zeros = _zeros(c, HALO, dev)
-    if out is not None:
-        if not mode.startswith("restruct"):
-            raise ValueError(f"k2_probe: out= is restruct's, not {mode}'s")
-        _build.require("k2_probe", dev, torch.float32, re=out[0], im=out[1],
-                       theta=out[2], power=out[3])
-        if (any(o.shape != (c, n4 // 2) for o in out[:3])
-                or out[3].shape != (c,)):
-            raise ValueError("k2_probe: out must be (re, im, theta) "
-                             "[C, B4/2] and power [C]")
-    outs = (list(out[:3]) if out is not None else
-            [torch.empty((c, n4 // 2), device=dev) for _ in range(3)])
-    fm_out = torch.empty((c, n4 // 2), device=dev)
-    ptrs = [o.data_ptr() for o in outs]
+    if out is not None and mode == "full":
+        raise ValueError("k2_probe: out= is not full's")
+    outs = _outs(out, c, n4 // 2, dev, mode.startswith("restruct"))
+    # fm_out: scratch of every variant but stream and ds2
+    fm_out = (None if mode in ("stream", "ds2")
+              else torch.empty((c, n4 // 2), device=dev))
+    ptrs = [o.data_ptr() for o in outs[:3]]
     stream = _build.stream_ptr(dev)
-    if mode in ("stream", "ds2", "hilb"):
+    if mode in ENGINE:
         fn = _build.function("k2_probe", "fmt_k2_engine",
                              [_P, _I, _I, _I, _I, _P, _I, _P, _I] + [_P] * 6)
         _build.check("k2_probe", fn(
-            x.data_ptr(), ("stream", "ds2", "hilb").index(mode), c, n4, t_blk,
+            x.data_ptr(), tuple(ENGINE).index(mode), c, n4, t_blk,
             w2.data_ptr(), w2.shape[0], wh.data_ptr(), wh.shape[0],
-            zeros.data_ptr(), fm_out.data_ptr(), *ptrs, stream))
-        launches_engine += 1
+            zeros.data_ptr(), None if fm_out is None else fm_out.data_ptr(),
+            *ptrs, stream))
+        if mode == "stream":
+            launches_stream += 1
+        elif mode == "ds2":
+            launches_ds2 += 1
+        else:
+            launches_hilb += 1
         return tuple(outs)
     power = torch.empty((c,), device=dev)
     if mode == "full":
@@ -423,8 +506,7 @@ def variant(mode: str, x: torch.Tensor, t_blk: int = 1024, co=None,
         launches_full += 1
         return (*outs, power)
     mats = mats or block_mats(li, dev, co)
-    if out is not None:
-        power = out[3]
+    power = outs[3]
     fn = _build.function("k2_probe", "fmt_k2_restruct",
                          [_P, _I, _I, _I, _I, _P, _I, _P, _I] + [_P] * 13)
     _build.check("k2_probe", fn(
@@ -434,7 +516,39 @@ def variant(mode: str, x: torch.Tensor, t_blk: int = 1024, co=None,
         *(m.data_ptr() for m in mats["pk"]), fm_out.data_ptr(), *ptrs,
         power.data_ptr(), stream))
     launches_restruct += 1
-    return (*outs, power)
+    return tuple(outs)
+
+
+def hilb_launch(fm_out: torch.Tensor, t_blk: int = 1024, co=None,
+                out=None):
+    """hilb's Hilbert launch alone (``k2_hilb_kernel``) on fm_out [C, n8]
+    float32: (re, im, theta) [C, n8], as :func:`hilb_launch_plain`, which
+    CPU tensors run.  The shapes :func:`engine_check` admits for B4 = 2
+    n8; ``out``: (re, im, theta) to write into (the card only)."""
+    if (fm_out.dtype != torch.float32 or fm_out.ndim != 2
+            or not fm_out.is_contiguous()):
+        raise ValueError("k2_probe: fm_out must be contiguous float32 "
+                         "[C, n8]")
+    co = co or coeffs(fm_out.device)
+    c, n8 = fm_out.shape
+    engine_check("hilb", 2 * n8, t_blk, co)
+    if _build.on_cpu("k2_probe", fm_out.device):
+        if out is not None:
+            raise ValueError("k2_probe: out= is for the card's kernels")
+        return hilb_launch_plain(fm_out, t_blk, co)
+    global launches_hilb
+    dev = fm_out.device
+    outs = _outs(out, c, n8, dev, False)
+    wh = _taps(co)[1]
+    zeros = _zeros(c, HALO, dev)
+    fn = _build.function("k2_probe", "fmt_k2_hilb",
+                         [_P, _I, _I, _I, _P, _I] + [_P] * 5)
+    _build.check("k2_probe", fn(
+        fm_out.data_ptr(), c, n8, t_blk, wh.data_ptr(), wh.shape[0],
+        zeros.data_ptr(), *(o.data_ptr() for o in outs),
+        _build.stream_ptr(dev)))
+    launches_hilb += 1
+    return tuple(outs)
 
 
 # ---- the sections ---------------------------------------------------------------
@@ -483,7 +597,7 @@ def run(c: int, b4: int, iters: int, device, check: bool = True,
         if mode.startswith("restruct"):
             extra.update(theta_vs_serial(out[2], serial))
         kernel = ("k2_full" if mode == "full" else "k2_restruct"
-                  if mode.startswith("restruct") else "k2_engine")
+                  if mode.startswith("restruct") else ENGINE[mode])
         r = _probe.row(mode, kernel, ms, x.numel() * 4, err, **extra)
         rows.append(r)
         emit(r)

@@ -1,4 +1,4 @@
-"""Four probe kernels and the mid end's two tiled FIR kernels against the
+"""Six probe kernels and the mid end's two tiled FIR kernels against the
 one PyTorch call of the same function, timed in turns on one card.
 
     python -m fm_radio_tpu_torch.probes.vs_library [--rounds 25] [--reps 10]
@@ -25,17 +25,27 @@ The cases, each at the shape ``chip_smoke.py`` times it at:
   lenses' shape (C = 2,048, B = 131,072: fm_demod [2048, 32768], fm_out
   [2048, 16384]), N(0, 0.3^2) samples and carried tails, the
   concatenated inputs made once beforehand; cuDNN in float32 (the port
-  turns TF32 off, ``fm_radio_tpu_torch/__init__.py``).
+  turns TF32 off, ``fm_radio_tpu_torch/__init__.py``);
+- ``k2_ds2`` (``probes/k2_probe.py::variant("ds2")``: ``k2_ds2_kernel``,
+  the ds x2 FIR into re, im and theta) against ``F.conv1d([zeros |
+  x].view(C, 1, .), w2_rev.view(1, 1, 64), stride=2)``, on the K2 probe's
+  fm_demod (C = 1,024 x B4 = 65,536), and ``k2_hilb``
+  (``k2_probe.hilb_launch``: ``k2_hilb_kernel`` alone, the Hilbert FIR into
+  im and theta and the rotated re, t_blk 1,024) against ``F.conv1d([zeros
+  | fm_out].view(C, 1, .), wh_rev.view(1, 1, 65))`` (im only), on a given
+  fm_out of 1,024 x 32,768 (the probe's own N(0, 1), seed 1); the probe's
+  filters, its zero state.
 
 Both sides write into outputs made once beforehand (the probes' tile sums
 also write their ``last`` [C, 128], 0.05% of the bytes; ``F.conv1d`` has
 no ``out=``: its output comes from the caching allocator, which does no
 device work), so a call is one launch on each side (the read two: its
 blocks' sums, then their sum).  :func:`conv1d_rows` times the one
-``F.conv1d`` call of two probe FIRs at their own shapes, for the kernels
+``F.conv1d`` call of three probe FIRs at their own shapes, for the kernels
 table (no kernel beside it): the K2 probe's ds2 (C = 1,024 x B4 =
-65,536, 64 taps, stride 2) and the K1 probe's dots (both planes of C =
-1,024 x B = 262,144 as 2C rows, 132 taps, stride 4).
+65,536, 64 taps, stride 2) and hilb's Hilbert (1,024 x 32,768, 65 taps)
+and the K1 probe's dots (both planes of C = 1,024 x B = 262,144 as 2C
+rows, 132 taps, stride 4).
 Each round times ``reps`` chained calls of one side and then of the other
 (``ab_time._ms``: CUDA events, after one call), the kernel first in even
 rounds and the library call first in odd ones.  One JSON row a case: each
@@ -64,6 +74,7 @@ import torch.nn.functional as fnn
 from fm_radio_tpu_torch.kernels import midend as km
 from fm_radio_tpu_torch.probes import frontend_probe as fp
 from fm_radio_tpu_torch.probes import hbm_sweep as hs
+from fm_radio_tpu_torch.probes import k2_probe as k2
 from fm_radio_tpu_torch.probes import k3_probe as k3
 from fm_radio_tpu_torch.probes.ab_time import _ms
 
@@ -155,6 +166,20 @@ def cases(device) -> list:
                      for _ in range(2))
     ds2_in = torch.cat([t2, fmd], dim=1).view(cm, 1, -1)
     hilb_in = torch.cat([ht, fm], dim=1).view(cm, 1, -1)
+    # the K2 probe's engine: fm_demod [1024, 65536], fm_out [1024, 32768]
+    ck, b4 = 1024, 65536
+    co = k2.coeffs(device)
+    k2w2, k2wh = (t.flip(0).contiguous() for t in (co.taps_fm_out,
+                                                     co.taps_hilbert))
+    k2x = k2.make_input(ck, b4, device)
+    k2fm = k2.make_input(ck, b4 // 2, device, seed=1)
+    k2_ds2_out = tuple(torch.empty((ck, b4 // 2), device=device)
+                       for _ in range(3))
+    k2_hilb_out = tuple(torch.empty_like(k2fm) for _ in range(3))
+    k2_ds2_in = torch.cat([torch.zeros((ck, 62), device=device), k2x],
+                          dim=1).view(ck, 1, -1)
+    k2_hilb_in = torch.cat([torch.zeros((ck, 64), device=device), k2fm],
+                           dim=1).view(ck, 1, -1)
     return [
         ("hbm_dma_copy", lambda: hs.dma_copy(x, 32 * 1024, 2, out=y),
          lambda: y.copy_(x), f"dma2:32KiB vs Tensor.copy_, {x.numel() * 4} "
@@ -180,6 +205,14 @@ def cases(device) -> list:
          lambda: fnn.conv1d(hilb_in, wh.view(1, 1, -1)),
          f"k12_mid_hilb_kernel (re, im) on fm_out {cm} x {n4 // 2} vs "
          "F.conv1d([htail | fm_out], wh_rev) (im)"),
+        ("k2_ds2", lambda: k2.variant("ds2", k2x, 1024, co, out=k2_ds2_out),
+         lambda: fnn.conv1d(k2_ds2_in, k2w2.view(1, 1, -1), stride=2),
+         f"k2_ds2_kernel (re, im, theta) on fm_demod {ck} x {b4} vs "
+         "F.conv1d([zeros | x], w2_rev, stride=2)"),
+        ("k2_hilb", lambda: k2.hilb_launch(k2fm, 1024, co, out=k2_hilb_out),
+         lambda: fnn.conv1d(k2_hilb_in, k2wh.view(1, 1, -1)),
+         f"k2_hilb_kernel (re, im, theta; t_blk 1024) on fm_out {ck} x "
+         f"{b4 // 2} vs F.conv1d([zeros | fm_out], wh_rev) (im)"),
     ]
 
 
@@ -189,6 +222,7 @@ def conv1d_rows(device, reps: int = 20) -> list:
     g = torch.Generator(device=device).manual_seed(2)
     rows = []
     for case, c, n, taps, stride in (("k2_ds2", 1024, 65536, 64, 2),
+                                     ("k2_hilb", 1024, 32768, 65, 1),
                                      ("fp_fir dots", 2 * 1024, 262144, 132,
                                       4)):
         x = torch.randn((c, 1, n + taps - stride), generator=g,

@@ -1,7 +1,7 @@
 """The K2 engine probe of the port (fm_radio_tpu_torch/probes/k2_probe.py)
 against the TPU tool (tools/k2_probe.py) in Pallas interpret mode, on the
 same N(0, 1) fm_demod (numpy seed), at C = 8 x B4 = 4096 in tiles of
-1024.
+1024 (ds2 and hilb also in tiles of 512 and 2048).
 
 The tool never writes its carried buffers and IIR state.  In interpret
 mode they hold NaN, so ds2 and hilb leave out their first tile's first
@@ -40,7 +40,7 @@ from jax._src.pallas import primitives as pallas_primitives
 from scipy.signal import lfilter
 
 import tools.k2_probe as tk2
-from fm_radio_tpu.kernels.midend_pallas import _iir_tile_mats
+from fm_radio_tpu.kernels.midend_pallas import _NO, _iir_tile_mats
 from fm_radio_tpu_torch.ops.iir import iir_filter
 from fm_radio_tpu_torch.probes import k2_probe as k2
 
@@ -68,9 +68,9 @@ def _zero_scratch(monkeypatch):
                         lambda shape, dtype: jnp.zeros(shape, dtype))
 
 
-def _run_tool(tool, mode, x):
+def _run_tool(tool, mode, x, t=T):
     return [np.asarray(v) for v in
-            tool.build(C, B4, mode, c_blk=C, t_blk=T)(jnp.asarray(x.numpy()))]
+            tool.build(C, B4, mode, c_blk=C, t_blk=t)(jnp.asarray(x.numpy()))]
 
 
 @pytest.mark.parametrize("li", [64, 128, 256, 512])
@@ -94,30 +94,51 @@ def test_stream_matches_tool(tool, x):
         np.testing.assert_array_equal(port.numpy(), y)
 
 
-# outputs of the first tile (t_blk / 2 = 512 per row) that depend on the
-# never-written buffers in interpret mode: [start, stop) per output
-LEFT_OUT = {"ds2": [(0, 128)] * 3,
-            "hilb": [(32, 160), (0, 256), (0, 256)]}
+def left_out(mode: str, t: int) -> list:
+    """The outputs of a row [B4/2] (re, im, theta) that depend on the
+    never-written buffers in interpret mode, in tiles of t: the ds x2
+    output's first sub-window (_NO = 128, its window reads the head);
+    hilb's im reads those through two sub-windows (256), and its re, the
+    first tile of t/2 rotated by the delay (the tool reads re after
+    carrying the tail), carries them to [32, 160)."""
+    fm = np.zeros(B4 // 2, bool)
+    fm[:_NO] = True
+    if mode == "ds2":
+        return [fm] * 3
+    im = np.zeros_like(fm)
+    im[:2 * _NO] = True
+    re = np.zeros_like(fm)
+    re[:t // 2] = np.roll(fm[:t // 2], (k2.coeffs().taps_hilbert.shape[0]
+                                         - 1) // 2)
+    return [re, im, im]
 
 
+def test_left_out_in_tiles_of_1024():
+    """The sets left out at the tool's default tile: ds2 [0, 128), hilb's
+    re [32, 160), its im [0, 256)."""
+    ds2, hilb = left_out("ds2", 1024), left_out("hilb", 1024)
+    assert np.flatnonzero(ds2[0]).tolist() == list(range(128))
+    assert np.flatnonzero(hilb[0]).tolist() == list(range(32, 160))
+    assert np.flatnonzero(hilb[1]).tolist() == list(range(256))
+
+
+@pytest.mark.parametrize("t", [512, 1024, 2048])
 @pytest.mark.parametrize("mode", ["ds2", "hilb"])
 @pytest.mark.parametrize("zero", [False, True])
-def test_ds2_hilb_match_tool(tool, monkeypatch, x, mode, zero):
-    """ds2 and hilb.  In interpret mode the never-written ds x2 head makes
-    the first sub-window of the first tile NaN (128 per row); hilb's im
-    reads it through two sub-windows (256), and its re, each tile rotated
-    by the delay (the tool reads re after carrying the tail), carries the
-    NaN to [32, 160).  Those are left out; with zero scratch all held."""
+def test_ds2_hilb_match_tool(tool, monkeypatch, x, mode, zero, t):
+    """ds2 and hilb in tiles of t.  In interpret mode the never-written ds
+    x2 head makes outputs of the first tile NaN (:func:`left_out`); those
+    are left out and counted; with zero scratch all held."""
     if zero:
         _zero_scratch(monkeypatch)
-    port = [p.numpy() for p in k2.variant(mode, x, T)]
-    for p, y, (lo, hi) in zip(port, _run_tool(tool, mode, x),
-                              LEFT_OUT[mode]):
+    port = [p.numpy() for p in k2.variant(mode, x, t)]
+    for p, y, row in zip(port, _run_tool(tool, mode, x, t),
+                         left_out(mode, t)):
         m = np.zeros_like(y, dtype=bool)
         if not zero:
-            m[:, lo:hi] = True
+            m[:] = row
             assert np.isnan(y[m]).all() and np.isfinite(y[~m]).all()
-            assert int(m.sum()) == C * (hi - lo)
+            assert int(m.sum()) == C * int(row.sum())
         np.testing.assert_allclose(p[~m], y[~m], rtol=0, atol=ATOL)
 
 
