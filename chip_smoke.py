@@ -33,7 +33,8 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    to 0 just before and read just after; each kernel's representative
    variant beside its plain version and, for the per-tile sums, one
    PyTorch call (``x.view(C, n_tt, t_blk).sum(-1)``); the int8-window
-   rows (fp_i8d's variants, fp_i8man's tiles) with their IDP4A issue
+   rows (fp_i8d's variants on K12's staged ds x4 tile, fp_i8man's
+   tiles) with their IDP4A issue
    floor (:func:`i8_floor`); the K2 probe's ds2 and hilb with their
    FMUL+FADD issue floors (:func:`engine_floor`), hilb's Hilbert launch
    also alone (``k2_probe.hilb_launch``);
@@ -75,8 +76,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    and 5, N = 16, 32, 48 and 16,384 on both forms, the chunked PLL at C =
    5 and 40, G = 2, 4, 8, W = 0, 7, 4,096 and chunk lengths a multiple of
    its 16-step batch and not (:func:`compare_pll_chunked_edges`), extract
-   at C = 40, N = 1,024 and
-   2,048 on its three forms, on its blocked and tiled routes, and BPSK at
+   at C = 40, N = 1,024 and 2,048 on its three forms at every order of
+   EXTRACT_EDGE_ORDERS (the receiver's 128 taps on
+   ``extract_blocked_kernel``, the others on
+   ``extract_blocked_any_kernel``), and BPSK at
    C = 40 and 5, N = 16, 32, 48 and 2,048, with a gain and without, on
    random input and zeros, max abs error 0, on the default and the
    bounds-checked build (there the sequential PLL and BPSK at N <= 48),
@@ -118,7 +121,11 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    both builds (:func:`compare_man_edges`: the lens's tiles 8 x 2,048 and
    8 x 4,096 and others, dots and full, no at its least, the lens's and its
    most; a tile too large refused; its shared memory's C side against
-   the host copy); the exact
+   the host copy); the K1 probe's int8-direct forms on K12's staged
+   tile against ``i8d_plain`` on both builds (:func:`compare_i8d_edges`:
+   dots and full, K12's windows and noasm at every no, t_blk 512-4,096,
+   C = 5 and 40, B = 16,384 and 14,336, poisoned memory; the tiles and
+   no the entry refuses, refused before any launch); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -199,6 +206,15 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    against the host's plan; each lens profiled (its profile must show
    the route's three kernels and none of the launches route's ds x2 and
    Hilbert, nor K12's discriminator launch);
+4f. extract's other-order lens presplit_o96 (pre-split at
+   ``order_poly_ds_lpf_audio = order_poly_ds_lpf_rds = 96``, C=2048 x
+   B=131,072, bench.py's signal): one warm-up block, 8 counted blocks
+   (every extract launch on ``extract_blocked_any_kernel``), extract
+   timed alone beside its plain version on the last block's arguments
+   and compared, with its bound and FMUL+FADD issue floor
+   (:func:`ext_floor`), and profiled (its profile must show
+   ``extract_blocked_any_kernel`` and neither ``extract_kernel`` nor
+   ``extract_blocked_kernel``);
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -416,7 +432,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # K12 (flat and phase-split) and K2 admit no slack on either route of their mid end: the
 # fused route sums every FIR output in the plain version's tap order; nor
 # do the PLL (sequential and chunked: the chunked lanes' masks change no
-# value), extract (on both of its routes) and BPSK (its branch
+# value), extract (at every order, on both of its kernels) and BPSK (its branch
 # changes no value: it skips only what no lane uses).  The channelizer
 # has no power sum and its int8 outputs admit no slack: it must be exact,
 # and so must the int8-matrix channelizer (integer products, then the plain
@@ -548,9 +564,10 @@ COUNTERS = (
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
     ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
-    # extract's blocked route, at the receiver's filter orders (each form
-    # counts too)
+    # extract's blocked route, every launch (each form counts too), and its
+    # launches at other orders than the receiver's (extract_blocked_any_kernel)
     ("extract_blocked", "extract", "launches_blocked"),
+    ("extract_any", "extract", "launches_any"),
 )
 
 
@@ -905,9 +922,22 @@ def _ext_flops(co, c: int, n: int) -> float:
     """Extract's float32 operations on [C, n] analytic samples: the two
     harmonics and the mix per sample, the L+R and L-R (two planes) ds x4
     and the RDS (two planes) ds x8 FIRs per output."""
-    taps = co.taps_audio_lpr.shape[0]
-    return float(c) * (n * (2 * 15 + 8) + n // 4 * (2 + 4) * taps
-                       + n // 8 * 4 * taps)
+    nn_a, nn_r = co.taps_audio_lpr.shape[0], co.taps_rds.shape[0]
+    return float(c) * (n * (2 * 15 + 8) + n // 4 * (2 + 4) * nn_a
+                       + n // 8 * 4 * nn_r)
+
+
+def ext_floor(nn_a: int, nn_r: int, c: int, n: int) -> dict:
+    """Extract's FMUL+FADD issue floor on [C, n] analytic samples, ms
+    (computed, not measured): an FMUL and an FADD a tap an output
+    (-fmad=false) of the three ds x4 planes (nn_a taps) and the two ds x8
+    planes (nn_r), at 128 a clock an SM, at this card's SM count and
+    highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    per_row = 2 * (3 * (n // 4) * nn_a + 2 * (n // 8) * nn_r)
+    return {"fmul_fadd_floor_ms": float(c) * per_row / (128 * sms * hz) * 1e3,
+            "orders": [nn_a, nn_r], "sms": sms, "sm_clock_hz": hz}
 
 
 def work(name: str, args) -> tuple:
@@ -1513,7 +1543,8 @@ def hbm_phase(device="cuda", mib: int = 256, iters: int = 20) -> dict:
 # beside its plain version and bound on the kernels line)
 PROBE_REP = {"fp_sum": "stream:no=128:f32", "fp_fir": "full:no=128:f32",
              "fp_dbuf": "full:double-buf:tile=8x2048",
-             "fp_i8d": "full:i8direct", "fp_i8man": "full:i8man:tile=8x4096",
+             "fp_i8d": "full:i8d:noasm",
+             "fp_i8man": "full:i8man:tile=8x4096",
              "k2_stream": "stream", "k2_ds2": "ds2", "k2_hilb": "hilb",
              "k2_full": "full",
              "k2_restruct": "restruct:128", "k3_stream31": "stream31:t=1024",
@@ -1566,7 +1597,7 @@ def _probe_work(name: str, inputs: dict, device) -> dict:
                      else lambda: fp.dbuf_plain(xw, True, 2048))
         else:
             x8 = x["u8"]
-            plain = ((lambda: fp.i8d_plain(x8, True, t_blk))
+            plain = ((lambda: fp.i8d_plain(x8, True, t_blk, noasm=True))
                      if name == "fp_i8d"
                      else lambda: fp.i8man_plain(x8, True, 4096))
             w.update(bytes=2.0 * c * b + 4 * n4,
@@ -1994,6 +2025,69 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     if grids != [want]:
         raise RuntimeError(f"{label}: k12_deemph_kernel ran on {grids}, not "
                            f"the plan's grid and block {want}")
+    return res
+
+
+# extract's other-order lens (not a bench.py cell: users who change the
+# filter orders, DemodConfig.order_poly_ds_lpf_audio / _rds, take
+# extract_blocked_any_kernel): the pre-split cell at the megakernel's
+# other extract orders (CHAIN_OTHER_ORDERS), 96 / 96; the kernel its
+# profile must show, and the ones it must not
+ORDER_LENSES = (("presplit_o96", "i8",
+               {"frontend_int8": True, "order_poly_ds_lpf_audio": 96,
+                "order_poly_ds_lpf_rds": 96}),)
+EXT_ANY = "extract_blocked_any_kernel"
+EXT_GONE = ("extract_kernel", "extract_blocked_kernel")
+
+
+def order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
+               block: int = 131072, blocks: int = 8, device="cuda") -> dict:
+    """The other-order lens (:data:`ORDER_LENSES`) as the cells run: one
+    warm-up block, ``blocks`` counted blocks (every extract launch on
+    extract_blocked_any_kernel), then extract timed alone beside its
+    plain version on the last block's arguments and compared, with its
+    bound and its FMUL+FADD issue floor (:func:`ext_floor`)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
+    st = demod_init_state(cfg, channels, device)
+    x = split_input(kind, channels, block, 0, device)
+    st, _ = demod_block(cfg, co, st, x)  # warm-up
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    calls = {}
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(blocks):
+        st, outs = demod_block(cfg, co, st, x, record=calls)
+    end.record()
+    torch.cuda.synchronize(device)
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
+                            "bpsk": blocks, "midend_fused": blocks,
+                            "extract_blocked": blocks, "extract_any": blocks},
+                 f"lens {label}")
+    if tuple(outs["audio"].shape) != (channels, block // 32, 2):
+        raise RuntimeError(f"{label}: audio shape "
+                           f"{tuple(outs['audio'].shape)}")
+    for k in ("audio", "rds_pred"):
+        if not bool(torch.isfinite(outs[k]).all()):
+            raise RuntimeError(f"{label}: non-finite {k}")
+    res = {"cell": label, "config": kw, "input": kind, "channels": channels,
+           "block": block, "blocks": blocks, "inputs": input_stats(x),
+           "launches": launches, "ms_per_block": ms / blocks,
+           "msps": channels * block * blocks / (ms / 1e3) / 1e6,
+           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"extract": calls["extract"]})
+    res["floor"] = ext_floor(co.taps_audio_lpr.shape[0],
+                             co.taps_rds.shape[0], channels, block // 8)
     return res
 
 
@@ -3290,19 +3384,31 @@ def _extract_inputs(form: str, c: int, n: int, g: torch.Generator, device):
     return (re, im), dt
 
 
+# extract's filter orders at its edges: the receiver's (128, 128,
+# extract_blocked_kernel) and others within the halos (L+R / L-R taps,
+# RDS taps; extract_blocked_any_kernel), those of the numpy model of its
+# schedule (tests/test_torch_extract_any_order.py): not multiples of the
+# decimation, the longest the halos admit, the shortest
+EXTRACT_EDGE_ORDERS = ((128, 128), (64, 64), (96, 96), (124, 120),
+                       (130, 131), (132, 136), (8, 16), (5, 9))
+# orders around the halos' limits, where the route answers "refused"
+EXTRACT_ROUTE_ORDERS = ((3, 8), (4, 7), (4, 8), (133, 64), (64, 137),
+                        (4, 136), (132, 8), (128, 96), (64, 128))
+
+
 def compare_extract_edges(device="cuda") -> dict:
     """Extract against its plain version at edge shapes, max abs error 0
     (the RDS power within POWER_RTOL: the plain version sums it in another
     order), two blocks with carried state from random tails, on random
     planes and dt: C = 40 at N = 1,024 (one tile, whose halo is all
     carried tail) and 2,048, on its three forms (float32; int16 planes and
-    dt; int16 planes and float32 dt), on the receiver's filters (the
-    blocked route) and on filters of other orders within the halos (64
-    taps for L+R and L-R, 96 for RDS: the tiled route), each call's route
-    read on the counters; and the C entry's route
-    (``fmt_extract_route``) against its host copy
-    (``kernels/extract.py::extract_route``) over filter orders.  Returns
-    {"rows": verdict rows, "route_mismatch": [...]}."""
+    dt; int16 planes and float32 dt), at every order of
+    EXTRACT_EDGE_ORDERS (the receiver's filters on extract_blocked_kernel,
+    the others on extract_blocked_any_kernel), each call's kernel read on
+    the counters; and the C entry's route (``fmt_extract_route``) against
+    its host copy (``kernels/extract.py::extract_route``) over those orders
+    and EXTRACT_ROUTE_ORDERS.  Returns {"rows": verdict rows,
+    "route_mismatch": [...]}."""
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import extract as ke
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
@@ -3315,45 +3421,48 @@ def compare_extract_edges(device="cuda") -> dict:
         t = torch.rand((nn,), generator=g, device=device)
         return t / t.sum()
 
-    co_other = co._replace(taps_audio_lpr=taps(64), taps_audio_lmr=taps(64),
-                           taps_rds=taps(96))
     c = 40
     rows = []
-    for label, cx in (("blocked", co), ("tiled", co_other)):
-        if ke.extract_route(cx) != label:
-            raise RuntimeError(f"extract: {label} filters take the "
-                               f"{ke.extract_route(cx)} route")
+    for nn_a, nn_r in EXTRACT_EDGE_ORDERS:
+        cx = co if (nn_a, nn_r) == (128, 128) else co._replace(
+            taps_audio_lpr=taps(nn_a), taps_audio_lmr=taps(nn_a),
+            taps_rds=taps(nn_r))
+        want = "any" if (nn_a, nn_r) != (128, 128) else "receiver"
+        if ke.extract_route(cx) != "blocked":
+            raise RuntimeError(f"extract: filters of {nn_a} / {nn_r} taps "
+                               f"take the {ke.extract_route(cx)} route")
         for n in (1024, 2048):
             for form in ("extract", "extract_i16", "extract_i16_f32dt"):
                 st = _extract_state(cfg, cx, c, g, device)
                 acc = {}
                 for blk in range(2):
                     a = (cx, cfg, st, *_extract_inputs(form, c, n, g, device))
-                    before = ke.launches_blocked
+                    before = (ke.launches_blocked, ke.launches_any)
                     kout = ke.extract(*a)
                     pout = ke.extract_plain(*a)
-                    took = ("blocked" if ke.launches_blocked > before
-                            else "tiled")
-                    if took != label:
-                        raise RuntimeError(f"extract {form} at C = {c}, N = "
-                                           f"{n}: took the {took} route, not "
-                                           f"{label}")
+                    took = ("any" if ke.launches_any > before[1] else
+                            "receiver" if ke.launches_blocked > before[0]
+                            else "none")
+                    if took != want:
+                        raise RuntimeError(f"extract {form} at {nn_a} / "
+                                           f"{nn_r} taps, N = {n}: took "
+                                           f"{took}, not {want}")
                     e = stage_errors("extract", kout, pout)
                     dump_mismatch(form, a, kout, pout, e)
                     _merge(acc, form, e)
                     st = kout[0]
                 torch.cuda.synchronize(device)
-                rows.append(dict(_verdict(form, acc[form]), route=label,
+                rows.append(dict(_verdict(form, acc[form]),
+                                 orders=[nn_a, nn_r], kernel=want,
                                  channels=c, samples=n))
     fn = _build.function("extract", "fmt_extract_route", ke.ROUTE_ARGTYPES)
     bad = []
-    for nn_a in (64, 124, 128, 132):
-        for nn_r in (64, 96, 128, 136):
-            cx = co._replace(taps_audio_lpr=co.taps_audio_lpr.new_zeros(nn_a),
-                             taps_rds=co.taps_rds.new_zeros(nn_r))
-            host, card = ke.extract_route(cx), fn(nn_a, nn_r)
-            if (host == "blocked") != (card == 1):
-                bad.append((nn_a, nn_r, host, card))
+    for nn_a, nn_r in EXTRACT_EDGE_ORDERS + EXTRACT_ROUTE_ORDERS:
+        cx = co._replace(taps_audio_lpr=co.taps_audio_lpr.new_zeros(nn_a),
+                         taps_rds=co.taps_rds.new_zeros(nn_r))
+        host, card = ke.extract_route(cx), fn(nn_a, nn_r)
+        if (host == "blocked") != (card == 1):
+            bad.append((nn_a, nn_r, host, card))
     return {"rows": rows, "route_mismatch": bad}
 
 
@@ -3974,6 +4083,74 @@ def compare_man_edges(device="cuda", seed: int = 10) -> list[dict]:
                              "case": f"tile={c_blk}x{t_blk}:full={full}",
                              "host": host, "card": card,
                              "max_abs_err": None, "ok": host == card})
+    torch.cuda.synchronize(device)
+    return rows
+
+
+# the K1 probe's int8-direct forms on K12's tile at their edges: every
+# noasm t_blk the entry admits from 512 up (its tiles inside one CTA's
+# 4,096 samples), C = 5 and 40, B = 16,384 (whole segments) and 14,336
+# (a last segment of 512 outputs, where t_blk divides it); no at its
+# least, the lens's 128 and its most
+I8D_EDGE_TBLKS = (512, 1024, 2048, 4096)
+I8D_EDGE_CS = (5, 40)
+I8D_EDGE_BS = (16384, 14336)
+
+
+def i8d_edge_nos(t_blk: int) -> tuple:
+    """The noasm ``no`` values of an edge tile: 32, 128 and t_blk / 4 -
+    32, those inside [32, t_blk / 4 - 32]."""
+    tw = t_blk // 4
+    return tuple(sorted({no for no in (32, 128, tw - 32) if 32 <= no
+                         <= tw - 32}))
+
+
+def compare_i8d_edges(device="cuda", seed: int = 12) -> list[dict]:
+    """fp_i8d (``probes/frontend_probe.py::i8direct``) against
+    ``i8d_plain`` on every form (dots and full, K12's windows and noasm)
+    at I8D_EDGE_TBLKS x I8D_EDGE_CS x I8D_EDGE_BS (noasm at every no of
+    :func:`i8d_edge_nos`), on memory poisoned first (its outputs land on
+    NaN), max abs error 0; and the refusals before any launch (a noasm
+    tile past one CTA's segment, a no off the runs or outside its tile).
+    One row a case (kernel "fp_i8d")."""
+    from fm_radio_tpu_torch.probes import frontend_probe as fp
+
+    tb = fp.tables(device)
+    rows = []
+    for c in I8D_EDGE_CS:
+        for b in I8D_EDGE_BS:
+            x8 = fp.make_inputs(c, b, device, seed=seed + c)["u8"]
+            for t_blk in I8D_EDGE_TBLKS:
+                if b % t_blk:
+                    continue
+                forms = [(False, 128), *((True, no)
+                                         for no in i8d_edge_nos(t_blk))]
+                for noasm, no in forms:
+                    for full in (False, True):
+                        pout = fp.i8d_plain(x8, full, t_blk, no, noasm, tb)
+                        poison_free_memory(device)
+                        before = fp.launches_i8d
+                        kout = fp.i8direct(x8, full, t_blk, no, noasm, tb)
+                        e = float((kout - pout).abs().max())
+                        ok = e == 0.0 and fp.launches_i8d == before + 1
+                        rows.append({
+                            "kernel": "fp_i8d",
+                            "case": f"{'full' if full else 'dots'}"
+                                    f"{':noasm' if noasm else ''}:C={c}:"
+                                    f"B={b}:t_blk={t_blk}:no={no}",
+                            "max_abs_err": e, "ok": ok})
+    x8 = fp.make_inputs(5, 16384, device, seed=seed)["u8"]
+    for t_blk, no in ((8192, 128), (2048, 44), (2048, 24), (1024, 232),
+                      (256, 64)):
+        before = fp.launches_i8d
+        try:
+            fp.i8direct(x8, True, t_blk, no, True, tb)
+            refused = False
+        except ValueError:
+            refused = fp.launches_i8d == before
+        rows.append({"kernel": "fp_i8d",
+                     "case": f"noasm:t_blk={t_blk}:no={no} refused",
+                     "max_abs_err": None, "ok": refused})
     torch.cuda.synchronize(device)
     return rows
 
@@ -5098,23 +5275,28 @@ def main() -> int:
     t1 = time.perf_counter()
     deedge = compare_deemph_edges(dev)
     manedge = compare_man_edges(dev)
+    i8dedge = compare_i8d_edges(dev)
     try:
         with _build.checked_build():
             deedge += [dict(r, build="checked")
                        for r in compare_deemph_edges(dev, seed=10)]
             manedge += [dict(r, build="checked")
                         for r in compare_man_edges(dev, seed=11)]
+            i8dedge += [dict(r, build="checked")
+                        for r in compare_i8d_edges(dev, seed=13)]
     except RuntimeError as e:
-        raise RuntimeError(f"de-emphasis / i8man edges on the "
+        raise RuntimeError(f"de-emphasis / i8man / i8d edges on the "
                            f"bounds-checked build: {e}")
     for r in deedge + manedge:
         log(f"[compare] de-emphasis / i8man edge: {json.dumps(r)}")
-    bad = [r for r in deedge + manedge if not r["ok"]]
-    log(f"[compare] de-emphasis / i8man edges: {len(deedge)} + "
-        f"{len(manedge)} cases on both builds, {len(bad)} off; "
-        f"{time.perf_counter() - t1:.1f} s")
+    bad = [r for r in deedge + manedge + i8dedge if not r["ok"]]
+    for r in bad:
+        log(f"[compare] edge off: {json.dumps(r)}")
+    log(f"[compare] de-emphasis / i8man / i8d edges: {len(deedge)} + "
+        f"{len(manedge)} + {len(i8dedge)} cases on both builds, {len(bad)} "
+        f"off; {time.perf_counter() - t1:.1f} s")
     if bad:
-        raise RuntimeError(f"de-emphasis / i8man edge cases disagree: "
+        raise RuntimeError(f"de-emphasis / i8man / i8d edge cases disagree: "
                            f"{[(r['case'], r.get('build')) for r in bad]}")
     # the exact channelizer at every M instantiation and its edge shapes,
     # on both builds; the megakernel at the chain cell's shape on the
@@ -5362,6 +5544,36 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the de-emphasis lenses: {bad}")
+    # 4f. extract's other-order lens: every extract launch on
+    # extract_blocked_any_kernel, timed alone, its profile
+    t0 = time.perf_counter()
+    olens, olens_prof = {}, {}
+    for label, kind, kw in ORDER_LENSES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        olens[label] = order_lens(label, kind, kw, 2048, 131072, 8, dev)
+        log(f"[orders] {json.dumps(olens[label])}")
+        prof = profile_split(label, kind, kw, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+        olens_prof[label] = prof
+        gone = showing(prof, EXT_GONE)
+        if lacking(prof, (EXT_ANY,)) or gone:
+            raise RuntimeError(f"the {label} lens's profile lacks {EXT_ANY} "
+                               f"or shows {gone}: "
+                               f"{list(prof['device_ms_per_block'])}")
+        r = olens[label]
+        log(f"[orders] {label}: {r['ms_per_block']:.3f} ms/block; "
+            f"{EXT_ANY} {device_ms(prof, EXT_ANY):.4f} device ms a block; "
+            f"extract alone (events) {r['kernel_ms']['extract']:.4f} beside "
+            f"the plain version's {r['plain_ms']['extract']:.4f}; bound "
+            f"{r['bound']['extract']['bound_ms']:.4f}; FMUL+FADD issue "
+            f"floor (computed, not measured) "
+            f"{r['floor']['fmul_fadd_floor_ms']:.4f}")
+    log(f"[orders] {time.perf_counter() - t0:.1f} s")
+    bad = [(label, r["name"]) for label, c in olens.items()
+           for r in c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"extract disagrees with its plain version at "
+                           f"the other-order lens: {bad}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
@@ -5512,7 +5724,8 @@ def main() -> int:
               + [r for c in cells.values() for r in c["compare"]]
               + ch["compare"] + pc["compare"] + wb_i8_bench["compare"]
               + wb_i8["compare"] + wb_bf16["compare"] + i16c["compare"]
-              + [r for c in lenses.values() for r in c["compare"]]):
+              + [r for c in lenses.values() for r in c["compare"]]
+              + [r for c in olens.values() for r in c["compare"]]):
         err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
@@ -5533,6 +5746,7 @@ def main() -> int:
              **{f"station_{r['path']}": r["launches"] for r in lst},
              "i16": i16c["launches"],
              **{label: c["launches"] for label, c in lenses.items()},
+             **{label: c["launches"] for label, c in olens.items()},
              "i16_route_c5": {k: i16_c5_launches.get(k, 0)
                               for k in i16c["launches"]},
              "i16_words": i16c["launches_words"],
@@ -5648,6 +5862,9 @@ def main() -> int:
                 paths[launch_path[n]] if n in launch_path
                 else home[n]["launches"])["extract_blocked"],
                 edge_shapes=[r for r in eedge["rows"] if r["name"] == n])
+        if n == "extract":
+            # the FMUL+FADD issue floor at the cell's 128 / 128 taps
+            k.update(floors_ms(ext_floor(128, 128, 2048, 131072 // 8)))
         if n in DS4_OF:
             # the redesigned ds x4 stage: its kernel, the SASS and the edge
             # shapes
@@ -5700,6 +5917,29 @@ def main() -> int:
                              [r for r in medge["rows"] if r["name"] == n]),
              **in_turns_keys(n)}
         kernels.append(k)
+    # extract at other orders (extract_blocked_any_kernel), alone on the
+    # other-order lens's last-block arguments; its launches: the lens's
+    for label, c in olens.items():
+        b = c["bound"]["extract"]
+        any_edges = [r for r in eedge["rows"] if r["kernel"] == "any"]
+        kernels.append({
+            "name": "extract_any", "route": "cuda",
+            "source": "fm_radio_tpu_torch/csrc/extract.cu",
+            "replaces": "fm_radio_tpu/kernels/extract_pallas.py:122",
+            "kernel": EXT_ANY, "lens": label,
+            "launches": c["launches"]["extract_any"],
+            "launches_by_path": {p: v.get("extract_any", 0)
+                                 for p, v in paths.items()},
+            "max_abs_err": max([r["max_abs_err"] for r in c["compare"]]
+                               + [r["max_abs_err"] for r in any_edges]),
+            "ms": c["kernel_ms"]["extract"],
+            "plain_ms": c["plain_ms"]["extract"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, "hbm_bytes_s": b["hbm_bytes_s"],
+            "work": {key: b[key] for key in ("bytes", "f32_ops")},
+            "device_ms": device_ms(olens_prof[label], EXT_ANY),
+            **floors_ms(c["floor"]),
+            "edge_shapes": any_edges})
     # the device-memory probes: each at its fastest variant of the sweep
     for n, src, rep in PROBE_KERNELS:
         pk = hbm["kernels"][n]
@@ -5736,13 +5976,17 @@ def main() -> int:
                if "launch_alone" in pk else {}),
             **(floors_ms(engine_floor(pk["variant"], *PROBE_FULL["k2"]))
                if n in ("k2_ds2", "k2_hilb") else {}),
+            # extract at the K3 probe's 64 / 128 taps
+            **(floors_ms(ext_floor(64, 128, *PROBE_FULL["k3"]))
+               if n == "k3_full" else {}),
             "work": {key: pk[key] for key in ("bytes", "f32_ops", "i8_ops",
                                               "design_f32_ops") if key in pk},
             **({"serial_steps": pk["serial_steps"]}
                if pk["serial_steps"] is not None else {}),
             **({"idp4a_floor_ms": i8_floor(*PROBE_FULL["fp"])[
-                "idp4a_floor_ms"], "edge_shapes": manedge}
-               if n == "fp_i8man" else {})})
+                "idp4a_floor_ms"],
+                "edge_shapes": manedge if n == "fp_i8man" else i8dedge}
+               if n in ("fp_i8man", "fp_i8d") else {})})
     if DUMPS:
         raise RuntimeError(f"mismatches saved (passed their tolerances): "
                            f"{DUMPS}")

@@ -9,14 +9,16 @@
 //                  values
 //   extract_item   one output of the five decimating FIRs of a tile held in
 //                  shared memory: L+R ds x4 on Re, L-R ds x4 on both planes,
-//                  RDS ds x8 on both planes (the megakernel's FIRs, and the
-//                  extract kernel's at other filter orders)
+//                  RDS ds x8 on both planes (the megakernel's FIRs at other
+//                  filter orders than its blocked stages')
 //   fir_block      R neighbouring outputs of one decimating FIR of NN taps
 //                  over a skewed plane in shared memory, register-blocked
-//                  (the extract kernel's FIRs at the receiver's orders)
+//                  (the extract kernel's FIRs at the receiver's orders);
+//                  fir_block_any the same at an order known at run time
 //   ext_put, ext_firs  the blocked tile: a sample mixed into the skewed
-//                  planes, and the five FIRs over them (extract.cu's blocked
-//                  route)
+//                  planes, and the five FIRs over them (extract.cu's
+//                  blocked route at the receiver's orders); ext_put_any,
+//                  ext_firs_any the same at any order within the halos
 #pragma once
 
 #include "common.cuh"
@@ -183,6 +185,72 @@ __device__ __forceinline__ void fir_block(const float* __restrict__ x,
   }
 }
 
+// fir_block_any: fir_block's outputs at an order nn known only at run
+// time (any nn >= M), for lane L's plane pointer xl (its first window at
+// xl[mid_skew(B0 + M r + p)]).  nn = M NQ + PX: phases p < PX take NQ + 1
+// steps, the others NQ, and tap k = M q + p is still step q of phase p,
+// so the sum order stays fir_dot's (step by step, each step's phases in
+// ascending p).  The whole blocks of R steps run in a loop over a run-time
+// count, every one refilling its slots; the last 1 .. R steps of all
+// phases then run in a switch of compile-time instantiations (fir_steps'
+// kLast: no load past the last step), and the PX phases' extra step
+// after them, its R samples a phase loaded and used once.  No tap is
+// padded: a zero tap would read samples the plain version never reads
+// for that output, and one Inf there would make a NaN it does not have.
+template <int M, int R, int B0, int S>
+__device__ __forceinline__ void fir_tail(const float* __restrict__ xq,
+                                         const float* __restrict__ wq,
+                                         int px, float (&v)[M][R],
+                                         float (&acc)[R]) {
+  fir_steps<M, R, B0, true, S>(xq, wq, v, acc);
+#pragma unroll
+  for (int p = 0; p < M - 1; ++p) {
+    if (p < px) {
+      const float wk = wq[M * S + p];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[r] += wk * xq[mid_skew(B0 + M * (S + r) + p)];
+    }
+  }
+}
+
+template <int M, int R, int B0>
+__device__ __forceinline__ void fir_block_any(const float* __restrict__ xl,
+                                              const float* __restrict__ w,
+                                              int nn, float (&acc)[R]) {
+  static_assert(M * R == 32 && B0 >= 0 && M % 4 == 0 && R <= 8,
+                "lanes 32 samples apart, float4 taps");
+  const int nq = nn / M, px = nn % M;  // nq >= 1
+  const int q1 = (nq - 1) / R * R;     // steps of the whole blocks
+  float v[M][R];
+#pragma unroll
+  for (int p = 0; p < M; ++p)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[p][r] = xl[mid_skew(B0 + M * r + p)];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll 1
+  for (int qb = 0; qb < q1; qb += R)
+    fir_steps<M, R, B0, false>(xl + 33 * (qb / R), w + M * qb, v, acc);
+  const float* xq = xl + 33 * (q1 / R);
+  const float* wq = w + M * q1;
+  switch (nq - q1) {
+#define FMT_FIR_TAIL(S)                                             \
+  case S:                                                           \
+    if constexpr (S <= R) fir_tail<M, R, B0, S>(xq, wq, px, v, acc); \
+    break;
+    FMT_FIR_TAIL(1)
+    FMT_FIR_TAIL(2)
+    FMT_FIR_TAIL(3)
+    FMT_FIR_TAIL(4)
+    FMT_FIR_TAIL(5)
+    FMT_FIR_TAIL(6)
+    FMT_FIR_TAIL(7)
+    FMT_FIR_TAIL(8)
+#undef FMT_FIR_TAIL
+  }
+}
+
 // The tile of the extract kernels: kExtTile samples a CTA, after a halo of
 // kExtHalo carried or previous samples.
 constexpr int kExtTile = 1024;  // fm_out samples per block
@@ -191,8 +259,9 @@ constexpr int kExtW = kExtHalo + kExtTile;
 
 // ---- The blocked extraction's tile (extract.cu's blocked route) ----
 //
-// A CTA of kExtThreads takes the same tile, halo, mix and carried tails as
-// extract_kernel, the planes stored skewed (mid_skew), and the FIRs
+// A CTA of kExtThreads takes a tile and its halo, mixes each sample once
+// and carries the tails as extract_pallas.py does, the planes stored
+// skewed (mid_skew), and the FIRs
 // register-blocked (extract_stages.cuh::fir_block): warp 0 computes the
 // tile's 256 L+R outputs, warps 1 and 2 the L-R re and im outputs (8
 // neighbouring outputs a lane), warp 3 the 128 RDS outputs of both planes
@@ -275,7 +344,7 @@ __device__ __forceinline__ void ext_put(ExtShared& sh,
 // the five FIRs over the planes of channel c's tile: output j of a ds x4
 // plane sums the plane from index kExtHalo - kExtHa + 4 j on, of a ds x8
 // plane from kExtHalo - kExtHr + 8 j; the tile's RDS power summed in
-// output order (as extract_kernel sums it) into pow_part; from the last
+// output order (one thread, from 0.0f) into pow_part; from the last
 // tile, the carried tails
 template <class TX, class TD>
 __device__ __forceinline__ void ext_firs(ExtShared& sh,
@@ -342,6 +411,152 @@ __device__ __forceinline__ void ext_firs(ExtShared& sh,
       const int se = mid_skew(kExtW - kExtHr + k);
       const int64_t j = (int64_t)c * kExtHr + k;
       const int64_t nj = (int64_t)channels * kExtHr;
+      FMT_AT(a.o_rds_re, j, nj) = sh.p[3][se];
+      FMT_AT(a.o_rds_im, j, nj) = sh.p[4][se];
+    }
+  }
+}
+
+// ---- The blocked tile at any order within the halos ----
+//
+// extract.cu's blocked route at orders other than kExtTaps: 4 <= nn_a <=
+// kExtHalo + 4 (L+R, L-R) and 8 <= nn_r <= kExtHalo + 8 (RDS), any
+// integer.  The same tile, halo, mix, carried tails, warps, RDS power
+// order and float4 stores as ext_put / ext_firs (their kExtTaps code is
+// left as it was built), the FIRs by fir_block_any.  Output j's window
+// starts at index kExtHalo - (nn - M) + M j of the tile, whose offset
+// within a bank row depends on nn; so each plane is stored shifted by s
+// = nn % 32 (sample e at mid_skew(e + s)), which puts the start at M + 32
+// (4 - nn / 32 + L) + M r for lane L's output r: fir_block_any's B0 = M
+// from the lane's pointer x + 33 (4 - nn / 32 + L), every load a constant
+// offset as at kExtTaps (where s = 0 and the pointer is x + 33 L).
+constexpr int kExtTapsMax = kExtHalo + 8;  // the longest RDS filter
+constexpr int kExtWPAny = mid_skew(kExtW + 31) + 1;
+
+struct ExtSharedAny {
+  float p[5][kExtWPAny];
+  __align__(16) float w[3][kExtTapsMax];
+  float pow[kExtTile / 8];
+};
+
+// the filters' orders and what follows from them: the tails' lengths
+// and the planes' shifts
+struct ExtOrders {
+  int nn_a, nn_r, ha, hr, sa, sr;
+  __host__ __device__ ExtOrders(int a, int r)
+      : nn_a(a), nn_r(r), ha(a - 4), hr(r - 8), sa(a % 32), sr(r % 32) {}
+};
+
+template <class TX, class TD>
+__device__ __forceinline__ void ext_taps_any(ExtSharedAny& sh,
+                                             const ExtArgs<TX, TD>& a,
+                                             const ExtOrders& o) {
+  for (int k = threadIdx.x; k < o.nn_a; k += kExtThreads) {
+    sh.w[0][k] = FMT_AT(a.wa, k, o.nn_a);
+    sh.w[1][k] = FMT_AT(a.wm, k, o.nn_a);
+  }
+  for (int k = threadIdx.x; k < o.nn_r; k += kExtThreads)
+    sh.w[2][k] = FMT_AT(a.wr, k, o.nn_r);
+}
+
+// ext_put at the orders o: the audio planes shifted by o.sa, the RDS
+// planes by o.sr
+template <class TX, class TD>
+__device__ __forceinline__ void ext_put_any(ExtSharedAny& sh,
+                                            const ExtArgs<TX, TD>& a,
+                                            const ExtOrders& o, int c,
+                                            int channels, int e, int g,
+                                            float x_r, float x_i, float d,
+                                            float co, float so) {
+  float vl = 0.0f, vmr = 0.0f, vmi = 0.0f, vrr = 0.0f, vri = 0.0f;
+  if (g >= 0) {
+    vl = x_r;
+    mix_sample(x_r, x_i, d, co, so, vmr, vmi, vrr, vri);
+  } else {
+    if (g >= -o.ha) {
+      const int64_t j = (int64_t)c * o.ha + o.ha + g;
+      const int64_t nj = (int64_t)channels * o.ha;
+      vl = FMT_AT(a.t_lpr, j, nj);
+      vmr = FMT_AT(a.t_lmr_re, j, nj);
+      vmi = FMT_AT(a.t_lmr_im, j, nj);
+    }
+    if (g >= -o.hr) {
+      const int64_t j = (int64_t)c * o.hr + o.hr + g;
+      const int64_t nj = (int64_t)channels * o.hr;
+      vrr = FMT_AT(a.t_rds_re, j, nj);
+      vri = FMT_AT(a.t_rds_im, j, nj);
+    }
+  }
+  const int sa = mid_skew(e + o.sa), sr = mid_skew(e + o.sr);
+  sh.p[0][sa] = vl;
+  sh.p[1][sa] = vmr;
+  sh.p[2][sa] = vmi;
+  sh.p[3][sr] = vrr;
+  sh.p[4][sr] = vri;
+}
+
+// ext_firs at the orders o
+template <class TX, class TD>
+__device__ __forceinline__ void ext_firs_any(ExtSharedAny& sh,
+                                             const ExtArgs<TX, TD>& a,
+                                             const ExtOrders& o, int c,
+                                             int channels, int tile,
+                                             int n_tiles) {
+  constexpr int na = kExtTile / 4, nr = kExtTile / 8;
+  const int n = a.n, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < 3) {
+    float acc[kAudioOuts];
+    const int j0 = kAudioOuts * lane;
+    fir_block_any<4, kAudioOuts, 4>(
+        sh.p[warp] + 33 * (4 - o.nn_a / 32 + lane), sh.w[warp == 0 ? 0 : 1],
+        o.nn_a, acc);
+    float* y = warp == 0 ? a.lpr : warp == 1 ? a.lmr_re : a.lmr_im;
+    const int64_t oo = (int64_t)c * (n / 4) + tile * na + j0;
+#ifdef FMT_CHECKED
+    FMT_AT(y, oo + kAudioOuts - 1, (int64_t)channels * (n / 4));
+#endif
+#pragma unroll
+    for (int r = 0; r < kAudioOuts; r += 4)
+      *reinterpret_cast<float4*>(y + oo + r) =
+          make_float4(acc[r], acc[r + 1], acc[r + 2], acc[r + 3]);
+  } else {
+    float ar[kRdsOuts], ai[kRdsOuts];
+    const int j0 = kRdsOuts * lane;
+    const int lp = 33 * (4 - o.nn_r / 32 + lane);
+    fir_block_any<8, kRdsOuts, 8>(sh.p[3] + lp, sh.w[2], o.nn_r, ar);
+    fir_block_any<8, kRdsOuts, 8>(sh.p[4] + lp, sh.w[2], o.nn_r, ai);
+    const int64_t oo = (int64_t)c * (n / 8) + tile * nr + j0;
+#ifdef FMT_CHECKED
+    FMT_AT(a.rds_re, oo + kRdsOuts - 1, (int64_t)channels * (n / 8));
+    FMT_AT(a.rds_im, oo + kRdsOuts - 1, (int64_t)channels * (n / 8));
+#endif
+    *reinterpret_cast<float4*>(a.rds_re + oo) =
+        make_float4(ar[0], ar[1], ar[2], ar[3]);
+    *reinterpret_cast<float4*>(a.rds_im + oo) =
+        make_float4(ai[0], ai[1], ai[2], ai[3]);
+#pragma unroll
+    for (int r = 0; r < kRdsOuts; ++r)
+      sh.pow[j0 + r] = ar[r] * ar[r] + ai[r] * ai[r];
+    __syncwarp();
+    if (lane == 0) {
+      float p = 0.0f;
+      for (int j = 0; j < nr; ++j) p += sh.pow[j];
+      FMT_AT(a.pow_part, (int64_t)c * n_tiles + tile,
+             (int64_t)channels * n_tiles) = p;
+    }
+  }
+  if (tile == n_tiles - 1) {
+    for (int k = threadIdx.x; k < o.ha; k += kExtThreads) {
+      const int se = mid_skew(kExtW - o.ha + k + o.sa);
+      const int64_t j = (int64_t)c * o.ha + k;
+      const int64_t nj = (int64_t)channels * o.ha;
+      FMT_AT(a.o_lmr_re, j, nj) = sh.p[1][se];
+      FMT_AT(a.o_lmr_im, j, nj) = sh.p[2][se];
+    }
+    for (int k = threadIdx.x; k < o.hr; k += kExtThreads) {
+      const int se = mid_skew(kExtW - o.hr + k + o.sr);
+      const int64_t j = (int64_t)c * o.hr + k;
+      const int64_t nj = (int64_t)channels * o.hr;
       FMT_AT(a.o_rds_re, j, nj) = sh.p[3][se];
       FMT_AT(a.o_rds_im, j, nj) = sh.p[4][se];
     }

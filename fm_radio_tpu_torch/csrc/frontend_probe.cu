@@ -17,12 +17,14 @@
 //                              cp.async (nbuf 2: tile i + 1's copy in
 //                              flight while tile i is unpacked and summed)
 //   build_i8direct (:316, pallas_call :394)
-//     fp_i8d_kernel            int8 planes, int8 taps, windows read from
-//                              device memory with the tail carried (or
-//                              `noasm`: each tile's first `no` outputs
-//                              read the tile from its start, mis-filtered,
-//                              as the TPU lens does); full's difference a
-//                              second launch (fp_disc_kernel)
+//     fp_i8d (FpI8dStore)      int8 planes, int8 taps, on K12's staged ds x4
+//                              tile (ds4_i8_blocked_kernel) with the tail
+//                              carried (or `noasm`: each tile's first `no`
+//                              outputs read the tile from its start,
+//                              mis-filtered, as the TPU lens does); full's
+//                              difference in the same launch but where
+//                              full runs K12's own theta store
+//                              (fp_disc_kernel after it)
 //   build_i8manual (:426, pallas_call :518)
 //     fp_i8man_kernel          one CTA per channel block, the time loop
 //                              inside: tiles in by cp.async.bulk on an
@@ -739,11 +741,43 @@ fp_dbuf_kernel(const float* __restrict__ x, int channels, int b,
   }
 }
 
-// ---- i8direct: int8 planes, int8 taps, windows read directly -------------
+// ---- i8direct: int8 planes, int8 taps, on K12's staged ds x4 tile ---------
+//
+// Every form runs K12's first launch, k12_stages.cuh::ds4_i8_blocked_kernel
+// (a CTA stages a channel's segment of kDs4Tile = 1,024 outputs once,
+// skewed, behind its head: the previous words, or before the row the zero
+// tail; each thread sums a run of 8 outputs from ds4_i8_window's sliding
+// __dp4a window, the 33 tap words as shared-memory pairs, zero-padded at
+// the oldest end to 40: a zero tap adds an exact 0 to the int32 sums).
+// full without noasm stores theta (Ds4Theta) and takes its in-tile
+// difference in a second launch, fp_disc_kernel; the other forms store
+// through FpI8dStore, whose Ds4Rule specialisation sets the window's
+// start and the value:
+//   dots (no noasm)  K12's windows over the row, fr + fi;
+//   noasm            output j < no of each probe tile of tw = t_blk / 4
+//                    outputs starts its window at the tile's word j,
+//                    halo_w = 32 words past K12's start (the TPU lens's
+//                    mis-filtered first sub-window); no % 8 == 0, so no
+//                    run of 8 holds both kinds;
+//   full (noasm)     atan2, then the in-tile difference in the same
+//                    launch: each run's last theta through shared memory
+//                    (ds4_finish's s_last), a tile's first output 0.
+// A tile must lie inside one CTA's segment: fmt_fp_i8d refuses a noasm
+// t_blk that does not divide 4 kDs4Tile (it is not staged), and a no
+// outside [halo_w, tw - halo_w], before any launch
+// (probes/frontend_probe.py::i8d_check its host copy).  Then a shifted
+// output j of a tile from word W reads words j - 7 .. j + 32 (the padded
+// taps), and its run's last refill from j0 reads word j0 + 40, with j0 <=
+// W + no - 8 <= W + tw - 40: nothing past the tile's end, and so nothing
+// past the segment's last staged word (t0 + kDs4Tile); every read is of
+// the CTA's staged words.  The int32 sums are exact in any
+// order and the float combine is the plain version's, so each output
+// equals it bit for bit.
 
-// full's difference as a second launch, for i8direct (its ds x4 launches,
-// fp_i8d_kernel or K12's, store theta): out = wrap(theta[j] - theta[j -
-// 1]) * 0.123 within each tile of `no` outputs (0 at a tile's first)
+// full's difference as a second launch after K12's (the one form that
+// still needs it: full without noasm stores theta): out = wrap(theta[j] -
+// theta[j - 1]) * 0.123 within each tile of `no` outputs (0 at a tile's
+// first)
 __global__ void fp_disc_kernel(const float* __restrict__ theta, int64_t total,
                                int no, float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -752,37 +786,55 @@ __global__ void fp_disc_kernel(const float* __restrict__ theta, int64_t total,
   out[i] = disc_value(t, i % no == 0 ? t : theta[i - 1], kFpScale);
 }
 
-// One thread per output.  Without noasm the window of output jg (of the
-// row) is words jg - halo/4 .. of the row, the words before the row from
-// the zero tail: the TPU kernel's [carried tail | tile] assembly is
-// invisible here.  With noasm, output j < no of each tile reads words j ..
-// of its tile (the mis-filtered first sub-window of the TPU lens).
-__global__ void fp_i8d_kernel(const int8_t* __restrict__ xr8,
-                              const int8_t* __restrict__ xi8,
-                              const int* __restrict__ tail0,
-                              const int* __restrict__ b1w,
-                              const int* __restrict__ b2w, int nn,
-                              float s_row, int channels, int b, int t_blk,
-                              int no, int noasm, int full,
-                              float* __restrict__ out) {
-  const int n4 = b / 4;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)channels * n4) return;
-  const int c = (int)(idx / n4);
-  const int jg = (int)(idx % n4);
-  const int halo_w = (nn - 4) / 4;
-  const int* xr = (const int*)(xr8 + (int64_t)c * b);
-  const int* xi = (const int*)(xi8 + (int64_t)c * b);
-  int q0 = jg - halo_w;
-  if (noasm) {
-    const int tw = t_blk / 4, j = jg % tw;
-    q0 = jg - j + (j < no ? j : j - halo_w);
+// The int8-direct forms' store: out [C, n] float32; tw outputs a probe
+// tile; the outputs j < no of each tile start their window halo_w words
+// later (no = 0: K12's windows everywhere).
+template <bool kFull>
+struct FpI8dStore {
+  float* out;
+  int tw, no, halo_w;
+  static constexpr bool kDisc = false;
+};
+
+template <bool kFull>
+struct Ds4Rule<FpI8dStore<kFull>> {
+  using St = FpI8dStore<kFull>;
+  __device__ __forceinline__ static int shift(const St& st, int j) {
+    return j % st.tw < st.no ? st.halo_w : 0;
   }
-  float fr, fi;
-  ds4_i8_words(xr, xi, n4, tail0, tail0, halo_w, b1w, b2w, nn / 4, q0, s_row,
-               fr, fi);
-  out[idx] = full ? atan2_poly(fi, fr) : fr + fi;
-}
+  __device__ __forceinline__ static float value(int y1r, int y2r, int y1i,
+                                                int y2i, float s_row) {
+    const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
+    const float fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
+    return kFull ? atan2_poly(fi, fr) : fr + fi;
+  }
+  // every thread of the CTA calls it (run = its thread, >= 0): the run's
+  // outputs j0 .. j0 + R - 1, stored where they lie in the row
+  template <int R>
+  __device__ __forceinline__ static void finish(const St& st, int c,
+                                                int channels, int n, int t0,
+                                                int run,
+                                                const float (&th)[R], float,
+                                                float* s_last) {
+    const int j0 = t0 + R * run;
+    float v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = th[r];
+    if constexpr (kFull) {
+      s_last[run] = th[R - 1];
+      __syncthreads();
+      float prev = j0 % st.tw == 0 ? th[0] : s_last[run - 1];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        v[r] = disc_value(th[r], prev, kFpScale);
+        prev = th[r];
+      }
+    }
+    if (j0 < n)
+      ds4_store<R>(st.out, (int64_t)c * n + j0, (int64_t)channels * n, v,
+                   n - j0, n % 4 == 0, 1.0f);
+  }
+};
 
 // ---- i8manual: the time loop inside, bulk copies through 2-slot rings ----
 
@@ -813,7 +865,7 @@ __global__ void fp_i8d_kernel(const int8_t* __restrict__ xr8,
 // (a zero tap adds an exact 0): 144 IDP4A an output, the floor's 132
 // rounded up to whole quads.  The integer sums are exact in any order and
 // the float combine (y1 + y2 / 128 + s_row, then atan2_poly or fr + fi)
-// is ds4_i8_words', so each output is the plain version's bit for bit.
+// is the plain version's, so each output equals it bit for bit.
 // full's difference needs the output before each run's first: the run
 // before it in the row stores its last theta in shared memory (s_last),
 // read after a barrier; the tile's first output differs from itself (0).
@@ -1201,37 +1253,47 @@ extern "C" int fmt_fp_dbuf(const float* x, int full, const float* w_rev,
 }
 
 // build_i8direct: x8 int8 planes [2, C, B] (4-byte aligned rows); tail8
-// [2, C, nn - 4] int8 zeros (full without noasm runs K12's first launch,
-// k12_stages.cuh::ds4_i8_blocked_kernel, on it; the other forms read its
-// first row as the zero tail); b1, b2 [nn]; theta [C, B/4] scratch (full);
-// out [C, B/4].
+// [2, C, nn - 4] int8 zeros (the carried tail before the row); b1, b2 [nn];
+// theta [C, B/4] scratch (full without noasm); out [C, B/4].  Every form
+// runs ds4_i8_blocked_kernel (full without noasm with K12's theta store,
+// then fp_disc_kernel).  With noasm a tile of t_blk must lie inside one
+// CTA's segment of 4 kDs4Tile samples and hold whole runs (t_blk % 32 ==
+// 0, (4 kDs4Tile) % t_blk == 0) and every window of it inside it (no %
+// 8 == 0, halo_w <= no <= t_blk / 4 - halo_w); else refused before any
+// launch.
 extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
                           const int8_t* b1, const int8_t* b2, int nn,
                           float s_row, int channels, int b, int t_blk, int no,
                           int noasm, int full, float* theta, float* out,
                           cudaStream_t stream) {
-  if (b % t_blk || t_blk % 16 || nn % 4 || nn - 4 > kFpHead ||
+  const int halo_w = (nn - 4) / 4, tw = t_blk / 4;
+  if (t_blk <= 0 || b % t_blk || t_blk % 16 || nn % 4 || nn - 4 > kFpHead ||
       4 * no > t_blk)
     return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)channels * (b / 4);
+  if (noasm && (t_blk % (4 * kDs4Run) || (4 * kDs4Tile) % t_blk ||
+                no % kDs4Run || no < halo_w || no > tw - halo_w))
+    return (int)cudaErrorInvalidValue;
+  const I8Rows src{x8, b};
+  const int nq = noasm ? no : 0;
+  int err;
   if (full && !noasm) {
-    // K12's own first launch
-    const int err = launch_ds4_i8(I8Rows{x8, b}, tail8, b1, b2, nn, s_row,
-                                  channels, b, Ds4Theta{theta}, stream);
+    // K12's own first launch, then the in-tile difference
+    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
+                        Ds4Theta{theta}, stream);
     if (err) return err;
-  } else {
-    fp_i8d_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        x8, x8 + (int64_t)channels * b, (const int*)tail8, (const int*)b1,
-        (const int*)b2, nn, s_row, channels, b, t_blk, no, noasm, full,
-        full ? theta : out);
-  }
-  FMT_CHECK_LAUNCH();
-  if (full) {
-    fp_disc_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
-        theta, total, t_blk / 4, out);
+    const int64_t total = (int64_t)channels * (b / 4);
+    fp_disc_kernel<<<blocks_for(total), kThreads, 0, stream>>>(theta, total,
+                                                                tw, out);
     FMT_CHECK_LAUNCH();
+    return 0;
   }
-  return 0;
+  if (full)
+    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
+                        FpI8dStore<true>{out, tw, nq, halo_w}, stream);
+  else
+    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
+                        FpI8dStore<false>{out, tw, nq, halo_w}, stream);
+  return err;
 }
 
 // build_i8manual: x8 int8 planes [2, C, B] (16-byte aligned rows); b1,

@@ -38,38 +38,6 @@
 
 namespace fmt {
 
-// The int8-tap ds x4 window sum of one output, read from device memory
-// (the K1 probe's int8-direct variants, frontend_probe.cu; the kernels
-// sum their staged tiles, ds4_i8_blocked_kernel): (fr, fi) over nw words
-// from word q0 of the re and im rows xr, xi (n_w words each; four int8
-// samples to a word),
-// words q < 0 from the carried tails tr, ti (halo_w words each, word q at
-// halo_w + q), each accumulated exactly with __dp4a against the reversed
-// taps b1w, b2w (nw words each), combined as y1 + y2 / 128 + s_row.  The
-// tails may be null where q0 >= 0.
-__device__ __forceinline__ void ds4_i8_words(
-    const int* __restrict__ xr, const int* __restrict__ xi, int n_w,
-    const int* __restrict__ tr, const int* __restrict__ ti, int halo_w,
-    const int* __restrict__ b1w, const int* __restrict__ b2w, int nw, int q0,
-    float s_row, float& fr, float& fi) {
-  int y1r = 0, y2r = 0, y1i = 0, y2i = 0;
-  for (int w = 0; w < nw; ++w) {
-    const int q = q0 + w;
-    const int vr =
-        q < 0 ? FMT_AT(tr, halo_w + q, halo_w) : FMT_AT(xr, q, n_w);
-    const int vi =
-        q < 0 ? FMT_AT(ti, halo_w + q, halo_w) : FMT_AT(xi, q, n_w);
-    const int w1 = __ldg(&FMT_AT(b1w, w, nw));
-    const int w2 = __ldg(&FMT_AT(b2w, w, nw));
-    y1r = __dp4a(vr, w1, y1r);
-    y2r = __dp4a(vr, w2, y2r);
-    y1i = __dp4a(vi, w1, y1i);
-    y2i = __dp4a(vi, w2, y2i);
-  }
-  fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
-  fi = ((float)y1i + (float)y2i * (1.0f / 128.0f)) + s_row;
-}
-
 // discriminator: fmd = wrap(theta1[j] - theta1[j-1]) * scale
 __device__ __forceinline__ float disc_value(float theta, float prev,
                                             float scale) {
@@ -238,6 +206,31 @@ __device__ __forceinline__ float ds4_i8_theta(int y1r, int y2r, int y1i,
   return atan2_poly(fi, fr);
 }
 
+// What ds4_i8_blocked_kernel does with a store's runs: where the window
+// of the run from output j starts (shift: words past K12's, whose window
+// of output j ends at word j), the value of an output from its int32
+// sums, and the run's finish.  K12's rule (theta1, ds4_finish) serves
+// Ds4Theta and Ds4Disc; the K1 probe's int8-direct stores
+// (frontend_probe.cu) specialise it.
+template <class Store>
+struct Ds4Rule {
+  __device__ __forceinline__ static int shift(const Store&, int) {
+    return 0;
+  }
+  __device__ __forceinline__ static float value(int y1r, int y2r, int y1i,
+                                                int y2i, float s_row) {
+    return ds4_i8_theta(y1r, y2r, y1i, y2i, s_row);
+  }
+  template <int R>
+  __device__ __forceinline__ static void finish(const Store& st, int c,
+                                                int channels, int n, int t0,
+                                                int run,
+                                                const float (&th)[R],
+                                                float extra, float* s_last) {
+    ds4_finish<R>(st, c, channels, n, t0, run, th, extra, s_last);
+  }
+};
+
 // The int8-tap ds x4 + atan2 of one channel's tile (blockIdx.y the channel,
 // blockIdx.x the tile), kDs4Tile / R threads (R = kDs4Run).  Word q of
 // the row (q < 0: the carried tail8 [2, C, 4 (nw - 1)], tail word
@@ -363,12 +356,14 @@ ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
   __syncthreads();
 
   int y1r[R], y2r[R], y1i[R], y2i[R];
-  ds4_i8_window<R>(s_re, s_im, s_tap, h - nwp + 1 + R * tid, nwp, y1r, y2r,
-                   y1i, y2i);
+  ds4_i8_window<R>(s_re, s_im, s_tap,
+                   h - nwp + 1 + R * tid +
+                       Ds4Rule<Store>::shift(st, t0 + R * tid),
+                   nwp, y1r, y2r, y1i, y2i);
   float th[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    th[r] = ds4_i8_theta(y1r[r], y2r[r], y1i[r], y2i[r], s_row);
+    th[r] = Ds4Rule<Store>::value(y1r[r], y2r[r], y1i[r], y2i[r], s_row);
   float extra = 0.0f;
   if (Store::kDisc && tid == 0 && t0 > 0) {  // output t0 - 1
     int a1r = 0, a2r = 0, a1i = 0, a2i = 0;
@@ -382,7 +377,8 @@ ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
     }
     extra = ds4_i8_theta(a1r, a2r, a1i, a2i, s_row);
   }
-  ds4_finish<R>(st, c, channels, n, t0, tid, th, extra, s_last);
+  Ds4Rule<Store>::template finish<R>(st, c, channels, n, t0, tid, th,
+                                     extra, s_last);
 }
 
 // ds x4 (int8 taps) + atan2 on the words of src, stored by st: [C, n_in / 4]

@@ -3,7 +3,7 @@ so that two checkouts (a commit and its parent) can be compared in turns
 on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
-        [--reps N] [--sections cells,k2,fp,rest]
+        [--reps N] [--sections cells,k2,fp,rest] [--cells presplit,...]
 
 Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
@@ -16,10 +16,13 @@ checkout's kernels and prints one JSON row per case:
   (``interstage_i16=True``), chain, the chunked PLL (C = 256, B =
   1,048,576, ``pll_time_chunks=8``), the two de-emphasis lenses
   (presplit_de and f32w_de: pre-split and f32w with
-  ``use_deemphasis_filter=True, deemphasis_cutoff_us=50``), each beside
-  the device time a block of the front end's and mid end's launches and
-  of all its kernels (``torch.profiler`` over 5 blocks after one,
-  :data:`MID_KEYS`; a name a tree does not launch reads 0), and the
+  ``use_deemphasis_filter=True, deemphasis_cutoff_us=50``), extract's
+  other-order lens presplit_o96 (pre-split at
+  ``order_poly_ds_lpf_audio = order_poly_ds_lpf_rds = 96``), each beside
+  the device time a block of the front end's, mid end's and extract's
+  launches and of all its kernels (``torch.profiler`` over 5 blocks
+  after one, :data:`MID_KEYS`; a name a tree does not launch reads 0),
+  and the
   wideband cell at splits 1, 2 and 3 (``chip_smoke.wideband_path`` on
   bench.py's captures, beside its device busy time and wall a block by
   ``chip_smoke.profile_wideband``: the splits=1 cell's first timed
@@ -63,7 +66,9 @@ checkout's kernels and prints one JSON row per case:
   32,64,128}KiB`` that fits, on a 256 MiB float32 array; the K1 probe's
   tile sums (stream and unpack) on each ingest form at its default shape
   and tiles; k3's stream1, stream, phasor and stream31 at C = 1,024 x
-  B8 = 32,768, t = 1,024;
+  B8 = 32,768, t = 1,024; its value and full (extract's kernel at the
+  probe's 64- and 128-tap filters) at that shape, beside the device time
+  of extract's launches (:data:`EXT_KEYS`) and ``k3_value_kernel``;
 - the K2 probe (``probes/k2_probe.py::variant``): its engine variants
   stream, ds2 and hilb (t_blk 1,024) at C = 1,024 x B4 = 65,536, each
   beside the device time of its launches (:data:`K2_ENGINE`, with the
@@ -76,13 +81,18 @@ checkout's kernels and prints one JSON row per case:
   and Hilbert launches they replaced, which an earlier tree runs).
 
 - the K1 engine probe's int8-window rows at its default shape (C = 1,024
-  x B = 262,144): i8direct and its ``i8x`` variants (``fp_i8d_kernel``,
-  ``full:i8direct`` on K12's ds x4) and i8manual (``fp_i8man_kernel``)
-  at both tiles and modes, each the probe's best of 3 over chained calls.
+  x B = 262,144): i8direct and its ``i8x`` variants (every form on K12's
+  ``ds4_i8_blocked_kernel``; ``full:i8direct`` with K12's theta store
+  and ``fp_disc_kernel``) and i8manual (``fp_i8man_kernel``) at both
+  tiles and modes, each the probe's best of 3 over chained calls.
 
 ``--sections`` picks among "cells" (the cells end to end, the lenses
 among them), "k2" (the K2 probe's rows), "fp" (the K1 probe's int8-window
-rows) and "rest" (everything else); all four by default.
+rows) and "rest" (everything else); all four by default.  ``--cells``
+names the cells of "cells" to time (labels of :data:`CELLS`, and
+"wideband" for the three wideband cells), every one by default: a cell
+whose busy time two runs left unresolved is timed again alone, in more
+turns.
 
 Each time is the mean of ``--reps`` calls after one (CUDA events), beside
 the card's name and power limit.  Exits 1 without a CUDA device.
@@ -117,15 +127,21 @@ CELLS = (
     ("f32w_de", "words", {"assume_integer_input": True,
                           "use_deemphasis_filter": True,
                           "deemphasis_cutoff_us": 50}, 2048, 131072, 8),
+    ("presplit_o96", "i8", {"frontend_int8": True,
+                            "order_poly_ds_lpf_audio": 96,
+                            "order_poly_ds_lpf_rds": 96}, 2048, 131072, 8),
 )
 # the front end's and mid end's launches on every route of every tree
-# timed in turns (csrc/k12_stages.cuh, csrc/frontend.cu), and "*": every
-# CUDA kernel of the window (the device's busy time)
+# timed in turns (csrc/k12_stages.cuh, csrc/frontend.cu), extract's
+# (csrc/extract.cu: EXT_KEYS), and "*": every CUDA kernel of the window
+# (the device's busy time)
+EXT_KEYS = ("extract_kernel", "extract_blocked_kernel",
+            "extract_blocked_any_kernel")
 MID_KEYS = ("ds4_i8_blocked_kernel", "k1_tile_kernel", "k12_disc_kernel",
             "fir_decimate_kernel", "k12_deemph_kernel", "k12_hilbert_kernel",
             "k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
             "k12_mid_fused_kernel", "k12_peak_rec_kernel",
-            "k12_theta_kernel", "*")
+            "k12_theta_kernel") + EXT_KEYS + ("*",)
 
 
 def _ms(fn, reps: int) -> float:
@@ -233,6 +249,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated cell labels (default: all)")
     ap.add_argument("--sections", default="cells,k2,fp,rest",
                     help="comma-separated: cells, k2, fp, rest")
     a = ap.parse_args(argv)
@@ -261,7 +279,7 @@ def main(argv=None) -> int:
         print(json.dumps(r), flush=True)
 
     if "cells" in sections:
-        cell_rows(row, dev)
+        cell_rows(row, dev, a.cells.split(",") if a.cells else None)
     if "rest" in sections:
         rest_rows(row, a.reps, dev)
     if "k2" in sections:
@@ -280,9 +298,9 @@ def fp_rows(row, reps: int, dev) -> None:
         row(r["kernel"], f"probe {r['variant']}", r["ms"])
 
 
-def cell_rows(row, dev) -> None:
-    """Every cell end to end, and its front and mid end's launches'
-    device times (module docstring)."""
+def cell_rows(row, dev, cells=None) -> None:
+    """Every cell end to end (those named in ``cells``, else all), and its
+    front and mid end's launches' device times (module docstring)."""
     import chip_smoke
     import torch
     from fm_radio_tpu_torch.config import DemodConfig
@@ -290,6 +308,8 @@ def cell_rows(row, dev) -> None:
         demod_block, demod_init_state, make_coeffs)
 
     for cell, kind, kw, c, b, blocks in CELLS:
+        if cells is not None and cell not in cells:
+            continue
         cfg = DemodConfig(**kw)
         co = make_coeffs(cfg, dev)
         st = demod_init_state(cfg, c, dev)
@@ -313,7 +333,7 @@ def cell_rows(row, dev) -> None:
             device_ms_a_block=_device_ms_by(one, 5, MID_KEYS))
         del x, st
         torch.cuda.empty_cache()
-    for sp in (1, 2, 3):
+    for sp in (1, 2, 3) if cells is None or "wideband" in cells else ():
         wb = chip_smoke.wideband_path(64, 32, 131072, 8, splits=sp,
                                       time_kernels=False, device=dev)
         prof = chip_smoke.profile_wideband(sp, device=dev)
@@ -526,7 +546,18 @@ def rest_rows(row, reps: int, dev) -> None:
             f"probe {mode}:t=1024",
             _ms(lambda: k3.tile_sum(mode, planes, 1024, k3.C_BLK, out=outs),
                 a.reps))
-    del xs, x3
+    # the K3 probe's value and full (extract's kernel at the probe's 64-
+    # and 128-tap filters) at its default shape, with extract's launches'
+    # device time
+    xs = k3.make_inputs(1024, 32768, dev)
+    co3 = k3.coeffs(dev)
+    for mode, fn in (("value", lambda: k3.value(xs, co3)),
+                     ("full", lambda: k3.full(xs, co3))):
+        row("k3_value" if mode == "value" else "k3_full",
+            f"probe {mode} C=1024 B8=32768", _ms(fn, a.reps),
+            launches_ms=_device_ms_by(fn, a.reps,
+                                      EXT_KEYS + ("k3_value_kernel",)))
+    del xs
     k2_rows(row, a.reps, dev)
     return 0
 

@@ -42,9 +42,11 @@ alternative designs:
             kept as planes; ``tiles`` sweeps its tile with one buffer,
             ``dbuf`` one buffer against two against ``direct`` (the
             one-launch ``full`` above)
-  i8direct  int8 planes and taps, windows read from device memory with
-            the tail carried; ``noasm``: each tile's first ``no`` outputs
-            read the tile from its start (mis-filtered, as the TPU lens)
+  i8direct  int8 planes and taps on K12's staged ds x4 tile (a CTA a
+            channel's 1,024 outputs, 8 a thread from a sliding ``__dp4a``
+            window), the tail carried; ``noasm``: each tile's first ``no``
+            outputs read the tile from its start (mis-filtered, as the TPU
+            lens), their windows started 32 words later (``i8d_shift``)
   i8manual  one CTA per channel block, the time loop inside, tiles in by
             cp.async.bulk into a 2-slot ring and out by bulk stores
 
@@ -468,18 +470,52 @@ def dbuf(xw: torch.Tensor, full: bool, c_blk: int, t_blk: int, nbuf: int,
     return out
 
 
+# K12's ds x4 tile, on which every i8direct form runs (csrc/k12_stages.cuh::
+# ds4_i8_blocked_kernel): outputs a CTA's segment, outputs a thread's run
+DS4_TILE, DS4_RUN = 1024, 8
+
+
+def i8d_shift(j: int, t_blk: int, no: int, noasm: bool) -> int:
+    """Words by which output j's window starts past K12's (which ends at
+    word j): halo_w for the outputs j < no of each tile under ``noasm``
+    (csrc/frontend_probe.cu, ``Ds4Rule<FpI8dStore>::shift``)."""
+    return (NN - M) // M if noasm and j % (t_blk // M) < no else 0
+
+
+def i8d_check(b: int, t_blk: int, no: int, noasm: bool) -> None:
+    """Raise ValueError where fmt_fp_i8d would refuse the tile or ``no``
+    (on every device, before any launch): t_blk a multiple of 16 dividing
+    B with room for ``no`` outputs; under ``noasm`` a tile inside one
+    CTA's segment of 4 DS4_TILE samples holding whole runs, and every
+    window inside its tile (``no`` a multiple of DS4_RUN in [halo_w,
+    t_blk / 4 - halo_w])."""
+    halo_w, tw = (NN - M) // M, t_blk // M
+    if t_blk <= 0 or b % t_blk or t_blk % 16 or M * no > t_blk:
+        raise ValueError(f"i8direct: t_blk = {t_blk} does not tile B = {b} "
+                         f"in multiples of 16 with room for no = {no}")
+    if noasm and (t_blk % (M * DS4_RUN) or (M * DS4_TILE) % t_blk):
+        raise ValueError(f"i8direct: a noasm tile of {t_blk} samples must "
+                         f"hold whole runs of {DS4_RUN} outputs inside one "
+                         f"CTA's {M * DS4_TILE}")
+    if noasm and (no % DS4_RUN or not halo_w <= no <= tw - halo_w):
+        raise ValueError(f"i8direct: no = {no} is not a multiple of "
+                         f"{DS4_RUN} in [{halo_w}, {tw - halo_w}]")
+
+
 def i8direct(x8: torch.Tensor, full: bool, t_blk: int, no: int = 128,
              noasm: bool = False, tb: dict | None = None) -> torch.Tensor:
-    """build_i8direct on int8 planes [2, C, B]: [C, B/4].  CPU tensors run
-    :func:`i8d_plain`."""
+    """build_i8direct on int8 planes [2, C, B]: [C, B/4], refused as
+    :func:`i8d_check` says.  CPU tensors run :func:`i8d_plain`; CUDA
+    tensors K12's staged ds x4 tile (``ds4_i8_blocked_kernel``)."""
     _check("i8direct", x8, "u8")
     tb = tb or tables(x8.device)
+    i8d_check(x8.shape[-1], t_blk, no, noasm)
     if _build.on_cpu("i8direct", x8.device):
         return i8d_plain(x8, full, t_blk, no, noasm, tb)
     global launches_i8d
     c, b = x8.shape[1:]
     out = torch.empty((c, b // M), device=x8.device)
-    theta = torch.empty_like(out) if full else out
+    theta = torch.empty_like(out) if full and not noasm else out
     tail = torch.zeros((2, c, NN - M), dtype=torch.int8, device=x8.device)
     fn = _build.function("frontend_probe", "fmt_fp_i8d",
                          [_P, _P, _P, _P, _I, _F] + [_I] * 6 + [_P, _P, _P])
@@ -712,8 +748,9 @@ def run(c: int, b: int, sections: set, iters: int, device,
                      lambda t=t, noasm=noasm, full=full: i8d_plain(
                          x8, full, t, noasm=noasm, tb=tb), "fp_i8d"),
                nb("u8"))
-        # the TPU's semP / semPP rows: one thread per output here, so no
-        # grid order to change; the rasterised form is build's (sem)
+        # the TPU's semP / semPP rows: one CTA a channel's segment here,
+        # no channel tile whose grid order could change; the rasterised
+        # form is build's (sem)
     if "man" in sections:
         for mode in ("dots", "full"):
             full = mode == "full"

@@ -1,9 +1,10 @@
 """Engine decomposition of the extract kernel (K3) on the card, and the
 design without its shared-memory tile.
 
-Counterpart of ``tools/k3_probe.py``: ``extract_kernel`` (2.95 ms in the
-cells, PERF.md; 4- and 8-way shared-memory bank conflicts the suspect)
-split by variants on the same three planes re, im, dt [C, B8]:
+Counterpart of ``tools/k3_probe.py``: the extract kernel (its first
+design, one output a thread, took 2.95 ms in the cells, PERF.md; 4- and
+8-way shared-memory bank conflicts the suspect) split by variants on the
+same three planes re, im, dt [C, B8]:
 
   stream1   read re: the per-tile sums of one plane
   stream    read re, im and dt (the read alone; also
@@ -13,7 +14,8 @@ split by variants on the same three planes re, im, dt [C, B8]:
   phasor    + the harmonic phasors and the four mixes, summed per tile
   full      the production extract kernel (``csrc/extract.cu``) on the
             probe's taps (create_fir_lpf(64, 0.1) for L+R and L-R,
-            (128, 0.05) for RDS), harmonics 2 and 3, offset 0
+            (128, 0.05) for RDS), harmonics 2 and 3, offset 0: at these
+            orders ``extract_blocked_any_kernel``
   value     extract without the staged tile (``csrc/k3_probe.cu``): each
             thread register-blocks 16 audio outputs and mixes its own
             window samples as it slides (ROADMAP performance item 1)

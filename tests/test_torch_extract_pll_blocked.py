@@ -3,7 +3,8 @@
 The kernels run only on the card (``chip_smoke.py`` and
 ``tests/test_torch_gpu.py`` hold them against their plain versions, max
 abs error 0).  Here: the route ``fmt_extract`` takes (``kernels/
-extract.py::extract_route`` is its host copy), the step counts the PLL
+extract.py::extract_route`` is its host copy: the blocked kernels at every
+order the halos admit), the step counts the PLL
 wrapper refuses, the sum order both kernels must reproduce
 (``ops/fir.py``'s against a numpy float32 loop), and a numpy model of
 the blocked FIR's
@@ -53,16 +54,19 @@ def test_receiver_filters_take_the_blocked_route(cfg):
 
 
 # (L+R / L-R taps, RDS taps): orders the 128-sample halos still take
-# (nn_a - 4 <= 128, nn_r - 8 <= 128) other than the blocked kernel's
+# (nn_a - 4 <= 128, nn_r - 8 <= 128) other than the receiver's
 OTHER_ORDERS = [(64, 128), (128, 96), (64, 64), (124, 128), (128, 120),
                 (132, 136), (8, 16)]
 
 
 @pytest.mark.parametrize("orders", OTHER_ORDERS,
                          ids=[f"{a}_{r}" for a, r in OTHER_ORDERS])
-def test_other_orders_take_the_tiled_route(orders):
+def test_other_orders_take_the_blocked_route(orders):
+    """Every order within the halos takes the blocked route: the one
+    route there is (extract_blocked_any_kernel away from the receiver's
+    orders)."""
     co = _co_orders(*orders)
-    assert text.extract_route(co) == "tiled"
+    assert text.extract_route(co) == "blocked"
 
 
 @pytest.mark.parametrize("n", [8, 24, 100, 16383])

@@ -302,16 +302,17 @@ def test_pll_extract_edges_on_card():
     (max abs error 0) at their edge shapes: the PLL at C = 40 and 5 and N
     = 16, 32, 48 and 16,384 on float32 and int16 theta; extract at C = 40
     and N = 1,024 and 2,048 on its three forms, on the receiver's filters
-    (the blocked kernel) and on other orders (the tiled kernel), two
-    blocks with carried state each; the C entry's extract route equals
-    its host copy."""
+    (extract_blocked_kernel) and at the other orders of
+    EXTRACT_EDGE_ORDERS (extract_blocked_any_kernel), two blocks with
+    carried state each; the C entry's extract route equals its host
+    copy."""
     _need_card()
     import chip_smoke
 
     rows = chip_smoke.compare_pll_edges()
     res = chip_smoke.compare_extract_edges()
     rows += res["rows"]
-    assert len(rows) == 16 + 12, rows
+    assert len(rows) == 16 + 6 * len(chip_smoke.EXTRACT_EDGE_ORDERS), rows
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
     assert not res["route_mismatch"] and not chip_smoke.DUMPS, res
 
@@ -328,6 +329,53 @@ def test_pll_extract_edges_on_checked_build():
         rows = chip_smoke.compare_pll_edges(steps=(16, 32, 48))
         rows += chip_smoke.compare_extract_edges()["rows"]
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_extract_orders_on_card(checked):
+    """Extract at every order of EXTRACT_EDGE_ORDERS (the receiver's on
+    extract_blocked_kernel, the others on extract_blocked_any_kernel, each
+    call's kernel read on the counters) equals its plain version, max abs
+    error 0, on its three forms at N = 1,024 and 2,048; and the C entry's
+    route equals its host copy there and at the halos' limits."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    if checked:
+        with _build.checked_build():
+            res = chip_smoke.compare_extract_edges()
+    else:
+        res = chip_smoke.compare_extract_edges()
+    rows = res["rows"]
+    assert {tuple(r["orders"]) for r in rows} == set(
+        chip_smoke.EXTRACT_EDGE_ORDERS)
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert not res["route_mismatch"], res["route_mismatch"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_i8d_edges_on_card(checked):
+    """The K1 probe's int8-direct forms on K12's staged tile
+    (chip_smoke.compare_i8d_edges): dots and full, K12's windows and
+    noasm at every no of i8d_edge_nos, t_blk 512-4,096, C = 5 and 40, B =
+    16,384 and 14,336, on poisoned memory, bit for bit; the tiles and no
+    the entry refuses, refused before any launch."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    if checked:
+        with _build.checked_build():
+            rows = chip_smoke.compare_i8d_edges(seed=13)
+    else:
+        rows = chip_smoke.compare_i8d_edges()
+    assert len(rows) > 5 and all(r["ok"] for r in rows), [
+        r for r in rows if not r["ok"]]
 
 
 @pytest.mark.gpu
