@@ -38,7 +38,7 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    floor (:func:`i8_floor`); the K2 probe's ds2 and hilb with their
    FMUL+FADD issue floors (:func:`engine_floor`), hilb's Hilbert launch
    also alone (``k2_probe.hilb_launch``);
-2d. six probe kernels and the mid end's de-emphasis route's two tiled
+2d. six probe kernels and the mid end's split route's two tiled
    kernels in turns with the one PyTorch call of the same function
    (probes/vs_library.py, 25 rounds of 10 calls: the staged copy against
    ``Tensor.copy_``, the K1 probe's and k3's tile sums against
@@ -67,9 +67,9 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    kernel's float and integer wgmma, mma.sync and bulk-copy instructions
    (``cuobjdump -sass``); K12 flat, phase-split and K2 (in its four
    formats: float32 or int16 fm_demod, float32 or int16 outputs, each a
-   counted launch of its route) on the mid end's fused route at C=40 and
-   its de-emphasis route at C = 1 and 40 (there also its ds x2 and
-   Hilbert kernels alone), B = 512, 8,192 and 8,320, memory NaN-filled
+   counted launch of its route) on the mid end's split route with
+   de-emphasis off at C=40 and on at C = 1 and 40 (there also its ds x2
+   and Hilbert kernels alone), B = 512, 8,192 and 8,320, memory NaN-filled
    first, max abs error 0, on the default and the bounds-checked build,
    and the mid end's route on the card against its host copy
    (:func:`compare_mid_edges`); the sequential PLL at C = 40
@@ -162,10 +162,11 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    zeros of its input's shape, beside its input's statistics
    (:func:`bpsk_alone`); the ds x4 stage's issue floors at the recorded
    shape (:func:`ds4_floors`; its time is the profile's); the
-   cell profiled (its profile must show the blocked ds x4, the fused mid
-   end's three kernels, the PLL's, the blocked extract's and BPSK's; so
-   must bench.py's wideband lens at splits=1, with the phase-split ds x4's
-   and the matrix channelizer's);
+   cell profiled (its profile must show the blocked ds x4, the split mid
+   end's four kernels and neither the fused kernel it replaced nor the
+   de-emphasis, the PLL's, the blocked extract's and BPSK's; so must
+   bench.py's wideband lens at splits=1, with the phase-split ds x4's and
+   the matrix channelizer's, and the mid end's at every splits);
 4b. the three split cells at C=2048 x B=131,072 (bench.py's signal):
    f32w (packed words, ``DemodConfig(assume_integer_input=True)``),
    complex (complex64, ``DemodConfig()``) and k12off (int8 planes,
@@ -175,7 +176,7 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    recorded shape; the complex cell's K1 given the block itself (its
    complex64 storage, which the kernel reads in place); each profiled: K1
    one launch (f32w and complex ``k1_tile_kernel``, k12off the blocked
-   ds x4) and no ``k12_disc_kernel`` (the complex cell's
+   ds x4), no ``k12_disc_kernel``, the split mid end (the complex cell's
    ``CatArrayBatchedCopy`` time beside f32w's is logged);
 4c. the chain cell (C=2048 x B=131,072 packed words,
    ``DemodConfig(assume_integer_input=True, chain_fusion="auto")``: one
@@ -191,13 +192,14 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    ``interstage_i16=True``: the int8-direct K1 -> K2 -> PLL -> extract in
    the int16 format) with counted launches, each int16 kernel alone
    beside its plain version and its float32 twin, profiled (its profile
-   must show the fused mid end's three kernels and none of the launches
-   route's ds x2 and Hilbert, the de-emphasis route's kernels, nor the
-   removed serial peak IIR and quantising pass);
+   must show the split mid end's four kernels and none of the launches
+   route's ds x2 and Hilbert, the de-emphasis, the fused kernel the split
+   route replaced, nor the removed serial peak IIR and quantising pass);
 4e. the two de-emphasis lenses (``demod --deemphasis-us 50``: pre-split
    and f32w with ``use_deemphasis_filter=True, deemphasis_cutoff_us=50``,
    C=2048 x B=131,072, bench.py's signal): one warm-up block, 8 counted
-   blocks (every mid end launch on the de-emphasis route), K12 or K2
+   blocks (every mid end launch on the split route, with its
+   de-emphasis), K12 or K2
    timed alone beside its plain version on the last block's arguments,
    and the route's ds x2, de-emphasis and Hilbert kernels alone beside
    theirs, with their bounds and floors (computed: the FIRs' FMUL+FADD
@@ -398,9 +400,10 @@ PROBE_SMALL = {"fp": (1024, 16384), "k2": (64, 8192), "k3": (128, 8192)}
 PROBE_FULL = {"fp": (1024, 262144), "k2": (1024, 65536), "k3": (1024, 32768),
               "chain": (256, 1 << 20, 8), "unfused": (256, 16384, 1)}
 PROBE_ITERS = 5
-# the mid end's de-emphasis route's three kernels (kernel-line name, CUDA
-# kernel, source, the TPU kernels whose de-emphasis form they run: K12's
-# and K2's, use_deemph at k12_pallas.py:69 and midend_pallas.py:147-161)
+# the mid end's split route's three kernels (kernel-line name, CUDA
+# kernel, source, the TPU kernels whose parts they run: K12's and K2's,
+# the de-emphasis's use_deemph at k12_pallas.py:69 and
+# midend_pallas.py:147-161)
 DEEMPH_NEW_KERNELS = (
     ("mid_ds2", "k12_mid_ds2_kernel", "fm_radio_tpu_torch/csrc/k12_stages.cuh",
      "fm_radio_tpu/kernels/k12_pallas.py:59, "
@@ -430,7 +433,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # rounding; the power sums differ only in summation order.  K1 (every load
 # form, both taps and stores; its float taps summed in ds4_float's order),
 # K12 (flat and phase-split) and K2 admit no slack on either route of their mid end: the
-# fused route sums every FIR output in the plain version's tap order; nor
+# split route sums every FIR output in the plain version's tap order; nor
 # do the PLL (sequential and chunked: the chunked lanes' masks change no
 # value), extract (at every order, on both of its kernels) and BPSK (its branch
 # changes no value: it skips only what no lane uses).  The channelizer
@@ -553,11 +556,9 @@ COUNTERS = (
     ("frontend_i16", "frontend", "launches_i16"),
     ("frontend_i8_i16", "frontend", "launches_i8_i16"),
     ("midend_i16", "midend", "launches_i16"),
-    # the mid end's fused route and its de-emphasis route, launched by K12
-    # or K2 (each counts too), and the de-emphasis route's three kernels
-    # alone (their comparisons and timings)
-    ("midend_fused", "midend", "launches_fused"),
-    ("midend_deemph", "midend", "launches_deemph"),
+    # the mid end's split route, launched by K12 or K2 (each counts too),
+    # and its three kernels alone (their comparisons and timings)
+    ("midend_split", "midend", "launches_split"),
     ("mid_ds2", "midend", "launches_ds2"),
     ("deemph", "midend", "launches_de"),
     ("mid_hilb", "midend", "launches_hilb"),
@@ -1387,7 +1388,7 @@ def i16_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     launches = read_counts()
     ms = start.elapsed_time(end)
     check_counts(launches, {"frontend_i8_i16": blocks, "midend_i16": blocks,
-                            "midend_fused": blocks, "pll_i16": blocks,
+                            "midend_split": blocks, "pll_i16": blocks,
                             "extract_i16": blocks, "extract_blocked": blocks,
                             "bpsk": blocks},
                  "i16 cell")
@@ -1548,7 +1549,8 @@ PROBE_REP = {"fp_sum": "stream:no=128:f32", "fp_fir": "full:no=128:f32",
              "k2_stream": "stream", "k2_ds2": "ds2", "k2_hilb": "hilb",
              "k2_full": "full",
              "k2_restruct": "restruct:128", "k3_stream31": "stream31:t=1024",
-             "k3_sum": "stream:t=1024", "k3_value": "value:run=16 (no tile)",
+             "k3_sum": "stream:t=1024",
+             "k3_value": "value:run={run} (no tile)",
              "k3_full": "full:t=1024"}
 
 
@@ -1725,7 +1727,7 @@ def probe_phase(device) -> dict:
     inputs = probe_inputs(device)
     for name, _, _ in ENGINE_KERNELS:
         w = _probe_work(name, inputs, device)
-        variant = PROBE_REP[name]
+        variant = PROBE_REP[name].format(run=k3.VALUE_RUN)
         rep = by_tag[(name.split("_")[0], variant)]
         if rep["kernel"] != name:
             raise RuntimeError(f"{name}: representative row {variant} ran "
@@ -1800,7 +1802,7 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     k1 = "frontend_i8" if label == "k12off" else "frontend"
     check_counts(launches, {k1: blocks, "midend": blocks, "pll": blocks,
                             "extract": blocks, "bpsk": blocks,
-                            "midend_fused": blocks,
+                            "midend_split": blocks,
                             "extract_blocked": blocks},
                  f"split cell {label}")
     audio = outs["audio"]
@@ -1905,9 +1907,10 @@ DEEMPH_LENSES = (
     ("f32w_de", "words", {"assume_integer_input": True, **DEEMPH}),
 )
 DEEMPH_MID = {"presplit_de": "k12", "f32w_de": "midend"}
-# the de-emphasis route's kernels (csrc/k12_stages.cuh), which each lens's
-# profile must show, and the launches it must not: the launches route's
-# ds x2 and Hilbert, and (pre-split) K12's discriminator launch
+# the split route's kernels with the de-emphasis (csrc/k12_stages.cuh),
+# which each lens's profile must show, and the launches it must not: the
+# launches route's ds x2 and Hilbert, and (pre-split) K12's discriminator
+# launch
 DEEMPH_KERNELS = ("k12_mid_ds2_kernel", "k12_deemph_kernel",
                   "k12_mid_hilb_kernel")
 DEEMPH_GONE = {"presplit_de": ("fir_decimate_kernel", "k12_hilbert_kernel",
@@ -1916,7 +1919,7 @@ DEEMPH_GONE = {"presplit_de": ("fir_decimate_kernel", "k12_hilbert_kernel",
 
 
 def mid_floor(name: str, args) -> dict:
-    """The floor of the de-emphasis route's kernel ``name`` on its
+    """The floor of the split route's kernel ``name`` on its
     arguments, ms (computed, not measured): for "mid_ds2" and "mid_hilb"
     the FMUL+FADD issue floor, an FMUL and an FADD a tap an output
     (-fmad=false), at 128 a clock an SM, at this card's SM count and
@@ -1934,7 +1937,7 @@ def mid_floor(name: str, args) -> dict:
 
 
 def deemph_args(label: str, calls: dict) -> dict:
-    """The de-emphasis route's three kernels' arguments on a lens's
+    """The split route's three kernels' arguments on a de-emphasis lens's
     recorded block (``calls``: K12's or K2's): ds x2 on theta1 (K12, made
     by the plain ds x4 from the block) or on fm_demod (K2) with the carried
     ds x2 tail; the de-emphasis on that block's fm_out (the plain ds x2,
@@ -1964,9 +1967,10 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
                 block: int = 131072, blocks: int = 8, device="cuda") -> dict:
     """One de-emphasis lens (:data:`DEEMPH_LENSES`) as the split cells run:
     one warm-up block, ``blocks`` counted blocks (every launch of the mid
-    end on the de-emphasis route), then the mid end's wrapper (K12 or K2)
-    timed alone beside its plain version on the last block's arguments
-    and compared, and the route's two kernels alone beside theirs
+    end on the split route, with its de-emphasis), then the mid end's
+    wrapper (K12 or K2) timed alone beside its plain version on the last
+    block's arguments and compared, and the route's two kernels alone
+    beside theirs
     (:func:`deemph_args`), with their bounds and issue floors
     (:func:`mid_floor`)."""
     from fm_radio_tpu_torch.config import DemodConfig
@@ -1994,7 +1998,7 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     mid = DEEMPH_MID[label]
     front = {"k12": blocks} if mid == "k12" else {"frontend": blocks,
                                                   "midend": blocks}
-    check_counts(launches, {**front, "midend_deemph": blocks, "pll": blocks,
+    check_counts(launches, {**front, "midend_split": blocks, "pll": blocks,
                             "extract": blocks, "extract_blocked": blocks,
                             "bpsk": blocks}, f"lens {label}")
     if tuple(outs["audio"].shape) != (channels, block // 32, 2):
@@ -2070,7 +2074,7 @@ def order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     launches = read_counts()
     ms = start.elapsed_time(end)
     check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
-                            "bpsk": blocks, "midend_fused": blocks,
+                            "bpsk": blocks, "midend_split": blocks,
                             "extract_blocked": blocks, "extract_any": blocks},
                  f"lens {label}")
     if tuple(outs["audio"].shape) != (channels, block // 32, 2):
@@ -2128,16 +2132,20 @@ def floors_ms(f: dict) -> dict:
 
 def profile_wideband(splits: int, n_captures: int = 64, m: int = 32,
                      block: int = 131072, blocks: int = 3,
-                     amp: float = BENCH_AMP, device="cuda") -> dict:
-    """:func:`_profile` of the wideband cell (the int8 bridge) with the
-    channelizer in mode ``splits``, on captures of amplitude ``amp``."""
+                     amp: float = BENCH_AMP, bridge: str = "i8",
+                     device="cuda") -> dict:
+    """:func:`_profile` of the wideband cell with the channelizer in mode
+    ``splits``, on captures of amplitude ``amp``, through the int8 bridge
+    (``INT8_CONFIG``) or, with ``bridge="f32"``, the float32 one
+    (``DemodConfig()``: K1 then K2), as :func:`wideband_path` runs it."""
+    from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.kernels.channelizer import make_tables
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG, make_coeffs
     from fm_radio_tpu_torch.models.wideband import (
         wideband_demod_block, wideband_init_state)
     from fm_radio_tpu_torch.parallel.channelizer import make_channelizer_taps
 
-    cfg = INT8_CONFIG
+    cfg = INT8_CONFIG if bridge == "i8" else DemodConfig()
     co = make_coeffs(cfg, device)
     tab = make_tables(make_channelizer_taps(m, 16), m, device)
     state = [wideband_init_state(cfg, m, n_captures, 16, device)]
@@ -2146,23 +2154,26 @@ def profile_wideband(splits: int, n_captures: int = 64, m: int = 32,
 
     def step():
         state[0], _ = wideband_demod_block(cfg, co, tab, state[0], x, m,
-                                           splits=splits)
+                                           bridge=bridge, splits=splits)
 
-    return _profile(f"wideband_m{m}_splits{splits}", step, blocks, device)
+    label = f"wideband_m{m}_splits{splits}" + ("_f32" if bridge == "f32"
+                                                else "")
+    return _profile(label, step, blocks, device)
 
 
 # the pre-split cell (bench.py's default), profiled as the split cells
 PRESPLIT_CELL = ("presplit", "i8", {"frontend_int8": True})
-# the fused mid end's kernels (csrc/k12_stages.cuh), which K12 launches on
-# the pre-split cell
-FUSED_KERNELS = ("k12_mid_fused_kernel", "k12_peak_rec_kernel",
-                 "k12_theta_kernel")
-# the launches route's ds x2 and Hilbert, the peak IIR and quantising
-# pass the int16 forms took before they moved onto the fused route, and
-# the de-emphasis route's kernels: none runs at the i16 cell
-MID_LAUNCHES = ("fir_decimate_kernel", "k12_hilbert_kernel",
-                "k12_peak_kernel", "q_i16_kernel", "k12_mid_ds2_kernel",
-                "k12_deemph_kernel", "k12_mid_hilb_kernel")
+# the mid end's split route without the de-emphasis (csrc/k12_stages.cuh),
+# which K12 launches on the pre-split cell: what every cell's profile but
+# chain's and the de-emphasis lenses' must show
+SPLIT_MID = ("k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
+             "k12_peak_rec_kernel", "k12_theta_kernel")
+# what none of those profiles may show: the fused kernel the split route
+# replaced, the launches route's ds x2 and Hilbert, the peak IIR and
+# quantising pass the int16 forms once took, and the de-emphasis
+SPLIT_MID_GONE = ("k12_mid_fused_kernel", "fir_decimate_kernel",
+              "k12_hilbert_kernel", "k12_peak_kernel", "q_i16_kernel",
+              "k12_deemph_kernel")
 # the chunked-PLL cell (``python bench.py 256 8``), profiled as the split
 # cells at C = 256 x B = 1,048,576, and its kernel
 PLL_CHUNKED_CELL = ("pll_chunked", "i8", {"frontend_int8": True,
@@ -2420,7 +2431,7 @@ def chunked_pll_path(channels: int = 256, block: int = 1048576,
         ms = start.elapsed_time(end)
         pll = "pll_chunked" if g > 1 else "pll"
         check_counts(launches, {"k12": blocks, pll: blocks, "extract": blocks,
-                                "bpsk": blocks, "midend_fused": blocks,
+                                "bpsk": blocks, "midend_split": blocks,
                                 "extract_blocked": blocks},
                      f"PLL cell G={g}")
         for k in ("audio", "rds_pred"):
@@ -2934,7 +2945,7 @@ def wideband_path(n_captures: int = 64, m: int = 32, block: int = 131072,
     ps = m == 32 and bridge == "i8"
     chan = CHANNELIZER_BY_SPLITS[calls["channelizer"][5]]
     want = {chan: blocks, "pll": blocks, "extract": blocks, "bpsk": blocks,
-            "midend_fused": blocks, "extract_blocked": blocks}
+            "midend_split": blocks, "extract_blocked": blocks}
     if bridge == "f32":
         want.update(frontend=blocks, midend=blocks)
     else:
@@ -3067,21 +3078,20 @@ MID_EDGE_FORMS = (("midend", "midend", False, False),
                   ("midend_in_i16", "midend_i16", True, False),
                   ("midend_out_i16", "midend_i16", False, True),
                   ("midend_i16_both", "midend_i16", True, True))
-# the mid end's tiled routes at their edges: the DemodConfig changes that
-# take each, and its channel counts (40: not a multiple of the peak IIR's
-# 8 channels a block); the blocks: the smallest whose carried tails the
-# routes hold (one partial tile), one whole tile of 1,024 outputs, a whole
-# and a partial one
-MID_EDGE_ROUTES = {"fused": ({}, (40,)),
-                   "deemph": ({"use_deemphasis_filter": True,
-                               "deemphasis_cutoff_us": 50}, (1, 40))}
+# the mid end's split route at its edges, with de-emphasis off (the
+# receiver's default) and on: the DemodConfig changes that take each, and
+# its channel counts (40: not a multiple of the peak IIR's 8 channels a
+# block); the blocks: the smallest whose carried tails the route holds
+# (one partial tile), one whole tile of 1,024 outputs, a whole and a
+# partial one
+MID_EDGE_ROUTES = {"split": ({}, (40,)),
+                   "split_deemph": ({"use_deemphasis_filter": True,
+                                     "deemphasis_cutoff_us": 50}, (1, 40))}
 MID_EDGE_BLOCKS = (512, 8192, 8320)
-# the route counter each route's launches count in
-ROUTE_COUNTER = {"fused": "launches_fused", "deemph": "launches_deemph"}
 
 
 def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
-    """The de-emphasis route's two kernels alone against their plain
+    """The split route's two tiled kernels alone against their plain
     versions on a block's arguments (the carried tails of ``st``; fm_demod
     ``fmd``, float32 and int16, and theta1 drawn uniform with its previous
     phase), into outputs filled with NaN (int16: -32768, which q_i16 never
@@ -3091,7 +3101,7 @@ def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
     from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
 
     c, n4 = fmd.shape
-    nn2, nh = km.FUSED_TAPS
+    nn2, nh = km.TILED_TAPS
     w2 = st["w2_rev"]
     theta = (torch.rand((c, n4), generator=g, device=device) * 2 - 1) * math.pi
     prev = (torch.rand((c,), generator=g, device=device) * 2 - 1) * math.pi
@@ -3125,21 +3135,20 @@ def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
 
 def compare_mid_edges(device="cuda",
                       routes=tuple(MID_EDGE_ROUTES)) -> dict:
-    """K12 (flat and phase-split) and K2 on the mid end's tiled routes
-    (:data:`MID_EDGE_ROUTES`: the fused route, and the de-emphasis route
-    with the de-emphasis on) against the plain versions at edge shapes,
-    two blocks with carried state, bench planes (K2 on fm_demod drawn as
-    N(0, 0.3^2), float32 or int16 at FM_SCALE), the allocator's free
-    memory filled with NaN before each block: at each route's channel
-    counts and B in :data:`MID_EDGE_BLOCKS`; K2 in its four formats
-    (:data:`MID_EDGE_FORMS`), every K12 and K2 call counted as a launch of
-    its route; on the de-emphasis route also its two kernels alone
-    (:func:`_mid_alone`); and the host's route (kernels/midend.py::
-    midend_route) against the C entry's (fmt_midend_route) over
-    de-emphasis, filter orders and block lengths.  Returns {"rows":
-    verdict rows (each with its "route" and "form"), "route_mismatch":
-    [...], "off_route": the calls that did not count as a launch of their
-    route}."""
+    """K12 (flat and phase-split) and K2 on the mid end's split route
+    (:data:`MID_EDGE_ROUTES`: with de-emphasis off, and on) against the
+    plain versions at edge shapes, two blocks with carried state, bench
+    planes (K2 on fm_demod drawn as N(0, 0.3^2), float32 or int16 at
+    FM_SCALE), the allocator's free memory filled with NaN before each
+    block: at each case's channel counts and B in :data:`MID_EDGE_BLOCKS`;
+    K2 in its four formats (:data:`MID_EDGE_FORMS`), every K12 and K2 call
+    counted as a launch of the route; with the de-emphasis on also its
+    two tiled kernels alone (:func:`_mid_alone`); and the host's route
+    (kernels/midend.py::midend_route) against the C entry's
+    (fmt_midend_route) over de-emphasis, filter orders and block lengths.
+    Returns {"rows": verdict rows (each with its "route" case and "form"),
+    "route_mismatch": [...], "off_route": the calls that did not count as
+    a launch of the route}."""
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import k12 as kk
     from fm_radio_tpu_torch.kernels import midend as km
@@ -3147,6 +3156,9 @@ def compare_mid_edges(device="cuda",
     from fm_radio_tpu_torch.models.demod import (
         INT8_CONFIG, demod_init_state, make_coeffs)
 
+    device = torch.device(device)
+    if device.index is None:  # the wrappers check tensors against it
+        device = torch.device("cuda", torch.cuda.current_device())
     acc, off_route, rows = {}, [], []
     g = torch.Generator(device=device).manual_seed(7)
     cases = [("k12", "k12", kk.k12, kk.k12_plain, False),
@@ -3158,11 +3170,10 @@ def compare_mid_edges(device="cuda",
         cfg = dataclasses.replace(INT8_CONFIG, **kw)
         co = make_coeffs(cfg, device)
         acc = {}
-        counter = ROUTE_COUNTER[route]
         for c in chans:
             for b in MID_EDGE_BLOCKS:
-                if km.midend_route(co, cfg, b // 4) != route:
-                    raise RuntimeError(f"B = {b} does not take the {route} "
+                if km.midend_route(co, b // 4) != "split":
+                    raise RuntimeError(f"B = {b} does not take the split "
                                        f"route")
                 st = {label: demod_init_state(cfg, c, device)
                       for label, *_ in cases}
@@ -3183,9 +3194,9 @@ def compare_mid_edges(device="cuda",
                             in16, out16 = fmt
                             arg = q_i16(fmd, FM_SCALE) if in16 else fmd
                             args = (co, cfg, st[label], arg, out16)
-                        before = getattr(km, counter)
+                        before = km.launches_split
                         kout = fn(*args)
-                        if getattr(km, counter) != before + 1:
+                        if km.launches_split != before + 1:
                             off_route.append((route, label, c, b))
                         pout = plain(*args)
                         e = stage_errors(I16_BASE.get(name, name), kout,
@@ -3193,7 +3204,7 @@ def compare_mid_edges(device="cuda",
                         dump_mismatch(name, args, kout, pout, e)
                         _merge(acc, label, e)
                         st[label] = kout[0]
-                    if route == "deemph":
+                    if cfg.use_deemphasis_filter:
                         _mid_alone(acc, km.mid_args(
                             "edges", co, cfg, st["midend"], c, device),
                             fmd, g, device)
@@ -3205,7 +3216,7 @@ def compare_mid_edges(device="cuda",
                       route=route, channels=list(chans))
                  for key, e in acc.items() if key.startswith("mid_")]
     fn = _build.function("midend", "fmt_midend_route", km.ROUTE_ARGTYPES)
-    code = {"launches": 0, "fused": 1, "deemph": 2}
+    code = {"launches": 0, "split": 1}
     bad = []
     for de in (False, True):
         cf = dataclasses.replace(INT8_CONFIG, use_deemphasis_filter=de,
@@ -3215,8 +3226,8 @@ def compare_mid_edges(device="cuda",
             cx = cd._replace(taps_fm_out=cd.taps_fm_out[:nn2],
                              taps_hilbert=cd.taps_hilbert[:nh])
             for n4 in (64, 96, 126, 128, 4096, 32768):
-                host = km.midend_route(cx, cf, n4)
-                card = fn(int(de), nn2, nh, n4)
+                host = km.midend_route(cx, n4)
+                card = fn(nn2, nh, n4)
                 if code[host] != card:
                     bad.append((de, nn2, nh, n4, host, card))
     return {"rows": rows, "route_mismatch": bad, "off_route": off_route}
@@ -3497,9 +3508,10 @@ def pll_sass() -> dict:
 
 
 def _res_usage(lib: str) -> dict:
-    """Registers (and stack and local memory bytes: spills) of each kernel
-    of a built library by ``cuobjdump -res-usage``, keyed by mangled name;
-    {} where the toolkit has no cuobjdump."""
+    """Registers (and stack and local memory bytes: spills; static shared
+    memory bytes) of each kernel of a built library by ``cuobjdump
+    -res-usage``, keyed by mangled name; {} where the toolkit has no
+    cuobjdump."""
     from fm_radio_tpu_torch.kernels import _build
 
     exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -3516,9 +3528,16 @@ def _res_usage(lib: str) -> dict:
             kv = dict(w.split(":", 1) for w in ln.split() if ":" in w)
             res[name] = {"reg": int(kv.get("REG", -1)),
                          "stack": int(kv.get("STACK", -1)),
-                         "local": int(kv.get("LOCAL", -1))}
+                         "local": int(kv.get("LOCAL", -1)),
+                         "shared": int(kv.get("SHARED", -1))}
             name = None
     return res
+
+
+def res_of(usage: dict, kernel: str) -> dict:
+    """The entries of :func:`_res_usage`'s ``usage`` whose mangled name
+    holds ``kernel`` (each instantiation)."""
+    return {n: r for n, r in usage.items() if kernel in n}
 
 
 def bpsk_sass() -> dict:
@@ -3804,6 +3823,87 @@ def compare_fp_edges(device="cuda", seed: int = 5) -> list[dict]:
 # length the lane loop is compiled for (1,024-4,096) and two it is not
 STREAM_EDGE_SHAPES = ((16, 8192, 8), (1000, 16384, 40))
 STREAM_EDGE_TBLKS = (512, 1024, 2048, 4096, 8192)
+
+
+# the K3 probe's value at its edges (compare_value_edges): N = 64 (the
+# smallest the entry admits: one partial warp), 448 (a whole warp and a
+# partial one), 1,024, 5,120 and 32,768 (the probe's own), each with a
+# partial last warp, at C = 5 and 40; against full where extract admits
+# N (a multiple of its 1,024); the probe's orders, the only ones the
+# entry admits (others: VALUE_REFUSED)
+VALUE_EDGE_NS = (64, 448, 1024, 5120, 32768)
+VALUE_EDGE_CS = (5, 40)
+VALUE_REFUSED = ((96, 128), (64, 96), (32, 64), (132, 136))
+
+
+def compare_value_edges(device="cuda", seed: int = 13) -> list[dict]:
+    """The K3 probe's value (``k3_value_kernel``) against its plain
+    version and, where extract admits N, against full (extract's kernel
+    on the same taps), max abs error 0, at VALUE_EDGE_CS x VALUE_EDGE_NS,
+    N(0, 1) planes, the allocator's free memory filled with NaN before
+    each call, each call one counted launch; its geometry's C side
+    against its host copy; and the other orders refused
+    before any launch by the wrapper, and by the C entry itself.  One row
+    a case (kernel, case, max_abs_err, ok)."""
+    from fm_radio_tpu_torch.kernels import _build
+    from fm_radio_tpu_torch.probes import _probe
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
+    rows = []
+    co = k3.coeffs(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    host, card = k3.value_geom(), k3.value_geom_card()
+    rows.append({"kernel": "k3_value", "case": "geometry",
+                 "host": {k: host[k] for k in card}, "card": card,
+                 "max_abs_err": None,
+                 "ok": all(host[k] == v for k, v in card.items())})
+    for c in VALUE_EDGE_CS:
+        for n in VALUE_EDGE_NS:
+            xs = tuple(torch.randn((c, n), generator=g, device=device)
+                       for _ in range(3))
+            poison_free_memory(device, 64 << 20)
+            before = k3.launches_value
+            kout = k3.value(xs, co)
+            counted = k3.launches_value == before + 1
+            refs = [(k3.extract_plain(xs, co), "plain")]
+            if n % 1024 == 0:
+                refs.append((k3.full(xs, co), "full"))
+            for ref, vs in refs:
+                e = _probe.max_err(kout, ref)
+                rows.append({"kernel": "k3_value",
+                             "case": f"C={c} N={n} vs {vs}",
+                             "max_abs_err": e, "ok": e == 0.0 and counted})
+    for orders in VALUE_REFUSED:
+        xs = tuple(torch.zeros((5, 1024), device=device) for _ in range(3))
+        other = k3.coeffs(device)
+        other.taps_audio_lpr = other.taps_audio_lmr = torch.ones(
+            orders[0], device=device) / orders[0]
+        other.taps_rds = torch.ones(orders[1], device=device) / orders[1]
+        before = k3.launches_value
+        try:
+            k3.value(xs, other)
+            refused = False
+        except ValueError:
+            refused = k3.launches_value == before
+        rows.append({"kernel": "k3_value", "case": f"orders {orders} "
+                     "refused by the wrapper", "max_abs_err": None,
+                     "ok": refused})
+    # the C entry itself, given the probe's buffers and another order
+    xs = tuple(torch.zeros((5, 1024), device=device) for _ in range(3))
+    outs = [torch.empty((5, 256), device=device) for _ in range(3)] + [
+        torch.empty((5, 128), device=device) for _ in range(2)]
+    w = [torch.zeros(128, device=device) for _ in range(3)]
+    fn = _build.function("k3_probe", "fmt_k3_value", k3.VALUE_ARGTYPES)
+    for na, nr in ((96, 128), (64, 136)):
+        err = fn(*(x.data_ptr() for x in xs), 5, 1024, w[0].data_ptr(),
+                 w[1].data_ptr(), na, w[2].data_ptr(), nr,
+                 *(o.data_ptr() for o in outs),
+                 _build.stream_ptr(torch.device(device)))
+        rows.append({"kernel": "k3_value",
+                     "case": f"C entry nn_a={na} nn_r={nr} refused",
+                     "max_abs_err": None, "ok": err != 0})
+    torch.cuda.synchronize(device)
+    return rows
 
 
 def compare_stream_edges(device="cuda", seed: int = 7) -> list[dict]:
@@ -4447,7 +4547,7 @@ def main_path(channels: int = 2048, block: int = 131072, blocks: int = 8,
     ms = start.elapsed_time(end)
     check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
                             "bpsk": blocks, "k12_ps": 0, "channelizer": 0,
-                            "midend_fused": blocks,
+                            "midend_split": blocks,
                             "extract_blocked": blocks},
                  "pre-split main path")
     audio = outs["audio"]
@@ -5146,7 +5246,7 @@ def main() -> int:
     medge["off_route"] += cm["off_route"]
     for r in medge["rows"]:
         log(f"[compare] tiled mid end edge: {json.dumps(r)}")
-    log(f"[compare] tiled mid end edges, both routes and builds: "
+    log(f"[compare] tiled mid end edges, de-emphasis off and on, both builds: "
         f"{time.perf_counter() - t1:.1f} s")
     sass = sass_counts()
     log(f"[build] channelizer_wgmma SASS: {json.dumps(sass)}; route "
@@ -5193,6 +5293,18 @@ def main() -> int:
         log(f"[compare] pll / extract / bpsk edge: {json.dumps(r)}")
     psass = pll_sass()
     bsass = bpsk_sass()
+    # the registers, spills and shared memory of the split mid end's two
+    # tiled kernels and of the K3 probe's value (no sample staged: its
+    # shared memory must be 0)
+    midres, k3res = _res_usage("midend"), _res_usage("k3_probe")
+    from fm_radio_tpu_torch.probes import k3_probe as _k3
+    k3_run = _k3.VALUE_RUN
+    log(f"[build] resources: " + json.dumps(
+        {"midend": midres, "k3_probe": res_of(k3res, "k3_value_kernel")}))
+    if any(r["shared"] > 0 or r["local"] > 0 or r["stack"] > 0
+           for r in res_of(k3res, "k3_value_kernel").values()):
+        raise RuntimeError(f"k3_value_kernel holds shared or local memory: "
+                           f"{res_of(k3res, 'k3_value_kernel')}")
     log(f"[build] pll SASS: {json.dumps(psass)}; bpsk SASS: "
         f"{json.dumps(bsass)}; extract route mismatches "
         f"{eedge['route_mismatch']}; {time.perf_counter() - t0:.1f} s")
@@ -5253,6 +5365,22 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"stream edge cases disagree: "
                            f"{[(r['kernel'], r['case'], r.get('build')) for r in bad]}")
+    # the K3 probe's value at its edges on both builds
+    vedge = compare_value_edges(dev)
+    try:
+        with _build.checked_build():
+            vedge += [dict(r, build="checked")
+                      for r in compare_value_edges(dev, seed=14)]
+    except RuntimeError as e:
+        raise RuntimeError(f"value edges on the bounds-checked build: {e}")
+    bad = [r for r in vedge if not r["ok"]]
+    log(f"[compare] k3 value edges: {len(vedge)} cases on both builds, "
+        f"{len(bad)} off")
+    for r in bad:
+        log(f"[compare] k3 value edge off: {json.dumps(r)}")
+    if bad:
+        raise RuntimeError(f"k3 value edge cases disagree: "
+                           f"{[(r['case'], r.get('build')) for r in bad]}")
     # the K2 probe's block recurrences and engine kernels at their edges
     # on both builds
     kedge = compare_k2_edges(dev)
@@ -5412,12 +5540,11 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the bench cell: {bad}")
-    fused = lacking(prof, FUSED_KERNELS + REDESIGNED_KERNELS + (DS4_FLAT,))
-    if fused or showing(prof, DEEMPH_KERNELS):
-        raise RuntimeError(f"the pre-split cell's profile lacks the fused "
-                           f"mid end's or the redesigned kernels {fused}, "
-                           f"or shows the de-emphasis route's "
-                           f"{showing(prof, DEEMPH_KERNELS)}: "
+    split = lacking(prof, SPLIT_MID + REDESIGNED_KERNELS + (DS4_FLAT,))
+    if split or showing(prof, SPLIT_MID_GONE):
+        raise RuntimeError(f"the pre-split cell's profile lacks the split "
+                           f"mid end's or the redesigned kernels {split}, "
+                           f"or shows {showing(prof, SPLIT_MID_GONE)}: "
                            f"{list(prof['device_ms_per_block'])}")
 
     # 4b. the split cells at full width
@@ -5431,12 +5558,12 @@ def main() -> int:
     for label, kind, kw in SPLIT_CELLS:
         prof = profile_split(label, kind, kw, device=dev)
         log(f"[profile] {json.dumps(prof)}")
-        # K1 in one launch: its kernel, and no second launch; the fused
-        # mid end, none of the de-emphasis route's kernels
-        gone = showing(prof, (K1_DISC,) + DEEMPH_KERNELS)
-        if lacking(prof, (SPLIT_CELL_DS4[label], FUSED_KERNELS[0])) or gone:
+        # K1 in one launch: its kernel, and no second launch; the split
+        # mid end without the de-emphasis
+        gone = showing(prof, (K1_DISC,) + SPLIT_MID_GONE)
+        if lacking(prof, (SPLIT_CELL_DS4[label],) + SPLIT_MID) or gone:
             raise RuntimeError(f"the {label} cell's profile lacks "
-                               f"{SPLIT_CELL_DS4[label]} or the fused mid "
+                               f"{SPLIT_CELL_DS4[label]} or the split mid "
                                f"end or shows {gone}: "
                                f"{list(prof['device_ms_per_block'])}")
         cat_ms[label] = sum(v for k, v in prof["device_ms_per_block"].items()
@@ -5501,16 +5628,17 @@ def main() -> int:
     bad = [r["name"] for r in i16c["compare"] if not r["ok"]]
     if bad:
         raise RuntimeError(f"int16 kernels disagree at the i16 cell: {bad}")
-    # K2 in int16 on the fused route: its three kernels, none of the
-    # launches route's or the de-emphasis route's
-    gone = showing(prof, MID_LAUNCHES)
-    if lacking(prof, FUSED_KERNELS) or gone:
+    # K2 in int16 on the split route: its four kernels, none of the
+    # launches route's, the de-emphasis or the fused kernel it replaced
+    gone = showing(prof, SPLIT_MID_GONE)
+    if lacking(prof, SPLIT_MID) or gone:
         raise RuntimeError(f"the i16 cell's profile lacks "
-                           f"{lacking(prof, FUSED_KERNELS)} or shows {gone}: "
+                           f"{lacking(prof, SPLIT_MID)} or shows {gone}: "
                            f"{list(prof['device_ms_per_block'])}")
 
-    # 4e. the de-emphasis lenses: the mid end's de-emphasis route at the
-    # split cells' shape, its three kernels alone, each lens profiled
+    # 4e. the de-emphasis lenses: the mid end's split route with the
+    # de-emphasis at the split cells' shape, its three kernels alone, each
+    # lens profiled
     t0 = time.perf_counter()
     lenses, lens_prof = {}, {}
     for label, kind, kw in DEEMPH_LENSES:
@@ -5605,10 +5733,12 @@ def main() -> int:
         prof = profile_wideband(sp, device=dev)
         log(f"[profile] {json.dumps(prof)}")
         want = (REDESIGNED_KERNELS + (MAT_KERNEL,) if sp == 1
-                else (MAT_KERNEL,) if sp == 2 else ()) + (DS4_PS,)
-        if lacking(prof, want):
+                else (MAT_KERNEL,) if sp == 2 else ()) + (DS4_PS,) \
+            + SPLIT_MID
+        if lacking(prof, want) or showing(prof, SPLIT_MID_GONE):
             raise RuntimeError(f"the wideband profile at splits={sp} lacks "
-                               f"{lacking(prof, want)}: "
+                               f"{lacking(prof, want)} or shows "
+                               f"{showing(prof, SPLIT_MID_GONE)}: "
                                f"{list(prof['device_ms_per_block'])}")
     log(f"[wideband] {time.perf_counter() - t0:.1f} s")
     bad = [r["name"] for c in (wb_bench, wb, wb16, wb_i8_bench, wb_i8,
@@ -5839,9 +5969,9 @@ def main() -> int:
         if n in I16_BASE and n != "extract_i16_f32dt":
             k.update(float_twin_ms=i16c["float_twin_ms"][I16_BASE[n]])
         if n in ("k12", "k12_ps", "midend", "midend_i16"):
-            # the mid end's fused route: its launches on the kernel's path
+            # the mid end's split route: its launches on the kernel's path
             # (each also counted by the kernel)
-            k["launches_fused_route"] = home[n]["launches"]["midend_fused"]
+            k["launches_split_route"] = home[n]["launches"]["midend_split"]
         if n in ("channelizer_i8mat", "channelizer_bf16mat"):
             k.update(sass=sass, operator_bytes=home[n]["operator_bytes"])
         if n.startswith("channelizer_") and n != "channelizer":
@@ -5885,20 +6015,23 @@ def main() -> int:
                     "lens": label, "ms": c["kernel_ms"][n],
                     "plain_ms": c["plain_ms"][n],
                     "bound_ms": c["bound"][n]["bound_ms"],
-                    "launches_deemph_route": c["launches"]["midend_deemph"],
+                    "launches_split_route": c["launches"]["midend_split"],
                     "ms_per_block": c["ms_per_block"]}
-    # the de-emphasis route's two kernels, each timed alone on the f32w_de
+    # the split route's three kernels, each timed alone on the f32w_de
     # lens's last-block arguments (K2's float32 form; the pre-split lens's,
     # K12's form on theta1, beside them); their launches: the route's on
-    # the lens's counted blocks (each route launch runs each kernel once)
+    # the lens's counted blocks (each route launch there runs each kernel
+    # once), and on every path the route's (the de-emphasis only on the
+    # lenses, whose every launch has it on)
     for n, kern, src, rep in DEEMPH_NEW_KERNELS:
         cell = lenses["f32w_de"]
         b = cell["bound"][n]
         pre = lenses["presplit_de"]
         k = {"name": n, "route": "cuda", "source": src, "replaces": rep,
-             "kernel": kern, "launches": cell["launches"]["midend_deemph"],
-             "launches_by_path": {p: c.get("midend_deemph", 0)
-                                  for p, c in paths.items()},
+             "kernel": kern, "launches": cell["launches"]["midend_split"],
+             "launches_by_path": {p: c.get("midend_split", 0)
+                                  for p, c in paths.items()
+                                  if n != "deemph" or p in lenses},
              "max_abs_err": max(err_small.get(n, 0.0), err_full[n]),
              "max_abs_err_full_width": err_full[n],
              "max_abs_err_small": err_small.get(n),
@@ -5913,6 +6046,7 @@ def main() -> int:
                  "ms": pre["kernel_ms"][n], "plain_ms": pre["plain_ms"][n],
                  "bound_ms": pre["bound"][n]["bound_ms"],
                  **floors_ms(pre["floors"][n])},
+             "resources": res_of(midres, kern),
              "edge_shapes": (deedge if n == "deemph" else
                              [r for r in medge["rows"] if r["name"] == n]),
              **in_turns_keys(n)}
@@ -5986,7 +6120,12 @@ def main() -> int:
             **({"idp4a_floor_ms": i8_floor(*PROBE_FULL["fp"])[
                 "idp4a_floor_ms"],
                 "edge_shapes": manedge if n == "fp_i8man" else i8dedge}
-               if n in ("fp_i8man", "fp_i8d") else {})})
+               if n in ("fp_i8man", "fp_i8d") else {}),
+            # value without a staged tile: its run, its edges, what
+            # cuobjdump says of its registers and shared memory
+            **({"run": k3_run, "edge_shapes": vedge,
+                "resources": res_of(k3res, "k3_value_kernel")}
+               if n == "k3_value" else {})})
     if DUMPS:
         raise RuntimeError(f"mismatches saved (passed their tolerances): "
                            f"{DUMPS}")

@@ -19,34 +19,33 @@
 //   the 16 outputs whose window holds it); a thread sums a run of 8
 //   outputs from a sliding window of 8 words in registers (16 measured
 //   slower: half the warps).  theta1 goes to device memory for the mid
-//   end: feeding the fused mid end's tile directly would recompute its
+//   end: feeding the mid end's ds x2 tile directly would recompute its
 //   126-output halo a tile inside that kernel's register budget (PERF.md).
-// - The mid end takes one of three routes (k12_stages.cuh::midend_route).
-//   With de-emphasis off (the receiver's default) it is fused: one tiled
-//   kernel runs discriminator -> ds x2 -> Hilbert per (channel, 1024
-//   outputs) with fm_demod and fm_out in shared memory only, its FIRs
-//   register-blocked (one shared-memory load per tap, not per
-//   multiply-add); the peak IIR's serial loop carries only the two
-//   biquads and the pilot power (kBatch steps loaded ahead, the outputs
-//   stored kBatch at a time); theta = atan2 / 2 pi of the filtered planes
-//   is a parallel pass.  Before, four launches ran ds x2, Hilbert and the
-//   peak IIR with the polynomial atan2 and its IEEE division inside the
-//   serial loop (7.27 ms a block at the pre-split cell, the peak IIR 2.31
-//   of it).  The bound is the bytes (0.31 ms at the cell): int8 planes in,
-//   re, im, theta out.
-// - With de-emphasis on (a serial stage between ds x2 and Hilbert) the
-//   de-emphasis route splits the fused kernel at that seam: its first half
-//   (the discriminator on the staged theta1 and the register-blocked ds
-//   x2, k12_mid_ds2_kernel) writes fm_out, the de-emphasis runs in place
-//   over it (one thread a channel, kDeemphLanes a block, each lane's row
-//   staged in shared memory by bulk copies, whole chunks in flight while
-//   one runs), and the
-//   second half (k12_mid_hilb_kernel) stages it back for the
-//   register-blocked Hilbert; then the fused route's peak IIR recurrence
-//   and theta pass.  Against the fused kernel it adds one fm_out round
-//   trip and the serial de-emphasis; the discriminator's fmd plane and
-//   the one-output-a-thread ds x2 and Hilbert launches are gone from it
-//   (PERF.md).  Other filter orders keep those launches (launches route).
+// - The mid end takes one of two routes (k12_stages.cuh::midend_route).
+//   At the receiver's filter orders, with de-emphasis off (the receiver's
+//   default) or on, the split route: its first launch
+//   (k12_mid_ds2_kernel) runs the discriminator on the staged theta1 and
+//   the register-blocked ds x2 (one shared-memory load per tap, not per
+//   multiply-add) and writes fm_out; where the de-emphasis is on it runs
+//   in place over fm_out (one thread a channel, kDeemphLanes a block, each
+//   lane's row staged in shared memory by bulk copies, whole chunks in
+//   flight while one runs); the second launch (k12_mid_hilb_kernel)
+//   stages fm_out back for the register-blocked Hilbert.  The peak IIR's
+//   serial loop then carries only the two biquads and the pilot power
+//   (kBatch steps loaded ahead, the outputs stored kBatch at a time);
+//   theta = atan2 / 2 pi of the filtered planes is a parallel pass.  The
+//   split route won over a fused kernel that ran discriminator -> ds x2 ->
+//   Hilbert in one launch with fm_demod and fm_out in shared memory only:
+//   fm_out's round trip through device memory costs less than the fused
+//   kernel lost to its occupancy.  It held 127-128 registers a thread, so
+//   2 CTAs of 256 threads an SM, against the two launches' 8 and 5 CTAs
+//   (64 and 48 registers); each CTA stages its window, then sums, so few
+//   CTAs leave the loads uncovered (0.95 device ms a block at the
+//   pre-split cell against 0.57 for the two launches; PERF.md).  Before
+//   either, four launches ran ds x2, Hilbert and the peak IIR with the
+//   polynomial atan2 and its IEEE division inside the serial loop (7.27
+//   ms a block at the pre-split cell, the peak IIR 2.31 of it).  Other
+//   filter orders take one launch per stage (the launches route).
 //
 // The stages are shared with the split path through k12_stages.cuh: its
 // ds x4 + discriminator are K1's int8-direct entry (frontend.cu) and its
@@ -266,11 +265,9 @@ using namespace fmt;
 // tail2 [C, nn2-2]; de_st_* [C, 2]; wh_rev [nh], htail [C, nh-1]; pk_st_*
 // [C, 8]; scratch theta1 [C, B/4]; outputs re, im, theta [C, B/8], power
 // [C]; the scratch yi [C, B/8].  By midend_route (k12_stages.cuh): on the
-// fused route the output tails [C, (nn2-2) + (nh-1)] (the new ds x2 and
-// Hilbert tails), fmd and fm_out unused (may be null); on the de-emphasis
-// route the scratch fm_out [C, B/8] and the output tails [C, nn2-2] (the
-// new ds x2 tail), fmd unused; on the launches route the scratch fmd
-// [C, B/4] and fm_out [C, B/8], tails unused.
+// split route the scratch fm_out [C, B/8] and the output tails [C, nn2-2]
+// (the new ds x2 tail), fmd unused (may be null); on the launches route
+// the scratch fmd [C, B/4] and fm_out [C, B/8], tails unused.
 extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        const int8_t* b1, const int8_t* b2, int nn1,
                        float s_row, const float* prev_theta, float scale,
@@ -284,11 +281,10 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        float* fmd, float* fm_out, float* re, float* im,
                        float* theta, float* power, float* yi, float* tails,
                        cudaStream_t stream) {
-  const int route = midend_route(use_deemph, nn2, nh, b / 4);
-  const bool bufs = route == kMidFused ? tails != nullptr
-                    : route == kMidDeemph
-                        ? tails != nullptr && fm_out != nullptr
-                        : fmd != nullptr && fm_out != nullptr;
+  const int route = midend_route(nn2, nh, b / 4);
+  const bool bufs = fm_out != nullptr && (route == kMidSplit
+                                              ? tails != nullptr
+                                              : fmd != nullptr);
   if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0 ||
       yi == nullptr || !bufs) {
     return (int)cudaErrorInvalidValue;
@@ -296,19 +292,12 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
   const int err1 = launch_k12_ds4(x8, tail8, b1, b2, nn1, s_row, channels,
                                   b, phase_split, theta1, stream);
   if (err1) return err1;
-  if (route == kMidFused) {
-    return launch_mid_fused<true>(theta1, prev_theta, scale, w2_rev, tail2,
-                                  wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
-                                  pk_a2, pk_st_in, pk_st_out, channels, b / 4,
-                                  re, im, theta, yi, tails, power, nullptr,
-                                  nullptr, nullptr, stream);
-  }
-  if (route == kMidDeemph) {
-    return launch_mid_deemph<true>(
-        theta1, prev_theta, scale, w2_rev, tail2, de_b0, de_b1, de_a1,
-        de_st_in, de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
-        pk_st_in, pk_st_out, channels, b / 4, fm_out, re, im, theta, yi,
-        tails, power, nullptr, nullptr, nullptr, stream);
+  if (route == kMidSplit) {
+    return launch_mid_split<true>(
+        theta1, prev_theta, scale, w2_rev, tail2, use_deemph, de_b0, de_b1,
+        de_a1, de_st_in, de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
+        pk_a2, pk_st_in, pk_st_out, channels, b / 4, fm_out, re, im, theta,
+        yi, tails, power, nullptr, nullptr, nullptr, stream);
   }
   const int err = launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd,
                               stream);

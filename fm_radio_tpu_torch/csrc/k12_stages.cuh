@@ -15,21 +15,20 @@
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
 //                         pilot power (midend_pallas.py::_midend_body :119),
 //                         float32 or the int16 format, by midend_route:
-//                         fused (launch_mid_fused: one tiled kernel for
-//                         [discriminator ->] ds x2 -> Hilbert) with
-//                         de-emphasis off; with it on, the fused kernel's
-//                         two halves around the de-emphasis
-//                         (launch_mid_deemph); at other filter orders one
-//                         launch per stage up to Hilbert; every route then
-//                         runs the peak IIR cut to its recurrence and a
-//                         parallel theta pass (launch_peak_theta)
+//                         at the receiver's filter orders the split route
+//                         (launch_mid_split: a tiled ds x2 kernel, the
+//                         de-emphasis where it is on, a tiled Hilbert
+//                         kernel); at other orders one launch per stage up
+//                         to Hilbert; every route then runs the peak IIR
+//                         cut to its recurrence and a parallel theta pass
+//                         (launch_peak_theta)
 //
 // The per-sample formulas (disc_value, deemph_step, peak_step) are device
 // functions that the full-chain megakernel (chain.cu) evaluates too, tile
 // by tile, so the chain equals the split path bit for bit.
 //
 // What bounds each launch, and what its design does about it, is noted in
-// k12.cu and above the fused route's kernels below; the times per launch
+// k12.cu and above the split route's kernels below; the times per launch
 // are in PERF.md.
 #pragma once
 
@@ -601,29 +600,29 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
   }
 }
 
-// ---- The mid end's tiled routes ----
+// ---- The mid end's split route ----
 //
-// k12_mid_fused_kernel (de-emphasis off) runs discriminator (K12) -> ds x2
-// -> Hilbert for one channel and one tile of kMidTile re/im outputs per
-// CTA, with fm_demod and fm_out only in shared memory: only re and im (and,
-// from the last tile of a channel, the two carried tails) leave the CTA.
-// Each FIR output is the same sum, in the same tap order, as fir_point
-// computes it, so the route equals the launches route (and the plain
-// version) bit for bit.
-// With de-emphasis on, a serial stage lies between ds x2 and Hilbert, so
-// the de-emphasis route splits the fused kernel at that seam into its two
-// halves, one launch each around k12_deemph_kernel: k12_mid_ds2_kernel
-// (the staging and ds x2, fm_out to device memory) and
-// k12_mid_hilb_kernel (fm_out staged back, Hilbert).  The three kernels
-// run the same device functions (mid_stage_fmd, mid_ds2, mid_hilb_runs
-// under mid_hilb), so one copy of the FIR loops serves both routes and the
-// K2 probe's engine kernels (csrc/k2_probe.cu), which store other planes.
+// At the receiver's filter orders the mid end runs two tiled kernels, one
+// channel and one tile of kMidTile outputs a CTA each: k12_mid_ds2_kernel
+// ([K12's discriminator on the staged theta1 ->] ds x2, fm_out to device
+// memory) and k12_mid_hilb_kernel (fm_out staged back, Hilbert -> re, im),
+// with the de-emphasis in place over fm_out between them where it is on
+// (k12_deemph_kernel).  Each FIR output is the same sum, in the same tap
+// order, as fir_point computes it, so the route equals the launches route
+// (and the plain version) bit for bit.  With de-emphasis off this route
+// replaced a fused kernel that ran both FIRs in one launch with fm_out in
+// shared memory only: the two launches, fm_out's round trip through device
+// memory included, took 0.57 device ms a block at the pre-split cell where
+// the fused kernel took 0.95 (PERF.md: its registers, spills and CTAs an
+// SM against the halves').  The device functions (mid_stage_fmd, mid_ds2,
+// mid_hilb_runs under mid_hilb) also serve the K2 probe's engine kernels
+// (csrc/k2_probe.cu), which store other planes.
 // In the int16 format (K2's in_i16 / out_i16, midend_pallas.py:246,
 // :254-257) fm_demod is staged from int16, dequantised as
 // fir_decimate_kernel<int16_t> dequantises it (half the source bytes), and
 // the carried ds x2 tail is the dequantised value; with the int16 outputs
-// the epilogue stores re and im as float32 scratch (the peak IIR runs on
-// the unquantised values) and as q_i16 at kIqScale, one 8-byte store a
+// the Hilbert kernel stores re and im as float32 scratch (the peak IIR runs
+// on the unquantised values) and as q_i16 at kIqScale, one 8-byte store a
 // plane, and the theta pass stores theta as q_i16 at kPhScale.
 // The FIRs are register-blocked: a thread computes kDs2Outs (ds x2) or
 // kHilbOuts (Hilbert) neighbouring outputs and slides one window of
@@ -636,34 +635,34 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
 // megakernel sums it), the filtered planes stored 16 steps at a time;
 // k12_theta_kernel then takes theta = atan2 / 2 pi of them in parallel.
 // Every route ends with the same two launches.
-constexpr int kMidTile = 1024;   // re/im outputs a CTA of the fused kernel
-constexpr int kMidThreads = 256;
+constexpr int kMidTile = 1024;   // re/im outputs a CTA of the tiled kernels
+constexpr int kMidThreads = 256; // threads a CTA of the Hilbert kernel
 constexpr int kDs2Outs = 8;      // ds x2 outputs a thread
 constexpr int kHilbOuts = 4;     // Hilbert outputs a thread
 // the ds x2 kernel's threads: one run of kDs2Outs outputs each
 constexpr int kDs2Threads = kMidTile / kDs2Outs;
 // the tap counts the tiled kernels are built for (the receiver's ds x2 and
 // Hilbert filters); other orders take the launches route
-constexpr int kFusedNn2 = 64;
-constexpr int kFusedNh = 65;
+constexpr int kTiledNn2 = 64;
+constexpr int kTiledNh = 65;
 
 // The mid end's route (kernels/midend.py::midend_route is its host copy):
 // where the filters have the orders the tiled kernels are built for and
 // the block holds both carried tails, in float32 and in every int16 form
-// alike, the fused kernel with de-emphasis off and the de-emphasis route
-// with it on; else the launches (fir_decimate_kernel, k12_deemph_kernel,
-// k12_hilbert_kernel).  Every route ends with launch_peak_theta.
-enum MidRoute { kMidLaunches = 0, kMidFused = 1, kMidDeemph = 2 };
+// alike and with de-emphasis on or off, the split route; else the
+// launches (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel).
+// Every route ends with launch_peak_theta.
+enum MidRoute { kMidLaunches = 0, kMidSplit = 1 };
 
-inline int midend_route(int use_deemph, int nn2, int nh, int n4) {
-  if (nn2 != kFusedNn2 || nh != kFusedNh || n4 < nn2 - 2 ||
+inline int midend_route(int nn2, int nh, int n4) {
+  if (nn2 != kTiledNn2 || nh != kTiledNh || n4 < nn2 - 2 ||
       n4 / 2 < nh - 1) {
     return kMidLaunches;
   }
-  return use_deemph ? kMidDeemph : kMidFused;
+  return kMidSplit;
 }
 
-// the fused kernel's source sample as float32: theta1 or float32 fm_demod
+// the ds x2 kernel's source sample as float32: theta1 or float32 fm_demod
 // as loaded, int16 fm_demod dequantised at kFmScale (as load_f32 does for
 // fir_decimate_kernel<int16_t>)
 __device__ __forceinline__ float mid_src(float v) { return v; }
@@ -745,71 +744,66 @@ __device__ __forceinline__ void mid_stage_fmd(
 
 // The register-blocked ds x2 over the staged window s_u: output a (a <
 // n_out, window position a) = sum_k w2[k] s_u[2 a + k], kDs2Outs
-// neighbouring outputs a thread (kThr threads), each run handed to
-// emit(a0, acc) (its outputs a0 .. a0 + kDs2Outs - 1; the last run may
-// hold positions past n_out, which emit leaves out).  kOnce: n_out <=
-// kThr kDs2Outs, so a thread has one run at most (no loop, whose
-// invariant tap loads the compiler would hold in registers across it).
-template <int NN2, int kThr, bool kOnce, class Emit>
+// neighbouring outputs a thread, one run a thread (n_out <= the CTA's
+// threads x kDs2Outs: no loop, whose invariant tap loads the compiler
+// would hold in registers across it), handed to emit(a0, acc) (its
+// outputs a0 .. a0 + kDs2Outs - 1; the last run may hold positions past
+// n_out, which emit leaves out).
+template <int NN2, class Emit>
 __device__ __forceinline__ void mid_ds2(const float* s_u, const float* s_w2,
                                         int n_out, Emit emit) {
-  for (int it = threadIdx.x; it * kDs2Outs < n_out; it += kThr) {
-    const int a0 = it * kDs2Outs;
-    float acc[kDs2Outs], ev[kDs2Outs], od[kDs2Outs];
+  const int a0 = threadIdx.x * kDs2Outs;
+  if (a0 >= n_out) return;
+  float acc[kDs2Outs], ev[kDs2Outs], od[kDs2Outs];
 #pragma unroll
-    for (int r = 0; r < kDs2Outs; ++r) {
-      acc[r] = 0.0f;
-      ev[r] = s_u[mid_skew(2 * a0 + 2 * r)];
-      od[r] = s_u[mid_skew(2 * a0 + 2 * r + 1)];
-    }
-    // even taps read ev, odd taps od; after its tap each slides by one
-    // output (two samples)
-#pragma unroll
-    for (int k = 0; k < NN2; ++k) {
-      const float wk = s_w2[k];
-      if (k & 1) {
-        ds2_tap(acc, od, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
-      } else {
-        ds2_tap(acc, ev, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
-      }
-    }
-    emit(a0, acc);
-    if constexpr (kOnce) break;
+  for (int r = 0; r < kDs2Outs; ++r) {
+    acc[r] = 0.0f;
+    ev[r] = s_u[mid_skew(2 * a0 + 2 * r)];
+    od[r] = s_u[mid_skew(2 * a0 + 2 * r + 1)];
   }
+  // even taps read ev, odd taps od; after its tap each slides by one
+  // output (two samples)
+#pragma unroll
+  for (int k = 0; k < NN2; ++k) {
+    const float wk = s_w2[k];
+    if (k & 1) {
+      ds2_tap(acc, od, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
+    } else {
+      ds2_tap(acc, ev, wk, k + 2 < NN2, s_u, 2 * a0 + 2 * kDs2Outs + k);
+    }
+  }
+  emit(a0, acc);
 }
 
 // The register-blocked Hilbert over the staged fm_out s_f (s_f[a] is
-// fm_out[i0 - HH + a]), kThr threads: for the tile's nt outputs (nt % 4
-// == 0), output a = sum_k wh[k] s_f[a + k], kHilbOuts neighbouring outputs
-// a thread, each run handed to emit(a0, acc) (its outputs a0 .. a0 +
-// kHilbOuts - 1).  kOnce: nt <= kThr kHilbOuts, so a thread has one run
-// at most.
-template <int NH, int kThr, bool kOnce, class Emit>
+// fm_out[i0 - HH + a]): for the tile's nt outputs (nt % 4 == 0), output a
+// = sum_k wh[k] s_f[a + k], kHilbOuts neighbouring outputs a thread, one
+// run a thread (nt <= the CTA's threads x kHilbOuts), handed to emit(a0,
+// acc) (its outputs a0 .. a0 + kHilbOuts - 1).
+template <int NH, class Emit>
 __device__ __forceinline__ void mid_hilb_runs(const float* s_f,
                                               const float* s_wh, int nt,
                                               Emit emit) {
-  for (int it = threadIdx.x; it * kHilbOuts < nt; it += kThr) {
-    const int a0 = it * kHilbOuts;
-    float acc[kHilbOuts], v[kHilbOuts];
+  const int a0 = threadIdx.x * kHilbOuts;
+  if (a0 >= nt) return;
+  float acc[kHilbOuts], v[kHilbOuts];
 #pragma unroll
-    for (int r = 0; r < kHilbOuts; ++r) {
-      acc[r] = 0.0f;
-      v[r] = s_f[mid_skew(a0 + r)];
-    }
-#pragma unroll
-    for (int k = 0; k < NH; ++k) {
-      const float wk = s_wh[k];
-#pragma unroll
-      for (int r = 0; r < kHilbOuts; ++r) acc[r] += wk * v[r];
-      if (k + 1 < NH) {
-#pragma unroll
-        for (int r = 0; r + 1 < kHilbOuts; ++r) v[r] = v[r + 1];
-        v[kHilbOuts - 1] = s_f[mid_skew(a0 + kHilbOuts + k)];
-      }
-    }
-    emit(a0, acc);
-    if constexpr (kOnce) break;
+  for (int r = 0; r < kHilbOuts; ++r) {
+    acc[r] = 0.0f;
+    v[r] = s_f[mid_skew(a0 + r)];
   }
+#pragma unroll
+  for (int k = 0; k < NH; ++k) {
+    const float wk = s_wh[k];
+#pragma unroll
+    for (int r = 0; r < kHilbOuts; ++r) acc[r] += wk * v[r];
+    if (k + 1 < NH) {
+#pragma unroll
+      for (int r = 0; r + 1 < kHilbOuts; ++r) v[r] = v[r + 1];
+      v[kHilbOuts - 1] = s_f[mid_skew(a0 + kHilbOuts + k)];
+    }
+  }
+  emit(a0, acc);
 }
 
 // mid_hilb_runs and the mid end's stores: for the tile's outputs i = i0 +
@@ -817,7 +811,7 @@ __device__ __forceinline__ void mid_hilb_runs(const float* s_f,
 // fm_out[i - D] = s_f[a + HH - D], one float4 store a plane (with kOut16
 // also q_i16 at kIqScale, one 8-byte store a plane) into row c of re, im
 // [C, n8].
-template <bool kOut16, int NH, int kThr, bool kOnce>
+template <bool kOut16, int NH>
 __device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
                                          int c, int n8, int i0, int nt,
                                          float* __restrict__ re,
@@ -825,7 +819,7 @@ __device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
                                          int16_t* __restrict__ re16,
                                          int16_t* __restrict__ im16) {
   constexpr int HH = NH - 1, D = (NH - 1) / 2;
-  mid_hilb_runs<NH, kThr, kOnce>(
+  mid_hilb_runs<NH>(
       s_f, s_wh, nt, [&](int a0, const float (&acc)[kHilbOuts]) {
         float d[kHilbOuts];
 #pragma unroll
@@ -852,85 +846,7 @@ __device__ __forceinline__ void mid_hilb(const float* s_f, const float* s_wh,
       });
 }
 
-// src: theta1 [C, n4] float32 (kFromTheta: the discriminator runs here,
-// with prev_theta [C]) or fm_demod [C, n4], float32 or int16 at kFmScale
-// (In).  re, im [C, n4/2] float32; with kOut16 also re16, im16 [C, n4/2]
-// int16 at kIqScale.  tails [C, (NN2 - 2) + (NH - 1)]: the new ds x2 tail
-// (the last NN2 - 2 fm_demod samples, dequantised) then the new Hilbert
-// tail (the last NH - 1 fm_out samples), written by each channel's last
-// tile.
-template <bool kFromTheta, class In, bool kOut16, int NN2, int NH>
-__global__ void __launch_bounds__(kMidThreads)
-k12_mid_fused_kernel(const In* __restrict__ src,
-                     const float* __restrict__ prev_theta, float scale,
-                     const float* __restrict__ w2_rev,
-                     const float* __restrict__ tail2,
-                     const float* __restrict__ wh_rev,
-                     const float* __restrict__ htail, int n4,
-                     float* __restrict__ re, float* __restrict__ im,
-                     int16_t* __restrict__ re16, int16_t* __restrict__ im16,
-                     float* __restrict__ tails) {
-  static_assert(!kFromTheta || sizeof(In) == sizeof(float),
-                "theta1 is float32");
-  constexpr int H2 = NN2 - 2, HH = NH - 1;
-  constexpr int NF = kMidTile + HH;  // fm_out window: tile + Hilbert halo
-  constexpr int NFP = (NF + kDs2Outs - 1) / kDs2Outs * kDs2Outs;
-  // fmd window: every sample the ds x2 items read (their last loads
-  // included), from fmd index 2 (i0 - HH) - H2
-  constexpr int NU = 2 * NFP + NN2;
-  constexpr int OFF = kFromTheta ? 1 : 0;  // the discriminator's previous
-  constexpr int NLOAD = (NU + OFF + kMidThreads - 1) / kMidThreads;
-  __shared__ float s_u[mid_skew(NU) + 1];
-  __shared__ float s_t[kFromTheta ? NU + 1 : 1];
-  __shared__ float s_f[mid_skew(NF + kHilbOuts + NH) + 1];
-  __shared__ float s_w2[NN2], s_wh[NH];
-  const int n8 = n4 / 2;
-  const int c = blockIdx.y;
-  const int i0 = blockIdx.x * kMidTile;
-  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
-  const bool last = i0 + nt == n8;
-  const int nf = nt + HH;                 // fm_out values it needs
-  const int j0 = 2 * (i0 - HH) - H2;      // fmd index of s_u[0]
-  const int nu = 2 * nf + H2;             // fmd values they read
-  const In* x = src + (int64_t)c * n4;
-  for (int k = threadIdx.x; k < NN2; k += kMidThreads)
-    s_w2[k] = FMT_AT(w2_rev, k, NN2);
-  for (int k = threadIdx.x; k < NH; k += kMidThreads)
-    s_wh[k] = FMT_AT(wh_rev, k, NH);
-
-  mid_stage_fmd<kFromTheta, In, H2, H2 + HH, NLOAD, kMidThreads>(
-      x, prev_theta, scale, tail2, n4, c, j0, nu, last, tails, s_u, s_t);
-
-  // ds x2: fm_out[i] = sum_k w2[k] fmd[2 i - H2 + k] = s_u[2 a + k] for
-  // window position a = i - (i0 - HH); before the block, the Hilbert tail
-  mid_ds2<NN2, kMidThreads, false>(
-      s_u, s_w2, nf, [&](int a0, const float (&acc)[kDs2Outs]) {
-#pragma unroll
-        for (int r = 0; r < kDs2Outs; ++r) {
-          const int a = a0 + r;
-          if (a < nf) {
-            const int i = i0 - HH + a;
-            float f = acc[r];
-            if (i < 0) {
-              f = FMT_AT(htail, (int64_t)c * HH + HH + i,
-                         (int64_t)gridDim.y * HH);
-            } else if (last && i >= n8 - HH) {
-              FMT_AT(tails, (int64_t)c * (H2 + HH) + H2 + i - (n8 - HH),
-                     (int64_t)gridDim.y * (H2 + HH)) = f;
-            }
-            s_f[mid_skew(a)] = f;
-          }
-        }
-      });
-  __syncthreads();
-
-  // Hilbert: im[i] = sum_k wh[k] fm_out[i - HH + k] = s_f[(i - i0) + k],
-  // re[i] = fm_out[i - D] = s_f[(i - i0) + HH - D]
-  mid_hilb<kOut16, NH, kMidThreads, false>(s_f, s_wh, c, n8, i0, nt, re, im,
-                                           re16, im16);
-}
-
-// The de-emphasis route's CTAs an SM that the register budget must admit
+// The split route's CTAs an SM that the register budget must admit
 // (__launch_bounds__' second argument): a CTA stages its window, waits at
 // the barrier and only then sums, so the loads of one CTA overlap only
 // the sums of the others on its SM.  At the lenses' shape both kernels
@@ -939,11 +855,13 @@ k12_mid_fused_kernel(const In* __restrict__ src,
 constexpr int kDs2MinBlocks = 8;
 constexpr int kHilbMinBlocks = 5;
 
-// The de-emphasis route's first half: the fused kernel's staging and ds x2
-// over one channel's tile of kMidTile fm_out outputs (no Hilbert halo),
+// The split route's first launch: the staging and ds x2 over one
+// channel's tile of kMidTile fm_out outputs (no Hilbert halo),
 // kDs2Threads threads a CTA, one run of kDs2Outs outputs each, stored to
-// fm_out [C, n4/2] with two 16-byte stores (n4/2 % 8 == 0).  src as the
-// fused kernel's; tails [C, NN2 - 2]: the new ds x2 tail (the last NN2 - 2
+// fm_out [C, n4/2] with two 16-byte stores (n4/2 % 8 == 0).  src: theta1
+// [C, n4] float32 (kFromTheta: the discriminator runs here, with
+// prev_theta [C] and its scale) or fm_demod [C, n4], float32 or int16 at
+// kFmScale (In); tails [C, NN2 - 2]: the new ds x2 tail (the last NN2 - 2
 // fm_demod samples, dequantised, or K12's discriminator outputs), written
 // by each channel's last tile.  Its bound is the bytes (src in, fm_out
 // out) beside the FMUL+FADD issue of 2 NN2 instructions an output.
@@ -976,7 +894,7 @@ k12_mid_ds2_kernel(const In* __restrict__ src,
       src + (int64_t)c * n4, prev_theta, scale, tail2, n4, c, 2 * i0 - H2,
       2 * nt + H2, i0 + nt == n8, tails, s_u, s_t);
   const int64_t total = (int64_t)gridDim.y * n8;
-  mid_ds2<NN2, kDs2Threads, true>(
+  mid_ds2<NN2>(
       s_u, s_w2, nt, [&](int a0, const float (&acc)[kDs2Outs]) {
         float4* d = reinterpret_cast<float4*>(
             FMT_SPAN(fm_out, (int64_t)c * n8 + i0 + a0, kDs2Outs, total));
@@ -985,10 +903,11 @@ k12_mid_ds2_kernel(const In* __restrict__ src,
       });
 }
 
-// The de-emphasis route's second half: the tile's kMidTile + NH - 1
-// de-emphasised fm_out [C, n8] samples staged (skewed; i < 0 from the
-// carried Hilbert tail htail [C, NH - 1]), every load of a thread issued
-// before any is stored, then the fused kernel's Hilbert and stores: re, im
+// The split route's second launch: the tile's kMidTile + NH - 1 fm_out
+// [C, n8] samples (de-emphasised where the de-emphasis is on) staged
+// (skewed; i < 0 from the carried Hilbert tail htail [C, NH - 1]), every
+// load of a thread issued before any is stored, then the register-blocked
+// Hilbert and stores (mid_hilb): re, im
 // [C, n8] float32, with kOut16 also re16, im16 int16 at kIqScale.  Its
 // bound is the bytes (fm_out in, re and im out) beside the FMUL+FADD issue
 // of 2 NH instructions an output.
@@ -1031,7 +950,7 @@ k12_mid_hilb_kernel(const float* __restrict__ fm_out,
     if (a < nf) s_f[mid_skew(a)] = raw[k];
   }
   __syncthreads();
-  mid_hilb<kOut16, NH, kMidThreads, true>(s_f, s_wh, c, n8, i0, nt, re, im,
+  mid_hilb<kOut16, NH>(s_f, s_wh, c, n8, i0, nt, re, im,
                                           re16, im16);
 }
 
@@ -1180,55 +1099,18 @@ inline int launch_peak_theta(const float* re, const float* im, int channels,
   return 0;
 }
 
-// The fused route after fm_demod (K2: src = fmd, float32 or int16) or after
-// ds x4 + atan2 (K12: src = theta1, kFromTheta): the fused kernel -> re, im
-// (and, given re16, im16 and theta16, the int16 outputs) and the tails;
-// then launch_peak_theta.
-template <bool kFromTheta, class In>
-inline int launch_mid_fused(const In* src, const float* prev_theta,
-                            float scale, const float* w2_rev,
-                            const float* tail2, const float* wh_rev,
-                            const float* htail, float pk_b0, float pk_b1,
-                            float pk_b2, float pk_a1, float pk_a2,
-                            const float* pk_st_in, float* pk_st_out,
-                            int channels, int n4, float* re, float* im,
-                            float* theta, float* yi, float* tails,
-                            float* power, int16_t* re16, int16_t* im16,
-                            int16_t* theta16, cudaStream_t stream) {
-  const int n8 = n4 / 2;
-  const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
-                  (unsigned)channels);
-  if (re16 == nullptr) {
-    k12_mid_fused_kernel<kFromTheta, In, false, kFusedNn2, kFusedNh>
-        <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
-                                           tail2, wh_rev, htail, n4, re, im,
-                                           nullptr, nullptr, tails);
-  } else if constexpr (!kFromTheta) {
-    k12_mid_fused_kernel<false, In, true, kFusedNn2, kFusedNh>
-        <<<grid, kMidThreads, 0, stream>>>(src, prev_theta, scale, w2_rev,
-                                           tail2, wh_rev, htail, n4, re, im,
-                                           re16, im16, tails);
-  } else {
-    return (int)cudaErrorInvalidValue;  // K12 stores float32
-  }
-  FMT_CHECK_LAUNCH();
-  return launch_peak_theta(re, im, channels, n8, pk_b0, pk_b1, pk_b2, pk_a1,
-                           pk_a2, pk_st_in, pk_st_out, theta, yi, power,
-                           theta16, stream);
-}
-
-// ds x2 alone on the de-emphasis route's tiled kernel: src [C, n4] as the
-// fused kernel's (theta1 with kFromTheta, prev_theta [C] and the
-// discriminator's scale; else fm_demod, float32 or int16) -> fm_out
+// ds x2 on the split route's tiled kernel: src [C, n4] (theta1 with
+// kFromTheta, prev_theta [C] and the discriminator's scale; else
+// fm_demod, float32 or int16) -> fm_out
 // [C, n4/2] (16-byte aligned) and the new ds x2 tail into tails
-// [C, kFusedNn2 - 2]; w2_rev [kFusedNn2], tail2 [C, kFusedNn2 - 2].
-// n4 % 16 == 0 and n4 >= kFusedNn2 - 2, else refused.
+// [C, kTiledNn2 - 2]; w2_rev [kTiledNn2], tail2 [C, kTiledNn2 - 2].
+// n4 % 16 == 0 and n4 >= kTiledNn2 - 2, else refused.
 template <bool kFromTheta, class In>
 inline int launch_mid_ds2(const In* src, const float* prev_theta,
                           float scale, const float* w2_rev,
                           const float* tail2, int channels, int n4,
                           float* fm_out, float* tails, cudaStream_t stream) {
-  if (n4 % 16 != 0 || n4 < kFusedNn2 - 2 || fm_out == nullptr ||
+  if (n4 % 16 != 0 || n4 < kTiledNn2 - 2 || fm_out == nullptr ||
       tails == nullptr || (uintptr_t)fm_out % 16 != 0 ||
       (kFromTheta && prev_theta == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -1236,25 +1118,25 @@ inline int launch_mid_ds2(const In* src, const float* prev_theta,
   const int n8 = n4 / 2;
   const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
                   (unsigned)channels);
-  k12_mid_ds2_kernel<kFromTheta, In, kFusedNn2>
+  k12_mid_ds2_kernel<kFromTheta, In, kTiledNn2>
       <<<grid, kDs2Threads, 0, stream>>>(src, prev_theta, scale, w2_rev,
                                          tail2, n4, fm_out, tails);
   FMT_CHECK_LAUNCH();
   return 0;
 }
 
-// Hilbert alone on the de-emphasis route's tiled kernel: fm_out [C, n8]
+// Hilbert on the split route's tiled kernel: fm_out [C, n8]
 // -> re, im [C, n8] float32 and, given re16 and im16, int16 at kIqScale
-// (all 16-byte aligned); wh_rev [kFusedNh], htail [C, kFusedNh - 1].
-// n8 % 8 == 0 and n8 >= kFusedNh - 1, else refused.
-template <int NH = kFusedNh>
+// (all 16-byte aligned); wh_rev [kTiledNh], htail [C, kTiledNh - 1].
+// n8 % 8 == 0 and n8 >= kTiledNh - 1, else refused.
+template <int NH = kTiledNh>
 inline int launch_mid_hilb(const float* fm_out, const float* wh_rev,
                            const float* htail, int channels, int n8,
                            float* re, float* im, int16_t* re16,
                            int16_t* im16, cudaStream_t stream) {
   const uintptr_t align = (uintptr_t)re | (uintptr_t)im |
                           (uintptr_t)re16 | (uintptr_t)im16;
-  if (n8 % 8 != 0 || n8 < kFusedNh - 1 || (re16 == nullptr) !=
+  if (n8 % 8 != 0 || n8 < kTiledNh - 1 || (re16 == nullptr) !=
       (im16 == nullptr) || align % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1271,33 +1153,35 @@ inline int launch_mid_hilb(const float* fm_out, const float* wh_rev,
   return 0;
 }
 
-// The de-emphasis route after fm_demod (K2: src = fmd, float32 or int16)
-// or after ds x4 + atan2 (K12: src = theta1, kFromTheta): ds x2 into fm_out
+// The split route after fm_demod (K2: src = fmd, float32 or int16) or
+// after ds x4 + atan2 (K12: src = theta1, kFromTheta): ds x2 into fm_out
 // [C, n4/2] (scratch, whose last nh - 1 samples the host keeps as the
-// Hilbert tail) and the new ds x2 tail into tails [C, nn2 - 2]; the
-// de-emphasis in place over fm_out; Hilbert -> re, im (and, given re16,
-// im16 and theta16, the int16 outputs); then launch_peak_theta.
+// Hilbert tail) and the new ds x2 tail into tails [C, nn2 - 2]; given
+// use_deemph the de-emphasis in place over fm_out; Hilbert -> re, im (and,
+// given re16, im16 and theta16, the int16 outputs); then
+// launch_peak_theta.
 template <bool kFromTheta, class In>
-inline int launch_mid_deemph(const In* src, const float* prev_theta,
-                             float scale, const float* w2_rev,
-                             const float* tail2, float de_b0, float de_b1,
-                             float de_a1, const float* de_st_in,
-                             float* de_st_out, const float* wh_rev,
-                             const float* htail, float pk_b0, float pk_b1,
-                             float pk_b2, float pk_a1, float pk_a2,
-                             const float* pk_st_in, float* pk_st_out,
-                             int channels, int n4, float* fm_out, float* re,
-                             float* im, float* theta, float* yi,
-                             float* tails, float* power, int16_t* re16,
-                             int16_t* im16, int16_t* theta16,
-                             cudaStream_t stream) {
+inline int launch_mid_split(const In* src, const float* prev_theta,
+                            float scale, const float* w2_rev,
+                            const float* tail2, int use_deemph, float de_b0,
+                            float de_b1, float de_a1, const float* de_st_in,
+                            float* de_st_out, const float* wh_rev,
+                            const float* htail, float pk_b0, float pk_b1,
+                            float pk_b2, float pk_a1, float pk_a2,
+                            const float* pk_st_in, float* pk_st_out,
+                            int channels, int n4, float* fm_out, float* re,
+                            float* im, float* theta, float* yi, float* tails,
+                            float* power, int16_t* re16, int16_t* im16,
+                            int16_t* theta16, cudaStream_t stream) {
   const int n8 = n4 / 2;
   int err = launch_mid_ds2<kFromTheta>(src, prev_theta, scale, w2_rev, tail2,
                                        channels, n4, fm_out, tails, stream);
   if (err) return err;
-  err = launch_deemph(fm_out, fm_out, n8, channels, de_b0, de_b1, de_a1,
-                      de_st_in, de_st_out, stream);
-  if (err) return err;
+  if (use_deemph) {
+    err = launch_deemph(fm_out, fm_out, n8, channels, de_b0, de_b1, de_a1,
+                        de_st_in, de_st_out, stream);
+    if (err) return err;
+  }
   err = launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
                         im16, stream);
   if (err) return err;
@@ -1320,12 +1204,9 @@ inline int launch_disc(const float* theta1, const float* prev_theta,
 
 // The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised
 // where it is loaded), by midend_route:
-// - fused (launch_mid_fused): re, im, the carried tails into tails
-//   [C, (nn2 - 2) + (nh - 1)], theta and the pilot power; yi [C, n4/2] is
-//   scratch, fm_out unused;
-// - de-emphasis (launch_mid_deemph): fm_out [C, n4/2] as on the launches
-//   route, the new ds x2 tail into tails [C, nn2 - 2], re, im, theta and
-//   the pilot power; yi scratch;
+// - split (launch_mid_split): fm_out [C, n4/2] as on the launches route,
+//   the new ds x2 tail into tails [C, nn2 - 2], re, im, theta and the
+//   pilot power; yi scratch;
 // - launches: ds x2 into fm_out [C, n4/2] (scratch, whose last samples
 //   the host keeps as the Hilbert tail), the optional de-emphasis in
 //   place, Hilbert -> re, im, then launch_peak_theta with the scratch yi
@@ -1348,22 +1229,15 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          cudaStream_t stream, float* yi,
                          float* tails = nullptr) {
   if (yi == nullptr) return (int)cudaErrorInvalidValue;
-  const int route = midend_route(use_deemph, nn2, nh, n4);
+  const int route = midend_route(nn2, nh, n4);
   if (route != kMidLaunches && tails == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (route == kMidFused) {
-    return launch_mid_fused<false>(fmd, nullptr, 1.0f, w2_rev, tail2, wh_rev,
-                                   htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
-                                   pk_st_in, pk_st_out, channels, n4, re, im,
-                                   theta, yi, tails, power, re16, im16,
-                                   theta16, stream);
-  }
-  if (route == kMidDeemph) {
-    return launch_mid_deemph<false>(
-        fmd, nullptr, 1.0f, w2_rev, tail2, de_b0, de_b1, de_a1, de_st_in,
-        de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1, pk_a2,
-        pk_st_in, pk_st_out, channels, n4, fm_out, re, im, theta, yi, tails,
-        power, re16, im16, theta16, stream);
+  if (route == kMidSplit) {
+    return launch_mid_split<false>(
+        fmd, nullptr, 1.0f, w2_rev, tail2, use_deemph, de_b0, de_b1, de_a1,
+        de_st_in, de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
+        pk_a2, pk_st_in, pk_st_out, channels, n4, fm_out, re, im, theta, yi,
+        tails, power, re16, im16, theta16, stream);
   }
   const int n8 = n4 / 2;
   const int64_t t8 = (int64_t)channels * n8;

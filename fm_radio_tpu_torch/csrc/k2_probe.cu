@@ -14,7 +14,7 @@
 //               fm_out[u - d] within the tile, the first d from the tile's
 //               own last d.  The port reproduces that.
 //   full        the production K2 (launch_midend of k12_stages.cuh, its
-//               de-emphasis route: the tiled ds x2, the serial
+//               split route with de-emphasis: the tiled ds x2, the serial
 //               de-emphasis, the tiled Hilbert, the peak IIR's recurrence
 //               + power, the theta pass), on the probe's coefficients and
 //               zero state
@@ -77,7 +77,7 @@ __global__ void k2_stream_kernel(const float4* __restrict__ x, int64_t nv,
 
 // ---- ds2 and hilb: the mid end's staged, register-blocked tiles -------------
 //
-// Both FIRs are the de-emphasis route's kernels (k12_stages.cuh) with other
+// Both FIRs are the split route's kernels (k12_stages.cuh) with other
 // stores: a CTA a (tile of kMidTile outputs, channel); k2_ds2_kernel
 // stages the tile's fm_demod window (mid_stage_fmd, every load in flight
 // before the first store to shared memory) and sums kDs2Outs outputs a
@@ -127,7 +127,7 @@ k2_ds2_kernel(const float* __restrict__ x, const float* __restrict__ w2_rev,
       x + (int64_t)c * n4, nullptr, 1.0f, zeros, n4, c, 2 * i0 - H2,
       2 * nt + H2, false, nullptr, s_u, nullptr);
   const int64_t total = (int64_t)gridDim.y * n8;
-  mid_ds2<NN2, kDs2Threads, true>(
+  mid_ds2<NN2>(
       s_u, s_w2, nt, [&](int a0, const float (&acc)[kDs2Outs]) {
         const int64_t o = (int64_t)c * n8 + i0 + a0;
         const float4 lo = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -190,7 +190,7 @@ k2_hilb_kernel(const float* __restrict__ fm_out,
   }
   __syncthreads();
   const int64_t total = (int64_t)gridDim.y * n8;
-  mid_hilb_runs<NH, kMidThreads, true>(
+  mid_hilb_runs<NH>(
       s_f, s_wh, nt, [&](int a0, const float (&acc)[kHilbOuts]) {
         const int i = i0 + a0;
         const int src = k2_re_src(i, lt, D);  // >= i - D >= i0 - HH
@@ -217,9 +217,9 @@ k2_hilb_kernel(const float* __restrict__ fm_out,
 // (probes/k2_probe.py::engine_check is the host copy)
 inline bool k2_engine_takes(int mode, int n4, int t_blk, int nn2, int nh,
                             uintptr_t align) {
-  if (n4 <= 0 || n4 % 16 || nn2 != kFusedNn2 || align % 16) return false;
+  if (n4 <= 0 || n4 % 16 || nn2 != kTiledNn2 || align % 16) return false;
   if (mode == 1) return true;
-  return nh == kFusedNh && t_blk > 0 && t_blk % 16 == 0 && n4 % t_blk == 0 &&
+  return nh == kTiledNh && t_blk > 0 && t_blk % 16 == 0 && n4 % t_blk == 0 &&
          n4 / 2 >= nh - 1;
 }
 
@@ -230,7 +230,7 @@ inline int launch_k2_hilb(const float* fm_out, const float* wh_rev,
                           cudaStream_t stream) {
   const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
                   (unsigned)channels);
-  k2_hilb_kernel<kFusedNh><<<grid, kMidThreads, 0, stream>>>(
+  k2_hilb_kernel<kTiledNh><<<grid, kMidThreads, 0, stream>>>(
       fm_out, wh_rev, zeros, n8, lt, re, im, th);
   FMT_CHECK_LAUNCH();
   return 0;
@@ -742,7 +742,7 @@ using namespace fmt;
 // stream: t_blk | n4, t_blk % 8 == 0; ds2 and hilb: k2_engine_takes (re,
 // im, th and fm_out 16-byte aligned).  w2_rev [nn2], wh_rev [nh] reversed
 // taps; zeros [C, 128] float32 zeros (every carried tail); fm_out [C,
-// n4/2] scratch (hilb: ds x2 into it by the de-emphasis route's
+// n4/2] scratch (hilb: ds x2 into it by the split route's
 // k12_mid_ds2_kernel, whose new tail goes to th until the Hilbert launch
 // writes it).  Anything else is refused (cudaErrorInvalidValue) before any
 // launch.
@@ -766,7 +766,7 @@ extern "C" int fmt_k2_engine(const float* x, int mode, int channels, int n4,
         (const float4*)x, n4 / 4, t_blk / 8, (float4*)re, (float4*)im,
         (float4*)th, total / 4);
   } else if (mode == 1) {
-    k2_ds2_kernel<kFusedNn2><<<grid, kDs2Threads, 0, stream>>>(
+    k2_ds2_kernel<kTiledNn2><<<grid, kDs2Threads, 0, stream>>>(
         x, w2_rev, zeros, n4, re, im, th);
   } else {
     const int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, zeros,
@@ -788,14 +788,14 @@ extern "C" int fmt_k2_hilb(const float* fm_out, int channels, int n8,
                            float* th, cudaStream_t stream) {
   const uintptr_t align = (uintptr_t)fm_out | (uintptr_t)re |
                           (uintptr_t)im | (uintptr_t)th;
-  if (!k2_engine_takes(2, 2 * n8, t_blk, kFusedNn2, nh, align))
+  if (!k2_engine_takes(2, 2 * n8, t_blk, kTiledNn2, nh, align))
     return (int)cudaErrorInvalidValue;
   return launch_k2_hilb(fm_out, wh_rev, zeros, channels, n8, t_blk / 2, re,
                         im, th, stream);
 }
 
 // full: the production mid end (launch_midend, de-emphasis on: at the
-// tiled kernels' orders its de-emphasis route) on zero state (zeros as
+// tiled kernels' orders its split route) on zero state (zeros as
 // above: the tails and the IIR states in).  de = {b0, b1, a1}, pk = {b0,
 // b1, b2, a1, a2} (host arrays); de_out [C, 2], pk_out [C, 8] the states
 // out (scratch); fm_out [C, n4/2] scratch, which the peak IIR's recurrence
@@ -817,7 +817,7 @@ extern "C" int fmt_k2_full(const float* x, int channels, int n4,
                        fm_out, theta);
 }
 
-// restruct: ds x2 (the de-emphasis route's k12_mid_ds2_kernel) -> block
+// restruct: ds x2 (the split route's k12_mid_ds2_kernel) -> block
 // de-emphasis in place -> Hilbert (k12_mid_hilb_kernel) -> block peak IIR.
 // h_de [li], hm_de, pm_de [1, li]; h_pk [li], hm_pk, pm_pk [2, li]; l =
 // n4/2, li one of 64, 128, 256, 512 (the kernels' instantiations) and li |
@@ -841,7 +841,7 @@ extern "C" int fmt_k2_restruct(const float* x, int channels, int n4, int li,
                           (uintptr_t)hm_de | (uintptr_t)pm_de |
                           (uintptr_t)h_pk | (uintptr_t)hm_pk | (uintptr_t)pm_pk;
   if (n4 % 16 || !k2_block_li(li) || l % li || align % 16 ||
-      nn2 != kFusedNn2 || nh != kFusedNh || l < nh - 1)
+      nn2 != kTiledNn2 || nh != kTiledNh || l < nh - 1)
     return (int)cudaErrorInvalidValue;
   int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, zeros, channels,
                                 n4, fm_out, theta, stream);

@@ -10,13 +10,12 @@
 // of the device code, so the split path's K1 + K2 equal K12 bit for bit.
 // launch_midend picks the route (midend_route, exported as
 // fmt_midend_route), in float32 and in every int16 form alike: at the
-// receiver's filter orders, with de-emphasis off the fused route (ds x2 and
-// Hilbert in one tiled kernel with fm_out in shared memory), with it on
-// the de-emphasis route (the fused kernel's two halves, ds x2 and Hilbert,
-// a launch each around the serial de-emphasis); at other orders one
-// launch per stage up to Hilbert.  Every route ends with the peak IIR cut
-// to its recurrence and a parallel theta pass.  What bounds each and what
-// the design does about it is noted in k12.cu and k12_stages.cuh.
+// receiver's filter orders the split route (a tiled ds x2 kernel and a
+// tiled Hilbert kernel, with the serial de-emphasis between them where it
+// is on); at other orders one launch per stage up to Hilbert.  Every route
+// ends with the peak IIR cut to its recurrence and a parallel theta pass.
+// What bounds each and what the design does about it is noted in k12.cu
+// and k12_stages.cuh.
 //
 // The int16 inter-stage format (interstage_i16; the TPU kernel's in_i16
 // :246 and out_i16 :254-257): fm_demod may arrive as int16 at 2^15, which
@@ -24,13 +23,13 @@
 // those bytes is the format's purpose); with the int16 outputs, re and im
 // leave as int16 at 2^14 and theta at 2^16.  The de-emphasis, the Hilbert
 // FIR, the peak IIR and the power sum run on float32 values as before: the
-// fused kernel (or a Hilbert launch) writes re/im as float32 scratch,
-// which the peak IIR's recurrence reads, and quantised as the outputs; the
-// theta pass quantises theta as it stores it.  Bytes per output sample n8
-// (C * B/8 of them) on the fused route: float32 44 (fmd 8 in, re/im 8 out;
-// the recurrence 8 in, 8 out; the theta pass 8 in, 4 out), int16 in and
-// out 42 (fmd 4 in; re/im 8 + 4 out; theta 2 out); the consumers, the PLL
-// and extract, read 12 -> 6.
+// Hilbert launch writes re/im as float32 scratch, which the peak IIR's
+// recurrence reads, and quantised as the outputs; the theta pass quantises
+// theta as it stores it.  Bytes per output sample n8 (C * B/8 of them) on
+// the split route without de-emphasis: float32 52 (fmd 8 in, fm_out 4 out
+// and 4 in, re/im 8 out; the recurrence 8 in, 8 out; the theta pass 8 in,
+// 4 out), int16 in and out 50 (fmd 4 in; re/im 8 + 4 out; theta 2 out);
+// the consumers, the PLL and extract, read 12 -> 6.
 
 #include "k12_stages.cuh"
 
@@ -41,12 +40,10 @@ using namespace fmt;
 // (re x1 x2 y1 y2, im x1 x2 y1 y2); re, im, theta [C, n4/2] float32, the
 // outputs, or, given re16, im16 and theta16 [C, n4/2] int16 (all three or
 // none), scratch beside those outputs; power [C]; the scratch yi
-// [C, n4/2].  By midend_route (fmt_midend_route): on the fused route the
-// output tails [C, (nn2 - 2) + (nh - 1)] (the new ds x2 and Hilbert tails),
-// fm_out unused; on the de-emphasis route the scratch fm_out [C, n4/2]
-// (whose last nh - 1 samples are the new Hilbert tail) and the output
-// tails [C, nn2 - 2] (the new ds x2 tail); on the launches route the
-// scratch fm_out [C, n4/2], tails unused.  n4 % (2 * kBatch) == 0.
+// [C, n4/2]; the scratch fm_out [C, n4/2] (whose last nh - 1 samples are
+// the new Hilbert tail).  By midend_route (fmt_midend_route): on the split
+// route the output tails [C, nn2 - 2] (the new ds x2 tail); on the
+// launches route tails unused.  n4 % (2 * kBatch) == 0.
 // Returns the first cudaError_t of the launches.
 extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
                           int nn2, const float* tail2, int use_deemph,
@@ -60,12 +57,12 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
                           int16_t* re16, int16_t* im16, int16_t* theta16,
                           float* power, float* yi, float* tails,
                           cudaStream_t stream) {
-  const int route = midend_route(use_deemph, nn2, nh, n4);
+  const int route = midend_route(nn2, nh, n4);
   if (n4 % (2 * kBatch) != 0 || nn2 < 2 || nh < 1 ||
       (re16 == nullptr) != (im16 == nullptr) ||
       (re16 == nullptr) != (theta16 == nullptr) ||
       yi == nullptr || (route != kMidLaunches && tails == nullptr) ||
-      (route != kMidFused && fm_out == nullptr)) {
+      fm_out == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
 #define FMT_MIDEND_ARGS                                                     \
@@ -80,25 +77,26 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
 }
 
 // The route fmt_midend and fmt_k12 take for these arguments, in every
-// format: 1 fused, 2 de-emphasis, 0 launches (kernels/midend.py::
-// midend_route is its host copy, which the wrappers allocate by).
-extern "C" int fmt_midend_route(int use_deemph, int nn2, int nh, int n4) {
-  return midend_route(use_deemph, nn2, nh, n4);
+// format and with de-emphasis on or off: 1 split, 0 launches
+// (kernels/midend.py::midend_route is its host copy, which the wrappers
+// allocate by).
+extern "C" int fmt_midend_route(int nn2, int nh, int n4) {
+  return midend_route(nn2, nh, n4);
 }
 
-// The de-emphasis route's two tiled kernels alone (kernels/midend.py::
+// The split route's two tiled kernels alone (kernels/midend.py::
 // mid_ds2, mid_hilb: the card's comparisons and timings of each kernel).
 // ds x2: src [C, n4] by form (0 float32 fm_demod, 1 int16 fm_demod at
 // kFmScale, 2 theta1 float32 with prev_theta [C] and the discriminator's
 // scale, K12's form); w2_rev [nn2], tail2 [C, nn2 - 2] -> fm_out [C, n4/2]
 // and the new ds x2 tail tails [C, nn2 - 2].  nn2 must be the kernel's
-// order (kFusedNn2), n4 % 16 == 0, n4 >= nn2 - 2.
+// order (kTiledNn2), n4 % 16 == 0, n4 >= nn2 - 2.
 extern "C" int fmt_mid_ds2(const void* src, int form,
                            const float* prev_theta, float scale,
                            const float* w2_rev, int nn2, const float* tail2,
                            int channels, int n4, float* fm_out, float* tails,
                            cudaStream_t stream) {
-  if (nn2 != kFusedNn2) return (int)cudaErrorInvalidValue;
+  if (nn2 != kTiledNn2) return (int)cudaErrorInvalidValue;
   if (form == 0)
     return launch_mid_ds2<false>((const float*)src, nullptr, 1.0f, w2_rev,
                                  tail2, channels, n4, fm_out, tails, stream);
@@ -113,12 +111,12 @@ extern "C" int fmt_mid_ds2(const void* src, int form,
 
 // Hilbert: fm_out [C, n8], wh_rev [nh], htail [C, nh - 1] -> re, im
 // [C, n8] float32 and, given re16 and im16, int16 at kIqScale.  nh must be
-// the kernel's order (kFusedNh), n8 % 8 == 0, n8 >= nh - 1.
+// the kernel's order (kTiledNh), n8 % 8 == 0, n8 >= nh - 1.
 extern "C" int fmt_mid_hilb(const float* fm_out, const float* wh_rev, int nh,
                             const float* htail, int channels, int n8,
                             float* re, float* im, int16_t* re16,
                             int16_t* im16, cudaStream_t stream) {
-  if (nh != kFusedNh) return (int)cudaErrorInvalidValue;
+  if (nh != kTiledNh) return (int)cudaErrorInvalidValue;
   return launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
                          im16, stream);
 }

@@ -146,7 +146,7 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, ps: bool):
     if any(t.data_ptr() % 4 for t in (x, tail8, b1, b2)):
         raise ValueError(f"{name}: int8 inputs must be 4-byte aligned")
     f = dict(device=dev, dtype=torch.float32)
-    route = midend_route(coeffs, cfg, n4)
+    route = midend_route(coeffs, n4)
     buf = mid_buffers(route, a, c, n8, dev)
     theta1 = torch.empty((c, n4), **f)
     fmd = torch.empty((c, n4), **f) if route == "launches" else None
@@ -164,7 +164,7 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, ps: bool):
              power.data_ptr(), yi_p, tails_p, _build.stream_ptr(dev))
     _build.check("k12", err)
     count_route(route)
-    fmd_t, fm_out_t = mid_tails(route, a, buf, fmd)
+    fmd_t, fm_out_t = mid_tails(route, buf, fmd)
     x_tail = _ps_tail(x, nn1 - 4) if ps else x[..., x.shape[-1] - (nn1 - 4):]
     tail = x_tail.to(torch.float32) + 1.0
     new = dict(state)

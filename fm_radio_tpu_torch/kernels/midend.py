@@ -13,21 +13,18 @@ State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
 through ``csrc/k12_stages.cuh``); the helpers that pass this state to the
 card and back serve ``kernels/k12.py`` too.  :func:`midend_route` picks
 its launches, in float32 and in every int16 form alike: at the receiver's
-filter orders, with de-emphasis off the fused route (ds x2 and Hilbert in
-one tiled kernel), with it on the de-emphasis route (the fused kernel's
-two halves, :func:`mid_ds2` and :func:`mid_hilb`'s kernels, a launch each
-around the serial de-emphasis); at other orders ds x2, the de-emphasis
-and Hilbert each a launch of one output a thread.  Every route ends with
-the peak IIR's recurrence and a parallel theta pass, and computes the same
-values.
+filter orders the split route (:func:`mid_ds2`'s and :func:`mid_hilb`'s
+tiled kernels, with the serial de-emphasis between them where it is on);
+at other orders ds x2, the de-emphasis and Hilbert each a launch of one
+output a thread.  Every route ends with the peak IIR's recurrence and a
+parallel theta pass, and computes the same values.
 
 The int16 inter-stage format (``kernels/qformat.py``): fm_demod may be
 int16 at FM_SCALE, dequantised by the ds x2's loads, and with ``out_i16``
 re/im leave as int16 at IQ_SCALE and theta at PH_SCALE; everything between
 runs on float32 values, and the carried ds x2 tail is the dequantised
 fm_demod (midend_pallas.py:449-454).  Launches with any int16 tensor count
-in ``launches_i16`` (and on the fused route in ``launches_fused``, on the
-de-emphasis route in ``launches_deemph``, too).
+in ``launches_i16`` (and on the split route in ``launches_split`` too).
 :func:`pick_tiles_mid` is the JAX kernel's shape gate.
 """
 
@@ -52,15 +49,14 @@ from fm_radio_tpu_torch.ops.fir import decimate_core, hilbert_fir_p
 from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
 
 # kernel launches since the counter was last set to 0 (float32 in and
-# out; then any with an int16 input or output); the fused route's and the
-# de-emphasis route's launches, by K2 or by K12 (kernels/k12.py), beside
-# their own counts (each launch of the de-emphasis route runs
-# k12_mid_ds2_kernel, k12_deemph_kernel and k12_mid_hilb_kernel once); and
-# the launches of those three kernels alone (mid_ds2, deemph, mid_hilb)
+# out; then any with an int16 input or output); the split route's
+# launches, by K2 or by K12 (kernels/k12.py), beside their own counts
+# (each runs k12_mid_ds2_kernel and k12_mid_hilb_kernel once, and
+# k12_deemph_kernel where the de-emphasis is on); and the launches of
+# those three kernels alone (mid_ds2, deemph, mid_hilb)
 launches = 0
 launches_i16 = 0
-launches_fused = 0
-launches_deemph = 0
+launches_split = 0
 launches_ds2 = 0
 launches_de = 0
 launches_hilb = 0
@@ -70,16 +66,16 @@ _NO = 128  # the TPU kernel's band width
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = ([_P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _I, _P]
              + [_F] * 5 + [_P, _P, _I, _I] + [_P] * 11)
-ROUTE_ARGTYPES = [_I] * 4
+ROUTE_ARGTYPES = [_I] * 3
 DS2_ARGTYPES = [_P, _I, _P, _F, _P, _I, _P, _I, _I, _P, _P, _P]
 HILB_ARGTYPES = [_P, _P, _I, _P, _I, _I] + [_P] * 5
 DEEMPH_ARGTYPES = [_P, _P, _I, _I, _F, _F, _F, _P, _P, _P]
 
-# the filter orders the tiled routes (fused and de-emphasis) are built for
-# (csrc/k12_stages.cuh: kFusedNn2, kFusedNh: the receiver's ds x2 and
+# the filter orders the split route's tiled kernels are built for
+# (csrc/k12_stages.cuh: kTiledNn2, kTiledNh: the receiver's ds x2 and
 # Hilbert filters)
-FUSED_TAPS = (64, 65)
-# channels a block of the fused route's peak IIR (csrc/k12_stages.cuh:
+TILED_TAPS = (64, 65)
+# channels a block of the peak IIR's recurrence (csrc/k12_stages.cuh:
 # kPeakLanes, a measured choice, PERF.md)
 PEAK_LANES = 8
 # channels a block of the de-emphasis recurrence (csrc/k12_stages.cuh:
@@ -89,8 +85,8 @@ DEEMPH_LANES = 16
 
 # re/im outputs a CTA of the tiled kernels (csrc/k12_stages.cuh: kMidTile)
 MID_TILE = 1024
-# threads a CTA of the de-emphasis route's ds x2 kernel (kDs2Threads: one
-# run of 8 outputs each) and of its Hilbert kernel (kMidThreads)
+# threads a CTA of the split route's ds x2 kernel (kDs2Threads: one run
+# of 8 outputs each) and of its Hilbert kernel (kMidThreads)
 DS2_THREADS = 128
 HILB_THREADS = 256
 
@@ -99,44 +95,39 @@ def midend_plan(coeffs, cfg, c: int, n4: int) -> list[tuple[str, tuple]]:
     """The launches of the mid end after fm_demod (K2, and K12 after its
     discriminator), each as (kernel, grid): a host copy of
     ``csrc/k12_stages.cuh::launch_midend``'s plan for :func:`midend_route`.
-    Fused: one CTA per (tile of :data:`MID_TILE` outputs, channel);
-    de-emphasis: the ds x2 kernel on the same grid, the de-emphasis (one
-    thread a channel, :data:`DEEMPH_LANES` a block), the Hilbert kernel on
-    the same grid;
-    launches: ds x2, the de-emphasis where it is on, Hilbert.  Then on
-    every route the peak IIR's recurrence, one block per
+    Split: the ds x2 kernel, one CTA per (tile of :data:`MID_TILE`
+    outputs, channel), the de-emphasis where it is on (one thread a
+    channel, :data:`DEEMPH_LANES` a block), the Hilbert kernel on the ds
+    x2 kernel's grid; launches: ds x2, the de-emphasis where it is on,
+    Hilbert.  Then on every route the peak IIR's recurrence, one block per
     :data:`PEAK_LANES` channels, and the theta pass, four outputs a thread
     (storing int16 theta where the outputs are int16)."""
     n8 = n4 // 2
-    route = midend_route(coeffs, cfg, n4)
+    split = midend_route(coeffs, n4) == "split"
     tiles = (-(-n8 // MID_TILE), c)
-    if route == "fused":
-        plan = [("k12_mid_fused_kernel", tiles)]
-    elif route == "deemph":
-        plan = [("k12_mid_ds2_kernel", tiles),
-                ("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)),
-                ("k12_mid_hilb_kernel", tiles)]
-    else:
-        plan = [("fir_decimate_kernel", (-(-c * n8 // 256),))]
-        if cfg.use_deemphasis_filter:
-            plan.append(("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)))
-        plan.append(("k12_hilbert_kernel", (-(-c * n8 // 256),)))
+    flat = (-(-c * n8 // 256),)
+    plan = [("k12_mid_ds2_kernel", tiles) if split
+            else ("fir_decimate_kernel", flat)]
+    if cfg.use_deemphasis_filter:
+        plan.append(("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)))
+    plan.append(("k12_mid_hilb_kernel", tiles) if split
+                else ("k12_hilbert_kernel", flat))
     return plan + [("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
                    ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
 
 
-def midend_route(coeffs, cfg, n4: int) -> str:
-    """"fused", "deemph" or "launches": the route ``fmt_midend`` and
-    ``fmt_k12`` take (a host copy of ``csrc/k12_stages.cuh::midend_route``,
-    by which the wrappers allocate).  Where the filters have the tiled
-    kernels' orders and the block holds both carried tails (B/4 >= ds x2
-    taps - 2, B/8 >= Hilbert taps - 1), fused with de-emphasis off and
-    "deemph" with it on, in float32 and in every int16 form alike; else
-    "launches"."""
+def midend_route(coeffs, n4: int) -> str:
+    """"split" or "launches": the route ``fmt_midend`` and ``fmt_k12``
+    take (a host copy of ``csrc/k12_stages.cuh::midend_route``, by which
+    the wrappers allocate).  Where the filters have the tiled kernels'
+    orders and the block holds both carried tails (B/4 >= ds x2 taps - 2,
+    B/8 >= Hilbert taps - 1), "split", with de-emphasis on or off and in
+    float32 and in every int16 form alike; else "launches".  The
+    de-emphasis decides only whether its launch runs."""
     nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
-    if (nn2, nh) != FUSED_TAPS or n4 < nn2 - 2 or n4 // 2 < nh - 1:
+    if (nn2, nh) != TILED_TAPS or n4 < nn2 - 2 or n4 // 2 < nh - 1:
         return "launches"
-    return "deemph" if cfg.use_deemphasis_filter else "fused"
+    return "split"
 
 
 def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
@@ -268,20 +259,17 @@ def mid_outputs(state: dict, cfg, a: dict, fmd, fm_out, power,
 
 
 def mid_buffers(route: str, a: dict, c: int, n8: int, dev) -> dict:
-    """The mid end's scratch by ``route``: ``yi`` [C, n8] on every route
-    (the peak IIR's recurrence writes its filtered im plane there); on the
-    launches and de-emphasis routes ``fm_out`` [C, n8] (whose last samples
-    become the carried Hilbert tail); on the fused route ``tails`` [C,
-    (ds x2 taps - 2) + (Hilbert taps - 1)], where the kernel writes both
-    new carried tails, on the de-emphasis route ``tails`` [C, ds x2 taps -
-    2], where its ds x2 kernel writes the new ds x2 tail."""
+    """The mid end's scratch by ``route``: ``yi`` [C, n8] (the peak IIR's
+    recurrence writes its filtered im plane there) and ``fm_out`` [C, n8]
+    (whose last samples become the carried Hilbert tail) on every route;
+    on the split route ``tails`` [C, ds x2 taps - 2], where its ds x2
+    kernel writes the new ds x2 tail."""
     f = dict(device=dev, dtype=torch.float32)
-    h2, hh = a["tail2"].shape[-1], a["htail"].shape[-1]
-    return {"fm_out": (None if route == "fused"
-                       else torch.empty((c, n8), **f)),
+    h2 = a["tail2"].shape[-1]
+    return {"fm_out": torch.empty((c, n8), **f),
             "yi": torch.empty((c, n8), **f),
-            "tails": (None if route == "launches" else torch.empty(
-                (c, h2 + hh if route == "fused" else h2), **f))}
+            "tails": (None if route == "launches"
+                      else torch.empty((c, h2), **f))}
 
 
 def buf_ptrs(buf: dict) -> list:
@@ -291,26 +279,21 @@ def buf_ptrs(buf: dict) -> list:
 
 
 def count_route(route: str) -> None:
-    """Count a launch of K2 or K12 on the fused or the de-emphasis route
-    (``launches_fused``, ``launches_deemph``)."""
-    global launches_fused, launches_deemph
-    if route == "fused":
-        launches_fused += 1
-    elif route == "deemph":
-        launches_deemph += 1
+    """Count a launch of K2 or K12 on the split route
+    (``launches_split``)."""
+    global launches_split
+    if route == "split":
+        launches_split += 1
 
 
-def mid_tails(route: str, a: dict, buf: dict, fmd):
-    """(fmd, fm_out) for :func:`mid_outputs`: on the fused route the two
-    carried tails the kernel wrote; on the de-emphasis route the ds x2
-    tail its ds x2 kernel wrote and the ``fm_out`` scratch; else ``fmd``
-    and the ``fm_out`` scratch."""
+def mid_tails(route: str, buf: dict, fmd):
+    """(fmd, fm_out) for :func:`mid_outputs`: on the split route the ds x2
+    tail its ds x2 kernel wrote and the ``fm_out`` scratch, whose last
+    samples are the Hilbert tail; else ``fmd`` and the ``fm_out``
+    scratch."""
     if route == "launches":
         return fmd, buf["fm_out"]
-    if route == "deemph":
-        return buf["tails"], buf["fm_out"]
-    h2 = a["tail2"].shape[-1]
-    return buf["tails"][:, :h2], buf["tails"][:, h2:]
+    return buf["tails"], buf["fm_out"]
 
 
 def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
@@ -322,7 +305,7 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
     f = dict(device=dev, dtype=torch.float32)
     n8 = n4 // 2
     in_i16 = fmd.dtype == torch.int16
-    route = midend_route(coeffs, cfg, n4)
+    route = midend_route(coeffs, n4)
     buf = mid_buffers(route, a, c, n8, dev)
     # float32 re, im, theta: the outputs, or with out_i16 the scratch that
     # the int16 outputs are quantised from
@@ -339,7 +322,7 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
     _build.check("midend", err)
     count_route(route)
     # the carried tail, dequantised: only its last samples, not the planes
-    fmd_t, fm_out_t = mid_tails(route, a, buf,
+    fmd_t, fm_out_t = mid_tails(route, buf,
                                 fmd[:, n4 - a["tail2"].shape[-1] :])
     new = mid_outputs(state, cfg, a, dq_if_i16(fmd_t, FM_SCALE), fm_out_t,
                       power, n8)
@@ -372,7 +355,7 @@ def midend(coeffs, cfg, state: dict, fmd: torch.Tensor,
 
 def _tiled_check(name: str, taps: torch.Tensor, order: int, x: torch.Tensor,
                  dtypes, mult: int, least: int) -> tuple[int, int]:
-    """[C, n] of ``x`` after checking what the de-emphasis route's tiled
+    """[C, n] of ``x`` after checking what the split route's tiled
     kernel ``name`` takes (on every device): its filter order, ``x``'s
     dtype and rank, n % mult == 0 and n >= least."""
     if taps.shape[0] != order:
@@ -412,7 +395,7 @@ def mid_ds2_plain(w2_rev, tail2, src, prev_theta=None, scale: float = 1.0):
 
 def mid_ds2(w2_rev, tail2, src, prev_theta=None, scale: float = 1.0,
             out=None):
-    """The de-emphasis route's ds x2 kernel alone
+    """The split route's ds x2 kernel alone
     (``csrc/k12_stages.cuh::k12_mid_ds2_kernel``): fm_demod ``src`` [C, n4]
     float32 or int16 (FM_SCALE) or, given ``prev_theta`` [C] and the
     discriminator's ``scale``, theta1 [C, n4] (K12's form: the
@@ -421,7 +404,7 @@ def mid_ds2(w2_rev, tail2, src, prev_theta=None, scale: float = 1.0,
     x2 tail [C, 62]).  n4 % 16 == 0.  CPU tensors run
     :func:`mid_ds2_plain`; CUDA tensors launch the kernel, into ``out``
     where it is given."""
-    nn2 = FUSED_TAPS[0]
+    nn2 = TILED_TAPS[0]
     dtypes = ((torch.float32,) if prev_theta is not None
               else (torch.float32, torch.int16))
     c, n4 = _tiled_check("mid_ds2", w2_rev, nn2, src, dtypes, 16, nn2 - 2)
@@ -461,14 +444,14 @@ def mid_hilb_plain(wh_rev, htail, fm_out, out_i16: bool = False):
 
 
 def mid_hilb(wh_rev, htail, fm_out, out_i16: bool = False, out=None):
-    """The de-emphasis route's Hilbert kernel alone
+    """The split route's Hilbert kernel alone
     (``csrc/k12_stages.cuh::k12_mid_hilb_kernel``): fm_out [C, n8]
     float32, the reversed taps ``wh_rev`` [65] and the carried tail
     ``htail`` [C, 64] -> (re, im) [C, n8] float32, with ``out_i16`` also
     (re, im) as int16 at IQ_SCALE.  n8 % 8 == 0 and n8 >= 64.  CPU tensors
     run :func:`mid_hilb_plain`; CUDA tensors launch the kernel, into
     ``out`` where it is given."""
-    nh = FUSED_TAPS[1]
+    nh = TILED_TAPS[1]
     c, n8 = _tiled_check("mid_hilb", wh_rev, nh, fm_out, (torch.float32,), 8,
                          nh - 1)
     if htail.shape != (c, nh - 1):
@@ -500,7 +483,7 @@ def deemph_plain(b, a, state: dict, x):
 
 def deemph(b, a, state: dict, x, out=None):
     """The de-emphasis kernel alone (``csrc/k12_stages.cuh::
-    k12_deemph_kernel``, which both tiled routes and the launches route run
+    k12_deemph_kernel``, which the split route and the launches route run
     in place over fm_out): the 1-pole IIR (b, a) over x [C, n] float32 from
     ``state`` (``x_hist``, ``y_hist`` [C, 1]) -> (new state, y [C, n]), as
     :func:`deemph_plain`.  n % 16 == 0.  CPU tensors run the plain

@@ -3,7 +3,7 @@ so that two checkouts (a commit and its parent) can be compared in turns
 on one card within one call.
 
     python fm_radio_tpu_torch/probes/ab_time.py [--root DIR] [--label L]
-        [--reps N] [--sections cells,k2,fp,rest] [--cells presplit,...]
+        [--reps N] [--sections cells,k2,fp,k3,rest] [--cells presplit,...]
 
 Run as a script: it imports ``fm_radio_tpu_torch`` and ``chip_smoke``
 from DIR (the checkout that holds this file by default), builds that
@@ -26,7 +26,10 @@ checkout's kernels and prints one JSON row per case:
   wideband cell at splits 1, 2 and 3 (``chip_smoke.wideband_path`` on
   bench.py's captures, beside its device busy time and wall a block by
   ``chip_smoke.profile_wideband``: the splits=1 cell's first timed
-  blocks are host-bound and vary from run to run);
+  blocks are host-bound and vary from run to run), and the wideband
+  lenses of :data:`WIDEBAND_LENSES` (M = 16 and the float32 bridge on
+  loud captures, the exact channelizer), each beside its device busy
+  time, wall and kernels' device times a block;
 - K2 in int16 (``kernels/midend.py::midend`` on the arguments
   ``demod_block`` recorded at the i16 cell) and the chunked PLL
   (``kernels/pll.py::pilot_pll_chunked`` on those of the chunked cell);
@@ -88,9 +91,11 @@ checkout's kernels and prints one JSON row per case:
 
 ``--sections`` picks among "cells" (the cells end to end, the lenses
 among them), "k2" (the K2 probe's rows), "fp" (the K1 probe's int8-window
-rows) and "rest" (everything else); all four by default.  ``--cells``
-names the cells of "cells" to time (labels of :data:`CELLS`, and
-"wideband" for the three wideband cells), every one by default: a cell
+rows), "k3" (the K3 probe's value and full alone) and "rest" (everything
+else, k3's rows among it); all but "k3" by default.  ``--cells``
+names the cells of "cells" to time (labels of :data:`CELLS` and of
+:data:`WIDEBAND_LENSES`, and "wideband" for the three wideband cells),
+every one by default: a cell
 whose busy time two runs left unresolved is timed again alone, in more
 turns.
 
@@ -252,7 +257,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=None,
                     help="comma-separated cell labels (default: all)")
     ap.add_argument("--sections", default="cells,k2,fp,rest",
-                    help="comma-separated: cells, k2, fp, rest")
+                    help="comma-separated: cells, k2, fp, k3, rest")
     a = ap.parse_args(argv)
     sections = set(a.sections.split(","))
     root = os.path.abspath(a.root)
@@ -282,6 +287,8 @@ def main(argv=None) -> int:
         cell_rows(row, dev, a.cells.split(",") if a.cells else None)
     if "rest" in sections:
         rest_rows(row, a.reps, dev)
+    elif "k3" in sections:
+        k3_rows(row, a.reps, dev)
     if "k2" in sections:
         k2_rows(row, a.reps, dev)
     if "fp" in sections:
@@ -342,6 +349,31 @@ def cell_rows(row, dev, cells=None) -> None:
                 k: v for k, v in wb["launches"].items() if v},
             device_busy_ms_a_block=prof["device_busy_ms"],
             profiled_wall_ms_a_block=prof["wall_ms"])
+    for cell, w, m, bridge in WIDEBAND_LENSES:
+        if cells is not None and cell not in cells:
+            continue
+        amp = chip_smoke.loud_amp(m)
+        wb = chip_smoke.wideband_path(w, m, 131072, 8, amp=amp,
+                                      bridge=bridge, time_kernels=False,
+                                      device=dev)
+        prof = chip_smoke.profile_wideband(3, w, m, amp=amp, bridge=bridge,
+                                           device=dev)
+        row("wideband_demod_block", f"cell {cell} W={w} M={m} {bridge}",
+            wb["ms_per_block"], launches={
+                k: v for k, v in wb["launches"].items() if v},
+            device_busy_ms_a_block=prof["device_busy_ms"],
+            profiled_wall_ms_a_block=prof["wall_ms"],
+            device_ms_a_block=prof["device_ms_per_block"])
+        del wb
+        torch.cuda.empty_cache()
+
+
+# the wideband lenses beside the three wideband cells (chip_smoke.py's
+# loud captures, the exact channelizer): (label, captures W, M, bridge):
+# M = 16 (W = 128: the same 2,048 stations, K12 on flat planes) and the
+# float32 bridge (K1 on planes, then K2)
+WIDEBAND_LENSES = (("wideband_m16", 128, 16, "i8"),
+                   ("wideband_f32", 64, 32, "f32"))
 
 
 def rest_rows(row, reps: int, dev) -> None:
@@ -546,20 +578,27 @@ def rest_rows(row, reps: int, dev) -> None:
             f"probe {mode}:t=1024",
             _ms(lambda: k3.tile_sum(mode, planes, 1024, k3.C_BLK, out=outs),
                 a.reps))
-    # the K3 probe's value and full (extract's kernel at the probe's 64-
-    # and 128-tap filters) at its default shape, with extract's launches'
-    # device time
+    del xs, x3
+    k3_rows(row, a.reps, dev)
+    k2_rows(row, a.reps, dev)
+    return 0
+
+
+def k3_rows(row, reps: int, dev) -> None:
+    """The K3 probe's value and full (extract's kernel at the probe's 64-
+    and 128-tap filters) at its default shape (C = 1,024 x B8 = 32,768),
+    each beside the device time of extract's launches and
+    ``k3_value_kernel``."""
+    from fm_radio_tpu_torch.probes import k3_probe as k3
+
     xs = k3.make_inputs(1024, 32768, dev)
     co3 = k3.coeffs(dev)
     for mode, fn in (("value", lambda: k3.value(xs, co3)),
                      ("full", lambda: k3.full(xs, co3))):
         row("k3_value" if mode == "value" else "k3_full",
-            f"probe {mode} C=1024 B8=32768", _ms(fn, a.reps),
-            launches_ms=_device_ms_by(fn, a.reps,
+            f"probe {mode} C=1024 B8=32768", _ms(fn, reps),
+            launches_ms=_device_ms_by(fn, reps,
                                       EXT_KEYS + ("k3_value_kernel",)))
-    del xs
-    k2_rows(row, a.reps, dev)
-    return 0
 
 
 if __name__ == "__main__":

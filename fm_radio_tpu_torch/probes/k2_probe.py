@@ -60,7 +60,7 @@ import torch
 from fm_radio_tpu_torch.config import DemodConfig
 from fm_radio_tpu_torch.kernels import _build
 from fm_radio_tpu_torch.kernels.midend import (
-    FUSED_TAPS,
+    TILED_TAPS,
     MID_TILE,
     midend_plain,
 )
@@ -75,7 +75,7 @@ from fm_radio_tpu_torch.probes import _probe
 
 HALO = 128             # the kernels' zero tails: [C, 128]
 DS2_RUN, HILB_RUN = 8, 4  # outputs a thread of ds2's and hilb's kernels
-HILB_DELAY = (FUSED_TAPS[1] - 1) // 2
+HILB_DELAY = (TILED_TAPS[1] - 1) // 2
 LI = (64, 128, 256, 512)
 MODES = ("stream", "ds2", "hilb", "full", *(f"restruct:{li}{s}" for li in LI
                                            for s in ("", ":stk")))
@@ -400,9 +400,9 @@ def engine_check(mode: str, n4: int, t_blk: int, co) -> None:
     order other than 65, t_blk % 16 != 0, t_blk not dividing B4, or B4/2 <
     64."""
     orders = (co.taps_fm_out.shape[0], co.taps_hilbert.shape[0])
-    if orders[: 1 + (mode == "hilb")] != FUSED_TAPS[: 1 + (mode == "hilb")]:
+    if orders[: 1 + (mode == "hilb")] != TILED_TAPS[: 1 + (mode == "hilb")]:
         raise ValueError(f"k2_probe: {mode} runs the tiled kernels' filter "
-                         f"orders {FUSED_TAPS}, got {orders}")
+                         f"orders {TILED_TAPS}, got {orders}")
     nh = orders[1]
     if n4 <= 0 or n4 % 16:
         raise ValueError(f"k2_probe: {mode} needs B4 a positive multiple of "

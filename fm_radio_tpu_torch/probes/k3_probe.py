@@ -16,9 +16,12 @@ same three planes re, im, dt [C, B8]:
             probe's taps (create_fir_lpf(64, 0.1) for L+R and L-R,
             (128, 0.05) for RDS), harmonics 2 and 3, offset 0: at these
             orders ``extract_blocked_any_kernel``
-  value     extract without the staged tile (``csrc/k3_probe.cu``): each
-            thread register-blocks 16 audio outputs and mixes its own
-            window samples as it slides (ROADMAP performance item 1)
+  value     extract without the staged tile (``csrc/k3_probe.cu``): a warp
+            holds a block of one channel's samples in registers, each
+            loaded and mixed once, and slides every FIR's phase windows
+            through its lanes by shuffles, ``VALUE_RUN`` audio outputs a
+            lane (ROADMAP performance item 1); built at the probe's orders
+            only (:data:`VALUE_TAPS`): any other is refused on every device
 
 Semantics pinned down (the tests hold them against the TPU tool): the
 stream-style variants return the TPU's [C, 128] output, which holds only
@@ -47,7 +50,12 @@ from fm_radio_tpu_torch.probes import _probe
 
 C_BLK = 128
 MODES = {"stream1": 0, "stream": 1, "phasor": 2, "stream31": 3}
-VALUE_RUN = 16  # audio outputs per thread (csrc/k3_probe.cu kValueRun)
+# audio outputs a lane of value (csrc/k3_probe.cu kValueRun)
+VALUE_RUN = 4
+# the orders (audio, RDS taps) value is built for (kK3Na, kK3Nr)
+VALUE_TAPS = (64, 128)
+# threads a CTA of value (kValueThreads): 4 warps, each its own block
+VALUE_THREADS = 128
 
 # kernel launches since the counters were last set to 0 (full is the
 # production extract kernel: ``kernels/extract.py`` counts its launches)
@@ -56,6 +64,9 @@ launches_stream31 = 0  # stream31 (fmt_k3_sum on the stacked plane)
 launches_value = 0     # value (fmt_k3_value)
 
 _P, _I = _build.P, _build.I
+# fmt_k3_value's arguments: re, im, dt, C, N, wa, wm, nn_a, wr, nn_r, the
+# five outputs, the stream
+VALUE_ARGTYPES = [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I] + [_P] * 6
 
 
 def reset_counts() -> None:
@@ -175,12 +186,47 @@ def tile_sum(mode: str, xs, t_blk: int, c_blk: int = C_BLK,
     return last, sums
 
 
+def value_geom() -> dict:
+    """A host copy of ``csrc/k3_probe.cu::K3Geom`` at the kernel's run R
+    (:data:`VALUE_RUN`, audio outputs a lane) and orders
+    (:data:`VALUE_TAPS`): a warp's window is ``32 R`` float4 steps from
+    ``hr`` steps before its first audio output (the RDS halo), lane L
+    holding steps R L .. R L + R - 1; audio output j starts ``d`` steps
+    after the RDS output j / 2; the first ``lanes`` lanes store, ``nu`` =
+    R ``lanes`` audio outputs a warp (every value they read lies in the
+    window)."""
+    run, (na, nr) = VALUE_RUN, VALUE_TAPS
+    sa, sr = na // 4, nr // 4
+    ha, hr = sa - 1, (nr - 8) // 4
+    d, w = hr - ha, 32 * run
+    lanes = min(w - sr + 2, w - d - ha) // run
+    return {"run": run, "sa": sa, "sr": sr, "ha": ha, "hr": hr, "d": d,
+            "w": w, "lanes": lanes, "nu": run * lanes, "g": 32 - lanes,
+            "threads": VALUE_THREADS}
+
+
+def value_check(xs, co) -> None:
+    """Raise ValueError unless ``value`` takes these planes and taps (on
+    every device, before any launch): the probe's orders
+    (:data:`VALUE_TAPS`, the only ones its kernel is built for) and N %
+    64 == 0."""
+    _check("value", *xs)
+    orders = (co.taps_audio_lpr.shape[0], co.taps_rds.shape[0])
+    if orders != VALUE_TAPS or co.taps_audio_lmr.shape[0] != VALUE_TAPS[0]:
+        raise ValueError(f"value: its kernel is built for the probe's "
+                         f"{VALUE_TAPS} taps only, got {orders}")
+    if xs[0].shape[1] % 64 or xs[0].shape[1] == 0:
+        raise ValueError(f"value: N % 64 != 0: {tuple(xs[0].shape)}")
+
+
 def value(xs, co=None):
     """extract without the staged tile: (lpr, lmr_re, lmr_im, rds_re,
-    rds_im).  CPU tensors run :func:`extract_plain`."""
-    _check("value", *xs)
+    rds_im), at the probe's orders only (:func:`value_check`, on every
+    device).  CPU tensors run :func:`extract_plain`; CUDA tensors launch
+    the kernel."""
     xr, xi, dt = xs
     co = co or coeffs(xr.device)
+    value_check(xs, co)
     if _build.on_cpu("value", xr.device):
         return extract_plain(xs, co)
     global launches_value
@@ -190,15 +236,25 @@ def value(xs, co=None):
         torch.empty((c, n // 8), **f) for _ in range(2)]
     w = [getattr(co, k).flip(0).contiguous()
          for k in ("taps_audio_lpr", "taps_audio_lmr", "taps_rds")]
-    fn = _build.function("k3_probe", "fmt_k3_value",
-                         [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I]
-                         + [_P] * 5 + [_P])
+    fn = _build.function("k3_probe", "fmt_k3_value", VALUE_ARGTYPES)
     _build.check("k3_probe", fn(
         xr.data_ptr(), xi.data_ptr(), dt.data_ptr(), c, n, w[0].data_ptr(),
         w[1].data_ptr(), w[0].shape[0], w[2].data_ptr(), w[2].shape[0],
         *(o.data_ptr() for o in outs), _build.stream_ptr(xr.device)))
     launches_value += 1
     return tuple(outs)
+
+
+def value_geom_card() -> dict:
+    """The C entry's geometry of value (``fmt_k3_value_geom``), to hold
+    :func:`value_geom` against on the card."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    fn = _build.function("k3_probe", "fmt_k3_value_geom", [_P])
+    _build.check("k3_probe", fn(ctypes.cast(out, ctypes.c_void_p)))
+    return {"run": out[0], "nu": out[1], "lanes": out[2],
+            "threads": out[3]}
 
 
 def full(xs, co=None):
@@ -267,7 +323,8 @@ def run(c: int, b8: int, iters: int, device, check: bool = True,
         ms, out = _probe.time_ms(kern, iters, device)
         err = _probe.max_err(out, plain()) if check else None
         tag = (f"{mode}:t={t_blk}" if t_blk else
-               f"{mode}:run={VALUE_RUN} (no tile)")
+               f"{mode}:run={VALUE_RUN} (no tile)" if mode == "value"
+               else f"{mode}:blocked")
         r = _probe.row(tag, kernel, ms, nbytes, err)
         rows.append(r)
         emit(r)

@@ -169,13 +169,13 @@ def _co_taps(nh: int):
 
 
 @pytest.mark.parametrize("c", [1, 5, 8, 9, 40, 2048])
-@pytest.mark.parametrize("route", ["deemph", "launches"])
+@pytest.mark.parametrize("route", ["split", "launches"])
 def test_plan_deemph_on_its_lanes(route, c):
-    """Both routes that run the de-emphasis plan it on DEEMPH_LANES
+    """Both routes plan the de-emphasis where it is on on DEEMPH_LANES
     channels a block: the grid covers every channel, its last block
     partial where C is not a multiple."""
-    co = CO if route == "deemph" else _co_taps(33)
-    assert tmid.midend_route(co, CFG, 32768) == route
+    co = CO if route == "split" else _co_taps(33)
+    assert tmid.midend_route(co, 32768) == route
     plan = dict(tmid.midend_plan(co, CFG, c, 32768))
     (grid,) = plan["k12_deemph_kernel"]
     assert grid * tmid.DEEMPH_LANES >= c > (grid - 1) * tmid.DEEMPH_LANES

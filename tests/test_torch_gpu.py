@@ -200,17 +200,19 @@ def test_wgmma_channelizer_edges_on_card():
 
 
 @pytest.mark.gpu
-def test_fused_midend_edges_on_card():
-    """K12 (flat and phase-split) and K2 on the fused route equal their
-    plain versions (max abs error 0) at C = 40 and B = 512, 8,192 and
-    8,320 (a partial tile, one whole tile, a whole and a partial one), two
-    blocks with carried state, K2 in its four formats (float32 or int16
-    fm_demod, float32 or int16 outputs), every K2 call counted as a fused
-    launch; the C entry's route equals its host copy."""
+def test_split_midend_edges_on_card():
+    """K12 (flat and phase-split) and K2 on the split route with
+    de-emphasis off (its ds x2 and Hilbert kernels, no de-emphasis launch)
+    equal their plain versions (max abs error 0) at C = 40 and B = 512,
+    8,192 and 8,320 (a partial tile, one whole tile, a whole and a partial
+    one), two blocks with carried state on NaN-filled memory, K2 in its
+    four formats (float32 or int16 fm_demod, float32 or int16 outputs),
+    every call counted as a launch of the route; the C entry's route
+    equals its host copy."""
     _need_card()
     import chip_smoke
 
-    res = chip_smoke.compare_mid_edges(routes=("fused",))
+    res = chip_smoke.compare_mid_edges(routes=("split",))
     assert len(res["rows"]) == 2 + 4, res
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
     assert not res["route_mismatch"] and not res["off_route"], res
@@ -218,34 +220,35 @@ def test_fused_midend_edges_on_card():
 
 
 @pytest.mark.gpu
-def test_fused_midend_edges_on_checked_build():
+def test_split_midend_edges_on_checked_build():
     """The same edge shapes and formats on the bounds-checked build: every
-    global index of the fused kernel, the peak IIR's recurrence and the
-    theta pass is checked (a trap fails the test)."""
+    global index of the split route's two tiled kernels, the peak IIR's
+    recurrence and the theta pass is checked (a trap fails the test)."""
     _need_card()
     import chip_smoke
     from fm_radio_tpu_torch.kernels import _build
 
     with _build.checked_build():
-        res = chip_smoke.compare_mid_edges(routes=("fused",))
+        res = chip_smoke.compare_mid_edges(routes=("split",))
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
     assert not res["route_mismatch"] and not res["off_route"], res
 
 
 @pytest.mark.gpu
 def test_deemph_midend_edges_on_card():
-    """K12 (flat and phase-split) and K2 on the de-emphasis route (its ds
-    x2 and Hilbert kernels around the serial de-emphasis) equal their
-    plain versions (max abs error 0) at C = 1 and 40 and B = 512, 8,192
-    and 8,320, two blocks with carried state on NaN-filled memory, K2 in
-    its four formats, every call counted as a launch of the route; the
-    two kernels alone (ds x2 on float32 and int16 fm_demod and on theta1,
-    Hilbert with and without the int16 outputs) into NaN-filled outputs;
-    the C entry's route (0, 1 or 2) equals its host copy."""
+    """K12 (flat and phase-split) and K2 on the split route with the
+    de-emphasis (its ds x2 and Hilbert kernels around the serial
+    de-emphasis) equal their plain versions (max abs error 0) at C = 1 and
+    40 and B = 512, 8,192 and 8,320, two blocks with carried state on
+    NaN-filled memory, K2 in its four formats, every call counted as a
+    launch of the route; the two kernels alone (ds x2 on float32 and int16
+    fm_demod and on theta1, Hilbert with and without the int16 outputs)
+    into NaN-filled outputs; the C entry's route (0 or 1) equals its host
+    copy."""
     _need_card()
     import chip_smoke
 
-    res = chip_smoke.compare_mid_edges(routes=("deemph",))
+    res = chip_smoke.compare_mid_edges(routes=("split_deemph",))
     assert len(res["rows"]) == 2 + 4 + 3 + 2, res
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
     assert not res["route_mismatch"] and not res["off_route"], res
@@ -254,15 +257,15 @@ def test_deemph_midend_edges_on_card():
 
 @pytest.mark.gpu
 def test_deemph_midend_edges_on_checked_build():
-    """The de-emphasis route's edge shapes on the bounds-checked build:
-    every global index of its ds x2 and Hilbert kernels is checked (a trap
-    fails the test)."""
+    """The split route with the de-emphasis at its edge shapes on the
+    bounds-checked build: every global index of its ds x2 and Hilbert
+    kernels is checked (a trap fails the test)."""
     _need_card()
     import chip_smoke
     from fm_radio_tpu_torch.kernels import _build
 
     with _build.checked_build():
-        res = chip_smoke.compare_mid_edges(routes=("deemph",))
+        res = chip_smoke.compare_mid_edges(routes=("split_deemph",))
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
     assert not res["route_mismatch"] and not res["off_route"], res
 

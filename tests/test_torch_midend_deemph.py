@@ -1,19 +1,21 @@
-"""A numpy model of the mid end's de-emphasis route, bit for bit against
-the port's plain versions (``kernels/midend.py::midend_plain``,
-``mid_ds2_plain``, ``mid_hilb_plain``).
+"""A numpy model of the mid end's split route with de-emphasis on, bit
+for bit against the port's plain versions (``kernels/midend.py::
+midend_plain``, ``mid_ds2_plain``, ``mid_hilb_plain``).
 
-The model walks ``csrc/k12_stages.cuh``'s de-emphasis route as the card
-runs it: ``k12_mid_ds2_kernel`` one CTA per (channel, tile of ``MID_TILE``
-outputs), fm_demod staged over the tile's window from the block (int16
-dequantised as ``dq_i16`` at FM_SCALE, or K12's discriminator on staged
-theta1) and from the carried ds x2 tail, each run of 8 outputs summed tap
+The model walks ``csrc/k12_stages.cuh``'s split route as the card runs it
+with the de-emphasis between its two kernels: ``k12_mid_ds2_kernel`` one
+CTA per (channel, tile of ``MID_TILE`` outputs), fm_demod staged over the
+tile's window from the block (int16 dequantised as ``dq_i16`` at
+FM_SCALE, or K12's discriminator on staged theta1) and from the carried
+ds x2 tail, each run of 8 outputs summed tap
 by tap from the oldest sample, the new ds x2 tail written by each
 channel's last tile; ``k12_deemph_kernel`` in place over fm_out;
 ``k12_mid_hilb_kernel`` one CTA per (channel, tile), the tile's window of
 fm_out staged with the carried Hilbert tail before the block, im summed
 tap by tap, re the delayed sample, stored as float32 and, with the int16
 outputs, as ``q_i16`` at IQ_SCALE.  The peak IIR and theta pass after
-them are the fused route's (tests/test_torch_midend_i16_fused.py).
+them are modelled in tests/test_torch_midend_i16_split.py, which walks
+the same route with de-emphasis off.
 
 C = 3 at B = 512 (one partial tile) and 8,320 (a whole tile and a
 partial one), two blocks with carried state, K2 in its four formats and
@@ -40,7 +42,7 @@ F = np.float32
 CFG = DemodConfig(frontend_int8=True, use_deemphasis_filter=True,
                   deemphasis_cutoff_us=50)
 CO = tdemod.make_coeffs(CFG)
-NN2, NH = tmid.FUSED_TAPS
+NN2, NH = tmid.TILED_TAPS
 H2, HH, D = NN2 - 2, NH - 1, (NH - 1) // 2
 RUN = tmid.MID_TILE // tmid.DS2_THREADS  # ds x2 outputs a thread
 SCALE = 0.37
@@ -137,8 +139,9 @@ def hilb_model(fm_out: np.ndarray, wh_rev, htail, out_i16: bool):
 
 def route_model(state: dict, src: np.ndarray, out_i16: bool,
                 prev_theta=None):
-    """The de-emphasis route up to Hilbert: ((re, im[, re16, im16]), the
-    new ds x2 tail, the new Hilbert tail, the de-emphasis state [C, 2])."""
+    """The split route with de-emphasis up to Hilbert: ((re, im[, re16,
+    im16]), the new ds x2 tail, the new Hilbert tail, the de-emphasis
+    state [C, 2])."""
     a = tmid.mid_args("model", CO, CFG, state, src.shape[0],
                       torch.device("cpu"))
     w2, t2, wh, ht, de = (a[k].numpy() for k in (
@@ -174,10 +177,11 @@ def _check_state(new: dict, tail, htail, de) -> None:
                                             (False, True), (True, True)],
                          ids=["f32", "in_i16", "out_i16", "i16_both"])
 def test_deemph_model_matches_plain(b, in_i16, out_i16):
-    """Every format of K2 takes the de-emphasis route; its tiles, halos and
-    carried tails bit for bit against midend_plain over two blocks."""
+    """Every format of K2 takes the split route with the de-emphasis; its
+    tiles, halos and carried tails bit for bit against midend_plain over
+    two blocks."""
     cfg = dataclasses.replace(CFG, interstage_i16=in_i16 or out_i16)
-    assert tmid.midend_route(CO, cfg, b // 4) == "deemph"
+    assert tmid.midend_route(CO, b // 4) == "split"
     c = 3
     rng = np.random.default_rng(b + 2 * in_i16 + out_i16)
     st = _state(c, rng)

@@ -1,15 +1,19 @@
-"""A numpy model of the fused mid end in K2's four formats, bit for bit
-against the port's plain version (``kernels/midend.py::midend_plain``).
+"""A numpy model of the mid end's split route with de-emphasis off (the
+receiver's default) in K2's four formats, bit for bit against the port's
+plain version (``kernels/midend.py::midend_plain``).
 
-The model walks ``csrc/k12_stages.cuh``'s fused route as the card runs it:
-``k12_mid_fused_kernel<false, In, kOut16>`` one CTA per (channel, tile of
-``MID_TILE`` outputs), fm_demod staged over the tile's window from the
-block (int16 dequantised where it is staged, as ``dq_i16`` at FM_SCALE)
-and from the carried ds x2 tail, the ds x2 outputs before the block taken
-from the carried Hilbert tail, every FIR output summed tap by tap from the
-oldest sample, the two carried tails written by each channel's last tile
-(the ds x2 tail from the dequantised values), re and im stored as float32
-and, with the int16 outputs, as ``q_i16`` at IQ_SCALE; then
+The model walks ``csrc/k12_stages.cuh``'s split route as the card runs
+it, with no de-emphasis launch: ``k12_mid_ds2_kernel<false, In>`` one CTA
+per (channel, tile of ``MID_TILE`` outputs), fm_demod staged over the
+tile's window from the block (int16 dequantised where it is staged, as
+``dq_i16`` at FM_SCALE) and from the carried ds x2 tail, each output
+summed tap by tap from the oldest sample into fm_out, the new ds x2 tail
+(the dequantised values) written by each channel's last tile;
+``k12_mid_hilb_kernel<kOut16>`` one CTA per (channel, tile), fm_out's
+window staged with the carried Hilbert tail before the block, re and im
+stored as float32 and, with the int16 outputs, as ``q_i16`` at IQ_SCALE
+(tests/test_torch_midend_deemph.py's ``ds2_model`` and ``hilb_model``);
+the new Hilbert tail fm_out's last samples; then
 ``k12_peak_rec_kernel`` (the two biquads in time order, the pilot power
 summed in double) and ``k12_theta_kernel<kI16>`` (theta = atan2 / 2 pi in
 float32, with the int16 outputs stored as ``q_i16`` at PH_SCALE).
@@ -34,23 +38,14 @@ from fm_radio_tpu_torch.kernels import midend as tmid
 from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, IQ_SCALE, PH_SCALE
 from fm_radio_tpu_torch.models import demod as tdemod
 from fm_radio_tpu_torch.ops.cmath import _ATAN_C
+from test_torch_midend_deemph import ds2_model, dq16, hilb_model, q16
 
 F = np.float32
 CFG = DemodConfig(frontend_int8=True)
 CO = tdemod.make_coeffs(CFG)
-NN2, NH = tmid.FUSED_TAPS
+NN2, NH = tmid.TILED_TAPS
 H2, HH, D = NN2 - 2, NH - 1, (NH - 1) // 2
 POWER_RTOL = 1e-5
-
-
-def q16(x: np.ndarray, scale: float) -> np.ndarray:
-    """``common.cuh::q_i16``: round half to even, saturate to +-32767."""
-    return np.clip(np.rint(x * F(scale)), -32767, 32767).astype(np.int16)
-
-
-def dq16(v: np.ndarray, scale: float) -> np.ndarray:
-    """``common.cuh::dq_i16``: through int32, times 1 / scale."""
-    return v.astype(np.int32).astype(F) * F(1.0 / scale)
 
 
 def atan2(y: np.ndarray, x: np.ndarray) -> np.ndarray:
@@ -68,42 +63,13 @@ def atan2(y: np.ndarray, x: np.ndarray) -> np.ndarray:
     return np.where(y < 0, -a, a)
 
 
-def fused_model(fmd: np.ndarray, w2_rev, tail2, wh_rev, htail):
-    """``k12_mid_fused_kernel`` tile by tile: (re, im [C, n8] float32, the
-    new tails [C, H2 + HH]); fmd float32, or int16 at FM_SCALE."""
-    c, n4 = fmd.shape
-    n8 = n4 // 2
-    re = np.full((c, n8), np.nan, F)
-    im = np.full((c, n8), np.nan, F)
-    tails = np.full((c, H2 + HH), np.nan, F)
-    for i0 in range(0, n8, tmid.MID_TILE):
-        nt = min(tmid.MID_TILE, n8 - i0)
-        last = i0 + nt == n8
-        nf = nt + HH
-        j = 2 * (i0 - HH) - H2 + np.arange(2 * nf + H2)  # the window
-        s_u = np.zeros((c, j.size), F)
-        inb, old = j >= 0, (j < 0) & (j >= -H2)
-        s_u[:, inb] = (dq16(fmd[:, j[inb]], FM_SCALE)
-                       if fmd.dtype == np.int16 else fmd[:, j[inb]])
-        s_u[:, old] = tail2[:, H2 + j[old]]
-        if last:
-            tails[:, :H2] = s_u[:, j >= n4 - H2]
-        a = np.arange(nf)
-        acc = np.zeros((c, nf), F)
-        for k in range(NN2):
-            acc = acc + w2_rev[k] * s_u[:, 2 * a + k]
-        i = i0 - HH + a
-        s_f = acc.copy()
-        s_f[:, i < 0] = htail[:, HH + i[i < 0]]
-        if last:
-            tails[:, H2:] = s_f[:, i >= n8 - HH]
-        r = np.arange(nt)
-        acc = np.zeros((c, nt), F)
-        for k in range(NH):
-            acc = acc + wh_rev[k] * s_f[:, r + k]
-        im[:, i0 : i0 + nt] = acc
-        re[:, i0 : i0 + nt] = s_f[:, r + HH - D]
-    return re, im, tails
+def split_model(fmd: np.ndarray, w2_rev, tail2, wh_rev, htail):
+    """The split route up to Hilbert with no de-emphasis: (re, im [C, n8]
+    float32, the new tails [C, H2 + HH]: the one the ds x2 kernel writes,
+    then fm_out's last HH samples); fmd float32, or int16 at FM_SCALE."""
+    fm_out, tail = ds2_model(fmd, w2_rev, tail2)
+    re, im = hilb_model(fm_out, wh_rev, htail, False)
+    return re, im, np.concatenate([tail, fm_out[:, -HH:]], axis=1)
 
 
 def peak_model(re, im, pk: np.ndarray, b, a):
@@ -132,11 +98,11 @@ def peak_model(re, im, pk: np.ndarray, b, a):
 
 
 def midend_model(state: dict, fmd: np.ndarray, out_i16: bool):
-    """The fused route after fm_demod: ((re, im), theta, the carried
-    tails, the peak state [C, 8], the power)."""
+    """The split route after fm_demod, de-emphasis off: ((re, im), theta,
+    the carried tails, the peak state [C, 8], the power)."""
     a = tmid.mid_args("model", CO, CFG, state, fmd.shape[0],
                       torch.device("cpu"))
-    re, im, tails = fused_model(fmd, *(a[k].numpy() for k in (
+    re, im, tails = split_model(fmd, *(a[k].numpy() for k in (
         "w2_rev", "tail2", "wh_rev", "htail")))
     yr, yi, pk, pw = peak_model(re, im, a["pk_in"].numpy(), CO.peak_b,
                                 CO.peak_a)
@@ -152,10 +118,13 @@ def midend_model(state: dict, fmd: np.ndarray, out_i16: bool):
 @pytest.mark.parametrize("in_i16,out_i16", [(False, False), (True, False),
                                             (False, True), (True, True)],
                          ids=["f32", "in_i16", "out_i16", "i16_both"])
-def test_fused_model_matches_plain(b, in_i16, out_i16):
-    """Every format the fused route serves, its tiles, halos and carried
-    tails bit for bit against midend_plain over two blocks."""
-    assert tmid.midend_route(CO, CFG, b // 4) == "fused"
+def test_split_model_matches_plain(b, in_i16, out_i16):
+    """Every format on the split route with de-emphasis off, its tiles,
+    halos and carried tails bit for bit against midend_plain over two
+    blocks; the plan has no de-emphasis launch."""
+    assert tmid.midend_route(CO, b // 4) == "split"
+    assert "k12_deemph_kernel" not in dict(tmid.midend_plan(CO, CFG, 3,
+                                                            b // 4))
     c = 3
     rng = np.random.default_rng(b + 2 * in_i16 + out_i16)
     st = tdemod.demod_init_state(CFG, c)
