@@ -69,9 +69,12 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    formats: float32 or int16 fm_demod, float32 or int16 outputs, each a
    counted launch of its route) on the mid end's split route with
    de-emphasis off at C=40 and on at C = 1 and 40 (there also its ds x2
-   and Hilbert kernels alone), B = 512, 8,192 and 8,320, memory NaN-filled
-   first, max abs error 0, on the default and the bounds-checked build,
-   and the mid end's route on the card against its host copy
+   and Hilbert kernels alone), B = 512, 8,192 and 8,320, and at the other
+   filter orders of MID_ANY_ORDERS (the any-order kernels; C = 40, the
+   smallest block that holds the tails and 8,320; K12 where its ds x4
+   takes the order), memory NaN-filled first, max abs error 0, on the
+   default and the bounds-checked build, and the mid end's route on the
+   card against its host copy, past the halo too
    (:func:`compare_mid_edges`); the sequential PLL at C = 40
    and 5, N = 16, 32, 48 and 16,384 on both forms, the chunked PLL at C =
    5 and 40, G = 2, 4, 8, W = 0, 7, 4,096 and chunk lengths a multiple of
@@ -217,6 +220,17 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    (:func:`ext_floor`), and profiled (its profile must show
    ``extract_blocked_any_kernel`` and neither ``extract_kernel`` nor
    ``extract_blocked_kernel``);
+4g. the mid end's other-order lens presplit_mo96 (pre-split at
+   ``order_poly_ds_lpf_fm_out = 96, order_fir_hilbert = 97``, C=2048 x
+   B=131,072, bench.py's signal): one warm-up block, 8 counted blocks
+   (every K12 launch on the split route's ``k12_mid_ds2_any_kernel`` and
+   ``k12_mid_hilb_any_kernel``), K12 and the two kernels timed alone
+   beside their plain versions on the last block's arguments and
+   compared, with their bounds, FMUL+FADD issue floors (:func:`mid_floor`)
+   and one ``F.conv1d`` call each (:func:`mid_library_ms`), and profiled
+   (its profile must show both any-order kernels and none of the tiled
+   kernels built for 64 / 65 taps, the launches route's ds x2, Hilbert
+   and discriminator, the fused kernel or the de-emphasis);
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -562,6 +576,10 @@ COUNTERS = (
     ("mid_ds2", "midend", "launches_ds2"),
     ("deemph", "midend", "launches_de"),
     ("mid_hilb", "midend", "launches_hilb"),
+    # the split route's any-order kernels, every launch (by K12, K2 or
+    # alone): the filter orders other than the receiver's 64 / 65 taps
+    ("mid_ds2_any", "midend", "launches_ds2_any"),
+    ("mid_hilb_any", "midend", "launches_hilb_any"),
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
     ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
@@ -650,7 +668,7 @@ def _state_err(sa: dict, sb: dict, keys) -> float:
                 err = max(err, float((torch.as_tensor(x).double()
                                       - torch.as_tensor(y).double())
                                      .abs().max()))
-        else:
+        elif a.numel():  # a tail of no samples (a 4-tap ds x4) holds none
             if a.is_complex():
                 a, b = torch.view_as_real(a), torch.view_as_real(b)
             err = max(err, float((a.double() - b.double()).abs().max()))
@@ -1914,8 +1932,11 @@ DEEMPH_MID = {"presplit_de": "k12", "f32w_de": "midend"}
 DEEMPH_KERNELS = ("k12_mid_ds2_kernel", "k12_deemph_kernel",
                   "k12_mid_hilb_kernel")
 DEEMPH_GONE = {"presplit_de": ("fir_decimate_kernel", "k12_hilbert_kernel",
-                               "k12_disc_kernel"),
-               "f32w_de": ("fir_decimate_kernel", "k12_hilbert_kernel")}
+                               "k12_disc_kernel", "k12_mid_ds2_any_kernel",
+                               "k12_mid_hilb_any_kernel"),
+               "f32w_de": ("fir_decimate_kernel", "k12_hilbert_kernel",
+                           "k12_mid_ds2_any_kernel",
+                           "k12_mid_hilb_any_kernel")}
 
 
 def mid_floor(name: str, args) -> dict:
@@ -1936,43 +1957,45 @@ def mid_floor(name: str, args) -> dict:
             "sm_clock_hz": hz}
 
 
-def deemph_args(label: str, calls: dict) -> dict:
-    """The split route's three kernels' arguments on a de-emphasis lens's
-    recorded block (``calls``: K12's or K2's): ds x2 on theta1 (K12, made
-    by the plain ds x4 from the block) or on fm_demod (K2) with the carried
-    ds x2 tail; the de-emphasis on that block's fm_out (the plain ds x2,
-    which the kernel equals bit for bit) with the carried de-emphasis
-    state; Hilbert on the de-emphasised fm_out with the carried Hilbert
-    tail."""
+def mid_alone_args(mid: str, calls: dict) -> dict:
+    """The split route's kernels' arguments on a lens's recorded block
+    (``calls``; ``mid`` the mid end's wrapper, "k12" or "midend"): ds x2
+    on theta1 (K12, made by the plain ds x4 from the block) or on fm_demod
+    (K2) with the carried ds x2 tail; where it is on, the de-emphasis on
+    that block's fm_out (the plain ds x2, which the kernel equals bit for
+    bit) with the carried de-emphasis state; Hilbert on the (de-emphasised)
+    fm_out with the carried Hilbert tail."""
     from fm_radio_tpu_torch.kernels import midend as km
     from fm_radio_tpu_torch.kernels.frontend import _scale, ds4_theta_plain
     from fm_radio_tpu_torch.ops.iir import iir_filter
 
-    co, cfg, st, x = calls[DEEMPH_MID[label]][:4]
+    co, cfg, st, x = calls[mid][:4]
     a = km.mid_args("lens", co, cfg, st, x.shape[-2], x.device)
-    if label == "presplit_de":
+    if mid == "k12":
         theta1, _ = ds4_theta_plain(co, st, x, True)
         ds2 = (a["w2_rev"], a["tail2"], theta1.contiguous(),
                st["disc_prev_theta"].contiguous(), _scale(cfg))
     else:
         ds2 = (a["w2_rev"], a["tail2"], x)
     fm_out, _ = km.mid_ds2_plain(*ds2)
-    de = (co.deemph_b, co.deemph_a, st["deemph"], fm_out.contiguous())
-    _, fm_out = iir_filter(*de)
-    return {"mid_ds2": ds2, "deemph": de,
-            "mid_hilb": (a["wh_rev"], a["htail"], fm_out.contiguous())}
+    out = {"mid_ds2": ds2}
+    if cfg.use_deemphasis_filter:
+        out["deemph"] = (co.deemph_b, co.deemph_a, st["deemph"],
+                         fm_out.contiguous())
+        _, fm_out = iir_filter(*out["deemph"])
+    out["mid_hilb"] = (a["wh_rev"], a["htail"], fm_out.contiguous())
+    return out
 
 
-def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
-                block: int = 131072, blocks: int = 8, device="cuda") -> dict:
-    """One de-emphasis lens (:data:`DEEMPH_LENSES`) as the split cells run:
-    one warm-up block, ``blocks`` counted blocks (every launch of the mid
-    end on the split route, with its de-emphasis), then the mid end's
-    wrapper (K12 or K2) timed alone beside its plain version on the last
-    block's arguments and compared, and the route's two kernels alone
-    beside theirs
-    (:func:`deemph_args`), with their bounds and issue floors
-    (:func:`mid_floor`)."""
+def lens_run(label: str, kind: str, kw: dict, channels: int, block: int,
+             blocks: int, want: dict, device) -> tuple[dict, dict]:
+    """A lens as the split cells run: bench.py's signal in the form
+    ``kind`` under ``DemodConfig(**kw)``, one warm-up block, then
+    ``blocks`` blocks through ``demod_block`` with the launch counters set
+    to 0 just before and read just after (each kernel of ``want`` launched
+    that many times a block, every other not at all), the outputs' shape
+    and finiteness checked.  Returns (the row: launches, ms/block, Msps,
+    peak memory; the last block's recorded arguments; the block)."""
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.models.demod import (
         demod_block, demod_init_state, make_coeffs)
@@ -1995,12 +2018,8 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     torch.cuda.synchronize(device)
     launches = read_counts()
     ms = start.elapsed_time(end)
-    mid = DEEMPH_MID[label]
-    front = {"k12": blocks} if mid == "k12" else {"frontend": blocks,
-                                                  "midend": blocks}
-    check_counts(launches, {**front, "midend_split": blocks, "pll": blocks,
-                            "extract": blocks, "extract_blocked": blocks,
-                            "bpsk": blocks}, f"lens {label}")
+    check_counts(launches, {k: n * blocks for k, n in want.items()},
+                 f"lens {label}")
     if tuple(outs["audio"].shape) != (channels, block // 32, 2):
         raise RuntimeError(f"{label}: audio shape "
                            f"{tuple(outs['audio'].shape)}")
@@ -2012,14 +2031,41 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
            "launches": launches, "ms_per_block": ms / blocks,
            "msps": channels * block * blocks / (ms / 1e3) / 1e6,
            "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
-    alone = deemph_args(label, calls)
+    return res, calls, x
+
+
+# the receiver's launches after the mid end, once a block on every lens
+LENS_TAIL = {"pll": 1, "extract": 1, "extract_blocked": 1, "bpsk": 1}
+
+
+def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
+                block: int = 131072, blocks: int = 8, device="cuda") -> dict:
+    """One de-emphasis lens (:data:`DEEMPH_LENSES`) as the split cells run
+    (:func:`lens_run`: every launch of the mid end on the split route,
+    with its de-emphasis), then the mid end's wrapper (K12 or K2) timed
+    alone beside its plain version on the last block's arguments and
+    compared, and the route's three kernels alone beside theirs
+    (:func:`mid_alone_args`), with their bounds and issue and chain
+    floors (:func:`mid_floor`); the de-emphasis launch's grid against the
+    host's plan."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.models.demod import (
+        demod_block, demod_init_state, make_coeffs)
+
+    mid = DEEMPH_MID[label]
+    front = {"k12": 1} if mid == "k12" else {"frontend": 1, "midend": 1}
+    res, calls, x = lens_run(label, kind, kw, channels, block, blocks,
+                             {**front, "midend_split": 1, **LENS_TAIL},
+                             device)
+    alone = mid_alone_args(mid, calls)
     (res["kernel_ms"], res["plain_ms"], res["compare"],
      res["bound"]) = time_stages({mid: calls[mid], **alone})
     res["floors"] = {n: mid_floor(n, a) for n, a in alone.items()}
     # the de-emphasis launch's grid and block as the card ran them, against
     # the host's plan (kernels/midend.py::midend_plan, DEEMPH_LANES)
-    from fm_radio_tpu_torch.kernels import midend as km
-
+    cfg = DemodConfig(**kw)
+    co = make_coeffs(cfg, device)
     st0 = demod_init_state(cfg, channels, device)
     grids = launch_grids(lambda: demod_block(cfg, co, st0, x),
                          ("k12_deemph_kernel",), device)["k12_deemph_kernel"]
@@ -2046,53 +2092,105 @@ EXT_GONE = ("extract_kernel", "extract_blocked_kernel")
 
 def order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
                block: int = 131072, blocks: int = 8, device="cuda") -> dict:
-    """The other-order lens (:data:`ORDER_LENSES`) as the cells run: one
-    warm-up block, ``blocks`` counted blocks (every extract launch on
-    extract_blocked_any_kernel), then extract timed alone beside its
-    plain version on the last block's arguments and compared, with its
-    bound and its FMUL+FADD issue floor (:func:`ext_floor`)."""
+    """The other-order lens (:data:`ORDER_LENSES`) as the cells run
+    (:func:`lens_run`: every extract launch on extract_blocked_any_kernel),
+    then extract timed alone beside its plain version on the last block's
+    arguments and compared, with its bound and its FMUL+FADD issue floor
+    (:func:`ext_floor`)."""
     from fm_radio_tpu_torch.config import DemodConfig
-    from fm_radio_tpu_torch.models.demod import (
-        demod_block, demod_init_state, make_coeffs)
+    from fm_radio_tpu_torch.models.demod import make_coeffs
 
-    cfg = DemodConfig(**kw)
-    co = make_coeffs(cfg, device)
-    st = demod_init_state(cfg, channels, device)
-    x = split_input(kind, channels, block, 0, device)
-    st, _ = demod_block(cfg, co, st, x)  # warm-up
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    calls = {}
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(blocks):
-        st, outs = demod_block(cfg, co, st, x, record=calls)
-    end.record()
-    torch.cuda.synchronize(device)
-    launches = read_counts()
-    ms = start.elapsed_time(end)
-    check_counts(launches, {"k12": blocks, "pll": blocks, "extract": blocks,
-                            "bpsk": blocks, "midend_split": blocks,
-                            "extract_blocked": blocks, "extract_any": blocks},
-                 f"lens {label}")
-    if tuple(outs["audio"].shape) != (channels, block // 32, 2):
-        raise RuntimeError(f"{label}: audio shape "
-                           f"{tuple(outs['audio'].shape)}")
-    for k in ("audio", "rds_pred"):
-        if not bool(torch.isfinite(outs[k]).all()):
-            raise RuntimeError(f"{label}: non-finite {k}")
-    res = {"cell": label, "config": kw, "input": kind, "channels": channels,
-           "block": block, "blocks": blocks, "inputs": input_stats(x),
-           "launches": launches, "ms_per_block": ms / blocks,
-           "msps": channels * block * blocks / (ms / 1e3) / 1e6,
-           "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20}
+    res, calls, _ = lens_run(label, kind, kw, channels, block, blocks,
+                             {"k12": 1, "midend_split": 1, "extract_any": 1,
+                              **LENS_TAIL}, device)
+    co = make_coeffs(DemodConfig(**kw), device)
     (res["kernel_ms"], res["plain_ms"], res["compare"],
      res["bound"]) = time_stages({"extract": calls["extract"]})
     res["floor"] = ext_floor(co.taps_audio_lpr.shape[0],
                              co.taps_rds.shape[0], channels, block // 8)
     return res
+
+
+# the mid end's other-order lens (not a bench.py cell: users who want a
+# sharper 76 kHz decimation and Hilbert filter set
+# DemodConfig.order_poly_ds_lpf_fm_out and order_fir_hilbert): the
+# pre-split cell at 96 ds x2 taps and a 97-tap Hilbert filter (K12's ds x4,
+# of the same order, keeps its register-blocked code: 96 % 16 == 0); the
+# kernels its profile must show (the split route's any-order forms), and
+# the ones it must not (the receiver's tiled kernels, the launches route's
+# ds x2, Hilbert and discriminator, the fused kernel, the de-emphasis)
+MID_ORDER_LENSES = (("presplit_mo96", "i8",
+                     {"frontend_int8": True, "order_poly_ds_lpf_fm_out": 96,
+                      "order_fir_hilbert": 97}),)
+MID_ANY = ("k12_mid_ds2_any_kernel", "k12_mid_hilb_any_kernel")
+MID_ANY_GONE = ("k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
+                "fir_decimate_kernel", "k12_hilbert_kernel", "k12_disc_kernel",
+                "k12_mid_fused_kernel", "k12_deemph_kernel")
+
+
+def mid_order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
+                   block: int = 131072, blocks: int = 8,
+                   device="cuda") -> dict:
+    """The mid end's other-order lens (:data:`MID_ORDER_LENSES`) as the
+    cells run (:func:`lens_run`: every K12 launch on the split route's
+    any-order kernels), then K12 timed alone beside its plain version on
+    the last block's arguments and compared, and the route's two kernels
+    alone beside theirs (:func:`mid_alone_args`: ds x2 on theta1), with
+    their bounds and FMUL+FADD issue floors (:func:`mid_floor`)."""
+    res, calls, _ = lens_run(label, kind, kw, channels, block, blocks,
+                             {"k12": 1, "midend_split": 1, "mid_ds2_any": 1,
+                              "mid_hilb_any": 1, **LENS_TAIL}, device)
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
+    from fm_radio_tpu_torch.ops.discriminator import discriminate_theta
+
+    alone = mid_alone_args("k12", calls)
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"k12": calls["k12"], **alone})
+    res["floors"] = {n: mid_floor(n, a) for n, a in alone.items()}
+    res["library"] = {n: mid_library_ms(n, a) for n, a in alone.items()}
+    # the route's other forms at the lens's orders, alone on the same
+    # block: K2's ds x2 on float32 and int16 fm_demod (the plain
+    # discriminator's output), Hilbert with the int16 outputs
+    w2, tail2, theta1, prev, scale = alone["mid_ds2"]
+    _, fmd = discriminate_theta(prev, theta1, scale)
+    forms = {"mid_ds2:f32": (w2, tail2, fmd.contiguous()),
+             "mid_ds2:i16": (w2, tail2, q_i16(fmd, FM_SCALE)),
+             "mid_hilb:out_i16": (*alone["mid_hilb"], True)}
+    res["forms"] = {}
+    for key, args in forms.items():
+        name = key.split(":")[0]
+        kern, plain = ((km.mid_ds2, km.mid_ds2_plain) if name == "mid_ds2"
+                       else (km.mid_hilb, km.mid_hilb_plain))
+        kern(*args)
+        kout, ms = _cuda_ms(lambda: kern(*args), reps=5)
+        e = stage_errors(name, kout, plain(*args))
+        row = dict(_verdict(name, e), form=key.split(":")[1])
+        res["compare"].append(row)
+        res["forms"][key] = {"ms": ms, "max_abs_err": row["max_abs_err"],
+                             "bound_ms": bound(name, args)["bound_ms"]}
+    return res
+
+
+def mid_library_ms(name: str, args) -> dict:
+    """One PyTorch call that computes the FIR of the split route's kernel
+    ``name`` (``mid_ds2`` or ``mid_hilb``) on its arguments, timed (CUDA
+    events, mean of 5 after one) and used nowhere in the port:
+    ``F.conv1d`` over the carried tail and the source, made once
+    beforehand, with the kernel's reversed taps, stride 2 for ds x2 and 1
+    for Hilbert (its im; re is the delayed input).  On theta1 (K12's form)
+    it runs over theta1 as it stands: the discriminator is not in it.
+    cuDNN runs in float32 (the port turns TF32 off)."""
+    import torch.nn.functional as fnn
+
+    w, tail, src = args[:3]
+    x = torch.cat([tail, src], dim=-1).unsqueeze(1).contiguous()
+    stride = 2 if name == "mid_ds2" else 1
+    fnn.conv1d(x, w.view(1, 1, -1), stride=stride)
+    _, ms = _cuda_ms(lambda: fnn.conv1d(x, w.view(1, 1, -1), stride=stride),
+                     reps=5)
+    return {"library_ms": ms,
+            "library": f"F.conv1d([tail | src], w_rev, stride={stride})"}
 
 
 def launch_grids(step, names, device) -> dict:
@@ -2170,10 +2268,12 @@ SPLIT_MID = ("k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
              "k12_peak_rec_kernel", "k12_theta_kernel")
 # what none of those profiles may show: the fused kernel the split route
 # replaced, the launches route's ds x2 and Hilbert, the peak IIR and
-# quantising pass the int16 forms once took, and the de-emphasis
+# quantising pass the int16 forms once took, the de-emphasis, and the
+# split route's any-order kernels (other filter orders than the cells')
 SPLIT_MID_GONE = ("k12_mid_fused_kernel", "fir_decimate_kernel",
-              "k12_hilbert_kernel", "k12_peak_kernel", "q_i16_kernel",
-              "k12_deemph_kernel")
+                  "k12_hilbert_kernel", "k12_peak_kernel", "q_i16_kernel",
+                  "k12_deemph_kernel", "k12_mid_ds2_any_kernel",
+                  "k12_mid_hilb_any_kernel")
 # the chunked-PLL cell (``python bench.py 256 8``), profiled as the split
 # cells at C = 256 x B = 1,048,576, and its kernel
 PLL_CHUNKED_CELL = ("pll_chunked", "i8", {"frontend_int8": True,
@@ -3088,6 +3188,27 @@ MID_EDGE_ROUTES = {"split": ({}, (40,)),
                    "split_deemph": ({"use_deemphasis_filter": True,
                                      "deemphasis_cutoff_us": 50}, (1, 40))}
 MID_EDGE_BLOCKS = (512, 8192, 8320)
+# the filter orders (ds x2 taps, Hilbert taps) at the edges: the
+# receiver's, on the kernels built for them; and others across the halo
+# on the any-order kernels (short and the longest, odd and even ds x2
+# orders, one filter of the receiver's order beside one of another), each
+# at C = 40 and the smallest block that holds its tails and 8,320 (a
+# whole tile and a partial one); K12 flat where its ds x4 (of the same
+# order) takes it, nn % 4 == 0, phase-split where nn % 16 == 0
+MID_EDGE_ORDERS = ((64, 65),)
+MID_ANY_ORDERS = ((4, 3), (48, 33), (62, 63), (63, 67), (66, 97), (96, 127),
+                  (128, 129), (130, 129), (64, 97), (130, 65))
+
+
+def mid_edge_blocks(nn2: int, nh: int) -> tuple:
+    """The block lengths B at which :func:`compare_mid_edges` runs the
+    orders (nn2, nh): :data:`MID_EDGE_BLOCKS` at the receiver's; else the
+    smallest multiple of 128 (K12's and the theta pass's step) whose B/4
+    and B/8 hold the ds x2 and Hilbert tails, and 8,320."""
+    if (nn2, nh) in MID_EDGE_ORDERS:
+        return MID_EDGE_BLOCKS
+    least = max(4 * (nn2 - 2), 8 * (nh - 1), 128)
+    return (-(-least // 128) * 128, 8320)
 
 
 def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
@@ -3101,7 +3222,7 @@ def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
     from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
 
     c, n4 = fmd.shape
-    nn2, nh = km.TILED_TAPS
+    nn2 = st["w2_rev"].shape[0]
     w2 = st["w2_rev"]
     theta = (torch.rand((c, n4), generator=g, device=device) * 2 - 1) * math.pi
     prev = (torch.rand((c,), generator=g, device=device) * 2 - 1) * math.pi
@@ -3133,22 +3254,26 @@ def _mid_alone(acc: dict, st: dict, fmd, g, device) -> None:
         _merge(acc, f"mid_hilb:{form}", e)
 
 
-def compare_mid_edges(device="cuda",
-                      routes=tuple(MID_EDGE_ROUTES)) -> dict:
+def compare_mid_edges(device="cuda", routes=tuple(MID_EDGE_ROUTES),
+                      orders=MID_EDGE_ORDERS) -> dict:
     """K12 (flat and phase-split) and K2 on the mid end's split route
     (:data:`MID_EDGE_ROUTES`: with de-emphasis off, and on) against the
     plain versions at edge shapes, two blocks with carried state, bench
     planes (K2 on fm_demod drawn as N(0, 0.3^2), float32 or int16 at
     FM_SCALE), the allocator's free memory filled with NaN before each
-    block: at each case's channel counts and B in :data:`MID_EDGE_BLOCKS`;
-    K2 in its four formats (:data:`MID_EDGE_FORMS`), every K12 and K2 call
-    counted as a launch of the route; with the de-emphasis on also its
-    two tiled kernels alone (:func:`_mid_alone`); and the host's route
-    (kernels/midend.py::midend_route) against the C entry's
-    (fmt_midend_route) over de-emphasis, filter orders and block lengths.
-    Returns {"rows": verdict rows (each with its "route" case and "form"),
-    "route_mismatch": [...], "off_route": the calls that did not count as
-    a launch of the route}."""
+    block: at each filter order of ``orders`` (:data:`MID_EDGE_ORDERS`,
+    :data:`MID_ANY_ORDERS`; K12 only where its ds x4 takes the order), at
+    each case's channel counts (other orders than the receiver's at C =
+    40) and B of :func:`mid_edge_blocks`; K2 in its four formats
+    (:data:`MID_EDGE_FORMS`), every K12 and K2 call counted as a launch of
+    the route and of the any-order kernels its orders take; with the
+    de-emphasis on also its two tiled kernels alone (:func:`_mid_alone`);
+    and the host's route (kernels/midend.py::midend_route) against the C
+    entry's (fmt_midend_route) over de-emphasis, filter orders within the
+    halo and past it, and block lengths.  Returns {"rows": verdict rows
+    (each with its "route" case, "form" and "orders"), "route_mismatch":
+    [...], "off_route": the calls that did not count as a launch of the
+    route and of its kernels}."""
     from fm_radio_tpu_torch.kernels import _build
     from fm_radio_tpu_torch.kernels import k12 as kk
     from fm_radio_tpu_torch.kernels import midend as km
@@ -3159,78 +3284,123 @@ def compare_mid_edges(device="cuda",
     device = torch.device(device)
     if device.index is None:  # the wrappers check tensors against it
         device = torch.device("cuda", torch.cuda.current_device())
-    acc, off_route, rows = {}, [], []
+    off_route, rows = [], []
     g = torch.Generator(device=device).manual_seed(7)
-    cases = [("k12", "k12", kk.k12, kk.k12_plain, False),
-             ("k12_ps", "k12_ps", kk.k12_ps, kk.k12_ps_plain, False)]
-    cases += [(label, name, km.midend, km.midend_plain, (in16, out16))
-              for label, name, in16, out16 in MID_EDGE_FORMS]
+    k12_cases = [("k12", "k12", kk.k12, kk.k12_plain, False),
+                 ("k12_ps", "k12_ps", kk.k12_ps, kk.k12_ps_plain, False)]
+    k2_cases = [(label, name, km.midend, km.midend_plain, (in16, out16))
+                for label, name, in16, out16 in MID_EDGE_FORMS]
     for route in routes:
         kw, chans = MID_EDGE_ROUTES[route]
-        cfg = dataclasses.replace(INT8_CONFIG, **kw)
-        co = make_coeffs(cfg, device)
-        acc = {}
-        for c in chans:
-            for b in MID_EDGE_BLOCKS:
-                if km.midend_route(co, b // 4) != "split":
-                    raise RuntimeError(f"B = {b} does not take the split "
-                                       f"route")
-                st = {label: demod_init_state(cfg, c, device)
-                      for label, *_ in cases}
-                x = bench_planes(c, 2 * b, seed=5, device=device)
-                for blk in range(2):
-                    poison_free_memory(device, 64 << 20)
-                    xb = x[:, :, blk * b : (blk + 1) * b].contiguous()
-                    x4 = xb.reshape(2, c, b // 4, 4).permute(
-                        0, 3, 1, 2).contiguous()
-                    fmd = 0.3 * torch.randn((c, b // 4), generator=g,
-                                            device=device)
-                    for label, name, fn, plain, fmt in cases:
-                        if name == "k12":
-                            args = (co, cfg, st[label], xb)
-                        elif name == "k12_ps":
-                            args = (co, cfg, st[label], x4)
-                        else:
-                            in16, out16 = fmt
-                            arg = q_i16(fmd, FM_SCALE) if in16 else fmd
-                            args = (co, cfg, st[label], arg, out16)
-                        before = km.launches_split
-                        kout = fn(*args)
-                        if km.launches_split != before + 1:
-                            off_route.append((route, label, c, b))
-                        pout = plain(*args)
-                        e = stage_errors(I16_BASE.get(name, name), kout,
-                                         pout)
-                        dump_mismatch(name, args, kout, pout, e)
-                        _merge(acc, label, e)
-                        st[label] = kout[0]
-                    if cfg.use_deemphasis_filter:
-                        _mid_alone(acc, km.mid_args(
-                            "edges", co, cfg, st["midend"], c, device),
-                            fmd, g, device)
-                torch.cuda.synchronize(device)
-        rows += [dict(_verdict(name, acc[label]), form=label, route=route,
-                      channels=list(chans))
-                 for label, name, *_ in cases]
-        rows += [dict(_verdict(key.split(":")[0], e), form=key.split(":")[1],
-                      route=route, channels=list(chans))
-                 for key, e in acc.items() if key.startswith("mid_")]
+        for nn2, nh in orders:
+            cfg = dataclasses.replace(
+                INT8_CONFIG, order_poly_ds_lpf_fm_out=nn2,
+                order_fir_hilbert=nh, **kw)
+            co = make_coeffs(cfg, device)
+            cases = [cs for cs in k12_cases
+                     if nn2 % (16 if cs[0] == "k12_ps" else 4) == 0]
+            cases += k2_cases
+            any_kernels = (nn2 != km.TILED_TAPS[0], nh != km.TILED_TAPS[1])
+            acc = {}
+            for c in chans if (nn2, nh) in MID_EDGE_ORDERS else (40,):
+                for b in mid_edge_blocks(nn2, nh):
+                    if km.midend_route(co, b // 4) != "split":
+                        raise RuntimeError(f"B = {b} does not take the split "
+                                           f"route at orders {(nn2, nh)}")
+                    st = {label: demod_init_state(cfg, c, device)
+                          for label, *_ in cases}
+                    x = bench_planes(c, 2 * b, seed=5, device=device)
+                    for blk in range(2):
+                        poison_free_memory(device, 64 << 20)
+                        xb = x[:, :, blk * b : (blk + 1) * b].contiguous()
+                        x4 = xb.reshape(2, c, b // 4, 4).permute(
+                            0, 3, 1, 2).contiguous()
+                        fmd = 0.3 * torch.randn((c, b // 4), generator=g,
+                                                device=device)
+                        for label, name, fn, plain, fmt in cases:
+                            if name == "k12":
+                                args = (co, cfg, st[label], xb)
+                            elif name == "k12_ps":
+                                args = (co, cfg, st[label], x4)
+                            else:
+                                in16, out16 = fmt
+                                arg = q_i16(fmd, FM_SCALE) if in16 else fmd
+                                args = (co, cfg, st[label], arg, out16)
+                            before = (km.launches_split, km.launches_ds2_any,
+                                      km.launches_hilb_any)
+                            kout = fn(*args)
+                            after = (km.launches_split, km.launches_ds2_any,
+                                     km.launches_hilb_any)
+                            if [a - b_ for a, b_ in zip(after, before)] != [
+                                    1, *map(int, any_kernels)]:
+                                off_route.append((route, label, nn2, nh, c,
+                                                  b))
+                            pout = plain(*args)
+                            e = stage_errors(I16_BASE.get(name, name), kout,
+                                             pout)
+                            dump_mismatch(name, args, kout, pout, e)
+                            _merge(acc, label, e)
+                            st[label] = kout[0]
+                        if cfg.use_deemphasis_filter:
+                            _mid_alone(acc, km.mid_args(
+                                "edges", co, cfg, st["midend"], c, device),
+                                fmd, g, device)
+                    torch.cuda.synchronize(device)
+            chan_list = list(chans if (nn2, nh) in MID_EDGE_ORDERS else (40,))
+            rows += [dict(_verdict(name, acc[label]), form=label,
+                          route=route, orders=[nn2, nh], channels=chan_list)
+                     for label, name, *_ in cases]
+            rows += [dict(_verdict(key.split(":")[0], e),
+                          form=key.split(":")[1], route=route,
+                          orders=[nn2, nh], channels=chan_list)
+                     for key, e in acc.items() if key.startswith("mid_")]
     fn = _build.function("midend", "fmt_midend_route", km.ROUTE_ARGTYPES)
-    code = {"launches": 0, "split": 1}
+    code = {"refused": -1, "launches": 0, "split": 1}
     bad = []
     for de in (False, True):
         cf = dataclasses.replace(INT8_CONFIG, use_deemphasis_filter=de,
                                  deemphasis_cutoff_us=50)
         cd = make_coeffs(cf, device)
-        for nn2, nh in ((64, 65), (48, 65), (64, 33)):
-            cx = cd._replace(taps_fm_out=cd.taps_fm_out[:nn2],
-                             taps_hilbert=cd.taps_hilbert[:nh])
-            for n4 in (64, 96, 126, 128, 4096, 32768):
+        for nn2, nh in ((64, 65), (48, 65), (64, 33), (2, 1), (130, 129),
+                        (131, 65), (64, 130), (1, 65), (63, 128)):
+            cx = cd._replace(taps_fm_out=torch.ones(nn2, device=device),
+                             taps_hilbert=torch.ones(nh, device=device))
+            for n4 in (32, 64, 96, 126, 128, 254, 256, 4096, 32768):
                 host = km.midend_route(cx, n4)
                 card = fn(nn2, nh, n4)
                 if code[host] != card:
                     bad.append((de, nn2, nh, n4, host, card))
     return {"rows": rows, "route_mismatch": bad, "off_route": off_route}
+
+
+def compare_mid_any_orders(device="cuda", channels: int = 5) -> list[dict]:
+    """The split route's ds x2 and Hilbert kernels alone
+    (:func:`_mid_alone`: ds x2 on float32 and int16 fm_demod and on theta1,
+    Hilbert with and without the int16 outputs, into NaN-filled outputs)
+    against their plain versions at every order the halo admits: ds x2
+    taps nn2 = 2 .. 130, each beside the odd Hilbert order nh = nn2 - 1 or
+    nn2 (1 .. 129), at B/4 = 2,080 (a whole tile and a partial one of
+    each kernel; :func:`compare_mid_edges` holds the shortest blocks),
+    random taps and tails.  One verdict row a kernel and form."""
+    device = torch.device(device)
+    if device.index is None:  # the wrappers check tensors against it
+        device = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def randn(*shape, scale=0.3):
+        return scale * torch.randn(shape, generator=g, device=device)
+
+    acc = {}
+    for nn2 in range(2, 131):
+        nh = nn2 - 1 if nn2 % 2 == 0 else nn2
+        st = {"w2_rev": randn(nn2, scale=0.1), "wh_rev": randn(nh, scale=0.1),
+              "tail2": randn(channels, nn2 - 2),
+              "htail": randn(channels, nh - 1)}
+        _mid_alone(acc, st, randn(channels, 2080), g, device)
+    torch.cuda.synchronize(device)
+    return [dict(_verdict(key.split(":")[0], e), form=key.split(":")[1],
+                 orders="nn2 2-130, nh 1-129 odd", channels=channels)
+            for key, e in acc.items()]
 
 
 def _pll_theta(c: int, n: int, seed: int, device):
@@ -5234,10 +5404,11 @@ def main() -> int:
     for r in wedge:
         log(f"[compare] matrix kernel edge: {json.dumps(r)}")
     t1 = time.perf_counter()
-    medge = compare_mid_edges(dev)
+    medge = compare_mid_edges(dev, orders=MID_EDGE_ORDERS + MID_ANY_ORDERS)
     try:
         with _build.checked_build():
-            cm = compare_mid_edges(dev)
+            cm = compare_mid_edges(dev,
+                                   orders=MID_EDGE_ORDERS + MID_ANY_ORDERS)
     except RuntimeError as e:
         raise RuntimeError(f"tiled mid end edges on the bounds-checked "
                            f"build: {e}")
@@ -5246,14 +5417,23 @@ def main() -> int:
     medge["off_route"] += cm["off_route"]
     for r in medge["rows"]:
         log(f"[compare] tiled mid end edge: {json.dumps(r)}")
-    log(f"[compare] tiled mid end edges, de-emphasis off and on, both builds: "
-        f"{time.perf_counter() - t1:.1f} s")
+    # the any-order kernels alone at every order the halo admits
+    many = compare_mid_any_orders(dev)
+    with _build.checked_build():
+        many += [dict(r, build="checked")
+                 for r in compare_mid_any_orders(dev)]
+    for r in many:
+        log(f"[compare] any-order mid end kernels, every order: "
+            f"{json.dumps(r)}")
+    log(f"[compare] tiled mid end edges, de-emphasis off and on, "
+        f"{len(MID_EDGE_ORDERS + MID_ANY_ORDERS)} filter orders, both "
+        f"builds: {time.perf_counter() - t1:.1f} s")
     sass = sass_counts()
     log(f"[build] channelizer_wgmma SASS: {json.dumps(sass)}; route "
         f"mismatches {medge['route_mismatch']}; calls off their route "
         f"{medge['off_route']}; {time.perf_counter() - t0:.1f} s")
     bad = [(r["name"], r.get("route"), r.get("form"), r.get("build"))
-           for r in wedge + medge["rows"] if not r["ok"]]
+           for r in wedge + medge["rows"] + many if not r["ok"]]
     if bad or medge["route_mismatch"] or medge["off_route"]:
         raise RuntimeError(f"edge shapes disagree {bad} or the mid end's "
                            f"route differs on the card "
@@ -5702,6 +5882,38 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"extract disagrees with its plain version at "
                            f"the other-order lens: {bad}")
+    # 4g. the mid end's other-order lens: every mid end launch on the split
+    # route's any-order kernels, K12 and the two kernels timed alone, its
+    # profile
+    t0 = time.perf_counter()
+    mlens, mlens_prof = {}, {}
+    for label, kind, kw in MID_ORDER_LENSES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        mlens[label] = mid_order_lens(label, kind, kw, 2048, 131072, 8, dev)
+        log(f"[mid_orders] {json.dumps(mlens[label])}")
+        prof = profile_split(label, kind, kw, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+        mlens_prof[label] = prof
+        gone = showing(prof, MID_ANY_GONE)
+        if lacking(prof, MID_ANY) or gone:
+            raise RuntimeError(f"the {label} lens's profile lacks "
+                               f"{lacking(prof, MID_ANY)} or shows {gone}: "
+                               f"{list(prof['device_ms_per_block'])}")
+        r = mlens[label]
+        log(f"[mid_orders] {label}: {r['ms_per_block']:.3f} ms/block; "
+            f"device ms a block "
+            f"{json.dumps({k: device_ms(prof, k) for k in MID_ANY})}; alone "
+            f"(events) {json.dumps(r['kernel_ms'])} beside the plain "
+            f"versions' {json.dumps(r['plain_ms'])}; bounds "
+            f"{json.dumps({n: b['bound_ms'] for n, b in r['bound'].items()})}"
+            f"; FMUL+FADD issue floors (computed, not measured) "
+            f"{json.dumps({n: floors_ms(f) for n, f in r['floors'].items()})}")
+    log(f"[mid_orders] {time.perf_counter() - t0:.1f} s")
+    bad = [(label, r["name"]) for label, c in mlens.items()
+           for r in c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at "
+                           f"the mid end's other-order lens: {bad}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
@@ -5855,7 +6067,9 @@ def main() -> int:
               + ch["compare"] + pc["compare"] + wb_i8_bench["compare"]
               + wb_i8["compare"] + wb_bf16["compare"] + i16c["compare"]
               + [r for c in lenses.values() for r in c["compare"]]
-              + [r for c in olens.values() for r in c["compare"]]):
+              + [r for c in olens.values() for r in c["compare"]]
+              + [r for c in mlens.values() for r in c["compare"]
+                 if r["name"] == "k12"]):
         err_full[r["name"]] = max(err_full.get(r["name"], 0.0),
                                   r["max_abs_err"])
     paths = {"presplit": mp["launches"],
@@ -5877,6 +6091,7 @@ def main() -> int:
              "i16": i16c["launches"],
              **{label: c["launches"] for label, c in lenses.items()},
              **{label: c["launches"] for label, c in olens.items()},
+             **{label: c["launches"] for label, c in mlens.items()},
              "i16_route_c5": {k: i16_c5_launches.get(k, 0)
                               for k in i16c["launches"]},
              "i16_words": i16c["launches_words"],
@@ -6048,7 +6263,8 @@ def main() -> int:
                  **floors_ms(pre["floors"][n])},
              "resources": res_of(midres, kern),
              "edge_shapes": (deedge if n == "deemph" else
-                             [r for r in medge["rows"] if r["name"] == n]),
+                             [r for r in medge["rows"] if r["name"] == n
+                              and r["orders"] == list(MID_EDGE_ORDERS[0])]),
              **in_turns_keys(n)}
         kernels.append(k)
     # extract at other orders (extract_blocked_any_kernel), alone on the
@@ -6074,6 +6290,45 @@ def main() -> int:
             "device_ms": device_ms(olens_prof[label], EXT_ANY),
             **floors_ms(c["floor"]),
             "edge_shapes": any_edges})
+    # the split route's any-order kernels, each alone on the mid end's
+    # other-order lens's last-block arguments (K12's form: ds x2 on
+    # theta1); their launches: the lens's; their edges: every edge case at
+    # an order that takes them (K12, K2 and the kernels alone)
+    for label, c in mlens.items():
+        for n, stage, kern, axis in (
+                ("mid_ds2_any", "mid_ds2", MID_ANY[0], 0),
+                ("mid_hilb_any", "mid_hilb", MID_ANY[1], 1)):
+            b = c["bound"][stage]
+            tiled = MID_EDGE_ORDERS[0][axis]
+            edges = [r for r in medge["rows"] if r["orders"][axis] != tiled]
+            kernels.append({
+                "name": n, "route": "cuda",
+                "source": "fm_radio_tpu_torch/csrc/k12_stages.cuh",
+                "replaces": "fm_radio_tpu/kernels/k12_pallas.py:59, "
+                            "fm_radio_tpu/kernels/midend_pallas.py:225",
+                "kernel": kern, "lens": label,
+                "orders": [c["config"]["order_poly_ds_lpf_fm_out"],
+                           c["config"]["order_fir_hilbert"]],
+                "launches": c["launches"][n],
+                "launches_by_path": {p: v.get(n, 0)
+                                     for p, v in paths.items()},
+                "max_abs_err": max(
+                    [r["max_abs_err"] for r in c["compare"]
+                     if r["name"] in (stage, "k12")]
+                    + [r["max_abs_err"] for r in edges]
+                    + [r["max_abs_err"] for r in many
+                       if r["name"] == stage]),
+                "ms": c["kernel_ms"][stage], "plain_ms": c["plain_ms"][stage],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": c["library"][stage]["library_ms"],
+                "library": c["library"][stage]["library"],
+                "hbm_bytes_s": b["hbm_bytes_s"],
+                "work": {key: b[key] for key in ("bytes", "f32_ops")},
+                "device_ms": device_ms(mlens_prof[label], kern),
+                **floors_ms(c["floors"][stage]),
+                "resources": res_of(midres, kern),
+                "edge_shapes": edges,
+                "every_order": [r for r in many if r["name"] == stage]})
     # the device-memory probes: each at its fastest variant of the sweep
     for n, src, rep in PROBE_KERNELS:
         pk = hbm["kernels"][n]

@@ -22,8 +22,8 @@
 //   end: feeding the mid end's ds x2 tile directly would recompute its
 //   126-output halo a tile inside that kernel's register budget (PERF.md).
 // - The mid end takes one of two routes (k12_stages.cuh::midend_route).
-//   At the receiver's filter orders, with de-emphasis off (the receiver's
-//   default) or on, the split route: its first launch
+//   At every filter order within the 128-sample halo, with de-emphasis
+//   off (the receiver's default) or on, the split route: its first launch
 //   (k12_mid_ds2_kernel) runs the discriminator on the staged theta1 and
 //   the register-blocked ds x2 (one shared-memory load per tap, not per
 //   multiply-add) and writes fm_out; where the de-emphasis is on it runs
@@ -45,7 +45,12 @@
 //   either, four launches ran ds x2, Hilbert and the peak IIR with the
 //   polynomial atan2 and its IEEE division inside the serial loop (7.27
 //   ms a block at the pre-split cell, the peak IIR 2.31 of it).  Other
-//   filter orders take one launch per stage (the launches route).
+//   orders than the receiver's 64 / 65 taps run the two launches'
+//   any-order forms (k12_mid_ds2_any_kernel, k12_mid_hilb_any_kernel: the
+//   order at run time, the same tiles and register budget); a block
+//   shorter than a carried tail (a direct call only: demod_block's blocks
+//   are multiples of 8,192 samples) takes one launch per stage (the
+//   launches route), with the discriminator's own launch.
 //
 // The stages are shared with the split path through k12_stages.cuh: its
 // ds x4 + discriminator are K1's int8-direct entry (frontend.cu) and its
@@ -266,8 +271,9 @@ using namespace fmt;
 // [C, 8]; scratch theta1 [C, B/4]; outputs re, im, theta [C, B/8], power
 // [C]; the scratch yi [C, B/8].  By midend_route (k12_stages.cuh): on the
 // split route the scratch fm_out [C, B/8] and the output tails [C, nn2-2]
-// (the new ds x2 tail), fmd unused (may be null); on the launches route
-// the scratch fmd [C, B/4] and fm_out [C, B/8], tails unused.
+// (the new ds x2 tail; null only where it is empty), fmd unused (may be
+// null); on the launches route the scratch fmd [C, B/4] and fm_out
+// [C, B/8], tails unused; orders past the halo are refused.
 extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        const int8_t* b1, const int8_t* b2, int nn1,
                        float s_row, const float* prev_theta, float scale,
@@ -282,9 +288,9 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
                        float* theta, float* power, float* yi, float* tails,
                        cudaStream_t stream) {
   const int route = midend_route(nn2, nh, b / 4);
-  const bool bufs = fm_out != nullptr && (route == kMidSplit
-                                              ? tails != nullptr
-                                              : fmd != nullptr);
+  const bool bufs = fm_out != nullptr && route != kMidRefused &&
+                    (route == kMidSplit ? tails != nullptr || nn2 == 2
+                                        : fmd != nullptr);
   if (nn1 % (phase_split ? 16 : 4) != 0 || b % (8 * kBatch) != 0 ||
       yi == nullptr || !bufs) {
     return (int)cudaErrorInvalidValue;
@@ -294,10 +300,10 @@ extern "C" int fmt_k12(const int8_t* x8, const int8_t* tail8,
   if (err1) return err1;
   if (route == kMidSplit) {
     return launch_mid_split<true>(
-        theta1, prev_theta, scale, w2_rev, tail2, use_deemph, de_b0, de_b1,
-        de_a1, de_st_in, de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
-        pk_a2, pk_st_in, pk_st_out, channels, b / 4, fm_out, re, im, theta,
-        yi, tails, power, nullptr, nullptr, nullptr, stream);
+        theta1, prev_theta, scale, w2_rev, nn2, tail2, use_deemph, de_b0,
+        de_b1, de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0, pk_b1,
+        pk_b2, pk_a1, pk_a2, pk_st_in, pk_st_out, channels, b / 4, fm_out, re,
+        im, theta, yi, tails, power, nullptr, nullptr, nullptr, stream);
   }
   const int err = launch_disc(theta1, prev_theta, scale, channels, b / 4, fmd,
                               stream);

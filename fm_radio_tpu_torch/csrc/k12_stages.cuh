@@ -15,11 +15,14 @@
 //   launch_midend         ds x2 -> de-emphasis -> Hilbert -> peak IIR, theta,
 //                         pilot power (midend_pallas.py::_midend_body :119),
 //                         float32 or the int16 format, by midend_route:
-//                         at the receiver's filter orders the split route
-//                         (launch_mid_split: a tiled ds x2 kernel, the
-//                         de-emphasis where it is on, a tiled Hilbert
-//                         kernel); at other orders one launch per stage up
-//                         to Hilbert; every route then runs the peak IIR
+//                         at every filter order within the 128-sample
+//                         halo, on a block that holds both carried tails,
+//                         the split route (launch_mid_split: a tiled ds x2
+//                         kernel, the de-emphasis where it is on, a tiled
+//                         Hilbert kernel; the receiver's orders on kernels
+//                         built for them, any other on any-order forms);
+//                         on a shorter block one launch per stage up to
+//                         Hilbert; every route then runs the peak IIR
 //                         cut to its recurrence and a parallel theta pass
 //                         (launch_peak_theta)
 //
@@ -602,12 +605,13 @@ __global__ void k12_hilbert_kernel(const float* __restrict__ fm_out,
 
 // ---- The mid end's split route ----
 //
-// At the receiver's filter orders the mid end runs two tiled kernels, one
-// channel and one tile of kMidTile outputs a CTA each: k12_mid_ds2_kernel
-// ([K12's discriminator on the staged theta1 ->] ds x2, fm_out to device
-// memory) and k12_mid_hilb_kernel (fm_out staged back, Hilbert -> re, im),
-// with the de-emphasis in place over fm_out between them where it is on
-// (k12_deemph_kernel).  Each FIR output is the same sum, in the same tap
+// At every filter order within the halo the mid end runs two tiled
+// kernels (at other orders than the receiver's their any-order forms,
+// below), one channel and one tile of kMidTile outputs a CTA each:
+// k12_mid_ds2_kernel ([K12's discriminator on the staged theta1 ->] ds
+// x2, fm_out to device memory) and k12_mid_hilb_kernel (fm_out staged
+// back, Hilbert -> re, im), with the de-emphasis in place over fm_out
+// between them where it is on (k12_deemph_kernel).  Each FIR output is the same sum, in the same tap
 // order, as fir_point computes it, so the route equals the launches route
 // (and the plain version) bit for bit.  With de-emphasis off this route
 // replaced a fused kernel that ran both FIRs in one launch with fm_out in
@@ -642,23 +646,31 @@ constexpr int kHilbOuts = 4;     // Hilbert outputs a thread
 // the ds x2 kernel's threads: one run of kDs2Outs outputs each
 constexpr int kDs2Threads = kMidTile / kDs2Outs;
 // the tap counts the tiled kernels are built for (the receiver's ds x2 and
-// Hilbert filters); other orders take the launches route
+// Hilbert filters); every other order within the halo takes their
+// any-order forms (k12_mid_ds2_any_kernel, k12_mid_hilb_any_kernel)
 constexpr int kTiledNn2 = 64;
 constexpr int kTiledNh = 65;
+// the longest carried tail the tiles hold (models/demod.py::check_slice
+// admits no filter reaching further back), and the orders it admits:
+// ds x2 tail nn2 - 2, Hilbert tail nh - 1
+constexpr int kMidHalo = 128;
+constexpr int kMaxNn2 = kMidHalo + 2;
+constexpr int kMaxNh = kMidHalo + 1;
 
 // The mid end's route (kernels/midend.py::midend_route is its host copy):
-// where the filters have the orders the tiled kernels are built for and
-// the block holds both carried tails, in float32 and in every int16 form
-// alike and with de-emphasis on or off, the split route; else the
-// launches (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel).
-// Every route ends with launch_peak_theta.
-enum MidRoute { kMidLaunches = 0, kMidSplit = 1 };
+// at every order within the halo (2 <= nn2 <= kMaxNn2, 1 <= nh <=
+// kMaxNh) on a block that holds both carried tails, in float32 and in
+// every int16 form alike and with de-emphasis on or off, the split route;
+// on a block shorter than a tail (n4 < nn2 - 2 or n4/2 < nh - 1) the
+// launches (fir_decimate_kernel, k12_deemph_kernel, k12_hilbert_kernel;
+// demod_block never sends one: its blocks are whole multiples of 8,192
+// samples, so direct wrapper calls alone take them); other orders are
+// refused.  Every route ends with launch_peak_theta.
+enum MidRoute { kMidRefused = -1, kMidLaunches = 0, kMidSplit = 1 };
 
 inline int midend_route(int nn2, int nh, int n4) {
-  if (nn2 != kTiledNn2 || nh != kTiledNh || n4 < nn2 - 2 ||
-      n4 / 2 < nh - 1) {
-    return kMidLaunches;
-  }
+  if (nn2 < 2 || nn2 > kMaxNn2 || nh < 1 || nh > kMaxNh) return kMidRefused;
+  if (n4 < nn2 - 2 || n4 / 2 < nh - 1) return kMidLaunches;
   return kMidSplit;
 }
 
@@ -954,6 +966,294 @@ k12_mid_hilb_kernel(const float* __restrict__ fm_out,
                                           re16, im16);
 }
 
+// ---- The split route at other filter orders ----
+//
+// Every other order within the halo takes k12_mid_ds2_any_kernel and
+// k12_mid_hilb_any_kernel: the tiled kernels' tiles, threads, runs and
+// stores, with the order passed at run time (the receiver's kernels, built
+// for 64 / 65 taps, keep their own code).  Each FIR is mid_fir_any, the
+// form of extract_stages.cuh::fir_block_any for a thread's run: tap k =
+// M q + p is step q of phase p, each phase keeps a window of R samples in
+// registers, one an output (at step q output r reads slot (r + q) % R; the
+// slot output 0 has just read is refilled with the sample output R - 1
+// reads next), whole blocks of R steps run in a run-time loop, the last
+// 1 .. R steps and the extra step of the nn % M phases in a switch of
+// compile-time instantiations.  So each output is fir_point's sum, in
+// ascending tap order, and no tap is padded (a zero tap would read a
+// sample the plain version never reads for that output: an Inf there
+// would make a NaN).  The window is staged for that loop: a thread's runs
+// start P = M R samples after its neighbour's (ds x2 16, Hilbert 4), and
+// sample j lies at word any_word<P>(j) = j + j / P, so a block of R steps
+// moves every load by P + 1 words (a constant offset from the thread's
+// pointer, no address arithmetic in the loop), and since P + 1 is odd a
+// warp's loads fall in 32 distinct banks.  The taps are read four at a
+// time, as broadcasts.
+// the staged taps' floats: the longest filter and the float4 reads past
+// its last tap
+constexpr int kAnyTaps = kMidHalo + 8;
+
+template <int P>
+__host__ __device__ constexpr int any_word(int j) {
+  return j + j / P;
+}
+
+// S <= R steps of mid_fir_any from a block's first step: xq the thread's
+// window advanced by the blocks before (P + 1 words each), wq the taps
+// from the block's first step (16-byte aligned: a block is P taps, a
+// multiple of 4; the float4 reads may pass the last tap, never used);
+// kLast: the FIR's last steps, whose final one loads nothing.
+template <int M, int R, int S, bool kLast>
+__device__ __forceinline__ void mid_any_steps(const float* __restrict__ xq,
+                                              const float* __restrict__ wq,
+                                              float (&v)[M][R],
+                                              float (&acc)[R]) {
+  constexpr int P = M * R;
+  static_assert(P % 4 == 0 && S <= R, "float4 taps, a block's steps");
+  float4 w4;
+#pragma unroll
+  for (int qq = 0; qq < S; ++qq) {
+#pragma unroll
+    for (int p = 0; p < M; ++p) {
+      const int m = M * qq + p;
+      if (m % 4 == 0) w4 = *reinterpret_cast<const float4*>(wq + m);
+      const float wk = m % 4 == 0   ? w4.x
+                       : m % 4 == 1 ? w4.y
+                       : m % 4 == 2 ? w4.z
+                                    : w4.w;
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] += wk * v[p][(r + qq) % R];
+      if (!kLast || qq + 1 < S) v[p][qq] = xq[any_word<P>(M * (R + qq) + p)];
+    }
+  }
+}
+
+// the last S steps, then the extra step of the phases p < px, its R
+// samples a phase loaded and used once
+template <int M, int R, int S>
+__device__ __forceinline__ void mid_any_tail(const float* __restrict__ xq,
+                                             const float* __restrict__ wq,
+                                             int px, float (&v)[M][R],
+                                             float (&acc)[R]) {
+  constexpr int P = M * R;
+  mid_any_steps<M, R, S, true>(xq, wq, v, acc);
+#pragma unroll
+  for (int p = 0; p < M - 1; ++p) {
+    if (p < px) {
+      const float wk = wq[M * S + p];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[r] += wk * xq[any_word<P>(M * (S + r) + p)];
+    }
+  }
+}
+
+// R neighbouring outputs of a decimate-by-M FIR of nn taps (nn >= M,
+// known at run time) over the window staged at any_word<M R>, from the
+// thread's first sample xl[0] (its run's window starts there):
+//   acc[r] = sum_{k < nn} w[k] * x[M r + k], k ascending, from 0.0f
+template <int M, int R>
+__device__ __forceinline__ void mid_fir_any(const float* __restrict__ xl,
+                                            const float* __restrict__ w,
+                                            int nn, float (&acc)[R]) {
+  constexpr int P = M * R;
+  static_assert(R <= 8, "the switch's cases");
+  const int nq = nn / M, px = nn % M;  // nq >= 1
+  const int q1 = (nq - 1) / R * R;     // steps of the whole blocks
+  float v[M][R];
+#pragma unroll
+  for (int p = 0; p < M; ++p)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[p][r] = xl[any_word<P>(M * r + p)];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll 1
+  for (int qb = 0; qb < q1; qb += R)
+    mid_any_steps<M, R, R, false>(xl + (P + 1) * (qb / R), w + M * qb, v,
+                                  acc);
+  const float* xq = xl + (P + 1) * (q1 / R);
+  const float* wq = w + M * q1;
+  switch (nq - q1) {
+#define FMT_MID_TAIL(S)                                                \
+  case S:                                                              \
+    if constexpr (S <= R) mid_any_tail<M, R, S>(xq, wq, px, v, acc);   \
+    break;
+    FMT_MID_TAIL(1)
+    FMT_MID_TAIL(2)
+    FMT_MID_TAIL(3)
+    FMT_MID_TAIL(4)
+    FMT_MID_TAIL(5)
+    FMT_MID_TAIL(6)
+    FMT_MID_TAIL(7)
+    FMT_MID_TAIL(8)
+#undef FMT_MID_TAIL
+  }
+}
+
+// k12_mid_ds2_kernel's staging (mid_stage_fmd) with the ds x2 tail's
+// length h2 = nn2 - 2 at run time (both the carried tail2 [C, h2] and the
+// new one, into tails [C, h2]) and the window at any_word<P>; NLOAD loads
+// a thread cover the longest window.  Ends with the CTA's barrier.
+template <bool kFromTheta, class In, int NLOAD, int kThr, int P>
+__device__ __forceinline__ void mid_stage_any(
+    const In* __restrict__ x, const float* __restrict__ prev_theta,
+    float scale, const float* __restrict__ tail2, int h2, int n4, int c,
+    int j0, int nu, bool last, float* __restrict__ tails, float* s_u,
+    float* s_t) {
+  constexpr int OFF = kFromTheta ? 1 : 0;  // the discriminator's previous
+  const int64_t nt2 = (int64_t)gridDim.y * h2;
+  In raw[NLOAD];
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int b = threadIdx.x + k * kThr;  // source j0 - OFF + b
+    const int j = j0 - OFF + b;
+    raw[k] = b < nu + OFF && j >= 0 ? FMT_AT(x, j, n4) : In(0);
+  }
+  if constexpr (kFromTheta) {
+#pragma unroll
+    for (int k = 0; k < NLOAD; ++k) {
+      const int b = threadIdx.x + k * kThr;
+      if (b < nu + 1) s_t[b] = raw[k];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int b = threadIdx.x + k * kThr;
+    if (b >= nu) continue;
+    const int j = j0 + b;  // >= -h2
+    float v;
+    if (j >= 0) {
+      if constexpr (kFromTheta) {
+        const float prev =
+            j == 0 ? FMT_AT(prev_theta, c, gridDim.y) : s_t[b];
+        v = disc_value(s_t[b + 1], prev, scale);
+      } else {
+        v = mid_src(raw[k]);
+      }
+      if (last && j >= n4 - h2)
+        FMT_AT(tails, (int64_t)c * h2 + j - (n4 - h2), nt2) = v;
+    } else {
+      v = FMT_AT(tail2, (int64_t)c * h2 + h2 + j, nt2);
+    }
+    s_u[any_word<P>(b)] = v;
+  }
+  __syncthreads();
+}
+
+// k12_mid_ds2_kernel at any order 2 <= nn2 <= kMaxNn2 (its arguments, and
+// nn2): the staging (mid_stage_any) and ds x2 (mid_fir_any<2, kDs2Outs>,
+// each thread's run of kDs2Outs outputs) of one channel's tile, stored as
+// two float4 a run.  The same register budget as the receiver's kernel
+// (kDs2MinBlocks CTAs an SM); shared memory for the longest window.
+template <bool kFromTheta, class In>
+__global__ void __launch_bounds__(kDs2Threads, kDs2MinBlocks)
+k12_mid_ds2_any_kernel(const In* __restrict__ src,
+                       const float* __restrict__ prev_theta, float scale,
+                       const float* __restrict__ w2_rev, int nn2,
+                       const float* __restrict__ tail2, int n4,
+                       float* __restrict__ fm_out,
+                       float* __restrict__ tails) {
+  static_assert(!kFromTheta || sizeof(In) == sizeof(float),
+                "theta1 is float32");
+  static_assert(kDs2Outs == 8, "two float4 stores a run");
+  constexpr int P = 2 * kDs2Outs;  // samples between neighbouring runs
+  constexpr int NU = 2 * kMidTile + kMidHalo;  // the longest window
+  constexpr int OFF = kFromTheta ? 1 : 0;
+  constexpr int NLOAD = (NU + OFF + kDs2Threads - 1) / kDs2Threads;
+  __shared__ __align__(16) float s_u[any_word<P>(NU) + 1];
+  __shared__ float s_t[kFromTheta ? NU + 1 : 1];
+  __shared__ __align__(16) float s_w2[kAnyTaps];
+  const int h2 = nn2 - 2;
+  const int n8 = n4 / 2;
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.x * kMidTile;
+  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
+  for (int k = threadIdx.x; k < nn2; k += kDs2Threads)
+    s_w2[k] = FMT_AT(w2_rev, k, nn2);
+  mid_stage_any<kFromTheta, In, NLOAD, kDs2Threads, P>(
+      src + (int64_t)c * n4, prev_theta, scale, tail2, h2, n4, c,
+      2 * i0 - h2, 2 * nt + h2, i0 + nt == n8, tails, s_u, s_t);
+  const int a0 = threadIdx.x * kDs2Outs;
+  if (a0 >= nt) return;
+  float acc[kDs2Outs];
+  mid_fir_any<2, kDs2Outs>(s_u + (P + 1) * threadIdx.x, s_w2, nn2, acc);
+  const int64_t total = (int64_t)gridDim.y * n8;
+  float4* d = reinterpret_cast<float4*>(
+      FMT_SPAN(fm_out, (int64_t)c * n8 + i0 + a0, kDs2Outs, total));
+  d[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  d[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
+
+// k12_mid_hilb_kernel at any order 1 <= nh <= kMaxNh (its arguments, and
+// nh): the tile's fm_out window (the carried Hilbert tail before the
+// block) staged at any_word<P>, then Hilbert (mid_fir_any<1, kHilbOuts>)
+// and mid_hilb's stores: im, and re = the window from position
+// (nh - 1) / 2 (ops/fir.py::hilbert_fir_p's re; at odd nh fm_out delayed
+// by (nh - 1) / 2).
+template <bool kOut16>
+__global__ void __launch_bounds__(kMidThreads, kHilbMinBlocks)
+k12_mid_hilb_any_kernel(const float* __restrict__ fm_out,
+                        const float* __restrict__ wh_rev, int nh,
+                        const float* __restrict__ htail, int n8,
+                        float* __restrict__ re, float* __restrict__ im,
+                        int16_t* __restrict__ re16,
+                        int16_t* __restrict__ im16) {
+  static_assert(kHilbOuts == 4, "one float4 store a plane");
+  constexpr int P = kHilbOuts;  // samples between neighbouring runs
+  constexpr int NF = kMidTile + kMidHalo;  // the longest window
+  constexpr int NLOAD = (NF + kMidThreads - 1) / kMidThreads;
+  __shared__ __align__(16) float s_f[any_word<P>(NF) + 1];
+  __shared__ __align__(16) float s_wh[kAnyTaps];
+  const int hh = nh - 1;
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.x * kMidTile;
+  const int nt = min(kMidTile, n8 - i0);  // outputs of this tile
+  const int nf = nt + hh;                 // fm_out values it needs
+  for (int k = threadIdx.x; k < nh; k += kMidThreads)
+    s_wh[k] = FMT_AT(wh_rev, k, nh);
+  const float* x = fm_out + (int64_t)c * n8;
+  float raw[NLOAD];
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int a = threadIdx.x + k * kMidThreads;  // fm_out i0 - hh + a
+    const int i = i0 - hh + a;
+    raw[k] = a >= nf ? 0.0f
+             : i >= 0
+                 ? FMT_AT(x, i, n8)
+                 : FMT_AT(htail, (int64_t)c * hh + hh + i,
+                          (int64_t)gridDim.y * hh);
+  }
+#pragma unroll
+  for (int k = 0; k < NLOAD; ++k) {
+    const int a = threadIdx.x + k * kMidThreads;
+    if (a < nf) s_f[any_word<P>(a)] = raw[k];
+  }
+  __syncthreads();
+  const int a0 = threadIdx.x * kHilbOuts;
+  if (a0 >= nt) return;
+  float acc[kHilbOuts], d[kHilbOuts];
+  mid_fir_any<1, kHilbOuts>(s_f + (P + 1) * threadIdx.x, s_wh, nh, acc);
+  const int dl = hh / 2;  // re[i0 + a] = window position a + dl
+#pragma unroll
+  for (int r = 0; r < kHilbOuts; ++r) d[r] = s_f[any_word<P>(a0 + r + dl)];
+  const int64_t o = (int64_t)c * n8 + i0 + a0;  // nt % 4 == 0
+#ifdef FMT_CHECKED
+  FMT_AT(im, o + 3, (int64_t)gridDim.y * n8);
+  FMT_AT(re, o + 3, (int64_t)gridDim.y * n8);
+#endif
+  *reinterpret_cast<float4*>(im + o) =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+  *reinterpret_cast<float4*>(re + o) = make_float4(d[0], d[1], d[2], d[3]);
+  if constexpr (kOut16) {
+#ifdef FMT_CHECKED
+    FMT_AT(im16, o + 3, (int64_t)gridDim.y * n8);
+    FMT_AT(re16, o + 3, (int64_t)gridDim.y * n8);
+#endif
+    *reinterpret_cast<uint2*>(im16 + o) = q_i16x4(acc, kIqScale);
+    *reinterpret_cast<uint2*>(re16 + o) = q_i16x4(d, kIqScale);
+  }
+}
+
 // kBatch steps of the peak IIR's recurrence on both planes from (br, bi),
 // the pilot power summed in double in time order, the outputs stored at
 // yr, yi + at (four floats a store)
@@ -1099,55 +1399,71 @@ inline int launch_peak_theta(const float* re, const float* im, int channels,
   return 0;
 }
 
-// ds x2 on the split route's tiled kernel: src [C, n4] (theta1 with
-// kFromTheta, prev_theta [C] and the discriminator's scale; else
-// fm_demod, float32 or int16) -> fm_out
+// ds x2 on the split route's tiled kernel (k12_mid_ds2_kernel at the
+// receiver's kTiledNn2 taps, k12_mid_ds2_any_kernel at any other nn2 up
+// to kMaxNn2): src [C, n4] (theta1 with kFromTheta, prev_theta [C] and
+// the discriminator's scale; else fm_demod, float32 or int16) -> fm_out
 // [C, n4/2] (16-byte aligned) and the new ds x2 tail into tails
-// [C, kTiledNn2 - 2]; w2_rev [kTiledNn2], tail2 [C, kTiledNn2 - 2].
-// n4 % 16 == 0 and n4 >= kTiledNn2 - 2, else refused.
+// [C, nn2 - 2] (null only where it is empty); w2_rev [nn2], tail2
+// [C, nn2 - 2].  n4 % 16 == 0 and n4 >= nn2 - 2, else refused.
 template <bool kFromTheta, class In>
 inline int launch_mid_ds2(const In* src, const float* prev_theta,
-                          float scale, const float* w2_rev,
+                          float scale, const float* w2_rev, int nn2,
                           const float* tail2, int channels, int n4,
                           float* fm_out, float* tails, cudaStream_t stream) {
-  if (n4 % 16 != 0 || n4 < kTiledNn2 - 2 || fm_out == nullptr ||
-      tails == nullptr || (uintptr_t)fm_out % 16 != 0 ||
-      (kFromTheta && prev_theta == nullptr)) {
+  if (n4 % 16 != 0 || nn2 < 2 || nn2 > kMaxNn2 || n4 < nn2 - 2 ||
+      fm_out == nullptr || (tails == nullptr && nn2 > 2) ||
+      (uintptr_t)fm_out % 16 != 0 || (kFromTheta && prev_theta == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n8 = n4 / 2;
   const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
                   (unsigned)channels);
-  k12_mid_ds2_kernel<kFromTheta, In, kTiledNn2>
-      <<<grid, kDs2Threads, 0, stream>>>(src, prev_theta, scale, w2_rev,
-                                         tail2, n4, fm_out, tails);
+  if (nn2 == kTiledNn2) {
+    k12_mid_ds2_kernel<kFromTheta, In, kTiledNn2>
+        <<<grid, kDs2Threads, 0, stream>>>(src, prev_theta, scale, w2_rev,
+                                           tail2, n4, fm_out, tails);
+  } else {
+    k12_mid_ds2_any_kernel<kFromTheta, In>
+        <<<grid, kDs2Threads, 0, stream>>>(src, prev_theta, scale, w2_rev,
+                                           nn2, tail2, n4, fm_out, tails);
+  }
   FMT_CHECK_LAUNCH();
   return 0;
 }
 
-// Hilbert on the split route's tiled kernel: fm_out [C, n8]
-// -> re, im [C, n8] float32 and, given re16 and im16, int16 at kIqScale
-// (all 16-byte aligned); wh_rev [kTiledNh], htail [C, kTiledNh - 1].
-// n8 % 8 == 0 and n8 >= kTiledNh - 1, else refused.
+// Hilbert on the split route's tiled kernel (k12_mid_hilb_kernel at the
+// receiver's kTiledNh taps, k12_mid_hilb_any_kernel at any other nh up to
+// kMaxNh): fm_out [C, n8] -> re, im [C, n8] float32 and, given re16 and
+// im16, int16 at kIqScale (all 16-byte aligned); wh_rev [nh], htail
+// [C, nh - 1].  n8 % 8 == 0 and n8 >= nh - 1, else refused.  NH: the
+// order the tiled kernel is built for (a template, so that only the
+// sources that launch it build its kernels).
 template <int NH = kTiledNh>
-inline int launch_mid_hilb(const float* fm_out, const float* wh_rev,
+inline int launch_mid_hilb(const float* fm_out, const float* wh_rev, int nh,
                            const float* htail, int channels, int n8,
                            float* re, float* im, int16_t* re16,
                            int16_t* im16, cudaStream_t stream) {
   const uintptr_t align = (uintptr_t)re | (uintptr_t)im |
                           (uintptr_t)re16 | (uintptr_t)im16;
-  if (n8 % 8 != 0 || n8 < kTiledNh - 1 || (re16 == nullptr) !=
-      (im16 == nullptr) || align % 16 != 0) {
+  if (n8 % 8 != 0 || nh < 1 || nh > kMaxNh || n8 < nh - 1 ||
+      (re16 == nullptr) != (im16 == nullptr) || align % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((unsigned)((n8 + kMidTile - 1) / kMidTile),
                   (unsigned)channels);
-  if (re16 != nullptr) {
+  if (nh == NH && re16 != nullptr) {
     k12_mid_hilb_kernel<true, NH><<<grid, kMidThreads, 0, stream>>>(
         fm_out, wh_rev, htail, n8, re, im, re16, im16);
-  } else {
+  } else if (nh == NH) {
     k12_mid_hilb_kernel<false, NH><<<grid, kMidThreads, 0, stream>>>(
         fm_out, wh_rev, htail, n8, re, im, nullptr, nullptr);
+  } else if (re16 != nullptr) {
+    k12_mid_hilb_any_kernel<true><<<grid, kMidThreads, 0, stream>>>(
+        fm_out, wh_rev, nh, htail, n8, re, im, re16, im16);
+  } else {
+    k12_mid_hilb_any_kernel<false><<<grid, kMidThreads, 0, stream>>>(
+        fm_out, wh_rev, nh, htail, n8, re, im, nullptr, nullptr);
   }
   FMT_CHECK_LAUNCH();
   return 0;
@@ -1162,10 +1478,10 @@ inline int launch_mid_hilb(const float* fm_out, const float* wh_rev,
 // launch_peak_theta.
 template <bool kFromTheta, class In>
 inline int launch_mid_split(const In* src, const float* prev_theta,
-                            float scale, const float* w2_rev,
+                            float scale, const float* w2_rev, int nn2,
                             const float* tail2, int use_deemph, float de_b0,
                             float de_b1, float de_a1, const float* de_st_in,
-                            float* de_st_out, const float* wh_rev,
+                            float* de_st_out, const float* wh_rev, int nh,
                             const float* htail, float pk_b0, float pk_b1,
                             float pk_b2, float pk_a1, float pk_a2,
                             const float* pk_st_in, float* pk_st_out,
@@ -1174,16 +1490,17 @@ inline int launch_mid_split(const In* src, const float* prev_theta,
                             float* power, int16_t* re16, int16_t* im16,
                             int16_t* theta16, cudaStream_t stream) {
   const int n8 = n4 / 2;
-  int err = launch_mid_ds2<kFromTheta>(src, prev_theta, scale, w2_rev, tail2,
-                                       channels, n4, fm_out, tails, stream);
+  int err = launch_mid_ds2<kFromTheta>(src, prev_theta, scale, w2_rev, nn2,
+                                       tail2, channels, n4, fm_out, tails,
+                                       stream);
   if (err) return err;
   if (use_deemph) {
     err = launch_deemph(fm_out, fm_out, n8, channels, de_b0, de_b1, de_a1,
                         de_st_in, de_st_out, stream);
     if (err) return err;
   }
-  err = launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
-                        im16, stream);
+  err = launch_mid_hilb(fm_out, wh_rev, nh, htail, channels, n8, re, im,
+                        re16, im16, stream);
   if (err) return err;
   return launch_peak_theta(re, im, channels, n8, pk_b0, pk_b1, pk_b2, pk_a1,
                            pk_a2, pk_st_in, pk_st_out, theta, yi, power,
@@ -1205,12 +1522,13 @@ inline int launch_disc(const float* theta1, const float* prev_theta,
 // The mid end on fmd [C, n4] (float32, or int16 at kFmScale dequantised
 // where it is loaded), by midend_route:
 // - split (launch_mid_split): fm_out [C, n4/2] as on the launches route,
-//   the new ds x2 tail into tails [C, nn2 - 2], re, im, theta and the
-//   pilot power; yi scratch;
+//   the new ds x2 tail into tails [C, nn2 - 2] (null only where it is
+//   empty), re, im, theta and the pilot power; yi scratch;
 // - launches: ds x2 into fm_out [C, n4/2] (scratch, whose last samples
 //   the host keeps as the Hilbert tail), the optional de-emphasis in
 //   place, Hilbert -> re, im, then launch_peak_theta with the scratch yi
-//   [C, n4/2]; tails unused.
+//   [C, n4/2]; tails unused;
+// - refused: nothing launched.
 // Given re16 (the int16 format's outputs re16, im16, theta16), every route
 // writes them (re16, im16 at kIqScale, theta16 at kPhScale) and re, im and
 // theta are float32 scratch; else re, im, theta are the outputs.
@@ -1230,14 +1548,15 @@ inline int launch_midend(const In* fmd, const float* w2_rev, int nn2,
                          float* tails = nullptr) {
   if (yi == nullptr) return (int)cudaErrorInvalidValue;
   const int route = midend_route(nn2, nh, n4);
-  if (route != kMidLaunches && tails == nullptr)
+  if (route == kMidRefused ||
+      (route == kMidSplit && tails == nullptr && nn2 > 2))
     return (int)cudaErrorInvalidValue;
   if (route == kMidSplit) {
     return launch_mid_split<false>(
-        fmd, nullptr, 1.0f, w2_rev, tail2, use_deemph, de_b0, de_b1, de_a1,
-        de_st_in, de_st_out, wh_rev, htail, pk_b0, pk_b1, pk_b2, pk_a1,
-        pk_a2, pk_st_in, pk_st_out, channels, n4, fm_out, re, im, theta, yi,
-        tails, power, re16, im16, theta16, stream);
+        fmd, nullptr, 1.0f, w2_rev, nn2, tail2, use_deemph, de_b0, de_b1,
+        de_a1, de_st_in, de_st_out, wh_rev, nh, htail, pk_b0, pk_b1, pk_b2,
+        pk_a1, pk_a2, pk_st_in, pk_st_out, channels, n4, fm_out, re, im,
+        theta, yi, tails, power, re16, im16, theta16, stream);
   }
   const int n8 = n4 / 2;
   const int64_t t8 = (int64_t)channels * n8;

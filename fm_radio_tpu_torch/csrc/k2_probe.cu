@@ -769,8 +769,9 @@ extern "C" int fmt_k2_engine(const float* x, int mode, int channels, int n4,
     k2_ds2_kernel<kTiledNn2><<<grid, kDs2Threads, 0, stream>>>(
         x, w2_rev, zeros, n4, re, im, th);
   } else {
-    const int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, zeros,
-                                        channels, n4, fm_out, th, stream);
+    const int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, nn2,
+                                        zeros, channels, n4, fm_out, th,
+                                        stream);
     if (e) return e;
     return launch_k2_hilb(fm_out, wh_rev, zeros, channels, n8, t_blk / 2, re,
                           im, th, stream);
@@ -843,14 +844,14 @@ extern "C" int fmt_k2_restruct(const float* x, int channels, int n4, int li,
   if (n4 % 16 || !k2_block_li(li) || l % li || align % 16 ||
       nn2 != kTiledNn2 || nh != kTiledNh || l < nh - 1)
     return (int)cudaErrorInvalidValue;
-  int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, zeros, channels,
-                                n4, fm_out, theta, stream);
+  int e = launch_mid_ds2<false>(x, nullptr, 1.0f, w2_rev, nn2, zeros,
+                                channels, n4, fm_out, theta, stream);
   if (e) return e;
   e = launch_blocks_li(li, fm_out, re, im, l, channels, stk, h_de, hm_de,
                        pm_de, h_pk, hm_pk, pm_pk, theta, power, 0, stream);
   if (e) return e;
-  e = launch_mid_hilb(fm_out, wh_rev, zeros, channels, l, re, im, nullptr,
-                      nullptr, stream);
+  e = launch_mid_hilb(fm_out, wh_rev, nh, zeros, channels, l, re, im,
+                      nullptr, nullptr, stream);
   if (e) return e;
   return launch_blocks_li(li, fm_out, re, im, l, channels, stk, h_de, hm_de,
                           pm_de, h_pk, hm_pk, pm_pk, theta, power, 1, stream);

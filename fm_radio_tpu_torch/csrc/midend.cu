@@ -9,10 +9,12 @@
 // This is K12's mid end (k12.cu), shared through k12_stages.cuh: one copy
 // of the device code, so the split path's K1 + K2 equal K12 bit for bit.
 // launch_midend picks the route (midend_route, exported as
-// fmt_midend_route), in float32 and in every int16 form alike: at the
-// receiver's filter orders the split route (a tiled ds x2 kernel and a
-// tiled Hilbert kernel, with the serial de-emphasis between them where it
-// is on); at other orders one launch per stage up to Hilbert.  Every route
+// fmt_midend_route), in float32 and in every int16 form alike: at every
+// filter order within the 128-sample halo the split route (a tiled ds x2
+// kernel and a tiled Hilbert kernel, with the serial de-emphasis between
+// them where it is on; at other orders than the receiver's their
+// any-order forms); on a block shorter than a carried tail one launch per
+// stage up to Hilbert.  Every route
 // ends with the peak IIR cut to its recurrence and a parallel theta pass.
 // What bounds each and what the design does about it is noted in k12.cu
 // and k12_stages.cuh.
@@ -42,8 +44,9 @@ using namespace fmt;
 // none), scratch beside those outputs; power [C]; the scratch yi
 // [C, n4/2]; the scratch fm_out [C, n4/2] (whose last nh - 1 samples are
 // the new Hilbert tail).  By midend_route (fmt_midend_route): on the split
-// route the output tails [C, nn2 - 2] (the new ds x2 tail); on the
-// launches route tails unused.  n4 % (2 * kBatch) == 0.
+// route the output tails [C, nn2 - 2] (the new ds x2 tail; null only where
+// it is empty); on the launches route tails unused; orders past the halo
+// refused.  n4 % (2 * kBatch) == 0.
 // Returns the first cudaError_t of the launches.
 extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
                           int nn2, const float* tail2, int use_deemph,
@@ -58,10 +61,10 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
                           float* power, float* yi, float* tails,
                           cudaStream_t stream) {
   const int route = midend_route(nn2, nh, n4);
-  if (n4 % (2 * kBatch) != 0 || nn2 < 2 || nh < 1 ||
+  if (n4 % (2 * kBatch) != 0 || route == kMidRefused ||
       (re16 == nullptr) != (im16 == nullptr) ||
-      (re16 == nullptr) != (theta16 == nullptr) ||
-      yi == nullptr || (route != kMidLaunches && tails == nullptr) ||
+      (re16 == nullptr) != (theta16 == nullptr) || yi == nullptr ||
+      (route == kMidSplit && tails == nullptr && nn2 > 2) ||
       fm_out == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
@@ -77,7 +80,7 @@ extern "C" int fmt_midend(const void* fmd, int in_i16, const float* w2_rev,
 }
 
 // The route fmt_midend and fmt_k12 take for these arguments, in every
-// format and with de-emphasis on or off: 1 split, 0 launches
+// format and with de-emphasis on or off: 1 split, 0 launches, -1 refused
 // (kernels/midend.py::midend_route is its host copy, which the wrappers
 // allocate by).
 extern "C" int fmt_midend_route(int nn2, int nh, int n4) {
@@ -89,36 +92,39 @@ extern "C" int fmt_midend_route(int nn2, int nh, int n4) {
 // ds x2: src [C, n4] by form (0 float32 fm_demod, 1 int16 fm_demod at
 // kFmScale, 2 theta1 float32 with prev_theta [C] and the discriminator's
 // scale, K12's form); w2_rev [nn2], tail2 [C, nn2 - 2] -> fm_out [C, n4/2]
-// and the new ds x2 tail tails [C, nn2 - 2].  nn2 must be the kernel's
-// order (kTiledNn2), n4 % 16 == 0, n4 >= nn2 - 2.
+// and the new ds x2 tail tails [C, nn2 - 2] (k12_mid_ds2_kernel at 64
+// taps, k12_mid_ds2_any_kernel at any other nn2 the halo admits).
+// 2 <= nn2 <= kMaxNn2, n4 % 16 == 0, n4 >= nn2 - 2.
 extern "C" int fmt_mid_ds2(const void* src, int form,
                            const float* prev_theta, float scale,
                            const float* w2_rev, int nn2, const float* tail2,
                            int channels, int n4, float* fm_out, float* tails,
                            cudaStream_t stream) {
-  if (nn2 != kTiledNn2) return (int)cudaErrorInvalidValue;
   if (form == 0)
     return launch_mid_ds2<false>((const float*)src, nullptr, 1.0f, w2_rev,
-                                 tail2, channels, n4, fm_out, tails, stream);
+                                 nn2, tail2, channels, n4, fm_out, tails,
+                                 stream);
   if (form == 1)
     return launch_mid_ds2<false>((const int16_t*)src, nullptr, 1.0f, w2_rev,
-                                 tail2, channels, n4, fm_out, tails, stream);
+                                 nn2, tail2, channels, n4, fm_out, tails,
+                                 stream);
   if (form == 2)
     return launch_mid_ds2<true>((const float*)src, prev_theta, scale, w2_rev,
-                                tail2, channels, n4, fm_out, tails, stream);
+                                nn2, tail2, channels, n4, fm_out, tails,
+                                stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // Hilbert: fm_out [C, n8], wh_rev [nh], htail [C, nh - 1] -> re, im
-// [C, n8] float32 and, given re16 and im16, int16 at kIqScale.  nh must be
-// the kernel's order (kTiledNh), n8 % 8 == 0, n8 >= nh - 1.
+// [C, n8] float32 and, given re16 and im16, int16 at kIqScale
+// (k12_mid_hilb_kernel at 65 taps, k12_mid_hilb_any_kernel at any other
+// nh the halo admits).  1 <= nh <= kMaxNh, n8 % 8 == 0, n8 >= nh - 1.
 extern "C" int fmt_mid_hilb(const float* fm_out, const float* wh_rev, int nh,
                             const float* htail, int channels, int n8,
                             float* re, float* im, int16_t* re16,
                             int16_t* im16, cudaStream_t stream) {
-  if (nh != kTiledNh) return (int)cudaErrorInvalidValue;
-  return launch_mid_hilb(fm_out, wh_rev, htail, channels, n8, re, im, re16,
-                         im16, stream);
+  return launch_mid_hilb(fm_out, wh_rev, nh, htail, channels, n8, re, im,
+                         re16, im16, stream);
 }
 
 // The de-emphasis recurrence alone (kernels/midend.py::deemph: the card's

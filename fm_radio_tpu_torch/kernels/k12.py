@@ -38,6 +38,7 @@ from fm_radio_tpu_torch.kernels import _build
 from fm_radio_tpu_torch.kernels.frontend import check_state, frontend_i8_plain
 from fm_radio_tpu_torch.kernels.midend import (
     buf_ptrs,
+    check_route,
     count_route,
     mid_args,
     mid_buffers,
@@ -163,7 +164,7 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, ps: bool):
              re.data_ptr(), im.data_ptr(), theta.data_ptr(),
              power.data_ptr(), yi_p, tails_p, _build.stream_ptr(dev))
     _build.check("k12", err)
-    count_route(route)
+    count_route(route, coeffs)
     fmd_t, fm_out_t = mid_tails(route, buf, fmd)
     x_tail = _ps_tail(x, nn1 - 4) if ps else x[..., x.shape[-1] - (nn1 - 4):]
     tail = x_tail.to(torch.float32) + 1.0
@@ -176,8 +177,11 @@ def _launch(coeffs, cfg, state: dict, x: torch.Tensor, ps: bool):
 
 def k12(coeffs, cfg, state: dict, x8: torch.Tensor):
     """x8 [2, C, B] int8 -> (state', (re, im) [C, B/8], theta [C, B/8]).
-    CPU tensors run :func:`k12_plain`; CUDA tensors launch the kernel."""
+    CPU tensors run :func:`k12_plain`; CUDA tensors launch the kernel.
+    Mid-end filters past the halo (``midend_route``) raise on every
+    device."""
     _check_x(x8, ps=False)
+    check_route("k12", coeffs, x8.shape[-1] // 4)
     if _build.on_cpu("k12", x8.device):
         return k12_plain(coeffs, cfg, state, x8)
     global launches
@@ -189,8 +193,10 @@ def k12(coeffs, cfg, state: dict, x8: torch.Tensor):
 def k12_ps(coeffs, cfg, state: dict, x4: torch.Tensor):
     """Phase planes x4 [2, 4, C, B/4] int8 -> the outputs of :func:`k12` on
     the interleaved [2, C, B].  CPU tensors run :func:`k12_ps_plain`; CUDA
-    tensors launch the phase-split kernel (never a re-interleave)."""
+    tensors launch the phase-split kernel (never a re-interleave).
+    Mid-end filters past the halo raise on every device."""
     _check_x(x4, ps=True)
+    check_route("k12_ps", coeffs, x4.shape[-1])
     if _build.on_cpu("k12_ps", x4.device):
         return k12_ps_plain(coeffs, cfg, state, x4)
     global launches_ps

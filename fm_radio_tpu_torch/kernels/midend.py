@@ -12,12 +12,14 @@ State keys read and written: ``ds_fm_out``, ``deemph``, ``hilbert``,
 ``csrc/midend.cu``, which runs K12's mid end (the device code is shared
 through ``csrc/k12_stages.cuh``); the helpers that pass this state to the
 card and back serve ``kernels/k12.py`` too.  :func:`midend_route` picks
-its launches, in float32 and in every int16 form alike: at the receiver's
-filter orders the split route (:func:`mid_ds2`'s and :func:`mid_hilb`'s
-tiled kernels, with the serial de-emphasis between them where it is on);
-at other orders ds x2, the de-emphasis and Hilbert each a launch of one
-output a thread.  Every route ends with the peak IIR's recurrence and a
-parallel theta pass, and computes the same values.
+its launches, in float32 and in every int16 form alike: at every filter
+order within the 128-sample halo the split route (:func:`mid_ds2`'s and
+:func:`mid_hilb`'s tiled kernels, built for the receiver's 64 / 65 taps,
+or their any-order forms at other orders, with the serial de-emphasis
+between them where it is on); on a block shorter than a carried tail ds
+x2, the de-emphasis and Hilbert each a launch of one output a thread;
+orders past the halo are refused.  Every route ends with the peak IIR's
+recurrence and a parallel theta pass, and computes the same values.
 
 The int16 inter-stage format (``kernels/qformat.py``): fm_demod may be
 int16 at FM_SCALE, dequantised by the ds x2's loads, and with ``out_i16``
@@ -52,14 +54,18 @@ from fm_radio_tpu_torch.ops.iir import iir_filter, iir_filter_planes
 # out; then any with an int16 input or output); the split route's
 # launches, by K2 or by K12 (kernels/k12.py), beside their own counts
 # (each runs k12_mid_ds2_kernel and k12_mid_hilb_kernel once, and
-# k12_deemph_kernel where the de-emphasis is on); and the launches of
-# those three kernels alone (mid_ds2, deemph, mid_hilb)
+# k12_deemph_kernel where the de-emphasis is on); the launches of those
+# three kernels alone (mid_ds2, deemph, mid_hilb); and every launch of the
+# split route's any-order kernels (k12_mid_ds2_any_kernel,
+# k12_mid_hilb_any_kernel), by K2, K12 or mid_ds2 / mid_hilb alone
 launches = 0
 launches_i16 = 0
 launches_split = 0
 launches_ds2 = 0
 launches_de = 0
 launches_hilb = 0
+launches_ds2_any = 0
+launches_hilb_any = 0
 
 _NO = 128  # the TPU kernel's band width
 
@@ -73,8 +79,12 @@ DEEMPH_ARGTYPES = [_P, _P, _I, _I, _F, _F, _F, _P, _P, _P]
 
 # the filter orders the split route's tiled kernels are built for
 # (csrc/k12_stages.cuh: kTiledNn2, kTiledNh: the receiver's ds x2 and
-# Hilbert filters)
+# Hilbert filters); every other order takes their any-order forms
 TILED_TAPS = (64, 65)
+# the longest carried tail the tiles hold (csrc/k12_stages.cuh: kMidHalo),
+# and the orders it admits (ds x2 tail nn2 - 2, Hilbert tail nh - 1)
+HALO = 128
+ORDERS = ((2, HALO + 2), (1, HALO + 1))
 # channels a block of the peak IIR's recurrence (csrc/k12_stages.cuh:
 # kPeakLanes, a measured choice, PERF.md)
 PEAK_LANES = 8
@@ -95,39 +105,62 @@ def midend_plan(coeffs, cfg, c: int, n4: int) -> list[tuple[str, tuple]]:
     """The launches of the mid end after fm_demod (K2, and K12 after its
     discriminator), each as (kernel, grid): a host copy of
     ``csrc/k12_stages.cuh::launch_midend``'s plan for :func:`midend_route`.
-    Split: the ds x2 kernel, one CTA per (tile of :data:`MID_TILE`
-    outputs, channel), the de-emphasis where it is on (one thread a
-    channel, :data:`DEEMPH_LANES` a block), the Hilbert kernel on the ds
-    x2 kernel's grid; launches: ds x2, the de-emphasis where it is on,
-    Hilbert.  Then on every route the peak IIR's recurrence, one block per
-    :data:`PEAK_LANES` channels, and the theta pass, four outputs a thread
-    (storing int16 theta where the outputs are int16)."""
+    Split: the ds x2 kernel (built for the filter's order, or its
+    any-order form), one CTA per (tile of :data:`MID_TILE` outputs,
+    channel), the de-emphasis where it is on (one thread a channel,
+    :data:`DEEMPH_LANES` a block), the Hilbert kernel (the same choice)
+    on the ds x2 kernel's grid; launches: ds x2,
+    the de-emphasis where it is on, Hilbert.  Then on every route the peak
+    IIR's recurrence, one block per :data:`PEAK_LANES` channels, and the
+    theta pass, four outputs a thread (storing int16 theta where the
+    outputs are int16).  Orders past the halo raise ValueError."""
     n8 = n4 // 2
-    split = midend_route(coeffs, n4) == "split"
+    split = check_route("midend_plan", coeffs, n4) == "split"
+    nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
     tiles = (-(-n8 // MID_TILE), c)
     flat = (-(-c * n8 // 256),)
-    plan = [("k12_mid_ds2_kernel", tiles) if split
+    ds2 = "k12_mid_ds2" + ("" if nn2 == TILED_TAPS[0] else "_any")
+    hilb = "k12_mid_hilb" + ("" if nh == TILED_TAPS[1] else "_any")
+    plan = [(f"{ds2}_kernel", tiles) if split
             else ("fir_decimate_kernel", flat)]
     if cfg.use_deemphasis_filter:
         plan.append(("k12_deemph_kernel", (-(-c // DEEMPH_LANES),)))
-    plan.append(("k12_mid_hilb_kernel", tiles) if split
+    plan.append((f"{hilb}_kernel", tiles) if split
                 else ("k12_hilbert_kernel", flat))
     return plan + [("k12_peak_rec_kernel", (-(-c // PEAK_LANES),)),
                    ("k12_theta_kernel", (-(-c * n8 // (4 * 256)),))]
 
 
 def midend_route(coeffs, n4: int) -> str:
-    """"split" or "launches": the route ``fmt_midend`` and ``fmt_k12``
-    take (a host copy of ``csrc/k12_stages.cuh::midend_route``, by which
-    the wrappers allocate).  Where the filters have the tiled kernels'
-    orders and the block holds both carried tails (B/4 >= ds x2 taps - 2,
-    B/8 >= Hilbert taps - 1), "split", with de-emphasis on or off and in
-    float32 and in every int16 form alike; else "launches".  The
-    de-emphasis decides only whether its launch runs."""
+    """"split", "launches" or "refused": the route ``fmt_midend`` and
+    ``fmt_k12`` take (a host copy of ``csrc/k12_stages.cuh::midend_route``,
+    by which the wrappers allocate).  Where both filters fit the halo
+    (:data:`ORDERS`: 2 <= ds x2 taps <= 130, 1 <= Hilbert taps <= 129) and
+    the block holds both carried tails (B/4 >= ds x2 taps - 2, B/8 >=
+    Hilbert taps - 1), "split", with de-emphasis on or off and in float32
+    and in every int16 form alike; on a block shorter than a tail
+    "launches" (``demod_block`` never sends one: its blocks are multiples
+    of 8,192 samples); other orders "refused".  The de-emphasis decides
+    only whether its launch runs."""
     nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
-    if (nn2, nh) != TILED_TAPS or n4 < nn2 - 2 or n4 // 2 < nh - 1:
+    (lo2, hi2), (loh, hih) = ORDERS
+    if not (lo2 <= nn2 <= hi2 and loh <= nh <= hih):
+        return "refused"
+    if n4 < nn2 - 2 or n4 // 2 < nh - 1:
         return "launches"
     return "split"
+
+
+def check_route(name: str, coeffs, n4: int) -> str:
+    """:func:`midend_route`, raising ValueError (on every device, before
+    any launch) where it refuses the filters."""
+    route = midend_route(coeffs, n4)
+    if route == "refused":
+        nn2, nh = coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0]
+        raise ValueError(f"{name}: ds x2 taps {nn2} / Hilbert taps {nh} "
+                         f"reach past the mid end's {HALO}-sample halo "
+                         f"(orders {ORDERS})")
+    return route
 
 
 def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
@@ -278,12 +311,21 @@ def buf_ptrs(buf: dict) -> list:
             for k in ("fm_out", "yi", "tails")]
 
 
-def count_route(route: str) -> None:
+def count_route(route: str, coeffs) -> None:
     """Count a launch of K2 or K12 on the split route
-    (``launches_split``)."""
+    (``launches_split``, and each any-order kernel it ran)."""
     global launches_split
     if route == "split":
         launches_split += 1
+        count_any(coeffs.taps_fm_out.shape[0], coeffs.taps_hilbert.shape[0])
+
+
+def count_any(nn2: int | None, nh: int | None) -> None:
+    """Count the any-order kernels a launch ran: ds x2 at ``nn2`` taps and
+    Hilbert at ``nh`` (None: not launched) off :data:`TILED_TAPS`."""
+    global launches_ds2_any, launches_hilb_any
+    launches_ds2_any += int(nn2 is not None and nn2 != TILED_TAPS[0])
+    launches_hilb_any += int(nh is not None and nh != TILED_TAPS[1])
 
 
 def mid_tails(route: str, buf: dict, fmd):
@@ -320,7 +362,7 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
              *(t.data_ptr() if out_i16 else None for t in out16),
              power.data_ptr(), yi_p, tails_p, _build.stream_ptr(dev))
     _build.check("midend", err)
-    count_route(route)
+    count_route(route, coeffs)
     # the carried tail, dequantised: only its last samples, not the planes
     fmd_t, fm_out_t = mid_tails(route, buf,
                                 fmd[:, n4 - a["tail2"].shape[-1] :])
@@ -336,12 +378,14 @@ def midend(coeffs, cfg, state: dict, fmd: torch.Tensor,
     """fm_demod [C, B/4] float32 or int16 (FM_SCALE) -> (state', (re, im)
     [C, B/8], theta [C, B/8] cycles), float32 or with ``out_i16`` int16.
     CPU tensors run :func:`midend_plain`; CUDA tensors launch the
-    kernel."""
+    kernel.  Filters past the halo (:func:`midend_route`) raise on every
+    device."""
     if fmd.ndim != 2 or fmd.dtype not in (torch.float32, torch.int16) \
             or fmd.shape[-1] % 32:
         raise ValueError(f"midend takes [C, B/4] float32 or int16 with "
                          f"B/4 % 32 == 0, got {fmd.dtype} "
                          f"{tuple(fmd.shape)}")
+    check_route("midend", coeffs, fmd.shape[-1])
     if _build.on_cpu("midend", fmd.device):
         return midend_plain(coeffs, cfg, state, fmd, out_i16)
     global launches, launches_i16
@@ -353,14 +397,17 @@ def midend(coeffs, cfg, state: dict, fmd: torch.Tensor,
     return out
 
 
-def _tiled_check(name: str, taps: torch.Tensor, order: int, x: torch.Tensor,
-                 dtypes, mult: int, least: int) -> tuple[int, int]:
+def _tiled_check(name: str, taps: torch.Tensor, orders: tuple[int, int],
+                 x: torch.Tensor, dtypes, mult: int,
+                 least: int) -> tuple[int, int]:
     """[C, n] of ``x`` after checking what the split route's tiled
-    kernel ``name`` takes (on every device): its filter order, ``x``'s
-    dtype and rank, n % mult == 0 and n >= least."""
-    if taps.shape[0] != order:
-        raise ValueError(f"{name}: the tiled kernel is built for {order} "
-                         f"taps, got {taps.shape[0]}")
+    kernel ``name`` takes (on every device): a filter order within
+    ``orders`` (the halo's, :data:`ORDERS`), ``x``'s dtype and rank,
+    n % mult == 0 and n >= least."""
+    lo, hi = orders
+    if taps.ndim != 1 or not lo <= taps.shape[0] <= hi:
+        raise ValueError(f"{name}: the tiled kernels take {lo} to {hi} "
+                         f"taps, got {tuple(taps.shape)}")
     if x.ndim != 2 or x.dtype not in dtypes or x.shape[1] % mult \
             or x.shape[1] < least:
         raise ValueError(f"{name} takes [C, n] {dtypes} with n % {mult} == 0 "
@@ -399,18 +446,21 @@ def mid_ds2(w2_rev, tail2, src, prev_theta=None, scale: float = 1.0,
     (``csrc/k12_stages.cuh::k12_mid_ds2_kernel``): fm_demod ``src`` [C, n4]
     float32 or int16 (FM_SCALE) or, given ``prev_theta`` [C] and the
     discriminator's ``scale``, theta1 [C, n4] (K12's form: the
-    discriminator runs in the kernel), the reversed taps ``w2_rev`` [64]
-    and the carried tail ``tail2`` [C, 62] -> (fm_out [C, n4/2], the new ds
-    x2 tail [C, 62]).  n4 % 16 == 0.  CPU tensors run
-    :func:`mid_ds2_plain`; CUDA tensors launch the kernel, into ``out``
-    where it is given."""
-    nn2 = TILED_TAPS[0]
+    discriminator runs in the kernel), the reversed taps ``w2_rev`` [nn2]
+    and the carried tail ``tail2`` [C, nn2 - 2] -> (fm_out [C, n4/2], the
+    new ds x2 tail [C, nn2 - 2]); at 64 taps ``k12_mid_ds2_kernel``, at
+    any other 2 <= nn2 <= 130 ``k12_mid_ds2_any_kernel``.  n4 % 16 == 0
+    and n4 >= nn2 - 2.  CPU tensors run :func:`mid_ds2_plain`; CUDA
+    tensors launch the kernel, into ``out`` where it is given."""
+    nn2 = w2_rev.shape[0]
     dtypes = ((torch.float32,) if prev_theta is not None
               else (torch.float32, torch.int16))
-    c, n4 = _tiled_check("mid_ds2", w2_rev, nn2, src, dtypes, 16, nn2 - 2)
+    c, n4 = _tiled_check("mid_ds2", w2_rev, ORDERS[0], src, dtypes, 16,
+                         nn2 - 2)
     if tail2.shape != (c, nn2 - 2) or (prev_theta is not None
                                        and prev_theta.shape != (c,)):
-        raise ValueError("mid_ds2: tail2 must be [C, 62] and prev_theta [C]")
+        raise ValueError(f"mid_ds2: tail2 must be [C, {nn2 - 2}] and "
+                         "prev_theta [C]")
     if _build.on_cpu("mid_ds2", src.device):
         if out is not None:
             raise ValueError("mid_ds2: out= is for the card's kernel")
@@ -431,6 +481,7 @@ def mid_ds2(w2_rev, tail2, src, prev_theta=None, scale: float = 1.0,
         w2_rev.data_ptr(), nn2, tail2.data_ptr(), c, n4, fm_out.data_ptr(),
         tails.data_ptr(), _build.stream_ptr(dev)))
     launches_ds2 += 1
+    count_any(nn2, None)
     return fm_out, tails
 
 
@@ -446,16 +497,18 @@ def mid_hilb_plain(wh_rev, htail, fm_out, out_i16: bool = False):
 def mid_hilb(wh_rev, htail, fm_out, out_i16: bool = False, out=None):
     """The split route's Hilbert kernel alone
     (``csrc/k12_stages.cuh::k12_mid_hilb_kernel``): fm_out [C, n8]
-    float32, the reversed taps ``wh_rev`` [65] and the carried tail
-    ``htail`` [C, 64] -> (re, im) [C, n8] float32, with ``out_i16`` also
-    (re, im) as int16 at IQ_SCALE.  n8 % 8 == 0 and n8 >= 64.  CPU tensors
-    run :func:`mid_hilb_plain`; CUDA tensors launch the kernel, into
-    ``out`` where it is given."""
-    nh = TILED_TAPS[1]
-    c, n8 = _tiled_check("mid_hilb", wh_rev, nh, fm_out, (torch.float32,), 8,
-                         nh - 1)
+    float32, the reversed taps ``wh_rev`` [nh] and the carried tail
+    ``htail`` [C, nh - 1] -> (re, im) [C, n8] float32, with ``out_i16``
+    also (re, im) as int16 at IQ_SCALE; at 65 taps
+    ``k12_mid_hilb_kernel``, at any other 1 <= nh <= 129
+    ``k12_mid_hilb_any_kernel``.  n8 % 8 == 0 and n8 >= nh - 1.  CPU
+    tensors run :func:`mid_hilb_plain`; CUDA tensors launch the kernel,
+    into ``out`` where it is given."""
+    nh = wh_rev.shape[0]
+    c, n8 = _tiled_check("mid_hilb", wh_rev, ORDERS[1], fm_out,
+                         (torch.float32,), 8, nh - 1)
     if htail.shape != (c, nh - 1):
-        raise ValueError("mid_hilb: htail must be [C, 64]")
+        raise ValueError(f"mid_hilb: htail must be [C, {nh - 1}]")
     if _build.on_cpu("mid_hilb", fm_out.device):
         if out is not None:
             raise ValueError("mid_hilb: out= is for the card's kernel")
@@ -472,6 +525,7 @@ def mid_hilb(wh_rev, htail, fm_out, out_i16: bool = False, out=None):
         *(o.data_ptr() for o in outs),
         *((None, None) if not out_i16 else ()), _build.stream_ptr(dev)))
     launches_hilb += 1
+    count_any(None, nh)
     return tuple(outs)
 
 

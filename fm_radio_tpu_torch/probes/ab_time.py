@@ -18,7 +18,9 @@ checkout's kernels and prints one JSON row per case:
   (presplit_de and f32w_de: pre-split and f32w with
   ``use_deemphasis_filter=True, deemphasis_cutoff_us=50``), extract's
   other-order lens presplit_o96 (pre-split at
-  ``order_poly_ds_lpf_audio = order_poly_ds_lpf_rds = 96``), each beside
+  ``order_poly_ds_lpf_audio = order_poly_ds_lpf_rds = 96``), the mid
+  end's other-order lens presplit_mo96 (pre-split at
+  ``order_poly_ds_lpf_fm_out = 96, order_fir_hilbert = 97``), each beside
   the device time a block of the front end's, mid end's and extract's
   launches and of all its kernels (``torch.profiler`` over 5 blocks
   after one, :data:`MID_KEYS`; a name a tree does not launch reads 0),
@@ -135,6 +137,9 @@ CELLS = (
     ("presplit_o96", "i8", {"frontend_int8": True,
                             "order_poly_ds_lpf_audio": 96,
                             "order_poly_ds_lpf_rds": 96}, 2048, 131072, 8),
+    ("presplit_mo96", "i8", {"frontend_int8": True,
+                             "order_poly_ds_lpf_fm_out": 96,
+                             "order_fir_hilbert": 97}, 2048, 131072, 8),
 )
 # the front end's and mid end's launches on every route of every tree
 # timed in turns (csrc/k12_stages.cuh, csrc/frontend.cu), extract's
@@ -145,6 +150,7 @@ EXT_KEYS = ("extract_kernel", "extract_blocked_kernel",
 MID_KEYS = ("ds4_i8_blocked_kernel", "k1_tile_kernel", "k12_disc_kernel",
             "fir_decimate_kernel", "k12_deemph_kernel", "k12_hilbert_kernel",
             "k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
+            "k12_mid_ds2_any_kernel", "k12_mid_hilb_any_kernel",
             "k12_mid_fused_kernel", "k12_peak_rec_kernel",
             "k12_theta_kernel") + EXT_KEYS + ("*",)
 

@@ -28,9 +28,11 @@ import sys
 import tempfile
 
 # threads a CTA each kernel is launched with (csrc/k12_stages.cuh:
-# kMidThreads, kDs2Threads; csrc/k3_probe.cu: kValueThreads), by name
+# kMidThreads, kDs2Threads, the any-order forms as their tiled kernels;
+# csrc/k3_probe.cu: kValueThreads), by name
 THREADS = {"k12_mid_fused_kernel": 256, "k12_mid_ds2_kernel": 128,
-           "k12_mid_hilb_kernel": 256, "k3_value_kernel": 128}
+           "k12_mid_hilb_kernel": 256, "k12_mid_ds2_any_kernel": 128,
+           "k12_mid_hilb_any_kernel": 256, "k3_value_kernel": 128}
 
 
 def stacks(cuobjdump: str, so: str) -> dict:

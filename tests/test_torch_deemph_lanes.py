@@ -163,20 +163,17 @@ def test_deemph_wrapper_on_cpu_and_refusals():
     assert 4 * lanes * (SLOTS * CHUNK + 4) + 8 * lanes * SLOTS <= 232448
 
 
-def _co_taps(nh: int):
-    """CO with a Hilbert filter of another order: the launches route."""
-    return CO._replace(taps_hilbert=torch.ones(nh) / nh)
-
-
 @pytest.mark.parametrize("c", [1, 5, 8, 9, 40, 2048])
 @pytest.mark.parametrize("route", ["split", "launches"])
 def test_plan_deemph_on_its_lanes(route, c):
     """Both routes plan the de-emphasis where it is on on DEEMPH_LANES
     channels a block: the grid covers every channel, its last block
-    partial where C is not a multiple."""
-    co = CO if route == "split" else _co_taps(33)
-    assert tmid.midend_route(co, 32768) == route
-    plan = dict(tmid.midend_plan(co, CFG, c, 32768))
+    partial where C is not a multiple.  The launches route serves only a
+    block shorter than a carried tail (B/8 = 48 < the Hilbert tail's
+    64)."""
+    n4 = 32768 if route == "split" else 96
+    assert tmid.midend_route(CO, n4) == route
+    plan = dict(tmid.midend_plan(CO, CFG, c, n4))
     (grid,) = plan["k12_deemph_kernel"]
     assert grid * tmid.DEEMPH_LANES >= c > (grid - 1) * tmid.DEEMPH_LANES
 

@@ -271,6 +271,60 @@ def test_deemph_midend_edges_on_checked_build():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_mid_any_order_edges_on_card(checked):
+    """K12 (flat and phase-split where its ds x4 takes the order) and K2
+    in its four formats on the split route at every filter order of
+    MID_ANY_ORDERS (the any-order ds x2 and Hilbert kernels, alone too
+    with the de-emphasis on), de-emphasis off and on, equal their plain
+    versions (max abs error 0) at C = 40, the smallest block that holds
+    the tails and B = 8,320, two blocks with carried state on NaN-filled
+    memory, every call counted as a launch of the route and of the
+    any-order kernels its orders take; the C entry's route equals its
+    host copy, past the halo too; on the bounds-checked build every
+    global index is checked (a trap fails the test)."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    if checked:
+        with _build.checked_build():
+            res = chip_smoke.compare_mid_edges(
+                orders=chip_smoke.MID_ANY_ORDERS)
+    else:
+        res = chip_smoke.compare_mid_edges(orders=chip_smoke.MID_ANY_ORDERS)
+    assert {tuple(r["orders"]) for r in res["rows"]} == set(
+        chip_smoke.MID_ANY_ORDERS), res
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), res
+    assert not res["route_mismatch"] and not res["off_route"], res
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_mid_any_kernels_every_order_on_card(checked):
+    """The any-order ds x2 kernel (on float32 and int16 fm_demod and on
+    theta1) and Hilbert kernel (with and without the int16 outputs) alone
+    equal their plain versions, max abs error 0, at every order the halo
+    admits (ds x2 2-130, Hilbert odd 1-129) at B/4 = 2,080 (a whole tile
+    and a partial one), into NaN-filled outputs."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    if checked:
+        with _build.checked_build():
+            rows = chip_smoke.compare_mid_any_orders()
+    else:
+        rows = chip_smoke.compare_mid_any_orders()
+    assert len(rows) == 3 + 2, rows
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
+
+
+@pytest.mark.gpu
 def test_pll_chunked_edges_on_card():
     """The redesigned chunked PLL equals its plain version (max abs error
     0) at C = 5 and 40, G = 2, 4 and 8, W = 0, 7 and 4,096 with chunk

@@ -41,33 +41,45 @@ ROUTES = [
     ("k2_f32", CO, CFG, 32768, "split"),
     ("deemphasis_on", CO_DE, CFG_DE, 32768, "split"),
     ("deemphasis_on_smallest_block", CO_DE, CFG_DE, 128, "split"),
-    # de-emphasis at other orders, or on a block below the tails, keeps
-    # the launches
+    # de-emphasis at other orders takes the split route too (the tiled
+    # kernels' any-order forms); a block below the tails keeps the
+    # launches
     ("deemphasis_on_other_ds2_order", _co_taps(nn2=48, co=CO_DE), CFG_DE,
-     32768, "launches"),
+     32768, "split"),
     ("deemphasis_on_other_hilbert_order", _co_taps(nh=33, co=CO_DE), CFG_DE,
-     32768, "launches"),
+     32768, "split"),
     ("deemphasis_on_block_one_below_the_hilbert_tail", CO_DE, CFG_DE, 126,
      "launches"),
     ("deemphasis_on_block_below_the_tails", CO_DE, CFG_DE, 96, "launches"),
-    ("other_ds2_order", _co_taps(nn2=48), CFG, 32768, "launches"),
-    ("other_hilbert_order", _co_taps(nh=33), CFG, 32768, "launches"),
-    ("both_orders_other", _co_taps(nn2=48, nh=33), CFG, 32768, "launches"),
+    ("other_ds2_order", _co_taps(nn2=48), CFG, 32768, "split"),
+    ("other_hilbert_order", _co_taps(nh=33), CFG, 32768, "split"),
+    ("both_orders_other", _co_taps(nn2=48, nh=33), CFG, 32768, "split"),
     # the smallest block that holds both carried tails (B/4 >= 62, B/8 >=
     # 64), and below it
     ("smallest_block", CO, CFG, 128, "split"),
     ("block_one_below_the_hilbert_tail", CO, CFG, 126, "launches"),
     ("block_below_the_tails", CO, CFG, 96, "launches"),
+    # the longest tails the halo admits (130 / 129 taps: B/4 >= 128, B/8
+    # >= 128), the smallest block that holds them and one below
+    ("halo_orders_smallest_block", _co_taps(nn2=130, nh=129), CFG, 256,
+     "split"),
+    ("halo_orders_block_one_below_the_hilbert_tail",
+     _co_taps(nn2=130, nh=129), CFG, 254, "launches"),
+    # past the halo: refused
+    ("ds2_order_past_the_halo", _co_taps(nn2=131), CFG, 32768, "refused"),
+    ("hilbert_order_past_the_halo", _co_taps(nh=130), CFG, 32768,
+     "refused"),
 ]
 
 
 @pytest.mark.parametrize("case", ROUTES, ids=[r[0] for r in ROUTES])
 def test_midend_route(case):
-    """The route of each configuration: at the receiver's filter orders
-    (64 and 65 taps, which the tiled kernels are built for) and a block
-    that holds both carried tails, the split route with de-emphasis off
-    and on; else the launches.  The format (float32 or int16) does not
-    enter."""
+    """The route of each configuration: at every filter order within the
+    128-sample halo (the receiver's 64 and 65 taps on the kernels built
+    for them, any other on their any-order forms) and a block that holds
+    both carried tails, the split route with de-emphasis off and on; on a
+    shorter block the launches; past the halo refused.  The format
+    (float32 or int16) does not enter."""
     _, co, _cfg, n4, want = case
     assert tmid.midend_route(co, n4) == want
 
@@ -100,25 +112,44 @@ def test_midend_plan_split(c, n4):
     assert plan[3][1][0] * 4 * 256 >= c * n8
 
 
-@pytest.mark.parametrize("cfg,co,kernels", [
-    (CFG_DE, CO_DE, ["k12_mid_ds2_kernel", "k12_deemph_kernel",
-                     "k12_mid_hilb_kernel", "k12_peak_rec_kernel",
-                     "k12_theta_kernel"]),
-    (CFG, CO, ["k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
-               "k12_peak_rec_kernel", "k12_theta_kernel"]),
-    (CFG, _co_taps(nn2=48), ["fir_decimate_kernel", "k12_hilbert_kernel",
-                             "k12_peak_rec_kernel", "k12_theta_kernel"]),
-    (CFG_DE, _co_taps(nh=33, co=CO_DE),
+@pytest.mark.parametrize("cfg,co,n4,kernels", [
+    (CFG_DE, CO_DE, 32768, ["k12_mid_ds2_kernel", "k12_deemph_kernel",
+                            "k12_mid_hilb_kernel", "k12_peak_rec_kernel",
+                            "k12_theta_kernel"]),
+    (CFG, CO, 32768, ["k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
+                      "k12_peak_rec_kernel", "k12_theta_kernel"]),
+    (CFG, _co_taps(nn2=48), 32768,
+     ["k12_mid_ds2_any_kernel", "k12_mid_hilb_kernel",
+      "k12_peak_rec_kernel", "k12_theta_kernel"]),
+    (CFG_DE, _co_taps(nh=33, co=CO_DE), 32768,
+     ["k12_mid_ds2_kernel", "k12_deemph_kernel", "k12_mid_hilb_any_kernel",
+      "k12_peak_rec_kernel", "k12_theta_kernel"]),
+    (CFG, _co_taps(nn2=96, nh=97), 32768,
+     ["k12_mid_ds2_any_kernel", "k12_mid_hilb_any_kernel",
+      "k12_peak_rec_kernel", "k12_theta_kernel"]),
+    (CFG, CO, 96, ["fir_decimate_kernel", "k12_hilbert_kernel",
+                   "k12_peak_rec_kernel", "k12_theta_kernel"]),
+    (CFG_DE, _co_taps(nn2=96, nh=97, co=CO_DE), 128,
      ["fir_decimate_kernel", "k12_deemph_kernel", "k12_hilbert_kernel",
       "k12_peak_rec_kernel", "k12_theta_kernel"]),
 ], ids=["deemphasis_on", "receiver_orders_split", "other_ds2_order",
-        "deemphasis_on_other_hilbert_order"])
-def test_midend_plan_launches(cfg, co, kernels):
-    """The split route runs its ds x2 and Hilbert kernels, with the
-    de-emphasis between them where it is on; the launches route keeps one
-    launch per stage up to Hilbert (ds x2, the de-emphasis where it is on,
-    Hilbert); each then the peak IIR's recurrence and the theta pass."""
-    assert [k for k, _ in tmid.midend_plan(co, cfg, 256, 32768)] == kernels
+        "deemphasis_on_other_hilbert_order", "both_orders_other_split",
+        "block_below_the_tails", "deemphasis_on_block_below_other_tails"])
+def test_midend_plan_launches(cfg, co, n4, kernels):
+    """The split route runs its ds x2 and Hilbert kernels (each built for
+    the receiver's order, or its any-order form), with the de-emphasis
+    between them where it is on; the launches route (a block shorter than
+    a carried tail) keeps one launch per stage up to Hilbert (ds x2, the
+    de-emphasis where it is on, Hilbert); each then the peak IIR's
+    recurrence and the theta pass."""
+    assert [k for k, _ in tmid.midend_plan(co, cfg, 256, n4)] == kernels
+
+
+def test_midend_plan_refuses_orders_past_the_halo():
+    """A filter past the halo has no plan: ValueError, as the wrappers
+    raise on every device before any launch."""
+    with pytest.raises(ValueError, match="halo"):
+        tmid.midend_plan(_co_taps(nn2=132), CFG, 256, 32768)
 
 
 @pytest.mark.parametrize("c,n4", [(2048, 32768), (40, 4096), (40, 4160),
