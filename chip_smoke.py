@@ -75,7 +75,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    takes the order), memory NaN-filled first, max abs error 0, on the
    default and the bounds-checked build, and the mid end's route on the
    card against its host copy, past the halo too
-   (:func:`compare_mid_edges`); the sequential PLL at C = 40
+   (:func:`compare_mid_edges`); K12 and K2 in its four formats on three
+   blocks shorter than a carried tail (the launches route), then one of
+   the split route, the state carried through them, de-emphasis off and
+   on, on both builds (:func:`compare_mid_short_blocks`); the sequential PLL at C = 40
    and 5, N = 16, 32, 48 and 16,384 on both forms, the chunked PLL at C =
    5 and 40, G = 2, 4, 8, W = 0, 7, 4,096 and chunk lengths a multiple of
    its 16-step batch and not (:func:`compare_pll_chunked_edges`), extract
@@ -96,7 +99,11 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    16,384; K12 flat and phase-split, K1 on every load form with both
    taps and stores), and
    their SASS (:func:`ds4_sass`: saved as chiprun_out/ds4_sass_*.txt; no
-   FFMA in the float K1 beyond atan2's division, no spills); the K1
+   FFMA in the float K1 beyond atan2's division, no spills); the float
+   K1 at every other order check_state admits (``k1_tile_any_kernel``,
+   nn % 4 == 0 from 4 to 132 but 64) on every float-tap form with both
+   stores at C = 8, B = 8,324 and C = 40, B = 4,160, on both builds, max
+   abs error 0 (:func:`compare_k1_any_orders`); the K1
    probe's staged FIR kernels on both builds, max abs error 0
    (:func:`compare_fp_edges`: C = 16 x B = 16,384, fp_fir on every form,
    both taps, dots and full, rows and tile-major, both rasters at tiles
@@ -134,10 +141,12 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
    planes, max abs error 0); the
    megakernel against its plain version and the f32w split path at C = 8
-   and 40 inside the repeats above (:func:`compare_chain_small`), at other
-   filter orders (its per-output stages) on both builds, and at the chain
-   cell's full width on the bounds-checked build
-   (:func:`chain_cell_checked`), max abs error 0;
+   and 40 inside the repeats above (:func:`compare_chain_small`), at every
+   other order set of CHAIN_ANY_ORDERS (``chain_any_kernel``) at C = 8 and
+   40 and on the bounds-checked build at C = 40
+   (:func:`compare_chain_orders`), and at the chain cell's full width on
+   the bounds-checked build (:func:`chain_cell_checked`), max abs error
+   0;
 3b. the split path (``DemodConfig()``'s K1 -> K2) against the plain
    versions on the card, at C=256 x B=131,072, two blocks with carried
    state, on the arguments ``demod_block`` recorded: K1 on each of its
@@ -231,6 +240,25 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    (its profile must show both any-order kernels and none of the tiled
    kernels built for 64 / 65 taps, the launches route's ds x2, Hilbert
    and discriminator, the fused kernel or the de-emphasis);
+4h. the float K1's other-order lens f32w_mo96 (f32w's words at
+   ``order_poly_ds_lpf_fm_out = 96, order_fir_hilbert = 97``: K1's ds x4
+   at 96 taps too, C=2048 x B=131,072, bench.py's signal): one warm-up
+   block, 8 counted blocks (every K1 launch on ``k1_tile_any_kernel``, the
+   mid end on its any-order kernels), K1 and K2 timed alone beside their
+   plain versions on the last block's arguments and compared, K1 with its
+   bound, FMUL+FADD issue floor (:func:`fp_floor`) and one ``F.conv1d``
+   call for its ds x4 (:func:`k1_library_ms`), also with the int16 store
+   and on complex64, and profiled (its profile must show
+   ``k1_tile_any_kernel`` and the mid end's any-order kernels and none of
+   ``k1_tile_kernel``, the 64 / 65-tap mid end or the launches route);
+4i. the megakernel's other-order lens chain_o96 (the chain cell at
+   orders 96 / 97 / 96 / 96, the audio and RDS orders too): one warm-up
+   block, 8 counted blocks (every launch on ``chain_any_kernel``), the
+   megakernel timed alone beside its plain version on the last block's
+   arguments and compared, with its bound and its FIR stages' FMUL+FADD
+   issue floor (:func:`chain_floor`), and profiled (its profile must show
+   ``chain_any_kernel`` and not ``chain_kernel``); the registers, spills
+   and shared memory of both kernels and their receiver's-order twins;
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -445,7 +473,7 @@ CHANNELIZER_BY_SPLITS = {3: "channelizer", 1: "channelizer_i8mat",
 # kernel vs plain on the card: both evaluate the same float32 operations in
 # the same order (the kernels are built with -fmad=false), so they agree to
 # rounding; the power sums differ only in summation order.  K1 (every load
-# form, both taps and stores; its float taps summed in ds4_float's order),
+# form, both taps and stores; its float taps summed in fir_dot's order),
 # K12 (flat and phase-split) and K2 admit no slack on either route of their mid end: the
 # split route sums every FIR output in the plain version's tap order; nor
 # do the PLL (sequential and chunked: the chunked lanes' masks change no
@@ -580,6 +608,11 @@ COUNTERS = (
     # alone): the filter orders other than the receiver's 64 / 65 taps
     ("mid_ds2_any", "midend", "launches_ds2_any"),
     ("mid_hilb_any", "midend", "launches_hilb_any"),
+    # the float K1's and the megakernel's kernels at other filter orders
+    # than the receiver's (k1_tile_any_kernel, chain_any_kernel), every
+    # launch (each counts in its module's own counter too)
+    ("frontend_any", "frontend", "launches_any"),
+    ("chain_any", "chain", "launches_any"),
     ("pll_i16", "pll", "launches_i16"),
     ("extract_i16", "extract", "launches_i16"),
     ("extract_i16_f32dt", "extract", "launches_i16_f32dt"),
@@ -1214,6 +1247,8 @@ def _leaf_max_diff(sa, sb) -> float:
     if isinstance(sa, tuple):
         return max((_leaf_max_diff(a, b) for a, b in zip(sa, sb)),
                    default=0.0)
+    if not sa.numel():  # a tail of no samples (a filter without a halo)
+        return 0.0
     if sa.is_complex():
         sa, sb = torch.view_as_real(sa), torch.view_as_real(sb)
     return float((sa.double() - sb.double()).abs().max())
@@ -2080,9 +2115,8 @@ def deemph_lens(label: str, kind: str, kw: dict, channels: int = 2048,
 
 # extract's other-order lens (not a bench.py cell: users who change the
 # filter orders, DemodConfig.order_poly_ds_lpf_audio / _rds, take
-# extract_blocked_any_kernel): the pre-split cell at the megakernel's
-# other extract orders (CHAIN_OTHER_ORDERS), 96 / 96; the kernel its
-# profile must show, and the ones it must not
+# extract_blocked_any_kernel): the pre-split cell at extract orders 96 /
+# 96; the kernel its profile must show, and the ones it must not
 ORDER_LENSES = (("presplit_o96", "i8",
                {"frontend_int8": True, "order_poly_ds_lpf_audio": 96,
                 "order_poly_ds_lpf_rds": 96}),)
@@ -2181,16 +2215,142 @@ def mid_library_ms(name: str, args) -> dict:
     for Hilbert (its im; re is the delayed input).  On theta1 (K12's form)
     it runs over theta1 as it stands: the discriminator is not in it.
     cuDNN runs in float32 (the port turns TF32 off)."""
+    return conv1d_ms(*args[:3], 2 if name == "mid_ds2" else 1)
+
+
+def conv1d_ms(w, tail, src, stride: int) -> dict:
+    """``F.conv1d`` over [tail | src] (rows [N, L], one input channel each,
+    made once beforehand) with the reversed taps ``w`` at ``stride``, timed
+    (CUDA events, mean of 5 after one)."""
     import torch.nn.functional as fnn
 
-    w, tail, src = args[:3]
     x = torch.cat([tail, src], dim=-1).unsqueeze(1).contiguous()
-    stride = 2 if name == "mid_ds2" else 1
     fnn.conv1d(x, w.view(1, 1, -1), stride=stride)
     _, ms = _cuda_ms(lambda: fnn.conv1d(x, w.view(1, 1, -1), stride=stride),
                      reps=5)
     return {"library_ms": ms,
             "library": f"F.conv1d([tail | src], w_rev, stride={stride})"}
+
+
+# the float K1's and the megakernel's other-order lenses (not bench.py's
+# cells: users who want a sharper 76 kHz decimation set
+# DemodConfig.order_poly_ds_lpf_fm_out, which sizes K1's ds x4 as well as
+# the ds x2, models/demod.py:134, the reference's quirk): f32w at 96 ds x4
+# and ds x2 taps and a 97-tap Hilbert filter (K1 on k1_tile_any_kernel,
+# the mid end on the split route's any-order kernels), and the chain cell
+# at 96 / 97 / 96 / 96 with the audio and RDS orders too
+# (chain_any_kernel); the kernel each profile must show, and the ones it
+# must not (the kernels built for the receiver's orders)
+K1_ORDER_LENSES = (("f32w_mo96", "words",
+                    {"assume_integer_input": True,
+                     "order_poly_ds_lpf_fm_out": 96,
+                     "order_fir_hilbert": 97}),)
+K1_ANY = "k1_tile_any_kernel"
+K1_ANY_GONE = ("k1_tile_kernel", "k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
+               "fir_decimate_kernel", "k12_hilbert_kernel")
+CHAIN_ORDER_LENSES = (("chain_o96", "words",
+                       {"assume_integer_input": True, "chain_fusion": "auto",
+                        "order_poly_ds_lpf_fm_out": 96,
+                        "order_fir_hilbert": 97,
+                        "order_poly_ds_lpf_audio": 96,
+                        "order_poly_ds_lpf_rds": 96}),)
+CHAIN_ANY = "chain_any_kernel"
+CHAIN_ANY_GONE = ("chain_kernel",)
+
+
+def k1_library_ms(args) -> dict:
+    """One PyTorch call that computes K1's ds x4 FIR on its recorded
+    arguments, used nowhere in the port (row 13a's yardstick for the K1
+    probe): :func:`conv1d_ms` over the carried tail and the block as 2C
+    rows (the re planes, then the im planes, unpacked beforehand), the
+    reversed taps, stride 4.  cuDNN runs in float32 (the port turns TF32
+    off)."""
+    from fm_radio_tpu_torch.kernels.frontend import input_planes
+
+    co, _, st, x = args[:4]
+    tail = st["ds_fm_in"]
+    rows = [torch.stack(p).reshape(-1, p[0].shape[-1])
+            for p in ((tail.real, tail.imag), input_planes(x))]
+    return dict(conv1d_ms(co.taps_fm_in.flip(0).contiguous(), *rows, 4),
+                taps=co.taps_fm_in.shape[0])
+
+
+def chain_floor(co, c: int, b: int) -> dict:
+    """The megakernel's FIR stages' FMUL+FADD issue floor on [C, B], ms
+    (computed, not measured): an FMUL and an FADD a tap an output
+    (-fmad=false) of ds x4 (both planes), ds x2, Hilbert and extract's five
+    FIRs (the RDS pair at its own order), at 128 a clock an SM, at this
+    card's SM count and highest SM clock; each stage's share beside it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = _sm_clock_hz()
+    n4, n8 = b // 4, b // 8
+    nn1, nn2, nh = (co.taps_fm_in.shape[0], co.taps_fm_out.shape[0],
+                    co.taps_hilbert.shape[0])
+    nn_a, nn_r = co.taps_audio_lpr.shape[0], co.taps_rds.shape[0]
+    per_row = {"ds4": 2 * 2 * n4 * nn1, "ds2": 2 * n8 * nn2,
+               "hilbert": 2 * n8 * nh,
+               "extract": 2 * (3 * (n8 // 4) * nn_a + 2 * (n8 // 8) * nn_r)}
+    ms = {k: float(c) * v / (128 * sms * hz) * 1e3 for k, v in per_row.items()}
+    return {"fmul_fadd_floor_ms": sum(ms.values()), "stages_ms": ms,
+            "orders": [nn1, nn2, nh, nn_a, nn_r], "sms": sms,
+            "sm_clock_hz": hz}
+
+
+def k1_order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
+                  block: int = 131072, blocks: int = 8,
+                  device="cuda") -> dict:
+    """The float K1's other-order lens (:data:`K1_ORDER_LENSES`) as the
+    cells run (:func:`lens_run`: every K1 launch on k1_tile_any_kernel, the
+    mid end on the split route's any-order kernels), then K1 and K2 timed
+    alone beside their plain versions on the last block's arguments and
+    compared, with their bounds, K1's FMUL+FADD issue floor
+    (:func:`fp_floor` at the lens's order) and one ``F.conv1d`` call
+    (:func:`k1_library_ms`); K1 also with the int16 store and on the
+    block as complex64 (``input_planes``' samples, read in place), alone
+    beside their plain versions."""
+    from fm_radio_tpu_torch.kernels import frontend as kf
+
+    res, calls, x = lens_run(label, kind, kw, channels, block, blocks,
+                             {"frontend": 1, "frontend_any": 1, "midend": 1,
+                              "midend_split": 1, "mid_ds2_any": 1,
+                              "mid_hilb_any": 1, **LENS_TAIL}, device)
+    k1 = calls["frontend"]
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"frontend": k1, "midend": calls["midend"]})
+    nn = k1[0].taps_fm_in.shape[0]
+    res["floor"] = fp_floor(channels, block, nn)
+    res["library"] = k1_library_ms(k1)
+    xr, xi = kf.input_planes(x)
+    forms = {"out_i16": (*k1[:4], False, True),
+             "complex": (*k1[:3], torch.complex(xr, xi), False)}
+    res["forms"] = {}
+    for form, args in forms.items():
+        name = "frontend_i16" if form == "out_i16" else "frontend"
+        kf.frontend(*args)
+        kout, ms = _cuda_ms(lambda: kf.frontend(*args), reps=5)
+        e = stage_errors("frontend", kout, kf.frontend_plain(*args))
+        row = dict(_verdict(name, e), form=form)
+        res["compare"].append(row)
+        res["forms"][form] = {"ms": ms, "max_abs_err": row["max_abs_err"],
+                              "bound_ms": bound(name, args)["bound_ms"]}
+    return res
+
+
+def chain_order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
+                     block: int = 131072, blocks: int = 8,
+                     device="cuda") -> dict:
+    """The megakernel's other-order lens (:data:`CHAIN_ORDER_LENSES`) as
+    the cells run (:func:`lens_run`: every launch on chain_any_kernel),
+    then the megakernel timed alone beside its plain version on the last
+    block's arguments and compared, with its bound and its FIR stages'
+    FMUL+FADD issue floor (:func:`chain_floor`)."""
+    res, calls, _ = lens_run(label, kind, kw, channels, block, blocks,
+                             {"chain": 1, "chain_any": 1, "bpsk": 1},
+                             device)
+    (res["kernel_ms"], res["plain_ms"], res["compare"],
+     res["bound"]) = time_stages({"chain": calls["chain"]})
+    res["floor"] = chain_floor(calls["chain"][0], channels, block)
+    return res
 
 
 def launch_grids(step, names, device) -> dict:
@@ -2293,7 +2453,9 @@ MAT_KERNEL = "chan_wgmma_kernel"
 DS4_FLAT = "ds4_i8_blocked_kernel"
 DS4_PS = "k12_ds4_ps_blocked_kernel"
 K1_TILE = "k1_tile_kernel"
-DS4_KERNELS = (DS4_FLAT, DS4_PS, K1_TILE)
+# the float K1's tile at the receiver's order and at any other
+FLOAT_K1 = (K1_TILE, K1_ANY)
+DS4_KERNELS = (DS4_FLAT, DS4_PS) + FLOAT_K1
 K1_DISC = "k12_disc_kernel"
 PLANE_COPY = "CatArrayBatchedCopy"
 # what each split cell's profile must show
@@ -2893,11 +3055,19 @@ def compare_chan_edges(device="cuda", seed: int = 0) -> list[dict]:
     return rows
 
 
-# filter orders off the megakernel's blocked stages (ds x4 and the extract
-# FIRs then sum each output by itself)
-CHAIN_OTHER_ORDERS = {"order_poly_ds_lpf_fm_out": 48,
-                      "order_poly_ds_lpf_audio": 96,
-                      "order_poly_ds_lpf_rds": 96}
+# the megakernel's other filter orders (chain_any_kernel), as
+# (order_poly_ds_lpf_fm_out: the ds x4 and ds x2, order_fir_hilbert,
+# order_poly_ds_lpf_audio, order_poly_ds_lpf_rds): the lens chain_o96's;
+# one of each filter off the receiver's; the receiver's ds x4 with other
+# extract orders and the reverse; the shortest and the longest every halo
+# admits; odd extract orders (their extra phase steps) and planes shifted
+# down (ch_shift < 0)
+CHAIN_ORDER_KEYS = ("order_poly_ds_lpf_fm_out", "order_fir_hilbert",
+                    "order_poly_ds_lpf_audio", "order_poly_ds_lpf_rds")
+CHAIN_ANY_ORDERS = tuple(dict(zip(CHAIN_ORDER_KEYS, o)) for o in (
+    (96, 97, 96, 96), (48, 33, 64, 72), (64, 65, 96, 96),
+    (96, 97, 128, 128), (4, 3, 4, 8), (128, 129, 132, 136),
+    (124, 65, 97, 131), (28, 63, 61, 93)))
 
 
 def compare_chain_small(seed: int, channels: int = 8, block: int = 16384,
@@ -2908,9 +3078,11 @@ def compare_chain_small(seed: int, channels: int = 8, block: int = 16384,
     version on the arguments ``demod_block`` recorded, and the same packed
     words through the f32w split path (K1 -> K2 -> PLL -> extract kernels)
     from one start state, ``blocks`` blocks: audio and every state leaf
-    before the RDS AGC.  Returns one verdict row (max abs error 0 on both
-    counts)."""
+    before the RDS AGC; every block a launch of the kernel its orders take
+    (chain_any_kernel off the receiver's).  Returns one verdict row (max
+    abs error 0 on both counts)."""
     from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels import chain as kc
     from fm_radio_tpu_torch.models.demod import (
         demod_block, demod_init_state, make_coeffs)
 
@@ -2921,10 +3093,14 @@ def compare_chain_small(seed: int, channels: int = 8, block: int = 16384,
     st_c = st_s = demod_init_state(cfg, channels, device)
     x = split_input(kind, channels, block * blocks, seed, device)
     acc, vs = {}, 0.0
+    any_kernel = kc.chain_orders(co) != kc.RECEIVER_ORDERS
+    off_route = 0
     for blk in range(blocks):
         xb = x[..., blk * block : (blk + 1) * block].contiguous()
         calls = {}
+        before = kc.launches_any
         st_c, o_c = demod_block(cfg, co, st_c, xb, record=calls)
+        off_route += kc.launches_any - before != int(any_kernel)
         st_s, o_s = demod_block(cfg_s, co, st_s, xb)
         if "chain" not in calls:
             raise RuntimeError(f"chain not taken at C = {channels}: "
@@ -2937,7 +3113,8 @@ def compare_chain_small(seed: int, channels: int = 8, block: int = 16384,
     torch.cuda.synchronize(device)
     row = _verdict("chain", acc["chain"])
     row.update(channels=channels, block=block, vs_split_f32w=vs,
-               orders=orders, ok=row["ok"] and vs == 0.0)
+               orders=orders, any_kernel=any_kernel, off_route=off_route,
+               ok=row["ok"] and vs == 0.0 and not off_route)
     return row
 
 
@@ -2955,6 +3132,21 @@ def chain_cell_checked(channels: int = 2048, block: int = 131072,
     with _build.checked_build():
         row = compare_chain_small(7, channels, block, 1, device)
     return dict(row, build="checked")
+
+
+def compare_chain_orders(device="cuda", seed: int = 11,
+                         channels=(8, 40)) -> list[dict]:
+    """:func:`compare_chain_small` at every order set of
+    :data:`CHAIN_ANY_ORDERS` (chain_any_kernel) and each C of
+    ``channels``, B = 16,384 (32 tiles), two blocks, the allocator's free
+    memory poisoned before each: one verdict row each."""
+    rows = []
+    for i, orders in enumerate(CHAIN_ANY_ORDERS):
+        for c in channels:
+            poison_free_memory(device)
+            rows.append(compare_chain_small(seed + i, c, 16384,
+                                            device=device, orders=orders))
+    return rows
 
 
 def allocator_counts(device) -> dict:
@@ -3401,6 +3593,72 @@ def compare_mid_any_orders(device="cuda", channels: int = 5) -> list[dict]:
     return [dict(_verdict(key.split(":")[0], e), form=key.split(":")[1],
                  orders="nn2 2-130, nh 1-129 odd", channels=channels)
             for key, e in acc.items()]
+
+
+# blocks B shorter than a carried tail at the receiver's orders (the
+# launches route: B/4 = 32 < 62, the ds x2 tail, and B/8 = 16 < 64, the
+# Hilbert tail; B/4 = 96, B/8 = 48 < 64), then a block of the split route
+MID_SHORT_BLOCKS = (128, 384, 128, 16384)
+
+
+def compare_mid_short_blocks(device="cuda", channels: int = 40,
+                             seed: int = 19) -> list[dict]:
+    """K12 (flat) and K2 in its four formats on blocks shorter than a
+    carried tail (:data:`MID_SHORT_BLOCKS`: the launches route, then a
+    block of the split route), de-emphasis off and on, against the plain
+    versions, max abs error 0 on the outputs and on the carried state
+    (each tail the last samples of concat(old tail, block)), the state
+    carried from block to block, the allocator's free memory filled with
+    NaN before each block.  One verdict row a case and de-emphasis."""
+    from fm_radio_tpu_torch.kernels import k12 as kk
+    from fm_radio_tpu_torch.kernels import midend as km
+    from fm_radio_tpu_torch.kernels.qformat import FM_SCALE, q_i16
+    from fm_radio_tpu_torch.models.demod import (
+        INT8_CONFIG, demod_init_state, make_coeffs)
+
+    device = torch.device(device)
+    if device.index is None:  # the wrappers check tensors against it
+        device = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=device).manual_seed(seed)
+    cases = [("k12", "k12", kk.k12, kk.k12_plain, None)]
+    cases += [(label, name, km.midend, km.midend_plain, (in16, out16))
+              for label, name, in16, out16 in MID_EDGE_FORMS]
+    rows = []
+    for route, (kw, _) in MID_EDGE_ROUTES.items():
+        cfg = dataclasses.replace(INT8_CONFIG, **kw)
+        co = make_coeffs(cfg, device)
+        st = {label: demod_init_state(cfg, channels, device)
+              for label, *_ in cases}
+        x = bench_planes(channels, sum(MID_SHORT_BLOCKS), seed=seed,
+                         device=device)
+        acc, at = {}, 0
+        for b in MID_SHORT_BLOCKS:
+            poison_free_memory(device, 64 << 20)
+            xb = x[:, :, at : at + b].contiguous()
+            at += b
+            fmd = 0.3 * torch.randn((channels, b // 4), generator=g,
+                                    device=device)
+            for label, name, fn, plain, fmt in cases:
+                if fmt is None:
+                    args = (co, cfg, st[label], xb)
+                else:
+                    in16, out16 = fmt
+                    arg = q_i16(fmd, FM_SCALE) if in16 else fmd
+                    args = (co, cfg, st[label], arg, out16)
+                kout = fn(*args)
+                pout = plain(*args)
+                e = stage_errors(I16_BASE.get(name, name), kout, pout)
+                dump_mismatch(name, args, kout, pout, e)
+                _merge(acc, label, e)
+                st[label] = kout[0]
+        torch.cuda.synchronize(device)
+        rows += [dict(_verdict(name, acc[label]), form=label,
+                      route=route.replace("split", "launches"),
+                      blocks=list(MID_SHORT_BLOCKS), channels=channels,
+                      routes=[km.midend_route(co, b // 4)
+                              for b in MID_SHORT_BLOCKS])
+                 for label, name, *_ in cases]
+    return rows
 
 
 def _pll_theta(c: int, n: int, seed: int, device):
@@ -3903,6 +4161,64 @@ def compare_ds4_edges(device="cuda", shapes=DS4_EDGES,
                                  channels=c, samples=bk))
             torch.cuda.synchronize(device)
     return rows
+
+
+# the float K1's orders off its 64-tap kernel (k1_tile_any_kernel: every
+# order check_state admits, nn % 4 == 0 from 4 to 132, but 64) and their
+# edge shapes (C, B): C = 8 with a last tile of one output (B = 8,324: a
+# first, a whole and a last tile of 1,024 outputs), C = 40 with a whole
+# tile and one of 16 outputs (B = 4,160); each two blocks, so a block's
+# first tile starts from the tail the one before carried
+K1_ANY_ORDERS = tuple(nn for nn in range(4, 133, 4) if nn != 64)
+K1_ANY_SHAPES = ((8, 8324), (40, 4160))
+
+
+def compare_k1_any_orders(device="cuda", orders=K1_ANY_ORDERS,
+                          shapes=K1_ANY_SHAPES, seed: int = 17) -> dict:
+    """The float K1 at other orders than 64 (k1_tile_any_kernel) against
+    its plain version, max abs error 0: every load form with float taps
+    (float32 planes on and off the u8 grid, packed words, complex64, int8
+    planes), float32 and int16 stores, at each order of ``orders`` and
+    shape of ``shapes``, two blocks with carried state (a random carried
+    tail and phase to start; full-range u8 input), the allocator's free
+    memory filled with NaN before each order, every call counted as a
+    launch of the any-order kernel.  Returns {"rows": one verdict row per
+    (order, store) over the forms and shapes, "off_route": the calls that
+    did not count}."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.kernels import frontend as kf
+    from fm_radio_tpu_torch.models.demod import make_coeffs
+
+    stages = _stages()
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows, off_route = [], []
+    for nn in orders:
+        cfg = DemodConfig(order_poly_ds_lpf_fm_out=nn)
+        co = make_coeffs(cfg, device)
+        poison_free_memory(device, 256 << 20)
+        acc = {}
+        for c, b in shapes:
+            st0 = _ds4_state(cfg, co, c, g, device)
+            u8 = torch.randint(0, 256, (2, c, 2 * b), generator=g,
+                               device=device).float()
+            xs = _k1_inputs(u8)
+            for form, x in xs.items():
+                for i16 in (False, True):
+                    name = "frontend_i16" if i16 else "frontend"
+                    s1 = st0
+                    for blk in range(2):
+                        xb = x[..., blk * b : (blk + 1) * b].contiguous()
+                        before = kf.launches_any
+                        kout, _ = compare_stage(
+                            acc, name, (co, cfg, s1, xb, False, i16), stages)
+                        if kf.launches_any != before + 1:
+                            off_route.append((nn, form, i16, c, b))
+                        s1 = kout[0]
+        torch.cuda.synchronize(device)
+        rows += [dict(_verdict(name, e), case=f"{name}:any:{nn}", order=nn,
+                      forms=list(xs), shapes=[list(s) for s in shapes])
+                 for name, e in acc.items()]
+    return {"rows": rows, "off_route": off_route}
 
 
 # the K1 probe's edge shapes (C, B): fp_fir at the shortest tile (512:
@@ -4577,8 +4893,9 @@ def ds4_sass() -> dict:
 
 def ds4_sass_faults(sass: dict) -> list:
     """What the SASS read forbids: an FFMA in the float K1's sums (they are
-    rounded apart, -fmad=false), no IDP4A in an int8-tap kernel, and any
-    spill (stack or local bytes) in a ds x4 kernel.  atan2_poly's IEEE
+    rounded apart, -fmad=false; at the receiver's order and at any other),
+    no IDP4A in an int8-tap kernel, and any spill (stack or local bytes) in
+    a ds x4 kernel.  atan2_poly's IEEE
     division refines its MUFU.RCP with FFMAs (exact by construction), so
     the float K1 may hold as many FFMAs as the int8-tap kernel with the
     same store (the same atan2 and discriminator, no float sum), and no
@@ -4587,7 +4904,8 @@ def ds4_sass_faults(sass: dict) -> list:
         return []
     bad = []
     for name, r in sass.items():
-        if K1_TILE in name:
+        float_k1 = any(k in name for k in FLOAT_K1)
+        if float_k1:
             store = name.partition("Ds4Disc")[2][:3]
             div = [q["FFMA"] for n, q in sass.items()
                    if DS4_FLAT in n and q["lib"] == "frontend"
@@ -4595,12 +4913,11 @@ def ds4_sass_faults(sass: dict) -> list:
             if not div or r["FFMA"] > min(div):
                 bad.append((name, "FFMA beyond the division's", r["FFMA"],
                             div))
-        if K1_TILE not in name and not r["IDP"]:
+        if not float_k1 and not r["IDP"]:
             bad.append((name, "no IDP4A"))
         if r.get("stack", 0) > 0 or r.get("local", 0) > 0:
             bad.append((name, "spills", r.get("stack"), r.get("local")))
-    if not any(K1_TILE in n for n in sass) or not any(DS4_PS in n
-                                                       for n in sass):
+    if not all(any(k in n for n in sass) for k in FLOAT_K1 + (DS4_PS,)):
         bad.append(("ds4 kernels missing from the SASS", sorted(sass)))
     return bad
 
@@ -5425,6 +5742,14 @@ def main() -> int:
     for r in many:
         log(f"[compare] any-order mid end kernels, every order: "
             f"{json.dumps(r)}")
+    # the launches route on blocks shorter than a carried tail, the state
+    # carried through them
+    mshort = compare_mid_short_blocks(dev)
+    with _build.checked_build():
+        mshort += [dict(r, build="checked")
+                   for r in compare_mid_short_blocks(dev, seed=20)]
+    for r in mshort:
+        log(f"[compare] mid end on short blocks: {json.dumps(r)}")
     log(f"[compare] tiled mid end edges, de-emphasis off and on, "
         f"{len(MID_EDGE_ORDERS + MID_ANY_ORDERS)} filter orders, both "
         f"builds: {time.perf_counter() - t1:.1f} s")
@@ -5433,7 +5758,7 @@ def main() -> int:
         f"mismatches {medge['route_mismatch']}; calls off their route "
         f"{medge['off_route']}; {time.perf_counter() - t0:.1f} s")
     bad = [(r["name"], r.get("route"), r.get("form"), r.get("build"))
-           for r in wedge + medge["rows"] + many if not r["ok"]]
+           for r in wedge + medge["rows"] + many + mshort if not r["ok"]]
     if bad or medge["route_mismatch"] or medge["off_route"]:
         raise RuntimeError(f"edge shapes disagree {bad} or the mid end's "
                            f"route differs on the card "
@@ -5511,6 +5836,27 @@ def main() -> int:
         raise RuntimeError(f"ds4 edges on the bounds-checked build: {e}")
     for r in dedge:
         log(f"[compare] ds4 edge: {json.dumps(r)}")
+    # the float K1 at every other order (k1_tile_any_kernel) on both builds
+    t1 = time.perf_counter()
+    k1any = compare_k1_any_orders(dev)
+    try:
+        with _build.checked_build():
+            ck = compare_k1_any_orders(dev, seed=18)
+    except RuntimeError as e:
+        raise RuntimeError(f"K1 at other orders on the bounds-checked "
+                           f"build: {e}")
+    k1any["rows"] += [dict(r, build="checked") for r in ck["rows"]]
+    k1any["off_route"] += ck["off_route"]
+    bad = [(r["case"], r.get("build")) for r in k1any["rows"]
+           if not r["ok"] or r["max_abs_err"] != 0.0]
+    log(f"[compare] K1 at other orders: {len(k1any['rows'])} rows "
+        f"({len(K1_ANY_ORDERS)} orders, every float-tap form and store, "
+        f"shapes {K1_ANY_SHAPES}, both builds), off {bad}, calls off the "
+        f"any-order kernel {k1any['off_route']}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    if bad or k1any["off_route"]:
+        raise RuntimeError(f"K1 at other orders disagrees {bad} or left "
+                           f"its kernel {k1any['off_route']}")
     # the K1 probe's staged FIR kernels at their edge shapes on both builds
     fedge = compare_fp_edges(dev)
     try:
@@ -5611,15 +5957,15 @@ def main() -> int:
     # checked build (its small shapes are in the repeats above)
     t1 = time.perf_counter()
     cedge = compare_chan_edges(dev)
-    # the megakernel off its blocked stages (other filter orders)
-    corders = [compare_chain_small(11, device=dev,
-                                   orders=CHAIN_OTHER_ORDERS)]
+    # the megakernel at other filter orders (chain_any_kernel): every set
+    # of CHAIN_ANY_ORDERS at C = 8 and 40 (the checked build at C = 40)
+    corders = compare_chain_orders(dev, 11)
     try:
         with _build.checked_build():
             cedge += [dict(r, build="checked")
                       for r in compare_chan_edges(dev, seed=1)]
-            corders.append(dict(compare_chain_small(
-                12, device=dev, orders=CHAIN_OTHER_ORDERS), build="checked"))
+            corders += [dict(r, build="checked") for r in
+                        compare_chain_orders(dev, 31, channels=(40,))]
         chk = chain_cell_checked(device=dev)
     except RuntimeError as e:
         raise RuntimeError(f"channelizer edges or the chain cell on the "
@@ -5915,6 +6261,77 @@ def main() -> int:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the mid end's other-order lens: {bad}")
 
+    # 4h. the float K1's other-order lens: every K1 launch on
+    # k1_tile_any_kernel, K1 and K2 timed alone, its profile
+    t0 = time.perf_counter()
+    klens, klens_prof = {}, {}
+    for label, kind, kw in K1_ORDER_LENSES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        klens[label] = k1_order_lens(label, kind, kw, 2048, 131072, 8, dev)
+        log(f"[k1_orders] {json.dumps(klens[label])}")
+        prof = profile_split(label, kind, kw, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+        klens_prof[label] = prof
+        gone = showing(prof, K1_ANY_GONE)
+        want = (K1_ANY,) + MID_ANY
+        if lacking(prof, want) or gone:
+            raise RuntimeError(f"the {label} lens's profile lacks "
+                               f"{lacking(prof, want)} or shows {gone}: "
+                               f"{list(prof['device_ms_per_block'])}")
+        r = klens[label]
+        log(f"[k1_orders] {label}: {r['ms_per_block']:.3f} ms/block; "
+            f"{K1_ANY} {device_ms(prof, K1_ANY):.4f} device ms a block; K1 "
+            f"alone (events) {r['kernel_ms']['frontend']:.4f} beside the "
+            f"plain version's {r['plain_ms']['frontend']:.4f}; bound "
+            f"{r['bound']['frontend']['bound_ms']:.4f}; FMUL+FADD issue "
+            f"floor (computed, not measured) "
+            f"{r['floor']['fmul_fadd_floor_ms']:.4f}; "
+            f"{r['library']['library']} {r['library']['library_ms']:.4f}; "
+            f"forms {json.dumps(r['forms'])}")
+    log(f"[k1_orders] {time.perf_counter() - t0:.1f} s")
+    bad = [(label, r["name"]) for label, c in klens.items()
+           for r in c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at "
+                           f"the float K1's other-order lens: {bad}")
+    # 4i. the megakernel's other-order lens: every launch on
+    # chain_any_kernel, the megakernel timed alone, its profile
+    t0 = time.perf_counter()
+    chlens, chlens_prof = {}, {}
+    for label, kind, kw in CHAIN_ORDER_LENSES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        chlens[label] = chain_order_lens(label, kind, kw, 2048, 131072, 8,
+                                         dev)
+        log(f"[chain_orders] {json.dumps(chlens[label])}")
+        prof = profile_split(label, kind, kw, device=dev)
+        log(f"[profile] {json.dumps(prof)}")
+        chlens_prof[label] = prof
+        gone = showing(prof, CHAIN_ANY_GONE)
+        if lacking(prof, (CHAIN_ANY,)) or gone:
+            raise RuntimeError(f"the {label} lens's profile lacks "
+                               f"{CHAIN_ANY} or shows {gone}: "
+                               f"{list(prof['device_ms_per_block'])}")
+        r = chlens[label]
+        log(f"[chain_orders] {label}: {r['ms_per_block']:.3f} ms/block; "
+            f"{CHAIN_ANY} {device_ms(prof, CHAIN_ANY):.4f} device ms a "
+            f"block; alone (events) {r['kernel_ms']['chain']:.4f} beside "
+            f"the plain version's {r['plain_ms']['chain']:.4f}; bound "
+            f"{r['bound']['chain']['bound_ms']:.4f}; FIR stages' FMUL+FADD "
+            f"issue floor (computed, not measured) "
+            f"{json.dumps(r['floor'])}")
+    log(f"[chain_orders] {time.perf_counter() - t0:.1f} s")
+    bad = [(label, r["name"]) for label, c in chlens.items()
+           for r in c["compare"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"the megakernel disagrees with its plain version "
+                           f"at its other-order lens: {bad}")
+    # the float K1's and the megakernel's kernels: registers, spills,
+    # shared memory (cuobjdump)
+    k1res, chres = _res_usage("frontend"), _res_usage("chain")
+    log(f"[build] resources: " + json.dumps(
+        {"frontend": {**res_of(k1res, K1_TILE), **res_of(k1res, K1_ANY)},
+         "chain": chres}))
+
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()
     wb_bench = wideband_path(64, 32, 131072, 8, library=False, device=dev)
@@ -6057,7 +6474,7 @@ def main() -> int:
     rep_rows = [k for r in reps for k in r["kernels"]]
     for r in (rows + wrows + srows + frows + crows + mrows + rep_rows + irows
               + wedge + medge["rows"] + pedge + eedge["rows"] + bedge
-              + dedge + cedge + corders + [chk]
+              + dedge + cedge + corders + [chk] + k1any["rows"] + mshort
               + [r for r in deedge if r["max_abs_err"] is not None]):
         err_small[r["name"]] = max(err_small.get(r["name"], 0.0),
                                    r["max_abs_err"])
@@ -6092,6 +6509,8 @@ def main() -> int:
              **{label: c["launches"] for label, c in lenses.items()},
              **{label: c["launches"] for label, c in olens.items()},
              **{label: c["launches"] for label, c in mlens.items()},
+             **{label: c["launches"] for label, c in klens.items()},
+             **{label: c["launches"] for label, c in chlens.items()},
              "i16_route_c5": {k: i16_c5_launches.get(k, 0)
                               for k in i16c["launches"]},
              "i16_words": i16c["launches_words"],
@@ -6329,6 +6748,63 @@ def main() -> int:
                 "resources": res_of(midres, kern),
                 "edge_shapes": edges,
                 "every_order": [r for r in many if r["name"] == stage]})
+    # the float K1 at other orders (k1_tile_any_kernel) alone on its
+    # lens's last-block arguments (words, float32 store; the int16 store
+    # and complex64 beside it); its launches: the lens's; its edges: every
+    # other order on both builds
+    for label, c in klens.items():
+        b = c["bound"]["frontend"]
+        kernels.append({
+            "name": "frontend_any", "route": "cuda",
+            "source": "fm_radio_tpu_torch/csrc/frontend.cu",
+            "replaces": "fm_radio_tpu/kernels/frontend_pallas.py:223",
+            "kernel": K1_ANY, "lens": label,
+            "order": c["config"]["order_poly_ds_lpf_fm_out"],
+            "launches": c["launches"]["frontend_any"],
+            "launches_by_path": {p: v.get("frontend_any", 0)
+                                 for p, v in paths.items()},
+            "max_abs_err": max([r["max_abs_err"] for r in c["compare"]]
+                               + [r["max_abs_err"] for r in k1any["rows"]]),
+            "ms": c["kernel_ms"]["frontend"],
+            "plain_ms": c["plain_ms"]["frontend"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": c["library"]["library_ms"],
+            "library": c["library"]["library"],
+            "hbm_bytes_s": b["hbm_bytes_s"],
+            "work": {key: b[key] for key in ("bytes", "f32_ops")},
+            "device_ms": device_ms(klens_prof[label], K1_ANY),
+            **floors_ms(c["floor"]), "forms": c["forms"],
+            "resources": res_of(k1res, K1_ANY),
+            "edge_shapes": {"rows": len(k1any["rows"]),
+                            "orders": list(K1_ANY_ORDERS),
+                            "shapes": [list(s) for s in K1_ANY_SHAPES],
+                            "max_abs_err": max(r["max_abs_err"]
+                                               for r in k1any["rows"])}})
+    # the megakernel at other orders (chain_any_kernel) alone on its lens's
+    # last-block arguments; its launches: the lens's; its edges: every
+    # order set of CHAIN_ANY_ORDERS on both builds
+    for label, c in chlens.items():
+        b = c["bound"]["chain"]
+        kernels.append({
+            "name": "chain_any", "route": "cuda",
+            "source": "fm_radio_tpu_torch/csrc/chain.cu",
+            "replaces": "fm_radio_tpu/kernels/chain_pallas.py:74",
+            "kernel": CHAIN_ANY, "lens": label,
+            "orders": [c["config"][k] for k in CHAIN_ORDER_KEYS],
+            "launches": c["launches"]["chain_any"],
+            "launches_by_path": {p: v.get("chain_any", 0)
+                                 for p, v in paths.items()},
+            "max_abs_err": max([r["max_abs_err"] for r in c["compare"]]
+                               + [r["max_abs_err"] for r in corders]),
+            "ms": c["kernel_ms"]["chain"], "plain_ms": c["plain_ms"]["chain"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, "hbm_bytes_s": b["hbm_bytes_s"],
+            "work": {key: b[key] for key in ("bytes", "f32_ops")},
+            "serial_steps": b["serial_steps"],
+            "device_ms": device_ms(chlens_prof[label], CHAIN_ANY),
+            **floors_ms(c["floor"]), "floor_stages_ms": c["floor"]["stages_ms"],
+            "resources": res_of(chres, CHAIN_ANY),
+            "edge_shapes": corders})
     # the device-memory probes: each at its fastest variant of the sweep
     for n, src, rep in PROBE_KERNELS:
         pk = hbm["kernels"][n]

@@ -44,7 +44,8 @@
 // HBM3, 700.00 W).  At the receiver's orders (ds x4 kChDs4Taps = 64 taps,
 // the extract filters kExtTaps = 128) those two stages run the split
 // kernels' register-blocked code, extract_stages.cuh::fir_block, in the
-// same tap order as ds4_float and fir_dot, so the outputs stay bit-equal:
+// same tap order as fir_dot (K1 sums its tile so too), so the outputs stay
+// bit-equal:
 // - the input window is staged skewed (mid_skew), each plane kChInS
 //   floats apart (16 mod 32: a warp's two channel planes on distinct
 //   banks), by float4 fetches all in flight before the first store; ds x4
@@ -57,8 +58,14 @@
 //   warps run the five FIRs, two lanes a channel plane:
 //   fir_block<4, 8, 128, 4> for L+R and L-R, fir_block<8, 4, 128, 8> for
 //   RDS (extract.cu's blocked route), float4 stores.
-// Other orders sum each output by itself in the same order (ds4_float,
-// ch_dot over the skewed planes).
+// At every other order chain_any_kernel runs the same tile with those two
+// stages on extract_stages.cuh::fir_block_any (the order at run time,
+// the same tap order): the input window staged as K1's tile stages it
+// (sample t0 - h1 at index 4, so ds x4's B0 is 4 at every order) and each
+// extraction plane shifted by its filter's order (ch_shift), so every
+// load of the loop is a constant offset as at the receiver's orders.  The
+// ds x2 and Hilbert stages sum each output by itself (fir_dot) at every
+// order.
 //
 // Two tries (NVIDIA H100 80GB HBM3, 700.00 W).  The first kept 8
 // channels and 256 threads a CTA: 107,776 bytes of shared memory, two
@@ -77,8 +84,10 @@
 // Shared memory: 13,696 floats, most of it the input window (2 x 4 x 688)
 // and the six extraction planes (6 x 4 x 226); the IIR outputs, theta, dt
 // and the slide's staging overlay the input window once ds x4 has read
-// it.  At C = 2048 the 512 CTAs run in one wave on the 132 SMs.  Built
-// with -fmad=false, like every kernel here.
+// it.  chain_any_kernel stages room for the longest taps every halo
+// admits, 13,780 floats (55,120 bytes: still four CTAs an SM).  At C =
+// 2048 the 512 CTAs run in one wave on the 132 SMs.  Built with
+// -fmad=false, like every kernel here.
 
 #include "extract_stages.cuh"
 #include "frontend_stages.cuh"
@@ -100,22 +109,32 @@ constexpr int kChFmd = kChH + kChN4;
 constexpr int kChFo = kChH + kChN8;
 constexpr int kChPl = kChH + kChN8;
 constexpr int kChPlanes = 6;             // re, im, lmr re, lmr im, rds re, rds im
-constexpr int kChDs4Taps = 64;           // the blocked ds x4's order
+constexpr int kChDs4Taps = 64;           // the receiver's ds x4 order
 // skewed strides: an input plane (16 mod 32), an extraction plane's
 // channel (2 mod 32) and plane (4 channels: 8 mod 32)
 constexpr int kChInS = 688;
 constexpr int kChPlS = 226;
 constexpr int kChPlB = kChCh * kChPlS;
 constexpr int kChU = 2 * kChCh * kChInS;  // the input window's floats
+// the staged taps: the receiver's orders (chain_kernel), and room for the
+// longest every halo admits (chain_any_kernel: ds x4, L+R and L-R kChH + 4,
+// RDS kChH + 8; each a multiple of 4, so every filter's taps start
+// 16-byte aligned)
 constexpr int kChTaps = kChDs4Taps + 3 * kExtTaps;
+constexpr int kChTapsAny = 3 * (kChH + 4) + kChH + 8;
+template <bool kAny>
 constexpr int kChSmemFloats = kChU + kChCh * kChN4 + 4 * kChCh
                               + kChCh * kChFmd + kChCh * kChFo
-                              + kChPlanes * kChPlB + kChTaps;
-static_assert(kChInS >= mid_skew(kChIn - 1) + 1 && kChInS % 32 == 16,
-              "input planes skewed, a warp's two on distinct banks");
-static_assert(kChPlS >= mid_skew(kChPl - 1) + 1 && kChPlS % 32 == 2 &&
+                              + kChPlanes * kChPlB
+                              + (kAny ? kChTapsAny : kChTaps);
+static_assert(kChInS >= mid_skew(kChH + 4 + kChT - 1) + 1 &&
+                  kChInS >= mid_skew(kChIn - 1) + 1 && kChInS % 32 == 16,
+              "input planes skewed (at any order sample t0 - h1 at index 4),"
+              " a warp's two on distinct banks");
+static_assert(kChPlS >= mid_skew(kChPl - 1 + 8) + 1 && kChPlS % 32 == 2 &&
                   kChPlB % 32 == 8,
-              "extraction planes skewed, a warp's lanes on distinct banks");
+              "extraction planes skewed (shifted up to 8 samples at any "
+              "order), a warp's lanes on distinct banks");
 static_assert(kChN4 >= kChH, "fm_demod slides without overlap");
 static_assert(4 * kChCh * kChN8 <= kChU, "IIR outputs overlay the window");
 static_assert((1 + kChPlanes) * kChCh * kChH <= kChU,
@@ -125,6 +144,7 @@ static_assert(2 * kChCh * kChN4 / 8 == kChThreads,
               "the blocked ds x4: 8 outputs a thread");
 static_assert(kChNA == 2 * 8 && kChNR == 2 * 4,
               "the blocked FIRs: two lanes a channel plane");
+static_assert(kChH % 32 == 0, "halos of whole bank rows");
 
 // where plane p (re, im, lmr re, lmr im, rds re, rds im) lies: the planes
 // one extraction warp reads (lpr, lmr re and im; rds re and im) in
@@ -133,14 +153,20 @@ __host__ __device__ constexpr int ch_slot(int p) {
   return p == 0 ? 0 : p == 1 ? 5 : p - 1;
 }
 
-// sum_k w_rev[k] * x[mid_skew(base + k)] for k < nn: fir_dot's order over a
-// skewed plane
-__device__ __forceinline__ float ch_dot(const float* x, int base,
-                                        const float* __restrict__ w_rev,
-                                        int nn) {
-  float acc = 0.0f;
-  for (int k = 0; k < nn; ++k) acc += __ldg(w_rev + k) * x[mid_skew(base + k)];
-  return acc;
+// An extraction plane at any order, for its FIR of nn taps (decimation M):
+// output j's window starts at sample kChH + M - nn + M j of the plane, so
+// the plane is stored shifted by ch_shift(nn) = nn - 32 ch_rows(nn)
+// (sample i at mid_skew(i + shift)), which puts it at M + 32 (kChH / 32 -
+// ch_rows(nn)) + M j: fir_block_any's B0 = M from the pointer 33
+// (kChH / 32 - ch_rows(nn) + lane) words into the plane, every load a
+// constant offset.  The shift lies in (-32, 0] up to 128 taps (the
+// window's first sample then at index >= M), 1 .. 8 above: no sample of a
+// window leaves the plane's kChPlS words.
+__host__ __device__ constexpr int ch_rows(int nn) {
+  return (nn + 31) / 32 < kChH / 32 ? (nn + 31) / 32 : kChH / 32;
+}
+__host__ __device__ constexpr int ch_shift(int nn) {
+  return nn - 32 * ch_rows(nn);
 }
 
 struct ChainArgs {
@@ -183,9 +209,82 @@ struct ChainArgs {
   float* o_ext[kChPlanes];
 };
 
-template <class Load>
-__global__ void __launch_bounds__(kChThreads, 4)
-    chain_kernel(Load in, ChainArgs a) {
+// Phase 2a's sums: warp w takes channel planes 2w and 2w + 1 (re for w <
+// 2), 16 lanes of 8 outputs each; the re sums go to theta1's buffer, the im
+// sums to fm_demod's (free until the discriminator).  At the receiver's
+// order the window's sample t0 - 64 lies at index kChH - 64 (B0 = kChH -
+// 60), at any order sample t0 - h1 at index 4 (B0 = 4, K1's layout)
+template <bool kAny>
+__device__ __forceinline__ void ch_ds4(const float* s_in, const float* s_w1,
+                                       int nn1, float* s_th1, float* s_fmd,
+                                       int warp, int lane) {
+  const int cp = 2 * warp + lane / 16, ch = cp % kChCh, l = lane % 16;
+  float acc[8];
+  if constexpr (kAny)
+    fir_block_any<4, 8, 4>(s_in + cp * kChInS + 33 * l, s_w1, nn1, acc);
+  else
+    fir_block<4, 8, kChDs4Taps, kChH - (kChDs4Taps - 4)>(s_in + cp * kChInS,
+                                                         l, s_w1, acc);
+  float* dst = (cp < kChCh ? s_th1 + ch * kChN4
+                           : s_fmd + ch * kChFmd + kChH) + 8 * l;
+  *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2],
+                                                acc[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4], acc[5], acc[6],
+                                                    acc[7]);
+}
+
+// Phase 11's sums, the five decimating FIRs into the output planes: warp
+// 0 lpr, L-R re and im (lanes 0-7, 8-15, 16-23), warp 1 RDS re and im
+// (lanes 0-7, 8-15), two lanes (li) a channel (ch), 8 audio or 4 RDS
+// outputs a lane, float4 stores; at any order over the shifted planes
+// (ch_shift)
+template <bool kAny>
+__device__ __forceinline__ void ch_ext_firs(const float* s_pl,
+                                            const float* s_wa,
+                                            const float* s_wm,
+                                            const float* s_wr,
+                                            const ChainArgs& a, int c0,
+                                            int tile, int warp, int lane) {
+  const int q = lane / 8, ch = (lane % 8) / 2, li = lane % 2;
+  const int p = warp == 0 ? (q == 0 ? 0 : q + 1) : 4 + q;
+  const int64_t c = c0 + ch;
+  const int nc = a.channels;
+  const float* x = s_pl + ch_slot(p) * kChPlB + ch * kChPlS;
+  if (warp == 0 && q < 3) {
+    const float* w = p == 0 ? s_wa : s_wm;
+    float acc[8];
+    if constexpr (kAny)
+      fir_block_any<4, 8, 4>(x + 33 * (kChH / 32 - ch_rows(a.nn_a) + li), w,
+                             a.nn_a, acc);
+    else
+      fir_block<4, 8, kExtTaps, kChH - (kExtTaps - 4)>(x, li, w, acc);
+    float* y = p == 0 ? a.lpr : p == 2 ? a.lmr_re : a.lmr_im;
+    const int64_t n = (int64_t)nc * (a.b / 32);
+    float* o = FMT_SPAN(y, c * (a.b / 32) + tile * kChNA + 8 * li, 8, n);
+    *reinterpret_cast<float4*>(o) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(o + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+  } else if (warp == 1 && q < 2) {
+    float acc[4];
+    if constexpr (kAny)
+      fir_block_any<8, 4, 8>(x + 33 * (kChH / 32 - ch_rows(a.nn_r) + li),
+                             s_wr, a.nn_r, acc);
+    else
+      fir_block<8, 4, kExtTaps, kChH - (kExtTaps - 8)>(x, li, s_wr, acc);
+    float* y = p == 4 ? a.rds_re : a.rds_im;
+    const int64_t n = (int64_t)nc * (a.b / 64);
+    *reinterpret_cast<float4*>(
+        FMT_SPAN(y, c * (a.b / 64) + tile * kChNR + 4 * li, 4, n)) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// One CTA's channels through the block, kAny: the ds x4 and extract
+// orders known only at run time (chain_any_kernel), else the receiver's
+// (chain_kernel)
+template <bool kAny, class Load>
+__device__ __forceinline__ void chain_body(Load in, const ChainArgs& a) {
   extern __shared__ __align__(16) float sm[];
   float* s_in = sm;                       // [2][kChCh][kChInS], skewed
   float* s_yr = sm;                       // [kChCh][kChN8], after ds x4
@@ -201,13 +300,9 @@ __global__ void __launch_bounds__(kChThreads, 4)
   float* s_fo = s_fmd + kChCh * kChFmd;   // [kChCh][kChFo]
   float* s_pl = s_fo + kChCh * kChFo;     // [slot][kChCh][kChPlS], skewed
   float* s_w1 = s_pl + kChPlanes * kChPlB;  // the blocked FIRs' taps
-  float* s_wa = s_w1 + kChDs4Taps;
-  float* s_wm = s_wa + kExtTaps;
-  float* s_wr = s_wm + kExtTaps;
-  // sample i (i < kChPl) of plane p of channel ch
-  auto pl = [&](int p, int ch, int i) -> float& {
-    return s_pl[ch_slot(p) * kChPlB + ch * kChPlS + mid_skew(i)];
-  };
+  float* s_wa = s_w1 + (kAny ? kChH + 4 : kChDs4Taps);
+  float* s_wm = s_wa + (kAny ? kChH + 4 : kExtTaps);
+  float* s_wr = s_wm + (kAny ? kChH + 4 : kExtTaps);
 
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * kChCh;
@@ -215,9 +310,14 @@ __global__ void __launch_bounds__(kChThreads, 4)
   const int h1 = a.nn1 - 4, h2 = a.nn2 - 2, hh = a.nh - 1;
   const int hd = (a.nh - 1) / 2;  // the Hilbert delay of the re plane
   const int ha = a.nn_a - 4, hr = a.nn_r - 8;
-  // the receiver's orders take the register-blocked FIRs
-  const bool ds4_blocked = a.nn1 == kChDs4Taps;
-  const bool ext_blocked = a.nn_a == kExtTaps && a.nn_r == kExtTaps;
+  // the extraction planes' shifts (0 at the receiver's orders)
+  const int sa = kAny ? ch_shift(a.nn_a) : 0;
+  const int sr = kAny ? ch_shift(a.nn_r) : 0;
+  // sample i (i < kChPl) of plane p of channel ch
+  auto pl = [&](int p, int ch, int i) -> float& {
+    return s_pl[ch_slot(p) * kChPlB + ch * kChPlS +
+                mid_skew(i + (p < 4 ? sa : sr))];
+  };
 
   // ---- the carried tails into the halos (samples -kChH .. -1) ----------
   for (int e = tid; e < kChCh * kChH; e += kChThreads) {
@@ -229,19 +329,30 @@ __global__ void __launch_bounds__(kChThreads, 4)
         n >= -hh ? FMT_AT(a.htail, c * hh + hh + n, nc * hh) : 0.0f;
     for (int p = 0; p < kChPlanes; ++p) {
       const int h = p < 4 ? ha : hr;
-      pl(p, ch, k) = n >= -h ? FMT_AT(a.t_ext[p], c * h + h + n, nc * h)
-                             : 0.0f;
+      // a shifted plane holds the window's samples only
+      if (!kAny || n >= -h)
+        pl(p, ch, k) = n >= -h ? FMT_AT(a.t_ext[p], c * h + h + n, nc * h)
+                               : 0.0f;
     }
   }
-  if (ds4_blocked)
+  if constexpr (kAny) {
+    for (int k = tid; k < a.nn1; k += kChThreads)
+      s_w1[k] = FMT_AT(a.w1, k, a.nn1);
+    for (int k = tid; k < a.nn_a; k += kChThreads) {
+      s_wa[k] = FMT_AT(a.wa, k, a.nn_a);
+      s_wm[k] = FMT_AT(a.wm, k, a.nn_a);
+    }
+    for (int k = tid; k < a.nn_r; k += kChThreads)
+      s_wr[k] = FMT_AT(a.wr, k, a.nn_r);
+  } else {
     for (int k = tid; k < kChDs4Taps; k += kChThreads)
       s_w1[k] = FMT_AT(a.w1, k, kChDs4Taps);
-  if (ext_blocked)
     for (int k = tid; k < kExtTaps; k += kChThreads) {
       s_wa[k] = FMT_AT(a.wa, k, kExtTaps);
       s_wm[k] = FMT_AT(a.wm, k, kExtTaps);
       s_wr[k] = FMT_AT(a.wr, k, kExtTaps);
     }
+  }
   // serial state, in the registers of thread ch < kChCh
   float de_x1 = 0.0f, de_y1 = 0.0f;
   Peak2 pr{}, pi{};
@@ -263,27 +374,34 @@ __global__ void __launch_bounds__(kChThreads, 4)
   const int n_tiles = a.b / kChT;
   const int win = h1 + kChT;
   const int warp = tid / 32, lane = tid % 32;
+  // the plane index of sample t0 of the input window: kChH at the
+  // receiver's order, nn1 at any (sample t0 - h1 at index 4)
+  const int i_t0 = kAny ? a.nn1 : kChH;
+  // the first sample a tile fetches whole: t0 - 64 at the receiver's
+  // order (one float4 before its halo), t0 - h1 at any (h1 % 4 == 0)
+  const int g0 = kAny ? h1 : kChDs4Taps;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kChT;
     // 1. the input window [t0 - h1, t0 + kChT) as centred (re, im), sample
-    // g at index mid_skew(kChH + g - t0) of its plane
-    if (ds4_blocked && t0 >= kChDs4Taps) {
-      // samples t0 - 64 .. t0 + kChT - 1 as float4 fetches, all in flight
-      constexpr int kG = (kChDs4Taps + kChT) / 4;  // fetches a channel
-      constexpr int kN = (kChCh * kG + kChThreads - 1) / kChThreads;
+    // g at index mid_skew(i_t0 + g - t0) of its plane
+    if (t0 >= g0) {
+      // samples t0 - g0 .. t0 + kChT - 1 as float4 fetches, all in flight
+      const int n_g = (g0 + kChT) / 4;  // fetches a channel
+      constexpr int kN = (kChCh * (kChH + kChT) / 4 + kChThreads - 1) /
+                         kChThreads;
       typename Load::Raw raw[kN];
 #pragma unroll
       for (int u = 0; u < kN; ++u) {
         const int e = tid + u * kChThreads;
-        if (e < kChCh * kG)
-          raw[u] = in.fetch((int64_t)(c0 + e / kG) * a.b,
-                            t0 - kChDs4Taps + 4 * (e % kG));
+        if (e < kChCh * n_g)
+          raw[u] = in.fetch((int64_t)(c0 + e / n_g) * a.b,
+                            t0 - g0 + 4 * (e % n_g));
       }
 #pragma unroll
       for (int u = 0; u < kN; ++u) {
         const int e = tid + u * kChThreads;
-        if (e < kChCh * kG) {
-          const int ch = e / kG, j0 = kChH - kChDs4Taps + 4 * (e % kG);
+        if (e < kChCh * n_g) {
+          const int ch = e / n_g, j0 = i_t0 - g0 + 4 * (e % n_g);
           float r[4], i[4];
           Load::unpack(raw[u], r, i);
 #pragma unroll
@@ -308,40 +426,14 @@ __global__ void __launch_bounds__(kChThreads, 4)
 #endif
           in.load(c * a.b, g, vr, vi);
         }
-        s_in[ch * kChInS + mid_skew(kChH - h1 + j)] = vr;
-        s_in[(kChCh + ch) * kChInS + mid_skew(kChH - h1 + j)] = vi;
+        s_in[ch * kChInS + mid_skew(i_t0 - h1 + j)] = vr;
+        s_in[(kChCh + ch) * kChInS + mid_skew(i_t0 - h1 + j)] = vi;
       }
     }
     __syncthreads();
     // 2a. ds x4: the re sums into theta1's buffer, the im sums into
-    // fm_demod's (free until the discriminator)
-    if (ds4_blocked) {
-      // warp w: channel planes 2w, 2w + 1 (re for w < 2), 16 lanes each
-      const int cp = 2 * warp + lane / 16, ch = cp % kChCh;
-      float acc[8];
-      fir_block<4, 8, kChDs4Taps, kChH - (kChDs4Taps - 4)>(
-          s_in + cp * kChInS, lane % 16, s_w1, acc);
-      float* dst = (cp < kChCh ? s_th1 + ch * kChN4
-                               : s_fmd + ch * kChFmd + kChH) + 8 * (lane % 16);
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(acc[4], acc[5], acc[6], acc[7]);
-    } else {
-      for (int e = tid; e < kChCh * kChN4; e += kChThreads) {
-        const int ch = e / kChN4, j = e % kChN4;
-        const float* xr = s_in + ch * kChInS;
-        const float* xi = s_in + (kChCh + ch) * kChInS;
-        auto src = [&](int n, float& vr, float& vi) {
-          vr = xr[mid_skew(n)];
-          vi = xi[mid_skew(n)];
-        };
-        float fr, fi;
-        ds4_float(src, a.w1, a.nn1, kChH + 4 * j - h1, fr, fi);
-        s_th1[e] = fr;
-        s_fmd[ch * kChFmd + kChH + j] = fi;
-      }
-    }
+    // fm_demod's
+    ch_ds4<kAny>(s_in, s_w1, a.nn1, s_th1, s_fmd, warp, lane);
     __syncthreads();
     // 2b. atan2 -> theta1, in place
     for (int e = tid; e < kChCh * kChN4; e += kChThreads) {
@@ -412,61 +504,10 @@ __global__ void __launch_bounds__(kChThreads, 4)
     }
     __syncthreads();
     // 11. the five decimating FIRs -> the output planes
-    if (ext_blocked) {
-      // warp 0: lpr, L-R re and im (lanes 0-7, 8-15, 16-23); warp 1: RDS
-      // re and im (lanes 0-7, 8-15); two lanes (li) a channel (ch)
-      const int q = lane / 8, ch = (lane % 8) / 2, li = lane % 2;
-      const int p = warp == 0 ? (q == 0 ? 0 : q + 1) : 4 + q;
-      const int64_t c = c0 + ch;
-      const float* x = s_pl + ch_slot(p) * kChPlB + ch * kChPlS;
-      if (warp == 0 && q < 3) {
-        float acc[8];
-        fir_block<4, 8, kExtTaps, kChH - (kExtTaps - 4)>(
-            x, li, p == 0 ? s_wa : s_wm, acc);
-        float* y = p == 0 ? a.lpr : p == 2 ? a.lmr_re : a.lmr_im;
-        const int64_t n = (int64_t)nc * (a.b / 32);
-        float* o = FMT_SPAN(y, c * (a.b / 32) + tile * kChNA + 8 * li, 8, n);
-        *reinterpret_cast<float4*>(o) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-        *reinterpret_cast<float4*>(o + 4) =
-            make_float4(acc[4], acc[5], acc[6], acc[7]);
-      } else if (warp == 1 && q < 2) {
-        float acc[4];
-        fir_block<8, 4, kExtTaps, kChH - (kExtTaps - 8)>(x, li, s_wr, acc);
-        float* y = p == 4 ? a.rds_re : a.rds_im;
-        const int64_t n = (int64_t)nc * (a.b / 64);
-        *reinterpret_cast<float4*>(
-            FMT_SPAN(y, c * (a.b / 64) + tile * kChNR + 4 * li, 4, n)) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-      }
-    } else {
-      constexpr int items = 2 * kChNA + kChNR;
-      for (int w = tid; w < kChCh * items; w += kChThreads) {
-        const int ch = w / items, j = w % items;
-        const int64_t c = c0 + ch;
-        if (j < kChNA) {
-          const int base = kChH + 4 * j - ha;
-          FMT_AT(a.lpr, c * (a.b / 32) + tile * kChNA + j, nc * (a.b / 32)) =
-              ch_dot(&pl(0, ch, 0), base, a.wa, a.nn_a);
-        } else if (j < 2 * kChNA) {
-          const int jj = j - kChNA, base = kChH + 4 * jj - ha;
-          const int64_t o = c * (a.b / 32) + tile * kChNA + jj;
-          FMT_AT(a.lmr_re, o, nc * (a.b / 32)) =
-              ch_dot(&pl(2, ch, 0), base, a.wm, a.nn_a);
-          FMT_AT(a.lmr_im, o, nc * (a.b / 32)) =
-              ch_dot(&pl(3, ch, 0), base, a.wm, a.nn_a);
-        } else {
-          const int jj = j - 2 * kChNA, base = kChH + 8 * jj - hr;
-          const int64_t o = c * (a.b / 64) + tile * kChNR + jj;
-          FMT_AT(a.rds_re, o, nc * (a.b / 64)) =
-              ch_dot(&pl(4, ch, 0), base, a.wr, a.nn_r);
-          FMT_AT(a.rds_im, o, nc * (a.b / 64)) =
-              ch_dot(&pl(5, ch, 0), base, a.wr, a.nn_r);
-        }
-      }
-    }
+    ch_ext_firs<kAny>(s_pl, s_wa, s_wm, s_wr, a, c0, tile, warp, lane);
     __syncthreads();
-    // 12. slide: each buffer's last kChH samples become the next halo
+    // 12. slide: each buffer's last kChH samples become the next halo (at
+    // any order a plane's window samples only)
     for (int e = tid; e < kChCh * kChH; e += kChThreads) {
       const int ch = e / kChH, k = e % kChH;
       s_fmd[ch * kChFmd + k] = s_fmd[ch * kChFmd + kChN4 + k];
@@ -479,7 +520,8 @@ __global__ void __launch_bounds__(kChThreads, 4)
       const int ch = e / kChH, k = e % kChH;
       s_fo[ch * kChFo + k] = s_tmp[ch * kChH + k];
       for (int p = 0; p < kChPlanes; ++p)
-        pl(p, ch, k) = s_tmp[((1 + p) * kChCh + ch) * kChH + k];
+        if (!kAny || k >= kChH - (p < 4 ? ha : hr))
+          pl(p, ch, k) = s_tmp[((1 + p) * kChCh + ch) * kChH + k];
     }
     __syncthreads();
   }
@@ -510,13 +552,32 @@ __global__ void __launch_bounds__(kChThreads, 4)
   }
 }
 
+// the receiver's orders (ds x4 kChDs4Taps, extract kExtTaps) and every
+// other, each a function of its own, which a profile tells apart
+template <class Load>
+__global__ void __launch_bounds__(kChThreads, 4)
+    chain_kernel(Load in, ChainArgs a) {
+  chain_body<false>(in, a);
+}
+
+template <class Load>
+__global__ void __launch_bounds__(kChThreads, 4)
+    chain_any_kernel(Load in, ChainArgs a) {
+  chain_body<true>(in, a);
+}
+
 template <class Load>
 int launch_chain(Load in, const ChainArgs& a, cudaStream_t stream) {
-  const int bytes = kChSmemFloats * (int)sizeof(float);
+  const bool receiver = a.nn1 == kChDs4Taps && a.nn_a == kExtTaps &&
+                        a.nn_r == kExtTaps;
+  void (*kernel)(Load, ChainArgs) =
+      receiver ? chain_kernel<Load> : chain_any_kernel<Load>;
+  const int bytes = (receiver ? kChSmemFloats<false> : kChSmemFloats<true>) *
+                    (int)sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(
-      chain_kernel<Load>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  chain_kernel<Load><<<a.channels / kChCh, kChThreads, bytes, stream>>>(in, a);
+  kernel<<<a.channels / kChCh, kChThreads, bytes, stream>>>(in, a);
   FMT_CHECK_LAUNCH();
   return 0;
 }
@@ -533,9 +594,10 @@ using namespace fmt;
 // re/im = ds_audio_lmr, [C, nn_a - 4]; rds re/im = ds_rds, [C, nn_r - 8]);
 // reversed taps.  Outputs lpr, lmr_re, lmr_im [C, B/32]; rds_re, rds_im
 // [C, B/64]; prev_out [C]; tail2_out, htail_out and the six planes' tails
-// as their inputs; power [C].  C % 8 == 0, B % 512 == 0, and every filter
-// reaches at most 128 samples back (nn1 - 4, nn2 - 2, nh - 1, nn_a - 4,
-// nn_r - 8 <= 128).  Returns the launch's cudaError_t (0 = launched).
+// as their inputs; power [C].  C % 8 == 0, B % 512 == 0, nn1 % 4 == 0, and
+// every filter reaches at most 128 samples back (nn1 - 4, nn2 - 2, nh - 1,
+// nn_a - 4, nn_r - 8 <= 128).  Returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int fmt_chain(
     const void* x, int form, int channels, int b, const float* tail1,
     const float* w1_rev, int nn1, const float* prev_theta, float scale,
@@ -553,7 +615,8 @@ extern "C" int fmt_chain(
     float* tail2_out, float* htail_out, float* power, float* o_lpr_re,
     float* o_lpr_im, float* o_lmr_re, float* o_lmr_im, float* o_rds_re,
     float* o_rds_im, cudaStream_t stream) {
-  const bool bad_halo = nn1 < 4 || nn1 - 4 > kChH || nn2 < 2 ||
+  const bool bad_halo = nn1 < 4 || nn1 - 4 > kChH || nn1 % 4 != 0 ||
+                        nn2 < 2 ||
                         nn2 - 2 > kChH || nh < 1 || nh - 1 > kChH ||
                         nn_a < 4 || nn_a - 4 > kChH || nn_r < 8 ||
                         nn_r - 8 > kChH;

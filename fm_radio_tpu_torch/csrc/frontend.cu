@@ -46,7 +46,13 @@
 //   input sample is loaded, and a packed word unpacked, once, not once for
 //   each of the 16 outputs whose window holds it.  The sum is
 //   extract_stages.cuh::fir_block<4, 8, 64, 4>, register-blocked, one
-//   shared-memory load for eight multiply-adds, in ds4_float's order.
+//   shared-memory load for eight multiply-adds, in fir_dot's order.  At
+//   every other order (nn % 4 == 0) k1_tile_any_kernel runs the same tile
+//   with extract_stages.cuh::fir_block_any<4, 8, 4>: the same schedule
+//   with the order at run time (whole blocks of 8 steps in a loop, the
+//   last 1-8 steps in a switch), so one shared-memory load feeds eight
+//   multiply-adds at every order; the 64-tap kernel keeps its speed by a
+//   register cap (kK1Ctas, below).
 // - The int8 taps: k12_stages.cuh::ds4_i8_blocked_kernel over the tile's
 //   samples packed into int8 words once (LoadI8).
 // - The discriminator is in the same launch: theta1 (268 MB a block at the
@@ -86,9 +92,10 @@ struct LoadI8 {
 // The float K1's tile: kDs4Tile outputs a CTA, kK1Run a lane (fir_block's
 // R; 32 lanes x 8 outputs = 256 a warp); warps 0-3 sum the re plane, warps
 // 4-7 the im plane (half the registers a thread of one that sums both:
-// twice the warps an SM to hide the shared-memory and sum latencies), at the
-// receiver's order kK1Taps register-blocked; other orders sum each output
-// by itself, in the same order.
+// twice the warps an SM to hide the shared-memory and sum latencies),
+// register-blocked: at the receiver's order kK1Taps by fir_block
+// (k1_tile_kernel), at any other by fir_block_any (k1_tile_any_kernel), in
+// the same order.
 constexpr int kK1Run = 8;
 constexpr int kK1Runs = kDs4Tile / kK1Run;  // runs a tile (a plane's lanes)
 constexpr int kK1Threads = 2 * kK1Runs;
@@ -106,14 +113,16 @@ inline size_t k1_smem(int nn) {
 }
 
 // ds x4 (float taps) + atan2 + the discriminator (st) of one channel's
-// tile (blockIdx.y the channel, blockIdx.x the tile).  Plane index e holds
-// sample 4 t0 - nn + e (e < 0 ... the tail [2, C, nn - 4], before it 0;
-// past the row 0); output t0 + u sums e = 4 u + 4 + k, k < nn.
-template <class Load, class Store>
-__global__ void __launch_bounds__(kK1Threads)
-k1_tile_kernel(Load in, const float* __restrict__ tail,
-               const float* __restrict__ w_rev, int nn, int channels,
-               int n_in, Store st) {
+// tile (blockIdx.y the channel, blockIdx.x the tile), kAny: at an order
+// known only at run time.  Plane index e holds sample 4 t0 - nn + e (e <
+// 0 ... the tail [2, C, nn - 4], before it 0; past the row 0); output t0
+// + u sums e = 4 u + 4 + k, k < nn, for every nn.
+template <bool kAny, class Load, class Store>
+__device__ __forceinline__ void k1_tile(Load in,
+                                        const float* __restrict__ tail,
+                                        const float* __restrict__ w_rev,
+                                        int nn, int channels, int n_in,
+                                        Store st) {
   extern __shared__ __align__(16) float k1_sm[];
   const int plane = k1_plane(nn);
   float* s_re = k1_sm;
@@ -185,19 +194,13 @@ k1_tile_kernel(Load in, const float* __restrict__ tail,
   const int wq = warp % 4, run = 32 * wq + lane;
   const float* sp = warp < 4 ? s_re : s_im;
   float acc[kK1Run];
-  if (nn == kK1Taps) {
-    // the outputs of warp quarter wq start at e = 1024 wq: mid_skew(1024 wq
-    // + b) = 1056 wq + mid_skew(b)
+  // the outputs of warp quarter wq start at e = 1024 wq + 4: mid_skew(1024
+  // wq + b) = 1056 wq + mid_skew(b), and lane L's at 32 L further (33
+  // words), so B0 = 4 at every order
+  if constexpr (kAny)
+    fir_block_any<4, kK1Run, 4>(sp + 1056 * wq + 33 * lane, s_w, nn, acc);
+  else
     fir_block<4, kK1Run, kK1Taps, 4>(sp + 1056 * wq, lane, s_w, acc);
-  } else {
-#pragma unroll
-    for (int r = 0; r < kK1Run; ++r) {
-      const int base = 4 * (kK1Run * run + r) + 4;
-      float a = 0.0f;
-      for (int k = 0; k < nn; ++k) a += s_w[k] * sp[mid_skew(base + k)];
-      acc[r] = a;
-    }
-  }
   // the im sums to the re warps: s_fi[r kK1Runs + run], conflict-free
   if (warp >= 4) {
 #pragma unroll
@@ -223,6 +226,34 @@ k1_tile_kernel(Load in, const float* __restrict__ tail,
                      s_last);
 }
 
+// the CTAs an SM the 64-tap kernel is built to hold (ptxas's register
+// cap): 5 on packed words (48 registers), 4 on the other forms (63-64), a
+// measured choice: uncapped, words took 61 registers and ran 9% slower
+// (probes/k1_caps.py; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+// 6, PR 23).  The any-order kernel is not capped: at 4 CTAs it spills.
+template <class Load>
+constexpr int kK1Ctas = 4;
+template <>
+constexpr int kK1Ctas<PackedWords> = 5;
+
+// the receiver's order (nn == kK1Taps) and every other, each a function
+// of its own, which a profile tells apart
+template <class Load, class Store>
+__global__ void __launch_bounds__(kK1Threads, kK1Ctas<Load>)
+k1_tile_kernel(Load in, const float* __restrict__ tail,
+               const float* __restrict__ w_rev, int nn, int channels,
+               int n_in, Store st) {
+  k1_tile<false>(in, tail, w_rev, nn, channels, n_in, st);
+}
+
+template <class Load, class Store>
+__global__ void __launch_bounds__(kK1Threads)
+k1_tile_any_kernel(Load in, const float* __restrict__ tail,
+                   const float* __restrict__ w_rev, int nn, int channels,
+                   int n_in, Store st) {
+  k1_tile<true>(in, tail, w_rev, nn, channels, n_in, st);
+}
+
 template <class Load, class Store>
 inline int launch_k1_float(Load in, const float* tail, const float* w_rev,
                            int nn, int channels, int n_in, Store st,
@@ -232,8 +263,12 @@ inline int launch_k1_float(Load in, const float* tail, const float* w_rev,
   const int n = n_in / 4;
   const dim3 grid((unsigned)((n + kDs4Tile - 1) / kDs4Tile),
                   (unsigned)channels);
-  k1_tile_kernel<Load, Store><<<grid, kK1Threads, smem, stream>>>(
-      in, tail, w_rev, nn, channels, n_in, st);
+  if (nn == kK1Taps)
+    k1_tile_kernel<Load, Store><<<grid, kK1Threads, smem, stream>>>(
+        in, tail, w_rev, nn, channels, n_in, st);
+  else
+    k1_tile_any_kernel<Load, Store><<<grid, kK1Threads, smem, stream>>>(
+        in, tail, w_rev, nn, channels, n_in, st);
   FMT_CHECK_LAUNCH();
   return 0;
 }

@@ -43,7 +43,7 @@
 // of a thread's vector loads before the first unpack waits (the forms'
 // fetch / unpack); fp_dbuf unpacks its cp.async'd words, each once.  The
 // sum is extract_stages.cuh::fir_block<4, 8, 132, 4>: 8 outputs a thread,
-// one shared-memory load for eight products, in ds4_float's order (from
+// one shared-memory load for eight products, in fir_dot's order (from
 // 0.0f, k ascending, every product and sum rounded: -fmad=false), 33 steps
 // a phase ending in a partial block of one; re and im on separate warps,
 // the im sums handed over in shared memory, atan2 and the difference from

@@ -5,16 +5,15 @@
 //   Complex64                          the centred (u8 - 127) float pair
 //                                      (load), or four aligned ones (fetch
 //                                      and unpack, K1's staged tile)
-//   ds4_float                          the float32 ds x4 window sum, summed
-//                                      from the oldest sample up
 //   i8_byte                            a sample shifted into int8, for the
 //                                      int8 taps' words
 //
 // K1 stages its tile in shared memory and sums it register-blocked
-// (extract_stages.cuh::fir_block, ds4_float's order); the megakernel sums
-// its tile with fir_block at the receiver's order and through ds4_float at
-// others; so the chain's K1 equals the split K1 bit for bit (the
-// discriminator is k12_stages.cuh's disc_value).  The K1 probe
+// (extract_stages.cuh::fir_block at the receiver's order, fir_block_any at
+// others: each output from the oldest sample up, fir_dot's order); the
+// megakernel sums its tile the same way, so the chain's K1 equals the
+// split K1 bit for bit (the discriminator is k12_stages.cuh's
+// disc_value).  The K1 probe
 // (frontend_probe.cu) stages its tiles through these loads too and sums
 // them as K1 does: fir_block for the float taps, K12's ds4_i8_window on
 // i8_byte words for the int8 taps.
@@ -147,25 +146,6 @@ struct Complex64 {
     unpack(fetch(row, n), r, i);
   }
 };
-
-// (fr, fi) = sum_k w_rev[k] * v[base + k] for k < nn, in float32 from k = 0
-// up, where src(n, vr, vi) yields sample n of the window's (re, im).
-template <class Src>
-__device__ __forceinline__ void ds4_float(const Src& src,
-                                          const float* __restrict__ w_rev,
-                                          int nn, int base, float& fr,
-                                          float& fi) {
-  float ar = 0.0f, ai = 0.0f;
-  for (int k = 0; k < nn; ++k) {
-    float vr, vi;
-    src(base + k, vr, vi);
-    const float wk = __ldg(w_rev + k);
-    ar += wk * vr;
-    ai += wk * vi;
-  }
-  fr = ar;
-  fi = ai;
-}
 
 // The input shifted by -1 into int8 (C conversion truncates, as astype).
 __device__ __forceinline__ unsigned int i8_byte(float v, int u) {

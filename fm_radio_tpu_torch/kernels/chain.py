@@ -16,9 +16,11 @@ after extract.  K1 always takes the float taps (chain_pallas.py:294-297
 takes the float band), and no RDS power is summed: the megakernel's route
 runs the unfused RDS AGC (demod.py:576-609).  The kernel is
 ``csrc/chain.cu``; it evaluates the split kernels' device code tile by
-tile (at the receiver's filter orders the register-blocked ds x4 and
-extract FIRs, ``extract_stages.cuh::fir_block``, in the same tap order),
-so its outputs and state equal the split path's with float taps.
+tile (the register-blocked ds x4 and extract FIRs,
+``extract_stages.cuh::fir_block`` at the receiver's filter orders in
+``chain_kernel``, ``fir_block_any`` at any other in ``chain_any_kernel``,
+in the same tap order), so its outputs and state equal the split path's
+with float taps.
 """
 
 from __future__ import annotations
@@ -48,14 +50,21 @@ from fm_radio_tpu_torch.models.pilot_pll import (
 from fm_radio_tpu_torch.ops.agc import _agc_gain
 from fm_radio_tpu_torch.ops.cmath import div_scalar
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counter was last set to 0; and those at other
+# filter orders than the receiver's (RECEIVER_ORDERS: chain_any_kernel),
+# each counted in ``launches`` too
 launches = 0
+launches_any = 0
 
 FORMS = {"planes": 0, "words": 1}
 # the channel multiple the wrapper takes (the JAX gate's, pick_tiles_chain;
 # csrc/chain.cu runs half of it, kChCh = 4, a CUDA block)
 CHANNELS = 8
 TILE = 512    # baseband samples per time tile (kChT)
+# the ds x4, L+R / L-R and RDS orders chain_kernel is built for
+# (csrc/chain.cu: kChDs4Taps, kExtTaps); every other set takes
+# chain_any_kernel
+RECEIVER_ORDERS = (64, 128, 128)
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = ([_P, _I, _I, _I] + [_P, _P, _I, _P, _F]
@@ -167,7 +176,15 @@ def chain(coeffs, cfg, state: dict, x: torch.Tensor):
         check_tiles(x)
     if _build.on_cpu("chain", x.device):
         return chain_plain(coeffs, cfg, state, x)
-    global launches
+    global launches, launches_any
     out = _launch(coeffs, cfg, state, x)
     launches += 1
+    launches_any += int(chain_orders(coeffs) != RECEIVER_ORDERS)
     return out
+
+
+def chain_orders(coeffs) -> tuple[int, int, int]:
+    """The ds x4, L+R / L-R and RDS filter orders of ``coeffs``, which
+    pick the kernel (:data:`RECEIVER_ORDERS` or any other)."""
+    return (coeffs.taps_fm_in.shape[0], coeffs.taps_audio_lpr.shape[0],
+            coeffs.taps_rds.shape[0])

@@ -27,8 +27,10 @@ int8 planes with float taps; :func:`frontend_i8` (``launches_i8``,
 whose device code is K12's first launch with the discriminator's store.
 Each is one launch (ds x4, atan2 and the discriminator;
 ``csrc/frontend.cu``) and counts its int16-format launches apart too
-(``launches_i16``, ``launches_i8_i16``); :func:`pick_tiles` is the JAX
-kernel's shape gate, which decides whether ``demod_block`` asks for it.
+(``launches_i16``, ``launches_i8_i16``); the float taps' tile at other
+orders than :data:`TILE_TAPS` (``k1_tile_any_kernel``) counts in
+``launches_any`` too.  :func:`pick_tiles` is the JAX kernel's shape gate,
+which decides whether ``demod_block`` asks for it.
 """
 
 from __future__ import annotations
@@ -43,11 +45,18 @@ from fm_radio_tpu_torch.ops.fir import correlate
 from fm_radio_tpu_torch.utils.transfer import i8_planes_to_f32, unpack_iq_words
 
 # kernel launches since the counter was last set to 0 (fmt_frontend, and
-# the int8-direct fmt_frontend_i8; then each of them with the int16 output)
+# the int8-direct fmt_frontend_i8; then each of them with the int16
+# output); and every launch of fmt_frontend's float-tap tile at another
+# order than TILE_TAPS (k1_tile_any_kernel), each counted by its form too
 launches = 0
 launches_i8 = 0
 launches_i16 = 0
 launches_i8_i16 = 0
+launches_any = 0
+
+# the order the float-tap tile is built for (csrc/frontend.cu: kK1Taps,
+# k1_tile_kernel); every other takes k1_tile_any_kernel
+TILE_TAPS = 64
 
 _M, _NO = 4, 128  # the TPU kernel's decimation and default band width
 
@@ -255,12 +264,14 @@ def frontend(coeffs, cfg, state: dict, x: torch.Tensor, int8_taps: bool,
                          "int8-direct form (frontend_i8)")
     if _build.on_cpu("frontend", x.device):
         return frontend_plain(coeffs, cfg, state, x, int8_taps, out_i16)
-    global launches, launches_i16
+    global launches, launches_i16, launches_any
     out = _launch(coeffs, cfg, state, x, int8_taps, False, out_i16)
     if out_i16:
         launches_i16 += 1
     else:
         launches += 1
+    launches_any += int(not int8_taps
+                        and coeffs.taps_fm_in.shape[0] != TILE_TAPS)
     return out
 
 

@@ -179,16 +179,29 @@ def pick_tiles_mid(c: int, b4: int) -> tuple[int, int] | None:
     return c_blk, t_blk
 
 
+def carried(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The tail a FIR carries past the block ``x``: the last
+    ``hist.shape[-1]`` samples of concat(``hist``, ``x``), which are
+    ``x``'s own where the block is at least that long (JAX
+    ``ops/fir.py::_decimate_core``)."""
+    h = hist.shape[-1]
+    if x.shape[-1] < h:
+        x = torch.cat([hist.to(x.dtype), x], dim=-1)
+    return x[:, x.shape[-1] - h :]
+
+
 def mid_new_state(state: dict, fmd, fm_out, deemph, peak, power,
                   n8: int | None = None) -> dict:
     """Carried state after the mid end (midend_pallas.py:448-460): the
-    ds x2 input tail, the Hilbert input tail (the last samples of ``fmd``
-    and ``fm_out``, which may be those tails already), the IIR histories
+    ds x2 input tail and the Hilbert input tail (:func:`carried` past
+    ``fmd`` and ``fm_out``: the block's inputs of the two FIRs, their last
+    samples, or the new tails themselves; a block shorter than a tail
+    keeps the old tail's last samples before its own), the IIR histories
     and the pilot AGC gain from the block's power sum over its ``n8``
     (default: ``fm_out``'s length) outputs."""
     new = dict(state)
-    new["ds_fm_out"] = fmd[:, fmd.shape[-1] - state["ds_fm_out"].shape[-1] :]
-    new["hilbert"] = fm_out[:, fm_out.shape[-1] - state["hilbert"].shape[-1] :]
+    new["ds_fm_out"] = carried(state["ds_fm_out"], fmd)
+    new["hilbert"] = carried(state["hilbert"], fm_out)
     new["deemph"] = deemph
     new["peak_pilot"] = peak
     n8 = fm_out.shape[-1] if n8 is None else n8
@@ -203,17 +216,20 @@ def midend_plain(coeffs, cfg, state: dict, fmd: torch.Tensor,
     fm_demod dequantised first if it is int16.  Returns (state', (re, im)
     [C, B/8], theta [C, B/8] cycles), with ``out_i16`` each ``q_i16``."""
     fmd = dq_if_i16(fmd, FM_SCALE)
-    _, fm_out = decimate_core(coeffs.taps_fm_out, state["ds_fm_out"], fmd, 2)
+    tail2, fm_out = decimate_core(coeffs.taps_fm_out, state["ds_fm_out"],
+                                  fmd, 2)
     deemph = state["deemph"]
     if cfg.use_deemphasis_filter:
         deemph, fm_out = iir_filter(coeffs.deemph_b, coeffs.deemph_a,
                                     deemph, fm_out)
-    _, (re, im) = hilbert_fir_p(coeffs.taps_hilbert, state["hilbert"], fm_out)
+    htail, (re, im) = hilbert_fir_p(coeffs.taps_hilbert, state["hilbert"],
+                                    fm_out)
     peak, (pr, pi) = iir_filter_planes(coeffs.peak_b, coeffs.peak_a,
                                        state["peak_pilot"], (re, im))
     theta = atan2_poly(pi, pr) * f32(1.0 / (2.0 * math.pi))
     power = torch.sum(pr * pr + pi * pi, dim=-1)
-    new = mid_new_state(state, fmd, fm_out, deemph, peak, power)
+    new = mid_new_state(state, tail2, htail, deemph, peak, power,
+                        fm_out.shape[-1])
     if out_i16:
         re, im = q_i16(re, IQ_SCALE), q_i16(im, IQ_SCALE)
         theta = q_i16(theta, PH_SCALE)
@@ -365,7 +381,7 @@ def _launch(coeffs, cfg, state: dict, fmd: torch.Tensor,
     count_route(route, coeffs)
     # the carried tail, dequantised: only its last samples, not the planes
     fmd_t, fm_out_t = mid_tails(route, buf,
-                                fmd[:, n4 - a["tail2"].shape[-1] :])
+                                fmd[:, max(n4 - a["tail2"].shape[-1], 0) :])
     new = mid_outputs(state, cfg, a, dq_if_i16(fmd_t, FM_SCALE), fm_out_t,
                       power, n8)
     if out_i16:

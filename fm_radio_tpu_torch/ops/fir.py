@@ -48,8 +48,8 @@ def polyphase_decimate_p(taps, state: torch.Tensor, xp, factor: int,
     xr, xi = xp
     hr, yr = decimate_core(taps, state.real, xr, factor)
     if not imag_out:
-        halo = taps.shape[0] - factor
-        hi = torch.cat([state.imag, xi], dim=-1)[:, -halo:]
+        x_pad = torch.cat([state.imag, xi], dim=-1)
+        hi = x_pad[:, x_pad.shape[-1] - (taps.shape[0] - factor) :]
         return torch.complex(hr, hi), yr
     hi, yi = decimate_core(taps, state.imag, xi, factor)
     return torch.complex(hr, hi), (yr, yi)

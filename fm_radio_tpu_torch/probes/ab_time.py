@@ -20,7 +20,10 @@ checkout's kernels and prints one JSON row per case:
   other-order lens presplit_o96 (pre-split at
   ``order_poly_ds_lpf_audio = order_poly_ds_lpf_rds = 96``), the mid
   end's other-order lens presplit_mo96 (pre-split at
-  ``order_poly_ds_lpf_fm_out = 96, order_fir_hilbert = 97``), each beside
+  ``order_poly_ds_lpf_fm_out = 96, order_fir_hilbert = 97``), the float
+  K1's other-order lens f32w_mo96 (f32w at those orders) and the
+  megakernel's chain_o96 (the chain cell at 96 / 97 / 96 / 96, with
+  ``order_poly_ds_lpf_audio`` and ``order_poly_ds_lpf_rds``), each beside
   the device time a block of the front end's, mid end's and extract's
   launches and of all its kernels (``torch.profiler`` over 5 blocks
   after one, :data:`MID_KEYS`; a name a tree does not launch reads 0),
@@ -140,14 +143,25 @@ CELLS = (
     ("presplit_mo96", "i8", {"frontend_int8": True,
                              "order_poly_ds_lpf_fm_out": 96,
                              "order_fir_hilbert": 97}, 2048, 131072, 8),
+    ("f32w_mo96", "words", {"assume_integer_input": True,
+                            "order_poly_ds_lpf_fm_out": 96,
+                            "order_fir_hilbert": 97}, 2048, 131072, 8),
+    ("chain_o96", "words", {"assume_integer_input": True,
+                            "chain_fusion": "auto",
+                            "order_poly_ds_lpf_fm_out": 96,
+                            "order_fir_hilbert": 97,
+                            "order_poly_ds_lpf_audio": 96,
+                            "order_poly_ds_lpf_rds": 96}, 2048, 131072, 8),
 )
 # the front end's and mid end's launches on every route of every tree
-# timed in turns (csrc/k12_stages.cuh, csrc/frontend.cu), extract's
+# timed in turns (csrc/k12_stages.cuh, csrc/frontend.cu), the
+# megakernel's (csrc/chain.cu), extract's
 # (csrc/extract.cu: EXT_KEYS), and "*": every CUDA kernel of the window
 # (the device's busy time)
 EXT_KEYS = ("extract_kernel", "extract_blocked_kernel",
             "extract_blocked_any_kernel")
-MID_KEYS = ("ds4_i8_blocked_kernel", "k1_tile_kernel", "k12_disc_kernel",
+MID_KEYS = ("ds4_i8_blocked_kernel", "k1_tile_kernel", "k1_tile_any_kernel",
+            "chain_kernel", "chain_any_kernel", "k12_disc_kernel",
             "fir_decimate_kernel", "k12_deemph_kernel", "k12_hilbert_kernel",
             "k12_mid_ds2_kernel", "k12_mid_hilb_kernel",
             "k12_mid_ds2_any_kernel", "k12_mid_hilb_any_kernel",

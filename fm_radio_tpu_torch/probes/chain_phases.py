@@ -1,6 +1,7 @@
 """Where the full-chain megakernel's time goes, on the card.
 
     python -m fm_radio_tpu_torch.probes.chain_phases [-c C] [-b B]
+        [--orders FM_OUT,HILBERT,AUDIO,RDS]
 
 The megakernel (``csrc/chain.cu``) is one launch, so a profiler shows one
 number.  This probe times it whole and with phases taken out: each
@@ -11,7 +12,10 @@ kernels' flags into ``fm_radio_tpu_torch/_build/probes/`` and launched
 through
 ``kernels/chain.py`` on the chain cell's input (bench.py's FM-like phase
 walk as packed u8 words, ``DemodConfig(assume_integer_input=True,
-chain_fusion="auto")``).  A variant's outputs are wrong by design; only
+chain_fusion="auto")``; ``--orders`` sets its filter orders,
+``order_poly_ds_lpf_fm_out`` (the ds x4 and ds x2), ``order_fir_hilbert``,
+``order_poly_ds_lpf_audio`` and ``order_poly_ds_lpf_rds``: at other orders
+than the receiver's the probe times ``chain_any_kernel``).  A variant's outputs are wrong by design; only
 its time means anything: the full kernel's time less a variant's is what
 the dropped phases cost at the occupancy the kernel has, their barriers
 included.  Each variant is timed with CUDA events (mean of 5 calls after
@@ -37,23 +41,27 @@ from fm_radio_tpu_torch.kernels import chain as tchain
 from fm_radio_tpu_torch.models.demod import demod_init_state, make_coeffs
 
 _LOOP, _NO_LOOP = "for (int e = tid;", "for (int e = tid + (1 << 30);"
-_ITEMS, _NO_ITEMS = "for (int w = tid;", "for (int w = tid + (1 << 30);"
 _SERIAL, _OFF = "if (tid < kChCh) {", "if (false) {"
-# the register-blocked branches the receiver's filter orders take
-_DS4, _EXT = "if (ds4_blocked) {", "if (ext_blocked) {"
+# the register-blocked stages (fir_block at the receiver's orders in
+# chain_kernel, fir_block_any at any other in chain_any_kernel: one call
+# for both), skipped
+_DS4 = "ch_ds4<kAny>("
+_EXT = "ch_ext_firs<kAny>("
 
 # variant -> the (phase label, statement, replacement) edits of chain.cu;
-# phases are labelled as in the kernel's tile loop.  A stage with a
-# blocked branch and a per-output loop loses both.
+# phases are labelled as in the kernel's tile loop.  Each edit reaches
+# both kernels, so a variant times the receiver's orders and any other.
 VARIANTS = {
     "full": (),
     "no_serial": tuple((n, _SERIAL, _OFF) for n in (5, 7, 9)),
-    "no_ds4": (("2a", _DS4, _OFF), ("2a", _LOOP, _NO_LOOP),
-               ("2b", _LOOP, _NO_LOOP)),
-    "no_extract_firs": ((11, _EXT, _OFF), (11, _ITEMS, _NO_ITEMS)),
+    "no_ds4": (("2a", _DS4, f"if (false) {_DS4}"), ("2b", _LOOP, _NO_LOOP)),
+    "no_extract_firs": ((11, _EXT, f"if (false) {_EXT}"),),
 }
 VARIANTS["rest"] = (VARIANTS["no_serial"] + VARIANTS["no_ds4"]
                     + VARIANTS["no_extract_firs"])
+# the DemodConfig fields --orders sets, in its order
+ORDER_KEYS = ("order_poly_ds_lpf_fm_out", "order_fir_hilbert",
+              "order_poly_ds_lpf_audio", "order_poly_ds_lpf_rds")
 
 
 def variant_source(src: str, edits) -> str:
@@ -146,13 +154,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("-c", "--channels", type=int, default=2048)
     ap.add_argument("-b", "--block", type=int, default=131072)
+    ap.add_argument("--orders", default="64,65,128,128",
+                    help="order_poly_ds_lpf_fm_out, order_fir_hilbert, "
+                         "order_poly_ds_lpf_audio, order_poly_ds_lpf_rds")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chain_phases: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     libs = build_variants()
-    cfg = DemodConfig(assume_integer_input=True, chain_fusion="auto")
+    cfg = DemodConfig(assume_integer_input=True, chain_fusion="auto",
+                      **dict(zip(ORDER_KEYS,
+                                 map(int, args.orders.split(",")))))
     co = make_coeffs(cfg, dev)
     st = demod_init_state(cfg, args.channels, dev)
     x = bench_words(args.channels, args.block, dev)
@@ -166,7 +179,7 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     print(json.dumps({"channels": args.channels, "block": args.block,
-                      "ms": ms}))
+                      "orders": args.orders, "ms": ms}))
     return 0
 
 

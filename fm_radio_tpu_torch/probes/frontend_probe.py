@@ -222,7 +222,7 @@ def _windows(v: torch.Tensor, head_pad, carry: bool, t_blk: int):
 
 def _ds4_float(win: torch.Tensor, w_rev: torch.Tensor, n_out: int):
     """sum_k w_rev[k] * win[..., 4j + k] in float32 from k = 0 up
-    (ds4_float's order)."""
+    (fir_dot's order)."""
     acc = torch.zeros(win.shape[:-1] + (n_out,), dtype=torch.float32,
                       device=win.device)
     for k in range(w_rev.shape[0]):

@@ -10,10 +10,17 @@ holds one of the ``--match`` strings asks the CUDA driver API (through
 ``ctypes``): its registers a thread, static shared memory,
 local memory a thread (spills and local arrays; ``cuobjdump -res-usage``'s
 STACK beside it) and, at the threads a CTA its launches use
-(:data:`THREADS`), the CTAs an SM can hold
+(:data:`THREADS`) and the dynamic shared memory they ask for
+(:data:`DYNAMIC_SHARED`), the CTAs an SM can hold
 (``cuOccupancyMaxActiveBlocksPerMultiprocessor``).  One JSON row a
 kernel, with the card's name and power limit.  Exits 1 without a CUDA
 device, 2 without ``cuobjdump``.
+
+    python3 fm_radio_tpu_torch/probes/res_usage.py --libs frontend,chain
+        --match k1_tile_kernel,k1_tile_any_kernel,chain_kernel,chain_any_kernel
+
+reads the float K1's and the megakernel's kernels at the receiver's
+orders and at any other.
 """
 
 from __future__ import annotations
@@ -32,7 +39,14 @@ import tempfile
 # csrc/k3_probe.cu: kValueThreads), by name
 THREADS = {"k12_mid_fused_kernel": 256, "k12_mid_ds2_kernel": 128,
            "k12_mid_hilb_kernel": 256, "k12_mid_ds2_any_kernel": 128,
-           "k12_mid_hilb_any_kernel": 256, "k3_value_kernel": 128}
+           "k12_mid_hilb_any_kernel": 256, "k3_value_kernel": 128,
+           "k1_tile_kernel": 256, "k1_tile_any_kernel": 256,
+           "chain_kernel": 128, "chain_any_kernel": 128}
+# dynamic shared memory bytes a CTA (the float K1's at 64 taps and, its
+# any-order kernel, at the lenses' 96: csrc/frontend.cu::k1_smem; the
+# megakernel's: csrc/chain.cu::kChSmemFloats), by name; 0 for the others
+DYNAMIC_SHARED = {"k1_tile_kernel": 39200, "k1_tile_any_kernel": 39584,
+                  "chain_kernel": 54784, "chain_any_kernel": 55120}
 
 
 def stacks(cuobjdump: str, so: str) -> dict:
@@ -95,15 +109,18 @@ class Driver:
         self._ok(self.cu.cuFuncGetAttribute(ctypes.byref(v), which, fn))
         return v.value
 
-    def ctas(self, fn, threads: int) -> int:
+    def ctas(self, fn, threads: int, dynamic: int = 0) -> int:
+        if dynamic:  # as the launch wrappers allow it (cudaFuncSetAttribute)
+            self._ok(self.cu.cuFuncSetAttribute(fn, _MAX_DYNAMIC,
+                                                ctypes.c_int(dynamic)))
         n = ctypes.c_int()
         self._ok(self.cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
-            ctypes.byref(n), fn, threads, ctypes.c_size_t(0)))
+            ctypes.byref(n), fn, threads, ctypes.c_size_t(dynamic)))
         return n.value
 
 
 # CUfunction_attribute values (cuda.h)
-_SHARED, _LOCAL, _REGS = 1, 3, 4
+_SHARED, _LOCAL, _REGS, _MAX_DYNAMIC = 1, 3, 4, 8
 
 
 def main(argv=None) -> int:
@@ -153,8 +170,9 @@ def main(argv=None) -> int:
                                shared_bytes=drv.attr(fn, _SHARED),
                                local_bytes=drv.attr(fn, _LOCAL))
                     if threads:
-                        row.update(threads=threads,
-                                   ctas_an_sm=drv.ctas(fn, threads))
+                        dyn = DYNAMIC_SHARED.get(kern, 0)
+                        row.update(threads=threads, dynamic_shared_bytes=dyn,
+                                   ctas_an_sm=drv.ctas(fn, threads, dyn))
                 print(json.dumps(row), flush=True)
     return 0
 

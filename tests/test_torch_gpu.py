@@ -527,9 +527,10 @@ def test_chan_edges_on_checked_build():
 def test_chain_small_on_poisoned_memory(checked):
     """The redesigned megakernel equals its plain version and the f32w
     split path bit for bit at C = 8 and 40 (B = 16,384, two blocks), at the
-    receiver's filter orders (its blocked stages) and at other orders (one
-    output a thread), on poisoned memory, on the default and the
-    bounds-checked build."""
+    receiver's filter orders (chain_kernel) and at every order set of
+    CHAIN_ANY_ORDERS (chain_any_kernel, every block counted as its
+    launch), on poisoned memory, on the default and the bounds-checked
+    build."""
     _need_card()
     import contextlib
 
@@ -540,12 +541,70 @@ def test_chain_small_on_poisoned_memory(checked):
     rows = []
     with ctx:
         for c in (8, 40):
-            for orders in (None, chip_smoke.CHAIN_OTHER_ORDERS):
+            for orders in (None,) + chip_smoke.CHAIN_ANY_ORDERS:
                 chip_smoke.poison_free_memory("cuda")
                 rows.append(chip_smoke.compare_chain_small(
                     c, c, 16384, orders=orders))
     assert all(r["ok"] and r["max_abs_err"] == 0.0
-               and r["vs_split_f32w"] == 0.0 for r in rows), rows
+               and r["vs_split_f32w"] == 0.0 and not r["off_route"]
+               for r in rows), rows
+    assert [r["any_kernel"] for r in rows] == [
+        orders is not None
+        for orders in (None,) + chip_smoke.CHAIN_ANY_ORDERS] * 2, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True], ids=["default",
+                                                         "checked"])
+def test_k1_any_orders_on_card(checked):
+    """The float K1 at every order but 64 that check_state admits (nn % 4
+    == 0, 4-132: k1_tile_any_kernel) equals its plain version bit for bit
+    on every float-tap load form with both stores, at C = 8, B = 8,324 (a
+    last tile of one output) and C = 40, B = 4,160, two blocks with
+    carried state each, NaN-filled memory, every call counted as a launch
+    of the any-order kernel; its SASS has no FFMA in the sums and no
+    spills."""
+    _need_card()
+    import contextlib
+
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    ctx = _build.checked_build() if checked else contextlib.nullcontext()
+    with ctx:
+        res = chip_smoke.compare_k1_any_orders(seed=18 if checked else 17)
+    assert len(res["rows"]) == 2 * len(chip_smoke.K1_ANY_ORDERS), res
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in res["rows"]), [
+        r for r in res["rows"] if not r["ok"]]
+    assert not res["off_route"] and not chip_smoke.DUMPS, res["off_route"]
+    if not checked:
+        assert not chip_smoke.ds4_sass_faults(chip_smoke.ds4_sass())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True], ids=["default",
+                                                         "checked"])
+def test_mid_short_blocks_on_card(checked):
+    """K12 and K2 in its four formats on three blocks shorter than a
+    carried tail (the launches route) and then a block of the split route,
+    de-emphasis off and on, equal their plain versions bit for bit, the
+    outputs and the state carried through the short blocks (each tail the
+    last samples of concat(old tail, block)), on NaN-filled memory."""
+    _need_card()
+    import contextlib
+
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    ctx = _build.checked_build() if checked else contextlib.nullcontext()
+    with ctx:
+        rows = chip_smoke.compare_mid_short_blocks(seed=20 if checked
+                                                   else 19)
+    assert len(rows) == 2 * (1 + len(chip_smoke.MID_EDGE_FORMS)), rows
+    assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
+    assert all(r["routes"][:-1] == ["launches"] * 3
+               and r["routes"][-1] == "split" for r in rows), rows
+    assert not chip_smoke.DUMPS, chip_smoke.DUMPS
 
 
 @pytest.mark.gpu
