@@ -134,8 +134,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    the host copy); the K1 probe's int8-direct forms on K12's staged
    tile against ``i8d_plain`` on both builds (:func:`compare_i8d_edges`:
    dots and full, K12's windows and noasm at every no, t_blk 512-4,096,
-   C = 5 and 40, B = 16,384 and 14,336, poisoned memory; the tiles and
-   no the entry refuses, refused before any launch); the exact
+   and K12's windows at tiles that straddle a CTA's 1,024 outputs (8,192,
+   3,584) and at 48, C = 5 and 40, B = 16,384 and 14,336, poisoned
+   memory; full at 8,192 one launch by the profiler; the tiles and no the
+   entry refuses, refused before any launch); the exact
    channelizer at every M it is instantiated for and its edge shapes on
    both builds (:func:`compare_chan_edges`: K = 1 and 17, T = 4,096,
    12,288 and 1,572,864 (more tiles than CTAs), every out form, words and
@@ -259,6 +261,18 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    issue floor (:func:`chain_floor`), and profiled (its profile must show
    ``chain_any_kernel`` and not ``chain_kernel``); the registers, spills
    and shared memory of both kernels and their receiver's-order twins;
+4j. the stream path (models/app.py::demod_stream: one CUDA graph a
+   call) on the pre-split cell (8 blocks a call) and the f32w and chain
+   cells (2), each on one block of bench.py's signal repeated in time on
+   the card: the first call captures (its ms and the bytes of the graph's
+   pool; the launch counters, set to 0 just before, count the capture's
+   wrapper calls), a second replays the cached graph (no counted launch),
+   a call after ``update_controls`` captures anew, each bit for bit a
+   host loop of ``demod_block`` over the same blocks; the wall ms a block
+   of both (best of 3) and their device-busy ms a block (profiled); the
+   three cells again on the bounds-checked build at C=64 x B=16,384; a
+   checkpoint round trip (``utils/checkpoint.py``, C=40 x B=16,384: the
+   resumed blocks bit for bit) on both builds;
 5. the wideband main path at its cell (bench.py's FMTPU_BENCH_WIDEBAND=32
    cell: 2048 stations = 64 captures x M=32, K=16 taps per phase, B=131,072
    per channel, packed words made on the card as bench.py makes them): one
@@ -1882,7 +1896,8 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     return res
 
 
-def _profile(label: str, step, blocks: int, device) -> dict:
+def _profile(label: str, step, blocks: int, device,
+             per_step: int = 1) -> dict:
     """Device time per block of each CUDA kernel (``torch.profiler``) over
     ``blocks`` calls of ``step`` after two warm-up calls, the host wall
     time per block, and the device's idle share (1 - kernel time /
@@ -1893,8 +1908,9 @@ def _profile(label: str, step, blocks: int, device) -> dict:
     The profiler has also dropped one launch's record inside the window
     now and then (a port kernel counted twice in 3 blocks; not on a rerun
     of the same window alone): a window where a port kernel's count is
-    not a multiple of ``blocks`` is profiled again, up to three times in
-    all, and the row says how many it took and what was still lost."""
+    not a multiple of ``blocks`` (times ``per_step``, the launches of a
+    kernel in one call of ``step``) is profiled again, up to three times
+    in all, and the row says how many it took and what was still lost."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -1918,7 +1934,7 @@ def _profile(label: str, step, blocks: int, device) -> dict:
                     us = e.self_cuda_time_total
                 key = e.key[:60]  # kernels whose names share it are summed
                 per[key] = per.get(key, 0.0) + float(us) / 1e3 / blocks
-                if "fmt::" in e.key and e.count % blocks:
+                if "fmt::" in e.key and e.count % (blocks * per_step):
                     lost[key] = e.count
         if not lost:
             break
@@ -2357,29 +2373,34 @@ def launch_grids(step, names, device) -> dict:
     """The (grid, block) pairs of the launches of the kernels ``names`` in
     one call of ``step`` (after one unprofiled call), as the profiler's
     trace records them (its kernel events' "grid" and "block"): {name:
-    the distinct pairs, in order}."""
+    the distinct pairs, in order}.  The profiler now and then drops a
+    launch's record (the note at :func:`_profile`): a trace without one
+    of ``names`` is taken again, up to three in all."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize(device)
-    path = os.path.join(DUMP_DIR, "launch_grids_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path)
-    out = {n: [] for n in names}
-    for ev in events:
-        if ev.get("cat") != "kernel":
-            continue
-        for n in names:
-            if n in ev.get("name", ""):
-                gb = [ev["args"].get("grid"), ev["args"].get("block")]
-                if gb not in out[n]:
-                    out[n].append(gb)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize(device)
+        path = os.path.join(DUMP_DIR, "launch_grids_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        out = {n: [] for n in names}
+        for ev in events:
+            if ev.get("cat") != "kernel":
+                continue
+            for n in names:
+                if n in ev.get("name", ""):
+                    gb = [ev["args"].get("grid"), ev["args"].get("block")]
+                    if gb not in out[n]:
+                        out[n].append(gb)
+        if all(out.values()):
+            break
     return out
 
 
@@ -4677,8 +4698,12 @@ def compare_man_edges(device="cuda", seed: int = 10) -> list[dict]:
 # noasm t_blk the entry admits from 512 up (its tiles inside one CTA's
 # 4,096 samples), C = 5 and 40, B = 16,384 (whole segments) and 14,336
 # (a last segment of 512 outputs, where t_blk divides it); no at its
-# least, the lens's 128 and its most
+# least, the lens's 128 and its most.  K12's windows also at the tiles
+# that straddle a CTA's segment (I8D_STRADDLE: 8,192 on B = 16,384 and
+# 3,584 on 14,336, the CTA's first output after theta(t0 - 1)) and at 48
+# (12 outputs a tile: tiles that start inside a thread's run of 8)
 I8D_EDGE_TBLKS = (512, 1024, 2048, 4096)
+I8D_STRADDLE = ((8192, 16384), (3584, 14336), (48, 16384), (48, 14336))
 I8D_EDGE_CS = (5, 40)
 I8D_EDGE_BS = (16384, 14336)
 
@@ -4691,14 +4716,46 @@ def i8d_edge_nos(t_blk: int) -> tuple:
                          <= tw - 32}))
 
 
+def frontend_kernels(step, device) -> dict:
+    """The port's kernels (``fmt::`` names, without their template
+    arguments) that one call of ``step`` launches, with their counts, as
+    the profiler's trace records them (after one unprofiled call and a
+    marker kernel, which the profiler may leave unrecorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device=device).add_(1.0)
+        torch.cuda.synchronize(device)
+        step()
+        torch.cuda.synchronize(device)
+    path = os.path.join(DUMP_DIR, "frontend_kernels_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    out = {}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") == "kernel" and "fmt::" in name:
+            key = name.split("fmt::", 1)[1].split("<", 1)[0].split("(", 1)[0]
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def compare_i8d_edges(device="cuda", seed: int = 12) -> list[dict]:
     """fp_i8d (``probes/frontend_probe.py::i8direct``) against
     ``i8d_plain`` on every form (dots and full, K12's windows and noasm)
     at I8D_EDGE_TBLKS x I8D_EDGE_CS x I8D_EDGE_BS (noasm at every no of
-    :func:`i8d_edge_nos`), on memory poisoned first (its outputs land on
-    NaN), max abs error 0; and the refusals before any launch (a noasm
-    tile past one CTA's segment, a no off the runs or outside its tile).
-    One row a case (kernel "fp_i8d")."""
+    :func:`i8d_edge_nos`), and K12's windows at I8D_STRADDLE, on memory
+    poisoned first (its outputs land on NaN), max abs error 0, one
+    wrapper launch a call; full at a straddling tile is one launch of
+    ``ds4_i8_blocked_kernel`` by the profiler (:func:`frontend_kernels`);
+    and the refusals before any launch (a noasm tile past one CTA's
+    segment, a no off the runs or outside its tile).  One row a case
+    (kernel "fp_i8d")."""
     from fm_radio_tpu_torch.probes import frontend_probe as fp
 
     tb = fp.tables(device)
@@ -4706,11 +4763,14 @@ def compare_i8d_edges(device="cuda", seed: int = 12) -> list[dict]:
     for c in I8D_EDGE_CS:
         for b in I8D_EDGE_BS:
             x8 = fp.make_inputs(c, b, device, seed=seed + c)["u8"]
-            for t_blk in I8D_EDGE_TBLKS:
+            tblks = [*I8D_EDGE_TBLKS,
+                     *(t for t, bb in I8D_STRADDLE if bb == b)]
+            for t_blk in tblks:
                 if b % t_blk:
                     continue
-                forms = [(False, 128), *((True, no)
-                                         for no in i8d_edge_nos(t_blk))]
+                forms = [(False, min(128, t_blk // 4))]
+                if t_blk in I8D_EDGE_TBLKS:
+                    forms += [(True, no) for no in i8d_edge_nos(t_blk)]
                 for noasm, no in forms:
                     for full in (False, True):
                         pout = fp.i8d_plain(x8, full, t_blk, no, noasm, tb)
@@ -4725,6 +4785,19 @@ def compare_i8d_edges(device="cuda", seed: int = 12) -> list[dict]:
                                     f"{':noasm' if noasm else ''}:C={c}:"
                                     f"B={b}:t_blk={t_blk}:no={no}",
                             "max_abs_err": e, "ok": ok})
+    # the profiler now and then records no kernel of a window (the note
+    # at _profile): an empty trace is taken again, up to three in all
+    x8 = fp.make_inputs(40, 16384, device, seed=seed)["u8"]
+    for attempt in range(1, 4):
+        kernels = frontend_kernels(
+            lambda: fp.i8direct(x8, True, 8192, 128, False, tb), device)
+        if kernels:
+            break
+    rows.append({"kernel": "fp_i8d",
+                 "case": "full:C=40:B=16384:t_blk=8192 one launch",
+                 "launches": kernels, "attempts": attempt,
+                 "max_abs_err": None,
+                 "ok": kernels == {"ds4_i8_blocked_kernel": 1}})
     x8 = fp.make_inputs(5, 16384, device, seed=seed)["u8"]
     for t_blk, no in ((8192, 128), (2048, 44), (2048, 24), (1024, 232),
                       (256, 64)):
@@ -4739,6 +4812,156 @@ def compare_i8d_edges(device="cuda", seed: int = 12) -> list[dict]:
                      "max_abs_err": None, "ok": refused})
     torch.cuda.synchronize(device)
     return rows
+
+
+# the stream path (models/app.py::demod_stream, one CUDA graph a call):
+# (label, input kind, DemodConfig kwargs, blocks a call)
+STREAM_CELLS = (("presplit", "i8", {"frontend_int8": True}, 8),
+                ("f32w", "words", {"assume_integer_input": True}, 2),
+                ("chain", "words", {"assume_integer_input": True,
+                                    "chain_fusion": "auto"}, 2))
+
+
+def _stream_equal(a, b) -> bool:
+    """Two (state, outs) pairs bit for bit: every out equal and every
+    state leaf's max difference 0."""
+    return (all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+            and _leaf_max_diff(a[0], b[0]) == 0.0)
+
+
+def _wall_ms(fn, reps: int, device) -> tuple:
+    """Host ms of one call of ``fn`` from a synchronised card, best of
+    ``reps``: (to the card's end, to the call's return: the host's own
+    time to enqueue it)."""
+    best, host = float("inf"), float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        host = min(host, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize(device)
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, host
+
+
+def stream_cell(label: str, kind: str, kw: dict, blocks: int,
+                channels: int = 2048, block: int = 131072, reps: int = 3,
+                device="cuda") -> dict:
+    """demod_stream on a cell's input on the card (one block of
+    bench.py's signal, ``blocks`` times in time: [..., blocks * block]):
+    the first call captures one graph (its ms, the pool's bytes, the
+    wrappers' counted calls: the capture's, a warm-up block and the
+    blocks); it and a second call, which replays the cached graph (no
+    capture, no counted launch), each bit for bit the host loop that the
+    graph captures (``models/app.py::_run_blocks``: demod_block over the
+    same blocks, run eagerly) from the same state; a call after
+    update_controls captures anew and equals the loop on the new
+    coefficients.  Then the wall ms a block of each (best of ``reps``
+    synchronised calls; and the host's own ms a block to enqueue it) and
+    the device-busy ms a block of each (:func:`_profile` over one
+    call)."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models import app as mapp
+    from fm_radio_tpu_torch.models.demod import (
+        BroadcastFMDemod, demod_init_state)
+
+    mapp.clear_stream_graphs()
+    cfg = DemodConfig(**kw)
+    dm = BroadcastFMDemod(cfg, channels, device)
+    x1 = split_input(kind, channels, block, 0, device)
+    x = torch.cat([x1] * blocks, dim=-1)
+    del x1
+    st0 = demod_init_state(cfg, channels, device)
+    res = {"cell": label, "config": kw, "channels": channels,
+           "block": block, "blocks": blocks}
+    reset_counts()
+    g1 = mapp.demod_stream(cfg, x, block, st0, dm.coeffs)
+    torch.cuda.synchronize(device)
+    res["first"] = dict(mapp.last_stream)
+    res["capture_launches"] = {k: v for k, v in read_counts().items() if v}
+    l1 = mapp._run_blocks(cfg, dm.coeffs, st0, x, block, blocks)
+    res["first_equal"] = _stream_equal(g1, l1)
+    reset_counts()
+    g2 = mapp.demod_stream(cfg, x, block, g1[0], dm.coeffs)
+    torch.cuda.synchronize(device)
+    res["second"] = dict(mapp.last_stream)
+    res["replay_launches"] = sum(read_counts().values())
+    l2 = mapp._run_blocks(cfg, dm.coeffs, l1[0], x, block, blocks)
+    res["second_equal"] = _stream_equal(g2, l2)
+    dm.update_controls(audio_stereo_mix_factor=0.5)
+    g3 = mapp.demod_stream(dm.cfg, x, block, g2[0], dm.coeffs)
+    res["controls"] = dict(mapp.last_stream)
+    l3 = mapp._run_blocks(dm.cfg, dm.coeffs, l2[0], x, block, blocks)
+    res["controls_equal"] = (_stream_equal(g3, l3)
+                             and not torch.equal(g3[1]["audio"],
+                                                 g2[1]["audio"]))
+    del g1, g2, g3, l1, l2, l3
+    cfg = dm.cfg
+    for k, fn in (("graph", lambda: mapp.demod_stream(
+            cfg, x, block, st0, dm.coeffs)),
+                  ("loop", lambda: mapp._run_blocks(
+                      cfg, dm.coeffs, st0, x, block, blocks))):
+        wall, host = _wall_ms(fn, reps, device)
+        res[f"{k}_ms_per_block"] = wall / blocks
+        res[f"{k}_host_ms_per_block"] = host / blocks
+    # a call launches each of the port's kernels once a block
+    pg = _profile(f"{label}_stream", lambda: mapp.demod_stream(
+        cfg, x, block, st0, dm.coeffs), 1, device, per_step=blocks)
+    pl = _profile(f"{label}_loop", lambda: mapp._run_blocks(
+        cfg, dm.coeffs, st0, x, block, blocks), 1, device, per_step=blocks)
+    for k, p in (("graph", pg), ("loop", pl)):
+        res[f"{k}_profile_attempts"] = p["attempts"]
+        res[f"{k}_lost_records"] = p["lost_records"]
+        res[f"{k}_busy_ms_per_block"] = p["device_busy_ms"] / blocks
+        res[f"{k}_profile_wall_ms_per_block"] = p["wall_ms"] / blocks
+        res[f"{k}_top_ms_per_block"] = {
+            n: v / blocks for n, v in p["device_ms_per_block"].items()}
+    res["ok"] = (res["first"]["captured"] and not res["second"]["captured"]
+                 and res["controls"]["captured"] and res["first_equal"]
+                 and res["second_equal"] and res["controls_equal"]
+                 and res["replay_launches"] == 0)
+    mapp.clear_stream_graphs()
+    del x
+    torch.cuda.empty_cache()
+    return res
+
+
+def checkpoint_card(channels: int = 40, block: int = 16384,
+                    device="cuda") -> dict:
+    """A checkpoint round trip on the card (utils/checkpoint.py): 3 blocks
+    of bench.py's signal as int8 planes through K12, the state saved with
+    ``block_index`` and loaded into a fresh demod's template, then 3 more
+    blocks each way: the resumed outs and state bit for bit the
+    uninterrupted run's, and every loaded leaf on the card in its
+    template's dtype."""
+    import io as _io
+
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.models.app import _leaves
+    from fm_radio_tpu_torch.models.demod import BroadcastFMDemod
+    from fm_radio_tpu_torch.utils.checkpoint import load_state, save_state
+
+    cfg = DemodConfig(frontend_int8=True)
+    xs = [split_input("i8", channels, block, s, device) for s in range(6)]
+    a = BroadcastFMDemod(cfg, channels, device)
+    for x in xs[:3]:
+        a.process(x)
+    buf = _io.BytesIO()
+    save_state(buf, a.state, extra={"block_index": 3})
+    buf.seek(0)
+    b = BroadcastFMDemod(cfg, channels, device)
+    b.state, extras = load_state(buf, b.state)
+    ok = int(extras["block_index"]) == 3
+    ok = ok and _leaf_max_diff(a.state, b.state) == 0.0
+    leaves = _leaves(b.state, [])
+    ok = ok and all(t.device.type == "cuda" for t in leaves)
+    same = True
+    for x in xs[3:]:
+        oa, ob = a.process(x), b.process(x)
+        same = same and all(np.array_equal(oa[k], ob[k]) for k in oa)
+    same = same and _leaf_max_diff(a.state, b.state) == 0.0
+    return {"channels": channels, "block": block, "leaves": len(leaves),
+            "bytes": buf.getbuffer().nbytes, "ok": ok and same}
 
 
 def restruct_floor(c: int, l: int, li: int, sms: int | None = None,
@@ -6331,6 +6554,41 @@ def main() -> int:
     log(f"[build] resources: " + json.dumps(
         {"frontend": {**res_of(k1res, K1_TILE), **res_of(k1res, K1_ANY)},
          "chain": chres}))
+
+    # 4j. the stream path: demod_stream as one CUDA graph a call against a
+    # host loop of demod_block, at full width (the counts are the
+    # capture's wrapper calls: a replay counts nothing); then a
+    # checkpoint round trip; both builds (the checked one at a small width)
+    t0 = time.perf_counter()
+    streams = []
+    for label, kind, kw, nb in STREAM_CELLS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = stream_cell(label, kind, kw, nb, device=dev)
+        log(f"[stream] {json.dumps(r)}")
+        log(f"[stream] {label}, {nb} blocks a call: graph "
+            f"{r['graph_ms_per_block']:.4f} ms a block (busy "
+            f"{r['graph_busy_ms_per_block']:.4f}), host loop "
+            f"{r['loop_ms_per_block']:.4f} (busy "
+            f"{r['loop_busy_ms_per_block']:.4f}); capture "
+            f"{r['first']['capture_ms']:.1f} ms, pool "
+            f"{r['first']['pool_bytes'] / 2 ** 20:.1f} MiB; counted in "
+            f"the capture {r['capture_launches']}, in a replay "
+            f"{r['replay_launches']}")
+        streams.append(r)
+    with _build.checked_build():
+        streams += [dict(stream_cell(label, kind, kw, 2, channels=64,
+                                     block=16384, reps=1, device=dev),
+                         build="checked")
+                    for label, kind, kw, _ in STREAM_CELLS]
+    ckpts = [checkpoint_card(device=dev)]
+    with _build.checked_build():
+        ckpts.append(dict(checkpoint_card(device=dev), build="checked"))
+    log(f"[stream] checkpoint round trips: {json.dumps(ckpts)}")
+    log(f"[stream] {time.perf_counter() - t0:.1f} s")
+    bad = [(r["cell"], r.get("build")) for r in streams if not r["ok"]]
+    if bad or not all(c["ok"] for c in ckpts):
+        raise RuntimeError(f"the stream path or a checkpoint is off: {bad}, "
+                           f"{ckpts}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
     t0 = time.perf_counter()

@@ -3,7 +3,15 @@
     python -m fm_radio_tpu_torch.apps.cli demod -i in.pcm [-o out.wav]
         [--ingest i8|f32w] [-b 65536] [--audio-mode stereo|lpr|lmr]
         [--deemphasis-us US] [--lpr-cutoff-hz HZ] [--lmr-cutoff-hz HZ]
-        [--stereo-gain G] [--no-rds] [--strict-ref] [--device cuda|cpu]
+        [--stereo-gain G] [--no-rds] [--strict-ref] [--save-state S.npz
+        [--checkpoint-every N]] [--resume-state S.npz [--resume-seek]]
+        [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli rds-decode [-i bytes.bin]
+        [--strict-ref]
+    python -m fm_radio_tpu_torch.apps.cli synth -o out.pcm [--seconds 1]
+        [--pi 0x1234] [--ps NAME] [--rt TEXT] [--af MHZ,..] [--pty N]
+        [--left-hz HZ] [--right-hz HZ] [--cnr DB] [--seed N]
+        [--stations K [-m M]]
     python -m fm_radio_tpu_torch.apps.cli bench [-i in.pcm] [-b 65536]
         [-c 64] [--device cuda|cpu]
     python -m fm_radio_tpu_torch.apps.cli selftest [--seconds 2.0]
@@ -17,11 +25,17 @@ recorded u8 IQ capture -> WAV (``-o``) and the RDS database (JSON on
 stdout, group log lines on stderr).  ``--ingest i8`` (the default) feeds
 int8 planes with ``frontend_int8`` (the fused K12); ``--ingest f32w``
 feeds packed u8 words under ``DemodConfig()`` with integer input (the
-split K1 on words, float taps, then K2).  Its flags that need modules not
-ported yet (``--save-state``, ``--resume-state``, ``--resume-seek``,
-``--checkpoint-every``, ``--taps``, ``--rate``, ``--play``,
-``--play-format``) exit with code
-2 and the ROADMAP.md item that adds them.
+split K1 on words, float taps, then K2).  ``--save-state``,
+``--resume-state``, ``--resume-seek`` and ``--checkpoint-every`` run as
+the JAX command's (``utils/checkpoint.py``: a checkpoint of either
+package resumes in the other).  Its flags that need modules not ported
+yet (``--taps``, ``--rate``, ``--play``, ``--play-format``) exit with
+code 2 and the ROADMAP.md item that adds them.
+
+``rds-decode`` (RDS bytes -> group log lines on stderr and the database
+JSON) and ``synth`` (a stereo + RDS station, or K stations on the
+channelizer's carrier grid, as a u8 IQ capture, optionally with AWGN) are
+the JAX commands, on the port's host copies; they run no kernel.
 
 ``bench`` is the port of ``cmd_bench``: complex64 baseband through
 ``demod_block`` under ``DemodConfig()`` (the split K1 on planes, then K2),
@@ -48,7 +62,8 @@ channels whose power clears the median by ``--threshold-db``.
 
 ``--device cuda`` (the default) runs the CUDA kernels; ``--device cpu``
 runs their plain PyTorch versions.  The other subcommands of the JAX CLI
-are not ported yet (ROADMAP.md, modules still to port, item 3).
+(``scrape``, ``tune``, ``channelize``, ``scan``, ``monitor``) are not
+ported yet (ROADMAP.md, modules still to port, items 3, 5 and 7).
 """
 
 from __future__ import annotations
@@ -340,10 +355,6 @@ def cmd_stations(args) -> int:
 
 # demod flags that need modules not ported yet -> the ROADMAP.md item
 _DEMOD_NOT_PORTED = {
-    "save_state": "modules still to port, item 4 (utils/checkpoint.py)",
-    "resume_state": "modules still to port, item 4 (utils/checkpoint.py)",
-    "resume_seek": "modules still to port, item 4 (utils/checkpoint.py)",
-    "checkpoint_every": "modules still to port, item 4 (utils/checkpoint.py)",
     "taps": "modules still to port, item 2 (include_taps and the scan loops)",
     "rate": "modules still to port, item 7 (ops/resample.py)",
     "play": "modules still to port, item 7 (io/player.py, ops/resample.py)",
@@ -378,8 +389,15 @@ def demod_config(args):
 def demod_app(args, device):
     """``demod``'s App on ``device``, fed the whole capture of ``args``
     (``-i``, ``--ingest``, ``-b``, the audio controls, ``--no-rds``,
-    ``--strict-ref``) in chunks of 64 blocks."""
+    ``--strict-ref``) in chunks of 64 blocks, with the JAX command's
+    checkpoints (cli.py:138-197): ``--resume-state`` loads the carried
+    state (``--resume-seek`` then skips the blocks it covers), and
+    ``--save-state`` saves it at the end or, with ``--checkpoint-every
+    N``, atomically every N blocks (a ``.tmp.npz``, then ``os.replace``),
+    ``block_index`` an extra."""
     from fm_radio_tpu_torch.models.app import App
+    from fm_radio_tpu_torch.models.demod import demod_init_state
+    from fm_radio_tpu_torch.utils.checkpoint import load_state, save_state
 
     block = power_ceil(args.block_size)
     iq = i8_input(args.input) if args.ingest == "i8" else packed_input(
@@ -388,11 +406,45 @@ def demod_app(args, device):
               decode_rds=not args.no_rds, integer_input=True,
               strict_ref=args.strict_ref, device=device)
     n_in = len(iq)
-    chunk = 64 * block
-    for i0 in range(0, n_in, chunk):
-        app.process(iq[i0 : min(i0 + chunk, n_in)])
-    if n_in == 0:
-        app.process(iq[0:0])  # empty input: clean empty outputs
+    extras = {}
+    if args.resume_state:
+        app.demod.state, extras = load_state(
+            args.resume_state, demod_init_state(app.demod.cfg, 1, device))
+        print(f"resumed from {args.resume_state} "
+              f"(block_index={int(extras.get('block_index', -1))})",
+              file=sys.stderr)
+    start_block = off = 0
+    if args.resume_state and args.resume_seek:
+        # crash-restart on the same input: skip the checkpointed blocks
+        start_block = int(extras.get("block_index", 0))
+        print(f"seeking past {start_block} checkpointed blocks",
+              file=sys.stderr)
+        off = min(start_block * block, n_in)
+    avail_blocks = (n_in - off) // block
+    if args.checkpoint_every and args.save_state:
+        n, done = args.checkpoint_every, 0
+        while done < avail_blocks:
+            upto = min(done + n, avail_blocks)
+            app.process(iq[off + done * block : off + upto * block])
+            tmp = f"{args.save_state}.tmp.npz"
+            save_state(tmp, app.demod.state,
+                       extra={"block_index": start_block + upto})
+            os.replace(tmp, args.save_state)
+            done = upto
+        app.process(iq[off + done * block : n_in])  # leftover -> pending
+        print(f"checkpointed every {n} blocks to {args.save_state} "
+              f"(final block_index={start_block + done})", file=sys.stderr)
+    else:
+        chunk = 64 * block
+        for i0 in range(off, n_in, chunk):
+            app.process(iq[i0 : min(i0 + chunk, n_in)])
+        if n_in == off:
+            app.process(iq[off:n_in])  # empty input: clean empty outputs
+        if args.save_state:
+            save_state(args.save_state, app.demod.state,
+                       extra={"block_index": start_block + avail_blocks})
+            print(f"saved stream state to {args.save_state}",
+                  file=sys.stderr)
     _sync(device)
     return app
 
@@ -480,6 +532,58 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_rds_decode(args) -> int:
+    """Bytes -> group log lines + database (parity with rds_decode.cpp;
+    the JAX command, cli.py:440-453)."""
+    from fm_radio_tpu_torch.rds.chain import RDSDecodingChain
+
+    if args.input is None or args.input == "-":
+        data = np.frombuffer(sys.stdin.buffer.read(), dtype=np.uint8)
+    else:
+        data = np.fromfile(args.input, dtype=np.uint8)
+    chain = RDSDecodingChain(strict_ref=args.strict_ref)
+    chain.process(data)
+    for line in chain.log_lines:
+        print(f"[rds_decoder] {line}", file=sys.stderr)
+    print(json.dumps({"groups": len(chain.groups), **chain.db.summary()}))
+    return 0
+
+
+def cmd_synth(args) -> int:
+    """Signal generator (the JAX command, cli.py:713-757): a stereo + RDS
+    station, or with ``--stations K`` > 1 a wideband capture of K stations
+    on the carrier grid of M channels, as a u8 IQ ``*.pcm``; ``--cnr``
+    adds AWGN."""
+    n = int(args.seconds * 1_024_000)
+    af = [float(v) for v in args.af.split(",")] if args.af else None
+
+    def one_station(pi: int, ps: str, left: float, right: float):
+        groups = station_group_schedule(pi, ps=ps, rt=args.rt, af_mhz=af,
+                                        pty=args.pty)
+        return FMModulator(ModulatorConfig()).generate(
+            n, left_hz=left, right_hz=right, rds_groups=groups)
+
+    if args.stations <= 1:
+        iq = one_station(int(args.pi, 0), args.ps, args.left_hz,
+                         args.right_hz)
+        rate = 1_024_000
+    else:
+        m = args.num_channels or power_ceil(args.stations + 2)
+        base_pi = int(args.pi, 0)
+        station_iq = {
+            k + 1: one_station(base_pi + k, f"ST {k + 1:02d}".ljust(8),
+                               args.left_hz * (1 + 0.5 * k), args.right_hz)
+            for k in range(args.stations)}
+        iq = normalize_wideband(make_wideband(station_iq, m))
+        rate = 1_024_000 * m
+    if args.cnr is not None:
+        iq = add_awgn(iq, args.cnr, args.seed)
+    c64_to_u8(iq.astype(np.complex64)).tofile(args.output)
+    print(json.dumps({"path": args.output, "samples": int(iq.size),
+                      "rate": rate, "stations": max(args.stations, 1)}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fm_radio_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -508,12 +612,17 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--play", default=None, help="not ported yet")
     d.add_argument("--play-format", choices=["f32", "s16"], default=None,
                    help="not ported yet")
-    d.add_argument("--save-state", default=None, help="not ported yet")
-    d.add_argument("--resume-state", default=None, help="not ported yet")
+    d.add_argument("--save-state", default=None,
+                   help="write the stream state (.npz) at the end")
+    d.add_argument("--resume-state", default=None,
+                   help="resume from a saved stream state (.npz; either "
+                        "package's)")
     d.add_argument("--resume-seek", action="store_true",
-                   help="not ported yet")
+                   help="with --resume-state on the SAME input: skip the "
+                        "blocks the checkpoint covers (crash restart)")
     d.add_argument("--checkpoint-every", type=int, default=0,
-                   help="not ported yet")
+                   help="with --save-state: save atomically every N "
+                        "blocks")
     d.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     d.set_defaults(fn=cmd_demod)
@@ -561,6 +670,39 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     st.set_defaults(fn=cmd_stations)
+
+    r = sub.add_parser("rds-decode", help="RDS bytes -> groups + database")
+    r.add_argument("-i", "--input", default=None)
+    r.add_argument("--strict-ref", action="store_true",
+                   help="exact reference RDS behavior: version-B groups "
+                        "print Unsupported_Code (rds_decoder.cpp:146-155) "
+                        "instead of being decoded (0B/2B/15B superset)")
+    r.set_defaults(fn=cmd_rds_decode)
+
+    sy = sub.add_parser(
+        "synth",
+        help="signal generator: synthesize a stereo+RDS station (or a "
+             "wideband multi-station capture) as reference-format pcm")
+    sy.add_argument("-o", "--output", required=True)
+    sy.add_argument("--seconds", type=float, default=1.0)
+    sy.add_argument("--pi", default="0x1234", help="PI code (hex ok)")
+    sy.add_argument("--ps", default="FMTPU   ", help="8-char service name")
+    sy.add_argument("--rt", default="", help="RadioText (<=64 chars)")
+    sy.add_argument("--af", default=None,
+                    help="comma-separated alternative freqs in MHz")
+    sy.add_argument("--pty", type=int, default=0)
+    sy.add_argument("--left-hz", type=float, default=1000.0)
+    sy.add_argument("--right-hz", type=float, default=3000.0)
+    sy.add_argument("--cnr", type=float, default=None,
+                    help="add AWGN at this carrier-to-noise (dB)")
+    sy.add_argument("--seed", type=int, default=0)
+    sy.add_argument("--stations", type=int, default=1,
+                    help=">1: wideband capture, stations on the carrier "
+                         "grid")
+    sy.add_argument("-m", "--num-channels", type=int, default=None,
+                    help="wideband oversample factor (default: fits "
+                         "stations)")
+    sy.set_defaults(fn=cmd_synth)
     return p
 
 

@@ -31,7 +31,9 @@
 // chan_common.cuh).  In the
 // checked build every C entry also synchronises after each launch
 // (FMT_CHECK_LAUNCH), so a trap is reported by the entry whose kernel
-// raised it.
+// raised it; not while its stream is being captured into a CUDA graph
+// (models/app.py::demod_stream), where a synchronise is refused: a trap
+// in a replay is reported by the caller's next synchronise.
 #ifdef FMT_CHECKED
 #include <cstdio>
 
@@ -56,11 +58,14 @@ __device__ __forceinline__ T& checked_at(T* p, int64_t i, int64_t n,
                      __LINE__))
 #define FMT_SPAN(p, i, len, n) \
   (FMT_AT(p, i, n), FMT_AT(p, (i) + (len) - 1, n), (p) + (i))
-#define FMT_CHECK_LAUNCH()                                    \
-  do {                                                        \
-    cudaError_t e_ = cudaGetLastError();                      \
-    if (e_ == cudaSuccess) e_ = cudaDeviceSynchronize();      \
-    if (e_ != cudaSuccess) return (int)e_;                    \
+#define FMT_CHECK_LAUNCH()                                              \
+  do {                                                                  \
+    cudaError_t e_ = cudaGetLastError();                                \
+    cudaStreamCaptureStatus cs_ = cudaStreamCaptureStatusNone;          \
+    if (e_ == cudaSuccess) e_ = cudaStreamIsCapturing(stream, &cs_);    \
+    if (e_ == cudaSuccess && cs_ == cudaStreamCaptureStatusNone)        \
+      e_ = cudaDeviceSynchronize();                                     \
+    if (e_ != cudaSuccess) return (int)e_;                              \
   } while (0)
 #else
 #define FMT_AT(p, i, n) ((p)[(i)])

@@ -22,9 +22,8 @@
 //                              carried (or `noasm`: each tile's first `no`
 //                              outputs read the tile from its start,
 //                              mis-filtered, as the TPU lens does); full's
-//                              difference in the same launch but where
-//                              full runs K12's own theta store
-//                              (fp_disc_kernel after it)
+//                              difference in the same launch, one launch
+//                              a call
 //   build_i8manual (:426, pallas_call :518)
 //     fp_i8man_kernel          one CTA per channel block, the time loop
 //                              inside: tiles in by cp.async.bulk on an
@@ -749,20 +748,25 @@ fp_dbuf_kernel(const float* __restrict__ x, int channels, int b,
 // tail; each thread sums a run of 8 outputs from ds4_i8_window's sliding
 // __dp4a window, the 33 tap words as shared-memory pairs, zero-padded at
 // the oldest end to 40: a zero tap adds an exact 0 to the int32 sums).
-// full without noasm stores theta (Ds4Theta) and takes its in-tile
-// difference in a second launch, fp_disc_kernel; the other forms store
-// through FpI8dStore, whose Ds4Rule specialisation sets the window's
-// start and the value:
-//   dots (no noasm)  K12's windows over the row, fr + fi;
+// Every form stores through FpI8dStore, whose Ds4Rule specialisation
+// sets the window's start, the value and the finish:
+//   no noasm         K12's windows over the row: dots fr + fi, full
+//                    atan2 and the in-tile difference;
 //   noasm            output j < no of each probe tile of tw = t_blk / 4
 //                    outputs starts its window at the tile's word j,
 //                    halo_w = 32 words past K12's start (the TPU lens's
 //                    mis-filtered first sub-window); no % 8 == 0, so no
 //                    run of 8 holds both kinds;
-//   full (noasm)     atan2, then the in-tile difference in the same
+//   full             atan2, then the in-tile difference in the same
 //                    launch: each run's last theta through shared memory
-//                    (ds4_finish's s_last), a tile's first output 0.
-// A tile must lie inside one CTA's segment: fmt_fp_i8d refuses a noasm
+//                    (ds4_finish's s_last), a tile's first output 0 (a
+//                    tile may start inside a run: tw % 8 != 0).
+// Without noasm a probe tile may straddle CTAs (tw > kDs4Tile, or tw not
+// dividing it): the CTA's first output t0 then differs from theta(t0 -
+// 1), which thread 0 sums once more from the staged head (prev_output;
+// K12's window, words t0 - 40 .. t0 - 1, all staged: the head is 40
+// words, zeros before the row) as K12's Ds4Disc does.
+// A noasm tile must lie inside one CTA's segment: fmt_fp_i8d refuses a noasm
 // t_blk that does not divide 4 kDs4Tile (it is not staged), and a no
 // outside [halo_w, tw - halo_w], before any launch
 // (probes/frontend_probe.py::i8d_check its host copy).  Then a shifted
@@ -773,18 +777,6 @@ fp_dbuf_kernel(const float* __restrict__ x, int channels, int b,
 // the CTA's staged words.  The int32 sums are exact in any
 // order and the float combine is the plain version's, so each output
 // equals it bit for bit.
-
-// full's difference as a second launch after K12's (the one form that
-// still needs it: full without noasm stores theta): out = wrap(theta[j] -
-// theta[j - 1]) * 0.123 within each tile of `no` outputs (0 at a tile's
-// first)
-__global__ void fp_disc_kernel(const float* __restrict__ theta, int64_t total,
-                               int no, float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float t = theta[i];
-  out[i] = disc_value(t, i % no == 0 ? t : theta[i - 1], kFpScale);
-}
 
 // The int8-direct forms' store: out [C, n] float32; tw outputs a probe
 // tile; the outputs j < no of each tile start their window halo_w words
@@ -802,6 +794,11 @@ struct Ds4Rule<FpI8dStore<kFull>> {
   __device__ __forceinline__ static int shift(const St& st, int j) {
     return j % st.tw < st.no ? st.halo_w : 0;
   }
+  // full's output t0 - 1 where the CTA starts inside a probe tile
+  __device__ __forceinline__ static bool prev_output(const St& st, int tid,
+                                                     int t0) {
+    return kFull && tid == 0 && t0 % st.tw != 0;
+  }
   __device__ __forceinline__ static float value(int y1r, int y2r, int y1i,
                                                 int y2i, float s_row) {
     const float fr = ((float)y1r + (float)y2r * (1.0f / 128.0f)) + s_row;
@@ -809,13 +806,15 @@ struct Ds4Rule<FpI8dStore<kFull>> {
     return kFull ? atan2_poly(fi, fr) : fr + fi;
   }
   // every thread of the CTA calls it (run = its thread, >= 0): the run's
-  // outputs j0 .. j0 + R - 1, stored where they lie in the row
+  // outputs j0 .. j0 + R - 1, stored where they lie in the row; full's
+  // output j0 follows the previous run's last theta, or at run 0 `extra`
+  // (theta(t0 - 1), prev_output), and each tile's first output itself
   template <int R>
   __device__ __forceinline__ static void finish(const St& st, int c,
                                                 int channels, int n, int t0,
                                                 int run,
-                                                const float (&th)[R], float,
-                                                float* s_last) {
+                                                const float (&th)[R],
+                                                float extra, float* s_last) {
     const int j0 = t0 + R * run;
     float v[R];
 #pragma unroll
@@ -823,11 +822,21 @@ struct Ds4Rule<FpI8dStore<kFull>> {
     if constexpr (kFull) {
       s_last[run] = th[R - 1];
       __syncthreads();
-      float prev = j0 % st.tw == 0 ? th[0] : s_last[run - 1];
+      int k = j0 % st.tw;  // output j0's place in its probe tile
+      float prev = k == 0 ? th[0] : run > 0 ? s_last[run - 1] : extra;
+      if (st.tw % R == 0) {  // whole runs a tile: a seam only at r = 0
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        v[r] = disc_value(th[r], prev, kFpScale);
-        prev = th[r];
+        for (int r = 0; r < R; ++r) {
+          v[r] = disc_value(th[r], prev, kFpScale);
+          prev = th[r];
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          v[r] = disc_value(th[r], k == 0 ? th[r] : prev, kFpScale);
+          prev = th[r];
+          k = k + 1 == st.tw ? 0 : k + 1;
+        }
       }
     }
     if (j0 < n)
@@ -1254,9 +1263,8 @@ extern "C" int fmt_fp_dbuf(const float* x, int full, const float* w_rev,
 
 // build_i8direct: x8 int8 planes [2, C, B] (4-byte aligned rows); tail8
 // [2, C, nn - 4] int8 zeros (the carried tail before the row); b1, b2 [nn];
-// theta [C, B/4] scratch (full without noasm); out [C, B/4].  Every form
-// runs ds4_i8_blocked_kernel (full without noasm with K12's theta store,
-// then fp_disc_kernel).  With noasm a tile of t_blk must lie inside one
+// out [C, B/4].  Every form is one launch of ds4_i8_blocked_kernel
+// through FpI8dStore.  With noasm a tile of t_blk must lie inside one
 // CTA's segment of 4 kDs4Tile samples and hold whole runs (t_blk % 32 ==
 // 0, (4 kDs4Tile) % t_blk == 0) and every window of it inside it (no %
 // 8 == 0, halo_w <= no <= t_blk / 4 - halo_w); else refused before any
@@ -1264,7 +1272,7 @@ extern "C" int fmt_fp_dbuf(const float* x, int full, const float* w_rev,
 extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
                           const int8_t* b1, const int8_t* b2, int nn,
                           float s_row, int channels, int b, int t_blk, int no,
-                          int noasm, int full, float* theta, float* out,
+                          int noasm, int full, float* out,
                           cudaStream_t stream) {
   const int halo_w = (nn - 4) / 4, tw = t_blk / 4;
   if (t_blk <= 0 || b % t_blk || t_blk % 16 || nn % 4 || nn - 4 > kFpHead ||
@@ -1275,25 +1283,11 @@ extern "C" int fmt_fp_i8d(const int8_t* x8, const int8_t* tail8,
     return (int)cudaErrorInvalidValue;
   const I8Rows src{x8, b};
   const int nq = noasm ? no : 0;
-  int err;
-  if (full && !noasm) {
-    // K12's own first launch, then the in-tile difference
-    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
-                        Ds4Theta{theta}, stream);
-    if (err) return err;
-    const int64_t total = (int64_t)channels * (b / 4);
-    fp_disc_kernel<<<blocks_for(total), kThreads, 0, stream>>>(theta, total,
-                                                                tw, out);
-    FMT_CHECK_LAUNCH();
-    return 0;
-  }
   if (full)
-    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
-                        FpI8dStore<true>{out, tw, nq, halo_w}, stream);
-  else
-    err = launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
-                        FpI8dStore<false>{out, tw, nq, halo_w}, stream);
-  return err;
+    return launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
+                         FpI8dStore<true>{out, tw, nq, halo_w}, stream);
+  return launch_ds4_i8(src, tail8, b1, b2, nn, s_row, channels, b,
+                       FpI8dStore<false>{out, tw, nq, halo_w}, stream);
 }
 
 // build_i8manual: x8 int8 planes [2, C, B] (16-byte aligned rows); b1,

@@ -211,13 +211,18 @@ __device__ __forceinline__ float ds4_i8_theta(int y1r, int y2r, int y1i,
 // What ds4_i8_blocked_kernel does with a store's runs: where the window
 // of the run from output j starts (shift: words past K12's, whose window
 // of output j ends at word j), the value of an output from its int32
-// sums, and the run's finish.  K12's rule (theta1, ds4_finish) serves
-// Ds4Theta and Ds4Disc; the K1 probe's int8-direct stores
-// (frontend_probe.cu) specialise it.
+// sums, whether thread tid sums the output before the tile (t0 - 1, the
+// finish's `extra`, K12's window), and the run's finish.  K12's rule
+// (theta1, ds4_finish) serves Ds4Theta and Ds4Disc; the K1 probe's
+// int8-direct stores (frontend_probe.cu) specialise it.
 template <class Store>
 struct Ds4Rule {
   __device__ __forceinline__ static int shift(const Store&, int) {
     return 0;
+  }
+  __device__ __forceinline__ static bool prev_output(const Store&, int tid,
+                                                     int t0) {
+    return Store::kDisc && tid == 0 && t0 > 0;
   }
   __device__ __forceinline__ static float value(int y1r, int y2r, int y1i,
                                                 int y2i, float s_row) {
@@ -367,7 +372,7 @@ ds4_i8_blocked_kernel(Src src, const int8_t* __restrict__ tail8,
   for (int r = 0; r < R; ++r)
     th[r] = Ds4Rule<Store>::value(y1r[r], y2r[r], y1i[r], y2i[r], s_row);
   float extra = 0.0f;
-  if (Store::kDisc && tid == 0 && t0 > 0) {  // output t0 - 1
+  if (Ds4Rule<Store>::prev_output(st, tid, t0)) {  // output t0 - 1
     int a1r = 0, a2r = 0, a1i = 0, a2i = 0;
     for (int w = 0; w < nwp; ++w) {
       const int2 tp = s_tap[w];

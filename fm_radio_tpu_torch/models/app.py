@@ -8,7 +8,10 @@ RDS symbols of every channel through the shared host RDS chain
 
 ``App`` takes pre-split channels in any ingest form of ``demod_block``
 (complex64 baseband, packed u8 words, float32 or int8 planes; raw u8 IQ
-through ``process_u8``); ``StationsApp`` takes the
+through ``process_u8``); ``App.process_all`` runs every whole block of a
+call through :func:`demod_stream`, on the card one CUDA graph replay (the
+counterpart of the JAX package's one ``lax.scan`` dispatch), on the CPU a
+loop of ``demod_block``'s plain versions.  ``StationsApp`` takes the
 packed u8 IQ words of one wideband capture and runs the device-resident
 ``wideband_demod_block`` (channelizer -> int8 bridge -> demod), keeping the
 audio and RDS of the selected channels (``fmtpu stations``).
@@ -17,16 +20,22 @@ audio and RDS of the selected channels (``fmtpu stations``).
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from fm_radio_tpu_torch.config import DemodConfig
+from fm_radio_tpu_torch.kernels import _build
 from fm_radio_tpu_torch.rds.chain import make_rds_chain
 from fm_radio_tpu_torch.kernels.channelizer import make_tables
 from fm_radio_tpu_torch.models.demod import (
     INT8_CONFIG,
     BroadcastFMDemod,
+    demod_block,
+    demod_init_state,
+    ingest_form,
     make_coeffs,
 )
 from fm_radio_tpu_torch.models.wideband import (
@@ -164,6 +173,35 @@ class App(_Outputs):
             self._feed(self.demod.process(blk))
         self._pending = buf[..., n_blocks * self.block_size :]
 
+    def process_all(self, x: np.ndarray) -> None:
+        """The outputs of :meth:`process`, with every whole block of the
+        call in one :func:`demod_stream` (app.py:107-145): on the card one
+        CUDA graph replay, cached by shape, so a stream of equal calls pays
+        one capture; on the CPU a loop of the plain versions.  The RDS
+        chains take the call's valid symbols at once, and the partial
+        block stays pending, as in the JAX package."""
+        x = np.asarray(x)
+        if x.ndim == 1:
+            x = x[None, :]
+        elif x.ndim == 2 and x.dtype == np.int8:
+            x = x[:, None, :]
+        buf = (np.concatenate([self._match_pending(x), x], axis=-1)
+               if self._pending.size else x)
+        n_blocks = buf.shape[-1] // self.block_size
+        if n_blocks == 0:
+            self._pending = buf
+            return
+        t = n_blocks * self.block_size
+        # demod.cfg and demod.coeffs track update_controls
+        state, outs = _stream(self.demod.cfg,
+                              torch.from_numpy(np.ascontiguousarray(
+                                  buf[..., :t])),
+                              self.block_size, self.demod.state,
+                              self.demod.coeffs, self.demod.device)
+        self.demod.state = _clone(state)
+        self._feed({k: v.cpu().numpy() for k, v in outs.items()})
+        self._pending = buf[..., t:]
+
 
 class StationsApp(_Outputs):
     """One wideband capture of M channels -> the selected stations.
@@ -204,3 +242,178 @@ class StationsApp(_Outputs):
             self._feed({k: outs[k][self._rows].cpu().numpy()
                         for k in ("audio", "rds_pred", "rds_valid")})
         self._pending = buf[n_blocks * wide :]
+
+
+# ---- the whole stream: one CUDA graph on the card -------------------------
+
+_STREAM_OUTS = ("audio", "rds_pred", "rds_valid")
+_GRAPHS_KEPT = 4  # captured graphs cached, the oldest dropped first
+_graphs: OrderedDict = OrderedDict()
+# the last CUDA call of demod_stream: whether it captured, the capture's
+# wall ms and the bytes it reserved for the graph's private pool
+last_stream: dict = {}
+
+
+def _clone(tree):
+    """A copy of a state's every tensor (dicts, NamedTuples kept)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_clone(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return tree.clone()
+
+
+def _leaves(tree, out: list) -> list:
+    """The tensors of a state in a fixed order (dict keys, tuple fields)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def block_of(x: torch.Tensor, i: int, block_size: int) -> torch.Tensor:
+    """Block i of x [..., T], contiguous: where x holds more than one row,
+    a copy, moved as 8-byte words where the rows allow it (a strided copy
+    of int8 or float32 elements moves a fraction of the card's rate)."""
+    blk = x[..., i * block_size:(i + 1) * block_size]
+    if blk.is_contiguous():
+        return blk
+    if (not blk.is_complex() and blk.element_size() < 8
+            and block_size * blk.element_size() % 8 == 0
+            and blk.storage_offset() * blk.element_size() % 8 == 0):
+        return blk.view(torch.int64).contiguous().view(blk.dtype)
+    return blk.contiguous()
+
+
+def _run_blocks(cfg, coeffs, state, x, block_size: int, n_blocks: int):
+    """``demod_block`` over the blocks of x [..., n_blocks * block_size]
+    (:func:`block_of`), the outs folded back into time."""
+    got = {k: [] for k in _STREAM_OUTS}
+    for i in range(n_blocks):
+        state, outs = demod_block(cfg, coeffs, state,
+                                  block_of(x, i, block_size))
+        for k in _STREAM_OUTS:
+            got[k].append(outs[k])
+    return state, {k: torch.cat(v, dim=1) for k, v in got.items()}
+
+
+class _StreamGraph:
+    """One captured stream: ``graph`` replays ``demod_block`` over the
+    blocks of ``src`` from the state in ``state_in`` into ``state_out``
+    and ``outs`` (all of them the graph's own tensors); it holds the
+    coefficients it read, so their memory outlives it."""
+
+    def __init__(self, cfg, coeffs, state, src, block_size: int,
+                 n_blocks: int):
+        dev = src.device
+        # one block first, on a copy of the state: every kernel library
+        # built, loaded and its launch attributes set before the capture
+        _run_blocks(cfg, coeffs, _clone(state), src, block_size, 1)
+        torch.cuda.synchronize(dev)
+        self.coeffs, self.src = coeffs, src
+        self.state_in = _clone(state)
+        self.graph = torch.cuda.CUDAGraph()
+        torch.cuda.empty_cache()  # as the capture's entry does
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, pool=torch.cuda.graph_pool_handle()):
+            self.state_out, self.outs = _run_blocks(
+                cfg, coeffs, self.state_in, src, block_size, n_blocks)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+
+def clear_stream_graphs() -> None:
+    """Drop every cached stream graph (and with it its private pool)."""
+    _graphs.clear()
+
+
+def _stream(cfg, x: torch.Tensor, block_size: int, state: dict, coeffs,
+            device: torch.device):
+    """:func:`demod_stream` without the copies of the outputs: on the card
+    the graph's own state and outs, valid until its next replay."""
+    n_blocks = x.shape[-1] // block_size
+    if device.type == "cpu":
+        return _run_blocks(cfg, coeffs, state, x.to(device), block_size,
+                           n_blocks)
+    on_card = x.device.type == "cuda"
+    # jax.jit caches by shape; a graph also bakes the pointers it reads:
+    # the caller's device tensor (read in place) or its own staging buffer
+    key = (cfg, id(coeffs), ingest_form(x), tuple(x.shape), x.dtype,
+           block_size, n_blocks, str(device), _build._checked,
+           (x.data_ptr(), x.stride()) if on_card else None)
+    g = _graphs.get(key)
+    captured = g is None
+    if captured:
+        src = x if on_card else x.to(device)
+        g = _StreamGraph(cfg, coeffs, state, src, block_size, n_blocks)
+        _graphs[key] = g
+        while len(_graphs) > _GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+    else:
+        _graphs.move_to_end(key)
+        if not on_card:
+            g.src.copy_(x)
+    torch._foreach_copy_(_leaves(g.state_in, []), _leaves(state, []))
+    g.graph.replay()
+    last_stream.clear()
+    last_stream.update(captured=captured, capture_ms=g.capture_ms,
+                       pool_bytes=g.pool_bytes, blocks=n_blocks)
+    return g.state_out, g.outs
+
+
+def demod_stream(cfg: DemodConfig, x, block_size: int = 65536,
+                 state: dict | None = None, coeffs=None, device=None):
+    """Whole-stream demodulation (``app.py::demod_stream``, :203-273).
+
+    x: [C, T] complex64, [C, T] float32 packed u8 IQ words, or [2, C, T]
+    int8 planes (u8 - 128), numpy or torch; T a multiple of
+    ``block_size``.  Returns (final_state, outs): audio [C, T/32, 2],
+    rds_pred and rds_valid [C, T/64], the block axis folded into time.
+    Pass ``coeffs`` to reuse a design (after ``update_controls``); by
+    default they are designed from ``cfg``.
+
+    ``device`` (default: x's device for a tensor, else the state's, else
+    cuda) runs it.  On the CPU it is a loop of ``demod_block``'s plain
+    versions.  On the card the whole stream is one CUDA graph replay, the
+    counterpart of the JAX package's one ``lax.scan`` dispatch: the first
+    call at a shape captures ``demod_block`` over its blocks (one block
+    run first on a copy of the state), and later calls with the same
+    config, coefficients (by identity), ingest form, shape, block size
+    and device replay it, the carried state copied into the graph's own
+    before each replay and the outputs copied out after it.  An input on
+    the card is read in place (its pointer is part of the key); a host
+    input is copied into the graph's staging buffer.  A capture that
+    fails raises: the blocks never run eagerly on the card instead.  The
+    kernel wrappers' ``launches`` counters count the capture's calls only:
+    a replay counts nothing.
+    """
+    xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if xt.dtype in (torch.float64, torch.complex128):
+        xt = xt.to(torch.complex64 if xt.is_complex() else torch.float32)
+    t = xt.shape[-1]
+    if t % block_size:
+        raise ValueError(f"stream of {t} samples is not a whole number of "
+                         f"blocks of {block_size}")
+    if device is None:
+        device = (xt.device if isinstance(x, torch.Tensor)
+                  else state["ds_fm_in"].device if state is not None
+                  else "cuda")
+    device = torch.device(device)
+    if coeffs is None:
+        coeffs = make_coeffs(cfg, device)
+    if state is None:
+        state = demod_init_state(cfg, xt.shape[-2], device)
+    state, outs = _stream(cfg, xt, block_size, state, coeffs, device)
+    if device.type == "cpu":
+        return state, outs
+    return _clone(state), {k: v.clone() for k, v in outs.items()}

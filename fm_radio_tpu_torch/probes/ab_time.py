@@ -90,8 +90,9 @@ checkout's kernels and prints one JSON row per case:
 
 - the K1 engine probe's int8-window rows at its default shape (C = 1,024
   x B = 262,144): i8direct and its ``i8x`` variants (every form on K12's
-  ``ds4_i8_blocked_kernel``; ``full:i8direct`` with K12's theta store
-  and ``fp_disc_kernel``) and i8manual (``fp_i8man_kernel``) at both
+  ``ds4_i8_blocked_kernel``, one launch each; an earlier tree runs
+  ``full:i8direct`` as K12's theta store and ``fp_disc_kernel``) and
+  i8manual (``fp_i8man_kernel``) at both
   tiles and modes, each the probe's best of 3 over chained calls.
 
 ``--sections`` picks among "cells" (the cells end to end, the lenses

@@ -506,7 +506,9 @@ def i8direct(x8: torch.Tensor, full: bool, t_blk: int, no: int = 128,
              noasm: bool = False, tb: dict | None = None) -> torch.Tensor:
     """build_i8direct on int8 planes [2, C, B]: [C, B/4], refused as
     :func:`i8d_check` says.  CPU tensors run :func:`i8d_plain`; CUDA
-    tensors K12's staged ds x4 tile (``ds4_i8_blocked_kernel``)."""
+    tensors one launch of K12's staged ds x4 tile
+    (``ds4_i8_blocked_kernel``), full's in-tile difference in it, tiles
+    that straddle a CTA's 1,024 outputs included."""
     _check("i8direct", x8, "u8")
     tb = tb or tables(x8.device)
     i8d_check(x8.shape[-1], t_blk, no, noasm)
@@ -515,15 +517,13 @@ def i8direct(x8: torch.Tensor, full: bool, t_blk: int, no: int = 128,
     global launches_i8d
     c, b = x8.shape[1:]
     out = torch.empty((c, b // M), device=x8.device)
-    theta = torch.empty_like(out) if full and not noasm else out
     tail = torch.zeros((2, c, NN - M), dtype=torch.int8, device=x8.device)
     fn = _build.function("frontend_probe", "fmt_fp_i8d",
-                         [_P, _P, _P, _P, _I, _F] + [_I] * 6 + [_P, _P, _P])
+                         [_P, _P, _P, _P, _I, _F] + [_I] * 6 + [_P, _P])
     _build.check("frontend_probe", fn(
         x8.data_ptr(), tail.data_ptr(), tb["b1"].data_ptr(),
         tb["b2"].data_ptr(), NN, tb["s_row"], c, b, t_blk, no, int(noasm),
-        int(full), theta.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(x8.device)))
+        int(full), out.data_ptr(), _build.stream_ptr(x8.device)))
     launches_i8d += 1
     return out
 

@@ -35,18 +35,22 @@ import sys
 import tempfile
 
 # threads a CTA each kernel is launched with (csrc/k12_stages.cuh:
-# kMidThreads, kDs2Threads, the any-order forms as their tiled kernels;
-# csrc/k3_probe.cu: kValueThreads), by name
+# kMidThreads, kDs2Threads, the any-order forms as their tiled kernels,
+# kDs4Tile / kDs4Run; csrc/k3_probe.cu: kValueThreads), by name
 THREADS = {"k12_mid_fused_kernel": 256, "k12_mid_ds2_kernel": 128,
            "k12_mid_hilb_kernel": 256, "k12_mid_ds2_any_kernel": 128,
            "k12_mid_hilb_any_kernel": 256, "k3_value_kernel": 128,
            "k1_tile_kernel": 256, "k1_tile_any_kernel": 256,
-           "chain_kernel": 128, "chain_any_kernel": 128}
+           "chain_kernel": 128, "chain_any_kernel": 128,
+           "ds4_i8_blocked_kernel": 128}
 # dynamic shared memory bytes a CTA (the float K1's at 64 taps and, its
 # any-order kernel, at the lenses' 96: csrc/frontend.cu::k1_smem; the
-# megakernel's: csrc/chain.cu::kChSmemFloats), by name; 0 for the others
+# megakernel's: csrc/chain.cu::kChSmemFloats; the int8 ds x4 tile at the
+# K1 probe's 132 taps, csrc/k12_stages.cuh::ds4_i8_smem(33): 9,224 at
+# K12's 64), by name; 0 for the others
 DYNAMIC_SHARED = {"k1_tile_kernel": 39200, "k1_tile_any_kernel": 39584,
-                  "chain_kernel": 54784, "chain_any_kernel": 55120}
+                  "chain_kernel": 54784, "chain_any_kernel": 55120,
+                  "ds4_i8_blocked_kernel": 9616}
 
 
 def stacks(cuobjdump: str, so: str) -> dict:

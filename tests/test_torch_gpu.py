@@ -420,8 +420,11 @@ def test_i8d_edges_on_card(checked):
     """The K1 probe's int8-direct forms on K12's staged tile
     (chip_smoke.compare_i8d_edges): dots and full, K12's windows and
     noasm at every no of i8d_edge_nos, t_blk 512-4,096, C = 5 and 40, B =
-    16,384 and 14,336, on poisoned memory, bit for bit; the tiles and no
-    the entry refuses, refused before any launch."""
+    16,384 and 14,336, and K12's windows at the tiles that straddle a
+    CTA's 1,024 outputs (t_blk 8,192 and 3,584) and at t_blk 48, on
+    poisoned memory, bit for bit; full at a straddling tile one launch of
+    ds4_i8_blocked_kernel by the profiler; the tiles and no the entry
+    refuses, refused before any launch."""
     _need_card()
     import chip_smoke
     from fm_radio_tpu_torch.kernels import _build
@@ -433,6 +436,50 @@ def test_i8d_edges_on_card(checked):
         rows = chip_smoke.compare_i8d_edges()
     assert len(rows) > 5 and all(r["ok"] for r in rows), [
         r for r in rows if not r["ok"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_stream_on_card(checked):
+    """demod_stream as one CUDA graph (chip_smoke.stream_cell, C = 64, B =
+    16,384, 2 blocks a call) on the pre-split, f32w and chain cells: the
+    first call captures, a second replays the cached graph with no counted
+    launch, a call after update_controls captures anew, each bit for bit
+    a host loop of demod_block over the same device input."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    rows = []
+    for label, kind, kw, _ in chip_smoke.STREAM_CELLS:
+        if checked:
+            with _build.checked_build():
+                rows.append(chip_smoke.stream_cell(
+                    label, kind, kw, 2, channels=64, block=16384, reps=1))
+        else:
+            rows.append(chip_smoke.stream_cell(
+                label, kind, kw, 2, channels=64, block=16384, reps=1))
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True],
+                         ids=["default", "checked"])
+def test_checkpoint_on_card(checked):
+    """A checkpoint round trip on the card (chip_smoke.checkpoint_card):
+    save after 3 blocks, load into a fresh demod, 3 more blocks each bit
+    for bit the uninterrupted run's, every leaf back on the card."""
+    _need_card()
+    import chip_smoke
+    from fm_radio_tpu_torch.kernels import _build
+
+    if checked:
+        with _build.checked_build():
+            res = chip_smoke.checkpoint_card()
+    else:
+        res = chip_smoke.checkpoint_card()
+    assert res["ok"], res
 
 
 @pytest.mark.gpu

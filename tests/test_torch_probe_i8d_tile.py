@@ -44,8 +44,9 @@ def i8d_model(x8, full, t_blk, no, noasm, tb):
     over the staged bytes, the value (fr + fi or atan2), and full's
     in-tile difference as the runs finish it (each run's first output
     after the previous run's last theta, from shared memory; a tile's
-    first output after itself: 0).  Asserts every load lies in the
-    staged words."""
+    first output after itself: 0; a CTA that starts inside a tile, its
+    first output after theta(t0 - 1), summed once more from the staged
+    head).  Asserts every load lies in the staged words."""
     c, b = x8.shape[1:]
     n, tw = b // 4, t_blk // 4
     taps = np.stack([np.concatenate([np.zeros(4 * (NWP - NW), np.int64),
@@ -76,7 +77,17 @@ def i8d_model(x8, full, t_blk, no, noasm, tb):
             v = (fr + fi).astype(F32)
         else:
             th = atan2_poly(torch.from_numpy(fi), torch.from_numpy(fr)).numpy()
-            prev = np.concatenate([th[:, :1], th[:, :-1]], axis=1)
+            head = th[:, :1]
+            if t0 % tw:  # the tile began in the CTA before: theta(t0 - 1)
+                e = HEAD - NWP  # K12's window of output t0 - 1: staged
+                assert e >= 0
+                ye = staged[:, :, 4 * e : 4 * (e + NWP)] @ taps  # [2, C, 2]
+                er, ei = (((ye[p, :, 0].astype(F32) + ye[p, :, 1].astype(F32)
+                            * F32(1 / 128)).astype(F32) + s_row).astype(F32)
+                          for p in (0, 1))
+                head = atan2_poly(torch.from_numpy(ei),
+                                  torch.from_numpy(er)).numpy()[:, None]
+            prev = np.concatenate([head, th[:, :-1]], axis=1)
             first = (t0 + np.arange(TILE)) % tw == 0
             prev[:, first] = th[:, first]
             v = _disc(th, prev)
@@ -88,13 +99,15 @@ def i8d_model(x8, full, t_blk, no, noasm, tb):
 def _cases():
     cases = []
     for b in (16384, 14336):
-        for t_blk in (512, 1024, 2048, 4096):
+        # 3,584 and 8,192 straddle a CTA's 1,024 outputs (K12's windows)
+        for t_blk in (512, 1024, 2048, 4096, 3584, 8192, 48):
             if b % t_blk:
                 continue
             tw = t_blk // 4
             nos = sorted({n for n in (32, 128, tw - 32) if 32 <= n <= tw - 32})
-            cases += [(b, t_blk, False, 128)]
-            cases += [(b, t_blk, True, no) for no in nos]
+            cases += [(b, t_blk, False, min(128, tw))]
+            if (4 * TILE) % t_blk == 0 and t_blk % 32 == 0:
+                cases += [(b, t_blk, True, no) for no in nos]
     return cases
 
 

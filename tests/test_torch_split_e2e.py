@@ -256,7 +256,6 @@ def test_cli_demod_unported_flags_and_no_card(capture, monkeypatch, capsys):
     from fm_radio_tpu_torch.apps.cli import main
 
     for flags, item in ((["--taps", "out"], "item 2"),
-                        (["--save-state", "s.npz"], "item 4"),
                         (["--rate", "48000"], "item 7"),
                         (["--play", "-"], "item 7"),
                         (["--play-format", "s16"], "item 7")):

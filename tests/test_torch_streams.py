@@ -46,7 +46,9 @@ def test_the_check_finds_a_temporary():
 
 def test_no_stream_of_its_own():
     """Every launch goes to torch.cuda.current_stream (_build.stream_ptr):
-    the port creates, switches or records no other stream."""
+    the port creates, switches or records no other stream (a CUDA graph's
+    capture, models/app.py::demod_stream, runs on the capture stream that
+    torch.cuda.graph makes current)."""
     words = ("torch.cuda.Stream(", "torch.cuda.stream(", "record_stream",
              "cudaStreamCreate", "non_blocking=True")
     hits = [(p.name, w) for p in PKG.rglob("*") if p.suffix in (
