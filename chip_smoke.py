@@ -51,13 +51,14 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
 3a. K12 (and the PLL, extract, BPSK) against their plain versions at
    C=8 x B=16,384, the int8-matrix channelizer at W=2 x T=32,768
    (:func:`compare_i8mat_small`) and the ds x4 kernels at C=8 x B=16,384
-   (:func:`compare_ds4_edges`), five times on fresh seeds, the
+   (:func:`compare_ds4_edges`), three times on fresh seeds
+   (:data:`K12_REPEATS`), the
    allocator's free memory filled with 0xFF bytes before each
    (compute-sanitizer refused the card it was tried on: PERF.md), then
-   the five again on the bounds-checked build
+   twice on the bounds-checked build
    (``_build.checked_build()``: every index of K12's, the PLL's,
    extract's, BPSK's and the matrix channelizer's device code checked, a
-   trap fails the run naming the kernel), and five more there at C=40
+   trap fails the run naming the kernel), and twice more there at C=40
    (not a multiple of 32); the channelizer's int8- and bf16-matrix modes
    (splits 1 and 2, one wgmma kernel) against their plain versions on the
    arguments ``wideband_demod_block`` recorded from W=4 loud captures, two
@@ -79,14 +80,16 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    blocks shorter than a carried tail (the launches route), then one of
    the split route, the state carried through them, de-emphasis off and
    on, on both builds (:func:`compare_mid_short_blocks`); the sequential PLL at C = 40
-   and 5, N = 16, 32, 48 and 16,384 on both forms, the chunked PLL at C =
+   and 5, N = 16, 32, 48, and at C = 5 16,384 (the default build), on
+   both forms, the chunked PLL at C =
    5 and 40, G = 2, 4, 8, W = 0, 7, 4,096 and chunk lengths a multiple of
    its 16-step batch and not (:func:`compare_pll_chunked_edges`), extract
    at C = 40, N = 1,024 and 2,048 on its three forms at every order of
    EXTRACT_EDGE_ORDERS (the receiver's 128 taps on
    ``extract_blocked_kernel``, the others on
    ``extract_blocked_any_kernel``), and BPSK at
-   C = 40 and 5, N = 16, 32, 48 and 2,048, with a gain and without, on
+   C = 40 and 5, N = 16, 32, 48, and at C = 5 2,048 (the default
+   build), with a gain and without, on
    random input and zeros, max abs error 0, on the default and the
    bounds-checked build (there the sequential PLL and BPSK at N <= 48),
    and extract's route on the card against its host copy
@@ -162,11 +165,11 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    (channelizer -> f32 planes -> K1 -> K2) at W=4 loud captures, M=32;
 3c. the full-chain megakernel against its plain version on the card, on
    the arguments ``demod_block(chain_fusion="auto")`` recorded, at C=256 x
-   B=131,072, two blocks with carried state, on packed words, float32
-   planes (de-emphasis off and on) and complex64, with BPSK without a gain
-   after it; the chunked PLL (``pll_time_chunks=8``, after K12) at C=256 x
-   B=1,048,576 and at C=5, two blocks; each input's statistics, failing on
-   a constant one;
+   B=131,072, on packed words and float32 planes with de-emphasis (two
+   blocks with carried state), float32 planes and complex64 (one block),
+   with BPSK without a gain after it on the words; the chunked PLL
+   (``pll_time_chunks=8``, after K12) at C=256 x B=1,048,576 and at C=5,
+   two blocks; each input's statistics, failing on a constant one;
 4. the pre-split main path at the bench cell (C=2048, B=131,072, int8
    planes made as bench.py makes them): one warm-up block, then 8 blocks
    through ``demod_block`` with the launch counters set to 0 just before
@@ -309,8 +312,10 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    262,144) and with ``chain_fusion="auto"`` on 8 channels of packed
    words, on the card and with the plain versions on the host CPU:
    identical RDS bytes, audio SNR >= 75 dB, PI 1234;
-7. wideband stations through ``StationsApp``: ``selftest --stations 4``
-   (M=8, flat int8 bridge, 2 s; every station's PI and name) and 3
+7. wideband stations through ``StationsApp`` (the loop around
+   ``wideband_demod_block``, bench.py's wideband path; no command uses it
+   since the commands run the JAX commands' pipeline, 7c): 4 stations on
+   an M=8 grid (flat int8 bridge, 2 s; every station's PI and name) and 3
    stations on an M=32 grid (phase-split bridge, 1.5 s; every station's
    PI, names reported) on the card; and the first 0.5 s of both through
    the card and through the plain versions on the host CPU: identical RDS
@@ -321,13 +326,28 @@ Run from the root of a checkout on a machine with a CUDA device.  Phases:
    every split, audio of splits 2 and 1 >= 30 dB against splits 3; and
    its first 0.5 s at splits=1 on the card and with the plain versions on
    the host CPU: identical RDS bytes, audio SNR >= 75 dB.
-   The host CPU's runs of phases 6-7b start together, before phase 6, in
+7c. the commands at their own width on the card (:func:`commands_phase`,
+   each with its launches counted from 0 and its path's kernels required,
+   its wall seconds logged): ``stations --auto`` on M = 16 with 6
+   stations on the carrier grid, 1.5 s, ``-b 65536`` (every PI and name;
+   its wall and the device's idle share from its one run, profiled),
+   ``stations --rds-native`` (the same summaries), ``scan`` (exactly the
+   6 channels), ``channelize``, ``scrape`` on a 2 s station (both ingests,
+   batch and ``--stream``: the same artifacts), ``tune`` at ``-r
+   2048000`` and ``-r 8192000`` (1 s each: PI and both tones); the same
+   capture through ``StationsApp`` for the record; then each against the
+   plain versions on the host CPU on the first 0.5 s of its input
+   (channelize: the whole capture): RDS bytes identical, audio SNR >= 75
+   dB, scan's JSON (powers within 0.1 dB), channelize's bytes within 1.
+   The host CPU's runs of phases 6-7c start together, before phase 6, in
    worker processes (:func:`station_cpu_pool`, one a core but two), and
    each phase waits for its own while the card's runs go on.
 
 Any failed phase raises and the script exits non-zero.  Every line it
 logs is also written to chiprun_out/chip_smoke.log beside the script.
-Before them it logs its own wall time.  The last lines of standard
+It logs each phase's wall seconds as the phase ends ("[phase]"), and
+before the last lines all of them in one summary line ("[phases]") and
+its own wall time.  The last lines of standard
 output are the nvidia-smi line, one JSON object with the
 per-kernel results (launches on every path, errors, kernel and plain ms,
 the bound of :func:`bound`; ``library_ms`` is the product alone as one
@@ -1350,7 +1370,7 @@ def _dq_args(name: str, args):
 
 
 def compare_i16(channels: int = 256, block: int = 131072, blocks: int = 2,
-                odd_channels: int = 5, device="cuda"):
+                odd_channels: int = 5, device="cuda", full: bool = True):
     """The int16 format's kernels against their plain versions on the card,
     on the arguments ``demod_block(interstage_i16=True)`` recorded,
     ``blocks`` blocks with carried state: K1 on each of SPLIT_FORMS (the
@@ -1359,7 +1379,8 @@ def compare_i16(channels: int = 256, block: int = 131072, blocks: int = 2,
     out (also with de-emphasis on, on the float planes' fm_demod); on the
     int8-direct form the PLL (int16 theta and dt) and extract on its three
     type combinations (int16 planes and dt as recorded; int16 planes with
-    the dequantised dt; both dequantised).  Then the int8-direct form at
+    the dequantised dt; both dequantised) and, when ``full``, the float
+    PLL on the dequantised theta.  Then the int8-direct form at
     C = ``odd_channels``, whose channel tile the PLL's int16 layout refuses:
     the PLL dequantises and runs in float32, extract takes int16 planes and
     float32 dt.  A mismatch is saved (:func:`dump_mismatch`).  Returns
@@ -1412,8 +1433,9 @@ def compare_i16(channels: int = 256, block: int = 131072, blocks: int = 2,
                     ext = calls["extract"]
                     dq = _dq_args("extract", ext)
                     todo += [("extract_i16_f32dt", ext[:4] + dq[4:]),
-                             ("extract", dq),
-                             ("pll", _dq_args("pll", calls["pll"]))]
+                             ("extract", dq)]
+                    if full:
+                        todo.append(("pll", _dq_args("pll", calls["pll"])))
             for name, args in todo:
                 compare_stage(acc, name, args, stages)
             torch.cuda.synchronize(device)
@@ -1896,21 +1918,35 @@ def split_path(label: str, kind: str, kw: dict, channels: int = 2048,
     return res
 
 
+# the launches that open every profiler window (:func:`open_window`): the
+# trace has kept no record of a window's first launches on the card's
+# hosts (the first 19 of each window in launch_grids' "[trace]" lines, the
+# first block's first kernels in _profile's windows), so these one-element
+# spin kernels (``torch.cuda._sleep``, which no step launches) take that
+# loss, and every sum of device time leaves them out
+PROFILE_PAD = 64
+PAD_KERNEL = "spin_kernel"
+
+
+def open_window(device) -> None:
+    """The :data:`PROFILE_PAD` launches that open a profiler window, and a
+    synchronise."""
+    for _ in range(PROFILE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize(device)
+
+
 def _profile(label: str, step, blocks: int, device,
              per_step: int = 1) -> dict:
     """Device time per block of each CUDA kernel (``torch.profiler``) over
     ``blocks`` calls of ``step`` after two warm-up calls, the host wall
     time per block, and the device's idle share (1 - kernel time /
-    wall).  A one-element marker kernel runs first inside the profiler's
-    window: the profiler records no device time for the first kernel
-    launched there (measured: the wideband step, whose first launch is
-    the channelizer, showed it at two thirds of its time over 3 blocks).
-    The profiler has also dropped one launch's record inside the window
-    now and then (a port kernel counted twice in 3 blocks; not on a rerun
-    of the same window alone): a window where a port kernel's count is
-    not a multiple of ``blocks`` (times ``per_step``, the launches of a
-    kernel in one call of ``step``) is profiled again, up to three times
-    in all, and the row says how many it took and what was still lost."""
+    wall).  The window opens with :func:`open_window`'s launches, which
+    take the profiler's loss of a window's first records.  A window where
+    a port kernel's count is still not a multiple of ``blocks`` (times
+    ``per_step``, the launches of a kernel in one call of ``step``) is
+    profiled again, up to three times in all, and the row says how many
+    it took and what was still lost."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -1919,8 +1955,7 @@ def _profile(label: str, step, blocks: int, device,
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device=device).add_(1.0)
-            torch.cuda.synchronize(device)
+            open_window(device)
             t0 = time.perf_counter()
             for _ in range(blocks):
                 step()
@@ -1928,7 +1963,8 @@ def _profile(label: str, step, blocks: int, device,
             wall = (time.perf_counter() - t0) * 1e3 / blocks
         per, lost = {}, {}
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and PAD_KERNEL not in e.key):
                 us = getattr(e, "self_device_time_total", None)
                 if us is None:
                     us = e.self_cuda_time_total
@@ -2369,36 +2405,55 @@ def chain_order_lens(label: str, kind: str, kw: dict, channels: int = 2048,
     return res
 
 
-def launch_grids(step, names, device) -> dict:
+def launch_grids(step, names, device, reps: int = 3) -> dict:
     """The (grid, block) pairs of the launches of the kernels ``names`` in
-    one call of ``step`` (after one unprofiled call), as the profiler's
-    trace records them (its kernel events' "grid" and "block"): {name:
-    the distinct pairs, in order}.  The profiler now and then drops a
-    launch's record (the note at :func:`_profile`): a trace without one
-    of ``names`` is taken again, up to three in all."""
+    ``reps`` calls of ``step`` (after one unprofiled call) inside one
+    profiler window that :func:`open_window` opens, as the trace records
+    them (its kernel events' "grid" and "block"): {name: the distinct
+    pairs, in order}.  Each window's launches that have no kernel record
+    (a runtime launch event whose correlation id no kernel event carries)
+    are logged ("[trace]": how many of the opening launches, how many of
+    the steps' and their places among them), and a trace without one of
+    ``names`` is taken again, up to three in all."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize(device)
-    for _ in range(3):
+    for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            step()
+            open_window(device)
+            for _ in range(reps):
+                step()
             torch.cuda.synchronize(device)
         path = os.path.join(DUMP_DIR, "launch_grids_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         os.remove(path)
+        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+        launches = sorted((ev for ev in events
+                           if ev.get("cat") == "cuda_runtime"
+                           and "Launch" in ev.get("name", "")),
+                          key=lambda ev: ev.get("ts", 0))
+        recorded = {ev.get("args", {}).get("correlation") for ev in kernels}
+        lost = [i for i, ev in enumerate(launches)
+                if ev.get("args", {}).get("correlation") not in recorded]
+        lost_pad = sum(i < PROFILE_PAD for i in lost)
+        lost = [i - PROFILE_PAD for i in lost if i >= PROFILE_PAD]
         out = {n: [] for n in names}
-        for ev in events:
-            if ev.get("cat") != "kernel":
-                continue
+        for ev in kernels:
             for n in names:
                 if n in ev.get("name", ""):
                     gb = [ev["args"].get("grid"), ev["args"].get("block")]
                     if gb not in out[n]:
                         out[n].append(gb)
+        log(f"[trace] launch_grids {list(names)}, window {attempt}: "
+            f"without a kernel record {lost_pad} of the {PROFILE_PAD} "
+            f"opening launches, {len(lost)} of the steps' "
+            f"{len(launches) - PROFILE_PAD}, at places {lost[:12]}"
+            f"{' ... ' + str(lost[-1]) if len(lost) > 12 else ''}; found "
+            f"{[n for n in names if out[n]]}")
         if all(out.values()):
             break
     return out
@@ -2523,14 +2578,17 @@ CHAIN_CELL = ("chain_f32w", "words", {"assume_integer_input": True,
 
 
 def compare_chain(channels: int = 256, block: int = 131072, blocks: int = 2,
-                  device="cuda"):
+                  device="cuda", full: bool = True):
     """The megakernel against its plain version on the card, on the
     arguments ``demod_block(chain_fusion="auto")`` recorded, ``blocks``
-    blocks with carried state, on each of CHAIN_FORMS (packed words, float32
-    planes with de-emphasis off and on, complex64); and BPSK without a gain
-    (the megakernel's route) on its recorded arguments.  Returns the verdict
-    rows (chain, then BPSK without a gain) with each form's input
-    statistics under "inputs"."""
+    blocks with carried state on each of CHAIN_FORMS (packed words, float32
+    planes with de-emphasis off and on, complex64), and BPSK without a gain
+    (the megakernel's route) on each form's recorded arguments.  Not
+    ``full``: the carried blocks and BPSK only on packed words (the chain
+    cell's form), the carried blocks also on the de-emphasis (its own
+    state), one block on the float32 planes and complex64 (the same body
+    and state, another load).  Returns the verdict rows (chain, then BPSK
+    without a gain) with each form's input statistics under "inputs"."""
     from fm_radio_tpu_torch.config import DemodConfig
     from fm_radio_tpu_torch.models.demod import (
         demod_block, demod_init_state, make_coeffs)
@@ -2541,15 +2599,17 @@ def compare_chain(channels: int = 256, block: int = 131072, blocks: int = 2,
         cfg = DemodConfig(**kw)
         co = make_coeffs(cfg, device)
         st = demod_init_state(cfg, channels, device)
+        carried = full or label in ("words", "planes_deemph")
         x = split_input(kind, channels, block * blocks, 5, device)
         stats[label] = input_stats(x)
-        for blk in range(blocks):
+        for blk in range(blocks if carried else 1):
             calls = {}
             xb = x[..., blk * block : (blk + 1) * block].contiguous()
             st, _ = demod_block(cfg, co, st, xb, record=calls)
             if list(calls) != ["chain", "bpsk"] or calls["bpsk"][3] is not None:
                 raise RuntimeError(f"chain form {label}: route {list(calls)}")
-            for name in ("chain", "bpsk"):
+            for name in (("chain", "bpsk") if full or label == "words"
+                         else ("chain",)):
                 kern, plain = stages[name]
                 _merge(acc, name, stage_errors(name, kern(*calls[name]),
                                                plain(*calls[name])))
@@ -2984,7 +3044,14 @@ def compare_i8mat_small(seed: int, device="cuda") -> list[dict]:
     return [_verdict(name, acc[name])]
 
 
-def k12_repeats(repeats: int = 5, channels: int = 8, block: int = 16384,
+# phase 3a's repeats on fresh seeds: the default build's, and each of the
+# bounds-checked build's two channel counts' (few, so that the whole run
+# keeps within its time limit)
+K12_REPEATS, K12_REPEATS_CHECKED = 3, 2
+
+
+def k12_repeats(repeats: int = K12_REPEATS, channels: int = 8,
+                block: int = 16384,
                 device="cuda") -> list[dict]:
     """The small on-card comparison of K12 (and the PLL, extract, BPSK)
     with its plain version, :func:`compare_kernels` at C = ``channels``, B
@@ -3695,14 +3762,23 @@ def _pll_theta(c: int, n: int, seed: int, device):
     return (x - torch.round(x)).float()
 
 
+# the sequential kernels' edge shapes (C, N): C = 40 and 5 (not a multiple
+# of the lanes a block takes) at N = 16, 32 and 48 (fewer batches than the
+# kernels keep in flight); with the cells' N (the PLL's 16,384, BPSK's
+# 2,048) at both C, or at C = 5 alone (the plain loops take seconds a block
+# there, and C = 40's tiles are checked at the short N)
+SHORT_EDGES = [(c, n) for c in (40, 5) for n in (16, 32, 48)]
+PLL_EDGES = [(c, n) for c in (40, 5) for n in (16, 32, 48, 16384)]
+BPSK_EDGES = [(c, n) for c in (40, 5) for n in (16, 32, 48, 2048)]
+
+
 def compare_pll_edges(device="cuda",
-                      steps=(16, 32, 48, 16384)) -> list[dict]:
+                      cases=SHORT_EDGES + [(5, 16384)]) -> list[dict]:
     """The sequential PLL kernel (``kernels/pll.py::pilot_pll_seq``) against
-    its plain version at edge shapes, max abs error 0: C = 40 and 5 (not a
-    multiple of its 8 lanes a block) at N = 16, 32 and 48 (fewer batches
-    than the three it keeps in flight) and 16,384 (the cell's), or the N of
-    ``steps``, on float32 theta and on int16 theta and dt, two blocks with
-    carried state each.  Returns one verdict row per (form, C, N)."""
+    its plain version at the edge shapes ``cases`` (:data:`SHORT_EDGES`),
+    max abs error 0, on float32 theta and on int16 theta and dt, two
+    blocks with carried state each.  Returns one verdict row per (form, C,
+    N)."""
     from fm_radio_tpu_torch.kernels import pll as kp
     from fm_radio_tpu_torch.kernels.qformat import PH_SCALE, q_i16
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG
@@ -3710,24 +3786,23 @@ def compare_pll_edges(device="cuda",
 
     cfg = INT8_CONFIG
     rows = []
-    for c in (40, 5):
-        for n in steps:
-            th = _pll_theta(c, 2 * n, seed=c + n, device=device)
-            for form in ("pll", "pll_i16"):
-                x = q_i16(th, PH_SCALE) if form == "pll_i16" else th
-                st = pilot_pll_init_state(c, device)
-                acc = {}
-                for blk in range(2):
-                    xb = x[:, blk * n : (blk + 1) * n].contiguous()
-                    a = (cfg, st, xb)
-                    kout, pout = kp.pilot_pll_seq(*a), kp.pll_plain(*a)
-                    e = stage_errors("pll", kout, pout)
-                    dump_mismatch(form, a, kout, pout, e)
-                    _merge(acc, form, e)
-                    st = kout[0]
-                torch.cuda.synchronize(device)
-                rows.append(dict(_verdict(form, acc[form]), channels=c,
-                                 steps=n, dt_dtype=str(kout[1].dtype)))
+    for c, n in cases:
+        th = _pll_theta(c, 2 * n, seed=c + n, device=device)
+        for form in ("pll", "pll_i16"):
+            x = q_i16(th, PH_SCALE) if form == "pll_i16" else th
+            st = pilot_pll_init_state(c, device)
+            acc = {}
+            for blk in range(2):
+                xb = x[:, blk * n : (blk + 1) * n].contiguous()
+                a = (cfg, st, xb)
+                kout, pout = kp.pilot_pll_seq(*a), kp.pll_plain(*a)
+                e = stage_errors("pll", kout, pout)
+                dump_mismatch(form, a, kout, pout, e)
+                _merge(acc, form, e)
+                st = kout[0]
+            torch.cuda.synchronize(device)
+            rows.append(dict(_verdict(form, acc[form]), channels=c,
+                             steps=n, dt_dtype=str(kout[1].dtype)))
     return rows
 
 
@@ -4028,14 +4103,12 @@ def _bpsk_inputs(kind: str, c: int, n: int, g: torch.Generator, device):
 
 
 def compare_bpsk_edges(device="cuda",
-                       steps=(16, 32, 48, 2048)) -> list[dict]:
+                       cases=SHORT_EDGES + [(5, 2048)]) -> list[dict]:
     """BPSK (``kernels/bpsk.py::bpsk_sync``) against its plain version at
-    edge shapes, max abs error 0 and no ``valid`` apart: C = 40 and 5 (not
-    a multiple of its lanes a block; the last warp partial) at N = 16, 32
-    and 48 (fewer batches than it keeps in flight) and 2,048 (the cell's),
-    or the N of ``steps``; with a gain and without; on random input and on
-    zeros; two blocks with carried state each.  Returns one verdict row
-    per (C, N, gain, input)."""
+    the edge shapes ``cases`` (:data:`SHORT_EDGES`; at C = 5 the last warp
+    is partial), max abs error 0 and no ``valid`` apart; with a gain and
+    without; on random input and on zeros; two blocks with carried state
+    each.  Returns one verdict row per (C, N, gain, input)."""
     from fm_radio_tpu_torch.kernels import bpsk as kb
     from fm_radio_tpu_torch.models.bpsk import bpsk_init_state
     from fm_radio_tpu_torch.models.demod import INT8_CONFIG
@@ -4043,29 +4116,28 @@ def compare_bpsk_edges(device="cuda",
     cfg = INT8_CONFIG
     g = torch.Generator(device=device).manual_seed(17)
     rows = []
-    for c in (40, 5):
-        for n in steps:
-            for kind in ("random", "zeros"):
-                xr, xi = _bpsk_inputs(kind, c, 2 * n, g, device)
-                for with_gain in (True, False):
-                    gain = (0.5 + 1.5 * torch.rand((c,), generator=g,
-                                                   device=device)
-                            if with_gain else None)
-                    st = bpsk_init_state(c, device)
-                    acc = {}
-                    for blk in range(2):
-                        sl = slice(blk * n, (blk + 1) * n)
-                        a = (cfg, st, (xr[:, sl].contiguous(),
-                                       xi[:, sl].contiguous()), gain)
-                        kout, pout = kb.bpsk_sync(*a), kb.bpsk_plain(*a)
-                        e = stage_errors("bpsk", kout, pout)
-                        dump_mismatch("bpsk", a, kout, pout, e)
-                        _merge(acc, "bpsk", e)
-                        st = kout[0]
-                    torch.cuda.synchronize(device)
-                    rows.append(dict(_verdict("bpsk", acc["bpsk"]),
-                                     channels=c, steps=n, input=kind,
-                                     gain=with_gain))
+    for c, n in cases:
+        for kind in ("random", "zeros"):
+            xr, xi = _bpsk_inputs(kind, c, 2 * n, g, device)
+            for with_gain in (True, False):
+                gain = (0.5 + 1.5 * torch.rand((c,), generator=g,
+                                               device=device)
+                        if with_gain else None)
+                st = bpsk_init_state(c, device)
+                acc = {}
+                for blk in range(2):
+                    sl = slice(blk * n, (blk + 1) * n)
+                    a = (cfg, st, (xr[:, sl].contiguous(),
+                                   xi[:, sl].contiguous()), gain)
+                    kout, pout = kb.bpsk_sync(*a), kb.bpsk_plain(*a)
+                    e = stage_errors("bpsk", kout, pout)
+                    dump_mismatch("bpsk", a, kout, pout, e)
+                    _merge(acc, "bpsk", e)
+                    st = kout[0]
+                torch.cuda.synchronize(device)
+                rows.append(dict(_verdict("bpsk", acc["bpsk"]),
+                                 channels=c, steps=n, input=kind,
+                                 gain=with_gain))
     return rows
 
 
@@ -4719,16 +4791,15 @@ def i8d_edge_nos(t_blk: int) -> tuple:
 def frontend_kernels(step, device) -> dict:
     """The port's kernels (``fmt::`` names, without their template
     arguments) that one call of ``step`` launches, with their counts, as
-    the profiler's trace records them (after one unprofiled call and a
-    marker kernel, which the profiler may leave unrecorded)."""
+    the profiler's trace records them (after one unprofiled call, in a
+    window that :func:`open_window` opens)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device=device).add_(1.0)
-        torch.cuda.synchronize(device)
+        open_window(device)
         step()
         torch.cuda.synchronize(device)
     path = os.path.join(DUMP_DIR, "frontend_kernels_trace.json")
@@ -5495,10 +5566,31 @@ def _wideband_cpu_n() -> int:
         * WIDEBAND_BLOCK
 
 
+def stations_app_run(k_st: int, m: int, n: int, block: int, device):
+    """K stations of ``wideband_capture`` (n samples each, M channels)
+    through ``StationsApp`` (``wideband_demod_block``: the channelizer,
+    the int8 bridge, every channel demodulated) on ``device``; the
+    selected stations' rows kept.  Returns (app, seconds, the wideband
+    selftest's checks)."""
+    from fm_radio_tpu_torch.apps.cli import wideband_capture, wideband_checks
+    from fm_radio_tpu_torch.models.app import StationsApp
+    from fm_radio_tpu_torch.utils.transfer import pack_iq_u8
+
+    words = pack_iq_u8(wideband_capture(k_st, m, n))
+    app = StationsApp(m, block, select=range(1, k_st + 1), device=device)
+    t0 = time.perf_counter()
+    app.process(words)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return app, time.perf_counter() - t0, wideband_checks(app)
+
+
 def wideband_stations(device="cuda", legs=None) -> list[dict]:
-    """Wideband stations through StationsApp: ``selftest --stations 4``
-    (M=8, 2 s, the CLI's default) and 3 stations on an M=32 grid (1.5 s)
-    on the card; then the first :data:`WIDEBAND_CPU_SECONDS` of the same
+    """Wideband stations through StationsApp (:func:`stations_app_run`,
+    the loop around ``wideband_demod_block``, bench.py's wideband path): 4
+    stations on an M=8 grid (2 s, the flat int8 bridge) and 3 on an M=32
+    grid (1.5 s, the phase-split bridge) on the card; then the first
+    :data:`WIDEBAND_CPU_SECONDS` of the same
     captures on the card and, with the plain versions, on the host CPU
     (the legs ``wideband:<M>``): RDS bytes identical and audio SNR of the
     card against the CPU for every station.  Each row's "pass" is the
@@ -5510,15 +5602,13 @@ def wideband_stations(device="cuda", legs=None) -> list[dict]:
     signal; identically in the JAX package, whose RDS bytes the port
     reproduces.  The CPU leg is shortened to stay under about two
     minutes.)"""
-    from fm_radio_tpu_torch.apps.cli import selftest_wideband
-
     block = WIDEBAND_BLOCK
     results = []
     for k_st, m, seconds in WIDEBAND_STATIONS:
         n = int(seconds * 1_024_000) // block * block
-        _, t_gpu, checks = selftest_wideband(k_st, m, n, block, device)
+        _, t_gpu, checks = stations_app_run(k_st, m, n, block, device)
         n_cmp = _wideband_cpu_n()
-        gpu, _, _ = selftest_wideband(k_st, m, n_cmp, block, device)
+        gpu, _, _ = stations_app_run(k_st, m, n_cmp, block, device)
         cpu = cpu_leg(legs, f"wideband:{m}")
         settle = int(0.15 * gpu.cfg.rates.fs_audio)
         stations = []
@@ -5649,6 +5739,405 @@ def station_splits(device="cuda", legs=None) -> dict:
     return res
 
 
+# phase 7c: the wideband commands' capture (stations on the carrier grid,
+# M, seconds; M is the commands' default), scrape's station (seconds),
+# tune's captures (rate, the station's offset) and their seconds, every
+# command's block (the CLI's default), and the seconds of each input that
+# the card and the host CPU compare
+COMMANDS_WIDE = (6, 16, 1.5)
+COMMANDS_SCRAPE_SECONDS = 2.0
+COMMANDS_TUNE = ((2_048_000, 512_000), (8_192_000, 2_048_000))
+COMMANDS_TUNE_SECONDS = 1.0
+COMMANDS_BLOCK, COMMANDS_CPU_SECONDS = 65536, 0.5
+# the scrape runs: (ingest, --stream)
+SCRAPE_RUNS = {"scrape_i8": ("i8", False), "scrape_f32w": ("f32w", False),
+               "scrape_i8_stream": ("i8", True),
+               "scrape_f32w_stream": ("f32w", True)}
+# the runs that the card and the host CPU compare (each the CPU leg
+# "cmd:<run>"): stations, scan and scrape / tune on the first
+# COMMANDS_CPU_SECONDS of their inputs, channelize on the whole capture
+COMMAND_RUNS = ("stations", "scan", "channelize", *SCRAPE_RUNS,
+                *(f"tune_{rate}" for rate, _ in COMMANDS_TUNE))
+# the kernels each command must launch on the card (every other count of
+# its run is logged): the wideband commands' complex64 split path, scrape's
+# ingests, tune's complex64
+_SPLIT_KERNELS = ("frontend", "midend", "pll", "extract", "bpsk")
+COMMAND_KERNELS = {
+    "stations": ("channelizer",) + _SPLIT_KERNELS,
+    "stations_native": ("channelizer",) + _SPLIT_KERNELS,
+    "scan": ("channelizer",) + _SPLIT_KERNELS,
+    "channelize": ("channelizer",),
+    "scrape_i8": ("k12", "pll", "extract", "bpsk"),
+    "scrape_f32w": _SPLIT_KERNELS,
+    "tune": _SPLIT_KERNELS,
+}
+
+
+def command_inputs(root, seconds: float | None = None,
+                   names=("wide", "station", "tune")) -> dict:
+    """Phase 7c's captures, written under ``root`` from their seeds:
+    "wide" (:data:`COMMANDS_WIDE`'s stations on the carrier grid,
+    ``apps/cli.py::wideband_capture``), "station" (the selftest station,
+    :data:`COMMANDS_SCRAPE_SECONDS`) and "tune_<rate>" (the selftest
+    station held rate / 1.024 MHz samples a sample at the capture's rate,
+    moved to its offset and halved for headroom, as JAX
+    tests/test_cli.py:217-250 makes its capture;
+    :data:`COMMANDS_TUNE_SECONDS`); with ``seconds``, the first
+    ``seconds`` of each.  Returns {name: path}."""
+    from pathlib import Path
+
+    from fm_radio_tpu_torch.apps.cli import (
+        LEFT_HZ, RIGHT_HZ, SELFTEST_PI, SELFTEST_PS, selftest_u8,
+        wideband_capture)
+    from fm_radio_tpu_torch.io.pcm import c64_to_u8
+    from fm_radio_tpu_torch.io.synth import (
+        FMModulator, ModulatorConfig, station_group_schedule)
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    fs, block = 1_024_000, COMMANDS_BLOCK
+    paths = {}
+
+    def write(name: str, u8: np.ndarray, rate_mult: int) -> None:
+        if seconds is not None:
+            u8 = u8[: int(seconds * fs) * rate_mult]
+        paths[name] = str(root / f"{name}.pcm")
+        u8.tofile(paths[name])
+
+    if "wide" in names:
+        k_st, m, secs = COMMANDS_WIDE
+        write("wide", wideband_capture(k_st, m, int(secs * fs) // block
+                                       * block), m)
+    if "station" in names:
+        write("station", selftest_u8(COMMANDS_SCRAPE_SECONDS, block), 1)
+    if "tune" in names:
+        groups = station_group_schedule(SELFTEST_PI, ps=SELFTEST_PS,
+                                        rt="FMTPU SELFTEST")
+        iq = FMModulator(ModulatorConfig()).generate(
+            int(COMMANDS_TUNE_SECONDS * fs), left_hz=LEFT_HZ,
+            right_hz=RIGHT_HZ, rds_groups=groups)
+        for rate, offset in COMMANDS_TUNE:
+            mult = rate // fs
+            t = np.arange(iq.size * mult) / rate
+            wide = (np.repeat(iq, mult)
+                    * np.exp(2j * np.pi * offset * t)).astype(np.complex64)
+            write(f"tune_{rate}", c64_to_u8(wide / 2.0), mult)
+    return paths
+
+
+def command_argv(run: str, inputs: dict, out: str, seconds=None) -> list:
+    """The CLI arguments of phase 7c's run ``run`` on ``inputs``
+    (:func:`command_inputs`), writing under ``out`` (``seconds``: scan's
+    window)."""
+    m = str(COMMANDS_WIDE[1])
+    b = ["-b", str(COMMANDS_BLOCK)]
+    sel = ",".join(str(k) for k in range(1, COMMANDS_WIDE[0] + 1))
+    if run in ("stations", "stations_native"):
+        return (["stations", "-i", inputs["wide"], "-o", out, "-m", m, *b,
+                 "--auto"]
+                + (["--rds-native"] if run == "stations_native" else []))
+    if run == "stations_select":
+        return ["stations", "-i", inputs["wide"], "-o", out, "-m", m, *b,
+                "--select", sel]
+    if run == "scan":
+        return (["scan", "-i", inputs["wide"], "-m", m, *b]
+                + (["--seconds", str(seconds)] if seconds else []))
+    if run == "channelize":
+        return ["channelize", "-i", inputs["wide"], "-o", out, "-m", m]
+    if run in SCRAPE_RUNS:
+        ingest, stream = SCRAPE_RUNS[run]
+        return (["scrape", "-i", inputs["station"], "-o", out, *b,
+                 "--ingest", ingest] + (["--stream"] if stream else []))
+    rate = int(run.split("_")[1])
+    offset = dict(COMMANDS_TUNE)[rate]
+    return ["tune", "-i", inputs[f"tune_{rate}"], "-r", str(rate), "-f",
+            str(offset), *b, "-o", out]
+
+
+def run_command(argv: list, device, out=None, profiled=False) -> dict:
+    """One CLI command in this process on ``device``, its launches counted
+    from 0 just before it and read just after: {"rc", "stdout",
+    "seconds" (wall), "launches"}.  ``out``, the command's output
+    directory, is emptied first (the scraper names its files by the
+    second).  ``profiled``: the run inside ``torch.profiler`` (in a window
+    that :func:`open_window` opens), with "device_busy_ms" (the device
+    time of every CUDA event but the opening launches') and "idle_share"
+    (1 - that / the wall) added."""
+    import contextlib
+    import io
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_radio_tpu_torch.apps.cli import main as cli_main
+
+    if out is not None:
+        shutil.rmtree(out, ignore_errors=True)
+    out = io.StringIO()
+    window = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext())
+    with window as prof:
+        if profiled:
+            open_window(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main([str(a) for a in argv] + ["--device", str(device)])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    res = {"rc": rc, "stdout": out.getvalue(), "seconds": seconds,
+           "launches": read_counts()}
+    if profiled:
+        busy = 0.0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and PAD_KERNEL not in e.key):
+                us = getattr(e, "self_device_time_total", None)
+                busy += float(e.self_cuda_time_total if us is None
+                              else us) / 1e3
+        res.update(device_busy_ms=busy,
+                   idle_share=1.0 - busy / (seconds * 1e3))
+    return res
+
+
+def scraper_files(d) -> dict:
+    """A scraper directory's WAV and RDS bytes: {"wav", "bin"}."""
+    names = os.listdir(d)
+    (wav,) = [f for f in names if f.endswith(".wav")]
+    (rds,) = [f for f in names if f.endswith(".bin")]
+    with open(os.path.join(d, wav), "rb") as f:
+        w = f.read()
+    with open(os.path.join(d, rds), "rb") as f:
+        b = f.read()
+    return {"wav": w, "bin": b}
+
+
+def wav_audio(blob: bytes) -> np.ndarray:
+    """A 16-bit stereo WAV's frames [N, 2] (after its 44-byte header)."""
+    return np.frombuffer(blob[44:], "<i2").reshape(-1, 2)
+
+
+def rds_of(blob: bytes) -> dict:
+    """RDS bytes decoded (``rds-decode``'s chain): the database summary and
+    the group count."""
+    from fm_radio_tpu_torch.rds.chain import RDSDecodingChain
+
+    chain = RDSDecodingChain()
+    chain.process(np.frombuffer(blob, np.uint8))
+    return {**chain.db.summary(), "groups": len(chain.groups)}
+
+
+def tone_hz(audio: np.ndarray, channel: int, fs: int = 32000) -> float:
+    """The strongest frequency of one channel of 16-bit audio after 0.1 s."""
+    x = audio[int(0.1 * fs):, channel].astype(np.float64)
+    spec = np.abs(np.fft.rfft(x * np.hanning(x.size)))
+    return float(np.fft.rfftfreq(x.size, 1 / fs)[np.argmax(spec)])
+
+
+def command_cpu_leg(run: str) -> dict:
+    """Phase 7c's run ``run`` (:data:`COMMAND_RUNS`) with the plain versions
+    on the host CPU, on the first :data:`COMMANDS_CPU_SECONDS` of its input
+    (channelize: the whole capture), made in its own directory: stations
+    as its App's outputs (:class:`CpuRun`'s fields), the others as their
+    output directory and standard output."""
+    from fm_radio_tpu_torch.apps.cli import build_parser, stations_app
+    from fm_radio_tpu_torch.kernels import _build
+
+    root = _build.BUILD_ROOT / "smoke" / "commands" / f"cpu_{run}"
+    names = ("wide",) if run in ("stations", "scan", "channelize") else (
+        ("station",) if run in SCRAPE_RUNS else ("tune",))
+    inputs = command_inputs(root, None if run == "channelize"
+                            else COMMANDS_CPU_SECONDS, names)
+    out = str(root / "out")
+    if run == "stations":
+        args = build_parser().parse_args(
+            command_argv("stations_select", inputs, out))
+        t0 = time.perf_counter()
+        _, app = stations_app(args, torch.device("cpu"))
+        return {"audio": app.audio,
+                "rds": [app.rds_bytes(i) for i in range(app.channels)],
+                "pi": app.rds_database(0).summary()["pi_code"],
+                "seconds": time.perf_counter() - t0}
+    r = run_command(command_argv(run, inputs, out, COMMANDS_CPU_SECONDS),
+                    "cpu", out)
+    return {"dir": out, "stdout": r["stdout"], "rc": r["rc"],
+            "seconds": r["seconds"]}
+
+
+def _launch_gate(name: str, run: str, launches: dict) -> list:
+    """The kernels of :data:`COMMAND_KERNELS` that ``run`` did not
+    launch."""
+    key = ("tune" if run.startswith("tune") else
+           run.replace("_stream", "") if run.startswith("scrape") else run)
+    return [f"{name}:{k}" for k in COMMAND_KERNELS[key] if not launches[k]]
+
+
+def commands_phase(device="cuda", legs=None) -> dict:
+    """Phase 7c: the commands on the card at their own width, each with
+    its launches counted, its wall seconds and its gates; the stations
+    command's device idle share (its one run under the profiler); the
+    same capture through ``StationsApp`` for the record; and each run
+    against the host CPU's plain versions (:func:`command_cpu_leg`: RDS
+    bytes identical, audio >= SNR_MIN_DB, scan's JSON, channelize's bytes
+    within 1).  Returns the rows and the
+    faults found (empty when every gate held)."""
+    from fm_radio_tpu_torch.apps.cli import build_parser, stations_app
+    from fm_radio_tpu_torch.kernels import _build
+
+    root = _build.BUILD_ROOT / "smoke" / "commands"
+    full = command_inputs(root / "full")
+    short = command_inputs(root / "short", COMMANDS_CPU_SECONDS)
+    k_st, m, secs = COMMANDS_WIDE
+    pis = [f"{0x1234 + i:04X}" for i in range(k_st)]
+    names = [f"ST {i + 1:02d}".ljust(8) for i in range(k_st)]
+    runs, faults = {}, []
+
+    def card(run: str, inputs: dict, tag: str = "full", seconds=None,
+             profiled=False):
+        out = str(root / tag / run)
+        r = run_command(command_argv(run, inputs, out, seconds), device, out,
+                        profiled)
+        if r["rc"] != 0:
+            faults.append(f"{run} ({tag}): exit {r['rc']}")
+        runs[f"{run}:{tag}"] = {"seconds": r["seconds"],
+                                "launches": r["launches"]}
+        if tag == "full":
+            faults.extend(_launch_gate("launch", run, r["launches"]))
+        return r
+
+    # the wideband commands on the whole capture; stations under the
+    # profiler, its wall and the device's idle share from that one run
+    st = card("stations", full, profiled=True)
+    idle = {"wall_ms": st["seconds"] * 1e3,
+            "device_busy_ms": st["device_busy_ms"],
+            "idle_share": st["idle_share"]}
+    summary = json.loads(st["stdout"]) if st["rc"] == 0 else []
+    got = [(s["channel"], s["pi_code"], s["service_name"]) for s in summary]
+    if got != list(zip(range(1, k_st + 1), pis, names)):
+        faults.append(f"stations: {got}")
+    nat = card("stations_native", full)
+    nsum = json.loads(nat["stdout"]) if nat["rc"] == 0 else []
+    if [{k: v for k, v in s.items() if k != "wav"} for s in nsum] != \
+            [{k: v for k, v in s.items() if k != "wav"} for s in summary]:
+        faults.append(f"stations --rds-native: {nsum} against {summary}")
+    sc = card("scan", full)
+    report = json.loads(sc["stdout"]) if sc["rc"] == 0 else {}
+    want = ",".join(str(k) for k in range(1, k_st + 1))
+    if report.get("select") != want or [a["pi"] for a in report.get(
+            "active", [])] != pis:
+        faults.append(f"scan: {report}")
+    card("channelize", full)
+    chan_files = sorted(os.listdir(root / "full" / "channelize"))
+    if chan_files != [f"channel_{k:02d}.pcm" for k in range(m)]:
+        faults.append(f"channelize wrote {chan_files}")
+    # scrape on the station, both ingests, batch and --stream
+    scraped = {}
+    for run in SCRAPE_RUNS:
+        r = card(run, full)
+        if r["rc"] == 0:
+            scraped[run] = scraper_files(root / "full" / run)
+            db = rds_of(scraped[run]["bin"])
+            runs[f"{run}:full"]["rds"] = db
+            if db["pi_code"] != "1234" or db["service_name"] != "SELFTEST":
+                faults.append(f"{run}: {db}")
+    for ingest in ("i8", "f32w"):
+        a, b = (scraped.get(f"scrape_{ingest}{s}") for s in ("", "_stream"))
+        if not (a and b and a["bin"] == b["bin"]
+                and a["wav"][44:] == b["wav"][44:]):
+            faults.append(f"scrape --ingest {ingest}: --stream differs from "
+                          f"batch")
+    # tune at each rate
+    for rate, _ in COMMANDS_TUNE:
+        run = f"tune_{rate}"
+        r = card(run, full)
+        if r["rc"] != 0:
+            continue
+        info = json.loads(r["stdout"].strip().splitlines()[-2])
+        files = scraper_files(root / "full" / run)
+        tones = [tone_hz(wav_audio(files["wav"]), c) for c in (0, 1)]
+        runs[f"{run}:full"].update(pi=info["pi_code"],
+                                   name=info["service_name"], tones_hz=tones)
+        # both tones, in either channel: the L-R phase estimate may settle
+        # at its other sign and swap L and R, as the JAX command's does on
+        # these captures
+        if info["pi_code"] != "1234" or any(
+                abs(a - b) > 20 for a, b in zip(sorted(tones),
+                                                (1000.0, 3000.0))):
+            faults.append(f"{run}: {info}, tones {tones}")
+    # the same capture through StationsApp (wideband_demod_block), for
+    # the record
+    n = int(secs * 1_024_000) // COMMANDS_BLOCK * COMMANDS_BLOCK
+    _, t_sa, sa_checks = stations_app_run(k_st, m, n, COMMANDS_BLOCK, device)
+    record = {"seconds": t_sa, "checks": sa_checks}
+
+    # against the host CPU on the first COMMANDS_CPU_SECONDS
+    compare = {}
+    args = build_parser().parse_args(command_argv(
+        "stations_select", short, str(root / "short" / "stations")))
+    _, gpu = stations_app(args, torch.device(device))
+    cpu = cpu_leg(legs, "cmd:stations")
+    settle = int(0.15 * 32000)
+    compare["stations"] = {
+        "rds_identical": all(np.array_equal(gpu.rds_bytes(i),
+                                            cpu.rds_bytes(i))
+                             for i in range(k_st)),
+        "rds_bytes": min(int(gpu.rds_bytes(i).size) for i in range(k_st)),
+        "snr_vs_cpu_db": min(_snr_db(gpu.audio[i, settle:],
+                                     cpu.audio[i, settle:])
+                             for i in range(k_st)),
+        "seconds_cpu": cpu.seconds}
+    for run in COMMAND_RUNS[1:]:
+        c = command_result(legs, f"cmd:{run}")
+        row = {"seconds_cpu": c["seconds"], "rc_cpu": c["rc"]}
+        if run == "channelize":
+            d_card = root / "full" / "channelize"
+            diff = max(int(np.abs(
+                np.fromfile(d_card / f, np.uint8).astype(np.int16)
+                - np.fromfile(os.path.join(c["dir"], f), np.uint8)).max())
+                for f in chan_files)
+            row.update(max_byte_diff=diff, ok=diff <= 1)
+        elif run == "scan":
+            r = card("scan", short, "short", COMMANDS_CPU_SECONDS)
+            a, b = json.loads(r["stdout"]), json.loads(c["stdout"])
+            d = max([abs(a["noise_floor_db"] - b["noise_floor_db"])]
+                    + [abs(x[k] - y[k]) for x, y in zip(a["active"],
+                                                        b["active"])
+                       for k in ("power_db", "above_floor_db")])
+
+            def strip(j):
+                return [{k: v for k, v in x.items()
+                         if k not in ("power_db", "above_floor_db")}
+                        for x in j["active"]] + [j["select"]]
+
+            row.update(max_db_diff=d, ok=d <= 0.1 + 1e-9
+                       and strip(a) == strip(b))
+        else:
+            r = card(run, short, "short")
+            g = scraper_files(root / "short" / run)
+            h = scraper_files(c["dir"])
+            row.update(
+                rds_bytes=len(g["bin"]),
+                rds_identical=g["bin"] == h["bin"],
+                snr_vs_cpu_db=_snr_db(wav_audio(g["wav"])[settle:],
+                                      wav_audio(h["wav"])[settle:]))
+            if run.startswith("tune"):
+                row["json_equal"] = (r["stdout"].strip().splitlines()[-2]
+                                     == c["stdout"].strip().splitlines()[-2])
+            row["ok"] = (row["rds_identical"] and row["rds_bytes"] > 0
+                         and row["snr_vs_cpu_db"] >= SNR_MIN_DB
+                         and row.get("json_equal", True))
+        compare[run] = row
+    s = compare["stations"]
+    s["ok"] = (s["rds_identical"] and s["rds_bytes"] > 0
+               and s["snr_vs_cpu_db"] >= SNR_MIN_DB)
+    faults += [f"{run} against the host CPU: {row}"
+               for run, row in compare.items() if not row["ok"]]
+    return {"runs": runs, "stations_idle": idle, "stations_app": record,
+            "compare": compare, "faults": faults}
+
+
 class CpuRun:
     """A station phase's run on the host CPU as :func:`station_cpu_leg`
     returns it: each channel's audio and RDS bytes (read as App's), the
@@ -5661,13 +6150,13 @@ class CpuRun:
         return self.rds[channel]
 
 
-# the station phases' runs on the host CPU (phases 6-7b), by name, longest
-# first: "station", "split:<path>", "loops:<path>", "i16",
-# "wideband:<M>", "splits1"
+# the station phases' runs on the host CPU (phases 6-7c), by name, longest
+# first within phases 6-7b, then phase 7c's: "station", "split:<path>",
+# "loops:<path>", "i16", "wideband:<M>", "splits1", "cmd:<run>"
 STATION_CPU_LEGS = ("station", "loops:app_pll_chunked",
                     "loops:app_chain_8ch", "split:app_complex64",
                     "split:demod_f32w", "wideband:32", "splits1", "i16",
-                    "wideband:8")
+                    "wideband:8", *(f"cmd:{run}" for run in COMMAND_RUNS))
 
 
 def station_cpu_leg(name: str, threads: int | None = None) -> dict:
@@ -5682,6 +6171,8 @@ def station_cpu_leg(name: str, threads: int | None = None) -> dict:
     if threads:
         torch.set_num_threads(threads)
     kind, _, arg = name.partition(":")
+    if kind == "cmd":
+        return command_cpu_leg(arg)
     if kind == "station":
         app, secs, _ = _station_run("cpu")
     elif kind == "split":
@@ -5694,12 +6185,10 @@ def station_cpu_leg(name: str, threads: int | None = None) -> dict:
     elif kind == "i16":
         app, secs, _ = _station_i16_run("cpu", STATION_I16_CFG)
     elif kind == "wideband":
-        from fm_radio_tpu_torch.apps.cli import selftest_wideband
-
         k_st, m = next((k, m) for k, m, _ in WIDEBAND_STATIONS
                        if m == int(arg))
-        app, secs, _ = selftest_wideband(k_st, m, _wideband_cpu_n(),
-                                         WIDEBAND_BLOCK, "cpu")
+        app, secs, _ = stations_app_run(k_st, m, _wideband_cpu_n(),
+                                        WIDEBAND_BLOCK, "cpu")
     elif kind == "splits1":
         words = station_splits_words(SPLITS_M, SPLITS_CHANNEL, SPLITS_BLOCK,
                                      SPLITS_BLOCKS)
@@ -5733,12 +6222,17 @@ def station_cpu_pool():
                   for n in STATION_CPU_LEGS}
 
 
+def command_result(legs, name: str) -> dict:
+    """The station CPU leg ``name`` as its worker returned it: from its
+    worker where ``legs`` (:func:`station_cpu_pool`'s futures) holds it,
+    else run here."""
+    return (legs[name].result() if legs and name in legs
+            else station_cpu_leg(name))
+
+
 def cpu_leg(legs, name: str) -> CpuRun:
-    """The station CPU leg ``name``: from its worker where ``legs``
-    (:func:`station_cpu_pool`'s futures) holds it, else run here."""
-    r = (legs[name].result() if legs and name in legs
-         else station_cpu_leg(name))
-    return CpuRun(**r)
+    """The station CPU leg ``name`` as a :class:`CpuRun`."""
+    return CpuRun(**command_result(legs, name))
 
 
 def main() -> int:
@@ -5759,6 +6253,15 @@ def main() -> int:
     os.makedirs(DUMP_DIR, exist_ok=True)
     LOG_FILE = os.path.join(DUMP_DIR, "chip_smoke.log")
     open(LOG_FILE, "w").close()
+    # the wall seconds of each phase, from the end of the one before (the
+    # summary line before the kernels line lists them all)
+    phase_s, mark = {}, [t_run]
+
+    def phase(label: str) -> None:
+        now = time.perf_counter()
+        phase_s[label] = now - mark[0]
+        mark[0] = now
+        log(f"[phase] {label}: {phase_s[label]:.1f} s")
 
     # 1. device
     smi = nvidia_smi_line()
@@ -5768,6 +6271,7 @@ def main() -> int:
         f"{torch.version.cuda} | {name}")
 
     # 2. build (one nvcc per source and build, all started together)
+    phase("1 device")
     t0 = time.perf_counter()
     checked = threading.Thread(target=_build.build, kwargs={"checked": True})
     checked.start()
@@ -5780,6 +6284,7 @@ def main() -> int:
 
     # 2b. the device-memory sweep: its best copy and read rates become the
     # byte rates of every bound
+    phase("2 build")
     t0 = time.perf_counter()
     hbm = hbm_phase(dev)
     for r in hbm["rows"]:
@@ -5800,6 +6305,7 @@ def main() -> int:
 
     # 2c. the engine probes: each kernel against its plain version, then
     # the probes' sections at their default shapes, compared and counted
+    phase("2b hbm sweep")
     t0 = time.perf_counter()
     eng = probe_phase(dev)
     for r in eng["small"]:
@@ -5846,6 +6352,7 @@ def main() -> int:
     # 2d. four probe kernels against the one PyTorch call of the same
     # function, in turns (probes/vs_library.py: 25 rounds of 10 calls, the
     # paired sign test)
+    phase("2c engine probes")
     t0 = time.perf_counter()
     from fm_radio_tpu_torch.probes import vs_library
 
@@ -5872,6 +6379,7 @@ def main() -> int:
                     "calls_a_round")}}
 
     # 3. kernel against plain on the card
+    phase("2d vs_library")
     t0 = time.perf_counter()
     rows = compare_kernels(256, 131072, 2, dev)
     for r in rows:
@@ -5881,6 +6389,7 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
 
+    phase("3 kernels vs plain")
     t0 = time.perf_counter()
     wrows, flat_err = compare_wideband(131072, 2, 256, 4, dev)
     for r in wrows:
@@ -5901,8 +6410,9 @@ def main() -> int:
     # (compute-sanitizer refused the card it was tried on: PERF.md), and the
     # channelizer's
     # matrix kernels against their plain versions
+    phase("3 wideband kernels")
     t0 = time.perf_counter()
-    reps = k12_repeats(5, 8, 16384, dev)
+    reps = k12_repeats(K12_REPEATS, 8, 16384, dev)
     for r in reps:
         log(f"[compare] k12 repeat: {json.dumps(r)}")
     bad = [(r["seed"], k["name"]) for r in reps for k in r["kernels"]
@@ -5914,9 +6424,9 @@ def main() -> int:
     # reports it and the wrapper raises naming the kernel
     try:
         with _build.checked_build():
-            creps = k12_repeats(5, 8, 16384, dev)
+            creps = k12_repeats(K12_REPEATS_CHECKED, 8, 16384, dev)
             # a channel count that is not a multiple of 32 (ROADMAP queue 3)
-            creps += k12_repeats(5, 40, 16384, dev)
+            creps += k12_repeats(K12_REPEATS_CHECKED, 40, 16384, dev)
     except RuntimeError as e:
         raise RuntimeError(f"K12 repeats on the bounds-checked build: {e}")
     for r in creps:
@@ -5939,6 +6449,7 @@ def main() -> int:
                            f"compared on constant planes {silent}")
     # the redesigned kernels at their edge shapes, the mid end's route on
     # the card against its host copy, and the wgmma kernel's instructions
+    phase("3a k12 repeats, matrix channelizers")
     t0 = time.perf_counter()
     wedge = compare_wgmma_edges(dev)
     for r in wedge:
@@ -5996,6 +6507,7 @@ def main() -> int:
     # the PLL, extract and BPSK at their edge shapes, on the default and
     # the bounds-checked build (every global index of the three kernels
     # checked), extract's other route, the PLL's and BPSK's SASS
+    phase("3a matrix and mid end edges")
     t0 = time.perf_counter()
     pedge = compare_pll_edges(dev)
     pedge += compare_pll_chunked_edges(dev)
@@ -6006,12 +6518,12 @@ def main() -> int:
             # the short blocks: the plain loops over the cell's 16,384
             # (PLL) and 2,048 (BPSK) steps ran on the default build
             pedge += [dict(r, build="checked")
-                      for r in compare_pll_edges(dev, steps=(16, 32, 48))]
+                      for r in compare_pll_edges(dev, SHORT_EDGES)]
             pedge += [dict(r, build="checked")
                       for r in compare_pll_chunked_edges(dev)]
             ce = compare_extract_edges(dev)
             bedge += [dict(r, build="checked")
-                      for r in compare_bpsk_edges(dev, steps=(16, 32, 48))]
+                      for r in compare_bpsk_edges(dev, SHORT_EDGES)]
     except RuntimeError as e:
         raise RuntimeError(f"PLL / extract / BPSK edges on the "
                            f"bounds-checked build: {e}")
@@ -6049,6 +6561,7 @@ def main() -> int:
     # the redesigned ds x4 kernels (K12 flat and phase-split, K1 on every
     # form) at their edge shapes on the default and the bounds-checked build, and their
     # SASS (no FFMA in the float K1, no spills)
+    phase("3a pll, extract, bpsk edges")
     t0 = time.perf_counter()
     dedge = compare_ds4_edges(dev)
     try:
@@ -6215,6 +6728,7 @@ def main() -> int:
                            f"shows {ds4_sass_faults(dsass)}")
 
     # 3b. the split path's kernels against plain on the card
+    phase("3a ds4, K1, probe, chan and chain edges")
     t0 = time.perf_counter()
     srows, k12_diff = compare_split(256, 131072, 2, dev)
     for r in srows:
@@ -6229,6 +6743,7 @@ def main() -> int:
     if const:
         raise RuntimeError(f"split kernels compared on constant input: "
                            f"{const}")
+    phase("3b split")
     t0 = time.perf_counter()
     frows = compare_wideband_f32(131072, 2, 4, 32, dev)
     for r in frows:
@@ -6240,8 +6755,9 @@ def main() -> int:
                            f"input: {bad}")
 
     # 3c. the megakernel and the chunked PLL against plain on the card
+    phase("3b f32 bridge")
     t0 = time.perf_counter()
-    crows = compare_chain(256, 131072, 2, dev)
+    crows = compare_chain(256, 131072, 2, dev, full=False)
     crows += compare_pll_chunked(256, 1048576, 8, 2, 5, dev)
     for r in crows:
         log(f"[compare] {json.dumps(r)}")
@@ -6256,8 +6772,10 @@ def main() -> int:
                            f"{const}")
 
     # 3d. the int16 format's kernels against plain on the card
+    phase("3c chain, pll_chunked")
     t0 = time.perf_counter()
-    irows, iroutes, i16_c5_launches = compare_i16(256, 131072, 2, 5, dev)
+    irows, iroutes, i16_c5_launches = compare_i16(256, 131072, 2, 5, dev,
+                                                   full=False)
     for r in irows:
         log(f"[compare] i16: {json.dumps(r)}")
     log(f"[compare] i16 routes: {json.dumps(iroutes)}; "
@@ -6278,6 +6796,7 @@ def main() -> int:
                            f"{const}")
 
     # 4. main path at the bench cell
+    phase("3d i16")
     t0 = time.perf_counter()
     mp = main_path(2048, 131072, 8, dev)
     torch.cuda.synchronize(dev)
@@ -6297,6 +6816,7 @@ def main() -> int:
                            f"{list(prof['device_ms_per_block'])}")
 
     # 4b. the split cells at full width
+    phase("4 pre-split cell")
     t0 = time.perf_counter()
     cells = {}
     for label, kind, kw in SPLIT_CELLS:
@@ -6328,6 +6848,7 @@ def main() -> int:
                            f"the split cells: {bad}")
 
     # 4c. the chain cell and the chunked-PLL cell
+    phase("4b split cells")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     ch = chain_path(2048, 131072, 8, 2, dev)
@@ -6361,6 +6882,7 @@ def main() -> int:
                            f"{pc['pll_alone']} out of bounds")
 
     # 4d. the i16 cell, beside k12off (the same launches in float32)
+    phase("4c chain, chunked cells")
     t0 = time.perf_counter()
     i16c = i16_path(2048, 131072, 8, dev)
     log(f"[i16] {json.dumps(i16c)}")
@@ -6388,6 +6910,7 @@ def main() -> int:
     # 4e. the de-emphasis lenses: the mid end's split route with the
     # de-emphasis at the split cells' shape, its three kernels alone, each
     # lens profiled
+    phase("4d i16 cell")
     t0 = time.perf_counter()
     lenses, lens_prof = {}, {}
     for label, kind, kw in DEEMPH_LENSES:
@@ -6423,6 +6946,7 @@ def main() -> int:
                            f"the de-emphasis lenses: {bad}")
     # 4f. extract's other-order lens: every extract launch on
     # extract_blocked_any_kernel, timed alone, its profile
+    phase("4e de-emphasis lenses")
     t0 = time.perf_counter()
     olens, olens_prof = {}, {}
     for label, kind, kw in ORDER_LENSES:
@@ -6454,6 +6978,7 @@ def main() -> int:
     # 4g. the mid end's other-order lens: every mid end launch on the split
     # route's any-order kernels, K12 and the two kernels timed alone, its
     # profile
+    phase("4f extract orders")
     t0 = time.perf_counter()
     mlens, mlens_prof = {}, {}
     for label, kind, kw in MID_ORDER_LENSES:
@@ -6486,6 +7011,7 @@ def main() -> int:
 
     # 4h. the float K1's other-order lens: every K1 launch on
     # k1_tile_any_kernel, K1 and K2 timed alone, its profile
+    phase("4g mid end orders")
     t0 = time.perf_counter()
     klens, klens_prof = {}, {}
     for label, kind, kw in K1_ORDER_LENSES:
@@ -6519,6 +7045,7 @@ def main() -> int:
                            f"the float K1's other-order lens: {bad}")
     # 4i. the megakernel's other-order lens: every launch on
     # chain_any_kernel, the megakernel timed alone, its profile
+    phase("4h K1 orders")
     t0 = time.perf_counter()
     chlens, chlens_prof = {}, {}
     for label, kind, kw in CHAIN_ORDER_LENSES:
@@ -6559,6 +7086,7 @@ def main() -> int:
     # host loop of demod_block, at full width (the counts are the
     # capture's wrapper calls: a replay counts nothing); then a
     # checkpoint round trip; both builds (the checked one at a small width)
+    phase("4i chain orders")
     t0 = time.perf_counter()
     streams = []
     for label, kind, kw, nb in STREAM_CELLS:
@@ -6591,6 +7119,7 @@ def main() -> int:
                            f"{ckpts}")
 
     # 5. the wideband main path at its cell, then the M=16 and f32 bridges
+    phase("4j stream")
     t0 = time.perf_counter()
     wb_bench = wideband_path(64, 32, 131072, 8, library=False, device=dev)
     log(f"[wideband] {json.dumps(wb_bench)}")
@@ -6637,12 +7166,13 @@ def main() -> int:
     if any(c["planes"]["centre_share"] >= 1.0 for c in (wb, wb_i8, wb_bf16)):
         raise RuntimeError("a loud wideband cell reached K12 silent")
 
-    # 6-7b: the station phases; their runs on the host CPU go on side
+    # 6-7c: the station phases; their runs on the host CPU go on side
     # by side in worker processes (station_cpu_pool) while the card's
     # runs go on here
     pool, legs = station_cpu_pool()
     try:
         # 6. station on the card and on the host CPU
+        phase("5 wideband")
         t0 = time.perf_counter()
         stn = station(dev, legs)
         log(f"[station] {json.dumps(stn)}")
@@ -6653,6 +7183,7 @@ def main() -> int:
             raise RuntimeError("station phase failed its gates")
 
         # 6b. the station on the default configuration's split path
+        phase("6 station")
         t0 = time.perf_counter()
         sst = station_split(dev, legs)
         log(f"[station] split path: {json.dumps(sst)}")
@@ -6666,6 +7197,7 @@ def main() -> int:
             raise RuntimeError(f"demod --ingest f32w failed: {sst[2]}")
 
         # 6c. the station with the chunked PLL and on the megakernel
+        phase("6b split station")
         t0 = time.perf_counter()
         lst = station_loops(dev, legs)
         log(f"[station] loops: {json.dumps(lst)}")
@@ -6680,6 +7212,7 @@ def main() -> int:
                     f"station {r['path']} failed its gates: {r}")
 
         # 6d. the station in the int16 format
+        phase("6c loops")
         t0 = time.perf_counter()
         si = station_i16(dev, legs)
         log(f"[station] i16: {json.dumps(si)}")
@@ -6694,6 +7227,7 @@ def main() -> int:
             raise RuntimeError(f"int16 station failed its gates: {si}")
 
         # 7. wideband stations on the card and on the host CPU
+        phase("6d i16 station")
         t0 = time.perf_counter()
         wst = wideband_stations(dev, legs)
         log(f"[stations] {json.dumps(wst)}")
@@ -6706,6 +7240,7 @@ def main() -> int:
                                        f"failed their gates: {r}")
 
         # 7b. a station through the three precision modes
+        phase("7 wideband stations")
         t0 = time.perf_counter()
         sps = station_splits(dev, legs)
         log(f"[stations] splits: {json.dumps(sps)}")
@@ -6721,6 +7256,26 @@ def main() -> int:
         if not (vs["rds_identical"] and vs["rds_bytes"] > 0
                 and vs["snr_db"] >= SNR_MIN_DB):
             raise RuntimeError(f"station at splits=1, card vs CPU: {vs}")
+
+        # 7c. the commands on the card (stations, its native RDS chain,
+        # scan, channelize, scrape, tune) and against the host CPU
+        phase("7b station splits")
+        cmds = commands_phase(dev, legs)
+        for run, r in cmds["runs"].items():
+            log(f"[commands] {run}: {json.dumps(r)}")
+        log(f"[commands] stations' device idle share: "
+            f"{json.dumps(cmds['stations_idle'])}")
+        log(f"[commands] the stations capture through StationsApp, for the "
+            f"record: {json.dumps(cmds['stations_app'])}")
+        for run, r in cmds["compare"].items():
+            log(f"[commands] {run} against the host CPU: {json.dumps(r)}")
+        log("[commands] wall s on the card: " + json.dumps(
+            {run: round(r["seconds"], 2) for run, r in cmds["runs"].items()
+             if run.endswith(":full")}))
+        if cmds["faults"]:
+            raise RuntimeError(f"commands failed their gates: "
+                               f"{cmds['faults']}")
+        phase("7c commands")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -6771,6 +7326,8 @@ def main() -> int:
              **{label: c["launches"] for label, c in chlens.items()},
              "i16_route_c5": {k: i16_c5_launches.get(k, 0)
                               for k in i16c["launches"]},
+             **{f"cmd_{run.split(':')[0]}": r["launches"]
+                for run, r in cmds["runs"].items() if run.endswith(":full")},
              "i16_words": i16c["launches_words"],
              "station_i16": si["launches"]["card_i16"]}
     home = {"k12": mp, "pll": mp, "extract": mp, "bpsk": mp,
@@ -7118,6 +7675,9 @@ def main() -> int:
     if DUMPS:
         raise RuntimeError(f"mismatches saved (passed their tolerances): "
                            f"{DUMPS}")
+    phase("kernels line")
+    log("[phases] wall s by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
     log(f"[wall] chip_smoke.py: {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

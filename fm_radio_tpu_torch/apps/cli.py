@@ -17,8 +17,18 @@
     python -m fm_radio_tpu_torch.apps.cli selftest [--seconds 2.0]
         [-b 65536] [--cnr DB] [--stations K] [--device cuda|cpu]
     python -m fm_radio_tpu_torch.apps.cli stations -i wide.pcm -o outdir
-        [-m 16] [-b 65536] [--taps-per-phase 16] [--select 1,5 | --auto
-        [--threshold-db 15]] [--device cuda|cpu]
+        [-m 16] [-b 65536] [--taps-per-phase 16] [--rds-native]
+        [--select 1,5 | --auto [--threshold-db 15]] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli scan -i wide.pcm [-m 16]
+        [-b 65536] [--taps-per-phase 16] [--seconds 1.0]
+        [--threshold-db 15] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli channelize -i wide.pcm -o outdir
+        [-m 16] [--taps-per-phase 16] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli scrape -i in.pcm -o outdir
+        [-b 65536] [--ingest i8|f32w] [--stream] [--device cuda|cpu]
+    python -m fm_radio_tpu_torch.apps.cli tune -i wide.pcm -r 8192000
+        -f 1024000 -o outdir [-b 65536] [--taps-per-phase 16]
+        [--device cuda|cpu]
 
 ``demod`` is the port of ``fm_radio_tpu/apps/cli.py::cmd_demod``: one
 recorded u8 IQ capture -> WAV (``-o``) and the RDS database (JSON on
@@ -49,21 +59,39 @@ into int8 planes (the production ingest), demodulate it, and gate on tone
 recovery, stereo separation and RDS decode.  With ``--stations K`` (> 1)
 it runs the wideband leg instead (``_selftest_wideband``): K stations on
 the channelizer's carrier grid of M = power_ceil(K + 2) channels, through
-the channelizer and one batched demod, gated on each station's PI, name
-and group count.  It prints a one-line JSON verdict and exits 1 on
-failure.
+``stations``' pipeline, gated on each station's PI, name and group count.
+It prints a one-line JSON verdict and exits 1 on failure.
 
-``stations`` is the port of ``cmd_stations``: a wideband u8 IQ capture ->
-polyphase FFT channelizer -> int8 bridge -> one demod of every channel, on
-the device block by block (``models/wideband.py::wideband_demod_block``),
-then a WAV and the RDS database of each selected channel
-(``station_KK.wav`` and a JSON summary on stdout).  ``--auto`` selects the
-channels whose power clears the median by ``--threshold-db``.
+The wideband commands run the JAX commands' pipeline
+(:func:`run_channelized`, JAX ``_run_channelized``): the capture's packed
+words through the exact channelizer chunk by chunk
+(``parallel/channelizer.py::stream_selected``), the selected channels'
+rows fetched as complex64 divided by M, into one channel-batched ``App``
+on the complex64 split path (``DemodConfig()``: K1, K2, the PLL,
+extract, BPSK).  ``stations`` writes ``station_KK.wav`` for each selected
+channel and prints a JSON summary of their RDS databases; ``--auto``
+selects the channels whose power clears the median by ``--threshold-db``,
+and ``--rds-native`` decodes RDS on the C++ runtime's bit loops
+(``runtime.py``).  ``scan`` finds the active channels in the first
+``--seconds`` of a capture and identifies them (pilot, PI, name).
+``channelize`` writes every channel as ``channel_KK.pcm`` (u8 IQ) under
+one common scale.
+
+``scrape`` (JAX ``cmd_scrape``) writes the reference scraper's artifacts,
+a timestamped WAV and RDS byte file (``io/scraper.py``), on either ingest
+(``i8``: int8 planes into K12; ``f32w``: packed words into K1), 64 blocks
+at a time; ``--stream`` reads the capture with the native runtime's
+prefetching reader and writes the WAV with its writer (it exits 1 where
+the runtime cannot be built).  ``tune`` (JAX ``cmd_tune``) mixes a
+station at ``-f`` Hz of an ``-r`` Hz capture down to DC
+(``ops/mixer.py::freq_shift_p``), decimates it to 1.024 MHz
+(``ops/fir.py::polyphase_decimate_p``, ``--taps-per-phase`` taps a
+phase) and demodulates it as complex64, then writes the scraper's
+artifacts, the RDS database JSON and a "wrote" line.
 
 ``--device cuda`` (the default) runs the CUDA kernels; ``--device cpu``
-runs their plain PyTorch versions.  The other subcommands of the JAX CLI
-(``scrape``, ``tune``, ``channelize``, ``scan``, ``monitor``) are not
-ported yet (ROADMAP.md, modules still to port, items 3, 5 and 7).
+runs their plain PyTorch versions.  The JAX CLI's ``monitor`` is not
+ported yet (ROADMAP.md, modules still to port, item 7).
 """
 
 from __future__ import annotations
@@ -224,17 +252,36 @@ def wideband_checks(app, base_pi: int = SELFTEST_PI) -> dict:
     return results
 
 
+def run_channelized(words, m: int, taps_per_phase: int, select, app):
+    """Chunked wideband streaming (JAX ``_run_channelized``): packed words
+    -> the channelizer on ``app``'s device -> the ``select`` rows, divided
+    by M, into the channel-batched ``app``, a chunk of M * block words at
+    a time (``parallel/channelizer.py::stream_selected``; the filterbank's
+    tail carries across chunks, the demod state in ``app``)."""
+    from fm_radio_tpu_torch.parallel.channelizer import (
+        channelizer_init_state,
+        make_channelizer_taps,
+        stream_selected,
+    )
+
+    st = channelizer_init_state(m, taps_per_phase, app.demod.device)
+    return stream_selected(make_channelizer_taps(m, taps_per_phase), st,
+                           words, m, select, app.process,
+                           chunk_min=m * app.block_size)
+
+
 def selftest_wideband(k_st: int, m: int, n: int, block: int, device,
                       cnr: float | None = None):
-    """K stations through ``StationsApp`` on ``device``: returns (app,
-    seconds elapsed, checks)."""
-    from fm_radio_tpu_torch.models.app import StationsApp
+    """The wideband selftest (JAX ``_selftest_wideband``): K stations on
+    the carrier grid of M channels through :func:`run_channelized` into
+    ``App`` on ``device``.  Returns (app, seconds elapsed, checks)."""
+    from fm_radio_tpu_torch.models.app import App
     from fm_radio_tpu_torch.utils.transfer import pack_iq_u8
 
     words = pack_iq_u8(wideband_capture(k_st, m, n, cnr=cnr))
-    app = StationsApp(m, block, select=range(1, k_st + 1), device=device)
+    app = App(block_size=block, channels=k_st, device=device)
     t0 = time.time()
-    app.process(words)
+    run_channelized(words, m, 16, list(range(1, k_st + 1)), app)
     _sync(torch.device(device))
     return app, time.time() - t0, wideband_checks(app)
 
@@ -283,43 +330,40 @@ def cmd_selftest(args) -> int:
 def channel_powers_db(words, m: int, taps_per_phase: int, window: int,
                       device) -> np.ndarray:
     """Per-channel power (dB) over the first ``window`` wide samples of a
-    packed capture (cut to a multiple of the channelizer's block), from
-    the channelizer's float32 output."""
-    from fm_radio_tpu_torch.kernels.channelizer import T_MULTIPLE
+    packed capture, cut to whole frames of M (JAX ``_channel_powers_db``):
+    the filterbank's first ``taps_per_phase`` outputs (its fill) left
+    out."""
     from fm_radio_tpu_torch.parallel.channelizer import (
-        channelize_batch_p,
+        channelize_frames,
+        channelizer_init_state,
         make_channelizer_taps,
     )
 
-    n = min(len(words), window) // T_MULTIPLE * T_MULTIPLE
-    if n == 0:
-        raise ValueError(f"--auto needs at least {T_MULTIPLE} wide samples")
-    x = torch.as_tensor(np.asarray(words[0:n], np.float32),
-                        device=device)[None]
-    zeros = torch.zeros((1, (taps_per_phase - 1) * m), device=device)
-    _, (y_re, y_im) = channelize_batch_p(
-        make_channelizer_taps(m, taps_per_phase), (zeros, zeros.clone()), x,
-        m)
+    n = min(len(words), window) // m * m
+    x = torch.as_tensor(np.asarray(words[0:n], np.float32), device=device)
+    _, y = channelize_frames(make_channelizer_taps(m, taps_per_phase),
+                             channelizer_init_state(m, taps_per_phase,
+                                                    device), x, m)
     settle = taps_per_phase  # filterbank fill
-    p = (y_re[0, :, settle:].double() ** 2 + y_im[0, :, settle:].double() ** 2)
+    p = (y.real[:, settle:].double() ** 2 + y.imag[:, settle:].double() ** 2)
     return 10.0 * np.log10(p.mean(dim=1).cpu().numpy() + 1e-20)
 
 
 def detect_active_channels(powers_db: np.ndarray,
                            threshold_db: float) -> list[int]:
     """Channels whose power clears the median (noise-floor estimate) by
-    ``threshold_db``."""
+    ``threshold_db``: FM carriers are constant-envelope and sit far above
+    an empty channel's noise."""
     floor = float(np.median(powers_db))
     return [int(k) for k in np.nonzero(powers_db > floor + threshold_db)[0]]
 
 
-def cmd_stations(args) -> int:
-    from fm_radio_tpu_torch.io.wav import write_wav_int16
-    from fm_radio_tpu_torch.models.app import StationsApp
+def stations_app(args, device):
+    """``stations``' channels and its App on ``device``, fed those channels
+    of the capture of ``args`` (:func:`run_channelized`): (select, app);
+    None (after a message) where ``--auto`` finds no active channel."""
+    from fm_radio_tpu_torch.models.app import App
 
-    device = _device(args, "stations")
-    if device is None:
-        return 2
     m = args.num_channels
     block = power_ceil(args.block_size)
     words = packed_input(args.input)
@@ -331,25 +375,289 @@ def cmd_stations(args) -> int:
         if not select:
             print("stations: --auto found no active channels",
                   file=sys.stderr)
-            return 1
+            return None
         print(f"auto-selected channels: {select}", file=sys.stderr)
     elif args.select:
         select = sorted(int(v) for v in args.select.split(","))
     else:
         select = list(range(m))
-    app = StationsApp(m, block, select=select,
-                      taps_per_phase=args.taps_per_phase, device=device)
-    chunk = m * block
-    for i0 in range(0, len(words), chunk):
-        app.process(words[i0 : min(i0 + chunk, len(words))])
+    app = App(block_size=block, channels=len(select), decode_rds=True,
+              rds_backend="native" if args.rds_native else "python",
+              device=device)
+    run_channelized(words, m, args.taps_per_phase, select, app)
+    _sync(device)
+    return select, app
+
+
+def cmd_stations(args) -> int:
+    from fm_radio_tpu_torch.io.wav import write_wav_int16
+
+    device = _device(args, "stations")
+    if device is None:
+        return 2
+    run = stations_app(args, device)
+    if run is None:
+        return 1
+    select, app = run
     os.makedirs(args.output, exist_ok=True)
     summary = []
     for i, k in enumerate(select):
         wav_path = os.path.join(args.output, f"station_{k:02d}.wav")
-        write_wav_int16(wav_path, app.audio[i], app.cfg.rates.fs_audio)
+        write_wav_int16(wav_path, app.audio[i], app.demod.fs_audio)
         summary.append({"channel": k, "wav": wav_path,
                         **app.rds_database(i).summary()})
     print(json.dumps(summary, indent=1))
+    return 0
+
+
+def cmd_scan(args) -> int:
+    """Station scanner (JAX ``cmd_scan``): the channels whose power over
+    the first ``--seconds`` clears the median by ``--threshold-db``, each
+    demodulated and identified (stereo pilot, PI, name)."""
+    from fm_radio_tpu_torch.models.app import App
+
+    device = _device(args, "scan")
+    if device is None:
+        return 2
+    m = args.num_channels
+    block = power_ceil(args.block_size)
+    fs_ch = 1_024_000
+    window = int(args.seconds * fs_ch) * m
+    words = packed_input(args.input, max_samples=window)
+    powers = channel_powers_db(words, m, args.taps_per_phase, window, device)
+    active = detect_active_channels(powers, args.threshold_db)
+    floor = float(np.median(powers))
+    report = []
+    if active:
+        app = App(block_size=block, channels=len(active), decode_rds=True,
+                  device=device)
+        run_channelized(words, m, args.taps_per_phase, active, app)
+        for i, k in enumerate(active):
+            db = app.rds_database(i)
+            audio = app.audio[i]
+            # stereo L-R energy exists only under pilot lock
+            lmr = audio[:, 0] - audio[:, 1]
+            report.append({
+                "channel": k,
+                "offset_hz": (k if k <= m // 2 else k - m) * fs_ch,
+                "power_db": round(float(powers[k]), 1),
+                "above_floor_db": round(float(powers[k]) - floor, 1),
+                "stereo": bool(np.sqrt((lmr ** 2).mean()) > 1e-3),
+                "pi": f"{db.pi_code:04X}" if db.pi_code else None,
+                "ps": db.service_name_str.strip() or None,
+            })
+    print(json.dumps({
+        "channels": m,
+        "noise_floor_db": round(floor, 1),
+        "active": report,
+        "select": ",".join(str(k) for k in active),
+    }, indent=1))
+    return 0
+
+
+def cmd_channelize(args) -> int:
+    """Wideband IQ -> one u8 IQ file a channel (JAX ``cmd_channelize``):
+    the filterbank over chunks of ``max(2^22, M)`` words, every channel
+    written under ONE common scale (a per-channel one would blow an empty
+    channel's leakage up to full-scale noise)."""
+    from fm_radio_tpu_torch.parallel.channelizer import (
+        as_tables,
+        channelize_frames,
+        channelizer_init_state,
+        make_channelizer_taps,
+    )
+    from fm_radio_tpu_torch.utils.transfer import fetch
+
+    device = _device(args, "channelize")
+    if device is None:
+        return 2
+    m = args.num_channels
+    words = packed_input(args.input)
+    n = (len(words) // m) * m
+    tab = as_tables(make_channelizer_taps(m, args.taps_per_phase), m, device)
+    st = channelizer_init_state(m, args.taps_per_phase, device)
+    chunk = max(1 << 22, m)
+    chunk -= chunk % m
+    parts = []
+    for i0 in range(0, n, chunk):
+        x = torch.as_tensor(np.asarray(words[i0 : min(i0 + chunk, n)],
+                                       np.float32), device=device)
+        st, y = channelize_frames(tab, st, x, m)
+        parts.append(fetch(y))
+    y = (np.concatenate(parts, axis=1) if parts
+         else np.zeros((m, 0), np.complex64))
+    os.makedirs(args.output, exist_ok=True)
+    scale = max(float(np.abs(y).max()) / 100.0, 1e-9) if y.size else 1.0
+    for ch in range(m):
+        path = os.path.join(args.output, f"channel_{ch:02d}.pcm")
+        c64_to_u8(y[ch] / scale).tofile(path)
+    print(f"wrote {m} channel files to {args.output}")
+    return 0
+
+
+def wrote(scraper) -> str:
+    """The artifacts of ``scraper``, as ``scrape``'s last line names them."""
+    wav = scraper.wav_paths[-1] if scraper.wav_paths else "no audio"
+    return f"{wav} and {scraper.rds_path or 'no RDS bytes'}"
+
+
+def cmd_scrape(args) -> int:
+    """WAV + RDS-byte artifacts, format-compatible with fm_demod_scraper
+    (JAX ``cmd_scrape``): batch mode reads 64 blocks at a time; ``--stream``
+    reads with the native runtime's prefetching reader and writes with its
+    WAV writer, a block at a time."""
+    import dataclasses
+
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.io.scraper import FMScraper
+    from fm_radio_tpu_torch.models.app import App
+
+    device = _device(args, "scrape")
+    if device is None:
+        return 2
+    block = power_ceil(args.block_size)
+    i8 = args.ingest == "i8"
+    cfg = (dataclasses.replace(DemodConfig(), frontend_int8=True)
+           if i8 else DemodConfig())
+
+    def feed(app, scraper, blocks) -> None:
+        """Each chunk into ``app``, its audio and RDS bytes drained into
+        ``scraper`` after it."""
+        fs_audio = int(app.demod.fs_audio)
+        rds_bufs = app.rds_chains[0].rds_bytes
+        for blk in blocks:
+            app.process(blk)
+            for a in app.audio_blocks:
+                scraper.on_audio_data(a[0], fs_audio)
+            app.audio_blocks.clear()
+            if rds_bufs:
+                scraper.on_rds_bytes(np.concatenate(rds_bufs))
+                rds_bufs.clear()
+
+    if args.stream:
+        from fm_radio_tpu_torch import runtime as rt
+
+        if args.input in (None, "-"):
+            print("--stream needs a file input (-i)", file=sys.stderr)
+            return 1
+        try:
+            rt.load()
+        except rt.NativeRuntimeUnavailable as e:
+            print(f"--stream needs the native runtime: {e}", file=sys.stderr)
+            return 1
+        app = App(block_size=block, cfg=cfg, channels=1, decode_rds=True,
+                  integer_input=True, device=device)
+        scraper = FMScraper(args.output, use_native=True)
+        reader = rt.NativePcmReader(args.input, block)
+
+        def blocks():
+            while True:
+                blk = reader.next_i8() if i8 else reader.next_packed()
+                if blk is None:
+                    return
+                yield blk if i8 else blk[None, :]
+
+        try:
+            feed(app, scraper, blocks())
+        finally:
+            reader.close()
+            scraper.close()
+        print(f"wrote {wrote(scraper)} (streamed)")
+        return 0
+
+    iq = i8_input(args.input) if i8 else packed_input(args.input)
+    app = App(block_size=block, cfg=cfg, channels=1, decode_rds=True,
+              integer_input=True, device=device)
+    scraper = FMScraper(args.output)
+    chunk = 64 * block  # O(chunk) host memory for any capture length
+    try:
+        feed(app, scraper, (iq[i0 : min(i0 + chunk, len(iq))]
+                            for i0 in range(0, len(iq), chunk)))
+    finally:
+        scraper.close()
+    print(f"wrote {wrote(scraper)}")
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """Tuner for recorded wideband captures (JAX ``cmd_tune``,
+    ``fm_demod_tuner.cpp:136``): the station at ``-f`` Hz mixed to DC with
+    carried phase, low-pass decimated by m = rate / 1.024 MHz to the
+    chain's rate, demodulated as complex64; then the scraper's WAV and RDS
+    file, the database JSON and the "wrote" line."""
+    from fm_radio_tpu_torch.config import DemodConfig
+    from fm_radio_tpu_torch.io.pcm import read_u8
+    from fm_radio_tpu_torch.io.scraper import FMScraper
+    from fm_radio_tpu_torch.models.app import App
+    from fm_radio_tpu_torch.ops.design import create_fir_lpf
+    from fm_radio_tpu_torch.ops.fir import polyphase_decimate_p
+    from fm_radio_tpu_torch.ops.mixer import freq_shift_p
+    from fm_radio_tpu_torch.utils.transfer import fetch
+
+    device = _device(args, "tune")
+    if device is None:
+        return 2
+    cfg = DemodConfig()
+    fs_bb = cfg.rates.fs_baseband
+    rate = int(args.rate)
+    if rate % fs_bb != 0:
+        print(f"--rate must be an integer multiple of {fs_bb}",
+              file=sys.stderr)
+        return 1
+    m = rate // fs_bb
+    f_norm = float(args.freq) / rate
+    if abs(f_norm) > 0.5:
+        print("--freq is outside the capture bandwidth", file=sys.stderr)
+        return 1
+    block = power_ceil(args.block_size)
+    os.makedirs(args.output, exist_ok=True)
+    # the capture memory-mapped and converted a chunk at a time
+    iq_u8 = None
+    if args.input not in (None, "-"):
+        try:
+            raw = np.memmap(args.input, dtype=np.uint8, mode="r")
+            iq_u8 = raw[: (raw.size // 2) * 2].reshape(-1, 2)
+        except (OSError, ValueError):
+            pass  # empty and special files cannot be memmapped
+    if iq_u8 is None:
+        iq_u8 = read_u8(args.input)
+
+    app = App(block_size=block, channels=1, decode_rds=True, device=device)
+    phase = torch.zeros((1,), dtype=torch.float32, device=device)
+    if m > 1:
+        taps = torch.from_numpy(create_fir_lpf(
+            args.taps_per_phase * m,
+            (1.0 / m) * cfg.downsampling_rolloff_factor)).to(device)
+        tail = torch.zeros((1, taps.shape[0] - m), dtype=torch.complex64,
+                           device=device)
+    chunk = m * block
+    n_in = iq_u8.shape[0]
+    n_chunks = n_in // chunk
+    # samples past the last whole chunk still run; only a remainder of
+    # less than one decimation frame is dropped
+    leftover = ((n_in - n_chunks * chunk) // m) * m
+    dropped = n_in - n_chunks * chunk - leftover
+    if dropped:
+        print(f"dropping {dropped} trailing samples (< one decimation "
+              f"frame)", file=sys.stderr)
+    spans = [slice(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if leftover:
+        spans.append(slice(n_chunks * chunk, n_chunks * chunk + leftover))
+    for sl in spans:
+        c = torch.from_numpy(np.asarray(iq_u8[sl], dtype=np.float32)
+                             - 127.0).to(device)
+        phase, yp = freq_shift_p(phase, (c[None, :, 0], c[None, :, 1]),
+                                 f_norm)
+        if m > 1:
+            tail, yp = polyphase_decimate_p(taps, tail, yp, m)
+        app.process(fetch(torch.complex(*yp))[0])
+    _sync(device)
+    scraper = FMScraper(args.output)
+    scraper.on_audio_data(app.audio[0], int(app.demod.fs_audio))
+    scraper.on_rds_bytes(app.rds_bytes(0))
+    scraper.close()
+    print(json.dumps(app.rds_database(0).summary()))
+    print(f"wrote {scraper.wav_paths[-1]} and {scraper.rds_path}")
     return 0
 
 
@@ -659,6 +967,8 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("-m", "--num-channels", type=int, default=16)
     st.add_argument("-b", "--block-size", type=int, default=65536)
     st.add_argument("--taps-per-phase", type=int, default=16)
+    st.add_argument("--rds-native", action="store_true",
+                    help="decode RDS on the C++ runtime's bit loops")
     st.add_argument("--select", default=None,
                     help="comma-separated channel indices to keep")
     st.add_argument("--auto", action="store_true",
@@ -670,6 +980,61 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     st.set_defaults(fn=cmd_stations)
+
+    sc = sub.add_parser(
+        "scan",
+        help="find and identify the active FM stations in a wideband "
+             "capture (power detect -> demod -> pilot / RDS)")
+    sc.add_argument("-i", "--input", default=None)
+    sc.add_argument("-m", "--num-channels", type=int, default=16)
+    sc.add_argument("-b", "--block-size", type=int, default=65536)
+    sc.add_argument("--taps-per-phase", type=int, default=16)
+    sc.add_argument("--seconds", type=float, default=1.0,
+                    help="scan window per channel")
+    sc.add_argument("--threshold-db", type=float, default=15.0,
+                    help="active threshold above the median channel power")
+    sc.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    sc.set_defaults(fn=cmd_scan)
+
+    c = sub.add_parser("channelize", help="wideband IQ -> station channels")
+    c.add_argument("-i", "--input", default=None)
+    c.add_argument("-o", "--output", required=True)
+    c.add_argument("-m", "--num-channels", type=int, default=16)
+    c.add_argument("--taps-per-phase", type=int, default=16)
+    c.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    c.set_defaults(fn=cmd_channelize)
+
+    sp = sub.add_parser("scrape", help="IQ pcm -> WAV + RDS bytes artifacts")
+    sp.add_argument("-i", "--input", default=None)
+    sp.add_argument("-b", "--block-size", type=int, default=65536)
+    sp.add_argument("-o", "--output", required=True)
+    sp.add_argument("--stream", action="store_true",
+                    help="native runtime: prefetching reader + incremental "
+                         "WAV writer, constant memory")
+    sp.add_argument("--ingest", choices=("i8", "f32w"), default="i8",
+                    help="device ingest: int8 planes + the fused K12 "
+                         "(default) or packed f32 words + the split K1/K2")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    sp.set_defaults(fn=cmd_scrape)
+
+    t = sub.add_parser(
+        "tune", help="tune to a station inside a wideband capture "
+                     "(fm_demod_tuner for recorded files)")
+    t.add_argument("-i", "--input", default=None,
+                   help="wideband *.pcm (u8 IQ)")
+    t.add_argument("-r", "--rate", type=float, default=1_024_000.0,
+                   help="capture sample rate in Hz (multiple of 1.024M)")
+    t.add_argument("-f", "--freq", type=float, required=True,
+                   help="station offset from capture center in Hz")
+    t.add_argument("-b", "--block-size", type=int, default=65536)
+    t.add_argument("-o", "--output", required=True)
+    t.add_argument("--taps-per-phase", type=int, default=16)
+    t.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    t.set_defaults(fn=cmd_tune)
 
     r = sub.add_parser("rds-decode", help="RDS bytes -> groups + database")
     r.add_argument("-i", "--input", default=None)

@@ -11,10 +11,14 @@ RDS symbols of every channel through the shared host RDS chain
 through ``process_u8``); ``App.process_all`` runs every whole block of a
 call through :func:`demod_stream`, on the card one CUDA graph replay (the
 counterpart of the JAX package's one ``lax.scan`` dispatch), on the CPU a
-loop of ``demod_block``'s plain versions.  ``StationsApp`` takes the
+loop of ``demod_block``'s plain versions; ``rds_backend="native"``
+decodes RDS on the C++ runtime.  The wideband commands feed ``App`` the
+channelizer's selected rows as complex64 (``apps/cli.py::
+run_channelized``, as the JAX commands do).  ``StationsApp`` takes the
 packed u8 IQ words of one wideband capture and runs the device-resident
-``wideband_demod_block`` (channelizer -> int8 bridge -> demod), keeping the
-audio and RDS of the selected channels (``fmtpu stations``).
+``wideband_demod_block`` (channelizer -> int8 bridge -> demod of every
+channel, bench.py's wideband path), keeping the audio and RDS of the
+selected channels; no command uses it.
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ class _Outputs:
     """Audio and RDS accumulated per output channel."""
 
     def __init__(self, channels: int, decode_rds: bool = True,
-                 strict_ref: bool = False):
+                 strict_ref: bool = False, rds_backend: str = "python"):
         self.channels = channels
         self.decode_rds = decode_rds
-        self.rds_chains = ([make_rds_chain(strict_ref=strict_ref)
+        self.rds_chains = ([make_rds_chain(rds_backend, strict_ref=strict_ref)
                             for _ in range(channels)] if decode_rds else [])
         self.audio_blocks: list[np.ndarray] = []
 
@@ -110,7 +114,9 @@ class App(_Outputs):
     recentred by -127, the radio's native format): it sets
     ``cfg.assume_integer_input``, which lets ``frontend_int8`` take int8
     taps on float32 planes too.  Keep it False for non-integer sources
-    (channelizer output)."""
+    (channelizer output).  ``rds_backend`` "native" decodes RDS on the C++
+    runtime's bit loops (``rds/chain.py::make_rds_chain``: raises where the
+    runtime cannot be built)."""
 
     def __init__(
         self,
@@ -119,10 +125,11 @@ class App(_Outputs):
         channels: int = 1,
         decode_rds: bool = True,
         integer_input: bool = False,
+        rds_backend: str = "python",
         strict_ref: bool = False,
         device="cuda",
     ):
-        super().__init__(channels, decode_rds, strict_ref)
+        super().__init__(channels, decode_rds, strict_ref, rds_backend)
         if integer_input:
             cfg = dataclasses.replace(cfg, assume_integer_input=True)
         self.block_size = block_size

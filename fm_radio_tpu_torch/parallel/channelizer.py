@@ -14,8 +14,15 @@ may be the prototype (numpy, [K*M]) or the :class:`ChannelizerTables`
 made from it on the data's device; a loop over blocks passes tables, so
 that no block copies constants to the device.  ``channelize_batch_p``
 also takes the TPU kernel's quantised-matrix modes (``splits``).
-``stream_selected`` is not ported yet (ROADMAP.md, modules still to
-port).
+
+The exact kernel takes a wide block that is a multiple of
+``kernels/channelizer.py::T_MULTIPLE`` (4,096) samples; the JAX package
+takes any whole number of frames.  :func:`channelize_frames` takes such
+lengths too: it zero-pads the words to the kernel's multiple and keeps the
+first T/M outputs (the filterbank is causal, so the padding changes no
+output of a real frame) and the carried tail of the unpadded input.
+:func:`stream_selected` is the JAX package's chunked loop behind
+``stations``, ``scan`` and the wideband ``selftest``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from fm_radio_tpu_torch.kernels import channelizer as kch
 from fm_radio_tpu_torch.kernels.channelizer import ChannelizerTables
 from fm_radio_tpu_torch.ops.design import create_fir_lpf
+from fm_radio_tpu_torch.utils.transfer import fetch, take_rows, unpack_iq_words
 
 
 def make_channelizer_taps(num_channels: int, taps_per_phase: int = 16,
@@ -172,3 +180,56 @@ def channelize_batch(taps, state: torch.Tensor, x: torch.Tensor,
         taps, (state.real.contiguous(), state.imag.contiguous()),
         (x.real.contiguous(), x.imag.contiguous()), num_channels)
     return torch.complex(sr, si), torch.complex(y_re, y_im)
+
+
+def channelize_frames(taps, state: torch.Tensor, w_packed: torch.Tensor,
+                      num_channels: int):
+    """:func:`channelize_packed` on packed words [T] of any whole number of
+    frames (T a multiple of M, 0 included): the words are zero-padded to a
+    multiple of the kernel's block and the outputs cut back to T/M (module
+    docstring); the carried state is the last (K-1)*M samples of the
+    unpadded stream.  Returns (state' complex64, y [M, T/M] complex64)."""
+    m = num_channels
+    t = w_packed.shape[-1]
+    if t % m:
+        raise ValueError(f"channelizer: {t} samples are not whole frames "
+                         f"of M = {m}")
+    pad = -t % kch.T_MULTIPLE
+    if pad == 0 and t:
+        return channelize_packed(taps, state, w_packed, m)
+    dev = w_packed.device
+    if t:
+        words = torch.cat([w_packed, w_packed.new_zeros(pad)])
+        _, y = channelize_packed(taps, state, words, m)
+        y = y[:, : t // m]
+    else:
+        y = torch.zeros((m, 0), dtype=torch.complex64, device=dev)
+    n_tail = state.shape[-1]
+    re, im = unpack_iq_words(w_packed[t - min(t, n_tail):])
+    stream = torch.cat([state, torch.complex(re, im)])
+    return stream[stream.shape[0] - n_tail:].contiguous(), y
+
+
+def stream_selected(taps, state: torch.Tensor, w, num_channels: int, select,
+                    consume, chunk_min: int = 1 << 22):
+    """Chunked packed-word wideband streaming (the JAX package's
+    ``stream_selected``): the filterbank on the state's device a chunk at a
+    time, the ``select`` rows gathered there, fetched, divided by M (the
+    filterbank's FFT gain) and handed to ``consume`` as complex64
+    [len(select), T'] numpy.  ``w``: packed words [T] (numpy or a lazy
+    view of a capture), of which the whole frames run; a chunk is
+    ``max(chunk_min, M)`` words less its remainder mod M, the last one
+    shorter (:func:`channelize_frames`).  The (K-1)-frame tail carries
+    exactly across chunks; returns the carried state."""
+    m = num_channels
+    dev = state.device
+    tab = as_tables(taps, m, dev)
+    n = (len(w) // m) * m
+    chunk = max(chunk_min, m)
+    chunk -= chunk % m
+    for i0 in range(0, n, chunk):
+        x = torch.as_tensor(np.asarray(w[i0 : min(i0 + chunk, n)],
+                                       np.float32), device=dev)
+        state, y = channelize_frames(tab, state, x, m)
+        consume(fetch(take_rows(y, select)) / m)
+    return state

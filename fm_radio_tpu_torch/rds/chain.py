@@ -1,7 +1,9 @@
 """RDS decoding chain wiring: group_sync -> decoder -> db_handler -> database.
 
-Copy of ``fm_radio_tpu/rds/chain.py`` (imports rewritten); the native
-backend is not ported.
+Copy of ``fm_radio_tpu/rds/chain.py`` (imports rewritten), with one
+change: ``make_rds_chain("native")`` raises where the native runtime
+cannot be built (``runtime.py``) instead of falling back to the Python
+chain.
 
 Parity: ``RDS_Decoding_Chain`` (``src/rds_decoder/rds_decoding_chain.h:8-32``).
 """
@@ -63,12 +65,44 @@ class RDSFullChain:
         return self.chain.db
 
 
+class NativeRDSFullChain:
+    """``RDSFullChain`` drop-in backed by the native Manchester and
+    group-sync state machines (``runtime/fmtpu_runtime.cpp``): the
+    bit-serial loops run in C++, the group decode and the database stay in
+    Python (the same log lines and database).
+
+    It produces no byte-stream artifact (``rds_bytes`` stays empty): the
+    Python chain is the scrape artifact path."""
+
+    def __init__(self, strict_ref: bool = False):
+        from fm_radio_tpu_torch import runtime as rt
+        from fm_radio_tpu_torch.rds.group_sync import RDSBlock
+
+        self._RDSBlock = RDSBlock
+        self._native = rt.NativeRDSBitDecoder()
+        self.chain = RDSDecodingChain(strict_ref=strict_ref)
+        self.rds_bytes: list[np.ndarray] = []
+
+    def process_symbols(self, soft_symbols: np.ndarray) -> None:
+        for g in self._native.process_symbols(soft_symbols):
+            blocks = [
+                self._RDSBlock(data=d, block_type=t, is_valid=v)
+                for d, t, v in zip(g["data"], g["types"], g["valid"])
+            ]
+            self.chain.groups.append(blocks)
+            line = self.chain.decoder.process_group(blocks)
+            self.chain.log_lines.append(line)
+
+    @property
+    def db(self) -> RDSDatabase:
+        return self.chain.db
+
+
 def make_rds_chain(backend: str = "python", strict_ref: bool = False):
-    """Chain factory: "python" (byte-artifact parity).  The "native"
-    backend (C++ bit loops of the JAX package's runtime) is not ported and
-    raises; nothing falls back to the Python chain in its place."""
+    """Chain factory: "python" (byte-artifact parity) or "native" (the C++
+    bit loops).  "native" raises ``runtime.NativeRuntimeUnavailable``, with
+    the build's error, where the runtime cannot be built: nothing falls
+    back to the Python chain in its place."""
     if backend == "native":
-        raise NotImplementedError(
-            "the native RDS chain (C++ runtime) is not ported yet: "
-            "ROADMAP.md, modules still to port, item 3")
+        return NativeRDSFullChain(strict_ref=strict_ref)
     return RDSFullChain(strict_ref=strict_ref)

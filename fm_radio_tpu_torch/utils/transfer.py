@@ -12,6 +12,10 @@ jax):
   sample, w = I * 256 + Q (exact integers < 2^16), the wideband
   channelizer's and ``demod --ingest f32w``'s input; unpacked and
   recentred by -127 exactly.
+- ``fetch`` / ``take_rows``: a tensor to host numpy, and rows picked by
+  host indices on the tensor's device (the JAX versions route complex
+  and integer arrays through float32 for the TPU's host boundary; here
+  they are plain tensor ops).
 """
 
 from __future__ import annotations
@@ -54,3 +58,18 @@ def i8_planes_to_f32(x8: torch.Tensor):
     """[2, ..., N] int8 planes (u8 - 128) -> centred (re, im) float32
     planes (u8 - 127): the cast and the +1 are exact."""
     return x8[0].to(torch.float32) + 1.0, x8[1].to(torch.float32) + 1.0
+
+
+def fetch(x) -> np.ndarray:
+    """A tensor (any device) as host numpy of its own dtype; numpy passes
+    through."""
+    if isinstance(x, np.ndarray):
+        return x
+    return x.detach().cpu().numpy()
+
+
+def take_rows(y: torch.Tensor, select) -> torch.Tensor:
+    """Rows ``select`` (host indices) of y along its first axis, gathered
+    on y's device."""
+    idx = torch.as_tensor(np.asarray(select, np.int64), device=y.device)
+    return y.index_select(0, idx)

@@ -1,8 +1,10 @@
 """The port's copies of the JAX package's host modules (``config``,
-``rds``, ``io.{synth,wav,pcm}``, ``utils/transfer``) against their
-originals: the same values, bytes and decoded groups for the same input."""
+``rds``, ``io.{synth,wav,pcm,scraper}``, ``utils/transfer``) against
+their originals: the same values, bytes, files and decoded groups for the
+same input."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -10,12 +12,14 @@ import torch
 
 from fm_radio_tpu import config as jconfig
 from fm_radio_tpu.io import pcm as jpcm
+from fm_radio_tpu.io import scraper as jscraper
 from fm_radio_tpu.io import synth as jsynth
 from fm_radio_tpu.io import wav as jwav
 from fm_radio_tpu.rds import chain as jchain
 from fm_radio_tpu.utils import transfer as jtransfer
 from fm_radio_tpu_torch import config as tconfig
 from fm_radio_tpu_torch.io import pcm as tpcm
+from fm_radio_tpu_torch.io import scraper as tscraper
 from fm_radio_tpu_torch.io import synth as tsynth
 from fm_radio_tpu_torch.io import wav as twav
 from fm_radio_tpu_torch.rds import chain as tchain
@@ -130,3 +134,59 @@ def test_copy_encoders_match():
     bits = jsynth.encode_rds_group(g)
     np.testing.assert_array_equal(tsynth.rds_bits_to_symbols(bits, 1),
                                   jsynth.rds_bits_to_symbols(bits, 1))
+
+
+def test_scraper_copy_same_artifacts(tmp_path):
+    """FMScraper of the copy and the original on the same clock and data:
+    the same file names (a new WAV on a rate change), the same WAV and RDS
+    bytes; the time string and the incremental writer's bytes too."""
+    rng = np.random.default_rng(4)
+    audio = (rng.standard_normal((900, 2)) * 0.4).astype(np.float32)
+    rds = rng.integers(0, 256, 300, dtype=np.uint8)
+    t0 = 1_700_000_000.0
+    names = {}
+    for key, mod in (("t", tscraper), ("j", jscraper)):
+        clock = iter(t0 + 3 * i for i in range(10))
+        sc = mod.FMScraper(str(tmp_path / key), now_fn=lambda: next(clock))
+        sc.on_audio_data(audio[:300], 32000)
+        sc.on_rds_bytes(rds[:100])
+        sc.on_audio_data(audio[300:600], 32000)
+        sc.on_rds_bytes(rds[100:])
+        sc.on_audio_data(audio[600:], 48000)
+        sc.close()
+        names[key] = ([os.path.basename(p) for p in sc.wav_paths],
+                      os.path.basename(sc.rds_path))
+    assert names["t"] == names["j"] and len(names["t"][0]) == 2
+    for name in names["t"][0] + [names["t"][1]]:
+        assert (tmp_path / "t" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes()
+    assert tscraper.reference_time_string(t0) == \
+        jscraper.reference_time_string(t0)
+    for key, mod in (("t", tscraper), ("j", jscraper)):
+        w = mod.IncrementalWavWriter(str(tmp_path / f"{key}.wav"), 32000)
+        w.write(audio[:10])
+        w.write(audio[10:].astype(np.float64))
+        w.close()
+    assert (tmp_path / "t.wav").read_bytes() == \
+        (tmp_path / "j.wav").read_bytes()
+
+
+def test_transfer_fetch_and_take_rows():
+    """``fetch`` (complex64, float32, int8, bool) and ``take_rows`` give
+    the JAX versions' arrays and dtypes."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(6)
+    y = (rng.standard_normal((6, 50))
+         + 1j * rng.standard_normal((6, 50))).astype(np.complex64)
+    sel = [4, 1, 5]
+    a = ttransfer.fetch(ttransfer.take_rows(torch.from_numpy(y), sel))
+    b = jtransfer.fetch(jtransfer.take_rows(jnp.asarray(y), sel))
+    assert a.dtype == b.dtype == np.complex64
+    np.testing.assert_array_equal(a, b)
+    for arr in (y.real.copy(), (y.real * 10).astype(np.int8), y.real > 0):
+        a = ttransfer.fetch(torch.from_numpy(arr))
+        b = jtransfer.fetch(jnp.asarray(arr))
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert ttransfer.fetch(y) is y

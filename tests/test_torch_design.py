@@ -173,7 +173,8 @@ def test_outside_the_slice_raises(what):
     C = 1, B = 8192 in the int16 format instead (the PLL's tile of one
     channel is not channel-major, so dt stays float32;
     tests/test_torch_interstage_i16.py holds the format against the JAX
-    package)."""
+    package); rds_native, ported, gives the native chain (or raises where
+    the C++ runtime cannot be built)."""
     c, b = 1, 8192
     cfg = CFG
     x = torch.zeros((2, c, b), dtype=torch.int8)
@@ -192,10 +193,19 @@ def test_outside_the_slice_raises(what):
         assert calls["extract"][4].dtype == torch.float32
         return
     if what == "rds_native":
-        from fm_radio_tpu_torch.rds.chain import make_rds_chain
+        # ported: the C++ runtime's chain where the runtime builds, else a
+        # raise with the build's error (tests/test_torch_runtime.py)
+        from fm_radio_tpu_torch import runtime
+        from fm_radio_tpu_torch.rds.chain import (
+            NativeRDSFullChain,
+            make_rds_chain,
+        )
 
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_rds_chain("native")
+        if runtime.available():
+            assert isinstance(make_rds_chain("native"), NativeRDSFullChain)
+        else:
+            with pytest.raises(runtime.NativeRuntimeUnavailable):
+                make_rds_chain("native")
         return
     if what == "phase_split":
         # phase planes are taken as the ds x4's four phases only

@@ -366,7 +366,7 @@ def test_pll_extract_edges_on_card():
     _need_card()
     import chip_smoke
 
-    rows = chip_smoke.compare_pll_edges()
+    rows = chip_smoke.compare_pll_edges(cases=chip_smoke.PLL_EDGES)
     res = chip_smoke.compare_extract_edges()
     rows += res["rows"]
     assert len(rows) == 16 + 6 * len(chip_smoke.EXTRACT_EDGE_ORDERS), rows
@@ -383,7 +383,7 @@ def test_pll_extract_edges_on_checked_build():
     from fm_radio_tpu_torch.kernels import _build
 
     with _build.checked_build():
-        rows = chip_smoke.compare_pll_edges(steps=(16, 32, 48))
+        rows = chip_smoke.compare_pll_edges(cases=chip_smoke.SHORT_EDGES)
         rows += chip_smoke.compare_extract_edges()["rows"]
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in rows), rows
 
@@ -493,9 +493,9 @@ def test_bpsk_edges_on_card():
     import chip_smoke
     from fm_radio_tpu_torch.kernels import _build
 
-    rows = chip_smoke.compare_bpsk_edges()
+    rows = chip_smoke.compare_bpsk_edges(cases=chip_smoke.BPSK_EDGES)
     with _build.checked_build():
-        rows += chip_smoke.compare_bpsk_edges(steps=(16, 32, 48))
+        rows += chip_smoke.compare_bpsk_edges(cases=chip_smoke.SHORT_EDGES)
     assert len(rows) == 32 + 24, rows
     assert all(r["ok"] and r["max_abs_err"] == 0.0
                and not r["valid_mismatch"] for r in rows), rows
@@ -796,3 +796,21 @@ def test_engine_probes_on_card():
     counts = {**fp.counts(), **k2.counts(), **k3.counts()}
     assert all(counts.values()), counts
     assert {r["kernel"] for r in rows} == set(counts) | {"k3_full"}
+
+
+@pytest.mark.gpu
+def test_commands_on_card():
+    """``chip_smoke.py`` phase 7c at the commands' own width: ``stations``
+    (M = 16, 6 stations, 1.5 s, ``--auto``: every PI and name) and with
+    ``--rds-native`` (the same summaries), ``scan`` (exactly the 6
+    channels), ``channelize``, ``scrape`` on a 2 s station (both ingests,
+    batch and ``--stream``: the same artifacts) and ``tune`` at 2.048 and
+    8.192 Msps (1 s: PI and both tones), each launching its path's
+    kernels; then each against the plain versions on the host CPU (first
+    0.5 s; channelize whole): RDS bytes identical, audio >= 75 dB, scan's
+    JSON, channelize's bytes within 1."""
+    _need_card()
+    import chip_smoke
+
+    r = chip_smoke.commands_phase(torch.device("cuda", 0), None)
+    assert not r["faults"], (r["faults"], r["compare"])
